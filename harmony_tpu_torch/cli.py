@@ -1,0 +1,109 @@
+"""Command-line entry point: ``python -m harmony_tpu_torch.cli run <app>``.
+
+Counterpart of ``harmony_tpu/cli.py``'s ``run`` subcommand (the standalone
+launcher: an in-process JobServer, one job, exit), for the apps this port
+runs. Presets are the reference's, with the trainer and data generator
+resolved in this package; override them with ``--set key=value`` (app
+hyper-parameters) and ``--data key=value`` (data arguments). The job runs on
+the card unless ``--device cpu`` is given; with no card it raises.
+
+Prints ``{"job_id": ..., "result": ...}`` as one JSON line.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from typing import Any, Dict, List
+
+from harmony_tpu_torch.config.params import JobConfig, TrainerParams
+
+# The reference's presets (harmony_tpu/cli.py), trainer and data generator
+# resolved in this package.
+PRESETS: Dict[str, Dict[str, Any]] = {
+    "fm": dict(
+        app_type="dolphin",
+        trainer="harmony_tpu_torch.apps.widedeep:FMTrainer",
+        app_params={"vocab_size": 10000, "num_slots": 8, "emb_dim": 8,
+                    "step_size": 0.2},
+        data_fn="harmony_tpu_torch.apps.widedeep:make_synthetic",
+        data_args={"n": 8192, "vocab_size": 10000, "num_slots": 8},
+    ),
+    "widedeep": dict(
+        app_type="dolphin",
+        trainer="harmony_tpu_torch.apps.widedeep:WideDeepTrainer",
+        app_params={"vocab_size": 10000, "num_slots": 8, "emb_dim": 8,
+                    "hidden": 64, "step_size": 0.2},
+        data_fn="harmony_tpu_torch.apps.widedeep:make_synthetic",
+        data_args={"n": 8192, "vocab_size": 10000, "num_slots": 8},
+    ),
+}
+
+
+def _parse_kv(pairs: List[str]) -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    for p in pairs or []:
+        if "=" not in p:
+            raise SystemExit(f"bad override {p!r}: expected key=value")
+        k, v = p.split("=", 1)
+        try:
+            out[k] = json.loads(v)   # numbers, bools, lists, quoted strings
+        except json.JSONDecodeError:
+            out[k] = v               # bare string
+    return out
+
+
+def build_config(app: str, args: argparse.Namespace) -> JobConfig:
+    preset = PRESETS[app]
+    return JobConfig(
+        job_id=args.job_id or f"{app}-job",
+        app_type=preset["app_type"],
+        trainer=preset["trainer"],
+        params=TrainerParams(
+            num_epochs=args.epochs,
+            num_mini_batches=args.batches,
+            app_params={**preset["app_params"], **_parse_kv(args.set)},
+        ),
+        num_workers=1,
+        user={"data_fn": preset["data_fn"],
+              "data_args": {**preset["data_args"], **_parse_kv(args.data)}},
+    )
+
+
+def _cmd_run(args: argparse.Namespace) -> int:
+    from harmony_tpu_torch.jobserver.server import JobServer
+
+    cfg = build_config(args.app, args)
+    server = JobServer(args.device)  # raises here when the card is asked for and absent
+    server.start()
+    try:
+        result = server.submit(cfg).result()
+    finally:
+        server.shutdown()
+    print(json.dumps({"job_id": cfg.job_id, "result": result}))
+    return 0
+
+
+def main(argv: "List[str] | None" = None) -> int:
+    ap = argparse.ArgumentParser(
+        prog="harmony-tpu-torch",
+        description="harmony_tpu's training framework on PyTorch and CUDA",
+    )
+    sub = ap.add_subparsers(dest="cmd", required=True)
+    p = sub.add_parser("run", help="run one job standalone (in-process server)")
+    p.add_argument("app", choices=sorted(PRESETS))
+    p.add_argument("--job-id", default=None)
+    p.add_argument("--epochs", type=int, default=3)
+    p.add_argument("--batches", type=int, default=4, help="mini-batches per epoch")
+    p.add_argument("--set", action="append", metavar="K=V", default=[],
+                   help="override an app hyper-parameter")
+    p.add_argument("--data", action="append", metavar="K=V", default=[],
+                   help="override a synthetic-data argument")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu; the CPU runs only when asked for")
+    args = ap.parse_args(argv)
+    return _cmd_run(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

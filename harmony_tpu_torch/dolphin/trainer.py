@@ -1,0 +1,78 @@
+"""The Trainer SPI — the user-facing training contract.
+
+Counterpart of ``harmony_tpu/dolphin/trainer.py`` (the reference's 4-phase
+Trainer API: initGlobalSettings / pull / localCompute / push / onEpochFinished
+/ evaluate / cleanup). ``compute`` is a function of tensors on the table's
+device; the worker runs PULL, ``compute`` and PUSH as one step under the table
+lock.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Tuple
+
+import torch
+
+from harmony_tpu_torch.config.params import TrainerParams
+
+
+@dataclasses.dataclass
+class TrainerContext:
+    """What a trainer sees of the framework: its table and hyper-params."""
+
+    params: TrainerParams
+    model_table: Any = None          # DenseTable
+    worker_id: str = "worker-0"
+    num_workers: int = 1
+
+
+class Trainer:
+    """Base class; apps override the compute parts.
+
+    ``pull_mode`` selects the PULL realization:
+      * "all"  — the whole model is pulled each batch; ``compute`` receives
+        ``model`` of shape [capacity, *value_shape].
+      * "keys" — ``pull_keys(batch)`` names the rows needed (sparse apps);
+        ``compute`` receives the gathered rows.
+    """
+
+    pull_mode: str = "all"
+
+    # -- lifecycle (host side) ------------------------------------------
+
+    def init_global_settings(self, ctx: TrainerContext) -> None:
+        """One-time setup before the first epoch (may push initial model
+        values into the table)."""
+
+    def on_training_start(self, ctx: TrainerContext, starting_epoch: int) -> None:
+        """Called by the worker just before the epoch loop."""
+
+    def on_epoch_finished(self, ctx: TrainerContext, epoch_idx: int) -> None:
+        """Per-epoch hook (host side)."""
+
+    def cleanup(self, ctx: TrainerContext) -> None:
+        """Final hook after the last epoch."""
+
+    # -- compute parts (device side) -------------------------------------
+
+    def hyperparams(self) -> Dict[str, float]:
+        """Host-side hyper-parameters handed to ``compute`` each step (as
+        scalar tensors on the table's device), so a per-epoch change made in
+        ``on_epoch_finished`` reaches the next step."""
+        return {}
+
+    def pull_keys(self, batch: Any) -> torch.Tensor:
+        """Keys to pull for this batch (pull_mode == "keys" only)."""
+        raise NotImplementedError
+
+    def compute(
+        self, model: torch.Tensor, batch: Any, hyper: Dict[str, torch.Tensor]
+    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The mini-batch computation. Returns ``(delta, metrics)`` where
+        ``delta`` matches ``model``'s shape and is folded into the table by
+        the push."""
+        raise NotImplementedError
+
+    def evaluate(self, model: torch.Tensor, batch: Any) -> Dict[str, torch.Tensor]:
+        """Model evaluation on held-out data."""
+        raise NotImplementedError
