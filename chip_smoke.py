@@ -16,15 +16,27 @@ Phases, in order; any failure ends the script with a non-zero exit code:
    below and at edge cases, compare each with its plain version, and time the
    kernel, the plain version and one PyTorch library call (a yardstick that
    the port never calls) with CUDA events.
+2b. Flash attention: K4 (forward), K5a (dK/dV) and K5b (dQ) against their
+   plain versions at the LM's shape ([32, 8, 1024, 64] bf16, causal, blocks
+   128) and at edge cases (f32 operands, not causal, D = 16 and 128, one
+   block, a nonzero LSE cotangent); timed beside their plain versions and
+   ``scaled_dot_product_attention``'s forward and backward.
 3. The slice: ``python -m harmony_tpu_torch.cli run widedeep`` at the
    ``bench-widedeep`` size of ``benchmarks/apps.py`` (vocab 100,000, 16 slots,
    emb 16, hidden 128, 32,768 examples in 8 mini-batches) for 2 epochs on the
    card, with the launch counts set to 0 just before and read just after;
    then the same job on the CPU (plain versions), step for step.
-4. The sparse push route (``HARMONY_PUSH_VIA=sparse``): one epoch of the same
-   job, which folds its pushes with K2.
-5. Where a step's time goes: a steady epoch of the job on the host clock, and
-   one under ``torch.profiler`` for the device's busy time by kernel.
+3b. The LM at full width: ``cli run lm`` at the size of ``benchmarks/lm.py``
+   (vocab 8192, d_model 512, 8 heads, 8 layers, d_ff 2048, max_seq 1024, bf16,
+   batch 32 x 1024 tokens) for 2 epochs of 4 steps, launch counts read around
+   it; then the same run with ``--set attn=blockwise``, step for step.
+3c. The ``lm`` preset as shipped (f32, head dim 16, 64 tokens) on the card and
+   on the CPU, step for step.
+4. The sparse push route (``HARMONY_PUSH_VIA=sparse``): one epoch of the
+   Wide&Deep job, which folds its pushes with K2.
+5. Where a step's time goes: a steady epoch of the Wide&Deep job on the host
+   clock, and one under ``torch.profiler`` for the device's busy time by kernel.
+5b. The same for the full-width LM.
 6. A ``kernels`` JSON line, the card's name and power limit, and the last line
    ``{"ok": true, "device": {...}}``.
 """
@@ -48,6 +60,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # The H100 SXM's published peaks (NVIDIA data sheet), at its 700 W limit.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 
 # bench-widedeep (benchmarks/apps.py) through the CLI's widedeep preset.
 SLICE_ARGS = [
@@ -60,14 +73,43 @@ EPOCHS = 2
 BATCHES = 8
 N_EXAMPLES = 32768
 
-# Per-step losses of two runs of the job that differ only in where their sums
+# Per-step losses of two f32 runs of a job that differ only in where their sums
 # are taken (cuBLAS against the CPU's matrix products, the card's reductions
-# against the CPU's) agree to this, absolutely: f32 keeps ~7 digits, the loss
-# is ~0.69, and 16 steps of SGD at lr 0.1 do not amplify a last-digit change.
+# against the CPU's, the flash kernels against the plain blockwise route)
+# agree to this, absolutely: f32 keeps ~7 digits, the losses are ~0.69
+# (Wide&Deep) and ~4.8 (the lm preset), and 16 or 12 steps of SGD do not
+# amplify a last-digit change this far.
 LOSS_ATOL = 1e-4
 # Unit roundoff of f32: a sum of n terms taken in any order lies within
 # (n - 1) * U * sum(|x|) of the exact sum, so two orders lie within twice that.
 U_F32 = 2.0 ** -24
+
+# The LM of benchmarks/lm.py:63-66 at batch 32 (:121) through the CLI's lm preset.
+LM_ARGS = [
+    "run", "lm", "--epochs", "2", "--batches", "4",
+    "--set", "vocab_size=8192", "--set", "d_model=512", "--set", "n_heads=8",
+    "--set", "n_layers=8", "--set", "d_ff=2048", "--set", "max_seq=1024",
+    "--set", "dtype=bfloat16", "--set", "step_size=0.1",
+    "--data", "num_seqs=128", "--data", "seq_len=1025", "--data", "vocab_size=8192",
+]
+LM_LAYERS = 8
+LM_STEPS = 8
+LM_TOKENS_PER_STEP = 32 * 1024
+# Flash kernels against their plain versions. bf16 operands: both sides take
+# exact products and round p where the TPU does, so their f32 sums differ in
+# order only; the outputs are then rounded to bf16, where that difference can
+# become one ulp (2**-8 relative), and a p or ds rounded differently moves a
+# sum by about as much: allow two ulps at the largest magnitude. f32 operands:
+# reordering alone, over at most 1024 terms: 2 * 1024 * 2**-24 = 2**-12 of the
+# largest magnitude.
+FLASH_BF16_REL = 2.0 ** -7
+FLASH_F32_REL = 2.0 ** -12
+# Per-step losses of the full-width LM with flash attention against the same
+# run with blockwise attention: both round activations to bf16 (8 significant
+# bits), but flash rounds p to bf16 before PV where blockwise keeps it f32, so
+# attention outputs differ by about one bf16 ulp and the step's later bf16
+# roundings carry that on. Allowed: 2**-7 of the loss (two bf16 ulps).
+LM_BF16_REL = 2.0 ** -7
 
 
 def fail(msg: str) -> None:
@@ -306,6 +348,129 @@ def time_kernels(dev, table, idx):
     return out
 
 
+# -- phase 2b: flash attention against its plain versions ----------------------
+
+FLASH_KERNELS = ("flash_forward", "flash_backward_dkv", "flash_backward_dq")
+
+
+# (name, (B, H, S, D), dtype, causal, block, nonzero LSE cotangent)
+FLASH_CASES = [
+    ("the LM's shape, bf16, causal", (32, 8, 1024, 64), torch.bfloat16, True, 128, False),
+    ("f32 operands", (4, 8, 1024, 64), torch.float32, True, 128, False),
+    ("causal=False", (4, 8, 1024, 64), torch.bfloat16, False, 128, False),
+    ("D=16, the lm preset's shape, f32", (16, 4, 64, 16), torch.float32, True, 64, False),
+    ("D=128", (4, 4, 512, 128), torch.bfloat16, True, 128, False),
+    ("one block (S=128)", (8, 8, 128, 64), torch.bfloat16, True, 128, False),
+    ("nonzero LSE cotangent", (4, 8, 256, 64), torch.bfloat16, True, 128, True),
+]
+
+
+def flash_operands(dev, shape, dtype, seed, g_lse=False):
+    """q, k, v, dO, the LSE cotangent (zero unless asked) and the scale."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, do = (torch.randn(shape, generator=g, device=dev).to(dtype) for _ in range(4))
+    glse = (torch.randn(shape[:-1], generator=g, device=dev) if g_lse
+            else torch.zeros(shape[:-1], device=dev))
+    return q, k, v, do, glse, shape[-1] ** -0.5
+
+
+def check_flash_kernels(dev):
+    """K4, K5a and K5b against their plain versions on every case of
+    FLASH_CASES. Returns each kernel's max |kernel - plain| over the cases."""
+    from harmony_tpu_torch.ops import attention as A
+
+    err = {"flash_forward": 0.0, "flash_backward_dkv": 0.0, "flash_backward_dq": 0.0}
+
+    def compare(kernel, name, case, got, want, dtype):
+        check(got.shape == want.shape and got.dtype == want.dtype,
+              f"{kernel} {case}: {name} {tuple(got.shape)} {got.dtype}")
+        gap = float((got.float() - want.float()).abs().max())
+        rel = FLASH_BF16_REL if dtype == torch.bfloat16 and name != "lse" else FLASH_F32_REL
+        tol = rel * float(want.float().abs().max())
+        check(math.isfinite(gap) and gap <= tol,
+              f"{kernel} {case}: {name} |kernel - plain| {gap} > {tol}")
+        err[kernel] = max(err[kernel], gap)
+
+    for i, (case, shape, dtype, causal, block, g_lse) in enumerate(FLASH_CASES):
+        q, k, v, do, glse, scale = flash_operands(dev, shape, dtype, 10 + i, g_lse)
+        args = (causal, block, block, scale)
+        out, lse = A.flash_forward(q, k, v, *args)
+        torch.cuda.synchronize()
+        out_p, lse_p = A.flash_forward_plain(q, k, v, *args)
+        compare("flash_forward", "out", case, out, out_p, dtype)
+        compare("flash_forward", "lse", case, lse, lse_p, dtype)
+        delta = (do.float() * out_p.float()).sum(dim=-1) - glse
+        dk, dv = A.flash_backward_dkv(q, k, v, do, lse_p, delta, *args)
+        dq = A.flash_backward_dq(q, k, v, do, lse_p, delta, *args)
+        torch.cuda.synchronize()
+        dk_p, dv_p = A.flash_backward_dkv_plain(q, k, v, do, lse_p, delta, *args)
+        dq_p = A.flash_backward_dq_plain(q, k, v, do, lse_p, delta, *args)
+        compare("flash_backward_dkv", "dk", case, dk, dk_p, dtype)
+        compare("flash_backward_dkv", "dv", case, dv, dv_p, dtype)
+        compare("flash_backward_dq", "dq", case, dq, dq_p, dtype)
+        print(f"phase 2b: flash kernels within tolerance on {case} {list(shape)} "
+              f"{str(dtype)[6:]} causal={causal} block={block}", flush=True)
+    return err
+
+
+def time_flash_kernels(dev):
+    """ms of each flash kernel, its plain version and the SDPA yardstick at the
+    LM's shape, and the bound: the larger of the bytes over HBM bandwidth and
+    the matrix products' operations over the bf16 tensor-core peak, counting
+    only the (row, col) pairs the causal mask keeps."""
+    import torch.nn.functional as F
+
+    from harmony_tpu_torch.ops import attention as A
+
+    _, shape, dtype, causal, block, _ = FLASH_CASES[0]
+    B, H, S, D = shape
+    q, k, v, do, glse, scale = flash_operands(dev, shape, dtype, 3)
+    args = (causal, block, block, scale)
+    out, lse = A.flash_forward(q, k, v, *args)
+    delta = (do.float() * out.float()).sum(dim=-1) - glse
+    bh, e = B * H, q.element_size()
+    pairs = bh * S * (S + 1) // 2
+    io = bh * S * D * e      # one of q, k, v, dO, O, dQ, dK, dV
+    rows = bh * S * 4        # one of lse, delta
+
+    def bound(nbytes, flops):
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / BF16_FLOPS * 1e3
+        return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+    def sdpa_forward():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(q, k, v, is_causal=True)
+
+    qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+
+    def sdpa_forward_backward():
+        F.scaled_dot_product_attention(qg, kg, vg, is_causal=True).backward(do)
+
+    t = dict(samples=10, inner=3)
+    sdpa_fwd = time_ms(sdpa_forward, **t)
+    sdpa_bwd = time_ms(sdpa_forward_backward, **t) - sdpa_fwd
+    out = {}
+    b, by = bound(4 * io + rows, 4 * D * pairs)
+    out["flash_forward"] = dict(
+        ms=time_ms(lambda: A.flash_forward(q, k, v, *args), **t),
+        plain_ms=time_ms(lambda: A.flash_forward_plain(q, k, v, *args), **t),
+        library_ms=sdpa_fwd, bound_ms=b, bound_by=by)
+    b, by = bound(6 * io + 2 * rows, 8 * D * pairs)
+    out["flash_backward_dkv"] = dict(
+        ms=time_ms(lambda: A.flash_backward_dkv(q, k, v, do, lse, delta, *args), **t),
+        plain_ms=time_ms(lambda: A.flash_backward_dkv_plain(q, k, v, do, lse, delta, *args),
+                         **t),
+        library_ms=sdpa_bwd, bound_ms=b, bound_by=by)
+    b, by = bound(5 * io + 2 * rows, 6 * D * pairs)
+    out["flash_backward_dq"] = dict(
+        ms=time_ms(lambda: A.flash_backward_dq(q, k, v, do, lse, delta, *args), **t),
+        plain_ms=time_ms(lambda: A.flash_backward_dq_plain(q, k, v, do, lse, delta, *args),
+                         **t),
+        library_ms=sdpa_bwd, bound_ms=b, bound_by=by)
+    return out
+
+
 # -- phases 3 and 4: the slice --------------------------------------------------
 
 
@@ -372,51 +537,141 @@ def run_slice():
     return launches, summary
 
 
-def profile_slice():
+def run_lm():
+    """Phase 3b: the full-width LM through the CLI with flash attention, launch
+    counts read around it, then the same run with blockwise attention."""
+    from harmony_tpu_torch.ops import attention as A
+    from harmony_tpu_torch.ops.histogram import weighted_histogram
+    from harmony_tpu_torch.ops.sparse import gather_rows, segment_sum_rows
+
+    wrappers = (gather_rows, segment_sum_rows, weighted_histogram,
+                A.flash_forward, A.flash_backward_dkv, A.flash_backward_dq)
+    reset_counts(*wrappers)
+    gpu = run_cli(LM_ARGS)
+    launches = {w.__name__: w.launches for w in wrappers}
+    losses = gpu["batch_losses"]
+    half = LM_STEPS // 2
+    check(len(losses) == LM_STEPS, f"{len(losses)} step losses, expected {LM_STEPS}")
+    check(all(math.isfinite(v) for v in losses), f"non-finite LM loss: {losses}")
+    check(sum(losses[half:]) < sum(losses[:half]), f"LM loss is not falling: {losses}")
+    per_path = LM_STEPS * LM_LAYERS
+    expected = {"gather_rows": 0, "segment_sum_rows": 0, "weighted_histogram": 0,
+                "flash_forward": per_path, "flash_backward_dkv": per_path,
+                "flash_backward_dq": per_path}
+    check(launches == expected, f"LM launches {launches}, expected {expected}")
+    print(f"phase 3b: LM losses {losses}, launches {launches}", flush=True)
+
+    reset_counts(*wrappers)
+    blockwise = run_cli(LM_ARGS + ["--set", "attn=blockwise"])
+    check(all(w.launches == 0 for w in wrappers), "a kernel launched on the blockwise run")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, blockwise["batch_losses"]))
+    check(rel <= LM_BF16_REL,
+          f"flash and blockwise LM losses differ by {rel} (relative) > {LM_BF16_REL}")
+    print(f"phase 3b: blockwise losses {blockwise['batch_losses']}, "
+          f"max |flash - blockwise| / |blockwise| {rel}", flush=True)
+    steady = gpu["epoch_seconds"][-1]
+    return launches, {
+        "steps": LM_STEPS,
+        "tokens_per_step": LM_TOKENS_PER_STEP,
+        "epoch_seconds": gpu["epoch_seconds"],
+        "tokens_per_sec": half * LM_TOKENS_PER_STEP / steady,
+        "step_ms": steady * 1e3 / half,
+        "blockwise_epoch_seconds": blockwise["epoch_seconds"],
+        "blockwise_tokens_per_sec":
+            half * LM_TOKENS_PER_STEP / blockwise["epoch_seconds"][-1],
+        "losses": losses,
+        "max_rel_loss_gap_flash_vs_blockwise": rel,
+    }
+
+
+def run_lm_preset():
+    """Phase 3c: the lm preset as shipped on the card, then on the CPU."""
+    from harmony_tpu_torch.ops import attention as A
+
+    flash = (A.flash_forward, A.flash_backward_dkv, A.flash_backward_dq)
+    reset_counts(*flash)
+    card = run_cli(["run", "lm"])
+    launches = {w.__name__: w.launches for w in flash}
+    steps = len(card["batch_losses"])  # the preset: 3 epochs of 4 steps, 2 layers
+    check(steps == 12 and all(n == steps * 2 for n in launches.values()),
+          f"lm preset: {steps} steps, launches {launches}")
+    reset_counts(*flash)
+    cpu = run_cli(["run", "lm", "--device", "cpu"])
+    check(all(w.launches == 0 for w in flash), "a kernel launched on the CPU run")
+    gap = max(abs(a - b) for a, b in zip(card["batch_losses"], cpu["batch_losses"]))
+    check(all(math.isfinite(v) for v in card["batch_losses"]) and gap <= LOSS_ATOL,
+          f"lm preset: card and CPU step losses differ by {gap} > {LOSS_ATOL}")
+    print(f"phase 3c: lm preset card losses {card['batch_losses']}, "
+          f"max |card - CPU| {gap}, launches {launches}", flush=True)
+    return {"max_abs_loss_gap_card_vs_cpu": gap, "launches": launches}
+
+
+def profile_worker(worker, steps: int, top_n: int):
     """Where a step's time goes, on the card: the host clock over one steady
-    epoch of the slice (after a first epoch that seeds the table and warms up),
-    then a second epoch under torch.profiler for the device's busy time and
-    the kernels that fill it. One stream, so device intervals do not overlap."""
+    epoch (after a first epoch that seeds the table and warms up), then a
+    second epoch under torch.profiler for the device's busy time and the
+    kernels that fill it. One stream, so device intervals do not overlap."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from harmony_tpu_torch.apps.widedeep import WideDeepTrainer, make_synthetic
-    from harmony_tpu_torch.config.params import TrainerParams
-    from harmony_tpu_torch.dolphin.data import TrainingDataProvider
-    from harmony_tpu_torch.dolphin.trainer import TrainerContext
-    from harmony_tpu_torch.dolphin.worker import WorkerTasklet
-    from harmony_tpu_torch.table.table import DenseTable, TableSpec
-
-    trainer = WideDeepTrainer(vocab_size=100000, num_slots=16, emb_dim=16,
-                              hidden=128, step_size=0.1)
-    table = DenseTable(TableSpec(trainer.model_table_config()), "cuda")
-    ctx = TrainerContext(params=TrainerParams(num_epochs=1, num_mini_batches=BATCHES),
-                         model_table=table)
-    data = TrainingDataProvider(list(make_synthetic(N_EXAMPLES, 100000, 16)), BATCHES)
-    worker = WorkerTasklet("profile", ctx, trainer, data)
     worker.run()
     worker.global_init = False
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     worker.run()
     torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) * 1e3 / BATCHES
+    step_ms = (time.perf_counter() - t0) * 1e3 / steps
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         worker.run()
         torch.cuda.synchronize()
     by_name = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3 / BATCHES
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3 / steps
     busy = sum(by_name.values())
     check(busy > 0, "the profiler saw no device time")
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:top_n]
     return {
         "step_ms": step_ms,
         "device_busy_ms_per_step": busy,
         "device_idle_share": max(0.0, 1.0 - busy / step_ms),
         "top_device_ms_per_step": {name[:90]: ms for name, ms in top},
     }
+
+
+def _worker(trainer, arrays, batches: int):
+    from harmony_tpu_torch.config.params import TrainerParams
+    from harmony_tpu_torch.dolphin.data import TrainingDataProvider
+    from harmony_tpu_torch.dolphin.trainer import TrainerContext
+    from harmony_tpu_torch.dolphin.worker import WorkerTasklet
+    from harmony_tpu_torch.table.table import DenseTable, TableSpec
+
+    table = DenseTable(TableSpec(trainer.model_table_config()), "cuda")
+    ctx = TrainerContext(params=TrainerParams(num_epochs=1, num_mini_batches=batches),
+                         model_table=table)
+    return WorkerTasklet("profile", ctx, trainer, TrainingDataProvider(arrays, batches))
+
+
+def profile_slice():
+    """Phase 5: the Wide&Deep job's step."""
+    from harmony_tpu_torch.apps.widedeep import WideDeepTrainer, make_synthetic
+
+    trainer = WideDeepTrainer(vocab_size=100000, num_slots=16, emb_dim=16,
+                              hidden=128, step_size=0.1)
+    worker = _worker(trainer, list(make_synthetic(N_EXAMPLES, 100000, 16)), BATCHES)
+    return profile_worker(worker, BATCHES, top_n=6)
+
+
+def profile_lm():
+    """Phase 5b: the full-width LM's step, and its tokens/s."""
+    from harmony_tpu_torch.models.transformer import TransformerTrainer, make_lm_data
+
+    trainer = TransformerTrainer(vocab_size=8192, d_model=512, n_heads=8, n_layers=8,
+                                 d_ff=2048, max_seq=1024, dtype="bfloat16", step_size=0.1)
+    worker = _worker(trainer, [make_lm_data(128, 1025, 8192)], LM_STEPS // 2)
+    out = profile_worker(worker, LM_STEPS // 2, top_n=12)
+    out["tokens_per_sec"] = LM_TOKENS_PER_STEP / out["step_ms"] * 1e3
+    return out
 
 
 def main() -> int:
@@ -448,11 +703,22 @@ def main() -> int:
           flush=True)
     timing = time_kernels(dev, table, idx)
     print(f"phase 2: timing {json.dumps(timing)}", flush=True)
+    del table, idx
+    err.update(check_flash_kernels(dev))
+    timing.update(time_flash_kernels(dev))
+    print(f"phase 2b: timing {json.dumps({k: timing[k] for k in FLASH_KERNELS})}",
+          flush=True)
 
     launches, summary = run_slice()
     print("slice: " + json.dumps(summary), flush=True)
+    lm_launches, lm_summary = run_lm()
+    print("lm: " + json.dumps(lm_summary), flush=True)
+    print("lm preset: " + json.dumps(run_lm_preset()), flush=True)
+    launches.update({k: lm_launches[k] for k in FLASH_KERNELS})
     print("profile: " + json.dumps(profile_slice()), flush=True)
+    print("lm profile: " + json.dumps(profile_lm()), flush=True)
 
+    flash_source = "harmony_tpu_torch/csrc/flash_attention.cu"
     sources = {
         "gather_rows": ("harmony_tpu_torch/csrc/gather_rows.cu",
                         "harmony_tpu/ops/sparse.py:71"),
@@ -460,6 +726,9 @@ def main() -> int:
                              "harmony_tpu/ops/sparse.py:146"),
         "weighted_histogram": ("harmony_tpu_torch/csrc/keyed_fold.cu",
                                "harmony_tpu/ops/histogram.py:94"),
+        "flash_forward": (flash_source, "harmony_tpu/ops/attention.py:191"),
+        "flash_backward_dkv": (flash_source, "harmony_tpu/ops/attention.py:345"),
+        "flash_backward_dq": (flash_source, "harmony_tpu/ops/attention.py:367"),
     }
     kernels = []
     for name, (source, replaces) in sources.items():

@@ -7,6 +7,6 @@ path is a hand-written CUDA kernel for ``sm_90a`` in ``csrc/``, with its plain
 PyTorch version beside it in ``ops/``. The package imports ``torch`` and numpy,
 never ``jax`` and nothing of ``harmony_tpu``.
 
-Entry point: ``python -m harmony_tpu_torch.cli run widedeep`` trains on the card
-(``--device cpu`` only when asked).
+Entry point: ``python -m harmony_tpu_torch.cli run widedeep`` (or ``run lm``)
+trains on the card (``--device cpu`` only when asked).
 """

@@ -37,7 +37,24 @@ PRESETS: Dict[str, Dict[str, Any]] = {
         data_fn="harmony_tpu_torch.apps.widedeep:make_synthetic",
         data_args={"n": 8192, "vocab_size": 10000, "num_slots": 8},
     ),
+    "lm": dict(
+        app_type="dolphin",
+        trainer="harmony_tpu_torch.models.transformer:TransformerTrainer",
+        app_params={"vocab_size": 128, "d_model": 64, "n_heads": 4,
+                    "n_layers": 2, "d_ff": 256, "max_seq": 64,
+                    "step_size": 0.2},
+        data_fn="harmony_tpu_torch.models.transformer:make_lm_data",
+        data_args={"num_seqs": 64, "seq_len": 65, "vocab_size": 128},
+    ),
 }
+
+# Parameters of models.transformer:load_text_tokens, which replaces the LM's
+# synthetic corpus when --data path=... is given.
+FILE_CORPUS_KEYS = frozenset({"path", "seq_len", "num_seqs", "vocab_size"})
+
+# Model/data-coupled keys: an explicit override on either side wins over the
+# preset, and a conflicting pair fails before the job starts.
+COUPLED = {"lm": ("vocab_size",)}
 
 
 def _parse_kv(pairs: List[str]) -> Dict[str, Any]:
@@ -55,6 +72,26 @@ def _parse_kv(pairs: List[str]) -> Dict[str, Any]:
 
 def build_config(app: str, args: argparse.Namespace) -> JobConfig:
     preset = PRESETS[app]
+    set_kv, data_kv = _parse_kv(args.set), _parse_kv(args.data)
+    app_params = {**preset["app_params"], **set_kv}
+    data_fn = preset["data_fn"]
+    data_args = {**preset["data_args"], **data_kv}
+    if app == "lm" and "path" in data_args:
+        # a text file replaces the synthetic corpus; the preset's seq_len,
+        # num_seqs and vocab_size carry over (load_text_tokens shares the names)
+        data_fn = "harmony_tpu_torch.models.transformer:load_text_tokens"
+        stray = set(data_args) - FILE_CORPUS_KEYS
+        if stray:
+            raise SystemExit(
+                f"--data keys {sorted(stray)} do not apply to file corpora "
+                f"(load_text_tokens takes {sorted(FILE_CORPUS_KEYS)})")
+    for key in COUPLED.get(app, ()):
+        set_v, data_v = set_kv.get(key), data_kv.get(key)
+        if set_v is not None and data_v is not None and set_v != data_v:
+            raise SystemExit(f"conflicting {key}: --set {set_v} vs --data {data_v}")
+        value = set_v if set_v is not None else data_args.get(
+            key, data_v if data_v is not None else app_params[key])
+        app_params[key] = data_args[key] = value
     return JobConfig(
         job_id=args.job_id or f"{app}-job",
         app_type=preset["app_type"],
@@ -62,11 +99,10 @@ def build_config(app: str, args: argparse.Namespace) -> JobConfig:
         params=TrainerParams(
             num_epochs=args.epochs,
             num_mini_batches=args.batches,
-            app_params={**preset["app_params"], **_parse_kv(args.set)},
+            app_params=app_params,
         ),
         num_workers=1,
-        user={"data_fn": preset["data_fn"],
-              "data_args": {**preset["data_args"], **_parse_kv(args.data)}},
+        user={"data_fn": data_fn, "data_args": data_args},
     )
 
 

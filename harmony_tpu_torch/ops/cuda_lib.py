@@ -30,7 +30,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # entry point -> (source stem, argtypes). Pointers and the stream are c_void_p:
 # left undeclared, ctypes would pass them as 32-bit ints and cut them.
 SIGNATURES = {
@@ -38,6 +38,12 @@ SIGNATURES = {
     "harmony_segment_sum_rows": ("keyed_fold", [_P, _P, _P, _LL, _LL, _LL, _P]),
     "harmony_weighted_histogram": (
         "keyed_fold", [_P, _I, _P, _P, _LL, _LL, _LL, _P]),
+    "harmony_flash_forward": (
+        "flash_attention", [_P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _F, _I, _P]),
+    "harmony_flash_backward_dkv": (
+        "flash_attention", [_P, _P, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _F, _I, _P]),
+    "harmony_flash_backward_dq": (
+        "flash_attention", [_P, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _F, _I, _P]),
 }
 
 _lock = threading.Lock()

@@ -60,6 +60,13 @@ def test_run_without_a_card_raises():
         cli.main(["run", "widedeep", *SMALL])
 
 
+def test_run_lm_without_a_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default run goes to it")
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        cli.main(["run", "lm", "--epochs", "1", "--batches", "1"])
+
+
 def test_jobserver_runs_jobs_in_order_and_reports_failures():
     server = JobServer("cpu")
     server.start()
@@ -94,7 +101,10 @@ def _imports(path):
 
 def test_port_imports_neither_jax_nor_harmony_tpu():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) > 20
+    assert len(files) > 25
+    for module in ("models/transformer.py", "models/pytree_trainer.py", "models/common.py",
+                   "ops/attention.py", "dolphin/optim.py"):
+        assert PORT / module in files
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
@@ -106,6 +116,8 @@ def test_importing_the_port_loads_no_jax():
     modules = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
         for p in PORT.rglob("*.py"))
+    assert {"harmony_tpu_torch.models.transformer", "harmony_tpu_torch.ops.attention",
+            "harmony_tpu_torch.dolphin.optim"} <= set(modules)
     code = ("import sys\n"
             f"for m in {modules!r}: __import__(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'harmony_tpu'))\n"
