@@ -10,7 +10,9 @@ toolkit:
 Phases, in order; any failure ends the script with a non-zero exit code:
 
 1. Build: compile every ``harmony_tpu_torch/csrc/*.cu`` (one ``nvcc`` per
-   source, all at once) and print the card's name and power limit.
+   source, all at once) and print the card's name and power limit. Print the
+   registers and shared memory of the tensor-core flash kernels, and fail if
+   ``ptxas`` reports spills for one of them at D = 64 or D = 128.
 2. Kernels: run gather_rows (K1), segment_sum_rows (K2) and
    weighted_histogram (K3) on the card at the shapes of the Wide&Deep job
    below and at edge cases, compare each with its plain version, and time the
@@ -19,7 +21,13 @@ Phases, in order; any failure ends the script with a non-zero exit code:
 2b. Flash attention: K4 (forward), K5a (dK/dV) and K5b (dQ) against their
    plain versions at the LM's shape ([32, 8, 1024, 64] bf16, causal, blocks
    128) and at edge cases (f32 operands, not causal, D = 16 and 128, one
-   block, a nonzero LSE cotangent); timed beside their plain versions and
+   block, a nonzero LSE cotangent, block_k 64 with D = 32, Sq != Sk, block_k
+   32 with D = 16, block_k 16, and the bf16 tiles the tensor cores do not
+   take: 100 keys and 256); each case must take the route its table row names
+   (``mma``, the tensor cores, for bf16 at block_k 16, 32, 64 or 128; ``simt``
+   for f32 and the other bf16 tiles), and K4 and K5a run twice must agree bit
+   for bit. Timed beside
+   their plain versions, their first (scalar) versions and
    ``scaled_dot_product_attention``'s forward and backward.
 3. The slice: ``python -m harmony_tpu_torch.cli run widedeep`` at the
    ``bench-widedeep`` size of ``benchmarks/apps.py`` (vocab 100,000, 16 slots,
@@ -28,10 +36,11 @@ Phases, in order; any failure ends the script with a non-zero exit code:
    then the same job on the CPU (plain versions), step for step.
 3b. The LM at full width: ``cli run lm`` at the size of ``benchmarks/lm.py``
    (vocab 8192, d_model 512, 8 heads, 8 layers, d_ff 2048, max_seq 1024, bf16,
-   batch 32 x 1024 tokens) for 2 epochs of 4 steps, launch counts read around
-   it; then the same run with ``--set attn=blockwise``, step for step.
-3c. The ``lm`` preset as shipped (f32, head dim 16, 64 tokens) on the card and
-   on the CPU, step for step.
+   batch 32 x 1024 tokens) for 2 epochs of 4 steps, launch counts (K4 and K5a
+   on the ``mma`` route) read around it; then the same run with
+   ``--set attn=blockwise``, step for step.
+3c. The ``lm`` preset as shipped (f32, head dim 16, 64 tokens) on the card, on
+   the ``simt`` route, and on the CPU, step for step.
 4. The sparse push route (``HARMONY_PUSH_VIA=sparse``): one epoch of the
    Wide&Deep job, which folds its pushes with K2.
 5. Where a step's time goes: a steady epoch of the Wide&Deep job on the host
@@ -162,6 +171,8 @@ def run_cli(argv):
 def reset_counts(*wrappers) -> None:
     for w in wrappers:
         w.launches = 0
+        for route in getattr(w, "launches_by_route", {}):
+            w.launches_by_route[route] = 0
 
 
 def check(cond: bool, msg: str) -> None:
@@ -353,33 +364,86 @@ def time_kernels(dev, table, idx):
 FLASH_KERNELS = ("flash_forward", "flash_backward_dkv", "flash_backward_dq")
 
 
-# (name, (B, H, S, D), dtype, causal, block, nonzero LSE cotangent)
+# (name, (B, H, Sq, D), Sk, dtype, causal, block, nonzero LSE cotangent, the route
+# K4 and K5a must take: ops/attention.py::flash_route)
 FLASH_CASES = [
-    ("the LM's shape, bf16, causal", (32, 8, 1024, 64), torch.bfloat16, True, 128, False),
-    ("f32 operands", (4, 8, 1024, 64), torch.float32, True, 128, False),
-    ("causal=False", (4, 8, 1024, 64), torch.bfloat16, False, 128, False),
-    ("D=16, the lm preset's shape, f32", (16, 4, 64, 16), torch.float32, True, 64, False),
-    ("D=128", (4, 4, 512, 128), torch.bfloat16, True, 128, False),
-    ("one block (S=128)", (8, 8, 128, 64), torch.bfloat16, True, 128, False),
-    ("nonzero LSE cotangent", (4, 8, 256, 64), torch.bfloat16, True, 128, True),
+    ("the LM's shape, bf16, causal", (32, 8, 1024, 64), 1024, torch.bfloat16, True, 128,
+     False, "mma"),
+    ("f32 operands", (4, 8, 1024, 64), 1024, torch.float32, True, 128, False, "simt"),
+    ("causal=False", (4, 8, 1024, 64), 1024, torch.bfloat16, False, 128, False, "mma"),
+    ("D=16, the lm preset's shape, f32", (16, 4, 64, 16), 64, torch.float32, True, 64, False,
+     "simt"),
+    ("D=128", (4, 4, 512, 128), 512, torch.bfloat16, True, 128, False, "mma"),
+    ("one block (S=128)", (8, 8, 128, 64), 128, torch.bfloat16, True, 128, False, "mma"),
+    ("nonzero LSE cotangent", (4, 8, 256, 64), 256, torch.bfloat16, True, 128, True, "mma"),
+    ("block_k=64, D=32", (4, 8, 512, 32), 512, torch.bfloat16, True, 64, False, "mma"),
+    ("Sq != Sk, causal=False", (4, 8, 512, 64), 1024, torch.bfloat16, False, 128, False,
+     "mma"),
+    ("block_k=32, D=16, bf16", (8, 4, 256, 16), 256, torch.bfloat16, True, 32, False, "mma"),
+    ("block_k=16, bf16", (4, 8, 256, 64), 256, torch.bfloat16, True, 16, False, "mma"),
+    ("an odd tile, bf16 (the LM at S=100)", (4, 8, 100, 64), 100, torch.bfloat16, True, 100,
+     False, "simt"),
+    ("the default block_k=256, bf16", (2, 8, 1024, 64), 1024, torch.bfloat16, True, 256,
+     False, "simt"),
 ]
 
 
-def flash_operands(dev, shape, dtype, seed, g_lse=False):
-    """q, k, v, dO, the LSE cotangent (zero unless asked) and the scale."""
+def flash_operands(dev, shape, dtype, seed, g_lse=False, sk=None):
+    """q, dO [B, H, Sq, D], k, v [B, H, Sk, D], the LSE cotangent (zero unless
+    asked) and the scale."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    q, k, v, do = (torch.randn(shape, generator=g, device=dev).to(dtype) for _ in range(4))
+    kv_shape = shape[:2] + (sk or shape[2],) + shape[3:]
+    q, k, v, do = (torch.randn(s, generator=g, device=dev).to(dtype)
+                   for s in (shape, kv_shape, kv_shape, shape))
     glse = (torch.randn(shape[:-1], generator=g, device=dev) if g_lse
             else torch.zeros(shape[:-1], device=dev))
     return q, k, v, do, glse, shape[-1] ** -0.5
 
 
+def mma_build_report(report: str):
+    """Registers, spills and dynamic shared memory of each tensor-core flash
+    kernel (by its template's head dim and key tile) from nvcc's -Xptxas -v
+    report of csrc/flash_attention_mma.cu."""
+    import re
+
+    from harmony_tpu_torch.ops import cuda_lib
+
+    out, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\S+?)'?(?:\s|$)",
+                      line)
+        if m:
+            k = re.search(r"(flash_(?:forward|backward_dkv)_mma_kernel)ILi(\d+)E(?:Li(\d+)E)?",
+                          m.group(1))
+            name = (k.group(1), int(k.group(2)), int(k.group(3) or 0)) if k else None
+            continue
+        if name is None:
+            continue
+        entry = out.setdefault(name, {})
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            entry["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            entry["registers"] = int(m.group(1))
+    for (kernel, d, bk), entry in out.items():
+        entry["shared_bytes"] = cuda_lib.call(
+            "harmony_flash_mma_shared_bytes", 0 if "forward" in kernel else 1, d, bk)
+    return out
+
+
 def check_flash_kernels(dev):
     """K4, K5a and K5b against their plain versions on every case of
-    FLASH_CASES. Returns each kernel's max |kernel - plain| over the cases."""
+    FLASH_CASES; K4 and K5a on the route each case names, and the same bit for
+    bit when run again. Returns each kernel's max |kernel - plain|
+    over the cases."""
     from harmony_tpu_torch.ops import attention as A
 
     err = {"flash_forward": 0.0, "flash_backward_dkv": 0.0, "flash_backward_dq": 0.0}
+
+    def same_bits(a, b):
+        return torch.equal(a.view(torch.int16 if a.dtype == torch.bfloat16 else torch.int32),
+                           b.view(torch.int16 if b.dtype == torch.bfloat16 else torch.int32))
 
     def compare(kernel, name, case, got, want, dtype):
         check(got.shape == want.shape and got.dtype == want.dtype,
@@ -391,25 +455,39 @@ def check_flash_kernels(dev):
               f"{kernel} {case}: {name} |kernel - plain| {gap} > {tol}")
         err[kernel] = max(err[kernel], gap)
 
-    for i, (case, shape, dtype, causal, block, g_lse) in enumerate(FLASH_CASES):
-        q, k, v, do, glse, scale = flash_operands(dev, shape, dtype, 10 + i, g_lse)
+    for i, (case, shape, sk, dtype, causal, block, g_lse, route) in enumerate(FLASH_CASES):
+        q, k, v, do, glse, scale = flash_operands(dev, shape, dtype, 10 + i, g_lse, sk)
         args = (causal, block, block, scale)
-        out, lse = A.flash_forward(q, k, v, *args)
+        check(A.flash_route(dtype, shape[-1], block) == route,
+              f"{case}: flash_route gives {A.flash_route(dtype, shape[-1], block)}, "
+              f"expected {route}")
+        fwd, dkv = A.flash_forward, A.flash_backward_dkv
+        before = (fwd.launches_by_route[route], dkv.launches_by_route[route])
+        out, lse = fwd(q, k, v, *args)
+        out2, lse2 = fwd(q, k, v, *args)
         torch.cuda.synchronize()
         out_p, lse_p = A.flash_forward_plain(q, k, v, *args)
         compare("flash_forward", "out", case, out, out_p, dtype)
         compare("flash_forward", "lse", case, lse, lse_p, dtype)
         delta = (do.float() * out_p.float()).sum(dim=-1) - glse
-        dk, dv = A.flash_backward_dkv(q, k, v, do, lse_p, delta, *args)
+        dk, dv = dkv(q, k, v, do, lse_p, delta, *args)
+        dk2, dv2 = dkv(q, k, v, do, lse_p, delta, *args)
         dq = A.flash_backward_dq(q, k, v, do, lse_p, delta, *args)
         torch.cuda.synchronize()
+        check((fwd.launches_by_route[route], dkv.launches_by_route[route])
+              == (before[0] + 2, before[1] + 2),
+              f"{case}: K4/K5a did not launch on the {route} route")
+        check(all(same_bits(a, b) for a, b in
+                  ((out, out2), (lse, lse2), (dk, dk2), (dv, dv2))),
+              f"{case}: K4/K5a run twice on the same inputs differ")
         dk_p, dv_p = A.flash_backward_dkv_plain(q, k, v, do, lse_p, delta, *args)
         dq_p = A.flash_backward_dq_plain(q, k, v, do, lse_p, delta, *args)
         compare("flash_backward_dkv", "dk", case, dk, dk_p, dtype)
         compare("flash_backward_dkv", "dv", case, dv, dv_p, dtype)
         compare("flash_backward_dq", "dq", case, dq, dq_p, dtype)
         print(f"phase 2b: flash kernels within tolerance on {case} {list(shape)} "
-              f"{str(dtype)[6:]} causal={causal} block={block}", flush=True)
+              f"Sk={sk} {str(dtype)[6:]} causal={causal} block={block}, K4/K5a on "
+              f"route {route}, bit-identical when run twice", flush=True)
     return err
 
 
@@ -421,13 +499,27 @@ def time_flash_kernels(dev):
     import torch.nn.functional as F
 
     from harmony_tpu_torch.ops import attention as A
+    from harmony_tpu_torch.ops import cuda_lib
 
-    _, shape, dtype, causal, block, _ = FLASH_CASES[0]
+    _, shape, _, dtype, causal, block, _, _ = FLASH_CASES[0]
     B, H, S, D = shape
     q, k, v, do, glse, scale = flash_operands(dev, shape, dtype, 3)
     args = (causal, block, block, scale)
     out, lse = A.flash_forward(q, k, v, *args)
     delta = (do.float() * out.float()).sum(dim=-1) - glse
+    stream = torch.cuda.current_stream().cuda_stream
+    o1, lse1, dk1, dv1 = (torch.empty_like(t) for t in (out, lse, k, v))
+
+    def first_forward():  # the first, scalar kernel on the same bf16 operands
+        cuda_lib.launch("harmony_flash_forward", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        o1.data_ptr(), lse1.data_ptr(), 1, B * H, S, S, D, block,
+                        float(scale), int(causal), stream)
+
+    def first_dkv():
+        cuda_lib.launch("harmony_flash_backward_dkv", q.data_ptr(), k.data_ptr(),
+                        v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                        dk1.data_ptr(), dv1.data_ptr(), 1, B * H, S, S, D, float(scale),
+                        int(causal), stream)
     bh, e = B * H, q.element_size()
     pairs = bh * S * (S + 1) // 2
     io = bh * S * D * e      # one of q, k, v, dO, O, dQ, dK, dV
@@ -455,12 +547,14 @@ def time_flash_kernels(dev):
     out["flash_forward"] = dict(
         ms=time_ms(lambda: A.flash_forward(q, k, v, *args), **t),
         plain_ms=time_ms(lambda: A.flash_forward_plain(q, k, v, *args), **t),
+        first_version_ms=time_ms(first_forward, **t),
         library_ms=sdpa_fwd, bound_ms=b, bound_by=by)
     b, by = bound(6 * io + 2 * rows, 8 * D * pairs)
     out["flash_backward_dkv"] = dict(
         ms=time_ms(lambda: A.flash_backward_dkv(q, k, v, do, lse, delta, *args), **t),
         plain_ms=time_ms(lambda: A.flash_backward_dkv_plain(q, k, v, do, lse, delta, *args),
                          **t),
+        first_version_ms=time_ms(first_dkv, **t),
         library_ms=sdpa_bwd, bound_ms=b, bound_by=by)
     b, by = bound(5 * io + 2 * rows, 6 * D * pairs)
     out["flash_backward_dq"] = dict(
@@ -559,7 +653,12 @@ def run_lm():
                 "flash_forward": per_path, "flash_backward_dkv": per_path,
                 "flash_backward_dq": per_path}
     check(launches == expected, f"LM launches {launches}, expected {expected}")
-    print(f"phase 3b: LM losses {losses}, launches {launches}", flush=True)
+    routes = {w.__name__: dict(w.launches_by_route)
+              for w in (A.flash_forward, A.flash_backward_dkv)}
+    check(all(r == {"mma": per_path, "simt": 0} for r in routes.values()),
+          f"LM launches by route {routes}, expected all {per_path} on mma")
+    print(f"phase 3b: LM losses {losses}, launches {launches}, by route {routes}",
+          flush=True)
 
     reset_counts(*wrappers)
     blockwise = run_cli(LM_ARGS + ["--set", "attn=blockwise"])
@@ -595,6 +694,8 @@ def run_lm_preset():
     steps = len(card["batch_losses"])  # the preset: 3 epochs of 4 steps, 2 layers
     check(steps == 12 and all(n == steps * 2 for n in launches.values()),
           f"lm preset: {steps} steps, launches {launches}")
+    check(all(w.launches_by_route == {"mma": 0, "simt": steps * 2} for w in flash[:2]),
+          "lm preset: K4/K5a did not take the simt route on f32 operands")
     reset_counts(*flash)
     cpu = run_cli(["run", "lm", "--device", "cpu"])
     check(all(w.launches == 0 for w in flash), "a kernel launched on the CPU run")
@@ -693,10 +794,21 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     ident = gpu_identity()
     print(f"phase 1: built {sorted(libs)} in {build_s:.1f} s on {ident}", flush=True)
-    for stem, report in sorted(cuda_lib.build_reports().items()):
+    reports = cuda_lib.build_reports()
+    for stem, report in sorted(reports.items()):
+        if stem == "flash_attention_mma":
+            continue
         for line in report.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {stem}: {line.strip()}")
+    mma = mma_build_report(reports.get("flash_attention_mma", ""))
+    check(mma, "no ptxas report for the tensor-core flash kernels")
+    for (kernel, d, bk), entry in sorted(mma.items()):
+        print(f"  ptxas {kernel} D={d}" + (f" block_k={bk}" if bk else "") + f": "
+              f"{entry.get('registers')} registers, {entry.get('spill_bytes')} bytes "
+              f"spilled, {entry['shared_bytes']} bytes dynamic shared memory", flush=True)
+        check(d not in (64, 128) or entry.get("spill_bytes") == 0,
+              f"{kernel} D={d} block_k={bk}: ptxas reports spills ({entry})")
 
     table, idx, err, bitwise_cpu = check_kernels(dev)
     print(f"phase 2: folds bit-identical to the CPU scatter-add: {bitwise_cpu}",
@@ -719,6 +831,7 @@ def main() -> int:
     print("lm profile: " + json.dumps(profile_lm()), flush=True)
 
     flash_source = "harmony_tpu_torch/csrc/flash_attention.cu"
+    mma_source = "harmony_tpu_torch/csrc/flash_attention_mma.cu"
     sources = {
         "gather_rows": ("harmony_tpu_torch/csrc/gather_rows.cu",
                         "harmony_tpu/ops/sparse.py:71"),
@@ -726,19 +839,26 @@ def main() -> int:
                              "harmony_tpu/ops/sparse.py:146"),
         "weighted_histogram": ("harmony_tpu_torch/csrc/keyed_fold.cu",
                                "harmony_tpu/ops/histogram.py:94"),
-        "flash_forward": (flash_source, "harmony_tpu/ops/attention.py:191"),
-        "flash_backward_dkv": (flash_source, "harmony_tpu/ops/attention.py:345"),
+        "flash_forward": (mma_source, "harmony_tpu/ops/attention.py:191"),
+        "flash_backward_dkv": (mma_source, "harmony_tpu/ops/attention.py:345"),
         "flash_backward_dq": (flash_source, "harmony_tpu/ops/attention.py:367"),
     }
+    # which kernel of each flash entry the LM's bf16 path runs and this line times
+    variants = {"flash_forward": "mma: bf16 mma.sync, cp.async double-buffered",
+                "flash_backward_dkv": "mma: bf16 mma.sync, cp.async double-buffered",
+                "flash_backward_dq": "simt: scalar f32 FMAs"}
     kernels = []
     for name, (source, replaces) in sources.items():
         t = timing[name]
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": err[name],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-        })
+        }
+        if name in variants:
+            entry["variant"] = variants[name]
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(gpu_identity())
     print(json.dumps({"ok": True, "device": {

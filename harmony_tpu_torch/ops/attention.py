@@ -14,13 +14,19 @@ public function.
     (the JAX package leaves it to XLA outside its kernels).
     :func:`flash_attention` drops the LSE.
 
-On a CUDA tensor each kernel wrapper launches its hand-written kernel
-(``csrc/flash_attention.cu``); on a CPU tensor it takes the plain PyTorch
-version beside it (``*_plain``), which follows the TPU kernels' arithmetic tile
-for tile: the scale on the f32 product, the finite ``-1e30`` mask, the kv tiles
-above the diagonal skipped, ``l = max(l, 1e-30)``, and p rounded to v's type
-before PV. There is no fallback: a CUDA tensor the kernel does not take raises.
-Each wrapper counts its kernel launches in ``<wrapper>.launches``.
+On a CUDA tensor each kernel wrapper launches its hand-written kernel; on a
+CPU tensor it takes the plain PyTorch version beside it (``*_plain``), which
+follows the TPU kernels' arithmetic tile for tile: the scale on the f32
+product, the finite ``-1e30`` mask, the kv tiles above the diagonal skipped,
+``l = max(l, 1e-30)``, and p rounded to v's type before PV. K4 and K5a have
+two routes on the card, picked by :func:`flash_route` alone: ``"mma"``, the
+tensor-core kernels for bf16 operands at key tiles of 16, 32, 64 or 128
+(``csrc/flash_attention_mma.cu``), and ``"simt"``, the scalar kernels
+(``csrc/flash_attention.cu``), for f32 operands, which they keep out of TF32,
+and for bf16 at any other key tile. K5b has the scalar kernel for both types. There is
+no fallback: a CUDA tensor no route takes raises. Each wrapper counts its
+kernel launches in ``<wrapper>.launches``, and K4 and K5a also by route in
+``<wrapper>.launches_by_route``.
 """
 from __future__ import annotations
 
@@ -36,6 +42,7 @@ DEFAULT_BLOCK_Q = 256
 DEFAULT_BLOCK_K = 256
 _NEG_INF = -1e30  # finite "-inf": keeps the masked softmax NaN-free
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+MMA_BLOCK_KS = (16, 32, 64, 128)  # key tiles the tensor-core K4 holds in registers whole
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -206,15 +213,35 @@ def flash_backward_dq_plain(q, k, v, do, lse, delta, causal, block_q, block_k, s
 # Kernel wrappers: the CUDA kernel on a CUDA tensor, the plain version on a CPU one
 # ---------------------------------------------------------------------------
 
-def _kernel_operands(*tensors: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-    """Contiguous operands of a type and head dim the kernels take."""
-    dtype, D = tensors[0].dtype, tensors[0].shape[-1]
+def _check_type_and_head_dim(dtype: torch.dtype, head_dim: int) -> None:
     if dtype not in _DTYPE_CODE:
         raise TypeError(f"flash attention kernels take f32 or bf16 operands, not {dtype}")
-    if D not in KERNEL_HEAD_DIMS:
+    if head_dim not in KERNEL_HEAD_DIMS:
         raise ValueError(
-            f"flash attention kernels take head dims {KERNEL_HEAD_DIMS}, not {D}")
-    return tuple(t.contiguous() for t in tensors)
+            f"flash attention kernels take head dims {KERNEL_HEAD_DIMS}, not {head_dim}")
+
+
+def flash_route(dtype: torch.dtype, head_dim: int, block_k: int) -> str:
+    """The kernel a CUDA call of K4 or K5a takes, and the one place that choice
+    is made: ``"mma"`` (tensor cores) for bf16 operands whose ``block_k`` is
+    one of :data:`MMA_BLOCK_KS`, ``"simt"`` (scalar f32 FMAs) for f32 operands
+    and for bf16 at any other ``block_k`` (the bf16 LM at a sequence length
+    that is no power of two, a direct caller's default block of 256). f32
+    stays off the tensor cores, which take it only as TF32 (a 10-bit
+    mantissa). A call no route takes raises: TypeError for another type,
+    ValueError for another head dim."""
+    _check_type_and_head_dim(dtype, head_dim)
+    return "mma" if dtype == torch.bfloat16 and block_k in MMA_BLOCK_KS else "simt"
+
+
+def _kernel_operands(*tensors: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The operands contiguous, each on a 16-byte boundary (the tensor-core
+    kernels copy 16 bytes at a time)."""
+    out = []
+    for t in tensors:
+        t = t.contiguous()
+        out.append(t.clone() if t.data_ptr() % 16 else t)
+    return tuple(out)
 
 
 def flash_forward(q, k, v, causal, block_q, block_k, scale):
@@ -222,19 +249,24 @@ def flash_forward(q, k, v, causal, block_q, block_k, scale):
     sharing one type; blocks already clamped and dividing the lengths."""
     if not use_kernel(q, k, v):
         return flash_forward_plain(q, k, v, causal, block_q, block_k, scale)
+    route = flash_route(q.dtype, q.shape[-1], block_k)
     q, k, v = _kernel_operands(q, k, v)
     B, H, Sq, D = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    cuda_lib.launch(
-        "harmony_flash_forward", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), lse.data_ptr(), _DTYPE_CODE[q.dtype], B * H, Sq, k.shape[2],
-        D, block_k, float(scale), int(causal), _stream(q))
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr())
+    sizes = (B * H, Sq, k.shape[2], D, block_k, float(scale), int(causal), _stream(q))
+    if route == "mma":
+        cuda_lib.launch("harmony_flash_forward_mma", *ptrs, *sizes)
+    else:
+        cuda_lib.launch("harmony_flash_forward", *ptrs, _DTYPE_CODE[q.dtype], *sizes)
     flash_forward.launches += 1
+    flash_forward.launches_by_route[route] += 1
     return out, lse
 
 
 flash_forward.launches = 0
+flash_forward.launches_by_route = {"mma": 0, "simt": 0}
 
 
 def flash_backward_dkv(q, k, v, do, lse, delta, causal, block_q, block_k, scale):
@@ -242,21 +274,26 @@ def flash_backward_dkv(q, k, v, do, lse, delta, causal, block_q, block_k, scale)
     if not use_kernel(q, k, v, do, lse, delta):
         return flash_backward_dkv_plain(q, k, v, do, lse, delta, causal, block_q,
                                         block_k, scale)
+    route = flash_route(q.dtype, q.shape[-1], block_k)
     q, k, v, do = _kernel_operands(q, k, v, do)
     lse, delta = lse.float().contiguous(), delta.float().contiguous()
     B, H, Sq, D = q.shape
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    cuda_lib.launch(
-        "harmony_flash_backward_dkv", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        _DTYPE_CODE[q.dtype], B * H, Sq, k.shape[2], D, float(scale), int(causal),
-        _stream(q))
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr())
+    sizes = (B * H, Sq, k.shape[2], D, float(scale), int(causal), _stream(q))
+    if route == "mma":
+        cuda_lib.launch("harmony_flash_backward_dkv_mma", *ptrs, *sizes)
+    else:
+        cuda_lib.launch("harmony_flash_backward_dkv", *ptrs, _DTYPE_CODE[q.dtype], *sizes)
     flash_backward_dkv.launches += 1
+    flash_backward_dkv.launches_by_route[route] += 1
     return dk, dv
 
 
 flash_backward_dkv.launches = 0
+flash_backward_dkv.launches_by_route = {"mma": 0, "simt": 0}
 
 
 def flash_backward_dq(q, k, v, do, lse, delta, causal, block_q, block_k, scale):
@@ -264,6 +301,7 @@ def flash_backward_dq(q, k, v, do, lse, delta, causal, block_q, block_k, scale):
     if not use_kernel(q, k, v, do, lse, delta):
         return flash_backward_dq_plain(q, k, v, do, lse, delta, causal, block_q,
                                        block_k, scale)
+    _check_type_and_head_dim(q.dtype, q.shape[-1])
     q, k, v, do = _kernel_operands(q, k, v, do)
     lse, delta = lse.float().contiguous(), delta.float().contiguous()
     B, H, Sq, D = q.shape

@@ -44,6 +44,11 @@ SIGNATURES = {
         "flash_attention", [_P, _P, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _F, _I, _P]),
     "harmony_flash_backward_dq": (
         "flash_attention", [_P, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _F, _I, _P]),
+    "harmony_flash_forward_mma": (
+        "flash_attention_mma", [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _F, _I, _P]),
+    "harmony_flash_backward_dkv_mma": (
+        "flash_attention_mma", [_P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _F, _I, _P]),
+    "harmony_flash_mma_shared_bytes": ("flash_attention_mma", [_I, _I, _I]),
 }
 
 _lock = threading.Lock()
@@ -146,12 +151,16 @@ def _library(stem: str) -> ctypes.CDLL:
         return lib
 
 
+def call(name: str, *args) -> int:
+    """Call entry point ``name`` (building its library on first use) and return
+    its int result as it is."""
+    return getattr(_library(SIGNATURES[name][0]), name)(*args)
+
+
 def launch(name: str, *args) -> None:
-    """Call entry point ``name`` (building its library on first use) and raise if
-    it returns a CUDA error: a refused launch never runs, and a later
-    synchronise would not report it."""
-    lib = _library(SIGNATURES[name][0])
-    err = getattr(lib, name)(*args)
+    """:func:`call` a launching entry point and raise if it returns a CUDA error:
+    a refused launch never runs, and a later synchronise would not report it."""
+    err = call(name, *args)
     if err != 0:
-        text = lib.harmony_cuda_error_string(err).decode()
+        text = _library(SIGNATURES[name][0]).harmony_cuda_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({text})")

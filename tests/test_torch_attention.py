@@ -32,6 +32,8 @@ from harmony_tpu_torch.ops.attention import (
     flash_backward_dkv,
     flash_backward_dq,
     flash_forward,
+    flash_forward_plain,
+    flash_route,
 )
 
 F32_ATOL = 2e-5
@@ -75,6 +77,7 @@ CASES = [  # (causal, Sq, Sk, block_q, block_k)
     (False, 128, 128, 32, 64),
     (False, 64, 128, 64, 32),    # Sq != Sk
     (True, 64, 64, 64, 64),      # one block
+    (True, 256, 256, 128, 128),  # the LM's tile
 ]
 
 
@@ -183,3 +186,62 @@ def test_contract_errors():
     # blocks clamp to the sequence: a block longer than S is one block
     out, lse = flash_attention_lse(q, k, v, True, 256, 256)
     assert out.shape == q.shape and lse.shape == q.shape[:-1]
+
+
+ROUTES = [  # (dtype, head dim, block_k, the route or the error a CUDA call meets)
+    (torch.bfloat16, 64, 128, "mma"),    # the LM's shape
+    (torch.bfloat16, 64, 64, "mma"),
+    (torch.bfloat16, 32, 64, "mma"),
+    (torch.bfloat16, 128, 128, "mma"),
+    (torch.bfloat16, 16, 32, "mma"),
+    (torch.bfloat16, 64, 16, "mma"),
+    (torch.bfloat16, 64, 256, "simt"),   # the wrappers' default block
+    (torch.bfloat16, 64, 48, "simt"),
+    (torch.bfloat16, 64, 100, "simt"),   # the bf16 LM at S = 100
+    (torch.float32, 64, 128, "simt"),
+    (torch.float32, 16, 64, "simt"),     # the lm preset's shape
+    (torch.float32, 64, 24, "simt"),
+    (torch.bfloat16, 64, 24, "simt"),
+    (torch.bfloat16, 64, 8, "simt"),
+    (torch.bfloat16, 48, 128, ValueError),  # a head dim no kernel takes
+    (torch.float32, 256, 128, ValueError),
+    (torch.float16, 64, 128, TypeError),
+]
+
+
+@pytest.mark.parametrize("dtype,head_dim,block_k,want", ROUTES)
+def test_flash_route_is_pinned(dtype, head_dim, block_k, want):
+    """bf16 at key tiles of 16-128 keys (powers of two) goes to the tensor
+    cores (mma); f32, and bf16 at any other tile, to the scalar kernels (simt);
+    a call no route takes raises; nothing falls back."""
+    if isinstance(want, str):
+        assert flash_route(dtype, head_dim, block_k) == want
+    else:
+        with pytest.raises(want):
+            flash_route(dtype, head_dim, block_k)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_forward_rounds_p_at_the_key_tile(causal):
+    """In bf16, p is rounded at each key tile's running maximum, so block_k is
+    part of the result: the plain K4 at block_k 64 and at 128 differ on the same
+    inputs, and each agrees with JAX at its own block far more closely than
+    with JAX at the other. The kernels must walk keys in tiles of block_k."""
+    rng = np.random.default_rng(3)
+    shape = (1, 2, 256, 16)
+    q, k, v = (rng.standard_normal(shape).astype(np.float32) * s for s in (2.0, 2.0, 1.0))
+    port, ref = {}, {}
+    for block_k in (64, 128):
+        port[block_k], _ = flash_forward_plain(
+            *(_torch(a, "bfloat16") for a in (q, k, v)), causal, 128, block_k, 16 ** -0.5)
+        want, _ = jax_attention.flash_attention_lse(
+            *(_jax(a, "bfloat16") for a in (q, k, v)), causal, 128, block_k, None, True)
+        ref[block_k] = torch.as_tensor(np.asarray(want.astype(jnp.float32)))
+        _assert_close(port[block_k], want, "bfloat16", f"out at block_k {block_k}")
+
+    def mismatches(a, b):
+        return int((a.float() != b.float()).sum())
+
+    assert mismatches(port[64], port[128]) > 0
+    for own, other in ((64, 128), (128, 64)):
+        assert 20 * mismatches(port[own], ref[own]) < mismatches(port[own], ref[other])

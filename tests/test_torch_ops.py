@@ -190,7 +190,8 @@ def test_build_targets_hopper_and_names_libraries_by_content(monkeypatch):
     monkeypatch.setattr(cuda_lib, "nvcc", lambda: "nvcc")
     cmd = cuda_lib.nvcc_command("gather_rows", Path("/x.so"))
     assert "arch=compute_90a,code=sm_90a" in cmd and "-shared" in cmd
-    assert cuda_lib.sources() == ["flash_attention", "gather_rows", "keyed_fold"]
+    assert cuda_lib.sources() == [
+        "flash_attention", "flash_attention_mma", "gather_rows", "keyed_fold"]
     a, b = (cuda_lib.library_path(s) for s in ("gather_rows", "keyed_fold"))
     assert a.parent == cuda_lib.BUILD_DIR and a != b
     assert cuda_lib.library_path("gather_rows") == a  # stable for the same source
