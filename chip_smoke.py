@@ -23,10 +23,10 @@ Phases, in order; any failure ends the script with a non-zero exit code:
    128) and at edge cases (f32 operands, not causal, D = 16 and 128, one
    block, a nonzero LSE cotangent, block_k 64 with D = 32, Sq != Sk, block_k
    32 with D = 16, block_k 16, and the bf16 tiles the tensor cores do not
-   take: 100 keys and 256); each case must take the route its table row names
-   (``mma``, the tensor cores, for bf16 at block_k 16, 32, 64 or 128; ``simt``
-   for f32 and the other bf16 tiles), and K4 and K5a run twice must agree bit
-   for bit. Timed beside
+   take: 100 keys and 256); in each case all three must take the route its
+   table row names (``mma``, the tensor cores, for bf16 at block_k 16, 32, 64
+   or 128; ``simt`` for f32 and the other bf16 tiles), and each run twice must
+   agree bit for bit. Timed beside
    their plain versions, their first (scalar) versions and
    ``scaled_dot_product_attention``'s forward and backward.
 3. The slice: ``python -m harmony_tpu_torch.cli run widedeep`` at the
@@ -36,8 +36,8 @@ Phases, in order; any failure ends the script with a non-zero exit code:
    then the same job on the CPU (plain versions), step for step.
 3b. The LM at full width: ``cli run lm`` at the size of ``benchmarks/lm.py``
    (vocab 8192, d_model 512, 8 heads, 8 layers, d_ff 2048, max_seq 1024, bf16,
-   batch 32 x 1024 tokens) for 2 epochs of 4 steps, launch counts (K4 and K5a
-   on the ``mma`` route) read around it; then the same run with
+   batch 32 x 1024 tokens) for 2 epochs of 4 steps, launch counts (K4, K5a
+   and K5b on the ``mma`` route) read around it; then the same run with
    ``--set attn=blockwise``, step for step.
 3c. The ``lm`` preset as shipped (f32, head dim 16, 64 tokens) on the card, on
    the ``simt`` route, and on the CPU, step for step.
@@ -313,7 +313,10 @@ def time_kernels(dev, table, idx):
     """ms of kernel, plain version and library call at the slice's shape, and
     the bound: the larger of bytes moved over HBM bandwidth and f32 operations
     over the f32 peak, for this input (each input read once, each output
-    written once)."""
+    written once). The folds have two library times: ``index_add_`` as it
+    runs by default (atomic adds, whose order changes from run to run) and
+    under ``torch.use_deterministic_algorithms(True)``, which computes the
+    folds' function, a fixed-order sum."""
     from harmony_tpu_torch.ops.histogram import (
         weighted_histogram,
         weighted_histogram_plain,
@@ -347,15 +350,27 @@ def time_kernels(dev, table, idx):
         library_ms=time_ms(lambda: torch.index_select(table, 0, idx64)),
         bound_ms=b, bound_by=by)
     b, by = bound(fold_bytes, fold_ops)
-    library = time_ms(lambda: torch.zeros((R, W), device=dev).index_add_(0, idx64, deltas))
-    out["segment_sum_rows"] = dict(
-        ms=time_ms(lambda: segment_sum_rows(deltas, idx, R)),
-        plain_ms=time_ms(lambda: segment_sum_rows_plain(deltas, idx, R)),
-        library_ms=library, bound_ms=b, bound_by=by)
-    out["weighted_histogram"] = dict(
-        ms=time_ms(lambda: weighted_histogram(idx, deltas, R)),
-        plain_ms=time_ms(lambda: weighted_histogram_plain(idx, deltas, R)),
-        library_ms=library, bound_ms=b, bound_by=by)
+
+    def index_add():
+        return torch.zeros((R, W), device=dev).index_add_(0, idx64, deltas)
+
+    library = time_ms(index_add)
+    mode = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True)
+    try:
+        library_deterministic = time_ms(index_add)
+    finally:
+        torch.use_deterministic_algorithms(mode[0], warn_only=mode[1])
+    for name, kernel, plain in (
+        ("segment_sum_rows", lambda: segment_sum_rows(deltas, idx, R),
+         lambda: segment_sum_rows_plain(deltas, idx, R)),
+        ("weighted_histogram", lambda: weighted_histogram(idx, deltas, R),
+         lambda: weighted_histogram_plain(idx, deltas, R)),
+    ):
+        out[name] = dict(ms=time_ms(kernel), plain_ms=time_ms(plain), library_ms=library,
+                         library_deterministic_ms=library_deterministic, bound_ms=b,
+                         bound_by=by)
     return out
 
 
@@ -365,7 +380,7 @@ FLASH_KERNELS = ("flash_forward", "flash_backward_dkv", "flash_backward_dq")
 
 
 # (name, (B, H, Sq, D), Sk, dtype, causal, block, nonzero LSE cotangent, the route
-# K4 and K5a must take: ops/attention.py::flash_route)
+# K4, K5a and K5b must take: ops/attention.py::flash_route)
 FLASH_CASES = [
     ("the LM's shape, bf16, causal", (32, 8, 1024, 64), 1024, torch.bfloat16, True, 128,
      False, "mma"),
@@ -413,7 +428,8 @@ def mma_build_report(report: str):
         m = re.search(r"(?:Compiling entry function|Function properties for) '?(\S+?)'?(?:\s|$)",
                       line)
         if m:
-            k = re.search(r"(flash_(?:forward|backward_dkv)_mma_kernel)ILi(\d+)E(?:Li(\d+)E)?",
+            k = re.search(r"(flash_(?:forward|backward_dkv|backward_dq)_mma_kernel)ILi(\d+)E"
+                          r"(?:Li(\d+)E)?",
                           m.group(1))
             name = (k.group(1), int(k.group(2)), int(k.group(3) or 0)) if k else None
             continue
@@ -426,17 +442,19 @@ def mma_build_report(report: str):
         m = re.search(r"Used (\d+) registers", line)
         if m:
             entry["registers"] = int(m.group(1))
+    codes = {"flash_forward_mma_kernel": 0, "flash_backward_dkv_mma_kernel": 1,
+             "flash_backward_dq_mma_kernel": 2}
     for (kernel, d, bk), entry in out.items():
         entry["shared_bytes"] = cuda_lib.call(
-            "harmony_flash_mma_shared_bytes", 0 if "forward" in kernel else 1, d, bk)
+            "harmony_flash_mma_shared_bytes", codes[kernel], d, bk)
     return out
 
 
 def check_flash_kernels(dev):
     """K4, K5a and K5b against their plain versions on every case of
-    FLASH_CASES; K4 and K5a on the route each case names, and the same bit for
-    bit when run again. Returns each kernel's max |kernel - plain|
-    over the cases."""
+    FLASH_CASES, each on the route the case names and the same bit for bit
+    when run again. Returns each kernel's max |kernel - plain| over the
+    cases."""
     from harmony_tpu_torch.ops import attention as A
 
     err = {"flash_forward": 0.0, "flash_backward_dkv": 0.0, "flash_backward_dq": 0.0}
@@ -461,32 +479,32 @@ def check_flash_kernels(dev):
         check(A.flash_route(dtype, shape[-1], block) == route,
               f"{case}: flash_route gives {A.flash_route(dtype, shape[-1], block)}, "
               f"expected {route}")
-        fwd, dkv = A.flash_forward, A.flash_backward_dkv
-        before = (fwd.launches_by_route[route], dkv.launches_by_route[route])
-        out, lse = fwd(q, k, v, *args)
-        out2, lse2 = fwd(q, k, v, *args)
+        wrappers = (A.flash_forward, A.flash_backward_dkv, A.flash_backward_dq)
+        before = [w.launches_by_route[route] for w in wrappers]
+        out, lse = A.flash_forward(q, k, v, *args)
+        out2, lse2 = A.flash_forward(q, k, v, *args)
         torch.cuda.synchronize()
         out_p, lse_p = A.flash_forward_plain(q, k, v, *args)
         compare("flash_forward", "out", case, out, out_p, dtype)
         compare("flash_forward", "lse", case, lse, lse_p, dtype)
         delta = (do.float() * out_p.float()).sum(dim=-1) - glse
-        dk, dv = dkv(q, k, v, do, lse_p, delta, *args)
-        dk2, dv2 = dkv(q, k, v, do, lse_p, delta, *args)
+        dk, dv = A.flash_backward_dkv(q, k, v, do, lse_p, delta, *args)
+        dk2, dv2 = A.flash_backward_dkv(q, k, v, do, lse_p, delta, *args)
         dq = A.flash_backward_dq(q, k, v, do, lse_p, delta, *args)
+        dq2 = A.flash_backward_dq(q, k, v, do, lse_p, delta, *args)
         torch.cuda.synchronize()
-        check((fwd.launches_by_route[route], dkv.launches_by_route[route])
-              == (before[0] + 2, before[1] + 2),
-              f"{case}: K4/K5a did not launch on the {route} route")
+        check([w.launches_by_route[route] for w in wrappers] == [n + 2 for n in before],
+              f"{case}: K4/K5a/K5b did not launch on the {route} route")
         check(all(same_bits(a, b) for a, b in
-                  ((out, out2), (lse, lse2), (dk, dk2), (dv, dv2))),
-              f"{case}: K4/K5a run twice on the same inputs differ")
+                  ((out, out2), (lse, lse2), (dk, dk2), (dv, dv2), (dq, dq2))),
+              f"{case}: K4/K5a/K5b run twice on the same inputs differ")
         dk_p, dv_p = A.flash_backward_dkv_plain(q, k, v, do, lse_p, delta, *args)
         dq_p = A.flash_backward_dq_plain(q, k, v, do, lse_p, delta, *args)
         compare("flash_backward_dkv", "dk", case, dk, dk_p, dtype)
         compare("flash_backward_dkv", "dv", case, dv, dv_p, dtype)
         compare("flash_backward_dq", "dq", case, dq, dq_p, dtype)
         print(f"phase 2b: flash kernels within tolerance on {case} {list(shape)} "
-              f"Sk={sk} {str(dtype)[6:]} causal={causal} block={block}, K4/K5a on "
+              f"Sk={sk} {str(dtype)[6:]} causal={causal} block={block}, K4/K5a/K5b on "
               f"route {route}, bit-identical when run twice", flush=True)
     return err
 
@@ -508,7 +526,7 @@ def time_flash_kernels(dev):
     out, lse = A.flash_forward(q, k, v, *args)
     delta = (do.float() * out.float()).sum(dim=-1) - glse
     stream = torch.cuda.current_stream().cuda_stream
-    o1, lse1, dk1, dv1 = (torch.empty_like(t) for t in (out, lse, k, v))
+    o1, lse1, dk1, dv1, dq1 = (torch.empty_like(t) for t in (out, lse, k, v, q))
 
     def first_forward():  # the first, scalar kernel on the same bf16 operands
         cuda_lib.launch("harmony_flash_forward", q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -520,6 +538,11 @@ def time_flash_kernels(dev):
                         v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                         dk1.data_ptr(), dv1.data_ptr(), 1, B * H, S, S, D, float(scale),
                         int(causal), stream)
+
+    def first_dq():
+        cuda_lib.launch("harmony_flash_backward_dq", q.data_ptr(), k.data_ptr(),
+                        v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                        dq1.data_ptr(), 1, B * H, S, S, D, float(scale), int(causal), stream)
     bh, e = B * H, q.element_size()
     pairs = bh * S * (S + 1) // 2
     io = bh * S * D * e      # one of q, k, v, dO, O, dQ, dK, dV
@@ -561,6 +584,7 @@ def time_flash_kernels(dev):
         ms=time_ms(lambda: A.flash_backward_dq(q, k, v, do, lse, delta, *args), **t),
         plain_ms=time_ms(lambda: A.flash_backward_dq_plain(q, k, v, do, lse, delta, *args),
                          **t),
+        first_version_ms=time_ms(first_dq, **t),
         library_ms=sdpa_bwd, bound_ms=b, bound_by=by)
     return out
 
@@ -654,7 +678,7 @@ def run_lm():
                 "flash_backward_dq": per_path}
     check(launches == expected, f"LM launches {launches}, expected {expected}")
     routes = {w.__name__: dict(w.launches_by_route)
-              for w in (A.flash_forward, A.flash_backward_dkv)}
+              for w in (A.flash_forward, A.flash_backward_dkv, A.flash_backward_dq)}
     check(all(r == {"mma": per_path, "simt": 0} for r in routes.values()),
           f"LM launches by route {routes}, expected all {per_path} on mma")
     print(f"phase 3b: LM losses {losses}, launches {launches}, by route {routes}",
@@ -694,8 +718,8 @@ def run_lm_preset():
     steps = len(card["batch_losses"])  # the preset: 3 epochs of 4 steps, 2 layers
     check(steps == 12 and all(n == steps * 2 for n in launches.values()),
           f"lm preset: {steps} steps, launches {launches}")
-    check(all(w.launches_by_route == {"mma": 0, "simt": steps * 2} for w in flash[:2]),
-          "lm preset: K4/K5a did not take the simt route on f32 operands")
+    check(all(w.launches_by_route == {"mma": 0, "simt": steps * 2} for w in flash),
+          "lm preset: K4/K5a/K5b did not take the simt route on f32 operands")
     reset_counts(*flash)
     cpu = run_cli(["run", "lm", "--device", "cpu"])
     check(all(w.launches == 0 for w in flash), "a kernel launched on the CPU run")
@@ -830,7 +854,6 @@ def main() -> int:
     print("profile: " + json.dumps(profile_slice()), flush=True)
     print("lm profile: " + json.dumps(profile_lm()), flush=True)
 
-    flash_source = "harmony_tpu_torch/csrc/flash_attention.cu"
     mma_source = "harmony_tpu_torch/csrc/flash_attention_mma.cu"
     sources = {
         "gather_rows": ("harmony_tpu_torch/csrc/gather_rows.cu",
@@ -841,12 +864,10 @@ def main() -> int:
                                "harmony_tpu/ops/histogram.py:94"),
         "flash_forward": (mma_source, "harmony_tpu/ops/attention.py:191"),
         "flash_backward_dkv": (mma_source, "harmony_tpu/ops/attention.py:345"),
-        "flash_backward_dq": (flash_source, "harmony_tpu/ops/attention.py:367"),
+        "flash_backward_dq": (mma_source, "harmony_tpu/ops/attention.py:367"),
     }
     # which kernel of each flash entry the LM's bf16 path runs and this line times
-    variants = {"flash_forward": "mma: bf16 mma.sync, cp.async double-buffered",
-                "flash_backward_dkv": "mma: bf16 mma.sync, cp.async double-buffered",
-                "flash_backward_dq": "simt: scalar f32 FMAs"}
+    variants = dict.fromkeys(FLASH_KERNELS, "mma: bf16 mma.sync, cp.async double-buffered")
     kernels = []
     for name, (source, replaces) in sources.items():
         t = timing[name]
@@ -858,6 +879,8 @@ def main() -> int:
         }
         if name in variants:
             entry["variant"] = variants[name]
+        if "library_deterministic_ms" in t:
+            entry["library_deterministic_ms"] = t["library_deterministic_ms"]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(gpu_identity())

@@ -1,27 +1,31 @@
-// Flash attention on Hopper's tensor cores (sm_90a), bf16 operands: K4 forward and K5a
-// backward dK/dV. The f32 route and K5b stay in flash_attention.cu.
+// Flash attention on Hopper's tensor cores (sm_90a), bf16 operands: K4 forward, K5a
+// backward dK/dV and K5b backward dQ. The f32 route stays in flash_attention.cu.
 //
 // Replaces, in harmony_tpu/ops/attention.py:
 //   K4  _flash_forward (attention.py:191), body _fa_kernel, pallas_call at :208;
-//   K5a _flash_backward (:310) dK/dV, body _fa_bwd_dkv_kernel, pallas_call at :345.
-// Layout: q, o, dout [BH, Sq, D] and k, v, dk, dv [BH, Sk, D] bf16, row-major; lse and
+//   K5a _flash_backward (:310) dK/dV, body _fa_bwd_dkv_kernel, pallas_call at :345;
+//   K5b _flash_backward (:310) dQ, body _fa_bwd_dq_kernel (tile math _bwd_p_ds), pallas_call
+//       at :367.
+// Layout: q, o, dout, dq [BH, Sq, D] and k, v, dk, dv [BH, Sk, D] bf16, row-major; lse and
 // delta [BH, Sq] f32, compact.
 //
 // What they compute is the scalar kernels' function (flash_attention.cu), which is the TPU
 // kernels' arithmetic: scores are f32 sums of exact bf16 products, scaled after the product,
 // masked with the finite -1e30 (row >= col). K4 walks the keys in tiles of exactly the
 // caller's block_k and rounds p to bf16 at that tile's running maximum (attention.py:150-158);
-// l sums the unrounded p. K5a recomputes p = exp(x - lse) and ds = p (dp - delta) and rounds
-// both elementwise, so its q tiling is its own. Only the order of f32 additions differs.
+// l sums the unrounded p. K5a and K5b recompute p = exp(x - lse) from the final LSE and
+// ds = p (dp - delta), and round them elementwise, so no rounding depends on a tile: K5a's q
+// tiling and K5b's key tiling are their own. Only the order of f32 additions differs.
 //
 // What bounds them at the LM's shape (q, k, v [32, 8, 1024, 64], causal, H100 SXM): K4 moves
 // 135 MB and does 3.44e10 tensor-core operations: 0.040 ms by bytes. K5a moves 203 MB and
-// does 6.9e10: 0.070 ms by operations. Both want the tensor cores fed from shared memory
-// without stalls; neither may spill its tile state to device memory.
+// does 6.9e10: 0.070 ms by operations. K5b moves 170 MB and does 5.2e10: 0.052 ms by
+// operations. All want the tensor cores fed from shared memory without stalls; none may
+// spill its tile state to device memory.
 //
-// Design. One block of 4 warps owns 64 rows of the output (q rows for K4, kv rows for K5a),
-// 16 rows a warp, and loops over the other axis; each output element is written once, with no
-// atomics, so a result is the same bit for bit from run to run. Every tile product is
+// Design. One block of 4 warps owns 64 rows of the output (q rows for K4 and K5b, kv rows for
+// K5a), 16 rows a warp, and loops over the other axis; each output element is written once,
+// with no atomics, so a result is the same bit for bit from run to run. Every tile product is
 // mma.sync.m16n8k16 (bf16 x bf16 -> f32). Operands are staged as bf16 in shared memory with
 // rows padded by 16 bytes, so the 8 row addresses of each ldmatrix fall in 8 distinct bank
 // groups; the next tile is in flight by cp.async (two stages) while this one computes.
@@ -42,6 +46,16 @@
 //   Q through ldmatrix.trans. q tiles wholly above a warp's keys are skipped; dK is scaled
 //   once at the end. At D = 64 it takes 218 registers a thread, two blocks an SM; reading K
 //   and V by ldmatrix instead, to fit three, spilled and was no faster.
+//   K5b: K5a with the roles swapped. A warp's Q and dO rows are the A operands of S = Q K^T
+//   and dP = dO V^T (held in registers up to D = 64, read by ldmatrix for D = 128), and each
+//   thread keeps its two rows' lse and delta in registers. K and V come in tiles of 64 keys,
+//   whatever block_k is; dS, from the unrounded P, is rounded into A fragments in registers,
+//   and dQ += dS K reads K through ldmatrix.trans. At D = 128 a warp takes the keys in
+//   sub-tiles of 32, so dQ (64 floats a thread) and one sub-tile's S and dP fit the
+//   registers; at every D it runs at most 168 registers a thread, three blocks an SM where
+//   shared memory allows (D <= 64: 55,296 bytes a block). Key tiles wholly above a warp's rows are skipped and the mask is applied
+//   only on tiles that cross the diagonal (or pass Sk); the grid walks the longest causal
+//   rows first, as K4's does. dQ is scaled once at the end.
 // wgmma and TMA (a warpgroup's asynchronous products, one thread's tile copies) are the
 // next step; this is the mma.sync version.
 #include <math.h>
@@ -493,6 +507,156 @@ __global__ void __launch_bounds__(kThreads)
   store_rows<D>(dv + bh * sk * D, dv_acc, row0, k0 + nk, one, one);
 }
 
+// ---------------------------------------------------------------------------------------
+// K5b: one block per (batch*head, 64 q rows), grid.y walked longest causal rows first; loops
+// over kv tiles of 64 keys, K and V staged in two stages by cp.async. Within a tile a
+// warp takes the keys in sub-tiles of KN (64 up to D = 64, 32 at D = 128, so the tile state
+// fits the registers). Three blocks an SM cap it at 168 registers a thread; left uncapped,
+// ptxas took 168 at D = 64 all the same and spilled 16 bytes.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 3)
+    flash_backward_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                                 const float* __restrict__ lse,
+                                 const float* __restrict__ delta, bf16* __restrict__ dq,
+                                 int sq, int sk, float scale, int causal) {
+  constexpr int ld = D + kPad;
+  constexpr int kBK = 64;                 // keys a staged tile
+  constexpr int kKN = D <= 64 ? 64 : 32;  // keys a warp takes at a time
+  constexpr int kKeyTiles = kKN / 8;      // n-tiles of S and dP
+  constexpr int kDTiles = D / 8;
+  constexpr int kDSteps = D / 16;
+  constexpr bool kQInRegisters = D <= 64;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [kRows][ld]
+  bf16* dos = qs + kRows * ld;                   // [kRows][ld]
+  bf16* stages = dos + kRows * ld;               // 2 x {K [kBK][ld], V [kBK][ld]}
+
+  const long long bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;
+  const int nq = min(kRows, sq - q0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int warp_first = q0 + warp * 16;  // this warp's q rows: warp_first .. + 15
+  const int row0 = warp_first + g;        // this thread's q rows: row0 and row0 + 8
+  const bf16* kb = k + bh * sk * D;
+  const bf16* vb = v + bh * sk * D;
+
+  // this thread's rows' lse and delta; rows past Sq (zero q and dO) take 0: p = 1, ds = 0
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    lse_r[r] = row < sq ? lse[bh * sq + row] : 0.f;
+    delta_r[r] = row < sq ? delta[bh * sq + row] : 0.f;
+  }
+
+  int ntiles = (sk + kBK - 1) / kBK;
+  if (causal) ntiles = min(ntiles, (q0 + nq - 1) / kBK + 1);
+
+  auto issue = [&](int i) {
+    if (i < ntiles) {
+      const int key0 = i * kBK, n = min(kBK, sk - key0);
+      bf16* ks = stages + (i & 1) * 2 * kBK * ld;
+      stage_rows<D, kBK>(ks, kb + static_cast<long long>(key0) * D, n);
+      stage_rows<D, kBK>(ks + kBK * ld, vb + static_cast<long long>(key0) * D, n);
+    }
+    cp_async_commit();
+  };
+
+  stage_rows<D, kRows>(qs, q + (bh * sq + q0) * D, nq);
+  stage_rows<D, kRows>(dos, dout + (bh * sq + q0) * D, nq);
+  issue(0);  // the first group holds Q, dO and tile 0
+
+  uint32_t qf[kQInRegisters ? kDSteps : 1][4], dof[kQInRegisters ? kDSteps : 1][4];
+  float dq_acc[kDTiles][4];
+#pragma unroll
+  for (int j = 0; j < kDTiles; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq_acc[j][e] = 0.f;
+
+  for (int i = 0; i < ntiles; ++i) {
+    issue(i + 1);
+    cp_async_wait_one();
+    __syncthreads();
+    if constexpr (kQInRegisters) {
+      if (i == 0) {
+#pragma unroll
+        for (int kk = 0; kk < kDSteps; ++kk) {
+          ldsm_x4(qf[kk], a_frag<ld>(qs, warp * 16, kk * 16, lane));
+          ldsm_x4(dof[kk], a_frag<ld>(dos, warp * 16, kk * 16, lane));
+        }
+      }
+    }
+    const int key0 = i * kBK;
+    const bf16* ks = stages + (i & 1) * 2 * kBK * ld;
+    const bf16* vs = ks + kBK * ld;
+    const bool ragged = key0 + kBK > sk;  // the zero rows past Sk must get p = 0
+#pragma unroll
+    for (int c0 = 0; c0 < kBK; c0 += kKN) {
+      // keys wholly above this warp's rows contribute exactly nothing (p = 0)
+      if (causal && key0 + c0 > warp_first + 15) continue;
+      float s[kKeyTiles][4], dp[kKeyTiles][4];
+#pragma unroll
+      for (int n = 0; n < kKeyTiles; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kDSteps; ++kk) {
+        // the A fragments of this warp's Q and dO rows, columns kk*16 .. +15
+        uint32_t qa[4], da[4];
+        if constexpr (kQInRegisters) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            qa[e] = qf[kk][e];
+            da[e] = dof[kk][e];
+          }
+        } else {
+          ldsm_x4(qa, a_frag<ld>(qs, warp * 16, kk * 16, lane));
+          ldsm_x4(da, a_frag<ld>(dos, warp * 16, kk * 16, lane));
+        }
+#pragma unroll
+        for (int n2 = 0; n2 < kKeyTiles / 2; ++n2) {
+          uint32_t b[4];
+          ldsm_x4(b, nt_pair<ld>(ks, c0 + n2 * 16, kk * 16, lane));
+          mma(s[2 * n2], qa, b[0], b[1]);
+          mma(s[2 * n2 + 1], qa, b[2], b[3]);
+          ldsm_x4(b, nt_pair<ld>(vs, c0 + n2 * 16, kk * 16, lane));
+          mma(dp[2 * n2], da, b[0], b[1]);
+          mma(dp[2 * n2 + 1], da, b[2], b[3]);
+        }
+      }
+      const bool masked = ragged || (causal && key0 + c0 + kKN - 1 > warp_first);
+#pragma unroll
+      for (int n = 0; n < kKeyTiles; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = key0 + c0 + n * 8 + 2 * t + (e & 1);
+          float x = s[n][e] * scale;
+          if (masked && (col >= sk || (causal && row0 + 8 * (e >> 1) < col))) x = kNegInf;
+          const float p = expf(x - lse_r[e >> 1]);
+          dp[n][e] = p * (dp[n][e] - delta_r[e >> 1]);
+        }
+#pragma unroll
+      for (int kk = 0; kk < kKN / 16; ++kk) {
+        uint32_t dsa[4];
+        a_from_c(dsa, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+        for (int d2 = 0; d2 < kDTiles / 2; ++d2) {
+          uint32_t b[4];
+          ldsm_x4_trans(b, kn_pair<ld>(ks, c0 + kk * 16, d2 * 16, lane));
+          mma(dq_acc[2 * d2], dsa, b[0], b[1]);
+          mma(dq_acc[2 * d2 + 1], dsa, b[2], b[3]);
+        }
+      }
+    }
+    __syncthreads();  // this stage's readers are done before tile i + 2 refills it
+  }
+
+  const float one[2] = {1.f, 1.f}, scales[2] = {scale, scale};
+  store_rows<D>(dq + bh * sq * D, dq_acc, row0, q0 + nq, scales, one);
+}
+
 size_t forward_shared_bytes(int d, int block_k) {
   return sizeof(bf16) * static_cast<size_t>((q_in_stage(block_k) ? 0 : kRows) + 4 * block_k) *
          (d + kPad);
@@ -501,6 +665,10 @@ size_t forward_shared_bytes(int d, int block_k) {
 size_t dkv_shared_bytes(int d) {
   return sizeof(bf16) * static_cast<size_t>(6 * kRows) * (d + kPad) +
          sizeof(float) * 4 * kRows;
+}
+
+size_t dq_shared_bytes(int d) {
+  return sizeof(bf16) * static_cast<size_t>(6 * kRows) * (d + kPad);
 }
 
 // f(integral_constant<int, n>) for a head dim or a key tile n in {16, 32, 64, 128}.
@@ -565,8 +733,25 @@ extern "C" int harmony_flash_backward_dkv_mma(const void* q, const void* k, cons
   });
 }
 
-// Dynamic shared memory a launch asks for: kernel 0 is K4 (at this block_k), 1 is K5a.
+// K5b: dq [bh, sq, d] bf16.
+extern "C" int harmony_flash_backward_dq_mma(const void* q, const void* k, const void* v,
+                                             const void* dout, const float* lse,
+                                             const float* delta, void* dq, long long bh,
+                                             int sq, int sk, int d, float scale, int causal,
+                                             cudaStream_t stream) {
+  return dispatch_width(d, [&](auto dd) {
+    constexpr int D = decltype(dd)::value;
+    return launch(flash_backward_dq_mma_kernel<D>, bh, sq, dq_shared_bytes(D), stream,
+                  static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                  static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, delta,
+                  static_cast<bf16*>(dq), sq, sk, scale, causal);
+  });
+}
+
+// Dynamic shared memory a launch asks for: kernel 0 is K4 (at this block_k), 1 is K5a, 2 is
+// K5b.
 extern "C" int harmony_flash_mma_shared_bytes(int kernel, int d, int block_k) {
   if (kernel == 0) return static_cast<int>(forward_shared_bytes(d, block_k));
-  return static_cast<int>(dkv_shared_bytes(d));
+  if (kernel == 1) return static_cast<int>(dkv_shared_bytes(d));
+  return static_cast<int>(dq_shared_bytes(d));
 }

@@ -18,15 +18,15 @@ On a CUDA tensor each kernel wrapper launches its hand-written kernel; on a
 CPU tensor it takes the plain PyTorch version beside it (``*_plain``), which
 follows the TPU kernels' arithmetic tile for tile: the scale on the f32
 product, the finite ``-1e30`` mask, the kv tiles above the diagonal skipped,
-``l = max(l, 1e-30)``, and p rounded to v's type before PV. K4 and K5a have
-two routes on the card, picked by :func:`flash_route` alone: ``"mma"``, the
-tensor-core kernels for bf16 operands at key tiles of 16, 32, 64 or 128
+``l = max(l, 1e-30)``, and p rounded to v's type before PV. The three kernels
+have two routes on the card, picked by :func:`flash_route` alone, so one
+call's three launches share a route: ``"mma"``, the tensor-core kernels for
+bf16 operands at key tiles of 16, 32, 64 or 128
 (``csrc/flash_attention_mma.cu``), and ``"simt"``, the scalar kernels
 (``csrc/flash_attention.cu``), for f32 operands, which they keep out of TF32,
-and for bf16 at any other key tile. K5b has the scalar kernel for both types. There is
-no fallback: a CUDA tensor no route takes raises. Each wrapper counts its
-kernel launches in ``<wrapper>.launches``, and K4 and K5a also by route in
-``<wrapper>.launches_by_route``.
+and for bf16 at any other key tile. There is no fallback: a CUDA tensor no
+route takes raises. Each wrapper counts its kernel launches in
+``<wrapper>.launches``, and by route in ``<wrapper>.launches_by_route``.
 """
 from __future__ import annotations
 
@@ -222,8 +222,8 @@ def _check_type_and_head_dim(dtype: torch.dtype, head_dim: int) -> None:
 
 
 def flash_route(dtype: torch.dtype, head_dim: int, block_k: int) -> str:
-    """The kernel a CUDA call of K4 or K5a takes, and the one place that choice
-    is made: ``"mma"`` (tensor cores) for bf16 operands whose ``block_k`` is
+    """The kernel a CUDA call of K4, K5a or K5b takes, and the one place that
+    choice is made: ``"mma"`` (tensor cores) for bf16 operands whose ``block_k`` is
     one of :data:`MMA_BLOCK_KS`, ``"simt"`` (scalar f32 FMAs) for f32 operands
     and for bf16 at any other ``block_k`` (the bf16 LM at a sequence length
     that is no power of two, a direct caller's default block of 256). f32
@@ -301,21 +301,25 @@ def flash_backward_dq(q, k, v, do, lse, delta, causal, block_q, block_k, scale):
     if not use_kernel(q, k, v, do, lse, delta):
         return flash_backward_dq_plain(q, k, v, do, lse, delta, causal, block_q,
                                        block_k, scale)
-    _check_type_and_head_dim(q.dtype, q.shape[-1])
+    route = flash_route(q.dtype, q.shape[-1], block_k)
     q, k, v, do = _kernel_operands(q, k, v, do)
     lse, delta = lse.float().contiguous(), delta.float().contiguous()
     B, H, Sq, D = q.shape
     dq = torch.empty_like(q)
-    cuda_lib.launch(
-        "harmony_flash_backward_dq", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        _DTYPE_CODE[q.dtype], B * H, Sq, k.shape[2], D, float(scale), int(causal),
-        _stream(q))
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr())
+    sizes = (B * H, Sq, k.shape[2], D, float(scale), int(causal), _stream(q))
+    if route == "mma":
+        cuda_lib.launch("harmony_flash_backward_dq_mma", *ptrs, *sizes)
+    else:
+        cuda_lib.launch("harmony_flash_backward_dq", *ptrs, _DTYPE_CODE[q.dtype], *sizes)
     flash_backward_dq.launches += 1
+    flash_backward_dq.launches_by_route[route] += 1
     return dq
 
 
 flash_backward_dq.launches = 0
+flash_backward_dq.launches_by_route = {"mma": 0, "simt": 0}
 
 
 # ---------------------------------------------------------------------------

@@ -48,6 +48,8 @@ SIGNATURES = {
         "flash_attention_mma", [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _F, _I, _P]),
     "harmony_flash_backward_dkv_mma": (
         "flash_attention_mma", [_P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _F, _I, _P]),
+    "harmony_flash_backward_dq_mma": (
+        "flash_attention_mma", [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _F, _I, _P]),
     "harmony_flash_mma_shared_bytes": ("flash_attention_mma", [_I, _I, _I]),
 }
 

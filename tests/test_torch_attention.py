@@ -18,6 +18,8 @@ Tolerances:
     2**-7 * max|reference| (two ulps at the largest magnitude). The LSE stays
     f32: 2e-5.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,12 +27,14 @@ import pytest
 import torch
 
 from harmony_tpu.ops import attention as jax_attention
+from harmony_tpu_torch.ops import attention, cuda_lib
 from harmony_tpu_torch.ops.attention import (
     blockwise_attention,
     flash_attention,
     flash_attention_lse,
     flash_backward_dkv,
     flash_backward_dq,
+    flash_backward_dq_plain,
     flash_forward,
     flash_forward_plain,
     flash_route,
@@ -245,3 +249,95 @@ def test_bf16_forward_rounds_p_at_the_key_tile(causal):
     assert mismatches(port[64], port[128]) > 0
     for own, other in ((64, 128), (128, 64)):
         assert 20 * mismatches(port[own], ref[own]) < mismatches(port[own], ref[other])
+
+
+_DQ_BLOCKS = (32, 64, 128)
+
+
+def _dq_inputs():
+    rng = np.random.default_rng(4)
+    shape = (1, 2, 256, 16)
+    q, k, v = (rng.standard_normal(shape).astype(np.float32) * s for s in (2.0, 2.0, 1.0))
+    return q, k, v, rng.standard_normal(shape).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_bf16_dq(causal, block_k):
+    """dQ of sum(out * w) by jax.grad through the JAX package's interpret-mode
+    flash_attention_lse at this key tile, in f32."""
+    q, k, v, w = _dq_inputs()
+
+    def loss(q):
+        out, _ = jax_attention.flash_attention_lse(
+            q, _jax(k, "bfloat16"), _jax(v, "bfloat16"), causal, 128, block_k, None, True)
+        return jnp.sum(out.astype(jnp.float32) * w)
+
+    return np.asarray(jax.grad(loss)(_jax(q, "bfloat16")).astype(jnp.float32))
+
+
+@pytest.mark.parametrize("block_k", _DQ_BLOCKS)
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_dq_does_not_depend_on_the_key_tile(causal, block_k):
+    """Unlike K4's p, K5b's p and ds come from the final LSE and are rounded
+    elementwise, so block_k changes only the order of f32 sums: the port's
+    plain dQ at one block_k agrees with JAX's interpret-mode dQ at every
+    other, within 2**-7 * max|ref|, and with the same LSE and delta the plain
+    dQ at two key tiles differs by at most one bf16 ulp of the largest value.
+    So the tensor-core K5b may stage keys in tiles of its own (64)."""
+    q, k, v, w = _dq_inputs()
+    tq, tk, tv = (_torch(a, "bfloat16") for a in (q, k, v))
+    tq.requires_grad_(True)
+    out, lse = flash_attention_lse(tq, tk, tv, causal, 128, block_k)
+    (out.float() * torch.as_tensor(w)).sum().backward()
+    for other in _DQ_BLOCKS:
+        _assert_close(tq.grad, _jax_bf16_dq(causal, other), "bfloat16",
+                      f"dq: the port at block_k {block_k}, JAX at {other}")
+    do = _torch(w, "bfloat16")
+    delta = (do.float() * out.detach().float()).sum(dim=-1)
+    args = (tq.detach(), tk, tv, do, lse.detach(), delta, causal, 128)
+    mine = flash_backward_dq_plain(*args, block_k, 16 ** -0.5).float()
+    for other in _DQ_BLOCKS:
+        theirs = flash_backward_dq_plain(*args, other, 16 ** -0.5).float()
+        assert (mine - theirs).abs().max() <= 2.0 ** -8 * mine.abs().max()
+
+
+def _dq_operands(dtype, S):
+    rng = np.random.default_rng(S)
+    q, k, v, do = (torch.as_tensor(rng.standard_normal((1, 2, S, 16)).astype(np.float32))
+                   .to(dtype) for _ in range(4))
+    lse, delta = (torch.as_tensor(rng.standard_normal((1, 2, S)).astype(np.float32))
+                  for _ in range(2))
+    return q, k, v, do, lse, delta
+
+
+@pytest.mark.parametrize("dtype,block_k,entry", [
+    (torch.bfloat16, 128, "harmony_flash_backward_dq_mma"),   # the LM's tile
+    (torch.bfloat16, 16, "harmony_flash_backward_dq_mma"),
+    (torch.float32, 128, "harmony_flash_backward_dq"),        # f32 stays off TF32
+    (torch.bfloat16, 100, "harmony_flash_backward_dq"),       # a tile mma does not take
+    (torch.float16, 128, TypeError),                          # no route: raise, launch nothing
+])
+def test_dq_launches_the_kernel_its_route_names(monkeypatch, dtype, block_k, entry):
+    """K5b's wiring without a card: with use_kernel forced True, the wrapper
+    launches the entry point flash_route names, once, with as many arguments
+    as its SIGNATURES row declares, and counts the launch by route."""
+    calls = []
+    monkeypatch.setattr(attention, "use_kernel", lambda *tensors: True)
+    monkeypatch.setattr(attention, "_stream", lambda t: 0)
+    monkeypatch.setattr(cuda_lib, "launch", lambda name, *args: calls.append((name, args)))
+    operands = _dq_operands(dtype, block_k)
+    launches, by_route = flash_backward_dq.launches, dict(flash_backward_dq.launches_by_route)
+    if not isinstance(entry, str):
+        with pytest.raises(entry):
+            flash_backward_dq(*operands, True, block_k, block_k, 0.25)
+        assert calls == [] and flash_backward_dq.launches == launches
+        return
+    route = "mma" if entry.endswith("_mma") else "simt"
+    assert flash_route(dtype, 16, block_k) == route
+    dq = flash_backward_dq(*operands, True, block_k, block_k, 0.25)
+    assert [name for name, _ in calls] == [entry]
+    assert len(calls[0][1]) == len(cuda_lib.SIGNATURES[entry][1])
+    assert dq.shape == operands[0].shape and dq.dtype == dtype
+    assert flash_backward_dq.launches == launches + 1
+    by_route[route] += 1
+    assert flash_backward_dq.launches_by_route == by_route
