@@ -15,9 +15,16 @@ Phases, in order; any failure ends the script with a non-zero exit code:
    ``ptxas`` reports spills for one of them at D = 64 or D = 128.
 2. Kernels: run gather_rows (K1), segment_sum_rows (K2) and
    weighted_histogram (K3) on the card at the shapes of the Wide&Deep job
-   below and at edge cases, compare each with its plain version, and time the
-   kernel, the plain version and one PyTorch library call (a yardstick that
-   the port never calls) with CUDA events.
+   below and at edge cases. K1 must be byte-identical to its plain version
+   (16-, 8-, 4- and 2-byte units, aligned and not); K2 and K3 must give the
+   same bits as their plain version on the CPU (``index_add_``, index order)
+   and as themselves run twice, on every case (the slice, out-of-range ids,
+   64 heavy rows, one row, Zipf-skewed ids, W = 1, W = 300, 4.5M rows,
+   300,000 ids, bf16 and f16 weights). Time each kernel, its plain version
+   and one PyTorch library call (a yardstick that the port never calls): call
+   ms by CUDA events (the host's enqueue included), device ms by
+   torch.profiler (every kernel a call launches), and the wrapper's host us
+   per call; and the fold on the skewed cases.
 2b. Flash attention: K4 (forward), K5a (dK/dV) and K5b (dQ) against their
    plain versions at the LM's shape ([32, 8, 1024, 64] bf16, causal, blocks
    128) and at edge cases (f32 operands, not causal, D = 16 and 128, one
@@ -44,9 +51,12 @@ Phases, in order; any failure ends the script with a non-zero exit code:
 4. The sparse push route (``HARMONY_PUSH_VIA=sparse``): one epoch of the
    Wide&Deep job, which folds its pushes with K2.
 5. Where a step's time goes: a steady epoch of the Wide&Deep job on the host
-   clock, and one under ``torch.profiler`` for the device's busy time by kernel.
+   clock, and one under ``torch.profiler`` for the device's busy time by kernel
+   (the port's own kernels summed over their launches: the fold is two).
 5b. The same for the full-width LM.
-6. A ``kernels`` JSON line, the card's name and power limit, and the last line
+6. A ``kernels`` JSON line (K1-K3 also carry ``device_ms``,
+   ``library_device_ms``, ``library_deterministic_device_ms`` and
+   ``host_us``), the card's name and power limit, and the last line
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -134,9 +144,11 @@ def gpu_identity() -> str:
 
 
 def time_ms(fn, samples: int = 25, inner: int = 10) -> float:
-    """Median over ``samples`` of the mean time of ``inner`` back-to-back
-    calls, by CUDA events (the table stays warm in L2, as it does between the
-    job's steps)."""
+    """Call time: the median over ``samples`` of the mean time of ``inner``
+    back-to-back calls, by CUDA events, the host's enqueue included (a kernel
+    of a few microseconds ends before the host has enqueued the next call, so
+    this is then mostly the wrapper's host cost). The table stays warm in L2,
+    as it does between the job's steps."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -151,6 +163,59 @@ def time_ms(fn, samples: int = 25, inner: int = 10) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
+
+
+def device_kernels(fn, calls: int = 100) -> dict:
+    """Device time of one call by kernel name: the durations of the kernels
+    that torch.profiler (CUDA activity) records over ``calls`` back-to-back
+    calls, summed per name and divided by ``calls``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3 / calls
+    check(sum(by_name.values()) > 0, "the profiler saw no device time")
+    return by_name
+
+
+def device_ms(fn, calls: int = 100) -> float:
+    """Device time of one call: every kernel it launches, summed (the keyed
+    fold launches two)."""
+    return sum(device_kernels(fn, calls).values())
+
+
+def host_us(fn, calls: int = 1000, batch: int = 100) -> float:
+    """The host's microseconds per call: a perf_counter over ``calls``
+    enqueues, taken ``batch`` at a time between two synchronises, so that the
+    card's queue of launches (about a thousand) never fills and holds the host
+    back: the fold launches two kernels a call."""
+    fn()
+    seconds = 0.0
+    for _ in range(calls // batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(batch):
+            fn()
+        seconds += time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / (calls // batch * batch) * 1e6
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Same shape, type and bytes (so -0.0 differs from 0.0 and NaNs compare)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    as_int = torch.int16 if a.element_size() == 2 else torch.int32
+    return torch.equal(a.view(as_int), b.view(as_int))
 
 
 def run_cli(argv):
@@ -215,10 +280,57 @@ def fold_tolerance(x: torch.Tensor, idx: torch.Tensor, num_rows: int) -> torch.T
     return 2.0 * (count - 1).clamp_min(0) * U_F32 * abs_sum
 
 
+def fold_cases(dev, idx, R, W):
+    """The keyed fold's cases, each (name, x, ids, rows, exact against the
+    card's atomic index_add_), and the cases only K3 takes (bf16 and f16
+    weights). Two cases take the kernels' paths for large inputs: a table of
+    more rows than the bucket kernel keeps cursors for in shared memory
+    (8,192 tiles of 512), and more chunks of ids than a rows block has
+    threads (512 chunks of 512)."""
+    N = idx.shape[0]
+    g = torch.Generator(device=dev).manual_seed(3)
+    ints = torch.randint(-8, 9, (N, W), generator=g, device=dev).float()
+    floats = torch.randn((N, W), generator=g, device=dev)
+    wild = torch.randint(-5000, R + 5000, (N,), generator=g, device=dev, dtype=torch.int32)
+    dup = torch.randint(0, 64, (N,), generator=g, device=dev, dtype=torch.int32)
+    one_row = torch.zeros((N,), dtype=torch.int32, device=dev)
+    zipf = torch.as_tensor(np.random.default_rng(5).zipf(1.1, N) % R, dtype=torch.int32,
+                           device=dev)
+    wide = torch.randn((min(N, 4096), 300), generator=g, device=dev)
+    tall = 4_500_000
+    many = 300_000
+    both = [
+        ("slice, integer-valued", ints, idx, R, True),
+        ("slice, float", floats, idx, R, False),
+        ("negative and out-of-range ids", ints, wild, R, True),
+        ("heavy duplicates (64 rows), integer-valued", ints, dup, R, True),
+        ("heavy duplicates (64 rows), float", floats, dup, R, False),
+        ("one row (all ids on row 0), float", floats, one_row, R, False),
+        ("Zipf(1.1) ids, float", floats, zipf, R, False),
+        ("N=0", floats[:0], idx[:0], R, True),
+        ("W=1", floats[:, :1].contiguous(), idx, R, False),
+        ("W=300", wide, idx[: wide.shape[0]] % 5000, R, False),
+        (f"{tall:,} rows (cursors in device memory)", floats[:, :2].contiguous(),
+         torch.randint(-10, tall + 10, (N,), generator=g, device=dev, dtype=torch.int32),
+         tall, False),
+        (f"{many:,} ids (586 chunks)", torch.randn((many, 3), generator=g, device=dev),
+         torch.randint(0, R, (many,), generator=g, device=dev, dtype=torch.int32), R, False),
+    ]
+    k3_only = [
+        ("bf16 weights, integer-valued", ints.to(torch.bfloat16), idx, R, True),
+        ("bf16 weights, float", floats.to(torch.bfloat16), idx, R, False),
+        ("f16 weights, float", floats.to(torch.float16), idx, R, False),
+    ]
+    return both, k3_only
+
+
 def check_kernels(dev):
     """Each kernel against its plain version on the card at the slice's shape
-    and at edge cases. Returns per-kernel max |kernel - plain| over the cases
-    and whether the folds match a CPU scatter-add bit for bit."""
+    and at edge cases: K1 byte-identical; K2 and K3 the same bits as the plain
+    version on the CPU (index_add_ in index order), the same bits when run
+    twice, and within the f32 reordering bound of the card's atomic
+    index_add_ (exact for integer values). Returns the table, the slice's ids
+    and per-kernel max |kernel - plain on the card| over the cases."""
     from harmony_tpu_torch.ops.histogram import (
         weighted_histogram,
         weighted_histogram_plain,
@@ -239,84 +351,76 @@ def check_kernels(dev):
     # K1: byte-identical to table[clamp(idx)]
     wild = torch.randint(-5000, R + 5000, (N,), generator=g, device=dev,
                          dtype=torch.int32)
+    bf16_64 = torch.randn((R, 64), generator=g, device=dev).to(torch.bfloat16)
     k1_cases = [
         ("slice f32", table, idx),
         ("negative and out-of-range ids", table, wild),
         ("slice bf16", table.to(torch.bfloat16), idx),
         ("N=0", table, idx[:0]),
         ("W=1", table[:, :1].contiguous(), idx),
-        ("W=128", torch.randn((4096, 128), generator=g, device=dev),
-         wild % 5000 - 400),
+        ("W=128 (16-byte units, a warp a row)", torch.randn((4096, 128), generator=g,
+                                                            device=dev), wild % 5000 - 400),
+        ("bf16 W=64 (16-byte units)", bf16_64, idx),
+        ("a view one row in, W=17 (4-byte units)", table[1:], wild),
+        ("bf16 W=64, a view one element in (2-byte units)",
+         bf16_64.view(-1)[1:1 + (R - 1) * 64].view(R - 1, 64), idx),
     ]
     for name, t, i in k1_cases:
         got = gather_rows(t, i)
         torch.cuda.synchronize()
-        want = gather_rows_plain(t, i)
-        check(got.shape == want.shape and got.dtype == want.dtype,
-              f"gather_rows {name}: {tuple(got.shape)} {got.dtype}")
-        check(torch.equal(got.view(torch.int16 if t.dtype == torch.bfloat16
-                                   else torch.int32),
-                          want.view(torch.int16 if t.dtype == torch.bfloat16
-                                    else torch.int32)),
+        check(same_bits(got, gather_rows_plain(t, i)),
               f"gather_rows {name}: not byte-identical to the plain version")
-    print(f"phase 2: gather_rows exact on {len(k1_cases)} cases", flush=True)
+    print(f"phase 2: gather_rows byte-identical on {len(k1_cases)} cases", flush=True)
 
-    # K2 and K3: exact for integer-valued rows, within fold_tolerance otherwise
-    ints = torch.randint(-8, 9, (N, W), generator=g, device=dev).float()
-    floats = torch.randn((N, W), generator=g, device=dev)
-    dup = torch.randint(0, 64, (N,), generator=g, device=dev, dtype=torch.int32)
-    wide = torch.randn((min(N, 4096), 300), generator=g, device=dev)
-    fold_cases = [
-        ("slice, integer-valued", ints, idx, True),
-        ("slice, float", floats, idx, False),
-        ("negative and out-of-range ids", ints, wild, True),
-        ("heavy duplicates (64 rows), integer-valued", ints, dup, True),
-        ("heavy duplicates (64 rows), float", floats, dup, False),
-        ("N=0", floats[:0], idx[:0], True),
-        ("W=1", floats[:, :1].contiguous(), idx, False),
-        ("W=300 (two column tiles)", wide, idx[: wide.shape[0]] % 5000, False),
-    ]
-    bitwise_cpu = True
-    for kname, kernel, plain, args in (
+    both, k3_only = fold_cases(dev, idx, R, W)
+    for kname, kernel, plain, args, cases in (
         ("segment_sum_rows", segment_sum_rows, segment_sum_rows_plain,
-         lambda x, i: (x, i, R)),
+         lambda x, i, rows: (x, i, rows), both),
         ("weighted_histogram", weighted_histogram, weighted_histogram_plain,
-         lambda x, i: (i, x, R)),
+         lambda x, i, rows: (i, x, rows), both + k3_only),
     ):
-        for name, x, i, exact in fold_cases:
-            got = kernel(*args(x, i))
+        for name, x, i, rows, exact in cases:
+            got = kernel(*args(x, i, rows))
+            again = kernel(*args(x, i, rows))
             torch.cuda.synchronize()
-            want = plain(*args(x, i))
-            check(got.shape == (R, x.shape[1]) and got.dtype == torch.float32,
+            check(got.shape == (rows, x.shape[1]) and got.dtype == torch.float32,
                   f"{kname} {name}: {tuple(got.shape)} {got.dtype}")
+            check(same_bits(got, again), f"{kname} {name}: two runs differ")
+            check(same_bits(got.cpu(), plain(*args(x.cpu(), i.cpu(), rows))),
+                  f"{kname} {name}: not the same bits as the CPU's index_add_")
+            want = plain(*args(x, i, rows))
             gap = (got - want).abs()
             err[kname] = max(err[kname], float(gap.max()) if gap.numel() else 0.0)
             if exact:
                 check(torch.equal(got, want), f"{kname} {name}: not exact")
             else:
-                tol = fold_tolerance(x, i, R).float()
+                tol = fold_tolerance(x.float(), i, rows).float()
                 check(bool((gap <= tol).all()),
                       f"{kname} {name}: |kernel - plain| {float(gap.max())} "
                       "over the f32 reordering bound")
-            cpu = plain(*args(x.cpu(), i.cpu()))
-            bitwise_cpu &= torch.equal(got.cpu(), cpu)
-        print(f"phase 2: {kname} within bounds on {len(fold_cases)} cases", flush=True)
-        # bf16 weights (K3 takes any float): integer values are exact in bf16
-        if kname == "weighted_histogram":
-            got = weighted_histogram(idx, ints.to(torch.bfloat16), R)
-            check(torch.equal(got, weighted_histogram_plain(idx, ints.to(torch.bfloat16), R)),
-                  "weighted_histogram bf16 weights: not exact")
-    return table, idx, err, bitwise_cpu
+        print(f"phase 2: {kname} the same bits as the CPU's index_add_ and as itself "
+              f"run twice on {len(cases)} cases", flush=True)
+    launches = weighted_histogram.launches
+    try:  # the library owns the fold's limits: a width past 2**21 is refused unlaunched
+        weighted_histogram(idx[:1], torch.zeros((1, 2 ** 21 + 1), device=dev), R)
+    except ValueError:
+        check(weighted_histogram.launches == launches, "a refused fold counted a launch")
+    else:
+        fail("weighted_histogram took a width past 2**21")
+    return table, idx, err
 
 
 def time_kernels(dev, table, idx):
-    """ms of kernel, plain version and library call at the slice's shape, and
-    the bound: the larger of bytes moved over HBM bandwidth and f32 operations
-    over the f32 peak, for this input (each input read once, each output
-    written once). The folds have two library times: ``index_add_`` as it
-    runs by default (atomic adds, whose order changes from run to run) and
+    """Per kernel at the slice's shape: call ms (CUDA events, the host's
+    enqueue included), device ms (torch.profiler, every kernel of a call), the
+    plain version's and one library call's, the wrapper's host us per call,
+    and the bound: the larger of bytes moved over HBM bandwidth and f32
+    operations over the f32 peak, for this input (each input read once, each
+    output written once). The folds have two library calls: ``index_add_`` as
+    it runs by default (atomic adds, whose order changes from run to run) and
     under ``torch.use_deterministic_algorithms(True)``, which computes the
-    folds' function, a fixed-order sum."""
+    folds' function, a fixed-order sum. Then the fold's call and device ms on
+    the skewed cases of phase 2."""
     from harmony_tpu_torch.ops.histogram import (
         weighted_histogram,
         weighted_histogram_plain,
@@ -339,39 +443,46 @@ def time_kernels(dev, table, idx):
         t_ops = nops / F32_FLOPS * 1e3
         return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
+    def timed(kernel, plain, library):
+        return dict(ms=time_ms(kernel), device_ms=device_ms(kernel), plain_ms=time_ms(plain),
+                    library_ms=time_ms(library), library_device_ms=device_ms(library),
+                    host_us=host_us(kernel))
+
     rows_read = int(torch.unique(idx).numel())
-    fold_bytes = N * W * 4 + N * 4 + R * W * 4
-    fold_ops = N * W
     out = {}
     b, by = bound(N * 4 + rows_read * W * 4 + N * W * 4, 0)
     out["gather_rows"] = dict(
-        ms=time_ms(lambda: gather_rows(table, idx)),
-        plain_ms=time_ms(lambda: gather_rows_plain(table, idx)),
-        library_ms=time_ms(lambda: torch.index_select(table, 0, idx64)),
+        timed(lambda: gather_rows(table, idx), lambda: gather_rows_plain(table, idx),
+              lambda: torch.index_select(table, 0, idx64)),
         bound_ms=b, bound_by=by)
-    b, by = bound(fold_bytes, fold_ops)
 
     def index_add():
         return torch.zeros((R, W), device=dev).index_add_(0, idx64, deltas)
 
-    library = time_ms(index_add)
     mode = (torch.are_deterministic_algorithms_enabled(),
             torch.is_deterministic_algorithms_warn_only_enabled())
     torch.use_deterministic_algorithms(True)
     try:
-        library_deterministic = time_ms(index_add)
+        deterministic = dict(library_deterministic_ms=time_ms(index_add),
+                             library_deterministic_device_ms=device_ms(index_add))
     finally:
         torch.use_deterministic_algorithms(mode[0], warn_only=mode[1])
+    b, by = bound(N * W * 4 + N * 4 + R * W * 4, N * W)
     for name, kernel, plain in (
         ("segment_sum_rows", lambda: segment_sum_rows(deltas, idx, R),
          lambda: segment_sum_rows_plain(deltas, idx, R)),
         ("weighted_histogram", lambda: weighted_histogram(idx, deltas, R),
          lambda: weighted_histogram_plain(idx, deltas, R)),
     ):
-        out[name] = dict(ms=time_ms(kernel), plain_ms=time_ms(plain), library_ms=library,
-                         library_deterministic_ms=library_deterministic, bound_ms=b,
+        out[name] = dict(timed(kernel, plain, index_add), **deterministic, bound_ms=b,
                          bound_by=by)
-    return out
+
+    skew = {}
+    for name, x, i, _, _ in fold_cases(dev, idx, R, W)[0]:
+        if x.shape == deltas.shape and name.endswith("float"):
+            skew[name] = dict(ms=time_ms(lambda: weighted_histogram(i, x, R)),
+                              device_ms=device_ms(lambda: weighted_histogram(i, x, R)))
+    return out, skew
 
 
 # -- phase 2b: flash attention against its plain versions ----------------------
@@ -761,6 +872,10 @@ def profile_worker(worker, steps: int, top_n: int):
         "device_busy_ms_per_step": busy,
         "device_idle_share": max(0.0, 1.0 - busy / step_ms),
         "top_device_ms_per_step": {name[:90]: ms for name, ms in top},
+        # the port's own kernels, every launch of each summed (the fold is two)
+        "ours_device_ms_per_step": {
+            kernel: sum(ms for name, ms in by_name.items() if kernel in name)
+            for kernel in ("gather_rows", "keyed_fold", "flash_")},
     }
 
 
@@ -834,11 +949,10 @@ def main() -> int:
         check(d not in (64, 128) or entry.get("spill_bytes") == 0,
               f"{kernel} D={d} block_k={bk}: ptxas reports spills ({entry})")
 
-    table, idx, err, bitwise_cpu = check_kernels(dev)
-    print(f"phase 2: folds bit-identical to the CPU scatter-add: {bitwise_cpu}",
-          flush=True)
-    timing = time_kernels(dev, table, idx)
+    table, idx, err = check_kernels(dev)
+    timing, skew = time_kernels(dev, table, idx)
     print(f"phase 2: timing {json.dumps(timing)}", flush=True)
+    print(f"phase 2: fold (K3) timing on the skewed cases {json.dumps(skew)}", flush=True)
     del table, idx
     err.update(check_flash_kernels(dev))
     timing.update(time_flash_kernels(dev))
@@ -879,8 +993,10 @@ def main() -> int:
         }
         if name in variants:
             entry["variant"] = variants[name]
-        if "library_deterministic_ms" in t:
-            entry["library_deterministic_ms"] = t["library_deterministic_ms"]
+        for key in ("device_ms", "library_device_ms", "library_deterministic_ms",
+                    "library_deterministic_device_ms", "host_us"):
+            if key in t:
+                entry[key] = t[key]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(gpu_identity())

@@ -35,9 +35,9 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 # left undeclared, ctypes would pass them as 32-bit ints and cut them.
 SIGNATURES = {
     "harmony_gather_rows": ("gather_rows", [_P, _P, _P, _LL, _LL, _LL, _I, _P]),
-    "harmony_segment_sum_rows": ("keyed_fold", [_P, _P, _P, _LL, _LL, _LL, _P]),
-    "harmony_weighted_histogram": (
-        "keyed_fold", [_P, _I, _P, _P, _LL, _LL, _LL, _P]),
+    "harmony_segment_sum_rows": ("keyed_fold", [_P, _P, _P, _LL, _LL, _LL, _P, _P]),
+    "harmony_weighted_histogram": ("keyed_fold", [_P, _I, _P, _P, _LL, _LL, _LL, _P, _P]),
+    "harmony_fold_scratch_ints": ("keyed_fold", [_LL, _LL, _LL, _P]),
     "harmony_flash_forward": (
         "flash_attention", [_P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _F, _I, _P]),
     "harmony_flash_backward_dkv": (
@@ -153,16 +153,30 @@ def _library(stem: str) -> ctypes.CDLL:
         return lib
 
 
+# entry point -> its bound ctypes function, filled on first launch: a launch
+# after the first takes one dict read, no lock and no library lookup.
+_entries: Dict[str, ctypes._CFuncPtr] = {}
+
+
+def entry(name: str) -> "ctypes._CFuncPtr":
+    """The bound ctypes function of entry point ``name``, loaded (and built) on
+    first use and cached."""
+    fn = _entries.get(name)
+    if fn is None:
+        fn = _entries[name] = getattr(_library(SIGNATURES[name][0]), name)
+    return fn
+
+
 def call(name: str, *args) -> int:
     """Call entry point ``name`` (building its library on first use) and return
     its int result as it is."""
-    return getattr(_library(SIGNATURES[name][0]), name)(*args)
+    return entry(name)(*args)
 
 
 def launch(name: str, *args) -> None:
-    """:func:`call` a launching entry point and raise if it returns a CUDA error:
-    a refused launch never runs, and a later synchronise would not report it."""
-    err = call(name, *args)
+    """Call a launching entry point and raise if it returns a CUDA error: a
+    refused launch never runs, and a later synchronise would not report it."""
+    err = entry(name)(*args)
     if err != 0:
         text = _library(SIGNATURES[name][0]).harmony_cuda_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({text})")

@@ -6,9 +6,10 @@ Counterpart of ``harmony_tpu/ops/histogram.py``. The reference computes
 the card, :func:`weighted_histogram` launches the deterministic keyed fold in
 ``csrc/keyed_fold.cu`` (shared with K2, with its own entry point and launch
 count): the one-hot product multiplies each weight by exactly 1.0, so the fold
-adds each bin's weights in f32, in index order, and nothing runs in TF32. On a
-CPU tensor it takes :func:`weighted_histogram_plain`, a masked ``index_add_``
-in f32. :func:`segment_sum` is the same op named for the table's ``via="mxu"``
+adds each bin's weights in f32, in index order from 0.0, and nothing runs in
+TF32. On a CPU tensor it takes :func:`weighted_histogram_plain`, a masked
+``index_add_`` in f32, which adds in the same order: the two give the same
+bits. :func:`segment_sum` is the same op named for the table's ``via="mxu"``
 push, where it folds duplicate-key deltas by destination row.
 """
 from __future__ import annotations
@@ -16,7 +17,7 @@ from __future__ import annotations
 import torch
 
 from harmony_tpu_torch.ops import cuda_lib
-from harmony_tpu_torch.ops.sparse import _check_kernel_operand, _stream
+from harmony_tpu_torch.ops.sparse import _check_kernel_operand, _stream, fold_buffers
 from harmony_tpu_torch.utils.platform import use_kernel
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -58,10 +59,10 @@ def weighted_histogram(ids: torch.Tensor, weights: torch.Tensor,
     _check_kernel_operand(weights, "weights")
     if N == 0 or W == 0 or num_bins == 0:
         return torch.zeros((num_bins, W), dtype=torch.float32, device=weights.device)
-    out = torch.empty((num_bins, W), dtype=torch.float32, device=weights.device)
+    out, scratch = fold_buffers(N, W, num_bins, weights.device)
     cuda_lib.launch(
         "harmony_weighted_histogram", weights.data_ptr(), code, ids.data_ptr(),
-        out.data_ptr(), N, W, num_bins, _stream(weights))
+        out.data_ptr(), N, W, num_bins, scratch, _stream(weights))
     weighted_histogram.launches += 1
     return out
 

@@ -10,15 +10,25 @@ is no fallback: a CUDA tensor the kernel does not take raises.
 
 Numerical contract (as the reference's): the gather is byte-identical on both
 routes; the fold is deterministic on the card (no float atomics) and adds each
-row's contributions in index order, so it agrees with the plain version
-exactly for integer-valued deltas and to float tolerance otherwise.
+row's contributions in index order from 0.0, the order of the CPU's
+``index_add_``, so on the card it gives the same bits as the plain version on
+the CPU. The card's own ``index_add_`` adds with atomics, in an order that
+changes from run to run: it agrees exactly for integer-valued deltas and to
+float tolerance otherwise.
+
+The fold's kernel buckets the ids by destination tile before it folds
+(``csrc/keyed_fold.cu``, which owns that geometry); :func:`fold_buffers` takes
+its output and its int32 scratch from one allocation.
 
 Each wrapper counts its kernel launches in ``<wrapper>.launches``, a plain
 integer raised by one where it launches and nowhere else.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
+from typing import Tuple
 
 import torch
 
@@ -27,7 +37,9 @@ from harmony_tpu_torch.utils.platform import use_kernel
 
 
 def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The handle of PyTorch's current stream on ``t``'s card, without building a
+    ``torch.cuda.Stream`` object."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def _check_kernel_operand(t: torch.Tensor, name: str) -> None:
@@ -76,6 +88,30 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 gather_rows.launches = 0
 
 
+@functools.lru_cache(maxsize=256)
+def fold_scratch_ints(n: int, width: int, num_rows: int) -> int:
+    """The int32s of scratch the keyed fold takes for ``n`` ids of ``width``
+    into ``num_rows`` rows. The library owns the fold's geometry and answers;
+    raises ValueError for a fold it does not take."""
+    ints = ctypes.c_longlong(0)
+    if cuda_lib.call("harmony_fold_scratch_ints", n, width, num_rows, ctypes.byref(ints)):
+        raise ValueError(
+            f"the keyed fold kernel does not take {n} ids of width {width} into "
+            f"{num_rows} rows")
+    return ints.value
+
+
+def fold_buffers(n: int, width: int, num_rows: int,
+                 device: torch.device) -> Tuple[torch.Tensor, int]:
+    """The fold's output [num_rows, width] f32 and the address of its int32
+    scratch, from one allocation: the scratch follows the output at a 16-byte
+    boundary and lives as long as the output does."""
+    at = -(-num_rows * width // 4) * 4
+    buf = torch.empty((at + fold_scratch_ints(n, width, num_rows),),
+                      dtype=torch.float32, device=device)
+    return buf.as_strided((num_rows, width), (width, 1)), buf.data_ptr() + 4 * at
+
+
 def segment_sum_rows_plain(deltas: torch.Tensor, idx: torch.Tensor,
                            num_rows: int) -> torch.Tensor:
     """Masked ``index_add_`` (the reference's jnp route, sparse.py:170-174):
@@ -110,10 +146,10 @@ def segment_sum_rows(deltas: torch.Tensor, idx: torch.Tensor,
     _check_kernel_operand(idx, "idx")
     if N == 0 or W == 0 or num_rows == 0:
         return torch.zeros((num_rows, W), dtype=torch.float32, device=deltas.device)
-    out = torch.empty((num_rows, W), dtype=torch.float32, device=deltas.device)
+    out, scratch = fold_buffers(N, W, num_rows, deltas.device)
     cuda_lib.launch(
         "harmony_segment_sum_rows", deltas.data_ptr(), idx.data_ptr(),
-        out.data_ptr(), N, W, num_rows, _stream(deltas))
+        out.data_ptr(), N, W, num_rows, scratch, _stream(deltas))
     segment_sum_rows.launches += 1
     return out
 

@@ -10,7 +10,9 @@ Tolerances: gathers are exact (bytes are copied), and so are folds of
 integer-valued rows (every partial sum is an integer below 2**24). Folds of
 float rows differ only in the order of their f32 additions, so two results
 lie within 2 * (n - 1) * 2**-24 * sum(|x|) of each other for a row that
-receives n terms.
+receives n terms. The port's plain folds add in index order from 0.0, the
+contract its CUDA fold keeps on the card, and are held bit for bit to a
+plain numpy loop that does the same.
 """
 import ctypes
 import re
@@ -24,8 +26,18 @@ import torch
 from harmony_tpu.ops import histogram as jax_histogram
 from harmony_tpu.ops import sparse as jax_sparse
 from harmony_tpu_torch.ops import cuda_lib
-from harmony_tpu_torch.ops.histogram import segment_sum, weighted_histogram
-from harmony_tpu_torch.ops.sparse import gather_rows, segment_sum_rows, value_width
+from harmony_tpu_torch.ops import sparse as torch_sparse
+from harmony_tpu_torch.ops.histogram import (
+    segment_sum,
+    weighted_histogram,
+    weighted_histogram_plain,
+)
+from harmony_tpu_torch.ops.sparse import (
+    gather_rows,
+    segment_sum_rows,
+    segment_sum_rows_plain,
+    value_width,
+)
 from harmony_tpu_torch.utils.platform import use_kernel
 
 U_F32 = 2.0 ** -24
@@ -195,3 +207,139 @@ def test_build_targets_hopper_and_names_libraries_by_content(monkeypatch):
     a, b = (cuda_lib.library_path(s) for s in ("gather_rows", "keyed_fold"))
     assert a.parent == cuda_lib.BUILD_DIR and a != b
     assert cuda_lib.library_path("gather_rows") == a  # stable for the same source
+
+
+def _fold_in_index_order(x, ids, num_rows):
+    """A plain f32 loop: out[ids[i]] = out[ids[i]] + x[i] for i in index order,
+    from 0.0; ids out of range add nothing."""
+    out = np.zeros((num_rows, x.shape[1]), dtype=np.float32)
+    for i, k in enumerate(ids):
+        if 0 <= k < num_rows:
+            out[k] = out[k] + x[i]  # f32 + f32 -> f32, rounded each add
+    return out
+
+
+def _slice_like_ids(rng, n, num_rows):
+    """Ids like the Wide&Deep slice's, with duplicates, negatives and ids at or
+    past num_rows mixed in."""
+    ids = rng.integers(0, num_rows, size=n)
+    hot = rng.random(n) < 0.25
+    ids[hot] = rng.integers(0, 6, size=int(hot.sum()))
+    bad = rng.random(n) < 0.1
+    ids[bad] = rng.choice([-1, -7, num_rows, num_rows + 3], size=int(bad.sum()))
+    return ids.astype(np.int32)
+
+
+FOLD_IDS = ["slice_like", "one_row"]
+
+
+@pytest.mark.parametrize("ids_kind", FOLD_IDS)
+@pytest.mark.parametrize("width", [1, 17, 40])
+@pytest.mark.parametrize("fold", ["segment_sum_rows", "weighted_histogram_f32",
+                                  "weighted_histogram_bf16"])
+def test_plain_folds_add_in_index_order_bit_for_bit(fold, width, ids_kind):
+    """The card's fold is held to the CPU's plain version bit for bit
+    (chip_smoke.py phase 2); this holds the plain version to index order."""
+    rng = np.random.default_rng(7 + width)
+    num_rows, n = 97, 600
+    ids = (_slice_like_ids(rng, n, num_rows) if ids_kind == "slice_like"
+           else np.zeros(n, dtype=np.int32))
+    x = rng.standard_normal((n, width)).astype(np.float32) * rng.uniform(0.01, 100, (n, 1))
+    x = x.astype(np.float32)
+    if fold == "segment_sum_rows":
+        got = segment_sum_rows_plain(torch.as_tensor(x), torch.as_tensor(ids), num_rows)
+        xs = x
+    else:
+        w = torch.as_tensor(x)
+        if fold.endswith("bf16"):
+            w = w.to(torch.bfloat16)
+        xs = w.float().numpy()
+        got = weighted_histogram_plain(torch.as_tensor(ids), w, num_rows)
+    want = _fold_in_index_order(xs, ids, num_rows)
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), want.view(np.uint32))
+
+
+@pytest.fixture
+def fake_scratch_ints(monkeypatch):
+    """``cuda_lib.call`` answering harmony_fold_scratch_ints with a set count
+    (or a set error code), as the library would, without a card."""
+    answer = {"ints": 0, "rc": 0}
+
+    def call(name, n, width, num_rows, out):
+        assert name == "harmony_fold_scratch_ints"
+        out._obj.value = answer["ints"]
+        return answer["rc"]
+
+    torch_sparse.fold_scratch_ints.cache_clear()
+    monkeypatch.setattr(cuda_lib, "call", call)
+    yield answer
+    torch_sparse.fold_scratch_ints.cache_clear()
+
+
+@pytest.mark.parametrize("n, width, num_rows, ints", [
+    (1, 1, 1, 7), (67480, 17, 102144, 390409), (600, 17, 97, 3000), (5, 3, 1, 100),
+    (4096, 300, 5000, 20000), (10, 1, 3, 41), (300000, 3, 102144, 10 ** 6), (8, 2, 2, 1),
+])
+def test_fold_buffers_put_the_scratch_after_the_output(fake_scratch_ints, n, width,
+                                                       num_rows, ints):
+    fake_scratch_ints["ints"] = ints
+    out, scratch = torch_sparse.fold_buffers(n, width, num_rows, torch.device("cpu"))
+    assert out.shape == (num_rows, width) and out.dtype == torch.float32
+    assert out.is_contiguous() and out.storage_offset() == 0
+    end_of_out = out.data_ptr() + 4 * num_rows * width
+    assert scratch % 16 == 0 and end_of_out <= scratch < end_of_out + 16
+    storage = out.untyped_storage()
+    assert scratch + 4 * ints == storage.data_ptr() + storage.nbytes()
+
+
+def test_fold_scratch_ints_raises_where_the_library_refuses(fake_scratch_ints):
+    fake_scratch_ints["rc"] = 1  # cudaErrorInvalidValue
+    with pytest.raises(ValueError, match="does not take 10 ids of width 3000000"):
+        torch_sparse.fold_scratch_ints(10, 3_000_000, 5)
+
+
+class _FakeEntry:
+    def __init__(self, rc):
+        self.rc, self.calls = rc, 0
+
+    def __call__(self, *args):
+        self.calls += 1
+        return self.rc
+
+
+class _FakeLibrary:
+    def __init__(self, rc):
+        self.harmony_gather_rows = _FakeEntry(rc)
+
+    @staticmethod
+    def harmony_cuda_error_string(err):
+        return b"an illegal memory access was encountered"
+
+
+def test_launch_raises_with_the_cuda_error_string(monkeypatch):
+    monkeypatch.setattr(cuda_lib, "_entries", {})
+    monkeypatch.setattr(cuda_lib, "_library", lambda stem: _FakeLibrary(700))
+    with pytest.raises(RuntimeError) as info:
+        cuda_lib.launch("harmony_gather_rows", 1, 2, 3)
+    assert str(info.value) == (
+        "harmony_gather_rows: CUDA error 700 (an illegal memory access was encountered)")
+
+
+def test_launch_binds_each_entry_point_once(monkeypatch):
+    libs = []
+
+    def library(stem):
+        libs.append(_FakeLibrary(0))
+        return libs[-1]
+
+    monkeypatch.setattr(cuda_lib, "_entries", {})
+    monkeypatch.setattr(cuda_lib, "_library", library)
+    cuda_lib.launch("harmony_gather_rows", 1)
+    first = cuda_lib.entry("harmony_gather_rows")
+    cuda_lib.launch("harmony_gather_rows", 2)
+    assert len(libs) == 1  # loaded (and bound) on the first launch only
+    assert cuda_lib.entry("harmony_gather_rows") is first
+    assert first.calls == 2  # the same function object took both launches
+    assert cuda_lib.call("harmony_gather_rows", 3) == 0  # and takes a call as is
+    assert first.calls == 3 and len(libs) == 1
