@@ -1,8 +1,9 @@
 """Command-line entry point: ``python -m harmony_tpu_torch.cli run <app>``.
 
 Counterpart of ``harmony_tpu/cli.py``'s ``run`` subcommand (the standalone
-launcher: an in-process JobServer, one job, exit), for the apps this port
-runs. Presets are the reference's, with the trainer and data generator
+launcher: an in-process JobServer on one device, one job, exit), for the
+apps this port runs: ``mlr``, ``nmf``, ``lda``, ``fm``, ``widedeep`` and
+``lm``. Presets are the reference's, with the trainer and data generator
 resolved in this package; override them with ``--set key=value`` (app
 hyper-parameters) and ``--data key=value`` (data arguments). The job runs on
 the card unless ``--device cpu`` is given; with no card it raises.
@@ -21,6 +22,31 @@ from harmony_tpu_torch.config.params import JobConfig, TrainerParams
 # The reference's presets (harmony_tpu/cli.py), trainer and data generator
 # resolved in this package.
 PRESETS: Dict[str, Dict[str, Any]] = {
+    "mlr": dict(
+        app_type="dolphin",
+        trainer="harmony_tpu_torch.apps.mlr:MLRTrainer",
+        app_params={"num_classes": 10, "num_features": 784,
+                    "features_per_partition": 98, "step_size": 0.1},
+        data_fn="harmony_tpu_torch.apps.mlr:make_synthetic",
+        data_args={"n": 4096, "num_features": 784, "num_classes": 10},
+    ),
+    "nmf": dict(
+        app_type="dolphin",
+        trainer="harmony_tpu_torch.apps.nmf:NMFTrainer",
+        app_params={"num_rows": 256, "num_cols": 256, "rank": 16,
+                    "step_size": 0.05},
+        data_fn="harmony_tpu_torch.apps.nmf:make_synthetic",
+        data_args={"num_rows": 256, "num_cols": 256, "rank": 16},
+    ),
+    "lda": dict(
+        app_type="dolphin",
+        trainer="harmony_tpu_torch.apps.lda:LDATrainer",
+        app_params={"vocab_size": 500, "num_topics": 10, "num_docs": 256,
+                    "max_doc_len": 64},
+        data_fn="harmony_tpu_torch.apps.lda:make_synthetic",
+        data_args={"num_docs": 256, "vocab_size": 500, "doc_len": 64,
+                   "num_topics": 10},
+    ),
     "fm": dict(
         app_type="dolphin",
         trainer="harmony_tpu_torch.apps.widedeep:FMTrainer",
@@ -108,9 +134,11 @@ def build_config(app: str, args: argparse.Namespace) -> JobConfig:
 
 def _cmd_run(args: argparse.Namespace) -> int:
     from harmony_tpu_torch.jobserver.server import JobServer
+    from harmony_tpu_torch.parallel.mesh import DevicePool
 
     cfg = build_config(args.app, args)
-    server = JobServer(args.device)  # raises here when the card is asked for and absent
+    # raises here when the card is asked for and absent
+    server = JobServer(1, device_pool=DevicePool([args.device]))
     server.start()
     try:
         result = server.submit(cfg).result()

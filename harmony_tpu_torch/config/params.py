@@ -45,11 +45,14 @@ class TableConfig(ConfigBase):
 class TrainerParams(ConfigBase):
     """Dolphin hyper-parameter block: an epoch is split into exactly
     ``num_mini_batches`` batches; ``app_params`` are the trainer's constructor
-    arguments."""
+    arguments. ``comm_probe_period`` is accepted with the reference's default,
+    so a job described for the reference reads the same here; the comm probe
+    that reads it is not ported yet."""
 
     num_epochs: int = 1
     num_mini_batches: int = 10
     app_params: Dict[str, Any] = field(default_factory=dict)
+    comm_probe_period: int = 1
 
 
 @config

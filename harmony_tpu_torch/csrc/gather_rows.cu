@@ -120,7 +120,7 @@ int launch_gather(const void* table, const int* idx, void* out, long long R, lon
 
 }  // namespace
 
-// table [R, W] and out [N, W] of elem_bytes-wide elements (4: f32, 2: bf16), idx [N]
+// table [R, W] and out [N, W] of elem_bytes-wide elements (4: f32, int32; 2: bf16, f16), idx [N]
 // int32, all contiguous on the current device; R > 0, N * W > 0, N < 2**31 * 32 (the
 // wrapper checks). Launches on `stream` and returns cudaGetLastError() as an int.
 extern "C" int harmony_gather_rows(const void* table, const int* idx, void* out, long long R,

@@ -9,7 +9,7 @@ lock.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -18,10 +18,14 @@ from harmony_tpu_torch.config.params import TrainerParams
 
 @dataclasses.dataclass
 class TrainerContext:
-    """What a trainer sees of the framework: its table and hyper-params."""
+    """What a trainer sees of the framework: its tables and hyper-params.
+
+    ``model_table`` is the job's parameter-server table; ``local_table`` the
+    optional worker-local table (NMF's L rows, LDA's topic assignments)."""
 
     params: TrainerParams
     model_table: Any = None          # DenseTable
+    local_table: Any = None          # DenseTable or None
     worker_id: str = "worker-0"
     num_workers: int = 1
 
@@ -37,6 +41,20 @@ class Trainer:
     """
 
     pull_mode: str = "all"
+    # True: the job also carries a worker-local table; the step then pulls
+    # both tables whole and calls ``compute_with_local`` instead of
+    # ``compute``.
+    uses_local_table: bool = False
+    # Name of the trainer's objective in its metrics when it is NOT "loss"
+    # (LDA's "log_likelihood"): per-batch and per-epoch progress fall back to
+    # it. None: only "loss" counts.
+    objective_metric: Optional[str] = None
+    # Opt-in: True when ``on_epoch_finished`` depends only on ``epoch_idx`` and
+    # the trainer's own attributes (decay schedules, PRNG epoch counters),
+    # never on trained values, so a worker may run it before the epoch's
+    # device results drain. This port's worker drains every epoch first;
+    # the flag is kept for the step modes that will read it.
+    epoch_hook_windowable: bool = False
 
     # -- lifecycle (host side) ------------------------------------------
 
@@ -71,6 +89,22 @@ class Trainer:
         """The mini-batch computation. Returns ``(delta, metrics)`` where
         ``delta`` matches ``model``'s shape and is folded into the table by
         the push."""
+        raise NotImplementedError
+
+    def compute_with_local(
+        self, model: torch.Tensor, local: torch.Tensor, batch: Any,
+        hyper: Dict[str, torch.Tensor],
+    ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
+        """The step of a ``uses_local_table`` trainer: returns ``(model_delta,
+        new_local, metrics)``. The model delta folds through the model table's
+        update fn; ``new_local`` replaces the whole local table (worker-private
+        state needs no update-fn semantics). ``model`` and ``local`` are views
+        of the live storage: compute returns new tensors and never writes
+        into them."""
+        raise NotImplementedError
+
+    def local_table_config(self):
+        """Schema of the worker-local table (``uses_local_table`` only)."""
         raise NotImplementedError
 
     def evaluate(self, model: torch.Tensor, batch: Any) -> Dict[str, torch.Tensor]:

@@ -12,15 +12,19 @@ the table lock while the push updates the storage in place. Per-batch losses
 stay on the device until the epoch ends; one host read per epoch drains them.
 
 Ported here: the keys-mode step (the reference's fused keyed step), the
-all-mode step, the epoch loop with per-epoch ``losses`` in the result, and
-``evaluate``. Not ported yet: the unfused and async step modes, the fused
+all-mode step, the all-mode step of a trainer with a worker-local table
+(``compute_with_local``, both tables pulled whole, run through
+``DenseTable.apply_step_with``), the epoch loop with per-epoch ``losses`` (the
+primary metric: "loss", else the trainer's ``objective_metric``) in the
+result, and ``evaluate``. Not ported yet: the unfused and async step modes, the fused
 multi-epoch windows, the prefetch pipeline, the device batch cache, the comm
 probe, dispatch turnstiles and TaskUnit scheduling.
 """
 from __future__ import annotations
 
+import functools
 import time
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -60,7 +64,21 @@ class WorkerTasklet:
         runs each phase as its own operations, so there is nothing to pin."""
         spec = self.ctx.model_table.spec
         trainer = self.trainer
-        if trainer.pull_mode == "all":
+        if trainer.uses_local_table:
+            if trainer.pull_mode != "all":
+                raise NotImplementedError(
+                    "a worker-local table beside a keyed pull (sparse LDA) is not "
+                    "ported yet")
+            local_spec = self.ctx.local_table.spec
+
+            def _step(arr, local, batch, hyper):
+                model, lmodel = spec.pull_all(arr), local_spec.pull_all(local)  # PULL
+                delta, new_local, metrics = trainer.compute_with_local(
+                    model, lmodel, batch, hyper)                               # COMP
+                return (spec.push_all(arr, delta),                             # PUSH
+                        local_spec.write_all(local, new_local)), metrics
+
+        elif trainer.pull_mode == "all":
 
             def _step(arr, batch, hyper):
                 model = spec.pull_all(arr)                              # PULL
@@ -85,14 +103,22 @@ class WorkerTasklet:
         return {k: torch.tensor(v, dtype=torch.float32, device=self.device)
                 for k, v in self.trainer.hyperparams().items()}
 
-    @staticmethod
-    def _drain(metrics: List[Dict[str, torch.Tensor]]) -> List[float]:
-        """The epoch's per-batch losses as host floats (0.0 for a trainer that
-        reports none): one device read, which also waits for the epoch's
-        device work to finish."""
-        if not metrics or "loss" not in metrics[0]:
+    def _primary_key(self, metrics: Dict[str, torch.Tensor]) -> Optional[str]:
+        """The one metric that is this job's progress scalar: "loss", else the
+        trainer's ``objective_metric`` (LDA's "log_likelihood"), else none."""
+        if "loss" in metrics:
+            return "loss"
+        om = self.trainer.objective_metric
+        return om if om and om in metrics else None
+
+    def _drain(self, metrics: List[Dict[str, torch.Tensor]]) -> List[float]:
+        """The epoch's per-batch primary metrics as host floats (0.0 for a
+        trainer that reports none): one device read, which also waits for the
+        epoch's device work to finish."""
+        key = self._primary_key(metrics[0]) if metrics else None
+        if key is None:
             return [0.0] * len(metrics)
-        return torch.stack([m["loss"].detach().float() for m in metrics]).cpu().tolist()
+        return torch.stack([m[key].detach().float() for m in metrics]).cpu().tolist()
 
     # -- the loop ---------------------------------------------------------
 
@@ -106,20 +132,24 @@ class WorkerTasklet:
             self.trainer.init_global_settings(ctx)
         self.trainer.on_training_start(ctx, 0)
         step = self._step_core(table.push_via)
+        apply = (functools.partial(table.apply_step_with, ctx.local_table)
+                 if self.trainer.uses_local_table else table.apply_step)
         epoch_losses: List[float] = []
         batch_losses: List[float] = []
         epoch_seconds: List[float] = []
+        started = time.perf_counter()
         for epoch in range(params.num_epochs):
             t0 = time.perf_counter()
             hyper = self._hyper()
             with torch.no_grad():  # compute takes its own gradient
-                metrics = [table.apply_step(step, self._to_device(b), hyper)
+                metrics = [apply(step, self._to_device(b), hyper)
                            for b in self.data.epoch_batches()]
             losses = self._drain(metrics)
             epoch_seconds.append(time.perf_counter() - t0)
             batch_losses.extend(losses)
             epoch_losses.append(losses[-1] if losses else 0.0)
             self.trainer.on_epoch_finished(ctx, epoch)
+        finished = time.perf_counter()
         self.trainer.cleanup(ctx)
         return {
             "job_id": self.job_id,
@@ -127,6 +157,8 @@ class WorkerTasklet:
             "losses": epoch_losses,
             "batch_losses": batch_losses,
             "epoch_seconds": epoch_seconds,
+            # perf_counter at the first step's start and the last epoch's end
+            "train_span": [started, finished],
         }
 
     # -- evaluation --------------------------------------------------------

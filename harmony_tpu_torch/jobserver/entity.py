@@ -2,14 +2,16 @@
 
 Counterpart of ``harmony_tpu/jobserver/entity.py``'s ``DolphinJobEntity``: the
 trainer and its data come from the serializable ``JobConfig`` (dotted-path
-symbols), the job's model table is created on the master's device under a
-job-namespaced id, and the run drives one ``WorkerTasklet``. Not ported yet:
-shared tables, checkpoint chains and resume, elastic recovery, multi-worker
-jobs (SSP barriers, turnstiles, TaskUnits), the optimizer loop and the pod
-branch.
+symbols); the job's model table, and its worker-local table when the trainer
+has one, are created on its executors' device under job-namespaced ids, so two
+jobs of one app never collide; the run drives one ``WorkerTasklet``; cleanup
+drops both tables. Not ported yet: shared tables, checkpoint chains and
+resume, elastic recovery, multi-worker jobs (SSP barriers, turnstiles,
+TaskUnits), the optimizer loop and the pod branch.
 """
 from __future__ import annotations
 
+import time
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -34,7 +36,9 @@ class DolphinJobEntity:
         self.config = config
         self._master: Optional[ETMaster] = None
         self._table: Optional[DenseTable] = None
+        self._local: Optional[DenseTable] = None
         self._data_arrays: List[np.ndarray] = []
+        self._setup_start = 0.0
 
     def _make_trainer(self) -> Trainer:
         if not self.config.trainer:
@@ -49,27 +53,40 @@ class DolphinJobEntity:
         return [np.asarray(a)
                 for a in (out if isinstance(out, (tuple, list)) else (out,))]
 
-    def setup(self, master: ETMaster) -> None:
-        """Create the job's PRIVATE model table (namespaced by job id so two
-        jobs of one app never collide on the trainer's default table id) and
+    def _create(self, master: ETMaster, table_cfg, executor_ids) -> DenseTable:
+        return master.create_table(
+            table_cfg.replace(table_id=f"{self.config.job_id}:{table_cfg.table_id}"),
+            executor_ids)
+
+    def setup(self, master: ETMaster, executor_ids: List[str]) -> None:
+        """Create the job's PRIVATE tables on its executors' device and
         materialize its data."""
+        self._setup_start = time.perf_counter()
         self._master = master
-        table_cfg = self._make_trainer().model_table_config()
-        self._table = master.create_table(
-            table_cfg.replace(table_id=f"{self.config.job_id}:{table_cfg.table_id}"))
+        probe = self._make_trainer()
+        self._table = self._create(master, probe.model_table_config(), executor_ids)
+        if probe.uses_local_table:
+            self._local = self._create(master, probe.local_table_config(), executor_ids)
         self._data_arrays = self._make_data()
 
-    def run(self) -> Dict[str, Any]:
+    def make_worker(self) -> WorkerTasklet:
+        """The job's one worker over the tables and data that ``setup`` made."""
         cfg = self.config
-        params = cfg.params
-        wid = f"{cfg.job_id}/w0"
-        data = TrainingDataProvider(self._data_arrays, params.num_mini_batches)
-        ctx = TrainerContext(params=params, model_table=self._table,
-                             worker_id=wid, num_workers=1)
-        worker = WorkerTasklet(cfg.job_id, ctx, self._make_trainer(), data)
-        return {"job_id": cfg.job_id, "workers": {wid: worker.run()}}
+        data = TrainingDataProvider(self._data_arrays, cfg.params.num_mini_batches)
+        ctx = TrainerContext(params=cfg.params, model_table=self._table,
+                             local_table=self._local, worker_id=f"{cfg.job_id}/w0",
+                             num_workers=1)
+        return WorkerTasklet(cfg.job_id, ctx, self._make_trainer(), data)
+
+    def run(self) -> Dict[str, Any]:
+        worker = self.make_worker()
+        result = worker.run()
+        # perf_counter from the start of setup (tables, data) to the worker's end
+        return {"job_id": self.config.job_id, "workers": {worker.ctx.worker_id: result},
+                "span": [self._setup_start, time.perf_counter()]}
 
     def cleanup(self) -> None:
-        if self._master is not None and self._table is not None:
-            self._master.drop_table(self._table.spec.table_id)
-        self._table = None
+        for table in (self._table, self._local):
+            if self._master is not None and table is not None:
+                self._master.drop_table(table.spec.table_id)
+        self._table = self._local = None

@@ -60,15 +60,17 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``out[i] = table[clamp(idx[i], 0, R-1)]`` — table [R, W], idx [N] -> [N, W].
 
     The batched embedding gather behind ``TableSpec.pull`` / multi_get. On the
-    card: table f32 or bf16, idx int32, both contiguous."""
+    card: a table of 2- or 4-byte elements (f32, bf16, f16, int32: the kernel
+    copies bytes), idx int32, both contiguous; 1- and 8-byte elements raise."""
     if table.ndim != 2 or idx.ndim != 1:
         raise ValueError(f"bad shapes table={tuple(table.shape)} idx={tuple(idx.shape)}")
     if not use_kernel(table, idx):
         return gather_rows_plain(table, idx)
     R, W = table.shape
     N = idx.shape[0]
-    if table.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"gather_rows kernel takes f32 or bf16 tables, not {table.dtype}")
+    if table.element_size() not in (2, 4) or table.is_complex():
+        raise TypeError(f"gather_rows kernel takes tables of 2- or 4-byte elements, "
+                        f"not {table.dtype}")
     if idx.dtype != torch.int32:
         raise TypeError(f"gather_rows kernel takes int32 ids, not {idx.dtype}")
     _check_kernel_operand(table, "table")

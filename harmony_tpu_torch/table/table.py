@@ -101,8 +101,11 @@ class TableSpec:
 
     def _in_bounds(self, b: torch.Tensor, o: torch.Tensor):
         """Flat rows of the (block, offset) pairs inside the storage, and the
-        mask of those pairs: out-of-range pairs write nothing, as the
-        reference's scatter drops them."""
+        mask of those pairs: out-of-range pairs write nothing. The reference's
+        scatter drops pairs past the end but wraps a negative block or offset
+        NumPy-style (key -1 of a range table lands on the last padding row);
+        its own folds (``mxu``, ``sparse``) drop negative ids. The port drops
+        every out-of-range pair, on every route."""
         ok = (b >= 0) & (b < self.num_blocks) & (o >= 0) & (o < self.block_size)
         return self._flat_index(b[ok], o[ok]).long(), ok
 
@@ -271,6 +274,21 @@ class DenseTable:
         with self._lock:
             new_arr, aux = step_fn(self._arr, *extra)
             self.commit(new_arr)
+        return aux
+
+    def apply_step_with(self, local: "DenseTable", step_fn: Callable, *extra):
+        """Run ``step_fn(arr, local_arr, *extra) -> ((new_arr, new_local), aux)``
+        and commit both results; each table's commit runs under its own lock.
+        Returns ``aux``.
+
+        Lock order: this (the job's model) table's lock, then ``local``'s. Every
+        path that holds both takes them in that order and every host accessor
+        takes one, so no two threads (two jobs, or a job and a reader) can each
+        hold one of the pair and wait for the other."""
+        with self._lock, local._lock:
+            (new_arr, new_local), aux = step_fn(self._arr, local._arr, *extra)
+            self.commit(new_arr)
+            local.commit(new_local)
         return aux
 
     def _to_device(self, x, dtype: Optional[torch.dtype] = None) -> torch.Tensor:

@@ -20,6 +20,7 @@ import torch
 from harmony_tpu_torch import cli
 from harmony_tpu_torch.config.params import JobConfig, TrainerParams
 from harmony_tpu_torch.jobserver.server import JobServer
+from harmony_tpu_torch.parallel.mesh import DevicePool
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "harmony_tpu_torch"
@@ -68,7 +69,7 @@ def test_run_lm_without_a_card_raises():
 
 
 def test_jobserver_runs_jobs_in_order_and_reports_failures():
-    server = JobServer("cpu")
+    server = JobServer(1, scheduler="fifo", device_pool=DevicePool(["cpu"]))
     server.start()
     try:
         ok = JobConfig(
@@ -103,7 +104,9 @@ def test_port_imports_neither_jax_nor_harmony_tpu():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 25
     for module in ("models/transformer.py", "models/pytree_trainer.py", "models/common.py",
-                   "ops/attention.py", "dolphin/optim.py"):
+                   "ops/attention.py", "dolphin/optim.py", "ops/mxu.py", "utils/prng.py",
+                   "apps/mlr.py", "apps/nmf.py", "apps/lda.py", "parallel/mesh.py",
+                   "jobserver/scheduler.py", "bench.py"):
         assert PORT / module in files
     for path in files:
         for mod in _imports(path):
@@ -117,7 +120,8 @@ def test_importing_the_port_loads_no_jax():
         ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
         for p in PORT.rglob("*.py"))
     assert {"harmony_tpu_torch.models.transformer", "harmony_tpu_torch.ops.attention",
-            "harmony_tpu_torch.dolphin.optim"} <= set(modules)
+            "harmony_tpu_torch.dolphin.optim", "harmony_tpu_torch.utils.prng",
+            "harmony_tpu_torch.apps.lda", "harmony_tpu_torch.bench"} <= set(modules)
     code = ("import sys\n"
             f"for m in {modules!r}: __import__(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'harmony_tpu'))\n"

@@ -178,6 +178,38 @@ def test_kernel_route_follows_the_tensor_device():
         use_kernel(cpu, torch.ones(2, device="meta"))
 
 
+@pytest.mark.parametrize("dtype,elem_bytes", [
+    (torch.float32, 4), (torch.int32, 4),        # LDA's local table is int32
+    (torch.bfloat16, 2), (torch.float16, 2),
+    (torch.float64, TypeError), (torch.int64, TypeError), (torch.uint8, TypeError),
+])
+def test_gather_rows_launches_k1_on_any_two_or_four_byte_table(monkeypatch, dtype,
+                                                                elem_bytes):
+    """K1's wiring without a card: with use_kernel forced True, a table of 2- or
+    4-byte elements launches harmony_gather_rows once, with its element size
+    and as many arguments as its SIGNATURES row declares; 1- and 8-byte
+    elements raise and launch nothing."""
+    calls = []
+    monkeypatch.setattr(torch_sparse, "use_kernel", lambda *tensors: True)
+    monkeypatch.setattr(torch_sparse, "_stream", lambda t: 0)
+    monkeypatch.setattr(cuda_lib, "launch", lambda name, *args: calls.append((name, args)))
+    table = torch.zeros((6, 5), dtype=dtype)
+    idx = torch.tensor([0, 5, 2], dtype=torch.int32)
+    launches = gather_rows.launches
+    if not isinstance(elem_bytes, int):
+        with pytest.raises(elem_bytes, match="2- or 4-byte"):
+            gather_rows(table, idx)
+        assert calls == [] and gather_rows.launches == launches
+        return
+    out = gather_rows(table, idx)
+    assert [name for name, _ in calls] == ["harmony_gather_rows"]
+    args = calls[0][1]
+    assert len(args) == len(cuda_lib.SIGNATURES["harmony_gather_rows"][1])
+    assert args[3:7] == (6, 5, 3, elem_bytes)    # R, W, N, element bytes
+    assert out.shape == (3, 5) and out.dtype == dtype
+    assert gather_rows.launches == launches + 1
+
+
 _CTYPE_OF = {"int": ctypes.c_int, "long long": ctypes.c_longlong, "float": ctypes.c_float}
 
 

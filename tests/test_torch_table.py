@@ -249,3 +249,44 @@ def test_the_card_is_the_default_device():
         pytest.skip("a CUDA device is present: the default resolves to it")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         DenseTable(_specs(True)[1])
+
+
+@pytest.mark.parametrize("via", ["scatter", "mxu", "sparse"])
+def test_a_negative_key_is_dropped_on_every_push_route(via, mesh1):
+    """A key -1 on a range table (capacity 10, 4 blocks of 3: rows 10 and 11
+    pad the last block). The port drops it on every route, as the reference's
+    own folds do; the reference's scatter alone wraps it NumPy-style onto the
+    last padding row, row 11. Exact: integer-valued deltas."""
+    js, ts = _specs(True, capacity=10, num_blocks=4, value_shape=(2,))
+    keys = np.array([-1, 3, 10, 11], np.int32)
+    deltas = (np.arange(8, dtype=np.float32).reshape(4, 2) + 1)
+    zeros = np.zeros(ts.storage_shape, np.float32)
+    got = ts.push(torch.as_tensor(zeros.copy()), torch.as_tensor(keys), torch.as_tensor(deltas),
+                  via=via).reshape(12, 2).numpy()
+    want = np.zeros((12, 2), np.float32)
+    want[3], want[10], want[11] = deltas[1], deltas[2], deltas[3]
+    np.testing.assert_array_equal(got, want)
+    ref = np.array(js.push(jnp.asarray(zeros), jnp.asarray(keys), jnp.asarray(deltas),
+                           via=via)).reshape(12, 2)
+    if via == "scatter":
+        np.testing.assert_array_equal(ref[11], [8, 10])   # -1 wrapped onto row 11
+        ref[11] -= deltas[0]
+    np.testing.assert_array_equal(ref, want)
+
+
+def test_apply_step_with_commits_both_tables_under_both_locks():
+    """The step of a trainer with a local table: model table's lock, then the
+    local table's, both held while the step runs; both storages committed."""
+    _, ts = _specs(True)
+    _, ls = _specs(True, update_fn="assign", capacity=8, num_blocks=2, value_shape=(2,))
+    table, local = DenseTable(ts, "cpu"), DenseTable(ls, "cpu")
+
+    def step(arr, larr, delta):
+        assert table._lock._is_owned() and local._lock._is_owned()
+        return (ts.push_all(arr, delta), ls.write_all(larr, torch.full((8, 2), 7.0))), "aux"
+
+    assert table.apply_step_with(local, step, torch.ones((50, 3))) == "aux"
+    assert (table.data_version, local.data_version) == (1, 1)
+    assert float(table.pull_array().sum()) == 150.0
+    assert float(local.pull_array().sum()) == 112.0
+    assert not table._lock._is_owned() and not local._lock._is_owned()
