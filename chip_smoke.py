@@ -41,8 +41,10 @@ Phases, in order; any failure ends the script with a non-zero exit code:
 3. The slice: ``python -m harmony_tpu_torch.cli run widedeep`` at the
    ``bench-widedeep`` size of ``benchmarks/apps.py`` (vocab 100,000, 16 slots,
    emb 16, hidden 128, 32,768 examples in 8 mini-batches) for 2 epochs on the
-   card, with the launch counts set to 0 just before and read just after;
-   then the same job on the CPU (plain versions), step for step.
+   card, with the launch counts set to 0 just before and read just after (K1
+   and K3 once a step, plus the comm probe's: one warm-up and three timed
+   calls each of PULL, K1, and PULL+PUSH, K1 and K3); then the same job on
+   the CPU (plain versions), step for step.
 3b. The LM at full width: ``cli run lm`` at the size of ``benchmarks/lm.py``
    (vocab 8192, d_model 512, 8 heads, 8 layers, d_ff 2048, max_seq 1024, bf16,
    batch 32 x 1024 tokens) for 2 epochs of 4 steps, launch counts (K4, K5a
@@ -59,17 +61,35 @@ Phases, in order; any failure ends the script with a non-zero exit code:
    scale 0.125 for 2 epochs on the card and on the CPU, batch for batch, and
    LDA's assignments on both (its first batch, then after 2 epochs), with an
    int32 ``multi_get`` of LDA's local table (K1) byte-identical to
-   ``pull_array``.
-4. The sparse push route (``HARMONY_PUSH_VIA=sparse``): one epoch of the
-   Wide&Deep job, which folds its pushes with K2.
+   ``pull_array``. The measured pass must call no ``data_fn`` and miss
+   neither data cache (host arrays, device stacks), and each job must run
+   the reference's windows (8 then 4 epochs after the epoch-0 comm probe);
+   then each job alone with CUDA's sync debug mode set to raise while each
+   window is enqueued: no blocking host copy and no other sync inside a
+   window, one drain after it.
+3e. The unfused step (``HARMONY_FUSED_STEP=0``) on the Wide&Deep job of
+   phase 3, on the mxu and the sparse push routes: losses bit-identical to
+   the fused runs of phases 3 and 4, K1 and the route's fold (K3, K2) once a
+   step each, and the mean PULL, COMP and PUSH seconds.
+3f. The async step on ``bench.py``'s MLR job at full size, through the
+   JobServer: staleness bound 0 bit-identical to the fused step, bound 1
+   with finite losses and a lag of at most 1; samples/s of each.
+3g. The prefetch pipeline on the Wide&Deep job with a shuffling provider:
+   losses bit-identical with ``input_prefetch`` on and off; under
+   torch.profiler the staged batches are ``Memcpy HtoD (Pinned -> Device)``
+   copies on a stream that runs none of the steps' kernels; the ring's stall
+   and idle seconds.
+4. The sparse push route (``HARMONY_PUSH_VIA=sparse``): the Wide&Deep job
+   of phase 3, which folds its pushes with K2.
 5. Where a step's time goes: a steady epoch of the Wide&Deep job on the host
    clock, and one under ``torch.profiler`` for the device's busy time by kernel
    (the port's own kernels summed over their launches: the fold is two).
 5b. The same for the full-width LM.
 5c. Phase 3d's measured pass again (``run_concurrent``, full size, 12 epochs)
    under torch.profiler: the device's busy time and idle share over the pass,
-   within each job's training span and where MLR trains alone; the
-   host-to-device copies' share of it; and the top kernels.
+   within each job's training span and where MLR trains alone (if it
+   does); the host-to-device copies' share of it, and their count and bytes
+   by kind from the profile's Chrome trace; and the top kernels.
 6. A ``kernels`` JSON line (K1-K3 also carry ``device_ms``,
    ``library_device_ms``, ``library_deterministic_device_ms`` and
    ``host_us``), the card's name and power limit, and the last line
@@ -751,10 +771,14 @@ def run_slice():
     check(gpu["losses"][1] < gpu["losses"][0]
           and sum(losses[BATCHES:]) < sum(losses[:BATCHES]),
           f"loss is not falling: {losses}")
-    check(launches == {"gather_rows": steps, "segment_sum_rows": 0,
-                       "weighted_histogram": steps},
-          f"launches on the card {launches}, expected K1 and K3 once a step")
-    print(f"phase 3: card losses {losses}, launches {launches}", flush=True)
+    k1, fold = probe_launches(gpu)
+    check(launches == {"gather_rows": steps + k1, "segment_sum_rows": 0,
+                       "weighted_histogram": steps + fold},
+          f"launches on the card {launches}, expected K1 and K3 once a step and "
+          f"{k1} and {fold} in the comm probe")
+    print(f"phase 3: card losses {losses}, launches {launches} ({k1} of K1 and "
+          f"{fold} of K3 in {gpu['comm_probe']['probes']} comm probe), windows "
+          f"{gpu['windows']}", flush=True)
 
     reset_counts(*wrappers)
     t0 = time.perf_counter()
@@ -769,14 +793,15 @@ def run_slice():
     os.environ["HARMONY_PUSH_VIA"] = "sparse"
     try:
         reset_counts(*wrappers)
-        sparse = run_cli(SLICE_ARGS + ["--epochs", "1"])
+        sparse = run_cli(SLICE_ARGS + ["--epochs", str(EPOCHS)])
         sparse_launches = {w.__name__: w.launches for w in wrappers}
     finally:
         os.environ.pop("HARMONY_PUSH_VIA")
-    check(sparse_launches == {"gather_rows": BATCHES, "segment_sum_rows": BATCHES,
+    k1, fold = probe_launches(sparse)
+    check(sparse_launches == {"gather_rows": steps + k1, "segment_sum_rows": steps + fold,
                               "weighted_histogram": 0},
           f"launches on the sparse route {sparse_launches}")
-    sgap = max(abs(a - b) for a, b in zip(sparse["batch_losses"], losses[:BATCHES]))
+    sgap = max(abs(a - b) for a, b in zip(sparse["batch_losses"], losses))
     check(sgap <= LOSS_ATOL, f"sparse and mxu routes differ by {sgap} > {LOSS_ATOL}")
     print(f"phase 4: sparse-route losses {sparse['batch_losses']}, "
           f"max |sparse - mxu| {sgap}, launches {sparse_launches}", flush=True)
@@ -794,7 +819,57 @@ def run_slice():
         "final_loss": losses[-1],
     }
     launches["segment_sum_rows"] = sparse_launches["segment_sum_rows"]
-    return launches, summary
+    return launches, summary, gpu, sparse
+
+
+def probe_launches(result):
+    """K1 and fold (K3, or K2 on the sparse route) launches of a keyed job's
+    comm probes: each probe calls PULL (K1) and PULL+PUSH (K1, then the fold)
+    once to warm up and PROBE_SAMPLES times to time."""
+    from harmony_tpu_torch.dolphin.worker import WorkerTasklet
+
+    calls = result["comm_probe"]["probes"] * (1 + WorkerTasklet.PROBE_SAMPLES)
+    return 2 * calls, calls
+
+
+def run_unfused_slice(fused, fused_sparse):
+    """Phase 3e: the Wide&Deep job of phase 3 on the unfused step
+    (HARMONY_FUSED_STEP=0), on the mxu and the sparse push routes: its losses
+    bit-identical to the fused runs of phases 3 and 4, K1 and the route's
+    fold launched once a step each (no comm probe on the unfused path), and
+    the mean phase seconds."""
+    from harmony_tpu_torch.ops.histogram import weighted_histogram
+    from harmony_tpu_torch.ops.sparse import gather_rows, segment_sum_rows
+
+    wrappers = (gather_rows, segment_sum_rows, weighted_histogram)
+    steps = EPOCHS * BATCHES
+    out = {}
+    for route, reference, fold in (("mxu_auto", fused, "weighted_histogram"),
+                                   ("sparse", fused_sparse, "segment_sum_rows")):
+        os.environ["HARMONY_FUSED_STEP"] = "0"
+        os.environ["HARMONY_PUSH_VIA"] = route
+        try:
+            reset_counts(*wrappers)
+            unfused = run_cli(SLICE_ARGS + ["--epochs", str(EPOCHS)])
+            launches = {w.__name__: w.launches for w in wrappers}
+        finally:
+            os.environ.pop("HARMONY_FUSED_STEP")
+            os.environ.pop("HARMONY_PUSH_VIA")
+        expected = dict.fromkeys(launches, 0)
+        expected.update({"gather_rows": steps, fold: steps})
+        check(unfused["step_mode"] == "unfused", f"step mode {unfused['step_mode']}")
+        check(launches == expected,
+              f"unfused launches on the {route} route {launches}, expected {expected}")
+        check(unfused["batch_losses"] == reference["batch_losses"],
+              f"unfused losses on the {route} route {unfused['batch_losses']} are not "
+              f"bit-identical to the fused {reference['batch_losses']}")
+        out[route] = {"launches": launches, "phase_seconds": unfused["phase_seconds"],
+                      "epoch_seconds": unfused["epoch_seconds"],
+                      "fused_epoch_seconds": reference["epoch_seconds"]}
+        print(f"phase 3e: unfused Wide&Deep on the {route} route bit-identical to the "
+              f"fused step, launches {launches}, mean phase seconds "
+              f"{unfused['phase_seconds']}", flush=True)
+    return out
 
 
 def run_lm():
@@ -889,6 +964,9 @@ TRIO_REL = 1e-4
 # log-likelihood within 1% of the CPU's.
 LDA_FIRST_BATCH_SHARE = 0.9999
 LDA_LL_REL = 0.01
+# The reference's windows for a 12-epoch job with comm_probe_period 6: the
+# epoch-0 probe, then windows of 8 and 4 epochs (the next probe is due at 48).
+TRIO_WINDOWS = [8, 4]
 
 
 def all_wrappers():
@@ -907,15 +985,35 @@ def run_trio():
     it; then the CPU baseline."""
     from harmony_tpu_torch import bench
 
+    from harmony_tpu_torch.data import devcache
+
     wrappers = all_wrappers()
     dev = torch.device("cuda")
     epochs = bench.EPOCHS
-    bench.run_concurrent([dev], TRIO_SCALE, job_timeout=600.0, epochs=1)
-    reset_counts(*wrappers)
-    rate, walls, jobs = bench.run_concurrent([dev], TRIO_SCALE, job_timeout=600.0,
-                                             epochs=epochs)
-    torch.cuda.synchronize()
-    launches = {w.__name__: w.launches for w in wrappers}
+    with counted_data_fns() as calls:
+        bench.run_concurrent([dev], TRIO_SCALE, job_timeout=600.0, epochs=1)
+        warmup_calls = dict(calls)
+        calls.clear()
+        before = {"device": devcache.stats(), "host": devcache.host_data.stats()}
+        reset_counts(*wrappers)
+        rate, walls, jobs = bench.run_concurrent([dev], TRIO_SCALE, job_timeout=600.0,
+                                                 epochs=epochs)
+        torch.cuda.synchronize()
+        launches = {w.__name__: w.launches for w in wrappers}
+        measured_calls = dict(calls)
+    caches = {name: {k: stats[k] - before[name][k] for k in ("hits", "misses")}
+              for name, stats in (("device", devcache.stats()),
+                                  ("host", devcache.host_data.stats()))}
+    windows = {k: j["worker"]["windows"] for k, j in jobs.items()}
+    check(sum(measured_calls.values()) == 0,
+          f"the measured pass called data_fn {measured_calls}")
+    check(caches["device"]["misses"] == 0 and caches["host"]["misses"] == 0,
+          f"the measured pass missed a data cache: {caches}")
+    check(all(w == TRIO_WINDOWS for w in windows.values()),
+          f"windows {windows}, expected {TRIO_WINDOWS} for every job")
+    print(f"phase 3d: data_fn calls: warm-up {warmup_calls}, measured pass "
+          f"{measured_calls}; cache hits and misses over the measured pass {caches}; "
+          f"windows {windows}", flush=True)
     expected = dict.fromkeys(launches, 0)
     expected["weighted_histogram"] = 1   # NMF's init multi_update
     check(launches == expected, f"trio launches {launches}, expected {expected}")
@@ -948,6 +1046,10 @@ def run_trio():
     cpu_rate = bench.cpu_baseline_rate(BASELINE_SCALE, epochs)
     summary = {
         "samples_per_sec": rate,
+        "data_fn_calls": {"warm_up": warmup_calls, "measured": measured_calls},
+        "cache_hits_misses": caches,
+        "windows": windows,
+        "comm_probe": {k: j["worker"]["comm_probe"] for k, j in jobs.items()},
         "cpu_rate": cpu_rate,
         "vs_baseline": rate / cpu_rate,
         "cpu_baseline_seconds": time.perf_counter() - t0,
@@ -961,6 +1063,200 @@ def run_trio():
         "per_epoch_metric": per_epoch,
     }
     return launches, summary
+
+
+@contextlib.contextmanager
+def counted_data_fns():
+    """Count the calls of the trio's data generators (resolved by name at
+    each job's set-up, so the wrappers are what the entity calls)."""
+    from harmony_tpu_torch.apps import lda, mlr, nmf
+
+    calls = {}
+    saved = {m: m.make_synthetic for m in (mlr, nmf, lda)}
+
+    def counted(module, fn):
+        def wrapper(*args, **kw):
+            name = module.__name__.rsplit(".", 1)[-1]
+            calls[name] = calls.get(name, 0) + 1
+            return fn(*args, **kw)
+        return wrapper
+
+    for m, fn in saved.items():
+        m.make_synthetic = counted(m, fn)
+    try:
+        yield calls
+    finally:
+        for m, fn in saved.items():
+            m.make_synthetic = fn
+
+
+def trio_windows_without_syncs():
+    """Phase 3d: each trio job alone at full size (its data and stack from the
+    caches), with CUDA's sync debug mode set to raise while each window is
+    enqueued and cleared for its one drain: a window makes no blocking host
+    copy and no other sync. The jobs run one after another because the mode is
+    process-wide."""
+    from harmony_tpu_torch import bench
+    from harmony_tpu_torch.jobserver.entity import DolphinJobEntity
+    from harmony_tpu_torch.parallel.mesh import DevicePool
+    from harmony_tpu_torch.runtime.master import ETMaster
+
+    out = {}
+    for config in bench.job_configs(TRIO_SCALE, bench.EPOCHS)[0]:
+        master = ETMaster(DevicePool([torch.device("cuda")]))
+        entity = DolphinJobEntity(config)
+        entity.setup(master, [e.id for e in master.add_executors(1)])
+        worker = entity.make_worker()
+        enqueue = worker._enqueue_fused_window
+        drains = []
+
+        def checked(first_epoch, k, enqueue=enqueue, drains=drains):
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return enqueue(first_epoch, k)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+                drains.append(k)
+
+        worker._enqueue_fused_window = checked
+        try:
+            result = worker.run()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            entity.cleanup()
+        check(drains == result["windows"] == TRIO_WINDOWS,
+              f"{config.job_id}: windows {drains}, {result['windows']}")
+        out[config.job_id] = {"windows": drains, "epoch_seconds": result["epoch_seconds"]}
+    print(f"phase 3d: every window of each trio job enqueued with no host sync "
+          f"(sync debug mode 'error'): {json.dumps(out)}", flush=True)
+    return out
+
+
+def run_async_mlr():
+    """Phase 3f: bench.py's MLR job (full size, 12 epochs) alone through the
+    JobServer on the fused step, then on the async step at staleness bound 0
+    (bit-identical to the fused step) and bound 1 (finite losses, lag at most
+    1)."""
+    from harmony_tpu_torch import bench
+    from harmony_tpu_torch.jobserver.server import JobServer
+    from harmony_tpu_torch.parallel.mesh import DevicePool
+
+    config = bench.job_configs(TRIO_SCALE, bench.EPOCHS)[0][0]
+    examples = bench.job_configs(TRIO_SCALE, bench.EPOCHS)[1][config.job_id]
+    runs = {}
+    for name, changes in (("fused", {}),
+                          ("bound0", {"async_step": True, "staleness_bound": 0}),
+                          ("bound1", {"async_step": True, "staleness_bound": 1})):
+        cfg = config.replace(job_id=f"async-{name}",
+                             params=config.params.replace(**changes))
+        server = JobServer(1, device_pool=DevicePool([torch.device("cuda")]))
+        server.start()
+        try:
+            (worker,) = server.submit(cfg).result(timeout=600)["workers"].values()
+        finally:
+            server.shutdown()
+        runs[name] = worker
+    b0, b1 = runs["bound0"], runs["bound1"]
+    check(b0["step_mode"] == b1["step_mode"] == "async", "the async step did not run")
+    check(b0["batch_losses"] == runs["fused"]["batch_losses"],
+          f"async bound 0 losses {b0['batch_losses']} are not bit-identical to the "
+          f"fused step's {runs['fused']['batch_losses']}")
+    check(all(math.isfinite(v) for v in b1["batch_losses"])
+          and b1["staleness"]["max_lag"] <= 1,
+          f"async bound 1: losses {b1['batch_losses']}, {b1['staleness']}")
+
+    def rate(w):
+        return examples / (w["train_span"][1] - w["train_span"][0])
+
+    out = {name: {"samples_per_sec": rate(w), "epoch_seconds": w["epoch_seconds"],
+                  "phase_seconds": w.get("phase_seconds"),
+                  "staleness": w.get("staleness"), "final_loss": w["losses"][-1]}
+           for name, w in runs.items()}
+    print(f"phase 3f: async MLR bound 0 bit-identical to the fused step; samples/s "
+          f"fused {out['fused']['samples_per_sec']:.0f}, bound 0 "
+          f"{out['bound0']['samples_per_sec']:.0f}, bound 1 "
+          f"{out['bound1']['samples_per_sec']:.0f}; bound 1 staleness "
+          f"{b1['staleness']}", flush=True)
+    return out
+
+
+def chrome_trace(prof, name: str) -> list:
+    """The profile's trace events, through a Chrome trace written into the
+    kernels' build directory (git-ignored) and removed after reading."""
+    out_dir = os.path.join(REPO, "harmony_tpu_torch", "_build")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, f"{name}.trace.json")
+    prof.export_chrome_trace(path)
+    try:
+        with open(path) as f:
+            return json.load(f)["traceEvents"]
+    finally:
+        os.remove(path)
+
+
+def event_stream(e: dict):
+    args = e.get("args", {})
+    return args.get("stream", e.get("tid"))
+
+
+def run_prefetch():
+    """Phase 3g: the Wide&Deep job of phase 3 (full width, 2 epochs) on a
+    shuffling provider, through WorkerTasklet with input_prefetch on and off:
+    bit-identical losses; under torch.profiler the staged batches are
+    `Memcpy HtoD (Pinned -> Device)` copies on a stream that runs none of the
+    steps' kernels; the ring's stall and idle seconds."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from harmony_tpu_torch.apps.widedeep import WideDeepTrainer, make_synthetic
+    from harmony_tpu_torch.config.params import TrainerParams
+    from harmony_tpu_torch.dolphin.data import TrainingDataProvider
+    from harmony_tpu_torch.dolphin.trainer import TrainerContext
+    from harmony_tpu_torch.dolphin.worker import WorkerTasklet
+    from harmony_tpu_torch.table.table import DenseTable, TableSpec
+
+    arrays = list(make_synthetic(N_EXAMPLES, 100000, 16))
+
+    def run(prefetch):
+        trainer = WideDeepTrainer(vocab_size=100000, num_slots=16, emb_dim=16,
+                                  hidden=128, step_size=0.1)
+        table = DenseTable(TableSpec(trainer.model_table_config()), "cuda")
+        params = TrainerParams(num_epochs=EPOCHS, num_mini_batches=BATCHES,
+                               input_prefetch=prefetch)
+        data = TrainingDataProvider(arrays, BATCHES, shuffle_each_epoch=True, seed=5)
+        worker = WorkerTasklet("prefetch", TrainerContext(params=params, model_table=table),
+                               trainer, data)
+        return worker.run()
+
+    off = run(False)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        on = run(True)
+        torch.cuda.synchronize()
+    check(on["batch_losses"] == off["batch_losses"],
+          f"losses with prefetch {on['batch_losses']} are not bit-identical to "
+          f"those without {off['batch_losses']}")
+    events = [e for e in chrome_trace(prof, "prefetch") if e.get("ph") == "X"]
+    pinned = [e for e in events if e.get("name") == "Memcpy HtoD (Pinned -> Device)"]
+    copy_streams = {event_stream(e) for e in pinned}
+    step_streams = {event_stream(e) for e in events
+                    if e.get("cat") == "kernel" and "gather_rows" in e.get("name", "")}
+    staged = on["input"]["staged"]
+    check(staged == EPOCHS * BATCHES and on["input"]["prefetch_hits"] == staged,
+          f"prefetch input stats {on['input']}")
+    check(len(pinned) >= staged * len(arrays),
+          f"{len(pinned)} pinned host-to-device copies for {staged} staged batches")
+    check(step_streams and not copy_streams & step_streams,
+          f"pinned copies on streams {copy_streams}, the steps' K1 on {step_streams}")
+    out = {"input": on["input"], "pinned_copies": len(pinned),
+           "copy_streams": sorted(map(str, copy_streams)),
+           "step_streams": sorted(map(str, step_streams)),
+           "epoch_seconds_on": on["epoch_seconds"], "epoch_seconds_off": off["epoch_seconds"]}
+    print(f"phase 3g: prefetch on and off bit-identical; {len(pinned)} pinned copies on "
+          f"streams {out['copy_streams']}, the steps on {out['step_streams']}; ring "
+          f"stall {on['input']['consumer_stall_sec']} s, producer idle "
+          f"{on['input']['producer_idle_sec']} s", flush=True)
+    return out
 
 
 def trio_agreement():
@@ -1078,6 +1374,12 @@ def profile_trio(top_n: int = 12):
         rate, _, jobs = bench.run_concurrent([torch.device("cuda")], TRIO_SCALE,
                                              job_timeout=600.0, epochs=bench.EPOCHS)
         torch.cuda.synchronize()
+    htod = {}
+    for e in chrome_trace(prof, "trio"):
+        if e.get("ph") == "X" and e.get("name", "").startswith("Memcpy HtoD"):
+            entry = htod.setdefault(e["name"], {"copies": 0, "bytes": 0})
+            entry["copies"] += 1
+            entry["bytes"] += int(e.get("args", {}).get("bytes", 0))
     events = prof.events()
     (mark_us,) = [e.time_range.end for e in events
                   if e.name == marker and e.device_type == DeviceType.CPU]
@@ -1111,6 +1413,8 @@ def profile_trio(top_n: int = 12):
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:top_n]
     return {
         "samples_per_sec": rate,
+        "htod_copies": htod,
+        "htod_bytes": sum(v["bytes"] for v in htod.values()),
         "pass": window(0.0, wall),
         "training_spans_overlap": (max(j["train_start_s"] for j in jobs.values())
                                    < min(j["train_end_s"] for j in jobs.values())),
@@ -1242,15 +1546,19 @@ def main() -> int:
     print(f"phase 2b: timing {json.dumps({k: timing[k] for k in FLASH_KERNELS})}",
           flush=True)
 
-    launches, summary = run_slice()
+    launches, summary, fused, fused_sparse = run_slice()
     print("slice: " + json.dumps(summary), flush=True)
+    print("unfused: " + json.dumps(run_unfused_slice(fused, fused_sparse)), flush=True)
     lm_launches, lm_summary = run_lm()
     print("lm: " + json.dumps(lm_summary), flush=True)
     print("lm preset: " + json.dumps(run_lm_preset()), flush=True)
     trio_launches, trio = run_trio()
     print("trio: " + json.dumps(trio), flush=True)
+    print("trio windows: " + json.dumps(trio_windows_without_syncs()), flush=True)
     print("trio agreement: " + json.dumps(trio_agreement()), flush=True)
     print("lda assignments: " + json.dumps(lda_assignments()), flush=True)
+    print("async: " + json.dumps(run_async_mlr()), flush=True)
+    print("prefetch: " + json.dumps(run_prefetch()), flush=True)
     by_path = {name: {"bench-widedeep": launches.get(name, 0),
                       "bench-lm": lm_launches[name],
                       "bench-trio": trio_launches[name]} for name in lm_launches}

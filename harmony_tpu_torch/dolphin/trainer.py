@@ -51,9 +51,9 @@ class Trainer:
     objective_metric: Optional[str] = None
     # Opt-in: True when ``on_epoch_finished`` depends only on ``epoch_idx`` and
     # the trainer's own attributes (decay schedules, PRNG epoch counters),
-    # never on trained values, so a worker may run it before the epoch's
-    # device results drain. This port's worker drains every epoch first;
-    # the flag is kept for the step modes that will read it.
+    # never on trained values, so the worker may run it between the epochs
+    # of a multi-epoch window, before their device results drain (see
+    # :meth:`_epoch_hook_windowable`).
     epoch_hook_windowable: bool = False
 
     # -- lifecycle (host side) ------------------------------------------
@@ -70,6 +70,28 @@ class Trainer:
 
     def cleanup(self, ctx: TrainerContext) -> None:
         """Final hook after the last epoch."""
+
+    @classmethod
+    def _epoch_hook_windowable(cls, trainer: "Trainer") -> bool:
+        """Whether ``trainer``'s ``on_epoch_finished`` may run between the
+        epochs of a multi-epoch window, before their results drain.
+
+        True for the base no-op. For an overrider, the ``epoch_hook_windowable``
+        opt-in must be declared AT OR BELOW the class that defines the
+        effective hook: a flag inherited from above describes an ancestor's
+        hook, and a subclass that replaces the hook must opt in again for its
+        own. An instance attribute wins."""
+        if "epoch_hook_windowable" in trainer.__dict__:
+            return bool(trainer.__dict__["epoch_hook_windowable"])
+        mro = type(trainer).__mro__
+        hook_owner = next(c for c in mro if "on_epoch_finished" in vars(c))
+        if hook_owner is Trainer:
+            return True  # the un-overridden no-op reads nothing
+        flag_owner = next(
+            (c for c in mro if "epoch_hook_windowable" in vars(c)), None)
+        if flag_owner is None or not vars(flag_owner)["epoch_hook_windowable"]:
+            return False
+        return mro.index(flag_owner) <= mro.index(hook_owner)
 
     # -- compute parts (device side) -------------------------------------
 

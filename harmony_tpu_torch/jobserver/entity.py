@@ -5,7 +5,10 @@ trainer and its data come from the serializable ``JobConfig`` (dotted-path
 symbols); the job's model table, and its worker-local table when the trainer
 has one, are created on its executors' device under job-namespaced ids, so two
 jobs of one app never collide; the run drives one ``WorkerTasklet``; cleanup
-drops both tables. Not ported yet: shared tables, checkpoint chains and
+drops both tables. The dataset is cached under its data source
+(``_data_source_key``): a second job with the same ``data_fn`` and
+``data_args`` reads the cached host arrays, and its worker the device-resident
+batches, as in the reference. Not ported yet: shared tables, checkpoint chains and
 resume, elastic recovery, multi-worker jobs (SSP barriers, turnstiles,
 TaskUnits), the optimizer loop and the pod branch.
 """
@@ -18,6 +21,7 @@ import numpy as np
 
 from harmony_tpu_torch.config.base import resolve_symbol
 from harmony_tpu_torch.config.params import JobConfig
+from harmony_tpu_torch.data import devcache
 from harmony_tpu_torch.dolphin.data import TrainingDataProvider
 from harmony_tpu_torch.dolphin.trainer import Trainer, TrainerContext
 from harmony_tpu_torch.dolphin.worker import WorkerTasklet
@@ -45,13 +49,46 @@ class DolphinJobEntity:
             raise ValueError(f"job {self.config.job_id}: no trainer configured")
         return resolve_symbol(self.config.trainer)(**self.config.params.app_params)
 
+    def _data_source_key(self) -> "tuple | None":
+        """Identity of this job's data source: the generator's dotted path and
+        its canonicalized args. Jobs that share it share the host arrays and
+        the device-resident batches (data/devcache.py). None when an arg is
+        unhashable."""
+        user = self.config.user
+
+        def tag(v):
+            # type-tagged recursively: True == 1 == 1.0 must not collide, as
+            # a data_fn may behave differently by type
+            if isinstance(v, (list, tuple)):
+                return (type(v).__name__, tuple(tag(x) for x in v))
+            return (type(v).__name__, v)
+
+        try:
+            args = tuple(sorted(
+                (k, tag(v)) for k, v in user.get("data_args", {}).items()))
+            hash(args)
+        except TypeError:
+            return None
+        return (user.get("data_fn"), args)
+
     def _make_data(self) -> List[np.ndarray]:
+        """The job's dataset. Jobs with the SAME (data_fn, data_args) see the
+        same dataset by definition: the host arrays are cached under the
+        source key (``devcache.host_data``), so a second submission does not
+        call ``data_fn`` again. A source that must differ per job varies its
+        args (a seed)."""
         user = self.config.user
         if "data_fn" not in user:
             raise ValueError(f"job {self.config.job_id}: user.data_fn missing")
+        key = self._data_source_key()
+        cached = devcache.host_data.get(key)
+        if cached is not None:
+            return cached
         out = resolve_symbol(user["data_fn"])(**user.get("data_args", {}))
-        return [np.asarray(a)
-                for a in (out if isinstance(out, (tuple, list)) else (out,))]
+        arrays = [np.asarray(a)
+                  for a in (out if isinstance(out, (tuple, list)) else (out,))]
+        devcache.host_data.put(key, arrays)
+        return arrays
 
     def _create(self, master: ETMaster, table_cfg, executor_ids) -> DenseTable:
         return master.create_table(
@@ -72,7 +109,12 @@ class DolphinJobEntity:
     def make_worker(self) -> WorkerTasklet:
         """The job's one worker over the tables and data that ``setup`` made."""
         cfg = self.config
-        data = TrainingDataProvider(self._data_arrays, cfg.params.num_mini_batches)
+        nb = cfg.params.num_mini_batches
+        src = self._data_source_key()
+        n = len(self._data_arrays[0])
+        data = TrainingDataProvider(
+            self._data_arrays, nb,
+            dataset_key=None if src is None else (src, 0, n, nb))
         ctx = TrainerContext(params=cfg.params, model_table=self._table,
                              local_table=self._local, worker_id=f"{cfg.job_id}/w0",
                              num_workers=1)

@@ -34,6 +34,7 @@ from __future__ import annotations
 import math
 from typing import Sequence, Tuple
 
+import numpy as np
 import torch
 
 MASK = 0xFFFFFFFF
@@ -95,9 +96,13 @@ def uniform(key: torch.Tensor, shape: Sequence[int], minval: float = 0.0,
     bits = random_bits(key, shape)
     f = ((bits >> (32 - _MANTISSA_BITS)) | _ONE_F32_BITS).to(torch.int32)
     floats = f.view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
-    return torch.maximum(lo, floats * (hi - lo) + lo)
+    # jax rounds minval and maxval to float32 and takes hi - lo in float32;
+    # each value here is a float32 held exactly in a Python float, so the
+    # tensor ops below compute the same float32 arithmetic without copying a
+    # scalar from the host (a copy that would wait for the device).
+    lo = float(np.float32(minval))
+    scale = float(np.float32(maxval) - np.float32(lo))
+    return torch.clamp_min(floats * scale + lo, lo)
 
 
 def gumbel(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
