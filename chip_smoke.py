@@ -38,13 +38,25 @@ Phases, in order; any failure ends the script with a non-zero exit code:
    agree bit for bit. Timed (call ms by CUDA events, device ms by
    torch.profiler) beside their plain versions, their first (scalar) versions
    and ``scaled_dot_product_attention``'s forward and backward.
+2c. The hash table (``table/hashtable.py``): its ops on the card against the
+   port's CPU route on the same inputs, byte for byte (slot keys, values,
+   returned values, overflow counts): same-slot races, overflow, an exhausted
+   probe budget, each update mode on float deltas, put of -0.0, and
+   bench-fm-hash's table at full width.
+2d. The push-route autotune at bench-widedeep's push: the device ms of the
+   ``mxu`` (K3) and ``sparse`` (K2) arms and the route chosen (``mxu``
+   unless ``sparse`` is faster by more than the autotune's margin), first
+   while another tenant keeps the card busy on its own stream, then on an
+   idle card; the second choice is cached for the jobs below that leave
+   ``HARMONY_PUSH_VIA`` unset (3g, 5).
 3. The slice: ``python -m harmony_tpu_torch.cli run widedeep`` at the
    ``bench-widedeep`` size of ``benchmarks/apps.py`` (vocab 100,000, 16 slots,
    emb 16, hidden 128, 32,768 examples in 8 mini-batches) for 2 epochs on the
-   card, with the launch counts set to 0 just before and read just after (K1
-   and K3 once a step, plus the comm probe's: one warm-up and three timed
-   calls each of PULL, K1, and PULL+PUSH, K1 and K3); then the same job on
-   the CPU (plain versions), step for step.
+   card on the ``mxu`` route (``HARMONY_PUSH_VIA=mxu``), with the launch
+   counts set to 0 just before and read just after (K1 and K3 once a step,
+   plus the comm probe's: one warm-up and three timed calls each of PULL,
+   K1, and PULL+PUSH, K1 and the fold); then the same job on the CPU (plain
+   versions), step for step.
 3b. The LM at full width: ``cli run lm`` at the size of ``benchmarks/lm.py``
    (vocab 8192, d_model 512, 8 heads, 8 layers, d_ff 2048, max_seq 1024, bf16,
    batch 32 x 1024 tokens) for 2 epochs of 4 steps, launch counts (K4, K5a
@@ -68,9 +80,9 @@ Phases, in order; any failure ends the script with a non-zero exit code:
    window is enqueued: no blocking host copy and no other sync inside a
    window, one drain after it.
 3e. The unfused step (``HARMONY_FUSED_STEP=0``) on the Wide&Deep job of
-   phase 3, on the mxu and the sparse push routes: losses bit-identical to
-   the fused runs of phases 3 and 4, K1 and the route's fold (K3, K2) once a
-   step each, and the mean PULL, COMP and PUSH seconds.
+   phase 3, on the mxu and the sparse push routes: losses
+   bit-identical to the fused runs of phases 3 and 4, K1 and the route's
+   fold once a step each, and the mean PULL, COMP and PUSH seconds.
 3f. The async step on ``bench.py``'s MLR job at full size, through the
    JobServer: staleness bound 0 bit-identical to the fused step, bound 1
    with finite losses and a lag of at most 1; samples/s of each.
@@ -79,6 +91,22 @@ Phases, in order; any failure ends the script with a non-zero exit code:
    torch.profiler the staged batches are ``Memcpy HtoD (Pinned -> Device)``
    copies on a stream that runs none of the steps' kernels; the ring's stall
    and idle seconds.
+3h. ``bench-fm-hash`` (``benchmarks/apps.py:68-81``) at full width: an FM
+   over a DeviceHashTable of 524,288 slots x 17 f32, ids from the whole
+   int32 domain, through the JobServer on the card for 2 epochs, launch
+   counts read around it (K1 and K2 once a step, and the comm probe's); the
+   loss falls and the overflow count is printed. Then the JobServer's set-up
+   of the same job on the card, with CUDA's sync debug mode raising inside
+   each fused window (no host sync: the refused-key counts stay on the
+   device until the drain), bit-identical to the first card run, and on the
+   CPU: slot keys byte-identical, losses within LOSS_ATOL.
+3i. Sparse LDA at the trio's width (V 8,192, K 64, 2,048 documents of 128
+   tokens): the same, for 2 epochs; the counts, slot keys and assignments
+   identical on the card and the CPU.
+3j. The ModelAccessor path: FusedSparseStep at bench-widedeep's width
+   (PULL K1, PUSH K3) bit-identical to the accessor's unfused loop, and
+   accessor_async_step at staleness bound 0 bit-identical to the
+   synchronous cycle.
 4. The sparse push route (``HARMONY_PUSH_VIA=sparse``): the Wide&Deep job
    of phase 3, which folds its pushes with K2.
 5. Where a step's time goes: a steady epoch of the Wide&Deep job on the host
@@ -90,9 +118,14 @@ Phases, in order; any failure ends the script with a non-zero exit code:
    within each job's training span and where MLR trains alone (if it
    does); the host-to-device copies' share of it, and their count and bytes
    by kind from the profile's Chrome trace; and the top kernels.
-6. A ``kernels`` JSON line (K1-K3 also carry ``device_ms``,
-   ``library_device_ms``, ``library_deterministic_device_ms`` and
-   ``host_us``), the card's name and power limit, and the last line
+5d. The same for a bench-fm-hash step and a sparse LDA step, with the
+   device's operations (kernels, copies, fills) a step.
+6. A ``kernels`` JSON line: ``launches`` sums each kernel's launches over
+   the main paths, each read with the counts set to 0 just before it
+   (``launches_by_path``: bench-widedeep, bench-lm, bench-trio,
+   bench-fm-hash, sparse-lda-hash, fused-sparse-step); K1-K3 also carry
+   ``device_ms``, ``library_device_ms``, ``library_deterministic_device_ms``
+   and ``host_us``; the card's name and power limit, and the last line
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -760,11 +793,20 @@ def run_slice():
 
     wrappers = (gather_rows, segment_sum_rows, weighted_histogram)
     steps = EPOCHS * BATCHES
-    os.environ.pop("HARMONY_PUSH_VIA", None)
-
-    reset_counts(*wrappers)
-    gpu = run_cli(SLICE_ARGS + ["--epochs", str(EPOCHS)])
-    launches = {w.__name__: w.launches for w in wrappers}
+    # K3 held against the CPU on the job where it does its main work; phase 4
+    # takes the sparse route (K2), phase 2d the autotune's choice
+    os.environ["HARMONY_PUSH_VIA"] = "mxu"
+    try:
+        reset_counts(*wrappers)
+        gpu = run_cli(SLICE_ARGS + ["--epochs", str(EPOCHS)])
+        launches = {w.__name__: w.launches for w in wrappers}
+        reset_counts(*wrappers)
+        t0 = time.perf_counter()
+        cpu = run_cli(SLICE_ARGS + ["--epochs", str(EPOCHS), "--device", "cpu"])
+        cpu_seconds = time.perf_counter() - t0
+        cpu_launches = [w.launches for w in wrappers]
+    finally:
+        os.environ.pop("HARMONY_PUSH_VIA")
     losses = gpu["batch_losses"]
     check(len(losses) == steps, f"{len(losses)} step losses, expected {steps}")
     check(all(math.isfinite(v) for v in losses), f"non-finite loss: {losses}")
@@ -772,19 +814,19 @@ def run_slice():
           and sum(losses[BATCHES:]) < sum(losses[:BATCHES]),
           f"loss is not falling: {losses}")
     k1, fold = probe_launches(gpu)
-    check(launches == {"gather_rows": steps + k1, "segment_sum_rows": 0,
-                       "weighted_histogram": steps + fold},
+    route = gpu["push_route"]
+    check(route == "mxu", f"push route {route}, expected mxu")
+    expected = {"gather_rows": steps + k1, "segment_sum_rows": 0,
+                "weighted_histogram": steps + fold}
+    check(launches == expected,
           f"launches on the card {launches}, expected K1 and K3 once a step and "
           f"{k1} and {fold} in the comm probe")
-    print(f"phase 3: card losses {losses}, launches {launches} ({k1} of K1 and "
-          f"{fold} of K3 in {gpu['comm_probe']['probes']} comm probe), windows "
-          f"{gpu['windows']}", flush=True)
+    print(f"phase 3: card losses {losses}, push route {route}, launches "
+          f"{launches} ({k1} of K1 and {fold} of the fold in "
+          f"{gpu['comm_probe']['probes']} comm probe), windows {gpu['windows']}",
+          flush=True)
 
-    reset_counts(*wrappers)
-    t0 = time.perf_counter()
-    cpu = run_cli(SLICE_ARGS + ["--epochs", str(EPOCHS), "--device", "cpu"])
-    cpu_seconds = time.perf_counter() - t0
-    check(all(w.launches == 0 for w in wrappers), "a kernel launched on the CPU run")
+    check(not any(cpu_launches), "a kernel launched on the CPU run")
     gap = max(abs(a - b) for a, b in zip(losses, cpu["batch_losses"]))
     check(gap <= LOSS_ATOL, f"card and CPU step losses differ by {gap} > {LOSS_ATOL}")
     print(f"phase 3: CPU losses {cpu['batch_losses']}, max |card - CPU| {gap}",
@@ -802,9 +844,9 @@ def run_slice():
                               "weighted_histogram": 0},
           f"launches on the sparse route {sparse_launches}")
     sgap = max(abs(a - b) for a, b in zip(sparse["batch_losses"], losses))
-    check(sgap <= LOSS_ATOL, f"sparse and mxu routes differ by {sgap} > {LOSS_ATOL}")
+    check(sgap <= LOSS_ATOL, f"sparse and {route} routes differ by {sgap} > {LOSS_ATOL}")
     print(f"phase 4: sparse-route losses {sparse['batch_losses']}, "
-          f"max |sparse - mxu| {sgap}, launches {sparse_launches}", flush=True)
+          f"max |sparse - {route}| {sgap}, launches {sparse_launches}", flush=True)
 
     summary = {
         "steps": steps,
@@ -817,8 +859,9 @@ def run_slice():
         "max_abs_loss_gap_card_vs_cpu": gap,
         "max_abs_loss_gap_sparse_vs_mxu": sgap,
         "final_loss": losses[-1],
+        "push_route": route,
     }
-    launches["segment_sum_rows"] = sparse_launches["segment_sum_rows"]
+    launches["segment_sum_rows"] += sparse_launches["segment_sum_rows"]
     return launches, summary, gpu, sparse
 
 
@@ -844,7 +887,7 @@ def run_unfused_slice(fused, fused_sparse):
     wrappers = (gather_rows, segment_sum_rows, weighted_histogram)
     steps = EPOCHS * BATCHES
     out = {}
-    for route, reference, fold in (("mxu_auto", fused, "weighted_histogram"),
+    for route, reference, fold in (("mxu", fused, "weighted_histogram"),
                                    ("sparse", fused_sparse, "segment_sum_rows")):
         os.environ["HARMONY_FUSED_STEP"] = "0"
         os.environ["HARMONY_PUSH_VIA"] = route
@@ -1340,6 +1383,426 @@ def lda_assignments():
     return out
 
 
+# -- the sparse path: hash tables, bench-fm-hash, sparse LDA, the accessor ----
+
+# bench-fm-hash (benchmarks/apps.py:68-81, BASELINE config 5's true shape) at
+# full width: the model in a DeviceHashTable of 256 blocks of 2,048 slots x 17
+# f32, ids from the whole int32 domain; cut to EPOCHS epochs.
+FM_HASH_APP = {"vocab_size": 100_000, "num_slots": 16, "emb_dim": 16,
+               "step_size": 0.1, "sparse": True}
+FM_HASH_DATA = {"n": N_EXAMPLES, "vocab_size": 100_000, "num_slots": 16}
+# sparse LDA at the trio's width (bench.py's LDA with sparse=True): 64 blocks
+# of 1,024 slots x 64 f32; cut to AGREE_EPOCHS epochs.
+SPARSE_LDA_APP = {"vocab_size": 8192, "num_topics": 64, "num_docs": 2048,
+                  "max_doc_len": 128, "sparse": True}
+SPARSE_LDA_DATA = {"num_docs": 2048, "vocab_size": 8192, "num_topics": 64,
+                   "doc_len": 128}
+# bench-fm-hash's table values, card against CPU, after EPOCHS epochs. The
+# push folds in the same order on both (K2 against its plain version); the
+# deltas differ only where the FM's gradient sums are taken in another order
+# (last bits, like the losses under LOSS_ATOL). The values stay below 1 in
+# magnitude, where one f32 rounding is at most 6e-8, and 16 steps of such
+# deltas stay within 1e-6. Measured: 3.7e-9 on an H100 80GB HBM3 at 700 W.
+HASH_VALUE_ATOL = 1e-6
+
+
+def hash_job(kind: str, epochs: int, **params):
+    """The JobConfig of bench-fm-hash (kind "fm") or sparse LDA ("lda");
+    ``params`` override its TrainerParams (comm_probe_period 6, as bench's)."""
+    from harmony_tpu_torch.config.params import JobConfig, TrainerParams
+
+    app, trainer, app_params, data = {
+        "fm": ("widedeep", "FMTrainer", FM_HASH_APP, FM_HASH_DATA),
+        "lda": ("lda", "LDATrainer", SPARSE_LDA_APP, SPARSE_LDA_DATA)}[kind]
+    return JobConfig(
+        job_id=f"bench-{kind}-hash", app_type="dolphin",
+        trainer=f"harmony_tpu_torch.apps.{app}:{trainer}",
+        params=TrainerParams(**{"num_epochs": epochs, "num_mini_batches": BATCHES,
+                                "comm_probe_period": 6, "app_params": app_params,
+                                **params}),
+        num_workers=1,
+        user={"data_fn": f"harmony_tpu_torch.apps.{app}:make_synthetic_sparse",
+              "data_args": data})
+
+
+def hash_worker(config, device):
+    """The JobServer's set-up of ``config`` (DolphinJobEntity) on ``device``:
+    returns the entity (for cleanup) and its worker."""
+    from harmony_tpu_torch.jobserver.entity import DolphinJobEntity
+    from harmony_tpu_torch.parallel.mesh import DevicePool
+    from harmony_tpu_torch.runtime.master import ETMaster
+
+    master = ETMaster(DevicePool([torch.device(device)]))
+    entity = DolphinJobEntity(config)
+    entity.setup(master, [e.id for e in master.add_executors(1)])
+    return entity, entity.make_worker()
+
+
+def windows_without_syncs(worker):
+    """Set CUDA's sync debug mode to raise while each fused window of
+    ``worker`` is enqueued (cleared for its drain); returns the windows seen."""
+    enqueue = worker._enqueue_fused_window
+    seen = []
+
+    def checked(first_epoch, k):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return enqueue(first_epoch, k)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            seen.append(k)
+
+    worker._enqueue_fused_window = checked
+    return seen
+
+
+def check_hash_ops(dev):
+    """Phase 2c: the hash table's ops on the card against the port's CPU route
+    on the same inputs, byte for byte (slot keys, values, every returned value
+    and overflow count): same-slot races between distinct keys and duplicates,
+    overflow, an exhausted probe budget, each update mode (add, add_nonneg's
+    post, min, max, assign) on float deltas with refused keys, put of -0.0,
+    and bench-fm-hash's table at full width (two steps' pulls and pushes of
+    65,537 keys). The push folds duplicates with K2 (no float atomics), so
+    float deltas give the same bits on both."""
+    from harmony_tpu_torch.apps.widedeep import FMTrainer, SPARSE_EXTRA_BASE, make_synthetic_sparse
+    from harmony_tpu_torch.config.params import TableConfig
+    from harmony_tpu_torch.table.hashtable import MAX_KEY, DeviceHashTable, HashTableSpec
+
+    rng = np.random.default_rng(7)
+
+    def keys_of(n):
+        return rng.choice(MAX_KEY, size=n, replace=False).astype(np.int32) + 1
+
+    def normal(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    def run_case(name, ops, max_probes=16, **cfg):
+        config = TableConfig(table_id="h", is_ordered=False, sparse=True, **cfg)
+        tables = [DeviceHashTable(HashTableSpec(config, max_probes=max_probes), d)
+                  for d in (dev, torch.device("cpu"))]
+        for op, *args in ops:
+            card, cpu = (getattr(t, op)(*args) for t in tables)
+            torch.cuda.synchronize()
+            same = (card.tobytes() == cpu.tobytes() if isinstance(card, np.ndarray)
+                    else card == cpu)
+            check(same, f"hash ops {name}: {op} differs on the card and the CPU")
+        for a, b in zip(tables[0].state, tables[1].state):
+            check(same_bits(a.cpu(), b), f"hash ops {name}: state not byte-identical")
+        check(tables[0].overflow_count == tables[1].overflow_count,
+              f"hash ops {name}: overflow {tables[0].overflow_count} != "
+              f"{tables[1].overflow_count}")
+        return {"present": tables[0].num_present(), "overflow": tables[0].overflow_count}
+
+    out = {}
+    race = np.arange(24, dtype=np.int32) * 7919 + 13
+    race = np.concatenate([race, race[::3], race[5:9]])
+    out["races"] = run_case("races", [("multi_update", race, normal(len(race), 4)),
+                                      ("multi_get_or_init", race[::-1].copy())],
+                            max_probes=32, capacity=32, value_shape=(4,), num_blocks=1)
+    over = keys_of(40)
+    out["overflow"] = run_case("overflow", [("multi_update", over, normal(40, 4)),
+                                            ("multi_get_or_init", over),
+                                            ("multi_get", over)],
+                               capacity=16, value_shape=(4,), num_blocks=1)
+    out["probe budget"] = run_case("probe budget", [("multi_update", keys_of(60), normal(60, 4))],
+                                   max_probes=2, capacity=64, value_shape=(4,), num_blocks=2)
+    universe = np.concatenate([keys_of(40), [0, -3, 2**31 - 1]]).astype(np.int32)
+    for mode in ("add", "add_nonneg", "min", "max", "assign"):
+        ops = []
+        for _ in range(4):
+            k = universe[rng.integers(0, len(universe), 30)]
+            ops.append(("multi_update", k, normal(30, 4)))
+        ops.append(("multi_get", universe))
+        out[mode] = run_case(mode, ops, capacity=64, value_shape=(4,), num_blocks=2,
+                             update_fn=mode)
+    zeros = np.asarray([[-0.0, 1.5], [0.0, -0.0]], np.float32)
+    out["put -0.0"] = run_case("put -0.0", [("multi_put", keys_of(2), zeros)],
+                               capacity=64, value_shape=(2,), num_blocks=2, update_fn="assign")
+    trainer = FMTrainer(**FM_HASH_APP)
+    ids, _ = make_synthetic_sparse(**FM_HASH_DATA)
+    steps = []
+    per_step = N_EXAMPLES // BATCHES
+    for b in range(2):
+        k = np.concatenate([ids[b * per_step:(b + 1) * per_step].reshape(-1),
+                            [SPARSE_EXTRA_BASE]]).astype(np.int32)
+        steps += [("multi_get_or_init", k), ("multi_update", k, normal(len(k), 17) * 0.1)]
+    cfg = trainer.model_table_config()
+    out["bench-fm-hash"] = run_case(
+        "bench-fm-hash", steps, capacity=cfg.capacity, value_shape=cfg.value_shape,
+        num_blocks=cfg.num_blocks, update_fn=cfg.update_fn)
+    print(f"phase 2c: hash ops byte-identical on the card and the CPU on {len(out)} "
+          f"cases: {json.dumps(out)}", flush=True)
+    return out
+
+
+def run_autotune(dev):
+    """Phase 2d: the push-route autotune at bench-widedeep's push (67,480 keys
+    into 102,144 rows of 17 f32): each arm's device ms and the route chosen,
+    first beside a tenant (a thread running 4096 x 4096 f32 products on the
+    default stream, as another job of the JobServer does), then on an idle
+    card. The idle card's choice is cached for the process, so the jobs that
+    leave HARMONY_PUSH_VIA unset find it and make no measurement launches."""
+    import threading
+
+    from harmony_tpu_torch.apps.widedeep import WideDeepTrainer
+    from harmony_tpu_torch.table import autotune
+    from harmony_tpu_torch.table.table import DenseTable, TableSpec
+
+    trainer = WideDeepTrainer(vocab_size=100000, num_slots=16, emb_dim=16, hidden=128,
+                              step_size=0.1)
+    table = DenseTable(TableSpec(trainer.model_table_config()), dev)
+    nkeys = N_EXAMPLES // BATCHES * 16 + trainer.num_extra_rows
+    stop = threading.Event()
+    products = [0]
+
+    def tenant():
+        a = torch.randn(4096, 4096, device=dev)
+        while not stop.is_set():
+            for _ in range(4):
+                a = a @ a
+                a /= a.norm()
+            torch.cuda.current_stream(dev).synchronize()
+            products[0] += 4
+
+    out = {"keys": nkeys}
+    thread = threading.Thread(target=tenant, daemon=True)
+    thread.start()
+    try:
+        while products[0] == 0 and thread.is_alive():
+            time.sleep(0.001)
+        for when in ("beside_a_tenant", "idle"):
+            if when == "idle":
+                stop.set()
+                thread.join()
+            autotune.reset()
+            route = autotune.choose_push_route(table.spec, dev, nkeys, table=table)
+            (meas,) = autotune.measurements().values()
+            check(all(v is not None and math.isfinite(v) and v > 0 for v in meas.values()),
+                  f"autotune {when}: an arm was not measured: {meas}")
+            check(route == autotune.pick(meas), f"autotune {when} chose {route} over {meas}")
+            out[when] = {"route": route, **meas}
+            print(f"phase 2d: push-route autotune at bench-widedeep's push ({nkeys} keys), "
+                  f"{when.replace('_', ' ')}: {json.dumps(out[when])}", flush=True)
+    finally:
+        stop.set()
+        thread.join()
+    check(products[0] > 0, "the tenant ran no product")
+    out["tenant_products"] = products[0]
+    return out
+
+
+def hash_path_launches(result, steps):
+    """K1 and K2 launches of a hash job: one pull (K1) and one push (K2) a
+    step; each comm probe calls PULL (K1) and PULL+PUSH (K1, then K2) once to
+    warm up and PROBE_SAMPLES times to time."""
+    k1, fold = probe_launches(result)
+    return {"gather_rows": steps + k1, "segment_sum_rows": steps + fold,
+            "weighted_histogram": 0}
+
+
+def run_hash_job(kind: str, epochs: int):
+    """Phases 3h (bench-fm-hash) and 3i (sparse LDA): the job through the
+    JobServer on the card with the launch counts read around it; then the
+    JobServer's set-up of the same job on the card (CUDA's sync debug mode
+    raising inside each fused window) and on the CPU, compared: the card's
+    two runs bit for bit, the slot keys byte for byte, the overflow counts,
+    and for LDA the counts and assignments exactly, for FM the losses within
+    LOSS_ATOL."""
+    from harmony_tpu_torch.jobserver.server import JobServer
+    from harmony_tpu_torch.ops.histogram import weighted_histogram
+    from harmony_tpu_torch.ops.sparse import gather_rows, segment_sum_rows
+    from harmony_tpu_torch.parallel.mesh import DevicePool
+
+    wrappers = (gather_rows, segment_sum_rows, weighted_histogram)
+    phase = {"fm": "3h", "lda": "3i"}[kind]
+    config = hash_job(kind, epochs)
+    steps = epochs * BATCHES
+    server = JobServer(1, device_pool=DevicePool([torch.device("cuda")]))
+    server.start()
+    try:
+        reset_counts(*wrappers)
+        t0 = time.perf_counter()
+        (card,) = server.submit(config).result(timeout=600)["workers"].values()
+        seconds = time.perf_counter() - t0
+        launches = {w.__name__: w.launches for w in wrappers}
+    finally:
+        server.shutdown()
+    losses = card["batch_losses"]
+    check(len(losses) == steps and all(math.isfinite(v) for v in losses),
+          f"{config.job_id}: step metrics {losses}")
+    if kind == "fm":
+        check(card["losses"][-1] < card["losses"][0]
+              and sum(losses[BATCHES:]) < sum(losses[:BATCHES]),
+              f"{config.job_id}: loss is not falling: {losses}")
+    else:
+        check(card["losses"][-1] > card["losses"][0],
+              f"{config.job_id}: log-likelihood is not rising: {card['losses']}")
+    expected = hash_path_launches(card, steps)
+    check(launches == expected, f"{config.job_id} launches {launches}, expected {expected}")
+    print(f"phase {phase}: {config.job_id} through the JobServer on the card: losses "
+          f"{card['losses']}, overflow_count {card['overflow_count']}, launches "
+          f"{launches} (K1 and K2 once a step, {steps} steps, and the comm probe's), "
+          f"windows {card['windows']}, {seconds:.2f} s", flush=True)
+
+    runs = {}
+    for d in ("cuda", "cpu"):
+        entity, worker = hash_worker(config, d)
+        seen = windows_without_syncs(worker) if d == "cuda" else None
+        try:
+            result = worker.run()
+            model, local = worker.ctx.model_table, worker.ctx.local_table
+            runs[d] = (result, [t.cpu() for t in model.state],
+                       None if local is None else local.pull_array().cpu())
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            entity.cleanup()
+        if seen is not None:
+            check(seen == result["windows"], f"windows {seen}, {result['windows']}")
+    (rc, (kc, vc), lc), (rp, (kp, vp), lp) = runs["cuda"], runs["cpu"]
+    check(rc["batch_losses"] == losses,
+          f"{config.job_id}: two card runs differ: {rc['batch_losses']} and {losses}")
+    check(same_bits(kc, kp), f"{config.job_id}: slot keys differ on the card and the CPU")
+    check(rc["overflow_count"] == rp["overflow_count"] == card["overflow_count"],
+          f"{config.job_id}: overflow counts {rc['overflow_count']}, {rp['overflow_count']}")
+    gap = max(abs(a - b) for a, b in zip(rc["batch_losses"], rp["batch_losses"]))
+    out = {"steps": steps, "losses": card["losses"], "batch_losses": losses,
+           "cpu_batch_losses": rp["batch_losses"], "max_abs_gap_card_vs_cpu": gap,
+           "overflow_count": card["overflow_count"], "launches": launches,
+           "windows": card["windows"], "comm_probe": card["comm_probe"],
+           "epoch_seconds": card["epoch_seconds"], "run_seconds": seconds,
+           "present_slots": int((kc < 0).sum())}
+    if kind == "lda":
+        check(same_bits(vc, vp), f"{config.job_id}: counts differ on the card and the CPU")
+        check(torch.equal(lc, lp), f"{config.job_id}: assignments differ")
+        out["counts_identical"] = out["assignments_identical"] = True
+    else:
+        check(gap <= LOSS_ATOL, f"{config.job_id}: card and CPU losses differ by {gap}")
+        vgap = float((vc - vp).abs().max())
+        vmax = float(vc.abs().max())
+        check(vmax < 1.0,
+              f"{config.job_id}: |values| reach {vmax}, past HASH_VALUE_ATOL's premise")
+        out["max_abs_value"] = vmax
+        check(vgap <= HASH_VALUE_ATOL,
+              f"{config.job_id}: card and CPU table values differ by {vgap} > "
+              f"{HASH_VALUE_ATOL}")
+        out["max_abs_value_gap_card_vs_cpu"] = vgap
+    out["samples_per_sec"] = (N_EXAMPLES if kind == "fm" else SPARSE_LDA_DATA["num_docs"]) \
+        / card["epoch_seconds"][-1]
+    print(f"phase {phase}: the card against the CPU after {epochs} epochs: slot keys "
+          f"byte-identical ({out['present_slots']} present), overflow "
+          f"{card['overflow_count']} on both, max |loss gap| {gap}"
+          + (", counts and assignments identical" if kind == "lda" else "")
+          + "; no sync inside any window of the card run", flush=True)
+    return out
+
+
+def run_host_driven_steps():
+    """Phase 3j: the ModelAccessor path on the card. FusedSparseStep at
+    bench-widedeep's width (102,144 rows of 17 f32, 8 batches of 65,536 keys:
+    PULL K1, PUSH K3 on the table's mxu_auto route) against the accessor's
+    unfused pull -> compute -> push, and accessor_async_step at bound 0
+    against the synchronous pull_all -> compute -> push_all cycle, bit for
+    bit; the launch counts of the fused run."""
+    from harmony_tpu_torch.config.params import TableConfig
+    from harmony_tpu_torch.dolphin.accessor import ModelAccessor
+    from harmony_tpu_torch.dolphin.worker import accessor_async_step
+    from harmony_tpu_torch.ops.histogram import weighted_histogram
+    from harmony_tpu_torch.ops.sparse import gather_rows, segment_sum_rows
+    from harmony_tpu_torch.table.table import DenseTable, TableSpec
+
+    wrappers = (gather_rows, segment_sum_rows, weighted_histogram)
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(11)
+    cfg = TableConfig(table_id="emb", capacity=102_144, value_shape=(17,), num_blocks=256,
+                      is_ordered=False)
+    # 65,536 keys a batch over 102,144 rows: duplicates fold in the push
+    batches = [(rng.integers(0, 102_144, 65_536).astype(np.int32),
+                rng.standard_normal((65_536, 17)).astype(np.float32)) for _ in range(BATCHES)]
+
+    def sgd(rows, targets):
+        err = rows - targets
+        return -0.05 * err, {"loss": torch.mean(torch.sum(err * err, -1))}
+
+    def table():
+        t = DenseTable(TableSpec(cfg), dev)
+        t.write_all(np.random.default_rng(12).standard_normal((102_144, 17)).astype(np.float32))
+        return t
+
+    fused_t = table()
+    fs = ModelAccessor(fused_t).fused_step(sgd)
+    reset_counts(*wrappers)
+    t0 = time.perf_counter()
+    auxes = fs.run_batches(batches)
+    fused_s = time.perf_counter() - t0
+    launches = {w.__name__: w.launches for w in wrappers}
+    check(fs.push_route == "mxu_auto" and launches == {
+        "gather_rows": BATCHES, "segment_sum_rows": 0, "weighted_histogram": BATCHES},
+        f"FusedSparseStep launches {launches} on {fs.push_route}")
+    unfused_t = table()
+    acc = ModelAccessor(unfused_t)
+    t0 = time.perf_counter()
+    unfused = []
+    for keys, tgt in batches:
+        delta, aux = sgd(torch.as_tensor(acc.pull(keys), device=dev),
+                         torch.as_tensor(tgt, device=dev))
+        acc.push(keys, delta.cpu().numpy())
+        unfused.append(float(aux["loss"]))
+    unfused_s = time.perf_counter() - t0
+    fused = [float(a["loss"]) for a in auxes]
+    check(fused == unfused and all(math.isfinite(v) for v in fused) and fused[-1] < fused[0],
+          f"FusedSparseStep losses {fused}, unfused {unfused}: not bit-identical, finite "
+          "and falling")
+    check(same_bits(fused_t.pull_array(), unfused_t.pull_array()),
+          "FusedSparseStep's table differs from the unfused loop's")
+
+    acfg = TableConfig(table_id="dense", capacity=4096, value_shape=(256,), num_blocks=64)
+    targets = [torch.as_tensor(rng.standard_normal((4096, 256)).astype(np.float32),
+                               device=dev) for _ in range(BATCHES)]
+
+    def compute(model, target):
+        return -0.3 * (model - target), {"gap": torch.mean(torch.abs(model - target))}
+
+    tables = [DenseTable(TableSpec(acfg), dev) for _ in range(2)]
+    drv = accessor_async_step(tables[0], compute, staleness_bound=0)
+    try:
+        gaps = [drv.submit(t)["gap"] for t in targets]
+        drv.drain()
+    finally:
+        drv.shutdown()
+    spec = tables[1].spec
+    sync_gaps = []
+    for t in targets:
+        def cycle(arr, t=t):
+            delta, m = compute(spec.pull_all(arr).clone(), t)
+            sync_gaps.append(m["gap"])
+            return spec.push_all(arr, delta), None
+        tables[1].apply_step(cycle)
+    check(torch.equal(torch.stack(gaps), torch.stack(sync_gaps))
+          and same_bits(tables[0].pull_array(), tables[1].pull_array()),
+          "accessor_async_step at bound 0 is not bit-identical to the synchronous cycle")
+    out = {"fused_sparse_step": {"launches": launches, "seconds": fused_s,
+                                 "unfused_seconds": unfused_s, "losses": fused},
+           "accessor_async_step": {"staleness": drv.staleness_stats(),
+                                   "phase_seconds": drv.mean_phase_seconds()}}
+    print(f"phase 3j: FusedSparseStep bit-identical to the accessor's unfused loop "
+          f"({fused_s:.3f} s against {unfused_s:.3f} s for {BATCHES} batches), launches "
+          f"{launches}; accessor_async_step at bound 0 bit-identical to the synchronous "
+          f"cycle", flush=True)
+    return launches, out
+
+
+def top_kernels(by_name: dict, top_n: int) -> dict:
+    """The ``top_n`` largest device times by kernel name cut to 90
+    characters, the names that share a cut summed (template instances of one
+    kernel), largest first."""
+    short = {}
+    for name, ms in by_name.items():
+        short[name[:90]] = short.get(name[:90], 0.0) + ms
+    return dict(sorted(short.items(), key=lambda kv: -kv[1])[:top_n])
+
+
 def busy_ms(intervals, lo: float, hi: float) -> float:
     """Milliseconds of [lo, hi] (seconds) that the union of ``intervals``
     covers."""
@@ -1410,7 +1873,6 @@ def profile_trio(top_n: int = 12):
     mlr = jobs["bench-mlr"]
     others_end = max(j["train_end_s"] for k, j in jobs.items() if k != "bench-mlr")
     alone = (max(mlr["train_start_s"], others_end), mlr["train_end_s"])
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:top_n]
     return {
         "samples_per_sec": rate,
         "htod_copies": htod,
@@ -1422,7 +1884,7 @@ def profile_trio(top_n: int = 12):
                      for k, j in jobs.items()},
         "mlr_trains_alone": window(*alone) if alone[1] > alone[0] else None,
         "steady_epoch_s": bench.steady_epoch_seconds(jobs),
-        "top_device_ms": {name[:90]: ms for name, ms in top},
+        "top_device_ms": top_kernels(by_name, top_n),
         "ours_device_ms": {
             kernel: sum(ms for name, ms in by_name.items() if kernel in name)
             for kernel in ("gather_rows", "keyed_fold", "flash_")},
@@ -1447,18 +1909,20 @@ def profile_worker(worker, steps: int, top_n: int):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         worker.run()
         torch.cuda.synchronize()
-    by_name = {}
+    by_name, ops = {}, 0
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3 / steps
+            ops += 1
     busy = sum(by_name.values())
     check(busy > 0, "the profiler saw no device time")
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:top_n]
     return {
         "step_ms": step_ms,
         "device_busy_ms_per_step": busy,
         "device_idle_share": max(0.0, 1.0 - busy / step_ms),
-        "top_device_ms_per_step": {name[:90]: ms for name, ms in top},
+        # the device's kernels, copies and fills a step, each one launch
+        "device_ops_per_step": ops / steps,
+        "top_device_ms_per_step": top_kernels(by_name, top_n),
         # the port's own kernels, every launch of each summed (the fold is two)
         "ours_device_ms_per_step": {
             kernel: sum(ms for name, ms in by_name.items() if kernel in name)
@@ -1487,6 +1951,20 @@ def profile_slice():
                               hidden=128, step_size=0.1)
     worker = _worker(trainer, list(make_synthetic(N_EXAMPLES, 100000, 16)), BATCHES)
     return profile_worker(worker, BATCHES, top_n=6)
+
+
+def profile_hash():
+    """Phase 5d: a bench-fm-hash step and a sparse LDA step (the JobServer's
+    set-up of each, one epoch a run, no comm probe): step ms, device busy ms,
+    idle share and the device operations a step."""
+    out = {}
+    for kind in ("fm", "lda"):
+        entity, worker = hash_worker(hash_job(kind, 1, comm_probe_period=0), "cuda")
+        try:
+            out[kind] = profile_worker(worker, BATCHES, top_n=8)
+        finally:
+            entity.cleanup()
+    return out
 
 
 def profile_lm():
@@ -1546,6 +2024,8 @@ def main() -> int:
     print(f"phase 2b: timing {json.dumps({k: timing[k] for k in FLASH_KERNELS})}",
           flush=True)
 
+    hash_ops = check_hash_ops(dev)
+    tune = run_autotune(dev)
     launches, summary, fused, fused_sparse = run_slice()
     print("slice: " + json.dumps(summary), flush=True)
     print("unfused: " + json.dumps(run_unfused_slice(fused, fused_sparse)), flush=True)
@@ -1559,13 +2039,24 @@ def main() -> int:
     print("lda assignments: " + json.dumps(lda_assignments()), flush=True)
     print("async: " + json.dumps(run_async_mlr()), flush=True)
     print("prefetch: " + json.dumps(run_prefetch()), flush=True)
+    fm_hash = run_hash_job("fm", EPOCHS)
+    print("fm hash: " + json.dumps(fm_hash), flush=True)
+    lda_hash = run_hash_job("lda", AGREE_EPOCHS)
+    print("sparse lda: " + json.dumps(lda_hash), flush=True)
+    host_launches, host_steps = run_host_driven_steps()
+    print("host-driven steps: " + json.dumps(host_steps), flush=True)
     by_path = {name: {"bench-widedeep": launches.get(name, 0),
                       "bench-lm": lm_launches[name],
-                      "bench-trio": trio_launches[name]} for name in lm_launches}
-    launches.update({k: lm_launches[k] for k in FLASH_KERNELS})
+                      "bench-trio": trio_launches[name],
+                      "bench-fm-hash": fm_hash["launches"].get(name, 0),
+                      "sparse-lda-hash": lda_hash["launches"].get(name, 0),
+                      "fused-sparse-step": host_launches.get(name, 0)}
+               for name in lm_launches}
     print("profile: " + json.dumps(profile_slice()), flush=True)
     print("lm profile: " + json.dumps(profile_lm()), flush=True)
     print("trio profile: " + json.dumps(profile_trio()), flush=True)
+    print("hash profile: " + json.dumps(profile_hash()), flush=True)
+    print("hash ops: " + json.dumps(hash_ops) + "; autotune: " + json.dumps(tune), flush=True)
 
     mma_source = "harmony_tpu_torch/csrc/flash_attention_mma.cu"
     sources = {
@@ -1586,7 +2077,7 @@ def main() -> int:
         t = timing[name]
         entry = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name], "launches_by_path": by_path[name],
+            "launches": sum(by_path[name].values()), "launches_by_path": by_path[name],
             "max_abs_err": err[name],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],

@@ -16,10 +16,14 @@ logits, so on the same logits the port draws what the reference draws. The
 count delta is an ``index_add_`` of integer-valued f32, exact in any order
 below 2**24.
 
-Data: (doc_idx [B], tokens [B, L] word ids with -1 padding, seeds [B]).
+``sparse=True`` holds the topic-word counts in a ``DeviceHashTable``: word ids
+come from the whole int32 domain [1, LDA_MAX_WORD_KEY], the step pulls one
+row per token position (padding goes to a pad row whose delta is zero) plus
+the summary row at LDA_SUMMARY_KEY, and the hash push folds duplicate words.
+:meth:`LDATrainer.mask_delta` keeps the summary row equal to the sum of the
+word rows the table admitted.
 
-Not ported yet: sparse mode (``sparse=True``, topic-word counts in a
-DeviceHashTable over the int32 key domain; ROADMAP A.4).
+Data: (doc_idx [B], tokens [B, L] word ids with -1 padding, seeds [B]).
 """
 from __future__ import annotations
 
@@ -30,11 +34,12 @@ import torch
 
 from harmony_tpu_torch.config.params import TableConfig
 from harmony_tpu_torch.dolphin.trainer import Trainer, TrainerContext
+from harmony_tpu_torch.table.hashtable import MAX_KEY
 from harmony_tpu_torch.utils import prng
 
-# The reference's sparse mode reserves the top of the hash table's key domain
-# (harmony_tpu/table/hashtable.py MAX_KEY) for the summary row and a pad sink.
-MAX_KEY = 2**31 - 3
+# Sparse mode reserves the top of the hash table's valid key space: the topic
+# summary row and a pad sink for masked token positions (deltas there are
+# always zero). Derived from MAX_KEY, as in the reference.
 LDA_SUMMARY_KEY = MAX_KEY
 LDA_PAD_KEY = MAX_KEY - 1
 LDA_MAX_WORD_KEY = MAX_KEY - 2
@@ -47,7 +52,6 @@ def _one_hot(z: torch.Tensor, k: int, keep: torch.Tensor) -> torch.Tensor:
 
 
 class LDATrainer(Trainer):
-    pull_mode = "all"
     uses_local_table = True
     objective_metric = "log_likelihood"
     # the PRNG epoch fold depends only on epoch_idx
@@ -64,10 +68,12 @@ class LDATrainer(Trainer):
         sparse: bool = False,
         slot_budget: int = 0,
     ) -> None:
-        if sparse:
-            raise NotImplementedError(
-                "sparse LDA (topic-word counts in a DeviceHashTable) is not ported "
-                "yet (ROADMAP A.4); use sparse=False")
+        """``sparse=True`` holds the topic-word counts in a DeviceHashTable:
+        word ids come from [1, LDA_MAX_WORD_KEY] and ``slot_budget`` bounds
+        admitted words (default 4 x vocab_size); ``vocab_size`` still enters
+        the sampler's V*beta term as the notional vocabulary size."""
+        self.sparse = sparse
+        self.slot_budget = slot_budget or 4 * vocab_size
         self.vocab_size = vocab_size
         self.num_topics = num_topics
         self.num_docs = num_docs
@@ -75,6 +81,10 @@ class LDATrainer(Trainer):
         self.alpha = alpha
         self.beta = beta
         self._epoch = 0
+
+    @property
+    def pull_mode(self) -> str:
+        return "keys" if self.sparse else "all"
 
     def hyperparams(self) -> Dict[str, float]:
         # the epoch is folded into every document's key, so each sweep draws
@@ -88,7 +98,20 @@ class LDATrainer(Trainer):
         self._epoch = epoch_idx + 1
 
     def model_table_config(self, table_id: str = "lda-model") -> TableConfig:
-        """word -> [K] topic counts; the summary row n_k at key vocab_size."""
+        """word -> [K] topic counts; the summary row n_k at key vocab_size
+        (dense) or LDA_SUMMARY_KEY (sparse). Counts start at zero, so the hash
+        table's add init needs no init fn of its own."""
+        if self.sparse:
+            cap = self.slot_budget + 2  # + the summary and pad rows
+            return TableConfig(
+                table_id=table_id,
+                capacity=cap,
+                value_shape=(self.num_topics,),
+                num_blocks=min(cap, 64),
+                is_ordered=False,
+                update_fn="add",
+                sparse=True,
+            )
         return TableConfig(
             table_id=table_id,
             capacity=self.vocab_size + 1,
@@ -96,6 +119,30 @@ class LDATrainer(Trainer):
             num_blocks=min(self.vocab_size + 1, 64),
             update_fn="add",
         )
+
+    def _sparse_valid(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The sparse word domain [1, LDA_MAX_WORD_KEY]: id 0 (the table's
+        reserved key) and ids that would alias the pad or summary rows are
+        padding, left out of sampling."""
+        return (tokens >= 1) & (tokens <= LDA_MAX_WORD_KEY)
+
+    def pull_keys(self, batch) -> torch.Tensor:
+        """Sparse pull: one key per token position (padding and out-of-domain
+        ids go to the pad row, whose delta is zero), then the summary row."""
+        tokens = batch[1]
+        word = torch.where(self._sparse_valid(tokens), tokens, LDA_PAD_KEY)
+        summary = torch.full((1,), LDA_SUMMARY_KEY, dtype=torch.int32,
+                             device=tokens.device)
+        return torch.cat([word.reshape(-1).to(torch.int32), summary])
+
+    def mask_delta(self, delta: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
+        """A word row the table refused must not count in n_k either, or the
+        sampler's denominator drifts from the sum of the word counts: the
+        summary row becomes the sum of the admitted word rows."""
+        if not self.sparse:
+            return delta
+        word_rows = delta[:-1] * ok[:-1, None].to(delta.dtype)
+        return torch.cat([word_rows, word_rows.sum(dim=0, keepdim=True)])
 
     def local_table_config(self, table_id: str = "lda-local") -> TableConfig:
         """doc -> [max_len] current topic of each token (-1 = unset)."""
@@ -114,17 +161,25 @@ class LDATrainer(Trainer):
                 np.full((self.num_docs, self.max_doc_len), -1, np.int32))
 
     def compute_with_local(self, model, local, batch, hyper):
-        """``model`` is the full [V+1, K] count table (row V = summary),
-        ``local`` the [num_docs, L] assignments."""
+        """Dense mode: ``model`` is the full [V+1, K] count table (row V =
+        summary). Sparse mode: ``model`` is the keyed pull, [B*L + 1, K] rows
+        in ``pull_keys`` order, and the delta has the same layout (the hash
+        push folds duplicate words). ``local`` is the [num_docs, L]
+        assignments."""
         doc_idx, tokens, seeds = batch       # [B], [B, L], [B]
         K, V = self.num_topics, self.vocab_size
+        B, L = tokens.shape
         docs = doc_idx.long()
-        valid = tokens >= 0
+        valid = self._sparse_valid(tokens) if self.sparse else tokens >= 0
         word = torch.where(valid, tokens, 0).long()
         old_z = local[docs]                  # [B, L]
         old_onehot = _one_hot(old_z, K, (old_z >= 0) & valid)   # [B, L, K]
-        n_kw = model[word]                   # [B, L, K]
-        n_k = model[V]                       # [K]
+        if self.sparse:
+            n_kw = model[: B * L].reshape(B, L, K)   # a row per token position
+            n_k = model[B * L]                       # the summary row
+        else:
+            n_kw = model[word]               # [B, L, K]
+            n_k = model[V]                   # [K]
         n_dk = old_onehot.sum(dim=1, keepdim=True)              # [B, 1, K]
 
         # the token's own assignment excluded (collapsed semantics)
@@ -140,9 +195,12 @@ class LDATrainer(Trainer):
         z_new = torch.where(valid, z_new, -1)           # [B, L]
 
         flat_delta = (_one_hot(z_new, K, z_new >= 0) - old_onehot).reshape(-1, K)
-        delta = torch.zeros_like(model)
-        delta.index_add_(0, word.reshape(-1), flat_delta)
-        delta[V] += flat_delta.sum(dim=0)
+        if self.sparse:
+            delta = torch.cat([flat_delta, flat_delta.sum(dim=0, keepdim=True)])
+        else:
+            delta = torch.zeros_like(model)
+            delta.index_add_(0, word.reshape(-1), flat_delta)
+            delta[V] += flat_delta.sum(dim=0)
 
         new_local = local.index_put((docs,), z_new)
         # progress: mean log-weight of the sampled topics (stale counts)
@@ -169,3 +227,15 @@ def make_synthetic(num_docs: int, vocab_size: int, num_topics: int, doc_len: int
     tokens = np.where(pick, own, noise).astype(np.int32)
     seeds = rng.integers(0, 2**31 - 1, num_docs).astype(np.int32)
     return doc_idx, tokens, seeds
+
+
+def make_synthetic_sparse(num_docs: int, vocab_size: int, num_topics: int, doc_len: int,
+                          seed: int = 0):
+    """The same topic model with word ids spread over [1, LDA_MAX_WORD_KEY],
+    the corpus only a hash-backed topic-word table holds; the spread is
+    per-id deterministic, so the topic structure stays."""
+    doc_idx, tokens, seeds = make_synthetic(num_docs, vocab_size, num_topics, doc_len, seed)
+    spread = (
+        (tokens.astype(np.int64) * 2654435761 + 777) % (LDA_MAX_WORD_KEY - 1)
+    ).astype(np.int32) + 1
+    return doc_idx, spread, seeds

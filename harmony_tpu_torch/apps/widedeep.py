@@ -1,22 +1,24 @@
 """Factorization Machine + Wide&Deep — sparse-embedding recommenders.
 
-Counterpart of ``harmony_tpu/apps/widedeep.py`` (BASELINE config 5), dense
-mode: one hash-partitioned table of width ``1 + k`` holds every parameter,
-``pull_mode = "keys"``, so each step's PULL is a keyed gather (K1) and its PUSH
-a keyed additive push whose duplicate keys fold on the device (K3, or K2 under
-the sparse route). Model layout:
+Counterpart of ``harmony_tpu/apps/widedeep.py`` (BASELINE config 5). One table
+of width ``1 + k`` holds every parameter, ``pull_mode = "keys"``, so each
+step's PULL is a keyed gather (K1) and its PUSH a keyed additive push whose
+duplicate keys fold on the device (K3, or K2 under the sparse route; K2 on a
+hash table). Model layout:
 
   key 0..vocab-1   : [w_i, v_i[0..k-1]]   per-feature wide weight + embedding
   key vocab        : [w0, 0...]           global bias
   key vocab+1...   : raveled MLP params   (WideDeepTrainer only), in rows of
                      the same width so deep weights ride the same keyed path.
 
+``sparse=True`` holds the model in a ``DeviceHashTable``: feature ids come from
+the whole int32 domain (below ``SPARSE_EXTRA_BASE``), the bias and MLP rows
+sit at the top of the key space, and an embedding row initializes lazily at
+first touch from a hash of (key, column) (:func:`make_embed_init`).
+
 FM score:  w0 + Σ_s w[id_s] + ½ Σ_f [(Σ_s v[id_s])² − Σ_s v[id_s]²]
 Wide&Deep: wide term + MLP(concat of the S slot embeddings).
 Data: (ids [B, S] int32 slot-feature ids, y [B] 0/1 labels).
-
-Not ported yet: sparse mode (``sparse=True``, a DeviceHashTable over the whole
-int32 key domain).
 """
 from __future__ import annotations
 
@@ -27,12 +29,39 @@ import torch
 
 from harmony_tpu_torch.config.params import TableConfig
 from harmony_tpu_torch.dolphin.trainer import Trainer
+from harmony_tpu_torch.table.hashtable import as_uint32, mix32, mul32
+from harmony_tpu_torch.table.update import UpdateFunction
+
+# Sparse mode reserves the TOP of the int32 key space for the non-embedding
+# rows (bias, raveled MLP); feature ids stay below this base.
+SPARSE_EXTRA_BASE = 2**31 - 8192
 
 
 def _logistic_loss(logits: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Mean of ``max(x, 0) − x·y + log1p(exp(−|x|))``, the reference's form."""
     return torch.mean(torch.maximum(logits, torch.zeros_like(logits)) - logits * y
                       + torch.log1p(torch.exp(-torch.abs(logits))))
+
+
+def make_embed_init(width: int, scale: float, seed: int) -> UpdateFunction:
+    """Update-fn factory of a hash-backed embedding table: a key admitted by
+    getOrInit takes a row derived from a hash of (key, column), uniform noise
+    in [-scale, scale) for the embedding, 0 for the wide weight, and 0 for the
+    reserved tail rows (bias, MLP), which the chief seeds. The reference's
+    uint32 hash and float steps, so both packages init a key to the same
+    bits. Referenced by its durable name (``table.update.get_update_fn``)."""
+    scale32 = float(np.float32(scale))  # the f32 product, computed in any width
+
+    def init(keys: torch.Tensor) -> torch.Tensor:
+        j = torch.arange(width, dtype=torch.int64, device=keys.device)
+        h = mix32(mix32(as_uint32(keys), 0x9E3779B9 ^ seed)[:, None]
+                  ^ mul32(j, 0x9E3779B9)[None, :], 0x85EBCA6B)
+        u = h.to(torch.float32) / 2**32 * 2.0 - 1.0
+        row = u * scale32
+        row[:, 0] = 0.0
+        return torch.where(keys[:, None] >= SPARSE_EXTRA_BASE, torch.zeros_like(row), row)
+
+    return UpdateFunction(name="embed-init", init=init, scatter_mode="add")
 
 
 class FMTrainer(Trainer):
@@ -51,15 +80,17 @@ class FMTrainer(Trainer):
         sparse: bool = False,
         slot_budget: int = 0,
     ) -> None:
-        if sparse:
-            raise NotImplementedError(
-                "sparse mode (a hash-backed table over the int32 key domain) "
-                "is not ported yet; use sparse=False")
+        """``sparse=True`` backs the model with a DeviceHashTable: feature ids
+        come from the whole int32 domain (below SPARSE_EXTRA_BASE) and
+        ``slot_budget`` bounds admitted rows (default 4 x vocab_size, which
+        then only sizes the table: ids are not limited to it)."""
         self.vocab_size = vocab_size
         self.num_slots = num_slots
         self.k = emb_dim
         self.step_size = step_size
         self.l2 = l2
+        self.sparse = sparse
+        self.slot_budget = slot_budget or 4 * vocab_size
 
     # -- table schema ----------------------------------------------------
 
@@ -73,11 +104,23 @@ class FMTrainer(Trainer):
 
     @property
     def extra_base(self) -> int:
-        """First reserved (non-embedding) key: right after the vocabulary."""
-        return self.vocab_size
+        """First reserved (non-embedding) key: right after the vocabulary for
+        a dense table, the top of the int32 space for a hash table."""
+        return SPARSE_EXTRA_BASE if self.sparse else self.vocab_size
 
     def model_table_config(self, table_id: str = "fm-model",
                            num_blocks: int = 0) -> TableConfig:
+        if self.sparse:
+            cap = self.slot_budget + self.num_extra_rows
+            return TableConfig(
+                table_id=table_id,
+                capacity=cap,
+                value_shape=(self.width,),
+                num_blocks=num_blocks or min(cap, 256),
+                is_ordered=False,
+                update_fn=self._sparse_init_name(),
+                sparse=True,
+            )
         cap = self.vocab_size + self.num_extra_rows
         return TableConfig(
             table_id=table_id,
@@ -88,6 +131,12 @@ class FMTrainer(Trainer):
             update_fn="add",
         )
 
+    def _sparse_init_name(self) -> str:
+        """Durable name of the lazy per-key init fn: a factory reference that
+        resolves in any process, with no trainer having registered it."""
+        return ("harmony_tpu_torch.apps.widedeep:make_embed_init"
+                f"?width={self.width}&scale={self.init_scale}&seed={self.seed}")
+
     def hyperparams(self) -> Dict[str, float]:
         return {"lr": self.step_size}
 
@@ -97,18 +146,26 @@ class FMTrainer(Trainer):
         """Seed embedding vectors with small noise (zero embeddings make the FM
         interaction term identically zero); wide weights and bias start at 0.
         The same numpy draws as the reference, so both packages start from
-        the same bytes."""
+        the same bytes. Sparse mode: embeddings init lazily per key (the
+        table's update-fn init); only the reserved tail rows are seeded."""
         if self.init_scale <= 0:
             return
         rng = np.random.default_rng(self.seed)
-        rows = np.zeros((self.vocab_size, self.width), np.float32)
-        rows[:, 1:] = rng.normal(scale=self.init_scale,
-                                 size=(self.vocab_size, self.k))
-        ctx.model_table.multi_put(np.arange(self.vocab_size), rows)
+        if not self.sparse:
+            rows = np.zeros((self.vocab_size, self.width), np.float32)
+            rows[:, 1:] = rng.normal(scale=self.init_scale,
+                                     size=(self.vocab_size, self.k))
+            ctx.model_table.multi_put(np.arange(self.vocab_size), rows)
         extra = self._init_extra_rows(rng)
         if extra is not None:
-            ctx.model_table.multi_put(
+            dropped = ctx.model_table.multi_put(
                 np.arange(self.extra_base, self.extra_base + len(extra)), extra)
+            if self.sparse and dropped:
+                # the model's own parameters failed admission: training would
+                # pin them to zero
+                raise RuntimeError(
+                    f"{dropped} reserved model rows not admitted; raise "
+                    f"slot_budget (currently {self.slot_budget})")
 
     def _init_extra_rows(self, rng) -> "np.ndarray | None":
         return None  # FM: bias row stays zero
@@ -160,6 +217,19 @@ class FMTrainer(Trainer):
         ids, y = batch
         B = ids.shape[0]
         logits = self._scores(*self._split(self._gather_rows(model, ids), B))
+        acc = torch.mean((((logits > 0).float()) == y).float())
+        return {"loss": _logistic_loss(logits, y), "accuracy": acc}
+
+    def evaluate_sparse(self, table, batch) -> Dict[str, torch.Tensor]:
+        """Evaluation against a hash-backed model: a read-only lookup of the
+        rows the batch names (evaluation admits no key), then the dense metric
+        math on the pulled-row layout."""
+        ids, y = (np.asarray(a) for a in batch)
+        keys = np.concatenate([ids.reshape(-1), self.extra_base
+                               + np.arange(self.num_extra_rows, dtype=np.int64)])
+        rows = torch.as_tensor(table.multi_get(keys))
+        logits = self._scores(*self._split(rows, ids.shape[0]))
+        y = torch.as_tensor(y)
         acc = torch.mean((((logits > 0).float()) == y).float())
         return {"loss": _logistic_loss(logits, y), "accuracy": acc}
 
@@ -241,3 +311,16 @@ def make_synthetic(
     logits = 0.8 * lin + 0.3 * inter - np.median(0.8 * lin + 0.3 * inter)
     y = (rng.random(n) < 1.0 / (1.0 + np.exp(-logits))).astype(np.float32)
     return ids, y
+
+
+def make_synthetic_sparse(
+    n: int, vocab_size: int, num_slots: int, seed: int = 0
+) -> Tuple[np.ndarray, np.ndarray]:
+    """The same CTR task with ids spread (injectively up to rare collisions)
+    over [1, SPARSE_EXTRA_BASE - 1], the workload only a hash-backed table
+    holds (key 0 is the hash table's reserved key)."""
+    ids, y = make_synthetic(n, vocab_size, num_slots, seed)
+    spread = (
+        (ids.astype(np.int64) * 2654435761 + 99991) % (SPARSE_EXTRA_BASE - 2)
+    ).astype(np.int32) + 1
+    return spread, y

@@ -27,6 +27,10 @@ class TableConfig(ConfigBase):
     num_blocks: int = DEFAULT_NUM_BLOCKS
     is_ordered: bool = True            # range partitioner; False = hash
     update_fn: str = "add"             # name in table.update registry
+    # Sparse key domain: back the table with a capacity-bounded hash table
+    # (table/hashtable.py::DeviceHashTable); getOrInit admits any key of
+    # [MIN_KEY, MAX_KEY] and ``capacity`` bounds slots, not the key domain.
+    sparse: bool = False
 
     def __post_init__(self) -> None:
         if self.capacity <= 0:

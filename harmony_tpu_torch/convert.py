@@ -4,7 +4,9 @@ A JAX ``DenseTable``'s storage, read out as numpy (``np.asarray(table.array)``,
 shape ``[num_blocks, block_size, *value_shape]``), installs unchanged as this
 port's storage: both packages lay a table out block-major with the same
 partitioner. Wide&Deep keeps every parameter (embeddings, bias, MLP) as table
-rows, so :func:`table_from_numpy` carries a whole model. A model whose
+rows, so :func:`table_from_numpy` carries a whole model. A JAX
+``DeviceHashTable``'s ``(slot_keys, values)`` pair installs the same way
+(:func:`hash_table_from_numpy`): both packages place keys in the same slots. A model whose
 parameters are a tree (the LM) carries over as that tree
 (:func:`lm_params_from_numpy`) or as the table rows it trains from
 (:func:`pytree_rows_from_numpy`), in ``ravel_pytree``'s flat order. Nothing here
@@ -18,6 +20,7 @@ import numpy as np
 import torch
 
 from harmony_tpu_torch.models.pytree_trainer import ravel_numpy, tree_map
+from harmony_tpu_torch.table.hashtable import DeviceHashTable, HashTableSpec
 from harmony_tpu_torch.table.table import DenseTable, TableSpec
 from harmony_tpu_torch.utils.platform import DeviceLike, resolve_device
 
@@ -32,6 +35,20 @@ def table_from_numpy(spec: TableSpec, arr: np.ndarray,
     if storage.dtype != spec.dtype:
         raise ValueError(f"storage dtype {storage.dtype} != {spec.dtype}")
     return DenseTable(spec, device, storage)
+
+
+def hash_table_from_numpy(spec: HashTableSpec, slot_keys: np.ndarray, values: np.ndarray,
+                          device: DeviceLike = None) -> DeviceHashTable:
+    """A ``DeviceHashTable`` of ``spec`` on ``device`` (the card unless asked
+    otherwise) whose state is a copy of the JAX table's ``(slot_keys,
+    values)``, as ``np.asarray`` reads them out."""
+    sk = torch.from_numpy(np.array(slot_keys, copy=True))
+    v = torch.from_numpy(np.array(values, copy=True))
+    if sk.dtype != torch.int32:
+        raise ValueError(f"slot keys dtype {sk.dtype} != torch.int32")
+    if v.dtype != spec.dtype:
+        raise ValueError(f"values dtype {v.dtype} != {spec.dtype}")
+    return DeviceHashTable(spec, device, (sk, v))
 
 
 def lm_params_from_numpy(params: Any, device: DeviceLike = None) -> Any:

@@ -24,7 +24,7 @@ class TrainerContext:
     optional worker-local table (NMF's L rows, LDA's topic assignments)."""
 
     params: TrainerParams
-    model_table: Any = None          # DenseTable
+    model_table: Any = None          # DenseTable or DeviceHashTable
     local_table: Any = None          # DenseTable or None
     worker_id: str = "worker-0"
     num_workers: int = 1
@@ -104,6 +104,14 @@ class Trainer:
     def pull_keys(self, batch: Any) -> torch.Tensor:
         """Keys to pull for this batch (pull_mode == "keys" only)."""
         raise NotImplementedError
+
+    def mask_delta(self, delta: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
+        """Hook of a hash-table step, between COMP and PUSH: reconcile the
+        delta with the admission mask ``ok`` (one bool per pulled key). The
+        identity by default; a trainer that keeps an invariant across rows
+        (sparse LDA's summary row, the sum of its word rows) drops a refused
+        row's contribution everywhere."""
+        return delta
 
     def compute(
         self, model: torch.Tensor, batch: Any, hyper: Dict[str, torch.Tensor]

@@ -33,9 +33,20 @@ pipeline (``dolphin/prefetch.py``) or the provider in line, at most
 table's PULL and PULL+PUSH on the fused path at the first epoch and every
 ``8 x comm_probe_period`` epochs.
 
+A hash-backed model table (``DeviceHashTable``) takes the keyed core
+``_hash_pull_push``: getOrInit pull (K1 at the resolved slots), compute, the
+trainer's ``mask_delta``, and the hash push (duplicates folded by K2), beside
+a dense worker-local table where the trainer has one (sparse LDA). Its step
+counts the keys the table refused in a ``_dropped`` metric, which stays on
+the device and is drained into ``table.overflow_count`` with the epoch's
+other metrics. A dense keyed table's ``mxu_auto`` route is resolved once by
+the measured autotune (``table/autotune.py``).
+
 Per-batch primary metrics ("loss", else the trainer's ``objective_metric``)
-stay on the device until the drain. Not ported yet: a CUDA graph of the step
-or the epoch, per-job streams, dispatch turnstiles, TaskUnit scheduling, SSP
+stay on the device until the drain. Also here, for callers that drive a table
+outside the worker (the ModelAccessor path): :class:`FusedSparseStep` and
+:func:`accessor_async_step`. Not ported yet: a CUDA graph of the step or the
+epoch, per-job streams, dispatch turnstiles, TaskUnit scheduling, SSP
 barriers, and the cross-epoch pre-spawn of the next epoch's pipeline.
 """
 from __future__ import annotations
@@ -54,6 +65,11 @@ from harmony_tpu_torch.data.loader import StageRing
 from harmony_tpu_torch.dolphin.data import TrainingDataProvider
 from harmony_tpu_torch.dolphin.prefetch import PrefetchPipeline, StagedBatch
 from harmony_tpu_torch.dolphin.trainer import Trainer, TrainerContext
+from harmony_tpu_torch.metrics.tracer import Tracer
+from harmony_tpu_torch.table import autotune
+from harmony_tpu_torch.table.hashtable import DeviceHashTable
+from harmony_tpu_torch.table.table import DenseTable
+from harmony_tpu_torch.utils.platform import hard_sync
 
 
 def _env_flag(var: str, default: bool) -> bool:
@@ -82,6 +98,11 @@ def _sync(device: torch.device) -> None:
         torch.cuda.current_stream(device).synchronize()
 
 
+def _dropped(token) -> torch.Tensor:
+    """The keys a hash step's table refused, as an f32 device scalar."""
+    return (~token[2]).sum().to(torch.float32)
+
+
 def _roundtrip(value: torch.Tensor, device: torch.device) -> torch.Tensor:
     """Host round-trip of one phase boundary: a copy in host memory, then a
     copy back on ``device``. Always a new tensor, also on the CPU, so the
@@ -96,7 +117,10 @@ class _UnfusedStep:
     round-tripping through host memory between them, the reference's
     ModelAccessor shape (pull -> host -> compute -> host -> push). A
     worker-local table stays on the device. It is a callable with the fused
-    step's signature, so it runs through the same apply_step/commit path.
+    step's signature, so it runs through the same apply_step/commit path. On
+    a hash table (``is_hash``) PULL returns the new state, the rows and the
+    token, PUSH the new state and the refused-key count, which joins the
+    metrics as ``_dropped``.
 
     Phase seconds are measured on the host clock around each phase, which
     ends in a sync, and exposed by :meth:`mean_phase_seconds`. The FIRST call
@@ -105,13 +129,15 @@ class _UnfusedStep:
     """
 
     def __init__(self, pull_p: Callable, comp_p: Callable, push_p: Callable, *,
-                 device: torch.device, uses_local: bool, keys_push: bool) -> None:
+                 device: torch.device, uses_local: bool, keys_push: bool,
+                 is_hash: bool = False) -> None:
         self._pull_p = pull_p
         self._comp_p = comp_p
         self._push_p = push_p
         self._device = device
         self._uses_local = uses_local
         self._keys_push = keys_push
+        self._is_hash = is_hash
         self.pull_sec = 0.0
         self.comp_sec = 0.0
         self.push_sec = 0.0
@@ -124,12 +150,50 @@ class _UnfusedStep:
         n = max(self.timed_steps, 1)
         return self.pull_sec / n, self.comp_sec / n, self.push_sec / n
 
+    def _record(self, p_t: float, c_t: float, u_t: float) -> None:
+        if self.steps > 0:
+            self.pull_sec += p_t
+            self.comp_sec += c_t
+            self.push_sec += u_t
+            self.timed_steps += 1
+        self.steps += 1
+
+    def _call_hash(self, state, larr, batch, hyper):
+        dev = self._device
+        t0 = time.perf_counter()
+        if self._uses_local:
+            state2, rows, token, lmodel = self._pull_p(state, larr, batch)
+        else:
+            state2, rows, token = self._pull_p(state, batch)
+        _sync(dev)
+        p_t = time.perf_counter() - t0
+        rows_d = _roundtrip(rows, dev)
+        t0 = time.perf_counter()
+        if self._uses_local:
+            delta, new_l, metrics = self._comp_p(rows_d, lmodel, batch, hyper)
+        else:
+            delta, metrics = self._comp_p(rows_d, batch, hyper)
+        _sync(dev)
+        c_t = time.perf_counter() - t0
+        delta_d = _roundtrip(delta, dev)
+        t0 = time.perf_counter()
+        if self._uses_local:
+            new, dropped = self._push_p(state2, larr, token, delta_d, new_l)
+        else:
+            new, dropped = self._push_p(state2, token, delta_d)
+        _sync(dev)
+        u_t = time.perf_counter() - t0
+        self._record(p_t, c_t, u_t)
+        return new, dict(metrics, _dropped=dropped)
+
     def __call__(self, *args):
         dev = self._device
         if self._uses_local:
             arr, larr, batch, hyper = args
         else:
-            arr, batch, hyper = args
+            (arr, batch, hyper), larr = args, None
+        if self._is_hash:
+            return self._call_hash(arr, larr, batch, hyper)
         t0 = time.perf_counter()
         if self._uses_local:
             model, lmodel = self._pull_p(arr, larr)
@@ -157,12 +221,7 @@ class _UnfusedStep:
             new = self._push_p(arr, delta_d)
         _sync(dev)
         u_t = time.perf_counter() - t0
-        if self.steps > 0:
-            self.pull_sec += p_t
-            self.comp_sec += c_t
-            self.push_sec += u_t
-            self.timed_steps += 1
-        self.steps += 1
+        self._record(p_t, c_t, u_t)
         return new, metrics
 
 
@@ -276,10 +335,11 @@ class AsyncStepDriver:
                 daemon=True)
             self._thread.start()
 
-    def submit(self, batch, hyper) -> Dict[str, torch.Tensor]:
+    def submit(self, *operands) -> Dict[str, torch.Tensor]:
         """One training step: staleness gate, COMP against the published
-        view, the delta queued for the comm thread. Returns the step's
-        metrics (device tensors: the epoch's drain reads them)."""
+        view, the delta queued for the comm thread. ``operands`` follow the
+        view in COMP's call: ``(batch, hyper)`` for the worker. Returns the
+        step's metrics (device tensors: the epoch's drain reads them)."""
         self._raise_pending()
         self._ensure_started()
         k = self._submitted
@@ -301,9 +361,9 @@ class AsyncStepDriver:
         model_d, lmodel = view
         t0 = time.perf_counter()
         if self._uses_local:
-            delta, new_l, metrics = self._comp_p(model_d, lmodel, batch, hyper)
+            delta, new_l, metrics = self._comp_p(model_d, lmodel, *operands)
         else:
-            (delta, metrics), new_l = self._comp_p(model_d, batch, hyper), None
+            (delta, metrics), new_l = self._comp_p(model_d, *operands), None
         _sync(self._device)
         c_t = time.perf_counter() - t0
         if self.steps > 0:
@@ -409,6 +469,37 @@ class AsyncStepDriver:
             t.join(self.JOIN_TIMEOUT)
 
 
+def accessor_async_step(table, compute_fn: Callable, *, staleness_bound: int = 0,
+                        signature: Optional[Any] = None) -> AsyncStepDriver:
+    """The bounded-staleness driver for ModelAccessor users (the host-driven
+    path outside WorkerTasklet). Builds the dense pull_all / compute /
+    push_all phases of ``table`` and returns an :class:`AsyncStepDriver`
+    whose ``submit(*operands)`` computes against the published view while
+    the previous step's PUSH and PULL run on the comm thread, within
+    ``staleness_bound``. ``compute_fn(model, *operands)`` returns the delta,
+    or ``(delta, metrics_dict)``. ``drain()`` is the fence. ``signature``
+    names the compute's behaviour in the reference's program cache; the port
+    compiles nothing, so it is accepted and unused."""
+    if isinstance(table, DeviceHashTable):
+        raise TypeError(
+            "async step drives DenseTable workloads; hash-backed tables keep the "
+            "synchronous keyed step")
+    if not isinstance(table, DenseTable):
+        raise TypeError(f"need a DenseTable, got {type(table).__name__}")
+    spec = table.spec
+
+    def comp_fn(model, *operands):
+        out = compute_fn(model, *operands)
+        if not (isinstance(out, tuple) and len(out) == 2 and isinstance(out[1], dict)):
+            out = (out, {})
+        delta, metrics = out
+        return delta, dict(metrics)
+
+    inner = _UnfusedStep(spec.pull_all, comp_fn, spec.push_all, device=table.device,
+                         uses_local=False, keys_push=False)
+    return AsyncStepDriver(inner, bound=staleness_bound, model_table=table)
+
+
 class WorkerTasklet:
     """Drives the training loop for one job on its table's device."""
 
@@ -472,11 +563,10 @@ class WorkerTasklet:
         runs each phase as its own operations, so there is nothing to pin."""
         spec = self.ctx.model_table.spec
         trainer = self.trainer
+        if self._is_hash():
+            return self._hash_step_core()
+        self._check_dense_layout()
         if trainer.uses_local_table:
-            if trainer.pull_mode != "all":
-                raise NotImplementedError(
-                    "a worker-local table beside a keyed pull (sparse LDA) is not "
-                    "ported yet")
             local_spec = self.ctx.local_table.spec
 
             def _step(arr, local, batch, hyper):
@@ -503,17 +593,103 @@ class WorkerTasklet:
 
         return _step
 
+    def _is_hash(self) -> bool:
+        return isinstance(self.ctx.model_table, DeviceHashTable)
+
+    def _check_dense_layout(self) -> None:
+        if self.trainer.uses_local_table and self.trainer.pull_mode != "all":
+            raise ValueError(
+                "a keyed pull beside a worker-local table needs a hash-backed model "
+                "table (TableConfig.sparse)")
+
+    def _hash_step_core(self) -> Callable:
+        """The fused step on a hash-backed model table. The keyed core
+        ``_hash_pull_push`` is getOrInit PULL, COMP, the trainer's
+        ``mask_delta`` and the token PUSH; its metrics gain ``_dropped``, the
+        keys the table refused (drained into ``table.overflow_count`` at the
+        window's end, never read per step). Beside a worker-local table (sparse
+        LDA: hash-backed topic-word counts, dense per-document assignments) the
+        local table is pulled whole and written back."""
+        spec = self.ctx.model_table.spec
+        trainer = self.trainer
+        if trainer.pull_mode != "keys":
+            raise ValueError("hash-backed model tables need pull_mode='keys' "
+                             "(pull_all over an unbounded key domain is undefined)")
+
+        def _hash_pull_push(state, batch, compute):
+            state, rows, token = spec.pull(state, trainer.pull_keys(batch))   # PULL
+            delta, aux, metrics = compute(rows)                                # COMP
+            delta = trainer.mask_delta(delta, token[2])
+            state = spec.push(state, token, delta)                             # PUSH
+            return state, aux, dict(metrics, _dropped=_dropped(token))
+
+        if trainer.uses_local_table:
+            local_spec = self.ctx.local_table.spec
+
+            def _step(state, local, batch, hyper):
+                lmodel = local_spec.pull_all(local)
+                state, new_local, metrics = _hash_pull_push(
+                    state, batch,
+                    lambda rows: trainer.compute_with_local(rows, lmodel, batch, hyper))
+                return (state, local_spec.write_all(local, new_local)), metrics
+
+            return _step
+
+        def _step(state, batch, hyper):
+            def compute(rows):
+                delta, metrics = trainer.compute(rows, batch, hyper)
+                return delta, None, metrics
+
+            state, _, metrics = _hash_pull_push(state, batch, compute)
+            return state, metrics
+
+        return _step
+
+    def _build_hash_unfused(self) -> _UnfusedStep:
+        """The per-phase step on a hash-backed model table: PULL returns the
+        new state, the rows and the token; PUSH takes the token (no second
+        probe) and returns the refused-key count with the new state."""
+        spec = self.ctx.model_table.spec
+        trainer = self.trainer
+        if trainer.pull_mode != "keys":
+            raise ValueError("hash-backed model tables need pull_mode='keys'")
+        if trainer.uses_local_table:
+            local_spec = self.ctx.local_table.spec
+
+            def pull_fn(state, larr, batch):
+                state2, rows, token = spec.pull(state, trainer.pull_keys(batch))
+                return state2, rows, token, local_spec.pull_all(larr)
+
+            comp_fn = trainer.compute_with_local
+
+            def push_fn(state, larr, token, delta, new_l):
+                state = spec.push(state, token, trainer.mask_delta(delta, token[2]))
+                return (state, local_spec.write_all(larr, new_l)), _dropped(token)
+
+        else:
+            def pull_fn(state, batch):
+                return spec.pull(state, trainer.pull_keys(batch))
+
+            comp_fn = trainer.compute
+
+            def push_fn(state, token, delta):
+                state = spec.push(state, token, trainer.mask_delta(delta, token[2]))
+                return state, _dropped(token)
+
+        return _UnfusedStep(pull_fn, comp_fn, push_fn, device=self.device,
+                            uses_local=trainer.uses_local_table, keys_push=True,
+                            is_hash=True)
+
     def _build_unfused(self, push_route: str) -> _UnfusedStep:
         """The per-phase step: the fused step's three phases as separate
         callables (same math, other boundaries)."""
+        if self._is_hash():
+            return self._build_hash_unfused()
+        self._check_dense_layout()
         spec = self.ctx.model_table.spec
         trainer = self.trainer
         keys_push = False
         if trainer.uses_local_table:
-            if trainer.pull_mode != "all":
-                raise NotImplementedError(
-                    "a worker-local table beside a keyed pull (sparse LDA) is not "
-                    "ported yet")
             local_spec = self.ctx.local_table.spec
 
             def pull_fn(arr, larr):
@@ -543,9 +719,25 @@ class WorkerTasklet:
                             uses_local=trainer.uses_local_table,
                             keys_push=keys_push)
 
+    def _resolve_push_route(self) -> Optional[str]:
+        """The keyed push route of a dense table, ``mxu_auto`` resolved once by
+        the measured autotune at this job's push size (on the card; the
+        static gate on the CPU). None for a hash table, whose push has one
+        route."""
+        if self._is_hash():
+            return None
+        table = self.ctx.model_table
+        via = table.push_via
+        if via != "mxu_auto" or self.trainer.pull_mode != "keys":
+            return via
+        sample = tuple(torch.as_tensor(np.ascontiguousarray(a))
+                       for a in self.data.first_rows(self.data.batch_size))
+        nkeys = int(self.trainer.pull_keys(sample).shape[0])
+        return autotune.choose_push_route(table.spec, table.device, nkeys, table=table)
+
     def _build_step(self) -> None:
         table = self.ctx.model_table
-        self._push_route = table.push_via
+        self._push_route = self._resolve_push_route()
         if self._async_mode():
             self._step = AsyncStepDriver(
                 self._build_unfused(self._push_route), bound=self._staleness_bound,
@@ -561,11 +753,18 @@ class WorkerTasklet:
         unfused phases by construction and takes precedence)."""
         return self._fused_on and not self._async_mode()
 
+    def _async_capable(self) -> bool:
+        """Whether the async step can drive this job: dense pull_mode='all'
+        tables only. A keyed or hash step pulls per-batch rows, and the
+        published-view pipeline has no batch when it pulls."""
+        if self._is_hash():
+            return False
+        return self.trainer.pull_mode == "all"
+
     def _async_mode(self) -> bool:
-        """The async step drives dense pull_mode='all' tables only (a keyed
-        pull needs the batch, which the published-view pipeline does not
-        have when it pulls); a keyed job that asks for it keeps its step."""
-        return self._async_on and self.trainer.pull_mode == "all"
+        """Whether the step runs the async driver; a job that asks for it but
+        cannot keeps its step."""
+        return self._async_on and self._async_capable()
 
     def _use_fused_epoch(self) -> bool:
         """A whole epoch runs from the device-resident stack only with stable
@@ -614,14 +813,21 @@ class WorkerTasklet:
     def _drain(self, epochs: List[List[Dict[str, torch.Tensor]]]) -> List[List[float]]:
         """The per-batch primary metrics of a run of epochs as host floats
         (0.0 for a trainer that reports none): ONE device read, which also
-        waits for their device work to finish."""
+        waits for their device work to finish. A hash step's ``_dropped``
+        counts ride the same read into ``table.overflow_count``."""
         flat = [m for ms in epochs for m in ms]
         key = self._primary_key(flat[0]) if flat else None
-        if key is None:
+        drops = [m["_dropped"] for m in flat if "_dropped" in m]
+        cols = ([m[key].detach().float() for m in flat] if key is not None else []) + drops
+        if not cols:
             _sync(self.device)
-            values = [0.0] * len(flat)
+            host: List[float] = []
         else:
-            values = torch.stack([m[key].detach().float() for m in flat]).cpu().tolist()
+            host = torch.stack(cols).cpu().tolist()
+        values = host[:len(flat)] if key is not None else [0.0] * len(flat)
+        dropped = int(sum(host[len(host) - len(drops):])) if drops else 0
+        if dropped:
+            self.ctx.model_table.count_dropped(dropped)
         out, off = [], 0
         for ms in epochs:
             out.append(values[off:off + len(ms)])
@@ -641,7 +847,18 @@ class WorkerTasklet:
         non-donating program writes a new table of the same size)."""
         spec = self.ctx.model_table.spec
         trainer = self.trainer
-        if trainer.pull_mode == "all":
+        if self._is_hash():
+            # a hash pull inserts the keys it misses: both probes run on a copy
+            # of the state (the size of the reference's non-donating output)
+            def pull_fn(state, batch):
+                scratch = tuple(t.clone() for t in state)
+                return spec.pull(scratch, trainer.pull_keys(batch))[1]
+
+            def pp_fn(state, batch):
+                scratch = tuple(t.clone() for t in state)
+                scratch, rows, token = spec.pull(scratch, trainer.pull_keys(batch))
+                return spec.push(scratch, token, torch.zeros_like(rows))
+        elif trainer.pull_mode == "all":
             def pull_fn(arr, batch):
                 return spec.pull_all(arr).clone()
 
@@ -691,7 +908,7 @@ class WorkerTasklet:
             return min(once() for _ in range(self.PROBE_SAMPLES))
 
         with table._lock:
-            arr = table._arr
+            arr = table._step_state
             t_pull = timed(self._probe_pull, arr)
             t_pp = timed(self._probe_pp, arr)
         self._comm_probe_times = (t_pull, max(t_pp - t_pull, 0.0))
@@ -979,7 +1196,11 @@ class WorkerTasklet:
                            "push_s": self._comm_probe_times[1],
                            "probes": self._probes},
             "input": dict(self._input),
+            # the keyed push's route (None: all-mode, or a hash table's one route)
+            "push_route": self._push_route,
         }
+        if self._is_hash():
+            result["overflow_count"] = ctx.model_table.overflow_count
         if mode != "fused":
             result["phase_seconds"] = dict(zip(("pull", "comp", "push"),
                                                step.mean_phase_seconds()))
@@ -990,7 +1211,120 @@ class WorkerTasklet:
     # -- evaluation --------------------------------------------------------
 
     def evaluate(self, batch: Tuple[np.ndarray, ...]) -> Dict[str, float]:
+        if self._is_hash():
+            raise NotImplementedError(
+                "full-model evaluate is undefined over an unbounded key domain; "
+                "evaluate a sparse model through its keyed pull "
+                "(FMTrainer.evaluate_sparse) or train with a dense table")
         model = self.ctx.model_table.pull_array()
         with torch.no_grad():
             metrics = self.trainer.evaluate(model, self._to_device(batch))
         return {k: float(v) for k, v in metrics.items()}
+
+
+class FusedSparseStep:
+    """One host-driven keyed pull -> compute -> push cycle on a ``DenseTable``,
+    enqueued back to back with no host round trip.
+
+    The ModelAccessor path (callers driving a table outside WorkerTasklet)
+    pulls rows to the host, computes and pushes the delta back; this runs the
+    cycle as the worker's fused step does, under ``DenseTable.apply_step``:
+    the PULL is ``gather_rows`` (K1) and the PUSH folds duplicate keys by the
+    table's route (K3 under ``mxu_auto`` and ``mxu``, K2 under ``sparse``).
+    ``compute_fn(rows, *extra) -> (delta, aux)``.
+
+    ``donate=True`` (the reference donates the table buffer) updates the
+    storage in place; ``donate=False`` computes into a copy and commits it,
+    so the pre-step tensor survives unchanged. Keys and extra operands are
+    only read. ``signature`` names the compute's behaviour in the reference's
+    program cache; the port compiles nothing, so it is accepted and unused.
+
+    Phase charging is the accessor's fused contract: the whole step is COMP
+    (``comp_tracer``)."""
+
+    #: steps in flight before run_batches waits for the oldest
+    MAX_INFLIGHT = 8
+
+    def __init__(self, table, compute_fn: Callable, *, signature: Optional[Any] = None,
+                 donate: bool = True, push_via: Optional[str] = None) -> None:
+        if isinstance(table, DeviceHashTable):
+            raise TypeError("FusedSparseStep drives DenseTable workloads; hash-backed "
+                            "tables already fuse through WorkerTasklet's keyed step")
+        if not isinstance(table, DenseTable):
+            raise TypeError(f"need a DenseTable, got {type(table).__name__}")
+        self.table = table
+        self.push_route = push_via if push_via is not None else table.push_via
+        self.donate = bool(donate)
+        spec, route, donate = table.spec, self.push_route, self.donate
+
+        def _step(arr, keys, *extra):
+            target = arr if donate else arr.clone()
+            rows = spec.pull(target, keys)                          # PULL
+            delta, aux = compute_fn(rows, *extra)                   # COMP
+            return spec.push(target, keys, delta, via=route), aux   # PUSH
+
+        self._fn = _step
+        self.comp_tracer = Tracer(instrument="accessor.comp")
+
+    def _stage(self, batch: Tuple) -> Tuple[torch.Tensor, ...]:
+        """One host batch ``(keys, *extra)`` on the table's device (keys as
+        int32). Staged tensors are only read by the step."""
+        keys, *extra = batch
+        dev = self.table.device
+        k = (keys.to(dev, torch.int32) if isinstance(keys, torch.Tensor)
+             else torch.as_tensor(np.asarray(keys, dtype=np.int32), device=dev))
+        return (k, *(torch.as_tensor(a, device=dev) for a in extra))
+
+    def step(self, keys, *extra):
+        """One fused step, committed; returns compute_fn's aux. Waits for the
+        aux (the accessor's per-op shape), so the tracer charges the step's
+        device time to COMP."""
+        staged = self._stage((keys, *extra))
+        self.comp_tracer.start()
+        aux = self.table.apply_step(self._fn, *staged)
+        self.comp_tracer.record(int(staged[0].shape[0]), block_on=aux)
+        return aux
+
+    def run_batches(self, batches, *, inflight: Optional[int] = None) -> List[Any]:
+        """Drive host batches ``(keys, *extra)`` through the fused step, batch
+        k+1 staged on a producer thread while batch k runs (at most
+        ``inflight`` staged ahead, default 2), at most ``MAX_INFLIGHT`` steps
+        in flight. Returns the per-batch aux, their device work finished."""
+        cap = int(inflight) if inflight else 2
+        ring = StageRing(lambda: cap)
+        dev = self.table.device
+        # a new thread starts on the default stream: stage on the caller's
+        stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
+
+        def produce() -> None:
+            scope = (torch.cuda.stream(stream) if stream is not None
+                     else contextlib.nullcontext())
+            try:
+                with scope:
+                    for b in batches:
+                        if not ring.put(self._stage(b)):
+                            return
+                ring.finish()
+            except BaseException as e:  # noqa: BLE001 - raised at the consumer's get
+                ring.set_error(e)
+
+        t = threading.Thread(target=produce, daemon=True, name="fused-sparse-stage")
+        t.start()
+        auxes: List[Any] = []
+        marks: List[Optional[torch.cuda.Event]] = []
+        try:
+            while True:
+                item = ring.get()
+                if item is StageRing.DONE:
+                    break
+                auxes.append(self.table.apply_step(self._fn, *item))
+                if stream is not None:
+                    ev = torch.cuda.Event()
+                    ev.record(stream)
+                    marks.append(ev)
+                    if len(marks) >= self.MAX_INFLIGHT:
+                        marks[len(marks) - self.MAX_INFLIGHT].synchronize()
+        finally:
+            ring.close()
+            t.join(timeout=5.0)
+        return hard_sync(auxes)

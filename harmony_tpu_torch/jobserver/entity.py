@@ -2,9 +2,10 @@
 
 Counterpart of ``harmony_tpu/jobserver/entity.py``'s ``DolphinJobEntity``: the
 trainer and its data come from the serializable ``JobConfig`` (dotted-path
-symbols); the job's model table, and its worker-local table when the trainer
-has one, are created on its executors' device under job-namespaced ids, so two
-jobs of one app never collide; the run drives one ``WorkerTasklet``; cleanup
+symbols); the job's model table (a ``DeviceHashTable`` when its config is
+``sparse``), and its worker-local table when the trainer has one, are created
+on its executors' device under job-namespaced ids, so two jobs of one app
+never collide; the run drives one ``WorkerTasklet``; cleanup
 drops both tables. The dataset is cached under its data source
 (``_data_source_key``): a second job with the same ``data_fn`` and
 ``data_args`` reads the cached host arrays, and its worker the device-resident
@@ -25,7 +26,7 @@ from harmony_tpu_torch.data import devcache
 from harmony_tpu_torch.dolphin.data import TrainingDataProvider
 from harmony_tpu_torch.dolphin.trainer import Trainer, TrainerContext
 from harmony_tpu_torch.dolphin.worker import WorkerTasklet
-from harmony_tpu_torch.runtime.master import ETMaster
+from harmony_tpu_torch.runtime.master import ETMaster, Table
 from harmony_tpu_torch.table.table import DenseTable
 
 
@@ -39,7 +40,7 @@ class DolphinJobEntity:
                 f"job {config.job_id}: multi-worker jobs are not ported yet")
         self.config = config
         self._master: Optional[ETMaster] = None
-        self._table: Optional[DenseTable] = None
+        self._table: Optional[Table] = None
         self._local: Optional[DenseTable] = None
         self._data_arrays: List[np.ndarray] = []
         self._setup_start = 0.0
@@ -90,7 +91,7 @@ class DolphinJobEntity:
         devcache.host_data.put(key, arrays)
         return arrays
 
-    def _create(self, master: ETMaster, table_cfg, executor_ids) -> DenseTable:
+    def _create(self, master: ETMaster, table_cfg, executor_ids) -> Table:
         return master.create_table(
             table_cfg.replace(table_id=f"{self.config.job_id}:{table_cfg.table_id}"),
             executor_ids)

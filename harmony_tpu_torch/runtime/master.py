@@ -3,20 +3,24 @@
 Counterpart of ``harmony_tpu/runtime/master.py``, cut to what a job entity
 needs in this port: executors, each leasing one device from the
 :class:`DevicePool` (``add_executors``), and the table lifecycle (create a
-job's table on its executors' device, list, drop). A table lives on one
+job's table on its executors' device, list, drop): a ``DenseTable``, or a
+``DeviceHashTable`` when the config is ``sparse``. A table lives on one
 device. Block ownership, migration, checkpoint restore and tables spread
 over several devices are not ported yet (ROADMAP A.9, A.10).
 """
 from __future__ import annotations
 
 import threading
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Union
 
 import torch
 
 from harmony_tpu_torch.config.params import TableConfig
 from harmony_tpu_torch.parallel.mesh import DevicePool
+from harmony_tpu_torch.table.hashtable import DeviceHashTable, HashTableSpec
 from harmony_tpu_torch.table.table import DenseTable, TableSpec
+
+Table = Union[DenseTable, DeviceHashTable]
 
 
 class Executor:
@@ -37,7 +41,7 @@ class ETMaster:
         self._pool = pool or DevicePool()
         self._lock = threading.Lock()
         self._executors: Dict[str, Executor] = {}
-        self._tables: Dict[str, DenseTable] = {}
+        self._tables: Dict[str, Table] = {}
 
     # -- executors -------------------------------------------------------
 
@@ -65,9 +69,10 @@ class ETMaster:
 
     # -- tables ----------------------------------------------------------
 
-    def create_table(self, config: TableConfig, executor_ids: Sequence[str]) -> DenseTable:
+    def create_table(self, config: TableConfig, executor_ids: Sequence[str]) -> Table:
         """Create a table on the device of ``executor_ids`` (all on one device:
-        a table spread over several is not ported yet)."""
+        a table spread over several is not ported yet): a ``DeviceHashTable``
+        when ``config.sparse``, else a ``DenseTable``."""
         with self._lock:
             devices = {self._executors[e].device for e in executor_ids}
             if len(devices) != 1:
@@ -76,7 +81,10 @@ class ETMaster:
                     f"devices {sorted(map(str, devices))}; one device a table is ported")
             if config.table_id in self._tables:
                 raise ValueError(f"table {config.table_id} exists")
-            table = DenseTable(TableSpec(config), devices.pop())
+            if config.sparse:
+                table = DeviceHashTable(HashTableSpec(config), devices.pop())
+            else:
+                table = DenseTable(TableSpec(config), devices.pop())
             self._tables[config.table_id] = table
             return table
 

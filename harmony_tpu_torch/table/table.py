@@ -251,6 +251,12 @@ class DenseTable:
             return self._arr
 
     @property
+    def _step_state(self) -> torch.Tensor:
+        """What a step function receives (``DeviceHashTable``'s counterpart is
+        its (slot_keys, values) pair)."""
+        return self._arr
+
+    @property
     def data_version(self) -> int:
         """Monotonic count of storage writes."""
         with self._lock:
@@ -301,6 +307,14 @@ class DenseTable:
         k = self._to_device(keys, torch.int32)
         with self._lock:
             return self.spec.pull(self._arr, k).cpu().numpy()
+
+    def get(self, key: int) -> np.ndarray:
+        return self.multi_get([key])[0]
+
+    # getOrInit is get: every key's storage starts at its init value
+    # (TableSpec.init_array), so an absent key already reads as init.
+    get_or_init = get
+    multi_get_or_init = multi_get
 
     @property
     def push_via(self) -> str:

@@ -7,7 +7,9 @@ Counterpart of ``harmony_tpu/table/update.py``. An update function is
     dimension is written out), broadcast by the table to the value shape;
   * ``scatter_mode``           — how a batched push folds on the device;
   * ``post``                   — optional transform of touched entries after
-    the fold (e.g. the non-negativity clamp).
+    the fold (e.g. the non-negativity clamp);
+  * ``apply(old, delta)``      — one host-side update of a value (the
+    model cache of ``dolphin/accessor.py`` applies its own pushes with it).
 
 Durable ``"pkg.mod:factory?k=v"`` names resolve through :func:`get_update_fn`,
 gated to this package's modules (a persisted name is code-bearing input).
@@ -27,6 +29,7 @@ class UpdateFunction:
     # "add" | "min" | "max" | "set" (duplicate order unspecified for "set")
     scatter_mode: str = "add"
     post: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+    apply: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] = torch.add
 
 
 _REGISTRY: Dict[str, UpdateFunction] = {}
@@ -95,13 +98,15 @@ register_update_fn(UpdateFunction(name="add", init=_fill(0.0)))
 # additive push with a non-negativity clamp AFTER the fold, so concurrent
 # deltas that each keep a value non-negative cannot sum below zero
 register_update_fn(UpdateFunction(
-    name="add_nonneg", init=_fill(0.0), post=lambda v: torch.clamp_min(v, 0.0)))
+    name="add_nonneg", init=_fill(0.0), post=lambda v: torch.clamp_min(v, 0.0),
+    apply=lambda old, d: torch.clamp_min(old + d, 0.0)))
 
 # overwrite semantics (put-like update)
-register_update_fn(UpdateFunction(name="assign", init=_fill(0.0), scatter_mode="set"))
+register_update_fn(UpdateFunction(name="assign", init=_fill(0.0), scatter_mode="set",
+                                  apply=lambda old, d: d))
 
 # min/max folds (graph apps, e.g. shortest-path relaxations)
 register_update_fn(UpdateFunction(
-    name="min", init=_fill(float("inf")), scatter_mode="min"))
+    name="min", init=_fill(float("inf")), scatter_mode="min", apply=torch.minimum))
 register_update_fn(UpdateFunction(
-    name="max", init=_fill(float("-inf")), scatter_mode="max"))
+    name="max", init=_fill(float("-inf")), scatter_mode="max", apply=torch.maximum))

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import logging
 import os
-from typing import Optional, Union
+from typing import Any, Optional, Union
 
 import torch
 
@@ -47,6 +47,30 @@ def use_kernel(*tensors: torch.Tensor) -> bool:
     if dev.type == "cpu":
         return False
     raise ValueError(f"no kernel route for device {dev}")
+
+
+def hard_sync(tree: Any) -> Any:
+    """Wait for the device work that produced the tensors in ``tree`` (a
+    tensor, or tuples, lists and dicts of them): the current stream of each
+    card they lie on is synchronised. CPU tensors are ready already. Returns
+    ``tree``."""
+    devices = set()
+
+    def visit(x: Any) -> None:
+        if isinstance(x, torch.Tensor):
+            if x.device.type == "cuda":
+                devices.add(x.device)
+        elif isinstance(x, dict):
+            for v in x.values():
+                visit(v)
+        elif isinstance(x, (tuple, list)):
+            for v in x:
+                visit(v)
+
+    visit(tree)
+    for dev in devices:
+        torch.cuda.current_stream(dev).synchronize()
+    return tree
 
 
 def env_choice(var: str, allowed: tuple) -> Optional[str]:

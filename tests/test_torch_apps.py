@@ -246,8 +246,173 @@ def test_nmf_at_the_bench_settings_collapses_in_both_packages():
 
 
 def test_sparse_lda_is_not_ported():
-    with pytest.raises(NotImplementedError, match="A.4"):
-        lda.LDATrainer(vocab_size=8, num_topics=2, num_docs=4, max_doc_len=4, sparse=True)
+    """Sparse LDA is ported now: the reference's reserved keys and its hash
+    table schema, keyed pulls, a keyed delta, and the summary's mask."""
+    jt = jax_lda.LDATrainer(vocab_size=8, num_topics=2, num_docs=4, max_doc_len=4, sparse=True)
+    tt = lda.LDATrainer(vocab_size=8, num_topics=2, num_docs=4, max_doc_len=4, sparse=True)
     assert lda.MAX_KEY == 2**31 - 3 and lda.LDA_SUMMARY_KEY == jax_lda.LDA_SUMMARY_KEY
     assert (lda.LDA_PAD_KEY, lda.LDA_MAX_WORD_KEY) == (jax_lda.LDA_PAD_KEY,
                                                        jax_lda.LDA_MAX_WORD_KEY)
+    assert tt.pull_mode == jt.pull_mode == "keys"
+    assert lda.LDATrainer(vocab_size=8, num_topics=2, num_docs=4, max_doc_len=4).pull_mode == "all"
+    tc, jc = tt.model_table_config(), jt.model_table_config()
+    for field in ("table_id", "capacity", "value_shape", "num_blocks", "is_ordered",
+                  "update_fn", "sparse"):
+        assert getattr(tc, field) == getattr(jc, field), field
+
+
+# -- sparse LDA: topic-word counts in a DeviceHashTable ---------------------------
+
+SPARSE_LDA = dict(LDA, vocab_size=64, sparse=True, slot_budget=256)
+
+
+def _sparse_lda_data(seed=3, **kw):
+    args = dict(num_docs=LDA["num_docs"], vocab_size=LDA["vocab_size"],
+                num_topics=LDA["num_topics"], doc_len=16, seed=seed)
+    args.update(kw)
+    return jax_lda.make_synthetic_sparse(**args)
+
+
+def test_sparse_lda_data_keys_and_mask_match():
+    for a, b in zip(_sparse_lda_data(), lda.make_synthetic_sparse(
+            LDA["num_docs"], LDA["vocab_size"], LDA["num_topics"], 16, seed=3)):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(b, a)
+    jt, tt = jax_lda.LDATrainer(**SPARSE_LDA), lda.LDATrainer(**SPARSE_LDA)
+    doc, tokens, seeds = _sparse_lda_data()
+    tokens[2, 5:] = -1
+    tokens[3, 0] = 0                                   # the reserved key: padding
+    tokens[3, 1] = lda.LDA_PAD_KEY                     # aliases a reserved row
+    batch = (doc[:8], tokens[:8], seeds[:8])
+    jk = np.asarray(jt.pull_keys(tuple(map(jnp.asarray, batch))))
+    tk = tt.pull_keys(tuple(map(torch.as_tensor, batch)))
+    assert tk.dtype == torch.int32
+    np.testing.assert_array_equal(tk.numpy(), jk)
+    rng = np.random.default_rng(5)
+    delta = rng.integers(-2, 3, (len(jk), LDA["num_topics"])).astype(np.float32)
+    ok = rng.random(len(jk)) < 0.8
+    np.testing.assert_array_equal(
+        tt.mask_delta(torch.as_tensor(delta), torch.as_tensor(ok)).numpy(),
+        np.asarray(jt.mask_delta(jnp.asarray(delta), jnp.asarray(ok))))
+
+
+def test_sparse_lda_compute_with_local_draws_as_jax():
+    """The keyed layout: a row per token position and the summary row; the
+    draws, the local table and the keyed delta exact."""
+    jt, tt = jax_lda.LDATrainer(**SPARSE_LDA), lda.LDATrainer(**SPARSE_LDA)
+    doc, tokens, seeds = _sparse_lda_data()
+    tokens[1, 12:] = -1
+    B, L, K = 8, 16, LDA["num_topics"]
+    rng = np.random.default_rng(6)
+    model = rng.integers(0, 4, (B * L + 1, K)).astype(np.float32)
+    model[-1] = model[:-1].sum(axis=0) + 3
+    local = rng.integers(-1, K, (LDA["num_docs"], L)).astype(np.int32)
+    batch = (doc[:B], tokens[:B], seeds[:B])
+    jd, jl, jm = jax.jit(jt.compute_with_local)(
+        jnp.asarray(model), jnp.asarray(local), tuple(map(jnp.asarray, batch)),
+        {"epoch": jnp.asarray(1.0, jnp.float32)})
+    td, tl, tm = tt.compute_with_local(torch.as_tensor(model), torch.as_tensor(local),
+                                       tuple(map(torch.as_tensor, batch)),
+                                       {"epoch": torch.tensor(1.0)})
+    assert td.shape == (B * L + 1, K)
+    np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+    np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
+    np.testing.assert_allclose(float(tm["log_likelihood"]), float(jm["log_likelihood"]),
+                               rtol=RTOL)
+
+
+def _sparse_lda_runs(fused, budget=256, vocab=64, doc_len=16):
+    from harmony_tpu.table.hashtable import DeviceHashTable as JaxHashTable
+    from harmony_tpu.table.hashtable import HashTableSpec as JaxHashSpec
+    from harmony_tpu_torch.table.hashtable import DeviceHashTable, HashTableSpec
+
+    kw = dict(SPARSE_LDA, slot_budget=budget, vocab_size=vocab, max_doc_len=doc_len)
+    jt, tt = jax_lda.LDATrainer(**kw), lda.LDATrainer(**kw)
+    arrays = list(_sparse_lda_data(vocab_size=vocab, doc_len=doc_len))
+    mesh = build_mesh(jax.devices()[:1])
+    jm = JaxHashTable(JaxHashSpec(jt.model_table_config()), mesh)
+    jl = JaxDenseTable(JaxTableSpec(jt.local_table_config()), mesh)
+    jres = JaxWorker("slda", JaxTrainerContext(
+        params=JaxTrainerParams(num_epochs=2, num_mini_batches=4, fused_step=fused),
+        model_table=jm, local_table=jl), jt, JaxData(arrays, 4), mesh).run()
+    tm = DeviceHashTable(HashTableSpec(tt.model_table_config()), "cpu")
+    tl = DenseTable(TableSpec(tt.local_table_config()), "cpu")
+    tres = WorkerTasklet("slda", TrainerContext(
+        params=TrainerParams(num_epochs=2, num_mini_batches=4, fused_step=fused),
+        model_table=tm, local_table=tl), tt, TrainingDataProvider(arrays, 4)).run()
+    return (jres, jm, jl), (tres, tm, tl)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_sparse_lda_worker_runs_match_the_jax_worker(fused):
+    """tests/test_sparse_step.py's sparse LDA run in both packages: the slot
+    keys and the counts byte for byte, the assignments exactly, the epoch
+    log-likelihoods to 1e-5 relative."""
+    (jres, jm, jl), (tres, tm, tl) = _sparse_lda_runs(fused)
+    assert tres["step_mode"] == ("fused" if fused else "unfused")
+    for a, b in zip(jm.state, tm.state):
+        assert b.numpy().tobytes() == np.asarray(a).tobytes()
+    np.testing.assert_array_equal(tl.pull_array().numpy(), np.asarray(jl.pull_array()))
+    np.testing.assert_allclose(tres["losses"], jres["losses"], rtol=RTOL)
+    counts = tm.items()
+    summary = counts.pop(lda.LDA_SUMMARY_KEY)
+    pad = counts.pop(lda.LDA_PAD_KEY, np.zeros_like(summary))
+    assert not pad.any()
+    np.testing.assert_array_equal(summary, np.sum(list(counts.values()), axis=0))
+    assert tres["overflow_count"] == 0
+
+
+def test_sparse_lda_overflow_is_counted_and_masked_as_the_reference():
+    """A table of 2,048 slots for ~3,000 distinct words: the same words are
+    refused in both packages, the summary row stays the sum of the admitted
+    word rows (mask_delta), and the refused keys are counted the same."""
+    (jres, jm, jl), (tres, tm, tl) = _sparse_lda_runs(True, budget=62, vocab=20000,
+                                                      doc_len=100)
+    for a, b in zip(jm.state, tm.state):
+        assert b.numpy().tobytes() == np.asarray(a).tobytes()
+    np.testing.assert_array_equal(tl.pull_array().numpy(), np.asarray(jl.pull_array()))
+    assert tres["overflow_count"] == tm.overflow_count == jm.overflow_count > 0
+    counts = tm.items()
+    summary = counts.pop(lda.LDA_SUMMARY_KEY)
+    counts.pop(lda.LDA_PAD_KEY, None)
+    np.testing.assert_array_equal(summary, np.sum(list(counts.values()), axis=0))
+
+
+def test_sparse_lda_through_the_jobservers_matches():
+    from harmony_tpu.config.params import JobConfig as JaxJobConfig
+    from harmony_tpu.jobserver.server import JobServer as JaxJobServer
+    from harmony_tpu.parallel.mesh import DevicePool as JaxDevicePool
+    from harmony_tpu_torch.config.params import JobConfig
+    from harmony_tpu_torch.jobserver.server import JobServer
+    from harmony_tpu_torch.parallel.mesh import DevicePool
+
+    def config(package, cls, params):
+        return cls(job_id="lda-hash", app_type="dolphin",
+                   trainer=f"{package}.apps.lda:LDATrainer",
+                   params=params(num_epochs=2, num_mini_batches=4,
+                                 app_params=dict(SPARSE_LDA, max_doc_len=16)),
+                   num_workers=1,
+                   user={"data_fn": f"{package}.apps.lda:make_synthetic_sparse",
+                         "data_args": {"num_docs": LDA["num_docs"],
+                                       "vocab_size": LDA["vocab_size"],
+                                       "num_topics": LDA["num_topics"], "doc_len": 16}})
+
+    ref = JaxJobServer(num_executors=1, device_pool=JaxDevicePool(jax.devices("cpu")[:1]))
+    ref.start()
+    try:
+        ref.submit(config("harmony_tpu", JaxJobConfig, JaxTrainerParams)).result(timeout=120)
+        want = [m.loss for m in sorted(ref.metrics.worker_batch_metrics(job_id="lda-hash"),
+                                       key=lambda m: (m.epoch_idx, m.batch_idx))]
+    finally:
+        ref.shutdown(timeout=120)
+    server = JobServer(1, device_pool=DevicePool(["cpu"]))
+    server.start()
+    try:
+        result = server.submit(config("harmony_tpu_torch", JobConfig, TrainerParams)
+                               ).result(timeout=120)
+    finally:
+        server.shutdown(timeout=120)
+    (worker,) = result["workers"].values()
+    assert len(worker["batch_losses"]) == len(want) == 8
+    np.testing.assert_allclose(worker["batch_losses"], want, rtol=RTOL)
+    assert worker["overflow_count"] == 0
