@@ -107,6 +107,35 @@ Phases, in order; any failure ends the script with a non-zero exit code:
    (PULL K1, PUSH K3) bit-identical to the accessor's unfused loop, and
    accessor_async_step at staleness bound 0 bit-identical to the
    synchronous cycle.
+2e. The kernels at this slice's shapes: K3 at bench-gbt's deepest level
+   (1,900,544 ids of width 3 into 229,408 rows), K2 at bench-pagerank's add
+   fold (~67.9M ids of width 1 into 4,847,571 rows) and K1 at its edge
+   gather (8-byte rows), and at shortest path's and connected components'
+   (4-byte rows, ~67.9M and ~135.7M ids): the CPU's bits, the same bits run
+   twice; timed
+   beside the plain versions, ``index_select`` and atomic and deterministic
+   ``index_add_``, with the fold's scratch bytes.
+3k. GBT: the ``gbt`` preset on the card and on the CPU (trees equal in
+   structure, leaf values within GBT_LEAF_ATOL), and in ``hist_mode``
+   ``scatter`` on the card (K2 once a level, the same trees bit for bit);
+   bench-gbt (XGBoost's hist defaults at HIGGS's shape, 524,288 rows, 16
+   rounds) through the JobServer with the launch counts read around it (K3
+   once a level, nothing else), the loss falling, a second run bit-identical
+   with each step held to the CPU on the card's own inputs (each K3 call
+   the plain version's bits, gradients within GBT_GRAD_ATOL, each tree
+   equal in structure, leaf values within GBT_LEAF_ATOL), and the same job
+   run through on the CPU, reported; samples/s and rounds/s.
+3l. The Pregel engine: the ``pagerank``, ``shortest-path`` and
+   ``connected-components`` presets on the card and on the CPU (distances
+   and labels exact, ranks within PR_RTOL); each at bench-pagerank's scale
+   (random_graph(4,847,571, 14), SNAP LiveJournal's size) through the
+   JobServer, launch counts read around it (K1 once a superstep, K2 once a
+   superstep for PageRank), PageRank's rank mass, a second run of each
+   bit-identical, each against the same job on the CPU (the same supersteps,
+   distances and labels exact, ranks within PR_RTOL); edges/s a superstep.
+3m. The ``lasso``, ``addvector`` and ``addinteger`` presets on the card and
+   on the CPU: Lasso's losses within LOSS_ATOL, the AddVector and
+   AddInteger tables at ``expected_value`` exactly.
 4. The sparse push route (``HARMONY_PUSH_VIA=sparse``): the Wide&Deep job
    of phase 3, which folds its pushes with K2.
 5. Where a step's time goes: a steady epoch of the Wide&Deep job on the host
@@ -120,12 +149,16 @@ Phases, in order; any failure ends the script with a non-zero exit code:
    by kind from the profile's Chrome trace; and the top kernels.
 5d. The same for a bench-fm-hash step and a sparse LDA step, with the
    device's operations (kernels, copies, fills) a step.
+5e. The same for a bench-gbt step, a bench-pagerank superstep and a step of
+   the lasso preset.
 6. A ``kernels`` JSON line: ``launches`` sums each kernel's launches over
    the main paths, each read with the counts set to 0 just before it
    (``launches_by_path``: bench-widedeep, bench-lm, bench-trio,
-   bench-fm-hash, sparse-lda-hash, fused-sparse-step); K1-K3 also carry
-   ``device_ms``, ``library_device_ms``, ``library_deterministic_device_ms``
-   and ``host_us``; the card's name and power limit, and the last line
+   bench-fm-hash, sparse-lda-hash, fused-sparse-step, bench-gbt,
+   bench-pagerank, bench-shortest-path, bench-connected-components); K1-K3
+   also carry ``device_ms``, ``library_device_ms``,
+   ``library_deterministic_device_ms``, ``host_us`` and their timing at
+   phase 2e's shapes; the card's name and power limit, and the last line
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -148,6 +181,9 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # The H100 SXM's published peaks (NVIDIA data sheet), at its 700 W limit.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+# The H100's L2 (50 MB): a profiled time below the bytes bound is a lost
+# record where a call moves more than this (it cannot stay warm in L2).
+L2_BYTES = 50e6
 BF16_FLOPS = 989e12
 
 # bench-widedeep (benchmarks/apps.py) through the CLI's widedeep preset.
@@ -160,6 +196,22 @@ SLICE_ARGS = [
 EPOCHS = 2
 BATCHES = 8
 N_EXAMPLES = 32768
+
+# torch.profiler on the card (an H100 80GB HBM3) drops a prefix of a
+# profile's device records: once a process has run for a minute or so, the
+# first few kernel records of a profile go missing, by count whatever the
+# kernels' lengths, and now and then a whole profile comes back empty. So
+# every profile starts with PROFILE_MARKERS tiny marker kernels, whose
+# records that loss may take, and ends with one more. A profile is kept only
+# if its first record and its last are markers: then nothing of the profiled
+# work was dropped at either end. A profile that fails this is taken again,
+# up to PROFILE_ATTEMPTS times in all, each retake printed, and then the run
+# fails. PROFILE_LOG counts, over the run, the markers each kept profile
+# lost, and the retakes.
+PROFILE_MARKERS = 64
+PROFILE_ATTEMPTS = 4
+MARKER_KERNEL = "spin_kernel"   # torch.cuda._sleep's kernel
+PROFILE_LOG = {"markers_lost": {}, "retakes": 0}
 
 # Per-step losses of two f32 runs of a job that differ only in where their sums
 # are taken (cuBLAS against the CPU's matrix products, the card's reductions
@@ -234,25 +286,61 @@ def time_ms(fn, samples: int = 25, inner: int = 10) -> float:
     return statistics.median(times)
 
 
-def device_kernels(fn, calls: int = 100) -> dict:
-    """Device time of one call by kernel name: the durations of the kernels
-    that torch.profiler (CUDA activity) records over ``calls`` back-to-back
-    calls, summed per name and divided by ``calls``."""
+def profiled(run, cpu: bool = False):
+    """torch.profiler (CUDA activity, and the host's with ``cpu``) over one
+    ``run()``, between the marker kernels; returns the profile and its
+    device events in start order, the markers taken out. A profile whose
+    first or last device record is not a marker is taken again (see
+    PROFILE_MARKERS)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        torch.cuda.synchronize()
+        with profile(activities=activities) as prof:
+            for _ in range(PROFILE_MARKERS):
+                torch.cuda._sleep(1)
+            torch.cuda.synchronize()
+            run()
+            torch.cuda.synchronize()
+            torch.cuda._sleep(1)
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        marks = [MARKER_KERNEL in e.name for e in events]
+        if marks.count(True) >= 2 and marks[0] and marks[-1]:
+            lost = PROFILE_MARKERS + 1 - marks.count(True)
+            PROFILE_LOG["markers_lost"][lost] = PROFILE_LOG["markers_lost"].get(lost, 0) + 1
+            return prof, [e for e, m in zip(events, marks) if not m]
+        PROFILE_LOG["retakes"] += 1
+        ends = [events[i].name[:40] for i in (0, -1)] if events else []
+        print(f"chip_smoke: profile {attempt} of {PROFILE_ATTEMPTS} lost device records "
+              f"at an end ({len(events)} records, {marks.count(True)} of "
+              f"{PROFILE_MARKERS + 1} markers, first and last {ends})",
+              file=sys.stderr, flush=True)
+    fail(f"the profiler lost device records in {PROFILE_ATTEMPTS} profiles")
+
+
+def device_kernels(fn, calls: int = 100) -> dict:
+    """Device time of one call by kernel name: the durations of the kernels
+    that torch.profiler records over ``calls`` back-to-back calls, summed
+    per name and divided by ``calls``. Every call launches the same kernels,
+    so each name's record count must be a multiple of ``calls``."""
     for _ in range(3):
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def run():
         for _ in range(calls):
             fn()
-        torch.cuda.synchronize()
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3 / calls
-    check(sum(by_name.values()) > 0, "the profiler saw no device time")
+
+    _, events = profiled(run)
+    by_name, count = {}, {}
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3 / calls
+        count[e.name] = count.get(e.name, 0) + 1
+    check(by_name and all(n % calls == 0 for n in count.values()),
+          f"the profiler's record counts {count} over {calls} calls: records lost")
     return by_name
 
 
@@ -1249,8 +1337,6 @@ def run_prefetch():
     bit-identical losses; under torch.profiler the staged batches are
     `Memcpy HtoD (Pinned -> Device)` copies on a stream that runs none of the
     steps' kernels; the ring's stall and idle seconds."""
-    from torch.profiler import ProfilerActivity, profile
-
     from harmony_tpu_torch.apps.widedeep import WideDeepTrainer, make_synthetic
     from harmony_tpu_torch.config.params import TrainerParams
     from harmony_tpu_torch.dolphin.data import TrainingDataProvider
@@ -1272,10 +1358,9 @@ def run_prefetch():
         return worker.run()
 
     off = run(False)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        on = run(True)
-        torch.cuda.synchronize()
+    got = {}
+    prof, _ = profiled(lambda: got.update(on=run(True)), cpu=True)
+    on = got["on"]
     check(on["batch_losses"] == off["batch_losses"],
           f"losses with prefetch {on['batch_losses']} are not bit-identical to "
           f"those without {off['batch_losses']}")
@@ -1425,7 +1510,7 @@ def hash_job(kind: str, epochs: int, **params):
               "data_args": data})
 
 
-def hash_worker(config, device):
+def job_worker(config, device):
     """The JobServer's set-up of ``config`` (DolphinJobEntity) on ``device``:
     returns the entity (for cleanup) and its worker."""
     from harmony_tpu_torch.jobserver.entity import DolphinJobEntity
@@ -1648,7 +1733,7 @@ def run_hash_job(kind: str, epochs: int):
 
     runs = {}
     for d in ("cuda", "cpu"):
-        entity, worker = hash_worker(config, d)
+        entity, worker = job_worker(config, d)
         seen = windows_without_syncs(worker) if d == "cuda" else None
         try:
             result = worker.run()
@@ -1793,6 +1878,566 @@ def run_host_driven_steps():
     return launches, out
 
 
+# -- phases 2e, 3k, 3l and 3m: GBT, the Pregel engine, Lasso and AddVector -----
+
+# bench-gbt: XGBoost's documented defaults for tree_method="hist" (max_depth 6,
+# max_bin 256, eta 0.3, lambda 1) at HIGGS's shape (28 features, binary
+# logistic loss). 524,288 synthetic rows (HIGGS has 11M and is not in the repo)
+# in 8 mini-batches of 65,536 for 2 epochs: 16 rounds.
+GBT_APP = {"num_features": 28, "num_examples": 524_288, "num_rounds": 16,
+           "loss": "logistic", "num_bins": 256, "max_depth": 6, "lam": 1.0,
+           "step_size": 0.3}
+GBT_DATA = {"n": 524_288, "num_features": 28, "num_bins": 256, "task": "binary"}
+GBT_BATCH = GBT_DATA["n"] // BATCHES
+GBT_N_NODES = 2 ** (GBT_APP["max_depth"] + 1) - 1
+# K3 calls a step: one a level, the histograms and the node totals together
+GBT_FOLDS_PER_STEP = GBT_APP["max_depth"] + 1
+# The gbt preset's leaf values, card against CPU: the folds add in index order
+# on both and the prefix sums are sequential f32 on both, and the squared loss's
+# gradients are one f32 subtraction, so they agree exactly; allowed: 1e-5, the
+# tier-1 limit against the JAX package.
+GBT_LEAF_ATOL = 1e-5
+# bench-gbt's gradients p - y and hessians p (1 - p), card against CPU at the
+# same margins: p = sigmoid(m) lies within a few f32 ulps of the true value on
+# each device (CUDA's expf is within 2 ulps, the CPU's within 1, then two
+# roundings), and an ulp of a p in [0.5, 1) is 2**-24; p - y subtracts
+# exactly and p (1 - p) adds one rounding at most a quarter that size.
+# Allowed: 8 ulps at 1, absolutely. Their step losses: LOSS_ATOL.
+GBT_GRAD_ATOL = 8 * 2.0 ** -24
+# bench-pagerank: SNAP soc-LiveJournal1's scale (4,847,571 vertices, 68,993,773
+# edges) as random_graph(V, 14): uniform out-degree 14, ~67.9M edges once the
+# self-loops are dropped (LiveJournal's file is not in the repo). 10 PageRank
+# iterations, 11 supersteps.
+PR_VERTICES = 4_847_571
+PR_DEGREE = 14
+PR_ITERATIONS = 10
+# PageRank's ranks, card against CPU: 1e-6 relative, the tier-1 limit against
+# the JAX package (the add fold gives the CPU's bits, so they may agree exactly).
+PR_RTOL = 1e-6
+# Rank mass after 10 iterations: 1 less the mass that dangling vertices hold
+# (their rank leaves along no edge), within f32 summation error of 4.8M ranks.
+RANK_MASS_ATOL = 1e-3
+
+
+def preset_config(app: str, epochs: int = 3, batches: int = 4, **params):
+    """The CLI's JobConfig of ``app`` (``cli.build_config``, no overrides);
+    ``params`` override its TrainerParams."""
+    import argparse
+
+    from harmony_tpu_torch import cli
+
+    ns = argparse.Namespace(set=[], data=[], job_id=None, epochs=epochs, batches=batches,
+                            graph_file=None, max_supersteps=100)
+    config = cli.build_config(app, ns)
+    return config.replace(params=config.params.replace(**params)) if params else config
+
+
+def gbt_job(epochs: int, **params):
+    from harmony_tpu_torch.config.params import JobConfig, TrainerParams
+
+    return JobConfig(
+        job_id="bench-gbt", app_type="dolphin",
+        trainer="harmony_tpu_torch.apps.gbt:GBTTrainer",
+        params=TrainerParams(num_epochs=epochs, num_mini_batches=BATCHES,
+                             app_params=GBT_APP, **params),
+        num_workers=1,
+        user={"data_fn": "harmony_tpu_torch.apps.gbt:make_binned_synthetic",
+              "data_args": GBT_DATA})
+
+
+def graph_job(app: str, num_vertices: int):
+    """bench-pagerank's graph (random_graph(V, 14), seed 0) under ``app``'s
+    preset: pagerank (10 iterations), shortest-path (weighted, source 0) or
+    connected-components."""
+    config = preset_config(app)
+    args = {**config.user["graph_args"], "num_vertices": num_vertices,
+            "avg_degree": PR_DEGREE}
+    return config.replace(job_id=f"bench-{app}", user={**config.user, "graph_args": args})
+
+
+def gbt_level_operands(dev):
+    """K3's operands at bench-gbt's deepest histogram level (depth 5, 32 nodes):
+    a mini-batch of 65,536 rows binned as the job bins them, each row at a node
+    of that level or settled (node -1, about 1 in 33), the rows [g | h | live]
+    of the logistic loss at margins drawn from N(0, 1), ids (node * 28 + f) *
+    256 + bin and then the node totals: 1,900,544 ids of width 3 into 229,408
+    rows."""
+    from harmony_tpu_torch.apps.gbt import make_binned_synthetic
+
+    bins, y = make_binned_synthetic(GBT_BATCH, GBT_DATA["num_features"],
+                                    num_bins=GBT_DATA["num_bins"], task="binary")
+    rng = np.random.default_rng(6)
+    E, F = bins.shape
+    B = GBT_DATA["num_bins"]
+    n_level = 2 ** (GBT_APP["max_depth"] - 1)
+    node = rng.integers(-1, n_level, E).astype(np.int32)
+    p = 1.0 / (1.0 + np.exp(-rng.standard_normal(E).astype(np.float32)))
+    live = (node >= 0).astype(np.float32)
+    stats = np.stack([(p - y) * live, p * (1 - p) * live, live], axis=1).astype(np.float32)
+    flat = ((node[:, None] * F + np.arange(F)) * B + bins).reshape(-1)
+    nb = n_level * F * B
+    ids = np.concatenate([flat, np.where(node >= 0, node + nb, -1)]).astype(np.int32)
+    w = np.concatenate([np.repeat(stats, F, axis=0), stats])
+    return (torch.as_tensor(ids, device=dev), torch.as_tensor(w, device=dev),
+            nb + n_level)
+
+
+def pagerank_graph():
+    """bench-pagerank's graph on the host (the reference's draws)."""
+    from harmony_tpu_torch.pregel.graph import random_graph
+
+    return random_graph(PR_VERTICES, PR_DEGREE)
+
+
+def check_slice_kernels(dev, graph):
+    """Phase 2e: K3 at bench-gbt's deepest level, K2 at bench-pagerank's add
+    fold (the edge messages of its first superstep, [E, 1] f32 into 4.85M
+    rows) and K1 at its edge gather (PageRank's state, [V, 2] f32, 8-byte
+    rows, at the edges' sources), and at shortest path's ([V, 1] f32,
+    4-byte rows, the same sources) and connected components' (the ~135.7M
+    sources of the symmetrised edges). Each must give the same bits as its plain
+    version on the CPU and as itself run twice; K1 also as its plain version
+    on the card, K2 and K3 within the f32 reordering bound of it (the card's
+    atomic index_add_). Timed (fewer samples than phase 2: one fold of 68M
+    ids takes milliseconds) beside the plain version and the library calls:
+    ``index_select`` for K1, atomic and deterministic ``index_add_`` for the
+    folds. A profiled time under the bytes bound of a call that cannot stay
+    in L2 fails the run. Returns per-case timing and max |kernel - plain on
+    the card|."""
+    from harmony_tpu_torch.ops.histogram import (
+        weighted_histogram,
+        weighted_histogram_plain,
+    )
+    from harmony_tpu_torch.ops.sparse import (
+        fold_scratch_ints,
+        gather_rows,
+        gather_rows_plain,
+        segment_sum_rows,
+        segment_sum_rows_plain,
+    )
+
+    V = graph.num_vertices
+    src = torch.as_tensor(graph.src, device=dev)
+    dst = torch.as_tensor(graph.dst, device=dev)
+    deg = torch.as_tensor(np.maximum(graph.out_degree, 1.0), device=dev)
+    state = torch.stack([torch.full((V,), 1.0 / V, device=dev), deg], dim=1)
+    sent = gather_rows_plain(state, src)
+    msgs = (sent[:, 0] / sent[:, 1])[:, None].contiguous()
+    ids, w, rows = gbt_level_operands(dev)
+    cases = {
+        "weighted_histogram": (weighted_histogram, weighted_histogram_plain,
+                               (ids, w, rows), ids, w, rows),
+        "segment_sum_rows": (segment_sum_rows, segment_sum_rows_plain,
+                             (msgs, dst, V), dst, msgs, V),
+    }
+    err, timing = {}, {}
+    for name, (kernel, plain, args, i, x, R) in cases.items():
+        got, again = kernel(*args), kernel(*args)
+        torch.cuda.synchronize()
+        check(same_bits(got, again), f"phase 2e {name}: two runs differ")
+        check(same_bits(got.cpu(), plain(*(a.cpu() if torch.is_tensor(a) else a
+                                            for a in args))),
+              f"phase 2e {name}: not the same bits as the CPU's index_add_")
+        gap = (got - plain(*args)).abs()
+        check(bool((gap <= fold_tolerance(x.float(), i, R).float()).all()),
+              f"phase 2e {name}: |kernel - plain| {float(gap.max())} over the bound")
+        err[name] = float(gap.max())
+        N, W = x.shape
+        nbytes = N * 4 + N * W * 4 + R * W * 4
+        t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, N * W / F32_FLOPS * 1e3
+        i64, xf = i.long().clamp(0, R - 1), torch.where((i >= 0)[:, None], x.float(), 0.0)
+
+        def index_add():
+            return torch.zeros((R, W), device=dev).index_add_(0, i64, xf)
+
+        mode = (torch.are_deterministic_algorithms_enabled(),
+                torch.is_deterministic_algorithms_warn_only_enabled())
+        torch.use_deterministic_algorithms(True)
+        try:
+            det = dict(library_deterministic_ms=time_ms(index_add, samples=5, inner=3),
+                       library_deterministic_device_ms=device_ms(index_add, calls=5))
+        finally:
+            torch.use_deterministic_algorithms(mode[0], warn_only=mode[1])
+        timing[name] = dict(
+            ids=N, width=W, rows=R,
+            scratch_bytes=4 * fold_scratch_ints(N, W, R),
+            ms=time_ms(lambda: kernel(*args), samples=5, inner=3),
+            device_ms=device_ms(lambda: kernel(*args), calls=10),
+            plain_ms=time_ms(lambda: plain(*args), samples=5, inner=3),
+            library_ms=time_ms(index_add, samples=5, inner=3),
+            library_device_ms=device_ms(index_add, calls=10), **det, bytes=nbytes,
+            bound_ms=max(t_b, t_o), bound_by="bytes" if t_b >= t_o else "operations")
+    # K1 at PageRank's gather (state [V, 2], 8-byte rows) and at shortest
+    # path's and connected components' (distances and labels [V, 1], 4-byte
+    # rows: another instance of the kernel), the latter on the symmetrised
+    # edges' ~135.7M sources
+    sym_src = torch.cat([src, dst])
+    gathers = {
+        "gather_rows": (state, src),
+        "gather_rows [V, 1], shortest path": (
+            torch.rand((V, 1), generator=torch.Generator(device=dev).manual_seed(7),
+                       device=dev) * 1e3, src),
+        "gather_rows [V, 1], connected components": (
+            torch.arange(V, dtype=torch.float32, device=dev)[:, None], sym_src),
+    }
+    for name, (table, i) in gathers.items():
+        got = gather_rows(table, i)
+        torch.cuda.synchronize()
+        check(same_bits(got, gather_rows(table, i)), f"phase 2e {name}: two runs differ")
+        check(same_bits(got, gather_rows_plain(table, i)),
+              f"phase 2e {name}: not byte-identical to the plain version")
+        check(same_bits(got.cpu(), gather_rows_plain(table.cpu(), i.cpu())),
+              f"phase 2e {name}: not byte-identical to the CPU's")
+        del got
+        N, W = i.shape[0], table.shape[1]
+        nbytes = N * 4 + int(torch.unique(i).numel()) * W * 4 + N * W * 4
+        i64 = i.long()
+        timing[name] = dict(
+            ids=N, width=W, rows=V,
+            ms=time_ms(lambda: gather_rows(table, i), samples=5, inner=3),
+            device_ms=device_ms(lambda: gather_rows(table, i), calls=10),
+            plain_ms=time_ms(lambda: gather_rows_plain(table, i), samples=5, inner=3),
+            library_ms=time_ms(lambda: torch.index_select(table, 0, i64), samples=5, inner=3),
+            library_device_ms=device_ms(lambda: torch.index_select(table, 0, i64), calls=10),
+            bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+        del i64
+    err["gather_rows"] = 0.0
+    for name, t in timing.items():
+        if t.get("bytes", 0) > L2_BYTES:
+            check(t["device_ms"] >= t["bound_ms"],
+                  f"phase 2e {name}: profiled {t['device_ms']} ms, under its bound of "
+                  f"{t['bound_ms']} ms for {t['bytes']} bytes: records lost")
+    print(f"phase 2e: K3 at bench-gbt's deepest level, K2 at bench-pagerank's fold, K1 "
+          f"at its edge gather and at shortest path's and connected components': the CPU's "
+          f"bits, the same bits run twice; "
+          f"{json.dumps(timing)}", flush=True)
+    return timing, err
+
+
+def run_gbt():
+    """Phase 3k. The gbt preset on the card and on the CPU (the JobServer's
+    set-up of the job): the trees equal in structure, leaf values within
+    GBT_LEAF_ATOL; with hist_mode="scatter" on the card, K2 once a level and
+    the same trees bit for bit. Then bench-gbt through the JobServer on the
+    card, launch counts read around it (K3 once a level, GBT_FOLDS_PER_STEP a
+    step, and no other kernel); the loss falls; a second run (the entity's
+    worker, the same job) bit-identical to it, each of its steps held to the
+    CPU on the card's own inputs: every K3 call (every level's shape) the
+    plain version's bits, the gradients within GBT_GRAD_ATOL, the tree grown
+    from the card's gradients equal in structure to the CPU's, leaf values
+    within GBT_LEAF_ATOL; the same job run through on the CPU, reported;
+    samples/s and rounds/s."""
+    from harmony_tpu_torch.apps import gbt as gbt_app
+    from harmony_tpu_torch.jobserver.server import JobServer
+    from harmony_tpu_torch.ops.histogram import weighted_histogram_plain
+    from harmony_tpu_torch.parallel.mesh import DevicePool
+
+    wrappers = all_wrappers()
+    preset = preset_config("gbt")
+    runs = {}
+    for d in ("cuda", "cpu"):
+        entity, worker = job_worker(preset, d)
+        try:
+            runs[d] = (worker.run(), worker.ctx.model_table.pull_array().cpu(), worker.trainer)
+        finally:
+            entity.cleanup()
+    (rc, tc, trainer), (rp, tp, _) = runs["cuda"], runs["cpu"]
+    n = trainer.num_nodes
+    check(trainer.resolved_hist_mode(torch.zeros(1, device="cuda")) == "matmul",
+          "hist_mode auto did not resolve to matmul on the card")
+    check(torch.equal(tc[:, :3 * n], tp[:, :3 * n]),
+          "gbt preset: the card's trees differ in structure from the CPU's")
+    leaf_gap = float((tc - tp).abs().max())
+    check(leaf_gap <= GBT_LEAF_ATOL, f"gbt preset: leaf values differ by {leaf_gap}")
+    loss_gap = max(abs(a - b) for a, b in zip(rc["batch_losses"], rp["batch_losses"]))
+    check(loss_gap <= LOSS_ATOL, f"gbt preset: losses differ by {loss_gap}")
+    # hist_mode="scatter" on the card: one K2 call a level, the same
+    # index-order fold, so the same trees bit for bit
+    app_params = {**preset.params.app_params, "hist_mode": "scatter"}
+    entity, worker = job_worker(
+        preset.replace(params=preset.params.replace(app_params=app_params)), "cuda")
+    try:
+        reset_counts(*wrappers)
+        worker.run()
+        scatter_launches = {w.__name__: w.launches for w in wrappers}
+        ts = worker.ctx.model_table.pull_array().cpu()
+    finally:
+        entity.cleanup()
+    folds = (app_params["max_depth"] + 1) * len(rc["batch_losses"])
+    check(scatter_launches["segment_sum_rows"] == folds
+          and sum(scatter_launches.values()) == folds,
+          f"gbt preset, scatter mode: launches {scatter_launches}, expected {folds} of K2")
+    check(same_bits(ts, tc), "gbt preset: the scatter mode's trees differ from matmul's")
+    print(f"phase 3k: gbt preset on the card and the CPU: trees equal in structure, "
+          f"max |leaf value gap| {leaf_gap} (bit-identical: {same_bits(tc, tp)}), max "
+          f"|loss gap| {loss_gap}; hist_mode=scatter on the card: {folds} K2 launches, "
+          f"the matmul mode's trees bit for bit", flush=True)
+
+    steps = EPOCHS * BATCHES
+    server = JobServer(1, device_pool=DevicePool([torch.device("cuda")]))
+    server.start()
+    try:
+        reset_counts(*wrappers)
+        t0 = time.perf_counter()
+        (card,) = server.submit(gbt_job(EPOCHS)).result(timeout=900)["workers"].values()
+        seconds = time.perf_counter() - t0
+        launches = {w.__name__: w.launches for w in wrappers}
+    finally:
+        server.shutdown()
+    losses = card["batch_losses"]
+    check(len(losses) == steps and all(math.isfinite(v) for v in losses),
+          f"bench-gbt: step losses {losses}")
+    check(card["losses"][-1] < card["losses"][0] and losses[-1] < losses[0],
+          f"bench-gbt: the loss is not falling: {losses}")
+    expected = {name: 0 for name in launches}
+    expected["weighted_histogram"] = steps * GBT_FOLDS_PER_STEP
+    check(launches == expected, f"bench-gbt launches {launches}, expected {expected}")
+    # the second run, each step held to the CPU on the card's own inputs:
+    # every K3 call to its plain version (bits), the gradients to the CPU's
+    # at the same margins (GBT_GRAD_ATOL), the tree grown from the card's
+    # gradients to the CPU's from the same (structure exact, leaf values and
+    # predictions within GBT_LEAF_ATOL)
+    levels, grads, grown = [], [], []
+    real_hist = gbt_app.weighted_histogram
+
+    def hist_held(ids, w, rows):
+        out = real_hist(ids, w, rows)
+        want = weighted_histogram_plain(ids.cpu(), w.cpu(), rows)
+        levels.append((ids.shape[0], rows, same_bits(out.cpu(), want)))
+        return out
+
+    def grad_hess_held(m, y):
+        out = real_grad_hess(m, y)
+        want = real_grad_hess(m.cpu(), y.cpu())
+        grads.append([float((a.cpu() - b).abs().max()) for a, b in zip(out, want)])
+        return out
+
+    def grow_held(bins, g, h):
+        out = real_grow(bins, g, h)
+        want = real_grow(bins.cpu(), g.cpu(), h.cpu())
+        grown.append((all(torch.equal(a.cpu(), b) for a, b in zip(out[:3], want[:3])),
+                      max(float((a.cpu() - b).abs().max()) for a, b in zip(out[3:], want[3:]))))
+        return out
+
+    gbt_app.weighted_histogram = hist_held
+    entity, worker = job_worker(gbt_job(EPOCHS), "cuda")
+    trainer = worker.trainer
+    real_grad_hess, real_grow = trainer._grad_hess, trainer._grow_tree
+    trainer._grad_hess, trainer._grow_tree = grad_hess_held, grow_held
+    try:
+        again = worker.run()
+        trees = worker.ctx.model_table.pull_array().cpu()
+    finally:
+        gbt_app.weighted_histogram = real_hist
+        entity.cleanup()
+    check(again["batch_losses"] == losses,
+          f"bench-gbt: a second run differs: {again['batch_losses']} and {losses}")
+    shapes = sorted({(n, r) for n, r, _ in levels})
+    check(len(levels) == steps * GBT_FOLDS_PER_STEP and all(ok for _, _, ok in levels),
+          f"bench-gbt: K3 against the CPU's plain version, (ids, rows, same bits): "
+          f"{sorted(set(levels))}")
+    grad_gap = [max(col) for col in zip(*grads)]   # gradients, hessians, loss
+    check(len(grads) == steps and max(grad_gap[:2]) <= GBT_GRAD_ATOL
+          and grad_gap[2] <= LOSS_ATOL,
+          f"bench-gbt: |gradient, hessian, loss gap| against the CPU's at the same "
+          f"margins, each step: {grads}")
+    grow_gap = max(gap for _, gap in grown)
+    check(len(grown) == steps and all(same for same, _ in grown) and grow_gap <= GBT_LEAF_ATOL,
+          f"bench-gbt: trees against the CPU's from the same gradients: {grown}")
+    # the same job run through on the CPU, for the record: its gradients
+    # round apart from the card's in a last bit from round 1 on, and an
+    # exact tie between splits can then go either way
+    entity, worker = job_worker(gbt_job(EPOCHS), "cpu")
+    try:
+        cpu = worker.run()
+        cpu_trees = worker.ctx.model_table.pull_array()
+    finally:
+        entity.cleanup()
+    apart = [r for r in range(trees.shape[0])
+             if not torch.equal(trees[r, :3 * GBT_N_NODES], cpu_trees[r, :3 * GBT_N_NODES])]
+    free_run = {"rounds_apart_in_structure": apart,
+                "max_abs_loss_gap": max(abs(a - b) for a, b in zip(losses, cpu["batch_losses"])),
+                "cpu_epoch_seconds": cpu["epoch_seconds"]}
+    leaves = (trees[:, 2 * GBT_N_NODES:3 * GBT_N_NODES] > 0.5).sum(dim=1).tolist()
+    epoch_s = card["epoch_seconds"][-1]
+    out = {"steps": steps, "losses": card["losses"], "batch_losses": losses,
+           "launches": launches, "windows": card["windows"],
+           "epoch_seconds": card["epoch_seconds"], "run_seconds": seconds,
+           "samples_per_sec": GBT_DATA["n"] / epoch_s, "rounds_per_sec": BATCHES / epoch_s,
+           "leaves_per_tree": leaves, "preset_leaf_gap_card_vs_cpu": leaf_gap,
+           "preset_bit_identical_card_vs_cpu": same_bits(tc, tp),
+           "k3_calls_held_to_cpu": len(levels), "k3_shapes_ids_rows": shapes,
+           "trees_held_to_cpu": len(grown), "max_leaf_or_pred_gap_held": grow_gap,
+           "max_grad_hess_loss_gap_held": grad_gap,
+           "cpu_free_run": free_run}
+    print(f"phase 3k: bench-gbt through the JobServer: losses {card['losses']}, launches "
+          f"{launches} (K3 {GBT_FOLDS_PER_STEP} a step, {steps} steps), "
+          f"{out['samples_per_sec']:.1f} samples/s, {out['rounds_per_sec']:.2f} rounds/s; "
+          f"a second run bit-identical, its {len(levels)} K3 calls ({len(shapes)} shapes) "
+          f"the CPU's bits, its {len(grown)} trees the CPU's from the same gradients "
+          f"(max |leaf or prediction gap| {grow_gap}); the CPU's own run: "
+          f"{json.dumps(free_run)}", flush=True)
+    return out
+
+
+def graph_entity_run(config, device):
+    """A Pregel job's result through the JobServer's set-up (build_entity) on
+    ``device``, its tables dropped afterwards."""
+    from harmony_tpu_torch.jobserver.entity import build_entity
+    from harmony_tpu_torch.parallel.mesh import DevicePool
+    from harmony_tpu_torch.runtime.master import ETMaster
+
+    master = ETMaster(DevicePool([torch.device(device)]))
+    entity = build_entity(config)
+    try:
+        entity.setup(master, [e.id for e in master.add_executors(1)])
+        return entity.run()
+    finally:
+        entity.cleanup()
+
+
+def same_vertex_values(app: str, a: np.ndarray, b: np.ndarray) -> bool:
+    """Exact for distances and labels, PR_RTOL for ranks."""
+    if app == "pagerank":
+        return bool(np.allclose(a, b, rtol=PR_RTOL, atol=0))
+    return bool(np.array_equal(a, b))
+
+
+def run_pregel(graph):
+    """Phase 3l. The three graph presets on the card and on the CPU (the
+    JobServer's set-up): the same supersteps, distances and labels exactly,
+    ranks within PR_RTOL. Then bench-pagerank, shortest path and connected
+    components at full width through the JobServer, the launch counts read
+    around each (K1 once a superstep; K2 once a superstep for PageRank's add
+    fold); the rank mass; a second run of each bit-identical (PageRank's on
+    ``graph``, built for phase 2e); then each on the CPU: the same
+    supersteps, distances and labels exactly, ranks within PR_RTOL."""
+    from harmony_tpu_torch.apps.pagerank import PageRankComputation
+    from harmony_tpu_torch.jobserver.server import JobServer
+    from harmony_tpu_torch.parallel.mesh import DevicePool
+    from harmony_tpu_torch.pregel import PregelMaster
+
+    apps = ("pagerank", "shortest-path", "connected-components")
+    out = {"presets": {}, "full": {}}
+    card_values = {}
+    for app in apps:
+        card = graph_entity_run(preset_config(app), "cuda")
+        cpu = graph_entity_run(preset_config(app), "cpu")
+        check(card["supersteps"] == cpu["supersteps"]
+              and same_vertex_values(app, card["vertex_values"], cpu["vertex_values"]),
+              f"{app} preset: card and CPU differ")
+        out["presets"][app] = {
+            "supersteps": card["supersteps"],
+            "bit_identical": bool(np.array_equal(card["vertex_values"], cpu["vertex_values"]))}
+    print(f"phase 3l: the graph presets on the card and the CPU agree: "
+          f"{json.dumps(out['presets'])}", flush=True)
+
+    wrappers = all_wrappers()
+    server = JobServer(1, device_pool=DevicePool([torch.device("cuda")]))
+    server.start()
+    try:
+        for app in apps:
+            reset_counts(*wrappers)
+            t0 = time.perf_counter()
+            res = server.submit(graph_job(app, PR_VERTICES)).result(timeout=900)
+            seconds = time.perf_counter() - t0
+            launches = {w.__name__: w.launches for w in wrappers}
+            s = res["supersteps"]
+            expected = {name: 0 for name in launches}
+            expected["gather_rows"] = s
+            expected["segment_sum_rows"] = s if app == "pagerank" else 0
+            check(launches == expected, f"bench-{app} launches {launches}, expected {expected}")
+            values = res["vertex_values"][:, 0]
+            check(bool(np.isfinite(values).all()), f"bench-{app}: non-finite values")
+            edges = graph.num_edges * (2 if app == "connected-components" else 1)
+            entry = {"supersteps": s, "launches": launches, "wall_sec": res["wall_sec"],
+                     "run_seconds": seconds, "edges": edges,
+                     "edges_per_sec_per_superstep": edges * s / res["wall_sec"]}
+            if app == "pagerank":
+                check(s == PR_ITERATIONS + 1, f"bench-pagerank: {s} supersteps")
+                dangling = float(values[graph.out_degree == 0].astype(np.float64).sum())
+                mass = float(values.astype(np.float64).sum())
+                check(abs(mass - (1.0 - dangling)) <= RANK_MASS_ATOL,
+                      f"bench-pagerank: rank mass {mass}, dangling {dangling}")
+                master = PregelMaster(graph, PageRankComputation(graph, PR_ITERATIONS), "cuda")
+                try:
+                    again = master.run()
+                finally:
+                    master.close()
+                check(np.array_equal(again["vertex_values"][:, 0], values),
+                      "bench-pagerank: a second run differs")
+                entry.update(rank_mass=mass, dangling_mass=dangling)
+            else:
+                if app == "shortest-path":
+                    check(values[0] == 0.0 and bool((values >= 0).all()),
+                          "bench-shortest-path: bad distances")
+                    entry["reached"] = int((values < 1e9).sum())
+                else:
+                    check(bool((values <= np.arange(len(values))).all()),
+                          "bench-connected-components: a label above its vertex id")
+                    entry["components"] = int(np.unique(values).size)
+                again = graph_entity_run(graph_job(app, PR_VERTICES), "cuda")
+                check(np.array_equal(again["vertex_values"][:, 0], values),
+                      f"bench-{app}: a second run differs")
+            out["full"][app] = entry
+            card_values[app] = res
+            print(f"phase 3l: bench-{app} through the JobServer: {json.dumps(entry)}",
+                  flush=True)
+    finally:
+        server.shutdown()
+
+    for app in apps:
+        card, cpu = card_values[app], graph_entity_run(graph_job(app, PR_VERTICES), "cpu")
+        check(card["supersteps"] == cpu["supersteps"]
+              and same_vertex_values(app, card["vertex_values"], cpu["vertex_values"]),
+              f"bench-{app}: card and CPU differ")
+        out["full"][app].update(
+            max_abs_gap_card_vs_cpu=float(
+                np.abs(card["vertex_values"] - cpu["vertex_values"]).max()),
+            bit_identical_card_vs_cpu=bool(
+                np.array_equal(card["vertex_values"], cpu["vertex_values"])),
+            cpu_wall_sec=cpu["wall_sec"])
+    agreement = {app: {k: v for k, v in e.items() if "cpu" in k}
+                 for app, e in out["full"].items()}
+    print(f"phase 3l: at full width the card agrees with the CPU: {json.dumps(agreement)}",
+          flush=True)
+    return out
+
+
+def run_linear_apps():
+    """Phase 3m: the lasso, addvector and addinteger presets on the card and on
+    the CPU (the JobServer's set-up): Lasso's losses within LOSS_ATOL, the
+    AddVector and AddInteger tables at expected_value exactly on both."""
+    out = {}
+    for app in ("lasso", "addvector", "addinteger"):
+        runs = {}
+        for d in ("cuda", "cpu"):
+            entity, worker = job_worker(preset_config(app), d)
+            try:
+                runs[d] = (worker.run(), worker.ctx.model_table.pull_array().cpu(),
+                           worker.trainer)
+            finally:
+                entity.cleanup()
+        (rc, tc, trainer), (rp, tp, _) = runs["cuda"], runs["cpu"]
+        gap = max(abs(a - b) for a, b in zip(rc["batch_losses"], rp["batch_losses"]))
+        check(gap <= LOSS_ATOL, f"{app}: card and CPU losses differ by {gap}")
+        entry = {"batch_losses": rc["batch_losses"], "max_abs_loss_gap": gap}
+        if app == "lasso":
+            check(rc["losses"][-1] < rc["batch_losses"][0], "lasso: the loss is not falling")
+            entry["nnz"] = int((tc.abs() > 1e-6).sum())
+            entry["max_abs_weight_gap"] = float((tc - tp).abs().max())
+        else:
+            n = preset_config(app).user["data_args"]["n"]
+            want = torch.full_like(tc, trainer.expected_value(3 * n))
+            check(torch.equal(tc, want) and torch.equal(tp, want),
+                  f"{app}: totals {tc.unique().tolist()}, {tp.unique().tolist()}, "
+                  f"expected {trainer.expected_value(3 * n)}")
+            entry["total"] = float(tc.reshape(-1)[0])
+        out[app] = entry
+    print(f"phase 3m: lasso, addvector and addinteger on the card and the CPU: "
+          f"{json.dumps(out)}", flush=True)
+    return out
+
 def top_kernels(by_name: dict, top_n: int) -> dict:
     """The ``top_n`` largest device times by kernel name cut to 90
     characters, the names that share a cut summed (template instances of one
@@ -1824,36 +2469,36 @@ def profile_trio(top_n: int = 12):
     each; the kernels that fill it. A marker read on the host clock inside
     the profile puts the device's intervals on the jobs' clock."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import record_function
 
     from harmony_tpu_torch import bench
 
     marker = "chip_smoke: host clock"
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    got = {}
+
+    def run():
         with record_function(marker):   # its end stamp, then the host clock
             pass
-        clock = time.perf_counter()
-        rate, _, jobs = bench.run_concurrent([torch.device("cuda")], TRIO_SCALE,
-                                             job_timeout=600.0, epochs=bench.EPOCHS)
-        torch.cuda.synchronize()
+        got["clock"] = time.perf_counter()
+        got["pass"] = bench.run_concurrent([torch.device("cuda")], TRIO_SCALE,
+                                           job_timeout=600.0, epochs=bench.EPOCHS)
+
+    prof, device_events = profiled(run, cpu=True)
+    clock, (rate, _, jobs) = got["clock"], got["pass"]
     htod = {}
     for e in chrome_trace(prof, "trio"):
         if e.get("ph") == "X" and e.get("name", "").startswith("Memcpy HtoD"):
             entry = htod.setdefault(e["name"], {"copies": 0, "bytes": 0})
             entry["copies"] += 1
             entry["bytes"] += int(e.get("args", {}).get("bytes", 0))
-    events = prof.events()
-    (mark_us,) = [e.time_range.end for e in events
+    (mark_us,) = [e.time_range.end for e in prof.events()
                   if e.name == marker and e.device_type == DeviceType.CPU]
     # run_concurrent's spans count from its own start, `origin` on perf_counter
     some = next(iter(jobs.values()))
     origin = some["worker"]["train_span"][0] - some["train_start_s"]
     shift = clock - origin
     intervals, copies, by_name = [], [], {}
-    for e in events:
-        if e.device_type != DeviceType.CUDA or e.name == marker:
-            continue
+    for e in device_events:
         span = ((e.time_range.start - mark_us) / 1e6 + shift,
                 (e.time_range.end - mark_us) / 1e6 + shift)
         intervals.append(span)
@@ -1892,30 +2537,32 @@ def profile_trio(top_n: int = 12):
 
 
 def profile_worker(worker, steps: int, top_n: int):
-    """Where a step's time goes, on the card: the host clock over one steady
-    epoch (after a first epoch that seeds the table and warms up), then a
-    second epoch under torch.profiler for the device's busy time and the
-    kernels that fill it. One stream, so device intervals do not overlap."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """Where a step's time goes, on the card: ``profile_run`` over the
+    worker's epochs (the first seeds the table)."""
 
-    worker.run()
-    worker.global_init = False
+    def run():
+        worker.run()
+        worker.global_init = False
+
+    return profile_run(run, steps, top_n)
+
+
+def profile_run(run, steps: int, top_n: int):
+    """Where a step's time goes, on the card: the host clock over one steady
+    ``run()`` of ``steps`` steps (after a first that warms up), then a third
+    under torch.profiler for the device's busy time and the kernels that fill
+    it. One stream, so device intervals do not overlap."""
+    run()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    worker.run()
+    run()
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3 / steps
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        worker.run()
-        torch.cuda.synchronize()
-    by_name, ops = {}, 0
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3 / steps
-            ops += 1
-    busy = sum(by_name.values())
-    check(busy > 0, "the profiler saw no device time")
+    _, events = profiled(run, cpu=True)
+    by_name = {}
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3 / steps
+    busy, ops = sum(by_name.values()), len(events)
     return {
         "step_ms": step_ms,
         "device_busy_ms_per_step": busy,
@@ -1929,6 +2576,32 @@ def profile_worker(worker, steps: int, top_n: int):
             for kernel in ("gather_rows", "keyed_fold", "flash_")},
     }
 
+
+def profile_new_paths(graph):
+    """Phase 5e: a bench-gbt step, a bench-pagerank superstep (on ``graph``)
+    and a step of the lasso preset (its sequential sweep), each as phase 5d
+    measures a step."""
+    from harmony_tpu_torch.apps.pagerank import PageRankComputation
+    from harmony_tpu_torch.pregel import PregelMaster
+
+    out = {}
+    for name, config, steps, per_step in (
+            ("bench-gbt", gbt_job(1, comm_probe_period=0), BATCHES, GBT_BATCH),
+            ("lasso", preset_config("lasso", epochs=1, comm_probe_period=0), 4, 512)):
+        entity, worker = job_worker(config, "cuda")
+        try:
+            out[name] = profile_worker(worker, steps, top_n=10)
+        finally:
+            entity.cleanup()
+        out[name]["samples_per_sec"] = per_step / out[name]["step_ms"] * 1e3
+    master = PregelMaster(graph, PageRankComputation(graph, PR_ITERATIONS), "cuda")
+    try:
+        out["bench-pagerank"] = profile_run(master.run, PR_ITERATIONS + 1, top_n=10)
+    finally:
+        master.close()
+    out["bench-pagerank"]["edges_per_sec"] = (graph.num_edges
+                                              / out["bench-pagerank"]["step_ms"] * 1e3)
+    return out
 
 def _worker(trainer, arrays, batches: int):
     from harmony_tpu_torch.config.params import TrainerParams
@@ -1959,7 +2632,7 @@ def profile_hash():
     idle share and the device operations a step."""
     out = {}
     for kind in ("fm", "lda"):
-        entity, worker = hash_worker(hash_job(kind, 1, comm_probe_period=0), "cuda")
+        entity, worker = job_worker(hash_job(kind, 1, comm_probe_period=0), "cuda")
         try:
             out[kind] = profile_worker(worker, BATCHES, top_n=8)
         finally:
@@ -2045,18 +2718,33 @@ def main() -> int:
     print("sparse lda: " + json.dumps(lda_hash), flush=True)
     host_launches, host_steps = run_host_driven_steps()
     print("host-driven steps: " + json.dumps(host_steps), flush=True)
+    graph = pagerank_graph()
+    slice_timing, slice_err = check_slice_kernels(dev, graph)
+    for name, e in slice_err.items():
+        err[name] = max(err[name], e)
+    gbt = run_gbt()
+    print("gbt: " + json.dumps(gbt), flush=True)
+    pregel = run_pregel(graph)
+    print("pregel: " + json.dumps(pregel), flush=True)
+    print("linear apps: " + json.dumps(run_linear_apps()), flush=True)
     by_path = {name: {"bench-widedeep": launches.get(name, 0),
                       "bench-lm": lm_launches[name],
                       "bench-trio": trio_launches[name],
                       "bench-fm-hash": fm_hash["launches"].get(name, 0),
                       "sparse-lda-hash": lda_hash["launches"].get(name, 0),
-                      "fused-sparse-step": host_launches.get(name, 0)}
+                      "fused-sparse-step": host_launches.get(name, 0),
+                      "bench-gbt": gbt["launches"].get(name, 0),
+                      **{f"bench-{app}": entry["launches"].get(name, 0)
+                         for app, entry in pregel["full"].items()}}
                for name in lm_launches}
     print("profile: " + json.dumps(profile_slice()), flush=True)
     print("lm profile: " + json.dumps(profile_lm()), flush=True)
     print("trio profile: " + json.dumps(profile_trio()), flush=True)
     print("hash profile: " + json.dumps(profile_hash()), flush=True)
+    print("new paths profile: " + json.dumps(profile_new_paths(graph)), flush=True)
     print("hash ops: " + json.dumps(hash_ops) + "; autotune: " + json.dumps(tune), flush=True)
+    print("profiler: markers lost by the kept profiles (lost: profiles), retakes: "
+          + json.dumps(PROFILE_LOG), flush=True)
 
     mma_source = "harmony_tpu_torch/csrc/flash_attention_mma.cu"
     sources = {
@@ -2084,6 +2772,11 @@ def main() -> int:
         }
         if name in variants:
             entry["variant"] = variants[name]
+        if name in slice_timing:
+            entry["at_gbt_and_pagerank_shapes"] = slice_timing[name]
+        if name == "gather_rows":
+            entry["at_sssp_and_cc_shapes"] = {
+                k: t for k, t in slice_timing.items() if k.startswith("gather_rows [")}
         for key in ("device_ms", "library_device_ms", "library_deterministic_ms",
                     "library_deterministic_device_ms", "host_us"):
             if key in t:

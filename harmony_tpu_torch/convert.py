@@ -9,12 +9,15 @@ rows, so :func:`table_from_numpy` carries a whole model. A JAX
 (:func:`hash_table_from_numpy`): both packages place keys in the same slots. A model whose
 parameters are a tree (the LM) carries over as that tree
 (:func:`lm_params_from_numpy`) or as the table rows it trains from
-(:func:`pytree_rows_from_numpy`), in ``ravel_pytree``'s flat order. Nothing here
-imports JAX; the caller hands over numpy arrays.
+(:func:`pytree_rows_from_numpy`), in ``ravel_pytree``'s flat order. A GBT
+ensemble carries over as its tree rows and round counter
+(:func:`gbt_tables_from_numpy`), a Pregel job's vertex state as its values in
+vertex order (:func:`pregel_vertex_state_from_numpy`). Nothing here imports
+JAX; the caller hands over numpy arrays.
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Tuple
 
 import numpy as np
 import torch
@@ -68,3 +71,32 @@ def pytree_rows_from_numpy(params: Any, row_width: int) -> np.ndarray:
     out = np.zeros((num_rows * row_width,), np.float32)
     out[: flat.shape[0]] = flat
     return out.reshape(num_rows, row_width)
+
+
+def gbt_tables_from_numpy(trainer: Any, trees: np.ndarray, rounds: int,
+                          device: DeviceLike = None) -> Tuple[DenseTable, DenseTable]:
+    """A ``GBTTrainer``'s model and local tables on ``device`` (the card unless
+    asked otherwise) holding an ensemble: ``trees`` are the model table's rows
+    in round order, ``[num_rounds, tree_vec_len]`` f32 as the JAX table's
+    ``pull_array`` reads them, and ``rounds`` the boosting-round counter (the
+    JAX local table's ``get(0)[0]``)."""
+    trees = np.asarray(trees, np.float32)
+    want = (trainer.num_rounds, trainer.tree_vec_len)
+    if trees.shape != want:
+        raise ValueError(f"tree rows {trees.shape} != {want}")
+    model = DenseTable(TableSpec(trainer.model_table_config()), device)
+    model.write_all(trees)
+    local = DenseTable(TableSpec(trainer.local_table_config()), device)
+    local.write_all(np.full((1, 1), rounds, np.float32))
+    return model, local
+
+
+def pregel_vertex_state_from_numpy(master: Any, values: np.ndarray) -> None:
+    """Install a vertex state, ``[num_vertices, state_dim]`` f32 in vertex
+    order (the JAX master's ``vertex_table.pull_array()``), into a
+    ``PregelMaster`` of this port before it runs."""
+    values = np.asarray(values, np.float32)
+    want = (master.graph.num_vertices, master.comp.state_dim)
+    if values.shape != want:
+        raise ValueError(f"vertex state {values.shape} != {want}")
+    master.vertex_table.write_all(values)

@@ -1,20 +1,33 @@
-"""DolphinJobEntity — a training job between the JobServer and the worker.
+"""Job entities — a job between the JobServer and its runtime.
 
-Counterpart of ``harmony_tpu/jobserver/entity.py``'s ``DolphinJobEntity``: the
-trainer and its data come from the serializable ``JobConfig`` (dotted-path
-symbols); the job's model table (a ``DeviceHashTable`` when its config is
-``sparse``), and its worker-local table when the trainer has one, are created
-on its executors' device under job-namespaced ids, so two jobs of one app
-never collide; the run drives one ``WorkerTasklet``; cleanup
-drops both tables. The dataset is cached under its data source
-(``_data_source_key``): a second job with the same ``data_fn`` and
+Counterpart of ``harmony_tpu/jobserver/entity.py``. :func:`build_entity` is
+the reference's app-type switch: ``"dolphin"`` jobs get a
+:class:`DolphinJobEntity`, ``"pregel"`` jobs a :class:`PregelJobEntity`, and
+any other type raises.
+
+``DolphinJobEntity``: the trainer and its data come from the serializable
+``JobConfig`` (dotted-path symbols); the job's model table (a
+``DeviceHashTable`` when its config is ``sparse``), and its worker-local table
+when the trainer has one, are created on its executors' device under
+job-namespaced ids, so two jobs of one app never collide; the run drives one
+``WorkerTasklet``; cleanup drops both tables. The dataset is cached under its
+data source (``_data_source_key``): a second job with the same ``data_fn`` and
 ``data_args`` reads the cached host arrays, and its worker the device-resident
-batches, as in the reference. Not ported yet: shared tables, checkpoint chains and
-resume, elastic recovery, multi-worker jobs (SSP barriers, turnstiles,
-TaskUnits), the optimizer loop and the pod branch.
+batches, as in the reference.
+
+``PregelJobEntity``: ``config.trainer`` names the Computation class,
+``user.graph_fn``/``user.graph_args`` build the Graph, ``user.max_supersteps``
+bounds the run; a Computation whose ``__init__`` takes ``graph`` gets it. Its
+``PregelMaster`` holds the vertex and message tables on the executors' device;
+cleanup closes it, which drops them.
+
+Not ported yet: shared tables, checkpoint chains and resume, elastic
+recovery, multi-worker jobs (SSP barriers, turnstiles, TaskUnit admission),
+the optimizer loop and the pod branch.
 """
 from __future__ import annotations
 
+import inspect
 import time
 from typing import Any, Dict, List, Optional
 
@@ -26,15 +39,13 @@ from harmony_tpu_torch.data import devcache
 from harmony_tpu_torch.dolphin.data import TrainingDataProvider
 from harmony_tpu_torch.dolphin.trainer import Trainer, TrainerContext
 from harmony_tpu_torch.dolphin.worker import WorkerTasklet
+from harmony_tpu_torch.pregel.master import PregelMaster
 from harmony_tpu_torch.runtime.master import ETMaster, Table
 from harmony_tpu_torch.table.table import DenseTable
 
 
 class DolphinJobEntity:
     def __init__(self, config: JobConfig) -> None:
-        if config.app_type != "dolphin":
-            raise ValueError(f"job {config.job_id}: app_type {config.app_type!r} "
-                             "is not ported; only 'dolphin' jobs run")
         if config.num_workers > 1:
             raise NotImplementedError(
                 f"job {config.job_id}: multi-worker jobs are not ported yet")
@@ -133,3 +144,47 @@ class DolphinJobEntity:
             if self._master is not None and table is not None:
                 self._master.drop_table(table.spec.table_id)
         self._table = self._local = None
+
+
+class PregelJobEntity:
+    """A vertex-centric BSP job (the reference's ``PregelJobEntity``)."""
+
+    def __init__(self, config: JobConfig) -> None:
+        self.config = config
+        self._pregel_master: Optional[PregelMaster] = None
+
+    def setup(self, master: ETMaster, executor_ids: List[str]) -> None:
+        cfg = self.config
+        user = cfg.user
+        if "graph_fn" not in user:
+            raise ValueError(f"job {cfg.job_id}: user.graph_fn missing")
+        graph = resolve_symbol(user["graph_fn"])(**user.get("graph_args", {}))
+        comp_cls = resolve_symbol(cfg.trainer)
+        app_params = dict(cfg.params.app_params)
+        if "graph" in inspect.signature(comp_cls.__init__).parameters:
+            app_params["graph"] = graph
+        devices = {master.executor(e).device for e in executor_ids}
+        if len(devices) != 1:
+            raise NotImplementedError(
+                f"job {cfg.job_id}: executors {list(executor_ids)} span devices "
+                f"{sorted(map(str, devices))}; a Pregel job runs on one device")
+        self._pregel_master = PregelMaster(
+            graph, comp_cls(**app_params), devices.pop(),
+            max_supersteps=int(user.get("max_supersteps", 100)), job_id=cfg.job_id)
+
+    def run(self) -> Dict[str, Any]:
+        return self._pregel_master.run()
+
+    def cleanup(self) -> None:
+        if self._pregel_master is not None:
+            self._pregel_master.close()
+        self._pregel_master = None
+
+
+def build_entity(config: JobConfig):
+    """The app-type switch (the reference's ``JobEntity.getJobEntity``)."""
+    if config.app_type == "dolphin":
+        return DolphinJobEntity(config)
+    if config.app_type == "pregel":
+        return PregelJobEntity(config)
+    raise ValueError(f"unknown app_type {config.app_type!r}")

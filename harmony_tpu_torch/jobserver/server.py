@@ -8,8 +8,10 @@ dispatch thread of its own (the entity's setup, run and cleanup), so the
 default share-all scheduler runs every submitted job at once; ``shutdown``
 stops accepting, waits for the jobs and joins their threads. Every job's
 future resolves, to its result or to the exception that ended it, and the
-scheduler hears of every finish. The pool is every visible card unless the
-caller passes another (``DevicePool([torch.device("cpu")])``).
+scheduler hears of every finish. A job's entity comes from
+``build_entity``'s app-type switch (``dolphin`` or ``pregel``). The pool is
+every visible card unless the caller passes another
+(``DevicePool([torch.device("cpu")])``).
 
 Not ported yet: the TCP control plane, HA, the policy engine, overload
 control, history and doctor, metrics scraping and the serving plane
@@ -23,7 +25,7 @@ from concurrent.futures import Future
 from typing import Any, Dict, List, Optional, Union
 
 from harmony_tpu_torch.config.params import JobConfig
-from harmony_tpu_torch.jobserver.entity import DolphinJobEntity
+from harmony_tpu_torch.jobserver.entity import build_entity
 from harmony_tpu_torch.jobserver.scheduler import (
     JobScheduler,
     ShareAllScheduler,
@@ -93,7 +95,7 @@ class JobServer:
     def _dispatch(self, config: JobConfig, executor_ids: List[str]) -> None:
         future = self._jobs[config.job_id]
         try:
-            entity = DolphinJobEntity(config)
+            entity = build_entity(config)
             try:
                 entity.setup(self.master, executor_ids)
                 result = entity.run()

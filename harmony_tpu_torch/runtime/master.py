@@ -63,6 +63,10 @@ class ETMaster:
                 raise RuntimeError(f"cannot allocate {num} executors: {e}") from None
         return out
 
+    def executor(self, executor_id: str) -> Executor:
+        with self._lock:
+            return self._executors[executor_id]
+
     def executor_ids(self) -> List[str]:
         with self._lock:
             return list(self._executors)

@@ -21,6 +21,7 @@ hand-written kernels; on the CPU their plain versions.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 from typing import Callable, Optional, Sequence, Tuple
 
@@ -284,18 +285,36 @@ class DenseTable:
 
     def apply_step_with(self, local: "DenseTable", step_fn: Callable, *extra):
         """Run ``step_fn(arr, local_arr, *extra) -> ((new_arr, new_local), aux)``
-        and commit both results; each table's commit runs under its own lock.
-        Returns ``aux``.
+        and commit both results, under both locks. Returns ``aux``.
 
         Lock order: this (the job's model) table's lock, then ``local``'s. Every
         path that holds both takes them in that order and every host accessor
         takes one, so no two threads (two jobs, or a job and a reader) can each
         hold one of the pair and wait for the other."""
-        with self._lock, local._lock:
-            (new_arr, new_local), aux = step_fn(self._arr, local._arr, *extra)
-            self.commit(new_arr)
-            local.commit(new_local)
+        return DenseTable.apply_step_multi([self, local], step_fn, *extra)
+
+    @staticmethod
+    def apply_step_multi(tables: Sequence["DenseTable"], step_fn: Callable, *extra):
+        """Run ``step_fn(arr0, arr1, ..., *extra) -> ((new0, new1, ...), aux)``
+        over several tables and commit each table's result, all under their
+        locks. Returns ``aux``.
+
+        The locks are taken in the order given. A caller whose tables another
+        thread also steps together passes them in one fixed order, as
+        :meth:`apply_step_with` does; the Pregel master's tables are its own."""
+        with contextlib.ExitStack() as stack:
+            for t in tables:
+                stack.enter_context(t._lock)
+            new_arrs, aux = step_fn(*(t._step_state for t in tables), *extra)
+            for t, new in zip(tables, new_arrs):
+                t.commit(new)
         return aux
+
+    def drop(self) -> None:
+        """Release the storage (the reference's ``AllocatedTable.drop``); the
+        table holds none afterwards (``array`` is None)."""
+        with self._lock:
+            self._arr = None
 
     def _to_device(self, x, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         if not isinstance(x, torch.Tensor):

@@ -221,7 +221,7 @@ def test_a_job_holds_its_model_and_local_table_while_it_runs():
 
 @pytest.mark.parametrize("broken,error", [
     ({"user": {}}, "data_fn"),                      # fails in setup
-    ({"app_type": "pregel"}, "app_type"),          # fails building the entity
+    ({"app_type": "bogus"}, "app_type"),           # fails building the entity
 ])
 def test_a_failing_job_resolves_its_future_and_the_queue_moves_on(broken, error):
     server = _server("fifo")
