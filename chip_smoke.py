@@ -31,13 +31,16 @@ Phases, in order; any failure ends the script with a non-zero exit code:
    plain versions at the LM's shape ([32, 8, 1024, 64] bf16, causal, blocks
    128) and at edge cases (f32 operands, not causal, D = 16 and 128, one
    block, a nonzero LSE cotangent, block_k 64 with D = 32, Sq != Sk, block_k
-   32 with D = 16, block_k 16, and the bf16 tiles the tensor cores do not
-   take: 100 keys and 256); in each case all three must take the route its
+   32 with D = 16, block_k 16, the bf16 tiles the tensor cores do not
+   take: 100 keys and 256, and bench-vit's attention, [128, 12, 197, 64]
+   bf16 and [8, 12, 197, 64] f32, not causal, blocks 197: a partial last q
+   tile and key chunk); in each case all three must take the route its
    table row names (``mma``, the tensor cores, for bf16 at block_k 16, 32, 64
    or 128; ``simt`` for f32 and the other bf16 tiles), and each run twice must
    agree bit for bit. Timed (call ms by CUDA events, device ms by
    torch.profiler) beside their plain versions, their first (scalar) versions
-   and ``scaled_dot_product_attention``'s forward and backward.
+   and ``scaled_dot_product_attention``'s forward and backward, at the LM's
+   shape and at bench-vit's (on ``simt``).
 2c. The hash table (``table/hashtable.py``): its ops on the card against the
    port's CPU route on the same inputs, byte for byte (slot keys, values,
    returned values, overflow counts): same-slot races, overflow, an exhausted
@@ -64,6 +67,26 @@ Phases, in order; any failure ends the script with a non-zero exit code:
    ``--set attn=blockwise``, step for step.
 3c. The ``lm`` preset as shipped (f32, head dim 16, 64 tokens) on the card, on
    the ``simt`` route, and on the CPU, step for step.
+3n. ViT: the ``vit`` preset (f32) on the card against the CPU, step for
+   step; ``bench-vit``, ViT-B/16 (12 layers, d_model 768, 12 heads, MLP
+   3,072, 224 x 224 x 3 images in 16 x 16 patches, 1,000 classes, bf16) on
+   1,024 synthetic images in 8 mini-batches for 2 epochs through ``cli run
+   vit``, launch counts read around it (K4, K5a and K5b 12 times a step, all
+   on ``simt``), the loss finite and falling, then with ``attn=blockwise``
+   step for step; samples/s.
+3o. The MoE LM: the ``lm`` preset with 4 experts every 2nd block (f32) on
+   the card against the CPU; ``bench-lm-moe``, phase 3b's run with 8
+   experts in blocks 1, 3, 5 and 7 (capacity factor 1.5, aux weight 0.01),
+   launch counts read around it (K4, K5a and K5b on ``mma``), a second run
+   bit for bit with each block's dropped share and aux loss recorded, and
+   the run with blockwise attention; tokens/s.
+3p. Generation: bench-lm trained as phase 3b trains it (the same losses,
+   bit for bit), then ``make_generate_fn`` from its weights, batch 32, a
+   512-token prompt, 512 new tokens: greedy twice and at temperature 1.0
+   twice with one key give the same tokens; prefill ms, decode ms a token,
+   tokens/s. The model's f32 copy (blockwise attention): every decode step's
+   logits within GEN_F32_REL of the full forward's at that position, and the
+   greedy tokens the full forward's argmax except at near-ties (counted).
 3d. The BASELINE config-4 trio through ``harmony_tpu_torch.bench``'s
    ``run_concurrent``: MLR, NMF and LDA submitted together to one JobServer on
    the card at ``bench.py``'s full size, a 1-epoch warm-up, then 12 measured
@@ -151,14 +174,18 @@ Phases, in order; any failure ends the script with a non-zero exit code:
    device's operations (kernels, copies, fills) a step.
 5e. The same for a bench-gbt step, a bench-pagerank superstep and a step of
    the lasso preset.
+5f. The same for a bench-vit step, a bench-lm-moe step and one decode step
+   of bench-generate.
 6. A ``kernels`` JSON line: ``launches`` sums each kernel's launches over
    the main paths, each read with the counts set to 0 just before it
-   (``launches_by_path``: bench-widedeep, bench-lm, bench-trio,
+   (``launches_by_path``: bench-widedeep, bench-lm, bench-vit, bench-lm-moe,
+   bench-generate, bench-trio,
    bench-fm-hash, sparse-lda-hash, fused-sparse-step, bench-gbt,
    bench-pagerank, bench-shortest-path, bench-connected-components); K1-K3
    also carry ``device_ms``, ``library_device_ms``,
    ``library_deterministic_device_ms``, ``host_us`` and their timing at
-   phase 2e's shapes; the card's name and power limit, and the last line
+   phase 2e's shapes, K4-K5b their timing at bench-vit's shape; the card's
+   name and power limit, and the last line
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -235,6 +262,39 @@ LM_ARGS = [
 LM_LAYERS = 8
 LM_STEPS = 8
 LM_TOKENS_PER_STEP = 32 * 1024
+# bench-vit: ViT-B/16 (Dosovitskiy et al. 2021, Table 1: 12 layers, d_model
+# 768, 12 heads, MLP 3,072, patch 16, 224 x 224 x 3, 1,000 classes) in bf16
+# through the CLI's vit preset; synthetic class templates at ImageNet's shape
+# (ImageNet is not in the repo), 1,024 images in 8 mini-batches of 128, cut to
+# 2 epochs. 197 tokens a sequence: K4/K5a/K5b non-causal on the simt route.
+VIT_ARGS = [
+    "run", "vit", "--epochs", "2", "--batches", "8",
+    "--set", "image_size=224", "--set", "patch_size=16", "--set", "num_classes=1000",
+    "--set", "channels=3", "--set", "d_model=768", "--set", "n_heads=12",
+    "--set", "n_layers=12", "--set", "d_ff=3072", "--set", "dtype=bfloat16",
+    "--set", "step_size=0.05", "--data", "n=1024",
+]
+VIT_LAYERS = 12
+VIT_STEPS = 16
+VIT_BATCH = 128
+# bench-lm-moe: bench-lm with the expert-parallel section's MoE of
+# benchmarks/lm.py:272-277 at the repo's four-device layout (moe_experts = 2n =
+# 8, moe_every 2), every expert local on one card; capacity factor 1.5 (C =
+# 6,144 of 32,768 tokens), aux weight 0.01. Blocks 1, 3, 5 and 7 are MoE.
+MOE_ARGS = LM_ARGS + ["--set", "moe_experts=8", "--set", "moe_every=2",
+                      "--set", "moe_capacity_factor=1.5", "--set", "moe_aux_weight=0.01"]
+MOE_BLOCKS = 4
+# bench-generate: bench-lm's model (bf16) as phase 3b trains it, batch 32, a
+# 512-token prompt from make_lm_data, 512 new tokens, greedy and at temperature
+# 1.0; the cache 2 x [8, 32, 8, 1024, 64] bf16.
+GEN_BATCH = 32
+GEN_PROMPT = 512
+GEN_NEW = 512
+# The f32 copy of the model: each decode step's logits against the full
+# forward's at that position. Both are f32 sums of the same products in
+# another order (the cache's masked softmax against blockwise attention), over
+# 8 layers of d 512: 1e-4 of the largest logit (or of 1), ~800 f32 ulps.
+GEN_F32_REL = 1e-4
 # Flash kernels against their plain versions. bf16 operands: both sides take
 # exact products and round p where the TPU does, so their f32 sums differ in
 # order only; the outputs are then rounded to bf16, where that difference can
@@ -676,7 +736,14 @@ FLASH_CASES = [
      False, "simt"),
     ("the default block_k=256, bf16", (2, 8, 1024, 64), 1024, torch.bfloat16, True, 256,
      False, "simt"),
+    # bench-vit's attention: ViT-B/16's 197 tokens, the default blocks clamped to 197
+    # (a partial last q tile and key chunk, 84.7 KB of shared memory for K4)
+    ("bench-vit's shape, bf16, not causal", (128, 12, 197, 64), 197, torch.bfloat16, False,
+     197, False, "simt"),
+    ("bench-vit's tiles at f32", (8, 12, 197, 64), 197, torch.float32, False, 197, False,
+     "simt"),
 ]
+VIT_FLASH_CASE = FLASH_CASES[-2]
 
 
 def flash_operands(dev, shape, dtype, seed, g_lse=False, sk=None):
@@ -785,18 +852,21 @@ def check_flash_kernels(dev):
     return err
 
 
-def time_flash_kernels(dev):
+def time_flash_kernels(dev, case=FLASH_CASES[0]):
     """ms of each flash kernel, its plain version and the SDPA yardstick at the
-    LM's shape, and the bound: the larger of the bytes over HBM bandwidth and
-    the matrix products' operations over the bf16 tensor-core peak, counting
-    only the (row, col) pairs the causal mask keeps."""
+    shape of ``case`` (the LM's, unless another is given), and the bound: the
+    larger of the bytes over HBM bandwidth and the matrix products' operations
+    over the bf16 tensor-core peak, counting only the (row, col) pairs the
+    causal mask keeps. On the ``mma`` route also the first (scalar) kernels on
+    the same operands; on ``simt`` they are the kernels timed."""
     import torch.nn.functional as F
 
     from harmony_tpu_torch.ops import attention as A
     from harmony_tpu_torch.ops import cuda_lib
 
-    _, shape, _, dtype, causal, block, _, _ = FLASH_CASES[0]
+    _, shape, sk, dtype, causal, block, _, route = case
     B, H, S, D = shape
+    check(sk == S, "the timed flash cases have Sq == Sk")
     q, k, v, do, glse, scale = flash_operands(dev, shape, dtype, 3)
     args = (causal, block, block, scale)
     out, lse = A.flash_forward(q, k, v, *args)
@@ -820,7 +890,7 @@ def time_flash_kernels(dev):
                         v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                         dq1.data_ptr(), 1, B * H, S, S, D, float(scale), int(causal), stream)
     bh, e = B * H, q.element_size()
-    pairs = bh * S * (S + 1) // 2
+    pairs = bh * S * (S + 1) // 2 if causal else bh * S * S
     io = bh * S * D * e      # one of q, k, v, dO, O, dQ, dK, dV
     rows = bh * S * 4        # one of lse, delta
 
@@ -831,12 +901,12 @@ def time_flash_kernels(dev):
 
     def sdpa_forward():
         with torch.no_grad():
-            F.scaled_dot_product_attention(q, k, v, is_causal=True)
+            F.scaled_dot_product_attention(q, k, v, is_causal=causal)
 
     qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
 
     def sdpa_forward_backward():
-        F.scaled_dot_product_attention(qg, kg, vg, is_causal=True).backward(do)
+        F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal).backward(do)
 
     t = dict(samples=10, inner=3)
     sdpa_fwd = time_ms(sdpa_forward, **t)
@@ -851,7 +921,7 @@ def time_flash_kernels(dev):
     out["flash_forward"] = dict(
         ms=time_ms(kernel, **t), device_ms=device_ms(kernel, calls=20),
         plain_ms=time_ms(lambda: A.flash_forward_plain(q, k, v, *args), **t),
-        first_version_ms=time_ms(first_forward, **t),
+        **({"first_version_ms": time_ms(first_forward, **t)} if route == "mma" else {}),
         library_ms=sdpa_fwd, library_device_ms=sdpa_fwd_dev, bound_ms=b, bound_by=by)
     b, by = bound(6 * io + 2 * rows, 8 * D * pairs)
     kernel = lambda: A.flash_backward_dkv(q, k, v, do, lse, delta, *args)  # noqa: E731
@@ -859,7 +929,7 @@ def time_flash_kernels(dev):
         ms=time_ms(kernel, **t), device_ms=device_ms(kernel, calls=20),
         plain_ms=time_ms(lambda: A.flash_backward_dkv_plain(q, k, v, do, lse, delta, *args),
                          **t),
-        first_version_ms=time_ms(first_dkv, **t),
+        **({"first_version_ms": time_ms(first_dkv, **t)} if route == "mma" else {}),
         library_ms=sdpa_bwd, library_device_ms=sdpa_bwd_dev, bound_ms=b, bound_by=by)
     b, by = bound(5 * io + 2 * rows, 6 * D * pairs)
     kernel = lambda: A.flash_backward_dq(q, k, v, do, lse, delta, *args)  # noqa: E731
@@ -867,7 +937,7 @@ def time_flash_kernels(dev):
         ms=time_ms(kernel, **t), device_ms=device_ms(kernel, calls=20),
         plain_ms=time_ms(lambda: A.flash_backward_dq_plain(q, k, v, do, lse, delta, *args),
                          **t),
-        first_version_ms=time_ms(first_dq, **t),
+        **({"first_version_ms": time_ms(first_dq, **t)} if route == "mma" else {}),
         library_ms=sdpa_bwd, library_device_ms=sdpa_bwd_dev, bound_ms=b, bound_by=by)
     return out
 
@@ -1003,43 +1073,70 @@ def run_unfused_slice(fused, fused_sparse):
     return out
 
 
+def path_launches(run):
+    """``run()`` with every kernel's launch count set to 0 just before it; returns
+    its result, the counts just after, and the flash kernels' counts by route."""
+    from harmony_tpu_torch.ops import attention as A
+
+    wrappers = all_wrappers()
+    reset_counts(*wrappers)
+    out = run()
+    launches = {w.__name__: w.launches for w in wrappers}
+    routes = {w.__name__: dict(w.launches_by_route)
+              for w in (A.flash_forward, A.flash_backward_dkv, A.flash_backward_dq)}
+    return out, launches, routes
+
+
+def card_against_cpu(argv, phase):
+    """A small f32 preset on the card and on the CPU, step for step, within
+    LOSS_ATOL; returns the largest gap and the card run's flash launches."""
+    card, launches, routes = path_launches(lambda: run_cli(argv))
+    cpu, cpu_launches, _ = path_launches(lambda: run_cli(argv + ["--device", "cpu"]))
+    check(not any(cpu_launches.values()), f"phase {phase}: a kernel launched on the CPU run")
+    gap = max(abs(a - b) for a, b in zip(card["batch_losses"], cpu["batch_losses"]))
+    check(all(math.isfinite(v) for v in card["batch_losses"]) and gap <= LOSS_ATOL,
+          f"phase {phase}: {argv[1]} card and CPU step losses differ by {gap} > {LOSS_ATOL}")
+    check(all(launches[k] > 0 and routes[k]["mma"] == 0 for k in FLASH_KERNELS),
+          f"phase {phase}: the f32 preset's flash launches {routes}, expected all on simt")
+    return gap, launches
+
+
+def flash_against_blockwise(argv, losses, phase):
+    """The same run with attn=blockwise (no kernel launches), step for step within
+    LM_BF16_REL of the loss; returns the blockwise result and the largest gap."""
+    blockwise, launches, _ = path_launches(lambda: run_cli(argv + ["--set", "attn=blockwise"]))
+    check(not any(launches.values()), f"phase {phase}: a kernel launched on the blockwise run")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, blockwise["batch_losses"]))
+    check(rel <= LM_BF16_REL,
+          f"phase {phase}: flash and blockwise losses differ by {rel} (relative) > {LM_BF16_REL}")
+    return blockwise, rel
+
+
+def finite_and_falling(losses, steps, what):
+    half = steps // 2
+    check(len(losses) == steps, f"{what}: {len(losses)} step losses, expected {steps}")
+    check(all(math.isfinite(v) for v in losses), f"{what}: non-finite loss {losses}")
+    check(sum(losses[half:]) < sum(losses[:half]), f"{what}: the loss is not falling {losses}")
+
+
 def run_lm():
     """Phase 3b: the full-width LM through the CLI with flash attention, launch
     counts read around it, then the same run with blockwise attention."""
-    from harmony_tpu_torch.ops import attention as A
-    from harmony_tpu_torch.ops.histogram import weighted_histogram
-    from harmony_tpu_torch.ops.sparse import gather_rows, segment_sum_rows
-
-    wrappers = (gather_rows, segment_sum_rows, weighted_histogram,
-                A.flash_forward, A.flash_backward_dkv, A.flash_backward_dq)
-    reset_counts(*wrappers)
-    gpu = run_cli(LM_ARGS)
-    launches = {w.__name__: w.launches for w in wrappers}
+    gpu, launches, routes = path_launches(lambda: run_cli(LM_ARGS))
     losses = gpu["batch_losses"]
-    half = LM_STEPS // 2
-    check(len(losses) == LM_STEPS, f"{len(losses)} step losses, expected {LM_STEPS}")
-    check(all(math.isfinite(v) for v in losses), f"non-finite LM loss: {losses}")
-    check(sum(losses[half:]) < sum(losses[:half]), f"LM loss is not falling: {losses}")
+    finite_and_falling(losses, LM_STEPS, "LM")
     per_path = LM_STEPS * LM_LAYERS
     expected = {"gather_rows": 0, "segment_sum_rows": 0, "weighted_histogram": 0,
-                "flash_forward": per_path, "flash_backward_dkv": per_path,
-                "flash_backward_dq": per_path}
+                **dict.fromkeys(FLASH_KERNELS, per_path)}
     check(launches == expected, f"LM launches {launches}, expected {expected}")
-    routes = {w.__name__: dict(w.launches_by_route)
-              for w in (A.flash_forward, A.flash_backward_dkv, A.flash_backward_dq)}
     check(all(r == {"mma": per_path, "simt": 0} for r in routes.values()),
           f"LM launches by route {routes}, expected all {per_path} on mma")
     print(f"phase 3b: LM losses {losses}, launches {launches}, by route {routes}",
           flush=True)
-
-    reset_counts(*wrappers)
-    blockwise = run_cli(LM_ARGS + ["--set", "attn=blockwise"])
-    check(all(w.launches == 0 for w in wrappers), "a kernel launched on the blockwise run")
-    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, blockwise["batch_losses"]))
-    check(rel <= LM_BF16_REL,
-          f"flash and blockwise LM losses differ by {rel} (relative) > {LM_BF16_REL}")
+    blockwise, rel = flash_against_blockwise(LM_ARGS, losses, "3b")
     print(f"phase 3b: blockwise losses {blockwise['batch_losses']}, "
           f"max |flash - blockwise| / |blockwise| {rel}", flush=True)
+    half = LM_STEPS // 2
     steady = gpu["epoch_seconds"][-1]
     return launches, {
         "steps": LM_STEPS,
@@ -1077,6 +1174,218 @@ def run_lm_preset():
     print(f"phase 3c: lm preset card losses {card['batch_losses']}, "
           f"max |card - CPU| {gap}, launches {launches}", flush=True)
     return {"max_abs_loss_gap_card_vs_cpu": gap, "launches": launches}
+
+
+# -- phases 3n, 3o and 3p: ViT, the MoE LM and generation ------------------------
+
+def run_vit():
+    """Phase 3n: the vit preset (f32) on the card against the CPU; bench-vit
+    through the CLI with its launch counts read around it (K4, K5a and K5b 12
+    times a step on simt), then with blockwise attention, step for step."""
+    gap, preset_launches = card_against_cpu(["run", "vit"], "3n")
+    gpu, launches, routes = path_launches(lambda: run_cli(VIT_ARGS))
+    finite_and_falling(gpu["batch_losses"], VIT_STEPS, "bench-vit")
+    per_path = VIT_STEPS * VIT_LAYERS
+    expected = {"gather_rows": 0, "segment_sum_rows": 0, "weighted_histogram": 0,
+                **dict.fromkeys(FLASH_KERNELS, per_path)}
+    check(launches == expected, f"bench-vit launches {launches}, expected {expected}")
+    check(all(r == {"mma": 0, "simt": per_path} for r in routes.values()),
+          f"bench-vit launches by route {routes}, expected all {per_path} on simt")
+    print(f"phase 3n: vit preset card against CPU within {gap}; bench-vit losses "
+          f"{gpu['batch_losses']}, launches {launches}, by route {routes}", flush=True)
+    blockwise, rel = flash_against_blockwise(VIT_ARGS, gpu["batch_losses"], "3n")
+    steady = gpu["epoch_seconds"][-1]
+    per_epoch = VIT_STEPS // 2 * VIT_BATCH
+    out = {
+        "preset_max_abs_loss_gap_card_vs_cpu": gap, "preset_launches": preset_launches,
+        "losses": gpu["batch_losses"], "epoch_seconds": gpu["epoch_seconds"],
+        "samples_per_sec": per_epoch / steady, "step_ms": steady * 1e3 / (VIT_STEPS // 2),
+        "blockwise_epoch_seconds": blockwise["epoch_seconds"],
+        "blockwise_samples_per_sec": per_epoch / blockwise["epoch_seconds"][-1],
+        "max_rel_loss_gap_flash_vs_blockwise": rel,
+    }
+    print(f"phase 3n: bench-vit {out['samples_per_sec']:.1f} samples/s (blockwise "
+          f"{out['blockwise_samples_per_sec']:.1f}), flash against blockwise within {rel}",
+          flush=True)
+    return launches, out
+
+
+def run_moe():
+    """Phase 3o: the lm preset with 4 experts (f32) on the card against the CPU;
+    bench-lm-moe through the CLI with its launch counts read around it, a second
+    run bit for bit with each MoE block's routing recorded (the share of tokens
+    dropped, the aux loss), and the run with blockwise attention."""
+    from harmony_tpu_torch.models import moe
+
+    preset = ["run", "lm", "--set", "moe_experts=4", "--set", "moe_every=2"]
+    gap, preset_launches = card_against_cpu(preset, "3o")
+    gpu, launches, routes = path_launches(lambda: run_cli(MOE_ARGS))
+    finite_and_falling(gpu["batch_losses"], LM_STEPS, "bench-lm-moe")
+    per_path = LM_STEPS * LM_LAYERS
+    expected = {"gather_rows": 0, "segment_sum_rows": 0, "weighted_histogram": 0,
+                **dict.fromkeys(FLASH_KERNELS, per_path)}
+    check(launches == expected, f"bench-lm-moe launches {launches}, expected {expected}")
+    check(all(r == {"mma": per_path, "simt": 0} for r in routes.values()),
+          f"bench-lm-moe launches by route {routes}, expected all {per_path} on mma")
+
+    route, stats = moe.route, []
+
+    def recorded(x, router, num_experts, capacity):
+        r = route(x, router, num_experts, capacity)
+        stats.append(torch.stack([(~r.keep).float().mean(), r.aux.detach()]))
+        return r
+
+    moe.route = recorded
+    try:
+        again = run_cli(MOE_ARGS)
+    finally:
+        moe.route = route
+    check(again["batch_losses"] == gpu["batch_losses"],
+          f"bench-lm-moe: two runs differ: {gpu['batch_losses']} and {again['batch_losses']}")
+    check(len(stats) == LM_STEPS * MOE_BLOCKS,
+          f"bench-lm-moe: {len(stats)} routings recorded, expected {LM_STEPS * MOE_BLOCKS}")
+    per_step = torch.stack(stats).view(LM_STEPS, MOE_BLOCKS, 2).cpu()
+    print(f"phase 3o: moe lm preset card against CPU within {gap}; bench-lm-moe losses "
+          f"{gpu['batch_losses']}, the same bits run again; launches {launches}, by route "
+          f"{routes}", flush=True)
+    blockwise, rel = flash_against_blockwise(MOE_ARGS, gpu["batch_losses"], "3o")
+    steady = gpu["epoch_seconds"][-1]
+    half = LM_STEPS // 2
+    out = {
+        "preset_max_abs_loss_gap_card_vs_cpu": gap, "preset_launches": preset_launches,
+        "losses": gpu["batch_losses"], "epoch_seconds": gpu["epoch_seconds"],
+        "tokens_per_sec": half * LM_TOKENS_PER_STEP / steady, "step_ms": steady * 1e3 / half,
+        "dropped_share_by_step_and_block": per_step[:, :, 0].tolist(),
+        "aux_by_step_and_block": per_step[:, :, 1].tolist(),
+        "blockwise_tokens_per_sec": half * LM_TOKENS_PER_STEP / blockwise["epoch_seconds"][-1],
+        "max_rel_loss_gap_flash_vs_blockwise": rel,
+    }
+    print(f"phase 3o: bench-lm-moe {out['tokens_per_sec']:.0f} tokens/s, dropped share by "
+          f"block at the first and last step {per_step[0, :, 0].tolist()} "
+          f"{per_step[-1, :, 0].tolist()}, aux {per_step[0, :, 1].tolist()} "
+          f"{per_step[-1, :, 1].tolist()}; flash against blockwise within {rel}", flush=True)
+    return launches, out
+
+
+def run_generate(lm_losses):
+    """Phase 3p: bench-lm trained as phase 3b trains it (the JobServer's set-up of
+    the same job; its losses must be phase 3b's bits), then generation from its
+    weights: greedy twice and at temperature 1.0 twice with one key, the same
+    tokens each time; prefill ms, decode ms a token, tokens/s. Then the f32 copy
+    of the model (blockwise attention): every decode step's logits against the
+    full forward's at that position, and the greedy tokens against the full
+    forward's stepwise argmax, except at near-ties. Returns the launch counts
+    around the generation, the summary, and one decode step for phase 5f."""
+    import dataclasses
+
+    from harmony_tpu_torch import cli
+    from harmony_tpu_torch.models.generate import (
+        cast_params,
+        decode_step,
+        init_kv_cache,
+        make_generate_fn,
+        prefill,
+    )
+    from harmony_tpu_torch.models.pytree_trainer import unravel
+    from harmony_tpu_torch.models.transformer import TransformerLM, make_lm_data
+    from harmony_tpu_torch.utils import prng
+
+    args = cli.build_parser().parse_args(LM_ARGS)
+    entity, worker = job_worker(cli.build_config(args.app, args), "cuda")
+    try:
+        trained = worker.run()
+        trainer = worker.trainer
+        flat = trainer._section(worker.ctx.model_table.pull_array(), 0)
+    finally:
+        entity.cleanup()
+    same = trained["batch_losses"] == lm_losses
+    check(same, f"phase 3p: the trained LM's losses {trained['batch_losses']} are not "
+                f"phase 3b's {lm_losses}")
+    params = unravel(flat, trainer._shapes)
+    model = trainer.model
+    dev = torch.device("cuda")
+    prompt = torch.as_tensor(make_lm_data(GEN_BATCH, GEN_PROMPT, 8192, seed=1), device=dev)
+    key = prng.PRNGKey(torch.tensor(1, device=dev))
+    greedy = make_generate_fn(model, GEN_PROMPT, GEN_NEW)
+    sample = make_generate_fn(model, GEN_PROMPT, GEN_NEW, temperature=1.0)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def run():
+        return [timed(lambda: greedy(params, prompt)) for _ in range(2)] + [
+            timed(lambda: sample(params, prompt, key)) for _ in range(2)]
+
+    runs, launches, _ = path_launches(run)
+    (g1, _), (g2, greedy_s), (s1, _), (s2, sample_s) = runs
+    check(torch.equal(g1, g2), "phase 3p: two greedy generations differ")
+    check(torch.equal(s1, s2), "phase 3p: two generations at temperature 1.0 with one key differ")
+    check(g1.shape == (GEN_BATCH, GEN_PROMPT + GEN_NEW) and torch.equal(g1[:, :GEN_PROMPT],
+                                                                        prompt.int()),
+          f"phase 3p: generated {tuple(g1.shape)}, the prompt not kept")
+    prefill_s = []
+    for _ in range(3):
+        cache = init_kv_cache(model.config, GEN_BATCH, dev)
+        prefill_s.append(timed(lambda: prefill(model, params, cache, prompt))[1])
+    prefill_ms = min(prefill_s) * 1e3
+    decode_ms = (greedy_s * 1e3 - prefill_ms) / GEN_NEW
+
+    # the f32 copy: each step's logits against the full forward's
+    model32 = TransformerLM(dataclasses.replace(model.config, dtype=torch.float32,
+                                                attn="blockwise"))
+    with torch.no_grad():
+        cache = init_kv_cache(model32.config, GEN_BATCH, dev)
+        logits, cache = prefill(model32, params, cache, prompt)
+        steps, toks = [logits], []
+        positions = torch.arange(GEN_PROMPT, GEN_PROMPT + GEN_NEW, device=dev)
+        for j in range(GEN_NEW):
+            toks.append(torch.argmax(logits, dim=-1))
+            logits, cache = decode_step(model32, params, cache, toks[-1], positions[j:j + 1])
+            steps.append(logits)
+        seq = torch.cat([prompt.long(), torch.stack(toks, dim=1)], dim=1)
+        full = model32.apply(params, seq)[:, GEN_PROMPT - 1:]        # [B, 513, V]
+        steps = torch.stack(steps, dim=1)
+        gen32 = make_generate_fn(model32, GEN_PROMPT, GEN_NEW)(params, prompt)
+        check(torch.equal(gen32, seq.int()),
+              "phase 3p: make_generate_fn's f32 tokens differ from its own steps")
+        tol = GEN_F32_REL * max(1.0, float(full.abs().max()))
+        gap = float((steps - full).abs().max())
+        check(math.isfinite(gap) and gap <= tol,
+              f"phase 3p: f32 decode logits differ from the full forward's by {gap} > {tol}")
+        top2 = torch.topk(full[:, :-1], 2, dim=-1).values
+        near_tie = (top2[..., 0] - top2[..., 1]) <= tol
+        differ = torch.argmax(full[:, :-1], dim=-1) != seq[:, GEN_PROMPT:]
+        check(not bool((differ & ~near_tie).any()),
+              "phase 3p: a greedy token differs from the full forward's argmax off a near-tie")
+    out = {
+        "trained_losses_bit_identical_to_phase_3b": same,
+        "prefill_ms": prefill_ms, "decode_ms_per_token": decode_ms,
+        "greedy_tokens_per_sec": GEN_BATCH * GEN_NEW / greedy_s,
+        "sampled_tokens_per_sec": GEN_BATCH * GEN_NEW / sample_s,
+        "f32_max_abs_logit_gap": gap, "f32_tolerance": tol,
+        "f32_near_ties": int(near_tie.sum()), "f32_tokens_off_argmax_at_near_ties":
+            int((differ & near_tie).sum()),
+    }
+    print(f"phase 3p: generation deterministic (greedy, temperature 1.0); f32 decode within "
+          f"{gap} of the full forward (limit {tol}), near-ties {out['f32_near_ties']}; "
+          f"{json.dumps(out)}", flush=True)
+
+    # one decode step as generate runs it: the weights cast once, position 512
+    cast = cast_params(model.config, params)
+    cache = init_kv_cache(model.config, GEN_BATCH, dev)
+    with torch.no_grad():
+        prefill(model, cast, cache, prompt)
+    tok, pos = g1[:, GEN_PROMPT], positions[:1]
+
+    def decode_once():
+        with torch.no_grad():
+            decode_step(model, cast, cache, tok, pos)
+
+    return launches, out, decode_once
 
 
 # -- phase 3d: the BASELINE config-4 trio ----------------------------------------
@@ -2652,6 +2961,34 @@ def profile_lm():
     return out
 
 
+def profile_models(decode_once):
+    """Phase 5f: a bench-vit step and a bench-lm-moe step (each on a worker
+    over the job's trainer), and one decode step of bench-generate
+    (``decode_once``, phase 3p's bf16 model at position 512 of its cache):
+    step ms, device busy ms, idle share, device operations and top kernels."""
+    from harmony_tpu_torch.models.transformer import TransformerTrainer, make_lm_data
+    from harmony_tpu_torch.models.vit import ViTTrainer, make_synthetic
+
+    vit = dict(image_size=224, patch_size=16, num_classes=1000, channels=3)
+    trainer = ViTTrainer(**vit, d_model=768, n_heads=12, n_layers=12, d_ff=3072,
+                         dtype="bfloat16", step_size=0.05, row_width=512)
+    out = {"bench-vit": profile_worker(
+        _worker(trainer, list(make_synthetic(2 * VIT_BATCH, **vit)), 2), 2, top_n=12)}
+    out["bench-vit"]["samples_per_sec"] = VIT_BATCH / out["bench-vit"]["step_ms"] * 1e3
+    trainer = TransformerTrainer(vocab_size=8192, d_model=512, n_heads=8, n_layers=8,
+                                 d_ff=2048, max_seq=1024, dtype="bfloat16", step_size=0.1,
+                                 moe_experts=8, moe_every=2, moe_capacity_factor=1.5,
+                                 moe_aux_weight=0.01)
+    worker = _worker(trainer, [make_lm_data(128, 1025, 8192)], LM_STEPS // 2)
+    out["bench-lm-moe"] = profile_worker(worker, LM_STEPS // 2, top_n=12)
+    out["bench-lm-moe"]["tokens_per_sec"] = (LM_TOKENS_PER_STEP
+                                             / out["bench-lm-moe"]["step_ms"] * 1e3)
+    out["bench-generate decode step"] = profile_run(decode_once, 1, top_n=10)
+    out["bench-generate decode step"]["tokens_per_sec"] = (
+        GEN_BATCH / out["bench-generate decode step"]["step_ms"] * 1e3)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a CUDA card")
@@ -2696,6 +3033,8 @@ def main() -> int:
     timing.update(time_flash_kernels(dev))
     print(f"phase 2b: timing {json.dumps({k: timing[k] for k in FLASH_KERNELS})}",
           flush=True)
+    vit_timing = time_flash_kernels(dev, VIT_FLASH_CASE)
+    print(f"phase 2b: timing at bench-vit's shape {json.dumps(vit_timing)}", flush=True)
 
     hash_ops = check_hash_ops(dev)
     tune = run_autotune(dev)
@@ -2705,6 +3044,12 @@ def main() -> int:
     lm_launches, lm_summary = run_lm()
     print("lm: " + json.dumps(lm_summary), flush=True)
     print("lm preset: " + json.dumps(run_lm_preset()), flush=True)
+    vit_launches, vit = run_vit()
+    print("vit: " + json.dumps(vit), flush=True)
+    moe_launches, moe = run_moe()
+    print("moe: " + json.dumps(moe), flush=True)
+    gen_launches, generation, decode_once = run_generate(lm_summary["losses"])
+    print("generate: " + json.dumps(generation), flush=True)
     trio_launches, trio = run_trio()
     print("trio: " + json.dumps(trio), flush=True)
     print("trio windows: " + json.dumps(trio_windows_without_syncs()), flush=True)
@@ -2729,6 +3074,9 @@ def main() -> int:
     print("linear apps: " + json.dumps(run_linear_apps()), flush=True)
     by_path = {name: {"bench-widedeep": launches.get(name, 0),
                       "bench-lm": lm_launches[name],
+                      "bench-vit": vit_launches[name],
+                      "bench-lm-moe": moe_launches[name],
+                      "bench-generate": gen_launches[name],
                       "bench-trio": trio_launches[name],
                       "bench-fm-hash": fm_hash["launches"].get(name, 0),
                       "sparse-lda-hash": lda_hash["launches"].get(name, 0),
@@ -2739,6 +3087,7 @@ def main() -> int:
                for name in lm_launches}
     print("profile: " + json.dumps(profile_slice()), flush=True)
     print("lm profile: " + json.dumps(profile_lm()), flush=True)
+    print("models profile: " + json.dumps(profile_models(decode_once)), flush=True)
     print("trio profile: " + json.dumps(profile_trio()), flush=True)
     print("hash profile: " + json.dumps(profile_hash()), flush=True)
     print("new paths profile: " + json.dumps(profile_new_paths(graph)), flush=True)
@@ -2774,6 +3123,8 @@ def main() -> int:
             entry["variant"] = variants[name]
         if name in slice_timing:
             entry["at_gbt_and_pagerank_shapes"] = slice_timing[name]
+        if name in vit_timing:
+            entry["at_bench_vit_shape"] = {"route": "simt", **vit_timing[name]}
         if name == "gather_rows":
             entry["at_sssp_and_cc_shapes"] = {
                 k: t for k, t in slice_timing.items() if k.startswith("gather_rows [")}

@@ -3,7 +3,8 @@
 Counterpart of ``harmony_tpu/cli.py``'s ``run`` subcommand (the standalone
 launcher: an in-process JobServer on one device, one job, exit), for the
 apps this port runs: the training apps ``mlr``, ``nmf``, ``lda``, ``lasso``,
-``gbt``, ``addvector``, ``addinteger``, ``fm``, ``widedeep`` and ``lm``, and
+``gbt``, ``addvector``, ``addinteger``, ``fm``, ``widedeep``, ``lm`` (an MoE LM
+with ``--set moe_experts=N``) and ``vit``, and
 the graph apps ``pagerank``, ``connected-components`` and ``shortest-path``.
 Presets are the reference's, with the trainer (or computation) and the data
 or graph generator resolved in this package; override them with ``--set
@@ -111,6 +112,17 @@ PRESETS: Dict[str, Dict[str, Any]] = {
         data_fn="harmony_tpu_torch.models.transformer:make_lm_data",
         data_args={"num_seqs": 64, "seq_len": 65, "vocab_size": 128},
     ),
+    "vit": dict(
+        app_type="dolphin",
+        trainer="harmony_tpu_torch.models.vit:ViTTrainer",
+        app_params={"image_size": 16, "patch_size": 4, "num_classes": 4,
+                    "channels": 3, "d_model": 64, "n_heads": 4,
+                    "n_layers": 2, "d_ff": 128, "row_width": 512,
+                    "step_size": 0.05},
+        data_fn="harmony_tpu_torch.models.vit:make_synthetic",
+        data_args={"n": 128, "image_size": 16, "patch_size": 4,
+                   "num_classes": 4, "channels": 3},
+    ),
     "pagerank": dict(
         app_type="pregel",
         trainer="harmony_tpu_torch.apps.pagerank:PageRankComputation",
@@ -140,7 +152,8 @@ FILE_CORPUS_KEYS = frozenset({"path", "seq_len", "num_seqs", "vocab_size"})
 
 # Model/data-coupled keys: an explicit override on either side wins over the
 # preset, and a conflicting pair fails before the job starts.
-COUPLED = {"lm": ("vocab_size",)}
+COUPLED = {"lm": ("vocab_size",),
+           "vit": ("image_size", "patch_size", "num_classes", "channels")}
 
 
 def _parse_kv(pairs: List[str]) -> Dict[str, Any]:
@@ -235,7 +248,7 @@ def _cmd_run(args: argparse.Namespace) -> int:
     return 0
 
 
-def main(argv: "List[str] | None" = None) -> int:
+def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="harmony-tpu-torch",
         description="harmony_tpu's training framework on PyTorch and CUDA",
@@ -256,8 +269,11 @@ def main(argv: "List[str] | None" = None) -> int:
                    help="superstep bound of a graph app")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu; the CPU runs only when asked for")
-    args = ap.parse_args(argv)
-    return _cmd_run(args)
+    return ap
+
+
+def main(argv: "List[str] | None" = None) -> int:
+    return _cmd_run(build_parser().parse_args(argv))
 
 
 if __name__ == "__main__":

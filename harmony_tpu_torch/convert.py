@@ -7,9 +7,10 @@ partitioner. Wide&Deep keeps every parameter (embeddings, bias, MLP) as table
 rows, so :func:`table_from_numpy` carries a whole model. A JAX
 ``DeviceHashTable``'s ``(slot_keys, values)`` pair installs the same way
 (:func:`hash_table_from_numpy`): both packages place keys in the same slots. A model whose
-parameters are a tree (the LM) carries over as that tree
-(:func:`lm_params_from_numpy`) or as the table rows it trains from
-(:func:`pytree_rows_from_numpy`), in ``ravel_pytree``'s flat order. A GBT
+parameters are a tree (the LM, dense or MoE with its nested ``moe`` dicts, and
+ViT) carries over as that tree (:func:`pytree_params_from_numpy`) or as the
+table rows it trains from (:func:`pytree_rows_from_numpy`), in
+``ravel_pytree``'s flat order. A GBT
 ensemble carries over as its tree rows and round counter
 (:func:`gbt_tables_from_numpy`), a Pregel job's vertex state as its values in
 vertex order (:func:`pregel_vertex_state_from_numpy`). Nothing here imports
@@ -54,10 +55,10 @@ def hash_table_from_numpy(spec: HashTableSpec, slot_keys: np.ndarray, values: np
     return DeviceHashTable(spec, device, (sk, v))
 
 
-def lm_params_from_numpy(params: Any, device: DeviceLike = None) -> Any:
-    """The LM's parameter tree (dicts and lists of numpy arrays, as the JAX
-    package's ``init_numpy`` or ``np.asarray`` of its ``init`` gives it) as f32
-    tensors on ``device`` (the card unless asked otherwise)."""
+def pytree_params_from_numpy(params: Any, device: DeviceLike = None) -> Any:
+    """A model's parameter tree (dicts and lists of numpy or JAX arrays: the
+    LM's ``init_numpy`` or ``init``, ViT's ``init``) as f32 tensors on
+    ``device`` (the card unless asked otherwise)."""
     dev = resolve_device(device)
     return tree_map(lambda a: torch.tensor(np.asarray(a, np.float32), device=dev), params)
 

@@ -69,7 +69,7 @@ from harmony_tpu_torch.metrics.tracer import Tracer
 from harmony_tpu_torch.table import autotune
 from harmony_tpu_torch.table.hashtable import DeviceHashTable
 from harmony_tpu_torch.table.table import DenseTable
-from harmony_tpu_torch.utils.platform import hard_sync
+from harmony_tpu_torch.utils.platform import full_f32_matmuls, hard_sync
 
 
 def _env_flag(var: str, default: bool) -> bool:
@@ -1134,10 +1134,7 @@ class WorkerTasklet:
 
     def run(self) -> Dict[str, Any]:
         ctx = self.ctx
-        # Float32 products in full float32, as the reference computes them on
-        # the CPU (and at HIGHEST precision on the TPU): TF32 keeps ~10
-        # mantissa bits. This is PyTorch's default; it is set, not assumed.
-        torch.backends.cuda.matmul.allow_tf32 = False
+        full_f32_matmuls()
         if self.global_init:
             self.trainer.init_global_settings(ctx)
         self.trainer.on_training_start(ctx, 0)

@@ -7,13 +7,15 @@ on the card and the sequence tiles, where the reference asks for a TPU.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Any, Optional
 
 import numpy as np
 import torch
 
 #: valid values for a model config's ``attn`` field
 ATTN_CHOICES = ("auto", "flash", "blockwise")
+#: activation dtypes a model config takes by name
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def dense_init(rng: np.random.Generator, shape) -> np.ndarray:
@@ -27,6 +29,16 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     xf = x.float()
     scale = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + 1e-6)
     return (xf * scale).to(x.dtype) * w
+
+
+def resolve_dtype(dtype: Any) -> torch.dtype:
+    """A model config's activation dtype: a torch dtype, or its name in
+    :data:`DTYPES` (the CLI's ``--set dtype=bfloat16``)."""
+    if isinstance(dtype, str):
+        if dtype not in DTYPES:
+            raise ValueError(f"unknown dtype {dtype!r}; choose from {sorted(DTYPES)}")
+        return DTYPES[dtype]
+    return dtype
 
 
 def validate_attn(attn: str) -> str:

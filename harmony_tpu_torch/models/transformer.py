@@ -12,8 +12,11 @@ WorkerTasklet as every app.
 seed, byte for byte. The reference's ``init`` draws from ``jax.random``, which
 cannot be reproduced here, so the two packages' ``cli run lm`` start from
 different weights; to hold one against the other, carry the weights across
-(``convert.py``). Not ported yet: MoE layers, and the sequence-, tensor-,
-expert- and pipeline-parallel steps.
+(``convert.py``). A config with ``moe_experts > 0`` swaps every
+``moe_every``-th block's FFN for a Switch-style expert bank
+(``models/moe.py``), whose load-balance loss joins the cross-entropy at
+``moe_aux_weight``. Not ported yet: the sequence-, tensor-, expert- and
+pipeline-parallel steps.
 """
 from __future__ import annotations
 
@@ -25,11 +28,16 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from harmony_tpu_torch.models.common import dense_init, resolve_attn, rms_norm, validate_attn
+from harmony_tpu_torch.models.common import (
+    dense_init,
+    resolve_attn,
+    resolve_dtype,
+    rms_norm,
+    validate_attn,
+)
+from harmony_tpu_torch.models.moe import MoEConfig, init_moe_params, moe_ffn
 from harmony_tpu_torch.models.pytree_trainer import PyTreeTrainer
 from harmony_tpu_torch.ops.attention import blockwise_attention, flash_attention
-
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,18 +51,31 @@ class TransformerConfig:
     dtype: Any = torch.float32      # activation dtype: a torch dtype, "float32" or "bfloat16"
     attn: str = "auto"              # "auto" | "flash" | "blockwise"
     remat: bool = False             # recompute each layer's activations in the backward
-    moe_experts: int = 0            # Mixture-of-Experts FFN: not ported yet
+    # Mixture-of-Experts FFN (models/moe.py): 0 = dense. Every moe_every-th
+    # block swaps its FFN for a top-1-routed expert bank; the Switch aux
+    # load-balance loss joins the CE at moe_aux_weight.
+    moe_experts: int = 0
+    moe_every: int = 2
+    moe_capacity_factor: float = 1.5
+    moe_aux_weight: float = 0.01
 
     def __post_init__(self):
-        if isinstance(self.dtype, str):
-            if self.dtype not in _DTYPES:
-                raise ValueError(f"unknown dtype {self.dtype!r}; choose from {sorted(_DTYPES)}")
-            object.__setattr__(self, "dtype", _DTYPES[self.dtype])
+        object.__setattr__(self, "dtype", resolve_dtype(self.dtype))
         if self.d_model % self.n_heads:
             raise ValueError("d_model must divide by n_heads")
-        if self.moe_experts:
-            raise NotImplementedError("MoE layers (moe_experts > 0) are not ported yet")
+        if self.moe_experts and self.moe_every < 1:
+            raise ValueError("moe_every must be >= 1")
         validate_attn(self.attn)
+
+    def is_moe_layer(self, i: int) -> bool:
+        """Block i carries the MoE FFN: the last of every ``moe_every`` group
+        (Switch interleaves dense and expert blocks)."""
+        return bool(self.moe_experts) and i % self.moe_every == self.moe_every - 1
+
+    @property
+    def moe_cfg(self) -> MoEConfig:
+        return MoEConfig(num_experts=self.moe_experts, d_model=self.d_model,
+                         d_ff=self.d_ff, capacity_factor=self.moe_capacity_factor)
 
     @property
     def head_dim(self) -> int:
@@ -73,11 +94,15 @@ class TransformerLM:
     def param_shapes(self) -> Dict[str, Any]:
         """The parameter tree with shape tuples for leaves."""
         cfg = self.config
-        d, f = cfg.d_model, cfg.d_ff
-        layer = {"ln1": (d,), "wqkv": (d, 3 * d), "wo": (d, d), "ln2": (d,),
-                 "w1": (d, f), "w2": (f, d)}
+        d, f, E = cfg.d_model, cfg.d_ff, cfg.moe_experts
+
+        def layer(i):
+            ffn = ({"moe": {"router": (d, E), "w1": (E, d, f), "w2": (E, f, d)}}
+                   if cfg.is_moe_layer(i) else {"w1": (d, f), "w2": (f, d)})
+            return {"ln1": (d,), "wqkv": (d, 3 * d), "wo": (d, d), "ln2": (d,), **ffn}
+
         return {"embed": (cfg.vocab_size, d), "pos": (cfg.max_seq, d), "ln_f": (d,),
-                "layers": [dict(layer) for _ in range(cfg.n_layers)]}
+                "layers": [layer(i) for i in range(cfg.n_layers)]}
 
     def init(self, seed: int = 0) -> Dict[str, Any]:
         """numpy f32 parameters: the reference's ``init_numpy(seed)``, the same
@@ -86,15 +111,19 @@ class TransformerLM:
         rng = np.random.default_rng(seed)
         d, f = cfg.d_model, cfg.d_ff
         layers = []
-        for _ in range(cfg.n_layers):
-            layers.append({
+        for i in range(cfg.n_layers):
+            layer = {
                 "ln1": np.ones((d,), np.float32),
                 "wqkv": dense_init(rng, (d, 3 * d)),
                 "wo": dense_init(rng, (d, d)),
                 "ln2": np.ones((d,), np.float32),
-                "w1": dense_init(rng, (d, f)),
-                "w2": dense_init(rng, (f, d)),
-            })
+            }
+            if cfg.is_moe_layer(i):
+                layer["moe"] = init_moe_params(rng, cfg.moe_cfg)
+            else:
+                layer["w1"] = dense_init(rng, (d, f))
+                layer["w2"] = dense_init(rng, (f, d))
+            layers.append(layer)
         return {
             "embed": (0.02 * rng.standard_normal((cfg.vocab_size, d))).astype(np.float32),
             "pos": (0.02 * rng.standard_normal((cfg.max_seq, d))).astype(np.float32),
@@ -113,8 +142,8 @@ class TransformerLM:
         return blockwise_attention(q, k, v, causal=True)
 
     def _block(self, x, layer):
-        """One pre-norm decoder block; returns ``(x, aux)`` with aux 0 (the
-        dense FFN has no load-balance loss)."""
+        """One pre-norm decoder block; returns ``(x, aux)``: the Switch
+        load-balance loss of an MoE block, 0 for a dense one."""
         cfg = self.config
         B, S = x.shape[0], x.shape[1]
         d, h, hd = cfg.d_model, cfg.n_heads, cfg.head_dim
@@ -137,7 +166,7 @@ class TransformerLM:
         return logits
 
     def _apply_with_aux(self, params, tokens):
-        """apply + the summed aux loss (0 for dense configs)."""
+        """apply + the summed MoE aux loss (0 for dense configs)."""
         cfg = self.config
         x = _embed_in(cfg, params["embed"], params["pos"], tokens)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -154,9 +183,13 @@ class TransformerLM:
         return x.float() @ params["embed"].T, aux
 
     def loss(self, params, tokens: torch.Tensor) -> torch.Tensor:
-        """Mean next-token cross-entropy over the batch."""
-        logits, _ = self._apply_with_aux(params, tokens[:, :-1])
-        return _next_token_ce(logits, tokens[:, 1:])
+        """Mean next-token cross-entropy over the batch, plus the weighted MoE
+        load-balance loss for expert configs."""
+        logits, aux = self._apply_with_aux(params, tokens[:, :-1])
+        ce = _next_token_ce(logits, tokens[:, 1:])
+        if self.config.moe_experts:
+            return ce + self.config.moe_aux_weight * aux
+        return ce
 
 
 def _next_token_ce(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -166,9 +199,19 @@ def _next_token_ce(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     return -ll.mean()
 
 
-def ffn_apply(cfg: TransformerConfig, layer, xn):
-    """The dense FFN on [..., d] activations; returns ``(out, aux)``. GELU is
-    the tanh approximation, as ``jax.nn.gelu`` computes it by default."""
+def ffn_apply(cfg: TransformerConfig, layer, xn, no_drop: bool = False):
+    """The dense or MoE FFN on [..., d] activations, shared by the training
+    blocks and the decode path; returns ``(out, aux)``. GELU is the tanh
+    approximation, as ``jax.nn.gelu`` computes it by default. ``no_drop`` lifts
+    the expert capacity to every token: decode routes a few rows a step, where
+    the training capacity factor would drop a token whenever two rows share an
+    expert and let one sequence change another's output."""
+    if "moe" in layer:
+        mcfg = cfg.moe_cfg
+        if no_drop:
+            mcfg = dataclasses.replace(mcfg, capacity_factor=float(mcfg.num_experts))
+        out, aux = moe_ffn(layer["moe"], xn.reshape(-1, cfg.d_model), mcfg)
+        return out.reshape(xn.shape), aux
     hidden = F.gelu(xn @ layer["w1"].to(cfg.dtype), approximate="tanh")
     return hidden @ layer["w2"].to(cfg.dtype), torch.zeros((), device=xn.device)
 

@@ -49,6 +49,14 @@ def use_kernel(*tensors: torch.Tensor) -> bool:
     raise ValueError(f"no kernel route for device {dev}")
 
 
+def full_f32_matmuls() -> None:
+    """Float32 products in full float32 on the card, as the reference computes
+    them on the CPU (and at HIGHEST precision on the TPU): TF32 keeps ~10
+    mantissa bits. This is PyTorch's default; the entry points that run f32
+    products (the worker, ViT's train step, generation) set it, not assume it."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
 def hard_sync(tree: Any) -> Any:
     """Wait for the device work that produced the tensors in ``tree`` (a
     tensor, or tuples, lists and dicts of them): the current stream of each

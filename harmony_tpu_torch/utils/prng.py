@@ -11,6 +11,8 @@ jax's default):
   * :func:`threefry_2x32` — the 20-round Threefry-2x32 block function
     (``prng._threefry2x32_lowering``).
   * :func:`fold_in` — ``threefry_fold_in``: the key hashed with (0, data).
+  * :func:`split` — ``_threefry_split_foldlike``: key i of ``num`` is the
+    block function's two output words at counter (i >> 32, i & 0xFFFFFFFF).
   * :func:`random_bits` — ``_threefry_random_bits_partitionable``: counter i of
     the flat output is (i >> 32, i & 0xFFFFFFFF); the two output words are
     XORed.
@@ -76,6 +78,13 @@ def fold_in(key: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
     broadcast against the keys' batch shape)."""
     d = data.to(torch.int64) & MASK
     y1, y2 = threefry_2x32(key[..., 0], key[..., 1], torch.zeros_like(d), d)
+    return torch.stack([y1, y2], dim=-1)
+
+
+def split(key: torch.Tensor, num: int) -> torch.Tensor:
+    """``jax.random.split(key, num)`` of keys ``[..., 2]``: ``[..., num, 2]``."""
+    idx = torch.arange(num, dtype=torch.int64, device=key.device)
+    y1, y2 = threefry_2x32(key[..., 0, None], key[..., 1, None], idx >> 32, idx & MASK)
     return torch.stack([y1, y2], dim=-1)
 
 

@@ -27,9 +27,10 @@ from harmony_tpu.dolphin import optim as jax_optim
 from harmony_tpu.models import common as jax_common
 from harmony_tpu.models import transformer as jax_tf
 from harmony_tpu_torch import cli
-from harmony_tpu_torch.convert import lm_params_from_numpy, pytree_rows_from_numpy
+from harmony_tpu_torch.convert import pytree_params_from_numpy, pytree_rows_from_numpy
 from harmony_tpu_torch.dolphin import optim
 from harmony_tpu_torch.models import common
+from harmony_tpu_torch.models.moe import init_moe_params, moe_ffn
 from harmony_tpu_torch.models import transformer as tf
 from harmony_tpu_torch.models.pytree_trainer import ravel_numpy, tree_leaves, unravel
 
@@ -92,7 +93,7 @@ def test_convert_carries_rows_and_params():
     params = trainer.model.init_numpy(seed=2)
     want = np.asarray(trainer._to_rows(ravel_pytree(params)[0]))
     np.testing.assert_array_equal(pytree_rows_from_numpy(params, row_width), want)
-    tree = lm_params_from_numpy(params, device="cpu")
+    tree = pytree_params_from_numpy(params, device="cpu")
     for a, b in zip(tree_leaves(tree), tree_leaves(params)):
         assert a.dtype == torch.float32
         np.testing.assert_array_equal(a.numpy(), b)
@@ -230,8 +231,15 @@ def test_config_dtypes_and_unported_options():
         tf.TransformerConfig(vocab_size=8, attn="ring")
     with pytest.raises(ValueError):
         tf.TransformerConfig(vocab_size=8, d_model=30, n_heads=4)
-    with pytest.raises(NotImplementedError):
-        tf.TransformerConfig(vocab_size=8, moe_experts=4)
+    assert tf.TransformerConfig(vocab_size=8, moe_experts=4).is_moe_layer(1)
+    with pytest.raises(ValueError, match="moe_every"):
+        tf.TransformerConfig(vocab_size=8, moe_experts=4, moe_every=0)
+    # expert parallelism waits for the multi-GPU slice
+    cfg = tf.TransformerConfig(vocab_size=8, d_model=8, n_heads=2, moe_experts=2).moe_cfg
+    params = {k: torch.as_tensor(v) for k, v in
+              init_moe_params(np.random.default_rng(0), cfg).items()}
+    with pytest.raises(NotImplementedError, match="A.9"):
+        moe_ffn(params, torch.zeros((4, 8)), cfg, axis_name="expert")
 
 
 def test_resolve_attn_picks_flash_only_on_the_card_when_the_sequence_tiles():
