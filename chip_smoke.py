@@ -465,9 +465,10 @@ def check(cond: bool, msg: str) -> None:
 # -- phase 2: the kernels against their plain versions ------------------------
 
 
-def slice_operands(dev):
+def slice_operands(dev, batch: int = N_EXAMPLES // BATCHES):
     """The table and the flat row ids of one step of the slice: the keys the
-    first mini-batch pulls and pushes, located as TableSpec.pull locates them."""
+    first mini-batch (of ``batch`` examples) pulls and pushes, located as
+    TableSpec.pull locates them."""
     from harmony_tpu_torch.apps.widedeep import WideDeepTrainer, make_synthetic
     from harmony_tpu_torch.table.table import TableSpec
 
@@ -475,7 +476,7 @@ def slice_operands(dev):
                               hidden=128, step_size=0.1)
     spec = TableSpec(trainer.model_table_config())
     ids, _ = make_synthetic(N_EXAMPLES, 100000, 16)
-    batch_ids = torch.as_tensor(ids[: N_EXAMPLES // BATCHES], device=dev)
+    batch_ids = torch.as_tensor(ids[:batch], device=dev)
     keys = trainer.pull_keys((batch_ids, None))
     b, o = spec.partitioner.locate(keys)
     idx = (b * spec.block_size + o).to(torch.int32).contiguous()
@@ -1422,7 +1423,10 @@ def run_trio():
     """Phase 3d: MLR, NMF and LDA submitted together to one JobServer on the
     card through harmony_tpu_torch.bench.run_concurrent, at full size: a
     1-epoch warm-up, then the measured pass with the launch counts read around
-    it; then the CPU baseline."""
+    it; then the CPU baseline. Under the JobServer each job runs per-batch
+    epochs under TaskUnit admission (the reference's schedule); the fused
+    windows are held by trio_windows_without_syncs, outside it. Returns the
+    launches, the summary and run_concurrent's jobs."""
     from harmony_tpu_torch import bench
 
     from harmony_tpu_torch.data import devcache
@@ -1445,6 +1449,10 @@ def run_trio():
               for name, stats in (("device", devcache.stats()),
                                   ("host", devcache.host_data.stats()))}
     windows = {k: j["worker"]["windows"] for k, j in jobs.items()}
+    # under the JobServer every job runs per-batch epochs under TaskUnit
+    # admission (its windows are batched epochs with one drain)
+    fused = {k: j["worker"]["fused_epochs"] for k, j in jobs.items()}
+    check(not any(fused.values()), f"fused windows under the JobServer: {fused}")
     check(sum(measured_calls.values()) == 0,
           f"the measured pass called data_fn {measured_calls}")
     check(caches["device"]["misses"] == 0 and caches["host"]["misses"] == 0,
@@ -1453,7 +1461,8 @@ def run_trio():
           f"windows {windows}, expected {TRIO_WINDOWS} for every job")
     print(f"phase 3d: data_fn calls: warm-up {warmup_calls}, measured pass "
           f"{measured_calls}; cache hits and misses over the measured pass {caches}; "
-          f"windows {windows}", flush=True)
+          f"per-batch epochs under TaskUnit admission in windows {windows}; grants "
+          f"{json.dumps({k: j['grants'] for k, j in jobs.items()})}", flush=True)
     expected = dict.fromkeys(launches, 0)
     expected["weighted_histogram"] = 1   # NMF's init multi_update
     check(launches == expected, f"trio launches {launches}, expected {expected}")
@@ -1489,6 +1498,8 @@ def run_trio():
         "data_fn_calls": {"warm_up": warmup_calls, "measured": measured_calls},
         "cache_hits_misses": caches,
         "windows": windows,
+        "fused_epochs": fused,
+        "grants": {k: j["grants"] for k, j in jobs.items()},
         "comm_probe": {k: j["worker"]["comm_probe"] for k, j in jobs.items()},
         "cpu_rate": cpu_rate,
         "vs_baseline": rate / cpu_rate,
@@ -1502,7 +1513,7 @@ def run_trio():
         "training_spans_overlap": train_overlap,
         "per_epoch_metric": per_epoch,
     }
-    return launches, summary
+    return launches, summary, jobs
 
 
 @contextlib.contextmanager
@@ -1532,10 +1543,12 @@ def counted_data_fns():
 
 def trio_windows_without_syncs():
     """Phase 3d: each trio job alone at full size (its data and stack from the
-    caches), with CUDA's sync debug mode set to raise while each window is
-    enqueued and cleared for its one drain: a window makes no blocking host
-    copy and no other sync. The jobs run one after another because the mode is
-    process-wide."""
+    caches), outside a JobServer so that it runs the fused windows, with CUDA's
+    sync debug mode set to raise while each window is enqueued and cleared for
+    its one drain: a window makes no blocking host copy and no other sync. The
+    jobs run one after another, on this thread alone, because the mode is
+    process-wide. Returns each job's windows, epoch seconds and per-batch
+    losses."""
     from harmony_tpu_torch import bench
     from harmony_tpu_torch.jobserver.entity import DolphinJobEntity
     from harmony_tpu_torch.parallel.mesh import DevicePool
@@ -1565,9 +1578,11 @@ def trio_windows_without_syncs():
         finally:
             torch.cuda.set_sync_debug_mode(0)
             entity.cleanup()
-        check(drains == result["windows"] == TRIO_WINDOWS,
-              f"{config.job_id}: windows {drains}, {result['windows']}")
-        out[config.job_id] = {"windows": drains, "epoch_seconds": result["epoch_seconds"]}
+        check(drains == result["windows"] == TRIO_WINDOWS and result["fused_epochs"],
+              f"{config.job_id}: windows {drains}, {result['windows']}, fused "
+              f"{result['fused_epochs']}")
+        out[config.job_id] = {"windows": drains, "epoch_seconds": result["epoch_seconds"],
+                              "batch_losses": result["batch_losses"]}
     print(f"phase 3d: every window of each trio job enqueued with no host sync "
           f"(sync debug mode 'error'): {json.dumps(out)}", flush=True)
     return out
@@ -2747,6 +2762,237 @@ def run_linear_apps():
           f"{json.dumps(out)}", flush=True)
     return out
 
+# -- phase 3q: TaskUnit admission, multi-worker SSP jobs and shared tables ----
+
+# bench-widedeep with two workers on one model table (the CLI's --workers 2
+# --slack 1): each worker on half the examples, 8 mini-batches of 2,048.
+WD2_ARGS = SLICE_ARGS + ["--epochs", str(EPOCHS), "--workers", "2", "--slack", "1"]
+WD2_WORKERS = 2
+# AddVector with two workers on a table made before the job (a shared table):
+# every key ends at examples x epochs, an integer below 2**24, so exact in f32.
+ADDV2 = {"num_keys": 1024, "vector_dim": 16, "n": 65536}
+# PageRank beside bench MLR: a random graph of 262,144 vertices and ~3.7M edges
+# (a 1/18 cut of bench-pagerank's, built in well under a second).
+PR2_GRAPH = {"num_vertices": 262144, "avg_degree": 14}
+
+
+def serve(configs, device):
+    """Submit ``configs`` together to one JobServer on ``device``; returns the
+    results in order and the TaskUnit grants by job and kind."""
+    from harmony_tpu_torch import bench
+    from harmony_tpu_torch.jobserver.server import JobServer
+    from harmony_tpu_torch.parallel.mesh import DevicePool
+
+    server = JobServer(1, device_pool=DevicePool([torch.device(device)]))
+    server.start()
+    try:
+        futures = [server.submit(c) for c in configs]
+        results = [f.result(timeout=600) for f in futures]
+    finally:
+        server.shutdown(timeout=120)
+    check(server.master.table_ids() == [],
+          f"tables left after the jobs: {server.master.table_ids()}")
+    return results, bench.grants_by_job(server.global_taskunit.grant_order())
+
+
+def wd2_config(lockstep: bool):
+    from harmony_tpu_torch import cli
+
+    config = cli.build_config("widedeep", cli.build_parser().parse_args(WD2_ARGS))
+    if lockstep:
+        config = config.replace(user={**config.user, "force_lockstep": True})
+    return config
+
+
+def check_wd2_kernels(dev):
+    """K1 and K3 at the 2-worker step's shape (one worker's first batch of
+    2,048 examples) against their plain versions: K1 byte-identical, K3 the
+    CPU's index_add_ bits and its own run twice. Returns max |kernel - plain|."""
+    from harmony_tpu_torch.ops.histogram import (
+        weighted_histogram,
+        weighted_histogram_plain,
+    )
+    from harmony_tpu_torch.ops.sparse import gather_rows, gather_rows_plain
+
+    table, idx = slice_operands(dev, batch=N_EXAMPLES // WD2_WORKERS // BATCHES)
+    got = gather_rows(table, idx)
+    check(same_bits(got, gather_rows_plain(table, idx)),
+          "phase 3q: gather_rows at the 2-worker shape is not byte-identical")
+    x = torch.randn((idx.shape[0], table.shape[1]), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(7))
+    fold = weighted_histogram(idx, x, table.shape[0])
+    again = weighted_histogram(idx, x, table.shape[0])
+    torch.cuda.synchronize()
+    check(same_bits(fold, again), "phase 3q: weighted_histogram run twice differs")
+    check(same_bits(fold.cpu(), weighted_histogram_plain(idx.cpu(), x.cpu(), table.shape[0])),
+          "phase 3q: weighted_histogram at the 2-worker shape is not the CPU's bits")
+    err = float((fold - weighted_histogram_plain(idx, x, table.shape[0])).abs().max())
+    print(f"phase 3q: K1 byte-identical and K3 the CPU's bits at the 2-worker step's "
+          f"{idx.shape[0]} ids", flush=True)
+    return {"gather_rows": 0.0, "weighted_histogram": err}
+
+
+def run_multiworker(trio_jobs, fused_trio):
+    """Phase 3q: the paths of TaskUnit admission, multi-worker SSP jobs and
+    shared tables on the card. bench-widedeep with two workers on one table
+    under SSP slack 1 (K1 and K3 from two threads); the same job in lockstep
+    twice (the same bits) and on the CPU (within LOSS_ATOL a step); AddVector
+    with two workers on a shared table (exact); PageRank beside bench MLR
+    under one JobServer (K1 and K2; values bit-identical to a solo run); and
+    the trio of phase 3d, whose per-batch losses under the JobServer must be
+    the bits of its fused windows outside it."""
+    from harmony_tpu_torch import bench
+    from harmony_tpu_torch.apps.pagerank import PageRankComputation
+    from harmony_tpu_torch.config.params import JobConfig, TableConfig, TrainerParams
+    from harmony_tpu_torch.jobserver.server import JobServer
+    from harmony_tpu_torch.ops.histogram import weighted_histogram
+    from harmony_tpu_torch.ops.sparse import gather_rows, segment_sum_rows
+    from harmony_tpu_torch.parallel.mesh import DevicePool
+    from harmony_tpu_torch.pregel.graph import random_graph
+    from harmony_tpu_torch.pregel.master import PregelMaster
+
+    wrappers = (gather_rows, segment_sum_rows, weighted_histogram)
+    out, launches = {}, {}
+    steps = WD2_WORKERS * EPOCHS * BATCHES
+
+    # the trio: per-batch under the JobServer, the bits of the fused windows
+    for job_id, job in trio_jobs.items():
+        worker = job["worker"]
+        check(not worker["fused_epochs"], f"{job_id} ran fused windows under the JobServer")
+        check(float_bits(worker["batch_losses"]) == float_bits(fused_trio[job_id]),
+              f"{job_id}: the per-batch losses under the JobServer are not the bits "
+              f"of its fused windows")
+    out["trio_grants"] = {k: j["grants"] for k, j in trio_jobs.items()}
+    print(f"phase 3q: the trio's per-batch losses under the JobServer are the bits of "
+          f"its fused windows; grants by job {json.dumps(out['trio_grants'])}", flush=True)
+
+    # bench-widedeep, two workers, SSP slack 1
+    os.environ["HARMONY_PUSH_VIA"] = "mxu"
+    try:
+        reset_counts(*wrappers)
+        t0 = time.perf_counter()
+        (ssp,), grants = serve([wd2_config(False)], "cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches["bench-widedeep-2-workers"] = {w.__name__: w.launches for w in wrappers}
+        lock = []
+        for _ in range(2):
+            (r,), _ = serve([wd2_config(True)], "cuda")
+            lock.append(r)
+        (lock_cpu,), _ = serve([wd2_config(True)], "cpu")
+    finally:
+        os.environ.pop("HARMONY_PUSH_VIA")
+    workers = ssp["workers"]
+    chief = workers[f"{ssp['job_id']}/w0"]
+    k1, fold = probe_launches(chief)
+    expected = {"gather_rows": steps + k1, "segment_sum_rows": 0,
+                "weighted_histogram": steps + fold}
+    got = launches["bench-widedeep-2-workers"]
+    check(got == expected, f"phase 3q: 2-worker Wide&Deep launches {got}, expected {expected}")
+    for wid, w in workers.items():
+        finite_and_falling(w["batch_losses"], EPOCHS * BATCHES, f"phase 3q {wid}")
+        check(not w["fused_epochs"] and w["windows"] == [1] * EPOCHS,
+              f"phase 3q {wid}: fused {w['fused_epochs']}, windows {w['windows']}")
+    job_grants = grants[ssp["job_id"]]
+    want = {"CPU": 1 + EPOCHS * BATCHES, "NET": EPOCHS}
+    check(job_grants == want, f"phase 3q: 2-worker grants {job_grants}, expected {want}")
+    lock_losses = [{w: r["batch_losses"] for w, r in run["workers"].items()}
+                   for run in (*lock, lock_cpu)]
+    check(lock_losses[0] == lock_losses[1],
+          "phase 3q: the lockstep 2-worker Wide&Deep differs run to run")
+    lock_gap = max(abs(a - b) for w in lock_losses[0]
+                   for a, b in zip(lock_losses[0][w], lock_losses[2][w]))
+    check(lock_gap <= LOSS_ATOL,
+          f"phase 3q: lockstep card and CPU losses differ by {lock_gap} > {LOSS_ATOL}")
+    out["bench-widedeep-2-workers"] = {
+        "launches": got, "grants": job_grants, "wall_s": wall,
+        "samples_per_sec": EPOCHS * N_EXAMPLES / wall,
+        "batch_losses": {w: r["batch_losses"] for w, r in workers.items()},
+        "lockstep_batch_losses": lock_losses[0],
+        "lockstep_max_abs_gap_card_vs_cpu": lock_gap,
+    }
+    print(f"phase 3q: bench-widedeep, 2 workers, slack 1: launches {got}, grants "
+          f"{job_grants}, {EPOCHS * N_EXAMPLES / wall:.1f} samples/s over the job; "
+          f"losses {json.dumps(out['bench-widedeep-2-workers']['batch_losses'])}; "
+          f"lockstep bit-identical twice, max |card - CPU| {lock_gap}", flush=True)
+
+    # AddVector, two workers, a shared table made before the job
+    shared = TableConfig(table_id="shared-addvector", capacity=ADDV2["num_keys"],
+                         value_shape=(ADDV2["vector_dim"],), num_blocks=64)
+    config = JobConfig(
+        job_id="addvector-2-workers", app_type="dolphin",
+        trainer="harmony_tpu_torch.apps.addvector:AddVectorTrainer", tables=[shared],
+        params=TrainerParams(num_epochs=EPOCHS, num_mini_batches=BATCHES, clock_slack=1,
+                             app_params={"num_keys": ADDV2["num_keys"],
+                                         "vector_dim": ADDV2["vector_dim"]}),
+        num_workers=2,
+        user={"data_fn": "harmony_tpu_torch.apps.addvector:make_marks",
+              "data_args": {"n": ADDV2["n"]}})
+    server = JobServer(1, device_pool=DevicePool([torch.device("cuda")]))
+    server.start()
+    try:
+        table = server.master.create_table(shared, server.master.executor_ids())
+        server.submit(config).result(timeout=600)
+        values = table.pull_array().cpu()
+        check(server.master.table_ids() == ["shared-addvector"],
+              "phase 3q: the job's cleanup freed the caller's shared table")
+        server.master.drop_table("shared-addvector")
+    finally:
+        server.shutdown(timeout=120)
+    total = float(EPOCHS * ADDV2["n"])
+    check(torch.equal(values, torch.full_like(values, total)),
+          f"phase 3q: AddVector values {values.unique().tolist()}, expected {total}")
+    out["addvector-2-workers"] = {"shape": list(values.shape), "value": total,
+                                  "unique_values": values.unique().tolist()}
+    print(f"phase 3q: AddVector, 2 workers on a shared {list(values.shape)} table: every "
+          f"value {values.unique().tolist()} (expected {total})", flush=True)
+
+    # PageRank beside bench MLR under one JobServer
+    pregel = JobConfig(
+        job_id="pagerank-beside-mlr", app_type="pregel",
+        trainer="harmony_tpu_torch.apps.pagerank:PageRankComputation",
+        params=TrainerParams(app_params={"num_iterations": PR_ITERATIONS}),
+        user={"graph_fn": "harmony_tpu_torch.pregel.graph:random_graph",
+              "graph_args": PR2_GRAPH, "max_supersteps": 100})
+    mlr = bench.job_configs(TRIO_SCALE, EPOCHS)[0][0]
+    reset_counts(*wrappers)
+    (pr, mlr_result), grants = serve([pregel, mlr], "cuda")
+    torch.cuda.synchronize()
+    launches["pagerank-beside-mlr"] = {w.__name__: w.launches for w in wrappers}
+    graph = random_graph(**PR2_GRAPH)
+    solo = PregelMaster(graph, PageRankComputation(graph, PR_ITERATIONS), "cuda")
+    try:
+        alone = solo.run()
+    finally:
+        solo.close()
+    check(np.array_equal(pr["vertex_values"], alone["vertex_values"]),
+          "phase 3q: PageRank beside MLR is not bit-identical to its solo run")
+    n = pr["supersteps"]
+    want = {"gather_rows": n, "segment_sum_rows": n, "weighted_histogram": 0}
+    check(launches["pagerank-beside-mlr"] == want,
+          f"phase 3q: PageRank beside MLR launches {launches['pagerank-beside-mlr']}, "
+          f"expected {want}")
+    check(grants.get("pagerank-beside-mlr") == {"CPU": n} and "bench-mlr" in grants,
+          f"phase 3q: grants {grants}")
+    (mlr_worker,) = mlr_result["workers"].values()
+    check(all(math.isfinite(v) for v in mlr_worker["batch_losses"]),
+          "phase 3q: MLR beside PageRank has a non-finite loss")
+    out["pagerank-beside-mlr"] = {
+        "supersteps": n, "launches": launches["pagerank-beside-mlr"], "grants": grants,
+        "wall_s": pr["wall_sec"], "solo_wall_s": alone["wall_sec"],
+        "values_sum": float(pr["vertex_values"].sum()),
+    }
+    print(f"phase 3q: PageRank ({PR2_GRAPH}) beside bench MLR: {n} supersteps, launches "
+          f"{launches['pagerank-beside-mlr']}, values bit-identical to the solo run, "
+          f"grants {json.dumps(grants)}", flush=True)
+    return launches, out
+
+
+def float_bits(values):
+    """The f32 bit patterns of a list of floats (NaN payloads included)."""
+    return np.asarray(values, dtype=np.float32).view(np.uint32).tolist()
+
+
 def top_kernels(by_name: dict, top_n: int) -> dict:
     """The ``top_n`` largest device times by kernel name cut to 90
     characters, the names that share a cut summed (template instances of one
@@ -2824,6 +3070,7 @@ def profile_trio(top_n: int = 12):
                 "htod_copy_ms": copy, "htod_copy_share_of_busy": copy / busy if busy else 0.0}
 
     wall = max(j["end_s"] for j in jobs.values())
+    steps = sum(len(j["worker"]["batch_losses"]) for j in jobs.values())
     mlr = jobs["bench-mlr"]
     others_end = max(j["train_end_s"] for k, j in jobs.items() if k != "bench-mlr")
     alone = (max(mlr["train_start_s"], others_end), mlr["train_end_s"])
@@ -2832,6 +3079,11 @@ def profile_trio(top_n: int = 12):
         "htod_copies": htod,
         "htod_bytes": sum(v["bytes"] for v in htod.values()),
         "pass": window(0.0, wall),
+        # device operations (kernels, copies, fills) over the pass's steps
+        "steps": steps,
+        "device_operations_per_step": len(device_events) / steps,
+        "grants": {k: j["grants"] for k, j in jobs.items()},
+        "fused_epochs": {k: j["worker"]["fused_epochs"] for k, j in jobs.items()},
         "training_spans_overlap": (max(j["train_start_s"] for j in jobs.values())
                                    < min(j["train_end_s"] for j in jobs.values())),
         "training": {k: window(j["train_start_s"], j["train_end_s"])
@@ -3050,9 +3302,10 @@ def main() -> int:
     print("moe: " + json.dumps(moe), flush=True)
     gen_launches, generation, decode_once = run_generate(lm_summary["losses"])
     print("generate: " + json.dumps(generation), flush=True)
-    trio_launches, trio = run_trio()
+    trio_launches, trio, trio_jobs = run_trio()
     print("trio: " + json.dumps(trio), flush=True)
-    print("trio windows: " + json.dumps(trio_windows_without_syncs()), flush=True)
+    fused_trio = trio_windows_without_syncs()
+    print("trio windows: " + json.dumps(fused_trio), flush=True)
     print("trio agreement: " + json.dumps(trio_agreement()), flush=True)
     print("lda assignments: " + json.dumps(lda_assignments()), flush=True)
     print("async: " + json.dumps(run_async_mlr()), flush=True)
@@ -3072,6 +3325,11 @@ def main() -> int:
     pregel = run_pregel(graph)
     print("pregel: " + json.dumps(pregel), flush=True)
     print("linear apps: " + json.dumps(run_linear_apps()), flush=True)
+    for name, e in check_wd2_kernels(dev).items():
+        err[name] = max(err[name], e)
+    mw_launches, multiworker = run_multiworker(
+        trio_jobs, {k: v["batch_losses"] for k, v in fused_trio.items()})
+    print("multi-worker: " + json.dumps(multiworker), flush=True)
     by_path = {name: {"bench-widedeep": launches.get(name, 0),
                       "bench-lm": lm_launches[name],
                       "bench-vit": vit_launches[name],
@@ -3083,12 +3341,19 @@ def main() -> int:
                       "fused-sparse-step": host_launches.get(name, 0),
                       "bench-gbt": gbt["launches"].get(name, 0),
                       **{f"bench-{app}": entry["launches"].get(name, 0)
-                         for app, entry in pregel["full"].items()}}
+                         for app, entry in pregel["full"].items()},
+                      **{path: counts.get(name, 0) for path, counts in mw_launches.items()}}
                for name in lm_launches}
     print("profile: " + json.dumps(profile_slice()), flush=True)
     print("lm profile: " + json.dumps(profile_lm()), flush=True)
     print("models profile: " + json.dumps(profile_models(decode_once)), flush=True)
-    print("trio profile: " + json.dumps(profile_trio()), flush=True)
+    trio_profile = profile_trio()
+    print("trio profile: " + json.dumps(trio_profile), flush=True)
+    print(f"phase 3q: the trio on the per-batch TaskUnit path: {trio['samples_per_sec']:.1f} "
+          f"samples/s (phase 3d), device idle share {trio_profile['pass']['device_idle_share']:.4f} "
+          f"and {trio_profile['device_operations_per_step']:.1f} device operations a step "
+          f"(phase 5c, {trio_profile['samples_per_sec']:.1f} samples/s), grants by job "
+          f"{json.dumps(trio['grants'])}", flush=True)
     print("hash profile: " + json.dumps(profile_hash()), flush=True)
     print("new paths profile: " + json.dumps(profile_new_paths(graph)), flush=True)
     print("hash ops: " + json.dumps(hash_ops) + "; autotune: " + json.dumps(tune), flush=True)

@@ -10,9 +10,13 @@ Counterpart of the repository's ``bench.py`` (``job_configs``,
 The three jobs (MLR 256 classes x 8,192 features, NMF rank 256 over 4,096
 columns, LDA V 8,192 x K 64 at 128 tokens a document, 8 mini-batches an
 epoch) are submitted together to a JobServer whose share-all scheduler runs
-them at once. A 1-epoch warm-up pass (kernel builds, allocator, library
-handles, and each job's dataset: generated once into the host data cache and
-uploaded once into the device cache) comes first; the measured pass runs
+them at once. As in the reference, each job's worker runs under TaskUnit
+admission: per-batch epochs, each batch group a COMP unit and each metric
+drain a NET unit, with at most 2 steps in flight while the jobs contend
+(the fused epoch windows run only outside a JobServer). A 1-epoch warm-up
+pass (kernel builds, allocator, library handles, and each job's dataset:
+generated once into the host data cache and uploaded once into the device
+cache) comes first; the measured pass runs
 ``--epochs`` epochs at ``--scale`` with the same data arguments. Its wall, from
 the first submission to the last job's end, counts each job's set-up (tables,
 global init) but not data generation, which the caches serve, as in the
@@ -21,7 +25,8 @@ reference. The baseline is this package on the CPU at ``--baseline-scale``
 compared), best of two measured passes after a warm-up. The last line of standard output is one JSON
 object: ``metric``, ``value`` (samples/s), ``unit``, ``vs_baseline``,
 ``cpu_rate``, ``mode`` and ``accel_job_walls_s``; per-job details (walls,
-epoch seconds, start and end) go to standard error before it.
+epoch seconds, start and end, TaskUnit grants by kind, whether the epochs ran
+fused) go to standard error before it.
 """
 from __future__ import annotations
 
@@ -84,9 +89,9 @@ def run_concurrent(devices: Sequence[DeviceLike], scale: float, job_timeout: flo
     """Submit the three jobs together to one JobServer over ``devices``.
 
     Returns (aggregate samples/s = all examples / wall, each job's wall in
-    seconds from the common start, and per job: its worker's result and the
+    seconds from the common start, and per job: its worker's result, the
     seconds from the common start at which its set-up began, its training
-    began and ended, and it finished)."""
+    began and ended, and it finished, and its TaskUnit grants by kind)."""
     configs, totals = job_configs(scale, epochs)
     server = JobServer(num_executors=len(devices), device_pool=DevicePool(devices))
     server.start()
@@ -106,6 +111,7 @@ def run_concurrent(devices: Sequence[DeviceLike], scale: float, job_timeout: flo
         wall = time.perf_counter() - t0
     finally:
         server.shutdown(timeout=120)
+    grants = grants_by_job(server.global_taskunit.grant_order())
     jobs = {}
     for r in results:
         (worker,) = r["workers"].values()
@@ -115,11 +121,22 @@ def run_concurrent(devices: Sequence[DeviceLike], scale: float, job_timeout: flo
             "train_start_s": worker["train_span"][0] - t0,
             "train_end_s": worker["train_span"][1] - t0,
             "end_s": r["span"][1] - t0,
+            "grants": grants.get(r["job_id"], {}),
         }
     rate = sum(totals.values()) / wall
     print(f"  {len(configs)} jobs, {sum(totals.values())} examples, {wall:.2f} s -> "
           f"{rate:,.0f} samples/s aggregate; per-job walls {walls}", file=sys.stderr)
     return rate, walls, jobs
+
+
+def grants_by_job(grant_order) -> Dict[str, Dict[str, int]]:
+    """TaskUnit grants of a JobServer's ``grant_order()``, counted by job and
+    unit kind."""
+    out: Dict[str, Dict[str, int]] = {}
+    for job_id, _seq, kind in grant_order:
+        counts = out.setdefault(job_id, {})
+        counts[kind] = counts.get(kind, 0) + 1
+    return out
 
 
 def steady_epoch_seconds(jobs: Dict[str, Any]) -> Dict[str, float]:
@@ -167,6 +184,7 @@ def main(argv: "List[str] | None" = None) -> int:
     rate, walls, jobs = run_concurrent([device], args.scale, epochs=args.epochs)
     detail = {job_id: {"wall_s": walls[job_id], "steady_epoch_s": steady,
                        "epoch_seconds": jobs[job_id]["worker"]["epoch_seconds"],
+                       "fused_epochs": jobs[job_id]["worker"]["fused_epochs"],
                        **{k: v for k, v in jobs[job_id].items() if k != "worker"}}
               for job_id, steady in steady_epoch_seconds(jobs).items()}
     print("per-job: " + json.dumps(detail), file=sys.stderr)
@@ -177,7 +195,8 @@ def main(argv: "List[str] | None" = None) -> int:
         "unit": "samples/sec",
         "vs_baseline": rate / cpu_rate if cpu_rate > 0 else 0.0,
         "cpu_rate": cpu_rate,
-        "mode": f"3 concurrent jobs, num_workers=1 each, one device ({kind}); "
+        "mode": f"3 concurrent jobs, num_workers=1 each, one device ({kind}), per-batch "
+                "epochs under TaskUnit admission; "
                 "steady state after a 1-epoch warm-up; baseline: this package on the cpu "
                 f"at scale {args.baseline_scale}",
         "accel_job_walls_s": walls,

@@ -10,7 +10,9 @@ Presets are the reference's, with the trainer (or computation) and the data
 or graph generator resolved in this package; override them with ``--set
 key=value`` (app hyper-parameters) and ``--data key=value`` (data or graph
 arguments). A graph app reads an edge-list file with ``--graph-file`` and
-stops after ``--max-supersteps``. The job runs on the card unless ``--device
+stops after ``--max-supersteps``. ``--workers`` sets the job's workers (0,
+the default, is one per executor: one) and ``--slack`` the SSP clock slack
+of a multi-worker job (0 is BSP). The job runs on the card unless ``--device
 cpu`` is given; with no card it raises. The reference's dolphin-only flags
 (``--optimizer``, ``--model-chkp-period``, ``--offline-eval``,
 ``--auto-resume``), which it refuses on graph apps, are not ported.
@@ -213,9 +215,11 @@ def _job_config(app: str, args: argparse.Namespace, preset: Dict[str, Any],
         params=TrainerParams(
             num_epochs=args.epochs,
             num_mini_batches=args.batches,
+            clock_slack=getattr(args, "slack", 0),
             app_params=app_params,
         ),
-        num_workers=1,
+        # callers that build the namespace themselves may leave both out
+        num_workers=getattr(args, "workers", 0),
         user=user,
     )
 
@@ -259,6 +263,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--job-id", default=None)
     p.add_argument("--epochs", type=int, default=3)
     p.add_argument("--batches", type=int, default=4, help="mini-batches per epoch")
+    p.add_argument("--workers", type=int, default=0,
+                   help="0 = one worker per executor")
+    p.add_argument("--slack", type=int, default=0,
+                   help="SSP clock slack (0 = BSP)")
     p.add_argument("--set", action="append", metavar="K=V", default=[],
                    help="override an app hyper-parameter")
     p.add_argument("--data", action="append", metavar="K=V", default=[],

@@ -7,7 +7,7 @@ for one package reads the same in the other.
 from __future__ import annotations
 
 from dataclasses import field
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 from harmony_tpu_torch.config.base import ConfigBase, config
 
@@ -57,6 +57,7 @@ class TrainerParams(ConfigBase):
 
     num_epochs: int = 1
     num_mini_batches: int = 10
+    clock_slack: int = 0              # SSP staleness bound; 0 = BSP
     # Comm/comp split probe period in epochs (WorkerTasklet._probe_comm): the
     # probe times the table's PULL alone and PULL+PUSH of a zero delta on a
     # copy of the table, at the first epoch and then every 8 x period epochs,
@@ -87,11 +88,16 @@ class TrainerParams(ConfigBase):
 @config
 class JobConfig(ConfigBase):
     """A job submission: the trainer by dotted path, its parameters, and
-    ``user["data_fn"]`` / ``user["data_args"]`` naming the data generator."""
+    ``user["data_fn"]`` / ``user["data_args"]`` naming the data generator.
+    ``tables`` names a SHARED model table: the job reuses the table of that
+    id if one exists (another job's, or one made by the caller) and the
+    master frees it when its last holder drops it; with no ``tables`` the
+    job's model table is private, under a job-namespaced id."""
 
     job_id: str
-    app_type: str                      # "dolphin"
+    app_type: str                      # "dolphin" | "pregel"
     trainer: Optional[str] = None      # dotted path of a Trainer subclass
+    tables: List[TableConfig] = field(default_factory=list)
     params: TrainerParams = field(default_factory=TrainerParams)
-    num_workers: int = 0               # 0 = one worker (this port runs one)
+    num_workers: int = 0               # 0 = one worker per granted executor
     user: Dict[str, Any] = field(default_factory=dict)

@@ -18,8 +18,9 @@ The consumer (:meth:`StagedBatch.take`) makes its stream wait on the
 batch's event and marks the staged tensors as used on its stream
 (``record_stream``), so the caching allocator does not hand their memory out
 while a step may still read it. A pinned buffer is refilled only after the
-copy that last read it has completed. Not ported: the TaskUnit NET scope and
-the reshard announcements (neither exists in the port).
+copy that last read it has completed. Under a JobServer a single-worker job's
+staging copies ride the TaskUnit fair queue as NET units (``net_scope``).
+Not ported: the reshard announcements (the port has no live reshard).
 """
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ import numpy as np
 import torch
 
 from harmony_tpu_torch.data.loader import StageRing
+from harmony_tpu_torch.runtime.taskunit import TaskUnitAborted
 
 
 @dataclasses.dataclass
@@ -90,7 +92,11 @@ class PrefetchPipeline:
     worker's epoch stream ends) stops the producer and joins it.
 
     ``depth_fn`` is read on every put, so the ring tracks the worker's
-    in-flight cap; ``skip_stage_fn`` (optional) suppresses the copy for
+    in-flight cap; ``net_scope`` (optional) is called with an abort predicate
+    (true once the ring is closed) and returns a context manager: each
+    staging copy runs in a NET unit whose admission wait stays interruptible,
+    so teardown never hangs on a grant that cannot arrive; ``skip_stage_fn``
+    (optional) suppresses the copy for
     batches that are already device-resident (an evicted cache entry must not
     re-send the whole epoch): those flow through host-only and the consumer's
     cache lookup serves them.
@@ -109,10 +115,12 @@ class PrefetchPipeline:
         *,
         epoch: int = 0,
         job_id: str = "",
+        net_scope: Optional[Callable[[Callable[[], bool]], Any]] = None,
         skip_stage_fn: Optional[Callable[[int], bool]] = None,
     ) -> None:
         self._provider = provider
         self._device = torch.device(device)
+        self._net_scope = net_scope
         self._skip_stage_fn = skip_stage_fn
         self._ring = StageRing(depth_fn)
         self._host_only = False  # see stop_staging()
@@ -165,15 +173,24 @@ class PrefetchPipeline:
                     if not ring.put(StagedBatch(idx, host, None)):
                         return
                     continue
+                scope = (self._net_scope(self._closed) if self._net_scope is not None
+                         else contextlib.nullcontext())
                 t0 = time.perf_counter()
-                staged = self._stage(idx, host)
+                with scope:
+                    staged = self._stage(idx, host)
                 self.stage_sec += time.perf_counter() - t0
                 if not ring.put(staged):
                     return  # the consumer closed the epoch early
+        except TaskUnitAborted:
+            return  # the ring closed during an admission wait: quiet teardown
         except BaseException as e:  # noqa: BLE001 - re-raised on the consumer
             ring.set_error(e)
         else:
             ring.finish()
+
+    def _closed(self) -> bool:
+        """The abort predicate of the NET admission wait."""
+        return self._ring.closed
 
     # -- consumer side ---------------------------------------------------
 

@@ -42,12 +42,26 @@ the device and is drained into ``table.overflow_count`` with the epoch's
 other metrics. A dense keyed table's ``mxu_auto`` route is resolved once by
 the measured autotune (``table/autotune.py``).
 
+Multi-tenancy and multi-worker jobs, as in the reference: a worker run by a
+JobServer holds a ``TaskUnitClient`` (``runtime/taskunit.py``), so it takes
+the batched epoch (``_use_fused_epoch``): each batch group runs in a COMP
+unit (``_units_per_scope``), each metric drain in a NET unit, global init in
+a CPU unit, and tenants interleave batch by batch; under contention at most
+``CONTENDED_INFLIGHT`` steps are in flight (``_inflight_cap``). A COMP unit
+gates the host's admission of a step's launches, not the card's occupancy.
+A worker of a multi-worker job checks its SSP gate (``batch_barrier``, a
+``dolphin/master.py::MiniBatchController``) before each batch; one worker
+(the chief) runs the trainer's global init and the others wait for it at
+``post_init_barrier``; under ``force_lockstep`` every dispatch happens in the
+worker's turn of a ``DispatchTurnstile`` (``dispatch_turn``). A worker with
+none of these, outside a JobServer, keeps the fused windows.
+
 Per-batch primary metrics ("loss", else the trainer's ``objective_metric``)
 stay on the device until the drain. Also here, for callers that drive a table
 outside the worker (the ModelAccessor path): :class:`FusedSparseStep` and
 :func:`accessor_async_step`. Not ported yet: a CUDA graph of the step or the
-epoch, per-job streams, dispatch turnstiles, TaskUnit scheduling, SSP
-barriers, and the cross-epoch pre-spawn of the next epoch's pipeline.
+epoch, per-job streams, and the cross-epoch pre-spawn of the next epoch's
+pipeline.
 """
 from __future__ import annotations
 
@@ -507,6 +521,10 @@ class WorkerTasklet:
     EPOCH_WINDOW = 8
     # Bound on steps a batched epoch enqueues without a device sync.
     MAX_INFLIGHT = 32
+    # The bound under multi-tenant contention (see _inflight_cap).
+    CONTENDED_INFLIGHT = 2
+    # Target span of one contended COMP unit, seconds (see _units_per_scope).
+    UNIT_SPAN_TARGET = 0.06
     # Calls of each probe program a probe makes: one warm-up, then the samples.
     PROBE_SAMPLES = 3
 
@@ -517,15 +535,37 @@ class WorkerTasklet:
         trainer: Trainer,
         data: TrainingDataProvider,
         global_init: bool = True,
+        batch_barrier: Optional[Callable[[int], bool]] = None,
+        taskunit: Optional[Any] = None,
+        post_init_barrier: Optional[Callable[[], Any]] = None,
+        dispatch_turn: Optional[Callable[[], Any]] = None,
+        epoch_callback: Optional[Callable[[int], None]] = None,
     ) -> None:
         self.job_id = job_id
         self.ctx = ctx
         self.trainer = trainer
         self.data = data
         self.device = ctx.model_table.device
-        # exactly one worker of a job runs the trainer's global init: it writes
-        # the shared table
+        # exactly one worker of a job (the chief) runs the trainer's global
+        # init: it writes the shared table, and N additive inits would add up
+        # N-fold; post_init_barrier makes the others wait for it
         self.global_init = global_init
+        self.post_init_barrier = post_init_barrier
+        # batch_barrier(global_batch_idx) -> stop flag: the SSP gate of a
+        # multi-worker job (MiniBatchController.make_barrier)
+        self.batch_barrier = batch_barrier
+        # TaskUnitClient under a JobServer (runtime/taskunit.py), else None
+        self.taskunit = taskunit
+        # a callable returning this worker's turnstile turn (lockstep jobs)
+        self.dispatch_turn = dispatch_turn
+        # host accounting after each epoch's drain, in epoch order (the
+        # entity's progress tracker); it reads no table state, so windows
+        # may defer it
+        self.epoch_callback = epoch_callback
+        self._pending_probe = False  # a probe deferred into the first batch turn
+        self._global_batch_idx = 0
+        # this worker's EWMA seconds a batch, sizing its batch groups
+        self._own_batch_cost: Optional[float] = None
         params = ctx.params
         # the comm/comp split probe: first use, then every 8 x period epochs
         self.comm_probe_every = params.comm_probe_period
@@ -545,6 +585,7 @@ class WorkerTasklet:
         self._staleness_bound = max(
             0, _env_int("HARMONY_STALENESS_BOUND", params.staleness_bound))
         self._step: Any = None
+        self._push_route: Optional[str] = None
         self._hyper_scalars: Dict[str, torch.Tensor] = {}
         self._input = {"prefetch_hits": 0, "prefetch_misses": 0, "pipelines": 0,
                        "staged": 0, "max_depth": 0, "producer_idle_sec": 0.0,
@@ -737,7 +778,8 @@ class WorkerTasklet:
 
     def _build_step(self) -> None:
         table = self.ctx.model_table
-        self._push_route = self._resolve_push_route()
+        if self._push_route is None:
+            self._push_route = self._resolve_push_route()
         if self._async_mode():
             self._step = AsyncStepDriver(
                 self._build_unfused(self._push_route), bound=self._staleness_bound,
@@ -767,9 +809,15 @@ class WorkerTasklet:
         return self._async_on and self._async_capable()
 
     def _use_fused_epoch(self) -> bool:
-        """A whole epoch runs from the device-resident stack only with stable
-        batches and the fused step."""
-        return not self.data.is_shuffling and self._fused_mode()
+        """A whole epoch runs from the device-resident stack only with no
+        between-batch host decision (no SSP gate, no TaskUnit admission),
+        stable batches and the fused step. Under a TaskUnit scheduler the
+        batched epoch is kept so tenants interleave batch by batch (a fused
+        window would hand one tenant the schedule for whole epochs)."""
+        return (self.batch_barrier is None
+                and self.taskunit is None
+                and not self.data.is_shuffling
+                and self._fused_mode())
 
     def _dispatch(self, batch: Tuple[torch.Tensor, ...],
                   hyper: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -923,7 +971,9 @@ class WorkerTasklet:
         phase, so a window would only batch the drain) and with a windowable
         trainer hook (``Trainer._epoch_hook_windowable``). A window never
         crosses a comm-probe epoch: the probe measures the live table between
-        dispatches."""
+        dispatches. An SSP gate decides per batch: no window."""
+        if self.batch_barrier is not None:
+            return 1
         if not self._fused_mode():
             return 1
         if not Trainer._epoch_hook_windowable(self.trainer):
@@ -1040,13 +1090,23 @@ class WorkerTasklet:
                 inp[k] += stats[k]
 
     def _make_pipeline(self, epoch: int) -> PrefetchPipeline:
+        net_scope = None
+        if self.taskunit is not None and self.ctx.num_workers == 1:
+            # staging copies ride the fair queue as NET units, with an
+            # interruptible admission wait (teardown must not hang on a grant
+            # that can no longer arrive); single-worker jobs only: the quorum
+            # matches per-worker unit sequences, and units timed by a producer
+            # thread would misalign them across a multi-worker job's workers
+            net_scope = lambda abort: self.taskunit.scope(  # noqa: E731
+                "NET", abort=abort)
         skip = None
         if self.cache_device_batches:
             # a partly cached epoch stages only what is missing
             skip = lambda i: (  # noqa: E731
                 i in self._batch_cache or devcache.contains(self._devcache_key(i)))
-        return PrefetchPipeline(self.data, self.device, lambda: self.MAX_INFLIGHT,
-                                epoch=epoch, job_id=self.job_id, skip_stage_fn=skip)
+        return PrefetchPipeline(self.data, self.device, self._inflight_cap,
+                                epoch=epoch, job_id=self.job_id, net_scope=net_scope,
+                                skip_stage_fn=skip)
 
     def _host_batch(self, batch_idx: int, batch):
         """``batch`` when the stream carried it, else re-materialized from the
@@ -1094,41 +1154,132 @@ class WorkerTasklet:
         ev.record(torch.cuda.current_stream(self.device))
         return ev
 
-    def _dispatch_epoch_batches(self, epoch: int) -> List[Dict[str, torch.Tensor]]:
-        """One epoch's steps, enqueued with no drain; past ``MAX_INFLIGHT``
-        outstanding steps each dispatch waits for the oldest one."""
+    # -- admission ---------------------------------------------------------
+
+    def _taskunit_scope(self, kind: str):
+        if self.taskunit is None:
+            return contextlib.nullcontext()
+        return self.taskunit.scope(kind)
+
+    def _turn(self):
+        """This worker's turnstile turn (lockstep jobs), else a no-op."""
+        if self.dispatch_turn is None:
+            return contextlib.nullcontext()
+        return self.dispatch_turn()
+
+    def _balanced_turns(self) -> bool:
+        """True when this worker must take no-op turns to keep the cyclic
+        turnstile's rotation aligned with a sibling's chief-only turns."""
+        return self.dispatch_turn is not None and self.ctx.num_workers > 1
+
+    def _inflight_cap(self) -> int:
+        """Steps a batched epoch keeps in flight. Under contention a deep
+        queue is the unfairness: another tenant's next unit would wait behind
+        this job's whole backlog, so contended jobs keep it shallow."""
+        if self.taskunit is not None and self.taskunit.contended():
+            return self.CONTENDED_INFLIGHT
+        return self.MAX_INFLIGHT
+
+    def _units_per_scope(self) -> int:
+        """Batches one COMP unit admits. One under an SSP gate (the gate is
+        per batch) and for an uncontended tenant; under contention the group
+        grows until a unit spans about ``UNIT_SPAN_TARGET`` seconds, stretched
+        toward the largest peer unit (at most 0.5 s), at most 8 batches: a
+        tenant pays about one peer unit's wait per own unit, so a cheap job
+        crosses the schedule fewer times."""
+        if self.batch_barrier is not None:
+            return 1
+        if self.taskunit is None or not self.taskunit.contended():
+            return 1
+        c = self._own_batch_cost
+        if c is None:
+            return 1
+        target = self.UNIT_SPAN_TARGET
+        peer = self.taskunit.peer_unit_cost()
+        if peer:
+            target = max(target, min(peer, 0.5))
+        return max(1, min(8, int(target / max(c, 1e-6))))
+
+    def _dispatch_epoch_batches(self, epoch: int
+                                ) -> Tuple[List[Dict[str, torch.Tensor]], bool]:
+        """One epoch's steps, enqueued with no drain. Before each batch the
+        SSP gate (``batch_barrier``); each batch group in a COMP unit, whose
+        scope admits the group's launches (the grant wait is not timed: its
+        in-scope seconds are reported as the unit's cost); past
+        ``_inflight_cap()`` outstanding steps each dispatch waits for the
+        oldest one. Returns the steps' metrics and the gate's stop flag."""
         hyper = self._hyper()
         pending: List[Dict[str, torch.Tensor]] = []
         marks: List[Optional[torch.cuda.Event]] = []
+        stop = False
         it = self._epoch_batch_stream(epoch)
         try:
-            for batch_idx, batch, staged in it:
-                pending.append(self._dispatch_batch(batch_idx, batch, hyper, staged))
-                marks.append(self._mark())
-                cap = self.MAX_INFLIGHT
-                if len(marks) >= cap and marks[len(marks) - cap] is not None:
-                    marks[len(marks) - cap].synchronize()
+            nxt = next(it, None)
+            while nxt is not None and not stop:
+                with self._turn():
+                    if self._pending_probe:
+                        # lockstep: the chief probes inside its first batch turn
+                        self._pending_probe = False
+                        self._probe_comm()
+                    if self.batch_barrier is not None:
+                        stop = self.batch_barrier(self._global_batch_idx)
+                        if stop:
+                            break
+                    group = self._units_per_scope()
+                    with self._taskunit_scope("COMP"):
+                        t_scope = time.perf_counter()
+                        done = 0
+                        while nxt is not None and done < group:
+                            batch_idx, batch, staged = nxt
+                            t0 = time.perf_counter()
+                            pending.append(
+                                self._dispatch_batch(batch_idx, batch, hyper, staged))
+                            marks.append(self._mark())
+                            cap = self._inflight_cap()
+                            if len(marks) >= cap and marks[len(marks) - cap] is not None:
+                                marks[len(marks) - cap].synchronize()
+                            dt = time.perf_counter() - t0
+                            self._own_batch_cost = (
+                                dt if self._own_batch_cost is None
+                                else 0.5 * self._own_batch_cost + 0.5 * dt)
+                            self._global_batch_idx += 1
+                            done += 1
+                            nxt = next(it, None) if done < group else None
+                        if self.taskunit is not None:
+                            self.taskunit.report_unit_cost(time.perf_counter() - t_scope)
+                if not stop:
+                    nxt = next(it, None)
         finally:
             it.close()
-        return pending
+        return pending, stop
 
     def _run_batched_epochs(self, first_epoch: int, k: int
-                            ) -> Tuple[List[List[float]], float]:
+                            ) -> Tuple[List[List[float]], float, bool]:
         """``k`` batched epochs with the trainer hook between them and ONE
-        drain; the async driver's fence closes every epoch. Returns each
-        epoch's per-batch metrics and the seconds split evenly."""
+        drain, in a NET unit; the async driver's fence closes every epoch.
+        Returns each epoch's per-batch metrics, the seconds split evenly and
+        whether the SSP gate stopped the job."""
         t0 = time.perf_counter()
         epochs = []
+        stop = False
         for j in range(k):
-            epochs.append(self._dispatch_epoch_batches(first_epoch + j))
+            pending, stop = self._dispatch_epoch_batches(first_epoch + j)
+            epochs.append(pending)
             if isinstance(self._step, AsyncStepDriver):
                 # every submitted delta applies before anything host-side
                 # observes the table
                 self._step.drain()
+            if stop:
+                break
             if j + 1 < k:
                 self.trainer.on_epoch_finished(self.ctx, first_epoch + j)
-        losses = self._drain(epochs)
-        return losses, (time.perf_counter() - t0) / k
+        # the drain is a transfer: a NET unit under tenancy (taken only when
+        # there is something to drain, as every worker of a job does alike)
+        scope = (self._taskunit_scope("NET") if any(epochs)
+                 else contextlib.nullcontext())
+        with self._turn(), scope:
+            losses = self._drain(epochs)
+        return losses, (time.perf_counter() - t0) / max(len(epochs), 1), stop
 
     # -- the loop ---------------------------------------------------------
 
@@ -1136,7 +1287,23 @@ class WorkerTasklet:
         ctx = self.ctx
         full_f32_matmuls()
         if self.global_init:
-            self.trainer.init_global_settings(ctx)
+            # the chief resolves the keyed push route first: its timed pushes
+            # run before any sibling dispatches (the siblings wait at the
+            # post-init barrier, then find the route in the autotune's cache).
+            # Outside any unit: on the card a unit would not keep a
+            # co-tenant's kernels out of the measurement anyway
+            self._push_route = self._resolve_push_route()
+            # global init writes the shared table: a CPU unit under tenancy
+            with self._turn(), self._taskunit_scope("CPU"):
+                self.trainer.init_global_settings(ctx)
+        elif self._balanced_turns() or self.taskunit is not None:
+            # siblings take the SAME unit with an empty body: the quorum needs
+            # every worker to wait on each (seq, kind), and the turnstile
+            # matching turn counts
+            with self._turn(), self._taskunit_scope("CPU"):
+                pass
+        if self.post_init_barrier is not None:
+            self.post_init_barrier()
         self.trainer.on_training_start(ctx, 0)
         self._build_step()
         try:
@@ -1154,23 +1321,46 @@ class WorkerTasklet:
         windows: List[int] = []
         started = time.perf_counter()
         epoch = 0
-        while epoch < params.num_epochs:
+        stop = False
+        while epoch < params.num_epochs and not stop:
             if (self.comm_probe_every and self.global_init and self._fused_mode()
                     and (self._probe_pull is None or epoch >= self._next_probe)):
                 self._next_probe = epoch + 8 * self.comm_probe_every
-                self._probe_comm()
+                if self.dispatch_turn is not None and not self._use_fused_epoch():
+                    # lockstep: inside the first batch turn (a separate
+                    # chief-only turn would skew the turnstile's rotation)
+                    self._pending_probe = True
+                else:
+                    # a CPU unit in single-worker jobs only: the probe is
+                    # chief-only, and a chief-only unit would misalign a
+                    # multi-worker quorum's unit sequences
+                    scope = (self._taskunit_scope("CPU") if ctx.num_workers == 1
+                             else contextlib.nullcontext())
+                    with self._turn(), scope:
+                        self._probe_comm()
             window = self._epoch_window_len(epoch, params.num_epochs)
             if self._use_fused_epoch():
                 losses, secs = self._run_fused_epochs(epoch, window)
             else:
-                losses, secs = self._run_batched_epochs(epoch, window)
-            windows.append(window)
+                losses, secs, stop = self._run_batched_epochs(epoch, window)
+                if stop and not losses[-1]:
+                    losses.pop()  # stopped before any batch: not an epoch at all
+            if losses:
+                windows.append(len(losses))
             for epoch_batches in losses:
                 batch_losses.extend(epoch_batches)
                 epoch_losses.append(epoch_batches[-1] if epoch_batches else 0.0)
                 epoch_seconds.append(secs)
-            # the window's last hook runs after its drain
-            self.trainer.on_epoch_finished(ctx, epoch + window - 1)
+            if losses:
+                # the window's last hook runs after its drain
+                self.trainer.on_epoch_finished(ctx, epoch + len(losses) - 1)
+            for e in range(epoch, epoch + len(losses)):
+                if self.epoch_callback is not None:
+                    with self._turn():
+                        self.epoch_callback(e)
+                elif self._balanced_turns():
+                    with self._turn():
+                        pass
             epoch += window
         finished = time.perf_counter()
         self.trainer.cleanup(ctx)
@@ -1195,6 +1385,12 @@ class WorkerTasklet:
             "input": dict(self._input),
             # the keyed push's route (None: all-mode, or a hash table's one route)
             "push_route": self._push_route,
+            # stopped by the SSP controller's stop broadcast
+            "stopped_early": stop,
+            # True: fused windows over the device stack; False: per-batch
+            # epochs (TaskUnit admission, an SSP gate, or a step or provider
+            # that needs them)
+            "fused_epochs": self._use_fused_epoch(),
         }
         if self._is_hash():
             result["overflow_count"] = ctx.model_table.overflow_count

@@ -13,6 +13,14 @@ scheduler hears of every finish. A job's entity comes from
 every visible card unless the caller passes another
 (``DevicePool([torch.device("cpu")])``).
 
+TaskUnit admission (``runtime/taskunit.py``): the server owns one
+``GlobalTaskUnitScheduler`` (the grant order across jobs) and one
+``LocalTaskUnitScheduler`` (1 CPU and 2 NET slots), and hands both to every
+entity, whose workers wrap each batch group, metric drain and init in a
+unit. Execution metering is on only when every executor is a CPU, where a
+scope's exit means its work is done; on the card a unit orders the host's
+launches and does not hold the device.
+
 Not ported yet: the TCP control plane, HA, the policy engine, overload
 control, history and doctor, metrics scraping and the serving plane
 (ROADMAP A.10).
@@ -33,6 +41,10 @@ from harmony_tpu_torch.jobserver.scheduler import (
 )
 from harmony_tpu_torch.parallel.mesh import DevicePool
 from harmony_tpu_torch.runtime.master import ETMaster
+from harmony_tpu_torch.runtime.taskunit import (
+    GlobalTaskUnitScheduler,
+    LocalTaskUnitScheduler,
+)
 
 
 class JobServer:
@@ -45,6 +57,8 @@ class JobServer:
         if isinstance(scheduler, str):
             scheduler = make_scheduler(scheduler)
         self.master = ETMaster(device_pool)  # the default pool raises without a card
+        self.global_taskunit = GlobalTaskUnitScheduler()
+        self.local_taskunit = LocalTaskUnitScheduler()  # 1 CPU, 2 NET slots
         self._scheduler = scheduler or ShareAllScheduler()
         self._num_executors = num_executors
         self._lock = threading.Lock()
@@ -62,6 +76,10 @@ class JobServer:
             if self._state != "NOT_INIT":
                 raise RuntimeError(f"server already started (state={self._state})")
             executors = self.master.add_executors(self._num_executors)
+            # execution metering is a blocking-backend concept (see
+            # GlobalTaskUnitScheduler.meter_execution)
+            self.global_taskunit.meter_execution = all(
+                e.device.type == "cpu" for e in executors)
             self._scheduler.bind([e.id for e in executors], self._launch)
             self._state = "INIT"
 
@@ -95,7 +113,8 @@ class JobServer:
     def _dispatch(self, config: JobConfig, executor_ids: List[str]) -> None:
         future = self._jobs[config.job_id]
         try:
-            entity = build_entity(config)
+            entity = build_entity(config, global_taskunit=self.global_taskunit,
+                                  local_taskunit=self.local_taskunit)
             try:
                 entity.setup(self.master, executor_ids)
                 result = entity.run()

@@ -21,13 +21,16 @@ over the five tables):
     read (the reference's donated swap).
 
 The superstep's two scalars (all halted, messages sent) come back in one
-device-to-host copy. The tables live on one device: there is no mesh
+device-to-host copy. Under a JobServer each superstep's launches run in a
+COMP TaskUnit (``taskunit``), so a graph job interleaves with its
+co-tenants superstep by superstep. The tables live on one device: there is no mesh
 argument (ROADMAP A.9).
 """
 from __future__ import annotations
 
+import contextlib
 import time
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -49,6 +52,7 @@ class PregelMaster:
         computation: Computation,
         device: DeviceLike = None,
         max_supersteps: int = 100,
+        taskunit: Optional[Any] = None,
         job_id: str = "pregel",
     ) -> None:
         if getattr(computation, "undirected", False):
@@ -62,6 +66,7 @@ class PregelMaster:
         self.comp = computation
         self.device = resolve_device(device)
         self.max_supersteps = max_supersteps
+        self.taskunit = taskunit
         self.job_id = job_id
         V = graph.num_vertices
 
@@ -133,7 +138,8 @@ class PregelMaster:
             cur, nxt = self._cur, 1 - self._cur
             tables = [self.vertex_table, self._msg_tables[cur], self._has_msg[cur],
                       self._msg_tables[nxt], self._has_msg[nxt]]
-            flags = DenseTable.apply_step_multi(tables, self._superstep, step)
+            with self._tu("COMP"):
+                flags = DenseTable.apply_step_multi(tables, self._superstep, step)
             self.superstep_count = step + 1
             self._cur = nxt  # the table swap (MessageManager.swap)
             all_halted, num_msgs = flags.tolist()    # the superstep's one host read
@@ -148,6 +154,11 @@ class PregelMaster:
     def vertex_values(self) -> np.ndarray:
         """The vertex table in vertex order, on the host: [V, state_dim]."""
         return self.vertex_table.pull_array().cpu().numpy()
+
+    def _tu(self, kind: str):
+        if self.taskunit is None:
+            return contextlib.nullcontext()
+        return self.taskunit.scope(kind)
 
     def close(self) -> None:
         """Release every device-resident table (vertices and both message

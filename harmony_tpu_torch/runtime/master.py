@@ -11,7 +11,7 @@ over several devices are not ported yet (ROADMAP A.9, A.10).
 from __future__ import annotations
 
 import threading
-from typing import Dict, List, Optional, Sequence, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -39,9 +39,13 @@ class ETMaster:
 
     def __init__(self, pool: Optional[DevicePool] = None) -> None:
         self._pool = pool or DevicePool()
-        self._lock = threading.Lock()
+        self._lock = threading.RLock()
         self._executors: Dict[str, Executor] = {}
         self._tables: Dict[str, Table] = {}
+        # Shared-table lifetime: get_or_create_table hands one table to
+        # several jobs, so its storage is freed only when the LAST holder
+        # drops it (a creator finishing first must not free a tenant's table).
+        self._table_refs: Dict[str, int] = {}
 
     # -- executors -------------------------------------------------------
 
@@ -90,13 +94,38 @@ class ETMaster:
             else:
                 table = DenseTable(TableSpec(config), devices.pop())
             self._tables[config.table_id] = table
+            self._table_refs[config.table_id] = 1
             return table
+
+    def get_or_create_table(self, config: TableConfig,
+                            executor_ids: Sequence[str]) -> Tuple[Table, bool]:
+        """Atomic check-then-create (two jobs racing to share one table id
+        must not both create it): the existing table with one more
+        reference, or a new one. Returns (table, created)."""
+        with self._lock:
+            if config.table_id in self._tables:
+                self._table_refs[config.table_id] += 1
+                return self._tables[config.table_id], False
+            return self.create_table(config, executor_ids), True
+
+    def get_table(self, table_id: str) -> Table:
+        with self._lock:
+            return self._tables[table_id]
 
     def table_ids(self) -> List[str]:
         with self._lock:
             return list(self._tables)
 
     def drop_table(self, table_id: str) -> None:
-        """Release a table's storage (idempotent)."""
+        """Release one reference; the storage is freed when the last holder
+        drops (idempotent once the table is gone)."""
         with self._lock:
-            self._tables.pop(table_id, None)
+            refs = self._table_refs.get(table_id)
+            if refs is None:
+                return
+            if refs > 1:
+                self._table_refs[table_id] = refs - 1
+                return
+            del self._table_refs[table_id]
+            table = self._tables.pop(table_id)
+        table.drop()

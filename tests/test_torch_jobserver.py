@@ -138,15 +138,17 @@ _GATES = {}
 
 
 class _Gated:
-    """A trainer whose global init first waits at the gate named ``gate``."""
+    """A trainer that waits at the gate named ``gate`` as its training starts,
+    after its global init (which runs in a CPU TaskUnit: on a CPU executor
+    the server meters those, one job's at a time while jobs contend)."""
 
     def __init__(self, gate, **kw):
         super().__init__(**kw)
         self.gate = gate
 
-    def init_global_settings(self, ctx):
+    def on_training_start(self, ctx, epoch):
         _GATES[self.gate].wait(timeout=30)
-        super().init_global_settings(ctx)
+        super().on_training_start(ctx, epoch)
 
 
 class GatedMLR(_Gated, mlr.MLRTrainer):
