@@ -159,6 +159,20 @@ Phases, in order; any failure ends the script with a non-zero exit code:
 3m. The ``lasso``, ``addvector`` and ``addinteger`` presets on the card and
    on the CPU: Lasso's losses within LOSS_ATOL, the AddVector and
    AddInteger tables at ``expected_value`` exactly.
+3r. Checkpoint chains through the JobServer with a ``chkp_root``: (a)
+   bench-fm-hash with a chain entry every epoch and the deferred offline
+   evaluation: the evaluations finite and falling, the chain consumed, one
+   K1 an entry at the evaluation, and the same chain files restored on the
+   CPU bit for bit with evaluations within CHAIN_EVAL_ATOL; (b) bench-widedeep
+   (dense), 1 epoch then resumed from its chain to 2: the losses and the
+   table the bits of the uninterrupted 2-epoch run; (c) a flipped byte in a
+   block of the newest entry (quarantined, the resume falls back one entry to
+   the same table) and a torn manifest (quarantined by the scan); (d) bench-lm
+   with a chain entry every epoch and the deferred evaluation (K4 on mma, no
+   K5): the snapshot's time on the training thread, the background write's
+   MB/s, the write and restore MB/s at 4 I/O threads and at 1, and the epoch
+   seconds with the chain beside phase 3b's. The codec that wrote the blocks
+   (``blk``, or ``npy`` without the native build) is printed.
 4. The sparse push route (``HARMONY_PUSH_VIA=sparse``): the Wide&Deep job
    of phase 3, which folds its pushes with K2.
 5. Where a step's time goes: a steady epoch of the Wide&Deep job on the host
@@ -181,7 +195,8 @@ Phases, in order; any failure ends the script with a non-zero exit code:
    (``launches_by_path``: bench-widedeep, bench-lm, bench-vit, bench-lm-moe,
    bench-generate, bench-trio,
    bench-fm-hash, sparse-lda-hash, fused-sparse-step, bench-gbt,
-   bench-pagerank, bench-shortest-path, bench-connected-components); K1-K3
+   bench-pagerank, bench-shortest-path, bench-connected-components,
+   bench-widedeep-2-workers, pagerank-beside-mlr, chain); K1-K3
    also carry ``device_ms``, ``library_device_ms``,
    ``library_deterministic_device_ms``, ``host_us`` and their timing at
    phase 2e's shapes, K4-K5b their timing at bench-vit's shape; the card's
@@ -195,6 +210,7 @@ import io
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2988,6 +3004,331 @@ def run_multiworker(trio_jobs, fused_trio):
     return launches, out
 
 
+# -- phase 3r: checkpoint chains -----------------------------------------------
+
+# bench-lm's deferred evaluation runs on one batch of its corpus (32 sequences
+# of 1,024 tokens, the training batch's shape) rather than all 128 sequences.
+LM_EVAL_DATA = {"num_seqs": 32, "seq_len": 1025, "vocab_size": 8192}
+# The hash chain's evaluations, card against CPU over the same chain files:
+# the same table bits on both, and the metrics are f32 sums over 32,768
+# examples taken in another order (CUDA's reductions against the CPU's).
+CHAIN_EVAL_ATOL = 1e-5
+
+
+def chain_server(root):
+    from harmony_tpu_torch.jobserver.server import JobServer
+    from harmony_tpu_torch.parallel.mesh import DevicePool
+
+    server = JobServer(1, device_pool=DevicePool([torch.device("cuda")]), chkp_root=root)
+    server.start()
+    return server
+
+
+def chain_codec(mgr, chkp_id):
+    """The codec that wrote the entry's blocks ("blk", the native CRC codec, or
+    "npy" where it did not build) and the bytes of its files on disk."""
+    d = mgr._dir_of(chkp_id)
+    names = os.listdir(d)
+    codecs = {n.rsplit(".", 1)[1] for n in names if n != "manifest.json"}
+    check(len(codecs) == 1, f"{chkp_id}: mixed block files {sorted(codecs)}")
+    return codecs.pop(), sum(os.path.getsize(os.path.join(d, n)) for n in names)
+
+
+def chain_entries_left(root, job_id):
+    return [d for sub in ("temp", "commit")
+            for d in os.listdir(os.path.join(root, job_id, sub))]
+
+
+def newest_entry(mgr):
+    infos = [mgr.info(c) for c in mgr.list_checkpoints()]
+    return max(infos, key=lambda i: (i.app_meta["epoch"], i.created_at))
+
+
+def restored_bits(mgr, master, chkp_id, executors):
+    """The entry restored on the card: its storage (dense) or (slot keys,
+    values) (hash), on the host."""
+    h = mgr.restore(master, chkp_id, executors, table_id=f"check:{chkp_id}")
+    try:
+        state = h.table.state if h.table.spec.config.sparse else (h.table.array,)
+        return [t.cpu() for t in state]
+    finally:
+        h.drop()
+
+
+def launch_counts(wrappers):
+    return {w.__name__: w.launches for w in wrappers}
+
+
+def run_chain_fm(root, wrappers):
+    """Phase 3r (a): bench-fm-hash with a chain entry every epoch and the
+    deferred evaluation; the same files restored on the CPU. Returns the
+    result and the launches of the training and of the evaluation."""
+    from harmony_tpu_torch.checkpoint import CheckpointManager
+    from harmony_tpu_torch.dolphin.evaluator import resolve_eval_inputs
+    from harmony_tpu_torch.parallel.mesh import DevicePool
+    from harmony_tpu_torch.runtime.master import ETMaster
+
+    config = hash_job("fm", EPOCHS, model_chkp_period=1, offline_model_eval=True)
+    server = chain_server(root)
+    try:
+        reset_counts(*wrappers)
+        res = server.submit(config).result(timeout=600)
+        train = launch_counts(wrappers)
+        ids = res["model_chkp_ids"]
+        check(len(ids) == EPOCHS and "model_chkp_warning" not in res,
+              f"bench-fm-hash chain {ids} {res.get('model_chkp_warning')}")
+        mgr = CheckpointManager.for_job(root, config.job_id)
+        codec, disk = zip(*(chain_codec(mgr, c) for c in ids))
+        cpu = ETMaster(DevicePool([torch.device("cpu")]))
+        cpu_ex = [e.id for e in cpu.add_executors(1)]
+        trainer, batch = resolve_eval_inputs(config)
+        cpu_metrics = []
+        for cid in ids:
+            card_sk, card_v = restored_bits(mgr, server.master, cid, server.master.executor_ids())
+            h = mgr.restore(cpu, cid, cpu_ex)
+            check(same_bits(card_sk, h.table.state[0]) and same_bits(card_v, h.table.state[1]),
+                  f"{cid}: the card's and the CPU's restores differ")
+            with torch.no_grad():
+                cpu_metrics.append({k: float(v) for k, v in
+                                    trainer.evaluate_sparse(h.table, batch).items()})
+            h.drop()
+        check(launch_counts(wrappers) == train, "a kernel launched in the restores' comparison")
+        reset_counts(*wrappers)
+        t0 = time.perf_counter()
+    finally:
+        server.shutdown(timeout=600)
+    eval_s = time.perf_counter() - t0
+    launches = launch_counts(wrappers)
+    evals = server.eval_results[config.job_id]
+    check(isinstance(evals, list) and len(evals) == EPOCHS, f"bench-fm-hash evals {evals}")
+    check(all(math.isfinite(m["loss"]) for m in evals) and evals[-1]["loss"] < evals[0]["loss"],
+          f"bench-fm-hash evals not finite and falling: {evals}")
+    gap = max(abs(a[k] - b[k]) for a, b in zip(evals, cpu_metrics) for k in a)
+    check(gap <= CHAIN_EVAL_ATOL, f"hash chain evals, card against CPU, differ by {gap}")
+    check(launches.get("gather_rows") == EPOCHS
+          and not any(v for k, v in launches.items() if k != "gather_rows"),
+          f"bench-fm-hash evaluation launches {launches}, expected one K1 an entry")
+    check(chain_entries_left(root, config.job_id) == [], "the evaluation left chain entries")
+    stats = res["model_chkp_stats"]
+    out = {"entries": len(ids), "codec": codec[0], "entry_bytes": [s["bytes"] for s in stats],
+           "entry_disk_bytes": list(disk), "evals": evals, "cpu_evals": cpu_metrics,
+           "max_abs_eval_gap_card_vs_cpu": gap, "evaluation_launches": launches,
+           "evaluation_seconds": eval_s, "snapshot_ms": [1e3 * s["snapshot_seconds"] for s in stats],
+           "write_mb_per_s": [s["bytes"] / s["write_seconds"] / 1e6 for s in stats],
+           "epoch_seconds": res["workers"][f"{config.job_id}/w0"]["epoch_seconds"]}
+    print(f"phase 3r (a): bench-fm-hash chain of {len(ids)} entries ({codec[0]} blocks, "
+          f"{out['entry_bytes']} bytes, {list(disk)} on disk), evaluated at shutdown "
+          f"{evals}, CPU restores bit-identical, CPU evals {cpu_metrics} (max gap {gap}), "
+          f"evaluation launches {launches}, chain consumed; {gpu_identity()}", flush=True)
+    return out, {"fm_train": train, "fm_eval": launches}
+
+
+def wd_chain_config(job_id, epochs, **user):
+    from harmony_tpu_torch import cli
+
+    config = cli.build_config("widedeep", cli.build_parser().parse_args(
+        SLICE_ARGS + ["--epochs", str(epochs), "--model-chkp-period", "1",
+                      "--job-id", job_id]))
+    return config.replace(user={**config.user, **user})
+
+
+def run_chain_widedeep(root, wrappers):
+    """Phase 3r (b) and (c): bench-widedeep resumed from its chain bit for bit,
+    then past a corrupt newest entry and a torn manifest. Returns the result
+    and the launches of the five runs."""
+    from harmony_tpu_torch.checkpoint import CheckpointManager
+
+    os.environ["HARMONY_PUSH_VIA"] = "mxu"
+    server = chain_server(root)
+    reset_counts(*wrappers)
+    try:
+        def run(job_id, epochs, **user):
+            res = server.submit(wd_chain_config(job_id, epochs, **user)).result(timeout=600)
+            (w,) = res["workers"].values()
+            return res, w
+
+        ex = server.master.executor_ids()
+        _, whole = run("wd-whole", EPOCHS)
+        _, first = run("wd-resumed", 1)
+        resumed_res, resumed = run("wd-resumed", EPOCHS, resume_from_chain=True)
+        check(resumed["starting_epoch"] == 1 and resumed["epochs_run"] == EPOCHS - 1,
+              f"resumed run {resumed['starting_epoch']}, {resumed['epochs_run']}")
+        check(first["batch_losses"] + resumed["batch_losses"] == whole["batch_losses"],
+              "the resumed run's losses are not the uninterrupted run's bits")
+        mgr_whole = CheckpointManager.for_job(root, "wd-whole")
+        mgr_res = CheckpointManager.for_job(root, "wd-resumed")
+        want = restored_bits(mgr_whole, server.master, newest_entry(mgr_whole).chkp_id, ex)
+        got = restored_bits(mgr_res, server.master, newest_entry(mgr_res).chkp_id, ex)
+        check(same_bits(want[0], got[0]), "the resumed table differs from the uninterrupted one")
+        codec, disk = chain_codec(mgr_whole, newest_entry(mgr_whole).chkp_id)
+        entry_bytes = resumed_res["model_chkp_stats"][0]["bytes"]
+        print(f"phase 3r (b): bench-widedeep resumed at epoch 1 from its chain: table "
+              f"bit-identical to the uninterrupted run's ({entry_bytes} bytes an entry, "
+              f"{disk} on disk, {codec} blocks), losses the same bits", flush=True)
+
+        # (c) a flipped byte in the newest entry of wd-whole
+        newest = newest_entry(mgr_whole).chkp_id
+        d = mgr_whole._dir_of(newest)
+        victim = os.path.join(d, sorted(n for n in os.listdir(d) if n != "manifest.json")[7])
+        raw = bytearray(open(victim, "rb").read())
+        raw[len(raw) // 2] ^= 0x01
+        open(victim, "wb").write(bytes(raw))
+        _, again = run("wd-whole", EPOCHS, resume_from_chain=True)
+        check(again["starting_epoch"] == 1, f"fallback resumed at {again['starting_epoch']}")
+        check(os.path.isdir(d + ".quarantined") and newest not in mgr_whole.list_checkpoints(),
+              f"{newest} was not quarantined")
+        got = restored_bits(mgr_whole, server.master, newest_entry(mgr_whole).chkp_id, ex)
+        check(same_bits(want[0], got[0]), "the fallback resume's table differs")
+        # a torn manifest: the scan quarantines it, the resume takes the entry before
+        torn = newest_entry(mgr_whole).chkp_id
+        with open(os.path.join(mgr_whole._dir_of(torn), "manifest.json"), "r+") as f:
+            f.truncate(30)
+        _, third = run("wd-whole", EPOCHS, resume_from_chain=True)
+        check(third["starting_epoch"] == 1 and torn not in mgr_whole.list_checkpoints()
+              and os.path.isdir(os.path.join(mgr_whole.commit_root, torn + ".quarantined")),
+              f"torn manifest {torn}: resumed at {third['starting_epoch']}")
+        print(f"phase 3r (c): a flipped byte in {os.path.basename(victim)} of {newest}: "
+              f"quarantined, resumed from the entry before at epoch 1 to the same table; "
+              f"a torn manifest ({torn}) quarantined by the scan", flush=True)
+    finally:
+        os.environ.pop("HARMONY_PUSH_VIA")
+        server.shutdown(timeout=600)
+    return {"entry_bytes": entry_bytes, "entry_disk_bytes": disk, "codec": codec,
+            "resume_bit_identical": True, "corrupt_entry_quarantined": True,
+            "torn_manifest_quarantined": True}, {"wd_runs": launch_counts(wrappers)}
+
+
+def file_yardstick(entry_dir, scratch):
+    """The filesystem under the chain root, for the entry's file count and
+    sizes: one thread writes a copy of each of the entry's files with plain
+    open/write (no codec, no checksum, no commit), then reads them back."""
+    blobs = [open(os.path.join(entry_dir, n), "rb").read() for n in sorted(os.listdir(entry_dir))]
+    os.makedirs(scratch)
+    t0 = time.perf_counter()
+    for i, blob in enumerate(blobs):
+        with open(os.path.join(scratch, f"{i}.bin"), "wb") as f:
+            f.write(blob)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for i in range(len(blobs)):
+        with open(os.path.join(scratch, f"{i}.bin"), "rb") as f:
+            f.read()
+    read_s = time.perf_counter() - t0
+    shutil.rmtree(scratch)
+    nbytes = sum(len(b) for b in blobs)
+    return {"files": len(blobs), "bytes": nbytes, "write_s": write_s, "read_s": read_s,
+            "write_files_per_s": len(blobs) / write_s, "read_files_per_s": len(blobs) / read_s,
+            "write_mb_per_s": nbytes / write_s / 1e6}
+
+
+def run_chain_lm(root, wrappers, lm_summary):
+    """Phase 3r (d): bench-lm with a chain entry every epoch and the deferred
+    evaluation (K4 on mma, forward only); the snapshot's time on the training
+    thread, write and restore MB/s at 4 I/O threads and at 1, and the epoch
+    seconds beside phase 3b's run without a chain."""
+    from harmony_tpu_torch import cli
+    from harmony_tpu_torch.checkpoint import CheckpointManager
+    from harmony_tpu_torch.ops import attention as A
+
+    config = cli.build_config("lm", cli.build_parser().parse_args(
+        LM_ARGS + ["--model-chkp-period", "1", "--offline-eval"]))
+    config = config.replace(user={**config.user, "test_data_args": LM_EVAL_DATA})
+    server = chain_server(root)
+    io = {}
+    try:
+        reset_counts(*wrappers)
+        res = server.submit(config).result(timeout=900)
+        train = launch_counts(wrappers)
+        ids = res["model_chkp_ids"]
+        check(len(ids) == EPOCHS and "model_chkp_warning" not in res,
+              f"bench-lm chain {ids} {res.get('model_chkp_warning')}")
+        mgr = CheckpointManager.for_job(root, config.job_id)
+        codec, disk = chain_codec(mgr, ids[-1])
+        ex = server.master.executor_ids()
+        nbytes = res["model_chkp_stats"][-1]["bytes"]
+        fs = file_yardstick(mgr._dir_of(ids[-1]), os.path.join(root, "fs"))
+        for threads in (4, 1):
+            os.environ["HARMONY_CHKP_IO_THREADS"] = str(threads)
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                h = mgr.restore(server.master, ids[-1], ex, table_id=f"io-{threads}")
+                torch.cuda.synchronize()
+                restore_s = time.perf_counter() - t0
+                side = CheckpointManager(os.path.join(root, f"io{threads}", "temp"),
+                                         os.path.join(root, f"io{threads}", "commit"))
+                t0 = time.perf_counter()
+                cid = side.checkpoint(h)
+                stage_s = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                side.commit(cid)
+                commit_s = time.perf_counter() - t0
+                h.drop()
+            finally:
+                os.environ.pop("HARMONY_CHKP_IO_THREADS")
+            check(launch_counts(wrappers) == train, "a kernel launched in the I/O timing")
+            io[threads] = {"restore_mb_per_s": nbytes / restore_s / 1e6,
+                           "stage_mb_per_s": nbytes / stage_s / 1e6,
+                           "write_mb_per_s": nbytes / (stage_s + commit_s) / 1e6,
+                           "restore_s": restore_s, "stage_s": stage_s, "commit_s": commit_s}
+        reset_counts(*wrappers)
+        t0 = time.perf_counter()
+    finally:
+        server.shutdown(timeout=900)
+    eval_s = time.perf_counter() - t0
+    launches = launch_counts(wrappers)
+    routes = dict(A.flash_forward.launches_by_route)
+    evals = server.eval_results[config.job_id]
+    check(isinstance(evals, list) and len(evals) == EPOCHS
+          and all(math.isfinite(m["loss"]) for m in evals), f"bench-lm evals {evals}")
+    expected = dict.fromkeys(launches, 0)
+    expected["flash_forward"] = EPOCHS * LM_LAYERS
+    check(launches == expected and routes == {"mma": EPOCHS * LM_LAYERS, "simt": 0},
+          f"bench-lm evaluation launches {launches} by route {routes}, expected {expected}")
+    (w,) = res["workers"].values()
+    stats = res["model_chkp_stats"]
+    out = {"entries": len(ids), "codec": codec, "entry_bytes": [s["bytes"] for s in stats],
+           "entry_disk_bytes": disk, "evals": evals, "evaluation_launches": launches,
+           "evaluation_seconds": eval_s,
+           "snapshot_ms": [1e3 * s["snapshot_seconds"] for s in stats],
+           "background_write_mb_per_s": [s["bytes"] / s["write_seconds"] / 1e6 for s in stats],
+           "io_threads": io, "filesystem_yardstick": fs, "epoch_seconds": w["epoch_seconds"],
+           "epoch_seconds_without_chain": lm_summary["epoch_seconds"],
+           "card": gpu_identity()}
+    print(f"phase 3r (d): bench-lm chain of {len(ids)} entries of {out['entry_bytes']} bytes "
+          f"({codec} blocks, {disk} on disk): snapshot {out['snapshot_ms']} ms on the "
+          f"training thread, background write {out['background_write_mb_per_s']} MB/s "
+          f"(4 threads), sync write and restore by I/O threads {json.dumps(io)}, the "
+          f"filesystem's plain writes and reads of the entry's files {json.dumps(fs)}, epoch "
+          f"seconds {w['epoch_seconds']} with the chain and {lm_summary['epoch_seconds']} "
+          f"without (phase 3b); deferred evaluation {evals} in {eval_s:.2f} s, launches "
+          f"{launches} (K4 on mma, no K5); {out['card']}", flush=True)
+    return out, {"lm_train": train, "lm_eval": launches}
+
+
+def run_chains(lm_summary):
+    """Phase 3r: checkpoint chains through the JobServer on the card, under a
+    temporary chkp_root. Returns the ``chain`` path's launches (every job and
+    evaluation of the phase, each stage read with the counts set to 0 just
+    before it) and the phase's results."""
+    import tempfile
+
+    wrappers = all_wrappers()
+    root = tempfile.mkdtemp(prefix="chip-smoke-chains-")
+    stages = {}
+    try:
+        fm, s = run_chain_fm(os.path.join(root, "fm"), wrappers)
+        stages.update(s)
+        wd, s = run_chain_widedeep(os.path.join(root, "wd"), wrappers)
+        stages.update(s)
+        lm, s = run_chain_lm(os.path.join(root, "lm"), wrappers, lm_summary)
+        stages.update(s)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches = {w.__name__: sum(s[w.__name__] for s in stages.values()) for w in wrappers}
+    return launches, {"fm_hash": fm, "widedeep": wd, "lm": lm, "launches_by_stage": stages}
+
+
 def float_bits(values):
     """The f32 bit patterns of a list of floats (NaN payloads included)."""
     return np.asarray(values, dtype=np.float32).view(np.uint32).tolist()
@@ -3330,6 +3671,8 @@ def main() -> int:
     mw_launches, multiworker = run_multiworker(
         trio_jobs, {k: v["batch_losses"] for k, v in fused_trio.items()})
     print("multi-worker: " + json.dumps(multiworker), flush=True)
+    chain_launches, chains = run_chains(lm_summary)
+    print("chains: " + json.dumps(chains), flush=True)
     by_path = {name: {"bench-widedeep": launches.get(name, 0),
                       "bench-lm": lm_launches[name],
                       "bench-vit": vit_launches[name],
@@ -3342,7 +3685,8 @@ def main() -> int:
                       "bench-gbt": gbt["launches"].get(name, 0),
                       **{f"bench-{app}": entry["launches"].get(name, 0)
                          for app, entry in pregel["full"].items()},
-                      **{path: counts.get(name, 0) for path, counts in mw_launches.items()}}
+                      **{path: counts.get(name, 0) for path, counts in mw_launches.items()},
+                      "chain": chain_launches[name]}
                for name in lm_launches}
     print("profile: " + json.dumps(profile_slice()), flush=True)
     print("lm profile: " + json.dumps(profile_lm()), flush=True)

@@ -223,13 +223,13 @@ class FMTrainer(Trainer):
     def evaluate_sparse(self, table, batch) -> Dict[str, torch.Tensor]:
         """Evaluation against a hash-backed model: a read-only lookup of the
         rows the batch names (evaluation admits no key), then the dense metric
-        math on the pulled-row layout."""
+        math on the pulled-row layout, on the table's device."""
         ids, y = (np.asarray(a) for a in batch)
         keys = np.concatenate([ids.reshape(-1), self.extra_base
                                + np.arange(self.num_extra_rows, dtype=np.int64)])
-        rows = torch.as_tensor(table.multi_get(keys))
+        rows = torch.as_tensor(table.multi_get(keys), device=table.device)
         logits = self._scores(*self._split(rows, ids.shape[0]))
-        y = torch.as_tensor(y)
+        y = torch.as_tensor(y, device=table.device)
         acc = torch.mean((((logits > 0).float()) == y).float())
         return {"loss": _logistic_loss(logits, y), "accuracy": acc}
 

@@ -12,12 +12,17 @@ key=value`` (app hyper-parameters) and ``--data key=value`` (data or graph
 arguments). A graph app reads an edge-list file with ``--graph-file`` and
 stops after ``--max-supersteps``. ``--workers`` sets the job's workers (0,
 the default, is one per executor: one) and ``--slack`` the SSP clock slack
-of a multi-worker job (0 is BSP). The job runs on the card unless ``--device
-cpu`` is given; with no card it raises. The reference's dolphin-only flags
-(``--optimizer``, ``--model-chkp-period``, ``--offline-eval``,
-``--auto-resume``), which it refuses on graph apps, are not ported.
+of a multi-worker job (0 is BSP). ``--model-chkp-period N`` chains a
+snapshot of the model table every N epochs (into a temporary directory, as
+the reference's ``run`` does), and ``--offline-eval`` evaluates the chain at
+the server's shutdown; both apply to training apps only, and
+``--offline-eval`` needs a period. The job runs on the card unless
+``--device cpu`` is given; with no card it raises. The reference's
+``--optimizer`` and ``--auto-resume`` are not ported.
 
-Prints ``{"job_id": ..., "result": ...}`` as one JSON line.
+Prints ``{"job_id": ..., "result": ...}`` as one JSON line, with
+``"offline_eval"`` (the chain's evaluations) when ``--offline-eval`` is
+given.
 """
 from __future__ import annotations
 
@@ -173,6 +178,17 @@ def _parse_kv(pairs: List[str]) -> Dict[str, Any]:
 
 def build_config(app: str, args: argparse.Namespace) -> JobConfig:
     preset = PRESETS[app]
+    period = getattr(args, "model_chkp_period", 0)
+    offline_eval = getattr(args, "offline_eval", False)
+    # dolphin-only flags fail loudly on graph apps, before any work
+    if preset["app_type"] == "pregel" and (period or offline_eval):
+        raise SystemExit(
+            "--model-chkp-period / --offline-eval apply to dolphin (training) "
+            "apps only; pregel jobs have no model table or checkpoint chain")
+    if offline_eval and period <= 0:
+        raise SystemExit(
+            "--offline-eval needs --model-chkp-period > 0: deferred evaluation "
+            "replays the checkpoint chain, and 0 chains nothing")
     set_kv, data_kv = _parse_kv(args.set), _parse_kv(args.data)
     app_params = {**preset["app_params"], **set_kv}
     if preset["app_type"] == "pregel":
@@ -216,6 +232,8 @@ def _job_config(app: str, args: argparse.Namespace, preset: Dict[str, Any],
             num_epochs=args.epochs,
             num_mini_batches=args.batches,
             clock_slack=getattr(args, "slack", 0),
+            model_chkp_period=getattr(args, "model_chkp_period", 0),
+            offline_model_eval=getattr(args, "offline_eval", False),
             app_params=app_params,
         ),
         # callers that build the namespace themselves may leave both out
@@ -247,8 +265,11 @@ def _cmd_run(args: argparse.Namespace) -> int:
     try:
         result = server.submit(cfg).result()
     finally:
-        server.shutdown()
-    print(json.dumps({"job_id": cfg.job_id, "result": _jsonable(result)}))
+        server.shutdown()  # runs the deferred offline evaluation
+    out = {"job_id": cfg.job_id, "result": _jsonable(result)}
+    if cfg.params.offline_model_eval:
+        out["offline_eval"] = server.eval_results.get(cfg.job_id)
+    print(json.dumps(out))
     return 0
 
 
@@ -275,6 +296,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="edge-list file (graph apps; replaces the synthetic graph)")
     p.add_argument("--max-supersteps", type=int, default=100,
                    help="superstep bound of a graph app")
+    p.add_argument("--model-chkp-period", type=int, default=0,
+                   help="snapshot the model table every N epochs (0 = off)")
+    p.add_argument("--offline-eval", action="store_true",
+                   help="evaluate the checkpoint chain at the server's shutdown")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu; the CPU runs only when asked for")
     return ap

@@ -6,6 +6,7 @@ for one package reads the same in the other.
 """
 from __future__ import annotations
 
+import os
 from dataclasses import field
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -26,11 +27,17 @@ class TableConfig(ConfigBase):
     dtype: str = "float32"
     num_blocks: int = DEFAULT_NUM_BLOCKS
     is_ordered: bool = True            # range partitioner; False = hash
+    is_mutable: bool = True
     update_fn: str = "add"             # name in table.update registry
     # Sparse key domain: back the table with a capacity-bounded hash table
     # (table/hashtable.py::DeviceHashTable); getOrInit admits any key of
     # [MIN_KEY, MAX_KEY] and ``capacity`` bounds slots, not the key domain.
     sparse: bool = False
+    # Bulk-load source (the reference's FilePath / BulkDataLoader binding).
+    # Carried so that a checkpoint manifest holds the reference's keys; the
+    # port's loaders are not ported yet (ROADMAP A.7b).
+    input_path: Optional[str] = None
+    parser: Optional[str] = None       # dotted path of a DataParser
 
     def __post_init__(self) -> None:
         if self.capacity <= 0:
@@ -46,6 +53,50 @@ class TableConfig(ConfigBase):
 
 
 @config
+class RetryPolicy(ConfigBase):
+    """Bounded retry with exponential backoff and jitter for transient I/O
+    faults (checkpoint block reads and writes; ``faults/retry.py``'s
+    ``call_with_retry``): attempt, sleep ``base_delay_sec``, attempt, sleep
+    ``base_delay_sec * multiplier``, ... capped at ``max_delay_sec``, at most
+    ``max_attempts`` attempts, each sleep stretched by up to ``jitter`` of
+    itself. Exhaustion raises ``RetryError``."""
+
+    max_attempts: int = 4
+    base_delay_sec: float = 0.05
+    max_delay_sec: float = 2.0
+    multiplier: float = 2.0
+    jitter: float = 0.25
+
+    def __post_init__(self) -> None:
+        if self.max_attempts < 1:
+            raise ValueError("max_attempts must be >= 1")
+        if self.base_delay_sec < 0 or self.max_delay_sec < 0:
+            raise ValueError("delays must be non-negative")
+        if self.multiplier < 1.0:
+            raise ValueError("multiplier must be >= 1 (backoff, not decay)")
+        if not (0.0 <= self.jitter <= 1.0):
+            raise ValueError("jitter is a fraction in [0, 1]")
+
+    _ENV_FIELDS = (
+        ("max_attempts", "HARMONY_RETRY_MAX_ATTEMPTS", int),
+        ("base_delay_sec", "HARMONY_RETRY_BASE_DELAY", float),
+        ("max_delay_sec", "HARMONY_RETRY_MAX_DELAY", float),
+        ("multiplier", "HARMONY_RETRY_MULTIPLIER", float),
+        ("jitter", "HARMONY_RETRY_JITTER", float),
+    )
+
+    @classmethod
+    def from_env(cls) -> "RetryPolicy":
+        """The defaults, overridden by the ``HARMONY_RETRY_*`` env vars."""
+        kv = {}
+        for field_name, var, cast in cls._ENV_FIELDS:
+            raw = os.environ.get(var)
+            if raw is not None:
+                kv[field_name] = cast(raw)
+        return cls(**kv)
+
+
+@config
 class TrainerParams(ConfigBase):
     """Dolphin hyper-parameter block: an epoch is split into exactly
     ``num_mini_batches`` batches; ``app_params`` are the trainer's constructor
@@ -58,6 +109,12 @@ class TrainerParams(ConfigBase):
     num_epochs: int = 1
     num_mini_batches: int = 10
     clock_slack: int = 0              # SSP staleness bound; 0 = BSP
+    # Checkpoint chain (dolphin/evaluator.py::ModelChkpManager): 0 = off; N =
+    # snapshot the model table every N epochs from the chief's epoch hook.
+    model_chkp_period: int = 0
+    # Replay the chain through the trainer's evaluate at JobServer shutdown
+    # (the deferred offline evaluation; server.eval_results holds it).
+    offline_model_eval: bool = False
     # Comm/comp split probe period in epochs (WorkerTasklet._probe_comm): the
     # probe times the table's PULL alone and PULL+PUSH of a zero delta on a
     # copy of the table, at the first epoch and then every 8 x period epochs,

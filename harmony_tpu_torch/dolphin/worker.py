@@ -31,7 +31,10 @@ batched epoch: batches come from the device batch cache, the prefetch
 pipeline (``dolphin/prefetch.py``) or the provider in line, at most
 ``MAX_INFLIGHT`` steps in flight. The comm probe (``_probe_comm``) times the
 table's PULL and PULL+PUSH on the fused path at the first epoch and every
-``8 x comm_probe_period`` epochs.
+``8 x comm_probe_period`` epochs. The epoch callback runs after its epoch's
+drain, in epoch order; one that must see each epoch's own table (a
+checkpoint chain, ``defer_epoch_callback=False``) keeps every window at one
+epoch. A run resumed from a chain starts at ``starting_epoch``.
 
 A hash-backed model table (``DeviceHashTable``) takes the keyed core
 ``_hash_pull_push``: getOrInit pull (K1 at the resolved slots), compute, the
@@ -540,6 +543,8 @@ class WorkerTasklet:
         post_init_barrier: Optional[Callable[[], Any]] = None,
         dispatch_turn: Optional[Callable[[], Any]] = None,
         epoch_callback: Optional[Callable[[int], None]] = None,
+        starting_epoch: int = 0,
+        defer_epoch_callback: bool = False,
     ) -> None:
         self.job_id = job_id
         self.ctx = ctx
@@ -558,10 +563,16 @@ class WorkerTasklet:
         self.taskunit = taskunit
         # a callable returning this worker's turnstile turn (lockstep jobs)
         self.dispatch_turn = dispatch_turn
-        # host accounting after each epoch's drain, in epoch order (the
-        # entity's progress tracker); it reads no table state, so windows
-        # may defer it
+        # called after each epoch's drain, in epoch order. Deferrable (the
+        # entity's progress tracker: host accounting only): windows may run
+        # it after a multi-epoch window drains. Not deferrable (a checkpoint
+        # chain, which snapshots the table AT its epoch): windows stay at one
+        # epoch, so the hook sees each epoch's own state
         self.epoch_callback = epoch_callback
+        self.defer_epoch_callback = defer_epoch_callback
+        # the first epoch this run trains (a resume continues a chain there;
+        # the reference's StartingEpochIdx)
+        self.starting_epoch = starting_epoch
         self._pending_probe = False  # a probe deferred into the first batch turn
         self._global_batch_idx = 0
         # this worker's EWMA seconds a batch, sizing its batch groups
@@ -971,19 +982,23 @@ class WorkerTasklet:
         phase, so a window would only batch the drain) and with a windowable
         trainer hook (``Trainer._epoch_hook_windowable``). A window never
         crosses a comm-probe epoch: the probe measures the live table between
-        dispatches. An SSP gate decides per batch: no window."""
+        dispatches. An SSP gate decides per batch, and an epoch callback that
+        must see each epoch's state (``defer_epoch_callback=False``) runs at
+        every epoch: no window."""
         if self.batch_barrier is not None:
             return 1
         if not self._fused_mode():
             return 1
         if not Trainer._epoch_hook_windowable(self.trainer):
             return 1
+        if self.epoch_callback is not None and not self.defer_epoch_callback:
+            return 1
         w = min(self.EPOCH_WINDOW, num_epochs - epoch)
         if self.comm_probe_every and self.global_init:
             if self._probe_pull is None:
                 w = min(w, 1)  # a probe is due at this epoch boundary
             else:
-                until = self._next_probe - epoch
+                until = self._next_probe - (epoch - self.starting_epoch)
                 if until > 0:
                     w = min(w, until)
         return max(1, w)
@@ -1304,7 +1319,7 @@ class WorkerTasklet:
                 pass
         if self.post_init_barrier is not None:
             self.post_init_barrier()
-        self.trainer.on_training_start(ctx, 0)
+        self.trainer.on_training_start(ctx, self.starting_epoch)
         self._build_step()
         try:
             with torch.no_grad():  # compute takes its own gradient
@@ -1320,12 +1335,13 @@ class WorkerTasklet:
         epoch_seconds: List[float] = []
         windows: List[int] = []
         started = time.perf_counter()
-        epoch = 0
+        epoch = self.starting_epoch
         stop = False
         while epoch < params.num_epochs and not stop:
+            since = epoch - self.starting_epoch
             if (self.comm_probe_every and self.global_init and self._fused_mode()
-                    and (self._probe_pull is None or epoch >= self._next_probe)):
-                self._next_probe = epoch + 8 * self.comm_probe_every
+                    and (self._probe_pull is None or since >= self._next_probe)):
+                self._next_probe = since + 8 * self.comm_probe_every
                 if self.dispatch_turn is not None and not self._use_fused_epoch():
                     # lockstep: inside the first batch turn (a separate
                     # chief-only turn would skew the turnstile's rotation)
@@ -1369,6 +1385,8 @@ class WorkerTasklet:
                 else "fused" if self._fused_on else "unfused")
         result = {
             "job_id": self.job_id,
+            # this run trained epochs [starting_epoch, starting_epoch + epochs_run)
+            "starting_epoch": self.starting_epoch,
             "epochs_run": len(epoch_losses),
             "losses": epoch_losses,
             "batch_losses": batch_losses,

@@ -34,13 +34,29 @@ bounds the run; a Computation whose ``__init__`` takes ``graph`` gets it. Its
 ``PregelMaster`` holds the vertex and message tables on the executors' device
 and takes a COMP unit a superstep; cleanup closes it, which drops them.
 
-Not ported yet: checkpoint chains and resume (ROADMAP A.7), elastic recovery,
-the optimizer loop, metric sinks and the pod branch (A.9, A.10).
+Checkpoint chains (``TrainerParams.model_chkp_period`` = N): the chief's
+epoch hook snapshots the model table every N epochs into the job's chain
+under the server's ``chkp_root`` (a temporary directory without one),
+asynchronously (``dolphin/evaluator.py::ModelChkpManager``), and the
+worker's windows stay at one epoch so each snapshot holds its own epoch's
+state; the result lists the chain (``model_chkp_ids``, ``model_chkp_root``,
+``model_chkp_stats``). A job submitted with ``user["resume_from_chain"]``
+rebuilds its model table from the newest committed entry of its chain (a
+corrupt or torn entry is quarantined and the previous one tried), skips the
+global init and continues at that entry's epoch + 1. With
+``offline_model_eval``, :meth:`DolphinJobEntity.deferred_evaluation` hands
+the JobServer the closure that evaluates the chain at shutdown and deletes
+it.
+
+Not ported yet: elastic recovery, the optimizer loop, metric sinks and the
+pod branch (ROADMAP A.9, A.10).
 """
 from __future__ import annotations
 
 import contextlib
 import inspect
+import logging
+import tempfile
 import threading
 import time
 from typing import Any, Dict, List, Optional
@@ -61,13 +77,15 @@ from harmony_tpu_torch.dolphin.master import (
 from harmony_tpu_torch.dolphin.trainer import Trainer, TrainerContext
 from harmony_tpu_torch.dolphin.worker import WorkerTasklet
 from harmony_tpu_torch.pregel.master import PregelMaster
-from harmony_tpu_torch.runtime.master import ETMaster, Table
+from harmony_tpu_torch.runtime.master import ETMaster, Table, TableHandle
 from harmony_tpu_torch.runtime.taskunit import (
     GlobalTaskUnitScheduler,
     LocalTaskUnitScheduler,
     TaskUnitClient,
 )
 from harmony_tpu_torch.table.table import DenseTable
+
+log = logging.getLogger(__name__)
 
 
 class DolphinJobEntity:
@@ -76,10 +94,18 @@ class DolphinJobEntity:
         config: JobConfig,
         global_taskunit: Optional[GlobalTaskUnitScheduler] = None,
         local_taskunit: Optional[LocalTaskUnitScheduler] = None,
+        chkp_root: Optional[str] = None,
     ) -> None:
         self.config = config
         self._global_tu = global_taskunit
         self._local_tu = local_taskunit
+        # where the job's checkpoint chain lives (None: a temporary directory)
+        self.chkp_root = chkp_root
+        self._starting_epoch = 0       # > 0 when resumed from a chain
+        self._chkp_counter_base = 0    # a resumed chain continues its numbering
+        self._chkp_mgr = None
+        self._chkp_chain = None
+        self._chkp_dir: Optional[str] = None
         self._master: Optional[ETMaster] = None
         self._table: Optional[Table] = None
         self._local: Optional[DenseTable] = None
@@ -152,6 +178,13 @@ class DolphinJobEntity:
             # an explicit table id is shared state: reuse the table if it
             # exists (the reference reuses same-id tables across jobs)
             self._table, _ = master.get_or_create_table(cfg.tables[0], executor_ids)
+        elif cfg.user.get("resume_from_chain"):
+            if probe.uses_local_table:
+                raise ValueError(
+                    f"job {cfg.job_id}: resume_from_chain does not cover "
+                    "worker-local tables (their state is not chained)")
+            self._table, self._starting_epoch, self._chkp_counter_base = (
+                self._restore_chain(master, executor_ids))
         else:
             self._table = self._create(master, probe.model_table_config(), executor_ids)
         if probe.uses_local_table:
@@ -182,8 +215,133 @@ class DolphinJobEntity:
         ctx = TrainerContext(params=cfg.params, model_table=self._table,
                              local_table=self._local, worker_id=f"{cfg.job_id}/w{idx}",
                              num_workers=num_workers)
+        # a resumed job must not run global init again: the restored table
+        # holds trained state, and an additive init would change it
         return WorkerTasklet(cfg.job_id, ctx, self._make_trainer(), data,
-                             global_init=(idx == 0), **worker_args)
+                             global_init=(idx == 0 and self._starting_epoch == 0),
+                             starting_epoch=self._starting_epoch, **worker_args)
+
+    # -- checkpoint chains -------------------------------------------------
+
+    def _chain_scan(self, why: str):
+        """The job's epoch-tagged chain entries under ``chkp_root``, newest
+        first by the epoch tag (``created_at`` breaks ties), and the counter
+        base past every existing entry. A torn manifest is quarantined
+        during the scan. Returns (manager, ordered infos, counter base)."""
+        from harmony_tpu_torch.checkpoint.manager import (
+            CheckpointCorruptError,
+            CheckpointManager,
+        )
+
+        cfg = self.config
+        if self.chkp_root is None:
+            raise ValueError(f"job {cfg.job_id}: {why} needs the server's chkp_root "
+                             "(the chain lives there)")
+        mgr = CheckpointManager.for_job(self.chkp_root, cfg.job_id)
+        infos = []
+        for cid in mgr.list_checkpoints():
+            if not cid.startswith(f"{cfg.job_id}:"):
+                continue
+            try:
+                info = mgr.info(cid)
+            except CheckpointCorruptError as e:
+                # a torn manifest can never restore: quarantine it now, so no
+                # later scan trips on it either
+                log.warning("job %s: chain entry %s has a torn manifest (%s); "
+                            "quarantined", cfg.job_id, cid, e)
+                mgr.quarantine(cid)
+                continue
+            if info.app_meta is None or "epoch" not in info.app_meta:
+                continue  # not a chain entry
+            infos.append(info)
+        if not infos:
+            raise ValueError(f"job {cfg.job_id}: {why} found no epoch-tagged chain "
+                             f"checkpoints under {self.chkp_root}")
+
+        def counter_of(cid: str) -> int:
+            try:
+                return int(cid.rsplit("-", 2)[1])
+            except (ValueError, IndexError):
+                return 0
+
+        base = max(counter_of(i.chkp_id) for i in infos)
+        ordered = sorted(infos, key=lambda i: (int(i.app_meta["epoch"]), i.created_at),
+                         reverse=True)
+        return mgr, ordered, base
+
+    def _restore_chain(self, master: ETMaster, executor_ids: List[str]):
+        """Rebuild the model table from the newest chain entry that restores;
+        a corrupt or torn entry is quarantined and the previous one tried.
+        The entry tagged epoch e covers epochs 0..e, so training resumes at
+        e + 1; a single-worker resume is exact (the snapshot is a clean
+        epoch cut). Returns (table, starting_epoch, counter_base)."""
+        from harmony_tpu_torch.checkpoint.manager import CheckpointCorruptError
+
+        mgr, ordered, base = self._chain_scan("resume_from_chain")
+        failures = []
+        for info in ordered:
+            try:
+                handle = mgr.restore(master, info.chkp_id, executor_ids)
+            except (CheckpointCorruptError, FileNotFoundError) as e:
+                log.warning("job %s: chain entry %s is corrupt or torn (%s: %s); "
+                            "quarantined, falling back to the previous entry",
+                            self.config.job_id, info.chkp_id, type(e).__name__, e)
+                failures.append((info.chkp_id, f"{type(e).__name__}: {e}"))
+                mgr.quarantine(info.chkp_id)
+                continue
+            return handle.table, int(info.app_meta["epoch"]) + 1, base
+        raise ValueError(f"job {self.config.job_id}: every chain checkpoint failed "
+                         f"integrity on restore (all quarantined): {failures}")
+
+    def _make_chain(self):
+        """The chief's chain hook when ``model_chkp_period`` > 0, else None."""
+        from harmony_tpu_torch.checkpoint.manager import CheckpointManager
+        from harmony_tpu_torch.dolphin.evaluator import ModelChkpManager
+
+        cfg = self.config
+        if cfg.params.model_chkp_period <= 0:
+            return None
+        root = self.chkp_root or tempfile.mkdtemp(prefix=f"harmony-chkp-{cfg.job_id}-")
+        self._chkp_dir = root
+        self._chkp_mgr = CheckpointManager.for_job(root, cfg.job_id)
+        if self._chkp_counter_base:
+            # a resumed job continues its chain's numbering
+            self._chkp_mgr.advance_counter(self._chkp_counter_base)
+        handle = TableHandle(self._master, self._table, self._executor_ids)
+        self._chkp_chain = ModelChkpManager(self._chkp_mgr, handle,
+                                            period=cfg.params.model_chkp_period)
+        return self._chkp_chain.on_epoch
+
+    def deferred_evaluation(self):
+        """The closure replaying this job's chain through the trainer's
+        evaluation, or None (no chain, or no ``offline_model_eval``).
+
+        The JobServer registers it after a successful run and calls it at
+        graceful shutdown (the reference's JobServerDriver.java:178-214). Test
+        data resolves inside the closure (``user["test_data_fn"]``, else the
+        training data), so nothing large is held until then. The replayed
+        entries are deleted: the evaluation is the chain's consumer."""
+        if self._chkp_chain is None or not self.config.params.offline_model_eval:
+            return None
+        chkp_ids = list(self._chkp_chain.chkp_ids)
+        if not chkp_ids:
+            return None
+        cfg, mgr, executor_ids = self.config, self._chkp_mgr, list(self._executor_ids)
+
+        def run_eval(master: ETMaster) -> List[Dict[str, float]]:
+            from harmony_tpu_torch.dolphin.evaluator import (
+                ModelEvaluator,
+                resolve_eval_inputs,
+            )
+
+            trainer, batch = resolve_eval_inputs(cfg)
+            metrics = ModelEvaluator(master, mgr).evaluate_checkpoints(
+                chkp_ids, trainer, batch, executor_ids)
+            for cid in chkp_ids:
+                mgr.delete(cid)
+            return metrics
+
+        return run_eval
 
     def run(self) -> Dict[str, Any]:
         cfg = self.config
@@ -192,7 +350,8 @@ class DolphinJobEntity:
         num_workers = cfg.num_workers or len(self._executor_ids)
         nb = params.num_mini_batches
         wids = [f"{cfg.job_id}/w{i}" for i in range(num_workers)]
-        self.progress = BatchProgressTracker(nb)
+        # a resumed job never reports progress below its resume point
+        self.progress = BatchProgressTracker(nb, floor_batch=self._starting_epoch * nb)
         # single-worker jobs have no controller to feed the tracker: the
         # chief's epoch callback does
         tracker_hook = None
@@ -201,6 +360,13 @@ class DolphinJobEntity:
 
             def tracker_hook(e: int) -> None:
                 tracker.on_batch(wid0, (e + 1) * nb - 1)
+
+        chain_hook = self._make_chain()
+        hooks = [h for h in (tracker_hook, chain_hook) if h is not None]
+
+        def epoch_hook(e: int) -> None:
+            for h in hooks:
+                h(e)
 
         # user.force_lockstep: the deterministic schedule (a DispatchTurnstile
         # cycles the workers' dispatch turns in a fixed order). The SSP slack
@@ -241,7 +407,11 @@ class DolphinJobEntity:
                     post_init_barrier=init_barrier.wait,
                     dispatch_turn=((lambda: turnstile.turn(wid))
                                    if turnstile is not None else None),
-                    epoch_callback=tracker_hook if idx == 0 else None)
+                    epoch_callback=epoch_hook if idx == 0 and hooks else None,
+                    # the tracker only reads drained counters and may run after
+                    # a multi-epoch window; a chain snapshots the table AT its
+                    # epoch, so it keeps windows at one epoch
+                    defer_epoch_callback=chain_hook is None)
                 scope = (torch.cuda.stream(stream) if stream is not None
                          else contextlib.nullcontext())
                 with scope:
@@ -275,9 +445,21 @@ class DolphinJobEntity:
         if errors:
             raise errors[0]
         # perf_counter from the start of setup (tables, data) to the workers' end
-        return {"job_id": cfg.job_id,
-                "workers": {w: results[w] for w in wids},
-                "span": [self._setup_start, time.perf_counter()]}
+        out = {"job_id": cfg.job_id,
+               "workers": {w: results[w] for w in wids},
+               "span": [self._setup_start, time.perf_counter()]}
+        if self._chkp_chain is not None:
+            # join the writers before the table is dropped; the surviving ids
+            # are the replayable chain. A checkpoint failure does not fail a
+            # job whose training succeeded: it is reported beside the chain
+            try:
+                out["model_chkp_ids"] = self._chkp_chain.drain()
+            except Exception as e:  # noqa: BLE001 - reported in the result
+                out["model_chkp_ids"] = list(self._chkp_chain.chkp_ids)
+                out["model_chkp_warning"] = f"{type(e).__name__}: {e}"
+            out["model_chkp_root"] = self._chkp_dir
+            out["model_chkp_stats"] = self._chkp_chain.stats
+        return out
 
     def cleanup(self) -> None:
         """Release the job's references to its tables (a shared table lives
@@ -352,17 +534,22 @@ class PregelJobEntity:
         finally:
             self._deregister()
 
+    def deferred_evaluation(self):
+        """None: a graph job has no model table and no chain to evaluate."""
+        return None
+
     def cleanup(self) -> None:
         if self._pregel_master is not None:
             self._pregel_master.close()
         self._pregel_master = None
 
 
-def build_entity(config: JobConfig, **kwargs: Any):
+def build_entity(config: JobConfig, chkp_root: Optional[str] = None, **kwargs: Any):
     """The app-type switch (the reference's ``JobEntity.getJobEntity``);
-    ``kwargs`` are the TaskUnit schedulers."""
+    ``kwargs`` are the TaskUnit schedulers, ``chkp_root`` the root of a
+    Dolphin job's checkpoint chain (a graph job has no model table)."""
     if config.app_type == "dolphin":
-        return DolphinJobEntity(config, **kwargs)
+        return DolphinJobEntity(config, chkp_root=chkp_root, **kwargs)
     if config.app_type == "pregel":
         return PregelJobEntity(config, **kwargs)
     raise ValueError(f"unknown app_type {config.app_type!r}")

@@ -21,6 +21,15 @@ unit. Execution metering is on only when every executor is a CPU, where a
 scope's exit means its work is done; on the card a unit orders the host's
 launches and does not hold the device.
 
+Checkpoint chains: ``chkp_root`` is where the jobs' chains live (each job
+under ``<chkp_root>/<job_id>``; without it a chaining job writes into a
+temporary directory, and ``resume_from_chain`` has nothing to read). A job
+with ``offline_model_eval`` registers its deferred evaluation after a
+successful run; ``shutdown``, once the jobs have drained, runs each on a
+thread of its own within its own ``timeout`` budget and records the
+evaluations, or the error, in ``eval_results[job_id]``. A failed or timed-out
+evaluation never fails the shutdown.
+
 Not ported yet: the TCP control plane, HA, the policy engine, overload
 control, history and doctor, metrics scraping and the serving plane
 (ROADMAP A.10).
@@ -53,6 +62,7 @@ class JobServer:
         num_executors: int,
         scheduler: Union[JobScheduler, str, None] = None,
         device_pool: Optional[DevicePool] = None,
+        chkp_root: Optional[str] = None,
     ) -> None:
         if isinstance(scheduler, str):
             scheduler = make_scheduler(scheduler)
@@ -65,6 +75,11 @@ class JobServer:
         self._state = "NOT_INIT"   # -> INIT (accepting) -> CLOSING -> CLOSED
         self._jobs: Dict[str, Future] = {}
         self._threads: List[threading.Thread] = []
+        self._chkp_root = chkp_root
+        # job id -> the closure of its deferred offline evaluation
+        self._deferred_evals: Dict[str, Any] = {}
+        # job id -> the evaluations of its chain, or {"error": ...}
+        self.eval_results: Dict[str, Any] = {}
 
     @property
     def state(self) -> str:
@@ -113,11 +128,18 @@ class JobServer:
     def _dispatch(self, config: JobConfig, executor_ids: List[str]) -> None:
         future = self._jobs[config.job_id]
         try:
-            entity = build_entity(config, global_taskunit=self.global_taskunit,
+            entity = build_entity(config, chkp_root=self._chkp_root,
+                                  global_taskunit=self.global_taskunit,
                                   local_taskunit=self.local_taskunit)
             try:
                 entity.setup(self.master, executor_ids)
                 result = entity.run()
+                # registered before cleanup drops the tables: the evaluation
+                # replays the chain from disk and needs only the closure
+                deferred = entity.deferred_evaluation()
+                if deferred is not None:
+                    with self._lock:
+                        self._deferred_evals[config.job_id] = deferred
             finally:
                 entity.cleanup()
         except BaseException as e:  # delivered through the future
@@ -132,7 +154,9 @@ class JobServer:
     def shutdown(self, timeout: Optional[float] = 300.0) -> None:
         """Stop accepting jobs, wait for the submitted ones (including those a
         scheduler still queues) and join their threads. ``timeout`` bounds the
-        whole wait; a job still running after it stays visible in its future."""
+        whole wait; a job still running after it stays visible in its future.
+        Then the deferred evaluations run (see :meth:`_run_deferred_evals`),
+        with a budget of their own."""
         with self._lock:
             if self._state != "INIT":
                 return
@@ -150,7 +174,51 @@ class JobServer:
                 pass  # the job's failure is its future's to report
         with self._lock:
             threads = list(self._threads)
+        drained = True
         for t in threads:
             remaining = None if deadline is None else max(0.0, deadline - time.monotonic())
             t.join(timeout=remaining)
+            drained = drained and not t.is_alive()
+        self._run_deferred_evals(timeout, drained)
         self._state = "CLOSED"
+
+    def _run_deferred_evals(self, timeout: Optional[float], drained: bool) -> None:
+        """The deferred-work stage of graceful shutdown: run the evaluations
+        the jobs deferred, each on a daemon thread, within one ``timeout``
+        budget for the stage. Failures are recorded per job, never raised. A
+        slow evaluation is abandoned with a recorded error, and the ones
+        after it are skipped (it may still hold the device). If the job drain
+        timed out, every evaluation is skipped: a straggler still holds the
+        executors."""
+        with self._lock:
+            evals = dict(self._deferred_evals)
+            self._deferred_evals.clear()
+        deadline = None if timeout is None else time.monotonic() + timeout
+        abandoned = False
+        for job_id, fn in evals.items():
+            if not drained:
+                self.eval_results[job_id] = {"error": "skipped: job drain timed out"}
+                continue
+            if abandoned:
+                self.eval_results[job_id] = {
+                    "error": "skipped: a previous eval timed out and may still be running"}
+                continue
+            box: Dict[str, Any] = {}
+
+            def call(fn=fn, box=box) -> None:
+                try:
+                    box["result"] = fn(self.master)
+                except Exception as e:  # noqa: BLE001 - recorded below
+                    box["error"] = f"{type(e).__name__}: {e}"
+
+            t = threading.Thread(target=call, daemon=True, name=f"deferred-eval-{job_id}")
+            t.start()
+            t.join(timeout=None if deadline is None
+                   else max(0.0, deadline - time.monotonic()))
+            if t.is_alive():
+                self.eval_results[job_id] = {"error": "timed out"}
+                abandoned = True
+            elif "error" in box:
+                self.eval_results[job_id] = {"error": box["error"]}
+            else:
+                self.eval_results[job_id] = box["result"]

@@ -5,8 +5,11 @@ needs in this port: executors, each leasing one device from the
 :class:`DevicePool` (``add_executors``), and the table lifecycle (create a
 job's table on its executors' device, list, drop): a ``DenseTable``, or a
 ``DeviceHashTable`` when the config is ``sparse``. A table lives on one
-device. Block ownership, migration, checkpoint restore and tables spread
-over several devices are not ported yet (ROADMAP A.9, A.10).
+device. :class:`TableHandle` is the reference's handle cut to what the
+checkpoint path reads (the table, its executors, its block ownership, drop):
+``create_table`` returns the table itself, and the checkpoint manager wraps
+what it restores in a handle. Block migration and tables spread over several
+devices are not ported yet (ROADMAP A.9, A.10).
 """
 from __future__ import annotations
 
@@ -32,6 +35,30 @@ class Executor:
 
     def __repr__(self) -> str:
         return f"Executor({self.id}, {self.device})"
+
+
+class TableHandle:
+    """A table with the executors it was created on (the reference's
+    ``TableHandle``, cut to what the checkpoint manager reads). A table lives
+    on one device: every block is owned by the first executor."""
+
+    def __init__(self, master: "ETMaster", table: Table,
+                 executors: Sequence[str]) -> None:
+        self._master = master
+        self.table = table
+        self.executors: List[str] = list(executors)
+
+    @property
+    def table_id(self) -> str:
+        return self.table.spec.table_id
+
+    def ownership_vector(self) -> List[int]:
+        """Block -> index into ``executors`` of its owner."""
+        return [0] * self.table.spec.num_blocks
+
+    def drop(self) -> None:
+        """Release this handle's reference to the table."""
+        self._master.drop_table(self.table_id)
 
 
 class ETMaster:

@@ -40,9 +40,11 @@ table lock serialises a step with its commit and with host readers. Every
 write of rows goes through :meth:`HashTableSpec._write_rows`, which never
 depends on an order of writes (see there).
 
-On one device only: ``reshard``, ``export_blocks``, ``import_blocks``,
-``addressable_blocks`` and ``snapshot_blocks`` wait for the port of checkpoint
-chains and live resharding (ROADMAP A.7, A.10).
+The checkpoint path's per-block I/O (``snapshot_blocks``, ``export_blocks``,
+``import_blocks``) moves a block as its (slot_keys, values) pair, so a
+restored table places every key in the slot it had. On one device only:
+``reshard`` and ``addressable_blocks`` wait for the port of live resharding
+and elastic recovery (ROADMAP A.9, A.10).
 """
 from __future__ import annotations
 
@@ -54,6 +56,7 @@ import torch
 
 from harmony_tpu_torch.config.params import TableConfig
 from harmony_tpu_torch.ops.sparse import gather_rows, segment_sum_rows, value_width
+from harmony_tpu_torch.table.table import BlockSnapshot
 from harmony_tpu_torch.table.update import UpdateFunction, get_update_fn
 from harmony_tpu_torch.utils.platform import DeviceLike, resolve_device
 
@@ -144,6 +147,11 @@ class HashTableSpec:
     @property
     def num_slots(self) -> int:
         return self.num_blocks * self.block_slots
+
+    @property
+    def block_size(self) -> int:
+        """Slots per block (the checkpoint manager's per-block row count)."""
+        return self.block_slots
 
     @property
     def keys_shape(self) -> Tuple[int, int]:
@@ -561,24 +569,56 @@ class DeviceHashTable:
             self._dropped = True
             self._state = None
 
-    # -- elasticity and checkpoints: not ported yet -------------------------
+    # -- per-block I/O (the checkpoint path) ------------------------------
+
+    def snapshot_blocks(self, block_ids: Optional[Sequence[int]] = None
+                        ) -> BlockSnapshot:
+        """Device-side snapshot: the blocks' slot keys and values, COPIED
+        under the table lock on the calling thread's stream (steps update the
+        state in place; see ``DenseTable.snapshot_blocks``). ``snap[b]`` is
+        block b's (slot_keys, values) pair."""
+        ids = (list(range(self.spec.num_blocks)) if block_ids is None
+               else [int(b) for b in block_ids])
+        with self._lock:
+            self._check()
+            sk, v = self._state
+            if block_ids is None:
+                parts = (sk.clone(), v.clone())
+            else:
+                parts = (torch.stack([sk[b] for b in ids]), torch.stack([v[b] for b in ids]))
+            return BlockSnapshot(ids, parts, self.device)
+
+    def export_blocks(self, block_ids: Optional[Sequence[int]] = None
+                      ) -> Dict[int, Tuple[np.ndarray, np.ndarray]]:
+        """Blocks as host (slot_keys, values) pairs, copied under the lock."""
+        snap = self.snapshot_blocks(block_ids)
+        sk, v = snap.to_host()
+        return {b: (sk[i], v[i]) for i, b in enumerate(snap.ids)}
+
+    def import_blocks(self, blocks: Dict[int, Tuple[np.ndarray, np.ndarray]]) -> None:
+        """Set whole blocks, slot keys and values, from host payloads (the
+        restore path): the slot placement comes back byte for byte."""
+        if not blocks:
+            return
+        ids = sorted(blocks)
+        pk = torch.as_tensor(np.stack([np.asarray(blocks[b][0]) for b in ids]))
+        pv = torch.as_tensor(np.stack([np.asarray(blocks[b][1]) for b in ids]))
+        idx = torch.as_tensor(ids, device=self.device)
+        with self._lock:
+            self._check()
+            sk, v = self._state
+            sk[idx] = pk.to(self.device, torch.int32)
+            v[idx] = pv.to(self.device, self.spec.dtype)
+
+    # -- elasticity: not ported yet ------------------------------------------
 
     def _not_ported(self, what: str):
         raise NotImplementedError(
-            f"DeviceHashTable.{what} waits for the port of checkpoint chains and "
-            "live resharding (ROADMAP A.7, A.10)")
+            f"DeviceHashTable.{what} waits for the port of live resharding and "
+            "elastic recovery (ROADMAP A.9, A.10)")
 
     def reshard(self, *args, **kwargs) -> None:
         self._not_ported("reshard")
 
-    def export_blocks(self, *args, **kwargs):
-        self._not_ported("export_blocks")
-
-    def import_blocks(self, *args, **kwargs) -> None:
-        self._not_ported("import_blocks")
-
     def addressable_blocks(self, *args, **kwargs):
         self._not_ported("addressable_blocks")
-
-    def snapshot_blocks(self, *args, **kwargs):
-        self._not_ported("snapshot_blocks")

@@ -14,6 +14,10 @@ and commits under the table lock (:meth:`DenseTable.apply_step`), and host
 readers (:meth:`DenseTable.multi_get`, :meth:`DenseTable.pull_array`) copy
 under the same lock, so no reader sees a half-applied push.
 
+The checkpoint path's per-block I/O (``snapshot_blocks``, ``export_blocks``,
+``import_blocks``) works on whole blocks, the storage's first dimension; a
+snapshot is a device COPY, since steps update the storage in place.
+
 The keyed pull goes through ``gather_rows`` (K1); the keyed push's duplicate
 fold through ``weighted_histogram``/``segment_sum`` (K3, ``via="mxu"``) or
 ``segment_sum_rows`` (K2, ``via="sparse"``). On the card these are the
@@ -23,7 +27,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -40,6 +44,68 @@ from harmony_tpu_torch.table.update import UpdateFunction, get_update_fn
 from harmony_tpu_torch.utils.platform import DeviceLike, env_choice, resolve_device
 
 PUSH_ROUTES = ("scatter", "mxu", "mxu_auto", "sparse")
+
+
+class BlockSnapshot:
+    """``snapshot_blocks``' result: a copy of some of a table's blocks on its
+    device, taken in one operation per storage tensor (``parts``: the dense
+    storage, or a hash table's slot keys and values), each part's first
+    dimension running over ``ids``. ``snap[b]`` is block ``b``'s view (a
+    tensor, or a (slot_keys, values) pair); the views are made on request,
+    so taking a snapshot of thousands of blocks costs no per-block work.
+
+    The copy is enqueued on the stream of the thread that takes the snapshot
+    (a job's worker runs on its dispatch thread's stream), and ``ready`` is
+    an event recorded there after it. :meth:`to_host` (a background
+    checkpoint writer's, on another thread) copies each part to pinned host
+    memory on a stream of its own that first waits for ``ready``: one
+    device-to-host copy a part, ordered after the snapshot's copy and not
+    behind the training steps enqueued since."""
+
+    def __init__(self, ids: Sequence[int], parts: Tuple[torch.Tensor, ...],
+                 device: torch.device) -> None:
+        self.ids = [int(b) for b in ids]
+        self.parts = parts
+        self._row: Optional[Dict[int, int]] = None  # block id -> row, on first use
+        self.ready: Optional["torch.cuda.Event"] = None
+        if device.type == "cuda":
+            self.ready = torch.cuda.Event()
+            self.ready.record(torch.cuda.current_stream(device))
+
+    def __len__(self) -> int:
+        return len(self.ids)
+
+    def __iter__(self):
+        return iter(self.ids)
+
+    def __getitem__(self, b: int):
+        if self._row is None:
+            self._row = {bid: i for i, bid in enumerate(self.ids)}
+        i = self._row[int(b)]
+        views = tuple(p[i] for p in self.parts)
+        return views[0] if len(views) == 1 else views
+
+    def to_host(self) -> List[np.ndarray]:
+        """Each part as a host array (the codec's dtypes; bfloat16 is refused,
+        as the reference refuses it)."""
+        for p in self.parts:
+            _check_codec_dtype(p)
+        if self.ready is None:
+            return [p.cpu().numpy() for p in self.parts]
+        stream = torch.cuda.Stream(self.ready.device)
+        with torch.cuda.stream(stream):
+            stream.wait_event(self.ready)
+            hosts = [torch.empty(p.shape, dtype=p.dtype, pin_memory=True) for p in self.parts]
+            for h, p in zip(hosts, self.parts):
+                h.copy_(p, non_blocking=True)
+        # the device parts stay referenced until the copies have finished
+        stream.synchronize()
+        return [h.numpy() for h in hosts]
+
+
+def _check_codec_dtype(t: torch.Tensor) -> None:
+    if t.dtype == torch.bfloat16:
+        raise TypeError(f"unsupported block dtype {t.dtype}")
 
 
 class TableSpec:
@@ -315,6 +381,47 @@ class DenseTable:
         table holds none afterwards (``array`` is None)."""
         with self._lock:
             self._arr = None
+
+    # -- per-block I/O (the checkpoint path) ------------------------------
+
+    def snapshot_blocks(self, block_ids: Optional[Sequence[int]] = None
+                        ) -> BlockSnapshot:
+        """Device-side snapshot of blocks, taken under the table lock.
+
+        The reference returns views of an immutable array; here steps update
+        the storage in place, so a view would change under a later step. The
+        blocks are COPIED, in one operation enqueued on the calling thread's
+        stream (ordered after every step enqueued there and before every
+        later one), and nothing moves to the host here (see
+        :class:`BlockSnapshot`)."""
+        ids = (list(range(self.spec.num_blocks)) if block_ids is None
+               else [int(b) for b in block_ids])
+        with self._lock:
+            if block_ids is None:  # the whole storage
+                copy = self._arr.clone()
+            else:
+                copy = torch.stack([self._arr[b] for b in ids])
+            return BlockSnapshot(ids, (copy,), self.device)
+
+    def export_blocks(self, block_ids: Optional[Sequence[int]] = None
+                      ) -> Dict[int, np.ndarray]:
+        """Blocks as host arrays, copied under the lock."""
+        snap = self.snapshot_blocks(block_ids)
+        (host,) = snap.to_host()
+        return {b: host[i] for i, b in enumerate(snap.ids)}
+
+    def import_blocks(self, blocks: Dict[int, np.ndarray]) -> None:
+        """Set whole blocks from host payloads (the restore path), cast to the
+        table's dtype, as the reference's ``.at[ids].set(payload)``."""
+        if not blocks:
+            return
+        ids = sorted(blocks)
+        payload = torch.as_tensor(np.stack([np.asarray(blocks[b]) for b in ids]))
+        payload = payload.to(self.device, self.spec.dtype)
+        idx = torch.as_tensor(ids, device=self.device)
+        with self._lock:
+            self._arr[idx] = payload
+            self._data_version += 1
 
     def _to_device(self, x, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         if not isinstance(x, torch.Tensor):
