@@ -173,6 +173,32 @@ Phases, in order; any failure ends the script with a non-zero exit code:
    MB/s, the write and restore MB/s at 4 I/O threads and at 1, and the epoch
    seconds with the chain beside phase 3b's. The codec that wrote the blocks
    (``blk``, or ``npy`` without the native build) is printed.
+3s. Online serving: (a) an in-process JobServer on the card with
+   ``serve_tcp(0)`` and a ``chkp_root``; bench-widedeep submitted through
+   the CLI's ``submit`` (a chain entry every epoch, SERVE_EPOCHS epochs),
+   ``status`` showing it running, ``shutdown`` ending the server; once,
+   ``start-jobserver --port 0`` as a process of its own, its ready line
+   read and ``shutdown`` over TCP ending it with exit code 0. (b) The read
+   storm through ``ServingClient`` while the job trains (8 readers x 50
+   reads of 16 keys, 12 from a hot head of 64, seed 20), in four arms
+   (batch window 0 or 2 ms x cache 0 or 64 MB): p50/p99 ms, lookups/s,
+   batch occupancy, cache hit rate, the gathers (one K1 launch each) and
+   K1's device ms a gather; no error frame, every row finite; the job's
+   losses the bits of the same job run without readers, and the epoch
+   seconds of both. (c) Quiescent tables behind a ServingEndpoint of their
+   own, bench-widedeep's dense table and bench-fm-hash's hash table (65,537
+   keys over int32), filled from the seed: every row of every arm
+   byte-identical to the CPU copy's ``multi_get``, K1 once a gather and no
+   other kernel; a 65,536-key lookup byte-identical (round trip ms beside
+   K1's device ms), 65,537 keys refused, and a layout announcement and a
+   ``multi_update`` (on a side stream behind a spin) each retiring the
+   cached rows. (d) Pinned reads of the job's chain bit-identical to the
+   entry's ``.blk`` bytes decoded on the CPU, with its epoch and chkp id,
+   rolling forward past the pin's 1 s TTL; a pinned read of a hash table's
+   chain refused. (e) The bulk loader: a libsvm file at HIGGS's width
+   (28 features, 65,536 rows) into a dense table and a value file into
+   bench-fm-hash's hash table (generated keys from MIN_KEY), on card and
+   CPU byte-identical, records/s; both then served as in (c).
 4. The sparse push route (``HARMONY_PUSH_VIA=sparse``): the Wide&Deep job
    of phase 3, which folds its pushes with K2.
 5. Where a step's time goes: a steady epoch of the Wide&Deep job on the host
@@ -196,7 +222,8 @@ Phases, in order; any failure ends the script with a non-zero exit code:
    bench-generate, bench-trio,
    bench-fm-hash, sparse-lda-hash, fused-sparse-step, bench-gbt,
    bench-pagerank, bench-shortest-path, bench-connected-components,
-   bench-widedeep-2-workers, pagerank-beside-mlr, chain); K1-K3
+   bench-widedeep-2-workers, pagerank-beside-mlr, chain, serving: the
+   reads of 3s (c) and (e), K1 only); K1-K3
    also carry ``device_ms``, ``library_device_ms``,
    ``library_deterministic_device_ms``, ``host_us`` and their timing at
    phase 2e's shapes, K4-K5b their timing at bench-vit's shape; the card's
@@ -3582,6 +3609,669 @@ def profile_models(decode_once):
     return out
 
 
+# -- phase 3s: online serving through the TCP command plane ------------------
+
+# The reference bench's read storm (benchmarks/serving_bench.py:58-79), scaled
+# to bench-widedeep's table: 8 readers x 50 reads of 16 keys, 12 of each read
+# from a hot head of 64 keys and 4 uniform over the table, seed 20; four arms,
+# batch window 0 or 2 ms x hot-row cache 0 or 64 MB.
+SERVE_READERS, SERVE_READS, SERVE_KEYS, SERVE_HOT, SERVE_HOT_KEYS = 8, 50, 16, 64, 12
+SERVE_SEED = 20
+SERVE_ARMS = [(0.0, 0), (0.0, 64), (2.0, 0), (2.0, 64)]
+# bench-widedeep submitted through the CLI with a chain entry every epoch:
+# enough epochs that it still trains when the storm and the pinned reads end
+SERVE_EPOCHS = 24
+SERVE_ROWS = 102_144          # bench-widedeep's storage rows (101,944 keys, padded)
+SERVE_WIDTH = 17
+# bench-fm-hash's table: 524,288 slots x 17 f32, 65,537 keys over int32
+SERVE_HASH_KEYS = 65_537
+# the bulk loads (A.7b): HIGGS's width, 28 features and its label
+BULK_ROWS = 65_536
+BULK_FEATURES = 28
+SERVE_TIMEOUT = 120.0
+
+
+def serve_key_lists(universe, seed=SERVE_SEED):
+    """SERVE_READERS lists of SERVE_READS reads of SERVE_KEYS int32 keys: 12
+    from the hot head (the first SERVE_HOT of ``universe``), 4 uniform."""
+    rng = np.random.default_rng(seed)
+    universe = np.asarray(universe)
+    hot = universe[:SERVE_HOT]
+    return [[np.concatenate([rng.choice(hot, SERVE_HOT_KEYS),
+                             rng.choice(universe, SERVE_KEYS - SERVE_HOT_KEYS)]
+                            ).astype(np.int32)
+             for _ in range(SERVE_READS)] for _ in range(SERVE_READERS)]
+
+
+def counted_gathers():
+    """Wrap the endpoint's one call into the table (``_bucketed_multi_get``,
+    one ``multi_get`` and so one K1 launch a call) to count its gathers and
+    the sizes of the key arrays it hands ``multi_get``; returns the list and
+    the restore function."""
+    from harmony_tpu_torch.serving import service
+
+    orig, sizes = service._bucketed_multi_get, []
+
+    class Sized:
+        def __init__(self, table):
+            self.table = table
+
+        def multi_get(self, keys):
+            sizes.append(int(keys.shape[0]))
+            return self.table.multi_get(keys)
+
+    def counted(table, keys):
+        return orig(Sized(table), keys)
+
+    service._bucketed_multi_get = counted
+
+    def restore():
+        service._bucketed_multi_get = orig
+
+    return sizes, restore
+
+
+def run_storm(read):
+    """SERVE_READERS threads, each calling ``read(reader, i)`` for its reads;
+    returns the wall seconds and the round-trip ms of every read. A reader's
+    exception fails the phase."""
+    import threading
+
+    lat, errors = [], []
+    lock = threading.Lock()
+
+    def reader(r):
+        try:
+            mine = []
+            for i in range(SERVE_READS):
+                t0 = time.perf_counter()
+                read(r, i)
+                mine.append((time.perf_counter() - t0) * 1e3)
+            with lock:
+                lat.extend(mine)
+        except Exception as e:  # noqa: BLE001 - failed below
+            errors.append(f"{type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=reader, args=(r,), daemon=True)
+               for r in range(SERVE_READERS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(SERVE_TIMEOUT)
+    wall = time.perf_counter() - t0
+    check(not any(t.is_alive() for t in threads), "a reader did not finish")
+    check(not errors, f"readers failed: {errors[:3]}")
+    return wall, lat
+
+
+def arm_figures(stats, job, wall, lat, gathers):
+    """One arm's numbers from the endpoint's stats and the readers' clocks."""
+    tenant = stats["tenants"][job]
+    cache = stats["cache"]
+    hits = cache["hits"] if cache else 0
+    lookups = (cache["hits"] + cache["misses"]) if cache else 0
+    return {"p50_ms": tenant["p50_ms"], "p99_ms": tenant["p99_ms"],
+            "client_p50_ms": float(np.percentile(lat, 50)),
+            "client_p99_ms": float(np.percentile(lat, 99)),
+            "lookups_per_s": len(lat) / wall,
+            "batch_occupancy": stats["batch_occupancy"],
+            "cache_hit_rate": hits / lookups if lookups else None,
+            "gathers": len(gathers),
+            "mean_gather_keys": float(np.mean(gathers)) if gathers else 0.0}
+
+
+def k1_gather_ms(keys_per_gather):
+    """K1's device ms a gather at a bench-widedeep-shaped table and the given
+    (padded) key count, random rows (torch.profiler, phase 2's way)."""
+    from harmony_tpu_torch.ops.sparse import gather_rows
+
+    g = torch.Generator(device="cuda").manual_seed(SERVE_SEED)
+    flat = torch.randn(SERVE_ROWS, SERVE_WIDTH, device="cuda", generator=g)
+    idx = torch.randint(0, SERVE_ROWS, (int(keys_per_gather),), device="cuda",
+                        dtype=torch.int32, generator=g)
+    return sum(ms for name, ms in device_kernels(lambda: gather_rows(flat, idx), 50).items()
+               if "gather_rows" in name)
+
+
+def cli_out(argv):
+    """``cli.main(argv)`` in this process; returns its exit code and the JSON
+    reply it printed."""
+    from harmony_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    return rc, json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def serve_command_plane_subprocess(root):
+    """Phase 3s (a), once: ``start-jobserver --port 0`` as a process of its
+    own; its ready line read, then ``shutdown`` over TCP, exit code 0."""
+    import select
+
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "harmony_tpu_torch.cli", "start-jobserver", "--port", "0",
+         "--chkp-root", root], cwd=REPO, stdout=subprocess.PIPE, text=True)
+    try:
+        ready, _, _ = select.select([proc.stdout], [], [], SERVE_TIMEOUT)
+        check(ready, "start-jobserver printed no ready line")
+        line = proc.stdout.readline().strip()
+        check(line.startswith("jobserver ready on port "), f"start-jobserver said {line!r}")
+        port = int(line.split()[-1])
+        rc, status = cli_out(["status", "--port", str(port)])
+        check(rc == 0 and status["state"] == "INIT", f"status of the process: {status}")
+        rc, reply = cli_out(["shutdown", "--port", str(port)])
+        check(rc == 0 and reply == {"ok": True}, f"shutdown of the process: {reply}")
+        code = proc.wait(timeout=SERVE_TIMEOUT)
+        check(code == 0, f"start-jobserver exited {code}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    return {"ready_line": line, "exit_code": code}
+
+
+def serve_training(root, wrappers, out):
+    """Phase 3s (a), (b) and (d): bench-widedeep submitted through the CLI to
+    an in-process JobServer on the card, read live by the storm in each arm,
+    then pinned; the same job again without readers, bit for bit."""
+    from harmony_tpu_torch.checkpoint import CheckpointManager
+    from harmony_tpu_torch.jobserver.client import CommandSender
+    from harmony_tpu_torch.jobserver.server import JobServer
+    from harmony_tpu_torch.parallel.mesh import DevicePool
+    from harmony_tpu_torch.serving import ServingClient
+
+    server = JobServer(1, device_pool=DevicePool([torch.device("cuda")]), chkp_root=root)
+    server.start()
+    port = server.serve_tcp(0)
+    sender = CommandSender(port, timeout=SERVE_TIMEOUT)
+    job = "serve-wd"
+    base = ["submit", "widedeep", "--port", str(port), "--epochs", str(SERVE_EPOCHS),
+            "--model-chkp-period", "1"] + SLICE_ARGS[2:]
+    gathers, restore = counted_gathers()
+    try:
+        rc, reply = cli_out(base + ["--job-id", job])
+        check(rc == 0 and reply == {"ok": True, "job_id": job}, f"submit: {reply}")
+        deadline = time.monotonic() + SERVE_TIMEOUT
+        while True:   # the table exists once the entity's set-up has run
+            entity = server._entities.get(job)
+            if entity is not None and entity.table_handle is not None:
+                break
+            check(time.monotonic() < deadline and job in server.running_jobs(),
+                  "the submitted job never set up its table")
+            time.sleep(0.01)
+        rc, status = cli_out(["status", "--port", str(port)])
+        check(rc == 0 and job in status["running"], f"status: {status}")
+        # the storm reads a job in its steady epochs: after its first entry
+        mgr = CheckpointManager.for_job(root, job)
+        while not any(mgr.info(c).committed for c in mgr.list_checkpoints()):
+            check(time.monotonic() < deadline and job in server.running_jobs(),
+                  "the submitted job committed no chain entry")
+            time.sleep(0.01)
+        universe = np.arange(entity.table_handle.table.spec.config.capacity)
+        keys = serve_key_lists(universe)
+        arms = {}
+        for window_ms, cache_mb in SERVE_ARMS:
+            os.environ["HARMONY_SERVE_BATCH_WINDOW_MS"] = str(window_ms)
+            os.environ["HARMONY_SERVE_CACHE_MB"] = str(cache_mb)
+            server._stop_serving()           # the next SERVING starts this arm's
+            clients = [ServingClient(port=port, timeout=SERVE_TIMEOUT)
+                       for _ in range(SERVE_READERS)]
+            del gathers[:]
+            k1_before = wrappers[0].launches
+
+            def read(r, i):
+                rows, meta = clients[r].lookup(job, keys[r][i])
+                if meta != {"mode": "live", "layout_version": 0}:
+                    raise AssertionError(f"meta {meta}")
+                if rows.shape != (SERVE_KEYS, SERVE_WIDTH) or not np.isfinite(rows).all():
+                    raise AssertionError(f"rows {rows.shape} not finite")
+
+            try:
+                wall, lat = run_storm(read)
+            finally:
+                for c in clients:
+                    c.close()
+            check(job in server.running_jobs(),
+                  f"bench-widedeep ended before the storm's arm {window_ms}/{cache_mb}: "
+                  "raise SERVE_EPOCHS")
+            stats = server.serving.stats()
+            check(stats["errors"] == 0, f"arm {window_ms}/{cache_mb}: {stats['errors']} errors")
+            name = f"window_{window_ms:g}ms_cache_{cache_mb}mb"
+            arms[name] = arm_figures(stats, job, wall, lat, gathers)
+            arms[name]["k1_launches_job_and_reads"] = wrappers[0].launches - k1_before
+            check(arms[name]["gathers"] > 0, f"arm {name}: no gather reached the table")
+            print(f"phase 3s (b): {name}: {json.dumps(arms[name])}", flush=True)
+        out["live_arms"] = arms
+
+        # (d) pinned reads of the chain the job is writing
+        client = ServingClient(port=port, timeout=SERVE_TIMEOUT)
+        pinned = []
+        try:
+            pkeys = np.concatenate(keys[0][:4])
+            for _ in range(2):
+                rows, meta = client.lookup(job, pkeys, mode="pinned")
+                info = mgr.info(meta["chkp"])
+                check(info.committed and meta["mode"] == "pinned"
+                      and meta["epoch"] == int(info.app_meta["epoch"]),
+                      f"pinned meta {meta} against the manifest {info.app_meta}")
+                d = mgr._dir_of(meta["chkp"])
+                nb = info.table_config.num_blocks
+                want = np.stack([decoded_block(d, int(k) % nb)
+                                 .reshape(-1, SERVE_WIDTH)[int(k) // nb] for k in pkeys])
+                check(rows.tobytes() == want.tobytes(),
+                      f"pinned rows differ from {meta['chkp']}'s .blk bytes")
+                pinned.append({"epoch": meta["epoch"], "chkp": meta["chkp"]})
+                time.sleep(1.1)   # past the pin's 1 s TTL: the next read rolls forward
+            check(job in server.running_jobs(), "bench-widedeep ended before the pinned reads")
+            check(pinned[1]["epoch"] > pinned[0]["epoch"],
+                  f"the pin did not roll forward: {pinned}")
+        finally:
+            client.close()
+        out["pinned"] = pinned
+        print(f"phase 3s (d): pinned reads bit-identical to the entries' .blk bytes, "
+              f"rolled forward {pinned}", flush=True)
+
+        read_res = sender.wait_result(job, timeout=SERVE_TIMEOUT * 3, poll=15.0)
+        server._stop_serving()
+        # K1's device time a gather, profiled only now that the job is done:
+        # the profiler records every kernel of the process, the job's too
+        for name, arm in arms.items():
+            arm["k1_device_ms_a_gather"] = k1_gather_ms(arm["mean_gather_keys"] or 16)
+            print(f"phase 3s (b): {name}: K1 device ms a gather "
+                  f"{arm['k1_device_ms_a_gather']}", flush=True)
+        rc, reply = cli_out(base + ["--job-id", job + "-unread"])
+        check(rc == 0 and reply["ok"], f"submit: {reply}")
+        unread_res = sender.wait_result(job + "-unread", timeout=SERVE_TIMEOUT * 3, poll=15.0)
+        (w_read,) = read_res["workers"].values()
+        (w_unread,) = unread_res["workers"].values()
+        check(len(w_read["batch_losses"]) == SERVE_EPOCHS * BATCHES
+              and all(math.isfinite(v) for v in w_read["batch_losses"]),
+              "bench-widedeep's losses with readers")
+        check(float_bits(w_read["batch_losses"]) == float_bits(w_unread["batch_losses"]),
+              "the read job's losses are not the bits of the unread run's")
+        out["losses_bit_identical_with_and_without_readers"] = True
+        out["epoch_seconds_with_readers"] = w_read["epoch_seconds"]
+        out["epoch_seconds_without_readers"] = w_unread["epoch_seconds"]
+        print(f"phase 3s (b): the job's losses with readers the bits of the unread "
+              f"run's; median epoch seconds with readers "
+              f"{statistics.median(w_read['epoch_seconds'])}, without "
+              f"{statistics.median(w_unread['epoch_seconds'])}", flush=True)
+        return server, port
+    except BaseException:
+        server.shutdown(timeout=60)
+        raise
+    finally:
+        restore()
+        os.environ.pop("HARMONY_SERVE_BATCH_WINDOW_MS", None)
+        os.environ.pop("HARMONY_SERVE_CACHE_MB", None)
+
+
+def decoded_block(d, bid):
+    """Block ``bid`` of the entry in ``d``, decoded on the CPU from its file: a
+    ``.blk`` through the codec, or an ``.npy`` where the codec was not built."""
+    from harmony_tpu_torch import native
+
+    blk = os.path.join(d, f"{bid}.blk")
+    if os.path.exists(blk):
+        return native.blk_read(blk)
+    return np.load(os.path.join(d, f"{bid}.npy"))
+
+
+def serve_raw(port, job, keys, mode="live"):
+    """One framed lookup on a connection of its own: the reply frame."""
+    from harmony_tpu_torch.serving import protocol
+
+    sock = protocol.connect(("127.0.0.1", port), timeout=SERVE_TIMEOUT)
+    sock.settimeout(SERVE_TIMEOUT)
+    try:
+        protocol.send_arrays(sock, {"op": "lookup", "r": 1, "job": job, "mode": mode},
+                             (np.asarray(keys, np.int32),))
+        return protocol.recv_frame(sock)
+    finally:
+        sock.close()
+
+
+def serve_quiescent(tables, cpu_tables, universes, wrappers, tag):
+    """Phase 3s (c) (and (e)'s tables): each table behind a ServingEndpoint of
+    its own (``table_fn`` direct) in every arm; every row byte-identical to
+    the CPU copy's ``multi_get`` of the same keys. Each arm's launches are
+    read with the counts set to 0 just before it: K1 once a gather, no other
+    kernel. Returns the arms' figures and the summed launches."""
+    from harmony_tpu_torch.serving import ServingEndpoint, protocol
+
+    gathers, restore = counted_gathers()
+    launches = dict.fromkeys((w.__name__ for w in wrappers), 0)
+    arms = {}
+    try:
+        for job, table in tables.items():
+            keys = serve_key_lists(universes[job])
+            want = [[cpu_tables[job].multi_get(k) for k in ks] for ks in keys]
+            for window_ms, cache_mb in SERVE_ARMS:
+                ep = ServingEndpoint(table_fn=lambda j, t=table, n=job: t if j == n else None,
+                                     cache_mb=cache_mb, window_ms=window_ms)
+                ep.start()
+                socks = []
+                try:
+                    for _ in range(SERVE_READERS):
+                        s = protocol.connect(("127.0.0.1", ep.port), timeout=SERVE_TIMEOUT)
+                        s.settimeout(SERVE_TIMEOUT)
+                        socks.append(s)
+                    del gathers[:]
+                    reset_counts(*wrappers)
+
+                    def read(r, i):
+                        protocol.send_arrays(socks[r], {"op": "lookup", "r": i, "job": job,
+                                                        "mode": "live"}, (keys[r][i],))
+                        frame = protocol.recv_frame(socks[r])
+                        if frame is None or frame.get("op") != "rows":
+                            raise AssertionError(f"frame {frame}")
+                        if frame["data"][0].tobytes() != want[r][i].tobytes():
+                            raise AssertionError(f"{job}: rows differ from the CPU copy's")
+
+                    wall, lat = run_storm(read)
+                    counts = launch_counts(wrappers)
+                    stats = ep.stats()
+                finally:
+                    for s in socks:
+                        s.close()
+                    ep.stop()
+                check(stats["errors"] == 0, f"{job}: {stats['errors']} error frames")
+                check(counts["gather_rows"] == len(gathers) > 0
+                      and not any(v for k, v in counts.items() if k != "gather_rows"),
+                      f"{job} arm {window_ms}/{cache_mb}: launches {counts} for "
+                      f"{len(gathers)} gathers (expected K1 once a gather, nothing else)")
+                for k, v in counts.items():
+                    launches[k] += v
+                name = f"{job} window_{window_ms:g}ms_cache_{cache_mb}mb"
+                arms[name] = arm_figures(stats, job, wall, lat, gathers)
+                arms[name]["k1_launches"] = counts["gather_rows"]
+                print(f"phase 3s ({tag}): {name}: rows byte-identical to the CPU's, "
+                      f"{json.dumps(arms[name])}", flush=True)
+    finally:
+        restore()
+    return arms, launches
+
+
+def serve_exact_checks(table, cpu_table, job, universe):
+    """Phase 3s (c)'s edges, on one table: a 65,536-key lookup byte-identical
+    (its round trip ms and K1's device ms), 65,537 keys refused, and a layout
+    announcement and a ``multi_update`` (on a side stream behind a spin, so a
+    read that did not wait for the write's stream would see the old bytes)
+    each retiring the cached rows."""
+    from harmony_tpu_torch.serving import ServingEndpoint, protocol, service
+
+    def endpoint(cache_mb):
+        ep = ServingEndpoint(table_fn=lambda j: table if j == job else None,
+                             cache_mb=cache_mb, window_ms=0.0)
+        ep.start()
+        return ep
+
+    ep = endpoint(0)   # no cache: every big lookup is one K1 gather
+    try:
+        rng = np.random.default_rng(SERVE_SEED)
+        big = rng.choice(universe, service._MAX_KEYS).astype(np.int32)
+        serve_raw(ep.port, job, big)   # warm
+        t0 = time.perf_counter()
+        frame = serve_raw(ep.port, job, big)
+        rt_ms = (time.perf_counter() - t0) * 1e3
+        check(frame["op"] == "rows"
+              and frame["data"][0].tobytes() == cpu_table.multi_get(big).tobytes(),
+              f"{job}: the 65,536-key lookup differs from the CPU's")
+        k1 = sum(ms for name, ms in device_kernels(lambda: table.multi_get(big), 20).items()
+                 if "gather_rows" in name)
+        # one reader alone: a 16-key read's round trip beside the table's
+        # multi_get of the same keys (the rest is the endpoint and the wire)
+        one = np.asarray(universe[:SERVE_KEYS], np.int32)
+        sock = protocol.connect(("127.0.0.1", ep.port), timeout=SERVE_TIMEOUT)
+        sock.settimeout(SERVE_TIMEOUT)
+        try:
+            rt = []
+            for i in range(200):
+                t0 = time.perf_counter()
+                protocol.send_arrays(sock, {"op": "lookup", "r": i, "job": job,
+                                            "mode": "live"}, (one,))
+                protocol.recv_frame(sock)
+                rt.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            sock.close()
+        mg = []
+        for _ in range(200):
+            t0 = time.perf_counter()
+            table.multi_get(one)
+            mg.append((time.perf_counter() - t0) * 1e3)
+        over = serve_raw(ep.port, job, np.zeros(service._MAX_KEYS + 1, np.int32))
+        check(over["op"] == "error" and "request bound" in over["error"],
+              f"{job}: 65,537 keys not refused: {over}")
+        check(ep.stats()["errors"] == 1, f"{job}: errors {ep.stats()['errors']}, expected "
+              "the one refusal")
+    finally:
+        ep.stop()
+    ep = endpoint(64)
+    try:
+        hot = np.asarray(universe[:SERVE_KEYS], np.int32)
+        serve_raw(ep.port, job, hot)
+        cached = ep.cache.stats()["entries"]
+        check(cached == SERVE_KEYS, f"{job}: {cached} rows cached")
+        layout = table.layout_version
+        table.announce_reshard(None)
+        check(ep.cache.stats()["entries"] == 0, f"{job}: the announcement kept the rows")
+        frame = serve_raw(ep.port, job, hot)
+        check(frame["layout_version"] == table.layout_version == layout + 1
+              and frame["data"][0].tobytes() == cpu_table.multi_get(hot).tobytes(),
+              f"{job}: the read after the announcement")
+        ones = np.ones((SERVE_KEYS, SERVE_WIDTH), np.float32)
+        side = torch.cuda.Stream()
+        with torch.cuda.stream(side):
+            torch.cuda._sleep(200_000_000)     # 2e8 clock cycles of spinning on the side stream
+            table.multi_update(hot, ones)
+        cpu_table.multi_update(hot, ones)
+        frame = serve_raw(ep.port, job, hot)
+        check(frame["data"][0].tobytes() == cpu_table.multi_get(hot).tobytes(),
+              f"{job}: the read after a multi_update on another stream shows old bytes")
+        check(ep.stats()["errors"] == 0, f"{job}: {ep.stats()['errors']} error frames")
+    finally:
+        ep.stop()
+    return {"max_keys_round_trip_ms": rt_ms, "max_keys_k1_device_ms": k1,
+            "one_reader_round_trip_ms_p50": float(np.percentile(rt, 50)),
+            "one_reader_round_trip_ms_p99": float(np.percentile(rt, 99)),
+            "multi_get_16_keys_ms_p50": float(np.percentile(mg, 50))}
+
+
+def serve_tables():
+    """Phase 3s (c)'s two tables on the card, filled from the seed, and their
+    CPU copies: bench-widedeep's dense table and bench-fm-hash's hash table."""
+    from harmony_tpu_torch.apps.widedeep import FMTrainer, WideDeepTrainer
+    from harmony_tpu_torch.table.hashtable import DeviceHashTable, HashTableSpec
+    from harmony_tpu_torch.table.table import DenseTable, TableSpec
+
+    rng = np.random.default_rng(SERVE_SEED)
+    dcfg = WideDeepTrainer(**{k: v for k, v in (("vocab_size", 100_000), ("num_slots", 16),
+                                                ("emb_dim", 16), ("hidden", 128))}
+                           ).model_table_config()
+    check(TableSpec(dcfg).num_rows == SERVE_ROWS and dcfg.value_shape == (SERVE_WIDTH,),
+          f"bench-widedeep's table is {dcfg}")
+    arr = torch.from_numpy(rng.standard_normal(TableSpec(dcfg).storage_shape)
+                           .astype(np.float32))
+    dense = DenseTable(TableSpec(dcfg), "cuda", arr=arr)
+    dense_cpu = DenseTable(TableSpec(dcfg), "cpu", arr=arr.clone())
+    hcfg = FMTrainer(**FM_HASH_APP).model_table_config()
+    spec = HashTableSpec(hcfg)
+    check(spec.num_slots == 524_288, f"bench-fm-hash's table has {spec.num_slots} slots")
+    keys = (rng.choice(2**31 - 4, size=SERVE_HASH_KEYS, replace=False) + 1).astype(np.int32)
+    hashed = DeviceHashTable(spec, "cuda")
+    dropped = hashed.multi_put(keys, rng.standard_normal((SERVE_HASH_KEYS, SERVE_WIDTH))
+                               .astype(np.float32))
+    check(dropped == 0, f"{dropped} keys refused by the hash table")
+    sk, v = hashed.state
+    hashed_cpu = DeviceHashTable(spec, "cpu", state=(sk.cpu(), v.cpu()))
+    # absent keys read as init: a tenth of the universe is never inserted
+    absent = (rng.choice(2**31 - 4, size=SERVE_HASH_KEYS // 10) + 1).astype(np.int32)
+    universe = np.concatenate([keys[:SERVE_HASH_KEYS - len(absent)], absent])
+    return ({"wd-dense": dense, "fm-hash": hashed},
+            {"wd-dense": dense_cpu, "fm-hash": hashed_cpu},
+            {"wd-dense": np.arange(dcfg.capacity), "fm-hash": universe})
+
+
+class LabeledRows:
+    """A values-only parser over libsvm records: [label, features] a row (the
+    bulk loader's generated keys need values only)."""
+
+    def __init__(self, num_features):
+        from harmony_tpu_torch.data import LibSvmParser
+
+        self.inner = LibSvmParser(num_features)
+
+    def parse(self, records):
+        x, y = self.inner.parse(records)
+        return np.concatenate([y[:, None], x], axis=1)
+
+
+def serve_bulk_loads(root):
+    """Phase 3s (e): a libsvm file at HIGGS's width into a dense table and a
+    value file into bench-fm-hash's hash table, with generated keys, on the
+    card and on the CPU; the tables byte-identical; records/s of each."""
+    from harmony_tpu_torch.apps.widedeep import FMTrainer
+    from harmony_tpu_torch.config.params import TableConfig
+    from harmony_tpu_torch.data import CsvParser
+    from harmony_tpu_torch.parallel.mesh import DevicePool
+    from harmony_tpu_torch.runtime.master import ETMaster, TableHandle
+    from harmony_tpu_torch.table.hashtable import MIN_KEY
+
+    rng = np.random.default_rng(SERVE_SEED)
+    svm = os.path.join(root, "higgs.libsvm")
+    x = rng.standard_normal((BULK_ROWS, BULK_FEATURES)).astype(np.float32)
+    y = rng.integers(0, 2, BULK_ROWS)
+    with open(svm, "w") as f:
+        for i in range(BULK_ROWS):
+            f.write(f"{y[i]} " + " ".join(f"{j + 1}:{x[i, j]:.7g}"
+                                          for j in range(BULK_FEATURES)) + "\n")
+    csv = os.path.join(root, "rows.csv")
+    vals = rng.standard_normal((BULK_ROWS, SERVE_WIDTH)).astype(np.float32)
+    np.savetxt(csv, vals, fmt="%.7g", delimiter=",")
+    dcfg = TableConfig(table_id="bulk-higgs", capacity=BULK_ROWS,
+                       value_shape=(BULK_FEATURES + 1,), num_blocks=256)
+    hcfg = FMTrainer(**FM_HASH_APP).model_table_config().replace(table_id="bulk-kv")
+    out, tables = {}, {}
+    for device in ("cuda", "cpu"):
+        master = ETMaster(DevicePool([torch.device(device)]))
+        ex = [e.id for e in master.add_executors(1)]
+        for name, cfg, path, parser in (("higgs", dcfg, svm, LabeledRows(BULK_FEATURES)),
+                                        ("kv", hcfg, csv, CsvParser())):
+            handle = TableHandle(master, master.create_table(cfg, ex), ex)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            n = handle.load([path], parser, generate_keys=True)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            check(n == BULK_ROWS, f"{name} on {device}: {n} records loaded")
+            out[f"{name}_{device}_records_per_s"] = BULK_ROWS / secs
+            tables[(name, device)] = handle.table
+    for name in ("higgs", "kv"):
+        card, cpu = tables[(name, "cuda")], tables[(name, "cpu")]
+        state = (card.state if name == "kv" else (card.array,))
+        cpu_state = (cpu.state if name == "kv" else (cpu.array,))
+        check(all(a.cpu().numpy().tobytes() == b.numpy().tobytes()
+                  for a, b in zip(state, cpu_state)),
+              f"the {name} load on the card differs from the CPU's")
+    kv = tables[("kv", "cuda")]
+    with open(csv) as f:
+        lines = f.read().splitlines()
+    ends = CsvParser().parse([lines[0], lines[-1]])
+    check(kv.num_present() == BULK_ROWS
+          and kv.multi_get([MIN_KEY, MIN_KEY + BULK_ROWS - 1]).tobytes() == ends.tobytes(),
+          "the hash table's generated keys do not run from MIN_KEY")
+    print(f"phase 3s (e): libsvm (HIGGS width, {BULK_ROWS} rows) and value-file loads "
+          f"byte-identical on card and CPU, generated hash keys from MIN_KEY; "
+          f"{json.dumps(out)}", flush=True)
+    return out, ({"bulk-higgs": tables[("higgs", "cuda")], "bulk-kv": kv},
+                 {"bulk-higgs": tables[("higgs", "cpu")], "bulk-kv": tables[("kv", "cpu")]},
+                 {"bulk-higgs": np.arange(BULK_ROWS),
+                  "bulk-kv": np.arange(MIN_KEY, MIN_KEY + BULK_ROWS)})
+
+
+def serve_sparse_refusal(server, port, root):
+    """Phase 3s (d)'s hash case: bench-fm-hash's table chained under the
+    server's root; a pinned read is refused with an error frame that names
+    the reason."""
+    from harmony_tpu_torch.apps.widedeep import FMTrainer
+    from harmony_tpu_torch.checkpoint import CheckpointManager
+    from harmony_tpu_torch.runtime.master import TableHandle
+    from harmony_tpu_torch.serving import ServingClient
+    from harmony_tpu_torch.table.hashtable import DeviceHashTable, HashTableSpec
+
+    cfg = FMTrainer(**FM_HASH_APP).model_table_config().replace(table_id="fm-hash:fm-model")
+    table = DeviceHashTable(HashTableSpec(cfg), "cuda")
+    table.multi_put(np.arange(1, 1025), np.ones((1024, SERVE_WIDTH), np.float32))
+    CheckpointManager.for_job(root, "fm-hash").checkpoint(
+        TableHandle(None, table, ["executor-0"]), commit=True, app_meta={"epoch": 0.0})
+    client = ServingClient(port=port, timeout=SERVE_TIMEOUT)
+    errors = server.serving.stats()["errors"] if server.serving is not None else 0
+    try:
+        client.lookup("fm-hash", [1, 2, 3], mode="pinned")
+        fail("a pinned read of a hash table's chain was served")
+    except RuntimeError as e:
+        msg = str(e)
+    finally:
+        client.close()
+    check("hash table" in msg and "refused" in msg, f"the refusal says {msg!r}")
+    check(server.serving.stats()["errors"] == errors + 1, "the refusal was not one error frame")
+    print(f"phase 3s (d): a pinned read of bench-fm-hash's chain refused: {msg}", flush=True)
+    return msg
+
+
+def run_serving():
+    """Phase 3s: online serving on the card (see the module docstring).
+    Returns the ``serving`` path's launches (the reads of (c) and (e)) and
+    the phase's results."""
+    import tempfile
+
+    wrappers = all_wrappers()
+    root = tempfile.mkdtemp(prefix="chip-smoke-serving-")
+    out = {"card": gpu_identity()}
+    t_phase = time.perf_counter()
+    os.environ["HARMONY_PUSH_VIA"] = "mxu"
+    try:
+        out["start_jobserver"] = serve_command_plane_subprocess(os.path.join(root, "proc"))
+        print(f"phase 3s (a): start-jobserver as a process: {out['start_jobserver']}",
+              flush=True)
+        server, port = serve_training(os.path.join(root, "chains"), wrappers, out)
+        try:
+            out["sparse_pinned_refusal"] = serve_sparse_refusal(
+                server, port, os.path.join(root, "chains"))
+            rc, reply = cli_out(["shutdown", "--port", str(port)])
+            check(rc == 0 and reply == {"ok": True}, f"shutdown: {reply}")
+            deadline = time.monotonic() + SERVE_TIMEOUT
+            while server.state != "CLOSED" and time.monotonic() < deadline:
+                time.sleep(0.05)
+            check(server.state == "CLOSED" and server.serving is None,
+                  f"the server did not close: {server.state}")
+        finally:
+            server.shutdown(timeout=60)
+        tables, cpu_tables, universes = serve_tables()
+        out["quiescent_arms"], launches = serve_quiescent(
+            tables, cpu_tables, universes, wrappers, "c")
+        for job in tables:
+            out[f"{job}_exact"] = serve_exact_checks(
+                tables[job], cpu_tables[job], job, universes[job])
+            print(f"phase 3s (c): {job}: {json.dumps(out[f'{job}_exact'])}", flush=True)
+        del tables, cpu_tables
+        out["bulk"], (btables, bcpu, buni) = serve_bulk_loads(root)
+        arms, more = serve_quiescent(btables, bcpu, buni, wrappers, "e")
+        out["bulk_arms"] = arms
+        for k, v in more.items():
+            launches[k] += v
+    finally:
+        os.environ.pop("HARMONY_PUSH_VIA", None)
+        shutil.rmtree(root, ignore_errors=True)
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    out["serving_launches"] = launches
+    return launches, out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a CUDA card")
@@ -3673,6 +4363,8 @@ def main() -> int:
     print("multi-worker: " + json.dumps(multiworker), flush=True)
     chain_launches, chains = run_chains(lm_summary)
     print("chains: " + json.dumps(chains), flush=True)
+    serving_launches, serving = run_serving()
+    print("serving: " + json.dumps(serving), flush=True)
     by_path = {name: {"bench-widedeep": launches.get(name, 0),
                       "bench-lm": lm_launches[name],
                       "bench-vit": vit_launches[name],
@@ -3686,7 +4378,8 @@ def main() -> int:
                       **{f"bench-{app}": entry["launches"].get(name, 0)
                          for app, entry in pregel["full"].items()},
                       **{path: counts.get(name, 0) for path, counts in mw_launches.items()},
-                      "chain": chain_launches[name]}
+                      "chain": chain_launches[name],
+                      "serving": serving_launches[name]}
                for name in lm_launches}
     print("profile: " + json.dumps(profile_slice()), flush=True)
     print("lm profile: " + json.dumps(profile_lm()), flush=True)

@@ -1,10 +1,22 @@
-"""Command-line entry point: ``python -m harmony_tpu_torch.cli run <app>``.
+"""Command-line entry point: ``python -m harmony_tpu_torch.cli <command>``.
 
-Counterpart of ``harmony_tpu/cli.py``'s ``run`` subcommand (the standalone
-launcher: an in-process JobServer on one device, one job, exit), for the
-apps this port runs: the training apps ``mlr``, ``nmf``, ``lda``, ``lasso``,
-``gbt``, ``addvector``, ``addinteger``, ``fm``, ``widedeep``, ``lm`` (an MoE LM
-with ``--set moe_experts=N``) and ``vit``, and
+Counterpart of ``harmony_tpu/cli.py``'s ``run``, ``start-jobserver``,
+``submit``, ``status`` and ``shutdown`` subcommands. ``run`` is the
+standalone launcher (an in-process JobServer on one device, one job, exit);
+``start-jobserver`` starts a long-running JobServer with its TCP command
+plane (``--port``, 0 picks a free one; it prints ``jobserver ready on port
+N`` and runs until a ``shutdown``, with ``--chkp-root`` for the jobs'
+checkpoint chains and the serving plane's pinned reads); ``submit`` sends
+one job to it (the same presets and flags as ``run``) and prints the reply,
+``status`` and ``shutdown`` send those commands. ``run`` and
+``start-jobserver`` run on the card unless ``--device cpu`` is given; the
+thin client commands touch no device. The reference's HA replica
+(``_cmd_start_jobserver_ha``), ``start-pod``, ``pod-reshard``, ``obs``,
+``dashboard`` and ``inputsvc`` are not ported (ROADMAP A.10).
+
+The presets cover the apps this port runs: the training apps ``mlr``,
+``nmf``, ``lda``, ``lasso``, ``gbt``, ``addvector``, ``addinteger``, ``fm``,
+``widedeep``, ``lm`` (an MoE LM with ``--set moe_experts=N``) and ``vit``, and
 the graph apps ``pagerank``, ``connected-components`` and ``shortest-path``.
 Presets are the reference's, with the trainer (or computation) and the data
 or graph generator resolved in this package; override them with ``--set
@@ -20,15 +32,17 @@ the server's shutdown; both apply to training apps only, and
 ``--device cpu`` is given; with no card it raises. The reference's
 ``--optimizer`` and ``--auto-resume`` are not ported.
 
-Prints ``{"job_id": ..., "result": ...}`` as one JSON line, with
+``run`` prints ``{"job_id": ..., "result": ...}`` as one JSON line, with
 ``"offline_eval"`` (the chain's evaluations) when ``--offline-eval`` is
-given.
+given; ``submit``, ``status`` and ``shutdown`` print the server's JSON reply
+and exit 1 when it is not ``ok``.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import sys
+import time
 from typing import Any, Dict, List
 
 import numpy as np
@@ -273,13 +287,71 @@ def _cmd_run(args: argparse.Namespace) -> int:
     return 0
 
 
-def build_parser() -> argparse.ArgumentParser:
-    ap = argparse.ArgumentParser(
-        prog="harmony-tpu-torch",
-        description="harmony_tpu's training framework on PyTorch and CUDA",
-    )
-    sub = ap.add_subparsers(dest="cmd", required=True)
-    p = sub.add_parser("run", help="run one job standalone (in-process server)")
+def _make_server(args: argparse.Namespace):
+    """A started JobServer on ``--device``: ``--num-executors`` executors, 0
+    one per visible card (one on the CPU)."""
+    from harmony_tpu_torch.jobserver.server import JobServer
+    from harmony_tpu_torch.parallel.mesh import DevicePool
+
+    if args.device == "cpu":
+        pool = DevicePool(["cpu"])
+    else:
+        pool = DevicePool() if args.device == "cuda" else DevicePool([args.device])
+    n = args.num_executors or len(pool)
+    server = JobServer(n, device_pool=pool, chkp_root=args.chkp_root)
+    server.start()
+    return server
+
+
+def _cmd_start_jobserver(args: argparse.Namespace) -> int:
+    server = _make_server(args)
+    port = server.serve_tcp(args.port)
+    print(f"jobserver ready on port {port}", flush=True)
+    try:
+        while server.state != "CLOSED":
+            time.sleep(0.5)
+    except KeyboardInterrupt:
+        server.shutdown()
+    return 0
+
+
+def _sender(port):
+    """An explicit --port wins; otherwise the HARMONY_JOBSERVER_ADDRS replica
+    list, then the default port 43110."""
+    from harmony_tpu_torch.jobserver.client import CommandSender
+
+    if port is not None:
+        return CommandSender(int(port))
+    return CommandSender.from_env()
+
+
+def _cli_command(fn) -> Dict[str, Any]:
+    """One client command; a NOT_LEADER refusal comes back as the documented
+    one-line JSON reply, never a traceback."""
+    from harmony_tpu_torch.jobserver.client import NotLeaderError
+
+    try:
+        return fn()
+    except NotLeaderError as e:
+        return {"ok": False, "not_leader": True, "error": str(e), "leader": e.leader}
+
+
+def _cmd_client(args: argparse.Namespace) -> int:
+    """``submit``, ``status`` and ``shutdown``: one command to a running
+    jobserver; prints its reply."""
+    sender = _sender(args.port)
+    if args.cmd == "submit":
+        cfg = build_config(args.app, args)
+        resp = _cli_command(lambda: sender.send_job_submit_command(cfg))
+    elif args.cmd == "status":
+        resp = _cli_command(sender.send_status_command)
+    else:
+        resp = _cli_command(sender.send_shutdown_command)
+    print(json.dumps(resp))
+    return 0 if resp.get("ok") else 1
+
+
+def _common_job_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("app", choices=sorted(PRESETS))
     p.add_argument("--job-id", default=None)
     p.add_argument("--epochs", type=int, default=3)
@@ -300,13 +372,52 @@ def build_parser() -> argparse.ArgumentParser:
                    help="snapshot the model table every N epochs (0 = off)")
     p.add_argument("--offline-eval", action="store_true",
                    help="evaluate the checkpoint chain at the server's shutdown")
+
+
+def _device_flag(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu; the CPU runs only when asked for")
+
+
+def _port_flag(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--port", type=int, default=None,
+                   help="jobserver TCP port (default: the HARMONY_JOBSERVER_ADDRS "
+                        "replica list, then 43110)")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="harmony-tpu-torch",
+        description="harmony_tpu's training framework on PyTorch and CUDA",
+    )
+    sub = ap.add_subparsers(dest="cmd", required=True)
+    p = sub.add_parser("run", help="run one job standalone (in-process server)")
+    _common_job_flags(p)
+    _device_flag(p)
+    p = sub.add_parser("start-jobserver", help="long-running multi-tenant job server")
+    p.add_argument("--num-executors", type=int, default=0,
+                   help="0 = one per visible card (one on the CPU)")
+    p.add_argument("--port", type=int, default=43110, help="TCP port (0 = a free one)")
+    p.add_argument("--chkp-root", default=None,
+                   help="root of the jobs' checkpoint chains (and of pinned reads)")
+    _device_flag(p)
+    p = sub.add_parser("submit", help="submit a job to a running jobserver")
+    _common_job_flags(p)
+    _port_flag(p)
+    p = sub.add_parser("status", help="query a running jobserver")
+    _port_flag(p)
+    p = sub.add_parser("shutdown", help="graceful jobserver shutdown")
+    _port_flag(p)
     return ap
 
 
 def main(argv: "List[str] | None" = None) -> int:
-    return _cmd_run(build_parser().parse_args(argv))
+    args = build_parser().parse_args(argv)
+    if args.cmd == "run":
+        return _cmd_run(args)
+    if args.cmd == "start-jobserver":
+        return _cmd_start_jobserver(args)
+    return _cmd_client(args)
 
 
 if __name__ == "__main__":

@@ -34,8 +34,9 @@ class TableConfig(ConfigBase):
     # [MIN_KEY, MAX_KEY] and ``capacity`` bounds slots, not the key domain.
     sparse: bool = False
     # Bulk-load source (the reference's FilePath / BulkDataLoader binding).
-    # Carried so that a checkpoint manifest holds the reference's keys; the
-    # port's loaders are not ported yet (ROADMAP A.7b).
+    # Carried so that a checkpoint manifest holds the reference's keys;
+    # ``TableHandle.load`` takes its paths and parser as arguments, as the
+    # reference's does.
     input_path: Optional[str] = None
     parser: Optional[str] = None       # dotted path of a DataParser
 

@@ -1,7 +1,8 @@
 """StageRing — the bounded staging ring of the input pipelines.
 
-Counterpart of ``harmony_tpu/data/loader.py``'s ``StageRing`` (the split
-prefetch loader beside it reads files, which this port does not read yet).
+Counterpart of ``harmony_tpu/data/loader.py``'s ``StageRing``. The split
+prefetch loader beside it is not ported: ``load_dataset`` and
+``TableHandle.load`` read their splits in order with ``fetch_split``.
 """
 from __future__ import annotations
 

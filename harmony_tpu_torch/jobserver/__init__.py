@@ -1,1 +1,2 @@
-"""In-process job server and job entities."""
+"""The job server (in process, and over its TCP command plane), its client,
+overload control and the job entities."""

@@ -461,6 +461,15 @@ class DolphinJobEntity:
             out["model_chkp_stats"] = self._chkp_chain.stats
         return out
 
+    @property
+    def table_handle(self) -> Optional[TableHandle]:
+        """The job's model table with its executors (the serving plane's live
+        table), or None before set-up and after cleanup."""
+        table = self._table
+        if table is None:
+            return None
+        return TableHandle(self._master, table, self._executor_ids)
+
     def cleanup(self) -> None:
         """Release the job's references to its tables (a shared table lives
         on while another holder has it). Idempotent: each reference is

@@ -30,19 +30,42 @@ thread of its own within its own ``timeout`` budget and records the
 evaluations, or the error, in ``eval_results[job_id]``. A failed or timed-out
 evaluation never fails the shutdown.
 
-Not ported yet: the TCP control plane, HA, the policy engine, overload
-control, history and doctor, metrics scraping and the serving plane
-(ROADMAP A.10).
+The TCP command plane (``serve_tcp``): one JSON object a connection each
+way (``jobserver/client.py``), the reference's wire. A bounded accept queue
+feeds a fixed pool of command workers; the overload monitor
+(``jobserver/overload.py``) watches the queue and sheds with a structured
+``BUSY``. Commands: ``SUBMIT`` (admission first, then ``submit``),
+``STATUS``, ``WAIT`` (a bounded poll of one job's result), ``SERVING``
+(starts the serving endpoint on demand and answers its address), ``SHUTDOWN``
+and ``POD_RESHARD`` (answered ``not a pod server``, as the reference's plain
+server answers it). ``_entities`` maps a running job to its entity, set
+before the entity's set-up and dropped when the job ends; the serving
+endpoint reads a job's live table through it, and its pinned reads through
+``chkp_root``. ``shutdown`` closes the command plane first and the serving
+endpoint last.
+
+Not ported yet: HA (``NOT_LEADER`` gating), the pod, the policy engine,
+history and doctor, metrics scraping, and the STATUS fields of those
+subsystems (ROADMAP A.10).
 """
 from __future__ import annotations
 
+import json
+import queue as _queue
+import socket
 import threading
 import time
 from concurrent.futures import Future
+from concurrent.futures import TimeoutError as FuturesTimeoutError
 from typing import Any, Dict, List, Optional, Union
 
+import numpy as np
+
+from harmony_tpu_torch.config.base import ConfigBase
 from harmony_tpu_torch.config.params import JobConfig
+from harmony_tpu_torch.jobserver import overload as _ov
 from harmony_tpu_torch.jobserver.entity import build_entity
+from harmony_tpu_torch.jobserver.overload import OverloadMonitor
 from harmony_tpu_torch.jobserver.scheduler import (
     JobScheduler,
     ShareAllScheduler,
@@ -54,6 +77,23 @@ from harmony_tpu_torch.runtime.taskunit import (
     GlobalTaskUnitScheduler,
     LocalTaskUnitScheduler,
 )
+from harmony_tpu_torch.tracing.span import SpanContext, trace_span
+from harmony_tpu_torch.utils.framing import close_listener
+
+
+def _json_sanitize(obj: Any) -> Any:
+    """JSON projection of a job result for the wire (the reference's):
+    plain scalars and containers pass, numpy scalars coerce, anything else
+    (tensors, arrays) becomes its repr."""
+    if isinstance(obj, dict):
+        return {str(k): _json_sanitize(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_json_sanitize(v) for v in obj]
+    if isinstance(obj, (bool, int, float, str)) or obj is None:
+        return obj
+    if isinstance(obj, np.generic):
+        return obj.item()
+    return repr(obj)
 
 
 class JobServer:
@@ -80,6 +120,19 @@ class JobServer:
         self._deferred_evals: Dict[str, Any] = {}
         # job id -> the evaluations of its chain, or {"error": ...}
         self.eval_results: Dict[str, Any] = {}
+        # job id -> its entity while it runs (the serving plane's live tables)
+        self._entities: Dict[str, Any] = {}
+        # the TCP command plane (serve_tcp): a bounded accept queue drained
+        # by a fixed worker pool; the monitor sheds when it backs up
+        self.overload = OverloadMonitor()
+        self._tcp_thread: Optional[threading.Thread] = None
+        self._tcp_sock: Optional[socket.socket] = None
+        self._cmd_queue: Optional["_queue.Queue"] = None
+        self._cmd_workers: List[threading.Thread] = []
+        self._cmd_queue_cap = 0
+        self.port: Optional[int] = None
+        # the serving endpoint, started by the first SERVING command
+        self.serving = None
 
     @property
     def state(self) -> str:
@@ -131,6 +184,8 @@ class JobServer:
             entity = build_entity(config, chkp_root=self._chkp_root,
                                   global_taskunit=self.global_taskunit,
                                   local_taskunit=self.local_taskunit)
+            with self._lock:
+                self._entities[config.job_id] = entity
             try:
                 entity.setup(self.master, executor_ids)
                 result = entity.run()
@@ -149,7 +204,13 @@ class JobServer:
         else:
             future.set_result(result)
         finally:
+            with self._lock:
+                self._entities.pop(config.job_id, None)
             self._scheduler.on_job_finish(config.job_id)
+
+    def running_jobs(self) -> List[str]:
+        with self._lock:
+            return [j for j, f in self._jobs.items() if not f.done()]
 
     def shutdown(self, timeout: Optional[float] = 300.0) -> None:
         """Stop accepting jobs, wait for the submitted ones (including those a
@@ -161,6 +222,7 @@ class JobServer:
             if self._state != "INIT":
                 return
             self._state = "CLOSING"
+        self._stop_tcp()
         deadline = None if timeout is None else time.monotonic() + timeout
         while True:
             with self._lock:
@@ -180,6 +242,7 @@ class JobServer:
             t.join(timeout=remaining)
             drained = drained and not t.is_alive()
         self._run_deferred_evals(timeout, drained)
+        self._stop_serving()
         self._state = "CLOSED"
 
     def _run_deferred_evals(self, timeout: Optional[float], drained: bool) -> None:
@@ -222,3 +285,269 @@ class JobServer:
                 self.eval_results[job_id] = {"error": box["error"]}
             else:
                 self.eval_results[job_id] = box["result"]
+
+    # -- serving ------------------------------------------------------------
+
+    def _ensure_serving(self):
+        """Start the serving endpoint once (first SERVING command) and return
+        it. Live lookups resolve through ``_entities``, the tables the
+        trainers update; pinned lookups through this server's ``chkp_root``;
+        admission through the overload monitor."""
+        with self._lock:
+            if self.serving is not None:
+                return self.serving
+            from harmony_tpu_torch.serving import ServingEndpoint
+
+            def live_table(job_id: str):
+                with self._lock:
+                    entity = self._entities.get(job_id)
+                handle = (getattr(entity, "table_handle", None)
+                          if entity is not None else None)
+                return handle.table if handle is not None else None
+
+            svc = ServingEndpoint(table_fn=live_table, chkp_root=self._chkp_root,
+                                  overload=self.overload)
+            svc.start()
+            self.serving = svc
+        return svc
+
+    def _stop_serving(self) -> None:
+        with self._lock:
+            svc, self.serving = self.serving, None
+        if svc is not None:
+            svc.stop()
+
+    def _status(self) -> Dict[str, Any]:
+        """STATUS reply: the fields of the subsystems this port has. The
+        reference's other fields (stragglers, tenants, phase budget, history,
+        diagnoses, policy, incidents, ha, input service, flight records) are
+        absent until those subsystems are ported (ROADMAP A.10)."""
+        with self._lock:
+            serving = self.serving
+        return {
+            "ok": True,
+            "state": self.state,
+            "running": self.running_jobs(),
+            "evaluated": sorted(self.eval_results),
+            "serving": serving.stats() if serving is not None else None,
+            "overload": self.overload.status(),
+        }
+
+    # -- TCP command endpoint ------------------------------------------------
+
+    #: byte cap on ONE command message: a client streaming forever costs a
+    #: bounded buffer
+    _MAX_CMD_BYTES = 16 << 20
+
+    def serve_tcp(self, port: int = 0, host: str = "127.0.0.1") -> int:
+        """Listen on ``host:port`` (0 picks a free port); returns the bound
+        port. One JSON object a connection each way. The accept loop feeds a
+        bounded queue drained by a fixed worker pool (``HARMONY_CMD_WORKERS``,
+        ``HARMONY_CMD_QUEUE``); a full queue answers ``BUSY`` at accept."""
+        from harmony_tpu_torch import faults
+
+        sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        sock.bind((host, port))
+        sock.listen(64)
+        cap = _ov.cmd_queue_cap()
+        q: "_queue.Queue" = _queue.Queue(maxsize=cap)
+        workers: List[threading.Thread] = []
+        for i in range(_ov.cmd_workers()):
+            t = threading.Thread(target=self._cmd_worker, args=(q, cap),
+                                 daemon=True, name=f"jobserver-cmd-{i}")
+            t.start()
+            workers.append(t)
+        with self._lock:
+            self._tcp_sock = sock
+            self._cmd_queue = q
+            self._cmd_workers = workers
+            self._cmd_queue_cap = cap
+        self.port = sock.getsockname()[1]
+
+        def loop() -> None:
+            while True:
+                try:
+                    conn, _ = sock.accept()
+                except OSError:
+                    return  # socket closed
+                if faults.armed():
+                    try:
+                        faults.site("server.accept", depth=q.qsize())
+                    except Exception:
+                        # an injected accept fault drops this connection only
+                        try:
+                            conn.close()
+                        except OSError:
+                            pass
+                        continue
+                try:
+                    q.put_nowait((conn, time.monotonic()))
+                except _queue.Full:
+                    # shed at the door: a structured BUSY beats an
+                    # accepted-then-starved connection
+                    self.overload.note_queue(q.qsize(), cap)
+                    self.overload.count_shed("accept_shed")
+                    self._send_busy(conn, self.overload.retry_after_ms())
+                    self.overload.step()
+
+        self._tcp_thread = threading.Thread(target=loop, daemon=True, name="jobserver-tcp")
+        self._tcp_thread.start()
+        return self.port
+
+    def _send_busy(self, conn: socket.socket, retry_after_ms: int) -> None:
+        """Best-effort BUSY reply on a connection being shed (bounded: the
+        accept loop never blocks on a slow client)."""
+        reply = {"ok": False, "busy": True, "retry_after_ms": int(retry_after_ms),
+                 "error": "BUSY: control plane overloaded"}
+        try:
+            conn.settimeout(1.0)
+            conn.sendall((json.dumps(reply) + "\n").encode())
+        except OSError:
+            pass
+        finally:
+            try:
+                conn.close()
+            except OSError:
+                pass
+
+    def _cmd_worker(self, q: "_queue.Queue", cap: int) -> None:
+        """One pool worker: drain the accept queue until a None sentinel. The
+        queue's lag (how long a connection waited) feeds the monitor."""
+        while True:
+            item = q.get()
+            if item is None:
+                return
+            conn, enq_t = item
+            self.overload.note_queue(q.qsize(), cap, lag_sec=time.monotonic() - enq_t)
+            self.overload.step()
+            try:
+                self._handle_conn(conn)
+            except Exception:  # noqa: BLE001 - a handler fault must not
+                pass           # end the pool worker
+
+    def _read_command(self, conn: socket.socket, deadline: float) -> bytes:
+        """One newline-terminated command, capped in bytes and wall clock (a
+        trickling client cannot hold a worker past the deadline)."""
+        data = b""
+        while not data.endswith(b"\n"):
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                self.overload.count_shed("slowloris_evict")
+                raise TimeoutError("command read exceeded its wall-clock deadline "
+                                   "(slow client evicted)")
+            conn.settimeout(min(5.0, remaining))
+            try:
+                chunk = conn.recv(65536)
+            except socket.timeout:
+                continue
+            if not chunk:
+                break
+            data += chunk
+            if len(data) > self._MAX_CMD_BYTES:
+                self.overload.count_shed("oversize_evict")
+                raise ValueError(f"command exceeds {self._MAX_CMD_BYTES} byte cap")
+        return data
+
+    def _handle_conn(self, conn: socket.socket) -> None:
+        from harmony_tpu_torch import faults
+
+        deadline = time.monotonic() + _ov.cmd_deadline_sec()
+        # the reply goes out before `with conn` closes the socket
+        with conn:
+            try:
+                data = self._read_command(conn, deadline)
+                msg = json.loads(data.decode())
+                cmd = msg.get("command")
+                if faults.armed():
+                    faults.site("server.command", cmd=str(cmd))
+                if cmd == "SUBMIT":
+                    reply = self._submit_command(msg)
+                elif cmd == "STATUS":
+                    reply = self._status()
+                elif cmd == "WAIT":
+                    reply = self._wait_command(msg, deadline)
+                elif cmd == "POD_RESHARD":
+                    reply = {"ok": False, "error": "not a pod server"}
+                elif cmd == "SERVING":
+                    svc = self._ensure_serving()
+                    reply = {"ok": True, "port": svc.port, "host": svc.address[0]}
+                elif cmd == "SHUTDOWN":
+                    threading.Thread(target=self.shutdown, daemon=True).start()
+                    reply = {"ok": True}
+                else:
+                    reply = {"ok": False, "error": f"unknown command {cmd!r}"}
+            except Exception as e:  # noqa: BLE001 - reported to the client
+                reply = {"ok": False, "error": f"{type(e).__name__}: {e}"}
+            try:
+                conn.sendall((json.dumps(reply) + "\n").encode())
+            except OSError:
+                pass  # the client went away
+
+    def _submit_command(self, msg: Dict[str, Any]) -> Dict[str, Any]:
+        """Admission before anything is registered: a rejected submission
+        leaves no trace, an admitted one goes to ``submit``."""
+        with self._lock:
+            q = self._cmd_queue
+        retry_ms = self.overload.admit_submit(
+            queue_depth=q.qsize() if q is not None else 0,
+            queue_cap=self._cmd_queue_cap or 1,
+            inflight=len(self.running_jobs()))
+        if retry_ms is not None:
+            return {"ok": False, "busy": True, "retry_after_ms": retry_ms,
+                    "error": f"BUSY: control plane overloaded; retry after {retry_ms}ms"}
+        config = ConfigBase.from_dict(msg["conf"])
+        with trace_span("jobserver.submit", parent=SpanContext.from_wire(msg.get("trace")),
+                        job_id=config.job_id):
+            self.submit(config)
+        return {"ok": True, "job_id": config.job_id}
+
+    def _wait_command(self, msg: Dict[str, Any], deadline: float) -> Dict[str, Any]:
+        """A bounded wait on one job's result, capped by the command deadline
+        (a WAIT holds a pool worker; clients poll in a loop)."""
+        job_id = str(msg.get("job_id"))
+        timeout = min(float(msg.get("timeout", 30.0)), 300.0,
+                      max(0.5, deadline - time.monotonic()))
+        with self._lock:
+            future = self._jobs.get(job_id)
+        if future is None:
+            return {"ok": False, "known": False, "error": f"unknown job {job_id!r}"}
+        try:
+            result = future.result(timeout=timeout)
+        except (TimeoutError, FuturesTimeoutError):
+            return {"ok": True, "done": False, "running": job_id in self.running_jobs()}
+        except BaseException as e:  # noqa: BLE001 - the job's failure
+            return {"ok": False, "known": True, "done": True,
+                    "error": f"{type(e).__name__}: {e}"}
+        return {"ok": True, "done": True, "result": _json_sanitize(result)}
+
+    def _stop_tcp(self) -> None:
+        """Close the listener, answer the queued connections with EOF and stop
+        the pool (under the lock: two SHUTDOWNs may race here)."""
+        with self._lock:
+            sock, self._tcp_sock = self._tcp_sock, None
+            q, self._cmd_queue = self._cmd_queue, None
+            workers, self._cmd_workers = self._cmd_workers, []
+        if sock is not None:
+            close_listener(sock)   # wakes the accept loop
+        if q is None:
+            return
+        while True:
+            try:
+                item = q.get_nowait()
+            except _queue.Empty:
+                break
+            if item is not None:
+                try:
+                    item[0].close()
+                except OSError:
+                    pass
+        for _ in workers:
+            try:
+                q.put(None, timeout=1.0)
+            except _queue.Full:
+                break  # workers are daemons: leak rather than hang
+        # a worker mid-WAIT holds its slot up to the command deadline
+        for t in workers:
+            if t is not threading.current_thread():
+                t.join(timeout=0.5)

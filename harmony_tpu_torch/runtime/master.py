@@ -6,9 +6,9 @@ needs in this port: executors, each leasing one device from the
 job's table on its executors' device, list, drop): a ``DenseTable``, or a
 ``DeviceHashTable`` when the config is ``sparse``. A table lives on one
 device. :class:`TableHandle` is the reference's handle cut to what the
-checkpoint path reads (the table, its executors, its block ownership, drop):
-``create_table`` returns the table itself, and the checkpoint manager wraps
-what it restores in a handle. Block migration and tables spread over several
+checkpoint path and the bulk loader read (the table, its executors, its block
+ownership, ``load``, drop): ``create_table`` returns the table itself, and
+the checkpoint manager wraps what it restores in a handle. Block migration and tables spread over several
 devices are not ported yet (ROADMAP A.9, A.10).
 """
 from __future__ import annotations
@@ -16,14 +16,21 @@ from __future__ import annotations
 import threading
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from harmony_tpu_torch.config.params import TableConfig
 from harmony_tpu_torch.parallel.mesh import DevicePool
-from harmony_tpu_torch.table.hashtable import DeviceHashTable, HashTableSpec
+from harmony_tpu_torch.table.hashtable import MIN_KEY, DeviceHashTable, HashTableSpec
 from harmony_tpu_torch.table.table import DenseTable, TableSpec
 
 Table = Union[DenseTable, DeviceHashTable]
+
+
+def _table_min_key(table) -> int:
+    """Smallest key a table admits: ``MIN_KEY`` (1) for hash tables, whose
+    key 0 is reserved, 0 for dense tables."""
+    return MIN_KEY if isinstance(table, DeviceHashTable) else 0
 
 
 class Executor:
@@ -39,14 +46,16 @@ class Executor:
 
 class TableHandle:
     """A table with the executors it was created on (the reference's
-    ``TableHandle``, cut to what the checkpoint manager reads). A table lives
-    on one device: every block is owned by the first executor."""
+    ``TableHandle``, cut to what the checkpoint manager and the bulk loader
+    read). A table lives on one device: every block is owned by the first
+    executor."""
 
     def __init__(self, master: "ETMaster", table: Table,
                  executors: Sequence[str]) -> None:
         self._master = master
         self.table = table
         self.executors: List[str] = list(executors)
+        self._next_generated_key = 0  # generated keys of load()
 
     @property
     def table_id(self) -> str:
@@ -55,6 +64,55 @@ class TableHandle:
     def ownership_vector(self) -> List[int]:
         """Block -> index into ``executors`` of its owner."""
         return [0] * self.table.spec.num_blocks
+
+    def load(self, paths: Sequence[str], parser, num_splits: int = 0,
+             generate_keys: bool = False) -> int:
+        """Bulk-load records from files into the table (the reference's
+        ``TableHandle.load``: AllocatedTable.load -> BulkDataLoader ->
+        multiPut). Exactly one split per executor unless ``num_splits`` is
+        given; each split's records are parsed and inserted with one
+        ``multi_put``.
+
+        * ``generate_keys=False``: the parser yields ``(keys, values)``; keys
+          come from the data.
+        * ``generate_keys=True``: the parser yields values only; keys are
+          generated sequentially across splits and across calls, from the
+          table's first key (``MIN_KEY`` on a hash table, 0 on a dense one),
+          and a load past the capacity is refused.
+
+        Returns the number of records stored (a hash table's refused keys are
+        not counted)."""
+        from harmony_tpu_torch.data.splits import compute_splits, fetch_split
+
+        n = num_splits or max(len(self.executors), 1)
+        total = 0
+        for split in compute_splits(list(paths), n):
+            records = fetch_split(split)
+            if not records:
+                continue
+            parsed = parser.parse(records)
+            if generate_keys:
+                if isinstance(parsed, tuple):
+                    raise ValueError(
+                        "generate_keys=True needs a values-only parser; "
+                        f"{type(parser).__name__}.parse returned a tuple "
+                        "(its keys would be discarded silently)")
+                values = parsed
+                start = max(self._next_generated_key, _table_min_key(self.table))
+                end = start + len(values)
+                if end > self.table.spec.config.capacity:
+                    raise ValueError(
+                        f"generated keys {start}..{end - 1} exceed table capacity "
+                        f"{self.table.spec.config.capacity}; the out-of-range rows "
+                        "would be dropped silently")
+                keys = np.arange(start, end)
+                self._next_generated_key = end
+            else:
+                keys, values = parsed
+            if len(keys):
+                dropped = self.table.multi_put(keys, values) or 0
+                total += len(keys) - dropped
+        return total
 
     def drop(self) -> None:
         """Release this handle's reference to the table."""

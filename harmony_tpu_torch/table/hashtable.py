@@ -56,7 +56,7 @@ import torch
 
 from harmony_tpu_torch.config.params import TableConfig
 from harmony_tpu_torch.ops.sparse import gather_rows, segment_sum_rows, value_width
-from harmony_tpu_torch.table.table import BlockSnapshot
+from harmony_tpu_torch.table.table import BlockSnapshot, LayoutAnnouncerMixin, StreamOrder
 from harmony_tpu_torch.table.update import UpdateFunction, get_update_fn
 from harmony_tpu_torch.utils.platform import DeviceLike, resolve_device
 
@@ -407,10 +407,13 @@ class HashTableSpec:
         return state
 
 
-class DeviceHashTable:
+class DeviceHashTable(StreamOrder, LayoutAnnouncerMixin):
     """Host-side handle of a hash table on one device: serialised steps and
     commits, the host op surface (multi_get_or_init, multi_get, multi_update,
-    multi_put) and the overflow count.
+    multi_put) and the overflow count. Device work is ordered across streams
+    as ``DenseTable``'s is (:class:`StreamOrder`), and writes bump
+    ``data_version``, which the reference's hash table lacks (its serving
+    cache keeps a hash table's rows across training writes; ROADMAP C).
 
     Keys the table refuses (out of domain, or past the probe budget) are
     counted in :attr:`overflow_count`, never dropped silently: the host ops
@@ -431,6 +434,8 @@ class DeviceHashTable:
         self._state: Optional[State] = state
         self._dropped = False
         self.overflow_count = 0
+        self._layout_listeners: list = []
+        self._init_order()
 
     def _check_state(self, state) -> None:
         sk, v = state
@@ -465,12 +470,14 @@ class DeviceHashTable:
                     or v.device != self._state[1].device):
                 raise ValueError("commit: state dtype or device changed")
             self._state = (sk, v)
+            self._after_write()
 
     def apply_step(self, step_fn: Callable, *args):
         """Run ``step_fn(state, *args) -> (new_state, out)`` and commit, both
         under the table lock. Returns ``out``."""
         with self._lock:
             self._check()
+            self._before_write()
             new_state, out = step_fn(self._state, *args)
             self.commit(new_state)
         return out
@@ -482,6 +489,8 @@ class DeviceHashTable:
         table's lock, then ``local``'s."""
         with self._lock, local._lock:
             self._check()
+            self._before_write()
+            local._before_write()
             (new_state, new_local), aux = step_fn(self._state, local._step_state, *extra)
             self.commit(new_state)
             local.commit(new_local)
@@ -520,11 +529,16 @@ class DeviceHashTable:
         return vals.cpu().numpy()
 
     def multi_get(self, keys: Sequence[int]) -> np.ndarray:
-        """Read-only lookup: absent keys read as init and are not inserted."""
+        """Read-only lookup: absent keys read as init and are not inserted.
+        Dispatched under the lock after the last committed write; the wait
+        for the rows and their copy to the host happen outside it."""
         k = self._keys(keys)
         with self._lock:
             self._check()
-            return self.spec.lookup(self._state, k).cpu().numpy()
+            self._before_read()
+            rows = self.spec.lookup(self._state, k)
+            self._after_read()
+        return rows.cpu().numpy()
 
     def multi_update(self, keys: Sequence[int], deltas) -> int:
         """multiUpdate; returns the number of keys dropped (and counts them)."""
@@ -554,14 +568,20 @@ class DeviceHashTable:
         """Occupied slots (stored keys are negative)."""
         with self._lock:
             self._check()
-            return int((self._state[0] < 0).sum())
+            self._before_read()
+            n = (self._state[0] < 0).sum()
+            self._after_read()
+        return int(n)
 
     def items(self) -> Dict[int, np.ndarray]:
         """Every present (key, value) pair (a test and debug surface)."""
         with self._lock:
             self._check()
-            sk = self._state[0].cpu().numpy().reshape(-1)
-            v = self._state[1].cpu().numpy().reshape(-1, *self.spec.value_shape)
+            self._before_read()
+            sk, v = (t.clone() for t in self._state)
+            self._after_read()
+        sk = sk.cpu().numpy().reshape(-1)
+        v = v.cpu().numpy().reshape(-1, *self.spec.value_shape)
         return {int(_decode_stored(sk[i])): v[i] for i in np.nonzero(sk < 0)[0]}
 
     def drop(self) -> None:
@@ -581,11 +601,13 @@ class DeviceHashTable:
                else [int(b) for b in block_ids])
         with self._lock:
             self._check()
+            self._before_read()
             sk, v = self._state
             if block_ids is None:
                 parts = (sk.clone(), v.clone())
             else:
                 parts = (torch.stack([sk[b] for b in ids]), torch.stack([v[b] for b in ids]))
+            self._after_read()
             return BlockSnapshot(ids, parts, self.device)
 
     def export_blocks(self, block_ids: Optional[Sequence[int]] = None
@@ -606,9 +628,11 @@ class DeviceHashTable:
         idx = torch.as_tensor(ids, device=self.device)
         with self._lock:
             self._check()
+            self._before_write()
             sk, v = self._state
             sk[idx] = pk.to(self.device, torch.int32)
             v[idx] = pv.to(self.device, self.spec.dtype)
+            self._after_write()
 
     # -- elasticity: not ported yet ------------------------------------------
 

@@ -11,8 +11,15 @@ returns a new one, and JAX donates the old buffer. Here the ops update the
 storage IN PLACE instead (no second table-sized buffer per step) and return
 it. What made the functional version safe is kept by the lock: a step runs
 and commits under the table lock (:meth:`DenseTable.apply_step`), and host
-readers (:meth:`DenseTable.multi_get`, :meth:`DenseTable.pull_array`) copy
-under the same lock, so no reader sees a half-applied push.
+readers (:meth:`DenseTable.multi_get`, :meth:`DenseTable.pull_array`) enqueue
+their read under the same lock, so no reader sees a half-applied push.
+
+On the card the lock orders the host's enqueues, and :class:`StreamOrder`
+orders the device's work across streams (a serving thread reads on its own
+stream while the job's workers write on theirs): a read waits for the last
+write's stream, and the next write waits for the reads. ``multi_get``
+dispatches under the lock and waits for its rows outside it, as the
+reference does, so a read never holds the lock across a device sync.
 
 The checkpoint path's per-block I/O (``snapshot_blocks``, ``export_blocks``,
 ``import_blocks``) works on whole blocks, the storage's first dimension; a
@@ -101,6 +108,123 @@ class BlockSnapshot:
         # the device parts stay referenced until the copies have finished
         stream.synchronize()
         return [h.numpy() for h in hosts]
+
+
+class StreamOrder:
+    """Orders a table's device work across CUDA streams; every method runs
+    under the host's table lock, and each is a no-op off the card.
+
+    A write (a step's in-place update and its commit, or a host op) calls
+    :meth:`_before_write` before it enqueues anything and :meth:`_after_write`
+    once it has: the stream it ran on is kept as the last write's. A read
+    calls :meth:`_before_read`, which records an event on that stream and has
+    the reader's stream wait on it (the read follows every committed write,
+    whichever stream wrote it), and :meth:`_after_read`, which records an
+    event on the reader's stream that the next write waits on (a later
+    in-place write never overtakes a read still queued on another stream).
+    Writers on one stream pay a comparison a write; the events are made only
+    when a second stream reads. Hosts set ``self.device``, call
+    :meth:`_init_order` and hold ``self._lock``. Every host read of a table
+    is ordered so; the ``array`` and ``state`` properties hand out the live
+    storage itself, which is ordered only on the last write's stream."""
+
+    def _init_order(self) -> None:
+        """Called once the initial storage is enqueued: that is the first
+        write's stream."""
+        self._data_version = 0
+        self._write_stream: Optional["torch.cuda.Stream"] = self._stream()
+        self._read_events: Dict["torch.cuda.Stream", "torch.cuda.Event"] = {}
+        self._write_event: Optional["torch.cuda.Event"] = None
+
+    def _stream(self) -> Optional["torch.cuda.Stream"]:
+        if self.device.type != "cuda":
+            return None
+        return torch.cuda.current_stream(self.device)
+
+    def _before_write(self) -> None:
+        s = self._stream()
+        if s is None:
+            return
+        last = self._write_stream
+        if last is not None and last != s:   # a write on another stream first
+            ev = torch.cuda.Event()
+            ev.record(last)
+            s.wait_event(ev)
+        for reader, ev in self._read_events.items():
+            if reader != s:
+                s.wait_event(ev)
+        self._read_events.clear()
+
+    def _after_write(self) -> None:
+        self._data_version += 1
+        s = self._stream()
+        if s is not None:
+            self._write_stream = s
+
+    def _before_read(self) -> None:
+        s = self._stream()
+        last = self._write_stream
+        if s is None or last is None or last == s:
+            return
+        if self._write_event is None:
+            self._write_event = torch.cuda.Event()
+        self._write_event.record(last)
+        s.wait_event(self._write_event)
+
+    def _after_read(self) -> None:
+        s = self._stream()
+        if s is None or s == self._write_stream:
+            return
+        ev = self._read_events.get(s)
+        if ev is None:
+            ev = self._read_events[s] = torch.cuda.Event()
+        ev.record(s)
+
+    @property
+    def data_version(self) -> int:
+        """Monotonic count of storage writes (a serving cache keys its rows
+        by it, so a write retires them)."""
+        with self._lock:
+            return self._data_version
+
+
+class LayoutAnnouncerMixin:
+    """Reshard announcements, shared by dense and hash tables (the
+    reference's mixin, ``harmony_tpu/table/table.py:136-200``): listeners
+    run with the target layout before a reshard, and ``layout_version``
+    counts the announcements. The port has no reshard yet (ROADMAP A.10);
+    the serving cache listens, and drops a job's live rows on each
+    announcement. The reference's ``comm_split`` pair is left out: the
+    port's worker keeps its probe's split itself
+    (``WorkerTasklet._comm_probe_times``). Hosts init
+    ``self._layout_listeners = []`` and hold ``self._lock``."""
+
+    def add_layout_listener(self, fn) -> None:
+        with self._lock:
+            self._layout_listeners.append(fn)
+
+    def remove_layout_listener(self, fn) -> None:
+        with self._lock:
+            if fn in self._layout_listeners:
+                self._layout_listeners.remove(fn)
+
+    @property
+    def layout_version(self) -> int:
+        """Monotonic count of reshard announcements."""
+        with self._lock:
+            return getattr(self, "_layout_version", 0)
+
+    def announce_reshard(self, target) -> None:
+        """Run the listeners with ``target`` (outside the table lock).
+        Best-effort: a failing listener never blocks the migration."""
+        with self._lock:
+            listeners = list(self._layout_listeners)
+            self._layout_version = getattr(self, "_layout_version", 0) + 1
+        for fn in listeners:
+            try:
+                fn(target)
+            except Exception:
+                pass
 
 
 def _check_codec_dtype(t: torch.Tensor) -> None:
@@ -291,11 +415,12 @@ class TableSpec:
         return arr
 
 
-class DenseTable:
+class DenseTable(StreamOrder, LayoutAnnouncerMixin):
     """Host-side handle on one device: serialised steps and host accessors.
 
     Every write (a step's commit, multi_update, multi_put, write_all) and every
-    host read happens under ``_lock``; storage writes bump ``data_version``."""
+    host read is enqueued under ``_lock``; storage writes bump
+    ``data_version``, and :class:`StreamOrder` orders them on the card."""
 
     def __init__(self, spec: TableSpec, device: DeviceLike = None,
                  arr: Optional[torch.Tensor] = None) -> None:
@@ -308,7 +433,8 @@ class DenseTable:
             raise ValueError(
                 f"storage shape {tuple(arr.shape)} != {spec.storage_shape}")
         self._arr = arr.to(self.device, spec.dtype).contiguous()
-        self._data_version = 0
+        self._layout_listeners: list = []
+        self._init_order()
 
     @property
     def array(self) -> torch.Tensor:
@@ -323,12 +449,6 @@ class DenseTable:
         its (slot_keys, values) pair)."""
         return self._arr
 
-    @property
-    def data_version(self) -> int:
-        """Monotonic count of storage writes."""
-        with self._lock:
-            return self._data_version
-
     def commit(self, new_arr: torch.Tensor) -> None:
         """Install the post-step storage (a step that updated in place hands
         back the same tensor) and count the write."""
@@ -338,13 +458,14 @@ class DenseTable:
                     or new_arr.device != self._arr.device):
                 raise ValueError("commit: storage shape, dtype or device changed")
             self._arr = new_arr
-            self._data_version += 1
+            self._after_write()
 
     def apply_step(self, step_fn: Callable, *extra):
         """Run ``step_fn(arr, *extra) -> (new_arr, aux)`` and commit its result,
         both under the table lock, so no host accessor sees a half-applied
         step. Returns ``aux``."""
         with self._lock:
+            self._before_write()
             new_arr, aux = step_fn(self._arr, *extra)
             self.commit(new_arr)
         return aux
@@ -371,6 +492,7 @@ class DenseTable:
         with contextlib.ExitStack() as stack:
             for t in tables:
                 stack.enter_context(t._lock)
+                t._before_write()
             new_arrs, aux = step_fn(*(t._step_state for t in tables), *extra)
             for t, new in zip(tables, new_arrs):
                 t.commit(new)
@@ -397,10 +519,12 @@ class DenseTable:
         ids = (list(range(self.spec.num_blocks)) if block_ids is None
                else [int(b) for b in block_ids])
         with self._lock:
+            self._before_read()
             if block_ids is None:  # the whole storage
                 copy = self._arr.clone()
             else:
                 copy = torch.stack([self._arr[b] for b in ids])
+            self._after_read()
             return BlockSnapshot(ids, (copy,), self.device)
 
     def export_blocks(self, block_ids: Optional[Sequence[int]] = None
@@ -420,8 +544,9 @@ class DenseTable:
         payload = payload.to(self.device, self.spec.dtype)
         idx = torch.as_tensor(ids, device=self.device)
         with self._lock:
+            self._before_write()
             self._arr[idx] = payload
-            self._data_version += 1
+            self._after_write()
 
     def _to_device(self, x, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         if not isinstance(x, torch.Tensor):
@@ -429,10 +554,16 @@ class DenseTable:
         return torch.as_tensor(x, dtype=dtype, device=self.device)
 
     def multi_get(self, keys: Sequence[int]) -> np.ndarray:
-        """Values of ``keys`` as a host array, copied under the lock."""
+        """Values of ``keys`` as a host array. The gather (K1) is dispatched
+        under the lock, after the last committed write; the wait for its rows
+        and their copy to the host happen outside it (the reference's
+        ``multi_get`` dispatches under its lock and materialises outside)."""
         k = self._to_device(keys, torch.int32)
         with self._lock:
-            return self.spec.pull(self._arr, k).cpu().numpy()
+            self._before_read()
+            rows = self.spec.pull(self._arr, k)
+            self._after_read()
+        return rows.cpu().numpy()
 
     def get(self, key: int) -> np.ndarray:
         return self.multi_get([key])[0]
@@ -459,8 +590,9 @@ class DenseTable:
         k = self._to_device(keys, torch.int32)
         d = self._to_device(deltas)
         with self._lock:
+            self._before_write()
             self.spec.push(self._arr, k, d, via=self.push_via)
-            self._data_version += 1
+            self._after_write()
 
     def multi_put(self, keys: Sequence[int], values) -> None:
         """Bulk set (the bulk-load insertion path); out-of-range keys write
@@ -469,19 +601,24 @@ class DenseTable:
         v = self._to_device(values)
         b, o = self.spec.partitioner.locate(k)
         with self._lock:
+            self._before_write()
             ok = ((b >= 0) & (b < self.spec.num_blocks)
                   & (o >= 0) & (o < self.spec.block_size))
             self._arr[b[ok].long(), o[ok].long()] = v[ok].to(self.spec.dtype)
-            self._data_version += 1
+            self._after_write()
 
     def write_all(self, values) -> None:
         """Whole-table key-order overwrite."""
         v = self._to_device(values)
         with self._lock:
+            self._before_write()
             self.spec.write_all(self._arr, v)
-            self._data_version += 1
+            self._after_write()
 
     def pull_array(self) -> torch.Tensor:
         """Full table in key order, as a device tensor copied under the lock."""
         with self._lock:
-            return self.spec.pull_all(self._arr).clone()
+            self._before_read()
+            out = self.spec.pull_all(self._arr).clone()
+            self._after_read()
+            return out

@@ -106,7 +106,12 @@ def test_port_imports_neither_jax_nor_harmony_tpu():
     for module in ("models/transformer.py", "models/pytree_trainer.py", "models/common.py",
                    "ops/attention.py", "dolphin/optim.py", "ops/mxu.py", "utils/prng.py",
                    "apps/mlr.py", "apps/nmf.py", "apps/lda.py", "parallel/mesh.py",
-                   "jobserver/scheduler.py", "bench.py"):
+                   "jobserver/scheduler.py", "bench.py",
+                   # the copies of the reference's jax-free modules
+                   "utils/framing.py", "faults/partition.py", "serving/protocol.py",
+                   "serving/service.py", "serving/client.py", "jobserver/client.py",
+                   "jobserver/overload.py", "jobserver/policy.py", "data/parsers.py",
+                   "data/splits.py", "data/storer.py"):
         assert PORT / module in files
     for path in files:
         for mod in _imports(path):
@@ -121,7 +126,12 @@ def test_importing_the_port_loads_no_jax():
         for p in PORT.rglob("*.py"))
     assert {"harmony_tpu_torch.models.transformer", "harmony_tpu_torch.ops.attention",
             "harmony_tpu_torch.dolphin.optim", "harmony_tpu_torch.utils.prng",
-            "harmony_tpu_torch.apps.lda", "harmony_tpu_torch.bench"} <= set(modules)
+            "harmony_tpu_torch.apps.lda", "harmony_tpu_torch.bench",
+            "harmony_tpu_torch.serving.service", "harmony_tpu_torch.serving.client",
+            "harmony_tpu_torch.jobserver.client", "harmony_tpu_torch.jobserver.overload",
+            "harmony_tpu_torch.utils.framing", "harmony_tpu_torch.faults.partition",
+            "harmony_tpu_torch.data.parsers", "harmony_tpu_torch.data.splits",
+            "harmony_tpu_torch.data.storer"} <= set(modules)
     code = ("import sys\n"
             f"for m in {modules!r}: __import__(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'harmony_tpu'))\n"
