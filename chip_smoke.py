@@ -199,6 +199,29 @@ Phases, in order; any failure ends the script with a non-zero exit code:
    (28 features, 65,536 rows) into a dense table and a value file into
    bench-fm-hash's hash table (generated keys from MIN_KEY), on card and
    CPU byte-identical, records/s; both then served as in (c).
+3t. Tables and Dolphin jobs over a mesh of slots (``parallel/mesh.py``): a
+   pool of 4 virtual slots on cuda:0, and the real cards where there are two
+   or more (else it prints ``"real_mesh": "not run: one card"``). (a) The
+   card count and the pools. (b) bench-widedeep's dense table (102,144 x
+   17 f32, 256 blocks) on meshes (data 1, model 4) and (2, 2), a replicated
+   10-block table of the same rows on (1, 4), and bench-fm-hash's hash table
+   (524,288 x 17 slots, 65,537 keys over int32) on (1, 4): pull, the ``mxu``
+   and ``sparse`` pushes, pull_all, push_all, multi_get and export_blocks
+   byte-identical on the card's mesh, the same mesh of CPU slots and one slot
+   of the card, with K1 once on each shard a read touches and the fold once
+   on each slot a push writes. (c) A JobServer over the slots: bench-widedeep
+   at data_axis 1 (``HARMONY_PUSH_VIA=mxu``, one worker) the bits of phase
+   3's run, K1 and K3 once a shard a step and a probe call; at data_axis 2
+   the same bits twice and within LOSS_ATOL of phase 3; the config-4 trio
+   and bench-fm-hash the bits of phases 3d and 3h; samples/s, and on the
+   fused step phase 5's figures (step ms, device busy ms, idle share) for one
+   slot and for 4. (d) bench-widedeep's chain on 4 slots: its newest entry's
+   ``.blk`` files those of a one-slot run, restored on one slot to the same
+   table, and resumed there at epoch 1 to the uninterrupted run's bits. (e)
+   On two or more cards, every kernel wrapper called with operands on cuda:1
+   while cuda:0 is current gives the bytes it gives on cuda:0. Its
+   ``sharded:`` line holds the numbers. ``python3 chip_smoke.py --phase 3t``
+   runs the build and this phase alone, held to one-slot runs of its own.
 4. The sparse push route (``HARMONY_PUSH_VIA=sparse``): the Wide&Deep job
    of phase 3, which folds its pushes with K2.
 5. Where a step's time goes: a steady epoch of the Wide&Deep job on the host
@@ -223,7 +246,8 @@ Phases, in order; any failure ends the script with a non-zero exit code:
    bench-fm-hash, sparse-lda-hash, fused-sparse-step, bench-gbt,
    bench-pagerank, bench-shortest-path, bench-connected-components,
    bench-widedeep-2-workers, pagerank-beside-mlr, chain, serving: the
-   reads of 3s (c) and (e), K1 only); K1-K3
+   reads of 3s (c) and (e), K1 only; sharded: phase 3t (c)'s bench-widedeep
+   at data_axis 1, the trio and bench-fm-hash on 4 slots); K1-K3
    also carry ``device_ms``, ``library_device_ms``,
    ``library_deterministic_device_ms``, ``host_us`` and their timing at
    phase 2e's shapes, K4-K5b their timing at bench-vit's shape; the card's
@@ -4272,6 +4296,440 @@ def run_serving():
     return launches, out
 
 
+# -- phase 3t: tables and Dolphin jobs over a device mesh ------------------------
+
+# Slots of the virtual pool on cuda:0 (the port's counterpart of the
+# reference's virtual devices): meshes (data 1, model 4) and (2, 2).
+MESH_SLOTS = 4
+MESH_SHAPES = ((1, 4), (2, 2))
+# bench-widedeep's push key count: 4,096 examples x 16 slots and 1,944 tail rows.
+WD_BATCH = N_EXAMPLES // BATCHES
+
+
+def wd_trainer(**extra):
+    from harmony_tpu_torch.apps.widedeep import WideDeepTrainer
+
+    return WideDeepTrainer(vocab_size=100000, num_slots=16, emb_dim=16, hidden=128,
+                           step_size=0.1, **extra)
+
+
+def mesh_pools(cards: int):
+    """(name, card slots, CPU slots) of each pool phase 3t drives: the
+    virtual pool on cuda:0, and the real cards where there are two or more."""
+    from harmony_tpu_torch.parallel.mesh import DevicePool
+
+    pools = [("virtual", DevicePool.virtual("cuda:0", MESH_SLOTS).slots,
+              DevicePool.virtual("cpu", MESH_SLOTS).slots)]
+    if cards >= 2:
+        n = 4 if cards >= 4 else 2
+        pools.append(("cards", DevicePool().slots[:n], DevicePool.virtual("cpu", n).slots))
+    return pools
+
+
+def counted(wrappers, fn):
+    """``fn()``'s result and the launches it made."""
+    reset_counts(*wrappers)
+    out = fn()
+    return out, {w.__name__: w.launches for w in wrappers}
+
+
+def table_op_bytes(table, keys, deltas, wrappers):
+    """Phase 3t (b)'s sequence on one dense table: the outputs of each op as
+    host bytes, and each op's launches."""
+    spec = table.spec
+    outs, launches = {}, {}
+
+    def op(name, fn):
+        out, launches[name] = counted(wrappers, fn)
+        torch.cuda.synchronize()
+        if out is not None:
+            outs[name] = np.asarray(out.cpu() if isinstance(out, torch.Tensor) else out)
+
+    k = keys.to(table.device)
+    d = deltas.to(table.device)
+    op("pull", lambda: table.apply_step(lambda a: (a, spec.pull(a, k))))
+    for via in ("mxu", "sparse"):
+        op(f"push_{via}", lambda via=via: table.apply_step(
+            lambda a: (spec.push(a, k, d, via=via), None)))
+        op(f"pull_after_{via}", lambda: table.apply_step(lambda a: (a, spec.pull(a, k))))
+    op("pull_all", lambda: table.pull_array())
+    op("push_all", lambda: table.apply_step(lambda a: (spec.push_all(
+        a, torch.full((spec.config.capacity, *spec.value_shape), 0.5,
+                      device=table.device)), None)))
+    op("multi_get", lambda: table.multi_get(keys[:4096].numpy()))
+    exp, launches["export_blocks"] = counted(wrappers, table.export_blocks)
+    outs["export_blocks"] = np.stack([exp[b] for b in sorted(exp)])
+    return outs, launches
+
+
+def hash_op_bytes(table, keys, deltas, wrappers):
+    spec = table.spec
+    outs, launches = {}, {}
+    k, d = keys.to(table.device), deltas.to(table.device)
+
+    def step(state):
+        state, rows, tok = spec.pull(state, k)
+        return spec.push(state, tok, d), rows
+
+    rows, launches["pull_push"] = counted(wrappers, lambda: table.apply_step(step))
+    outs["pull"] = rows.cpu().numpy()
+    got, launches["multi_get"] = counted(wrappers, lambda: table.multi_get(keys[:4096].numpy()))
+    outs["multi_get"] = got
+    exp, launches["export_blocks"] = counted(wrappers, table.export_blocks)
+    outs["slot_keys"] = np.stack([exp[b][0] for b in sorted(exp)])
+    outs["values"] = np.stack([exp[b][1] for b in sorted(exp)])
+    return outs, launches
+
+
+def same_outputs(a, b):
+    return sorted(a) == sorted(b) and all(
+        a[n].dtype == b[n].dtype and a[n].shape == b[n].shape and a[n].tobytes() == b[n].tobytes()
+        for n in a)
+
+
+def sharded_table_ops(pool_name, slots, cpu_slots, wrappers):
+    """Phase 3t (b): bench-widedeep's dense table on (1, 4) and (2, 2), a
+    replicated 10-block table on (1, 4), bench-fm-hash's hash table on (1, 4):
+    every op's bytes equal on the card's mesh, the CPU's mesh and one slot of
+    the card; K1 once on each shard a read touches, the fold once a slot."""
+    from harmony_tpu_torch.apps.widedeep import FMTrainer, make_synthetic, make_synthetic_sparse
+    from harmony_tpu_torch.parallel.mesh import build_mesh
+    from harmony_tpu_torch.table.hashtable import DeviceHashTable, HashTableSpec
+    from harmony_tpu_torch.table.table import DenseTable, TableSpec
+
+    n = len(slots)
+    rng = np.random.default_rng(31)
+    trainer = wd_trainer()
+    ids, _ = make_synthetic(WD_BATCH, 100000, 16, seed=31)
+    keys = trainer.pull_keys((torch.as_tensor(ids),)).to(torch.int32)
+    spec = TableSpec(trainer.model_table_config())
+    storage = torch.as_tensor(rng.standard_normal(spec.storage_shape).astype(np.float32))
+    deltas = torch.as_tensor(rng.standard_normal((len(keys), *spec.value_shape))
+                             .astype(np.float32))
+    out = {}
+    cases = [(f"bench-widedeep ({d}, {m})", spec, (d, m)) for d, m in
+             ((1, n), (2, n // 2))]
+    rep_cfg = trainer.model_table_config().replace(table_id="rep", num_blocks=10)
+    cases.append((f"replicated 10 blocks (1, {n})", TableSpec(rep_cfg), (1, n)))
+    for name, sp, (d, m) in cases:
+        st = storage if sp is spec else torch.as_tensor(
+            rng.standard_normal(sp.storage_shape).astype(np.float32))
+        card = DenseTable(sp, build_mesh(slots, data=d, model=m), arr=st)
+        results = [table_op_bytes(t, keys, deltas, wrappers) for t in (
+            card, DenseTable(sp, build_mesh(cpu_slots, data=d, model=m), arr=st),
+            DenseTable(sp, slots[0].device, arr=st))]
+        (c_out, c_l), (p_out, p_l), (o_out, _) = results
+        check(same_outputs(c_out, p_out) and same_outputs(c_out, o_out),
+              f"phase 3t (b) {pool_name} {name}: the card's mesh, the CPU's mesh and one "
+              f"slot disagree on {[k for k in c_out if c_out[k].tobytes() != o_out[k].tobytes()]}")
+        sh = card.sharding
+        reads, slots_n = sh.num_shards, n
+        want = {"pull": {"gather_rows": reads}, "push_mxu": {"weighted_histogram": slots_n},
+                "push_sparse": {"segment_sum_rows": slots_n},
+                "multi_get": {"gather_rows": reads},
+                "pull_all": {"gather_rows": reads}}
+        for op, counts in want.items():
+            got = {k: v for k, v in c_l[op].items() if v}
+            check(got == counts, f"phase 3t (b) {pool_name} {name} {op}: launches {got}, "
+                                 f"expected {counts} (one a shard the read touches, one a "
+                                 f"slot a push writes)")
+        check(not any(p_l[op][w] for op in p_l for w in p_l[op]),
+              f"phase 3t (b): a kernel launched on the CPU mesh ({p_l})")
+        out[name] = {"sharding": list(sh.spec), "launches": {op: {k: v for k, v in c.items() if v}
+                                                             for op, c in c_l.items()}}
+        print(f"phase 3t (b) {pool_name}: {name} P{tuple(sh.spec)}: pull, the mxu and "
+              f"sparse pushes, pull_all, push_all, multi_get and export_blocks byte-identical "
+              f"on the card's mesh, the CPU's mesh and one slot; launches {out[name]['launches']}",
+              flush=True)
+
+    fm = FMTrainer(vocab_size=100000, num_slots=16, emb_dim=16, step_size=0.1, sparse=True)
+    hspec = HashTableSpec(fm.model_table_config())
+    sids, _ = make_synthetic_sparse(WD_BATCH, 100000, 16, seed=31)
+    hkeys = fm.pull_keys((torch.as_tensor(sids),)).to(torch.int32)
+    hd = torch.as_tensor(rng.standard_normal((len(hkeys), *hspec.value_shape)).astype(np.float32))
+    tables = [DeviceHashTable(hspec, build_mesh(slots, data=1, model=n)),
+              DeviceHashTable(hspec, build_mesh(cpu_slots, data=1, model=n)),
+              DeviceHashTable(hspec, slots[0].device)]
+    (c_out, c_l), (p_out, _), (o_out, _) = [hash_op_bytes(t, hkeys, hd, wrappers)
+                                             for t in tables]
+    name = f"bench-fm-hash (1, {n})"
+    check(same_outputs(c_out, p_out) and same_outputs(c_out, o_out),
+          f"phase 3t (b) {pool_name} {name}: card mesh, CPU mesh and one slot disagree")
+    want = {"pull_push": {"gather_rows": n, "segment_sum_rows": n},
+            "multi_get": {"gather_rows": n}}
+    for op, counts in want.items():
+        got = {k: v for k, v in c_l[op].items() if v}
+        check(got == counts, f"phase 3t (b) {pool_name} {name} {op}: launches {got}, "
+                             f"expected {counts}")
+    present = int((c_out["slot_keys"] < 0).sum())
+    out[name] = {"keys": len(hkeys), "present": present,
+                 "launches": {op: {k: v for k, v in c.items() if v} for op, c in c_l.items()}}
+    print(f"phase 3t (b) {pool_name}: {name}: {len(hkeys)} keys ({present} slots taken), "
+          f"pull, push, multi_get and export_blocks byte-identical on the card's mesh, the "
+          f"CPU's mesh and one slot; launches {out[name]['launches']}", flush=True)
+    return out
+
+
+def pool_server(slots, root=None):
+    from harmony_tpu_torch.jobserver.server import JobServer
+    from harmony_tpu_torch.parallel.mesh import DevicePool
+
+    server = JobServer(len(slots), device_pool=DevicePool(slots), chkp_root=root)
+    server.start()
+    return server
+
+
+def wd_mesh_config(job_id, epochs, data_axis=1, period=0, **user):
+    from harmony_tpu_torch import cli
+
+    argv = SLICE_ARGS + ["--epochs", str(epochs), "--workers", "1", "--job-id", job_id]
+    if period:
+        argv += ["--model-chkp-period", str(period)]
+    if data_axis > 1:
+        argv += ["--set", f"data_axis={data_axis}"]
+    config = cli.build_config("widedeep", cli.build_parser().parse_args(argv))
+    return config.replace(user={**config.user, **user})
+
+
+def submit_one(server, config):
+    res = server.submit(config).result(timeout=600)
+    (w,) = res["workers"].values()
+    return w, res
+
+
+def entry_blk(mgr, chkp_id):
+    d = mgr._dir_of(chkp_id)
+    return {n: open(os.path.join(d, n), "rb").read()
+            for n in sorted(os.listdir(d)) if n != "manifest.json"}
+
+
+def mesh_profile(slots, config):
+    """Phase 3t (c)'s step figures: bench-widedeep's fused step on a table
+    over ``slots`` (one worker, outside the JobServer), as phase 5 measures a
+    step."""
+    from harmony_tpu_torch.jobserver.entity import DolphinJobEntity
+    from harmony_tpu_torch.parallel.mesh import DevicePool
+    from harmony_tpu_torch.runtime.master import ETMaster
+
+    master = ETMaster(DevicePool(slots))
+    entity = DolphinJobEntity(config)
+    entity.setup(master, [e.id for e in master.add_executors(len(slots))])
+    try:
+        prof = profile_worker(entity.make_worker(), BATCHES, top_n=6)
+    finally:
+        entity.cleanup()
+    prof["samples_per_sec"] = WD_BATCH / prof["step_ms"] * 1e3
+    return prof
+
+
+def sharded_jobs(pool_name, slots, wrappers, refs, root):
+    """Phase 3t (c) and (d): jobs through a JobServer over ``slots``."""
+    from harmony_tpu_torch import bench
+    from harmony_tpu_torch.checkpoint import CheckpointManager
+
+    n = len(slots)
+    steps = EPOCHS * BATCHES
+    out = {}
+    os.environ["HARMONY_PUSH_VIA"] = "mxu"
+    try:
+        one = pool_server(slots[:1], root)
+        try:
+            w1, _ = submit_one(one, wd_mesh_config("wd-one", EPOCHS, period=1))
+        finally:
+            one.shutdown(timeout=600)
+        if refs.get("wd_losses") is not None:
+            check(w1["batch_losses"] == refs["wd_losses"],
+                  "phase 3t: the one-slot chained bench-widedeep differs from phase 3's run")
+        server = pool_server(slots, root)
+        try:
+            (w4, _), launches = counted(wrappers, lambda: submit_one(
+                server, wd_mesh_config("wd-mesh", EPOCHS, period=1)))
+            k1, fold = probe_launches(w4)
+            want = {"gather_rows": n * (steps + k1), "segment_sum_rows": 0,
+                    "weighted_histogram": n * (steps + fold)}
+            check(w4["mesh"] == {"data": 1, "model": n} and launches == want,
+                  f"phase 3t (c) {pool_name}: bench-widedeep on {w4['mesh']}: launches "
+                  f"{launches}, expected {want} (K1 and K3 once a shard a step and a probe call)")
+            check(w4["batch_losses"] == w1["batch_losses"],
+                  f"phase 3t (c) {pool_name}: bench-widedeep at data_axis 1 is not the bits "
+                  f"of the one-slot run")
+            out["widedeep_data_axis_1"] = {"launches": dict(launches), "launches_per_step": {
+                k: v / steps for k, v in launches.items()}, "mesh": w4["mesh"],
+                "samples_per_sec": N_EXAMPLES / w4["epoch_seconds"][-1],
+                "one_slot_samples_per_sec": N_EXAMPLES / w1["epoch_seconds"][-1]}
+            # (d): the chain across meshes
+            m1 = CheckpointManager.for_job(root, "wd-one")
+            m4 = CheckpointManager.for_job(root, "wd-mesh")
+            e1, e4 = newest_entry(m1), newest_entry(m4)
+            b1, b4 = entry_blk(m1, e1.chkp_id), entry_blk(m4, e4.chkp_id)
+            check(b1 and b1 == b4, f"phase 3t (d) {pool_name}: the {n}-slot chain's newest "
+                                   f"entry's blocks differ from the one-slot run's")
+            check(e4.ownership == [b % n for b in range(len(e4.ownership))],
+                  f"phase 3t (d): the manifest's ownership {e4.ownership[:8]}...")
+            ex1 = [server.master.executor_ids()[0]]
+            got = restored_bits(m4, server.master, e4.chkp_id, ex1)
+            want_t = restored_bits(m1, server.master, e1.chkp_id, ex1)
+            check(same_bits(got[0], want_t[0]), f"phase 3t (d) {pool_name}: the {n}-slot "
+                  "entry restored on one slot differs from the one-slot table")
+
+            d2 = [submit_one(server, wd_mesh_config(f"wd-d2-{i}", EPOCHS, data_axis=2))[0]
+                  for i in range(2)]
+            check(d2[0]["batch_losses"] == d2[1]["batch_losses"]
+                  and d2[0]["mesh"] == {"data": 2, "model": n // 2}
+                  and d2[0]["step_mode"] == "data_parallel",
+                  f"phase 3t (c) {pool_name}: data_axis 2 is not the same bits twice")
+            gap = max(abs(a - b) for a, b in zip(d2[0]["batch_losses"], w1["batch_losses"]))
+            check(gap <= LOSS_ATOL, f"phase 3t (c) {pool_name}: data_axis 2 differs from the "
+                                    f"one-slot run by {gap} > {LOSS_ATOL}")
+            out["widedeep_data_axis_2"] = {"max_abs_gap_vs_one_slot": gap,
+                                           "batch_losses": d2[0]["batch_losses"],
+                                           "mesh": d2[0]["mesh"],
+                                           "samples_per_sec": N_EXAMPLES
+                                           / d2[0]["epoch_seconds"][-1]}
+        finally:
+            server.shutdown(timeout=600)
+
+        # the chain restores onto one slot and the resumed run continues
+        m4.delete(e4.chkp_id)
+        one = pool_server(slots[:1], root)
+        try:
+            resumed, _ = submit_one(one, wd_mesh_config("wd-mesh", EPOCHS, period=1,
+                                                        resume_from_chain=True))
+        finally:
+            one.shutdown(timeout=600)
+        check(resumed["starting_epoch"] == 1
+              and resumed["batch_losses"] == w1["batch_losses"][BATCHES:],
+              f"phase 3t (d) {pool_name}: the resume on one slot from the {n}-slot chain "
+              f"is not the uninterrupted run's bits")
+        check(entry_blk(m4, newest_entry(m4).chkp_id) == b1,
+              f"phase 3t (d) {pool_name}: the resumed run's table differs")
+        print(f"phase 3t (d) {pool_name}: the {n}-slot chain's newest entry byte-identical "
+              f"to the one-slot run's ({len(b1)} block files), restored on one slot to the "
+              f"same table, resumed there at epoch 1 to the uninterrupted run's bits", flush=True)
+    finally:
+        os.environ.pop("HARMONY_PUSH_VIA")
+
+    if pool_name != "virtual":
+        return out, launches
+    # the trio and bench-fm-hash on the mesh (counted with the main path)
+    server = pool_server(slots)
+    try:
+        configs, _ = bench.job_configs(TRIO_SCALE, bench.EPOCHS)
+        reset_counts(*wrappers)
+        futures = [server.submit(c) for c in configs]
+        trio = {f.result(timeout=600)["job_id"]: f.result()["workers"] for f in futures}
+        fm4, _ = submit_one(server, hash_job("fm", EPOCHS))
+        for w in wrappers:
+            launches[w.__name__] += w.launches
+    finally:
+        server.shutdown(timeout=600)
+    for job_id, workers in trio.items():
+        (w,) = workers.values()
+        check(w["batch_losses"] == refs["trio"][job_id],
+              f"phase 3t (c): {job_id} on {n} slots is not the bits of phase 3d's run")
+    check(fm4["batch_losses"] == refs["fm_hash"],
+          f"phase 3t (c): bench-fm-hash on {n} slots is not the bits of phase 3h's run")
+    out["trio_bits_of_one_slot"] = out["fm_hash_bits_of_one_slot"] = True
+    out["fm_hash_samples_per_sec"] = N_EXAMPLES / fm4["epoch_seconds"][-1]
+
+    os.environ["HARMONY_PUSH_VIA"] = "mxu"
+    try:
+        base = wd_mesh_config("wd-profile", 1)
+        base = base.replace(params=base.params.replace(comm_probe_period=0))
+        out["profile"] = {"one_slot": mesh_profile(slots[:1], base),
+                          f"{n}_slots": mesh_profile(slots, base)}
+    finally:
+        os.environ.pop("HARMONY_PUSH_VIA")
+    return out, launches
+
+
+def device_guard_check(cards):
+    """Phase 3t (e): every kernel wrapper called with operands on cuda:1 while
+    cuda:0 is current gives the bytes it gives on cuda:0."""
+    if cards < 2:
+        return "not run: one card"
+    from harmony_tpu_torch.ops import attention as A
+    from harmony_tpu_torch.ops.histogram import weighted_histogram
+    from harmony_tpu_torch.ops.sparse import gather_rows, segment_sum_rows
+
+    rng = np.random.default_rng(5)
+    table = torch.as_tensor(rng.standard_normal((4096, 17)).astype(np.float32))
+    idx = torch.as_tensor(rng.integers(0, 4096, 20000).astype(np.int32))
+    w = torch.as_tensor(rng.standard_normal((20000, 17)).astype(np.float32))
+    q, k, v = (torch.as_tensor(rng.standard_normal((2, 4, 256, 64)).astype(np.float32))
+               .to(torch.bfloat16) for _ in range(3))
+    calls = {
+        "gather_rows": lambda d: gather_rows(table.to(d), idx.to(d)),
+        "segment_sum_rows": lambda d: segment_sum_rows(w.to(d), idx.to(d), 4096),
+        "weighted_histogram": lambda d: weighted_histogram(idx.to(d), w.to(d), 4096),
+        "flash": lambda d: A.flash_attention_lse(q.to(d), k.to(d), v.to(d), causal=True),
+    }
+    out = {}
+    with torch.cuda.device(0):
+        for name, fn in calls.items():
+            a, b = fn(torch.device("cuda", 0)), fn(torch.device("cuda", 1))
+            a = a if isinstance(a, tuple) else (a,)
+            b = b if isinstance(b, tuple) else (b,)
+            check(all(x.device.index == 1 for x in b)
+                  and all(same_bits(x, y.to(x.device)) for x, y in zip(a, b)),
+                  f"phase 3t (e): {name} on cuda:1 with cuda:0 current differs")
+            out[name] = "same bytes"
+    return out
+
+
+def run_sharded(refs):
+    """Phase 3t: tables and Dolphin jobs over a mesh of slots."""
+    import tempfile
+
+    from harmony_tpu_torch.ops.histogram import weighted_histogram
+    from harmony_tpu_torch.ops.sparse import gather_rows, segment_sum_rows
+
+    t0 = time.perf_counter()
+    wrappers = (gather_rows, segment_sum_rows, weighted_histogram)
+    cards = torch.cuda.device_count()
+    pools = mesh_pools(cards)
+    out = {"cards": cards, "pools": {name: [str(s) for s in slots]
+                                     for name, slots, _ in pools}}
+    if cards < 2:
+        out["real_mesh"] = "not run: one card"
+    print(f"phase 3t (a): {json.dumps(out)}", flush=True)
+    launches = None
+    for name, slots, cpu_slots in pools:
+        out[f"table_ops_{name}"] = sharded_table_ops(name, slots, cpu_slots, wrappers)
+        root = tempfile.mkdtemp(prefix="harmony-3t-")
+        try:
+            jobs, counts = sharded_jobs(name, slots, wrappers, refs, root)
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        out[f"jobs_{name}"] = jobs
+        if name == "virtual":
+            launches = counts
+    out["device_guard"] = device_guard_check(cards)
+    out["seconds"] = time.perf_counter() - t0
+    return launches, out
+
+
+def one_slot_refs():
+    """The one-slot runs phase 3t holds its mesh runs to, when phases 3, 3d
+    and 3h did not run before it (``--phase 3t``): the trio and
+    bench-fm-hash through a JobServer on one slot of the card."""
+    from harmony_tpu_torch import bench
+
+    server = pool_server(mesh_pools(1)[0][1][:1])
+    try:
+        configs, _ = bench.job_configs(TRIO_SCALE, bench.EPOCHS)
+        futures = [server.submit(c) for c in configs]
+        trio = {}
+        for f in futures:
+            res = f.result(timeout=600)
+            (w,) = res["workers"].values()
+            trio[res["job_id"]] = w["batch_losses"]
+        fm, _ = submit_one(server, hash_job("fm", EPOCHS))
+    finally:
+        server.shutdown(timeout=600)
+    return {"wd_losses": None, "trio": trio, "fm_hash": fm["batch_losses"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a CUDA card")
@@ -4306,6 +4764,18 @@ def main() -> int:
               f"spilled, {entry['shared_bytes']} bytes dynamic shared memory", flush=True)
         check(d not in (64, 128) or entry.get("spill_bytes") == 0,
               f"{kernel} D={d} block_k={bk}: ptxas reports spills ({entry})")
+
+    if sys.argv[1:] == ["--phase", "3t"]:
+        # phase 3t alone (a host of several cards: the real mesh and the
+        # device guard), held to one-slot runs of its own
+        _, sharded = run_sharded(one_slot_refs())
+        print("sharded: " + json.dumps(sharded), flush=True)
+        print(gpu_identity())
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+    check(not sys.argv[1:], f"unknown arguments {sys.argv[1:]} (only --phase 3t)")
 
     table, idx, err = check_kernels(dev)
     timing, skew = time_kernels(dev, table, idx)
@@ -4365,6 +4835,9 @@ def main() -> int:
     print("chains: " + json.dumps(chains), flush=True)
     serving_launches, serving = run_serving()
     print("serving: " + json.dumps(serving), flush=True)
+    sharded_launches, sharded = run_sharded({
+        "wd_losses": fused["batch_losses"], "fm_hash": fm_hash["batch_losses"],
+        "trio": {k: j["worker"]["batch_losses"] for k, j in trio_jobs.items()}})
     by_path = {name: {"bench-widedeep": launches.get(name, 0),
                       "bench-lm": lm_launches[name],
                       "bench-vit": vit_launches[name],
@@ -4379,7 +4852,8 @@ def main() -> int:
                          for app, entry in pregel["full"].items()},
                       **{path: counts.get(name, 0) for path, counts in mw_launches.items()},
                       "chain": chain_launches[name],
-                      "serving": serving_launches[name]}
+                      "serving": serving_launches[name],
+                      "sharded": sharded_launches.get(name, 0)}
                for name in lm_launches}
     print("profile: " + json.dumps(profile_slice()), flush=True)
     print("lm profile: " + json.dumps(profile_lm()), flush=True)
@@ -4436,6 +4910,7 @@ def main() -> int:
                 entry[key] = t[key]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
+    print("sharded: " + json.dumps(sharded), flush=True)
     print(gpu_identity())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,6 +20,8 @@ from harmony_tpu_torch.dolphin.trainer import Trainer
 
 class AddVectorTrainer(Trainer):
     pull_mode = "all"
+    # the delta and "pushed" are batch sums (a data axis > 1 adds the parts)
+    batch_reduction = "sum"
 
     def __init__(self, num_keys: int, vector_dim: int, delta: float = 1.0) -> None:
         self.num_keys = num_keys

@@ -23,6 +23,8 @@ from harmony_tpu_torch.ops.mxu import mxu_dot
 
 class MLRTrainer(Trainer):
     pull_mode = "all"
+    # loss, accuracy and gradient are batch means (for a data axis > 1)
+    batch_reduction = "mean"
     # the decay depends only on epoch_idx
     epoch_hook_windowable = True
 

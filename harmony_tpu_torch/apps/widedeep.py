@@ -66,6 +66,8 @@ def make_embed_init(width: int, scale: float, seed: int) -> UpdateFunction:
 
 class FMTrainer(Trainer):
     pull_mode = "keys"
+    # the loss and its gradient are batch means (for a data axis > 1)
+    batch_reduction = "mean"
 
     init_scale: float = 0.05
     seed: int = 0

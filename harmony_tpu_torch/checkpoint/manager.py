@@ -638,15 +638,17 @@ class CheckpointManager:
         return sorted(temp | set(self._backend.list_ids()))
 
     def restore(self, master: ETMaster, chkp_id: str, associators: Sequence[str],
-                table_id: Optional[str] = None) -> TableHandle:
-        """Create the table on ``associators`` and install the checkpoint's
-        blocks. A sampled checkpoint's unsampled keys keep their init values.
-        A failed restore drops the table it created."""
+                data_axis: int = 1, table_id: Optional[str] = None) -> TableHandle:
+        """Create the table on ``associators`` (any number of them, whatever
+        wrote the checkpoint: the blocks are split over their mesh,
+        ``data_axis`` rows deep) and install the checkpoint's blocks. A
+        sampled checkpoint's unsampled keys keep their init values. A failed
+        restore drops the table it created."""
         with trace_span("checkpoint.restore", chkp_id=chkp_id):
-            return self._restore_inner(master, chkp_id, associators, table_id)
+            return self._restore_inner(master, chkp_id, associators, data_axis, table_id)
 
     def _restore_inner(self, master: ETMaster, chkp_id: str,
-                       associators: Sequence[str],
+                       associators: Sequence[str], data_axis: int,
                        table_id: Optional[str]) -> TableHandle:
         d = self._dir_of(chkp_id)
         info = self._load_manifest(d)
@@ -654,7 +656,8 @@ class CheckpointManager:
         _check_update_fn(cfg.update_fn)
         if table_id is not None:
             cfg = cfg.replace(table_id=table_id)
-        handle = TableHandle(master, master.create_table(cfg, associators), associators)
+        handle = TableHandle(master, master.create_table(cfg, associators, data_axis),
+                             associators)
         pool = None
         try:
             spec = handle.table.spec

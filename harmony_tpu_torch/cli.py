@@ -2,7 +2,9 @@
 
 Counterpart of ``harmony_tpu/cli.py``'s ``run``, ``start-jobserver``,
 ``submit``, ``status`` and ``shutdown`` subcommands. ``run`` is the
-standalone launcher (an in-process JobServer on one device, one job, exit);
+standalone launcher (an in-process JobServer, one job, exit): like
+``start-jobserver`` it has ``--num-executors`` executors, 0 one per visible
+card (one on the CPU), and a job's tables split block-major over all of them;
 ``start-jobserver`` starts a long-running JobServer with its TCP command
 plane (``--port``, 0 picks a free one; it prints ``jobserver ready on port
 N`` and runs until a ``shutdown``, with ``--chkp-root`` for the jobs'
@@ -21,9 +23,11 @@ the graph apps ``pagerank``, ``connected-components`` and ``shortest-path``.
 Presets are the reference's, with the trainer (or computation) and the data
 or graph generator resolved in this package; override them with ``--set
 key=value`` (app hyper-parameters) and ``--data key=value`` (data or graph
-arguments). A graph app reads an edge-list file with ``--graph-file`` and
+arguments); ``--set data_axis=D`` is no hyper-parameter but the data axis
+of the job's mesh (its tables D rows of replicas deep, the batch split over
+the rows). A graph app reads an edge-list file with ``--graph-file`` and
 stops after ``--max-supersteps``. ``--workers`` sets the job's workers (0,
-the default, is one per executor: one) and ``--slack`` the SSP clock slack
+the default, is one per executor) and ``--slack`` the SSP clock slack
 of a multi-worker job (0 is BSP). ``--model-chkp-period N`` chains a
 snapshot of the model table every N epochs (into a temporary directory, as
 the reference's ``run`` does), and ``--offline-eval`` evaluates the chain at
@@ -204,6 +208,9 @@ def build_config(app: str, args: argparse.Namespace) -> JobConfig:
             "--offline-eval needs --model-chkp-period > 0: deferred evaluation "
             "replays the checkpoint chain, and 0 chains nothing")
     set_kv, data_kv = _parse_kv(args.set), _parse_kv(args.data)
+    # --set data_axis=D sizes the data axis of the job's mesh (the entity
+    # reads it from the config's user dict, as the reference's does)
+    data_axis = set_kv.pop("data_axis", None)
     app_params = {**preset["app_params"], **set_kv}
     if preset["app_type"] == "pregel":
         if args.graph_file:
@@ -213,7 +220,7 @@ def build_config(app: str, args: argparse.Namespace) -> JobConfig:
             graph_fn, graph_args = preset["graph_fn"], dict(preset["graph_args"])
         user = {"graph_fn": graph_fn, "graph_args": {**graph_args, **data_kv},
                 "max_supersteps": args.max_supersteps}
-        return _job_config(app, args, preset, app_params, user)
+        return _job_config(app, args, preset, app_params, user, data_axis)
     data_fn = preset["data_fn"]
     data_args = {**preset["data_args"], **data_kv}
     if app == "lm" and "path" in data_args:
@@ -233,11 +240,14 @@ def build_config(app: str, args: argparse.Namespace) -> JobConfig:
             key, data_v if data_v is not None else app_params[key])
         app_params[key] = data_args[key] = value
     return _job_config(app, args, preset, app_params,
-                       {"data_fn": data_fn, "data_args": data_args})
+                       {"data_fn": data_fn, "data_args": data_args}, data_axis)
 
 
 def _job_config(app: str, args: argparse.Namespace, preset: Dict[str, Any],
-                app_params: Dict[str, Any], user: Dict[str, Any]) -> JobConfig:
+                app_params: Dict[str, Any], user: Dict[str, Any],
+                data_axis: Any = None) -> JobConfig:
+    if data_axis is not None:
+        user = dict(user, data_axis=int(data_axis))
     return JobConfig(
         job_id=args.job_id or f"{app}-job",
         app_type=preset["app_type"],
@@ -269,13 +279,9 @@ def _jsonable(obj: Any) -> Any:
 
 
 def _cmd_run(args: argparse.Namespace) -> int:
-    from harmony_tpu_torch.jobserver.server import JobServer
-    from harmony_tpu_torch.parallel.mesh import DevicePool
-
     cfg = build_config(args.app, args)
     # raises here when the card is asked for and absent
-    server = JobServer(1, device_pool=DevicePool([args.device]))
-    server.start()
+    server = _make_server(args)
     try:
         result = server.submit(cfg).result()
     finally:
@@ -289,7 +295,7 @@ def _cmd_run(args: argparse.Namespace) -> int:
 
 def _make_server(args: argparse.Namespace):
     """A started JobServer on ``--device``: ``--num-executors`` executors, 0
-    one per visible card (one on the CPU)."""
+    one per slot of the pool (a slot a visible card; one on the CPU)."""
     from harmony_tpu_torch.jobserver.server import JobServer
     from harmony_tpu_torch.parallel.mesh import DevicePool
 
@@ -298,7 +304,7 @@ def _make_server(args: argparse.Namespace):
     else:
         pool = DevicePool() if args.device == "cuda" else DevicePool([args.device])
     n = args.num_executors or len(pool)
-    server = JobServer(n, device_pool=pool, chkp_root=args.chkp_root)
+    server = JobServer(n, device_pool=pool, chkp_root=getattr(args, "chkp_root", None))
     server.start()
     return server
 
@@ -379,6 +385,11 @@ def _device_flag(p: argparse.ArgumentParser) -> None:
                    help="cuda (default) or cpu; the CPU runs only when asked for")
 
 
+def _num_executors_flag(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--num-executors", type=int, default=0,
+                   help="0 = one per visible card (one on the CPU)")
+
+
 def _port_flag(p: argparse.ArgumentParser) -> None:
     p.add_argument("--port", type=int, default=None,
                    help="jobserver TCP port (default: the HARMONY_JOBSERVER_ADDRS "
@@ -394,9 +405,9 @@ def build_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("run", help="run one job standalone (in-process server)")
     _common_job_flags(p)
     _device_flag(p)
+    _num_executors_flag(p)
     p = sub.add_parser("start-jobserver", help="long-running multi-tenant job server")
-    p.add_argument("--num-executors", type=int, default=0,
-                   help="0 = one per visible card (one on the CPU)")
+    _num_executors_flag(p)
     p.add_argument("--port", type=int, default=43110, help="TCP port (0 = a free one)")
     p.add_argument("--chkp-root", default=None,
                    help="root of the jobs' checkpoint chains (and of pinned reads)")

@@ -55,6 +55,13 @@ class Trainer:
     # of a multi-epoch window, before their device results drain (see
     # :meth:`_epoch_hook_windowable`).
     epoch_hook_windowable: bool = False
+    # How the deltas and metrics of parts of a batch combine into the whole
+    # batch's, for a model table on a mesh with a data axis > 1 (the port's
+    # data-parallel step splits the batch over the rows): "mean" when compute
+    # returns batch means (each part weighs by its share of the examples),
+    # "sum" when it returns batch sums. None: the trainer cannot run on a
+    # data axis > 1, and such a job is refused.
+    batch_reduction: Optional[str] = None
 
     # -- lifecycle (host side) ------------------------------------------
 

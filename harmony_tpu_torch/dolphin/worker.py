@@ -45,6 +45,11 @@ the device and is drained into ``table.overflow_count`` with the epoch's
 other metrics. A dense keyed table's ``mxu_auto`` route is resolved once by
 the measured autotune (``table/autotune.py``).
 
+A model table over a mesh of several slots (a ``ShardedArray``) takes the
+same steps, its pulls and pushes going shard by shard, and computes on the
+mesh's first slot; on a mesh with a data axis > 1 the step is
+:class:`_DataParallelStep` (the batch split over the data rows).
+
 Multi-tenancy and multi-worker jobs, as in the reference: a worker run by a
 JobServer holds a ``TaskUnitClient`` (``runtime/taskunit.py``), so it takes
 the batched epoch (``_use_fused_epoch``): each batch group runs in a COMP
@@ -85,7 +90,7 @@ from harmony_tpu_torch.dolphin.trainer import Trainer, TrainerContext
 from harmony_tpu_torch.metrics.tracer import Tracer
 from harmony_tpu_torch.table import autotune
 from harmony_tpu_torch.table.hashtable import DeviceHashTable
-from harmony_tpu_torch.table.table import DenseTable
+from harmony_tpu_torch.table.table import DenseTable, ShardedArray, on_device
 from harmony_tpu_torch.utils.platform import full_f32_matmuls, hard_sync
 
 
@@ -240,6 +245,98 @@ class _UnfusedStep:
         u_t = time.perf_counter() - t0
         self._record(p_t, c_t, u_t)
         return new, metrics
+
+
+class _DataParallelStep:
+    """The step of a table whose mesh has D > 1 data rows, the reference's
+    batch placed ``P(DATA_AXIS)`` (``harmony_tpu/dolphin/worker.py:720``).
+
+    The batch splits contiguously over the rows, as that placement cuts it.
+    Row ``r`` pulls from its own replica (``ShardedArray.at_row``: K1 on the
+    shards of its row) and computes on its own slot; the rows' deltas then
+    combine on the first row's slot in row order and are pushed ONCE, into
+    every replica. A trainer declares how its deltas and metrics combine
+    (``Trainer.batch_reduction``): "mean" weights row ``r``'s by its share
+    of the examples, "sum" adds them. Keyed deltas combine by concatenating
+    the rows' keys and deltas, which the push folds in that order; whole-
+    model deltas add up. The sum runs in another order than the one-slot
+    step's, so the result agrees with it to rounding, not bit for bit; it is
+    the same from run to run. A hash table admits the whole batch's keys on
+    every replica first (one ``ensure``, so the replicas stay alike), and
+    each row then reads its own keys' rows. The batch arrives on the first
+    row's slot, and each row's part is copied to its slot (no copy between
+    slots of one device)."""
+
+    def __init__(self, spec, sharding, trainer: Trainer, *, push_route: Optional[str],
+                 is_hash: bool) -> None:
+        if trainer.batch_reduction not in ("mean", "sum"):
+            raise ValueError(
+                f"{type(trainer).__name__} does not declare how its per-row deltas "
+                "combine (Trainer.batch_reduction); a data axis > 1 needs it")
+        if spec.update_fn.scatter_mode != "add":
+            raise ValueError("a data axis > 1 needs an additive update fn")
+        if trainer.uses_local_table:
+            raise NotImplementedError(
+                "a data axis > 1 beside a worker-local table is not ported "
+                "(ROADMAP A.9)")
+        self._spec = spec
+        self._sharding = sharding
+        self._trainer = trainer
+        self._route = push_route
+        self._hash = is_hash
+
+    def _parts(self, batch, hyper):
+        """Each row's (row, slot device, weight, batch slice, hyper-parameters),
+        the slice and the hyper-parameters on the row's slot."""
+        sh, n = self._sharding, batch[0].shape[0]
+        bounds = [n * r // sh.data_rows for r in range(sh.data_rows + 1)]
+        out = []
+        for r in range(sh.data_rows):
+            dev = sh.compute_slot(r).device
+            lo, hi = bounds[r], bounds[r + 1]
+            w = (hi - lo) / n if self._trainer.batch_reduction == "mean" else 1.0
+            out.append((r, dev, w, tuple(on_device(a[lo:hi], dev) for a in batch),
+                        {k: on_device(v, dev) for k, v in hyper.items()}))
+        return out
+
+    @staticmethod
+    def _combine_metrics(metrics_by_row, parts, dev):
+        return {k: sum(on_device(m[k], dev) * p[2] for m, p in zip(metrics_by_row, parts))
+                for k in metrics_by_row[0]}
+
+    def __call__(self, state, batch, hyper):
+        spec, trainer = self._spec, self._trainer
+        dev = state.device
+        parts = self._parts(batch, hyper)
+        metrics, deltas, keys = [], [], []
+        if self._hash:
+            keys = [trainer.pull_keys(b).reshape(-1).to(torch.int32) for *_, b, _ in parts]
+            state, token = spec.ensure(state, torch.cat([on_device(k, dev) for k in keys]))
+            lo = 0
+            for (r, rdev, w, b, h), k in zip(parts, keys):
+                tok = tuple(on_device(t[lo:lo + k.shape[0]], rdev) for t in token)
+                lo += k.shape[0]
+                delta, m = trainer.compute(spec.read(state.at_row(r), k, tok), b, h)
+                deltas.append(on_device(trainer.mask_delta(delta, tok[2]) * w, dev))
+                metrics.append(m)
+            state = spec.push(state, token, torch.cat(deltas))
+            return state, dict(self._combine_metrics(metrics, parts, dev),
+                               _dropped=_dropped(token))
+        for r, _, w, b, h in parts:
+            if trainer.pull_mode == "all":
+                model = spec.pull_all(state.at_row(r))
+            else:
+                k = trainer.pull_keys(b)
+                keys.append(on_device(k, dev))
+                model = spec.pull(state.at_row(r), k)
+            delta, m = trainer.compute(model, b, h)
+            deltas.append(on_device(delta * w, dev))
+            metrics.append(m)
+        if trainer.pull_mode == "all":
+            state = spec.push_all(state, sum(deltas[1:], deltas[0]))
+        else:
+            state = spec.push(state, torch.cat(keys), torch.cat(deltas), via=self._route)
+        return state, self._combine_metrics(metrics, parts, dev)
 
 
 class AsyncStepDriver:
@@ -787,11 +884,19 @@ class WorkerTasklet:
         nkeys = int(self.trainer.pull_keys(sample).shape[0])
         return autotune.choose_push_route(table.spec, table.device, nkeys, table=table)
 
+    def _data_rows(self) -> int:
+        """Data rows of the model table's mesh (1 but for ``data_axis`` > 1)."""
+        return self.ctx.model_table.sharding.data_rows
+
     def _build_step(self) -> None:
         table = self.ctx.model_table
         if self._push_route is None:
             self._push_route = self._resolve_push_route()
-        if self._async_mode():
+        if self._data_rows() > 1:
+            self._step = _DataParallelStep(table.spec, table.sharding, self.trainer,
+                                           push_route=self._push_route,
+                                           is_hash=self._is_hash())
+        elif self._async_mode():
             self._step = AsyncStepDriver(
                 self._build_unfused(self._push_route), bound=self._staleness_bound,
                 model_table=table, local_table=self.ctx.local_table,
@@ -810,7 +915,7 @@ class WorkerTasklet:
         """Whether the async step can drive this job: dense pull_mode='all'
         tables only. A keyed or hash step pulls per-batch rows, and the
         published-view pipeline has no batch when it pulls."""
-        if self._is_hash():
+        if self._is_hash() or self._data_rows() > 1:
             return False
         return self.trainer.pull_mode == "all"
 
@@ -909,12 +1014,17 @@ class WorkerTasklet:
         if self._is_hash():
             # a hash pull inserts the keys it misses: both probes run on a copy
             # of the state (the size of the reference's non-donating output)
+            def copy(state):
+                if isinstance(state, ShardedArray):
+                    return state.clone()
+                return tuple(t.clone() for t in state)
+
             def pull_fn(state, batch):
-                scratch = tuple(t.clone() for t in state)
+                scratch = copy(state)
                 return spec.pull(scratch, trainer.pull_keys(batch))[1]
 
             def pp_fn(state, batch):
-                scratch = tuple(t.clone() for t in state)
+                scratch = copy(state)
                 scratch, rows, token = spec.pull(scratch, trainer.pull_keys(batch))
                 return spec.push(scratch, token, torch.zeros_like(rows))
         elif trainer.pull_mode == "all":
@@ -1382,6 +1492,7 @@ class WorkerTasklet:
         self.trainer.cleanup(ctx)
         step = self._step
         mode = ("async" if isinstance(step, AsyncStepDriver)
+                else "data_parallel" if isinstance(step, _DataParallelStep)
                 else "fused" if self._fused_on else "unfused")
         result = {
             "job_id": self.job_id,
@@ -1409,10 +1520,12 @@ class WorkerTasklet:
             # epochs (TaskUnit admission, an SSP gate, or a step or provider
             # that needs them)
             "fused_epochs": self._use_fused_epoch(),
+            # the model table's mesh: {"data": D, "model": M}
+            "mesh": dict(ctx.model_table.mesh.shape),
         }
         if self._is_hash():
             result["overflow_count"] = ctx.model_table.overflow_count
-        if mode != "fused":
+        if mode in ("unfused", "async"):
             result["phase_seconds"] = dict(zip(("pull", "comp", "push"),
                                                step.mean_phase_seconds()))
         if mode == "async":

@@ -161,34 +161,39 @@ class DolphinJobEntity:
         devcache.host_data.put(key, arrays)
         return arrays
 
-    def _create(self, master: ETMaster, table_cfg, executor_ids) -> Table:
+    def _create(self, master: ETMaster, table_cfg, executor_ids, data_axis: int) -> Table:
         return master.create_table(
             table_cfg.replace(table_id=f"{self.config.job_id}:{table_cfg.table_id}"),
-            executor_ids)
+            executor_ids, data_axis)
 
     def setup(self, master: ETMaster, executor_ids: List[str]) -> None:
-        """Create the job's tables on its executors' device (or take a
-        reference to the shared table ``config.tables`` names) and
-        materialize its data."""
+        """Create the job's tables over all its executors (or take a
+        reference to the shared table ``config.tables`` names), on a mesh
+        ``user["data_axis"]`` rows deep (default 1: the blocks split over
+        every executor), and materialize its data."""
         self._setup_start = time.perf_counter()
         self._master = master
         cfg = self.config
+        data_axis = max(1, int(cfg.user.get("data_axis", 1)))
         probe = self._make_trainer()
         if cfg.tables:
             # an explicit table id is shared state: reuse the table if it
             # exists (the reference reuses same-id tables across jobs)
-            self._table, _ = master.get_or_create_table(cfg.tables[0], executor_ids)
+            self._table, _ = master.get_or_create_table(cfg.tables[0], executor_ids,
+                                                        data_axis)
         elif cfg.user.get("resume_from_chain"):
             if probe.uses_local_table:
                 raise ValueError(
                     f"job {cfg.job_id}: resume_from_chain does not cover "
                     "worker-local tables (their state is not chained)")
             self._table, self._starting_epoch, self._chkp_counter_base = (
-                self._restore_chain(master, executor_ids))
+                self._restore_chain(master, executor_ids, data_axis))
         else:
-            self._table = self._create(master, probe.model_table_config(), executor_ids)
+            self._table = self._create(master, probe.model_table_config(), executor_ids,
+                                       data_axis)
         if probe.uses_local_table:
-            self._local = self._create(master, probe.local_table_config(), executor_ids)
+            self._local = self._create(master, probe.local_table_config(), executor_ids,
+                                       data_axis)
         self._executor_ids = list(executor_ids)
         self._data_arrays = self._make_data()
 
@@ -269,7 +274,7 @@ class DolphinJobEntity:
                          reverse=True)
         return mgr, ordered, base
 
-    def _restore_chain(self, master: ETMaster, executor_ids: List[str]):
+    def _restore_chain(self, master: ETMaster, executor_ids: List[str], data_axis: int):
         """Rebuild the model table from the newest chain entry that restores;
         a corrupt or torn entry is quarantined and the previous one tried.
         The entry tagged epoch e covers epochs 0..e, so training resumes at
@@ -281,7 +286,7 @@ class DolphinJobEntity:
         failures = []
         for info in ordered:
             try:
-                handle = mgr.restore(master, info.chkp_id, executor_ids)
+                handle = mgr.restore(master, info.chkp_id, executor_ids, data_axis)
             except (CheckpointCorruptError, FileNotFoundError) as e:
                 log.warning("job %s: chain entry %s is corrupt or torn (%s: %s); "
                             "quarantined, falling back to the previous entry",

@@ -1,8 +1,9 @@
 """JobServer — the in-process multi-tenant job server.
 
 Counterpart of ``harmony_tpu/jobserver/server.py``, cut to the in-process
-core: ``start`` allocates the executors (one device each, from the
-:class:`DevicePool`) and binds the scheduler; ``submit`` returns a ``Future``
+core: ``start`` allocates the executors (one slot each, from the
+:class:`DevicePool`; a job's tables split over the slots it is granted) and
+binds the scheduler; ``submit`` returns a ``Future``
 of the job's result and hands the job to the scheduler; each launch runs on a
 dispatch thread of its own (the entity's setup, run and cleanup), so the
 default share-all scheduler runs every submitted job at once; ``shutdown``
@@ -11,7 +12,8 @@ future resolves, to its result or to the exception that ended it, and the
 scheduler hears of every finish. A job's entity comes from
 ``build_entity``'s app-type switch (``dolphin`` or ``pregel``). The pool is
 every visible card unless the caller passes another
-(``DevicePool([torch.device("cpu")])``).
+(``DevicePool([torch.device("cpu")])``, or ``DevicePool.virtual(device, n)``:
+n slots on one device, a simulated mesh).
 
 TaskUnit admission (``runtime/taskunit.py``): the server owns one
 ``GlobalTaskUnitScheduler`` (the grant order across jobs) and one

@@ -25,7 +25,9 @@ bf16 operands at key tiles of 16, 32, 64 or 128
 (``csrc/flash_attention_mma.cu``), and ``"simt"``, the scalar kernels
 (``csrc/flash_attention.cu``), for f32 operands, which they keep out of TF32,
 and for bf16 at any other key tile. There is no fallback: a CUDA tensor no
-route takes raises. Each wrapper counts its kernel launches in
+route takes raises. Every launch runs under ``torch.cuda.device`` of its
+operands' card (the launchers set each kernel's shared-memory attribute on
+the current device before every launch). Each wrapper counts its kernel launches in
 ``<wrapper>.launches``, and by route in ``<wrapper>.launches_by_route``.
 """
 from __future__ import annotations
@@ -256,10 +258,11 @@ def flash_forward(q, k, v, causal, block_q, block_k, scale):
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr())
     sizes = (B * H, Sq, k.shape[2], D, block_k, float(scale), int(causal), _stream(q))
-    if route == "mma":
-        cuda_lib.launch("harmony_flash_forward_mma", *ptrs, *sizes)
-    else:
-        cuda_lib.launch("harmony_flash_forward", *ptrs, _DTYPE_CODE[q.dtype], *sizes)
+    with torch.cuda.device(q.get_device()):
+        if route == "mma":
+            cuda_lib.launch("harmony_flash_forward_mma", *ptrs, *sizes)
+        else:
+            cuda_lib.launch("harmony_flash_forward", *ptrs, _DTYPE_CODE[q.dtype], *sizes)
     flash_forward.launches += 1
     flash_forward.launches_by_route[route] += 1
     return out, lse
@@ -283,10 +286,11 @@ def flash_backward_dkv(q, k, v, do, lse, delta, causal, block_q, block_k, scale)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), dk.data_ptr(), dv.data_ptr())
     sizes = (B * H, Sq, k.shape[2], D, float(scale), int(causal), _stream(q))
-    if route == "mma":
-        cuda_lib.launch("harmony_flash_backward_dkv_mma", *ptrs, *sizes)
-    else:
-        cuda_lib.launch("harmony_flash_backward_dkv", *ptrs, _DTYPE_CODE[q.dtype], *sizes)
+    with torch.cuda.device(q.get_device()):
+        if route == "mma":
+            cuda_lib.launch("harmony_flash_backward_dkv_mma", *ptrs, *sizes)
+        else:
+            cuda_lib.launch("harmony_flash_backward_dkv", *ptrs, _DTYPE_CODE[q.dtype], *sizes)
     flash_backward_dkv.launches += 1
     flash_backward_dkv.launches_by_route[route] += 1
     return dk, dv
@@ -309,10 +313,11 @@ def flash_backward_dq(q, k, v, do, lse, delta, causal, block_q, block_k, scale):
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), dq.data_ptr())
     sizes = (B * H, Sq, k.shape[2], D, float(scale), int(causal), _stream(q))
-    if route == "mma":
-        cuda_lib.launch("harmony_flash_backward_dq_mma", *ptrs, *sizes)
-    else:
-        cuda_lib.launch("harmony_flash_backward_dq", *ptrs, _DTYPE_CODE[q.dtype], *sizes)
+    with torch.cuda.device(q.get_device()):
+        if route == "mma":
+            cuda_lib.launch("harmony_flash_backward_dq_mma", *ptrs, *sizes)
+        else:
+            cuda_lib.launch("harmony_flash_backward_dq", *ptrs, _DTYPE_CODE[q.dtype], *sizes)
     flash_backward_dq.launches += 1
     flash_backward_dq.launches_by_route[route] += 1
     return dq

@@ -60,9 +60,10 @@ def weighted_histogram(ids: torch.Tensor, weights: torch.Tensor,
     if N == 0 or W == 0 or num_bins == 0:
         return torch.zeros((num_bins, W), dtype=torch.float32, device=weights.device)
     out, scratch = fold_buffers(N, W, num_bins, weights.device)
-    cuda_lib.launch(
-        "harmony_weighted_histogram", weights.data_ptr(), code, ids.data_ptr(),
-        out.data_ptr(), N, W, num_bins, scratch, _stream(weights))
+    with torch.cuda.device(weights.get_device()):
+        cuda_lib.launch(
+            "harmony_weighted_histogram", weights.data_ptr(), code, ids.data_ptr(),
+            out.data_ptr(), N, W, num_bins, scratch, _stream(weights))
     weighted_histogram.launches += 1
     return out
 

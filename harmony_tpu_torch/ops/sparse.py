@@ -20,7 +20,10 @@ The fold's kernel buckets the ids by destination tile before it folds
 (``csrc/keyed_fold.cu``, which owns that geometry); :func:`fold_buffers` takes
 its output and its int32 scratch from one allocation.
 
-Each wrapper counts its kernel launches in ``<wrapper>.launches``, a plain
+Every launch runs under ``torch.cuda.device`` of its operands' card (the
+launch goes to the current device, and the fold sets its shared-memory
+attribute there; the guard takes ``get_device()``, whose -1 for a CPU tensor
+changes nothing), and operands on two devices are refused (``use_kernel``). Each wrapper counts its kernel launches in ``<wrapper>.launches``, a plain
 integer raised by one where it launches and nowhere else.
 """
 from __future__ import annotations
@@ -80,9 +83,10 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     out = torch.empty((N, W), dtype=table.dtype, device=table.device)
     if N == 0 or W == 0:
         return out
-    cuda_lib.launch(
-        "harmony_gather_rows", table.data_ptr(), idx.data_ptr(), out.data_ptr(),
-        R, W, N, table.element_size(), _stream(table))
+    with torch.cuda.device(table.get_device()):
+        cuda_lib.launch(
+            "harmony_gather_rows", table.data_ptr(), idx.data_ptr(), out.data_ptr(),
+            R, W, N, table.element_size(), _stream(table))
     gather_rows.launches += 1
     return out
 
@@ -149,9 +153,10 @@ def segment_sum_rows(deltas: torch.Tensor, idx: torch.Tensor,
     if N == 0 or W == 0 or num_rows == 0:
         return torch.zeros((num_rows, W), dtype=torch.float32, device=deltas.device)
     out, scratch = fold_buffers(N, W, num_rows, deltas.device)
-    cuda_lib.launch(
-        "harmony_segment_sum_rows", deltas.data_ptr(), idx.data_ptr(),
-        out.data_ptr(), N, W, num_rows, scratch, _stream(deltas))
+    with torch.cuda.device(deltas.get_device()):
+        cuda_lib.launch(
+            "harmony_segment_sum_rows", deltas.data_ptr(), idx.data_ptr(),
+            out.data_ptr(), N, W, num_rows, scratch, _stream(deltas))
     segment_sum_rows.launches += 1
     return out
 

@@ -29,6 +29,13 @@ held up by the sleep. A host too slow to enqueue the pushes within the
 sleep is a failed measurement: it is retried behind a longer sleep, and if
 every try fails the incumbent is kept.
 
+On a table over several slots the push folds once a shard
+(``TableSpec._push_sharded``), so the route is measured for one shard: a
+push into a copy of the first slot's shard alone, on its device, timed with
+the same keys a whole push routes; the signature carries the shard's rows
+and the slot's device. Every shard holds as many rows, and a pool's cards
+are one kind, so the route measured there is every shard's.
+
 On the CPU the static gate stays (``_static_gate``, the rule ``mxu_auto``
 resolves by inside ``TableSpec.push``), unless the caller hands in a timer.
 A push that fails (a kernel that does not build or launch) raises: the
@@ -42,6 +49,8 @@ from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+
+from harmony_tpu_torch.table.table import ShardedArray
 
 _LOCK = threading.Lock()
 _ROUTES: Dict[Tuple, str] = {}
@@ -62,11 +71,11 @@ _SLEEP_TRIES = 4
 Timer = Callable[[Callable[[], object]], Optional[float]]
 
 
-def _signature(spec, device: torch.device, nkeys: int) -> Tuple:
+def _signature(spec, device: torch.device, nkeys: int, shard_rows: int = 0) -> Tuple:
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     return (spec.config.capacity, spec.block_size, tuple(spec.value_shape),
-            str(spec.dtype), int(nkeys), str(device))
+            str(spec.dtype), int(nkeys), str(device), int(shard_rows))
 
 
 def reset() -> None:
@@ -161,12 +170,21 @@ def choose_push_route(spec, device: torch.device, nkeys: int, table=None,
         return "scatter"
     if timer is None and device.type != "cuda":
         return _static_gate(spec, nkeys)
-    sig = _signature(spec, device, nkeys)
+    sharded = table is not None and isinstance(table._step_state, ShardedArray)
+    slot = table.sharding.compute_slot() if sharded else None
+    shard_rows = spec._rows_per_shard(table.sharding) if sharded else 0
+    sig = _signature(spec, slot.device if sharded else device, nkeys, shard_rows)
     with _LOCK:
         hit = _ROUTES.get(sig)
     if hit is not None:
         return hit
-    if table is not None:
+    if sharded:
+        with table._lock:
+            st = table._step_state
+            arr = ShardedArray(st.sharding, {slot: st.shards[slot].clone()})
+        on = (torch.cuda.device(slot.device) if slot.device.type == "cuda"
+              else contextlib.nullcontext())
+    elif table is not None:
         with table._lock:
             arr = table._step_state.clone()
     else:
@@ -176,7 +194,8 @@ def choose_push_route(spec, device: torch.device, nkeys: int, table=None,
                            dtype=torch.int32, device=device)
     deltas = torch.zeros((int(nkeys), *spec.value_shape), dtype=spec.dtype, device=device)
     timer = timer or device_ms
-    on = torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+    if not sharded:
+        on = torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
     with on:
         meas = {f"{via}_ms": timer(lambda via=via: spec.push(arr, keys, deltas, via=via))
                 for via in CUDA_ARMS}

@@ -42,9 +42,18 @@ depends on an order of writes (see there).
 
 The checkpoint path's per-block I/O (``snapshot_blocks``, ``export_blocks``,
 ``import_blocks``) moves a block as its (slot_keys, values) pair, so a
-restored table places every key in the slot it had. On one device only:
-``reshard`` and ``addressable_blocks`` wait for the port of live resharding
-and elastic recovery (ROADMAP A.9, A.10).
+restored table places every key in the slot it had.
+
+Over a mesh of several slots the state is a ``ShardedArray`` of (slot_keys,
+values) pairs placed by ``block_sharding``, as the reference's
+``_make_shardings`` places both arrays. A key hashes to its block and probes
+only inside it, so each slot runs ``ensure``, the lookup and the push on the
+keys of its own blocks (keys of other blocks are masked out, in their batch
+order), and every replica admits the same keys in the same order. A pull
+reads with K1 once on each shard of its data row, a push folds with K2 once
+on each slot; the slot placements and values are the one-slot table's, byte
+for byte. ``reshard`` and ``addressable_blocks`` wait for the port of live
+resharding, the multi-process pod and elastic recovery (ROADMAP A.9, A.10).
 """
 from __future__ import annotations
 
@@ -56,9 +65,22 @@ import torch
 
 from harmony_tpu_torch.config.params import TableConfig
 from harmony_tpu_torch.ops.sparse import gather_rows, segment_sum_rows, value_width
-from harmony_tpu_torch.table.table import BlockSnapshot, LayoutAnnouncerMixin, StreamOrder
+from harmony_tpu_torch.parallel.mesh import Mesh
+from harmony_tpu_torch.parallel.dispatch import dispatch_scope
+from harmony_tpu_torch.table.table import (
+    BlockSnapshot,
+    LayoutAnnouncerMixin,
+    ShardedArray,
+    StreamOrder,
+    _import_part,
+    _same_storage,
+    _snapshot_part,
+    block_sharding,
+    mesh_of,
+    on_device,
+)
 from harmony_tpu_torch.table.update import UpdateFunction, get_update_fn
-from harmony_tpu_torch.utils.platform import DeviceLike, resolve_device
+from harmony_tpu_torch.utils.platform import DeviceLike
 
 # Stored-key encoding: key k (MIN_KEY <= k <= MAX_KEY) is stored as -(k + 2);
 # empty slots hold 0. Key 0 is reserved, as in the reference (there it is
@@ -179,7 +201,17 @@ class HashTableSpec:
         return block * self.block_slots + slot
 
     def _flat(self, values: torch.Tensor) -> torch.Tensor:
-        return values.view(self.num_slots, self.width)
+        """Values as rows ``[slots, width]`` (the whole table's, or a shard's)."""
+        return values.view(-1, self.width)
+
+    def _in_shard(self, block: torch.Tensor, lo: int, nb: int):
+        """For a shard holding blocks [lo, lo + nb): the mask of keys whose
+        block it holds (None when it holds them all) and each key's block
+        within the shard (0 for the others)."""
+        if nb == self.num_blocks:
+            return None, block
+        inside = (block >= lo) & (block < lo + nb)
+        return inside, torch.where(inside, block - lo, 0)
 
     # -- pure parts ------------------------------------------------------
 
@@ -269,14 +301,29 @@ class HashTableSpec:
         ok))``; ``ok=False`` marks keys out of domain or past the probe budget.
         Duplicate keys resolve to one slot; distinct keys racing for one empty
         slot are arbitrated by the min-claim and its read-back. ``init_v``:
-        the keys' init values when the caller has them."""
-        slot_keys, values = state
+        the keys' init values when the caller has them. On a
+        :class:`ShardedArray` every slot admits the keys of its blocks."""
         keys = keys.reshape(-1).to(torch.int32)
+        if init_v is None:
+            init_v = self._init_values(keys)
+        if isinstance(state, ShardedArray):
+            return state, self._ensure_sharded(state, keys, init_v)
+        slot_keys, values = state
+        return state, self._ensure_in(slot_keys, values, keys, init_v, 0)
+
+    def _ensure_in(self, slot_keys: torch.Tensor, values: torch.Tensor,
+                   keys: torch.Tensor, init_v: torch.Tensor, lo: int) -> Token:
+        """:meth:`ensure` on storage holding blocks [lo, lo + its blocks):
+        keys of other blocks come back ``ok=False``. The token's block is
+        the key's block in the whole table."""
         n = keys.shape[0]
         valid = (keys >= MIN_KEY) & (keys <= MAX_KEY)
         enc = _encode_keys(keys)
         block, start, stride = self._route(keys)
-        base = block * self.block_slots
+        inside, blk = self._in_shard(block, lo, slot_keys.shape[0])
+        if inside is not None:
+            valid = valid & inside
+        base = blk * self.block_slots
         flat_keys = slot_keys.view(-1)
         slot = torch.full_like(block, -1)
         fresh = torch.zeros_like(valid)
@@ -298,24 +345,69 @@ class HashTableSpec:
         safe_slot = slot.clamp_min(0)
         # a fresh slot holds zeros: one write of zeros + init per slot (the
         # reference's one additive write), duplicates of a new key deduped
-        fresh = self._one_writer_per_slot(block, safe_slot, fresh)
-        if init_v is None:
-            init_v = self._init_values(keys)
+        fresh = self._one_writer_per_slot(blk, safe_slot, fresh)
         flat = self._flat(values)
         lin = base + safe_slot
         self._write_rows(flat, lin, flat[lin] + init_v.reshape(n, self.width), fresh)
-        return (slot_keys, values), (block, safe_slot, ok)
+        return block, safe_slot, ok
+
+    def _ensure_sharded(self, state: ShardedArray, keys: torch.Tensor,
+                        init_v: torch.Tensor) -> Token:
+        """Every slot admits the keys of its shard (each replica the same
+        keys in the same order, so every replica places them alike); the
+        token is the owning shards' slots, on ``state.device``."""
+        sh, dev = state.sharding, state.device
+        block = self._route(keys)[0]
+        shard = torch.div(block, sh.blocks_per_shard, rounding_mode="floor")
+        row0 = {s: k for k, s in enumerate(sh.row_slots(0))}
+        slot = torch.zeros_like(block)
+        ok = torch.zeros_like(keys, dtype=torch.bool)
+        moved: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
+        with dispatch_scope(sh.mesh):
+            for s, (sk, v) in state.shards.items():
+                if sk.device not in moved:
+                    moved[sk.device] = (on_device(keys, sk.device), on_device(init_v, sk.device))
+                kk, iv = moved[sk.device]
+                k = sh.shard_of(s)
+                _, slot_k, ok_k = self._ensure_in(sk, v, kk, iv, k * sh.blocks_per_shard)
+                if s in row0:
+                    mine = shard == k
+                    slot = torch.where(mine, on_device(slot_k, dev), slot)
+                    ok = torch.where(mine, on_device(ok_k, dev), ok)
+        return block, slot, ok
 
     def lookup(self, state: State, keys: torch.Tensor) -> torch.Tensor:
         """Read-only multiGet: values of present keys, init values of absent
-        ones; nothing is inserted (``get`` as against ``getOrInit``)."""
-        slot_keys, values = state
+        ones; nothing is inserted (``get`` as against ``getOrInit``). On a
+        :class:`ShardedArray`, K1 once on each shard of the row."""
         keys = keys.reshape(-1).to(torch.int32)
         n = keys.shape[0]
+        if isinstance(state, ShardedArray):
+            sh, dev = state.sharding, state.device
+            found, got = None, None
+            with dispatch_scope(sh.mesh):
+                for k, (sk, v) in enumerate(state.read_shards()):
+                    f_k, g_k = self._lookup_in(sk, v, on_device(keys, sk.device),
+                                               k * sh.blocks_per_shard)
+                    f_k, g_k = on_device(f_k, dev), on_device(g_k, dev)
+                    found = f_k if found is None else found | f_k
+                    got = g_k if got is None else torch.where(f_k[:, None], g_k, got)
+        else:
+            found, got = self._lookup_in(state[0], state[1], keys, 0)
+        init_v = self._init_values(keys).reshape(n, self.width)
+        return torch.where(found[:, None], got, init_v).reshape(n, *self.value_shape)
+
+    def _lookup_in(self, slot_keys: torch.Tensor, values: torch.Tensor,
+                   keys: torch.Tensor, lo: int):
+        """(found, rows) of ``keys`` in storage holding blocks [lo, ...):
+        the probe, then K1 at the found slots."""
         valid = (keys >= MIN_KEY) & (keys <= MAX_KEY)
         enc = _encode_keys(keys)
         block, start, stride = self._route(keys)
-        base = block * self.block_slots
+        inside, blk = self._in_shard(block, lo, slot_keys.shape[0])
+        if inside is not None:
+            valid = valid & inside
+        base = blk * self.block_slots
         flat_keys = slot_keys.view(-1)
         slot = torch.full_like(block, -1)
         for r in range(self.max_probes):
@@ -324,21 +416,41 @@ class HashTableSpec:
             slot = torch.where(hit, cand, slot)
         found = valid & (slot >= 0)
         got = gather_rows(self._flat(values), (base + slot.clamp_min(0)).to(torch.int32))
-        init_v = self._init_values(keys).reshape(n, self.width)
-        return torch.where(found[:, None], got, init_v).reshape(n, *self.value_shape)
+        return found, got
 
     def pull(self, state: State, keys: torch.Tensor):
         """getOrInit pull: admit, then read the values at the resolved slots
         through ``gather_rows`` (K1). Returns ``(state, values, token)``; the
         token goes to :meth:`push` for the same keys (no second probe)."""
         keys = keys.reshape(-1).to(torch.int32)
-        n = keys.shape[0]
         init_v = self._init_values(keys)
         state, token = self.ensure(state, keys, init_v)
+        return state, self._read(state, token, init_v), token
+
+    def read(self, state: State, keys: torch.Tensor, token: Token) -> torch.Tensor:
+        """The values of ``keys`` at slots :meth:`ensure` resolved (``token``):
+        what :meth:`pull` returns. On a :class:`ShardedArray`, read on the
+        shards of its data row."""
+        keys = keys.reshape(-1).to(torch.int32)
+        return self._read(state, token, self._init_values(keys))
+
+    def _read(self, state, token: Token, init_v: torch.Tensor) -> torch.Tensor:
         block, slot, ok = token
-        vals = gather_rows(self._flat(state[1]), self._lin(block, slot).to(torch.int32))
+        n = ok.shape[0]
+        if isinstance(state, ShardedArray):
+            sh, dev = state.sharding, state.device
+            bps = sh.blocks_per_shard
+            vals = None
+            with dispatch_scope(sh.mesh):
+                for k, (_, v) in enumerate(state.read_shards()):
+                    inside, blk = self._in_shard(block, k * bps, v.shape[0])
+                    lin = self._lin(blk, slot).to(torch.int32)
+                    got = on_device(gather_rows(self._flat(v), on_device(lin, v.device)), dev)
+                    vals = got if vals is None else torch.where(inside[:, None], got, vals)
+        else:
+            vals = gather_rows(self._flat(state[1]), self._lin(block, slot).to(torch.int32))
         vals = torch.where(ok[:, None], vals, init_v.reshape(n, self.width))
-        return state, vals.reshape(n, *self.value_shape), token
+        return vals.reshape(n, *self.value_shape)
 
     def _exact_set(self, flat, block, slot, mask, new_vals, win=None) -> None:
         """Exact overwrite at resolved slots by one writer per slot (the last
@@ -355,8 +467,30 @@ class HashTableSpec:
     def put(self, state: State, token: Token, values_in: torch.Tensor) -> State:
         """Overwrite-put at slots resolved by :meth:`ensure` (put/multiPut
         semantics, whatever the update fn)."""
+        def put_in(values, block, slot, ok, rows):
+            self._exact_set(self._flat(values), block, slot, ok, rows)
+
+        return self._on_shards(state, token, values_in, put_in)
+
+    def _on_shards(self, state, token: Token, rows: torch.Tensor, fn) -> State:
+        """Run ``fn(values, block, slot, ok, rows)`` on the storage, or on
+        every slot of a ShardedArray with the token cut to its shard (block
+        within the shard, ``ok`` false for the keys of other shards)."""
         block, slot, ok = token
-        self._exact_set(self._flat(state[1]), block, slot, ok, values_in)
+        if not isinstance(state, ShardedArray):
+            fn(state[1], block, slot, ok, rows)
+            return state
+        sh = state.sharding
+        moved: Dict[torch.device, tuple] = {}
+        with dispatch_scope(sh.mesh):
+            for s, (_, v) in state.shards.items():
+                if v.device not in moved:
+                    moved[v.device] = tuple(on_device(t, v.device)
+                                            for t in (block, slot, ok, rows))
+                b, sl, o, r = moved[v.device]
+                inside, blk = self._in_shard(b, sh.shard_of(s) * sh.blocks_per_shard,
+                                             v.shape[0])
+                fn(v, blk, sl, o if inside is None else o & inside, r)
         return state
 
     def _add_folded(self, flat, block, slot, ok, deltas) -> None:
@@ -383,10 +517,13 @@ class HashTableSpec:
         """multiUpdate at slots resolved by :meth:`pull`/:meth:`ensure`.
         Duplicate keys fold per the update fn's ``scatter_mode``; entries with
         ``ok=False`` are dropped. ``post`` then applies to every touched slot
-        by an exact set."""
-        block, slot, ok = token
-        flat = self._flat(state[1])
-        deltas = deltas.reshape(ok.shape[0], self.width).to(self.dtype)
+        by an exact set. On a :class:`ShardedArray` every slot folds the keys
+        of its shard (K2 once a slot), in their batch order."""
+        deltas = deltas.reshape(token[2].shape[0], self.width).to(self.dtype)
+        return self._on_shards(state, token, deltas, self._push_in)
+
+    def _push_in(self, values, block, slot, ok, deltas) -> None:
+        flat = self._flat(values)
         mode = self.update_fn.scatter_mode
         if mode == "add":
             self._add_folded(flat, block, slot, ok, deltas)
@@ -404,13 +541,12 @@ class HashTableSpec:
             win = self._one_writer_per_slot(block, slot, touched)
             upd = flat[self._lin(block, slot)]
             self._exact_set(flat, block, slot, touched, self.update_fn.post(upd), win=win)
-        return state
 
 
 class DeviceHashTable(StreamOrder, LayoutAnnouncerMixin):
-    """Host-side handle of a hash table on one device: serialised steps and
-    commits, the host op surface (multi_get_or_init, multi_get, multi_update,
-    multi_put) and the overflow count. Device work is ordered across streams
+    """Host-side handle of a hash table, on one slot or over a mesh:
+    serialised steps and commits, the host op surface (multi_get_or_init,
+    multi_get, multi_update, multi_put) and the overflow count. Device work is ordered across streams
     as ``DenseTable``'s is (:class:`StreamOrder`), and writes bump
     ``data_version``, which the reference's hash table lacks (its serving
     cache keeps a hash table's rows across training writes; ROADMAP C).
@@ -420,10 +556,13 @@ class DeviceHashTable(StreamOrder, LayoutAnnouncerMixin):
     count their own, and a training step's per-batch counts are folded in
     with :meth:`count_dropped` at its epoch's drain."""
 
-    def __init__(self, spec: HashTableSpec, device: DeviceLike = None,
+    def __init__(self, spec: HashTableSpec, mesh: "Mesh | DeviceLike" = None,
                  state: Optional[State] = None) -> None:
         self.spec = spec
-        self.device = resolve_device(device)
+        self.mesh = mesh_of(mesh)
+        # the reference's _make_shardings: slot keys and values alike
+        self.sharding = block_sharding(self.mesh, spec.num_blocks)
+        self.device = self.sharding.compute_slot().device
         self._lock = threading.RLock()
         if state is None:
             state = spec.init_state(self.device)
@@ -431,7 +570,9 @@ class DeviceHashTable(StreamOrder, LayoutAnnouncerMixin):
             self._check_state(state)
             state = (state[0].to(self.device, torch.int32).contiguous(),
                      state[1].to(self.device, spec.dtype).contiguous())
-        self._state: Optional[State] = state
+        if self.mesh.size > 1:
+            state = ShardedArray.split(self.sharding, *state)
+        self._state = state
         self._dropped = False
         self.overflow_count = 0
         self._layout_listeners: list = []
@@ -460,9 +601,15 @@ class DeviceHashTable(StreamOrder, LayoutAnnouncerMixin):
 
     def commit(self, new_state: State) -> None:
         """Install the post-step state (a step that updated in place hands back
-        the same tensors)."""
+        the same tensors, or the same shards)."""
         with self._lock:
             self._check()
+            if isinstance(self._state, ShardedArray) or isinstance(new_state, ShardedArray):
+                if not _same_storage(new_state, self._state):
+                    raise ValueError("commit: state sharding changed")
+                self._state = ShardedArray(new_state.sharding, new_state.shards)
+                self._after_write()
+                return
             self._check_state(new_state)
             sk, v = new_state
             if (sk.dtype != torch.int32 or v.dtype != self.spec.dtype
@@ -475,7 +622,7 @@ class DeviceHashTable(StreamOrder, LayoutAnnouncerMixin):
     def apply_step(self, step_fn: Callable, *args):
         """Run ``step_fn(state, *args) -> (new_state, out)`` and commit, both
         under the table lock. Returns ``out``."""
-        with self._lock:
+        with self._lock, dispatch_scope(self.mesh):
             self._check()
             self._before_write()
             new_state, out = step_fn(self._state, *args)
@@ -487,7 +634,8 @@ class DeviceHashTable(StreamOrder, LayoutAnnouncerMixin):
         aux)`` and commit both (a hash model table beside a dense worker-local
         table: sparse LDA). Lock order as ``DenseTable.apply_step_with``: this
         table's lock, then ``local``'s."""
-        with self._lock, local._lock:
+        with self._lock, local._lock, dispatch_scope(
+                max(self.mesh, local.mesh, key=lambda m: m.size)):
             self._check()
             self._before_write()
             local._before_write()
@@ -569,16 +717,24 @@ class DeviceHashTable(StreamOrder, LayoutAnnouncerMixin):
         with self._lock:
             self._check()
             self._before_read()
-            n = (self._state[0] < 0).sum()
+            n = (self._slot_keys() < 0).sum()
             self._after_read()
         return int(n)
+
+    def _slot_keys(self) -> torch.Tensor:
+        """Every block's slot keys, block-major on ``device`` (a copy when
+        sharded)."""
+        st = self._state
+        return st.whole(0) if isinstance(st, ShardedArray) else st[0]
 
     def items(self) -> Dict[int, np.ndarray]:
         """Every present (key, value) pair (a test and debug surface)."""
         with self._lock:
             self._check()
             self._before_read()
-            sk, v = (t.clone() for t in self._state)
+            st = self._state
+            sk, v = ((st.whole(0), st.whole(1)) if isinstance(st, ShardedArray)
+                     else (t.clone() for t in st))
             self._after_read()
         sk = sk.cpu().numpy().reshape(-1)
         v = v.cpu().numpy().reshape(-1, *self.spec.value_shape)
@@ -602,11 +758,11 @@ class DeviceHashTable(StreamOrder, LayoutAnnouncerMixin):
         with self._lock:
             self._check()
             self._before_read()
-            sk, v = self._state
-            if block_ids is None:
-                parts = (sk.clone(), v.clone())
+            st, whole = self._state, block_ids is None
+            if isinstance(st, ShardedArray):
+                parts = tuple(_snapshot_part(st, ids, whole, i) for i in (0, 1))
             else:
-                parts = (torch.stack([sk[b] for b in ids]), torch.stack([v[b] for b in ids]))
+                parts = tuple(_snapshot_part(t, ids, whole) for t in st)
             self._after_read()
             return BlockSnapshot(ids, parts, self.device)
 
@@ -625,13 +781,15 @@ class DeviceHashTable(StreamOrder, LayoutAnnouncerMixin):
         ids = sorted(blocks)
         pk = torch.as_tensor(np.stack([np.asarray(blocks[b][0]) for b in ids]))
         pv = torch.as_tensor(np.stack([np.asarray(blocks[b][1]) for b in ids]))
-        idx = torch.as_tensor(ids, device=self.device)
-        with self._lock:
+        with self._lock, dispatch_scope(self.mesh):
             self._check()
             self._before_write()
-            sk, v = self._state
-            sk[idx] = pk.to(self.device, torch.int32)
-            v[idx] = pv.to(self.device, self.spec.dtype)
+            st = self._state
+            for i, (payload, dtype) in enumerate(((pk, torch.int32), (pv, self.spec.dtype))):
+                if isinstance(st, ShardedArray):
+                    _import_part(st, ids, payload, dtype, i)
+                else:
+                    _import_part(st[i], ids, payload, dtype)
             self._after_write()
 
     # -- elasticity: not ported yet ------------------------------------------
@@ -639,7 +797,7 @@ class DeviceHashTable(StreamOrder, LayoutAnnouncerMixin):
     def _not_ported(self, what: str):
         raise NotImplementedError(
             f"DeviceHashTable.{what} waits for the port of live resharding and "
-            "elastic recovery (ROADMAP A.9, A.10)")
+            "elastic recovery (ROADMAP A.9's pod, A.10)")
 
     def reshard(self, *args, **kwargs) -> None:
         self._not_ported("reshard")

@@ -1,10 +1,20 @@
-"""DenseTable — the partitioned model table, on one device.
+"""DenseTable — the partitioned model table, on one slot or over a mesh.
 
-Counterpart of ``harmony_tpu/table/table.py``. Storage is ONE dense tensor
+Counterpart of ``harmony_tpu/table/table.py``. Storage is block-major,
 ``[num_blocks, block_size, *value_shape]``; keys map to (block, offset) through
 the table's hash or range partitioner. :class:`TableSpec` holds the device ops
 a trainer's step calls (pull, push, push_all, write_all); :class:`DenseTable`
 is the host-side handle that serialises access to the storage.
+
+On one slot the storage is one tensor. Over a mesh of several slots
+(``parallel/mesh.py``) it is a :class:`ShardedArray`, one tensor for each
+slot, placed as the reference's ``NamedSharding`` places its one array:
+:func:`block_sharding` splits the blocks contiguously over the model axis
+when they divide, else every slot holds every block, and the other axes
+hold replicas. The ops route each key to the shard of its block: a pull
+gathers with K1 once on each shard of its data row, a keyed push folds once
+on each slot, every replica with the same bits, and each shard's fold sees
+its keys in their original order, so the bytes equal the one-slot table's.
 
 The reference's device state is functional: a step takes the array and
 returns a new one, and JAX donates the old buffer. Here the ops update the
@@ -41,6 +51,8 @@ import torch
 
 from harmony_tpu_torch.config.params import TableConfig
 from harmony_tpu_torch.ops.histogram import segment_sum
+from harmony_tpu_torch.parallel.dispatch import dispatch_scope
+from harmony_tpu_torch.parallel.mesh import MODEL_AXIS, Mesh, Slot, as_slots, build_mesh
 from harmony_tpu_torch.ops.sparse import gather_rows, segment_sum_rows, value_width
 from harmony_tpu_torch.table.partition import (
     BlockPartitioner,
@@ -111,8 +123,9 @@ class BlockSnapshot:
 
 
 class StreamOrder:
-    """Orders a table's device work across CUDA streams; every method runs
-    under the host's table lock, and each is a no-op off the card.
+    """Orders a table's device work across CUDA streams, on each card its
+    slots lie on; every method runs under the host's table lock, and each is
+    a no-op off the card.
 
     A write (a step's in-place update and its commit, or a host op) calls
     :meth:`_before_write` before it enqueues anything and :meth:`_after_write`
@@ -123,62 +136,65 @@ class StreamOrder:
     event on the reader's stream that the next write waits on (a later
     in-place write never overtakes a read still queued on another stream).
     Writers on one stream pay a comparison a write; the events are made only
-    when a second stream reads. Hosts set ``self.device``, call
-    :meth:`_init_order` and hold ``self._lock``. Every host read of a table
-    is ordered so; the ``array`` and ``state`` properties hand out the live
-    storage itself, which is ordered only on the last write's stream."""
+    when a second stream reads. A table over several cards keeps this state
+    for each card (its shards there, read and written on that card's current
+    stream). Hosts set ``self.mesh``, call :meth:`_init_order` and hold
+    ``self._lock``. Every host read of a table is ordered so; the ``array``
+    and ``state`` properties hand out the live storage itself, which is
+    ordered only on the last write's streams."""
 
     def _init_order(self) -> None:
         """Called once the initial storage is enqueued: that is the first
-        write's stream."""
+        write's stream on each card."""
         self._data_version = 0
-        self._write_stream: Optional["torch.cuda.Stream"] = self._stream()
-        self._read_events: Dict["torch.cuda.Stream", "torch.cuda.Event"] = {}
-        self._write_event: Optional["torch.cuda.Event"] = None
-
-    def _stream(self) -> Optional["torch.cuda.Stream"]:
-        if self.device.type != "cuda":
-            return None
-        return torch.cuda.current_stream(self.device)
+        self._cards = list(dict.fromkeys(
+            s.device for s in self.mesh.slots if s.device.type == "cuda"))
+        self._write_stream: Dict[torch.device, "torch.cuda.Stream"] = {
+            d: torch.cuda.current_stream(d) for d in self._cards}
+        self._read_events: Dict[torch.device, Dict] = {d: {} for d in self._cards}
+        self._write_event: Dict[torch.device, "torch.cuda.Event"] = {}
 
     def _before_write(self) -> None:
-        s = self._stream()
-        if s is None:
-            return
-        last = self._write_stream
-        if last is not None and last != s:   # a write on another stream first
-            ev = torch.cuda.Event()
-            ev.record(last)
-            s.wait_event(ev)
-        for reader, ev in self._read_events.items():
-            if reader != s:
+        for d in self._cards:
+            s = torch.cuda.current_stream(d)
+            last = self._write_stream[d]
+            if last != s:   # a write on another stream first
+                ev = torch.cuda.Event()
+                ev.record(last)
                 s.wait_event(ev)
-        self._read_events.clear()
+            reads = self._read_events[d]
+            for reader, ev in reads.items():
+                if reader != s:
+                    s.wait_event(ev)
+            reads.clear()
 
     def _after_write(self) -> None:
         self._data_version += 1
-        s = self._stream()
-        if s is not None:
-            self._write_stream = s
+        for d in self._cards:
+            self._write_stream[d] = torch.cuda.current_stream(d)
 
     def _before_read(self) -> None:
-        s = self._stream()
-        last = self._write_stream
-        if s is None or last is None or last == s:
-            return
-        if self._write_event is None:
-            self._write_event = torch.cuda.Event()
-        self._write_event.record(last)
-        s.wait_event(self._write_event)
+        for d in self._cards:
+            s = torch.cuda.current_stream(d)
+            last = self._write_stream[d]
+            if last == s:
+                continue
+            ev = self._write_event.get(d)
+            if ev is None:
+                ev = self._write_event[d] = torch.cuda.Event()
+            ev.record(last)
+            s.wait_event(ev)
 
     def _after_read(self) -> None:
-        s = self._stream()
-        if s is None or s == self._write_stream:
-            return
-        ev = self._read_events.get(s)
-        if ev is None:
-            ev = self._read_events[s] = torch.cuda.Event()
-        ev.record(s)
+        for d in self._cards:
+            s = torch.cuda.current_stream(d)
+            if s == self._write_stream[d]:
+                continue
+            reads = self._read_events[d]
+            ev = reads.get(s)
+            if ev is None:
+                ev = reads[s] = torch.cuda.Event()
+            ev.record(s)
 
     @property
     def data_version(self) -> int:
@@ -191,7 +207,7 @@ class StreamOrder:
 class LayoutAnnouncerMixin:
     """Reshard announcements, shared by dense and hash tables (the
     reference's mixin, ``harmony_tpu/table/table.py:136-200``): listeners
-    run with the target layout before a reshard, and ``layout_version``
+    run with the target mesh before a reshard, and ``layout_version``
     counts the announcements. The port has no reshard yet (ROADMAP A.10);
     the serving cache listens, and drops a job's live rows on each
     announcement. The reference's ``comm_split`` pair is left out: the
@@ -214,8 +230,8 @@ class LayoutAnnouncerMixin:
         with self._lock:
             return getattr(self, "_layout_version", 0)
 
-    def announce_reshard(self, target) -> None:
-        """Run the listeners with ``target`` (outside the table lock).
+    def announce_reshard(self, target: Mesh) -> None:
+        """Run the listeners with the ``target`` mesh (outside the table lock).
         Best-effort: a failing listener never blocks the migration."""
         with self._lock:
             listeners = list(self._layout_listeners)
@@ -232,6 +248,139 @@ def _check_codec_dtype(t: torch.Tensor) -> None:
         raise TypeError(f"unsupported block dtype {t.dtype}")
 
 
+def on_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """``t`` on ``device``: itself when it lies there, else a copy. A copy
+    between two cards is ordered after the work enqueued on the source's
+    current stream and before the work later enqueued on the destination's
+    (PyTorch's peer copy waits on both), and the source's memory goes back to
+    its own stream's pool, so nothing reuses it before the copy has read it."""
+    return t if t.device == device else t.to(device, non_blocking=True)
+
+
+class BlockSharding:
+    """The placement of a block-major table on a mesh: the reference's
+    ``block_sharding`` (``harmony_tpu/table/table.py:126-133``) as a
+    ``NamedSharding``. ``spec`` is ``(MODEL_AXIS,)`` when the blocks divide
+    over the model axis (contiguous runs of ``blocks_per_shard`` blocks, one
+    run a model coordinate, repeated along the other axes), else ``()``:
+    every slot holds every block, a faithful copy of the reference's rule.
+
+    Data row ``r`` (the mesh's first axis) reads the shards of
+    :meth:`row_slots`, and computes on :meth:`compute_slot`; a write goes to
+    every slot, every replica with the same bits."""
+
+    def __init__(self, mesh: Mesh, num_blocks: int) -> None:
+        model = mesh.shape.get(MODEL_AXIS, 1)
+        self.mesh = mesh
+        self.num_blocks = num_blocks
+        sharded = MODEL_AXIS in mesh.axis_names and num_blocks % max(model, 1) == 0
+        self.spec: Tuple[str, ...] = (MODEL_AXIS,) if sharded else ()
+        self.num_shards = model if sharded else 1
+        self.blocks_per_shard = num_blocks // self.num_shards
+        coords = np.indices(mesh.devices.shape)[-1] if sharded else np.zeros(
+            mesh.devices.shape, dtype=np.int64)
+        self._shard = {slot: int(m) for slot, m in zip(mesh.devices.flat, coords.flat)}
+
+    @property
+    def data_rows(self) -> int:
+        return int(self.mesh.devices.shape[0])
+
+    def shard_of(self, slot: Slot) -> int:
+        """The model coordinate of ``slot``'s shard."""
+        return self._shard[slot]
+
+    def shard_blocks(self, m: int) -> range:
+        lo = m * self.blocks_per_shard
+        return range(lo, lo + self.blocks_per_shard)
+
+    def slot_blocks(self, slot: Slot) -> range:
+        """The blocks ``slot`` holds (the reference's addressable shard)."""
+        return self.shard_blocks(self.shard_of(slot))
+
+    def row_slots(self, r: int = 0) -> List[Slot]:
+        """The slots data row ``r`` reads, one for each shard, in shard order."""
+        row = self.mesh.devices[r].reshape(-1, self.mesh.devices.shape[-1])[0]
+        return list(row) if self.num_shards > 1 else [row[0]]
+
+    def compute_slot(self, r: int = 0) -> Slot:
+        """Where data row ``r`` computes: its first slot."""
+        return self.mesh.devices[r].flat[0]
+
+    def __eq__(self, other) -> bool:
+        return (isinstance(other, BlockSharding) and self.mesh == other.mesh
+                and self.num_blocks == other.num_blocks and self.spec == other.spec)
+
+    def __repr__(self) -> str:
+        return f"BlockSharding({self.mesh.shape}, P{self.spec}, {self.num_blocks} blocks)"
+
+
+def block_sharding(mesh: Mesh, num_blocks: int) -> BlockSharding:
+    """Shard the block axis over the mesh's model axis when the blocks
+    divide over it, else replicate (the reference's rule, dense and hash
+    tables alike)."""
+    return BlockSharding(mesh, num_blocks)
+
+
+class ShardedArray:
+    """A table's storage over a mesh of several slots: one tensor for each
+    slot (``shards``), holding the blocks of its model coordinate (every
+    block under a replicated sharding), each on its slot's device.
+
+    What a step function receives in place of the storage tensor. The
+    table ops (:class:`TableSpec`, ``HashTableSpec``) route each key to the
+    shard of its block: a read gathers on the shards of data row ``row``,
+    a write updates every slot. ``device`` is where the row computes, and
+    where a read's rows arrive. A hash table's shards are (slot_keys,
+    values) pairs."""
+
+    def __init__(self, sharding: BlockSharding, shards: Dict[Slot, object],
+                 row: int = 0) -> None:
+        self.sharding = sharding
+        self.shards = shards
+        self.row = row
+
+    @property
+    def device(self) -> torch.device:
+        return self.sharding.compute_slot(self.row).device
+
+    def at_row(self, r: int) -> "ShardedArray":
+        """The same storage, read by data row ``r``."""
+        return ShardedArray(self.sharding, self.shards, r)
+
+    def read_shards(self) -> list:
+        """The row's shards, in shard order."""
+        return [self.shards[s] for s in self.sharding.row_slots(self.row)]
+
+    def clone(self) -> "ShardedArray":
+        return ShardedArray(self.sharding, {
+            s: (tuple(x.clone() for x in t) if isinstance(t, tuple) else t.clone())
+            for s, t in self.shards.items()}, self.row)
+
+    @classmethod
+    def split(cls, sharding: BlockSharding, *parts: torch.Tensor) -> "ShardedArray":
+        """Shards copied out of whole block-major storage (one part, or a
+        hash table's (slot_keys, values)): each slot gets its own copy."""
+        shards = {}
+        for slot in sharding.mesh.slots:
+            b = sharding.slot_blocks(slot)
+            pieces = tuple(p[b.start:b.stop].to(slot.device, copy=True).contiguous()
+                           for p in parts)
+            shards[slot] = pieces if len(parts) > 1 else pieces[0]
+        return cls(sharding, shards)
+
+    def whole(self, part: Optional[int] = None) -> torch.Tensor:
+        """The row's shards joined into whole block-major storage on
+        ``device`` (a copy); ``part`` picks one tensor of a pair."""
+        dev = self.device
+        pieces = [on_device(t if part is None else t[part], dev) for t in self.read_shards()]
+        return pieces[0].clone() if len(pieces) == 1 else torch.cat(pieces)
+
+
+def _same_storage(a, b) -> bool:
+    return a is b or (isinstance(a, ShardedArray) and isinstance(b, ShardedArray)
+                      and a.sharding == b.sharding)
+
+
 class TableSpec:
     """Static description of a table + its device ops (which update the
     storage in place and return it)."""
@@ -245,6 +394,8 @@ class TableSpec:
                                                       config.num_blocks)
         self.value_shape: Tuple[int, ...] = tuple(config.value_shape)
         self.dtype: torch.dtype = getattr(torch, config.dtype)
+        # (shards, device) -> every key's shard and row there (_key_routes)
+        self._routes: Dict[Tuple[int, torch.device], list] = {}
 
     @property
     def table_id(self) -> str:
@@ -305,19 +456,26 @@ class TableSpec:
         through ``gather_rows`` (K1)."""
         b, o = self.partitioner.locate(keys)
         flat_idx = self._flat_index(b, o)
-        flat = arr.reshape(self.num_rows, value_width(self.value_shape))
-        rows = gather_rows(flat, flat_idx.reshape(-1))
+        if isinstance(arr, ShardedArray):
+            rows = self._gather_sharded(arr, flat_idx.reshape(-1))
+        else:
+            flat = arr.reshape(self.num_rows, value_width(self.value_shape))
+            rows = gather_rows(flat, flat_idx.reshape(-1))
         return rows.reshape(*flat_idx.shape, *self.value_shape)
 
     def pull_all(self, arr: torch.Tensor) -> torch.Tensor:
         """Whole table as ``[capacity, *value_shape]`` in key order. For a range
         table this is a VIEW of the storage."""
+        if isinstance(arr, ShardedArray):
+            return self._pull_all_sharded(arr)
         if self._is_range():
             flat = arr.reshape(self.num_rows, *self.value_shape)
             return flat[: self.config.capacity]
         return self.pull(arr, self._all_keys(arr.device))
 
     def _post_touched(self, arr: torch.Tensor, b: torch.Tensor, o: torch.Tensor) -> None:
+        if isinstance(arr, ShardedArray):
+            return self._post_touched_sharded(arr, b.reshape(-1), o.reshape(-1))
         flat = arr.view(self.num_rows, *self.value_shape)
         idx, _ = self._in_bounds(b.reshape(-1), o.reshape(-1))
         flat[idx] = self.update_fn.post(flat[idx])
@@ -345,7 +503,12 @@ class TableSpec:
         elif via == "mxu_auto":
             dense_enough = keys.shape[0] >= max(32, self.config.capacity // 256)
             via = "mxu" if mode == "add" and dense_enough else "scatter"
-        if via in ("mxu", "sparse"):
+        if isinstance(arr, ShardedArray) and via in ("mxu", "sparse", "scatter"):
+            if via != "scatter" and mode != "add":
+                raise ValueError(f"via={via!r} requires an additive update fn")
+            with dispatch_scope(arr.sharding.mesh):
+                self._push_sharded(arr, b.reshape(-1), o.reshape(-1), deltas, via)
+        elif via in ("mxu", "sparse"):
             if mode != "add":
                 raise ValueError(f"via={via!r} requires an additive update fn")
             fold = segment_sum if via == "mxu" else segment_sum_rows
@@ -391,6 +554,8 @@ class TableSpec:
             return self.push(arr, self._all_keys(arr.device), deltas)
         if mode == "set":
             return self.write_all(arr, deltas)
+        if isinstance(arr, ShardedArray):
+            return self._push_all_sharded(arr, deltas)
         d = self._pad_to_storage(deltas, arr.dtype)
         if mode == "add":
             arr.add_(d)
@@ -407,6 +572,8 @@ class TableSpec:
     def write_all(self, arr: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
         """Overwrite the whole table from ``[capacity, *value_shape]`` in key
         order, IN PLACE; returns ``arr``."""
+        if isinstance(arr, ShardedArray):
+            return self._write_all_sharded(arr, values)
         if self._is_range():
             arr.copy_(self._pad_to_storage(values, self.dtype))
             return arr
@@ -415,45 +582,264 @@ class TableSpec:
         return arr
 
 
+    # -- the ops on a ShardedArray -----------------------------------------
+    #
+    # A key's shard is found on the device, from its flat row: routing a batch
+    # by shard with no sync means every shard of the row sees every key, and
+    # those of other shards are masked (a gather reads row 0 for them and
+    # drops what it read; a fold gets id -1, which adds nothing). Each shard's
+    # fold so sees its own keys in their original index order, and every row
+    # of every shard gets the bits the one-slot fold gives it.
+
+    def _rows_per_shard(self, sh: BlockSharding) -> int:
+        return sh.blocks_per_shard * self.block_size
+
+    def _shard_rows(self, flat: torch.Tensor, sh: BlockSharding):
+        """(shard coordinate, row within that shard) of flat rows; a row
+        outside the storage has coordinate -1."""
+        per = self._rows_per_shard(sh)
+        inside = (flat >= 0) & (flat < self.num_rows)
+        m = torch.where(inside, torch.div(flat, per, rounding_mode="floor"), -1)
+        return m, (flat - m * per).to(torch.int32)
+
+    def _gather_sharded(self, arr: ShardedArray, flat: torch.Tensor) -> torch.Tensor:
+        """K1 once on each shard of the row; rows [n, W] on ``arr.device``.
+        Ids clamp into the storage first, as the one-slot gather clamps."""
+        sh, dev = arr.sharding, arr.device
+        per, W = self._rows_per_shard(sh), value_width(self.value_shape)
+        flat = flat.clamp(0, max(self.num_rows - 1, 0)).to(torch.int32)
+        m, local = self._shard_rows(flat, sh)
+        out = None
+        with dispatch_scope(sh.mesh):
+            for k, t in enumerate(arr.read_shards()):
+                idx = flat if sh.num_shards == 1 else torch.where(m == k, local, 0)
+                rows = on_device(gather_rows(t.view(per, W), on_device(idx, t.device)), dev)
+                out = rows if out is None else torch.where((m == k)[:, None], rows, out)
+        return out
+
+    def _push_sharded(self, arr: ShardedArray, b: torch.Tensor, o: torch.Tensor,
+                      deltas: torch.Tensor, via: str) -> None:
+        """The keyed push on every slot: each folds the keys of its shard
+        (K3 for "mxu", K2 for "sparse", an indexed scatter for "scatter") and
+        adds the fold in place."""
+        sh = arr.sharding
+        per, n = self._rows_per_shard(sh), b.shape[0]
+        flat = self._flat_index(b, o)
+        m, local = self._shard_rows(flat, sh)
+        mode = self.update_fn.scatter_mode
+        ids: Dict[int, torch.Tensor] = {}
+        if via == "scatter":
+            ok = (b >= 0) & (b < self.num_blocks) & (o >= 0) & (o < self.block_size)
+            d = deltas.reshape(n, *self.value_shape)
+        else:
+            fold = segment_sum if via == "mxu" else segment_sum_rows
+            d = deltas.reshape(n, -1).float()
+        moved: Dict[torch.device, torch.Tensor] = {}
+        for slot, t in arr.shards.items():
+            k = sh.shard_of(slot)
+            if k not in ids:
+                ids[k] = (flat if sh.num_shards == 1
+                          else torch.where(m == k, local, -1)).to(torch.int32)
+            dd = moved.get(t.device)
+            if dd is None:
+                dd = moved[t.device] = on_device(d, t.device)
+            if via != "scatter":
+                folded = fold(dd, on_device(ids[k], t.device), per)
+                t.add_(folded.reshape(t.shape).to(t.dtype))
+                continue
+            sel = ok & (ids[k] >= 0)
+            idx = on_device(ids[k][sel].long(), t.device)
+            dsel = dd[on_device(sel, t.device)].to(t.dtype)
+            tflat = t.view(per, *self.value_shape)
+            if mode == "add":
+                tflat.index_add_(0, idx, dsel)
+            elif mode in ("min", "max"):
+                tflat.index_reduce_(0, idx, dsel, "a" + mode)
+            elif mode == "set":
+                tflat[idx] = dsel
+            else:
+                raise ValueError(f"unknown scatter_mode {mode!r}")
+
+    def _post_touched_sharded(self, arr: ShardedArray, b: torch.Tensor,
+                              o: torch.Tensor) -> None:
+        sh = arr.sharding
+        per = self._rows_per_shard(sh)
+        ok = (b >= 0) & (b < self.num_blocks) & (o >= 0) & (o < self.block_size)
+        m, local = self._shard_rows(self._flat_index(b, o), sh)
+        for slot, t in arr.shards.items():
+            sel = ok & (m == sh.shard_of(slot))
+            idx = on_device(local[sel].long(), t.device)
+            tflat = t.view(per, *self.value_shape)
+            tflat[idx] = self.update_fn.post(tflat[idx])
+
+    def _key_routes(self, sh: BlockSharding, device: torch.device):
+        """For every key in key order, split by shard: per shard, the keys'
+        positions and their rows in the shard (int64, int32) on ``device``.
+        Fixed by the partitioner, so made once on the host and kept."""
+        cache = self._routes
+        hit = cache.get((sh.num_shards, device))
+        if hit is None:
+            b, o = self.partitioner.locate(self._all_keys(torch.device("cpu")))
+            m, local = self._shard_rows(self._flat_index(b, o), sh)
+            hit = []
+            for k in range(sh.num_shards):
+                pos = torch.nonzero(m == k).reshape(-1)
+                hit.append((pos.to(device), local[pos].to(device)))
+            cache[(sh.num_shards, device)] = hit
+        return hit
+
+    def _pull_all_sharded(self, arr: ShardedArray) -> torch.Tensor:
+        """The whole table in key order on ``arr.device``: a range table's
+        shards joined, a hash-partitioned one's rows gathered (K1 once a
+        shard) and placed by key."""
+        if self._is_range():
+            flat = arr.whole().reshape(self.num_rows, *self.value_shape)
+            return flat[: self.config.capacity]
+        sh, dev = arr.sharding, arr.device
+        per, W = self._rows_per_shard(sh), value_width(self.value_shape)
+        out = torch.empty((self.config.capacity, W), dtype=self.dtype, device=dev)
+        with dispatch_scope(sh.mesh):
+            for k, t in enumerate(arr.read_shards()):
+                pos, _ = self._key_routes(sh, dev)[k]
+                _, local = self._key_routes(sh, t.device)[k]
+                out[pos] = on_device(gather_rows(t.view(per, W), local), dev)
+        return out.reshape(self.config.capacity, *self.value_shape)
+
+    def _push_all_sharded(self, arr: ShardedArray, deltas: torch.Tensor) -> ShardedArray:
+        """Range tables: each slot combines its blocks' part of the padded
+        delta (``push_all``'s add, min or max) and applies ``post``."""
+        mode = self.update_fn.scatter_mode
+        d = self._pad_to_storage(deltas, self.dtype)
+        with dispatch_scope(arr.sharding.mesh):
+            for slot, t in arr.shards.items():
+                blk = arr.sharding.slot_blocks(slot)
+                piece = on_device(d[blk.start:blk.stop], t.device)
+                if mode == "add":
+                    t.add_(piece)
+                elif mode == "min":
+                    torch.minimum(t, piece, out=t)
+                elif mode == "max":
+                    torch.maximum(t, piece, out=t)
+                else:
+                    raise ValueError(f"unknown scatter_mode {mode!r}")
+                if self.update_fn.post is not None:
+                    t.copy_(self.update_fn.post(t))
+        return arr
+
+    def _write_all_sharded(self, arr: ShardedArray, values: torch.Tensor) -> ShardedArray:
+        sh = arr.sharding
+        per = self._rows_per_shard(sh)
+        with dispatch_scope(sh.mesh):
+            if self._is_range():
+                v = self._pad_to_storage(values, self.dtype)
+                for slot, t in arr.shards.items():
+                    blk = sh.slot_blocks(slot)
+                    t.copy_(on_device(v[blk.start:blk.stop], t.device))
+                return arr
+            v = values.to(self.dtype).reshape(self.config.capacity, *self.value_shape)
+            for slot, t in arr.shards.items():
+                k = sh.shard_of(slot)
+                pos, _ = self._key_routes(sh, v.device)[k]
+                _, local = self._key_routes(sh, t.device)[k]
+                t.view(per, *self.value_shape)[local.long()] = on_device(v[pos], t.device)
+        return arr
+
+
+def _snapshot_part(storage, ids: Sequence[int], whole: bool,
+                   part: Optional[int] = None) -> torch.Tensor:
+    """A copy of blocks ``ids`` of a storage tensor, or of a ShardedArray
+    (``part`` picks one tensor of a hash table's pairs), on the table's
+    device, block-major."""
+    if not isinstance(storage, ShardedArray):
+        return storage.clone() if whole else torch.stack([storage[b] for b in ids])
+    if whole:
+        return storage.whole(part)
+    shards = [t if part is None else t[part] for t in storage.read_shards()]
+    bps = storage.sharding.blocks_per_shard
+    return torch.stack([on_device(shards[b // bps][b % bps], storage.device) for b in ids])
+
+
+def _import_part(storage, ids: Sequence[int], payload: torch.Tensor,
+                 dtype: torch.dtype, part: Optional[int] = None) -> None:
+    """Set blocks ``ids`` of a storage tensor, or of every slot of a
+    ShardedArray that holds them, from ``payload`` (host, block-major in
+    ``ids`` order)."""
+    if not isinstance(storage, ShardedArray):
+        dev = storage.device
+        storage[torch.as_tensor(ids, device=dev)] = payload.to(dev, dtype)
+        return
+    sh = storage.sharding
+    for slot, t in storage.shards.items():
+        t = t if part is None else t[part]
+        blk = sh.slot_blocks(slot)
+        sel = [i for i, b in enumerate(ids) if b in blk]
+        if sel:
+            local = torch.as_tensor([ids[i] - blk.start for i in sel], device=t.device)
+            t[local] = payload[sel].to(t.device, dtype)
+
+
+def mesh_of(where) -> Mesh:
+    """A table's mesh: ``where`` itself, or the one-slot mesh of a device."""
+    if isinstance(where, Mesh):
+        return where
+    return build_mesh([where if isinstance(where, Slot) else resolve_device(where)])
+
+
 class DenseTable(StreamOrder, LayoutAnnouncerMixin):
-    """Host-side handle on one device: serialised steps and host accessors.
+    """Host-side handle: serialised steps and host accessors.
+
+    ``DenseTable(spec, mesh)`` keeps one shard tensor for each slot of the
+    mesh, placed by :func:`block_sharding` (:class:`ShardedArray`); a mesh of
+    one slot, or ``DenseTable(spec, device)``, keeps one storage tensor.
+    ``device`` is where the table's first data row computes (the mesh's first
+    slot): a host op's keys and rows go there.
 
     Every write (a step's commit, multi_update, multi_put, write_all) and every
     host read is enqueued under ``_lock``; storage writes bump
-    ``data_version``, and :class:`StreamOrder` orders them on the card."""
+    ``data_version``, and :class:`StreamOrder` orders them on each card. A
+    step over several slots also enqueues in the process-wide order of
+    ``parallel/dispatch.py``."""
 
-    def __init__(self, spec: TableSpec, device: DeviceLike = None,
+    def __init__(self, spec: TableSpec, mesh: "Mesh | DeviceLike" = None,
                  arr: Optional[torch.Tensor] = None) -> None:
         self.spec = spec
-        self.device = resolve_device(device)
+        self.mesh = mesh_of(mesh)
+        self.sharding = block_sharding(self.mesh, spec.num_blocks)
+        self.device = self.sharding.compute_slot().device
         self._lock = threading.RLock()
         if arr is None:
             arr = spec.init_array(self.device)
         elif tuple(arr.shape) != spec.storage_shape:
             raise ValueError(
                 f"storage shape {tuple(arr.shape)} != {spec.storage_shape}")
-        self._arr = arr.to(self.device, spec.dtype).contiguous()
+        arr = arr.to(self.device, spec.dtype).contiguous()
+        self._arr = ShardedArray.split(self.sharding, arr) if self.mesh.size > 1 else arr
         self._layout_listeners: list = []
         self._init_order()
 
     @property
-    def array(self) -> torch.Tensor:
-        """The live storage. Steps update it in place: a host reader that needs
-        a stable value copies it under the table lock (multi_get, pull_array)."""
+    def array(self):
+        """The live storage (a tensor, or a :class:`ShardedArray` over several
+        slots). Steps update it in place: a host reader that needs a stable
+        value copies it under the table lock (multi_get, pull_array)."""
         with self._lock:
             return self._arr
 
     @property
-    def _step_state(self) -> torch.Tensor:
+    def _step_state(self):
         """What a step function receives (``DeviceHashTable``'s counterpart is
         its (slot_keys, values) pair)."""
         return self._arr
 
-    def commit(self, new_arr: torch.Tensor) -> None:
+    def commit(self, new_arr) -> None:
         """Install the post-step storage (a step that updated in place hands
-        back the same tensor) and count the write."""
+        back the same tensor, or the same shards) and count the write."""
         with self._lock:
-            if (tuple(new_arr.shape) != self.spec.storage_shape
+            if isinstance(self._arr, ShardedArray) or isinstance(new_arr, ShardedArray):
+                if not _same_storage(new_arr, self._arr):
+                    raise ValueError("commit: storage sharding changed")
+                new_arr = ShardedArray(new_arr.sharding, new_arr.shards)
+            elif (tuple(new_arr.shape) != self.spec.storage_shape
                     or new_arr.dtype != self.spec.dtype
                     or new_arr.device != self._arr.device):
                 raise ValueError("commit: storage shape, dtype or device changed")
@@ -464,7 +850,7 @@ class DenseTable(StreamOrder, LayoutAnnouncerMixin):
         """Run ``step_fn(arr, *extra) -> (new_arr, aux)`` and commit its result,
         both under the table lock, so no host accessor sees a half-applied
         step. Returns ``aux``."""
-        with self._lock:
+        with self._lock, dispatch_scope(self.mesh):
             self._before_write()
             new_arr, aux = step_fn(self._arr, *extra)
             self.commit(new_arr)
@@ -493,6 +879,8 @@ class DenseTable(StreamOrder, LayoutAnnouncerMixin):
             for t in tables:
                 stack.enter_context(t._lock)
                 t._before_write()
+            stack.enter_context(dispatch_scope(max((t.mesh for t in tables),
+                                                   key=lambda m: m.size)))
             new_arrs, aux = step_fn(*(t._step_state for t in tables), *extra)
             for t, new in zip(tables, new_arrs):
                 t.commit(new)
@@ -520,10 +908,7 @@ class DenseTable(StreamOrder, LayoutAnnouncerMixin):
                else [int(b) for b in block_ids])
         with self._lock:
             self._before_read()
-            if block_ids is None:  # the whole storage
-                copy = self._arr.clone()
-            else:
-                copy = torch.stack([self._arr[b] for b in ids])
+            copy = _snapshot_part(self._arr, ids, block_ids is None)
             self._after_read()
             return BlockSnapshot(ids, (copy,), self.device)
 
@@ -541,11 +926,9 @@ class DenseTable(StreamOrder, LayoutAnnouncerMixin):
             return
         ids = sorted(blocks)
         payload = torch.as_tensor(np.stack([np.asarray(blocks[b]) for b in ids]))
-        payload = payload.to(self.device, self.spec.dtype)
-        idx = torch.as_tensor(ids, device=self.device)
-        with self._lock:
+        with self._lock, dispatch_scope(self.mesh):
             self._before_write()
-            self._arr[idx] = payload
+            _import_part(self._arr, ids, payload, self.spec.dtype)
             self._after_write()
 
     def _to_device(self, x, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
@@ -599,12 +982,21 @@ class DenseTable(StreamOrder, LayoutAnnouncerMixin):
         nothing."""
         k = self._to_device(keys, torch.int32)
         v = self._to_device(values)
-        b, o = self.spec.partitioner.locate(k)
-        with self._lock:
+        spec = self.spec
+        b, o = spec.partitioner.locate(k)
+        with self._lock, dispatch_scope(self.mesh):
             self._before_write()
-            ok = ((b >= 0) & (b < self.spec.num_blocks)
-                  & (o >= 0) & (o < self.spec.block_size))
-            self._arr[b[ok].long(), o[ok].long()] = v[ok].to(self.spec.dtype)
+            ok = ((b >= 0) & (b < spec.num_blocks) & (o >= 0) & (o < spec.block_size))
+            if not isinstance(self._arr, ShardedArray):
+                self._arr[b[ok].long(), o[ok].long()] = v[ok].to(spec.dtype)
+            else:
+                sh = self._arr.sharding
+                m, local = spec._shard_rows(spec._flat_index(b, o), sh)
+                for slot, t in self._arr.shards.items():
+                    sel = ok & (m == sh.shard_of(slot))
+                    rows = t.view(spec._rows_per_shard(sh), *spec.value_shape)
+                    rows[on_device(local[sel].long(), t.device)] = on_device(
+                        v[sel].to(spec.dtype), t.device)
             self._after_write()
 
     def write_all(self, values) -> None:

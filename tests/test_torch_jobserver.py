@@ -32,7 +32,7 @@ from harmony_tpu_torch.jobserver.scheduler import (
     make_scheduler,
 )
 from harmony_tpu_torch.jobserver.server import JobServer
-from harmony_tpu_torch.parallel.mesh import DevicePool
+from harmony_tpu_torch.parallel.mesh import DevicePool, Slot
 from harmony_tpu_torch.runtime.master import ETMaster
 
 CPU = torch.device("cpu")
@@ -266,13 +266,15 @@ def test_the_card_is_the_default_pool():
 
 def test_device_pool_leases():
     pool = DevicePool([CPU])
-    assert pool.lease("a", 1) == [CPU] and len(pool) == 1
+    slot = Slot(0, CPU)                          # leases are slots of devices
+    assert pool.lease("a", 1) == [slot] and len(pool) == 1
     with pytest.raises(RuntimeError, match="need 1 devices, only 0 free"):
         pool.lease("b", 1)
-    assert pool.lease_all("c") == [CPU]          # shared leases coexist
-    assert pool.overlapping_jobs("a") == ["c"] and pool.lease_of("c") == [CPU]
+    assert pool.lease_all("c") == [slot]         # shared leases coexist
+    assert pool.overlapping_jobs("a") == ["c"] and pool.lease_of("c") == [slot]
     pool.release("a")
-    assert pool.lease("b", 1) == [CPU] and pool.lease_of("a") == []
+    assert pool.lease("b", 1) == [slot] and pool.lease_of("a") == []
+    assert pool.devices == [CPU]
     with pytest.raises(ValueError, match="distinct"):
         DevicePool([CPU, "cpu"])
 
