@@ -34,13 +34,15 @@ Phases, in order; any failure ends the script with a non-zero exit code:
    32 with D = 16, block_k 16, the bf16 tiles the tensor cores do not
    take: 100 keys and 256, and bench-vit's attention, [128, 12, 197, 64]
    bf16 and [8, 12, 197, 64] f32, not causal, blocks 197: a partial last q
-   tile and key chunk); in each case all three must take the route its
+   tile and key chunk; phase 3u's: the ring's chunk [2, 8, 1024, 64] f32 at
+   block 256, causal and not, with an LSE cotangent, and a2a's [2, 4, 2048,
+   64] bf16 at block 256, causal); in each case all three must take the route its
    table row names (``mma``, the tensor cores, for bf16 at block_k 16, 32, 64
    or 128; ``simt`` for f32 and the other bf16 tiles), and each run twice must
    agree bit for bit. Timed (call ms by CUDA events, device ms by
    torch.profiler) beside their plain versions, their first (scalar) versions
    and ``scaled_dot_product_attention``'s forward and backward, at the LM's
-   shape and at bench-vit's (on ``simt``).
+   shape, at bench-vit's and at phase 3u's (on ``simt``).
 2c. The hash table (``table/hashtable.py``): its ops on the card against the
    port's CPU route on the same inputs, byte for byte (slot keys, values,
    returned values, overflow counts): same-slot races, overflow, an exhausted
@@ -222,6 +224,26 @@ Phases, in order; any failure ends the script with a non-zero exit code:
    while cuda:0 is current gives the bytes it gives on cuda:0. Its
    ``sharded:`` line holds the numbers. ``python3 chip_smoke.py --phase 3t``
    runs the build and this phase alone, held to one-slot runs of its own.
+3u. Sequence- and tensor-parallel LM training over a slot mesh, at
+   bench_sp's width (``benchmarks/lm.py:159-189``: vocab 8192, d_model 512,
+   8 heads, d_ff 2048, bf16, 4 layers, 1024 tokens a sequence shard) on 4
+   virtual slots of cuda:0. (a) Ring attention alone on meshes (data 2, seq
+   2, model 1) and (1, 4, 1), f32 chunks [2, 8, 1024, 64], causal and not:
+   the flash inner (K4/K5a/K5b on ``simt``, n(n+1)/2 launches a row causal,
+   n^2 not) against the einsum inner and one-slot full attention, forward
+   within FLASH_F32_REL and gradients within RING_GRAD_REL of the largest
+   magnitude, the same bits run twice. (b) make_sp_train_step on (2, 2, 1),
+   ring, 3 steps of 4 x 2048 tokens: the losses within LM_BF16_REL of the
+   one-slot LM step on the same tokens and of the same step on 4 CPU slots,
+   the same bits run twice, no host sync in a step (CUDA's sync debug mode),
+   K4/K5a/K5b 24 a step each. (c) The same with sp_attn="a2a" (16 a step,
+   bf16 ``simt`` at block 256). (d) make_parallel_train_step on (1, 2, 2),
+   ring and a2a, within LM_BF16_REL of (b). Each with tokens/s, step ms,
+   device busy ms, idle share and the top kernels. (e) On four or more
+   cards, (b)-(d) on a mesh of four cards give the virtual slots' bits and
+   the same launches (``"auto"`` is the flash inner there), and each ring
+   hop's peer copy is timed. Its ``sp:`` line holds the numbers.
+   ``python3 chip_smoke.py --phase 3u`` runs the build and this phase alone.
 4. The sparse push route (``HARMONY_PUSH_VIA=sparse``): the Wide&Deep job
    of phase 3, which folds its pushes with K2.
 5. Where a step's time goes: a steady epoch of the Wide&Deep job on the host
@@ -247,10 +269,13 @@ Phases, in order; any failure ends the script with a non-zero exit code:
    bench-pagerank, bench-shortest-path, bench-connected-components,
    bench-widedeep-2-workers, pagerank-beside-mlr, chain, serving: the
    reads of 3s (c) and (e), K1 only; sharded: phase 3t (c)'s bench-widedeep
-   at data_axis 1, the trio and bench-fm-hash on 4 slots); K1-K3
+   at data_axis 1, the trio and bench-fm-hash on 4 slots; sp-ring, sp-a2a
+   and 3-axis: phase 3u (b)-(d), 3 steps each); K1-K3
    also carry ``device_ms``, ``library_device_ms``,
    ``library_deterministic_device_ms``, ``host_us`` and their timing at
-   phase 2e's shapes, K4-K5b their timing at bench-vit's shape; the card's
+   phase 2e's shapes, K4-K5b their timing at bench-vit's shape and phase
+   3u's (``at_sp_shapes``: the ring's f32 chunk, causal and not, with an LSE
+   cotangent, and a2a's bf16 attention, all ``simt``); the card's
    name and power limit, and the last line
    ``{"ok": true, "device": {...}}``.
 """
@@ -810,8 +835,18 @@ FLASH_CASES = [
      197, False, "simt"),
     ("bench-vit's tiles at f32", (8, 12, 197, 64), 197, torch.float32, False, 197, False,
      "simt"),
+    # phase 3u's routes: the ring's flash inner (bench_sp's chunk, q pre-scaled and k/v
+    # in f32, the default blocks clamped to the chunk, a nonzero LSE cotangent from the
+    # merge) and a2a's attention (4 of 8 heads over the whole 2048-token sequence)
+    ("the ring's chunk, f32, causal", (2, 8, 1024, 64), 1024, torch.float32, True, 256,
+     True, "simt"),
+    ("the ring's chunk, f32, not causal", (2, 8, 1024, 64), 1024, torch.float32, False, 256,
+     True, "simt"),
+    ("a2a's attention, bf16, causal", (2, 4, 2048, 64), 2048, torch.bfloat16, True, 256,
+     False, "simt"),
 ]
-VIT_FLASH_CASE = FLASH_CASES[-2]
+VIT_FLASH_CASE = FLASH_CASES[-5]
+SP_FLASH_CASES = FLASH_CASES[-3:]
 
 
 def flash_operands(dev, shape, dtype, seed, g_lse=False, sk=None):
@@ -924,7 +959,8 @@ def time_flash_kernels(dev, case=FLASH_CASES[0]):
     """ms of each flash kernel, its plain version and the SDPA yardstick at the
     shape of ``case`` (the LM's, unless another is given), and the bound: the
     larger of the bytes over HBM bandwidth and the matrix products' operations
-    over the bf16 tensor-core peak, counting only the (row, col) pairs the
+    over the peak of the operands' type (bf16 tensor cores, or f32 outside
+    them), counting only the (row, col) pairs the
     causal mask keeps. On the ``mma`` route also the first (scalar) kernels on
     the same operands; on ``simt`` they are the kernels timed."""
     import torch.nn.functional as F
@@ -932,10 +968,10 @@ def time_flash_kernels(dev, case=FLASH_CASES[0]):
     from harmony_tpu_torch.ops import attention as A
     from harmony_tpu_torch.ops import cuda_lib
 
-    _, shape, sk, dtype, causal, block, _, route = case
+    _, shape, sk, dtype, causal, block, g_lse, route = case
     B, H, S, D = shape
     check(sk == S, "the timed flash cases have Sq == Sk")
-    q, k, v, do, glse, scale = flash_operands(dev, shape, dtype, 3)
+    q, k, v, do, glse, scale = flash_operands(dev, shape, dtype, 3, g_lse)
     args = (causal, block, block, scale)
     out, lse = A.flash_forward(q, k, v, *args)
     delta = (do.float() * out.float()).sum(dim=-1) - glse
@@ -964,7 +1000,7 @@ def time_flash_kernels(dev, case=FLASH_CASES[0]):
 
     def bound(nbytes, flops):
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / BF16_FLOPS * 1e3
+        t_ops = flops / (F32_FLOPS if dtype == torch.float32 else BF16_FLOPS) * 1e3
         return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
     def sdpa_forward():
@@ -4730,6 +4766,329 @@ def one_slot_refs():
     return {"wd_losses": None, "trio": trio, "fm_hash": fm["batch_losses"]}
 
 
+# -- phase 3u: sequence- and tensor-parallel LM training over a slot mesh -------
+
+# bench_sp (benchmarks/lm.py:159-189): the LM of benchmarks/lm.py's
+# _model(on_tpu=True) (vocab 8192, d_model 512, 8 heads, d_ff 2048, bf16) at 4
+# layers with 1024 tokens a sequence shard, on a mesh of data 2 x seq n/2 with
+# a batch of 2 * data: on 4 slots, 4 sequences of 2048 tokens a step.
+SP_CONFIG = dict(vocab_size=8192, d_model=512, n_heads=8, n_layers=4, d_ff=2048,
+                 max_seq=2048, dtype="bfloat16")
+SP_BATCH = 4
+SP_STEPS = 3
+SP_LR = 0.1
+SP_SLOTS = 4
+# (a): the ring's chunk [B, H, S, D] on each slot, f32 (the flash inner's
+# operands), on meshes (data, seq) = (2, 2) and (1, 4)
+RING_CHUNK = (2, 8, 1024, 64)
+RING_MESHES = ((2, 2), (1, 4))
+# Gradients of the flash inner against the einsum inner and full attention:
+# f32 sums over other chunks' contributions in another order, 1e-4 of the
+# largest magnitude (the reference's own limit for its flash inner).
+RING_GRAD_REL = 1e-4
+
+
+def flash_launches(sp_attn: str, rows: int, n: int, layers: int = 1) -> int:
+    """K4 (and K5a, K5b) launches of a causal sequence split over rings of n
+    slots: a ring n(n+1)/2 a row and layer (the chunks above the diagonal
+    skipped), a2a n."""
+    return rows * layers * (n * (n + 1) // 2 if sp_attn == "ring" else n)
+
+
+def flat_params(tree):
+    """Every parameter of a tree (a ModelShards joined) as one f32 vector on the CPU."""
+    from harmony_tpu_torch.models.pytree_trainer import tree_leaves
+    from harmony_tpu_torch.models.transformer import ModelShards
+
+    leaves = [x.whole() if isinstance(x, ModelShards) else x for x in tree_leaves(tree)]
+    return torch.cat([x.detach().reshape(-1).float().cpu() for x in leaves])
+
+
+def plain_attention(q, k, v, causal):
+    """Full attention on one slot in plain f32 tensor ops (TF32 off)."""
+    s = (q @ k.transpose(-1, -2)) * q.shape[-1] ** -0.5
+    if causal:
+        S = q.shape[2]
+        keep = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+        s = s.masked_fill(~keep, -1e30)
+    return torch.softmax(s, dim=-1) @ v
+
+
+def ring_alone(slots, dev):
+    """Phase 3u (a): ring attention alone on virtual meshes (2, 2, 1) and
+    (1, 4, 1) at RING_CHUNK, causal and not: the flash inner against the
+    einsum inner and one-slot full attention, forward and gradients, the same
+    bits run twice, K4/K5a/K5b launched n(n+1)/2 (n^2) times a row on simt."""
+    from harmony_tpu_torch.ops import attention as A
+    from harmony_tpu_torch.ops.ring import ring_self_attention
+    from harmony_tpu_torch.parallel.mesh import build_mesh
+
+    flash = (A.flash_forward, A.flash_backward_dkv, A.flash_backward_dq)
+    out = {}
+    for data, seq in RING_MESHES:
+        mesh = build_mesh(slots, data=data, seq=seq, model=1)
+        B, H, S, D = RING_CHUNK
+        g = torch.Generator(device=dev).manual_seed(31 + seq)
+        q, k, v, do = (torch.randn((B * data, H, S * seq, D), generator=g, device=dev)
+                       for _ in range(4))
+        for causal in (True, False):
+            def run(inner):
+                qg, kg, vg = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+                if inner == "full":
+                    o = plain_attention(qg, kg, vg, causal)
+                else:
+                    o = ring_self_attention(qg, kg, vg, mesh, "seq", batch_axis="data",
+                                            causal=causal, inner=inner)
+                return (o.detach(), *torch.autograd.grad(o, (qg, kg, vg), do))
+
+            tag = f"({data}, {seq}, 1) causal={causal}"
+            reset_counts(*flash)
+            got = run("flash")
+            counts = {w.__name__: dict(w.launches_by_route) for w in flash}
+            n = (seq * (seq + 1) // 2 if causal else seq * seq) * data
+            check(all(c == {"mma": 0, "simt": n} for c in counts.values()),
+                  f"phase 3u (a) {tag}: flash launches {counts}, expected {n} each on simt")
+            again = run("flash")
+            check(all(same_bits(a, b) for a, b in zip(got, again)),
+                  f"phase 3u (a) {tag}: the flash ring run twice differs")
+            gaps = {}
+            for ref in ("einsum", "full"):
+                want = run(ref)
+                for name, a, b in zip(("out", "dq", "dk", "dv"), got, want):
+                    rel = FLASH_F32_REL if name == "out" else RING_GRAD_REL
+                    gap = float((a - b).abs().max())
+                    tol = rel * float(b.abs().max())
+                    check(math.isfinite(gap) and gap <= tol,
+                          f"phase 3u (a) {tag}: flash ring {name} against {ref}: {gap} > {tol}")
+                    gaps[f"{name}_vs_{ref}"] = gap
+            timing = ({inner: time_ms(lambda inner=inner: run(inner), samples=5, inner=2)
+                       for inner in ("flash", "einsum", "full")} if dev.type == "cuda" else None)
+            out[tag] = {"launches_each": n, "max_abs": gaps, "fwd_bwd_ms": timing}
+            print(f"phase 3u (a): ring {tag} chunk {list(RING_CHUNK)} f32 within limits, "
+                  f"bit-identical twice: {json.dumps(out[tag])}", flush=True)
+    return out
+
+
+def sp_model(sp_attn: str):
+    from harmony_tpu_torch.models.transformer import TransformerConfig, TransformerLM
+
+    return TransformerLM(TransformerConfig(**SP_CONFIG, sp_attn=sp_attn))
+
+
+def sp_inputs(model, dev):
+    """bench_sp's weights (init seed 0) and tokens (make_lm_data seed 0) on ``dev``."""
+    from harmony_tpu_torch.convert import pytree_params_from_numpy
+    from harmony_tpu_torch.models.transformer import make_lm_data
+
+    params = pytree_params_from_numpy(model.init(seed=0), device=dev)
+    tokens = torch.as_tensor(make_lm_data(SP_BATCH, SP_CONFIG["max_seq"],
+                                          SP_CONFIG["vocab_size"], seed=0)).to(dev)
+    return params, tokens
+
+
+def one_slot_lm_step(model, learning_rate):
+    """The one-slot TransformerLM step on the SP step's objective: the masked
+    mean next-token cross-entropy of ``model.apply`` (flash on ``mma`` at
+    blocks 128) and SGD."""
+    from harmony_tpu_torch.models import transformer as T
+    from harmony_tpu_torch.models.pytree_trainer import tree_leaves, tree_unflatten
+
+    def step(params, tokens):
+        leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+        targets, mask = T._lm_targets_and_mask(tokens)
+        loss = T._masked_ce([model.apply(tree_unflatten(params, leaves), tokens)],
+                            [targets], [mask], tokens.device)
+        grads = torch.autograd.grad(loss, leaves)
+        with torch.no_grad():
+            new = [p - learning_rate * g for p, g in zip(leaves, grads)]
+        return tree_unflatten(params, new), loss.detach()
+
+    return step
+
+
+def sp_step(kind, sp_attn, slots, dev):
+    """A step of ``kind`` ("sp": make_sp_train_step on (2, 2, 1); "3-axis":
+    make_parallel_train_step on (1, 2, 2); "one-slot") over ``slots``, with
+    bench_sp's weights (placed for it) and tokens."""
+    from harmony_tpu_torch.models import transformer as T
+    from harmony_tpu_torch.parallel.mesh import build_mesh
+
+    model = sp_model(sp_attn)
+    params, tokens = sp_inputs(model, dev)
+    if kind == "sp":
+        step = T.make_sp_train_step(model, build_mesh(slots, data=2, seq=2, model=1), SP_LR)
+    elif kind == "3-axis":
+        step, shard = T.make_parallel_train_step(
+            model, build_mesh(slots, data=1, seq=2, model=2), SP_LR)
+        params = shard(params)
+    else:
+        step = one_slot_lm_step(model, SP_LR)
+    return step, params, tokens
+
+
+def sp_steps(kind, sp_attn, slots, dev):
+    """SP_STEPS steps of :func:`sp_step`; returns the losses and the final
+    parameters (on the CPU)."""
+    step, params, tokens = sp_step(kind, sp_attn, slots, dev)
+    losses = []
+    for _ in range(SP_STEPS):
+        params, loss = step(params, tokens)
+        losses.append(loss)
+    losses = torch.stack(losses).cpu()
+    check(bool(torch.isfinite(losses).all()), f"{kind} {sp_attn}: non-finite losses {losses}")
+    return losses.tolist(), flat_params(params)
+
+
+def close_losses(got, want, what):
+    """Step for step within LM_BF16_REL of ``want``; returns the largest relative gap."""
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    check(rel <= LM_BF16_REL, f"phase 3u {what}: losses {got} against {want}: "
+                              f"{rel} (relative) > {LM_BF16_REL}")
+    return rel
+
+
+def sp_step_without_syncs(slots, dev):
+    """One SP ring step enqueued under CUDA's sync debug mode set to raise: no
+    host sync inside the step, and the loss on the home slot."""
+    step, params, tokens = sp_step("sp", "ring", slots, dev)
+    step(params, tokens)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, loss = step(params, tokens)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    check(loss.device == slots[0].device, f"the SP loss lies on {loss.device}")
+
+
+def sp_profile(kind, sp_attn, slots, dev):
+    """Phase 5's figures for SP_STEPS steps: step ms, device busy ms, idle
+    share, the top kernels; and tokens/s."""
+    step, params, tokens = sp_step(kind, sp_attn, slots, dev)
+
+    def run():
+        for _ in range(SP_STEPS):
+            step(params, tokens)
+
+    prof = profile_run(run, SP_STEPS, top_n=8)
+    prof["tokens_per_sec"] = SP_BATCH * SP_CONFIG["max_seq"] / prof["step_ms"] * 1e3
+    return prof
+
+
+def rotation_copies(cards):
+    """Each hop of a 4-card ring: ms (CUDA events on the source card's stream,
+    where PyTorch runs a peer copy) and GB/s for one k chunk of the SP step
+    ([2, 8, 1024, 64] bf16)."""
+    out = {}
+    for i in range(cards):
+        src, dst = torch.device("cuda", i), torch.device("cuda", (i + 1) % cards)
+        chunk = torch.randn((2, 8, 1024, 64), device=src).to(torch.bfloat16)
+        with torch.cuda.device(src):
+            ms = time_ms(lambda: chunk.to(dst, non_blocking=True, copy=True))
+        out[f"cuda:{i}->cuda:{(i + 1) % cards}"] = {
+            "ms": ms, "GB_per_s": chunk.numel() * chunk.element_size() / ms / 1e6}
+    return out
+
+
+def sp_paths(slots, dev, wrappers):
+    """Phase 3u (b)-(d)'s runs on ``slots``: the losses and final parameters
+    of each, and the launches of each path with the counts set to 0 just
+    before it (the flash kernels' also by route)."""
+    runs, launches = {}, {}
+    for path, kind, sp_attn in (("sp-ring", "sp", "ring"), ("sp-a2a", "sp", "a2a"),
+                                ("3-axis", "3-axis", "ring"), ("3-axis", "3-axis", "a2a")):
+        reset_counts(*wrappers)
+        runs[kind, sp_attn] = sp_steps(kind, sp_attn, slots, dev)
+        counts = launches.setdefault(path, {w.__name__: 0 for w in wrappers})
+        for w in wrappers:
+            counts[w.__name__] += w.launches
+            for route, n in getattr(w, "launches_by_route", {}).items():
+                key = f"{w.__name__}_{route}"
+                counts[key] = counts.get(key, 0) + n
+    return runs, launches
+
+
+def run_sp():
+    """Phase 3u: sequence- and tensor-parallel LM training over a slot mesh."""
+    from harmony_tpu_torch.ops.ring import _resolve_inner
+    from harmony_tpu_torch.parallel.mesh import DevicePool
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    wrappers = all_wrappers()
+    slots = DevicePool.virtual(dev, SP_SLOTS).slots
+    out = {"config": {**SP_CONFIG, "batch": SP_BATCH, "steps": SP_STEPS}}
+    out["ring_alone"] = ring_alone(slots, dev)
+
+    runs, launches = sp_paths(slots, dev, wrappers)
+    layers = SP_CONFIG["n_layers"]
+    ring, a2a = flash_launches("ring", 2, 2, layers), flash_launches("a2a", 2, 2, layers)
+    # the 3-axis path: its ring and a2a runs, each over rings of (data 1, model 2)
+    expected = {"sp-ring": ring, "sp-a2a": a2a, "3-axis": ring + a2a}
+    for path, counts in launches.items():
+        want = {w.__name__: 0 for w in wrappers}
+        for name in FLASH_KERNELS:
+            want.update({name: expected[path] * SP_STEPS, f"{name}_mma": 0,
+                         f"{name}_simt": expected[path] * SP_STEPS})
+        check(counts == want, f"phase 3u {path}: launches {counts}, expected {want}")
+    ring_losses = runs["sp", "ring"][0]
+    ref_losses, _ = sp_steps("one-slot", "ring", slots[:1], dev)
+    out["losses"] = {f"{k}-{a}": v[0] for (k, a), v in runs.items()}
+    out["losses"]["one-slot"] = ref_losses
+    gaps = {"sp-ring_vs_one-slot": close_losses(ring_losses, ref_losses,
+                                                "(b) ring against one slot")}
+    for (kind, sp_attn), (losses, _) in runs.items():
+        if (kind, sp_attn) != ("sp", "ring"):
+            gaps[f"{kind}-{sp_attn}_vs_sp-ring"] = close_losses(
+                losses, ring_losses, f"{kind} {sp_attn} against the SP ring")
+    for kind, sp_attn in (("sp", "ring"), ("sp", "a2a")):
+        losses, params = sp_steps(kind, sp_attn, slots, dev)
+        check(float_bits(losses) == float_bits(runs[kind, sp_attn][0])
+              and same_bits(params, runs[kind, sp_attn][1]),
+              f"phase 3u {kind} {sp_attn}: two runs differ")
+    print(f"phase 3u (b)-(d): losses {json.dumps(out['losses'])}, max relative gaps "
+          f"{json.dumps(gaps)}, launches {json.dumps(launches)}; the SP steps bit-identical "
+          f"twice", flush=True)
+    t1 = time.perf_counter()
+    cpu_losses, _ = sp_steps("sp", "ring", DevicePool.virtual("cpu", SP_SLOTS).slots,
+                             torch.device("cpu"))
+    gaps["sp-ring_card_vs_cpu"] = close_losses(ring_losses, cpu_losses, "(b) card against CPU")
+    out["cpu"] = {"losses": cpu_losses, "seconds": time.perf_counter() - t1}
+    out["gaps"] = gaps
+    sp_step_without_syncs(slots, dev)
+    out["launches_per_step"] = {p: {k: v // SP_STEPS for k, v in c.items() if v}
+                                for p, c in launches.items()}
+    out["profile"] = {f"{kind}-{sp_attn}": sp_profile(kind, sp_attn, slots, dev)
+                      for kind, sp_attn in (("sp", "ring"), ("sp", "a2a"),
+                                            ("3-axis", "ring"), ("3-axis", "a2a"))}
+    for name, prof in out["profile"].items():
+        print(f"phase 3u: {name}: {prof['tokens_per_sec']:.1f} tokens/s, step "
+              f"{prof['step_ms']:.3f} ms, device busy {prof['device_busy_ms_per_step']:.3f} "
+              f"ms, idle share {prof['device_idle_share']:.4f}, top "
+              f"{json.dumps(prof['top_device_ms_per_step'])}", flush=True)
+
+    cards = torch.cuda.device_count()
+    if cards >= SP_SLOTS:
+        real = DevicePool().slots[:SP_SLOTS]
+        check(_resolve_inner("auto", on_card=True) == "flash", "auto does not pick flash")
+        real_runs, real_launches = sp_paths(real, dev, wrappers)
+        check(real_launches == launches,
+              f"phase 3u (e): launches on the cards {real_launches}, virtual {launches}")
+        for key, (losses, params) in real_runs.items():
+            check(float_bits(losses) == float_bits(runs[key][0])
+                  and same_bits(params, runs[key][1]),
+                  f"phase 3u (e) {key}: the cards' bits differ from the virtual slots'")
+        out["real_mesh"] = {"cards": [str(s.device) for s in real],
+                            "bits": "the virtual slots' bits on every path",
+                            "rotations": rotation_copies(SP_SLOTS)}
+        print(f"phase 3u (e): on {SP_SLOTS} cards the virtual slots' bits; rotation copies "
+              f"{json.dumps(out['real_mesh']['rotations'])}", flush=True)
+    else:
+        out["real_mesh"] = f"not run: {cards} card(s)"
+    out["seconds"] = time.perf_counter() - t0
+    return launches, out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a CUDA card")
@@ -4765,17 +5124,21 @@ def main() -> int:
         check(d not in (64, 128) or entry.get("spill_bytes") == 0,
               f"{kernel} D={d} block_k={bk}: ptxas reports spills ({entry})")
 
-    if sys.argv[1:] == ["--phase", "3t"]:
-        # phase 3t alone (a host of several cards: the real mesh and the
-        # device guard), held to one-slot runs of its own
-        _, sharded = run_sharded(one_slot_refs())
-        print("sharded: " + json.dumps(sharded), flush=True)
+    if sys.argv[1:] in (["--phase", "3t"], ["--phase", "3u"]):
+        # phase 3t or 3u alone (a host of several cards: the real mesh; 3t
+        # also the device guard), 3t held to one-slot runs of its own
+        if sys.argv[2] == "3t":
+            _, sharded = run_sharded(one_slot_refs())
+            print("sharded: " + json.dumps(sharded), flush=True)
+        else:
+            _, sp = run_sp()
+            print("sp: " + json.dumps(sp), flush=True)
         print(gpu_identity())
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
-    check(not sys.argv[1:], f"unknown arguments {sys.argv[1:]} (only --phase 3t)")
+    check(not sys.argv[1:], f"unknown arguments {sys.argv[1:]} (only --phase 3t or 3u)")
 
     table, idx, err = check_kernels(dev)
     timing, skew = time_kernels(dev, table, idx)
@@ -4788,6 +5151,8 @@ def main() -> int:
           flush=True)
     vit_timing = time_flash_kernels(dev, VIT_FLASH_CASE)
     print(f"phase 2b: timing at bench-vit's shape {json.dumps(vit_timing)}", flush=True)
+    sp_timing = {case[0]: time_flash_kernels(dev, case) for case in SP_FLASH_CASES}
+    print(f"phase 2b: timing at phase 3u's shapes {json.dumps(sp_timing)}", flush=True)
 
     hash_ops = check_hash_ops(dev)
     tune = run_autotune(dev)
@@ -4838,6 +5203,7 @@ def main() -> int:
     sharded_launches, sharded = run_sharded({
         "wd_losses": fused["batch_losses"], "fm_hash": fm_hash["batch_losses"],
         "trio": {k: j["worker"]["batch_losses"] for k, j in trio_jobs.items()}})
+    sp_launches, sp = run_sp()
     by_path = {name: {"bench-widedeep": launches.get(name, 0),
                       "bench-lm": lm_launches[name],
                       "bench-vit": vit_launches[name],
@@ -4853,7 +5219,8 @@ def main() -> int:
                       **{path: counts.get(name, 0) for path, counts in mw_launches.items()},
                       "chain": chain_launches[name],
                       "serving": serving_launches[name],
-                      "sharded": sharded_launches.get(name, 0)}
+                      "sharded": sharded_launches.get(name, 0),
+                      **{path: counts[name] for path, counts in sp_launches.items()}}
                for name in lm_launches}
     print("profile: " + json.dumps(profile_slice()), flush=True)
     print("lm profile: " + json.dumps(profile_lm()), flush=True)
@@ -4901,6 +5268,8 @@ def main() -> int:
             entry["at_gbt_and_pagerank_shapes"] = slice_timing[name]
         if name in vit_timing:
             entry["at_bench_vit_shape"] = {"route": "simt", **vit_timing[name]}
+            entry["at_sp_shapes"] = {case: {"route": "simt", **sp_timing[case][name]}
+                                     for case in sp_timing}
         if name == "gather_rows":
             entry["at_sssp_and_cc_shapes"] = {
                 k: t for k, t in slice_timing.items() if k.startswith("gather_rows [")}
@@ -4911,6 +5280,7 @@ def main() -> int:
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print("sharded: " + json.dumps(sharded), flush=True)
+    print("sp: " + json.dumps(sp), flush=True)
     print(gpu_identity())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

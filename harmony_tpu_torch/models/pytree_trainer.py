@@ -36,6 +36,21 @@ def tree_leaves(tree: Any) -> Iterator[Any]:
         yield tree
 
 
+def tree_unflatten(tree: Any, leaves) -> Any:
+    """A tree shaped like ``tree`` whose leaves are ``leaves`` taken in
+    :func:`tree_leaves`' order."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            return {key: build(t[key]) for key in sorted(t)}
+        if isinstance(t, list):
+            return [build(item) for item in t]
+        return next(it)
+
+    return build(tree)
+
+
 def tree_map(fn, tree: Any) -> Any:
     """``tree`` with every leaf replaced by ``fn(leaf)``."""
     if isinstance(tree, dict):

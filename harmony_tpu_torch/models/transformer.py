@@ -15,13 +15,26 @@ different weights; to hold one against the other, carry the weights across
 (``convert.py``). A config with ``moe_experts > 0`` swaps every
 ``moe_every``-th block's FFN for a Switch-style expert bank
 (``models/moe.py``), whose load-balance loss joins the cross-entropy at
-``moe_aux_weight``. Not ported yet: the sequence-, tensor-, expert- and
-pipeline-parallel steps.
+``moe_aux_weight``.
+
+Over a mesh of slots (``parallel/mesh.py``), :func:`make_sp_train_step` splits
+the batch over the data axis and the sequence over the seq axis, with ring
+attention (``ops/ring.py``) or the all-to-all head scatter (``ops/ulysses.py``,
+``sp_attn="a2a"``) across each ring; :func:`make_parallel_train_step` adds
+Megatron tensor parallelism over the model axis. The reference runs these
+steps per device inside ``shard_map``; the port is one process driving every
+slot, so the layers run in lockstep across the slots: the pre-attention half
+of a block on every slot, the attention across each ring, then the
+post-attention half on every slot (``_qkv_heads``, ``_finish_block``, which
+the one-device ``_block`` shares). Each slot differentiates its own replica of
+the parameters, and the replicas' gradients are added in slot order where the
+parameters live (shard_map's typed autodiff inserts that psum in the
+reference). Not ported yet: the expert- and pipeline-parallel steps.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -36,8 +49,18 @@ from harmony_tpu_torch.models.common import (
     validate_attn,
 )
 from harmony_tpu_torch.models.moe import MoEConfig, init_moe_params, moe_ffn
-from harmony_tpu_torch.models.pytree_trainer import PyTreeTrainer
+from harmony_tpu_torch.models.pytree_trainer import (
+    PyTreeTrainer,
+    tree_leaves,
+    tree_map,
+    tree_unflatten,
+)
 from harmony_tpu_torch.ops.attention import blockwise_attention, flash_attention
+from harmony_tpu_torch.ops.ring import ring_attention
+from harmony_tpu_torch.ops.ulysses import a2a_attention
+from harmony_tpu_torch.parallel.collectives import broadcast, psum
+from harmony_tpu_torch.parallel.dispatch import dispatch_scope
+from harmony_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, SEQ_AXIS, Mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,6 +73,7 @@ class TransformerConfig:
     max_seq: int = 256
     dtype: Any = torch.float32      # activation dtype: a torch dtype, "float32" or "bfloat16"
     attn: str = "auto"              # "auto" | "flash" | "blockwise"
+    sp_attn: str = "ring"           # sequence-parallel tier: "ring" | "a2a"
     remat: bool = False             # recompute each layer's activations in the backward
     # Mixture-of-Experts FFN (models/moe.py): 0 = dense. Every moe_every-th
     # block swaps its FFN for a top-1-routed expert bank; the Switch aux
@@ -63,6 +87,8 @@ class TransformerConfig:
         object.__setattr__(self, "dtype", resolve_dtype(self.dtype))
         if self.d_model % self.n_heads:
             raise ValueError("d_model must divide by n_heads")
+        if self.sp_attn not in ("ring", "a2a"):
+            raise ValueError(f"unknown sp_attn {self.sp_attn!r}")
         if self.moe_experts and self.moe_every < 1:
             raise ValueError("moe_every must be >= 1")
         validate_attn(self.attn)
@@ -134,53 +160,94 @@ class TransformerLM:
     # -- forward ---------------------------------------------------------
 
     def _attention(self, q, k, v):
+        """Causal attention over [B, H, S, D] heads on one device, or, given
+        lists, over the local chunks of one ring of slots in sequence order
+        (the sequence-parallel tier, ``sp_attn``)."""
+        cfg = self.config
+        if isinstance(q, list):
+            sp = a2a_attention if cfg.sp_attn == "a2a" else ring_attention
+            return sp(q, k, v, causal=True)
         S = q.shape[2]
-        attn = resolve_attn(self.config.attn, S, on_card=q.is_cuda, block=128)
+        attn = resolve_attn(cfg.attn, S, on_card=q.is_cuda, block=128)
         if attn == "flash":
             return flash_attention(q, k, v, causal=True,
                                    block_q=min(128, S), block_k=min(128, S))
         return blockwise_attention(q, k, v, causal=True)
 
-    def _block(self, x, layer):
-        """One pre-norm decoder block; returns ``(x, aux)``: the Switch
-        load-balance loss of an MoE block, 0 for a dense one."""
+    def _qkv_heads(self, x, layer):
+        """A block's pre-attention half: the normed input's q, k and v, each
+        [B, H, S, hd]."""
         cfg = self.config
-        B, S = x.shape[0], x.shape[1]
-        d, h, hd = cfg.d_model, cfg.n_heads, cfg.head_dim
         xn = rms_norm(x, layer["ln1"].to(cfg.dtype))
         qkv = xn @ layer["wqkv"].to(cfg.dtype)                  # [B, S, 3d]
-        q, k, v = qkv.split(d, dim=-1)                         # contiguous thirds
+        return tuple(_to_heads(t, cfg.n_heads)                 # contiguous thirds
+                     for t in qkv.split(cfg.d_model, dim=-1))
 
-        def to_heads(t):
-            return t.reshape(B, S, h, hd).transpose(1, 2)
-
-        o = self._attention(to_heads(q), to_heads(k), to_heads(v))
-        o = o.transpose(1, 2).reshape(B, S, d)
-        x = x + o @ layer["wo"].to(cfg.dtype)
+    def _finish_block(self, x, o, layer):
+        """A block's post-attention half, from the attention output o [B, H, S,
+        hd]: the out-projection, the FFN and both residuals. Returns ``(x,
+        aux)``: the Switch load-balance loss of an MoE block, 0 for a dense one."""
+        cfg = self.config
+        x = x + _from_heads(o) @ layer["wo"].to(cfg.dtype)
         xn = rms_norm(x, layer["ln2"].to(cfg.dtype))
         out, aux = ffn_apply(cfg, layer, xn)
         return x + out, aux
 
-    def apply(self, params: Dict[str, Any], tokens: torch.Tensor) -> torch.Tensor:
-        logits, _ = self._apply_with_aux(params, tokens)
+    def _block(self, x, layer):
+        """One pre-norm decoder block on one device; returns ``(x, aux)``."""
+        return self._finish_block(x, self._attention(*self._qkv_heads(x, layer)), layer)
+
+    def _blocks(self, xs, layers, rings=None):
+        """One block on every slot: ``xs[i]`` with ``layers[i]`` (slot i's
+        replica). ``rings`` lists the slot indices of each sequence ring in
+        sequence order; without it each slot runs alone. The layers run in
+        lockstep: the pre-attention half on every slot, then the attention
+        across each ring, then the post-attention half on every slot."""
+        if rings is None:
+            out = [self._block(x, layer) for x, layer in zip(xs, layers)]
+        else:
+            heads = [self._qkv_heads(x, layer) for x, layer in zip(xs, layers)]
+            o = [None] * len(xs)
+            for ring in rings:
+                q, k, v = ([heads[i][j] for i in ring] for j in range(3))
+                for i, oi in zip(ring, self._attention(q, k, v)):
+                    o[i] = oi
+            out = [self._finish_block(x, oi, layer) for x, oi, layer in zip(xs, o, layers)]
+        return [x for x, _ in out], [a for _, a in out]
+
+    def apply(self, params: Dict[str, Any], tokens: torch.Tensor,
+              pos_offset: int = 0) -> torch.Tensor:
+        """Logits [B, S, vocab] f32; ``pos_offset`` is the global position of
+        ``tokens[:, 0]``."""
+        logits, _ = self._apply_with_aux(params, tokens, pos_offset)
         return logits
 
-    def _apply_with_aux(self, params, tokens):
+    def _apply_with_aux(self, params, tokens, pos_offset: int = 0):
         """apply + the summed MoE aux loss (0 for dense configs)."""
+        (logits,), (aux,) = self._forward([params], [tokens], [pos_offset])
+        return logits, aux
+
+    def _forward(self, params: Sequence[Any], tokens: Sequence[torch.Tensor],
+                 offsets: Sequence[int], rings=None):
+        """The forward on each slot: ``params[i]`` (slot i's replica) on
+        ``tokens[i]`` from global position ``offsets[i]``, across the sequence
+        ``rings`` (see ``_blocks``). Returns each slot's logits and summed aux."""
         cfg = self.config
-        x = _embed_in(cfg, params["embed"], params["pos"], tokens)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for layer in params["layers"]:
+        xs = [_embed_in(cfg, p["embed"], p["pos"], t, off)
+              for p, t, off in zip(params, tokens, offsets)]
+        aux = [torch.zeros((), dtype=torch.float32, device=x.device) for x in xs]
+        for i in range(cfg.n_layers):
+            layers = [p["layers"][i] for p in params]
             if cfg.remat:
                 # recompute the block in the backward instead of keeping its
                 # activations: one block's activations live at a time
-                x, a = checkpoint(self._block, x, layer, use_reentrant=False)
+                xs, a = checkpoint(self._blocks, xs, layers, rings, use_reentrant=False)
             else:
-                x, a = self._block(x, layer)
-            aux = aux + a
-        x = rms_norm(x, params["ln_f"].to(cfg.dtype))
+                xs, a = self._blocks(xs, layers, rings)
+            aux = [s + t for s, t in zip(aux, a)]
         # weight-tied readout, f32 logits for a stable softmax
-        return x.float() @ params["embed"].T, aux
+        return [rms_norm(x, p["ln_f"].to(cfg.dtype)).float() @ p["embed"].T
+                for x, p in zip(xs, params)], aux
 
     def loss(self, params, tokens: torch.Tensor) -> torch.Tensor:
         """Mean next-token cross-entropy over the batch, plus the weighted MoE
@@ -216,11 +283,324 @@ def ffn_apply(cfg: TransformerConfig, layer, xn, no_drop: bool = False):
     return hidden @ layer["w2"].to(cfg.dtype), torch.zeros((), device=xn.device)
 
 
-def _embed_in(cfg: TransformerConfig, embed, pos, tokens) -> torch.Tensor:
-    """Token + position embedding, added in f32, then cast to the activation
-    dtype."""
-    idx = torch.arange(tokens.shape[1], device=tokens.device)
+def _embed_in(cfg: TransformerConfig, embed, pos, tokens, pos_offset: int = 0) -> torch.Tensor:
+    """Token + position embedding from global position ``pos_offset``, added in
+    f32, then cast to the activation dtype."""
+    idx = pos_offset + torch.arange(tokens.shape[1], device=tokens.device)
     return (embed[tokens.long()] + pos[idx]).to(cfg.dtype)
+
+
+def _to_heads(t: torch.Tensor, heads: int) -> torch.Tensor:
+    """[B, S, heads * hd] -> [B, heads, S, hd]."""
+    B, S = t.shape[0], t.shape[1]
+    return t.reshape(B, S, heads, -1).transpose(1, 2)
+
+
+def _from_heads(o: torch.Tensor) -> torch.Tensor:
+    """[B, heads, S, hd] -> [B, S, heads * hd]."""
+    B, _, S, _ = o.shape
+    return o.transpose(1, 2).reshape(B, S, -1)
+
+
+# ---------------------------------------------------------------------------
+# Sequence-parallel training step (the long-context path)
+# ---------------------------------------------------------------------------
+
+def _lm_targets_and_mask(tokens: torch.Tensor):
+    """Global next-token targets and loss mask, built BEFORE sharding so a
+    shard's last position targets the next shard's first token."""
+    targets = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])], dim=1)
+    mask = torch.cat([torch.ones_like(tokens[:, 1:], dtype=torch.float32),
+                      torch.zeros_like(tokens[:, :1], dtype=torch.float32)], dim=1)
+    return targets, mask
+
+
+def _masked_ce(logits, targets, mask, device: torch.device) -> torch.Tensor:
+    """Masked mean next-token cross-entropy over the slots' shards: the sum of
+    their masked sums over the sum of their counts, each added in slot order on
+    ``device`` (the reference's psum over the sharded axes)."""
+    tot, cnt = [], []
+    for lg, t, m in zip(logits, targets, mask):
+        ll = torch.gather(F.log_softmax(lg, dim=-1), -1, t.long()[..., None])[..., 0]
+        tot.append((-ll * m).sum())
+        cnt.append(m.sum())
+    return psum(tot, device) / psum(cnt, device)
+
+
+def _slot(mesh: Mesh, coords: Dict[str, int]):
+    """The slot at ``coords`` (an axis the mesh lacks has size 1, index 0)."""
+    return mesh.slot_at({a: i for a, i in coords.items() if a in mesh.shape})
+
+
+def _split_tokens(t: torch.Tensor, rows: int, cols: int, devices) -> List[torch.Tensor]:
+    """A [B, S] matrix cut into rows x cols blocks (row-major), each on its
+    slot's device."""
+    B, S = t.shape
+    if B % rows or S % cols:
+        raise ValueError(f"tokens {tuple(t.shape)} do not split over a {rows} x {cols} grid")
+    blocks = [c for r in t.chunk(rows, dim=0) for c in r.chunk(cols, dim=1)]
+    return [b.to(dev, non_blocking=True) for b, dev in zip(blocks, devices)]
+
+
+def _replica(p: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A parameter as an autograd leaf of one slot's own: a detached alias on
+    the parameter's device, a copy on another."""
+    return p.detach().to(device, non_blocking=True).requires_grad_(True)
+
+
+def _sgd(p: torch.Tensor, grads: Sequence[torch.Tensor], learning_rate: float,
+         donate: bool) -> torch.Tensor:
+    """``p - lr * g`` with ``g`` the slots' gradients added in slot order on
+    ``p``'s device; in place when ``donate``."""
+    step = psum(grads, p.device) * learning_rate
+    return p.sub_(step) if donate else p - step
+
+
+def make_sp_train_step(
+    model: TransformerLM,
+    mesh: Mesh,
+    learning_rate: float = 0.1,
+    data_axis: str = DATA_AXIS,
+    seq_axis: str = SEQ_AXIS,
+    donate: bool = True,
+):
+    """A train step over ``mesh``: ``step(params, tokens) -> (new_params,
+    loss)``, with the batch split over ``data_axis`` and the sequence over
+    ``seq_axis`` (ring or a2a attention across each ring, ``sp_attn``).
+
+    ``tokens`` is the GLOBAL [B, S] matrix; ``params`` a tree of tensors on the
+    mesh's first slot (the home slot), replicated to every slot for the step.
+    Each slot differentiates its own replica and the gradients are added in
+    slot order on the home slot, so the parameters stay one tree. The loss,
+    a device tensor on the home slot, is the masked mean next-token
+    cross-entropy over the whole batch (plus ``moe_aux_weight`` times the mean
+    of the slots' aux for MoE configs, whose experts run unsharded on each
+    slot). ``donate=True`` updates ``params`` in place and returns them;
+    ``donate=False`` leaves them untouched. Other mesh axes are not used: the
+    step runs on their index 0."""
+    cfg = model.config
+    D, S = mesh.shape.get(data_axis, 1), mesh.shape.get(seq_axis, 1)
+    slots = [_slot(mesh, {data_axis: d, seq_axis: s}) for d in range(D) for s in range(S)]
+    devices = [slot.device for slot in slots]
+    rings = [[d * S + s for s in range(S)] for d in range(D)]
+
+    def step(params, tokens):
+        tokens = torch.as_tensor(tokens)
+        with dispatch_scope(mesh):
+            toks, tgts, masks = (_split_tokens(t, D, S, devices)
+                                 for t in (tokens, *_lm_targets_and_mask(tokens)))
+            offsets = [s * toks[0].shape[1] for _ in range(D) for s in range(S)]
+            replicas = [tree_map(lambda p, dev=dev: _replica(p, dev), params)
+                        for dev in devices]
+            leaves = [list(tree_leaves(r)) for r in replicas]
+            with torch.enable_grad():
+                logits, aux = model._forward(replicas, toks, offsets, rings)
+                loss = _masked_ce(logits, tgts, masks, devices[0])
+                if cfg.moe_experts:
+                    # each slot routes its own tokens: the mean over slots keeps
+                    # the weight comparable to the one-device objective
+                    loss = loss + cfg.moe_aux_weight * (psum(aux, devices[0]) / len(slots))
+                grads = torch.autograd.grad(loss, [g for slot in leaves for g in slot])
+            n = len(leaves[0])
+            with torch.no_grad():
+                new = [_sgd(p, grads[j::n], learning_rate, donate)
+                       for j, p in enumerate(tree_leaves(params))]
+        return tree_unflatten(params, new), loss.detach()
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# Combined data x sequence x tensor parallel training step
+# ---------------------------------------------------------------------------
+
+def tp_param_specs(n_layers: int, model_axis: str) -> Dict[str, Any]:
+    """The tensor-parallel parameter layout (wqkv split into wq/wk/wv), as the
+    reference's PartitionSpecs: for each leaf a tuple naming the mesh axis each
+    dimension is split over. Megatron-style column-parallel in-projections
+    ``(None, model_axis)``, row-parallel out-projections ``(model_axis, None)``;
+    ``()`` is replicated."""
+    col, row = (None, model_axis), (model_axis, None)
+    layer = {"ln1": (), "ln2": (), "wq": col, "wk": col, "wv": col, "wo": row,
+             "w1": col, "w2": row}
+    return {"embed": (), "pos": (), "ln_f": (),
+            "layers": [dict(layer) for _ in range(n_layers)]}
+
+
+def to_tp_params(params: Dict[str, Any]) -> Dict[str, Any]:
+    """The LM's packed-wqkv parameter tree in the TP layout (wq/wk/wv apart, so
+    each splits cleanly on its output dim)."""
+    layers = []
+    for layer in params["layers"]:
+        d = layer["wqkv"].shape[-1] // 3
+        w = layer["wqkv"]
+        layers.append({"ln1": layer["ln1"], "ln2": layer["ln2"],
+                       "wq": w[:, :d], "wk": w[:, d:2 * d], "wv": w[:, 2 * d:],
+                       "wo": layer["wo"], "w1": layer["w1"], "w2": layer["w2"]})
+    return {"embed": params["embed"], "pos": params["pos"],
+            "ln_f": params["ln_f"], "layers": layers}
+
+
+class ModelShards:
+    """A parameter split over the model axis: ``shards[m]``, piece m along
+    ``dim``, lies on the slot at model index m."""
+
+    def __init__(self, shards: List[torch.Tensor], dim: int) -> None:
+        self.shards = shards
+        self.dim = dim
+
+    def whole(self, device: Optional[torch.device] = None) -> torch.Tensor:
+        """The shards joined, on ``device`` (shard 0's by default)."""
+        dev = device or self.shards[0].device
+        return torch.cat([s.to(dev) for s in self.shards], dim=self.dim)
+
+
+def make_parallel_train_step(
+    model: TransformerLM,
+    mesh: Mesh,
+    learning_rate: float = 0.1,
+    data_axis: str = DATA_AXIS,
+    seq_axis: str = SEQ_AXIS,
+    model_axis: str = MODEL_AXIS,
+    donate: bool = True,
+):
+    """The 3-axis train step: batch over ``data_axis``, sequence over
+    ``seq_axis`` (ring or a2a attention, ``sp_attn``), and Megatron tensor
+    parallelism over ``model_axis``: column-parallel wq/wk/wv and w1 with the
+    heads split across the model shards, row-parallel wo and w2 whose partial
+    products are added in model-index order.
+
+    Returns ``(step, shard_params)``: ``shard_params(params)`` places a
+    packed-wqkv tree in the TP layout (each split leaf a :class:`ModelShards`,
+    shard m on the slot at (0, 0, m); the rest on the home slot (0, 0, 0));
+    ``step(tp_params, tokens) -> (new_tp_params, loss)`` takes the GLOBAL
+    token matrix. The replicated activations of a (data, seq) position are
+    one tensor, on its model-index-0 slot: the loss is computed once for each
+    position, and a replicated activation entering the model shards sends its
+    gradients back summed in model-index order. ``donate`` as in
+    :func:`make_sp_train_step`."""
+    cfg = model.config
+    if cfg.moe_experts:
+        raise ValueError(
+            "make_parallel_train_step is dense-only (its Megatron sharding "
+            "splits w1/w2 over the model axis; MoE layers have no w1/w2) — "
+            "train MoE configs with the single-device or sp steps, or run "
+            "moe_ffn under expert parallelism directly")
+    tp = mesh.shape.get(model_axis, 1)
+    if cfg.n_heads % tp:
+        raise ValueError(f"n_heads {cfg.n_heads} must divide by tensor "
+                         f"parallelism {tp}")
+    if cfg.d_ff % tp or cfg.d_model % tp:
+        raise ValueError("d_model and d_ff must divide by tensor parallelism")
+    h_loc = cfg.n_heads // tp
+    D, S = mesh.shape.get(data_axis, 1), mesh.shape.get(seq_axis, 1)
+    if cfg.sp_attn == "a2a" and h_loc % S:
+        raise ValueError(
+            f"sp_attn='a2a' needs per-TP-shard heads ({h_loc}) divisible by "
+            f"the sequence axis ({S})")
+    sp_attn_fn = a2a_attention if cfg.sp_attn == "a2a" else ring_attention
+    specs = tp_param_specs(cfg.n_layers, model_axis)
+    cells = [(d, s) for d in range(D) for s in range(S)]
+    dev = {(d, s, m): _slot(mesh, {data_axis: d, seq_axis: s, model_axis: m}).device
+           for d, s in cells for m in range(tp)}
+    home = dev[0, 0, 0]
+    dtype = cfg.dtype
+
+    def shard_params(params: Dict[str, Any]) -> Dict[str, Any]:
+        tree = to_tp_params(params)
+        if tree_map(lambda _: None, tree) != tree_map(lambda _: None, specs):
+            raise ValueError("the parameter tree does not match tp_param_specs")
+        out = []
+        for leaf, spec in zip(tree_leaves(tree), tree_leaves(specs)):
+            t = torch.as_tensor(leaf)
+            if model_axis in spec:
+                dim = spec.index(model_axis)
+                out.append(ModelShards(
+                    [c.to(dev[0, 0, m], copy=True).contiguous()
+                     for m, c in enumerate(t.chunk(tp, dim=dim))], dim))
+            else:
+                out.append(t.to(home, copy=True))
+        return tree_unflatten(tree, out)
+
+    def blocks(xs, layers):
+        """One TP block on every (data, seq) position; ``layers[d, s, m]`` is
+        the slot's replica of the layer (ln1/ln2 only at m = 0)."""
+        q, k, v = {}, {}, {}
+        for d, s in cells:
+            xn = rms_norm(xs[d, s], layers[d, s, 0]["ln1"].to(dtype))
+            for m, xm in enumerate(broadcast(xn, [dev[d, s, m] for m in range(tp)])):
+                # one product for q, k and v: xm then has one gradient consumer
+                # (three would add into it in the order their backward passes
+                # finish, which the other slots of k's and v's rings decide)
+                lay = layers[d, s, m]
+                wqkv = torch.cat([lay["wq"], lay["wk"], lay["wv"]], dim=1).to(dtype)
+                q[d, s, m], k[d, s, m], v[d, s, m] = (
+                    _to_heads(t, h_loc) for t in (xm @ wqkv).chunk(3, dim=-1))
+        o = {}
+        for d in range(D):
+            for m in range(tp):
+                ring = [(d, s, m) for s in range(S)]
+                o.update(zip(ring, sp_attn_fn([q[c] for c in ring], [k[c] for c in ring],
+                                              [v[c] for c in ring], causal=True)))
+        out = {}
+        for d, s in cells:
+            x = xs[d, s] + psum([_from_heads(o[d, s, m]) @ layers[d, s, m]["wo"].to(dtype)
+                                 for m in range(tp)], dev[d, s, 0])
+            xn = rms_norm(x, layers[d, s, 0]["ln2"].to(dtype))
+            hidden = [F.gelu(xm @ layers[d, s, m]["w1"].to(dtype), approximate="tanh")
+                      @ layers[d, s, m]["w2"].to(dtype)
+                      for m, xm in enumerate(broadcast(xn, [dev[d, s, m] for m in range(tp)]))]
+            out[d, s] = x + psum(hidden, dev[d, s, 0])
+        return out
+
+    def step(tp_params, tokens):
+        tokens = torch.as_tensor(tokens)
+        home_devs = [dev[d, s, 0] for d, s in cells]
+        params = list(tree_leaves(tp_params))
+        split = [model_axis in spec for spec in tree_leaves(specs)]
+        with dispatch_scope(mesh):
+            toks, tgts, masks = (_split_tokens(t, D, S, home_devs)
+                                 for t in (tokens, *_lm_targets_and_mask(tokens)))
+            S_loc = toks[0].shape[1]
+            # each slot's replicas: the split leaves' shard m at (d, s, m), the
+            # replicated leaves at (d, s, 0) only
+            reps = {(d, s, m): [(_replica(p.shards[m], dev[d, s, m]) if is_split
+                                 else _replica(p, dev[d, s, m]) if m == 0 else None)
+                                for p, is_split in zip(params, split)]
+                    for d, s in cells for m in range(tp)}
+            trees = {c: tree_unflatten(tp_params, r) for c, r in reps.items()}
+            with torch.enable_grad():
+                xs = {(d, s): _embed_in(cfg, trees[d, s, 0]["embed"], trees[d, s, 0]["pos"],
+                                        toks[i], s * S_loc)
+                      for i, (d, s) in enumerate(cells)}
+                for i in range(cfg.n_layers):
+                    xs = blocks(xs, {c: t["layers"][i] for c, t in trees.items()})
+                logits = [rms_norm(xs[c], trees[c + (0,)]["ln_f"].to(dtype)).float()
+                          @ trees[c + (0,)]["embed"].T for c in cells]
+                loss = _masked_ce(logits, tgts, masks, home)
+                # each replica's gradient goes to (leaf, shard) in slot order
+                wrt, where = [], []
+                for c, r in reps.items():
+                    for j, p in enumerate(r):
+                        if p is not None:
+                            wrt.append(p)
+                            where.append((j, c[2] if split[j] else 0))
+                grads = torch.autograd.grad(loss, wrt)
+            by_leaf = {}
+            for key, g in zip(where, grads):
+                by_leaf.setdefault(key, []).append(g)
+            with torch.no_grad():
+                new = []
+                for j, p in enumerate(params):
+                    if split[j]:
+                        shards = [_sgd(w, by_leaf[j, m], learning_rate, donate)
+                                  for m, w in enumerate(p.shards)]
+                        new.append(p if donate else ModelShards(shards, p.dim))
+                    else:
+                        new.append(_sgd(p, by_leaf[j, 0], learning_rate, donate))
+        return tree_unflatten(tp_params, new), loss.detach()
+
+    return step, shard_params
 
 
 # ---------------------------------------------------------------------------

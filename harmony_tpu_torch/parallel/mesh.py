@@ -96,6 +96,14 @@ class Mesh:
         """Every slot, in the array's (row-major) order."""
         return list(self.devices.flat)
 
+    def slot_at(self, coords: Dict[str, int]) -> Slot:
+        """The slot at the given index of each named axis (index 0 on an axis
+        not named)."""
+        unknown = set(coords) - set(self.axis_names)
+        if unknown:
+            raise ValueError(f"no mesh axes {sorted(unknown)} in {self.axis_names}")
+        return self.devices[tuple(coords.get(a, 0) for a in self.axis_names)]
+
     def __eq__(self, other) -> bool:
         return (isinstance(other, Mesh) and self.axis_names == other.axis_names
                 and self.devices.shape == other.devices.shape
