@@ -244,6 +244,28 @@ Phases, in order; any failure ends the script with a non-zero exit code:
    the same launches (``"auto"`` is the flash inner there), and each ring
    hop's peer copy is timed. Its ``sp:`` line holds the numbers.
    ``python3 chip_smoke.py --phase 3u`` runs the build and this phase alone.
+3v. Pipeline- and expert-parallel LM training and ViT's data-parallel step
+   on 4 virtual slots of cuda:0, 3 steps each. (a) make_pp_train_step at
+   bench_pp's width (``benchmarks/lm.py:224-254`` at n = 4: the LM of 3u at 8
+   layers in 4 stages of 2, batch 32 in 4 microbatches, 1025-token sequences
+   so that 1024 tokens tile the flash block), within LM_BF16_REL of the
+   one-slot TransformerLM step; K4 64 a step (each application again under
+   remat), K5a and K5b 32, all ``mma``. (b) make_ep_train_step at bench_ep's
+   width (``:257-291``: 8 experts every 2nd block, capacity 1.5, aux 0.01,
+   data 4, batch 32 x 1024), within LM_BF16_REL of make_sp_train_step on
+   (data 4, seq 1), which routes each slot's tokens at the same capacity; 32
+   of each a step on ``mma``; each MoE block's dropped share. (c) ViT's
+   make_train_step over data 4 at bench-vit's config (batch 128), within
+   LM_BF16_REL of the one-slot step; 48 of each a step on ``simt``. Each path
+   the same bits run twice and no host sync in a step, with tokens/s (samples/s),
+   step ms, device busy ms, idle share, device operations a step and the top
+   kernels; a PP activation hop's and the EP exchange's copy ms. (d) K4/K5a/K5b
+   against their plain versions at the paths' shapes (``[8, 8, 1024, 64]``
+   bf16 causal ``mma``, ``[32, 12, 197, 64]`` bf16 not causal ``simt``) and
+   timed beside SDPA. (e) On four or more cards, (a)-(c) on the cards give the
+   virtual slots' bits and launches, with the copies' ms and each path's step
+   ms. Its ``pv:`` line holds the numbers. ``python3 chip_smoke.py --phase
+   3v`` runs the build and this phase alone.
 4. The sparse push route (``HARMONY_PUSH_VIA=sparse``): the Wide&Deep job
    of phase 3, which folds its pushes with K2.
 5. Where a step's time goes: a steady epoch of the Wide&Deep job on the host
@@ -270,12 +292,14 @@ Phases, in order; any failure ends the script with a non-zero exit code:
    bench-widedeep-2-workers, pagerank-beside-mlr, chain, serving: the
    reads of 3s (c) and (e), K1 only; sharded: phase 3t (c)'s bench-widedeep
    at data_axis 1, the trio and bench-fm-hash on 4 slots; sp-ring, sp-a2a
-   and 3-axis: phase 3u (b)-(d), 3 steps each); K1-K3
+   and 3-axis: phase 3u (b)-(d), 3 steps each; pp, ep and vit-dp: phase 3v
+   (a)-(c), 3 steps each); K1-K3
    also carry ``device_ms``, ``library_device_ms``,
    ``library_deterministic_device_ms``, ``host_us`` and their timing at
    phase 2e's shapes, K4-K5b their timing at bench-vit's shape and phase
    3u's (``at_sp_shapes``: the ring's f32 chunk, causal and not, with an LSE
-   cotangent, and a2a's bf16 attention, all ``simt``); the card's
+   cotangent, and a2a's bf16 attention, all ``simt``) and phase 3v's
+   (``at_pv_shapes``); the card's
    name and power limit, and the last line
    ``{"ok": true, "device": {...}}``.
 """
@@ -896,11 +920,11 @@ def mma_build_report(report: str):
     return out
 
 
-def check_flash_kernels(dev):
+def check_flash_kernels(dev, cases=FLASH_CASES):
     """K4, K5a and K5b against their plain versions on every case of
-    FLASH_CASES, each on the route the case names and the same bit for bit
-    when run again. Returns each kernel's max |kernel - plain| over the
-    cases."""
+    ``cases`` (FLASH_CASES unless given), each on the route the case names and
+    the same bit for bit when run again. Returns each kernel's max |kernel -
+    plain| over the cases."""
     from harmony_tpu_torch.ops import attention as A
 
     err = {"flash_forward": 0.0, "flash_backward_dkv": 0.0, "flash_backward_dq": 0.0}
@@ -919,7 +943,7 @@ def check_flash_kernels(dev):
               f"{kernel} {case}: {name} |kernel - plain| {gap} > {tol}")
         err[kernel] = max(err[kernel], gap)
 
-    for i, (case, shape, sk, dtype, causal, block, g_lse, route) in enumerate(FLASH_CASES):
+    for i, (case, shape, sk, dtype, causal, block, g_lse, route) in enumerate(cases):
         q, k, v, do, glse, scale = flash_operands(dev, shape, dtype, 10 + i, g_lse, sk)
         args = (causal, block, block, scale)
         check(A.flash_route(dtype, shape[-1], block) == route,
@@ -5089,6 +5113,335 @@ def run_sp():
     return launches, out
 
 
+# -- phase 3v: pipeline- and expert-parallel LM training, ViT's data-parallel step --
+
+# bench_pp (benchmarks/lm.py:224-254) at n = 4: the LM of _model(on_tpu=True,
+# layers=2n) (vocab 8192, d_model 512, 8 heads, d_ff 2048, bf16), 8 layers in 4
+# stages of 2, batch 8n = 32 in M = S = 4 microbatches. bench_pp's sequences
+# are max_seq = 1024 tokens, whose trimmed 1023 would not tile the flash block
+# of 128 (blockwise, no kernel): the phase feeds 1025, as phase 3b feeds
+# bench-lm, so the pipeline runs 1024 tokens a sequence.
+PP_CONFIG = dict(vocab_size=8192, d_model=512, n_heads=8, n_layers=8, d_ff=2048,
+                 max_seq=1024, dtype="bfloat16")
+PP_BATCH, PP_SEQ = 32, 1025
+# bench_ep (:257-291) at n = 4: the same LM with moe_experts 2n = 8 every 2nd
+# block (capacity 1.5, aux 0.01) on mesh data 4, batch 32 of bench_ep's own
+# 1024-token sequences (the masked CE keeps all 1024); 2 experts a slot.
+EP_CONFIG = dict(PP_CONFIG, moe_experts=8, moe_every=2, moe_capacity_factor=1.5,
+                 moe_aux_weight=0.01)
+EP_BATCH, EP_SEQ = 32, 1024
+EP_BLOCKS = 4
+# bench-vit (VIT_ARGS: ViT-B/16, bf16, batch 128, step size 0.05) over 4 data
+# slots, 32 images a slot.
+VIT_DP_CONFIG = dict(image_size=224, patch_size=16, num_classes=1000, channels=3,
+                     d_model=768, n_heads=12, n_layers=12, d_ff=3072, dtype="bfloat16")
+VIT_DP_LR = 0.05
+PV_SLOTS = 4
+PV_STEPS = 3
+PV_LR = 0.1
+# K4, K5a and K5b launches a step and their route: PP 4 stages x 2 layers x 4
+# microbatches, K4 twice (each application's forward again under remat); EP 4
+# slots x 8 layers; ViT-DP 4 slots x 12 layers.
+PV_LAUNCHES = {"pp": ((64, 32, 32), "mma"), "ep": ((32, 32, 32), "mma"),
+               "vit-dp": ((48, 48, 48), "simt")}
+# phase 2b's rows at the paths' shapes: a PP microbatch or an EP slot's attention,
+# and a ViT-DP slot's
+PV_FLASH_CASES = [
+    ("pp and ep: a microbatch or a slot, bf16, causal", (8, 8, 1024, 64), 1024,
+     torch.bfloat16, True, 128, False, "mma"),
+    ("vit-dp: a slot, bf16, not causal", (32, 12, 197, 64), 197, torch.bfloat16, False,
+     197, False, "simt"),
+]
+PV_INIT = {}
+
+
+def pv_init(kind: str):
+    """The numpy initial weights of a path's model (seed 0), drawn once."""
+    if kind not in PV_INIT:
+        PV_INIT[kind] = pv_model(kind).init(seed=0)
+    return PV_INIT[kind]
+
+
+def pv_model(kind: str):
+    from harmony_tpu_torch.models.transformer import TransformerConfig, TransformerLM
+    from harmony_tpu_torch.models.vit import ViT, ViTConfig
+
+    if kind.startswith("vit"):
+        return ViT(ViTConfig(**VIT_DP_CONFIG))
+    return TransformerLM(TransformerConfig(**(EP_CONFIG if kind.startswith("ep")
+                                              else PP_CONFIG)))
+
+
+def pv_step(kind: str, slots, dev):
+    """``(step, state, args)`` of a path over ``slots``: ``step(state, *args)
+    -> (state, loss)``. "pp": make_pp_train_step on 4 stages; "ep":
+    make_ep_train_step on data 4; "vit-dp": ViT's make_train_step on data 4;
+    their counterparts "pp-one-slot" (TransformerLM.loss and SGD),
+    "ep-sp" (make_sp_train_step on (data 4, seq 1)) and "vit-one-slot"."""
+    from harmony_tpu_torch.convert import pytree_params_from_numpy
+    from harmony_tpu_torch.models import transformer as T
+    from harmony_tpu_torch.models import vit
+    from harmony_tpu_torch.parallel.mesh import Mesh, build_mesh
+
+    model = pv_model(kind)
+    params = pytree_params_from_numpy(pv_init(kind.split("-")[0]), device=dev)
+    if kind.startswith("vit"):
+        images, labels = vit.make_synthetic(VIT_BATCH, model.cfg, seed=0)
+        args = (torch.as_tensor(images).to(dev), torch.as_tensor(labels).to(dev))
+        mesh = build_mesh(slots, data=PV_SLOTS, model=1) if kind == "vit-dp" else None
+        return vit.make_train_step(model, mesh, VIT_DP_LR), params, args
+    batch, seq = (PP_BATCH, PP_SEQ) if kind.startswith("pp") else (EP_BATCH, EP_SEQ)
+    tokens = torch.as_tensor(T.make_lm_data(batch, seq, model.config.vocab_size,
+                                            seed=0)).to(dev)
+    if kind == "pp":
+        mesh = Mesh(np.asarray(slots, dtype=object).reshape(PV_SLOTS), ("stage",))
+        step, shard = T.make_pp_train_step(model, mesh, PV_LR)
+        return step, shard(params), (tokens,)
+    if kind == "ep":
+        step, shard = T.make_ep_train_step(model, build_mesh(slots, data=PV_SLOTS, model=1),
+                                           PV_LR)
+        return step, shard(params), (tokens,)
+    if kind == "ep-sp":
+        return (T.make_sp_train_step(model, build_mesh(slots, data=PV_SLOTS, seq=1, model=1),
+                                     PV_LR), params, (tokens,))
+    return one_slot_loss_step(model, PV_LR), params, (tokens,)
+
+
+def one_slot_loss_step(model, learning_rate):
+    """The one-slot TransformerLM SGD step: ``model.loss`` (the mean next-token
+    cross-entropy of tokens[:, :-1] against tokens[:, 1:]) and SGD."""
+    from harmony_tpu_torch.models.pytree_trainer import tree_leaves, tree_unflatten
+
+    def step(params, tokens):
+        leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+        loss = model.loss(tree_unflatten(params, leaves), tokens)
+        grads = torch.autograd.grad(loss, leaves)
+        with torch.no_grad():
+            new = [p - learning_rate * g for p, g in zip(leaves, grads)]
+        return tree_unflatten(params, new), loss.detach()
+
+    return step
+
+
+def pv_steps(kind: str, slots, dev):
+    """PV_STEPS steps of :func:`pv_step`; the losses and the final parameters
+    (one f32 vector on the CPU)."""
+    step, state, args = pv_step(kind, slots, dev)
+    losses = []
+    for _ in range(PV_STEPS):
+        state, loss = step(state, *args)
+        losses.append(loss)
+    losses = torch.stack(losses).cpu()
+    check(bool(torch.isfinite(losses).all()), f"phase 3v {kind}: non-finite losses {losses}")
+    return losses.tolist(), flat_params(state)
+
+
+def pv_paths(slots, dev, wrappers):
+    """Phase 3v (a)-(c)'s runs over ``slots``: each path's losses and final
+    parameters, and its launches with the counts set to 0 just before it."""
+    runs, launches = {}, {}
+    for path in PV_LAUNCHES:
+        reset_counts(*wrappers)
+        runs[path] = pv_steps(path, slots, dev)
+        counts = launches[path] = {}
+        for w in wrappers:
+            counts[w.__name__] = w.launches
+            for route, n in getattr(w, "launches_by_route", {}).items():
+                counts[f"{w.__name__}_{route}"] = n
+    return runs, launches
+
+
+def pv_without_syncs(kind: str, slots, dev):
+    """One step of a path enqueued under CUDA's sync debug mode set to raise:
+    no host sync inside the step, and the loss on the home slot."""
+    step, state, args = pv_step(kind, slots, dev)
+    state, _ = step(state, *args)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, loss = step(state, *args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    check(loss.device == slots[0].device, f"phase 3v {kind}: the loss lies on {loss.device}")
+
+
+def pv_profile(kind: str, slots, dev):
+    """Phase 5's figures for PV_STEPS steps of a path (step ms, device busy ms,
+    idle share, device operations and top kernels), and tokens/s or samples/s."""
+    step, state, args = pv_step(kind, slots, dev)
+
+    def run():
+        nonlocal state
+        for _ in range(PV_STEPS):
+            state, _ = step(state, *args)
+
+    prof = profile_run(run, PV_STEPS, top_n=8)
+    if kind.startswith("vit"):
+        prof["samples_per_sec"] = VIT_BATCH / prof["step_ms"] * 1e3
+    else:
+        tokens = PP_BATCH * (PP_SEQ - 1) if kind == "pp" else EP_BATCH * EP_SEQ
+        prof["tokens_per_sec"] = tokens / prof["step_ms"] * 1e3
+    return prof
+
+
+def wall_ms(fn, devices, calls: int) -> float:
+    """ms a call on the host clock over ``calls`` calls after a first, every
+    device of ``devices`` synchronised before and after (work on several cards,
+    which one card's CUDA events do not see)."""
+    fn()
+    for _ in range(2):
+        for d in set(devices):
+            torch.cuda.synchronize(d)
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        for d in set(devices):
+            torch.cuda.synchronize(d)
+    return (time.perf_counter() - t0) * 1e3 / calls
+
+
+def pv_step_ms(kind: str, slots, dev):
+    """A path's step ms on the host clock over PV_STEPS steps after a first."""
+    step, state, args = pv_step(kind, slots, dev)
+
+    def one():
+        nonlocal state
+        state, _ = step(state, *args)
+
+    return wall_ms(one, [s.device for s in slots], PV_STEPS)
+
+
+def ep_dropped_shares(slots, dev):
+    """The share of tokens each MoE block drops in the EP path's first step,
+    the mean of its slots' shares (each routes its own 8,192 tokens)."""
+    from harmony_tpu_torch.models import moe
+
+    route, shares = moe.route, []
+
+    def recorded(x, router, num_experts, capacity):
+        r = route(x, router, num_experts, capacity)
+        shares.append((~r.keep).float().mean())
+        return r
+
+    step, state, args = pv_step("ep", slots, dev)
+    moe.route = recorded
+    try:
+        step(state, *args)
+    finally:
+        moe.route = route
+    check(len(shares) == EP_BLOCKS * PV_SLOTS,
+          f"phase 3v (b): {len(shares)} routings, expected {EP_BLOCKS * PV_SLOTS}")
+    return torch.stack(shares).view(EP_BLOCKS, PV_SLOTS).mean(dim=1).cpu().tolist()
+
+
+def pv_copies(slots):
+    """ms (host clock, every slot's device synchronised) of an activation hop of the PP path (a microbatch's
+    [8, 1024, 512] bf16 from stage 0's slot to stage 1's) and of the EP path's
+    exchange, out and back (each slot's [8, 1536, 512] f32 buckets)."""
+    from harmony_tpu_torch.models import moe
+    from harmony_tpu_torch.models.transformer import TransformerConfig
+    from harmony_tpu_torch.parallel.collectives import send
+
+    devices = [s.device for s in slots]
+    act = torch.randn((PP_BATCH // PV_SLOTS, PP_SEQ - 1, PP_CONFIG["d_model"]),
+                      device=devices[0]).to(torch.bfloat16)
+    C = TransformerConfig(**EP_CONFIG).moe_cfg.capacity(EP_BATCH // PV_SLOTS * EP_SEQ)
+    buckets = [torch.randn((EP_CONFIG["moe_experts"], C, EP_CONFIG["d_model"]), device=d)
+               for d in devices]
+    rows = moe.to_experts(buckets, devices)
+    return {"pp_hop_ms": wall_ms(lambda: send(act, devices[1]), devices[:2], 50),
+            "pp_hop_bytes": act.numel() * act.element_size(),
+            "ep_exchange_out_ms": wall_ms(lambda: moe.to_experts(buckets, devices), devices, 20),
+            "ep_exchange_back_ms": wall_ms(lambda: moe.from_experts(rows, devices), devices, 20),
+            "ep_exchange_bytes_a_slot": buckets[0].numel() * 4}
+
+
+def run_pv():
+    """Phase 3v: pipeline- and expert-parallel LM training and ViT's
+    data-parallel step over 4 virtual slots of one card (and 4 cards)."""
+    from harmony_tpu_torch.parallel.mesh import DevicePool
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    wrappers = all_wrappers()
+    slots = DevicePool.virtual(dev, PV_SLOTS).slots
+    out = {"config": {"pp": {**PP_CONFIG, "stages": PV_SLOTS, "microbatches": PV_SLOTS,
+                             "batch": PP_BATCH, "seq_len": PP_SEQ,
+                             "note": "1025-token sequences: 1024 after the shift"},
+                      "ep": {**EP_CONFIG, "data": PV_SLOTS, "batch": EP_BATCH,
+                             "seq_len": EP_SEQ},
+                      "vit-dp": {**VIT_DP_CONFIG, "data": PV_SLOTS, "batch": VIT_BATCH},
+                      "steps": PV_STEPS}}
+    err = check_flash_kernels(dev, PV_FLASH_CASES)
+    out["flash_at_path_shapes"] = {case[0]: time_flash_kernels(dev, case)
+                                   for case in PV_FLASH_CASES}
+    print(f"phase 3v (d): max |kernel - plain| {json.dumps(err)}; timing "
+          f"{json.dumps(out['flash_at_path_shapes'])}", flush=True)
+
+    runs, launches = pv_paths(slots, dev, wrappers)
+    for path, ((k4, k5a, k5b), route) in PV_LAUNCHES.items():
+        want = {w.__name__: 0 for w in wrappers}
+        for name, n in zip(FLASH_KERNELS, (k4, k5a, k5b)):
+            want.update({name: n * PV_STEPS, f"{name}_mma": 0, f"{name}_simt": 0})
+            want[f"{name}_{route}"] = n * PV_STEPS
+        check(launches[path] == want,
+              f"phase 3v {path}: launches {launches[path]}, expected {want}")
+    refs = {"pp": "pp-one-slot", "ep": "ep-sp", "vit-dp": "vit-one-slot"}
+    out["losses"], gaps = {}, {}
+    for path, ref in refs.items():
+        want, _ = pv_steps(ref, slots if ref == "ep-sp" else slots[:1], dev)
+        got = runs[path][0]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+        check(rel <= LM_BF16_REL, f"phase 3v {path}: losses {got} against {ref}'s {want}: "
+                                  f"{rel} (relative) > {LM_BF16_REL}")
+        out["losses"][path], out["losses"][ref], gaps[f"{path}_vs_{ref}"] = got, want, rel
+        losses, params = pv_steps(path, slots, dev)
+        check(float_bits(losses) == float_bits(got) and same_bits(params, runs[path][1]),
+              f"phase 3v {path}: two runs differ")
+        pv_without_syncs(path, slots, dev)
+    out["gaps"] = gaps
+    out["launches_per_step"] = {p: {k: v // PV_STEPS for k, v in c.items() if v}
+                                for p, c in launches.items()}
+    out["ep_dropped_share_by_block"] = ep_dropped_shares(slots, dev)
+    out["copies"] = pv_copies(slots)
+    print(f"phase 3v (a)-(c): losses {json.dumps(out['losses'])}, max relative gaps "
+          f"{json.dumps(gaps)}, launches a step {json.dumps(out['launches_per_step'])}; each "
+          f"path bit-identical twice, no host sync in a step; EP dropped share by block "
+          f"{out['ep_dropped_share_by_block']}; copies {json.dumps(out['copies'])}", flush=True)
+    out["profile"] = {path: pv_profile(path, slots, dev) for path in PV_LAUNCHES}
+    for path, prof in out["profile"].items():
+        rate = (f"{prof['samples_per_sec']:.1f} samples/s" if "samples_per_sec" in prof
+                else f"{prof['tokens_per_sec']:.1f} tokens/s")
+        print(f"phase 3v: {path}: {rate}, step {prof['step_ms']:.3f} ms, device busy "
+              f"{prof['device_busy_ms_per_step']:.3f} ms, idle share "
+              f"{prof['device_idle_share']:.4f}, {prof['device_ops_per_step']:.1f} device "
+              f"operations a step, flash launches a step "
+              f"{json.dumps(out['launches_per_step'][path])}, top "
+              f"{json.dumps(prof['top_device_ms_per_step'])}", flush=True)
+
+    cards = torch.cuda.device_count()
+    if cards >= PV_SLOTS:
+        real = DevicePool().slots[:PV_SLOTS]
+        real_runs, real_launches = pv_paths(real, dev, wrappers)
+        check(real_launches == launches,
+              f"phase 3v (e): launches on the cards {real_launches}, virtual {launches}")
+        for path, (losses, params) in real_runs.items():
+            check(float_bits(losses) == float_bits(runs[path][0])
+                  and same_bits(params, runs[path][1]),
+                  f"phase 3v (e) {path}: the cards' bits differ from the virtual slots'")
+        out["real_mesh"] = {"cards": [str(s.device) for s in real],
+                            "bits": "the virtual slots' bits on every path",
+                            "copies": pv_copies(real),
+                            "step_ms": {p: pv_step_ms(p, real, dev) for p in PV_LAUNCHES}}
+        print(f"phase 3v (e): on {PV_SLOTS} cards the virtual slots' bits and launches; "
+              f"copies {json.dumps(out['real_mesh']['copies'])}, step ms "
+              f"{json.dumps(out['real_mesh']['step_ms'])}", flush=True)
+    else:
+        out["real_mesh"] = f"not run: {cards} card(s)"
+    out["seconds"] = time.perf_counter() - t0
+    return launches, out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a CUDA card")
@@ -5124,21 +5477,24 @@ def main() -> int:
         check(d not in (64, 128) or entry.get("spill_bytes") == 0,
               f"{kernel} D={d} block_k={bk}: ptxas reports spills ({entry})")
 
-    if sys.argv[1:] in (["--phase", "3t"], ["--phase", "3u"]):
-        # phase 3t or 3u alone (a host of several cards: the real mesh; 3t
-        # also the device guard), 3t held to one-slot runs of its own
+    if sys.argv[1:] in (["--phase", "3t"], ["--phase", "3u"], ["--phase", "3v"]):
+        # phase 3t, 3u or 3v alone (a host of several cards: the real mesh;
+        # 3t also the device guard), 3t held to one-slot runs of its own
         if sys.argv[2] == "3t":
             _, sharded = run_sharded(one_slot_refs())
             print("sharded: " + json.dumps(sharded), flush=True)
-        else:
+        elif sys.argv[2] == "3u":
             _, sp = run_sp()
             print("sp: " + json.dumps(sp), flush=True)
+        else:
+            _, pv = run_pv()
+            print("pv: " + json.dumps(pv), flush=True)
         print(gpu_identity())
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
-    check(not sys.argv[1:], f"unknown arguments {sys.argv[1:]} (only --phase 3t or 3u)")
+    check(not sys.argv[1:], f"unknown arguments {sys.argv[1:]} (only --phase 3t, 3u or 3v)")
 
     table, idx, err = check_kernels(dev)
     timing, skew = time_kernels(dev, table, idx)
@@ -5204,6 +5560,7 @@ def main() -> int:
         "wd_losses": fused["batch_losses"], "fm_hash": fm_hash["batch_losses"],
         "trio": {k: j["worker"]["batch_losses"] for k, j in trio_jobs.items()}})
     sp_launches, sp = run_sp()
+    pv_launches, pv = run_pv()
     by_path = {name: {"bench-widedeep": launches.get(name, 0),
                       "bench-lm": lm_launches[name],
                       "bench-vit": vit_launches[name],
@@ -5220,7 +5577,8 @@ def main() -> int:
                       "chain": chain_launches[name],
                       "serving": serving_launches[name],
                       "sharded": sharded_launches.get(name, 0),
-                      **{path: counts[name] for path, counts in sp_launches.items()}}
+                      **{path: counts[name] for path, counts in sp_launches.items()},
+                      **{path: counts[name] for path, counts in pv_launches.items()}}
                for name in lm_launches}
     print("profile: " + json.dumps(profile_slice()), flush=True)
     print("lm profile: " + json.dumps(profile_lm()), flush=True)
@@ -5270,6 +5628,9 @@ def main() -> int:
             entry["at_bench_vit_shape"] = {"route": "simt", **vit_timing[name]}
             entry["at_sp_shapes"] = {case: {"route": "simt", **sp_timing[case][name]}
                                      for case in sp_timing}
+            entry["at_pv_shapes"] = {
+                case[0]: {"route": case[-1], **pv["flash_at_path_shapes"][case[0]][name]}
+                for case in PV_FLASH_CASES}
         if name == "gather_rows":
             entry["at_sssp_and_cc_shapes"] = {
                 k: t for k, t in slice_timing.items() if k.startswith("gather_rows [")}
@@ -5281,6 +5642,7 @@ def main() -> int:
     print(json.dumps({"kernels": kernels}))
     print("sharded: " + json.dumps(sharded), flush=True)
     print("sp: " + json.dumps(sp), flush=True)
+    print("pv: " + json.dumps(pv), flush=True)
     print(gpu_identity())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

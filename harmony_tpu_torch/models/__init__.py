@@ -4,7 +4,9 @@ Counterpart of ``harmony_tpu.models``: the decoder-only transformer LM (dense or
 with Switch-style MoE blocks), its KV-cache generation, and the Vision
 Transformer, each trained through the table trainer (:class:`PyTreeTrainer`);
 the LM also trains over a mesh of slots (``transformer.make_sp_train_step``,
-``transformer.make_parallel_train_step``). The exports are the reference's.
+``make_parallel_train_step``, ``make_ep_train_step`` and
+``make_pp_train_step``), and ViT data-parallel (``vit.make_train_step`` with a
+mesh). The exports are the reference's.
 """
 from harmony_tpu_torch.models.generate import make_generate_fn
 from harmony_tpu_torch.models.moe import MoEConfig, init_moe_params, moe_ffn

@@ -4,13 +4,20 @@ Counterpart of ``harmony_tpu/models/common.py``. ``dense_init`` is the numpy
 initialiser of the reference's ``init_numpy`` (``jax.random`` cannot be
 reproduced here); ``resolve_attn`` picks flash attention when the tensors lie
 on the card and the sequence tiles, where the reference asks for a TPU.
+
+The steps over a mesh of slots share :func:`mesh_slot`, :func:`replica` and
+:func:`sgd_update`: the reference's ``shard_map`` gives each device its own
+copy of a replicated parameter and inserts the gradient psum; the port gives
+each slot its own autograd leaf and adds the slots' gradients in slot order.
 """
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
+
+from harmony_tpu_torch.parallel.collectives import psum
 
 #: valid values for a model config's ``attn`` field
 ATTN_CHOICES = ("auto", "flash", "blockwise")
@@ -64,3 +71,23 @@ def resolve_attn(attn: str, seq: int, on_card: bool, block: Optional[int] = None
     if attn != "auto":
         return attn
     return "flash" if on_card and flash_ok(seq, block) else "blockwise"
+
+
+def mesh_slot(mesh, coords: Dict[str, int]):
+    """The slot of ``mesh`` at ``coords`` (an axis the mesh lacks has size 1,
+    index 0)."""
+    return mesh.slot_at({a: i for a, i in coords.items() if a in mesh.shape})
+
+
+def replica(p: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A parameter as an autograd leaf of one slot's own: a detached alias on
+    the parameter's device, a copy on another."""
+    return p.detach().to(device, non_blocking=True).requires_grad_(True)
+
+
+def sgd_update(p: torch.Tensor, grads: Sequence[torch.Tensor], learning_rate: float,
+               donate: bool) -> torch.Tensor:
+    """``p - lr * g`` with ``g`` the slots' gradients added in slot order on
+    ``p``'s device; in place when ``donate``."""
+    step = psum(grads, p.device) * learning_rate
+    return p.sub_(step) if donate else p - step

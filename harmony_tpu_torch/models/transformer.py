@@ -29,7 +29,14 @@ post-attention half on every slot (``_qkv_heads``, ``_finish_block``, which
 the one-device ``_block`` shares). Each slot differentiates its own replica of
 the parameters, and the replicas' gradients are added in slot order where the
 parameters live (shard_map's typed autodiff inserts that psum in the
-reference). Not ported yet: the expert- and pipeline-parallel steps.
+reference). :func:`make_ep_train_step` splits the batch over the data axis and
+the MoE blocks' experts with it: each MoE block runs in lockstep, the
+attention half and the ``ln2`` norm on every slot, then the expert exchange
+across the slots (``models/moe.py``), then the residual on every slot
+(``_finish_attention``, which ``_finish_block`` shares).
+:func:`make_pp_train_step` splits the blocks into pipeline stages, one slot
+each (``parallel/pipeline.py``), with the embedding, positions and final norm
+on the home slot outside the pipeline.
 """
 from __future__ import annotations
 
@@ -43,9 +50,12 @@ from torch.utils.checkpoint import checkpoint
 
 from harmony_tpu_torch.models.common import (
     dense_init,
+    mesh_slot,
+    replica,
     resolve_attn,
     resolve_dtype,
     rms_norm,
+    sgd_update,
     validate_attn,
 )
 from harmony_tpu_torch.models.moe import MoEConfig, init_moe_params, moe_ffn
@@ -61,6 +71,7 @@ from harmony_tpu_torch.ops.ulysses import a2a_attention
 from harmony_tpu_torch.parallel.collectives import broadcast, psum
 from harmony_tpu_torch.parallel.dispatch import dispatch_scope
 from harmony_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, SEQ_AXIS, Mesh
+from harmony_tpu_torch.parallel.pipeline import STAGE_AXIS, make_pipeline_fn
 
 
 @dataclasses.dataclass(frozen=True)
@@ -183,26 +194,39 @@ class TransformerLM:
         return tuple(_to_heads(t, cfg.n_heads)                 # contiguous thirds
                      for t in qkv.split(cfg.d_model, dim=-1))
 
+    def _finish_attention(self, x, o, layer):
+        """The out-projection of the attention output o [B, H, S, hd] and its
+        residual; returns ``(x, xn)``, xn the FFN's normed input."""
+        cfg = self.config
+        x = x + _from_heads(o) @ layer["wo"].to(cfg.dtype)
+        return x, rms_norm(x, layer["ln2"].to(cfg.dtype))
+
     def _finish_block(self, x, o, layer):
         """A block's post-attention half, from the attention output o [B, H, S,
         hd]: the out-projection, the FFN and both residuals. Returns ``(x,
         aux)``: the Switch load-balance loss of an MoE block, 0 for a dense one."""
-        cfg = self.config
-        x = x + _from_heads(o) @ layer["wo"].to(cfg.dtype)
-        xn = rms_norm(x, layer["ln2"].to(cfg.dtype))
-        out, aux = ffn_apply(cfg, layer, xn)
+        x, xn = self._finish_attention(x, o, layer)
+        out, aux = ffn_apply(self.config, layer, xn)
         return x + out, aux
 
     def _block(self, x, layer):
         """One pre-norm decoder block on one device; returns ``(x, aux)``."""
         return self._finish_block(x, self._attention(*self._qkv_heads(x, layer)), layer)
 
-    def _blocks(self, xs, layers, rings=None):
+    def _blocks(self, xs, layers, rings=None, experts=False):
         """One block on every slot: ``xs[i]`` with ``layers[i]`` (slot i's
         replica). ``rings`` lists the slot indices of each sequence ring in
         sequence order; without it each slot runs alone. The layers run in
         lockstep: the pre-attention half on every slot, then the attention
-        across each ring, then the post-attention half on every slot."""
+        across each ring, then the post-attention half on every slot. With
+        ``experts`` an MoE block's experts are split over the slots, and its
+        FFN runs across them (``ffn_apply`` on the slots' lists)."""
+        if experts and "moe" in layers[0]:
+            o = [self._attention(*self._qkv_heads(x, layer)) for x, layer in zip(xs, layers)]
+            xs, xns = zip(*[self._finish_attention(x, oi, layer)
+                            for x, oi, layer in zip(xs, o, layers)])
+            outs, aux = ffn_apply(self.config, list(layers), list(xns))
+            return [x + out for x, out in zip(xs, outs)], aux
         if rings is None:
             out = [self._block(x, layer) for x, layer in zip(xs, layers)]
         else:
@@ -228,10 +252,11 @@ class TransformerLM:
         return logits, aux
 
     def _forward(self, params: Sequence[Any], tokens: Sequence[torch.Tensor],
-                 offsets: Sequence[int], rings=None):
+                 offsets: Sequence[int], rings=None, experts=False):
         """The forward on each slot: ``params[i]`` (slot i's replica) on
         ``tokens[i]`` from global position ``offsets[i]``, across the sequence
-        ``rings`` (see ``_blocks``). Returns each slot's logits and summed aux."""
+        ``rings`` or with the experts split over the slots (see ``_blocks``).
+        Returns each slot's logits and summed aux."""
         cfg = self.config
         xs = [_embed_in(cfg, p["embed"], p["pos"], t, off)
               for p, t, off in zip(params, tokens, offsets)]
@@ -241,9 +266,10 @@ class TransformerLM:
             if cfg.remat:
                 # recompute the block in the backward instead of keeping its
                 # activations: one block's activations live at a time
-                xs, a = checkpoint(self._blocks, xs, layers, rings, use_reentrant=False)
+                xs, a = checkpoint(self._blocks, xs, layers, rings, experts,
+                                   use_reentrant=False)
             else:
-                xs, a = self._blocks(xs, layers, rings)
+                xs, a = self._blocks(xs, layers, rings, experts)
             aux = [s + t for s, t in zip(aux, a)]
         # weight-tied readout, f32 logits for a stable softmax
         return [rms_norm(x, p["ln_f"].to(cfg.dtype)).float() @ p["embed"].T
@@ -272,7 +298,14 @@ def ffn_apply(cfg: TransformerConfig, layer, xn, no_drop: bool = False):
     approximation, as ``jax.nn.gelu`` computes it by default. ``no_drop`` lifts
     the expert capacity to every token: decode routes a few rows a step, where
     the training capacity factor would drop a token whenever two rows share an
-    expert and let one sequence change another's output."""
+    expert and let one sequence change another's output. Given lists (each
+    slot's replica of an MoE layer, holding its expert shard, and each slot's
+    activations), the MoE FFN runs expert-parallel across the slots and
+    returns each slot's output and aux."""
+    if isinstance(xn, list):
+        outs, aux = moe_ffn([lay["moe"] for lay in layer],
+                            [x.reshape(-1, cfg.d_model) for x in xn], cfg.moe_cfg)
+        return [out.reshape(x.shape) for out, x in zip(outs, xn)], aux
     if "moe" in layer:
         mcfg = cfg.moe_cfg
         if no_drop:
@@ -327,11 +360,6 @@ def _masked_ce(logits, targets, mask, device: torch.device) -> torch.Tensor:
     return psum(tot, device) / psum(cnt, device)
 
 
-def _slot(mesh: Mesh, coords: Dict[str, int]):
-    """The slot at ``coords`` (an axis the mesh lacks has size 1, index 0)."""
-    return mesh.slot_at({a: i for a, i in coords.items() if a in mesh.shape})
-
-
 def _split_tokens(t: torch.Tensor, rows: int, cols: int, devices) -> List[torch.Tensor]:
     """A [B, S] matrix cut into rows x cols blocks (row-major), each on its
     slot's device."""
@@ -340,20 +368,6 @@ def _split_tokens(t: torch.Tensor, rows: int, cols: int, devices) -> List[torch.
         raise ValueError(f"tokens {tuple(t.shape)} do not split over a {rows} x {cols} grid")
     blocks = [c for r in t.chunk(rows, dim=0) for c in r.chunk(cols, dim=1)]
     return [b.to(dev, non_blocking=True) for b, dev in zip(blocks, devices)]
-
-
-def _replica(p: torch.Tensor, device: torch.device) -> torch.Tensor:
-    """A parameter as an autograd leaf of one slot's own: a detached alias on
-    the parameter's device, a copy on another."""
-    return p.detach().to(device, non_blocking=True).requires_grad_(True)
-
-
-def _sgd(p: torch.Tensor, grads: Sequence[torch.Tensor], learning_rate: float,
-         donate: bool) -> torch.Tensor:
-    """``p - lr * g`` with ``g`` the slots' gradients added in slot order on
-    ``p``'s device; in place when ``donate``."""
-    step = psum(grads, p.device) * learning_rate
-    return p.sub_(step) if donate else p - step
 
 
 def make_sp_train_step(
@@ -380,7 +394,7 @@ def make_sp_train_step(
     step runs on their index 0."""
     cfg = model.config
     D, S = mesh.shape.get(data_axis, 1), mesh.shape.get(seq_axis, 1)
-    slots = [_slot(mesh, {data_axis: d, seq_axis: s}) for d in range(D) for s in range(S)]
+    slots = [mesh_slot(mesh, {data_axis: d, seq_axis: s}) for d in range(D) for s in range(S)]
     devices = [slot.device for slot in slots]
     rings = [[d * S + s for s in range(S)] for d in range(D)]
 
@@ -390,7 +404,7 @@ def make_sp_train_step(
             toks, tgts, masks = (_split_tokens(t, D, S, devices)
                                  for t in (tokens, *_lm_targets_and_mask(tokens)))
             offsets = [s * toks[0].shape[1] for _ in range(D) for s in range(S)]
-            replicas = [tree_map(lambda p, dev=dev: _replica(p, dev), params)
+            replicas = [tree_map(lambda p, dev=dev: replica(p, dev), params)
                         for dev in devices]
             leaves = [list(tree_leaves(r)) for r in replicas]
             with torch.enable_grad():
@@ -403,7 +417,7 @@ def make_sp_train_step(
                 grads = torch.autograd.grad(loss, [g for slot in leaves for g in slot])
             n = len(leaves[0])
             with torch.no_grad():
-                new = [_sgd(p, grads[j::n], learning_rate, donate)
+                new = [sgd_update(p, grads[j::n], learning_rate, donate)
                        for j, p in enumerate(tree_leaves(params))]
         return tree_unflatten(params, new), loss.detach()
 
@@ -501,7 +515,7 @@ def make_parallel_train_step(
     sp_attn_fn = a2a_attention if cfg.sp_attn == "a2a" else ring_attention
     specs = tp_param_specs(cfg.n_layers, model_axis)
     cells = [(d, s) for d in range(D) for s in range(S)]
-    dev = {(d, s, m): _slot(mesh, {data_axis: d, seq_axis: s, model_axis: m}).device
+    dev = {(d, s, m): mesh_slot(mesh, {data_axis: d, seq_axis: s, model_axis: m}).device
            for d, s in cells for m in range(tp)}
     home = dev[0, 0, 0]
     dtype = cfg.dtype
@@ -564,8 +578,8 @@ def make_parallel_train_step(
             S_loc = toks[0].shape[1]
             # each slot's replicas: the split leaves' shard m at (d, s, m), the
             # replicated leaves at (d, s, 0) only
-            reps = {(d, s, m): [(_replica(p.shards[m], dev[d, s, m]) if is_split
-                                 else _replica(p, dev[d, s, m]) if m == 0 else None)
+            reps = {(d, s, m): [(replica(p.shards[m], dev[d, s, m]) if is_split
+                                 else replica(p, dev[d, s, m]) if m == 0 else None)
                                 for p, is_split in zip(params, split)]
                     for d, s in cells for m in range(tp)}
             trees = {c: tree_unflatten(tp_params, r) for c, r in reps.items()}
@@ -593,12 +607,160 @@ def make_parallel_train_step(
                 new = []
                 for j, p in enumerate(params):
                     if split[j]:
-                        shards = [_sgd(w, by_leaf[j, m], learning_rate, donate)
+                        shards = [sgd_update(w, by_leaf[j, m], learning_rate, donate)
                                   for m, w in enumerate(p.shards)]
                         new.append(p if donate else ModelShards(shards, p.dim))
                     else:
-                        new.append(_sgd(p, by_leaf[j, 0], learning_rate, donate))
+                        new.append(sgd_update(p, by_leaf[j, 0], learning_rate, donate))
         return tree_unflatten(tp_params, new), loss.detach()
+
+    return step, shard_params
+
+
+# ---------------------------------------------------------------------------
+# Expert- and pipeline-parallel training steps
+# ---------------------------------------------------------------------------
+
+def make_ep_train_step(
+    model: TransformerLM,
+    mesh: Mesh,
+    learning_rate: float = 0.1,
+    data_axis: str = DATA_AXIS,
+    donate: bool = True,
+):
+    """The expert- and data-parallel step for MoE configs: the batch splits
+    over ``data_axis`` and each MoE block's experts split over the same slots,
+    ``moe_experts / D`` a slot; the token buckets go to their experts' slot and
+    back (``models/moe.py``). Attention and the dense blocks run on each slot
+    alone.
+
+    Returns ``(step, shard_params)``: ``shard_params(params)`` places each MoE
+    layer's ``w1``/``w2`` as a :class:`ModelShards` over the data slots (shard
+    d on the slot at data index d, split on the expert dimension) and every
+    other leaf on the home slot; ``step(ep_params, tokens) -> (new_ep_params,
+    loss)`` takes the GLOBAL token matrix. The loss, a device tensor on the
+    home slot, is the masked mean next-token cross-entropy over the batch plus
+    ``moe_aux_weight`` times the mean of the slots' aux (added in slot order).
+    A replicated leaf's gradients are added in slot order on the home slot; an
+    expert shard takes its own slot's. ``donate`` as in
+    :func:`make_sp_train_step`."""
+    cfg = model.config
+    ep = mesh.shape[data_axis]
+    if not cfg.moe_experts:
+        raise ValueError("make_ep_train_step needs an MoE config "
+                         "(moe_experts > 0); use the dp/sp steps for dense")
+    if cfg.moe_experts % ep:
+        raise ValueError(f"moe_experts {cfg.moe_experts} must divide by the "
+                         f"{data_axis} axis size {ep}")
+    devices = [mesh_slot(mesh, {data_axis: d}).device for d in range(ep)]
+    home = devices[0]
+
+    def shard_params(params: Dict[str, Any]) -> Dict[str, Any]:
+        tree = tree_map(torch.as_tensor, params)
+        for layer in tree["layers"]:
+            if "moe" in layer:
+                for key in ("w1", "w2"):
+                    layer["moe"][key] = ModelShards(
+                        [c.to(dev, copy=True).contiguous()
+                         for c, dev in zip(layer["moe"][key].chunk(ep, dim=0), devices)], 0)
+        return tree_map(lambda t: t if isinstance(t, ModelShards) else t.to(home, copy=True),
+                        tree)
+
+    def step(ep_params, tokens):
+        tokens = torch.as_tensor(tokens)
+        params = list(tree_leaves(ep_params))
+        with dispatch_scope(mesh):
+            toks, tgts, masks = (_split_tokens(t, ep, 1, devices)
+                                 for t in (tokens, *_lm_targets_and_mask(tokens)))
+            reps = [[replica(p.shards[d] if isinstance(p, ModelShards) else p, dev)
+                     for p in params] for d, dev in enumerate(devices)]
+            with torch.enable_grad():
+                logits, aux = model._forward([tree_unflatten(ep_params, r) for r in reps],
+                                             toks, [0] * ep, experts=True)
+                loss = _masked_ce(logits, tgts, masks, home)
+                loss = loss + cfg.moe_aux_weight * (psum(aux, home) / ep)
+                grads = torch.autograd.grad(loss, [p for r in reps for p in r])
+            n = len(params)
+            with torch.no_grad():
+                new = []
+                for j, p in enumerate(params):
+                    if isinstance(p, ModelShards):
+                        shards = [sgd_update(w, [grads[d * n + j]], learning_rate, donate)
+                                  for d, w in enumerate(p.shards)]
+                        new.append(p if donate else ModelShards(shards, p.dim))
+                    else:
+                        new.append(sgd_update(p, grads[j::n], learning_rate, donate))
+        return tree_unflatten(ep_params, new), loss.detach()
+
+    return step, shard_params
+
+
+def make_pp_train_step(
+    model: TransformerLM,
+    mesh: Mesh,
+    learning_rate: float = 0.1,
+    num_microbatches: Optional[int] = None,
+    stage_axis: str = STAGE_AXIS,
+    donate: bool = True,
+):
+    """The pipeline-parallel step: the LM's blocks split into S contiguous
+    stages over ``stage_axis`` (GPipe microbatching, ``parallel/pipeline.py``;
+    ``num_microbatches`` defaults to S); the embedding, positions and final
+    norm stay on the home slot (stage 0's) and run outside the pipeline.
+
+    Returns ``(step, shard_params)``: ``shard_params(params)`` places stage
+    s's ``n_layers / S`` layers (``pp["stages"][s]``, a list of layer trees)
+    on stage s's slot and ``embed``, ``pos`` and ``ln_f`` on the home slot;
+    ``step(pp_params, tokens) -> (new_pp_params, loss)`` is one SGD step on
+    ``model.loss``'s objective, the mean next-token cross-entropy of
+    ``tokens[:, :-1]`` against ``tokens[:, 1:]``, a device tensor on the home
+    slot. ``donate`` as in :func:`make_sp_train_step`."""
+    cfg = model.config
+    if cfg.moe_experts:
+        raise ValueError(
+            "make_pp_train_step needs homogeneous layers to stage-stack; "
+            "MoE configs interleave two layer structures — use the sp/dp "
+            "steps (or set moe_experts=0)"
+        )
+    S = mesh.shape[stage_axis]
+    if cfg.n_layers % S:
+        raise ValueError(f"n_layers {cfg.n_layers} not divisible into "
+                         f"{S} pipeline stages")
+    lps = cfg.n_layers // S
+    devices = [mesh_slot(mesh, {stage_axis: s}).device for s in range(S)]
+    home = devices[0]
+
+    def stage_fn(layers, x):
+        for layer in layers:
+            x, _ = model._block(x, layer)
+        return x
+
+    pipe = make_pipeline_fn(stage_fn, mesh, axis_name=stage_axis,
+                            num_microbatches=num_microbatches)
+
+    def shard_params(params: Dict[str, Any]) -> Dict[str, Any]:
+        layers = [tree_map(lambda a, dev=devices[i // lps]: torch.as_tensor(a).to(dev, copy=True),
+                           layer) for i, layer in enumerate(params["layers"])]
+        return {**{k: torch.as_tensor(params[k]).to(home, copy=True)
+                   for k in ("embed", "pos", "ln_f")},
+                "stages": [layers[s * lps:(s + 1) * lps] for s in range(S)]}
+
+    def step(pp_params, tokens):
+        tokens = torch.as_tensor(tokens)
+        params = list(tree_leaves(pp_params))
+        with dispatch_scope(mesh):
+            tokens = tokens.to(home, non_blocking=True)
+            reps = [replica(p, p.device) for p in params]
+            pp = tree_unflatten(pp_params, reps)
+            with torch.enable_grad():
+                x = _embed_in(cfg, pp["embed"], pp["pos"], tokens[:, :-1])
+                h = rms_norm(pipe(pp["stages"], x), pp["ln_f"].to(cfg.dtype))
+                # weight-tied readout, f32 logits
+                loss = _next_token_ce(h.float() @ pp["embed"].T, tokens[:, 1:])
+                grads = torch.autograd.grad(loss, reps)
+            with torch.no_grad():
+                new = [sgd_update(p, [g], learning_rate, donate) for p, g in zip(params, grads)]
+        return tree_unflatten(pp_params, new), loss.detach()
 
     return step, shard_params
 

@@ -17,8 +17,10 @@ bf16 at a key tile of 197 takes the kernels' ``simt`` route
 reproduced here): the same layout and scaling, drawn from
 ``np.random.default_rng(seed)``. So ``cli run vit`` starts from other weights
 than the reference's; to hold one against the other, carry the weights across
-(``convert.py``). Not ported yet: the data-parallel ``mesh`` form of
-``make_train_step`` (ROADMAP A.9).
+(``convert.py``). ``make_train_step(model, mesh)`` is the data-parallel step:
+the batch splits over the mesh's data axis, each slot runs its own replica,
+and the replicas' gradients are added in slot order on the home slot (the
+reference's ``shard_map`` inserts that all-reduce).
 """
 from __future__ import annotations
 
@@ -31,13 +33,19 @@ import torch.nn.functional as F
 
 from harmony_tpu_torch.models.common import (
     dense_init,
+    mesh_slot,
+    replica,
     resolve_attn,
     resolve_dtype,
     rms_norm,
+    sgd_update,
     validate_attn,
 )
-from harmony_tpu_torch.models.pytree_trainer import PyTreeTrainer, tree_leaves, tree_map
+from harmony_tpu_torch.models.pytree_trainer import PyTreeTrainer, tree_leaves, tree_unflatten
 from harmony_tpu_torch.ops.attention import blockwise_attention, flash_attention
+from harmony_tpu_torch.parallel.collectives import psum
+from harmony_tpu_torch.parallel.dispatch import dispatch_scope
+from harmony_tpu_torch.parallel.mesh import DATA_AXIS
 from harmony_tpu_torch.utils.platform import full_f32_matmuls
 
 
@@ -148,28 +156,55 @@ class ViT:
         return x.float() @ params["head"]                     # f32 logits
 
     def loss(self, params, images, labels) -> torch.Tensor:
+        return self._nll(params, images, labels).mean()
+
+    def _nll(self, params, images, labels) -> torch.Tensor:
+        """Each example's negative log-likelihood [B], f32."""
         logp = F.log_softmax(self.apply(params, images), dim=-1)
-        return -torch.gather(logp, -1, labels.long()[:, None]).mean()
+        return -torch.gather(logp, -1, labels.long()[:, None])[:, 0]
 
     def accuracy(self, params, images, labels) -> torch.Tensor:
         logits = self.apply(params, images)
         return (torch.argmax(logits, dim=-1) == labels.long()).float().mean()
 
 
-def make_train_step(model: ViT, learning_rate: float = 0.1):
-    """The single-device SGD step ``(params, images, labels) -> (new params,
-    loss)``; the old tree is left as it was."""
+def make_train_step(model: ViT, mesh=None, learning_rate: float = 0.1,
+                    donate: bool = True):
+    """The SGD step ``(params, images, labels) -> (params, loss)``. With
+    ``mesh`` the batch splits over its data axis: each slot differentiates its
+    own replica on its rows, the loss is the slots' sums of per-example losses
+    added in slot order over B, and the gradients are added in slot order on
+    the home slot (the mesh's first), where ``params`` lie; without it the
+    step runs where ``params`` lie. ``donate`` (the
+    default, as in the LM steps) updates ``params`` in place and returns them;
+    pass False to keep the old tree (comparing trajectories from one tree)."""
     full_f32_matmuls()
+    devices = None
+    if mesh is not None:
+        devices = [mesh_slot(mesh, {DATA_AXIS: d}).device
+                   for d in range(mesh.shape.get(DATA_AXIS, 1))]
 
     def step(params, images, labels):
-        leaves = tree_map(lambda t: t.detach().requires_grad_(True), params)
-        with torch.enable_grad():
-            loss = model.loss(leaves, images, labels)
-            flat = list(tree_leaves(leaves))
-            grads = dict(zip(map(id, flat), torch.autograd.grad(loss, flat)))
-        new = tree_map(lambda p: (p - learning_rate * grads[id(p)].to(p.dtype)).detach(),
-                       leaves)
-        return new, loss.detach()
+        images, labels = torch.as_tensor(images), torch.as_tensor(labels)
+        flat = list(tree_leaves(params))
+        slots = devices or [flat[0].device]
+        D = len(slots)
+        if images.shape[0] % D:
+            raise ValueError(f"batch {images.shape[0]} does not split over {D} data slots")
+        reps = [[replica(p, dev) for p in flat] for dev in slots]
+        parts = [(x.to(dev, non_blocking=True), y.to(dev, non_blocking=True))
+                 for x, y, dev in zip(images.chunk(D), labels.chunk(D), slots)]
+        with dispatch_scope(mesh):
+            with torch.enable_grad():
+                sums = [model._nll(tree_unflatten(params, r), x, y).sum()
+                        for r, (x, y) in zip(reps, parts)]
+                loss = psum(sums, flat[0].device) / images.shape[0]
+                grads = torch.autograd.grad(loss, [p for r in reps for p in r])
+            n = len(flat)
+            with torch.no_grad():
+                new = [sgd_update(p, grads[j::n], learning_rate, donate)
+                       for j, p in enumerate(flat)]
+        return tree_unflatten(params, new), loss.detach()
 
     return step
 

@@ -24,6 +24,7 @@ import torch
 from jax.flatten_util import ravel_pytree
 
 from harmony_tpu.dolphin import optim as jax_optim
+from harmony_tpu.models import moe as jax_moe
 from harmony_tpu.models import common as jax_common
 from harmony_tpu.models import transformer as jax_tf
 from harmony_tpu_torch import cli
@@ -234,12 +235,23 @@ def test_config_dtypes_and_unported_options():
     assert tf.TransformerConfig(vocab_size=8, moe_experts=4).is_moe_layer(1)
     with pytest.raises(ValueError, match="moe_every"):
         tf.TransformerConfig(vocab_size=8, moe_experts=4, moe_every=0)
-    # expert parallelism waits for the multi-GPU slice
+    # expert parallelism over 2 slots: each slot's tokens through the experts
+    # of both, the reference's one-device FFN on that slot's tokens (its
+    # capacity is a source shard's); an axis_name on one tensor is refused
     cfg = tf.TransformerConfig(vocab_size=8, d_model=8, n_heads=2, moe_experts=2).moe_cfg
-    params = {k: torch.as_tensor(v) for k, v in
-              init_moe_params(np.random.default_rng(0), cfg).items()}
-    with pytest.raises(NotImplementedError, match="A.9"):
-        moe_ffn(params, torch.zeros((4, 8)), cfg, axis_name="expert")
+    params = init_moe_params(np.random.default_rng(0), cfg)
+    x = np.random.default_rng(1).standard_normal((8, 8)).astype(np.float32)
+    shards = [{"router": torch.as_tensor(params["router"]),
+               "w1": torch.as_tensor(params["w1"][i:i + 1]),
+               "w2": torch.as_tensor(params["w2"][i:i + 1])} for i in range(2)]
+    outs, _ = moe_ffn(shards, [torch.as_tensor(x[:4]), torch.as_tensor(x[4:])], cfg)
+    for out, xi in zip(outs, (x[:4], x[4:])):
+        want, _ = jax_moe.moe_ffn(jax.tree.map(jnp.asarray, params), jnp.asarray(xi),
+                                  jax_moe.MoEConfig(2, 8, cfg.d_ff, cfg.capacity_factor))
+        _close(out, want, "expert-parallel moe_ffn")
+    with pytest.raises(ValueError, match="slots' lists"):
+        moe_ffn({k: torch.as_tensor(v) for k, v in params.items()}, torch.zeros((4, 8)), cfg,
+                axis_name="expert")
 
 
 def test_resolve_attn_picks_flash_only_on_the_card_when_the_sequence_tiles():

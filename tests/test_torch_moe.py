@@ -215,8 +215,27 @@ def test_moe_forward_and_backward_are_deterministic():
 
 
 def test_expert_parallelism_raises_naming_the_roadmap_item():
-    cfg, params, x = _setup()
-    with pytest.raises(NotImplementedError, match="A.9"):
+    """Expert parallelism, ported (ROADMAP A.9): the experts split over 2
+    slots, given as the slots' lists, against the reference's
+    ``moe_ffn(axis_name=...)`` under shard_map over 2 devices; on one tensor an
+    ``axis_name`` is refused, naming the lists."""
+    from jax.sharding import Mesh, PartitionSpec as P
+
+    cfg, params, x = _setup(cap=1.0)
+    mesh = Mesh(np.asarray(jax.devices()[:2], dtype=object).reshape(2), ("expert",))
+    want, want_aux = jax.shard_map(
+        lambda p, xs: (lambda o, a: (o, a[None]))(
+            *jax_moe.moe_ffn(p, xs, _jax_cfg(cfg), axis_name="expert")),
+        mesh=mesh, in_specs=({"router": P(), "w1": P("expert"), "w2": P("expert")},
+                             P("expert")),
+        out_specs=(P("expert"), P("expert")))(jax.tree.map(jnp.asarray, params), jnp.asarray(x))
+    slot_params = [{"router": torch.as_tensor(params["router"]),
+                    "w1": torch.as_tensor(params["w1"][i * 2:(i + 1) * 2]),
+                    "w2": torch.as_tensor(params["w2"][i * 2:(i + 1) * 2])} for i in range(2)]
+    outs, aux = moe.moe_ffn(slot_params, list(torch.as_tensor(x).chunk(2)), cfg)
+    assert abs(torch.cat(outs).numpy() - np.asarray(want)).max() <= ATOL
+    assert abs(torch.stack(aux).numpy() - np.asarray(want_aux)).max() <= 1e-6
+    with pytest.raises(ValueError, match="slots' lists"):
         moe.moe_ffn({k: torch.as_tensor(v) for k, v in params.items()}, torch.as_tensor(x),
                     cfg, axis_name="expert")
 

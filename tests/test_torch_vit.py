@@ -40,6 +40,8 @@ from harmony_tpu_torch.dolphin.trainer import TrainerContext
 from harmony_tpu_torch.dolphin.worker import WorkerTasklet
 from harmony_tpu_torch.models import common, vit
 from harmony_tpu_torch.models.pytree_trainer import ravel_numpy, tree_leaves, unravel
+from harmony_tpu_torch.parallel.mesh import DevicePool
+from harmony_tpu_torch.parallel.mesh import build_mesh as port_build_mesh
 from harmony_tpu_torch.table.table import DenseTable, TableSpec
 
 SMALL = dict(image_size=16, patch_size=4, channels=3, num_classes=4, d_model=32, n_heads=2,
@@ -115,7 +117,8 @@ def test_make_train_step_over_three_steps():
     x, y = jax_vit.make_synthetic(16, jax_vit.ViTConfig(**SMALL), seed=5)
     jstep = jax_vit.make_train_step(jax_vit.ViT(jax_vit.ViTConfig(**SMALL)),
                                     learning_rate=0.2, donate=False)
-    tstep = vit.make_train_step(vit.ViT(vit.ViTConfig(**SMALL)), learning_rate=0.2)
+    tstep = vit.make_train_step(vit.ViT(vit.ViTConfig(**SMALL)), learning_rate=0.2,
+                                donate=False)
     jp, tp = jax.tree.map(jnp.asarray, params), pytree_params_from_numpy(params, device="cpu")
     before = [t.clone() for t in tree_leaves(tp)]
     for step in range(3):
@@ -127,6 +130,61 @@ def test_make_train_step_over_three_steps():
         assert abs(float(tloss) - float(jloss)) <= ATOL, step
     _close_rel(torch.cat([t.reshape(-1) for t in tree_leaves(tp)]),
                ravel_pytree(jp)[0], "params after 3 steps")
+
+
+def test_data_parallel_step_matches_the_references():
+    """make_train_step(model, mesh) on 4 data slots against the reference's on
+    4 devices, 3 steps, at tests/test_vit.py's limits for its sharded step
+    (losses rtol 2e-4, parameters rtol 2e-3 and atol 2e-5); and against the
+    port's one-slot step, to f32 reordering."""
+    params = _jax_params(8)
+    x, y = jax_vit.make_synthetic(16, jax_vit.ViTConfig(**SMALL), seed=9)
+    jmesh = build_mesh(jax.devices()[:4], data=4, model=1)
+    jstep = jax_vit.make_train_step(jax_vit.ViT(jax_vit.ViTConfig(**SMALL)), jmesh,
+                                    learning_rate=0.2, donate=False)
+    model = vit.ViT(vit.ViTConfig(**SMALL))
+    mesh = port_build_mesh(DevicePool.virtual("cpu", 4).slots, data=4, model=1)
+    tstep = vit.make_train_step(model, mesh, learning_rate=0.2, donate=False)
+    one = vit.make_train_step(model, learning_rate=0.2, donate=False)
+    jp = jax.tree.map(jnp.asarray, params)
+    tp = op = pytree_params_from_numpy(params, device="cpu")
+    for step in range(3):
+        jp, jloss = jstep(jp, jnp.asarray(x), jnp.asarray(y))
+        tp, tloss = tstep(tp, torch.as_tensor(x), torch.as_tensor(y))
+        op, oloss = one(op, torch.as_tensor(x), torch.as_tensor(y))
+        assert tloss.device == mesh.slots[0].device
+        np.testing.assert_allclose(float(tloss), float(jloss), rtol=2e-4)
+        np.testing.assert_allclose(float(tloss), float(oloss), rtol=1e-6)
+    for a, b in zip(tree_leaves(tp), jax.tree.leaves(jp)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=2e-3, atol=2e-5)
+    for a, b in zip(tree_leaves(tp), tree_leaves(op)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-6)
+
+
+@pytest.mark.parametrize("data", [1, 4])
+def test_data_parallel_step_donates_and_is_deterministic(data):
+    """donate=True updates the tree in place to donate=False's bits, and two
+    runs give the same bits; a batch that does not split is refused."""
+    model = vit.ViT(vit.ViTConfig(**SMALL))
+    params = model.init(seed=10)
+    x, y = vit.make_synthetic(8, model.cfg, seed=11)
+    mesh = port_build_mesh(DevicePool.virtual("cpu", data).slots, data=data, model=1)
+
+    def run(donate):
+        step = vit.make_train_step(model, mesh, learning_rate=0.2, donate=donate)
+        tp = pytree_params_from_numpy(params, device="cpu")
+        objects = [id(t) for t in tree_leaves(tp)]
+        new, loss = step(tp, torch.as_tensor(x), torch.as_tensor(y))
+        assert ([id(t) for t in tree_leaves(new)] == objects) == donate
+        return loss, list(tree_leaves(new))
+
+    kept, donated, again = run(False), run(True), run(False)
+    for a, b in ((kept, donated), (kept, again)):
+        assert torch.equal(a[0], b[0]) and all(torch.equal(p, q) for p, q in zip(a[1], b[1]))
+    if data > 1:
+        with pytest.raises(ValueError, match="batch 6 does not split over 4 data slots"):
+            vit.make_train_step(model, mesh)(pytree_params_from_numpy(params, device="cpu"),
+                                              torch.as_tensor(x[:6]), torch.as_tensor(y[:6]))
 
 
 def test_vit_trainer_through_the_worker_loop_matches_the_references():
