@@ -7,7 +7,9 @@ toolkit:
 
     python3 chip_smoke.py
 
-Phases, in order; any failure ends the script with a non-zero exit code:
+Phases, in order; any failure ends the script with a non-zero exit code.
+As each phase ends a ``phase <name>: <s> s`` line gives its host seconds
+(since the previous such line):
 
 1. Build: compile every ``harmony_tpu_torch/csrc/*.cu`` (one ``nvcc`` per
    source, all at once) and print the card's name and power limit. Print the
@@ -157,7 +159,9 @@ Phases, in order; any failure ends the script with a non-zero exit code:
    JobServer, launch counts read around it (K1 once a superstep, K2 once a
    superstep for PageRank), PageRank's rank mass, a second run of each
    bit-identical, each against the same job on the CPU (the same supersteps,
-   distances and labels exact, ranks within PR_RTOL); edges/s a superstep.
+   distances and labels exact, ranks within PR_RTOL; PageRank's comparison
+   at PR_CPU_ITERATIONS iterations, on the card and the CPU); edges/s a
+   superstep.
 3m. The ``lasso``, ``addvector`` and ``addinteger`` presets on the card and
    on the CPU: Lasso's losses within LOSS_ATOL, the AddVector and
    AddInteger tables at ``expected_value`` exactly.
@@ -266,6 +270,28 @@ Phases, in order; any failure ends the script with a non-zero exit code:
    virtual slots' bits and launches, with the copies' ms and each path's step
    ms. Its ``pv:`` line holds the numbers. ``python3 chip_smoke.py --phase
    3v`` runs the build and this phase alone.
+3w. The elastic table: tables that move between the slots of a 4-slot pool
+   while their jobs train, on 4 virtual slots of the card. (a) bench-widedeep
+   through a JobServer of 2 executors with ``optimizer="add_one_server"``
+   (2 -> 3 owners at the job's start; 256 blocks over 3 replicate) and a
+   scripted grow-then-shrink ETPlan through PlanExecutor, the worker held
+   at steps 5 and 11 until each lands (3 -> 4 owners, then the first
+   executor drained: 4 -> 3, the compute slot moves); (b) bench-fm-hash (K1
+   and K2 on the hash table) through a JobServer of 3 with
+   ``delete_one_server`` (3 -> 2) and the same plan; (c) during (a) a serving
+   reader (the endpoint's cached live gathers, on a stream of its own), every
+   read of which must be the rows of some committed step, in order (per-step
+   snapshots of the unmoved run). Each moved job's 16 losses the bits of the
+   unmoved run and within LOSS_ATOL of the same moved job on 4 CPU slots.
+   For each move: blocks and bytes moved and copied on their slot, host ms
+   of the reshard, device ms of its copies (events around them, behind a
+   spin kernel so the host's enqueue is not timed), and the step ms (device
+   intervals between steps) before and after it. (d) K1, K2 and K3 on
+   bench-widedeep's and bench-fm-hash's tables resharded 2 -> 3 -> 4 -> 1 ->
+   2 slots, byte-identical to the same on CPU slots. (e) On four or more
+   cards, (a) and (b) on the cards give the virtual slots' bits. Its
+   ``elastic:`` line holds the numbers; ``python3 chip_smoke.py --phase 3w``
+   runs the build and this phase alone.
 4. The sparse push route (``HARMONY_PUSH_VIA=sparse``): the Wide&Deep job
    of phase 3, which folds its pushes with K2.
 5. Where a step's time goes: a steady epoch of the Wide&Deep job on the host
@@ -293,7 +319,8 @@ Phases, in order; any failure ends the script with a non-zero exit code:
    reads of 3s (c) and (e), K1 only; sharded: phase 3t (c)'s bench-widedeep
    at data_axis 1, the trio and bench-fm-hash on 4 slots; sp-ring, sp-a2a
    and 3-axis: phase 3u (b)-(d), 3 steps each; pp, ep and vit-dp: phase 3v
-   (a)-(c), 3 steps each); K1-K3
+   (a)-(c), 3 steps each; elastic: phase 3w (a)-(c) on the card, the moved
+   jobs and the reader); K1-K3
    also carry ``device_ms``, ``library_device_ms``,
    ``library_deterministic_device_ms``, ``host_us`` and their timing at
    phase 2e's shapes, K4-K5b their timing at bench-vit's shape and phase
@@ -306,6 +333,7 @@ Phases, in order; any failure ends the script with a non-zero exit code:
 from __future__ import annotations
 
 import contextlib
+import faulthandler
 import io
 import json
 import math
@@ -314,6 +342,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -350,9 +379,10 @@ N_EXAMPLES = 32768
 # work was dropped at either end. A profile that fails this is taken again,
 # up to PROFILE_ATTEMPTS times in all, each retake printed, and then the run
 # fails. PROFILE_LOG counts, over the run, the markers each kept profile
-# lost, and the retakes.
+# lost, and the retakes. Losses come in runs: a full run has lost 4 profiles
+# of one call in a row (three with no record at all), so 8 attempts.
 PROFILE_MARKERS = 64
-PROFILE_ATTEMPTS = 4
+PROFILE_ATTEMPTS = 8
 MARKER_KERNEL = "spin_kernel"   # torch.cuda._sleep's kernel
 PROFILE_LOG = {"markers_lost": {}, "retakes": 0}
 
@@ -426,6 +456,18 @@ FLASH_F32_REL = 2.0 ** -12
 # attention outputs differ by about one bf16 ulp and the step's later bf16
 # roundings carry that on. Allowed: 2**-7 of the loss (two bf16 ulps).
 LM_BF16_REL = 2.0 ** -7
+
+
+# The per-phase clock: ``clock(name)`` prints ``phase <name>: <s> s``, the
+# host seconds since the previous phase ended (the script's start for the
+# first). Measurement only.
+_PHASE_T = [time.perf_counter()]
+
+
+def clock(name: str) -> None:
+    now = time.perf_counter()
+    print(f"phase {name}: {now - _PHASE_T[0]:.1f} s", flush=True)
+    _PHASE_T[0] = now
 
 
 def fail(msg: str) -> None:
@@ -2362,6 +2404,12 @@ GBT_GRAD_ATOL = 8 * 2.0 ** -24
 PR_VERTICES = 4_847_571
 PR_DEGREE = 14
 PR_ITERATIONS = 10
+# PageRank's card-against-CPU comparison at full width runs this many
+# iterations on both (the JobServer's job above runs PR_ITERATIONS): its CPU
+# run was the phase's largest part (55 s of 134-160 s beside an NVIDIA H100
+# 80GB HBM3 at 10 iterations), the slowest phase of the script, so its depth
+# was cut from 10 when phase 3w came.
+PR_CPU_ITERATIONS = 5
 # PageRank's ranks, card against CPU: 1e-6 relative, the tier-1 limit against
 # the JAX package (the add fold gives the CPU's bits, so they may agree exactly).
 PR_RTOL = 1e-6
@@ -2838,7 +2886,13 @@ def run_pregel(graph):
         server.shutdown()
 
     for app in apps:
-        card, cpu = card_values[app], graph_entity_run(graph_job(app, PR_VERTICES), "cpu")
+        job, card = graph_job(app, PR_VERTICES), card_values[app]
+        if app == "pagerank":
+            job = job.replace(params=job.params.replace(app_params={
+                **job.params.app_params, "num_iterations": PR_CPU_ITERATIONS}))
+            card = graph_entity_run(job, "cuda")
+            out["full"][app]["cpu_comparison_iterations"] = PR_CPU_ITERATIONS
+        cpu = graph_entity_run(job, "cpu")
         check(card["supersteps"] == cpu["supersteps"]
               and same_vertex_values(app, card["vertex_values"], cpu["vertex_values"]),
               f"bench-{app}: card and CPU differ")
@@ -5442,6 +5496,464 @@ def run_pv():
     return launches, out
 
 
+# -- phase 3w: the elastic table, live block moves while jobs train ------------
+
+# A pool of 4 slots: bench-widedeep starts on 2 executors (its 256 blocks 128
+# to a slot), add_one_server grows it to 3 (256 is no multiple of 3: every
+# slot holds every block), the scripted plan to 4 (64 to a slot), then drains
+# the job's first executor (3 owners, replicated again; the compute slot
+# moves). bench-fm-hash starts on 3 (replicated), delete_one_server drains one
+# (2 owners, 128 to a slot), the scripted plan grows it to 3 and drains its
+# first executor (2 owners).
+ELASTIC_SLOTS = 4
+# One optimization round, at the job's start (the loop's first round runs at
+# once; the next would come after the job).
+ELASTIC_PERIOD = 3600.0
+# The scripted plan's grow and shrink fire once the job has committed this
+# many steps (of its 16).
+ELASTIC_GROW_AT, ELASTIC_SHRINK_AT = 5, 11
+# The serving reader's keys: 16 ids of bench-widedeep's vocabulary.
+ELASTIC_READ_KEYS = 16
+# A job of phase 3w that has not ended after this many seconds is stuck: the
+# stacks of every thread go to stderr and the script ends (each job takes
+# seconds).
+ELASTIC_JOB_WATCHDOG_S = 240
+# Before a move, a spin kernel of this many cycles (~25 ms at the H100's 1.98
+# GHz) on each card's stream, so that the move's copies are all enqueued
+# before the card reaches them: the events around them then time the copies,
+# not the host's enqueue (on an idle card they would time the enqueue).
+MOVE_SPIN_CYCLES = 50_000_000
+
+
+def stream_event(device):
+    """An event recorded on ``device``'s current stream (None on the CPU)."""
+    if device.type != "cuda":
+        return None
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record(torch.cuda.current_stream(device))
+    return ev
+
+
+class MoveLog:
+    """Instruments one job's table: an event on the compute slot's stream
+    after each step (the steps' device intervals), and for each reshard that
+    changes the layout its wait for the table lock, its host ms under the
+    lock (``migrate_host_ms``: the rebuild of the storage alone), the device
+    ms of its copies (events on every card of the two meshes, around it),
+    its blocks and bytes, and the steps before it. ``gates[n]``, where set, holds the worker after its n-th
+    step until the event is set (a scripted move lands there)."""
+
+    def __init__(self, gates=None):
+        self.table = None
+        self.steps = []    # (device, event) after each committed step
+        self.moves = []
+        self.gates = gates or {}
+
+    def attach(self, table):
+        from harmony_tpu_torch.table import blockmove
+
+        self.table = table
+        step, reshard = table.apply_step, table.reshard
+
+        def apply_step(*args, **kw):
+            out = step(*args, **kw)
+            self.steps.append((table.device, stream_event(table.device)))
+            gate = self.gates.get(len(self.steps))
+            if gate is not None:
+                check(gate.wait(timeout=120), f"phase 3w: the move due after step "
+                                               f"{len(self.steps)} did not land")
+            return out
+
+        def timed_reshard(mesh):
+            t0 = time.perf_counter()
+            with table._lock:   # reentrant: the reshard takes it again
+                wait_ms = (time.perf_counter() - t0) * 1e3
+                was = table.sharding
+                cards = sorted({s.device for s in table.mesh.slots + mesh.slots}, key=str)
+                owners_before, n = table.mesh.size, len(self.steps)
+                spin = {}
+                for d in cards:
+                    if d.type == "cuda":
+                        spin[d] = stream_event(d)
+                        with torch.cuda.device(d):
+                            torch.cuda._sleep(MOVE_SPIN_CYCLES)
+                before = {d: stream_event(d) for d in cards}
+                t1 = time.perf_counter()
+                reshard(mesh)
+                host_ms = (time.perf_counter() - t1) * 1e3
+                after = {d: stream_event(d) for d in cards}
+            if table.sharding == was:
+                return   # the same layout: nothing moved
+            self.moves.append({"after_step": n, "slots": [owners_before, mesh.size],
+                               "spec": list(table.sharding.spec), "host_ms": host_ms,
+                               "lock_wait_ms": wait_ms,
+                               "migrate_host_ms": blockmove.last_move_stats["seconds"] * 1e3,
+                               **{k: blockmove.last_move_stats[k] for k in (
+                                   "blocks_moved", "bytes_moved", "blocks_copied_locally",
+                                   "shards_reused")},
+                               "_events": (spin, before, after)})
+
+        table.apply_step, table.reshard = apply_step, timed_reshard
+
+    def report(self):
+        """Each move's figures, the device ms of its copies and the mean step
+        ms (device intervals between consecutive steps on one card) before
+        and after it, up to the neighbouring moves; None on the CPU."""
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        gaps = [None] + [a[1].elapsed_time(b[1]) if a[0] == b[0] and a[1] is not None
+                         else None for a, b in zip(self.steps, self.steps[1:])]
+        bounds = [m["after_step"] for m in self.moves]
+        out = []
+        for i, m in enumerate(self.moves):
+            spin, before, after = m.pop("_events")
+            if spin:
+                m["device_ms"] = max(before[d].elapsed_time(after[d]) for d in spin)
+                # the spin outlasted the host's enqueue: the events time the copies
+                m["spin_covered_host"] = all(
+                    spin[d].elapsed_time(before[d]) > m["host_ms"] for d in spin)
+            else:
+                m["device_ms"] = m["spin_covered_host"] = None
+            lo = bounds[i - 1] + 1 if i else 1
+            hi = bounds[i + 1] if i + 1 < len(bounds) else len(self.steps)
+            pre = [g for g in gaps[lo:m["after_step"]] if g is not None]
+            post = [g for g in gaps[m["after_step"] + 1:hi] if g is not None]
+            m["step_ms_before"] = statistics.mean(pre) if pre else None
+            m["step_ms_after"] = statistics.mean(post) if post else None
+            out.append(m)
+        return out
+
+
+def elastic_server(slots, executors):
+    from harmony_tpu_torch.jobserver.server import JobServer
+    from harmony_tpu_torch.parallel.mesh import DevicePool
+
+    server = JobServer(executors, device_pool=DevicePool(slots))
+    server.start()
+    return server
+
+
+def elastic_job(kind, job_id, optimizer=None):
+    """bench-widedeep (``wd``, one worker) or bench-fm-hash (``fm``), with
+    the optimizer loop when ``optimizer`` is given."""
+    base = wd_mesh_config(job_id, EPOCHS) if kind == "wd" else hash_job("fm", EPOCHS)
+    return base.replace(job_id=job_id, optimizer=optimizer, optimizer_period=ELASTIC_PERIOD)
+
+
+def scripted_plan(server, log, done, errors, owners):
+    """Phase 3w (a)'s grow-then-shrink ETPlan (the analogue of the reference's
+    tests/test_migration.py grow_then_shrink), through PlanExecutor while the
+    job trains: once the table has ``owners`` owners (after the optimizer's
+    round) and ELASTIC_GROW_AT steps, a new executor takes 32 of the first
+    one's blocks; at ELASTIC_SHRINK_AT steps the first executor is drained
+    into it and unassociated (the server keeps the executor), so the job's
+    compute slot moves. The worker waits at each of those steps (the log's
+    gates) until its move has landed."""
+    from harmony_tpu_torch.plan import AllocateOp, AssociateOp, ETPlan, MoveOp, PlanExecutor
+    from harmony_tpu_torch.plan import UnassociateOp
+
+    def wait(cond):
+        while not cond():
+            if done.is_set():
+                raise RuntimeError("the job ended before the scripted plan could fire")
+            time.sleep(0.0005)
+
+    try:
+        wait(lambda: log.table is not None)
+        tid = log.table.spec.table_id
+        handle = server.master.table_handle(tid)
+        wait(lambda: len(handle.owning_executors()) == owners
+             and len(log.steps) >= ELASTIC_GROW_AT)
+        first = handle.owning_executors()[0]
+        plan = ETPlan()
+        alloc = plan.add_op(AllocateOp("grow"))
+        assoc = plan.add_op(AssociateOp(tid, "grow"), depends_on=[alloc])
+        plan.add_op(MoveOp(tid, first, "grow", 32), depends_on=[assoc])
+        res = PlanExecutor(server.master).execute(plan)
+        if not res.success:
+            raise res.error
+        log.gates[ELASTIC_GROW_AT].set()
+        wait(lambda: len(log.steps) >= ELASTIC_SHRINK_AT)
+        new = handle.owning_executors()[-1]
+        plan = ETPlan()
+        mv = plan.add_op(MoveOp(tid, first, new, handle.block_manager.block_counts()[first]))
+        plan.add_op(UnassociateOp(tid, first), depends_on=[mv])
+        res = PlanExecutor(server.master).execute(plan)
+        if not res.success:
+            raise res.error
+        log.gates[ELASTIC_SHRINK_AT].set()
+    except BaseException as e:  # noqa: BLE001 - reported by the phase
+        errors.append(e)
+
+
+def elastic_read_keys():
+    return np.random.default_rng(7).choice(100000, ELASTIC_READ_KEYS, replace=False)
+
+
+def serving_reader(log, done, reads, errors):
+    """A serving reader of the live table, on a stream of its own: the
+    endpoint's cached live gathers (K1) of ELASTIC_READ_KEYS keys, in a loop
+    until the job's table is about to be dropped."""
+    from harmony_tpu_torch.serving.service import ServingEndpoint
+
+    keys = elastic_read_keys()
+    ep = ServingEndpoint(cache_mb=16)
+    try:
+        while log.table is None and not done.is_set():
+            time.sleep(0.0005)
+        dev = log.table.device
+        with (torch.cuda.stream(torch.cuda.Stream(dev)) if dev.type == "cuda"
+              else contextlib.nullcontext()):
+            while not done.is_set():
+                gen = ep._watch_layout("elastic", log.table)
+                reads.append(ep._live_gather("elastic", gen, log.table, keys))
+                time.sleep(0.0005)
+    except BaseException as e:  # noqa: BLE001 - reported by the phase
+        errors.append(e)
+    finally:
+        ep.stop()
+
+
+def run_elastic_job(slots, kind, executors, optimizer=None, scripted=0, reader=False):
+    """One job through a JobServer of ``executors`` executors on ``slots``,
+    with the scripted plan once the table has ``scripted`` owners (0: none):
+    (the worker's result, the job's result, its MoveLog, the reader's reads,
+    the owning executors at the end)."""
+    server = elastic_server(slots, executors)
+    log = MoveLog({ELASTIC_GROW_AT: threading.Event(), ELASTIC_SHRINK_AT: threading.Event()}
+                  if scripted else None)
+    create = server.master.create_table
+
+    def created(*args, **kw):
+        table = create(*args, **kw)
+        log.attach(table)
+        return table
+
+    server.master.create_table = created
+    owners = {}
+    drop = server.master.drop_table
+    done, errors, reads = threading.Event(), [], []
+    threads = []
+
+    def dropped(tid):
+        # the job is over: the reader and the plan stop before the table goes
+        done.set()
+        for t in threads:
+            t.join(timeout=60)
+        if tid in server.master.table_ids():
+            owners[tid] = len(server.master.table_handle(tid).owning_executors())
+        drop(tid)
+
+    server.master.drop_table = dropped
+    if scripted:
+        threads.append(threading.Thread(target=scripted_plan,
+                                        args=(server, log, done, errors, scripted)))
+    if reader:
+        threads.append(threading.Thread(target=serving_reader, args=(log, done, reads, errors)))
+    faulthandler.dump_traceback_later(ELASTIC_JOB_WATCHDOG_S, exit=True)
+    try:
+        for t in threads:
+            t.start()
+        res = server.submit(elastic_job(kind, f"elastic-{kind}", optimizer)).result(timeout=600)
+    finally:
+        done.set()
+        for t in threads:
+            t.join(timeout=60)
+        server.shutdown(timeout=600)
+        faulthandler.cancel_dump_traceback_later()
+    check(not errors, f"phase 3w {kind}: {errors}")
+    check(not res.get("optimizer_errors"), f"phase 3w {kind}: {res.get('optimizer_errors')}")
+    (w,) = res["workers"].values()
+    return w, res, log, reads, list(owners.values())
+
+
+def step_snapshots(slots, keys):
+    """The rows of ``keys`` after each committed step of bench-widedeep,
+    unmoved on ``slots`` (a lone worker), and at the table's creation."""
+    from harmony_tpu_torch.jobserver.entity import DolphinJobEntity
+    from harmony_tpu_torch.parallel.mesh import DevicePool
+    from harmony_tpu_torch.runtime.master import ETMaster
+
+    master = ETMaster(DevicePool(slots))
+    entity = DolphinJobEntity(elastic_job("wd", "elastic-snapshots"))
+    entity.setup(master, [e.id for e in master.add_executors(2)])
+    table = entity._table
+    snaps = [table.multi_get(keys)]
+    try:
+        worker = entity.make_worker()
+        dispatch = worker._dispatch
+
+        def dispatched(*args):
+            snaps.append(table.multi_get(keys))   # the global init's writes
+            out = dispatch(*args)
+            snaps.append(table.multi_get(keys))
+            return out
+
+        worker._dispatch = dispatched
+        result = worker.run()
+    finally:
+        entity.cleanup()
+    return snaps, result["batch_losses"]
+
+
+def reads_follow_the_steps(reads, snaps):
+    """Each read is the rows after some committed step, never earlier than
+    the read before it: a read of a dropped layout, or a torn one, matches no
+    snapshot or goes back in time."""
+    at = 0
+    blobs = [s.tobytes() for s in snaps]
+    for r in reads:
+        b = r.tobytes()
+        while at < len(blobs) and blobs[at] != b:
+            at += 1
+        if at == len(blobs):
+            return False
+    return True
+
+
+def elastic_table_ops(slots, cpu_slots, wrappers):
+    """Phase 3w (d): K1 and the folds on storage a move just rebuilt:
+    bench-widedeep's table and bench-fm-hash's, each on 2 slots of the card
+    and of the CPU, resharded to 3, 4, 1 and 2 slots; after each move a pull
+    (K1), the mxu (K3) and sparse (K2) pushes and pull_all (dense), a pull and
+    push (K1, K2, hash), multi_get and export_blocks, the card's bytes equal
+    to the CPU plain versions'."""
+    from harmony_tpu_torch.apps.widedeep import FMTrainer, make_synthetic, make_synthetic_sparse
+    from harmony_tpu_torch.parallel.mesh import build_mesh
+    from harmony_tpu_torch.table.hashtable import DeviceHashTable, HashTableSpec
+    from harmony_tpu_torch.table.table import DenseTable, TableSpec
+
+    rng = np.random.default_rng(37)
+    trainer = wd_trainer()
+    ids, _ = make_synthetic(WD_BATCH, 100000, 16, seed=37)
+    keys = trainer.pull_keys((torch.as_tensor(ids),)).to(torch.int32)
+    spec = TableSpec(trainer.model_table_config())
+    storage = torch.as_tensor(rng.standard_normal(spec.storage_shape).astype(np.float32))
+    deltas = torch.as_tensor(rng.standard_normal((len(keys), *spec.value_shape))
+                             .astype(np.float32))
+    fm = FMTrainer(vocab_size=100000, num_slots=16, emb_dim=16, step_size=0.1, sparse=True)
+    hspec = HashTableSpec(fm.model_table_config())
+    sids, _ = make_synthetic_sparse(WD_BATCH, 100000, 16, seed=37)
+    hkeys = fm.pull_keys((torch.as_tensor(sids),)).to(torch.int32)
+    hd = torch.as_tensor(rng.standard_normal((len(hkeys), *hspec.value_shape)).astype(np.float32))
+    pairs = {"dense": [DenseTable(spec, build_mesh(s[:2], data=1), arr=storage)
+                       for s in (slots, cpu_slots)],
+             "hash": [DeviceHashTable(hspec, build_mesh(s[:2], data=1))
+                      for s in (slots, cpu_slots)]}
+    out = {}
+    for n in (3, 4, 1, 2):
+        for kind, (card, cpu) in pairs.items():
+            for t, s in ((card, slots), (cpu, cpu_slots)):
+                t.reshard(build_mesh(s[:n], data=1))
+            run = table_op_bytes if kind == "dense" else hash_op_bytes
+            args = (keys, deltas) if kind == "dense" else (hkeys, hd)
+            (c_out, c_l), (p_out, _) = [run(t, *args, wrappers) for t in (card, cpu)]
+            check(same_outputs(c_out, p_out),
+                  f"phase 3w (d) {kind} on {n} slots after a move: the card and the CPU "
+                  f"disagree on {[k for k in c_out if c_out[k].tobytes() != p_out[k].tobytes()]}")
+            out[f"{kind} on {n} slots P{tuple(card.sharding.spec)}"] = {
+                op: {k: v for k, v in c.items() if v} for op, c in c_l.items()}
+    return out
+
+
+def run_elastic():
+    """Phase 3w: jobs whose tables move between the slots of a 4-slot pool
+    while they train (see the module doc)."""
+    from harmony_tpu_torch.ops.histogram import weighted_histogram
+    from harmony_tpu_torch.ops.sparse import gather_rows, segment_sum_rows
+    from harmony_tpu_torch.parallel.mesh import DevicePool
+
+    t0 = time.perf_counter()
+    wrappers = (gather_rows, segment_sum_rows, weighted_histogram)
+    dev = torch.device("cuda", 0)
+    slots = DevicePool.virtual(dev, ELASTIC_SLOTS).slots
+    cpu_slots = DevicePool.virtual("cpu", ELASTIC_SLOTS).slots
+    out = {}
+    os.environ["HARMONY_PUSH_VIA"] = "mxu"
+    try:
+        snaps, wd_ref = step_snapshots(slots, elastic_read_keys())
+        fm_ref, _, _, _, _ = run_elastic_job(slots, "fm", 3)
+        # the main path: (a) with the reader of (c), and (b), on the card
+        reset_counts(*wrappers)
+        wd, wd_res, wd_log, reads, wd_owners = run_elastic_job(
+            slots, "wd", 2, optimizer="add_one_server", scripted=3, reader=True)
+        fm, fm_res, fm_log, _, fm_owners = run_elastic_job(
+            slots, "fm", 3, optimizer="delete_one_server", scripted=2)
+        launches = {w.__name__: w.launches for w in wrappers}
+        wd_cpu = run_elastic_job(cpu_slots, "wd", 2, optimizer="add_one_server",
+                                 scripted=3)[0]
+        fm_cpu = run_elastic_job(cpu_slots, "fm", 3, optimizer="delete_one_server",
+                                 scripted=2)[0]
+    finally:
+        os.environ.pop("HARMONY_PUSH_VIA")
+    check(wd_res["reconfigs"] == fm_res["reconfigs"] == 1,
+          f"phase 3w: optimizer rounds {wd_res['reconfigs']}, {fm_res['reconfigs']}")
+    check(wd_owners == [3] and fm_owners == [2],
+          f"phase 3w: owning executors at the end {wd_owners}, {fm_owners} (expected 3, 2)")
+    check(len(wd_log.moves) == len(fm_log.moves) == 3,
+          f"phase 3w: moves {len(wd_log.moves)} and {len(fm_log.moves)} (expected 3 each)")
+    for name, got, want in (("(a) bench-widedeep", wd["batch_losses"], wd_ref),
+                            ("(b) bench-fm-hash", fm["batch_losses"], fm_ref["batch_losses"])):
+        check(got == want, f"phase 3w {name}: the moved job's losses are not the unmoved "
+                           f"run's bits")
+    for name, got, want in (("(a)", wd["batch_losses"], wd_cpu["batch_losses"]),
+                            ("(b)", fm["batch_losses"], fm_cpu["batch_losses"])):
+        gap = max(abs(a - b) for a, b in zip(got, want))
+        check(len(got) == len(want) == EPOCHS * BATCHES and gap <= LOSS_ATOL,
+              f"phase 3w {name}: card against the CPU's moved run: {gap} > {LOSS_ATOL}")
+        out[f"{name}_max_abs_gap_vs_cpu"] = gap
+    check(len(reads) > 1 and reads_follow_the_steps(reads, snaps),
+          f"phase 3w (c): {len(reads)} reads; a read matches no committed step in order")
+    check(all(launches[w] > 0 for w in launches),
+          f"phase 3w: launches on the path {launches}: a kernel never ran")
+    out["launches"] = launches
+    out["moves"] = {"(a) bench-widedeep": wd_log.report(), "(b) bench-fm-hash": fm_log.report()}
+    out["reader"] = {"reads": len(reads), "keys": ELASTIC_READ_KEYS,
+                     "steps_matched": "every read is a committed step's rows, in order"}
+    out["losses"] = {"(a)": wd["batch_losses"], "(b)": fm["batch_losses"]}
+    for name, moves in out["moves"].items():
+        for m in moves:
+            print(f"phase 3w {name}: move after step {m['after_step']} from {m['slots'][0]} "
+                  f"to {m['slots'][1]} slots P{tuple(m['spec'])}: {m['blocks_moved']} blocks "
+                  f"({m['bytes_moved']} bytes) moved, {m['blocks_copied_locally']} copied "
+                  f"on their slot, {m['shards_reused']} shards kept; the lock after "
+                  f"{m['lock_wait_ms']:.3f} ms, then host {m['host_ms']:.3f} ms (the "
+                  f"rebuild {m['migrate_host_ms']:.3f}), device "
+                  f"{m['device_ms']:.4f} ms (spin covered the "
+                  f"host: {m['spin_covered_host']}); step ms before {m['step_ms_before']}, "
+                  f"after {m['step_ms_after']}", flush=True)
+    print(f"phase 3w (a)-(c): the moved jobs' losses are the unmoved runs' bits and within "
+          f"{LOSS_ATOL} of the CPU's; {len(reads)} serving reads, each a committed step's "
+          f"rows; launches {json.dumps(launches)}", flush=True)
+    out["table_ops"] = elastic_table_ops(slots, cpu_slots, wrappers)
+    print(f"phase 3w (d): K1, K2 and K3 on moved storage byte-identical to the CPU's: "
+          f"{json.dumps(out['table_ops'])}", flush=True)
+
+    cards = torch.cuda.device_count()
+    if cards >= ELASTIC_SLOTS:
+        real = DevicePool().slots[:ELASTIC_SLOTS]
+        os.environ["HARMONY_PUSH_VIA"] = "mxu"
+        try:
+            rwd, _, rwd_log, _, rwd_owners = run_elastic_job(
+                real, "wd", 2, optimizer="add_one_server", scripted=3)
+            rfm, _, rfm_log, _, _ = run_elastic_job(real, "fm", 3, optimizer="delete_one_server",
+                                                    scripted=2)
+        finally:
+            os.environ.pop("HARMONY_PUSH_VIA")
+        check(rwd["batch_losses"] == wd["batch_losses"]
+              and rfm["batch_losses"] == fm["batch_losses"] and rwd_owners == [3],
+              "phase 3w (e): the moved jobs' bits on the cards differ from the virtual slots'")
+        out["real_mesh"] = {"cards": [str(s.device) for s in real],
+                            "bits": "the virtual slots' bits on both jobs",
+                            "moves": {"(a)": rwd_log.report(), "(b)": rfm_log.report()}}
+        print(f"phase 3w (e): on {ELASTIC_SLOTS} cards the virtual slots' bits; moves "
+              f"{json.dumps(out['real_mesh']['moves'])}", flush=True)
+    else:
+        out["real_mesh"] = f"not run: {cards} card(s)"
+    out["seconds"] = time.perf_counter() - t0
+    return launches, out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a CUDA card")
@@ -5476,31 +5988,39 @@ def main() -> int:
               f"spilled, {entry['shared_bytes']} bytes dynamic shared memory", flush=True)
         check(d not in (64, 128) or entry.get("spill_bytes") == 0,
               f"{kernel} D={d} block_k={bk}: ptxas reports spills ({entry})")
+    clock("1")
 
-    if sys.argv[1:] in (["--phase", "3t"], ["--phase", "3u"], ["--phase", "3v"]):
-        # phase 3t, 3u or 3v alone (a host of several cards: the real mesh;
-        # 3t also the device guard), 3t held to one-slot runs of its own
-        if sys.argv[2] == "3t":
+    alone = ("3t", "3u", "3v", "3w")
+    if len(sys.argv) == 3 and sys.argv[1] == "--phase" and sys.argv[2] in alone:
+        # one phase alone (a host of several cards: the real mesh; 3t also
+        # the device guard), 3t held to one-slot runs of its own
+        name = sys.argv[2]
+        if name == "3t":
             _, sharded = run_sharded(one_slot_refs())
             print("sharded: " + json.dumps(sharded), flush=True)
-        elif sys.argv[2] == "3u":
+        elif name == "3u":
             _, sp = run_sp()
             print("sp: " + json.dumps(sp), flush=True)
-        else:
+        elif name == "3v":
             _, pv = run_pv()
             print("pv: " + json.dumps(pv), flush=True)
+        else:
+            _, elastic = run_elastic()
+            print("elastic: " + json.dumps(elastic), flush=True)
+        clock(name)
         print(gpu_identity())
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
-    check(not sys.argv[1:], f"unknown arguments {sys.argv[1:]} (only --phase 3t, 3u or 3v)")
+    check(not sys.argv[1:], f"unknown arguments {sys.argv[1:]} (only --phase 3t, 3u, 3v or 3w)")
 
     table, idx, err = check_kernels(dev)
     timing, skew = time_kernels(dev, table, idx)
     print(f"phase 2: timing {json.dumps(timing)}", flush=True)
     print(f"phase 2: fold (K3) timing on the skewed cases {json.dumps(skew)}", flush=True)
     del table, idx
+    clock("2")
     err.update(check_flash_kernels(dev))
     timing.update(time_flash_kernels(dev))
     print(f"phase 2b: timing {json.dumps({k: timing[k] for k in FLASH_KERNELS})}",
@@ -5509,58 +6029,86 @@ def main() -> int:
     print(f"phase 2b: timing at bench-vit's shape {json.dumps(vit_timing)}", flush=True)
     sp_timing = {case[0]: time_flash_kernels(dev, case) for case in SP_FLASH_CASES}
     print(f"phase 2b: timing at phase 3u's shapes {json.dumps(sp_timing)}", flush=True)
+    clock("2b")
 
     hash_ops = check_hash_ops(dev)
+    clock("2c")
     tune = run_autotune(dev)
+    clock("2d")
     launches, summary, fused, fused_sparse = run_slice()
     print("slice: " + json.dumps(summary), flush=True)
+    clock("3 and 4")
     print("unfused: " + json.dumps(run_unfused_slice(fused, fused_sparse)), flush=True)
+    clock("3e")
     lm_launches, lm_summary = run_lm()
     print("lm: " + json.dumps(lm_summary), flush=True)
+    clock("3b")
     print("lm preset: " + json.dumps(run_lm_preset()), flush=True)
+    clock("3c")
     vit_launches, vit = run_vit()
     print("vit: " + json.dumps(vit), flush=True)
+    clock("3n")
     moe_launches, moe = run_moe()
     print("moe: " + json.dumps(moe), flush=True)
+    clock("3o")
     gen_launches, generation, decode_once = run_generate(lm_summary["losses"])
     print("generate: " + json.dumps(generation), flush=True)
+    clock("3p")
     trio_launches, trio, trio_jobs = run_trio()
     print("trio: " + json.dumps(trio), flush=True)
     fused_trio = trio_windows_without_syncs()
     print("trio windows: " + json.dumps(fused_trio), flush=True)
     print("trio agreement: " + json.dumps(trio_agreement()), flush=True)
     print("lda assignments: " + json.dumps(lda_assignments()), flush=True)
+    clock("3d")
     print("async: " + json.dumps(run_async_mlr()), flush=True)
+    clock("3f")
     print("prefetch: " + json.dumps(run_prefetch()), flush=True)
+    clock("3g")
     fm_hash = run_hash_job("fm", EPOCHS)
     print("fm hash: " + json.dumps(fm_hash), flush=True)
+    clock("3h")
     lda_hash = run_hash_job("lda", AGREE_EPOCHS)
     print("sparse lda: " + json.dumps(lda_hash), flush=True)
+    clock("3i")
     host_launches, host_steps = run_host_driven_steps()
     print("host-driven steps: " + json.dumps(host_steps), flush=True)
+    clock("3j")
     graph = pagerank_graph()
     slice_timing, slice_err = check_slice_kernels(dev, graph)
     for name, e in slice_err.items():
         err[name] = max(err[name], e)
+    clock("2e")
     gbt = run_gbt()
     print("gbt: " + json.dumps(gbt), flush=True)
+    clock("3k")
     pregel = run_pregel(graph)
     print("pregel: " + json.dumps(pregel), flush=True)
+    clock("3l")
     print("linear apps: " + json.dumps(run_linear_apps()), flush=True)
+    clock("3m")
     for name, e in check_wd2_kernels(dev).items():
         err[name] = max(err[name], e)
     mw_launches, multiworker = run_multiworker(
         trio_jobs, {k: v["batch_losses"] for k, v in fused_trio.items()})
     print("multi-worker: " + json.dumps(multiworker), flush=True)
+    clock("3q")
     chain_launches, chains = run_chains(lm_summary)
     print("chains: " + json.dumps(chains), flush=True)
+    clock("3r")
     serving_launches, serving = run_serving()
     print("serving: " + json.dumps(serving), flush=True)
+    clock("3s")
     sharded_launches, sharded = run_sharded({
         "wd_losses": fused["batch_losses"], "fm_hash": fm_hash["batch_losses"],
         "trio": {k: j["worker"]["batch_losses"] for k, j in trio_jobs.items()}})
+    clock("3t")
     sp_launches, sp = run_sp()
+    clock("3u")
     pv_launches, pv = run_pv()
+    clock("3v")
+    el_launches, elastic = run_elastic()
+    clock("3w")
     by_path = {name: {"bench-widedeep": launches.get(name, 0),
                       "bench-lm": lm_launches[name],
                       "bench-vit": vit_launches[name],
@@ -5578,20 +6126,27 @@ def main() -> int:
                       "serving": serving_launches[name],
                       "sharded": sharded_launches.get(name, 0),
                       **{path: counts[name] for path, counts in sp_launches.items()},
-                      **{path: counts[name] for path, counts in pv_launches.items()}}
+                      **{path: counts[name] for path, counts in pv_launches.items()},
+                      "elastic": el_launches.get(name, 0)}
                for name in lm_launches}
     print("profile: " + json.dumps(profile_slice()), flush=True)
+    clock("5")
     print("lm profile: " + json.dumps(profile_lm()), flush=True)
+    clock("5b")
     print("models profile: " + json.dumps(profile_models(decode_once)), flush=True)
+    clock("5f")
     trio_profile = profile_trio()
     print("trio profile: " + json.dumps(trio_profile), flush=True)
+    clock("5c")
     print(f"phase 3q: the trio on the per-batch TaskUnit path: {trio['samples_per_sec']:.1f} "
           f"samples/s (phase 3d), device idle share {trio_profile['pass']['device_idle_share']:.4f} "
           f"and {trio_profile['device_operations_per_step']:.1f} device operations a step "
           f"(phase 5c, {trio_profile['samples_per_sec']:.1f} samples/s), grants by job "
           f"{json.dumps(trio['grants'])}", flush=True)
     print("hash profile: " + json.dumps(profile_hash()), flush=True)
+    clock("5d")
     print("new paths profile: " + json.dumps(profile_new_paths(graph)), flush=True)
+    clock("5e")
     print("hash ops: " + json.dumps(hash_ops) + "; autotune: " + json.dumps(tune), flush=True)
     print("profiler: markers lost by the kept profiles (lost: profiles), retakes: "
           + json.dumps(PROFILE_LOG), flush=True)
@@ -5643,6 +6198,7 @@ def main() -> int:
     print("sharded: " + json.dumps(sharded), flush=True)
     print("sp: " + json.dumps(sp), flush=True)
     print("pv: " + json.dumps(pv), flush=True)
+    print("elastic: " + json.dumps(elastic), flush=True)
     print(gpu_identity())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

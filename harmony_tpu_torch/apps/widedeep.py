@@ -38,8 +38,12 @@ SPARSE_EXTRA_BASE = 2**31 - 8192
 
 
 def _logistic_loss(logits: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """Mean of ``max(x, 0) − x·y + log1p(exp(−|x|))``, the reference's form."""
-    return torch.mean(torch.maximum(logits, torch.zeros_like(logits)) - logits * y
+    """Mean of ``max(x, 0) − x·y + log1p(exp(−|x|))``, the reference's form.
+    ``max(x, 0)`` is ``relu``: at a logit of exactly 0 (a Wide&Deep example
+    whose hidden units are all dead, at the zero initial wide weights) its
+    gradient is 0, as ``jnp.maximum``'s is in the reference, where
+    ``torch.maximum`` would split the tie and give 0.5 (C9)."""
+    return torch.mean(torch.relu(logits) - logits * y
                       + torch.log1p(torch.exp(-torch.abs(logits))))
 
 

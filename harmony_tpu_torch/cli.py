@@ -32,9 +32,15 @@ of a multi-worker job (0 is BSP). ``--model-chkp-period N`` chains a
 snapshot of the model table every N epochs (into a temporary directory, as
 the reference's ``run`` does), and ``--offline-eval`` evaluates the chain at
 the server's shutdown; both apply to training apps only, and
-``--offline-eval`` needs a period. The job runs on the card unless
-``--device cpu`` is given; with no card it raises. The reference's
-``--optimizer`` and ``--auto-resume`` are not ported.
+``--offline-eval`` needs a period. ``--optimizer NAME`` (homogeneous,
+heterogeneous, add_one_server, delete_one_server, empty, or a dotted path to
+an Optimizer class) runs the job's elasticity loop every
+``--optimizer-period`` seconds: it moves the job's model table between the
+server's executors while the job trains (training apps only; a typo'd name
+fails before the job starts). A job takes every executor the server has, so
+an optimizer that adds one needs a pool with free slots beside them. The job
+runs on the card unless ``--device cpu`` is given; with no card it raises.
+The reference's ``--auto-resume`` is not ported.
 
 ``run`` prints ``{"job_id": ..., "result": ...}`` as one JSON line, with
 ``"offline_eval"`` (the chain's evaluations) when ``--offline-eval`` is
@@ -198,15 +204,28 @@ def build_config(app: str, args: argparse.Namespace) -> JobConfig:
     preset = PRESETS[app]
     period = getattr(args, "model_chkp_period", 0)
     offline_eval = getattr(args, "offline_eval", False)
+    optimizer = getattr(args, "optimizer", None)
     # dolphin-only flags fail loudly on graph apps, before any work
-    if preset["app_type"] == "pregel" and (period or offline_eval):
+    if preset["app_type"] == "pregel" and (optimizer or period or offline_eval):
         raise SystemExit(
-            "--model-chkp-period / --offline-eval apply to dolphin (training) "
-            "apps only; pregel jobs have no model table or checkpoint chain")
+            "--optimizer / --model-chkp-period / --offline-eval apply to dolphin "
+            "(training) apps only; pregel jobs have no model table or checkpoint "
+            "chain")
     if offline_eval and period <= 0:
         raise SystemExit(
             "--offline-eval needs --model-chkp-period > 0: deferred evaluation "
             "replays the checkpoint chain, and 0 chains nothing")
+    if optimizer:
+        from harmony_tpu_torch.config.base import resolve_symbol
+        from harmony_tpu_torch.jobserver.entity import DolphinJobEntity
+
+        ref = DolphinJobEntity._OPTIMIZERS.get(optimizer, optimizer)
+        try:
+            resolve_symbol(ref)
+        except Exception as e:  # a typo'd name fails at submit, not mid-job
+            raise SystemExit(
+                f"unknown --optimizer {optimizer!r} "
+                f"(registry: {sorted(DolphinJobEntity._OPTIMIZERS)}): {e}")
     set_kv, data_kv = _parse_kv(args.set), _parse_kv(args.data)
     # --set data_axis=D sizes the data axis of the job's mesh (the entity
     # reads it from the config's user dict, as the reference's does)
@@ -252,6 +271,8 @@ def _job_config(app: str, args: argparse.Namespace, preset: Dict[str, Any],
         job_id=args.job_id or f"{app}-job",
         app_type=preset["app_type"],
         trainer=preset["trainer"],
+        optimizer=getattr(args, "optimizer", None),
+        optimizer_period=getattr(args, "optimizer_period", 5.0),
         params=TrainerParams(
             num_epochs=args.epochs,
             num_mini_batches=args.batches,
@@ -374,6 +395,11 @@ def _common_job_flags(p: argparse.ArgumentParser) -> None:
                    help="edge-list file (graph apps; replaces the synthetic graph)")
     p.add_argument("--max-supersteps", type=int, default=100,
                    help="superstep bound of a graph app")
+    p.add_argument("--optimizer", default=None,
+                   help="the job's elasticity loop: homogeneous | heterogeneous"
+                        " | add_one_server | delete_one_server | empty | dotted path")
+    p.add_argument("--optimizer-period", type=float, default=5.0,
+                   help="seconds between optimization rounds")
     p.add_argument("--model-chkp-period", type=int, default=0,
                    help="snapshot the model table every N epochs (0 = off)")
     p.add_argument("--offline-eval", action="store_true",

@@ -150,11 +150,17 @@ class JobConfig(ConfigBase):
     ``tables`` names a SHARED model table: the job reuses the table of that
     id if one exists (another job's, or one made by the caller) and the
     master frees it when its last holder drops it; with no ``tables`` the
-    job's model table is private, under a job-namespaced id."""
+    job's model table is private, under a job-namespaced id. ``optimizer``
+    turns on the job's elasticity loop (the reference's per-job Optimizer
+    binding): "homogeneous" | "heterogeneous" | "add_one_server" |
+    "delete_one_server" | "empty" | a dotted path to an Optimizer class; None
+    keeps the table where it was created."""
 
     job_id: str
     app_type: str                      # "dolphin" | "pregel"
     trainer: Optional[str] = None      # dotted path of a Trainer subclass
+    optimizer: Optional[str] = None
+    optimizer_period: float = 5.0      # seconds between optimization rounds
     tables: List[TableConfig] = field(default_factory=list)
     params: TrainerParams = field(default_factory=TrainerParams)
     num_workers: int = 0               # 0 = one worker per granted executor

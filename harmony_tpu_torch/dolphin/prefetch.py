@@ -20,7 +20,9 @@ batch's event and marks the staged tensors as used on its stream
 while a step may still read it. A pinned buffer is refilled only after the
 copy that last read it has completed. Under a JobServer a single-worker job's
 staging copies ride the TaskUnit fair queue as NET units (``net_scope``).
-Not ported: the reshard announcements (the port has no live reshard).
+A reshard that moves the table's compute device demotes the epoch's pipeline
+to host-only (:meth:`PrefetchPipeline.stop_staging`, called by the worker's
+layout listener): the copies staged for the old device are dropped.
 """
 from __future__ import annotations
 

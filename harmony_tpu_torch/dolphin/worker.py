@@ -50,6 +50,23 @@ same steps, its pulls and pushes going shard by shard, and computes on the
 mesh's first slot; on a mesh with a data axis > 1 the step is
 :class:`_DataParallelStep` (the batch split over the data rows).
 
+The table may be resharded while the worker trains (``TableHandle.move_blocks``
+from the job's optimizer loop or a plan). Every step runs under the table lock
+on the layout the table holds then (:meth:`WorkerTasklet._layout_step`): a
+step built for another compute device or number of data rows is rebuilt
+there, and a batch staged on another device is copied to the new one. The
+worker listens to the table's announcements: when the target computes on
+another device, the epoch's prefetch pipeline stops staging (its staged
+copies are dropped) and, at the next dispatch, the worker's device caches
+follow the table (``_follow_layout``).
+
+Under a JobServer the worker has a ``MetricCollector``: each drain emits one
+``BatchMetrics`` a batch, at the window's seconds smeared over its batches
+(the clock the drain already reads: no sync is added) with the comm probe's
+pull/push split (the unfused phases' measured split where they run), and
+``op_stats`` counts its pulls, pushes and pulled bytes for the entity's
+``ServerMetrics``.
+
 Multi-tenancy and multi-worker jobs, as in the reference: a worker run by a
 JobServer holds a ``TaskUnitClient`` (``runtime/taskunit.py``), so it takes
 the batched epoch (``_use_fused_epoch``): each batch group runs in a COMP
@@ -87,6 +104,7 @@ from harmony_tpu_torch.data.loader import StageRing
 from harmony_tpu_torch.dolphin.data import TrainingDataProvider
 from harmony_tpu_torch.dolphin.prefetch import PrefetchPipeline, StagedBatch
 from harmony_tpu_torch.dolphin.trainer import Trainer, TrainerContext
+from harmony_tpu_torch.metrics.collector import BatchMetrics, MetricCollector
 from harmony_tpu_torch.metrics.tracer import Tracer
 from harmony_tpu_torch.table import autotune
 from harmony_tpu_torch.table.hashtable import DeviceHashTable
@@ -267,7 +285,7 @@ class _DataParallelStep:
     row's slot, and each row's part is copied to its slot (no copy between
     slots of one device)."""
 
-    def __init__(self, spec, sharding, trainer: Trainer, *, push_route: Optional[str],
+    def __init__(self, spec, trainer: Trainer, *, push_route: Optional[str],
                  is_hash: bool) -> None:
         if trainer.batch_reduction not in ("mean", "sum"):
             raise ValueError(
@@ -280,15 +298,15 @@ class _DataParallelStep:
                 "a data axis > 1 beside a worker-local table is not ported "
                 "(ROADMAP A.9)")
         self._spec = spec
-        self._sharding = sharding
         self._trainer = trainer
         self._route = push_route
         self._hash = is_hash
 
-    def _parts(self, batch, hyper):
-        """Each row's (row, slot device, weight, batch slice, hyper-parameters),
-        the slice and the hyper-parameters on the row's slot."""
-        sh, n = self._sharding, batch[0].shape[0]
+    def _parts(self, sh, batch, hyper):
+        """Each row's (row, slot device, weight, batch slice, hyper-parameters)
+        on the layout ``sh`` the table holds now, the slice and the
+        hyper-parameters on the row's slot."""
+        n = batch[0].shape[0]
         bounds = [n * r // sh.data_rows for r in range(sh.data_rows + 1)]
         out = []
         for r in range(sh.data_rows):
@@ -307,7 +325,7 @@ class _DataParallelStep:
     def __call__(self, state, batch, hyper):
         spec, trainer = self._spec, self._trainer
         dev = state.device
-        parts = self._parts(batch, hyper)
+        parts = self._parts(state.sharding, batch, hyper)
         metrics, deltas, keys = [], [], []
         if self._hash:
             keys = [trainer.pull_keys(b).reshape(-1).to(torch.int32) for *_, b, _ in parts]
@@ -642,6 +660,7 @@ class WorkerTasklet:
         epoch_callback: Optional[Callable[[int], None]] = None,
         starting_epoch: int = 0,
         defer_epoch_callback: bool = False,
+        collector: Optional[MetricCollector] = None,
     ) -> None:
         self.job_id = job_id
         self.ctx = ctx
@@ -698,7 +717,15 @@ class WorkerTasklet:
         self._input = {"prefetch_hits": 0, "prefetch_misses": 0, "pipelines": 0,
                        "staged": 0, "max_depth": 0, "producer_idle_sec": 0.0,
                        "consumer_stall_sec": 0.0, "produce_sec": 0.0,
-                       "stage_sec": 0.0}
+                       "stage_sec": 0.0, "dropped_batches": 0}
+        # the (compute device, data rows) the step was built for
+        self._step_layout: Optional[Tuple[torch.device, int]] = None
+        self._pipeline: Optional[PrefetchPipeline] = None  # the epoch's, if any
+        # the metric sink's collector (under a JobServer) and this worker's
+        # op counters (the entity's ServerMetrics read them)
+        self.collector = collector
+        self.op_stats: Dict[str, int] = {"pulls": 0, "pushes": 0, "pull_bytes": 0}
+        self._pull_bytes: Optional[int] = None
 
     # -- step construction ----------------------------------------------
 
@@ -888,12 +915,16 @@ class WorkerTasklet:
         """Data rows of the model table's mesh (1 but for ``data_axis`` > 1)."""
         return self.ctx.model_table.sharding.data_rows
 
-    def _build_step(self) -> None:
+    def _build_step(self, rows: Optional[int] = None) -> None:
+        """The step for the worker's device and ``rows`` data rows (the
+        table's, when not given)."""
         table = self.ctx.model_table
         if self._push_route is None:
             self._push_route = self._resolve_push_route()
-        if self._data_rows() > 1:
-            self._step = _DataParallelStep(table.spec, table.sharding, self.trainer,
+        rows = self._data_rows() if rows is None else rows
+        self._step_layout = (self.device, rows)
+        if rows > 1:
+            self._step = _DataParallelStep(table.spec, self.trainer,
                                            push_route=self._push_route,
                                            is_hash=self._is_hash())
         elif self._async_mode():
@@ -944,8 +975,51 @@ class WorkerTasklet:
             return step.submit(batch, hyper)
         table = self.ctx.model_table
         if self.trainer.uses_local_table:
-            return table.apply_step_with(self.ctx.local_table, step, batch, hyper)
-        return table.apply_step(step, batch, hyper)
+            return table.apply_step_with(self.ctx.local_table, self._layout_step,
+                                         batch, hyper)
+        return table.apply_step(self._layout_step, batch, hyper)
+
+    def _layout_step(self, state, *rest):
+        """The step on the layout the table holds NOW (called under its lock,
+        so no reshard lands inside it): a step built for another compute
+        device or number of data rows is rebuilt, and a batch that lies on
+        another device is copied to the compute device."""
+        *tables, batch, hyper = (state, *rest)
+        sharded = isinstance(state, ShardedArray)
+        dev = state.device if sharded else (state[0] if isinstance(state, tuple)
+                                            else state).device
+        rows = state.sharding.data_rows if sharded else 1
+        if dev != self.device:
+            self._rehome(dev)
+        if (dev, rows) != self._step_layout:
+            self._build_step(rows)
+        # a batch, or an epoch's hyper-parameters, made before the move
+        batch = tuple(on_device(a, dev) for a in batch)
+        hyper = {k: on_device(v, dev) for k, v in hyper.items()}
+        return self._step(*tables, batch, hyper)
+
+    def _rehome(self, device: torch.device) -> None:
+        """Follow the table to ``device``: the device copies of batches and
+        the hyper-parameter scalars are made anew there."""
+        self.device = device
+        self._batch_cache.clear()
+        self._stacked_cache = None
+        self._hyper_scalars = {}
+
+    def _follow_layout(self) -> None:
+        """At a dispatch boundary: re-home when the table now computes on
+        another device."""
+        dev = self.ctx.model_table.device
+        if dev != self.device:
+            self._rehome(dev)
+
+    def _on_layout(self, target) -> None:
+        """The table's reshard announcement (the target mesh): when the target
+        computes on another device, the epoch's pipeline stops staging onto
+        this one and drops what it staged."""
+        pipe = self._pipeline
+        if pipe is not None and target.devices.flat[0].device != self.device:
+            pipe.stop_staging()
 
     def _to_device(self, batch: Tuple[np.ndarray, ...]) -> Tuple[torch.Tensor, ...]:
         return tuple(torch.as_tensor(np.ascontiguousarray(a), device=self.device)
@@ -987,7 +1061,8 @@ class WorkerTasklet:
             _sync(self.device)
             host: List[float] = []
         else:
-            host = torch.stack(cols).cpu().tolist()
+            # a window a reshard crossed holds metrics of two devices
+            host = torch.stack([on_device(c, self.device) for c in cols]).cpu().tolist()
         values = host[:len(flat)] if key is not None else [0.0] * len(flat)
         dropped = int(sum(host[len(host) - len(drops):])) if drops else 0
         if dropped:
@@ -1078,6 +1153,7 @@ class WorkerTasklet:
 
         with table._lock:
             arr = table._step_state
+            batch = tuple(on_device(a, table.device) for a in batch)
             t_pull = timed(self._probe_pull, arr)
             t_pp = timed(self._probe_pp, arr)
         self._comm_probe_times = (t_pull, max(t_pp - t_pull, 0.0))
@@ -1159,6 +1235,7 @@ class WorkerTasklet:
         """``k`` fused epochs and ONE drain; returns each epoch's per-batch
         metrics and the window's seconds split evenly over its epochs. The
         stack is uploaded before the timer starts."""
+        self._follow_layout()
         self._ensure_stacked_cache()
         t0 = time.perf_counter()
         losses = self._drain(self._enqueue_fused_window(first_epoch, k))
@@ -1200,18 +1277,19 @@ class WorkerTasklet:
             for i, b in enumerate(self.data.epoch_batches()):
                 yield i, b, None
             return
-        pipeline = self._make_pipeline(epoch)
+        pipeline = self._pipeline = self._make_pipeline(epoch)
         try:
             for staged in pipeline:
                 yield staged.index, staged.host, staged
         finally:
+            self._pipeline = None
             pipeline.close()
             stats = pipeline.stats()
             inp = self._input
             inp["pipelines"] += 1
             inp["max_depth"] = max(inp["max_depth"], stats["max_depth"])
             for k in ("staged", "producer_idle_sec", "consumer_stall_sec",
-                      "produce_sec", "stage_sec"):
+                      "produce_sec", "stage_sec", "dropped_batches"):
                 inp[k] += stats[k]
 
     def _make_pipeline(self, epoch: int) -> PrefetchPipeline:
@@ -1333,6 +1411,7 @@ class WorkerTasklet:
         in-scope seconds are reported as the unit's cost); past
         ``_inflight_cap()`` outstanding steps each dispatch waits for the
         oldest one. Returns the steps' metrics and the gate's stop flag."""
+        self._follow_layout()
         hyper = self._hyper()
         pending: List[Dict[str, torch.Tensor]] = []
         marks: List[Optional[torch.cuda.Event]] = []
@@ -1431,10 +1510,12 @@ class WorkerTasklet:
             self.post_init_barrier()
         self.trainer.on_training_start(ctx, self.starting_epoch)
         self._build_step()
+        ctx.model_table.add_layout_listener(self._on_layout)
         try:
             with torch.no_grad():  # compute takes its own gradient
                 return self._run_epoch_loop()
         finally:
+            ctx.model_table.remove_layout_listener(self._on_layout)
             if isinstance(self._step, AsyncStepDriver):
                 self._step.shutdown()
 
@@ -1473,6 +1554,7 @@ class WorkerTasklet:
                     losses.pop()  # stopped before any batch: not an epoch at all
             if losses:
                 windows.append(len(losses))
+                self._report_batches(epoch, losses, secs)
             for epoch_batches in losses:
                 batch_losses.extend(epoch_batches)
                 epoch_losses.append(epoch_batches[-1] if epoch_batches else 0.0)
@@ -1481,12 +1563,21 @@ class WorkerTasklet:
                 # the window's last hook runs after its drain
                 self.trainer.on_epoch_finished(ctx, epoch + len(losses) - 1)
             for e in range(epoch, epoch + len(losses)):
+                if self.collector is not None:
+                    # each epoch's ops before its callback: a window's
+                    # ServerMetrics stay per epoch, as the reference's
+                    self._account_ops(len(losses[e - epoch]))
                 if self.epoch_callback is not None:
                     with self._turn():
                         self.epoch_callback(e)
                 elif self._balanced_turns():
                     with self._turn():
                         pass
+                if self.collector is not None:
+                    # after the callback, as the reference flushes: a
+                    # reconfiguration there clears the metrics before it,
+                    # not this epoch's
+                    self.collector.flush()
             epoch += window
         finished = time.perf_counter()
         self.trainer.cleanup(ctx)
@@ -1531,6 +1622,56 @@ class WorkerTasklet:
         if mode == "async":
             result["staleness"] = step.staleness_stats()
         return result
+
+    # -- metrics ---------------------------------------------------------
+
+    def _report_batches(self, first_epoch: int, losses: List[List[float]],
+                        epoch_sec: float) -> None:
+        """After a drain: queue one ``BatchMetrics`` a batch at the epoch's
+        seconds smeared over its batches, with the probe's pull/push split
+        (the unfused phases' own where they run) and comp the rest; the queue
+        is flushed after the epoch callback. Host arithmetic on numbers the
+        drain already has; nothing without a collector."""
+        if self.collector is None:
+            return
+        measured_fn = getattr(self._step, "mean_phase_seconds", None)
+        if measured_fn is not None:
+            t_pull, _, t_push = measured_fn()
+        else:
+            t_pull, t_push = self._comm_probe_times
+        for j, batch_losses in enumerate(losses):
+            per_batch = epoch_sec / max(len(batch_losses), 1)
+            comp = max(per_batch - t_pull - t_push, 0.0)
+            for b, loss in enumerate(batch_losses):
+                self.collector.add(BatchMetrics(
+                    job_id=self.job_id, worker_id=self.ctx.worker_id,
+                    epoch_idx=first_epoch + j, batch_idx=b,
+                    num_examples=self.data.batch_size, batch_time_sec=per_batch,
+                    pull_time_sec=t_pull, comp_time_sec=comp, push_time_sec=t_push,
+                    loss=float(loss)))
+
+    def _account_ops(self, steps: int) -> None:
+        """Fold ``steps`` steps' pulls and pushes (one each a step) into this
+        worker's own counters, which the entity's ServerMetrics read."""
+        self.op_stats["pulls"] += steps
+        self.op_stats["pushes"] += steps
+        self.op_stats["pull_bytes"] += steps * self._pull_size()
+
+    def _pull_size(self) -> int:
+        """Bytes a step pulls: its keys' rows (the keys of the first batch's
+        rows, on the host), or the whole table for a whole-model pull."""
+        if self._pull_bytes is None:
+            spec = self.ctx.model_table.spec
+            row = (int(np.prod(spec.value_shape)) if spec.value_shape else 1) * \
+                torch.empty(0, dtype=spec.dtype).element_size()
+            if self.trainer.pull_mode == "keys":
+                sample = tuple(torch.as_tensor(np.ascontiguousarray(a))
+                               for a in self.data.first_rows(self.data.batch_size))
+                rows = int(self.trainer.pull_keys(sample).reshape(-1).shape[0])
+            else:
+                rows = int(spec.config.capacity)
+            self._pull_bytes = rows * row
+        return self._pull_bytes
 
     # -- evaluation --------------------------------------------------------
 

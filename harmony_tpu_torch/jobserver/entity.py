@@ -48,8 +48,19 @@ global init and continues at that entry's epoch + 1. With
 the JobServer the closure that evaluates the chain at shutdown and deletes
 it.
 
-Not ported yet: elastic recovery, the optimizer loop, metric sinks and the
-pod branch (ROADMAP A.9, A.10).
+Metrics and the optimizer loop: under a JobServer each worker's drain emits
+one ``BatchMetrics`` a batch into the server's ``MetricManager``, and the
+chief's epoch hook one ``ServerMetrics`` an owning executor an epoch (its
+block count and a block-proportional share of the job's pulls and pushes).
+``JobConfig.optimizer`` names an optimizer (``_OPTIMIZERS``, or a dotted
+path): the job's :class:`~harmony_tpu_torch.optimizer.OptimizationOrchestrator`
+then runs on a timer of ``optimizer_period`` seconds beside the workers,
+turning the metrics into plans that move the model table's blocks while the
+job trains (the reference's ETOptimizationOrchestrator). One loop a table:
+a tenant of a shared table whose loop already runs trains without one.
+
+Not ported yet: elastic recovery, ``--auto-resume`` and the pod branch of the
+optimizer loop (ROADMAP A items 3 and 4).
 """
 from __future__ import annotations
 
@@ -59,7 +70,7 @@ import logging
 import tempfile
 import threading
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -76,6 +87,8 @@ from harmony_tpu_torch.dolphin.master import (
 )
 from harmony_tpu_torch.dolphin.trainer import Trainer, TrainerContext
 from harmony_tpu_torch.dolphin.worker import WorkerTasklet
+from harmony_tpu_torch.metrics.collector import MetricCollector, ServerMetrics
+from harmony_tpu_torch.metrics.manager import MetricManager
 from harmony_tpu_torch.pregel.master import PregelMaster
 from harmony_tpu_torch.runtime.master import ETMaster, Table, TableHandle
 from harmony_tpu_torch.runtime.taskunit import (
@@ -95,10 +108,16 @@ class DolphinJobEntity:
         global_taskunit: Optional[GlobalTaskUnitScheduler] = None,
         local_taskunit: Optional[LocalTaskUnitScheduler] = None,
         chkp_root: Optional[str] = None,
+        metric_sink: Optional[Callable[[Any], None]] = None,
+        metric_manager: Optional[MetricManager] = None,
     ) -> None:
         self.config = config
         self._global_tu = global_taskunit
         self._local_tu = local_taskunit
+        # the JobServer's MetricManager (its on_metric is the sink)
+        self._metric_sink = metric_sink
+        self._metric_manager = metric_manager
+        self._workers: List[WorkerTasklet] = []
         # where the job's checkpoint chain lives (None: a temporary directory)
         self.chkp_root = chkp_root
         self._starting_epoch = 0       # > 0 when resumed from a chain
@@ -217,9 +236,13 @@ class DolphinJobEntity:
         data = TrainingDataProvider(
             [a[lo:hi] for a in self._data_arrays], nb,
             dataset_key=None if src is None else (src, lo, hi, nb))
+        wid = f"{cfg.job_id}/w{idx}"
         ctx = TrainerContext(params=cfg.params, model_table=self._table,
-                             local_table=self._local, worker_id=f"{cfg.job_id}/w{idx}",
+                             local_table=self._local, worker_id=wid,
                              num_workers=num_workers)
+        if self._metric_sink is not None:
+            worker_args.setdefault("collector", MetricCollector(
+                sink=self._metric_sink, job_id=cfg.job_id, worker_id=wid))
         # a resumed job must not run global init again: the restored table
         # holds trained state, and an additive init would change it
         return WorkerTasklet(cfg.job_id, ctx, self._make_trainer(), data,
@@ -367,7 +390,8 @@ class DolphinJobEntity:
                 tracker.on_batch(wid0, (e + 1) * nb - 1)
 
         chain_hook = self._make_chain()
-        hooks = [h for h in (tracker_hook, chain_hook) if h is not None]
+        tm_hook = self._make_table_metrics_hook()
+        hooks = [h for h in (tracker_hook, chain_hook, tm_hook) if h is not None]
 
         def epoch_hook(e: int) -> None:
             for h in hooks:
@@ -417,6 +441,7 @@ class DolphinJobEntity:
                     # a multi-epoch window; a chain snapshots the table AT its
                     # epoch, so it keeps windows at one epoch
                     defer_epoch_callback=chain_hook is None)
+                self._workers.append(worker)
                 scope = (torch.cuda.stream(stream) if stream is not None
                          else contextlib.nullcontext())
                 with scope:
@@ -439,20 +464,36 @@ class DolphinJobEntity:
         threads = [threading.Thread(target=run_worker, args=(i,),
                                     name=f"{cfg.job_id}-w{i}", daemon=True)
                    for i in range(num_workers)]
+        orchestrator = self._make_orchestrator()
+        if orchestrator is not None:
+            orchestrator.start()
         try:
             for t in threads:
                 t.start()
             for t in threads:
                 t.join()
         finally:
+            if orchestrator is not None:
+                orchestrator.stop()
+                self._master.release_optimizer_lease(self._table.spec.table_id)
             if self._global_tu is not None:
                 self._global_tu.on_job_finish(cfg.job_id)
         if errors:
             raise errors[0]
+        if tm_hook is not None:
+            # the closing window: ops of peers that lagged the chief's last hook
+            tm_hook(params.num_epochs)
         # perf_counter from the start of setup (tables, data) to the workers' end
         out = {"job_id": cfg.job_id,
                "workers": {w: results[w] for w in wids},
                "span": [self._setup_start, time.perf_counter()]}
+        if orchestrator is not None:
+            out["reconfigs"] = len(orchestrator.reconfig_log)
+            if orchestrator.errors:
+                # failed rounds are visible in the result, not only in a list
+                # that dies with the orchestrator
+                out["optimizer_errors"] = [
+                    f"{type(e).__name__}: {e}" for e in orchestrator.errors]
         if self._chkp_chain is not None:
             # join the writers before the table is dropped; the surviving ids
             # are the replayable chain. A checkpoint failure does not fail a
@@ -465,6 +506,84 @@ class DolphinJobEntity:
             out["model_chkp_root"] = self._chkp_dir
             out["model_chkp_stats"] = self._chkp_chain.stats
         return out
+
+    # -- the optimizer loop and its metrics --------------------------------
+
+    _OPTIMIZERS = {
+        "homogeneous": "harmony_tpu_torch.optimizer:HomogeneousOptimizer",
+        "heterogeneous": "harmony_tpu_torch.optimizer:HeterogeneousOptimizer",
+        "add_one_server": "harmony_tpu_torch.optimizer:AddOneServerOptimizer",
+        "delete_one_server": "harmony_tpu_torch.optimizer:DeleteOneServerOptimizer",
+        "empty": "harmony_tpu_torch.optimizer:EmptyPlanOptimizer",
+    }
+
+    def _make_orchestrator(self):
+        """The job's elasticity loop (the reference's
+        ETOptimizationOrchestrator run for each Dolphin job), or None:
+        metrics -> Optimizer -> plan -> live migration of THIS job's model
+        table while it trains. Enabled by ``JobConfig.optimizer`` (a registry
+        name or a dotted path)."""
+        name = self.config.optimizer
+        if not name:
+            return None
+        if self._metric_manager is None:
+            raise ValueError(
+                f"job {self.config.job_id}: optimizer={name!r} needs the "
+                "jobserver's MetricManager (running outside a JobServer?)")
+        table_id = self._table.spec.table_id
+        # one optimization loop a table: a tenant attaching to a shared table
+        # whose creator already optimizes it trains unoptimized rather than
+        # racing competing migration plans
+        if not self._master.acquire_optimizer_lease(table_id):
+            return None
+        try:
+            from harmony_tpu_torch.optimizer import OptimizationOrchestrator
+
+            cls = resolve_symbol(self._OPTIMIZERS.get(name, name))
+            return OptimizationOrchestrator(
+                self._master, self._master.table_handle(table_id), cls(),
+                self._metric_manager, period_sec=self.config.optimizer_period,
+                job_id=self.config.job_id)
+        except BaseException:
+            # run() releases through the orchestrator; a construction failure
+            # would otherwise hold the lease for good
+            self._master.release_optimizer_lease(table_id)
+            raise
+
+    def _make_table_metrics_hook(self):
+        """The per-epoch ``ServerMetrics`` report (the reference's ET
+        MetricReportMsg built-ins: per-table block counts, pull and push
+        counts, pulled bytes), or None without a sink. Each owning executor
+        reports its block count and a block-proportional share of THIS job's
+        op-counter deltas since the last report, split by largest remainder
+        so the shares sum exactly to the total."""
+        if self._metric_sink is None:
+            return None
+        from harmony_tpu_torch.optimizer.hetero import _largest_remainder as apportion
+
+        last = {"pulls": 0, "pushes": 0, "pull_bytes": 0}
+        job_id = self.config.job_id
+        bm = TableHandle(self._master, self._table, self._executor_ids).block_manager
+
+        def report(epoch_idx: int) -> None:
+            stats = {k: 0 for k in last}
+            for w in list(self._workers):
+                for k in stats:
+                    stats[k] += w.op_stats[k]
+            delta = {k: stats[k] - last[k] for k in last}
+            last.update(stats)
+            owners = [(ex, n) for ex, n in bm.block_counts().items() if n > 0]
+            weights = [n for _, n in owners]
+            pulls = apportion(delta["pulls"], weights)
+            pushes = apportion(delta["pushes"], weights)
+            pbytes = apportion(delta["pull_bytes"], weights)
+            for i, (ex, nblocks) in enumerate(owners):
+                self._metric_sink(ServerMetrics(
+                    job_id=job_id, executor_id=ex, window_idx=epoch_idx,
+                    num_blocks=nblocks, pull_count=pulls[i], push_count=pushes[i],
+                    pull_bytes=pbytes[i]))
+
+        return report
 
     @property
     def table_handle(self) -> Optional[TableHandle]:
@@ -560,10 +679,14 @@ class PregelJobEntity:
 
 def build_entity(config: JobConfig, chkp_root: Optional[str] = None, **kwargs: Any):
     """The app-type switch (the reference's ``JobEntity.getJobEntity``);
-    ``kwargs`` are the TaskUnit schedulers, ``chkp_root`` the root of a
-    Dolphin job's checkpoint chain (a graph job has no model table)."""
+    ``kwargs`` are the TaskUnit schedulers and a Dolphin job's metric sink and
+    manager, ``chkp_root`` the root of a Dolphin job's checkpoint chain (a
+    graph job has no model table)."""
     if config.app_type == "dolphin":
         return DolphinJobEntity(config, chkp_root=chkp_root, **kwargs)
     if config.app_type == "pregel":
+        # a graph job has no model table: no metric sources, no optimizer
+        kwargs.pop("metric_sink", None)
+        kwargs.pop("metric_manager", None)
         return PregelJobEntity(config, **kwargs)
     raise ValueError(f"unknown app_type {config.app_type!r}")

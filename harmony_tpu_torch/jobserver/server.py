@@ -46,6 +46,11 @@ endpoint reads a job's live table through it, and its pinned reads through
 ``chkp_root``. ``shutdown`` closes the command plane first and the serving
 endpoint last.
 
+Metrics: the server owns one ``MetricManager`` (``metrics``), collecting
+from the start; every Dolphin entity gets its ``on_metric`` as the sink of
+its workers' ``BatchMetrics`` and its ``ServerMetrics``, and the manager
+itself for a job's optimizer loop (``JobConfig.optimizer``).
+
 Not ported yet: HA (``NOT_LEADER`` gating), the pod, the policy engine,
 history and doctor, metrics scraping, and the STATUS fields of those
 subsystems (ROADMAP A.10).
@@ -73,6 +78,7 @@ from harmony_tpu_torch.jobserver.scheduler import (
     ShareAllScheduler,
     make_scheduler,
 )
+from harmony_tpu_torch.metrics.manager import MetricManager
 from harmony_tpu_torch.parallel.mesh import DevicePool
 from harmony_tpu_torch.runtime.master import ETMaster
 from harmony_tpu_torch.runtime.taskunit import (
@@ -118,6 +124,8 @@ class JobServer:
         self._jobs: Dict[str, Future] = {}
         self._threads: List[threading.Thread] = []
         self._chkp_root = chkp_root
+        self.metrics = MetricManager()
+        self.metrics.start_collection()
         # job id -> the closure of its deferred offline evaluation
         self._deferred_evals: Dict[str, Any] = {}
         # job id -> the evaluations of its chain, or {"error": ...}
@@ -185,7 +193,9 @@ class JobServer:
         try:
             entity = build_entity(config, chkp_root=self._chkp_root,
                                   global_taskunit=self.global_taskunit,
-                                  local_taskunit=self.local_taskunit)
+                                  local_taskunit=self.local_taskunit,
+                                  metric_sink=self.metrics.on_metric,
+                                  metric_manager=self.metrics)
             with self._lock:
                 self._entities[config.job_id] = entity
             try:

@@ -1,25 +1,33 @@
 """ETMaster — executors and the tables placed on them.
 
-Counterpart of ``harmony_tpu/runtime/master.py``, cut to what a job entity
-needs in this port: executors, each leasing one slot of the
-:class:`DevicePool` (``add_executors``; a slot is a place on one device,
-``parallel/mesh.py``), and the table lifecycle (create a job's table over its
-executors, list, drop): a ``DenseTable``, or a ``DeviceHashTable`` when the
-config is ``sparse``. A table over several executors is split block-major
-over the mesh of their slots (:func:`_mesh_over`, ``data_axis`` rows of
-replicas, the blocks sharded along the model axis), and each table has the
-reference's ``BlockManager``, the logical ownership its checkpoint
-manifests record. :class:`TableHandle` is the reference's handle cut to what
-the checkpoint path and the bulk loader read (the table, its executors, its
-block ownership, ``load``, drop): ``create_table`` returns the table itself,
-and the checkpoint manager wraps what it restores in a handle. Block
-migration, rebalancing and resharding a live table are not ported yet
-(ROADMAP A.10).
+Counterpart of ``harmony_tpu/runtime/master.py``: executors, each leasing one
+slot of the :class:`DevicePool` (``add_executors``; a slot is a place on one
+device, ``parallel/mesh.py``), and the table lifecycle (create a job's table
+over its executors, list, drop): a ``DenseTable``, or a ``DeviceHashTable``
+when the config is ``sparse``. A table over several executors is split
+block-major over the mesh of their slots (:func:`_mesh_over`, ``data_axis``
+rows of replicas, the blocks sharded along the model axis), and each table
+has the reference's ``BlockManager``, its logical block ownership.
+``create_table`` returns the table itself; :meth:`ETMaster.table_handle` (the
+reference's ``get_table``) wraps it in a :class:`TableHandle`.
+
+:class:`TableHandle` is the reference's AllocatedTable surface: associate,
+unassociate, ``move_blocks``, ``rebalance``, ``load`` and drop. Ownership is
+logical in the ``BlockManager`` and physical in the table's mesh, which is
+the mesh over the OWNING executors' slots: a change of the owning set
+announces the target mesh to the table's listeners, flips the ownership map,
+and reshards the table live (``DenseTable.reshard``,
+``DeviceHashTable.reshard``: only the blocks that leave a slot are copied).
+As in the reference, uneven logical ownership is realised at the mesh's
+granularity: ``block_sharding`` shards the block axis when the owners divide
+the blocks and replicates it otherwise. At most one optimization loop drives
+a table's moves (``acquire_optimizer_lease``).
 """
 from __future__ import annotations
 
+import itertools
 import threading
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -29,6 +37,7 @@ from harmony_tpu_torch.parallel.mesh import DevicePool, Mesh, Slot, build_mesh
 from harmony_tpu_torch.table.hashtable import MIN_KEY, DeviceHashTable, HashTableSpec
 from harmony_tpu_torch.table.ownership import BlockManager
 from harmony_tpu_torch.table.table import DenseTable, TableSpec
+from harmony_tpu_torch.tracing.span import trace_span
 
 Table = Union[DenseTable, DeviceHashTable]
 
@@ -65,23 +74,83 @@ class Executor:
 
 
 class TableHandle:
-    """A table with the executors it was created on (the reference's
-    ``TableHandle``, cut to what the checkpoint manager and the bulk loader
-    read), married to the table's ``BlockManager``."""
+    """A table married to its ``BlockManager`` (the reference's
+    ``TableHandle``): the master's, for a table the master holds, else one
+    over ``executors``."""
 
     def __init__(self, master: "ETMaster", table: Table,
                  executors: Sequence[str]) -> None:
         self._master = master
         self.table = table
-        self.executors: List[str] = list(executors)
         held = master.block_manager_of(table) if master is not None else None
         self.block_manager = held or BlockManager(
-            table.spec.table_id, table.spec.num_blocks, self.executors)
+            table.spec.table_id, table.spec.num_blocks, list(executors))
         self._next_generated_key = 0  # generated keys of load()
 
     @property
     def table_id(self) -> str:
         return self.table.spec.table_id
+
+    @property
+    def executors(self) -> List[str]:
+        """The associated executors, in the block manager's order."""
+        return self.block_manager.executors
+
+    # -- ownership ops (the AllocatedTable surface) ----------------------
+
+    def associate(self, executor_id: str) -> None:
+        """Add an executor as a potential owner; no data moves yet (the
+        reference's AllocatedTable.associate)."""
+        self.block_manager.associate(executor_id)
+
+    def unassociate(self, executor_id: str) -> None:
+        """Remove an executor (it must own no blocks) and reshard off its
+        slot."""
+        self._announce_target([e for e in self.owning_executors() if e != executor_id])
+        self.block_manager.unassociate(executor_id)
+        self._reshard_to_owners()
+
+    def move_blocks(self, src: str, dst: str, num_blocks: int) -> List[int]:
+        """Move ``num_blocks`` blocks' ownership from ``src`` to ``dst`` and
+        reshard the table when the owning set changes (the reference's
+        AllocatedTable.moveBlocks). Ownership first: the target layout is
+        announced before the map flips, the map flips, then the bytes move
+        under the table lock (the reference's access latch)."""
+        counts = self.block_manager.block_counts()
+        n = min(num_blocks, counts.get(src, 0))
+        counts[src] = counts.get(src, 0) - n
+        counts[dst] = counts.get(dst, 0) + n
+        with trace_span("table.blockmove", table=self.table_id, src=src,
+                        dst=dst, blocks=n):
+            self._announce_target(
+                [e for e in self.block_manager.executors if counts.get(e, 0) > 0])
+            moved = self.block_manager.move(src, dst, num_blocks)
+            self._reshard_to_owners()
+        return moved
+
+    def rebalance(self, executor_ids: Sequence[str]) -> None:
+        """Even repartition across ``executor_ids`` and the reshard onto them."""
+        self._announce_target(list(executor_ids))
+        self.block_manager.rebalance(list(executor_ids))
+        self._reshard_to_owners()
+
+    def owning_executors(self) -> List[str]:
+        counts = self.block_manager.block_counts()
+        return [e for e in self.block_manager.executors if counts.get(e, 0) > 0]
+
+    def _mesh_for(self, owners: Sequence[str]) -> Mesh:
+        slots = [self._master.executor(e).slot for e in owners]
+        return _mesh_over(slots, self._master.data_axis_of(self.table_id))
+
+    def _announce_target(self, target_owners: Sequence[str]) -> None:
+        """Announce the layout after the change BEFORE the logical flip, while
+        the ownership map still matches the bytes: the table's listeners
+        drop what they staged for the old layout."""
+        if target_owners:
+            self.table.announce_reshard(self._mesh_for(target_owners))
+
+    def _reshard_to_owners(self) -> None:
+        self.table.reshard(self._mesh_for(self.owning_executors()))
 
     def ownership_vector(self) -> List[int]:
         """Block -> index into the block manager's executors (this handle's,
@@ -107,7 +176,7 @@ class TableHandle:
         not counted)."""
         from harmony_tpu_torch.data.splits import compute_splits, fetch_split
 
-        n = num_splits or max(len(self.executors), 1)
+        n = num_splits or max(len(self.owning_executors()), 1)
         total = 0
         for split in compute_splits(list(paths), n):
             records = fetch_split(split)
@@ -156,17 +225,27 @@ class ETMaster:
         # several jobs, so its storage is freed only when the LAST holder
         # drops it (a creator finishing first must not free a tenant's table).
         self._table_refs: Dict[str, int] = {}
+        # At most ONE optimization loop may drive a table's migrations: two
+        # orchestrators planning from stale snapshots would race competing
+        # plans against one block map.
+        self._optimizer_leases: set = set()
+        self._executor_ids = itertools.count()   # never reused
 
     # -- executors -------------------------------------------------------
 
-    def add_executors(self, num: int) -> List[Executor]:
+    def add_executors(self, num: int, conf: Any = None) -> List[Executor]:
         """Allocate ``num`` executors, each leasing one slot of the pool
-        exclusively; all or nothing."""
+        exclusively; all or nothing. ``conf`` is the reference's
+        heterogeneous request (an ``ExecutorConfig`` naming a device kind or
+        a host process): the port's pool has one kind of slot, so only None
+        is taken."""
+        if conf is not None:
+            raise ValueError(f"heterogeneous executor requests are not ported: {conf!r}")
         out: List[Executor] = []
         with self._lock:
             try:
                 for _ in range(num):
-                    eid = f"executor-{len(self._executors)}"
+                    eid = f"executor-{next(self._executor_ids)}"
                     (slot,) = self._pool.lease(eid, 1)
                     ex = self._executors[eid] = Executor(eid, slot)
                     out.append(ex)
@@ -236,6 +315,12 @@ class ETMaster:
         with self._lock:
             return self._tables[table_id]
 
+    def table_handle(self, table_id: str) -> TableHandle:
+        """The table with its block manager (the reference's ``get_table``)."""
+        with self._lock:
+            table = self._tables[table_id]
+            return TableHandle(self, table, self._block_managers[table_id].executors)
+
     def table_ids(self) -> List[str]:
         with self._lock:
             return list(self._tables)
@@ -243,6 +328,19 @@ class ETMaster:
     def data_axis_of(self, table_id: str) -> int:
         with self._lock:
             return self._data_axis.get(table_id, 1)
+
+    def acquire_optimizer_lease(self, table_id: str) -> bool:
+        """True if the caller may run the optimization loop for this table
+        (exclusive; see ``_optimizer_leases``)."""
+        with self._lock:
+            if table_id in self._optimizer_leases:
+                return False
+            self._optimizer_leases.add(table_id)
+            return True
+
+    def release_optimizer_lease(self, table_id: str) -> None:
+        with self._lock:
+            self._optimizer_leases.discard(table_id)
 
     def block_manager_of(self, table: Table) -> Optional[BlockManager]:
         """The block manager of a table this master holds; None for a table

@@ -52,8 +52,9 @@ keys of its own blocks (keys of other blocks are masked out, in their batch
 order), and every replica admits the same keys in the same order. A pull
 reads with K1 once on each shard of its data row, a push folds with K2 once
 on each slot; the slot placements and values are the one-slot table's, byte
-for byte. ``reshard`` and ``addressable_blocks`` wait for the port of live
-resharding, the multi-process pod and elastic recovery (ROADMAP A.9, A.10).
+for byte. ``reshard`` moves the slot keys and the values together onto a new
+mesh (``table/blockmove.py``), so every key keeps its slot. ``addressable_blocks``
+is the multi-process pod's and waits for it (ROADMAP A item 3).
 """
 from __future__ import annotations
 
@@ -73,11 +74,12 @@ from harmony_tpu_torch.table.table import (
     ShardedArray,
     StreamOrder,
     _import_part,
-    _same_storage,
+    _sharding_of,
     _snapshot_part,
     block_sharding,
     mesh_of,
     on_device,
+    reshard_array,
 )
 from harmony_tpu_torch.table.update import UpdateFunction, get_update_fn
 from harmony_tpu_torch.utils.platform import DeviceLike
@@ -601,12 +603,14 @@ class DeviceHashTable(StreamOrder, LayoutAnnouncerMixin):
 
     def commit(self, new_state: State) -> None:
         """Install the post-step state (a step that updated in place hands back
-        the same tensors, or the same shards)."""
+        the same tensors, or the same shards). A state computed on the layout
+        before a reshard is re-homed onto the current one."""
         with self._lock:
             self._check()
+            src = _sharding_of(new_state, self.sharding)
+            if src != self.sharding:
+                new_state = reshard_array(new_state, src, self.sharding)
             if isinstance(self._state, ShardedArray) or isinstance(new_state, ShardedArray):
-                if not _same_storage(new_state, self._state):
-                    raise ValueError("commit: state sharding changed")
                 self._state = ShardedArray(new_state.sharding, new_state.shards)
                 self._after_write()
                 return
@@ -792,15 +796,19 @@ class DeviceHashTable(StreamOrder, LayoutAnnouncerMixin):
                     _import_part(st[i], ids, payload, dtype)
             self._after_write()
 
-    # -- elasticity: not ported yet ------------------------------------------
+    # -- re-sharding (the migration path) --------------------------------
 
-    def _not_ported(self, what: str):
-        raise NotImplementedError(
-            f"DeviceHashTable.{what} waits for the port of live resharding and "
-            "elastic recovery (ROADMAP A.9's pod, A.10)")
-
-    def reshard(self, *args, **kwargs) -> None:
-        self._not_ported("reshard")
+    def reshard(self, new_mesh: "Mesh | DeviceLike") -> None:
+        """Live migration to a new mesh, as ``DenseTable.reshard``: under the
+        lock, after every enqueued write and read, the (slot_keys, values)
+        pair is rebuilt on the new sharding, both parts block for block, and
+        only then do the mesh, sharding and state flip. Bumps the same
+        counter as a write (``data_version``), so a serving cache retires
+        its rows."""
+        self._check()
+        self._reshard_storage(new_mesh, "_state")
 
     def addressable_blocks(self, *args, **kwargs):
-        self._not_ported("addressable_blocks")
+        raise NotImplementedError(
+            "DeviceHashTable.addressable_blocks is the multi-process pod's "
+            "(ROADMAP A item 3)")

@@ -8,10 +8,11 @@ SubscriptionManager's broadcast, and the shrink-plan helpers over a
 checkpointed ownership vector.
 
 As in the reference, the map is LOGICAL ownership: it is what the checkpoint
-manifest's ownership vector records. The physical layout of a table over
-several executors is the contiguous block split of
-``table/table.py::block_sharding`` over the table's mesh. Moving blocks and
-rebalancing a live table wait for the port of live resharding (ROADMAP A.10).
+manifest's ownership vector records, and what the optimizer loop reads and
+moves (``runtime/master.py::TableHandle.move_blocks``, ``rebalance``). The
+physical layout of a table over several executors is the contiguous block
+split of ``table/table.py::block_sharding`` over the mesh of the OWNING
+executors, rebuilt by a live reshard whenever that set changes.
 """
 from __future__ import annotations
 

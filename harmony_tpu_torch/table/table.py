@@ -196,22 +196,34 @@ class StreamOrder:
                 ev = reads[s] = torch.cuda.Event()
             ev.record(s)
 
+    def _order_new_layout(self) -> None:
+        """After a reshard, under the lock: the mesh's cards are those of the
+        new layout, and the reshard's copies, enqueued on each card's current
+        stream, are every card's last write."""
+        self._cards = list(dict.fromkeys(
+            s.device for s in self.mesh.slots if s.device.type == "cuda"))
+        self._write_stream = {d: torch.cuda.current_stream(d) for d in self._cards}
+        self._read_events = {d: {} for d in self._cards}
+        self._write_event = {}
+        self._data_version += 1
+
     @property
     def data_version(self) -> int:
-        """Monotonic count of storage writes (a serving cache keys its rows
-        by it, so a write retires them)."""
+        """Monotonic count of storage writes, a reshard included (a serving
+        cache keys its rows by it, so a write retires them)."""
         with self._lock:
             return self._data_version
 
 
 class LayoutAnnouncerMixin:
     """Reshard announcements, shared by dense and hash tables (the
-    reference's mixin, ``harmony_tpu/table/table.py:136-200``): listeners
-    run with the target mesh before a reshard, and ``layout_version``
-    counts the announcements. The port has no reshard yet (ROADMAP A.10);
-    the serving cache listens, and drops a job's live rows on each
-    announcement. The reference's ``comm_split`` pair is left out: the
-    port's worker keeps its probe's split itself
+    reference's mixin, ``harmony_tpu/table/table.py:136-200``): the caller of
+    a reshard (``TableHandle._announce_target``) runs the listeners with the
+    target mesh before the ownership flip, and ``layout_version`` counts the
+    announcements. The listeners drop what they staged for the old layout:
+    the serving cache a job's live rows, a worker its device batches when
+    the target computes on another device. The reference's ``comm_split``
+    pair is left out: the port's worker keeps its probe's split itself
     (``WorkerTasklet._comm_probe_times``). Hosts init
     ``self._layout_listeners = []`` and hold ``self._lock``."""
 
@@ -229,6 +241,24 @@ class LayoutAnnouncerMixin:
         """Monotonic count of reshard announcements."""
         with self._lock:
             return getattr(self, "_layout_version", 0)
+
+    def _reshard_storage(self, new_mesh, attr: str) -> None:
+        """Move the storage held in ``attr`` onto ``new_mesh`` (the body of
+        ``DenseTable.reshard`` and ``DeviceHashTable.reshard``): under the
+        table lock, after every enqueued write and read, the storage is
+        rebuilt on the new sharding (``reshard_array``) and only then do the
+        mesh, sharding, device and storage flip; onto the current layout,
+        nothing happens. Counts as a write."""
+        mesh = mesh_of(new_mesh)
+        sharding = block_sharding(mesh, self.spec.num_blocks)
+        with self._lock, dispatch_scope(max(self.mesh, mesh, key=lambda m: m.size)):
+            if sharding == self.sharding:
+                return
+            self._before_write()
+            setattr(self, attr, reshard_array(getattr(self, attr), self.sharding, sharding))
+            self.mesh, self.sharding = mesh, sharding
+            self.device = sharding.compute_slot().device
+            self._order_new_layout()
 
     def announce_reshard(self, target: Mesh) -> None:
         """Run the listeners with the ``target`` mesh (outside the table lock).
@@ -296,6 +326,16 @@ class BlockSharding:
     def slot_blocks(self, slot: Slot) -> range:
         """The blocks ``slot`` holds (the reference's addressable shard)."""
         return self.shard_blocks(self.shard_of(slot))
+
+    def devices_indices_map(self, shape: Tuple[int, ...]) -> Dict[Slot, Tuple[slice]]:
+        """slot -> the index of its shard along the block axis (the
+        reference's ``NamedSharding.devices_indices_map``; the planner of
+        ``table/blockmove.py`` reads it)."""
+        out = {}
+        for slot in self.mesh.slots:
+            b = self.slot_blocks(slot)
+            out[slot] = (slice(b.start, b.stop),)
+        return out
 
     def row_slots(self, r: int = 0) -> List[Slot]:
         """The slots data row ``r`` reads, one for each shard, in shard order."""
@@ -376,9 +416,32 @@ class ShardedArray:
         return pieces[0].clone() if len(pieces) == 1 else torch.cat(pieces)
 
 
-def _same_storage(a, b) -> bool:
-    return a is b or (isinstance(a, ShardedArray) and isinstance(b, ShardedArray)
-                      and a.sharding == b.sharding)
+def reshard_array(storage, old_sharding: BlockSharding, new_sharding: BlockSharding):
+    """Route a table's storage onto a new sharding, choosing the transfer up
+    front (the reference's ``reshard_array``; never by catching an
+    exception):
+
+      * the same sharding: the storage itself;
+      * a mesh that spans processes: ``blockmove.migrate_blocks`` refuses it
+        (the pod's transports, ROADMAP A item 3);
+      * else the in-process block move, ``blockmove.migrate_blocks``."""
+    from harmony_tpu_torch.table.blockmove import migrate_blocks
+
+    if old_sharding == new_sharding:
+        return storage
+    return migrate_blocks(storage, old_sharding, new_sharding)
+
+
+def _sharding_of(storage, current: BlockSharding) -> BlockSharding:
+    """The sharding a step result carries: a ShardedArray's own, else the
+    one-slot sharding of the device it lies on (``current`` when that is the
+    table's own one-slot layout)."""
+    if isinstance(storage, ShardedArray):
+        return storage.sharding
+    t = storage[0] if isinstance(storage, tuple) else storage
+    if current.mesh.size == 1 and current.compute_slot().device == t.device:
+        return current
+    return BlockSharding(build_mesh([Slot(-1, t.device)]), current.num_blocks)
 
 
 class TableSpec:
@@ -833,11 +896,14 @@ class DenseTable(StreamOrder, LayoutAnnouncerMixin):
 
     def commit(self, new_arr) -> None:
         """Install the post-step storage (a step that updated in place hands
-        back the same tensor, or the same shards) and count the write."""
+        back the same tensor, or the same shards) and count the write. A
+        result computed on the layout before a reshard is re-homed onto the
+        current one (the reference's commit)."""
         with self._lock:
+            src = _sharding_of(new_arr, self.sharding)
+            if src != self.sharding:
+                new_arr = reshard_array(new_arr, src, self.sharding)
             if isinstance(self._arr, ShardedArray) or isinstance(new_arr, ShardedArray):
-                if not _same_storage(new_arr, self._arr):
-                    raise ValueError("commit: storage sharding changed")
                 new_arr = ShardedArray(new_arr.sharding, new_arr.shards)
             elif (tuple(new_arr.shape) != self.spec.storage_shape
                     or new_arr.dtype != self.spec.dtype
@@ -891,6 +957,19 @@ class DenseTable(StreamOrder, LayoutAnnouncerMixin):
         table holds none afterwards (``array`` is None)."""
         with self._lock:
             self._arr = None
+
+    # -- re-sharding (the migration path) --------------------------------
+
+    def reshard(self, new_mesh: "Mesh | DeviceLike") -> None:
+        """Move the table onto a new mesh (an executor added or drained, a
+        rebalance), live: under the table lock, after every write and read
+        enqueued so far (``_before_write``), the storage is rebuilt on the new
+        sharding (``reshard_array``: only the blocks that leave a slot are
+        copied), and only then do the mesh, sharding, device and storage
+        flip (transfer first, mutate after, as the reference's). A step or
+        host op waiting on the lock runs on the new layout. Counts as a
+        write (``data_version``); onto the current layout it is a no-op."""
+        self._reshard_storage(new_mesh, "_arr")
 
     # -- per-block I/O (the checkpoint path) ------------------------------
 

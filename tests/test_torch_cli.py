@@ -111,7 +111,12 @@ def test_port_imports_neither_jax_nor_harmony_tpu():
                    "utils/framing.py", "faults/partition.py", "serving/protocol.py",
                    "serving/service.py", "serving/client.py", "jobserver/client.py",
                    "jobserver/overload.py", "jobserver/policy.py", "data/parsers.py",
-                   "data/splits.py", "data/storer.py"):
+                   "data/splits.py", "data/storer.py", "utils/dag.py", "plan/ops.py",
+                   "plan/plan.py", "plan/executor.py", "optimizer/api.py",
+                   "optimizer/compiler.py", "optimizer/homogeneous.py",
+                   "optimizer/hetero.py", "optimizer/sample.py",
+                   "optimizer/orchestrator.py", "metrics/collector.py",
+                   "metrics/manager.py", "table/blockmove.py"):
         assert PORT / module in files
     for path in files:
         for mod in _imports(path):
@@ -140,3 +145,115 @@ def test_importing_the_port_loads_no_jax():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.splitlines()[0] == "0", out.stdout
+
+
+# -- the optimizer flags -------------------------------------------------------
+
+
+def _jax_args(argv):
+    """``argv`` parsed as the reference's ``run`` parses it (its parser is
+    built inside its ``main``, from ``_common_job_flags``)."""
+    import argparse
+
+    from harmony_tpu import cli as jax_cli
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("cmd")
+    ap.add_argument("app")
+    jax_cli._common_job_flags(ap)
+    return ap.parse_args(argv)
+
+
+def _both_configs(argv):
+    from harmony_tpu import cli as jax_cli
+
+    app = argv[1]
+    return (cli.build_config(app, cli.build_parser().parse_args(argv)),
+            jax_cli.build_config(app, _jax_args(argv)))
+
+
+@pytest.mark.parametrize("argv", [
+    ["run", "pagerank", "--optimizer", "homogeneous"],
+    ["run", "widedeep", "--optimizer", "no_such_optimizer"],
+    ["run", "widedeep", "--optimizer", "harmony_tpu_torch.optimizer:Nope"],
+])
+def test_optimizer_flag_validation_is_the_references(argv):
+    """A graph app refuses --optimizer, an unknown name fails before the
+    job starts: both packages exit, and the messages name the same flag."""
+    from harmony_tpu import cli as jax_cli
+
+    app = argv[1]
+    with pytest.raises(SystemExit) as got:
+        cli.build_config(app, cli.build_parser().parse_args(argv))
+    with pytest.raises(SystemExit) as want:
+        jax_cli.build_config(app, _jax_args(argv))
+    assert "--optimizer" in str(got.value) and "--optimizer" in str(want.value)
+
+
+def test_optimizer_flags_reach_the_job_config():
+    argv = ["run", "widedeep", "--optimizer", "add_one_server", "--optimizer-period", "0.5"]
+    got, want = _both_configs(argv)
+    assert (got.optimizer, got.optimizer_period) == (want.optimizer, want.optimizer_period) \
+        == ("add_one_server", 0.5)
+    got, want = _both_configs(["run", "widedeep"])
+    assert (got.optimizer, got.optimizer_period) == (want.optimizer, want.optimizer_period) \
+        == (None, 5.0)
+
+
+def _owners_at_drop(master, drop_name):
+    """Record each table's owning executors when it is dropped."""
+    owners = {}
+    drop = getattr(master, drop_name)
+
+    def spy(tid):
+        if tid in master.table_ids():
+            h = master.table_handle(tid) if hasattr(master, "table_handle") \
+                else master.get_table(tid)
+            owners[tid] = len(h.owning_executors())
+        drop(tid)
+
+    setattr(master, drop_name, spy)
+    return owners
+
+
+@pytest.mark.parametrize("optimizer,executors,owners", [
+    ("add_one_server", 2, 3), ("delete_one_server", 3, 2)])
+def test_cli_run_with_an_optimizer_moves_blocks_mid_training(optimizer, executors, owners):
+    """``run widedeep --optimizer ...`` under a JobServer of ``executors``
+    executors on a pool of 4 slots (the reference's on 4 virtual devices):
+    the loop moves the table while the job trains, and both end with the
+    same owning executors."""
+    import jax
+
+    from harmony_tpu.jobserver import JobServer as JaxJobServer
+    from harmony_tpu.parallel import DevicePool as JaxDevicePool
+
+    argv = ["run", "widedeep", "--epochs", "3", "--batches", "4", "--optimizer",
+            optimizer, "--optimizer-period", "0.05", *SMALL]
+    got_cfg, want_cfg = _both_configs(argv)
+    server = JobServer(executors, device_pool=DevicePool.virtual("cpu", 4))
+    server.start()
+    got_owners = _owners_at_drop(server.master, "drop_table")
+    try:
+        got = server.submit(got_cfg).result(timeout=300)
+    finally:
+        server.shutdown()
+    ref = JaxJobServer(num_executors=executors,
+                       device_pool=JaxDevicePool(jax.devices()[:4]))
+    ref.start()
+    want_owners = _owners_at_drop(ref.master, "_drop_table")
+    try:
+        want = ref.submit(want_cfg).result(timeout=300)
+    finally:
+        ref.shutdown()
+    assert got["reconfigs"] == want["reconfigs"] == 1
+    assert "optimizer_errors" not in got
+    assert list(got_owners.values()) == list(want_owners.values()) == [owners]
+    workers = got["workers"].values()
+    assert len(workers) == executors   # --workers 0: one an executor
+    assert all(w["epochs_run"] == 3 and np.all(np.isfinite(w["batch_losses"]))
+               for w in workers)
+    # the metric sources fed the server's manager: a BatchMetrics a batch and
+    # a ServerMetrics an owning executor an epoch
+    assert len(server.metrics.worker_batch_metrics(job_id=got_cfg.job_id)) == 12 * executors
+    assert server.metrics.server_metrics(job_id=got_cfg.job_id)

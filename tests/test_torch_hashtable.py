@@ -372,12 +372,36 @@ def test_a_converted_table_reads_as_the_jax_table(mesh1):
 
 
 def test_drop_and_the_ops_not_ported():
-    tt = DeviceHashTable(HashTableSpec(TableConfig(
-        table_id="d", capacity=32, value_shape=(2,), num_blocks=2, is_ordered=False,
-        sparse=True)), "cpu")
-    for op in ("reshard", "addressable_blocks"):
-        with pytest.raises(NotImplementedError, match="A.9"):
-            getattr(tt, op)()
+    """``reshard`` moves the table across meshes as the reference's does:
+    the same slot keys byte for byte and the same values on every layout,
+    reads and writes going on in between; ``addressable_blocks`` (the pod's)
+    stays refused, naming ROADMAP A item 3; a dropped table refuses reads."""
+    from harmony_tpu_torch.parallel.mesh import DevicePool
+    from harmony_tpu_torch.parallel.mesh import build_mesh as port_mesh
+
+    kw = dict(table_id="d", capacity=256, value_shape=(2,), num_blocks=8,
+              is_ordered=False, sparse=True)
+    jt = JaxHashTable(JaxHashSpec(JaxTableConfig(**kw)), build_mesh(jax.devices()[:2], data=1))
+    slots = DevicePool.virtual("cpu", 4).slots
+    tt = DeviceHashTable(HashTableSpec(TableConfig(**kw)), port_mesh(slots[:2], data=1))
+    rng = np.random.default_rng(8)
+    keys = sparse_keys(rng, 60)
+    for n in (3, 4, 1, 2):   # 3 owners replicate the 8 blocks, 1, 2 and 4 shard them
+        d = rng.integers(-4, 5, size=(60, 2)).astype(np.float32)
+        jt.multi_update(keys, d)
+        tt.multi_update(keys, d)
+        jt.reshard(build_mesh(jax.devices()[:n], data=1))
+        tt.reshard(port_mesh(slots[:n], data=1))
+        assert tt.mesh.size == n
+        jk, jv = (np.asarray(a) for a in jt.state)
+        with tt._lock:
+            st = tt.state
+            tk, tv = ((st.whole(0), st.whole(1)) if tt.mesh.size > 1 else st)
+        assert tk.numpy().tobytes() == jk.tobytes()
+        assert tv.numpy().tobytes() == jv.tobytes()
+        np.testing.assert_array_equal(tt.multi_get(keys), jt.multi_get(keys))
+    with pytest.raises(NotImplementedError, match="ROADMAP A item 3"):
+        tt.addressable_blocks()
     tt.drop()
     with pytest.raises(RuntimeError, match="dropped"):
         tt.multi_get([1])
