@@ -292,6 +292,25 @@ As each phase ends a ``phase <name>: <s> s`` line gives its host seconds
    cards, (a) and (b) on the cards give the virtual slots' bits. Its
    ``elastic:`` line holds the numbers; ``python3 chip_smoke.py --phase 3w``
    runs the build and this phase alone.
+3x. The rest of the slot mesh, on 4 virtual slots of the card. (a)
+   bench-pagerank, shortest path and connected components at LiveJournal's
+   scale through a JobServer of 4 executors: the vertex and message tables
+   sharded over the 4 slots, K1 once a shard a superstep and K2 once a shard
+   for PageRank's add fold, each job's vertex values the bits of phase 3l's
+   one-slot runs (``--phase 3x`` alone makes its own); supersteps, superstep
+   ms, edges/s, and a profiled PageRank run's device busy ms and idle share a
+   superstep and the all-gather's device ms. (b) The trio's NMF and LDA,
+   sparse LDA at the trio's width, bench-gbt and the lasso preset at
+   data_axis 2 on (2, 2) through a JobServer, twice (the same bits), against
+   the same jobs on one slot: LDA's counts and assignments bit for bit,
+   GBT's trees as partitions of their batches, NMF's and Lasso's losses
+   within DX_LOSS_RTOL x max(1, |loss|); samples/s beside the one slot's;
+   no step cuts a batch not staged for its rows. (c) On four or more cards,
+   (a) and (b) on the cards give the virtual slots' bits, profiled
+   data-axis runs of NMF and bench-widedeep copy no batch-sized array
+   between cards, and bench-widedeep's data_axis 2 samples/s beside PR 14's
+   88,410. Its ``dp:`` line holds the numbers; ``python3 chip_smoke.py
+   --phase 3x`` runs the build and this phase alone.
 4. The sparse push route (``HARMONY_PUSH_VIA=sparse``): the Wide&Deep job
    of phase 3, which folds its pushes with K2.
 5. Where a step's time goes: a steady epoch of the Wide&Deep job on the host
@@ -320,7 +339,8 @@ As each phase ends a ``phase <name>: <s> s`` line gives its host seconds
    at data_axis 1, the trio and bench-fm-hash on 4 slots; sp-ring, sp-a2a
    and 3-axis: phase 3u (b)-(d), 3 steps each; pp, ep and vit-dp: phase 3v
    (a)-(c), 3 steps each; elastic: phase 3w (a)-(c) on the card, the moved
-   jobs and the reader); K1-K3
+   jobs and the reader; pregel-sharded and dp-local: phase 3x (a) and the
+   first data-axis run of each job of (b)); K1-K3
    also carry ``device_ms``, ``library_device_ms``,
    ``library_deterministic_device_ms``, ``host_us`` and their timing at
    phase 2e's shapes, K4-K5b their timing at bench-vit's shape and phase
@@ -2906,7 +2926,7 @@ def run_pregel(graph):
                  for app, e in out["full"].items()}
     print(f"phase 3l: at full width the card agrees with the CPU: {json.dumps(agreement)}",
           flush=True)
-    return out
+    return out, {app: card_values[app] for app in apps}
 
 
 def run_linear_apps():
@@ -5954,6 +5974,442 @@ def run_elastic():
     return launches, out
 
 
+# -- phase 3x: the rest of the slot mesh ----------------------------------------
+
+DX_SLOTS = 4
+# (b)'s jobs run this many epochs of BATCHES-or-fewer mini-batches each: the
+# phase's budget is 60 s of command for (a) and (b)
+DX_EPOCHS = 2
+# NMF's and Lasso's per-batch losses at data_axis 2 against one slot: the
+# rows' sums add in another order (relative to max(1, |loss|))
+DX_LOSS_RTOL = 1e-4
+# bench-gbt's per-batch losses at data_axis 2 against one slot. A split's
+# gain is a difference of three G^2 / (H + lam) terms, which cancel; the
+# rows' histograms add in another order, so where two of a node's 7,140
+# candidate splits nearly tie the data axis may take the other one (my CPU
+# run of bench-gbt's width took another split in 10 of 16 rounds after round
+# 0, the same partition in round 0, and its losses came within 2.7e-5): the
+# trees are held as partitions in round 0, whose inputs are the same bits,
+# and by their losses after it
+DX_GBT_LOSS_RTOL = 1e-3
+_DX_GRAPHS = {}
+
+
+def dx_graph(num_vertices, avg_degree=4, seed=0, weighted=False):
+    """bench-pagerank's graph (``random_graph``'s draws), built once a phase
+    for the three graph jobs: the unweighted graph is the weighted one's
+    edges with unit weights, as ``random_graph`` draws the weights after the
+    edges. The jobs name it as their ``graph_fn`` (``__main__:dx_graph``)."""
+    from harmony_tpu_torch.pregel.graph import Graph, random_graph
+
+    key = (num_vertices, avg_degree, seed)
+    if key not in _DX_GRAPHS:
+        _DX_GRAPHS[key] = random_graph(num_vertices, avg_degree, seed=seed, weighted=True)
+    g = _DX_GRAPHS[key]
+    if weighted:
+        return g
+    plain = Graph.__new__(Graph)
+    plain.num_vertices, plain.src, plain.dst = g.num_vertices, g.src, g.dst
+    plain.weight = np.ones(len(g.src), np.float32)
+    plain.out_degree = g.out_degree
+    return plain
+
+
+def dx_graph_job(app):
+    config = graph_job(app, PR_VERTICES)
+    return config.replace(user={**config.user, "graph_fn": "__main__:dx_graph"})
+
+
+def dx_pregel(slots, one_slot, wrappers):
+    """Phase 3x (a): the three graph jobs through a JobServer of 4 executors
+    on ``slots``, each job's values the bits of its one-slot run."""
+    apps = ("pagerank", "shortest-path", "connected-components")
+    out, launches = {}, {w.__name__: 0 for w in wrappers}
+    server = pool_server(slots)
+    try:
+        for app in apps:
+            reset_counts(*wrappers)
+            t0 = time.perf_counter()
+            res = server.submit(dx_graph_job(app)).result(timeout=900)
+            seconds = time.perf_counter() - t0
+            got = {w.__name__: w.launches for w in wrappers}
+            for k, v in got.items():
+                launches[k] += v
+            s, n = res["supersteps"], len(slots)
+            want = {name: 0 for name in got}
+            want["gather_rows"] = n * s
+            want["segment_sum_rows"] = n * s if app == "pagerank" else 0
+            check(got == want, f"phase 3x (a) bench-{app}: launches {got}, expected {want} "
+                               f"(K1 once a shard a superstep, K2 for the add fold)")
+            ref = one_slot[app]
+            check(s == ref["supersteps"]
+                  and np.array_equal(res["vertex_values"], ref["vertex_values"]),
+                  f"phase 3x (a) bench-{app}: {n} shards are not the one-slot run's bits")
+            edges = dx_graph(PR_VERTICES, PR_DEGREE).num_edges * (
+                2 if app == "connected-components" else 1)
+            out[app] = {"supersteps": s, "superstep_ms": res["wall_sec"] * 1e3 / s,
+                        "edges_per_sec": edges * s / res["wall_sec"],
+                        "run_seconds": seconds, "launches": got,
+                        "per_superstep_per_shard": {k: v / s / n for k, v in got.items()},
+                        "bits": "the one-slot run's"}
+            print(f"phase 3x (a) bench-{app} on {n} shards: {json.dumps(out[app])}",
+                  flush=True)
+    finally:
+        server.shutdown(timeout=600)
+    return out, launches
+
+
+def dx_pregel_profile(slots):
+    """A bench-pagerank run on the 4-slot mesh under torch.profiler (busy
+    ms and idle share a superstep), and the all-gather's device ms."""
+    from harmony_tpu_torch.apps.pagerank import PageRankComputation
+    from harmony_tpu_torch.parallel.mesh import build_mesh
+    from harmony_tpu_torch.pregel import PregelMaster
+
+    g = dx_graph(PR_VERTICES, PR_DEGREE)
+    master = PregelMaster(g, PageRankComputation(g, PR_ITERATIONS),
+                          build_mesh(slots, data=1))
+    try:
+        prof = profile_run(master.run, PR_ITERATIONS + 1, top_n=8)
+        arr = master.vertex_table.array
+        parts = [arr.shards[s.slot].view(-1, 2)[:s.n] for s in master._shards]
+        prof["all_gather_device_ms"] = device_ms(lambda: master._all_gather(parts), calls=20)
+        prof["all_gather_mb"] = sum(p.numel() * 4 for p in parts) / 1e6
+    finally:
+        master.close()
+    return prof
+
+
+def dx_configs():
+    """(b)'s jobs: the trio's NMF and LDA (bench.py's widths), sparse LDA at
+    the trio's width, bench-gbt and the lasso preset."""
+    from harmony_tpu_torch import bench
+
+    trio, _ = bench.job_configs(TRIO_SCALE, DX_EPOCHS)
+    by_id = {c.job_id: c for c in trio}
+    return {"bench-nmf": by_id["bench-nmf"], "bench-lda": by_id["bench-lda"],
+            "sparse-lda": hash_job("lda", DX_EPOCHS),
+            "bench-gbt": gbt_job(DX_EPOCHS),
+            "lasso": preset_config("lasso", epochs=DX_EPOCHS).replace(num_workers=1)}
+
+
+class dx_tables:
+    """Keep each Dolphin job's final tables (host copies) as the entity drops
+    them: ``saved[job_id] = (model, local)``; a hash model is read at the
+    keys its data holds."""
+
+    def __init__(self):
+        self.saved = {}
+
+    def __enter__(self):
+        from harmony_tpu_torch.jobserver.entity import DolphinJobEntity
+        from harmony_tpu_torch.table.hashtable import DeviceHashTable
+
+        self._cls, self._real = DolphinJobEntity, DolphinJobEntity.cleanup
+        saved = self.saved
+
+        def cleanup(entity):
+            table, local = entity._table, entity._local
+            if table is not None:
+                if isinstance(table, DeviceHashTable):
+                    from harmony_tpu_torch.apps.lda import LDA_MAX_WORD_KEY, LDA_SUMMARY_KEY
+
+                    tokens = entity._data_arrays[1]
+                    keys = np.unique(tokens[(tokens >= 1) & (tokens <= LDA_MAX_WORD_KEY)])
+                    model = table.multi_get(np.append(keys, LDA_SUMMARY_KEY))
+                else:
+                    model = table.pull_array().cpu().numpy()
+                saved[entity.config.job_id] = (
+                    model, None if local is None else local.pull_array().cpu().numpy(),
+                    entity._data_arrays)
+            self._real(entity)
+
+        DolphinJobEntity.cleanup = cleanup
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.cleanup = self._real
+
+
+def gbt_settled_at(tree, bins, n):
+    """The node at which each example of ``bins`` settles in ``tree``."""
+    feat, thr = tree[:n].astype(np.int64), tree[n:2 * n].astype(np.int64)
+    leaf = tree[2 * n:3 * n] > 0.5
+    pos = np.zeros(len(bins), np.int64)
+    while not leaf[pos].all():
+        right = bins[np.arange(len(bins)), feat[pos]] > thr[pos]
+        pos = np.where(leaf[pos], pos, 2 * pos + 1 + right)
+    return pos
+
+
+def dx_agree(name, one, two, t1, t2, batches):
+    """(b)'s limits of one job at data_axis 2 against its one-slot run
+    (``t1``, ``t2``: the runs' tables and data; ``batches`` a epoch)."""
+    got, want = two["batch_losses"], one["batch_losses"]
+    check(len(got) == len(want), f"phase 3x (b) {name}: {len(got)} and {len(want)} batches")
+    gap = max(abs(a - b) / max(1.0, abs(b)) for a, b in zip(got, want))
+    if name in ("bench-lda", "sparse-lda"):
+        check(np.array_equal(t2[0], t1[0]) and np.array_equal(t2[1], t1[1]),
+              f"phase 3x (b) {name}: counts or assignments differ from one slot")
+        return {"counts_and_assignments": "the one-slot bits", "max_rel_gap": gap}
+    if name == "bench-gbt":
+        n = 2 ** (GBT_APP["max_depth"] + 1) - 1
+        trees1, trees2 = t1[0], t2[0]
+        bins = t1[2][0]
+        nb = len(bins) // batches
+        same = [np.array_equal(gbt_settled_at(trees2[r], bins[(r % batches) * nb:
+                                                              (r % batches + 1) * nb], n),
+                               gbt_settled_at(trees1[r], bins[(r % batches) * nb:
+                                                              (r % batches + 1) * nb], n))
+                for r in range(trees1.shape[0])]
+        check(same[0], f"phase 3x (b) {name}: round 0's tree parts its batch otherwise")
+        check(gap <= DX_GBT_LOSS_RTOL, f"phase 3x (b) {name}: losses {gap} > "
+                                       f"{DX_GBT_LOSS_RTOL} x max(1, |loss|) from one slot")
+        return {"trees": "round 0 the one-slot tree as a partition of its batch",
+                "rounds_with_the_one_slot_partition": int(sum(same)),
+                "rounds": len(same), "max_rel_gap": gap}
+    check(gap <= DX_LOSS_RTOL, f"phase 3x (b) {name}: losses {gap} > {DX_LOSS_RTOL} "
+                               f"x max(1, |loss|) from one slot")
+    return {"max_rel_gap": gap}
+
+
+def dx_jobs(slots, wrappers, one_slot=None):
+    """Phase 3x (b): each of dx_configs() at data_axis 2 on (2, 2) of
+    ``slots``, twice, through a JobServer, against one slot of the card
+    (``one_slot``: the runs to hold to; made here when None). Returns the
+    numbers, the launches of the first data-axis runs, the one-slot runs and
+    the data-axis runs' results and tables."""
+    configs = dx_configs()
+    out, launches = {}, {w.__name__: 0 for w in wrappers}
+    ones = {} if one_slot is None else one_slot
+    runs = {}
+    os.environ["HARMONY_PUSH_VIA"] = "mxu"
+    try:
+        with dx_tables() as kept:
+            if one_slot is None:
+                server = pool_server(slots[:1])
+                try:
+                    for name, config in configs.items():
+                        w, _ = submit_one(server, config)
+                        ones[name] = (w, kept.saved.pop(config.job_id))
+                finally:
+                    server.shutdown(timeout=600)
+            server = pool_server(slots)
+            try:
+                for name, config in configs.items():
+                    dp = config.replace(user={**config.user, "data_axis": 2})
+                    reset_counts(*wrappers)
+                    w2, _ = submit_one(server, dp)
+                    for w in wrappers:
+                        launches[w.__name__] += w.launches
+                    t2 = kept.saved.pop(config.job_id)
+                    again, _ = submit_one(server, dp)
+                    kept.saved.pop(config.job_id)
+                    check(w2["mesh"] == {"data": 2, "model": len(slots) // 2}
+                          and w2["step_mode"] == "data_parallel",
+                          f"phase 3x (b) {name}: mesh {w2['mesh']}, {w2['step_mode']}")
+                    check(w2["batch_losses"] == again["batch_losses"],
+                          f"phase 3x (b) {name}: data_axis 2 is not the same bits twice")
+                    check(w2["input"]["restaged_batches"] == 0,
+                          f"phase 3x (b) {name}: {w2['input']['restaged_batches']} steps "
+                          "cut a batch not staged for their rows")
+                    w1, t1 = ones[name]
+                    n = len(t1[2][0]) if t1[2] else 0
+                    entry = dx_agree(name, w1, w2, t1, t2, config.params.num_mini_batches)
+                    entry.update(
+                        samples_per_sec=n / w2["epoch_seconds"][-1],
+                        one_slot_samples_per_sec=n / w1["epoch_seconds"][-1],
+                        batch_losses=w2["batch_losses"])
+                    out[name] = entry
+                    runs[name] = (w2, t2)
+                    print(f"phase 3x (b) {name} on (2, 2): {json.dumps(entry)}", flush=True)
+            finally:
+                server.shutdown(timeout=600)
+    finally:
+        os.environ.pop("HARMONY_PUSH_VIA")
+    return out, launches, ones, runs
+
+
+def peer_copies(prof):
+    """Device-to-device copies in a profile: (count, bytes)."""
+    events = [e for e in chrome_trace(prof, "dx") if e.get("cat") == "gpu_memcpy"
+              and ("PtoP" in e.get("name", "") or "DtoD" in e.get("name", ""))]
+    return len(events), sum(max(0, int(e.get("args", {}).get("bytes", 0))) for e in events)
+
+
+class CopyWatch:
+    """Every copy between two cards made while it is entered, by the storage
+    it reads (``sources``: data pointer -> bytes): a dispatch mode over the
+    calling thread's operations."""
+
+    def __enter__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        sources = self.sources = {}
+
+        def note(src, dst_device):
+            if src.device.type == "cuda" and torch.device(dst_device).type == "cuda" \
+                    and src.device != torch.device(dst_device):
+                ptr = src.untyped_storage().data_ptr()
+                sources[ptr] = sources.get(ptr, 0) + src.numel() * src.element_size()
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                kwargs = kwargs or {}
+                if func is torch.ops.aten._to_copy.default and kwargs.get("device"):
+                    note(args[0], kwargs["device"])
+                elif func is torch.ops.aten.copy_.default:
+                    note(args[1], args[0].device)
+                return func(*args, **kwargs)
+
+        self._mode = Mode()
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._mode.__exit__(*exc)
+
+
+def dx_copies(config, slots):
+    """A data-axis run of ``config`` on (2, 2) of the cards' ``slots`` by a
+    lone worker (fused windows over the stack staged by row) under
+    torch.profiler and a CopyWatch: no copy between cards reads a batch
+    array, but for the keys of a keyed pull, which every shard's gather and
+    fold needs (the table's traffic); and the trace's peer copies a step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from harmony_tpu_torch.dolphin.rows import RowBatch
+    from harmony_tpu_torch.jobserver.entity import DolphinJobEntity
+    from harmony_tpu_torch.parallel.mesh import DevicePool
+    from harmony_tpu_torch.runtime.master import ETMaster
+
+    config = config.replace(user={**config.user, "data_axis": 2})
+    master = ETMaster(DevicePool(slots))
+    entity = DolphinJobEntity(config)
+    entity.setup(master, [e.id for e in master.add_executors(len(slots))])
+    try:
+        worker = entity.make_worker()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof, CopyWatch() as watch:
+            res = worker.run()
+            torch.cuda.synchronize()
+        stack = worker._stacked_cache
+        check(isinstance(stack, RowBatch) and stack.devices == tuple(
+            slots[2 * r].device for r in range(2)),
+              f"phase 3x (c) {config.job_id}: the stack is not staged by row")
+        part = stack.index(0).parts[0]
+        keys = (worker.trainer.pull_keys(part).untyped_storage().data_ptr()
+                if worker.trainer.pull_mode == "keys" else None)
+        read, key_bytes = [], 0
+        for p in stack.parts:
+            for i, a in enumerate(p):
+                ptr = a.untyped_storage().data_ptr()
+                if ptr not in watch.sources:
+                    continue
+                if keys is not None and part[i].untyped_storage().data_ptr() == keys:
+                    key_bytes += watch.sources[ptr]
+                else:
+                    read.append((i, watch.sources[ptr]))
+        check(not read, f"phase 3x (c) {config.job_id}: copies between cards read batch "
+                        f"arrays (array, bytes) {read}")
+        check(res["input"]["restaged_batches"] == 0,
+              f"phase 3x (c) {config.job_id}: a step cut a batch not staged for its rows")
+        steps = len(res["batch_losses"])
+        count, nbytes = peer_copies(prof)
+        return {"batch_arrays_copied_between_cards": 0,
+                "key_bytes_between_cards_per_step": key_bytes / steps,
+                "peer_copies_per_step": count / steps,
+                "peer_bytes_per_step": nbytes / steps, "steps": steps}
+    finally:
+        entity.cleanup()
+
+
+def dx_cards(cards_slots, one_slot_graph, virtual_runs):
+    """Phase 3x (c): (a) and (b) on the cards give the virtual slots' bits;
+    profiled data-axis runs copy no batch array between cards
+    (:func:`dx_copies`); bench-widedeep at data_axis 2 on the cards in
+    samples/s."""
+    out = {"cards": [str(s.device) for s in cards_slots]}
+    g_out, _ = dx_pregel(cards_slots, one_slot_graph, all_wrappers())
+    out["pregel"] = {app: {k: e[k] for k in ("supersteps", "superstep_ms", "edges_per_sec")}
+                     for app, e in g_out.items()}
+    runs = {}
+    configs = dx_configs()
+    os.environ["HARMONY_PUSH_VIA"] = "mxu"
+    try:
+        with dx_tables() as kept:
+            server = pool_server(cards_slots)
+            try:
+                for name, config in configs.items():
+                    dp = config.replace(user={**config.user, "data_axis": 2})
+                    w2, _ = submit_one(server, dp)
+                    t2 = kept.saved.pop(config.job_id)
+                    vw, vt = virtual_runs[name]
+                    check(w2["batch_losses"] == vw["batch_losses"]
+                          and all(np.array_equal(a, b) for a, b in zip(t2[:2], vt[:2])
+                                  if a is not None),
+                          f"phase 3x (c) {name}: the cards' bits differ from the virtual "
+                          "slots'")
+                    runs[name] = len(t2[2][0]) / w2["epoch_seconds"][-1]
+                out["dp_samples_per_sec"] = runs
+                w, _ = submit_one(server, wd_mesh_config("wd-dx", EPOCHS, data_axis=2))
+                out["widedeep_data_axis_2_samples_per_sec"] = N_EXAMPLES / w["epoch_seconds"][-1]
+            finally:
+                server.shutdown(timeout=600)
+            out["copies"] = {name: dx_copies(config, cards_slots) for name, config in (
+                ("bench-nmf", configs["bench-nmf"]),
+                ("bench-widedeep", wd_mesh_config("wd-dx", EPOCHS)))}
+    finally:
+        os.environ.pop("HARMONY_PUSH_VIA")
+    # PR 14's figure of the same job on four cards (PERF.md, its chip run)
+    out["widedeep_data_axis_2_pr14_samples_per_sec"] = 88410
+    return out
+
+
+def dx_one_slot_graphs(slot):
+    """The graph jobs on one slot of the card (``--phase 3x`` alone; the full
+    run holds (a) to phase 3l's runs)."""
+    server = pool_server([slot])
+    try:
+        return {app: server.submit(dx_graph_job(app)).result(timeout=900)
+                for app in ("pagerank", "shortest-path", "connected-components")}
+    finally:
+        server.shutdown(timeout=600)
+
+
+def run_dx(one_slot_graph=None):
+    """Phase 3x: Pregel's sharded tables, a data axis of 2 beside
+    worker-local tables and for the trainers whose delta is not linear in
+    the batch, each data row's batch staged on its own slot (see the module
+    doc)."""
+    from harmony_tpu_torch.parallel.mesh import DevicePool
+
+    t0 = time.perf_counter()
+    wrappers = all_wrappers()
+    slots = DevicePool.virtual("cuda:0", DX_SLOTS).slots
+    if one_slot_graph is None:
+        one_slot_graph = dx_one_slot_graphs(slots[0])
+    t_ab = time.perf_counter()
+    pregel, pregel_launches = dx_pregel(slots, one_slot_graph, wrappers)
+    dp, dp_launches, _, runs = dx_jobs(slots, wrappers)
+    out = {"pregel_sharded": pregel, "dp": dp,
+           "a_and_b_seconds": time.perf_counter() - t_ab}
+    check(all(pregel_launches[k] > 0 for k in ("gather_rows", "segment_sum_rows"))
+          and dp_launches["gather_rows"] > 0 and dp_launches["segment_sum_rows"] > 0
+          and dp_launches["weighted_histogram"] > 0,
+          f"phase 3x: launches {pregel_launches}, {dp_launches}: a kernel never ran")
+    out["launches"] = {"pregel-sharded": pregel_launches, "dp-local": dp_launches}
+    out["pregel_profile"] = dx_pregel_profile(slots)
+    print(f"phase 3x (a) profile: {json.dumps(out['pregel_profile'])}", flush=True)
+    cards = torch.cuda.device_count()
+    if cards >= DX_SLOTS:
+        out["real_mesh"] = dx_cards(DevicePool().slots[:DX_SLOTS], one_slot_graph, runs)
+        print(f"phase 3x (c): {json.dumps(out['real_mesh'])}", flush=True)
+    else:
+        out["real_mesh"] = f"not run: {cards} card(s)"
+    out["seconds"] = time.perf_counter() - t0
+    return out["launches"], out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a CUDA card")
@@ -5990,7 +6446,7 @@ def main() -> int:
               f"{kernel} D={d} block_k={bk}: ptxas reports spills ({entry})")
     clock("1")
 
-    alone = ("3t", "3u", "3v", "3w")
+    alone = ("3t", "3u", "3v", "3w", "3x")
     if len(sys.argv) == 3 and sys.argv[1] == "--phase" and sys.argv[2] in alone:
         # one phase alone (a host of several cards: the real mesh; 3t also
         # the device guard), 3t held to one-slot runs of its own
@@ -6004,6 +6460,9 @@ def main() -> int:
         elif name == "3v":
             _, pv = run_pv()
             print("pv: " + json.dumps(pv), flush=True)
+        elif name == "3x":
+            _, dx = run_dx()
+            print("dp: " + json.dumps(dx), flush=True)
         else:
             _, elastic = run_elastic()
             print("elastic: " + json.dumps(elastic), flush=True)
@@ -6013,7 +6472,7 @@ def main() -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
-    check(not sys.argv[1:], f"unknown arguments {sys.argv[1:]} (only --phase 3t, 3u, 3v or 3w)")
+    check(not sys.argv[1:], f"unknown arguments {sys.argv[1:]} (only --phase 3t, 3u, 3v, 3w or 3x)")
 
     table, idx, err = check_kernels(dev)
     timing, skew = time_kernels(dev, table, idx)
@@ -6082,7 +6541,7 @@ def main() -> int:
     gbt = run_gbt()
     print("gbt: " + json.dumps(gbt), flush=True)
     clock("3k")
-    pregel = run_pregel(graph)
+    pregel, pregel_one_slot = run_pregel(graph)
     print("pregel: " + json.dumps(pregel), flush=True)
     clock("3l")
     print("linear apps: " + json.dumps(run_linear_apps()), flush=True)
@@ -6109,6 +6568,8 @@ def main() -> int:
     clock("3v")
     el_launches, elastic = run_elastic()
     clock("3w")
+    dx_launches, dx = run_dx(pregel_one_slot)
+    clock("3x")
     by_path = {name: {"bench-widedeep": launches.get(name, 0),
                       "bench-lm": lm_launches[name],
                       "bench-vit": vit_launches[name],
@@ -6127,7 +6588,8 @@ def main() -> int:
                       "sharded": sharded_launches.get(name, 0),
                       **{path: counts[name] for path, counts in sp_launches.items()},
                       **{path: counts[name] for path, counts in pv_launches.items()},
-                      "elastic": el_launches.get(name, 0)}
+                      "elastic": el_launches.get(name, 0),
+                      **{path: counts[name] for path, counts in dx_launches.items()}}
                for name in lm_launches}
     print("profile: " + json.dumps(profile_slice()), flush=True)
     clock("5")
@@ -6199,6 +6661,7 @@ def main() -> int:
     print("sp: " + json.dumps(sp), flush=True)
     print("pv: " + json.dumps(pv), flush=True)
     print("elastic: " + json.dumps(elastic), flush=True)
+    print("dp: " + json.dumps(dx), flush=True)
     print(gpu_identity())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -34,6 +34,12 @@ so the card grows the CPU's trees bit for bit.
 reference's ``((0 + t0) + t1) + ...``; rows not yet boosted are all zeros,
 have no leaf and predict exactly 0.
 
+On a data axis > 1 the round splits (``row_part``, ``row_finish``): each
+row folds its own examples' histogram of a level on its slot, the finish adds
+the rows' histograms in row order and searches the splits once, and each row
+routes its own examples by them; the finish writes the tree and advances the
+round counter once.
+
 Losses: "squared" (regression), "logistic" (binary), "softmax" (multiclass,
 K = num_outputs).
 """
@@ -46,7 +52,7 @@ import torch
 import torch.nn.functional as F
 
 from harmony_tpu_torch.config.params import TableConfig
-from harmony_tpu_torch.dolphin.trainer import Trainer
+from harmony_tpu_torch.dolphin.trainer import RowResult, Trainer
 from harmony_tpu_torch.ops.histogram import weighted_histogram
 from harmony_tpu_torch.ops.sparse import segment_sum_rows
 from harmony_tpu_torch.utils.platform import use_kernel
@@ -151,23 +157,24 @@ class GBTTrainer(Trainer):
 
     # -- loss ------------------------------------------------------------
 
-    def _grad_hess(self, m: torch.Tensor, y: torch.Tensor):
-        """Per-example gradient/hessian of the loss at margins m [B, K]."""
+    def _grad_hess(self, m: torch.Tensor, y: torch.Tensor, reduce=torch.mean):
+        """Per-example gradient/hessian of the loss at margins m [B, K], and
+        the loss (the batch's mean; ``reduce=torch.sum``: its sum)."""
         if self.loss == "squared":
             g = m - y[:, None]
             h = torch.ones_like(m)
-            loss = 0.5 * torch.mean((m[:, 0] - y) ** 2)
+            loss = 0.5 * reduce((m[:, 0] - y) ** 2)
         elif self.loss == "logistic":
             p = torch.sigmoid(m[:, 0])
             g = (p - y)[:, None]
             h = (p * (1.0 - p))[:, None]
-            loss = -torch.mean(y * F.logsigmoid(m[:, 0]) + (1 - y) * F.logsigmoid(-m[:, 0]))
+            loss = -reduce(y * F.logsigmoid(m[:, 0]) + (1 - y) * F.logsigmoid(-m[:, 0]))
         else:  # softmax
             p = torch.softmax(m, dim=-1)
             onehot = F.one_hot(y.long(), self.k).to(m.dtype)
             g = p - onehot
             h = p * (1.0 - p)
-            loss = -torch.mean(torch.sum(onehot * torch.log_softmax(m, -1), dim=-1))
+            loss = -reduce(torch.sum(onehot * torch.log_softmax(m, -1), dim=-1))
         return g, h, loss
 
     # -- tree growing ------------------------------------------------------
@@ -185,84 +192,105 @@ class GBTTrainer(Trainer):
 
         bins [E, F] int32, g/h [E, K] float32 ->
         (feat [N], thr [N], is_leaf [N], leaf_val [N, K], pred [E, K])."""
-        E, Fn = bins.shape
-        K, Bn, lam = self.k, self.num_bins, self.lam
-        N = self.num_nodes
-        dev = bins.device
+        E = bins.shape[0]
+        tree = self._empty_tree(bins.device)
+        pos = torch.zeros((E,), dtype=torch.int32, device=bins.device)  # node id in the full tree
+        settled = torch.zeros((E,), dtype=torch.bool, device=bins.device)
+        pred = torch.zeros((E, self.k), dtype=torch.float32, device=bins.device)
         mode = self.resolved_hist_mode(bins)
-        feat = torch.zeros((N,), dtype=torch.int32, device=dev)
-        thr = torch.zeros((N,), dtype=torch.int32, device=dev)
-        is_leaf = torch.zeros((N,), dtype=torch.bool, device=dev)
-        leaf_val = torch.zeros((N, K), dtype=torch.float32, device=dev)
-        pos = torch.zeros((E,), dtype=torch.int32, device=dev)   # node id in the full tree
-        settled = torch.zeros((E,), dtype=torch.bool, device=dev)
-        pred = torch.zeros((E, K), dtype=torch.float32, device=dev)
-        f_idx = torch.arange(Fn, dtype=torch.int32, device=dev)[None, :]
-        bin_idx = torch.arange(Bn, device=dev)[None, None, :]
-
         for d in range(self.max_depth + 1):
-            level_start, n_level = 2 ** d - 1, 2 ** d
-            node = pos - level_start            # [E]; negative for settled examples
-            live = (~settled).to(torch.float32)[:, None]
-            stats = torch.cat([g * live, h * live, live], dim=1)   # [E, 2K+1]
-            grow = d < self.max_depth
-            nb = n_level * Fn * Bn if grow else 0
-            # node totals: ids past the histogram's rows, in the same fold
-            tot_ids = torch.where(node >= 0, node + nb, -1)
-            if grow:
-                flat = ((node[:, None] * Fn + f_idx) * Bn + bins).reshape(-1)
-                reps = stats[:, None, :].expand(E, Fn, 2 * K + 1).reshape(-1, 2 * K + 1)
-                hist = self._fold(mode, torch.cat([flat, tot_ids]),
-                                  torch.cat([reps, stats]), nb + n_level)
-            else:
-                hist = self._fold(mode, tot_ids, stats, n_level)
-            tot = hist[nb:]
-            Gn, Hn, Cn = tot[:, :K], tot[:, K:2 * K], tot[:, 2 * K]
-            w = -Gn / (Hn + lam)                                    # [n_level, K]
+            hist = self._level_hist(mode, bins, g, h, pos, settled, d)
+            split = self._level_split(hist, d, bins.shape[1], tree)
+            pos, settled, pred = self._route(bins, pos, settled, pred, d, *split)
+        return (*tree, pred)
 
-            if grow:
-                cum = _cumsum_bins(hist[:nb].reshape(n_level, Fn, Bn, 2 * K + 1))
-                GL, HL, CL = cum[..., :K], cum[..., K:2 * K], cum[..., 2 * K]
-                G, H, C = Gn[:, None, None, :], Hn[:, None, None, :], Cn[:, None, None]
+    def _empty_tree(self, dev):
+        N = self.num_nodes
+        return (torch.zeros((N,), dtype=torch.int32, device=dev),
+                torch.zeros((N,), dtype=torch.int32, device=dev),
+                torch.zeros((N,), dtype=torch.bool, device=dev),
+                torch.zeros((N, self.k), dtype=torch.float32, device=dev))
 
-                def score(gg, hh):
-                    return gg * gg / (hh + lam)
+    def _level_hist(self, mode, bins, g, h, pos, settled, d) -> torch.Tensor:
+        """Level ``d``'s per-(node, feature, bin) sums of [g | h | live] and,
+        past them, the node totals: one fold (K3 or K2)."""
+        E, Fn = bins.shape
+        K, Bn = self.k, self.num_bins
+        level_start, n_level = 2 ** d - 1, 2 ** d
+        node = pos - level_start            # [E]; negative for settled examples
+        live = (~settled).to(torch.float32)[:, None]
+        stats = torch.cat([g * live, h * live, live], dim=1)   # [E, 2K+1]
+        nb = n_level * Fn * Bn if d < self.max_depth else 0
+        # node totals: ids past the histogram's rows, in the same fold
+        tot_ids = torch.where(node >= 0, node + nb, -1)
+        if not nb:
+            return self._fold(mode, tot_ids, stats, n_level)
+        f_idx = torch.arange(Fn, dtype=torch.int32, device=bins.device)[None, :]
+        flat = ((node[:, None] * Fn + f_idx) * Bn + bins).reshape(-1)
+        reps = stats[:, None, :].expand(E, Fn, 2 * K + 1).reshape(-1, 2 * K + 1)
+        return self._fold(mode, torch.cat([flat, tot_ids]), torch.cat([reps, stats]),
+                          nb + n_level)
 
-                terms = score(GL, HL) + score(G - GL, H - HL) - score(G, H)
-                total = terms[..., 0]
-                for k in range(1, K):   # f32, in class order
-                    total = total + terms[..., k]
-                gain = 0.5 * total - self.gamma                     # [n_level, F, Bn]
-                valid = ((CL >= self.leaf_min_size)
-                         & ((C - CL) >= self.leaf_min_size)
-                         & (bin_idx < Bn - 1))
-                gain = torch.where(valid, gain, -torch.inf)
-                flat_gain = gain.reshape(n_level, Fn * Bn)
-                best = torch.argmax(flat_gain, dim=1)               # the first maximum
-                best_gain = flat_gain.gather(1, best[:, None])[:, 0]
-                best_f = torch.div(best, Bn, rounding_mode="floor").to(torch.int32)
-                best_b = (best % Bn).to(torch.int32)
-                leaf_here = ~(best_gain > 0.0)                      # NaN-safe: leaf
-            else:
-                best_f = torch.zeros((n_level,), dtype=torch.int32, device=dev)
-                best_b = torch.zeros((n_level,), dtype=torch.int32, device=dev)
-                leaf_here = torch.ones((n_level,), dtype=torch.bool, device=dev)
+    def _level_split(self, hist: torch.Tensor, d: int, Fn: int, tree):
+        """Level ``d``'s splits from its histogram, written into ``tree``:
+        (best feature, best bin, leaf flags, leaf values) of its nodes."""
+        K, Bn, lam = self.k, self.num_bins, self.lam
+        dev = hist.device
+        level_start, n_level = 2 ** d - 1, 2 ** d
+        grow = d < self.max_depth
+        nb = n_level * Fn * Bn if grow else 0
+        tot = hist[nb:]
+        Gn, Hn, Cn = tot[:, :K], tot[:, K:2 * K], tot[:, 2 * K]
+        w = -Gn / (Hn + lam)                                    # [n_level, K]
 
-            seg = slice(level_start, level_start + n_level)
-            feat[seg] = best_f
-            thr[seg] = best_b
-            is_leaf[seg] = leaf_here
-            leaf_val[seg] = w
+        if grow:
+            cum = _cumsum_bins(hist[:nb].reshape(n_level, Fn, Bn, 2 * K + 1))
+            GL, HL, CL = cum[..., :K], cum[..., K:2 * K], cum[..., 2 * K]
+            G, H, C = Gn[:, None, None, :], Hn[:, None, None, :], Cn[:, None, None]
 
-            # settle the examples that land on a leaf; descend the rest
-            at = node.clamp_min(0).long()       # settled examples are masked below
-            at_leaf = leaf_here[at] & ~settled
-            pred = torch.where(at_leaf[:, None], w[at], pred)
-            settled = settled | at_leaf
-            go_right = bins.gather(1, best_f[at][:, None].long())[:, 0] > best_b[at]
-            pos = torch.where(settled, pos, 2 * pos + 1 + go_right.to(torch.int32))
+            def score(gg, hh):
+                return gg * gg / (hh + lam)
 
-        return feat, thr, is_leaf, leaf_val, pred
+            terms = score(GL, HL) + score(G - GL, H - HL) - score(G, H)
+            total = terms[..., 0]
+            for k in range(1, K):   # f32, in class order
+                total = total + terms[..., k]
+            gain = 0.5 * total - self.gamma                     # [n_level, F, Bn]
+            bin_idx = torch.arange(Bn, device=dev)[None, None, :]
+            valid = ((CL >= self.leaf_min_size)
+                     & ((C - CL) >= self.leaf_min_size)
+                     & (bin_idx < Bn - 1))
+            gain = torch.where(valid, gain, -torch.inf)
+            flat_gain = gain.reshape(n_level, Fn * Bn)
+            best = torch.argmax(flat_gain, dim=1)               # the first maximum
+            best_gain = flat_gain.gather(1, best[:, None])[:, 0]
+            best_f = torch.div(best, Bn, rounding_mode="floor").to(torch.int32)
+            best_b = (best % Bn).to(torch.int32)
+            leaf_here = ~(best_gain > 0.0)                      # NaN-safe: leaf
+        else:
+            best_f = torch.zeros((n_level,), dtype=torch.int32, device=dev)
+            best_b = torch.zeros((n_level,), dtype=torch.int32, device=dev)
+            leaf_here = torch.ones((n_level,), dtype=torch.bool, device=dev)
+
+        feat, thr, is_leaf, leaf_val = tree
+        seg = slice(level_start, level_start + n_level)
+        feat[seg] = best_f
+        thr[seg] = best_b
+        is_leaf[seg] = leaf_here
+        leaf_val[seg] = w
+        return best_f, best_b, leaf_here, w
+
+    def _route(self, bins, pos, settled, pred, d, best_f, best_b, leaf_here, w):
+        """Settle the examples that land on a leaf of level ``d``; descend
+        the rest."""
+        node = pos - (2 ** d - 1)
+        at = node.clamp_min(0).long()       # settled examples are masked below
+        at_leaf = leaf_here[at] & ~settled
+        pred = torch.where(at_leaf[:, None], w[at], pred)
+        settled = settled | at_leaf
+        go_right = bins.gather(1, best_f[at][:, None].long())[:, 0] > best_b[at]
+        pos = torch.where(settled, pos, 2 * pos + 1 + go_right.to(torch.int32))
+        return pos, settled, pred
 
     def _encode_tree(self, feat, thr, is_leaf, leaf_val) -> torch.Tensor:
         return torch.cat([feat.to(torch.float32), thr.to(torch.float32),
@@ -321,6 +349,13 @@ class GBTTrainer(Trainer):
         m = self.predict_margins(model, bins)                # PULL: all trees
         g, h, loss = self._grad_hess(m, y)
         feat, thr, is_leaf, leaf_val, _ = self._grow_tree(bins, g, h)
+        delta = self._tree_delta(model, rnd, hyper, feat, thr, is_leaf, leaf_val)
+        new_local = local.clone()
+        new_local[0, 0] += 1.0
+        return delta, new_local, {"loss": loss, "round": rnd.to(torch.float32)}
+
+    def _tree_delta(self, model, rnd, hyper, feat, thr, is_leaf, leaf_val):
+        """The finished tree as a delta of the model table at row ``rnd``."""
         step = hyper["step"].to(torch.float32)
         # Rounds past num_rounds write NOTHING: the table's update fn is "add",
         # so re-targeting an existing row would sum two encodings elementwise.
@@ -328,10 +363,43 @@ class GBTTrainer(Trainer):
         tree_vec = self._encode_tree(feat, thr, is_leaf, step * leaf_val) * in_budget
         row = rnd.clamp(max=self.num_rounds - 1).reshape(1).long()
         # index_copy_ with a device index: no host read of the counter
-        delta = torch.zeros_like(model).index_copy_(0, row, tree_vec[None])
-        new_local = local.clone()
-        new_local[0, 0] += 1.0
-        return delta, new_local, {"loss": loss, "round": rnd.to(torch.float32)}
+        return torch.zeros_like(model).index_copy_(0, row, tree_vec[None])
+
+    def row_part(self, model, batch, hyper, local=None):
+        """Each level: the row's histogram (one K3 or K2 call on its slot);
+        then its own examples routed by the finish's splits."""
+        bins, y = batch[0].to(torch.int32), batch[1]
+        g, h, loss = self._grad_hess(self.predict_margins(model, bins), y, torch.sum)
+        E, dev = bins.shape[0], bins.device
+        pos = torch.zeros((E,), dtype=torch.int32, device=dev)
+        settled = torch.zeros((E,), dtype=torch.bool, device=dev)
+        pred = torch.zeros((E, self.k), dtype=torch.float32, device=dev)
+        mode = self.resolved_hist_mode(bins)
+        stats = {"loss": loss}
+        for d in range(self.max_depth + 1):
+            stats["hist"] = self._level_hist(mode, bins, g, h, pos, settled, d)
+            split = yield stats
+            if split is None:   # the last level: the tree is done
+                break
+            pos, settled, pred = self._route(bins, pos, settled, pred, d, split["f"],
+                                             split["b"], split["leaf"], split["w"])
+            stats = {}
+        return RowResult()
+
+    def row_finish(self, model, hyper, n, local=None):
+        """The splits, once a level, from the rows' histograms added in row
+        order; the tree, and the round counter advanced once."""
+        tree = self._empty_tree(model.device)
+        stats = yield
+        loss = stats["loss"] / n
+        for d in range(self.max_depth + 1):
+            f, b, leaf, w = self._level_split(stats["hist"], d, self.num_features, tree)
+            if d < self.max_depth:
+                stats = yield {"f": f, "b": b, "leaf": leaf, "w": w}
+        rnd = local[0, 0].to(torch.int32)
+        delta = self._tree_delta(model, rnd, hyper, *tree)
+        return (delta, {"loss": loss, "round": rnd.to(torch.float32)},
+                (torch.zeros(1, dtype=torch.int32, device=model.device), local[:1] + 1.0))
 
     def evaluate(self, model, batch) -> Dict[str, torch.Tensor]:
         bins, y = batch[0].to(torch.int32), batch[1]

@@ -9,6 +9,11 @@ any kernel (a ``lax.scan`` over coordinates); here it is a loop over the
 coordinates in the same order, in plain PyTorch, about 15 device operations a
 coordinate.
 
+On a data axis > 1 the sweep splits (``row_part``, ``row_finish``): for each
+coordinate every row yields ``xj @ resid`` and ``xj @ xj`` over its rows, the
+finish takes their sums, computes the new weight once and replies with its
+change, and every row updates its own residual.
+
 Data: batch = (x [B, D], y [B]).
 """
 from __future__ import annotations
@@ -19,7 +24,7 @@ import numpy as np
 import torch
 
 from harmony_tpu_torch.config.params import TableConfig
-from harmony_tpu_torch.dolphin.trainer import Trainer
+from harmony_tpu_torch.dolphin.trainer import RowResult, Trainer
 
 
 class LassoTrainer(Trainer):
@@ -55,6 +60,31 @@ class LassoTrainer(Trainer):
         delta = w - model
         loss = torch.mean(resid ** 2) / 2 + self.lam * torch.sum(torch.abs(w))
         return delta, {"loss": loss, "nnz": torch.sum(torch.abs(w) > 1e-6)}
+
+    def row_part(self, model, batch, hyper, local=None):
+        x, y = batch[0].to(torch.float32), batch[1]
+        resid = y - x @ model
+        cols = x.t().contiguous()
+        for j in range(self.num_features):
+            xj = cols[j]
+            reply = yield {"xr": xj @ resid, "xx": xj @ xj}
+            resid = resid - xj * reply["dw"]
+        yield {"sse": torch.sum(resid ** 2)}
+        return RowResult()
+
+    def row_finish(self, model, hyper, n, local=None):
+        w = model.clone()
+        stats = yield
+        for j in range(self.num_features):
+            wj = w[j]
+            zj = stats["xx"] + 1e-12
+            rho = stats["xr"] + zj * wj
+            wj_new = torch.sign(rho) * torch.clamp_min(rho.abs() - self.lam * n, 0.0) / zj
+            dw = wj_new - wj
+            w[j] = wj_new
+            stats = yield {"dw": dw}
+        loss = stats["sse"] / n / 2 + self.lam * torch.sum(torch.abs(w))
+        return w - model, {"loss": loss, "nnz": torch.sum(torch.abs(w) > 1e-6)}
 
     def evaluate(self, model, batch) -> Dict[str, torch.Tensor]:
         x, y = batch[0], batch[1]

@@ -23,6 +23,14 @@ the summary row at LDA_SUMMARY_KEY, and the hash push folds duplicate words.
 :meth:`LDATrainer.mask_delta` keeps the summary row equal to the sum of the
 word rows the table admitted.
 
+On a data axis > 1 the step splits (``row_part``, ``row_finish``). A
+document's draws depend only on its own seed, the epoch, its own assignments
+and the batch's stale counts, never on the row that holds it, so each row
+samples its own documents; the count deltas are integer-valued f32 and add up
+exactly (dense: the rows' whole-table deltas summed; sparse: each row's keyed
+delta pushed beside the others'), and the finish takes the log-likelihood's
+sum and count over the rows.
+
 Data: (doc_idx [B], tokens [B, L] word ids with -1 padding, seeds [B]).
 """
 from __future__ import annotations
@@ -33,7 +41,7 @@ import numpy as np
 import torch
 
 from harmony_tpu_torch.config.params import TableConfig
-from harmony_tpu_torch.dolphin.trainer import Trainer, TrainerContext
+from harmony_tpu_torch.dolphin.trainer import RowResult, Trainer, TrainerContext
 from harmony_tpu_torch.table.hashtable import MAX_KEY
 from harmony_tpu_torch.utils import prng
 
@@ -166,6 +174,32 @@ class LDATrainer(Trainer):
         in ``pull_keys`` order, and the delta has the same layout (the hash
         push folds duplicate words). ``local`` is the [num_docs, L]
         assignments."""
+        docs, z_new, delta, chosen, valid = self._sample(model, local, batch, hyper)
+        new_local = local.index_put((docs,), z_new)
+        # progress: mean log-weight of the sampled topics (stale counts)
+        ll = torch.sum(chosen * valid) / torch.clamp_min(valid.sum(), 1)
+        return delta, new_local, {"log_likelihood": ll}
+
+    def local_keys(self, batch):
+        return batch[0]
+
+    def row_part(self, model, batch, hyper, local=None):
+        docs, z_new, delta, chosen, valid = self._sample(model, local, batch, hyper)
+        stats = {"ll": torch.sum(chosen * valid), "valid": valid.sum()}
+        if not self.sparse:
+            stats["delta"] = delta   # the whole table's: the rows' add up
+        yield stats
+        return RowResult(delta=delta if self.sparse else None,
+                         local_keys=batch[0], local_rows=z_new)
+
+    def row_finish(self, model, hyper, n, local=None):
+        stats = yield
+        ll = stats["ll"] / torch.clamp_min(stats["valid"], 1)
+        return (None if self.sparse else stats["delta"]), {"log_likelihood": ll}
+
+    def _sample(self, model, local, batch, hyper):
+        """One sweep over the batch's tokens: (documents, new assignments,
+        count delta, the sampled topics' log-weights, the valid mask)."""
         doc_idx, tokens, seeds = batch       # [B], [B, L], [B]
         K, V = self.num_topics, self.vocab_size
         B, L = tokens.shape
@@ -202,11 +236,8 @@ class LDATrainer(Trainer):
             delta.index_add_(0, word.reshape(-1), flat_delta)
             delta[V] += flat_delta.sum(dim=0)
 
-        new_local = local.index_put((docs,), z_new)
-        # progress: mean log-weight of the sampled topics (stale counts)
         chosen = torch.gather(logits, -1, z_new.clamp_min(0).long()[..., None])[..., 0]
-        ll = torch.sum(chosen * valid) / torch.clamp_min(valid.sum(), 1)
-        return delta, new_local, {"log_likelihood": ll}
+        return docs, z_new, delta, chosen, valid
 
     def evaluate(self, model, batch) -> Dict[str, torch.Tensor]:
         raise NotImplementedError("LDA progress is tracked via log_likelihood")

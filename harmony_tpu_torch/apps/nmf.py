@@ -9,6 +9,11 @@ table and pushes R's projected delta. The global init adds a seeded uniform R
 through ``multi_update`` (on the card, 4,096 keys take the ``mxu`` push
 route: one K3 fold) and writes L whole.
 
+On a data axis > 1 the step splits (``row_part``, ``row_finish``): R's
+projection is not linear in the batch, so each row returns the sum of its
+rows' ``err.T @ l_rows`` and of their squared errors, and the finish divides
+by the whole batch's size and projects once. Each row writes its own L rows.
+
 Data: (row_idx [B], x_row [B, num_cols]).
 """
 from __future__ import annotations
@@ -19,7 +24,7 @@ import numpy as np
 import torch
 
 from harmony_tpu_torch.config.params import TableConfig
-from harmony_tpu_torch.dolphin.trainer import Trainer, TrainerContext
+from harmony_tpu_torch.dolphin.trainer import RowResult, Trainer, TrainerContext
 from harmony_tpu_torch.ops.mxu import mxu_dot
 
 
@@ -93,6 +98,24 @@ class NMFTrainer(Trainer):
         # project the pushed delta so that R stays >= 0 after the fold
         delta_r = torch.clamp_min(model - lr * grad_r, 0.0) - model
         return delta_r, new_local, {"loss": loss}
+
+    def local_keys(self, batch):
+        return batch[0]
+
+    def row_part(self, model, batch, hyper, local=None):
+        row_idx, x = batch
+        lr = hyper["lr"]
+        l_rows = local[row_idx.long()]
+        err = mxu_dot(l_rows, model.T) - x.float()
+        new_l_rows = torch.clamp_min(l_rows - lr * (2.0 * mxu_dot(err, model)), 0.0)
+        yield {"grad_r": 2.0 * mxu_dot(err.T, l_rows), "sse": torch.sum(err * err)}
+        return RowResult(local_keys=row_idx, local_rows=new_l_rows)
+
+    def row_finish(self, model, hyper, n, local=None):
+        stats = yield
+        grad_r = stats["grad_r"] / n                # the whole batch's mean
+        delta_r = torch.clamp_min(model - hyper["lr"] * grad_r, 0.0) - model
+        return delta_r, {"loss": stats["sse"] / n}
 
     def evaluate(self, model, batch) -> Dict[str, torch.Tensor]:
         raise NotImplementedError("NMF evaluation uses training loss")

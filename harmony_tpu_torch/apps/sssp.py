@@ -31,13 +31,18 @@ class ShortestPathComputation(Computation):
         return dist[:, None]
 
     def compute(self, superstep, state, msg, has_msg) -> Tuple[torch.Tensor, torch.Tensor]:
+        return self.compute_range(superstep, state, msg, has_msg, 0)
+
+    def compute_range(self, superstep, state, msg, has_msg, first):
+        """Vertex ``first + i`` at row ``i``: the source is found by its id."""
         dist = state[:, 0]
         candidate = torch.where(has_msg, msg, INF)
         new_dist = torch.minimum(dist, candidate)
         # superstep 0: only the source is active; afterwards only vertices
         # that improved keep sending, everyone else votes to halt
         if superstep == 0:
-            active = torch.arange(dist.shape[0], device=dist.device) == self.source
+            ids = torch.arange(first, first + dist.shape[0], device=dist.device)
+            active = ids == self.source
         else:
             active = new_dist < dist
         return new_dist[:, None], ~active

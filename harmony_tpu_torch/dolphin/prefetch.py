@@ -12,7 +12,11 @@ off the training thread:
     non-blocking copy on a copy stream of its own, with an event recorded
     behind it; on the CPU the same code copies into a host tensor;
   * staged batches wait in a bounded :class:`~harmony_tpu_torch.data.loader.
-    StageRing` whose depth follows the worker's in-flight cap.
+    StageRing` whose depth follows the worker's in-flight cap;
+  * on a mesh with data rows (``rows``: each row's compute device) a batch
+    is staged cut over the rows, each row's part copied to its own device on
+    that device's copy stream (a :class:`~harmony_tpu_torch.dolphin.rows.
+    RowBatch`), so the step copies no batch between cards.
 
 The consumer (:meth:`StagedBatch.take`) makes its stream wait on the
 batch's event and marks the staged tensors as used on its stream
@@ -30,53 +34,57 @@ import contextlib
 import dataclasses
 import threading
 import time
-from typing import Any, Callable, Iterator, List, Optional, Tuple
+from typing import Any, Callable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from harmony_tpu_torch.data.loader import StageRing
+from harmony_tpu_torch.dolphin.rows import RowBatch, row_bounds
 from harmony_tpu_torch.runtime.taskunit import TaskUnitAborted
 
 
 @dataclasses.dataclass
 class StagedBatch:
     """One prefetched batch: the host tuple plus (optionally) its staged
-    device copy and the event its copy recorded (None on the CPU)."""
+    device copy (a tuple, or a RowBatch cut over the data rows) and the
+    events its copies recorded, one a device (None on the CPU)."""
 
     index: int
     host: Tuple[np.ndarray, ...]
-    device: Optional[Tuple[torch.Tensor, ...]]
-    ready: Optional[torch.cuda.Event] = None
+    device: Optional[Any]
+    ready: Optional[List[torch.cuda.Event]] = None
 
-    def take(self) -> Optional[Tuple[torch.Tensor, ...]]:
-        """The staged device copy, ordered before whatever the consumer's
-        current stream runs next; None when the batch was not staged (the
+    def take(self) -> Optional[Any]:
+        """The staged device copy, ordered before whatever the consumers'
+        current streams run next; None when the batch was not staged (the
         consumer places ``host`` itself)."""
         device = self.device
         if device is None or self.ready is None:
             return device
-        stream = torch.cuda.current_stream(device[0].device)
-        stream.wait_event(self.ready)
-        for t in device:
-            # allocated on the copy stream, read on the consumer's
-            t.record_stream(stream)
+        parts = device.parts if isinstance(device, RowBatch) else [device]
+        for part, ready in zip(parts, self.ready):
+            stream = torch.cuda.current_stream(part[0].device)
+            stream.wait_event(ready)
+            for t in part:
+                # allocated on the copy stream, read on the consumer's
+                t.record_stream(stream)
         return device
 
 
 class _PinnedSlot:
-    """One reusable set of staging buffers and the event of the copy that
+    """One reusable set of staging buffers and the events of the copies that
     last read them."""
 
     def __init__(self) -> None:
         self.buffers: Optional[List[torch.Tensor]] = None
-        self.copied: Optional[torch.cuda.Event] = None
+        self.copied: List[torch.cuda.Event] = []
 
     def fill(self, host: Tuple[np.ndarray, ...], pin: bool) -> List[torch.Tensor]:
-        if self.copied is not None:
-            # the device copy that last read these buffers must have landed
+        for ev in self.copied:
+            # the device copies that last read these buffers must have landed
             # before they are written again
-            self.copied.synchronize()
+            ev.synchronize()
         srcs = [torch.from_numpy(np.ascontiguousarray(a)) for a in host]
         if self.buffers is None:  # an epoch's batches share shapes and dtypes
             self.buffers = [torch.empty(s.shape, dtype=s.dtype, pin_memory=pin)
@@ -119,15 +127,21 @@ class PrefetchPipeline:
         job_id: str = "",
         net_scope: Optional[Callable[[Callable[[], bool]], Any]] = None,
         skip_stage_fn: Optional[Callable[[int], bool]] = None,
+        rows: Optional[Sequence[torch.device]] = None,
     ) -> None:
         self._provider = provider
         self._device = torch.device(device)
+        # each data row's compute device (None: whole batches on ``device``)
+        self._rows = list(rows) if rows else None
         self._net_scope = net_scope
         self._skip_stage_fn = skip_stage_fn
         self._ring = StageRing(depth_fn)
         self._host_only = False  # see stop_staging()
         cuda = self._device.type == "cuda"
-        self._copy_stream = torch.cuda.Stream(self._device) if cuda else None
+        targets = self._rows or [self._device]
+        # a copy stream on each device a batch is staged on
+        self._copy_streams = ({d: torch.cuda.Stream(d) for d in targets}
+                              if cuda else None)
         self._pool = [_PinnedSlot() for _ in range(self.POOL)]
         self.produce_sec = 0.0  # host assembly (gather, slicing) seconds
         self.stage_sec = 0.0    # pinned fill and copy enqueue seconds
@@ -141,20 +155,30 @@ class PrefetchPipeline:
 
     def _stage(self, idx: int, host: Tuple[np.ndarray, ...]) -> StagedBatch:
         slot = self._pool[idx % len(self._pool)]
-        cuda = self._copy_stream is not None
+        cuda = self._copy_streams is not None
         buffers = slot.fill(host, pin=cuda)
-        scope = (torch.cuda.stream(self._copy_stream) if cuda
-                 else contextlib.nullcontext())
-        with scope:
-            # copy=True: on the CPU the staged tensor must not alias the
-            # buffer the next fill of this slot overwrites
-            device = tuple(b.to(self._device, non_blocking=True, copy=True)
-                           for b in buffers)
-            ready = None
-            if cuda:
-                ready = torch.cuda.Event()
-                ready.record(self._copy_stream)
-                slot.copied = ready
+        if self._rows is None:
+            cuts = [(self._device, buffers)]
+        else:
+            n = buffers[0].shape[0]
+            bounds = row_bounds(n, len(self._rows))
+            cuts = [(d, [b[bounds[r]:bounds[r + 1]] for b in buffers])
+                    for r, d in enumerate(self._rows)]
+        parts, ready = [], [] if cuda else None
+        for dev, bufs in cuts:
+            scope = (torch.cuda.stream(self._copy_streams[dev]) if cuda
+                     else contextlib.nullcontext())
+            with scope:
+                # copy=True: on the CPU the staged tensor must not alias the
+                # buffer the next fill of this slot overwrites
+                parts.append(tuple(b.to(dev, non_blocking=True, copy=True) for b in bufs))
+                if cuda:
+                    ev = torch.cuda.Event()
+                    ev.record(self._copy_streams[dev])
+                    ready.append(ev)
+        if cuda:
+            slot.copied = ready
+        device = parts[0] if self._rows is None else RowBatch(parts)
         return StagedBatch(idx, host, device, ready)
 
     def _produce(self) -> None:

@@ -5,11 +5,29 @@ Trainer API: initGlobalSettings / pull / localCompute / push / onEpochFinished
 / evaluate / cleanup). ``compute`` is a function of tensors on the table's
 device; the worker runs PULL, ``compute`` and PUSH as one step under the table
 lock.
+
+On a model table whose mesh has a data axis > 1 the worker splits each batch
+over the data rows (``dolphin/worker.py::_DataParallelStep``), and a trainer
+says how its step splits, in one of two ways:
+
+  * ``batch_reduction`` ("mean" or "sum"), for a delta linear in the batch
+    (MLR, Wide&Deep, AddVector): each row computes ``compute`` on its part and
+    the rows' deltas and metrics combine;
+  * the split contract, for every other trainer: ``row_part`` runs on each
+    row's slot over the row's part and yields sufficient statistics;
+    ``row_finish`` runs once, on the first row's slot, takes each round's
+    statistics added over the rows in row order and turns them into the
+    delta and the metrics, replying to the rows between rounds where the
+    step needs several (Lasso's coordinates, GBT's levels). The rows'
+    statistics add in row order, so a step gives the same bits run to run
+    and the one-slot result to rounding.
+
+A trainer with neither is refused on a data axis > 1.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Generator, Optional, Tuple
 
 import torch
 
@@ -28,6 +46,19 @@ class TrainerContext:
     local_table: Any = None          # DenseTable or None
     worker_id: str = "worker-0"
     num_workers: int = 1
+
+
+@dataclasses.dataclass
+class RowResult:
+    """What a row's part of a split step returns (``Trainer.row_part``):
+    the delta of the row's own keys (a keyed pull; the rows' deltas are
+    pushed together, in row order) and the worker-local rows its part writes
+    (``local_keys``, ``local_rows``), which are written into every replica
+    of the local table."""
+
+    delta: Optional[torch.Tensor] = None
+    local_keys: Optional[torch.Tensor] = None
+    local_rows: Optional[torch.Tensor] = None
 
 
 class Trainer:
@@ -56,11 +87,11 @@ class Trainer:
     # :meth:`_epoch_hook_windowable`).
     epoch_hook_windowable: bool = False
     # How the deltas and metrics of parts of a batch combine into the whole
-    # batch's, for a model table on a mesh with a data axis > 1 (the port's
-    # data-parallel step splits the batch over the rows): "mean" when compute
-    # returns batch means (each part weighs by its share of the examples),
-    # "sum" when it returns batch sums. None: the trainer cannot run on a
-    # data axis > 1, and such a job is refused.
+    # batch's, for a model table on a mesh with a data axis > 1, when the
+    # delta is linear in the batch: "mean" when compute returns batch means
+    # (each part weighs by its share of the examples), "sum" when it returns
+    # batch sums. None: the trainer runs on a data axis > 1 only through the
+    # split contract (row_part, row_finish), or not at all.
     batch_reduction: Optional[str] = None
 
     # -- lifecycle (host side) ------------------------------------------
@@ -139,6 +170,40 @@ class Trainer:
         of the live storage: compute returns new tensors and never writes
         into them."""
         raise NotImplementedError
+
+    # -- the split contract (a data axis > 1; see the module doc) ----------
+
+    @property
+    def splits_rows(self) -> bool:
+        """Whether the trainer implements the split contract."""
+        return type(self).row_part is not Trainer.row_part
+
+    def row_part(self, model: torch.Tensor, batch: Any, hyper: Dict[str, torch.Tensor],
+                 local: Optional[torch.Tensor] = None
+                 ) -> Generator[Dict[str, torch.Tensor], Any, Optional[RowResult]]:
+        """A generator run on each data row's slot over the row's part of the
+        batch (``model`` and ``local``: the row's replicas; ``hyper`` on its
+        slot). Each ``yield`` hands the finish a dict of statistics and
+        receives the finish's reply to that round on the row's slot (None
+        once the finish has returned); the part then returns a
+        :class:`RowResult` (or None)."""
+        raise NotImplementedError
+
+    def row_finish(self, model: torch.Tensor, hyper: Dict[str, torch.Tensor], n: int,
+                   local: Optional[torch.Tensor] = None) -> Generator[Any, Dict, Tuple]:
+        """A generator run once, on the first row's slot, for a batch of
+        ``n`` examples: each ``stats = yield reply`` receives a round's
+        statistics added over the rows (the first ``yield`` replies
+        nothing). It returns ``(delta, metrics)``, or ``(delta, metrics,
+        (local_keys, local_rows))`` to write local rows into every replica;
+        the delta is None for a keyed pull (the rows return theirs)."""
+        raise NotImplementedError
+
+    def local_keys(self, batch: Any) -> Optional[torch.Tensor]:
+        """The worker-local rows a batch's step writes (NMF's rows, LDA's
+        documents), or None: on a data axis > 1 a batch that writes one of
+        them twice is refused."""
+        return None
 
     def local_table_config(self):
         """Schema of the worker-local table (``uses_local_table`` only)."""

@@ -48,17 +48,20 @@ the measured autotune (``table/autotune.py``).
 A model table over a mesh of several slots (a ``ShardedArray``) takes the
 same steps, its pulls and pushes going shard by shard, and computes on the
 mesh's first slot; on a mesh with a data axis > 1 the step is
-:class:`_DataParallelStep` (the batch split over the data rows).
+:class:`_DataParallelStep` (the batch split over the data rows, each row's
+part staged on its row's compute slot by the device caches and the prefetch
+ring: a ``dolphin/rows.py::RowBatch``), beside a worker-local table too.
 
 The table may be resharded while the worker trains (``TableHandle.move_blocks``
 from the job's optimizer loop or a plan). Every step runs under the table lock
 on the layout the table holds then (:meth:`WorkerTasklet._layout_step`): a
 step built for another compute device or number of data rows is rebuilt
-there, and a batch staged on another device is copied to the new one. The
-worker listens to the table's announcements: when the target computes on
-another device, the epoch's prefetch pipeline stops staging (its staged
-copies are dropped) and, at the next dispatch, the worker's device caches
-follow the table (``_follow_layout``).
+there, and a batch staged on another device (or for other data rows) is
+copied to the new one. The worker listens to the table's announcements: when
+the target computes on another device, or its data rows on others, the
+epoch's prefetch pipeline stops staging (its staged copies are dropped) and,
+at the next dispatch, the worker's device caches follow the table and
+re-stage by the new rows (``_follow_layout``).
 
 Under a JobServer the worker has a ``MetricCollector``: each drain emits one
 ``BatchMetrics`` a batch, at the window's seconds smeared over its batches
@@ -103,6 +106,14 @@ from harmony_tpu_torch.data import devcache
 from harmony_tpu_torch.data.loader import StageRing
 from harmony_tpu_torch.dolphin.data import TrainingDataProvider
 from harmony_tpu_torch.dolphin.prefetch import PrefetchPipeline, StagedBatch
+from harmony_tpu_torch.dolphin.rows import (
+    RowBatch,
+    RowInput,
+    row_devices,
+    run_split,
+    stage_rows,
+    stage_stack_rows,
+)
 from harmony_tpu_torch.dolphin.trainer import Trainer, TrainerContext
 from harmony_tpu_torch.metrics.collector import BatchMetrics, MetricCollector
 from harmony_tpu_torch.metrics.tracer import Tracer
@@ -269,71 +280,113 @@ class _DataParallelStep:
     """The step of a table whose mesh has D > 1 data rows, the reference's
     batch placed ``P(DATA_AXIS)`` (``harmony_tpu/dolphin/worker.py:720``).
 
-    The batch splits contiguously over the rows, as that placement cuts it.
-    Row ``r`` pulls from its own replica (``ShardedArray.at_row``: K1 on the
-    shards of its row) and computes on its own slot; the rows' deltas then
-    combine on the first row's slot in row order and are pushed ONCE, into
-    every replica. A trainer declares how its deltas and metrics combine
-    (``Trainer.batch_reduction``): "mean" weights row ``r``'s by its share
-    of the examples, "sum" adds them. Keyed deltas combine by concatenating
-    the rows' keys and deltas, which the push folds in that order; whole-
-    model deltas add up. The sum runs in another order than the one-slot
-    step's, so the result agrees with it to rounding, not bit for bit; it is
-    the same from run to run. A hash table admits the whole batch's keys on
-    every replica first (one ``ensure``, so the replicas stay alike), and
-    each row then reads its own keys' rows. The batch arrives on the first
-    row's slot, and each row's part is copied to its slot (no copy between
-    slots of one device)."""
+    The batch splits contiguously over the rows, as that placement cuts it;
+    the worker stages it so (a :class:`RowBatch`, each row's part on its
+    row's compute slot), and a batch staged for another layout is cut here
+    (the worker's ``input["restaged_batches"]`` counts those steps). Row ``r`` pulls from its own replica
+    (``ShardedArray.at_row``: K1 on the shards of its row) and computes on
+    its own slot, in one of the two ways ``dolphin/trainer.py`` describes:
+
+      * ``Trainer.batch_reduction``: each row runs ``compute`` on its part;
+        "mean" weights row ``r``'s delta and metrics by its share of the
+        examples, "sum" adds them. Keyed deltas combine by concatenating the
+        rows' keys and deltas, which the push folds in that order; whole-
+        model deltas add up in row order;
+      * the split contract (``rows.run_split``): the rows' statistics add up
+        in row order on the first row's slot, where the finish makes the
+        delta and the metrics. Beside a worker-local table (every row reads
+        its own replica) the local rows the parts write are gathered in row
+        order and written into EVERY replica, so the replicas stay alike.
+
+    Either way the delta is pushed ONCE, into every replica. The sums run in
+    another order than the one-slot step's, so the result agrees with it to
+    rounding, not bit for bit; it is the same from run to run. A hash table
+    admits the whole batch's keys on every replica first (one ``ensure``, so
+    the replicas stay alike), and each row then reads its own keys' rows."""
 
     def __init__(self, spec, trainer: Trainer, *, push_route: Optional[str],
-                 is_hash: bool) -> None:
-        if trainer.batch_reduction not in ("mean", "sum"):
+                 is_hash: bool, local_spec=None,
+                 counters: Optional[Dict[str, Any]] = None) -> None:
+        self._split = trainer.splits_rows
+        if not self._split and trainer.batch_reduction not in ("mean", "sum"):
+            note = getattr(trainer, "data_axis_note", "")
             raise ValueError(
-                f"{type(trainer).__name__} does not declare how its per-row deltas "
-                "combine (Trainer.batch_reduction); a data axis > 1 needs it")
+                f"{type(trainer).__name__} declares neither how its per-row deltas "
+                "combine (Trainer.batch_reduction) nor a split (Trainer.row_part, "
+                f"row_finish); a data axis > 1 needs one{note}")
         if spec.update_fn.scatter_mode != "add":
             raise ValueError("a data axis > 1 needs an additive update fn")
-        if trainer.uses_local_table:
-            raise NotImplementedError(
-                "a data axis > 1 beside a worker-local table is not ported "
-                "(ROADMAP A.9)")
+        if trainer.uses_local_table and not self._split:
+            raise ValueError(
+                f"{type(trainer).__name__} keeps a worker-local table: on a data "
+                "axis > 1 it needs a split (Trainer.row_part, row_finish)")
         self._spec = spec
+        self._local_spec = local_spec
         self._trainer = trainer
         self._route = push_route
         self._hash = is_hash
+        # hyper-parameter scalars of the rows' devices other than the
+        # worker's, set with fill_ from the trainer's host values (no copy)
+        self._hyper_by_device: Dict[torch.device, Dict[str, torch.Tensor]] = {}
+        # "restaged_batches": steps whose batch was not staged for their rows
+        self._counters = counters if counters is not None else {"restaged_batches": 0}
+
+    def _row_hyper(self, dev: torch.device, hyper: Dict[str, torch.Tensor]):
+        if all(v.device == dev for v in hyper.values()):
+            return hyper
+        scalars = self._hyper_by_device.setdefault(dev, {})
+        out = {}
+        for k, v in self._trainer.hyperparams().items():
+            t = scalars.get(k)
+            if t is None:
+                t = scalars[k] = torch.empty((), dtype=torch.float32, device=dev)
+            out[k] = t.fill_(float(v))
+        return out
 
     def _parts(self, sh, batch, hyper):
-        """Each row's (row, slot device, weight, batch slice, hyper-parameters)
-        on the layout ``sh`` the table holds now, the slice and the
+        """Each row's (row, slot device, weight, batch part, hyper-parameters)
+        on the layout ``sh`` the table holds now, the part and the
         hyper-parameters on the row's slot."""
-        n = batch[0].shape[0]
-        bounds = [n * r // sh.data_rows for r in range(sh.data_rows + 1)]
-        out = []
-        for r in range(sh.data_rows):
-            dev = sh.compute_slot(r).device
-            lo, hi = bounds[r], bounds[r + 1]
-            w = (hi - lo) / n if self._trainer.batch_reduction == "mean" else 1.0
-            out.append((r, dev, w, tuple(on_device(a[lo:hi], dev) for a in batch),
-                        {k: on_device(v, dev) for k, v in hyper.items()}))
-        return out
+        devs = row_devices(sh.mesh)
+        if isinstance(batch, RowBatch) and batch.devices == devs:
+            parts = batch.parts
+        else:
+            self._counters["restaged_batches"] += 1
+            parts = stage_rows(batch.joined(devs[0]) if isinstance(batch, RowBatch)
+                               else batch, devs).parts
+        n = sum(p[0].shape[0] for p in parts)
+        mean = self._trainer.batch_reduction == "mean"
+        return [(r, dev, (p[0].shape[0] / n if mean else 1.0), p, self._row_hyper(dev, hyper))
+                for r, (dev, p) in enumerate(zip(devs, parts))], n
 
     @staticmethod
     def _combine_metrics(metrics_by_row, parts, dev):
         return {k: sum(on_device(m[k], dev) * p[2] for m, p in zip(metrics_by_row, parts))
                 for k in metrics_by_row[0]}
 
-    def __call__(self, state, batch, hyper):
+    def _hash_keys(self, state, parts, dev):
+        """One ``ensure`` of the whole batch's keys on every replica; each
+        row's keys and its slice of the token, on its slot."""
+        keys = [self._trainer.pull_keys(b).reshape(-1).to(torch.int32)
+                for _, _, _, b, _ in parts]
+        state, token = self._spec.ensure(state, torch.cat([on_device(k, dev) for k in keys]))
+        toks, lo = [], 0
+        for (_, rdev, *_), k in zip(parts, keys):
+            toks.append(tuple(on_device(t[lo:lo + k.shape[0]], rdev) for t in token))
+            lo += k.shape[0]
+        return state, token, keys, toks
+
+    def __call__(self, state, *rest):
+        local, (batch, hyper) = (rest[0], rest[1:]) if len(rest) == 3 else (None, rest)
+        parts, n = self._parts(state.sharding, batch, hyper)
+        if self._split:
+            return self._split_step(state, local, parts, n)
         spec, trainer = self._spec, self._trainer
         dev = state.device
-        parts = self._parts(state.sharding, batch, hyper)
         metrics, deltas, keys = [], [], []
         if self._hash:
-            keys = [trainer.pull_keys(b).reshape(-1).to(torch.int32) for *_, b, _ in parts]
-            state, token = spec.ensure(state, torch.cat([on_device(k, dev) for k in keys]))
-            lo = 0
-            for (r, rdev, w, b, h), k in zip(parts, keys):
-                tok = tuple(on_device(t[lo:lo + k.shape[0]], rdev) for t in token)
-                lo += k.shape[0]
+            state, token, keys, toks = self._hash_keys(state, parts, dev)
+            for (r, rdev, w, b, h), k, tok in zip(parts, keys, toks):
                 delta, m = trainer.compute(spec.read(state.at_row(r), k, tok), b, h)
                 deltas.append(on_device(trainer.mask_delta(delta, tok[2]) * w, dev))
                 metrics.append(m)
@@ -355,6 +408,75 @@ class _DataParallelStep:
         else:
             state = spec.push(state, torch.cat(keys), torch.cat(deltas), via=self._route)
         return state, self._combine_metrics(metrics, parts, dev)
+
+    def _split_step(self, state, local, parts, n):
+        """The split contract: the rows' parts and the finish
+        (``rows.run_split``), one push of the delta, and the local writes
+        into every replica of the local table."""
+        spec, trainer = self._spec, self._trainer
+        dev = state.device
+        token = toks = keys = None
+        if self._hash:
+            state, token, keys, toks = self._hash_keys(state, parts, dev)
+        rows = []
+        for i, (r, rdev, _, b, h) in enumerate(parts):
+            if self._hash:
+                model = spec.read(state.at_row(r), keys[i], toks[i])
+            elif trainer.pull_mode == "all":
+                model = spec.pull_all(state.at_row(r))
+            else:
+                model = spec.pull(state.at_row(r), trainer.pull_keys(b))
+            lmodel = (None if local is None
+                      else self._local_spec.pull_all(local.at_row(r)))
+            rows.append(RowInput(rdev, model, b, h, lmodel))
+        delta, metrics, local_writes, results = run_split(trainer, rows, n)
+        if self._hash:
+            deltas = [on_device(trainer.mask_delta(res.delta, tok[2]), dev)
+                      for res, tok in zip(results, toks)]
+            state = spec.push(state, token, torch.cat(deltas))
+            metrics = dict(metrics, _dropped=_dropped(token))
+        elif trainer.pull_mode == "all":
+            state = spec.push_all(state, delta)
+        else:
+            state = spec.push(state, torch.cat([on_device(trainer.pull_keys(b), dev)
+                                                for *_, b, _ in parts]),
+                              torch.cat([on_device(res.delta, dev) for res in results]),
+                              via=self._route)
+        if local is None:
+            return state, metrics
+        writes = [(res.local_keys, res.local_rows) for res in results
+                  if res.local_keys is not None]
+        if local_writes is not None:
+            writes.append(local_writes)
+        if writes:
+            # each write's storage rows, made where its keys lie: the rows'
+            # writes travel as (storage row, values), never as a batch array
+            lspec = self._local_spec
+            flat = [lspec._flat_index(*lspec.partitioner.locate(k.reshape(-1)))
+                    for k, _ in writes]
+            self._write_local(local, torch.cat([on_device(f, dev) for f in flat]),
+                              torch.cat([on_device(v, dev) for _, v in writes]))
+        return (state, local), metrics
+
+    def _write_local(self, local, flat: torch.Tensor, rows: torch.Tensor) -> None:
+        """Set the local table's storage rows ``flat`` to ``rows`` in every
+        replica, with no host sync: on each slot the rows of other shards go
+        to a sink row past the shard's end, the values land in a scratch copy
+        and a mask of the rows written picks them (no row repeats: the worker
+        refuses such a batch)."""
+        spec, sh = self._local_spec, local.sharding
+        per = spec._rows_per_shard(sh)
+        m, at = spec._shard_rows(flat, sh)
+        flat_rows = rows.reshape(flat.shape[0], -1)
+        for slot, t in local.shards.items():
+            d = t.device
+            idx = on_device(torch.where(m == sh.shard_of(slot), at, per).long(), d)
+            tv = t.view(per, -1)
+            buf = torch.empty((per + 1, tv.shape[1]), dtype=t.dtype, device=d)
+            buf.index_put_((idx,), on_device(flat_rows, d).to(t.dtype))
+            hit = torch.zeros(per + 1, dtype=torch.bool, device=d)
+            hit.index_put_((idx,), torch.ones_like(idx, dtype=torch.bool))
+            tv.copy_(torch.where(hit[:per, None], buf[:per], tv))
 
 
 class AsyncStepDriver:
@@ -717,9 +839,14 @@ class WorkerTasklet:
         self._input = {"prefetch_hits": 0, "prefetch_misses": 0, "pipelines": 0,
                        "staged": 0, "max_depth": 0, "producer_idle_sec": 0.0,
                        "consumer_stall_sec": 0.0, "produce_sec": 0.0,
-                       "stage_sec": 0.0, "dropped_batches": 0}
+                       "stage_sec": 0.0, "dropped_batches": 0, "restaged_batches": 0}
         # the (compute device, data rows) the step was built for
         self._step_layout: Optional[Tuple[torch.device, int]] = None
+        # the compute device of each data row the batches are staged for
+        # (None: one row, whole batches on ``device``)
+        self._rows = row_devices(ctx.model_table.mesh)
+        # stable batches whose local writes were checked (_check_local_rows)
+        self._local_rows_ok: set = set()
         self._pipeline: Optional[PrefetchPipeline] = None  # the epoch's, if any
         # the metric sink's collector (under a JobServer) and this worker's
         # op counters (the entity's ServerMetrics read them)
@@ -924,9 +1051,12 @@ class WorkerTasklet:
         rows = self._data_rows() if rows is None else rows
         self._step_layout = (self.device, rows)
         if rows > 1:
+            local = self.ctx.local_table
             self._step = _DataParallelStep(table.spec, self.trainer,
                                            push_route=self._push_route,
-                                           is_hash=self._is_hash())
+                                           is_hash=self._is_hash(),
+                                           local_spec=None if local is None else local.spec,
+                                           counters=self._input)
         elif self._async_mode():
             self._step = AsyncStepDriver(
                 self._build_unfused(self._push_route), bound=self._staleness_bound,
@@ -993,37 +1123,74 @@ class WorkerTasklet:
             self._rehome(dev)
         if (dev, rows) != self._step_layout:
             self._build_step(rows)
-        # a batch, or an epoch's hyper-parameters, made before the move
-        batch = tuple(on_device(a, dev) for a in batch)
+        # a batch, or an epoch's hyper-parameters, made before the move: the
+        # data-parallel step cuts a batch staged for other rows itself
+        if isinstance(batch, RowBatch) and rows == 1:
+            batch = batch.joined(dev)
+        elif not isinstance(batch, RowBatch):
+            batch = tuple(on_device(a, dev) for a in batch)
         hyper = {k: on_device(v, dev) for k, v in hyper.items()}
         return self._step(*tables, batch, hyper)
 
     def _rehome(self, device: torch.device) -> None:
         """Follow the table to ``device``: the device copies of batches and
-        the hyper-parameter scalars are made anew there."""
+        the hyper-parameter scalars are made anew there, staged by the
+        table's data rows."""
         self.device = device
+        self._rows = row_devices(self.ctx.model_table.mesh)
         self._batch_cache.clear()
         self._stacked_cache = None
         self._hyper_scalars = {}
 
     def _follow_layout(self) -> None:
         """At a dispatch boundary: re-home when the table now computes on
-        another device."""
-        dev = self.ctx.model_table.device
-        if dev != self.device:
-            self._rehome(dev)
+        another device, or its data rows on other devices."""
+        table = self.ctx.model_table
+        if (table.device, row_devices(table.mesh)) != (self.device, self._rows):
+            self._rehome(table.device)
 
     def _on_layout(self, target) -> None:
         """The table's reshard announcement (the target mesh): when the target
-        computes on another device, the epoch's pipeline stops staging onto
-        this one and drops what it staged."""
+        computes on another device, or its rows on others, the epoch's
+        pipeline stops staging and drops what it staged."""
         pipe = self._pipeline
-        if pipe is not None and target.devices.flat[0].device != self.device:
+        if pipe is not None and (target.devices.flat[0].device != self.device
+                                 or row_devices(target) != self._rows):
             pipe.stop_staging()
 
     def _to_device(self, batch: Tuple[np.ndarray, ...]) -> Tuple[torch.Tensor, ...]:
         return tuple(torch.as_tensor(np.ascontiguousarray(a), device=self.device)
                      for a in batch)
+
+    def _place(self, batch: Tuple[np.ndarray, ...]):
+        """A host batch on the device for a step: whole on the compute
+        device, or on a mesh with data rows each row's part on its row's
+        compute slot (a :class:`RowBatch`)."""
+        if self._rows is None:
+            return self._to_device(batch)
+        return stage_rows(batch, self._rows)
+
+    def _check_local_rows(self, batch_idx: int, batch) -> None:
+        """On a data axis > 1, refuse a batch that writes one worker-local
+        row twice (the reference's ``.at[].set`` leaves such a write
+        undefined): checked on the host batch, once a stable batch."""
+        if self._rows is None or not self.trainer.uses_local_table:
+            return
+        stable = self.cache_device_batches
+        if stable and batch_idx in self._local_rows_ok:
+            return
+        host = self._host_batch(batch_idx, batch)
+        keys = self.trainer.local_keys(tuple(torch.as_tensor(np.asarray(a)) for a in host))
+        if keys is not None:
+            uniq, counts = np.unique(keys.reshape(-1).numpy(), return_counts=True)
+            if (counts > 1).any():
+                raise ValueError(
+                    f"job {self.job_id}: batch {batch_idx} writes local row "
+                    f"{int(uniq[counts > 1][0])} of {self.ctx.local_table.spec.table_id} "
+                    "more than once; on a data axis > 1 each row of a batch's "
+                    "local writes must be distinct")
+        if stable:
+            self._local_rows_ok.add(batch_idx)
 
     def _hyper(self) -> Dict[str, torch.Tensor]:
         """The trainer's host hyper-parameters as float32 scalars on the device.
@@ -1127,9 +1294,9 @@ class WorkerTasklet:
         """The probe's sample batch, the provider's first rows in stable
         order: batch 0 of the device-resident stack on the fused-epoch path
         (no upload), else a copy of ``first_rows``."""
-        if self._use_fused_epoch():
+        if self._use_fused_epoch() and self._rows is None:
             self._ensure_stacked_cache()
-            return tuple(a[0] for a in self._stacked_cache)
+            return self._stacked_batch(self._stacked_cache, 0)
         return self._to_device(self.data.first_rows(self.data.batch_size))
 
     def _probe_comm(self) -> None:
@@ -1196,7 +1363,9 @@ class WorkerTasklet:
         carries a data-source identity."""
         if self.data.dataset_key is None:
             return None
-        return (self.data.dataset_key, tag, str(self.device))
+        where = (str(self.device) if self._rows is None
+                 else ("rows", tuple(map(str, self._rows))))
+        return (self.data.dataset_key, tag, where)
 
     def _ensure_stacked_cache(self) -> None:
         """The whole epoch on the device, ``[num_batches, batch, ...]`` for
@@ -1210,22 +1379,35 @@ class WorkerTasklet:
             self._stacked_cache = hit
             return
         batches = list(self.data.epoch_batches())
-        self._stacked_cache = tuple(
-            torch.as_tensor(np.stack([b[i] for b in batches])).to(self.device)
-            for i in range(len(batches[0])))
+        stack = tuple(torch.as_tensor(np.stack([b[i] for b in batches]))
+                      for i in range(len(batches[0])))
+        self._stacked_cache = (tuple(a.to(self.device) for a in stack) if self._rows is None
+                               else stage_stack_rows(stack, self._rows))
         devcache.put(gkey, self._stacked_cache)
+
+    @staticmethod
+    def _stacked_batch(stacked, b: int):
+        """Batch ``b`` of a device-resident stack (views)."""
+        if isinstance(stacked, RowBatch):
+            return stacked.index(b)
+        return tuple(a[b] for a in stacked)
 
     def _enqueue_fused_window(self, first_epoch: int, k: int
                               ) -> List[List[Dict[str, torch.Tensor]]]:
         """Enqueue ``k`` epochs over the device-resident stack with no host
         sync: every batch a view ``stacked[i][b]``, the windowable trainer
         hook between epochs, the hyper-parameters set on the device."""
+        # the stack of the window's start: a step that re-homes the worker
+        # drops the cache, and its batches are copied to the new device
         stacked = self._stacked_cache
         out = []
         for j in range(k):
             hyper = self._hyper()
-            out.append([self._dispatch(tuple(a[b] for a in stacked), hyper)
-                        for b in range(self.data.num_mini_batches)])
+            batches = []
+            for b in range(self.data.num_mini_batches):
+                self._check_local_rows(b, None)
+                batches.append(self._dispatch(self._stacked_batch(stacked, b), hyper))
+            out.append(batches)
             if j + 1 < k:
                 self.trainer.on_epoch_finished(self.ctx, first_epoch + j)
         return out
@@ -1309,7 +1491,7 @@ class WorkerTasklet:
                 i in self._batch_cache or devcache.contains(self._devcache_key(i)))
         return PrefetchPipeline(self.data, self.device, self._inflight_cap,
                                 epoch=epoch, job_id=self.job_id, net_scope=net_scope,
-                                skip_stage_fn=skip)
+                                skip_stage_fn=skip, rows=self._rows)
 
     def _host_batch(self, batch_idx: int, batch):
         """``batch`` when the stream carried it, else re-materialized from the
@@ -1327,13 +1509,14 @@ class WorkerTasklet:
         gkey = self._devcache_key(batch_idx)
         batch_dev = devcache.get(gkey)
         if batch_dev is None:
-            batch_dev = self._to_device(self._host_batch(batch_idx, batch))
+            batch_dev = self._place(self._host_batch(batch_idx, batch))
             devcache.put(gkey, batch_dev)
         self._batch_cache[batch_idx] = batch_dev
         return batch_dev
 
     def _dispatch_batch(self, batch_idx: int, batch, hyper,
                         staged: Optional[StagedBatch]) -> Dict[str, torch.Tensor]:
+        self._check_local_rows(batch_idx, batch)
         batch_dev = staged.take() if staged is not None else None
         if batch_dev is not None:
             self._input["prefetch_hits"] += 1
@@ -1347,7 +1530,7 @@ class WorkerTasklet:
             if self.cache_device_batches:
                 batch_dev = self._cached_batch(batch_idx, batch)
             else:
-                batch_dev = self._to_device(self._host_batch(batch_idx, batch))
+                batch_dev = self._place(self._host_batch(batch_idx, batch))
         return self._dispatch(batch_dev, hyper)
 
     def _mark(self) -> Optional[torch.cuda.Event]:

@@ -31,8 +31,10 @@ device-resident batches of their slices, as in the reference.
 ``PregelJobEntity``: ``config.trainer`` names the Computation class,
 ``user.graph_fn``/``user.graph_args`` build the Graph, ``user.max_supersteps``
 bounds the run; a Computation whose ``__init__`` takes ``graph`` gets it. Its
-``PregelMaster`` holds the vertex and message tables on the executors' device
-and takes a COMP unit a superstep; cleanup closes it, which drops them.
+``PregelMaster`` holds the vertex and message tables sharded over the mesh of
+the executors' slots (``build_mesh(slots, data=1)``, as the reference's
+entity builds it; ``user["data_axis"]`` does not apply to a graph job) and
+takes a COMP unit a superstep; cleanup closes it, which drops every shard.
 
 Checkpoint chains (``TrainerParams.model_chkp_period`` = N): the chief's
 epoch hook snapshots the model table every N epochs into the job's chain
@@ -89,6 +91,7 @@ from harmony_tpu_torch.dolphin.trainer import Trainer, TrainerContext
 from harmony_tpu_torch.dolphin.worker import WorkerTasklet
 from harmony_tpu_torch.metrics.collector import MetricCollector, ServerMetrics
 from harmony_tpu_torch.metrics.manager import MetricManager
+from harmony_tpu_torch.parallel.mesh import build_mesh
 from harmony_tpu_torch.pregel.master import PregelMaster
 from harmony_tpu_torch.runtime.master import ETMaster, Table, TableHandle
 from harmony_tpu_torch.runtime.taskunit import (
@@ -606,7 +609,8 @@ class DolphinJobEntity:
 
 
 class PregelJobEntity:
-    """A vertex-centric BSP job (the reference's ``PregelJobEntity``). Its one
+    """A vertex-centric BSP job (the reference's ``PregelJobEntity``) over all
+    its executors: its tables shard over the mesh of their slots. Its one
     worker takes a COMP unit a superstep when the JobServer gives it
     TaskUnit schedulers."""
 
@@ -632,11 +636,10 @@ class PregelJobEntity:
         app_params = dict(cfg.params.app_params)
         if "graph" in inspect.signature(comp_cls.__init__).parameters:
             app_params["graph"] = graph
-        devices = {master.executor(e).device for e in executor_ids}
-        if len(devices) != 1:
-            raise NotImplementedError(
-                f"job {cfg.job_id}: executors {list(executor_ids)} span devices "
-                f"{sorted(map(str, devices))}; a Pregel job runs on one device")
+        # every executor on the model axis, as the reference's entity builds
+        # it (data=1 whatever user["data_axis"] says): the tables shard over
+        # the job's slots
+        mesh = build_mesh([master.executor(e).slot for e in executor_ids], data=1)
         computation = comp_cls(**app_params)
         taskunit = None
         if self._global_tu is not None and self._local_tu is not None:
@@ -646,7 +649,7 @@ class PregelJobEntity:
             taskunit = TaskUnitClient(cfg.job_id, wid, self._global_tu, self._local_tu)
         try:
             self._pregel_master = PregelMaster(
-                graph, computation, devices.pop(),
+                graph, computation, mesh,
                 max_supersteps=int(user.get("max_supersteps", 100)),
                 taskunit=taskunit, job_id=cfg.job_id)
         except BaseException:

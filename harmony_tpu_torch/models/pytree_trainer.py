@@ -92,6 +92,11 @@ def unravel(flat: torch.Tensor, shapes: Any) -> Any:
 
 class PyTreeTrainer(Trainer):
     pull_mode = "all"
+    # the reference runs such a job on a Dolphin data axis > 1 through its
+    # worker's GSPMD step; the port's data-parallel forms are the models' own
+    # mesh steps (make_train_step(model, mesh) and its siblings)
+    data_axis_note = (" (a PyTreeTrainer on a Dolphin data axis is ROADMAP A.12; "
+                      "the models' mesh steps take a data axis)")
 
     #: default table id; subclasses override
     default_table_id = "model"

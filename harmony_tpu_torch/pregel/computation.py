@@ -7,6 +7,11 @@ every vertex at once:
   * ``compute(superstep, state, msg, has_msg)``: the new state of all
     vertices and a vote-to-halt mask; a halted vertex that receives a message
     is active again, as in Pregel.
+  * ``compute_range(superstep, state, msg, has_msg, first)``: the same over
+    the vertices ``first``, ``first + 1``, ... of one shard of the tables
+    (``pregel/master.py`` on a mesh). It is ``compute`` for a computation
+    that reads nothing but each vertex's own values; one whose compute reads
+    vertex ids overrides it (shortest path's source).
   * ``edge_message(superstep, src_state, weight)``: the value each edge
     carries from its source, over all edges; the master folds the messages
     to one destination with ``combiner`` ("add", "min" or "max").
@@ -43,6 +48,17 @@ class Computation:
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Returns (new_state [V, state_dim], vote_to_halt [V] bool)."""
         raise NotImplementedError
+
+    def compute_range(
+        self,
+        superstep: int,
+        state: torch.Tensor,      # [n, state_dim], vertices first .. first + n - 1
+        msg: torch.Tensor,
+        has_msg: torch.Tensor,
+        first: int,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``compute`` on one vertex range (see the module doc)."""
+        return self.compute(superstep, state, msg, has_msg)
 
     def edge_message(
         self,

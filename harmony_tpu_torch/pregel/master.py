@@ -5,44 +5,80 @@ message tables (with their has-message flags) swapped every superstep, as the
 reference's MessageManager swaps currentTable and nextTable; the loop ends
 when every vertex has voted to halt and no message is in flight.
 
-One superstep (:meth:`_superstep`, one :meth:`DenseTable.apply_step_multi`
-over the five tables):
+The tables live on the job's mesh (the reference's ``build_mesh(devices,
+data=1)``: every slot on the model axis), block-sharded as PR 14's dense
+tables are: shard ``k`` holds the contiguous vertex range of its blocks. A
+device is taken as the one-slot mesh. One superstep (:meth:`_superstep`, one
+:meth:`DenseTable.apply_step_multi` over the five tables) runs on each
+shard's slot:
 
-  * the vertex compute, vectorised over all vertices;
+  * the vertex compute on the shard's own vertices
+    (``Computation.compute_range``);
+  * the all-gather: the shards' new states and halt votes joined in vertex
+    order, once for each device the shards lie on (one card's virtual slots
+    share one copy);
   * the gather of each edge's source state, ``new_state[src]``, through
-    ``gather_rows`` (K1): a byte copy, so exact;
-  * the edge messages, and their fold per destination into the NEXT message
-    table: ``"add"`` through ``segment_sum_rows`` (K2), which adds each
-    destination's messages in edge order from 0.0 with no float atomics, so
-    the card gives the CPU's bits; ``"min"``/``"max"`` and the has-message
-    fold through ``scatter_reduce_`` (``amin``/``amax``, the table's identity
-    included), exact in any order;
+    ``gather_rows`` (K1) on the edge's destination shard: a byte copy, so
+    exact;
+  * the edge messages, and their fold into the destination shard's range of
+    the NEXT message table: ``"add"`` through ``segment_sum_rows`` (K2), with
+    ids rebased to the shard, which adds each destination's messages in edge
+    order from 0.0 with no float atomics; ``"min"``/``"max"`` and the
+    has-message fold through ``scatter_reduce_`` (``amin``/``amax``, the
+    table's identity included), exact in any order;
   * the CURRENT message tables reset to the identity once they have been
     read (the reference's donated swap).
 
-The superstep's two scalars (all halted, messages sent) come back in one
-device-to-host copy. Under a JobServer each superstep's launches run in a
-COMP TaskUnit (``taskunit``), so a graph job interleaves with its
-co-tenants superstep by superstep. The tables live on one device: there is no mesh
-argument (ROADMAP A.9).
+The edges are partitioned by destination shard once, at set-up, with a stable
+partition: each shard's fold sees its destinations' messages in the original
+edge order, so a run on any number of shards gives the one-slot run's bits.
+The superstep's two scalars (all halted, messages sent) combine over the
+shards on the first slot and come back in one device-to-host copy. Under a
+JobServer each superstep's launches run in a COMP TaskUnit (``taskunit``), so
+a graph job interleaves with its co-tenants superstep by superstep.
 """
 from __future__ import annotations
 
 import contextlib
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from harmony_tpu_torch.config.params import TableConfig
 from harmony_tpu_torch.ops.sparse import gather_rows, segment_sum_rows
+from harmony_tpu_torch.parallel.mesh import Mesh
 from harmony_tpu_torch.pregel.computation import Computation
 from harmony_tpu_torch.pregel.graph import Graph
-from harmony_tpu_torch.table.table import DenseTable, TableSpec
-from harmony_tpu_torch.utils.platform import DeviceLike, resolve_device
+from harmony_tpu_torch.table.table import DenseTable, ShardedArray, TableSpec, mesh_of, on_device
+from harmony_tpu_torch.utils.platform import DeviceLike
 
 _REDUCE = {"min": "amin", "max": "amax"}
+
+
+class _Shard:
+    """One vertex range of the tables and the edges whose destination lies in
+    it, on the slot that computes it: vertices ``lo .. lo + n - 1``; ``src``
+    (global ids, int32), ``dst`` (rebased to the shard: int32 for K2, int64
+    for ``scatter_reduce_``) and ``weight`` in the original edge order."""
+
+    def __init__(self, k: int, slot, lo: int, n: int, graph: Graph,
+                 edges: Optional[np.ndarray]) -> None:
+        self.k, self.slot, self.lo, self.n = k, slot, lo, n
+        dev = slot.device
+        src, dst, weight = graph.src, graph.dst, graph.weight
+        if edges is not None:
+            src, dst, weight = src[edges], dst[edges] - np.int32(lo), weight[edges]
+        self.src = torch.as_tensor(src, device=dev)
+        self.dst = torch.as_tensor(dst, device=dev)
+        self.dst64 = self.dst.long()
+        self.weight = torch.as_tensor(weight, device=dev)
+
+    @property
+    def device(self) -> torch.device:
+        """Where the shard's tensors lie (a slot's "cuda" as "cuda:0")."""
+        return self.src.device
 
 
 class PregelMaster:
@@ -50,7 +86,7 @@ class PregelMaster:
         self,
         graph: Graph,
         computation: Computation,
-        device: DeviceLike = None,
+        mesh: "Mesh | DeviceLike" = None,
         max_supersteps: int = 100,
         taskunit: Optional[Any] = None,
         job_id: str = "pregel",
@@ -64,23 +100,24 @@ class PregelMaster:
             raise ValueError("an 'add' combiner's identity is 0.0")
         self.graph = graph
         self.comp = computation
-        self.device = resolve_device(device)
+        self.mesh = mesh_of(mesh)
         self.max_supersteps = max_supersteps
         self.taskunit = taskunit
         self.job_id = job_id
         V = graph.num_vertices
 
         def table(name: str, vshape, update: str) -> DenseTable:
-            # range tables (the config's default): pull_all is a view
+            # range tables (the config's default): a shard is a vertex range
             return DenseTable(TableSpec(TableConfig(
                 table_id=f"{job_id}:{name}", capacity=V, value_shape=vshape,
-                num_blocks=min(V, 64), update_fn=update)), self.device)
+                num_blocks=min(V, 64), update_fn=update)), self.mesh)
 
         self.vertex_table = table("vertices", (computation.state_dim,), "assign")
         # the two swapped message tables (current <-> next)
         self._msg_tables = [table("msg-a", (), computation.combiner),
                             table("msg-b", (), computation.combiner)]
         self._has_msg = [table("has-a", (), "max"), table("has-b", (), "max")]
+        self.device = self.vertex_table.device     # the first slot's: host reads land here
         self._cur = 0
         self.superstep_count = 0
         # seed the vertex state, and the message tables with "no message"
@@ -88,47 +125,106 @@ class PregelMaster:
         for mt in self._msg_tables:
             mt.write_all(torch.full((V,), computation.msg_identity, dtype=torch.float32,
                                     device=self.device))
-        # the edge arrays on the device, once, as int32 (K1's and K2's ids);
-        # scatter_reduce_ takes its destinations as int64
-        self._src = torch.as_tensor(graph.src, device=self.device)
-        self._dst = torch.as_tensor(graph.dst, device=self.device)
-        self._dst64 = self._dst.long()
-        self._weight = torch.as_tensor(graph.weight, device=self.device)
+        self._shards = self._partition(graph)
+
+    def _partition(self, graph: Graph) -> List[_Shard]:
+        """One :class:`_Shard` a shard coordinate, computed on the first slot
+        that holds it; the edges split by destination shard, each part in the
+        original edge order (a stable partition). One shard keeps every edge
+        as it is."""
+        sh = self.vertex_table.sharding
+        V = graph.num_vertices
+        owners = sh.row_slots(0)
+        if len(owners) == 1:
+            return [_Shard(0, owners[0], 0, V, graph, None)]
+        per = sh.blocks_per_shard * self.vertex_table.spec.block_size
+        of_edge = graph.dst // per
+        return [_Shard(k, slot, k * per, max(0, min(per, V - k * per)), graph,
+                       np.flatnonzero(of_edge == k))
+                for k, slot in enumerate(owners)]
 
     # -- one superstep ----------------------------------------------------
 
+    def _views(self, arr, shard: _Shard, width: tuple) -> torch.Tensor:
+        """Shard ``shard``'s real rows of a table's storage (a view)."""
+        t = arr.shards[shard.slot] if isinstance(arr, ShardedArray) else arr
+        return t.view(-1, *width)[:shard.n]
+
+    def _all_gather(self, parts: List[torch.Tensor]) -> Dict[torch.device, torch.Tensor]:
+        """The shards' rows joined in vertex order, once on each device a
+        shard lies on."""
+        if len(parts) == 1:
+            return {self._shards[0].device: parts[0]}
+        out: Dict[torch.device, torch.Tensor] = {}
+        for s in self._shards:
+            if s.device not in out:
+                out[s.device] = torch.cat([on_device(p, s.device) for p in parts])
+        return out
+
     def _superstep(self, varr, cur_msg, cur_has, nxt_msg, nxt_has, step: int):
         comp = self.comp
-        vspec = self.vertex_table.spec
-        mspec = self._msg_tables[0].spec
-        hspec = self._has_msg[0].spec
-        V = self.graph.num_vertices
         identity = comp.msg_identity
-        state = vspec.pull_all(varr)                     # [V, S], views of the
-        msg = mspec.pull_all(cur_msg)                    # range tables' storage
-        has_msg = hspec.pull_all(cur_has) > 0.5
-        new_state, halt = comp.compute(step, state, msg, has_msg)
-        new_state = new_state.to(torch.float32).contiguous()
-        # active vertices send along their out-edges; halted ones send nothing
-        edge_vals = comp.edge_message(step, gather_rows(new_state, self._src), self._weight)
-        edge_on = torch.index_select(~halt, 0, self._src)
-        edge_vals = torch.where(edge_on, edge_vals, identity)
-        # fold per destination into the NEXT tables
-        nxt = mspec.pull_all(nxt_msg)
-        if comp.combiner == "add":
-            nxt.copy_(segment_sum_rows(edge_vals[:, None].contiguous(), self._dst, V)[:, 0])
-        else:
-            nxt.fill_(identity).scatter_reduce_(
-                0, self._dst64, edge_vals, _REDUCE[comp.combiner], include_self=True)
-        nxt_has_msg = hspec.pull_all(nxt_has)
-        nxt_has_msg.zero_().scatter_reduce_(
-            0, self._dst64, edge_on.to(torch.float32), "amax", include_self=True)
-        flags = torch.stack([halt.all().to(torch.float32), nxt_has_msg.sum()])
-        vspec.pull_all(varr).copy_(new_state)
-        # reset the CURRENT tables, read above, for reuse as next-next
-        msg.fill_(identity)
-        hspec.pull_all(cur_has).zero_()
-        return (varr, cur_msg, cur_has, nxt_msg, nxt_has), flags
+        S = (comp.state_dim,)
+        shards = self._shards
+        new_states, halts = [], []
+        for s in shards:
+            state = self._views(varr, s, S)                     # views of the shard's
+            msg = self._views(cur_msg, s, ())                   # storage
+            has_msg = self._views(cur_has, s, ()) > 0.5
+            new_state, halt = comp.compute_range(step, state, msg, has_msg, s.lo)
+            new_states.append(new_state.to(torch.float32).contiguous())
+            halts.append(halt)
+        all_states = self._all_gather(new_states)
+        all_halts = self._all_gather(halts)
+        flags = []
+        for s in shards:
+            # active vertices send along their out-edges; halted ones send nothing
+            edge_vals = comp.edge_message(step, gather_rows(all_states[s.device], s.src),
+                                          s.weight)
+            edge_on = torch.index_select(~all_halts[s.device], 0, s.src)
+            edge_vals = torch.where(edge_on, edge_vals, identity)
+            # fold per destination into the shard's range of the NEXT tables
+            nxt = self._views(nxt_msg, s, ())
+            if comp.combiner == "add":
+                nxt.copy_(segment_sum_rows(edge_vals[:, None].contiguous(), s.dst, s.n)[:, 0])
+            else:
+                nxt.fill_(identity).scatter_reduce_(
+                    0, s.dst64, edge_vals, _REDUCE[comp.combiner], include_self=True)
+            nxt_has_msg = self._views(nxt_has, s, ())
+            nxt_has_msg.zero_().scatter_reduce_(
+                0, s.dst64, edge_on.to(torch.float32), "amax", include_self=True)
+            flags.append(torch.stack([halts[s.k].all().to(torch.float32),
+                                      nxt_has_msg.sum()]))
+        for s, new_state in zip(shards, new_states):
+            self._views(varr, s, S).copy_(new_state)
+            # reset the CURRENT tables, read above, for reuse as next-next
+            self._views(cur_msg, s, ()).fill_(identity)
+            self._views(cur_has, s, ()).zero_()
+        self._to_replicas(varr, cur_msg, cur_has, nxt_msg, nxt_has)
+        return (varr, cur_msg, cur_has, nxt_msg, nxt_has), self._combine(flags)
+
+    def _combine(self, flags: List[torch.Tensor]) -> torch.Tensor:
+        """(all halted, messages sent) over the shards, in shard order, on the
+        first shard's device: the superstep's one host read."""
+        if len(flags) == 1:
+            return flags[0]
+        dev = self._shards[0].device
+        f = torch.stack([on_device(x, dev) for x in flags])
+        return torch.stack([f[:, 0].min(), f[:, 1].sum()])
+
+    def _to_replicas(self, *arrs) -> None:
+        """Copy each computed shard to the other slots that hold it (a table
+        replicated over the mesh: its vertex count does not split into the
+        slots' block runs)."""
+        owners = {s.slot for s in self._shards}
+        for arr in arrs:
+            if not isinstance(arr, ShardedArray):
+                continue
+            sh = arr.sharding
+            for slot, t in arr.shards.items():
+                if slot not in owners:
+                    src = arr.shards[self._shards[sh.shard_of(slot)].slot]
+                    t.copy_(on_device(src, t.device))
 
     # -- the loop (SuperstepControlMsg flow) ------------------------------
 
@@ -152,7 +248,9 @@ class PregelMaster:
         }
 
     def vertex_values(self) -> np.ndarray:
-        """The vertex table in vertex order, on the host: [V, state_dim]."""
+        """The vertex table in vertex order, on the host: [V, state_dim]; on a
+        mesh the shards are read in block order (the reference's
+        ``_collect_values``)."""
         return self.vertex_table.pull_array().cpu().numpy()
 
     def _tu(self, kind: str):
@@ -162,8 +260,8 @@ class PregelMaster:
 
     def close(self) -> None:
         """Release every device-resident table (vertices and both message
-        double-buffers) and the edge arrays. Job entities call this instead
-        of reaching into internals."""
+        double-buffers, every shard) and the edge arrays. Job entities call
+        this instead of reaching into internals."""
         for t in [self.vertex_table, *self._msg_tables, *self._has_msg]:
             t.drop()
-        self._src = self._dst = self._dst64 = self._weight = None
+        self._shards = []

@@ -35,6 +35,17 @@ from harmony_tpu_torch.dolphin.trainer import TrainerContext
 from harmony_tpu_torch.dolphin.worker import WorkerTasklet
 from harmony_tpu_torch.table.table import DenseTable, TableSpec
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: its tensors are tiny, and
+    the suite runs beside other workers on a few cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 RTOL = ATOL = 1e-5
 
 MLR = dict(num_classes=8, num_features=128, features_per_partition=32, step_size=0.5,

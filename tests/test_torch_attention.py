@@ -40,6 +40,17 @@ from harmony_tpu_torch.ops.attention import (
     flash_route,
 )
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: its tensors are tiny, and
+    the suite runs beside other workers on a few cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 F32_ATOL = 2e-5
 BF16_REL = 2.0 ** -7
 

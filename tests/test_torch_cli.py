@@ -22,6 +22,17 @@ from harmony_tpu_torch.config.params import JobConfig, TrainerParams
 from harmony_tpu_torch.jobserver.server import JobServer
 from harmony_tpu_torch.parallel.mesh import DevicePool
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: its tensors are tiny, and
+    the suite runs beside other workers on a few cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "harmony_tpu_torch"
 SMALL = ["--set", "vocab_size=512", "--set", "num_slots=4", "--set", "hidden=16",
@@ -116,7 +127,7 @@ def test_port_imports_neither_jax_nor_harmony_tpu():
                    "optimizer/compiler.py", "optimizer/homogeneous.py",
                    "optimizer/hetero.py", "optimizer/sample.py",
                    "optimizer/orchestrator.py", "metrics/collector.py",
-                   "metrics/manager.py", "table/blockmove.py"):
+                   "metrics/manager.py", "table/blockmove.py", "dolphin/rows.py"):
         assert PORT / module in files
     for path in files:
         for mod in _imports(path):

@@ -25,6 +25,16 @@ from harmony_tpu_torch.runtime.master import ETMaster, TableHandle
 from harmony_tpu_torch.table.hashtable import MIN_KEY
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: its tensors are tiny, and
+    the suite runs beside other workers on a few cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture()
 def text_file(tmp_path):
     p = tmp_path / "data.txt"

@@ -27,6 +27,16 @@ from harmony_tpu_torch.parallel.mesh import DevicePool
 from harmony_tpu_torch.runtime.master import ETMaster
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: its tensors are tiny, and
+    the suite runs beside other workers on a few cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(autouse=True)
 def _empty_caches():
     devcache.clear()

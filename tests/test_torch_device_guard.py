@@ -19,6 +19,17 @@ import harmony_tpu_torch
 from harmony_tpu_torch.ops.histogram import weighted_histogram
 from harmony_tpu_torch.ops.sparse import segment_sum_rows
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: its tensors are tiny, and
+    the suite runs beside other workers on a few cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 PACKAGE = pathlib.Path(harmony_tpu_torch.__file__).resolve().parent
 
 

@@ -28,6 +28,17 @@ from harmony_tpu_torch.models import generate as gen
 from harmony_tpu_torch.models import transformer as tf
 from harmony_tpu_torch.utils import prng
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: its tensors are tiny, and
+    the suite runs beside other workers on a few cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 CFG = dict(vocab_size=128, d_model=64, n_heads=4, n_layers=2, d_ff=128, max_seq=32,
            attn="blockwise")
 MOE = dict(moe_experts=4, moe_every=2)

@@ -41,6 +41,17 @@ from harmony_tpu_torch.jobserver.server import JobServer
 from harmony_tpu_torch.parallel.mesh import DevicePool
 from harmony_tpu_torch.serving import ServingClient
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: its tensors are tiny, and
+    the suite runs beside other workers on a few cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIMEOUT = 30.0
 SMALL = ["--batches", "2", "--set", "vocab_size=512", "--set", "num_slots=4",

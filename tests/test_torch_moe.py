@@ -30,6 +30,17 @@ from harmony_tpu_torch.models import moe
 from harmony_tpu_torch.models import transformer as tf
 from harmony_tpu_torch.models.pytree_trainer import ravel_numpy, tree_leaves, unravel
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: its tensors are tiny, and
+    the suite runs beside other workers on a few cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ATOL = 1e-5
 REL = 1e-5
 MOE_LM = dict(vocab_size=64, d_model=32, n_heads=2, n_layers=4, d_ff=64, max_seq=64,

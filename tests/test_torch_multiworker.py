@@ -26,6 +26,7 @@ import time
 import jax
 import numpy as np
 import pytest
+import torch
 
 from harmony_tpu.config.params import JobConfig as JaxJobConfig
 from harmony_tpu.config.params import TrainerParams as JaxTrainerParams
@@ -48,6 +49,17 @@ from harmony_tpu_torch.pregel.master import PregelMaster
 from harmony_tpu_torch.runtime.master import ETMaster
 from harmony_tpu_torch.runtime.taskunit import CPU, NET
 from harmony_tpu_torch.table.table import DenseTable, TableSpec
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: its tensors are tiny, and
+    the suite runs beside other workers on a few cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 TIMEOUT = 120
 LOCKSTEP_ATOL = 1e-5

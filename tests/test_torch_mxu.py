@@ -15,6 +15,16 @@ from harmony_tpu_torch.ops import mxu
 from harmony_tpu_torch.ops.mxu import mxu_dot
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: its tensors are tiny, and
+    the suite runs beside other workers on a few cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _operands(m, k, n, seed):
     rng = np.random.default_rng(seed)
     return (rng.standard_normal((m, k)).astype(np.float32),

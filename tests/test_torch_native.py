@@ -21,6 +21,17 @@ from harmony_tpu_torch import native
 from harmony_tpu_torch.config.params import TableConfig
 from harmony_tpu_torch.table.table import DenseTable, TableSpec
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: its tensors are tiny, and
+    the suite runs beside other workers on a few cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 DTYPES = [np.float32, np.float64, np.int32, np.int64, np.uint8, np.bool_, np.float16]
 
 

@@ -40,6 +40,17 @@ from harmony_tpu_torch.ops.sparse import (
 )
 from harmony_tpu_torch.utils.platform import use_kernel
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: its tensors are tiny, and
+    the suite runs beside other workers on a few cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 U_F32 = 2.0 ** -24
 
 

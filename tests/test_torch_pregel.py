@@ -42,6 +42,17 @@ from harmony_tpu_torch.pregel import master as master_mod
 from harmony_tpu_torch.runtime.master import ETMaster
 from harmony_tpu_torch.table.table import DenseTable, TableSpec
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: its tensors are tiny, and
+    the suite runs beside other workers on a few cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 PR_RTOL = 1e-6
 TIMEOUT = 120
 

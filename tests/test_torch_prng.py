@@ -18,6 +18,17 @@ import torch
 
 from harmony_tpu_torch.utils import prng
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: its tensors are tiny, and
+    the suite runs beside other workers on a few cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 assert jax.config.jax_threefry_partitionable   # the mode the port reproduces
 
 SEEDS = np.random.default_rng(0).integers(0, 2**31 - 1, 64).astype(np.int32)

@@ -29,6 +29,17 @@ from harmony_tpu_torch.ops.attention import flash_attention
 from harmony_tpu_torch.ops.ring import _resolve_inner, ring_self_attention
 from harmony_tpu_torch.parallel.mesh import DevicePool, build_mesh
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: its tensors are tiny, and
+    the suite runs beside other workers on a few cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 OUT_ATOL = 2e-5
 GRAD_ATOL = 1e-4
 SHAPE = (2, 4, 64, 16)      # [B, H, S, D] over (data 2, seq 4): chunks of 16

@@ -44,6 +44,17 @@ from harmony_tpu_torch.serving import service
 from harmony_tpu_torch.table.hashtable import DeviceHashTable, HashTableSpec
 from harmony_tpu_torch.table.table import DenseTable, TableSpec
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: its tensors are tiny, and
+    the suite runs beside other workers on a few cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 TIMEOUT = 20.0
 CAPACITY, WIDTH, BLOCKS = 64, 4, 4
 

@@ -44,6 +44,17 @@ from harmony_tpu_torch.jobserver.server import JobServer
 from harmony_tpu_torch.parallel.mesh import DevicePool
 from harmony_tpu_torch.runtime.master import ETMaster
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: its tensors are tiny, and
+    the suite runs beside other workers on a few cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 CPU = torch.device("cpu")
 TIMEOUT = 300
 LOSS_ATOL = 1e-5

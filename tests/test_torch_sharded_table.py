@@ -33,6 +33,17 @@ from harmony_tpu_torch.table import table as torch_table
 from harmony_tpu_torch.table.hashtable import DeviceHashTable, HashTableSpec
 from harmony_tpu_torch.table.table import DenseTable, ShardedArray, TableSpec
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: its tensors are tiny, and
+    the suite runs beside other workers on a few cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 CPU = torch.device("cpu")
 MESHES = [(2, 4), (1, 8), (1, 4)]
 SLOTS = DevicePool.virtual(CPU, 8).slots

@@ -28,6 +28,17 @@ from harmony_tpu_torch.models import transformer as tf
 from harmony_tpu_torch.models.pytree_trainer import tree_leaves, tree_unflatten
 from harmony_tpu_torch.parallel.mesh import DevicePool, build_mesh
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: its tensors are tiny, and
+    the suite runs beside other workers on a few cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 LOSS_ATOL = 1e-5
 PARAM_ATOL = 2e-4
 SMALL = dict(vocab_size=64, d_model=32, n_heads=4, n_layers=2, d_ff=64, max_seq=64)

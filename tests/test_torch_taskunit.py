@@ -20,9 +20,21 @@ import time
 import types
 
 import pytest
+import torch
 
 from harmony_tpu.runtime import taskunit as ref_tu
 from harmony_tpu_torch.runtime import taskunit as port_tu
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: its tensors are tiny, and
+    the suite runs beside other workers on a few cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 MODULES = {"reference": ref_tu, "port": port_tu}
 CPU, NET, VOID = port_tu.CPU, port_tu.NET, port_tu.VOID

@@ -44,6 +44,17 @@ from harmony_tpu_torch.parallel.mesh import DevicePool
 from harmony_tpu_torch.parallel.mesh import build_mesh as port_build_mesh
 from harmony_tpu_torch.table.table import DenseTable, TableSpec
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: its tensors are tiny, and
+    the suite runs beside other workers on a few cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 SMALL = dict(image_size=16, patch_size=4, channels=3, num_classes=4, d_model=32, n_heads=2,
              n_layers=2, d_ff=64)
 ATOL = 1e-5

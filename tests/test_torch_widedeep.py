@@ -35,6 +35,17 @@ from harmony_tpu_torch.ops.histogram import weighted_histogram
 from harmony_tpu_torch.ops.sparse import gather_rows, segment_sum_rows
 from harmony_tpu_torch.table.table import TableSpec
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: its tensors are tiny, and
+    the suite runs beside other workers on a few cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 RTOL, ATOL = 1e-5, 1e-6
 SLICE_ATOL = 1e-5
 
