@@ -311,6 +311,31 @@ As each phase ends a ``phase <name>: <s> s`` line gives its host seconds
    between cards, and bench-widedeep's data_axis 2 samples/s beside PR 14's
    88,410. Its ``dp:`` line holds the numbers; ``python3 chip_smoke.py
    --phase 3x`` runs the build and this phase alone.
+3y. The multi-process pod: ``python -m harmony_tpu_torch.cli start-pod`` in
+   two processes sharing cuda:0 over gloo (a leader and a follower, one slot
+   each; on four or more cards four processes, one card each over NCCL),
+   jobs submitted over TCP. (a) bench-widedeep (phase 3's job, EPOCHS
+   epochs, ``HARMONY_PUSH_VIA=mxu``, one worker) with its table sharded over
+   the processes: every process's batch losses phase 3's one-slot bits, and
+   each process's own K1 and K3 launches (read around the job in that
+   process) once a step plus its comm probe's; step ms, samples/s and the
+   pull's all-gathers (calls and bytes) by process. (b) bench-fm-hash for one epoch on a DeviceHashTable sharded
+   over the processes: phase 3h's first epoch's bits, K1 and K2 once a step
+   plus the probe's. (c) (a) and (b) submitted together (share-all): the
+   leader's dispatch walls overlap, each gives its solo bits, and the pod
+   units each took are recorded. (d) bench-pagerank at LiveJournal's scale,
+   POD_PR_ITERATIONS iterations: every process's vertex values phase 3l's
+   one-slot run of as many iterations (a SHA-256 of their bytes), K1 and K2
+   once a superstep; superstep ms and the all-gathers of the shards' states
+   and votes; then (a) again in the warm processes, for its step ms and
+   all-gathers (the first run pays each process's first kernel and library
+   loads and the communicator's set-up). (e) The all-gather alone in fresh
+   processes joined the same way,
+   at (a)'s and (d)'s sizes: host ms a call, the card's tensor handed to
+   the backend as the pod hands it. The processes are killed in a ``finally``; a failure prints the
+   tail of their logs. Its ``pod:`` line holds the numbers; ``python3
+   chip_smoke.py --phase 3y`` runs the build, the one-slot runs it is held
+   to and this phase alone.
 4. The sparse push route (``HARMONY_PUSH_VIA=sparse``): the Wide&Deep job
    of phase 3, which folds its pushes with K2.
 5. Where a step's time goes: a steady epoch of the Wide&Deep job on the host
@@ -340,7 +365,9 @@ As each phase ends a ``phase <name>: <s> s`` line gives its host seconds
    and 3-axis: phase 3u (b)-(d), 3 steps each; pp, ep and vit-dp: phase 3v
    (a)-(c), 3 steps each; elastic: phase 3w (a)-(c) on the card, the moved
    jobs and the reader; pregel-sharded and dp-local: phase 3x (a) and the
-   first data-axis run of each job of (b)); K1-K3
+   first data-axis run of each job of (b); pod: phase 3y (a), (b) and (d),
+   summed over the processes, each process's counts read around its job);
+   K1-K3
    also carry ``device_ms``, ``library_device_ms``,
    ``library_deterministic_device_ms``, ``host_us`` and their timing at
    phase 2e's shapes, K4-K5b their timing at bench-vit's shape and phase
@@ -2912,6 +2939,9 @@ def run_pregel(graph):
                 **job.params.app_params, "num_iterations": PR_CPU_ITERATIONS}))
             card = graph_entity_run(job, "cuda")
             out["full"][app]["cpu_comparison_iterations"] = PR_CPU_ITERATIONS
+            # phase 3y's reference (POD_PR_ITERATIONS is this run's count)
+            out["full"][app]["pod_reference"] = {
+                "digest": vertex_digest(card["vertex_values"]), "supersteps": card["supersteps"]}
         cpu = graph_entity_run(job, "cpu")
         check(card["supersteps"] == cpu["supersteps"]
               and same_vertex_values(app, card["vertex_values"], cpu["vertex_values"]),
@@ -6410,6 +6440,363 @@ def run_dx(one_slot_graph=None):
     return out["launches"], out
 
 
+# -- phase 3y: the multi-process pod ------------------------------------------
+
+# Seconds a pod process may take to join and report ready, and a pod job to
+# finish (each job of 3y takes a few seconds; bench-pagerank's graph is built
+# in every process first).
+POD_READY_S = 120
+POD_JOB_S = 300
+POD_PR_ITERATIONS = PR_CPU_ITERATIONS
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class ChipPod:
+    """``python -m harmony_tpu_torch.cli start-pod`` in ``n`` processes: one a
+    card (``CUDA_VISIBLE_DEVICES``, NCCL) when ``own_cards``, else all on
+    cuda:0 (gloo), each logging into a temporary directory. Killed in
+    ``close`` whatever happened."""
+
+    def __init__(self, n: int, own_cards: bool) -> None:
+        import tempfile
+
+        from harmony_tpu_torch.jobserver.client import CommandSender
+
+        self.port, pod_port, store = free_port(), free_port(), free_port()
+        self.procs, self.logs = [], []
+        self.log_dir = tempfile.mkdtemp(prefix="harmony-pod-")
+        for p in range(n):
+            # a wedged collective raises well inside the phase's waits
+            env = dict(os.environ, OMP_NUM_THREADS="4", HARMONY_PUSH_VIA="mxu",
+                       HARMONY_POD_HB_PERIOD="1", HARMONY_POD_UNIT_TIMEOUT="120")
+            if own_cards:
+                env["CUDA_VISIBLE_DEVICES"] = str(p)
+            err = open(os.path.join(self.log_dir, f"pod-process{p}.log"), "w")
+            self.logs.append(err)
+            self.procs.append(subprocess.Popen(
+                [sys.executable, "-m", "harmony_tpu_torch.cli", "start-pod",
+                 "--device", "cuda" if own_cards else "cuda:0",
+                 "--coordinator", f"127.0.0.1:{store}", "--num-processes", str(n),
+                 "--process-id", str(p), "--pod-port", str(pod_port), "--port", str(self.port)],
+                cwd=REPO, env=env, stdout=err, stderr=subprocess.STDOUT, text=True))
+        self.sender = CommandSender(self.port)
+        deadline = time.monotonic() + POD_READY_S
+        while True:
+            text = self.log(0)
+            if "pod jobserver ready" in text:
+                self.ready_line = next(ln for ln in text.splitlines() if "pod jobserver ready" in ln)
+                self.backend = next(ln for ln in text.splitlines() if "backend" in ln)
+                break
+            dead = [p for p, proc in enumerate(self.procs) if proc.poll() is not None]
+            check(not dead and time.monotonic() < deadline,
+                  f"phase 3y: the pod never became ready (exited: {dead}): {self.log(0)[-3000:]}")
+            time.sleep(0.5)
+
+    def log(self, p: int) -> str:
+        self.logs[p].flush()
+        with open(os.path.join(self.log_dir, f"pod-process{p}.log")) as f:
+            return f.read()
+
+    def run(self, *configs):
+        """Submit ``configs`` together, wait for each; returns {job id: {pid:
+        report}} and the leader's walls."""
+        for cfg in configs:
+            reply = self.sender.send_job_submit_command(cfg)
+            check(reply.get("ok"), f"phase 3y: submit {cfg.job_id}: {reply}")
+        for cfg in configs:
+            try:
+                self.sender.wait_result(cfg.job_id, timeout=POD_JOB_S, poll=5.0)
+            except Exception as e:  # noqa: BLE001 - the phase fails
+                fail(f"phase 3y: {cfg.job_id} failed on the pod: {e}\n"
+                     + "\n".join(self.log(p)[-2000:] for p in range(len(self.procs))))
+        ids = [c.job_id for c in configs]
+        deadline = time.monotonic() + 60
+        while True:
+            pod = self.sender.send_status_command()["pod"]
+            if all(j in pod["reports"] for j in ids) and not set(ids) & set(pod["active"]):
+                return {j: pod["reports"][j] for j in ids}, pod
+            check(time.monotonic() < deadline, f"phase 3y: no reports for {ids}")
+            time.sleep(0.2)
+
+    def close(self) -> None:
+        try:
+            if all(p.poll() is None for p in self.procs):
+                self.sender.send_shutdown_command()
+                for p in self.procs:
+                    p.wait(timeout=60)
+        except Exception:  # noqa: BLE001 - killed below
+            pass
+        finally:
+            for p in self.procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait(timeout=30)
+            for f in self.logs:
+                f.close()
+            shutil.rmtree(self.log_dir, ignore_errors=True)
+
+
+def pod_wd_config(job_id: str):
+    """bench-widedeep (phase 3's job: SLICE_ARGS, EPOCHS epochs) with one
+    worker, as a config to submit."""
+    from harmony_tpu_torch import cli
+
+    args = cli.build_parser().parse_args(
+        SLICE_ARGS + ["--epochs", str(EPOCHS), "--workers", "1", "--job-id", job_id])
+    return cli.build_config("widedeep", args)
+
+
+def pod_pr_config(job_id: str):
+    """bench-pagerank at POD_PR_ITERATIONS iterations (phase 3l's run of that
+    many, on one slot, is its reference)."""
+    job = graph_job("pagerank", PR_VERTICES)
+    return job.replace(job_id=job_id, params=job.params.replace(app_params={
+        **job.params.app_params, "num_iterations": POD_PR_ITERATIONS}))
+
+
+def vertex_digest(values) -> str:
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(values).tobytes()).hexdigest()
+
+
+def pod_one_slot_refs():
+    """The one-slot runs phase 3y is held to, made here when 3y runs alone:
+    bench-widedeep on the mxu route (phase 3's), bench-fm-hash's first epoch
+    (phase 3h's) and bench-pagerank at POD_PR_ITERATIONS (phase 3l's)."""
+    from harmony_tpu_torch.jobserver.server import JobServer
+    from harmony_tpu_torch.parallel.mesh import DevicePool
+
+    os.environ["HARMONY_PUSH_VIA"] = "mxu"
+    try:
+        # one executor: on a host of several cards `cli run` would take them all
+        wd = run_cli(SLICE_ARGS + ["--epochs", str(EPOCHS), "--num-executors", "1"])["batch_losses"]
+    finally:
+        os.environ.pop("HARMONY_PUSH_VIA")
+    server = JobServer(1, device_pool=DevicePool([torch.device("cuda")]))
+    server.start()
+    try:
+        (fm,) = server.submit(hash_job("fm", 1)).result(timeout=600)["workers"].values()
+    finally:
+        server.shutdown()
+    pr = graph_entity_run(pod_pr_config("bench-pagerank"), "cuda")
+    return {"wd": wd, "fm": fm["batch_losses"][:BATCHES],
+            "pagerank": vertex_digest(pr["vertex_values"]), "pagerank_supersteps": pr["supersteps"]}
+
+
+# Phase 3y (e): the all-gather alone, in fresh processes joined as the pod's
+# are, at (a)'s and (d)'s sizes: CALLS timed calls after WARM, each process's
+# mean host ms a call (the CALLS collectives between two device syncs).
+POD_COMBINE_SCRIPT = r"""
+import json, sys, time, torch
+from harmony_tpu_torch.parallel import collectives, multihost
+store, n, p, own = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4] == "1"
+multihost.initialize_distributed(store, n, p, devices=["cuda" if own else "cuda:0"])
+dev = multihost.local_devices()[0]
+WARM, CALLS = 3, 20
+out = {"process": p, "backend": multihost.backend()}
+per = -(-4847571 // 64) * (64 // n)
+for name, shape in (("widedeep_pull", (67480, 17)), ("pagerank_states", (1, per, 2))):
+    t = torch.randn(shape, device=dev)
+    for _ in range(WARM):
+        collectives.process_all_gather(t, range(n))
+    torch.cuda.synchronize(dev)
+    multihost.mesh_barrier(multihost.global_mesh())
+    t0 = time.perf_counter()
+    for _ in range(CALLS):
+        collectives.process_all_gather(t, range(n))
+    torch.cuda.synchronize(dev)
+    out[name] = {"bytes_out": t.numel() * 4, "bytes_in": t.numel() * 4 * n,
+                 "ms_per_call": 1e3 * (time.perf_counter() - t0) / CALLS}
+multihost.shutdown_distributed()
+print("RESULT " + json.dumps(out), flush=True)
+"""
+
+
+def pod_combine_alone(n: int, own: bool):
+    """Phase 3y (e): POD_COMBINE_SCRIPT in n fresh processes."""
+    store = free_port()
+    procs = []
+    try:
+        for p in range(n):
+            env = dict(os.environ, OMP_NUM_THREADS="4", HARMONY_POD_UNIT_TIMEOUT="120")
+            if own:
+                env["CUDA_VISIBLE_DEVICES"] = str(p)
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", POD_COMBINE_SCRIPT, f"127.0.0.1:{store}", str(n), str(p),
+                 "1" if own else "0"],
+                cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        outs = []
+        for p in procs:
+            out, _ = p.communicate(timeout=180)
+            lines = [ln for ln in out.splitlines() if ln.startswith("RESULT ")]
+            check(p.returncode == 0 and lines, f"phase 3y (e): a process failed: {out[-3000:]}")
+            outs.append(json.loads(lines[-1][len("RESULT "):]))
+        return outs
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+
+
+def run_pod(refs):
+    """Phase 3y: the pod (see the module doc). ``refs``: the one-slot runs'
+    bench-widedeep batch losses, bench-fm-hash's first epoch's and
+    bench-pagerank's vertex digest and supersteps."""
+    from harmony_tpu_torch.dolphin.worker import WorkerTasklet
+
+    t0 = time.perf_counter()
+    cards = torch.cuda.device_count()
+    own = cards >= 4
+    n = 4 if own else 2
+    torch.cuda.empty_cache()
+    out = {"processes": n, "cards": cards if own else 1}
+    pod = ChipPod(n, own)
+    launches = {name: 0 for name in ("gather_rows", "segment_sum_rows", "weighted_histogram",
+                                     "flash_forward", "flash_backward_dkv", "flash_backward_dq")}
+    try:
+        out["ready"] = pod.ready_line
+        out["backend"] = pod.backend.split(": ", 1)[-1]
+        out["start_seconds"] = time.perf_counter() - t0
+        print(f"phase 3y: {out['ready']}; {out['backend']}", flush=True)
+        calls = 1 + WorkerTasklet.PROBE_SAMPLES
+        steps = EPOCHS * BATCHES
+
+        def each(reps, what):
+            check(sorted(reps) == [str(p) for p in range(n)] and all(r["ok"] for r in reps.values()),
+                  f"phase 3y {what}: reports {json.dumps(reps)[:3000]}")
+            return [reps[str(p)] for p in range(n)]
+
+        def losses(rep):
+            (w,) = rep["workers"].values()
+            return w
+
+        def combine(rep):
+            """The job's all-gathers in this process: calls and bytes, and
+            the bytes of one call."""
+            c = rep["combine"]
+            return {"calls": c["calls"], "bytes_out": c["bytes_out"], "bytes_in": c["bytes_in"],
+                    "bytes_in_per_call": c["bytes_in"] / max(c["calls"], 1)}
+
+        def widedeep(job_id, what):
+            """bench-widedeep over the n processes: the one-slot bits and
+            each process's launches checked; its numbers by process."""
+            reps, _ = pod.run(pod_wd_config(job_id))
+            rows = []
+            for p, rep in enumerate(each(reps[job_id], what)):
+                w = losses(rep)
+                check(w["batch_losses"] == refs["wd"],
+                      f"phase 3y {what}: process {p}'s losses {w['batch_losses']} are not "
+                      f"the one-slot run's {refs['wd']}")
+                k = w["probes"] * calls
+                want = {"gather_rows": steps + 2 * k, "weighted_histogram": steps + k,
+                        "segment_sum_rows": 0}
+                got = {name: rep["launches"][name] for name in want}
+                check(got == want, f"phase 3y {what}: process {p} launched {got}, expected {want}")
+                rows.append({"process": p, "launches": got, "all_launches": rep["launches"],
+                             "probes": w["probes"], "epoch_seconds": w["epoch_seconds"],
+                             "step_ms": 1e3 * w["epoch_seconds"][-1] / BATCHES,
+                             "samples_per_sec": N_EXAMPLES / w["epoch_seconds"][-1],
+                             "units": rep.get("units"), "combine": combine(rep)})
+            return rows
+
+        # (a) bench-widedeep at full width, its table over the n processes: the
+        # first job of each process, so its first steps load the kernels and
+        # libraries and its first all-gather makes the backend's communicator
+        a = widedeep("pod-widedeep", "(a)")
+        for row in a:
+            for name, v in row.pop("all_launches").items():
+                launches[name] += v
+        out["widedeep"] = a
+        print(f"phase 3y (a): bench-widedeep over {n} processes gives the one-slot bits: "
+              f"{json.dumps(a)}", flush=True)
+
+        # (b) bench-fm-hash on a DeviceHashTable over the n processes
+        reps, _ = pod.run(hash_job("fm", 1).replace(job_id="pod-fm-hash"))
+        reps = each(reps["pod-fm-hash"], "(b)")
+        b = []
+        for p, rep in enumerate(reps):
+            w = losses(rep)
+            check(w["batch_losses"] == refs["fm"],
+                  f"phase 3y (b): process {p}'s losses {w['batch_losses']} are not the "
+                  f"one-slot run's {refs['fm']}")
+            k = w["probes"] * calls
+            want = {"gather_rows": BATCHES + 2 * k, "segment_sum_rows": BATCHES + k,
+                    "weighted_histogram": 0}
+            got = {name: rep["launches"][name] for name in want}
+            check(got == want, f"phase 3y (b): process {p} launched {got}, expected {want}")
+            for name, v in rep["launches"].items():
+                launches[name] += v
+            b.append({"process": p, "launches": got,
+                      "step_ms": 1e3 * w["epoch_seconds"][-1] / BATCHES,
+                      "combine": combine(rep)})
+        out["fm_hash"] = b
+        print(f"phase 3y (b): bench-fm-hash over {n} processes gives the one-slot bits: "
+              f"{json.dumps(b)}", flush=True)
+
+        # (c) both at once (share-all): they overlap, each with its solo bits
+        reps, status = pod.run(pod_wd_config("pod-widedeep-beside"),
+                               hash_job("fm", 1).replace(job_id="pod-fm-hash-beside"))
+        (a0, a1), (b0, b1) = status["walls"]["pod-widedeep-beside"], status["walls"]["pod-fm-hash-beside"]
+        check(a0 < b1 and b0 < a1, f"phase 3y (c): the tenants did not overlap: {status['walls']}")
+        c = {"walls_s": {"widedeep": [0.0, a1 - a0], "fm_hash": [b0 - a0, b1 - a0]},
+             "units_by_job": {}}
+        for jid, want, key in (("pod-widedeep-beside", refs["wd"], "widedeep"),
+                               ("pod-fm-hash-beside", refs["fm"], "fm_hash")):
+            for p, rep in enumerate(each(reps[jid], "(c)")):
+                check(losses(rep)["batch_losses"] == want,
+                      f"phase 3y (c): {jid} on process {p} is not its solo run")
+            c["units_by_job"][key] = reps[jid]["0"].get("units")
+        c["units_granted_total"] = status["units_granted"]
+        out["share_all"] = c
+        print(f"phase 3y (c): the two tenants overlapped with their solo bits: {json.dumps(c)}",
+              flush=True)
+
+        # (d) bench-pagerank at LiveJournal's scale over the n processes
+        reps, _ = pod.run(pod_pr_config("pod-pagerank"))
+        reps = each(reps["pod-pagerank"], "(d)")
+        d = []
+        for p, rep in enumerate(reps):
+            check(rep["vertex_digest"] == refs["pagerank"]
+                  and rep["supersteps"] == refs["pagerank_supersteps"],
+                  f"phase 3y (d): process {p}'s vertex values are not the one-slot run's")
+            s = rep["supersteps"]
+            want = {"gather_rows": s, "segment_sum_rows": s, "weighted_histogram": 0}
+            got = {name: rep["launches"][name] for name in want}
+            check(got == want, f"phase 3y (d): process {p} launched {got}, expected {want}")
+            for name, v in rep["launches"].items():
+                launches[name] += v
+            d.append({"process": p, "supersteps": s, "launches": got,
+                      "superstep_ms": 1e3 * rep["wall_sec"] / s,
+                      "combine": combine(rep)})
+        out["pagerank"] = d
+        print(f"phase 3y (d): bench-pagerank over {n} processes gives the one-slot values: "
+              f"{json.dumps(d)}", flush=True)
+
+        # (a) again, in warm processes: its step ms and all-gathers
+        warm = widedeep("pod-widedeep-warm", "(a), warm")
+        for row in warm:
+            del row["all_launches"]
+        out["widedeep_warm"] = warm
+        print(f"phase 3y (a), warm: {json.dumps(warm)}", flush=True)
+    finally:
+        pod.close()
+    out["combine_alone"] = pod_combine_alone(n, own)
+    print(f"phase 3y (e): the all-gather alone: {json.dumps(out['combine_alone'])}", flush=True)
+    out["seconds"] = time.perf_counter() - t0
+    check(all(launches[k] > 0 for k in ("gather_rows", "segment_sum_rows", "weighted_histogram")),
+          f"phase 3y: launches {launches}: a kernel never ran on the pod")
+    return launches, out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a CUDA card")
@@ -6446,7 +6833,7 @@ def main() -> int:
               f"{kernel} D={d} block_k={bk}: ptxas reports spills ({entry})")
     clock("1")
 
-    alone = ("3t", "3u", "3v", "3w", "3x")
+    alone = ("3t", "3u", "3v", "3w", "3x", "3y")
     if len(sys.argv) == 3 and sys.argv[1] == "--phase" and sys.argv[2] in alone:
         # one phase alone (a host of several cards: the real mesh; 3t also
         # the device guard), 3t held to one-slot runs of its own
@@ -6463,6 +6850,9 @@ def main() -> int:
         elif name == "3x":
             _, dx = run_dx()
             print("dp: " + json.dumps(dx), flush=True)
+        elif name == "3y":
+            _, pod = run_pod(pod_one_slot_refs())
+            print("pod: " + json.dumps(pod), flush=True)
         else:
             _, elastic = run_elastic()
             print("elastic: " + json.dumps(elastic), flush=True)
@@ -6472,7 +6862,7 @@ def main() -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
-    check(not sys.argv[1:], f"unknown arguments {sys.argv[1:]} (only --phase 3t, 3u, 3v, 3w or 3x)")
+    check(not sys.argv[1:], f"unknown arguments {sys.argv[1:]} (only --phase 3t, 3u, 3v, 3w, 3x or 3y)")
 
     table, idx, err = check_kernels(dev)
     timing, skew = time_kernels(dev, table, idx)
@@ -6570,6 +6960,12 @@ def main() -> int:
     clock("3w")
     dx_launches, dx = run_dx(pregel_one_slot)
     clock("3x")
+    pr_ref = pregel["full"]["pagerank"]["pod_reference"]
+    pod_launches, pod = run_pod({"wd": fused["batch_losses"],
+                                 "fm": fm_hash["batch_losses"][:BATCHES],
+                                 "pagerank": pr_ref["digest"],
+                                 "pagerank_supersteps": pr_ref["supersteps"]})
+    clock("3y")
     by_path = {name: {"bench-widedeep": launches.get(name, 0),
                       "bench-lm": lm_launches[name],
                       "bench-vit": vit_launches[name],
@@ -6589,7 +6985,8 @@ def main() -> int:
                       **{path: counts[name] for path, counts in sp_launches.items()},
                       **{path: counts[name] for path, counts in pv_launches.items()},
                       "elastic": el_launches.get(name, 0),
-                      **{path: counts[name] for path, counts in dx_launches.items()}}
+                      **{path: counts[name] for path, counts in dx_launches.items()},
+                      "pod": pod_launches[name]}
                for name in lm_launches}
     print("profile: " + json.dumps(profile_slice()), flush=True)
     clock("5")
@@ -6662,6 +7059,7 @@ def main() -> int:
     print("pv: " + json.dumps(pv), flush=True)
     print("elastic: " + json.dumps(elastic), flush=True)
     print("dp: " + json.dumps(dx), flush=True)
+    print("pod: " + json.dumps(pod), flush=True)
     print(gpu_identity())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

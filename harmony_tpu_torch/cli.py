@@ -12,9 +12,18 @@ checkpoint chains and the serving plane's pinned reads); ``submit`` sends
 one job to it (the same presets and flags as ``run``) and prints the reply,
 ``status`` and ``shutdown`` send those commands. ``run`` and
 ``start-jobserver`` run on the card unless ``--device cpu`` is given; the
-thin client commands touch no device. The reference's HA replica
-(``_cmd_start_jobserver_ha``), ``start-pod``, ``pod-reshard``, ``obs``,
-``dashboard`` and ``inputsvc`` are not ported (ROADMAP A.10).
+thin client commands touch no device. ``start-pod`` starts one process of a
+pod (``jobserver/pod.py``): ``--coordinator HOST:PORT`` (or ``file:///path``),
+``--num-processes`` and ``--process-id``, or the environment ``torchrun``
+sets (``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``); every
+process drives the cards it is given (``CUDA_VISIBLE_DEVICES``, ``--device``,
+or under ``torchrun`` the card of its ``LOCAL_RANK``; two processes may share
+``cuda:0``, and ``--device cpu`` runs on the CPU), process 0 serves the pod's control plane on ``--pod-port`` and
+the commands on ``--port`` and prints the reference's ready line, and the
+others follow it. ``--scheduler`` names the pod's scheduler (``share_all``,
+``pod_carve``, or ``pod_carve:K`` for carves of at most K processes). The
+reference's HA replica (``_cmd_start_jobserver_ha``), ``pod-reshard``,
+``obs``, ``dashboard`` and ``inputsvc`` are not ported (ROADMAP A.10).
 
 The presets cover the apps this port runs: the training apps ``mlr``,
 ``nmf``, ``lda``, ``lasso``, ``gbt``, ``addvector``, ``addinteger``, ``fm``,
@@ -53,7 +62,7 @@ import argparse
 import json
 import sys
 import time
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 
@@ -342,6 +351,80 @@ def _cmd_start_jobserver(args: argparse.Namespace) -> int:
     return 0
 
 
+def _pod_scheduler(name: str):
+    """A make_scheduler name, or ``pod_carve:K``: carves of at most K whole
+    processes (the reference's test harness's spelling)."""
+    from harmony_tpu_torch.jobserver.scheduler import ProcessCarveScheduler, make_scheduler
+
+    if name.startswith("pod_carve:"):
+        return ProcessCarveScheduler(max_procs=int(name.split(":", 1)[1]))
+    return make_scheduler(name)
+
+
+def _pod_devices(device: str) -> Optional[List[str]]:
+    """The devices a pod process drives: ``--device`` when it names the CPU
+    or one card, under torchrun the card of its ``LOCAL_RANK``, else every
+    visible card (None)."""
+    import os
+
+    if device != "cuda":
+        return [device]
+    if os.environ.get("LOCAL_RANK") is not None:
+        return [f"cuda:{int(os.environ['LOCAL_RANK'])}"]
+    return None
+
+
+def _cmd_start_pod(args: argparse.Namespace) -> int:
+    """One pod process: join the torch.distributed world, then process 0
+    becomes the pod JobServer (commands and the follower control plane) and
+    every other process enters the follower loop."""
+    import os
+
+    from harmony_tpu_torch.parallel import multihost
+    from harmony_tpu_torch.parallel.mesh import DevicePool
+
+    coordinator = args.coordinator
+    if coordinator is None and os.environ.get("MASTER_ADDR") and os.environ.get("MASTER_PORT"):
+        coordinator = f"{os.environ['MASTER_ADDR']}:{os.environ['MASTER_PORT']}"
+    nprocs = args.num_processes or int(os.environ.get("WORLD_SIZE", 0))
+    pid = args.process_id if args.process_id >= 0 else int(os.environ.get("RANK", -1))
+    if not coordinator or nprocs < 2 or pid < 0:
+        print("start-pod needs --coordinator/--num-processes/--process-id (or "
+              "MASTER_ADDR, MASTER_PORT, WORLD_SIZE and RANK); for one process "
+              "use start-jobserver", file=sys.stderr)
+        return 2
+    multihost.initialize_distributed(coordinator, nprocs, pid, devices=_pod_devices(args.device))
+    try:
+        pool = DevicePool(multihost.global_slots())
+        n_exec = args.num_executors or len(pool)
+        if pid == 0:
+            from harmony_tpu_torch.jobserver.pod import PodJobServer
+
+            server = PodJobServer(n_exec, scheduler=_pod_scheduler(args.scheduler),
+                                  device_pool=pool, num_followers=nprocs - 1,
+                                  chkp_root=args.chkp_root)
+            server.start()
+            server.serve_pod(args.pod_port)
+            port = server.serve_tcp(args.port)
+            print(f"pod jobserver ready: {nprocs} processes, {len(pool)} global devices, "
+                  f"submit port {port}", flush=True)
+            try:
+                while server.state != "CLOSED":
+                    time.sleep(0.2)
+            except KeyboardInterrupt:
+                server.shutdown()
+            return 0
+        from harmony_tpu_torch.jobserver.pod import PodFollower
+
+        leader = ("127.0.0.1" if coordinator.startswith("file://")
+                  else coordinator.removeprefix("tcp://").rpartition(":")[0])
+        print(f"pod follower {pid} joining {leader}:{args.pod_port}", flush=True)
+        PodFollower(leader, args.pod_port, pid, n_exec, pool=pool).run()
+        return 0
+    finally:
+        multihost.shutdown_distributed()
+
+
 def _sender(port):
     """An explicit --port wins; otherwise the HARMONY_JOBSERVER_ADDRS replica
     list, then the default port 43110."""
@@ -438,6 +521,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--chkp-root", default=None,
                    help="root of the jobs' checkpoint chains (and of pinned reads)")
     _device_flag(p)
+    p = sub.add_parser("start-pod", help="one process of a multi-process pod")
+    _num_executors_flag(p)
+    p.add_argument("--port", type=int, default=43110, help="TCP port of process 0's commands")
+    p.add_argument("--pod-port", type=int, default=43111,
+                   help="TCP port of process 0's follower control plane")
+    p.add_argument("--coordinator", default=None,
+                   help="HOST:PORT of the torch.distributed store (or file:///path); "
+                        "default MASTER_ADDR:MASTER_PORT")
+    p.add_argument("--num-processes", type=int, default=0, help="default WORLD_SIZE")
+    p.add_argument("--process-id", type=int, default=-1, help="default RANK")
+    p.add_argument("--scheduler", default="share_all",
+                   help="share_all | fifo | carve | pod_carve | pod_carve:K")
+    p.add_argument("--chkp-root", default=None, help="root of the jobs' checkpoint chains")
+    _device_flag(p)
     p = sub.add_parser("submit", help="submit a job to a running jobserver")
     _common_job_flags(p)
     _port_flag(p)
@@ -454,6 +551,8 @@ def main(argv: "List[str] | None" = None) -> int:
         return _cmd_run(args)
     if args.cmd == "start-jobserver":
         return _cmd_start_jobserver(args)
+    if args.cmd == "start-pod":
+        return _cmd_start_pod(args)
     return _cmd_client(args)
 
 

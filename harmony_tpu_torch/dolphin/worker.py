@@ -84,6 +84,18 @@ A worker of a multi-worker job checks its SSP gate (``batch_barrier``, a
 worker's turn of a ``DispatchTurnstile`` (``dispatch_turn``). A worker with
 none of these, outside a JobServer, keeps the fused windows.
 
+On a table whose mesh spans the processes of a pod (the reference's
+multi-process branches): every dispatch region (global init, the probe, each
+fused epoch, each batch group of 8 batches, each drain and epoch callback)
+runs in the job's pod unit (``dispatch_turn``), so that every process enters
+its collectives in the same order as its peers; the step stays fused and
+never runs the async driver; the probe is skipped when several workers
+dispatch with no turnstile; a contended grant (``pod_contended``, read at a
+unit's exit, the same in every process) shrinks the windows to one epoch and
+the batch groups to one batch; and ``mxu_auto`` is resolved by the static
+size gate, not by the measured autotune (a timing in each process could pick
+two routes).
+
 Per-batch primary metrics ("loss", else the trainer's ``objective_metric``)
 stay on the device until the drain. Also here, for callers that drive a table
 outside the worker (the ModelAccessor path): :class:`FusedSparseStep` and
@@ -116,6 +128,7 @@ from harmony_tpu_torch.dolphin.rows import (
 )
 from harmony_tpu_torch.dolphin.trainer import Trainer, TrainerContext
 from harmony_tpu_torch.metrics.collector import BatchMetrics, MetricCollector
+from harmony_tpu_torch.parallel.mesh import mesh_spans_processes
 from harmony_tpu_torch.metrics.tracer import Tracer
 from harmony_tpu_torch.table import autotune
 from harmony_tpu_torch.table.hashtable import DeviceHashTable
@@ -783,6 +796,7 @@ class WorkerTasklet:
         starting_epoch: int = 0,
         defer_epoch_callback: bool = False,
         collector: Optional[MetricCollector] = None,
+        pod_contended: Optional[Callable[[], bool]] = None,
     ) -> None:
         self.job_id = job_id
         self.ctx = ctx
@@ -799,8 +813,11 @@ class WorkerTasklet:
         self.batch_barrier = batch_barrier
         # TaskUnitClient under a JobServer (runtime/taskunit.py), else None
         self.taskunit = taskunit
-        # a callable returning this worker's turnstile turn (lockstep jobs)
+        # a callable returning this worker's turnstile turn (lockstep jobs),
+        # or its pod unit, or both composed
         self.dispatch_turn = dispatch_turn
+        # the contended flag of the job's last pod unit (pod jobs only)
+        self.pod_contended = pod_contended
         # called after each epoch's drain, in epoch order. Deferrable (the
         # entity's progress tracker: host accounting only): windows may run
         # it after a multi-epoch window drains. Not deferrable (a checkpoint
@@ -1033,6 +1050,8 @@ class WorkerTasklet:
         via = table.push_via
         if via != "mxu_auto" or self.trainer.pull_mode != "keys":
             return via
+        if self.dispatch_turn is not None or self._spans_processes():
+            return via  # the static gate, the same in every process
         sample = tuple(torch.as_tensor(np.ascontiguousarray(a))
                        for a in self.data.first_rows(self.data.batch_size))
         nkeys = int(self.trainer.pull_keys(sample).shape[0])
@@ -1062,21 +1081,28 @@ class WorkerTasklet:
                 self._build_unfused(self._push_route), bound=self._staleness_bound,
                 model_table=table, local_table=self.ctx.local_table,
                 job_id=self.job_id)
-        elif self._fused_on:
+        elif self._fused_mode():
             self._step = self._step_core(self._push_route)
         else:
             self._step = self._build_unfused(self._push_route)
 
+    def _spans_processes(self) -> bool:
+        """Whether the model table's mesh spans the processes of a pod."""
+        return mesh_spans_processes(self.ctx.model_table.mesh)
+
     def _fused_mode(self) -> bool:
         """Whether the step is the fused one (the async driver runs the
-        unfused phases by construction and takes precedence)."""
-        return self._fused_on and not self._async_mode()
+        unfused phases by construction and takes precedence). A mesh over
+        several processes keeps the fused step whatever the knob says."""
+        if self._async_mode():
+            return False
+        return self._fused_on or self._spans_processes()
 
     def _async_capable(self) -> bool:
         """Whether the async step can drive this job: dense pull_mode='all'
         tables only. A keyed or hash step pulls per-batch rows, and the
         published-view pipeline has no batch when it pulls."""
-        if self._is_hash() or self._data_rows() > 1:
+        if self._is_hash() or self._data_rows() > 1 or self._spans_processes():
             return False
         return self.trainer.pull_mode == "all"
 
@@ -1302,7 +1328,13 @@ class WorkerTasklet:
     def _probe_comm(self) -> None:
         """Time the probe programs on one batch under the table lock: one
         warm-up call, then the minimum of ``PROBE_SAMPLES`` calls, each
-        ended by a sync. Stores ``(pull_s, push_s)``."""
+        ended by a sync. Stores ``(pull_s, push_s)``. On a mesh over several
+        processes the probe's pulls are collectives: with several workers and
+        no turnstile their order could differ between processes, so it is
+        skipped."""
+        if (self._spans_processes() and self.dispatch_turn is None
+                and self.ctx.num_workers != 1):
+            return
         if self._probe_pull is None:
             self._build_comm_probe()
         batch = self._probe_batch()
@@ -1341,6 +1373,9 @@ class WorkerTasklet:
         if self.batch_barrier is not None:
             return 1
         if not self._fused_mode():
+            return 1
+        if self.pod_contended is not None and self.pod_contended():
+            # a window is one pod unit: contended tenants interleave by epoch
             return 1
         if not Trainer._epoch_hook_windowable(self.trainer):
             return 1
@@ -1404,9 +1439,10 @@ class WorkerTasklet:
         for j in range(k):
             hyper = self._hyper()
             batches = []
-            for b in range(self.data.num_mini_batches):
-                self._check_local_rows(b, None)
-                batches.append(self._dispatch(self._stacked_batch(stacked, b), hyper))
+            with self._turn():   # each epoch is one pod unit
+                for b in range(self.data.num_mini_batches):
+                    self._check_local_rows(b, None)
+                    batches.append(self._dispatch(self._stacked_batch(stacked, b), hyper))
             out.append(batches)
             if j + 1 < k:
                 self.trainer.on_epoch_finished(self.ctx, first_epoch + j)
@@ -1428,7 +1464,9 @@ class WorkerTasklet:
     def _prefetch_usable(self) -> bool:
         """Whether background staging may run: ``input_prefetch``. The
         reference also turns it off under pod turnstiles and on meshes that
-        span processes, neither of which the port has."""
+        span processes, where its staging copy is itself a collective; the
+        port's stages a batch on this process's own card, a local copy that
+        may run beside a unit."""
         return self._prefetch_on
 
     def _devcache_epoch_ready(self) -> bool:
@@ -1575,6 +1613,10 @@ class WorkerTasklet:
         crosses the schedule fewer times."""
         if self.batch_barrier is not None:
             return 1
+        if self.pod_contended is not None and self.dispatch_turn is not None:
+            # pod units: a FIXED group (the same in every process), one
+            # batch under contention
+            return 1 if self.pod_contended() else 8
         if self.taskunit is None or not self.taskunit.contended():
             return 1
         c = self._own_batch_cost
@@ -1767,7 +1809,7 @@ class WorkerTasklet:
         step = self._step
         mode = ("async" if isinstance(step, AsyncStepDriver)
                 else "data_parallel" if isinstance(step, _DataParallelStep)
-                else "fused" if self._fused_on else "unfused")
+                else "fused" if self._fused_mode() else "unfused")
         result = {
             "job_id": self.job_id,
             # this run trained epochs [starting_epoch, starting_epoch + epochs_run)

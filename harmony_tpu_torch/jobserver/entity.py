@@ -61,8 +61,21 @@ turning the metrics into plans that move the model table's blocks while the
 job trains (the reference's ETOptimizationOrchestrator). One loop a table:
 a tenant of a shared table whose loop already runs trains without one.
 
-Not ported yet: elastic recovery, ``--auto-resume`` and the pod branch of the
-optimizer loop (ROADMAP A items 3 and 4).
+On a pod (``jobserver/pod.py``) every participating process builds the same
+entity from the same config. A job whose executors lie in several processes
+takes ``pod_unit_scope`` and ``pod_unit_contended`` from the cross-job unit
+protocol (``runtime/podunits.py``): set-up, and every dispatch region of its
+workers or its superstep loop, run inside leader-granted units, so
+overlapping tenants enter their collectives in one pod-wide order, and such
+a job drops the local TaskUnit admission. Several workers of such a job take
+turns in a ``DispatchTurnstile`` (its SSP slack at least 1), so every process
+enqueues in the same order. A checkpoint chain, a resume from one, the
+deferred evaluation and the optimizer loop are refused on a multi-process
+grant, in every process alike, and the deferred evaluation on a grant wholly
+on a follower: they wait for the pod's checkpoint, evaluation and plan
+channels (ROADMAP A item 3b).
+
+Not ported yet: elastic recovery and ``--auto-resume`` (ROADMAP A item 4).
 """
 from __future__ import annotations
 
@@ -113,10 +126,16 @@ class DolphinJobEntity:
         chkp_root: Optional[str] = None,
         metric_sink: Optional[Callable[[Any], None]] = None,
         metric_manager: Optional[MetricManager] = None,
+        pod_unit_scope: Optional[Callable[[], Any]] = None,
+        pod_unit_contended: Optional[Callable[[], bool]] = None,
     ) -> None:
         self.config = config
         self._global_tu = global_taskunit
         self._local_tu = local_taskunit
+        # the cross-job unit protocol's client (a job over several processes
+        # of a pod): every dispatch region runs in a leader-granted unit
+        self._pod_unit_scope = pod_unit_scope
+        self._pod_unit_contended = pod_unit_contended
         # the JobServer's MetricManager (its on_metric is the sink)
         self._metric_sink = metric_sink
         self._metric_manager = metric_manager
@@ -192,7 +211,14 @@ class DolphinJobEntity:
         """Create the job's tables over all its executors (or take a
         reference to the shared table ``config.tables`` names), on a mesh
         ``user["data_axis"]`` rows deep (default 1: the blocks split over
-        every executor), and materialize its data."""
+        every executor), and materialize its data. On a pod, in one unit."""
+        _refuse_on_pod(self.config, master, executor_ids)
+        scope = (self._pod_unit_scope() if self._pod_unit_scope is not None
+                 else contextlib.nullcontext())
+        with scope:
+            self._setup_inner(master, executor_ids)
+
+    def _setup_inner(self, master: ETMaster, executor_ids: List[str]) -> None:
         self._setup_start = time.perf_counter()
         self._master = master
         cfg = self.config
@@ -400,12 +426,15 @@ class DolphinJobEntity:
             for h in hooks:
                 h(e)
 
-        # user.force_lockstep: the deterministic schedule (a DispatchTurnstile
-        # cycles the workers' dispatch turns in a fixed order). The SSP slack
-        # is at least 1 so the gate never blocks INSIDE a turn, and lockstep
-        # workers take no TaskUnits (a quorum wait inside a turn would
-        # deadlock the cycle): a determinism knob, not a scheduling mode.
-        lockstep = num_workers > 1 and bool(cfg.user.get("force_lockstep"))
+        # user.force_lockstep, and every multi-worker job over several
+        # processes: the deterministic schedule (a DispatchTurnstile cycles
+        # the workers' dispatch turns in a fixed order, the same in every
+        # process). The SSP slack is at least 1 so the gate never blocks
+        # INSIDE a turn, and lockstep workers take no TaskUnits (a quorum
+        # wait inside a turn would deadlock the cycle). A pod-unit job drops
+        # them too: ordering and fairness come from the pod's arbiter.
+        procs = {self._master.executor(e).slot.process_index for e in self._executor_ids}
+        lockstep = num_workers > 1 and (len(procs) > 1 or bool(cfg.user.get("force_lockstep")))
         turnstile = DispatchTurnstile(wids) if lockstep else None
         ctrl = (
             MiniBatchController(
@@ -431,14 +460,14 @@ class DolphinJobEntity:
                 taskunit = (
                     TaskUnitClient(cfg.job_id, wid, self._global_tu, self._local_tu)
                     if self._global_tu is not None and self._local_tu is not None
-                    and not lockstep else None)
+                    and not lockstep and self._pod_unit_scope is None else None)
                 worker = self.make_worker(
                     idx, num_workers,
                     batch_barrier=ctrl.make_barrier(wid) if ctrl is not None else None,
                     taskunit=taskunit,
                     post_init_barrier=init_barrier.wait,
-                    dispatch_turn=((lambda: turnstile.turn(wid))
-                                   if turnstile is not None else None),
+                    dispatch_turn=self._dispatch_turn(turnstile, wid),
+                    pod_contended=self._pod_unit_contended,
                     epoch_callback=epoch_hook if idx == 0 and hooks else None,
                     # the tracker only reads drained counters and may run after
                     # a multi-epoch window; a chain snapshots the table AT its
@@ -509,6 +538,25 @@ class DolphinJobEntity:
             out["model_chkp_root"] = self._chkp_dir
             out["model_chkp_stats"] = self._chkp_chain.stats
         return out
+
+    def _dispatch_turn(self, turnstile, wid: str):
+        """The worker's admission context for each dispatch region: its
+        turnstile turn, the job's pod unit, both (the turn outside, the unit
+        inside: the turnstile orders this process's threads, so the unit
+        numbers stay the same in every process), or None."""
+        scope = self._pod_unit_scope
+        if turnstile is None:
+            return scope
+        if scope is None:
+            return lambda: turnstile.turn(wid)
+
+        @contextlib.contextmanager
+        def composed():
+            with turnstile.turn(wid):
+                with scope():
+                    yield
+
+        return composed
 
     # -- the optimizer loop and its metrics --------------------------------
 
@@ -619,10 +667,15 @@ class PregelJobEntity:
         config: JobConfig,
         global_taskunit: Optional[GlobalTaskUnitScheduler] = None,
         local_taskunit: Optional[LocalTaskUnitScheduler] = None,
+        pod_unit_scope: Optional[Callable[[], Any]] = None,
+        pod_unit_contended: Optional[Callable[[], bool]] = None,
     ) -> None:
         self.config = config
         self._global_tu = global_taskunit
         self._local_tu = local_taskunit
+        # supersteps run in the job's pod units (no window to shrink, so the
+        # contended flag goes unread)
+        self._pod_unit_scope = pod_unit_scope
         self._pregel_master: Optional[PregelMaster] = None
         self._registered = False
 
@@ -642,16 +695,21 @@ class PregelJobEntity:
         mesh = build_mesh([master.executor(e).slot for e in executor_ids], data=1)
         computation = comp_cls(**app_params)
         taskunit = None
-        if self._global_tu is not None and self._local_tu is not None:
+        if (self._global_tu is not None and self._local_tu is not None
+                and self._pod_unit_scope is None):
             wid = f"{cfg.job_id}/w0"
             self._global_tu.on_job_start(cfg.job_id, [wid])
             self._registered = True
             taskunit = TaskUnitClient(cfg.job_id, wid, self._global_tu, self._local_tu)
+        scope = (self._pod_unit_scope() if self._pod_unit_scope is not None
+                 else contextlib.nullcontext())
         try:
-            self._pregel_master = PregelMaster(
-                graph, computation, mesh,
-                max_supersteps=int(user.get("max_supersteps", 100)),
-                taskunit=taskunit, job_id=cfg.job_id)
+            with scope:   # the tables' creation and seeding
+                self._pregel_master = PregelMaster(
+                    graph, computation, mesh,
+                    max_supersteps=int(user.get("max_supersteps", 100)),
+                    taskunit=taskunit, job_id=cfg.job_id,
+                    dispatch_turn=self._pod_unit_scope)
         except BaseException:
             self._deregister()  # a failed setup must not leave a stale quorum
             raise
@@ -678,6 +736,36 @@ class PregelJobEntity:
         if self._pregel_master is not None:
             self._pregel_master.close()
         self._pregel_master = None
+
+
+def _refuse_on_pod(config: JobConfig, master: ETMaster, executor_ids: List[str]) -> None:
+    """What a grant beyond process 0 cannot run yet, refused from the config
+    and the grant alone, so every process raises alike (one process raising
+    while its peers enter the job's collectives would wedge the pod)."""
+    procs = sorted({master.executor(e).slot.process_index for e in executor_ids})
+    p, job = config.params, config.job_id
+    if len(procs) == 1 and procs != [0] and p.model_chkp_period > 0 and p.offline_model_eval:
+        # the deferred evaluations run in the leader's JobServer at shutdown
+        raise ValueError(
+            f"job {job}: offline_model_eval on a grant wholly on process {procs[0]} "
+            "needs the collective deferred evaluation (the leader runs the deferred "
+            "evaluations), which waits for ROADMAP A item 3b")
+    if len(procs) < 2:
+        return
+    where = f"on a multi-process grant (processes {procs})"
+    if p.model_chkp_period > 0 or config.user.get("resume_from_chain"):
+        raise ValueError(
+            f"job {job}: a checkpoint chain {where} needs the pod's checkpoint "
+            "(each process staging its own blocks), which waits for ROADMAP A item 3b")
+    if p.offline_model_eval:
+        raise ValueError(
+            f"job {job}: offline_model_eval {where} needs the collective deferred "
+            "evaluation, which waits for ROADMAP A item 3b")
+    if config.optimizer:
+        raise ValueError(
+            f"job {job}: optimizer={config.optimizer!r} {where} needs the pod's "
+            "plan channel (plans applied at the chief's epoch hook in every "
+            "process), which waits for ROADMAP A item 3b")
 
 
 def build_entity(config: JobConfig, chkp_root: Optional[str] = None, **kwargs: Any):

@@ -40,7 +40,7 @@ feeds a fixed pool of command workers; the overload monitor
 ``STATUS``, ``WAIT`` (a bounded poll of one job's result), ``SERVING``
 (starts the serving endpoint on demand and answers its address), ``SHUTDOWN``
 and ``POD_RESHARD`` (answered ``not a pod server``, as the reference's plain
-server answers it). ``_entities`` maps a running job to its entity, set
+server answers it; ``jobserver/pod.py``'s server answers it itself). ``_entities`` maps a running job to its entity, set
 before the entity's set-up and dropped when the job ends; the serving
 endpoint reads a job's live table through it, and its pinned reads through
 ``chkp_root``. ``shutdown`` closes the command plane first and the serving
@@ -51,9 +51,14 @@ from the start; every Dolphin entity gets its ``on_metric`` as the sink of
 its workers' ``BatchMetrics`` and its ``ServerMetrics``, and the manager
 itself for a job's optimizer loop (``JobConfig.optimizer``).
 
-Not ported yet: HA (``NOT_LEADER`` gating), the pod, the policy engine,
-history and doctor, metrics scraping, and the STATUS fields of those
-subsystems (ROADMAP A.10).
+The pod's server (``jobserver/pod.py::PodJobServer``) extends this one
+through three hooks: ``_entity_extras`` (what a job's entity gets beside the
+server's schedulers and metrics), ``_pod_reshard_command`` and
+``_on_closing`` (run by ``shutdown`` once the jobs have drained).
+
+Not ported yet: HA (``NOT_LEADER`` gating), the policy engine, history and
+doctor, metrics scraping, and the STATUS fields of those subsystems (ROADMAP
+A.10).
 """
 from __future__ import annotations
 
@@ -79,7 +84,7 @@ from harmony_tpu_torch.jobserver.scheduler import (
     make_scheduler,
 )
 from harmony_tpu_torch.metrics.manager import MetricManager
-from harmony_tpu_torch.parallel.mesh import DevicePool
+from harmony_tpu_torch.parallel.mesh import DevicePool, mesh_spans_processes
 from harmony_tpu_torch.runtime.master import ETMaster
 from harmony_tpu_torch.runtime.taskunit import (
     GlobalTaskUnitScheduler,
@@ -195,7 +200,8 @@ class JobServer:
                                   global_taskunit=self.global_taskunit,
                                   local_taskunit=self.local_taskunit,
                                   metric_sink=self.metrics.on_metric,
-                                  metric_manager=self.metrics)
+                                  metric_manager=self.metrics,
+                                  **self._entity_extras(config, executor_ids))
             with self._lock:
                 self._entities[config.job_id] = entity
             try:
@@ -219,6 +225,19 @@ class JobServer:
             with self._lock:
                 self._entities.pop(config.job_id, None)
             self._scheduler.on_job_finish(config.job_id)
+
+    def _entity_extras(self, config: JobConfig, executor_ids: List[str]) -> Dict[str, Any]:
+        """More arguments for a job's entity (none here; the pod's server
+        adds its unit protocol's client)."""
+        return {}
+
+    def _on_closing(self, timeout: Optional[float]) -> None:
+        """Run by :meth:`shutdown` after the deferred evaluations, before
+        the state turns CLOSED (nothing here; the pod's server tears its
+        control plane down)."""
+
+    def _pod_reshard_command(self, msg: Dict[str, Any]) -> Dict[str, Any]:
+        return {"ok": False, "error": "not a pod server"}
 
     def running_jobs(self) -> List[str]:
         with self._lock:
@@ -255,6 +274,7 @@ class JobServer:
             drained = drained and not t.is_alive()
         self._run_deferred_evals(timeout, drained)
         self._stop_serving()
+        self._on_closing(timeout)
         self._state = "CLOSED"
 
     def _run_deferred_evals(self, timeout: Optional[float], drained: bool) -> None:
@@ -315,7 +335,13 @@ class JobServer:
                     entity = self._entities.get(job_id)
                 handle = (getattr(entity, "table_handle", None)
                           if entity is not None else None)
-                return handle.table if handle is not None else None
+                table = handle.table if handle is not None else None
+                if table is not None and mesh_spans_processes(table.mesh):
+                    # its read is a collective that every process would join
+                    raise LookupError(
+                        f"job {job_id!r}: a live read of a table over several processes "
+                        "waits for ROADMAP A item 3b")
+                return table
 
             svc = ServingEndpoint(table_fn=live_table, chkp_root=self._chkp_root,
                                   overload=self.overload)
@@ -480,7 +506,7 @@ class JobServer:
                 elif cmd == "WAIT":
                     reply = self._wait_command(msg, deadline)
                 elif cmd == "POD_RESHARD":
-                    reply = {"ok": False, "error": "not a pod server"}
+                    reply = self._pod_reshard_command(msg)
                 elif cmd == "SERVING":
                     svc = self._ensure_serving()
                     reply = {"ok": True, "port": svc.port, "host": svc.address[0]}

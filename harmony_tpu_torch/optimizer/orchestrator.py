@@ -13,8 +13,8 @@ a timer to emulate a dynamic cluster; ``available_fn`` plays that role
 (defaults to the device pool's free capacity).
 
 A copy of ``harmony_tpu/optimizer/orchestrator.py`` less the pod's
-``plan_sink`` hand-off, which waits for the multi-process pod (ROADMAP A
-item 3): every plan executes here, from the orchestrator's thread. A job's
+``plan_sink`` hand-off, which waits for the pod's plan application (ROADMAP
+A item 3b): every plan executes here, from the orchestrator's thread. A job's
 reconfiguration is logged through ``logging`` (the reference writes it to
 its job log).
 """

@@ -20,10 +20,28 @@ finish, which on several cards depends on the other cards; a sum of two terms
 is exact in either order, so the steps give no tensor more than two gradient
 consumers whose backward waits on another slot, and a virtual mesh and a mesh
 of cards give the same bits.
+
+Across the processes of a pod (``parallel/multihost.py``) the one layer is
+``torch.distributed``, over the group of the processes concerned:
+
+  * :func:`process_all_gather` — each process's tensor, the parts in process
+    order (the order of their slots), on every process. A copy with no
+    arithmetic: gloo and NCCL give the same bits. Both take a card's
+    tensor as it is (gloo copies it through the host itself);
+  * :func:`process_psum` — that all-gather, then a left-to-right sum in
+    process order (``all_reduce``'s order of addition is not slot order);
+  * :func:`process_broadcast` — one process's tensor on every process.
+
+Every such call blocks the calling thread until each process of the group
+has made it, so every one lies inside its job's unit scope
+(``runtime/podunits.py``), where no other job's collective on these
+processes can interleave. :data:`POD_STATS` counts the calls and their bytes
+in this process.
 """
 from __future__ import annotations
 
-from typing import List, Sequence
+import threading
+from typing import Dict, List, Sequence
 
 import torch
 
@@ -77,3 +95,70 @@ def broadcast(x: torch.Tensor, devices: Sequence[torch.device]) -> List[torch.Te
     each model shard); the backward sums the copies' gradients in slot order,
     where autograd would add them into ``x`` in the order they arrive."""
     return list(_Broadcast.apply(x, tuple(devices)))
+
+
+# -- across processes --------------------------------------------------------
+
+POD_STATS: Dict[str, int] = {"calls": 0, "bytes_out": 0, "bytes_in": 0}
+_STATS_LOCK = threading.Lock()
+
+
+def _note(bytes_out: int, bytes_in: int) -> None:
+    with _STATS_LOCK:
+        POD_STATS["calls"] += 1
+        POD_STATS["bytes_out"] += bytes_out
+        POD_STATS["bytes_in"] += bytes_in
+
+
+def _wire(t: torch.Tensor) -> torch.Tensor:
+    """``t`` where the backend takes it: NCCL a tensor on this process's
+    card, gloo a host or a card tensor as it is."""
+    from harmony_tpu_torch.parallel import multihost
+
+    if multihost.backend() == "nccl" and t.device.type != "cuda":
+        return t.to(multihost.local_devices()[0])
+    return t.contiguous()
+
+
+def process_all_gather(t: torch.Tensor, processes: Sequence[int]) -> List[torch.Tensor]:
+    """This process's ``t`` and the same-shaped tensor of every other process
+    of ``processes``, in process order, each on ``t``'s device."""
+    from harmony_tpu_torch.parallel import multihost
+
+    procs = tuple(sorted(set(processes)))
+    if len(procs) == 1:
+        return [t]
+    group = multihost.group_of(procs)
+    src = _wire(t)
+    parts = [torch.empty_like(src) for _ in procs]
+    torch.distributed.all_gather(parts, src, group=group)
+    out = [p.to(t.device, non_blocking=True) if p.device != t.device else p for p in parts]
+    nbytes = t.numel() * t.element_size()
+    _note(nbytes, nbytes * len(procs))
+    return out
+
+
+def process_psum(t: torch.Tensor, processes: Sequence[int]) -> torch.Tensor:
+    """The processes' tensors summed left to right in process order."""
+    parts = process_all_gather(t, processes)
+    total = parts[0]
+    for p in parts[1:]:
+        total = total + p
+    return total
+
+
+def process_broadcast(t: torch.Tensor, src: int, processes: Sequence[int]) -> torch.Tensor:
+    """Process ``src``'s ``t`` on every process of ``processes`` (a copy on
+    ``t``'s device; ``t`` gives the shape and dtype elsewhere)."""
+    from harmony_tpu_torch.parallel import multihost
+
+    procs = tuple(sorted(set(processes)))
+    if len(procs) == 1:
+        return t
+    buf = _wire(t)
+    buf = buf.clone() if buf is t else buf
+    torch.distributed.broadcast(buf, src=src, group=multihost.group_of(procs))
+    out = buf.to(t.device, non_blocking=True) if buf.device != t.device else buf
+    nbytes = t.numel() * t.element_size()
+    _note(nbytes if multihost.process_index() == src else 0, nbytes)
+    return out

@@ -20,9 +20,17 @@ process over torch devices:
 ``DevicePool(["cpu"])`` one CPU slot. ``DevicePool.virtual(device, n)`` puts
 ``n`` slots on ONE device: the counterpart of XLA's
 ``--xla_force_host_platform_device_count``, with which the reference's tests
-simulate a mesh, for tests and ``chip_smoke.py`` only. Several processes (the
-reference's multi-host pod, ``torch.distributed`` in the port) are not ported
-yet: :func:`mesh_spans_processes` is always False here.
+simulate a mesh, for tests and ``chip_smoke.py`` only.
+
+A pod (``parallel/multihost.py``) is several processes, each driving the
+slots of its own cards. Every slot knows its ``process_index``; the slot list
+is global and built in the same order in every process
+(``multihost.global_slots()``, the pool of a pod process), so a mesh over
+slots of several processes names the same slots everywhere.
+:func:`is_local` tells this process's slots from the others';
+:func:`mesh_spans_processes` is the reference's test (slots of more than one
+process), and :meth:`Mesh.process_group` the ``torch.distributed`` group of a
+mesh's processes.
 """
 from __future__ import annotations
 
@@ -39,18 +47,31 @@ MODEL_AXIS = "model"
 SEQ_AXIS = "seq"
 
 
+# This process's index in its pod (0 outside one); parallel/multihost.py
+# sets it once the process has joined.
+_THIS_PROCESS = [0]
+
+
+def this_process() -> int:
+    """This process's index in its pod (0 when it is in none)."""
+    return _THIS_PROCESS[0]
+
+
 class Slot:
-    """A numbered place on one device (the port's ``jax.Device``). Two slots
-    of one pool never share an index; two slots may share a device."""
+    """A numbered place on one device of one process (the port's
+    ``jax.Device``). Two slots of one pool never share an index; two slots
+    may share a device. ``device`` is the device in the slot's own process
+    (a remote slot's is its owner's name for it)."""
 
-    __slots__ = ("index", "device")
+    __slots__ = ("index", "device", "process_index")
 
-    def __init__(self, index: int, device: torch.device) -> None:
+    def __init__(self, index: int, device: torch.device, process_index: int = 0) -> None:
         self.index = int(index)
         self.device = device
+        self.process_index = int(process_index)
 
-    def _key(self) -> Tuple[int, str]:
-        return self.index, str(self.device)
+    def _key(self) -> Tuple[int, str, int]:
+        return self.index, str(self.device), self.process_index
 
     def __eq__(self, other) -> bool:
         return isinstance(other, Slot) and self._key() == other._key()
@@ -59,7 +80,14 @@ class Slot:
         return hash(self._key())
 
     def __repr__(self) -> str:
+        if self.process_index:
+            return f"Slot({self.index}, {self.device}, process {self.process_index})"
         return f"Slot({self.index}, {self.device})"
+
+
+def is_local(slot: Slot) -> bool:
+    """Whether ``slot`` belongs to this process (its tensors live here)."""
+    return slot.process_index == _THIS_PROCESS[0]
 
 
 SlotLike = Union[Slot, DeviceLike]
@@ -95,6 +123,18 @@ class Mesh:
     def slots(self) -> List[Slot]:
         """Every slot, in the array's (row-major) order."""
         return list(self.devices.flat)
+
+    @property
+    def processes(self) -> Tuple[int, ...]:
+        """The processes holding the mesh's slots, in increasing order."""
+        return tuple(sorted({s.process_index for s in self.devices.flat}))
+
+    def process_group(self):
+        """The ``torch.distributed`` group of the mesh's processes (made once,
+        when the pod started: ``multihost.group_of``)."""
+        from harmony_tpu_torch.parallel.multihost import group_of
+
+        return group_of(self.processes)
 
     def slot_at(self, coords: Dict[str, int]) -> Slot:
         """The slot at the given index of each named axis (index 0 on an axis
@@ -155,9 +195,10 @@ def build_mesh(
 
 
 def mesh_spans_processes(mesh: Mesh) -> bool:
-    """Whether the mesh's slots live in more than one process: never, in the
-    port's single controller (kept for the branches that read it)."""
-    return False
+    """True when the mesh's slots live in more than one process: the
+    predicate gating the single-process-only paths (the reference's,
+    ``harmony_tpu/parallel/mesh.py:80-84``)."""
+    return len({s.process_index for s in mesh.devices.flat}) > 1
 
 
 class DevicePool:

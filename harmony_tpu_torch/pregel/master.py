@@ -36,6 +36,14 @@ The superstep's two scalars (all halted, messages sent) combine over the
 shards on the first slot and come back in one device-to-host copy. Under a
 JobServer each superstep's launches run in a COMP TaskUnit (``taskunit``), so
 a graph job interleaves with its co-tenants superstep by superstep.
+
+On a mesh over the processes of a pod each process computes the shards it
+holds, and the all-gather crosses processes: the new states and halt votes
+of a process's shards, packed as one ``[rows, state_dim + 1]`` f32 tensor a
+shard, go to every other process in one all-gather, and the flags of every
+shard in a second, combined in shard order as above. The supersteps and the
+final read of the vertex values run inside ``dispatch_turn`` (the job's pod
+unit), where no co-tenant's collective can interleave.
 """
 from __future__ import annotations
 
@@ -51,7 +59,14 @@ from harmony_tpu_torch.ops.sparse import gather_rows, segment_sum_rows
 from harmony_tpu_torch.parallel.mesh import Mesh
 from harmony_tpu_torch.pregel.computation import Computation
 from harmony_tpu_torch.pregel.graph import Graph
-from harmony_tpu_torch.table.table import DenseTable, ShardedArray, TableSpec, mesh_of, on_device
+from harmony_tpu_torch.table.table import (
+    DenseTable,
+    ShardedArray,
+    TableSpec,
+    gather_shards,
+    mesh_of,
+    on_device,
+)
 from harmony_tpu_torch.utils.platform import DeviceLike
 
 _REDUCE = {"min": "amin", "max": "amax"}
@@ -90,6 +105,7 @@ class PregelMaster:
         max_supersteps: int = 100,
         taskunit: Optional[Any] = None,
         job_id: str = "pregel",
+        dispatch_turn: Optional[Any] = None,
     ) -> None:
         if getattr(computation, "undirected", False):
             graph = graph.undirected()
@@ -104,6 +120,7 @@ class PregelMaster:
         self.max_supersteps = max_supersteps
         self.taskunit = taskunit
         self.job_id = job_id
+        self.dispatch_turn = dispatch_turn
         V = graph.num_vertices
 
         def table(name: str, vshape, update: str) -> DenseTable:
@@ -127,21 +144,26 @@ class PregelMaster:
                                     device=self.device))
         self._shards = self._partition(graph)
 
+    def _rows_of(self, k: int) -> int:
+        """Vertices of shard ``k`` (the last may hold fewer)."""
+        V = self.graph.num_vertices
+        return max(0, min(self._per, V - k * self._per))
+
     def _partition(self, graph: Graph) -> List[_Shard]:
-        """One :class:`_Shard` a shard coordinate, computed on the first slot
-        that holds it; the edges split by destination shard, each part in the
-        original edge order (a stable partition). One shard keeps every edge
-        as it is."""
+        """One :class:`_Shard` for each shard this process holds, computed on
+        the first of its slots that holds it; the edges split by destination
+        shard, each part in the original edge order (a stable partition). One
+        shard keeps every edge as it is."""
         sh = self.vertex_table.sharding
         V = graph.num_vertices
-        owners = sh.row_slots(0)
-        if len(owners) == 1:
-            return [_Shard(0, owners[0], 0, V, graph, None)]
-        per = sh.blocks_per_shard * self.vertex_table.spec.block_size
-        of_edge = graph.dst // per
-        return [_Shard(k, slot, k * per, max(0, min(per, V - k * per)), graph,
+        reads = sh.read_slots(0)
+        self._per = sh.blocks_per_shard * self.vertex_table.spec.block_size
+        if sh.num_shards == 1:
+            return [_Shard(0, reads[0], 0, V, graph, None)]
+        of_edge = graph.dst // self._per
+        return [_Shard(k, slot, k * self._per, self._rows_of(k), graph,
                        np.flatnonzero(of_edge == k))
-                for k, slot in enumerate(owners)]
+                for k, slot in sorted(reads.items())]
 
     # -- one superstep ----------------------------------------------------
 
@@ -161,6 +183,23 @@ class PregelMaster:
                 out[s.device] = torch.cat([on_device(p, s.device) for p in parts])
         return out
 
+    def _remote_parts(self, new_states: List[torch.Tensor], halts: List[torch.Tensor]):
+        """Every shard's new states and halt votes, in shard order, when
+        other processes hold some: this process's shards packed as
+        ``[per, state_dim + 1]`` f32 (a halt is 0.0 or 1.0, exact) and sent
+        in one all-gather."""
+        sh = self.vertex_table.sharding
+        dev = self._shards[0].device
+        packed = {}
+        for s, st, h in zip(self._shards, new_states, halts):
+            p = torch.zeros((self._per, st.shape[1] + 1), dtype=torch.float32, device=dev)
+            p[:s.n, :-1] = on_device(st, dev)
+            p[:s.n, -1] = on_device(h, dev).to(torch.float32)
+            packed[s.k] = p
+        parts = gather_shards(sh, 0, packed)
+        rows = [p[:self._rows_of(k)] for k, p in enumerate(parts)]
+        return [r[:, :-1] for r in rows], [r[:, -1] > 0.5 for r in rows]
+
     def _superstep(self, varr, cur_msg, cur_has, nxt_msg, nxt_has, step: int):
         comp = self.comp
         identity = comp.msg_identity
@@ -174,10 +213,14 @@ class PregelMaster:
             new_state, halt = comp.compute_range(step, state, msg, has_msg, s.lo)
             new_states.append(new_state.to(torch.float32).contiguous())
             halts.append(halt)
-        all_states = self._all_gather(new_states)
-        all_halts = self._all_gather(halts)
+        if len(shards) < self.vertex_table.sharding.num_shards:
+            every_state, every_halt = self._remote_parts(new_states, halts)
+        else:
+            every_state, every_halt = new_states, halts
+        all_states = self._all_gather(every_state)
+        all_halts = self._all_gather(every_halt)
         flags = []
-        for s in shards:
+        for s, halt in zip(shards, halts):
             # active vertices send along their out-edges; halted ones send nothing
             edge_vals = comp.edge_message(step, gather_rows(all_states[s.device], s.src),
                                           s.weight)
@@ -193,7 +236,7 @@ class PregelMaster:
             nxt_has_msg = self._views(nxt_has, s, ())
             nxt_has_msg.zero_().scatter_reduce_(
                 0, s.dst64, edge_on.to(torch.float32), "amax", include_self=True)
-            flags.append(torch.stack([halts[s.k].all().to(torch.float32),
+            flags.append(torch.stack([halt.all().to(torch.float32),
                                       nxt_has_msg.sum()]))
         for s, new_state in zip(shards, new_states):
             self._views(varr, s, S).copy_(new_state)
@@ -206,9 +249,13 @@ class PregelMaster:
     def _combine(self, flags: List[torch.Tensor]) -> torch.Tensor:
         """(all halted, messages sent) over the shards, in shard order, on the
         first shard's device: the superstep's one host read."""
+        dev = self._shards[0].device
+        sh = self.vertex_table.sharding
+        if len(flags) < sh.num_shards:
+            flags = gather_shards(sh, 0, {s.k: on_device(f, dev)
+                                          for s, f in zip(self._shards, flags)})
         if len(flags) == 1:
             return flags[0]
-        dev = self._shards[0].device
         f = torch.stack([on_device(x, dev) for x in flags])
         return torch.stack([f[:, 0].min(), f[:, 1].sum()])
 
@@ -217,13 +264,14 @@ class PregelMaster:
         replicated over the mesh: its vertex count does not split into the
         slots' block runs)."""
         owners = {s.slot for s in self._shards}
+        owner_of = {s.k: s.slot for s in self._shards}
         for arr in arrs:
             if not isinstance(arr, ShardedArray):
                 continue
             sh = arr.sharding
             for slot, t in arr.shards.items():
                 if slot not in owners:
-                    src = arr.shards[self._shards[sh.shard_of(slot)].slot]
+                    src = arr.shards[owner_of[sh.shard_of(slot)]]
                     t.copy_(on_device(src, t.device))
 
     # -- the loop (SuperstepControlMsg flow) ------------------------------
@@ -234,17 +282,19 @@ class PregelMaster:
             cur, nxt = self._cur, 1 - self._cur
             tables = [self.vertex_table, self._msg_tables[cur], self._has_msg[cur],
                       self._msg_tables[nxt], self._has_msg[nxt]]
-            with self._tu("COMP"):
+            with self._turn(), self._tu("COMP"):
                 flags = DenseTable.apply_step_multi(tables, self._superstep, step)
             self.superstep_count = step + 1
             self._cur = nxt  # the table swap (MessageManager.swap)
             all_halted, num_msgs = flags.tolist()    # the superstep's one host read
             if all_halted and num_msgs == 0.0:
                 break
+        with self._turn():
+            values = self.vertex_values()
         return {
             "supersteps": self.superstep_count,
             "wall_sec": time.perf_counter() - t0,
-            "vertex_values": self.vertex_values(),
+            "vertex_values": values,
         }
 
     def vertex_values(self) -> np.ndarray:
@@ -252,6 +302,12 @@ class PregelMaster:
         mesh the shards are read in block order (the reference's
         ``_collect_values``)."""
         return self.vertex_table.pull_array().cpu().numpy()
+
+    def _turn(self):
+        """The job's pod unit (``dispatch_turn``), else a no-op."""
+        if self.dispatch_turn is None:
+            return contextlib.nullcontext()
+        return self.dispatch_turn()
 
     def _tu(self, kind: str):
         if self.taskunit is None:

@@ -53,15 +53,28 @@ def _mesh_over(slots: Sequence[Slot], data_axis: int) -> Mesh:
     appear on both axes as a factorization (each slot holds a model shard
     AND computes a data shard, the reference's servers == workers == all
     executors), never as duplicates. Pure model-parallel when the count does
-    not factor."""
+    not factor.
+
+    The slots may lie in several processes of a pod (every process builds
+    the same mesh over the global slots); a data axis > 1 there is refused,
+    since the split of a step over data rows in different processes waits
+    for ROADMAP A item 3b."""
     n = len(slots)
     if data_axis > 1 and n % data_axis == 0:
+        if len({s.process_index for s in slots}) > 1:
+            raise ValueError(
+                f"data_axis={data_axis} over slots of processes "
+                f"{sorted({s.process_index for s in slots})}: a data axis whose "
+                "rows lie in different processes waits for ROADMAP A item 3b")
         return build_mesh(slots, data=data_axis)
     return build_mesh(slots, data=1)
 
 
 class Executor:
-    """One slot (the reference's AllocatedExecutor)."""
+    """One slot (the reference's AllocatedExecutor). On a pod the executors
+    are made over the global slots, with ids in the same order in every
+    process (the reference's determinism contract), so an id names the same
+    slot everywhere; ``slot.process_index`` is the process that drives it."""
 
     def __init__(self, executor_id: str, slot: Slot) -> None:
         self.id = executor_id

@@ -34,8 +34,8 @@ reference (the pod's unit); :func:`migrate_blocks` plans by slot index. The fram
 byte for byte, torch's bfloat16 under the name ``"bfloat16"`` as the
 reference writes its extension dtypes, so a frame crosses the packages in
 both directions. The TCP and file transports, their retry policy and fault
-sites, and a move between processes wait for the multi-process pod (ROADMAP A
-item 3): :func:`migrate_blocks` on a mesh that spans processes raises.
+sites, and a move between processes wait for ROADMAP A item 3b:
+:func:`migrate_blocks` on a mesh that spans processes raises.
 """
 from __future__ import annotations
 
@@ -242,7 +242,7 @@ def migrate_blocks(storage, old_sharding, new_sharding):
     if mesh_spans_processes(old_sharding.mesh) or mesh_spans_processes(new_sharding.mesh):
         raise NotImplementedError(
             "a block move between processes needs the multi-process pod's "
-            "transports (ROADMAP A item 3)")
+            "transports (ROADMAP A item 3b)")
     with trace_span("blockmove.migrate") as sp:
         out = _migrate_in_process(storage, old_sharding, new_sharding)
         if sp is not None:

@@ -53,8 +53,13 @@ order), and every replica admits the same keys in the same order. A pull
 reads with K1 once on each shard of its data row, a push folds with K2 once
 on each slot; the slot placements and values are the one-slot table's, byte
 for byte. ``reshard`` moves the slot keys and the values together onto a new
-mesh (``table/blockmove.py``), so every key keeps its slot. ``addressable_blocks``
-is the multi-process pod's and waits for it (ROADMAP A item 3).
+mesh (``table/blockmove.py``), so every key keeps its slot.
+
+Over the processes of a pod each process admits, reads and folds on its own
+shards only (the probe loop runs there), and a pull's tokens and rows of the
+other shards come from an all-gather, picked by shard as the dense table's
+are (``table.combine_owned``). ``addressable_blocks`` serves the pod's
+checkpoint and waits for it (ROADMAP A item 3b).
 """
 from __future__ import annotations
 
@@ -74,6 +79,7 @@ from harmony_tpu_torch.table.table import (
     ShardedArray,
     StreamOrder,
     _import_part,
+    combine_owned,
     _sharding_of,
     _snapshot_part,
     block_sharding,
@@ -361,7 +367,7 @@ class HashTableSpec:
         sh, dev = state.sharding, state.device
         block = self._route(keys)[0]
         shard = torch.div(block, sh.blocks_per_shard, rounding_mode="floor")
-        row0 = {s: k for k, s in enumerate(sh.row_slots(0))}
+        row0 = {s: k for k, s in sh.read_slots(0).items()}
         slot = torch.zeros_like(block)
         ok = torch.zeros_like(keys, dtype=torch.bool)
         moved: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
@@ -376,6 +382,9 @@ class HashTableSpec:
                     mine = shard == k
                     slot = torch.where(mine, on_device(slot_k, dev), slot)
                     ok = torch.where(mine, on_device(ok_k, dev), ok)
+            if len(row0) < sh.num_shards:
+                both = combine_owned(sh, 0, shard, torch.stack([slot, ok.to(slot.dtype)], 1))
+                slot, ok = both[:, 0].contiguous(), both[:, 1] != 0
         return block, slot, ok
 
     def lookup(self, state: State, keys: torch.Tensor) -> torch.Tensor:
@@ -388,12 +397,17 @@ class HashTableSpec:
             sh, dev = state.sharding, state.device
             found, got = None, None
             with dispatch_scope(sh.mesh):
-                for k, (sk, v) in enumerate(state.read_shards()):
+                for k, (sk, v) in state.local_reads():
                     f_k, g_k = self._lookup_in(sk, v, on_device(keys, sk.device),
                                                k * sh.blocks_per_shard)
                     f_k, g_k = on_device(f_k, dev), on_device(g_k, dev)
                     found = f_k if found is None else found | f_k
                     got = g_k if got is None else torch.where(f_k[:, None], g_k, got)
+                if len(sh.read_slots(state.row)) < sh.num_shards:
+                    shard = torch.div(self._route(keys)[0].to(dev), sh.blocks_per_shard,
+                                      rounding_mode="floor")
+                    found = combine_owned(sh, state.row, shard, found)
+                    got = combine_owned(sh, state.row, shard, got)
         else:
             found, got = self._lookup_in(state[0], state[1], keys, 0)
         init_v = self._init_values(keys).reshape(n, self.width)
@@ -444,11 +458,14 @@ class HashTableSpec:
             bps = sh.blocks_per_shard
             vals = None
             with dispatch_scope(sh.mesh):
-                for k, (_, v) in enumerate(state.read_shards()):
+                for k, (_, v) in state.local_reads():
                     inside, blk = self._in_shard(block, k * bps, v.shape[0])
                     lin = self._lin(blk, slot).to(torch.int32)
                     got = on_device(gather_rows(self._flat(v), on_device(lin, v.device)), dev)
                     vals = got if vals is None else torch.where(inside[:, None], got, vals)
+                if len(sh.read_slots(state.row)) < sh.num_shards:
+                    shard = torch.div(block, bps, rounding_mode="floor")
+                    vals = combine_owned(sh, state.row, shard, vals)
         else:
             vals = gather_rows(self._flat(state[1]), self._lin(block, slot).to(torch.int32))
         vals = torch.where(ok[:, None], vals, init_v.reshape(n, self.width))
@@ -810,5 +827,5 @@ class DeviceHashTable(StreamOrder, LayoutAnnouncerMixin):
 
     def addressable_blocks(self, *args, **kwargs):
         raise NotImplementedError(
-            "DeviceHashTable.addressable_blocks is the multi-process pod's "
-            "(ROADMAP A item 3)")
+            "DeviceHashTable.addressable_blocks serves the pod's checkpoint, "
+            "which waits for ROADMAP A item 3b")

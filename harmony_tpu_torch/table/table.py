@@ -35,6 +35,16 @@ The checkpoint path's per-block I/O (``snapshot_blocks``, ``export_blocks``,
 ``import_blocks``) works on whole blocks, the storage's first dimension; a
 snapshot is a device COPY, since steps update the storage in place.
 
+On a mesh that spans the processes of a pod (``parallel/multihost.py``, data
+axis 1) a :class:`ShardedArray` holds only this process's shards, and every
+process runs a step's compute on its own first slot from the same rows and
+the same batch (the reference's GSPMD layout: the batch replicated over the
+model axis). A pull runs K1 once for each local shard, then takes the rows
+of the other shards from an all-gather of the processes' partial results,
+picked by ``where`` in shard order (never summed: ``-0.0 + 0.0`` is
+``+0.0``); a push folds only the local shards' keys, from the replicated
+deltas. The pull's all-gather is a step's one cross-process transfer.
+
 The keyed pull goes through ``gather_rows`` (K1); the keyed push's duplicate
 fold through ``weighted_histogram``/``segment_sum`` (K3, ``via="mxu"``) or
 ``segment_sum_rows`` (K2, ``via="sparse"``). On the card these are the
@@ -52,7 +62,16 @@ import torch
 from harmony_tpu_torch.config.params import TableConfig
 from harmony_tpu_torch.ops.histogram import segment_sum
 from harmony_tpu_torch.parallel.dispatch import dispatch_scope
-from harmony_tpu_torch.parallel.mesh import MODEL_AXIS, Mesh, Slot, as_slots, build_mesh
+from harmony_tpu_torch.parallel.collectives import process_all_gather
+from harmony_tpu_torch.parallel.mesh import (
+    MODEL_AXIS,
+    Mesh,
+    Slot,
+    as_slots,
+    build_mesh,
+    is_local,
+    this_process,
+)
 from harmony_tpu_torch.ops.sparse import gather_rows, segment_sum_rows, value_width
 from harmony_tpu_torch.table.partition import (
     BlockPartitioner,
@@ -148,7 +167,7 @@ class StreamOrder:
         write's stream on each card."""
         self._data_version = 0
         self._cards = list(dict.fromkeys(
-            s.device for s in self.mesh.slots if s.device.type == "cuda"))
+            s.device for s in self.mesh.slots if s.device.type == "cuda" and is_local(s)))
         self._write_stream: Dict[torch.device, "torch.cuda.Stream"] = {
             d: torch.cuda.current_stream(d) for d in self._cards}
         self._read_events: Dict[torch.device, Dict] = {d: {} for d in self._cards}
@@ -201,7 +220,7 @@ class StreamOrder:
         new layout, and the reshard's copies, enqueued on each card's current
         stream, are every card's last write."""
         self._cards = list(dict.fromkeys(
-            s.device for s in self.mesh.slots if s.device.type == "cuda"))
+            s.device for s in self.mesh.slots if s.device.type == "cuda" and is_local(s)))
         self._write_stream = {d: torch.cuda.current_stream(d) for d in self._cards}
         self._read_events = {d: {} for d in self._cards}
         self._write_event = {}
@@ -297,7 +316,11 @@ class BlockSharding:
 
     Data row ``r`` (the mesh's first axis) reads the shards of
     :meth:`row_slots`, and computes on :meth:`compute_slot`; a write goes to
-    every slot, every replica with the same bits."""
+    every slot, every replica with the same bits.
+
+    On a mesh over several processes (data axis 1) a process reads each
+    shard it holds on its own slot (:meth:`read_slots`), computes on its own
+    first slot, and takes the other shards from their :meth:`provider`."""
 
     def __init__(self, mesh: Mesh, num_blocks: int) -> None:
         model = mesh.shape.get(MODEL_AXIS, 1)
@@ -310,6 +333,15 @@ class BlockSharding:
         coords = np.indices(mesh.devices.shape)[-1] if sharded else np.zeros(
             mesh.devices.shape, dtype=np.int64)
         self._shard = {slot: int(m) for slot, m in zip(mesh.devices.flat, coords.flat)}
+        self.processes = mesh.processes
+        self.spans_processes = len(self.processes) > 1
+        if self.spans_processes and mesh.devices.shape[0] > 1:
+            raise ValueError(
+                f"a data axis of {mesh.devices.shape[0]} over the processes "
+                f"{list(self.processes)} waits for the pod's data-row split "
+                "(ROADMAP A item 3b)")
+        self._reads: Dict[Tuple[int, int], Dict[int, Slot]] = {}
+        self._compute: Dict[Tuple[int, int], Slot] = {}
 
     @property
     def data_rows(self) -> int:
@@ -343,8 +375,33 @@ class BlockSharding:
         return list(row) if self.num_shards > 1 else [row[0]]
 
     def compute_slot(self, r: int = 0) -> Slot:
-        """Where data row ``r`` computes: its first slot."""
-        return self.mesh.devices[r].flat[0]
+        """Where data row ``r`` computes: its first slot of this process."""
+        key = (r, this_process())
+        hit = self._compute.get(key)
+        if hit is None:
+            row = list(self.mesh.devices[r].flat)
+            hit = self._compute[key] = next((s for s in row if is_local(s)), row[0])
+        return hit
+
+    def read_slots(self, r: int = 0) -> Dict[int, Slot]:
+        """Shard -> the slot of this process on which data row ``r`` reads it,
+        for each shard this process holds (every shard, on one process)."""
+        key = (r, this_process())
+        hit = self._reads.get(key)
+        if hit is None:
+            row = list(self.mesh.devices[r].flat)
+            hit = {}
+            for k, s in enumerate(self.row_slots(r)):
+                held = s if is_local(s) else next(
+                    (x for x in row if is_local(x) and self._shard[x] == k), None)
+                if held is not None:
+                    hit[k] = held
+            self._reads[key] = hit
+        return hit
+
+    def provider(self, k: int, r: int = 0) -> int:
+        """The process whose rows of shard ``k`` every other process takes."""
+        return self.row_slots(r)[k].process_index
 
     def __eq__(self, other) -> bool:
         return (isinstance(other, BlockSharding) and self.mesh == other.mesh
@@ -387,9 +444,10 @@ class ShardedArray:
         """The same storage, read by data row ``r``."""
         return ShardedArray(self.sharding, self.shards, r)
 
-    def read_shards(self) -> list:
-        """The row's shards, in shard order."""
-        return [self.shards[s] for s in self.sharding.row_slots(self.row)]
+    def local_reads(self) -> List[Tuple[int, object]]:
+        """(shard, storage) for each shard the row reads in this process, in
+        shard order (every shard, on one process)."""
+        return [(k, self.shards[s]) for k, s in sorted(self.sharding.read_slots(self.row).items())]
 
     def clone(self) -> "ShardedArray":
         return ShardedArray(self.sharding, {
@@ -401,7 +459,7 @@ class ShardedArray:
         """Shards copied out of whole block-major storage (one part, or a
         hash table's (slot_keys, values)): each slot gets its own copy."""
         shards = {}
-        for slot in sharding.mesh.slots:
+        for slot in filter(is_local, sharding.mesh.slots):
             b = sharding.slot_blocks(slot)
             pieces = tuple(p[b.start:b.stop].to(slot.device, copy=True).contiguous()
                            for p in parts)
@@ -410,10 +468,54 @@ class ShardedArray:
 
     def whole(self, part: Optional[int] = None) -> torch.Tensor:
         """The row's shards joined into whole block-major storage on
-        ``device`` (a copy); ``part`` picks one tensor of a pair."""
+        ``device`` (a copy); ``part`` picks one tensor of a pair. Over
+        several processes the other processes' shards come by all-gather."""
         dev = self.device
-        pieces = [on_device(t if part is None else t[part], dev) for t in self.read_shards()]
+        pieces = gather_shards(self.sharding, self.row, {
+            k: on_device(t if part is None else t[part], dev) for k, t in self.local_reads()})
         return pieces[0].clone() if len(pieces) == 1 else torch.cat(pieces)
+
+
+def combine_owned(sharding: BlockSharding, row: int, m: torch.Tensor,
+                  partial: torch.Tensor) -> torch.Tensor:
+    """Rows of ``partial`` (one for each entry of ``m``, the shard each
+    belongs to) read in this process; those of shards this process does not
+    hold come from their provider's partial result, by an all-gather over
+    the mesh's processes, picked by ``where`` in shard order. Nothing is
+    summed, so the rows keep their bits (a -0.0 stays -0.0)."""
+    mine = sharding.read_slots(row)
+    if len(mine) == sharding.num_shards:
+        return partial
+    procs = list(sharding.processes)
+    parts = process_all_gather(partial, procs)
+    out = partial
+    for k in range(sharding.num_shards):
+        if k not in mine:
+            sel = (m == k).reshape(m.shape + (1,) * (partial.dim() - m.dim()))
+            out = torch.where(sel, parts[procs.index(sharding.provider(k, row))], out)
+    return out
+
+
+def gather_shards(sharding: BlockSharding, row: int,
+                  local: Dict[int, torch.Tensor]) -> List[torch.Tensor]:
+    """Every shard's tensor in shard order: ``local`` (this process's, all of
+    one shape) and, over several processes, the others' from an all-gather
+    in which each process sends the shards it provides."""
+    if len(local) == sharding.num_shards:
+        return [local[k] for k in range(sharding.num_shards)]
+    procs = list(sharding.processes)
+    provided = {p: [k for k in range(sharding.num_shards) if sharding.provider(k, row) == p]
+                for p in procs}
+    width = max(len(v) for v in provided.values())
+    like = next(iter(local.values()))
+    mine = [local[k] for k in provided[this_process()]]
+    payload = torch.stack(mine + [torch.zeros_like(like)] * (width - len(mine)))
+    parts = process_all_gather(payload, procs)
+    out = []
+    for k in range(sharding.num_shards):
+        p = sharding.provider(k, row)
+        out.append(local[k] if k in local else parts[procs.index(p)][provided[p].index(k)])
+    return out
 
 
 def reshard_array(storage, old_sharding: BlockSharding, new_sharding: BlockSharding):
@@ -423,7 +525,7 @@ def reshard_array(storage, old_sharding: BlockSharding, new_sharding: BlockShard
 
       * the same sharding: the storage itself;
       * a mesh that spans processes: ``blockmove.migrate_blocks`` refuses it
-        (the pod's transports, ROADMAP A item 3);
+        (the pod's transports, ROADMAP A item 3b);
       * else the in-process block move, ``blockmove.migrate_blocks``."""
     from harmony_tpu_torch.table.blockmove import migrate_blocks
 
@@ -674,11 +776,11 @@ class TableSpec:
         m, local = self._shard_rows(flat, sh)
         out = None
         with dispatch_scope(sh.mesh):
-            for k, t in enumerate(arr.read_shards()):
+            for k, t in arr.local_reads():
                 idx = flat if sh.num_shards == 1 else torch.where(m == k, local, 0)
                 rows = on_device(gather_rows(t.view(per, W), on_device(idx, t.device)), dev)
                 out = rows if out is None else torch.where((m == k)[:, None], rows, out)
-        return out
+            return combine_owned(sh, arr.row, m, out)
 
     def _push_sharded(self, arr: ShardedArray, b: torch.Tensor, o: torch.Tensor,
                       deltas: torch.Tensor, via: str) -> None:
@@ -762,10 +864,15 @@ class TableSpec:
         per, W = self._rows_per_shard(sh), value_width(self.value_shape)
         out = torch.empty((self.config.capacity, W), dtype=self.dtype, device=dev)
         with dispatch_scope(sh.mesh):
-            for k, t in enumerate(arr.read_shards()):
+            for k, t in arr.local_reads():
                 pos, _ = self._key_routes(sh, dev)[k]
                 _, local = self._key_routes(sh, t.device)[k]
                 out[pos] = on_device(gather_rows(t.view(per, W), local), dev)
+            if len(sh.read_slots(arr.row)) < sh.num_shards:
+                m = torch.empty(self.config.capacity, dtype=torch.int64, device=dev)
+                for k, (pos, _) in enumerate(self._key_routes(sh, dev)):
+                    m[pos] = k
+                out = combine_owned(sh, arr.row, m, out)
         return out.reshape(self.config.capacity, *self.value_shape)
 
     def _push_all_sharded(self, arr: ShardedArray, deltas: torch.Tensor) -> ShardedArray:
@@ -817,7 +924,8 @@ def _snapshot_part(storage, ids: Sequence[int], whole: bool,
         return storage.clone() if whole else torch.stack([storage[b] for b in ids])
     if whole:
         return storage.whole(part)
-    shards = [t if part is None else t[part] for t in storage.read_shards()]
+    shards = gather_shards(storage.sharding, storage.row, {
+        k: t if part is None else t[part] for k, t in storage.local_reads()})
     bps = storage.sharding.blocks_per_shard
     return torch.stack([on_device(shards[b // bps][b % bps], storage.device) for b in ids])
 

@@ -127,7 +127,10 @@ def test_port_imports_neither_jax_nor_harmony_tpu():
                    "optimizer/compiler.py", "optimizer/homogeneous.py",
                    "optimizer/hetero.py", "optimizer/sample.py",
                    "optimizer/orchestrator.py", "metrics/collector.py",
-                   "metrics/manager.py", "table/blockmove.py", "dolphin/rows.py"):
+                   "metrics/manager.py", "table/blockmove.py", "dolphin/rows.py",
+                   # the pod: its runtime, control plane and the unit protocol
+                   "parallel/multihost.py", "parallel/collectives.py", "jobserver/pod.py",
+                   "runtime/podunits.py", "jobserver/podplan.py"):
         assert PORT / module in files
     for path in files:
         for mod in _imports(path):
@@ -147,7 +150,9 @@ def test_importing_the_port_loads_no_jax():
             "harmony_tpu_torch.jobserver.client", "harmony_tpu_torch.jobserver.overload",
             "harmony_tpu_torch.utils.framing", "harmony_tpu_torch.faults.partition",
             "harmony_tpu_torch.data.parsers", "harmony_tpu_torch.data.splits",
-            "harmony_tpu_torch.data.storer"} <= set(modules)
+            "harmony_tpu_torch.data.storer", "harmony_tpu_torch.parallel.multihost",
+            "harmony_tpu_torch.jobserver.pod", "harmony_tpu_torch.runtime.podunits",
+            "harmony_tpu_torch.jobserver.podplan"} <= set(modules)
     code = ("import sys\n"
             f"for m in {modules!r}: __import__(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'harmony_tpu'))\n"

@@ -27,7 +27,9 @@ from harmony_tpu_torch import bench, cli
 from harmony_tpu_torch.apps import mlr, nmf
 from harmony_tpu_torch.config.params import JobConfig, TableConfig, TrainerParams
 from harmony_tpu_torch.jobserver.scheduler import (
+    CarveScheduler,
     FifoExclusiveScheduler,
+    ProcessCarveScheduler,
     ShareAllScheduler,
     make_scheduler,
 )
@@ -262,8 +264,48 @@ def test_server_lifecycle_and_scheduler_names():
         server.submit(_config("mlr"))
     assert isinstance(make_scheduler("share_all"), ShareAllScheduler)
     assert isinstance(make_scheduler("fifo"), FifoExclusiveScheduler)
+    # the carve schedulers came with the pod; the reference's names, nothing more
+    assert type(make_scheduler("carve")) is CarveScheduler
+    assert type(make_scheduler("pod_carve")) is ProcessCarveScheduler
     with pytest.raises(KeyError, match="unknown scheduler"):
-        make_scheduler("carve")
+        make_scheduler("pod_carve:1")
+
+
+CARVE_SCRIPTS = {
+    "carve": (dict(), ["a", "b", "c", "-a", "d", "-b", "-c", "-d"]),
+    "carve-capped": (dict(max_share=2), ["a", "b", "c", "-b", "d", "-a", "-c"]),
+    "pod_carve": (dict(), ["a", "b", "-a", "c", "d", "-b", "-c"]),
+    "pod_carve-1": (dict(max_procs=1), ["a", "b", "c", "-a", "-b", "d", "-c", "-d"]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CARVE_SCRIPTS))
+def test_carve_schedulers_slice_as_the_references(name):
+    """The same arrivals and finishes through the reference's carve
+    schedulers and the port's: the same launches, slices and queue."""
+    from harmony_tpu.config.params import JobConfig as JaxJobConfig
+    from harmony_tpu.jobserver import scheduler as ref
+
+    kwargs, script = CARVE_SCRIPTS[name]
+    execs = [f"executor-{i}" for i in range(6)]
+    runs = []
+    for mod, cfg in ((ref, JaxJobConfig), (None, JobConfig)):
+        cls = {"carve": CarveScheduler, "pod_carve": ProcessCarveScheduler}[name.split("-")[0]]
+        if mod is not None:
+            cls = getattr(mod, cls.__name__)
+        sched, launched = cls(**kwargs), []
+        sched.bind(list(execs), lambda c, ex: launched.append((c.job_id, list(ex))))
+        if name.startswith("pod_carve"):
+            sched.set_process_map({e: i // 2 for i, e in enumerate(execs)})  # 3 processes
+        for step in script:
+            if step.startswith("-"):
+                sched.on_job_finish(step[1:])
+            else:
+                sched.on_job_arrival(cfg(job_id=step, app_type="dolphin"))
+        runs.append((launched, {j: sched.slice_of(j) for j in "abcd"},
+                     sorted(c.job_id for c in sched.queued_jobs()), sched.idle_executors()))
+    assert runs[0] == runs[1]
+    assert runs[1][0], "nothing launched"
 
 
 def test_the_card_is_the_default_pool():
