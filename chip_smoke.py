@@ -336,6 +336,38 @@ As each phase ends a ``phase <name>: <s> s`` line gives its host seconds
    tail of their logs. Its ``pod:`` line holds the numbers; ``python3
    chip_smoke.py --phase 3y`` runs the build, the one-slot runs it is held
    to and this phase alone.
+3z. Tables that move between the pod's processes, on a pod of two slots a
+   process (two processes sharing cuda:0 over gloo, four slots; on four or
+   more cards four processes over NCCL, two slots of its own card each).
+   (a) bench-widedeep over MOVE_EPOCHS epochs, unmoved, then moved by four
+   ``cli pod-reshard`` plans (run in this process), tier-1's: at epoch 9 the
+   last executor drains onto executor-0, at 11 a block grows back onto it,
+   at 13 it drains again, and a drain of the second last executor at 13,
+   which would leave the last process owning nothing, is skipped. The first
+   three change the table's owners, so blocks cross processes mid-training.
+   Every process's batch losses are the unmoved run's and the one-slot run's
+   bits, each applies and records the plans alike, its side of each
+   exchange (``plan_moves``: blocks and bytes sent and received) is what
+   the two layouts give, and K1 and K3 launch once to twice a step (one or
+   two local shards) plus the probe's. The moved job sleeps
+   MOVE_START_LAG_S on the host before its first epoch, so the plans reach
+   it at epoch 0 (the smallest legal plan epoch is 9). (b) The same for
+   bench-fm-hash (its DeviceHashTable; K1 and K2). (c) bench-widedeep's
+   table (256 blocks of 399 x 17 f32) in fresh processes of a slot each:
+   drained onto process 0's executor and grown back over every process,
+   over tcp and then over files; each process's shards are the one-slot
+   table's bytes (SHA-256) after each move, and its wire bytes its moved
+   blocks times ``block_nbytes``. (d) A move-once optimizer of this
+   script's own (``MoveOncePodOptimizer``) through the pod's plan channel on
+   bench-widedeep over OPT_EPOCHS epochs: it drains the last executor,
+   ``reconfigs`` 1, one plan applied in every process with the bytes it
+   moved, the unmoved and one-slot bits. (e) A move's cost from (c): host
+   ms, the transport's seconds, bytes and MB/s by leg, the copies' host
+   seconds and device ms; (a)'s moves in training by process (seconds,
+   bytes); and (a)'s step ms before and after the first plan beside 3y's
+   warm step. Its ``pod moves:`` line holds the numbers; ``python3
+   chip_smoke.py --phase 3z`` runs the build, its one-slot runs and this
+   phase alone.
 4. The sparse push route (``HARMONY_PUSH_VIA=sparse``): the Wide&Deep job
    of phase 3, which folds its pushes with K2.
 5. Where a step's time goes: a steady epoch of the Wide&Deep job on the host
@@ -366,7 +398,9 @@ As each phase ends a ``phase <name>: <s> s`` line gives its host seconds
    (a)-(c), 3 steps each; elastic: phase 3w (a)-(c) on the card, the moved
    jobs and the reader; pregel-sharded and dp-local: phase 3x (a) and the
    first data-axis run of each job of (b); pod: phase 3y (a), (b) and (d),
-   summed over the processes, each process's counts read around its job);
+   summed over the processes, each process's counts read around its job;
+   pod-moves: phase 3z's pod jobs, (a), (b) and (d) moved and unmoved, read
+   the same way);
    K1-K3
    also carry ``device_ms``, ``library_device_ms``,
    ``library_deterministic_device_ms``, ``host_us`` and their timing at
@@ -427,8 +461,12 @@ N_EXAMPLES = 32768
 # up to PROFILE_ATTEMPTS times in all, each retake printed, and then the run
 # fails. PROFILE_LOG counts, over the run, the markers each kept profile
 # lost, and the retakes. Losses come in runs: a full run has lost 4 profiles
-# of one call in a row (three with no record at all), so 8 attempts.
-PROFILE_MARKERS = 64
+# of one call in a row (three with no record at all), so 8 attempts. Full
+# runs have lost all 64 leading markers in 8 profiles in a row, and kept a
+# profile whose ends were markers with no record between them: so 256
+# markers, and device_kernels takes a profile again when its records are not
+# whole calls.
+PROFILE_MARKERS = 256
 PROFILE_ATTEMPTS = 8
 MARKER_KERNEL = "spin_kernel"   # torch.cuda._sleep's kernel
 PROFILE_LOG = {"markers_lost": {}, "retakes": 0}
@@ -599,14 +637,18 @@ def device_kernels(fn, calls: int = 100) -> dict:
         for _ in range(calls):
             fn()
 
-    _, events = profiled(run)
-    by_name, count = {}, {}
-    for e in events:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3 / calls
-        count[e.name] = count.get(e.name, 0) + 1
-    check(by_name and all(n % calls == 0 for n in count.values()),
-          f"the profiler's record counts {count} over {calls} calls: records lost")
-    return by_name
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        _, events = profiled(run)
+        by_name, count = {}, {}
+        for e in events:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3 / calls
+            count[e.name] = count.get(e.name, 0) + 1
+        if by_name and all(n % calls == 0 for n in count.values()):
+            return by_name
+        PROFILE_LOG["retakes"] += 1
+        print(f"chip_smoke: profile {attempt} of {PROFILE_ATTEMPTS} lost records between its "
+              f"markers: counts {count} over {calls} calls", file=sys.stderr, flush=True)
+    fail(f"the profiler's record counts {count} over {calls} calls: records lost")
 
 
 def device_ms(fn, calls: int = 100) -> float:
@@ -6461,14 +6503,15 @@ def free_port() -> int:
 class ChipPod:
     """``python -m harmony_tpu_torch.cli start-pod`` in ``n`` processes: one a
     card (``CUDA_VISIBLE_DEVICES``, NCCL) when ``own_cards``, else all on
-    cuda:0 (gloo), each logging into a temporary directory. Killed in
-    ``close`` whatever happened."""
+    cuda:0 (gloo), each logging into a temporary directory; ``slots`` slots
+    of its card a process. Killed in ``close`` whatever happened."""
 
-    def __init__(self, n: int, own_cards: bool) -> None:
+    def __init__(self, n: int, own_cards: bool, phase: str = "3y", slots: int = 1) -> None:
         import tempfile
 
         from harmony_tpu_torch.jobserver.client import CommandSender
 
+        self.phase = phase
         self.port, pod_port, store = free_port(), free_port(), free_port()
         self.procs, self.logs = [], []
         self.log_dir = tempfile.mkdtemp(prefix="harmony-pod-")
@@ -6482,7 +6525,7 @@ class ChipPod:
             self.logs.append(err)
             self.procs.append(subprocess.Popen(
                 [sys.executable, "-m", "harmony_tpu_torch.cli", "start-pod",
-                 "--device", "cuda" if own_cards else "cuda:0",
+                 "--device", ",".join(["cuda:0"] * slots),
                  "--coordinator", f"127.0.0.1:{store}", "--num-processes", str(n),
                  "--process-id", str(p), "--pod-port", str(pod_port), "--port", str(self.port)],
                 cwd=REPO, env=env, stdout=err, stderr=subprocess.STDOUT, text=True))
@@ -6496,7 +6539,8 @@ class ChipPod:
                 break
             dead = [p for p, proc in enumerate(self.procs) if proc.poll() is not None]
             check(not dead and time.monotonic() < deadline,
-                  f"phase 3y: the pod never became ready (exited: {dead}): {self.log(0)[-3000:]}")
+                  f"phase {phase}: the pod never became ready (exited: {dead}): "
+                  f"{self.log(0)[-3000:]}")
             time.sleep(0.5)
 
     def log(self, p: int) -> str:
@@ -6504,17 +6548,19 @@ class ChipPod:
         with open(os.path.join(self.log_dir, f"pod-process{p}.log")) as f:
             return f.read()
 
-    def run(self, *configs):
-        """Submit ``configs`` together, wait for each; returns {job id: {pid:
-        report}} and the leader's walls."""
+    def run(self, *configs, between=None):
+        """Submit ``configs`` together, call ``between()`` (if given), wait for
+        each; returns {job id: {pid: report}} and the leader's walls."""
         for cfg in configs:
             reply = self.sender.send_job_submit_command(cfg)
-            check(reply.get("ok"), f"phase 3y: submit {cfg.job_id}: {reply}")
+            check(reply.get("ok"), f"phase {self.phase}: submit {cfg.job_id}: {reply}")
+        if between is not None:
+            between()
         for cfg in configs:
             try:
                 self.sender.wait_result(cfg.job_id, timeout=POD_JOB_S, poll=5.0)
             except Exception as e:  # noqa: BLE001 - the phase fails
-                fail(f"phase 3y: {cfg.job_id} failed on the pod: {e}\n"
+                fail(f"phase {self.phase}: {cfg.job_id} failed on the pod: {e}\n"
                      + "\n".join(self.log(p)[-2000:] for p in range(len(self.procs))))
         ids = [c.job_id for c in configs]
         deadline = time.monotonic() + 60
@@ -6522,7 +6568,7 @@ class ChipPod:
             pod = self.sender.send_status_command()["pod"]
             if all(j in pod["reports"] for j in ids) and not set(ids) & set(pod["active"]):
                 return {j: pod["reports"][j] for j in ids}, pod
-            check(time.monotonic() < deadline, f"phase 3y: no reports for {ids}")
+            check(time.monotonic() < deadline, f"phase {self.phase}: no reports for {ids}")
             time.sleep(0.2)
 
     def close(self) -> None:
@@ -6543,13 +6589,13 @@ class ChipPod:
             shutil.rmtree(self.log_dir, ignore_errors=True)
 
 
-def pod_wd_config(job_id: str):
-    """bench-widedeep (phase 3's job: SLICE_ARGS, EPOCHS epochs) with one
-    worker, as a config to submit."""
+def pod_wd_config(job_id: str, epochs: int = EPOCHS):
+    """bench-widedeep (phase 3's job: SLICE_ARGS, EPOCHS epochs unless
+    given) with one worker, as a config to submit."""
     from harmony_tpu_torch import cli
 
     args = cli.build_parser().parse_args(
-        SLICE_ARGS + ["--epochs", str(EPOCHS), "--workers", "1", "--job-id", job_id])
+        SLICE_ARGS + ["--epochs", str(epochs), "--workers", "1", "--job-id", job_id])
     return cli.build_config("widedeep", args)
 
 
@@ -6797,6 +6843,516 @@ def run_pod(refs):
     return launches, out
 
 
+# -- phase 3z: tables that move between the pod's processes -------------------
+
+# bench-widedeep and bench-fm-hash over MOVE_EPOCHS epochs (a plan needs
+# EPOCH_WINDOW + 1 epochs of lead: the plans land at 9, 11, 13 and 13), and the
+# optimizer's run over OPT_EPOCHS. A moved job sleeps MOVE_START_LAG_S on the
+# host before its first epoch (in every process), so the plans, sent right
+# after the submit, reach it at observed epoch 0.
+MOVE_EPOCHS = 14
+OPT_EPOCHS = 32
+MOVE_START_LAG_S = 4.0
+MOVE_PLAN_EPOCHS = (9, 11, 13, 13)
+# slots a process of 3z's training pod: a drain of one executor changes the
+# table's owners while its process stays an owner
+MOVE_SLOTS = 2
+_POD_MOVE_SYMBOLS: dict = {}
+
+
+def _pod_move_symbols() -> dict:
+    """Phase 3z's trainers and optimizer, built at first use (importing this
+    script needs nothing of the repo): ``SlowStartWideDeepTrainer`` and
+    ``SlowStartFMTrainer`` (the apps' trainers with a host sleep of
+    ``start_lag_sec`` before the first epoch) and ``MoveOncePodOptimizer``
+    (the reference's ``tests/helpers.py:54-75`` in port form: one move-only
+    plan once worker metrics exist, here every block of the last executor
+    onto executor-0: the table's owners change, and on a pod of two slots a
+    process every process stays an owner)."""
+    if _POD_MOVE_SYMBOLS:
+        return _POD_MOVE_SYMBOLS
+    from harmony_tpu_torch.apps.widedeep import FMTrainer, WideDeepTrainer
+    from harmony_tpu_torch.optimizer.api import DolphinPlan, TransferStep
+
+    def slow_start(base):
+        class SlowStart(base):
+            def __init__(self, start_lag_sec: float = 0.0, **kw) -> None:
+                super().__init__(**kw)
+                self._start_lag_sec = start_lag_sec
+
+            def on_training_start(self, ctx, starting_epoch: int) -> None:
+                time.sleep(self._start_lag_sec)
+                super().on_training_start(ctx, starting_epoch)
+
+        return SlowStart
+
+    class MoveOncePodOptimizer:
+        def __init__(self) -> None:
+            self.fired = False
+
+        def optimize(self, params, num_available_evaluators):
+            if self.fired or not params.worker_metrics:
+                return DolphinPlan()
+            src = max(params.block_counts, key=lambda e: int(e.rsplit("-", 1)[1]))
+            n = params.block_counts.get(src, 0)
+            if not n:
+                return DolphinPlan()
+            self.fired = True
+            return DolphinPlan(transfer_steps=[TransferStep(params.table_id, src, "executor-0", n)])
+
+    _POD_MOVE_SYMBOLS.update(SlowStartWideDeepTrainer=slow_start(WideDeepTrainer),
+                             SlowStartFMTrainer=slow_start(FMTrainer),
+                             MoveOncePodOptimizer=MoveOncePodOptimizer)
+    return _POD_MOVE_SYMBOLS
+
+
+def __getattr__(name: str):
+    """``chip_smoke:SlowStartWideDeepTrainer`` and the others of
+    :func:`_pod_move_symbols`, as the pod's processes resolve them."""
+    if name in ("SlowStartWideDeepTrainer", "SlowStartFMTrainer", "MoveOncePodOptimizer"):
+        return _pod_move_symbols()[name]
+    raise AttributeError(name)
+
+
+def pod_move_config(kind: str, job_id: str, epochs: int, lag: float = 0.0):
+    """bench-widedeep (``kind`` "wd", mxu route) or bench-fm-hash ("fm") over
+    ``epochs``, one worker; with ``lag``, on the slow-start trainer."""
+    cfg = (pod_wd_config(job_id, epochs) if kind == "wd"
+           else hash_job("fm", epochs).replace(job_id=job_id))
+    if lag:
+        name = {"wd": "SlowStartWideDeepTrainer", "fm": "SlowStartFMTrainer"}[kind]
+        cfg = cfg.replace(trainer=f"chip_smoke:{name}", params=cfg.params.replace(
+            app_params={**cfg.params.app_params, "start_lag_sec": lag}))
+    return cfg
+
+
+def pod_move_one_slot_refs():
+    """Phase 3z's one-slot runs: bench-widedeep (mxu) over MOVE_EPOCHS and
+    OPT_EPOCHS, bench-fm-hash over MOVE_EPOCHS; batch losses."""
+    from harmony_tpu_torch.jobserver.server import JobServer
+    from harmony_tpu_torch.parallel.mesh import DevicePool
+
+    os.environ["HARMONY_PUSH_VIA"] = "mxu"
+    try:
+        wd = {e: run_cli(SLICE_ARGS + ["--epochs", str(e), "--num-executors", "1"])["batch_losses"]
+              for e in (MOVE_EPOCHS, OPT_EPOCHS)}
+    finally:
+        os.environ.pop("HARMONY_PUSH_VIA")
+    server = JobServer(1, device_pool=DevicePool([torch.device("cuda")]))
+    server.start()
+    try:
+        (fm,) = server.submit(hash_job("fm", MOVE_EPOCHS)).result(timeout=600)["workers"].values()
+    finally:
+        server.shutdown()
+    return {"wd": wd[MOVE_EPOCHS], "wd_opt": wd[OPT_EPOCHS], "fm": fm["batch_losses"]}
+
+
+def cli_pod_reshard(port: int, job: str, src: str, dst: str, blocks: int, epoch: int):
+    """``python -m harmony_tpu_torch.cli pod-reshard`` in this process: its
+    exit code and the reply it printed."""
+    from harmony_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["pod-reshard", "--port", str(port), "--job", job, "--src", src,
+                       "--dst", dst, "--blocks", str(blocks), "--epoch", str(epoch)])
+    return rc, json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+# Phase 3z (c): bench-widedeep's table (256 blocks of 399 x 17 f32) drains
+# onto process 0's executor and grows back over every process, over tcp and
+# then over files, in fresh processes joined as the pod's are. Each process
+# prints its shards' SHA-256 against the one-slot table's blocks, the move's
+# stats, its host seconds and its copies' device ms.
+POD_MOVE_SCRIPT = r"""
+import faulthandler, hashlib, json, os, sys, time, torch
+faulthandler.dump_traceback_later(240, exit=True)   # a wedged process shows where
+from harmony_tpu_torch.apps.widedeep import WideDeepTrainer
+from harmony_tpu_torch.parallel import multihost
+from harmony_tpu_torch.parallel.mesh import DevicePool, is_local
+from harmony_tpu_torch.runtime.master import ETMaster
+from harmony_tpu_torch.table import blockmove
+from harmony_tpu_torch.table.table import DenseTable, ShardedArray, TableSpec
+store, n, p, own = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4] == "1"
+multihost.initialize_distributed(store, n, p, devices=["cuda" if own else "cuda:0"])
+dev = multihost.local_devices()[0]
+cfg = WideDeepTrainer(vocab_size=100000, num_slots=16, emb_dim=16, hidden=128,
+                      step_size=0.1).model_table_config()
+values = torch.randn((cfg.capacity, 17), generator=torch.Generator().manual_seed(7))
+one = DenseTable(TableSpec(cfg), dev)
+one.write_all(values)
+ref = one.array
+
+
+def digest(t):
+    return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def shards(table):
+    st = table.array
+    if isinstance(st, ShardedArray):
+        return st.shards
+    (s,) = table.mesh.slots
+    return {s: st} if is_local(s) else {}
+
+
+def held(table):
+    # blocks this process holds, and whether every shard is the one-slot bytes
+    blocks, exact = [], True
+    for s, t in shards(table).items():
+        r = table.sharding.slot_blocks(s)
+        exact = exact and digest(t) == digest(ref[r.start:r.stop])
+        blocks += list(r)
+    return {"blocks": len(blocks), "exact": exact}
+
+
+def move(handle, owners):
+    torch.cuda.synchronize(dev)
+    multihost.sync_global_devices()
+    t0 = time.perf_counter()
+    handle.rebalance(owners)
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    st = dict(blockmove.last_move_stats)
+    st.update(blockmove.last_move_device_ms(), host_ms=host_ms)
+    st["held"] = held(handle.table)
+    return st
+
+
+master = ETMaster(DevicePool(multihost.global_slots()))
+execs = [e.id for e in master.add_executors(n)]
+out = {"process": p, "backend": multihost.backend(), "num_blocks": cfg.num_blocks,
+       "table_bytes": ref.numel() * 4}
+for transport in ("tcp", "file"):
+    os.environ["HARMONY_POD_BLOCKMOVE"] = transport
+    table = master.create_table(cfg.replace(table_id=f"bench-widedeep-{transport}"), execs)
+    table.write_all(values)
+    handle = master.table_handle(table.spec.table_id)
+    print(f"process {p}: {transport} table made", flush=True)
+    before = held(table)
+    drain = move(handle, execs[:1])
+    print(f"process {p}: {transport} drained", flush=True)
+    out[transport] = {"before": before, "drain": drain, "grow": move(handle, execs)}
+    print(f"process {p}: {transport} grown", flush=True)
+    master.drop_table(table.spec.table_id)
+multihost.sync_global_devices()
+multihost.shutdown_distributed()
+print("RESULT " + json.dumps(out), flush=True)
+"""
+
+
+def pod_moves_alone(n: int, own: bool):
+    """Phase 3z (c): POD_MOVE_SCRIPT in n fresh processes; their results."""
+    store = free_port()
+    procs = []
+    try:
+        for p in range(n):
+            env = dict(os.environ, OMP_NUM_THREADS="4", HARMONY_POD_UNIT_TIMEOUT="120")
+            if own:
+                env["CUDA_VISIBLE_DEVICES"] = str(p)
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", POD_MOVE_SCRIPT, f"127.0.0.1:{store}", str(n), str(p),
+                 "1" if own else "0"],
+                cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        texts = []
+        for p in procs:
+            try:
+                out, _ = p.communicate(timeout=300)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                out, _ = p.communicate()
+            texts.append(out)
+        outs = []
+        for p, (proc, out) in enumerate(zip(procs, texts)):
+            lines = [ln for ln in out.splitlines() if ln.startswith("RESULT ")]
+            check(proc.returncode == 0 and lines, "phase 3z (c): a process failed:\n" + "\n".join(
+                f"--- process {q}\n{t[-4000:]}" for q, t in enumerate(texts)))
+            outs.append(json.loads(lines[-1][len("RESULT "):]))
+        return outs
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+
+
+def check_table_moves(rows, n: int):
+    """Phase 3z (c)'s checks: every shard byte-exact after each move; the
+    drain leaves every block on process 0 and the grow 1/n of them on each;
+    each process's wire bytes are its moved blocks times block_nbytes, and
+    none sends or receives the whole table. Returns (e)'s cost by move."""
+    nb = rows[0]["num_blocks"]
+    cost = {}
+    for transport in ("tcp", "file"):
+        for move in ("drain", "grow"):
+            for r in rows:
+                st = r[transport][move]
+                p, bnb = r["process"], st["block_nbytes"]
+                held = st["held"]
+                check(held["exact"], f"phase 3z (c) {transport} {move}: process {p}'s shards "
+                                     "are not the one-slot table's bytes")
+                want_held = (nb if p == 0 else 0) if move == "drain" else nb // n
+                check(held["blocks"] == want_held,
+                      f"phase 3z (c) {transport} {move}: process {p} holds {held['blocks']} "
+                      f"blocks, not {want_held}")
+                # drain: each follower sends its nb/n; process 0 receives the
+                # rest. grow: the reverse
+                share = nb // n
+                sent = (0 if p == 0 else share) if move == "drain" else ((nb - share) if p == 0 else 0)
+                recv = ((nb - share) if p == 0 else 0) if move == "drain" else (0 if p == 0 else share)
+                check(st["transport"] == transport and st["blocks_sent"] == sent
+                      and st["blocks_received"] == recv
+                      and st["bytes_sent"] == sent * bnb and st["bytes_received"] == recv * bnb
+                      and st["bytes_sent"] + st["bytes_received"] == (sent + recv) * bnb
+                      and max(st["bytes_sent"], st["bytes_received"]) < r["table_bytes"],
+                      f"phase 3z (c) {transport} {move}: process {p}'s stats {st} are not the "
+                      f"plan's ({sent} blocks out, {recv} in)")
+            cost[f"{transport}_{move}"] = [{
+                "process": r["process"],
+                "host_ms": r[transport][move]["host_ms"],
+                "transport_s": r[transport][move]["exchange_s"],
+                "copy_off_host_s": r[transport][move]["copy_off_s"],
+                "copy_on_host_s": r[transport][move]["copy_on_s"],
+                "copy_off_device_ms": r[transport][move]["copy_off_ms"],
+                "copy_on_device_ms": r[transport][move]["copy_on_ms"],
+                "bytes_sent": r[transport][move]["bytes_sent"],
+                "bytes_received": r[transport][move]["bytes_received"],
+                "legs": [{**leg, "mb_per_s": leg["bytes"] / 1e6 / leg["seconds"]}
+                         for leg in r[transport][move]["legs"]],
+                "transport_retries": r[transport][move]["transport_retries"]} for r in rows]
+    return cost
+
+
+def exchange_by_process(before, after, nb: int, per: int):
+    """Blocks each process receives when a table's owners go from ``before``
+    to ``after`` (executor indices in mesh order, ``per`` a process): the
+    blocks its new slots hold that its old ones did not, under the even
+    layout (contiguous runs when the blocks divide over the owners, else
+    every owner holds every block)."""
+    def held(owners):
+        m, out = len(owners), {}
+        for i, e in enumerate(owners):
+            blocks = range(i * nb // m, (i + 1) * nb // m) if nb % m == 0 else range(nb)
+            out.setdefault(e // per, set()).update(blocks)
+        return out
+
+    old, new = held(before), held(after)
+    return {p: len(new.get(p, set()) - old.get(p, set())) for p in sorted(set(old) | set(new))}
+
+
+def check_plan_moves(rows, layouts, nb: int, what: str):
+    """Each process's side of each exchange (its ``plan_moves``, one for
+    each plan that changed the owners) against ``exchange_by_process`` of
+    ``layouts`` [(owners before, owners after), ...]: blocks received, the
+    wire bytes as blocks times ``block_nbytes``, and the sends summing to
+    the receives over the processes. The first move must cross processes."""
+    for row in rows:
+        check(len(row["plan_moves"]) == len(layouts),
+              f"phase 3z {what}: process {row['process']} moved {len(row['plan_moves'])} "
+              f"times, not {len(layouts)}: {row['plan_moves']}")
+    for k, (before, after) in enumerate(layouts):
+        want = exchange_by_process(before, after, nb, MOVE_SLOTS)
+        stats = [row["plan_moves"][k] for row in rows]
+        for p, st in enumerate(stats):
+            bnb = st["block_nbytes"]
+            check(st["transport"] == "tcp" and st["blocks_received"] == want.get(p, 0)
+                  and st["bytes_received"] == want.get(p, 0) * bnb
+                  and st["bytes_sent"] == st["blocks_sent"] * bnb,
+                  f"phase 3z {what}: move {k} ({len(before)} -> {len(after)} owners): process "
+                  f"{p}'s side {st} is not the layouts' ({want.get(p, 0)} blocks in)")
+        check(sum(st["blocks_sent"] for st in stats) == sum(want.values())
+              == stats[0]["total_moves"],
+              f"phase 3z {what}: move {k}: {[st['blocks_sent'] for st in stats]} blocks sent "
+              f"for {want} received")
+    check(sum(row["plan_moves"][0]["bytes_received"] for row in rows) > 0,
+          f"phase 3z {what}: the first move crossed no process")
+
+
+def run_pod_moves(warm_step_ms=None):
+    """Phase 3z: tables that move between the pod's processes (see the
+    module doc). ``warm_step_ms``: phase 3y's warm bench-widedeep step ms by
+    process, printed beside (e)'s, or None when 3z runs alone."""
+    from harmony_tpu_torch.apps.widedeep import FMTrainer, WideDeepTrainer
+    from harmony_tpu_torch.dolphin.worker import WorkerTasklet
+
+    t0 = time.perf_counter()
+    cards = torch.cuda.device_count()
+    own = cards >= 4
+    n = 4 if own else 2
+    execs = n * MOVE_SLOTS
+    refs = pod_move_one_slot_refs()
+    torch.cuda.empty_cache()
+    out = {"processes": n, "slots_a_process": MOVE_SLOTS, "cards": cards if own else 1,
+           "plan_epochs": list(MOVE_PLAN_EPOCHS)}
+    wd_blocks = WideDeepTrainer(vocab_size=100_000, num_slots=16, emb_dim=16,
+                                hidden=128).model_table_config().num_blocks
+    fm_blocks = FMTrainer(**FM_HASH_APP).model_table_config().num_blocks
+    launches = {name: 0 for name in ("gather_rows", "segment_sum_rows", "weighted_histogram",
+                                     "flash_forward", "flash_backward_dkv", "flash_backward_dq")}
+    calls = 1 + WorkerTasklet.PROBE_SAMPLES
+    every = list(range(execs))
+    # the owners around (a)'s three applied plans: the last executor drains,
+    # grows back and drains again (the fourth plan is skipped)
+    layouts = [(every, every[:-1]), (every[:-1], every), (every, every[:-1])]
+    pod = ChipPod(n, own, phase="3z", slots=MOVE_SLOTS)
+    try:
+        out["ready"] = pod.ready_line
+        out["backend"] = pod.backend.split(": ", 1)[-1]
+        print(f"phase 3z: {out['ready']}; {out['backend']}", flush=True)
+        last, second = f"executor-{execs - 1}", f"executor-{execs - 2}"
+
+        def each(reps, what):
+            check(sorted(reps) == [str(p) for p in range(n)] and all(r["ok"] for r in reps.values()),
+                  f"phase 3z {what}: reports {json.dumps(reps)[:3000]}")
+            return [reps[str(p)] for p in range(n)]
+
+        def job_checks(reps, what, want, kind, epochs, moved_run):
+            """Every process's batch losses ``want`` and its launches of K1
+            and K3 (wd) or K1 and K2 (fm): once a local shard a step plus the
+            probe's, so MOVE_SLOTS times that on the unmoved layout, and
+            between once and MOVE_SLOTS times that while the owners change
+            (a process then holds one or MOVE_SLOTS shards or replicas)."""
+            rows = []
+            for p, rep in enumerate(each(reps, what)):
+                (w,) = rep["workers"].values()
+                check(w["batch_losses"] == want,
+                      f"phase 3z {what}: process {p}'s losses are not the one-slot run's")
+                k = w["probes"] * calls
+                steps = epochs * BATCHES
+                fold = "weighted_histogram" if kind == "wd" else "segment_sum_rows"
+                one = {"gather_rows": steps + 2 * k, fold: steps + k}
+                got = {name: rep["launches"][name] for name in
+                       ("gather_rows", "segment_sum_rows", "weighted_histogram")}
+                if moved_run:
+                    ok = all(one[name] <= got[name] <= MOVE_SLOTS * one[name] for name in one)
+                    expect = f"between {one} and {MOVE_SLOTS} times it"
+                else:
+                    ok = all(got[name] == MOVE_SLOTS * one[name] for name in one)
+                    expect = f"{MOVE_SLOTS} times {one}"
+                ok = ok and all(v == 0 for name, v in got.items() if name not in one)
+                check(ok, f"phase 3z {what}: process {p} launched {got}, expected {expect}")
+                for name, v in rep["launches"].items():
+                    launches[name] += v
+                rows.append({"process": p, "launches": got, "epoch_seconds": w["epoch_seconds"],
+                             "applied_plans": rep.get("applied_plans", []),
+                             "plan_moves": rep.get("plan_moves", []),
+                             "combine": rep["combine"]})
+            return rows
+
+        def moved(kind, blocks):
+            """(a) or (b): the unmoved run, then the moved one with tier-1's
+            four POD_RESHARDs by ``cli pod-reshard``."""
+            what = "(a)" if kind == "wd" else "(b)"
+            want = refs[kind]
+            reps, _ = pod.run(pod_move_config(kind, f"pod-{kind}-unmoved", MOVE_EPOCHS))
+            unmoved = job_checks(reps[f"pod-{kind}-unmoved"], f"{what} unmoved", want, kind,
+                                 MOVE_EPOCHS, False)
+            jid = f"pod-{kind}-moved"
+            e1, e2, e3, e4 = MOVE_PLAN_EPOCHS
+            plans = [(last, "executor-0", 1 << 20, e1), ("executor-0", last, 1, e2),
+                     (last, "executor-0", 1 << 20, e3), (second, "executor-0", 1 << 20, e4)]
+            replies = []
+
+            def send_plans():
+                deadline = time.monotonic() + 60
+                for i, plan in enumerate(plans):
+                    while True:
+                        rc, reply = cli_pod_reshard(pod.port, jid, *plan)
+                        if rc == 0 or i or "unknown" not in reply.get("error", ""):
+                            break
+                        check(time.monotonic() < deadline, f"phase 3z {what}: {jid} never dispatched")
+                        time.sleep(0.02)
+                    check(rc == 0 and reply.get("ok"), f"phase 3z {what}: pod-reshard {plan}: {reply}")
+                    replies.append(reply)
+
+            reps, _ = pod.run(pod_move_config(kind, jid, MOVE_EPOCHS, MOVE_START_LAG_S),
+                              between=send_plans)
+            rows = job_checks(reps[jid], what, want, kind, MOVE_EPOCHS, True)
+            # the even split gives the last executor blocks // execs blocks
+            expect = [{"epoch": e1, "src": last, "dst": "executor-0",
+                       "moved": blocks // execs, "owners_after": execs - 1},
+                      {"epoch": e2, "src": "executor-0", "dst": last,
+                       "moved": 1, "owners_after": execs},
+                      {"epoch": e3, "src": last, "dst": "executor-0",
+                       "moved": 1, "owners_after": execs - 1},
+                      {"epoch": e4, "src": second, "dst": "executor-0",
+                       "moved": 0, "owners_after": execs - 1,
+                       "skipped": "process-set change mid-training"}]
+            for row in rows:
+                check(row["applied_plans"] == expect,
+                      f"phase 3z {what}: process {row['process']} applied {row['applied_plans']}, "
+                      f"expected {expect}")
+            check_plan_moves(rows, layouts, blocks, what)
+            for u, m in zip(unmoved, rows):
+                check(u["epoch_seconds"] and m["epoch_seconds"], f"phase 3z {what}: no epochs")
+
+            def step_ms(row, lo, hi):
+                secs = row["epoch_seconds"][lo:hi]
+                return 1e3 * sum(secs) / len(secs) / BATCHES
+
+            return {"applied_plans": expect, "replies": replies,
+                    "by_process": [{"process": r["process"], "launches": r["launches"],
+                                    "step_ms_before_first_plan": step_ms(r, 1, e1),
+                                    "step_ms_after_first_plan": step_ms(r, e1 + 1, MOVE_EPOCHS),
+                                    "unmoved_step_ms": step_ms(u, 1, MOVE_EPOCHS),
+                                    "plan_moves": r["plan_moves"],
+                                    "combine": r["combine"]} for u, r in zip(unmoved, rows)]}
+
+        # (a) bench-widedeep and (b) bench-fm-hash, moved mid-training
+        out["widedeep"] = moved("wd", wd_blocks)
+        print(f"phase 3z (a): bench-widedeep's plans applied alike, blocks across processes, "
+              f"the one-slot bits: {json.dumps(out['widedeep'])}", flush=True)
+        out["fm_hash"] = moved("fm", fm_blocks)
+        print(f"phase 3z (b): bench-fm-hash's plans applied alike, blocks across processes, "
+              f"the one-slot bits: {json.dumps(out['fm_hash'])}", flush=True)
+
+        # (d) the optimizer loop through the pod's plan channel
+        reps, _ = pod.run(pod_move_config("wd", "pod-wd-opt-unmoved", OPT_EPOCHS))
+        job_checks(reps["pod-wd-opt-unmoved"], "(d) unmoved", refs["wd_opt"], "wd", OPT_EPOCHS,
+                   False)
+        opt = pod_move_config("wd", "pod-wd-opt", OPT_EPOCHS).replace(
+            optimizer="chip_smoke:MoveOncePodOptimizer", optimizer_period=0.2)
+        reps, _ = pod.run(opt)
+        rows = job_checks(reps["pod-wd-opt"], "(d)", refs["wd_opt"], "wd", OPT_EPOCHS, True)
+        result = pod.sender.wait_result("pod-wd-opt", timeout=60)
+        applied = result.get("applied_plans", [])
+        check(result.get("reconfigs") == 1 and "optimizer_errors" not in result
+              and len(applied) == 1 and applied[0]["moved"] == wd_blocks // execs
+              and applied[0]["owners_after"] == execs - 1,
+              f"phase 3z (d): reconfigs {result.get('reconfigs')}, plans {applied}, "
+              f"errors {result.get('optimizer_errors')}")
+        check(all(r["applied_plans"] == applied for r in rows),
+              f"phase 3z (d): the processes applied {[r['applied_plans'] for r in rows]}")
+        check_plan_moves(rows, layouts[:1], wd_blocks, "(d)")
+        out["optimizer"] = {"reconfigs": result["reconfigs"], "applied_plans": applied,
+                            "plan_moves": [r["plan_moves"] for r in rows]}
+        print(f"phase 3z (d): the optimizer's plan went through the plan channel and moved "
+              f"blocks across processes: {json.dumps(out['optimizer'])}", flush=True)
+    finally:
+        pod.close()
+
+    # (c) table-level moves outside training, over tcp and files, a slot a
+    # process (four processes on four cards)
+    rows = pod_moves_alone(n, own)
+    cost = check_table_moves(rows, n)
+    print(f"phase 3z (c): bench-widedeep's table drained onto process 0 and grew back, "
+          f"byte-exact over tcp and files", flush=True)
+    # (e) a move's cost: (c)'s moves, (a)'s moves in training, and (a)'s
+    # step around its first plan
+    out["move_cost"] = {
+        "table_moves": cost,
+        "training_moves_widedeep": [
+            [{k: m[k] for k in ("epoch", "owners_after", "blocks_sent", "blocks_received",
+                                "bytes_sent", "bytes_received", "seconds")}
+             for m in r["plan_moves"]] for r in out["widedeep"]["by_process"]],
+        "phase_3y_warm_step_ms": warm_step_ms}
+    print(f"phase 3z (e): a move's cost: {json.dumps(out['move_cost'])}", flush=True)
+    out["seconds"] = time.perf_counter() - t0
+    out["launches"] = dict(launches)
+    check(all(launches[k] > 0 for k in ("gather_rows", "segment_sum_rows", "weighted_histogram")),
+          f"phase 3z: launches {launches}: a kernel never ran on the moved pod jobs")
+    return launches, out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a CUDA card")
@@ -6833,7 +7389,7 @@ def main() -> int:
               f"{kernel} D={d} block_k={bk}: ptxas reports spills ({entry})")
     clock("1")
 
-    alone = ("3t", "3u", "3v", "3w", "3x", "3y")
+    alone = ("3t", "3u", "3v", "3w", "3x", "3y", "3z")
     if len(sys.argv) == 3 and sys.argv[1] == "--phase" and sys.argv[2] in alone:
         # one phase alone (a host of several cards: the real mesh; 3t also
         # the device guard), 3t held to one-slot runs of its own
@@ -6853,6 +7409,9 @@ def main() -> int:
         elif name == "3y":
             _, pod = run_pod(pod_one_slot_refs())
             print("pod: " + json.dumps(pod), flush=True)
+        elif name == "3z":
+            _, moves = run_pod_moves()
+            print("pod moves: " + json.dumps(moves), flush=True)
         else:
             _, elastic = run_elastic()
             print("elastic: " + json.dumps(elastic), flush=True)
@@ -6862,7 +7421,8 @@ def main() -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
-    check(not sys.argv[1:], f"unknown arguments {sys.argv[1:]} (only --phase 3t, 3u, 3v, 3w, 3x or 3y)")
+    check(not sys.argv[1:],
+          f"unknown arguments {sys.argv[1:]} (only --phase 3t, 3u, 3v, 3w, 3x, 3y or 3z)")
 
     table, idx, err = check_kernels(dev)
     timing, skew = time_kernels(dev, table, idx)
@@ -7006,6 +7566,13 @@ def main() -> int:
     clock("5d")
     print("new paths profile: " + json.dumps(profile_new_paths(graph)), flush=True)
     clock("5e")
+    # phase 3z after the profiles: they keep the process history of earlier
+    # runs (torch.profiler's lost records grow with it)
+    moves_launches, moves = run_pod_moves(
+        [row["step_ms"] for row in pod["widedeep_warm"]])
+    for name, counts in by_path.items():
+        counts["pod-moves"] = moves_launches[name]
+    clock("3z")
     print("hash ops: " + json.dumps(hash_ops) + "; autotune: " + json.dumps(tune), flush=True)
     print("profiler: markers lost by the kept profiles (lost: profiles), retakes: "
           + json.dumps(PROFILE_LOG), flush=True)
@@ -7060,6 +7627,7 @@ def main() -> int:
     print("elastic: " + json.dumps(elastic), flush=True)
     print("dp: " + json.dumps(dx), flush=True)
     print("pod: " + json.dumps(pod), flush=True)
+    print("pod moves: " + json.dumps(moves), flush=True)
     print(gpu_identity())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,8 +21,12 @@ or under ``torchrun`` the card of its ``LOCAL_RANK``; two processes may share
 ``cuda:0``, and ``--device cpu`` runs on the CPU), process 0 serves the pod's control plane on ``--pod-port`` and
 the commands on ``--port`` and prints the reference's ready line, and the
 others follow it. ``--scheduler`` names the pod's scheduler (``share_all``,
-``pod_carve``, or ``pod_carve:K`` for carves of at most K processes). The
-reference's HA replica (``_cmd_start_jobserver_ha``), ``pod-reshard``,
+``pod_carve``, or ``pod_carve:K`` for carves of at most K processes).
+``--device`` may name several devices, comma-separated (``cpu,cpu``: two
+slots of the CPU in one process). ``pod-reshard`` asks a pod's leader to move
+``--blocks`` blocks of a running job's table from executor ``--src`` to
+``--dst`` at epoch ``--epoch`` in every process (``jobserver/pod.py``) and
+prints the reply. The reference's HA replica (``_cmd_start_jobserver_ha``),
 ``obs``, ``dashboard`` and ``inputsvc`` are not ported (ROADMAP A.10).
 
 The presets cover the apps this port runs: the training apps ``mlr``,
@@ -363,12 +367,13 @@ def _pod_scheduler(name: str):
 
 def _pod_devices(device: str) -> Optional[List[str]]:
     """The devices a pod process drives: ``--device`` when it names the CPU
-    or one card, under torchrun the card of its ``LOCAL_RANK``, else every
+    or cards (a comma-separated list is a slot each: ``cpu,cpu`` is two slots
+    of the CPU), under torchrun the card of its ``LOCAL_RANK``, else every
     visible card (None)."""
     import os
 
     if device != "cuda":
-        return [device]
+        return device.split(",")
     if os.environ.get("LOCAL_RANK") is not None:
         return [f"cuda:{int(os.environ['LOCAL_RANK'])}"]
     return None
@@ -447,12 +452,15 @@ def _cli_command(fn) -> Dict[str, Any]:
 
 
 def _cmd_client(args: argparse.Namespace) -> int:
-    """``submit``, ``status`` and ``shutdown``: one command to a running
-    jobserver; prints its reply."""
+    """``submit``, ``pod-reshard``, ``status`` and ``shutdown``: one command
+    to a running jobserver; prints its reply."""
     sender = _sender(args.port)
     if args.cmd == "submit":
         cfg = build_config(args.app, args)
         resp = _cli_command(lambda: sender.send_job_submit_command(cfg))
+    elif args.cmd == "pod-reshard":
+        resp = _cli_command(lambda: sender.send_pod_reshard_command(
+            args.job, args.src, args.dst, args.blocks, args.epoch))
     elif args.cmd == "status":
         resp = _cli_command(sender.send_status_command)
     else:
@@ -538,6 +546,16 @@ def build_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("submit", help="submit a job to a running jobserver")
     _common_job_flags(p)
     _port_flag(p)
+    p = sub.add_parser("pod-reshard",
+                       help="move table blocks of a RUNNING pod job (applied at the "
+                            "given epoch in every process)")
+    _port_flag(p)
+    p.add_argument("--job", required=True)
+    p.add_argument("--src", required=True, help="source executor id")
+    p.add_argument("--dst", required=True, help="destination executor id")
+    p.add_argument("--blocks", type=int, required=True)
+    p.add_argument("--epoch", type=int, required=True,
+                   help="apply epoch; needs a full window horizon of lead")
     p = sub.add_parser("status", help="query a running jobserver")
     _port_flag(p)
     p = sub.add_parser("shutdown", help="graceful jobserver shutdown")

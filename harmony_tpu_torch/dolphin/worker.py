@@ -797,6 +797,7 @@ class WorkerTasklet:
         defer_epoch_callback: bool = False,
         collector: Optional[MetricCollector] = None,
         pod_contended: Optional[Callable[[], bool]] = None,
+        pending_plan_epoch: Optional[Callable[[], Optional[int]]] = None,
     ) -> None:
         self.job_id = job_id
         self.ctx = ctx
@@ -828,6 +829,10 @@ class WorkerTasklet:
         # the first epoch this run trains (a resume continues a chain there;
         # the reference's StartingEpochIdx)
         self.starting_epoch = starting_epoch
+        # the epoch of the job's next scheduled pod plan, or None (the
+        # chief's; jobserver/podplan.py): a window ends at that epoch, so the
+        # move lands right after its dispatches, alike in every process
+        self.pending_plan_epoch = pending_plan_epoch
         self._pending_probe = False  # a probe deferred into the first batch turn
         self._global_batch_idx = 0
         # this worker's EWMA seconds a batch, sizing its batch groups
@@ -1369,7 +1374,8 @@ class WorkerTasklet:
         crosses a comm-probe epoch: the probe measures the live table between
         dispatches. An SSP gate decides per batch, and an epoch callback that
         must see each epoch's state (``defer_epoch_callback=False``) runs at
-        every epoch: no window."""
+        every epoch: no window. A window ends at the epoch of the job's next
+        pod plan (``pending_plan_epoch``)."""
         if self.batch_barrier is not None:
             return 1
         if not self._fused_mode():
@@ -1382,6 +1388,10 @@ class WorkerTasklet:
         if self.epoch_callback is not None and not self.defer_epoch_callback:
             return 1
         w = min(self.EPOCH_WINDOW, num_epochs - epoch)
+        if self.pending_plan_epoch is not None:
+            due = self.pending_plan_epoch()
+            if due is not None and due >= epoch:
+                w = min(w, due - epoch + 1)  # the window ends AT the plan's epoch
         if self.comm_probe_every and self.global_init:
             if self._probe_pull is None:
                 w = min(w, 1)  # a probe is due at this epoch boundary

@@ -69,11 +69,20 @@ workers or its superstep loop, run inside leader-granted units, so
 overlapping tenants enter their collectives in one pod-wide order, and such
 a job drops the local TaskUnit admission. Several workers of such a job take
 turns in a ``DispatchTurnstile`` (its SSP slack at least 1), so every process
-enqueues in the same order. A checkpoint chain, a resume from one, the
-deferred evaluation and the optimizer loop are refused on a multi-process
-grant, in every process alike, and the deferred evaluation on a grant wholly
-on a follower: they wait for the pod's checkpoint, evaluation and plan
-channels (ROADMAP A item 3b).
+enqueues in the same order. A checkpoint chain, a resume from one and the
+deferred evaluation are refused on a multi-process grant, in every process
+alike, and the deferred evaluation on a grant wholly on a follower: they
+wait for the pod's checkpoint and evaluation channels (ROADMAP A item 3b).
+
+Plans on a pod: the leader's ``schedule_pod_reshard`` broadcasts a move
+(``jobserver/podplan.py``), and every process of the job applies it at the
+chief's epoch hook of the plan's epoch (``_make_pod_plan_hook``), inside the
+chief's pod unit and turnstile turn; the chief's windows end at that epoch
+(``pending_plan_epoch``). A move that would change the processes owning the
+table is skipped and recorded; the result's ``applied_plans`` lists every
+plan. The optimizer loop of a job over several processes runs on the leader
+only and hands its move-only plans to that channel
+(``_make_pod_plan_adapter``).
 
 Not ported yet: elastic recovery and ``--auto-resume`` (ROADMAP A item 4).
 """
@@ -103,7 +112,9 @@ from harmony_tpu_torch.dolphin.master import (
 from harmony_tpu_torch.dolphin.trainer import Trainer, TrainerContext
 from harmony_tpu_torch.dolphin.worker import WorkerTasklet
 from harmony_tpu_torch.metrics.collector import MetricCollector, ServerMetrics
+from harmony_tpu_torch.jobserver import podplan
 from harmony_tpu_torch.metrics.manager import MetricManager
+from harmony_tpu_torch.parallel import multihost
 from harmony_tpu_torch.parallel.mesh import build_mesh
 from harmony_tpu_torch.pregel.master import PregelMaster
 from harmony_tpu_torch.runtime.master import ETMaster, Table, TableHandle
@@ -115,6 +126,10 @@ from harmony_tpu_torch.runtime.taskunit import (
 from harmony_tpu_torch.table.table import DenseTable
 
 log = logging.getLogger(__name__)
+
+# what a plan's entry in ``plan_moves`` keeps of ``blockmove.last_move_stats``
+_MOVE_KEYS = ("transport", "blocks_sent", "bytes_sent", "blocks_received", "bytes_received",
+              "total_moves", "block_nbytes", "transport_retries", "seconds")
 
 
 class DolphinJobEntity:
@@ -128,6 +143,7 @@ class DolphinJobEntity:
         metric_manager: Optional[MetricManager] = None,
         pod_unit_scope: Optional[Callable[[], Any]] = None,
         pod_unit_contended: Optional[Callable[[], bool]] = None,
+        pod_plan_sink: Optional[Callable[..., None]] = None,
     ) -> None:
         self.config = config
         self._global_tu = global_taskunit
@@ -136,6 +152,13 @@ class DolphinJobEntity:
         # of a pod): every dispatch region runs in a leader-granted unit
         self._pod_unit_scope = pod_unit_scope
         self._pod_unit_contended = pod_unit_contended
+        # the pod leader's plan channel (PodJobServer.schedule_pod_reshard):
+        # the optimizer loop hands its plans there instead of executing them
+        self._pod_plan_sink = pod_plan_sink
+        # the pod plans this job applied (or skipped) at the chief's epoch hook,
+        # and this process's side of each one that moved bytes
+        self._applied_plans: List[Dict[str, Any]] = []
+        self._plan_moves: List[Dict[str, Any]] = []
         # the JobServer's MetricManager (its on_metric is the sink)
         self._metric_sink = metric_sink
         self._metric_manager = metric_manager
@@ -420,7 +443,15 @@ class DolphinJobEntity:
 
         chain_hook = self._make_chain()
         tm_hook = self._make_table_metrics_hook()
-        hooks = [h for h in (tracker_hook, chain_hook, tm_hook) if h is not None]
+        # on a pod the plans apply after the epoch's other hooks, at the one
+        # point every process reaches at the same epoch
+        on_pod = multihost.is_multihost()
+        plan_hook = self._make_pod_plan_hook() if on_pod else None
+        hooks = [h for h in (tracker_hook, chain_hook, tm_hook, plan_hook) if h is not None]
+        job_id = cfg.job_id
+
+        def plan_epoch() -> Optional[int]:
+            return podplan.next_epoch(job_id)
 
         def epoch_hook(e: int) -> None:
             for h in hooks:
@@ -469,6 +500,7 @@ class DolphinJobEntity:
                     dispatch_turn=self._dispatch_turn(turnstile, wid),
                     pod_contended=self._pod_unit_contended,
                     epoch_callback=epoch_hook if idx == 0 and hooks else None,
+                    pending_plan_epoch=plan_epoch if idx == 0 and on_pod else None,
                     # the tracker only reads drained counters and may run after
                     # a multi-epoch window; a chain snapshots the table AT its
                     # epoch, so it keeps windows at one epoch
@@ -519,6 +551,10 @@ class DolphinJobEntity:
         out = {"job_id": cfg.job_id,
                "workers": {w: results[w] for w in wids},
                "span": [self._setup_start, time.perf_counter()]}
+        if self._applied_plans:
+            out["applied_plans"] = list(self._applied_plans)
+        if self._plan_moves:
+            out["plan_moves"] = list(self._plan_moves)
         if orchestrator is not None:
             out["reconfigs"] = len(orchestrator.reconfig_log)
             if orchestrator.errors:
@@ -573,10 +609,32 @@ class DolphinJobEntity:
         ETOptimizationOrchestrator run for each Dolphin job), or None:
         metrics -> Optimizer -> plan -> live migration of THIS job's model
         table while it trains. Enabled by ``JobConfig.optimizer`` (a registry
-        name or a dotted path)."""
+        name or a dotted path).
+
+        On a table over several processes only the pod leader (process 0)
+        runs the loop, and it hands each plan to the pod's plan channel
+        (:meth:`_make_pod_plan_adapter`) for every process to apply at the
+        same epoch; the followers apply plans and make none. The grant must
+        hold process 0, a predicate of the config and the mesh alone, so
+        every process refuses alike."""
         name = self.config.optimizer
         if not name:
             return None
+        plan_sink = None
+        mesh = self._table.mesh
+        if len(mesh.processes) > 1:
+            if 0 not in mesh.processes:
+                raise ValueError(
+                    f"job {self.config.job_id}: optimizer={name!r} on a multi-process "
+                    "grant needs the grant to include the pod leader (process 0), "
+                    "which runs the optimization loop and owns the plan channel")
+            if multihost.process_index() != 0:
+                return None
+            if self._pod_plan_sink is None:
+                raise ValueError(
+                    f"job {self.config.job_id}: optimizer={name!r} on a multi-process "
+                    "grant has no pod plan channel (running outside a PodJobServer?)")
+            plan_sink = self._make_pod_plan_adapter()
         if self._metric_manager is None:
             raise ValueError(
                 f"job {self.config.job_id}: optimizer={name!r} needs the "
@@ -594,12 +652,106 @@ class DolphinJobEntity:
             return OptimizationOrchestrator(
                 self._master, self._master.table_handle(table_id), cls(),
                 self._metric_manager, period_sec=self.config.optimizer_period,
-                job_id=self.config.job_id)
+                job_id=self.config.job_id, plan_sink=plan_sink)
         except BaseException:
             # run() releases through the orchestrator; a construction failure
             # would otherwise hold the lease for good
             self._master.release_optimizer_lease(table_id)
             raise
+
+    def _make_pod_plan_adapter(self):
+        """The optimizer's plans into the pod's plan channel: a move-only plan
+        is scheduled at the current epoch + ``EPOCH_WINDOW`` + 2 (past the
+        window horizon), one ``pod_plan_sink`` call a transfer step. A plan
+        that adds or deletes executors is declined (the pod's topology is
+        its processes' life cycle, not a table move), and so is a plan whose
+        earliest safe epoch is past the job's end. Returns whether the plan
+        was taken."""
+        job_id = self.config.job_id
+        sink = self._pod_plan_sink
+        metrics = self._metric_manager
+        # the highest epoch seen: a round after an accepted plan reads
+        # cleared metrics and must not schedule behind the job's progress
+        seen = {"hi": 0}
+
+        def apply(dplan) -> bool:
+            if dplan.evaluators_to_add or dplan.evaluators_to_delete:
+                log.warning("job %s: pod optimization declined a plan that adds or "
+                            "deletes executors (a pod takes move-only plans)", job_id)
+                return False
+            wm = metrics.worker_batch_metrics(job_id=job_id)
+            cur = seen["hi"] = max(max((m.epoch_idx for m in wm), default=0), seen["hi"])
+            epoch = cur + WorkerTasklet.EPOCH_WINDOW + 2
+            if epoch >= self.config.params.num_epochs:
+                log.warning("job %s: pod optimization declined: the earliest safe "
+                            "apply epoch %d is past the job's end (%d epochs)",
+                            job_id, epoch, self.config.params.num_epochs)
+                return False
+            for step in dplan.transfer_steps:
+                sink(job_id, step.src, step.dst, step.num_blocks, epoch)
+            return bool(dplan.transfer_steps)
+
+        return apply
+
+    def _make_pod_plan_hook(self):
+        """Apply the job's pod plans at the chief's epoch hook, the point
+        every process reaches at the same epoch (``jobserver/podplan.py``,
+        ``PodJobServer.schedule_pod_reshard``); inside the chief's pod unit
+        (and its turnstile turn in a multi-worker job), so every process
+        moves the table at the same place in its dispatch order.
+
+        The count is clamped to what ``src`` owns, and a plan that would
+        change WHICH processes own blocks is skipped and recorded
+        (``"skipped": "process-set change mid-training"``): a process that
+        left the table's mesh would go on dispatching a step over slots it
+        no longer shares. Each decision reads the block map, the same in
+        every process. ``applied_plans`` records each plan: its epoch, src,
+        dst, the blocks moved and the owners after. A plan that changed the
+        table's layout also records this process's side of the exchange in
+        ``plan_moves`` (``blockmove.last_move_stats``: blocks and bytes sent
+        and received, the transport, seconds). An elastic fence (a plan with
+        ``elastic_fence``) waits for ROADMAP A item 4 and raises."""
+        from harmony_tpu_torch.table import blockmove
+
+        job_id = self.config.job_id
+
+        def hook(epoch_idx: int) -> None:
+            for p in podplan.take(job_id, epoch_idx):
+                if p.get("elastic_fence"):
+                    raise NotImplementedError(
+                        f"job {job_id}: an elastic fence waits for ROADMAP A item 4")
+                handle = self.table_handle
+                counts = handle.block_manager.block_counts()
+                owned = counts.get(p["src"], 0)
+                n = min(int(p["num_blocks"]), owned)
+                skipped = None
+                if n:
+                    def owner_procs(cmap):
+                        return {self._master.executor(e).slot.process_index
+                                for e, c in cmap.items() if c > 0}
+
+                    after = dict(counts)
+                    after[p["src"]] = owned - n
+                    after[p["dst"]] = after.get(p["dst"], 0) + n
+                    if owner_procs(after) != owner_procs(counts):
+                        skipped = "process-set change mid-training"
+                        log.warning("job %s: pod plan %s->%s (%d blocks) skipped: it would "
+                                    "change the processes that own the table", job_id,
+                                    p["src"], p["dst"], n)
+                        n = 0
+                layout = handle.table.sharding
+                if n:
+                    handle.move_blocks(p["src"], p["dst"], n)
+                entry = {"epoch": epoch_idx, "src": p["src"], "dst": p["dst"], "moved": n,
+                         "owners_after": len(handle.owning_executors())}
+                if handle.table.sharding is not layout:
+                    st = blockmove.last_move_stats
+                    self._plan_moves.append({**entry, **{k: st.get(k) for k in _MOVE_KEYS}})
+                if skipped:
+                    entry["skipped"] = skipped
+                self._applied_plans.append(entry)
+
+        return hook
 
     def _make_table_metrics_hook(self):
         """The per-epoch ``ServerMetrics`` report (the reference's ET
@@ -646,9 +798,11 @@ class DolphinJobEntity:
         return TableHandle(self._master, table, self._executor_ids)
 
     def cleanup(self) -> None:
-        """Release the job's references to its tables (a shared table lives
-        on while another holder has it). Idempotent: each reference is
-        cleared before it is dropped."""
+        """Drop the job's unapplied pod plans (a resubmitted job id must not
+        inherit them) and release its references to its tables (a shared
+        table lives on while another holder has it). Idempotent: each
+        reference is cleared before it is dropped."""
+        podplan.clear(self.config.job_id)
         for name in ("_table", "_local"):
             table = getattr(self, name)
             setattr(self, name, None)
@@ -761,11 +915,6 @@ def _refuse_on_pod(config: JobConfig, master: ETMaster, executor_ids: List[str])
         raise ValueError(
             f"job {job}: offline_model_eval {where} needs the collective deferred "
             "evaluation, which waits for ROADMAP A item 3b")
-    if config.optimizer:
-        raise ValueError(
-            f"job {job}: optimizer={config.optimizer!r} {where} needs the pod's "
-            "plan channel (plans applied at the chief's epoch hook in every "
-            "process), which waits for ROADMAP A item 3b")
 
 
 def build_entity(config: JobConfig, chkp_root: Optional[str] = None, **kwargs: Any):
@@ -776,8 +925,10 @@ def build_entity(config: JobConfig, chkp_root: Optional[str] = None, **kwargs: A
     if config.app_type == "dolphin":
         return DolphinJobEntity(config, chkp_root=chkp_root, **kwargs)
     if config.app_type == "pregel":
-        # a graph job has no model table: no metric sources, no optimizer
+        # a graph job has no model table: no metric sources, no optimizer,
+        # no plans
         kwargs.pop("metric_sink", None)
         kwargs.pop("metric_manager", None)
+        kwargs.pop("pod_plan_sink", None)
         return PregelJobEntity(config, **kwargs)
     raise ValueError(f"unknown app_type {config.app_type!r}")

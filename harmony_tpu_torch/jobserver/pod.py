@@ -44,15 +44,26 @@ executor ids come in the same order in every process, and the jobs' data is
 seeded, so a job's participants issue the same collectives in the same
 order.
 
+Plans on a running job (``schedule_pod_reshard``, the ``POD_RESHARD``
+command, ``cli pod-reshard``, and the leader's optimizer loop through the
+``pod_plan_sink`` of ``_entity_extras``): the leader sends PLAN to the job's
+followers and registers the plan itself (``jobserver/podplan.py``), and every
+process applies the move at its chief's epoch hook of the plan's epoch
+(``jobserver/entity.py``), the table's blocks crossing processes over
+``table/blockmove.py``'s transports. A plan must lead the job's observed
+epoch by a full window horizon (``WorkerTasklet.EPOCH_WINDOW`` + 1): the
+leader reads that epoch from its own entity, or asks the chief follower of a
+job wholly on followers (PROGRESS_REQ, answered PROGRESS_REP from the
+follower's control loop, which reads its socket apart from the jobs'
+threads). A PLAN delivered to some followers only marks the pod broken.
+
 Left out, with ROADMAP A item 3b (and item 4 for elasticity): elastic
 dispatch and recovery (``_dispatch_elastic``, ``_plan_elastic_recovery``,
 the fences, ``_maybe_auto_resume``), late joins and the rehabilitation of a
 follower (``_accept_late_joins``, ``_reinstate_follower``, ``_rehabilitate``,
-``_rejoin``), ``schedule_pod_reshard`` (a POD_RESHARD command is answered
-with an error naming item 3b), the collective deferred evaluation
-(``_pod_eval_channel``, ``_broadcast_eval_decision``; a job with
-``offline_model_eval`` is refused on a grant beyond process 0), HA's leader
-epochs and the policy hooks.
+``_rejoin``), the collective deferred evaluation (``_pod_eval_channel``,
+``_broadcast_eval_decision``; a job with ``offline_model_eval`` is refused
+on a grant beyond process 0), HA's leader epochs and the policy hooks.
 """
 from __future__ import annotations
 
@@ -81,12 +92,6 @@ from harmony_tpu_torch.runtime.podunits import (
 from harmony_tpu_torch.tracing.span import SpanContext, trace_span, wire_context
 
 log = logging.getLogger(__name__)
-
-POD_RESHARD_ERROR = (
-    "POD_RESHARD: a live reshard on a pod (blockmove's TCP and file transports, "
-    "the plan applied at the chief's epoch hook in every process) waits for "
-    "ROADMAP A item 3b")
-
 
 def _send(sock: socket.socket, msg: Dict[str, Any]) -> None:
     sock.sendall((json.dumps(msg) + "\n").encode())
@@ -131,14 +136,19 @@ def _counted(scope, counts: Dict[str, int]):
 
 def _job_summary(result: Dict[str, Any]) -> Dict[str, Any]:
     """What a report carries of a job's result: each worker's losses, batch
-    losses, epoch seconds and comm probes; for a graph job its supersteps,
-    their wall seconds and a SHA-256 of its vertex values' bytes."""
+    losses, epoch seconds and comm probes, the pod plans the process
+    applied or skipped and its side of each plan's exchange; for a graph
+    job its supersteps, their wall seconds and a SHA-256 of its vertex
+    values' bytes."""
     out: Dict[str, Any] = {"workers": {
         wid: {"losses": [float(x) for x in w.get("losses", [])],
               "batch_losses": [float(x) for x in w.get("batch_losses", [])],
               "epoch_seconds": [float(x) for x in w.get("epoch_seconds", [])],
               "probes": int(w.get("comm_probe", {}).get("probes", 0))}
         for wid, w in result.get("workers", {}).items()}}
+    for key in ("applied_plans", "plan_moves"):
+        if key in result:
+            out[key] = result[key]
     if "vertex_values" in result:
         values = np.ascontiguousarray(result["vertex_values"])
         out.update(supersteps=int(result["supersteps"]), wall_sec=float(result["wall_sec"]),
@@ -176,6 +186,9 @@ class PodJobServer(JobServer):
         self._poison_scope: Optional[str] = None     # "partial" | "total"
         self._pod_broken: Optional[str] = None
         self._reports: Dict[Tuple[str, int], Dict[str, Any]] = {}
+        # the progress queries waiting for their reply, by (key, pid)
+        self._progress_waiting: set = set()
+        self._progress_seq = 0
         self._dead_followers: set = set()
         self._readers: List[threading.Thread] = []
         self._pod_closing = False
@@ -187,6 +200,9 @@ class PodJobServer(JobServer):
         self.job_walls: Dict[str, Tuple[float, float]] = {}
         #: job id -> {"units": the pod units its leader leg took}
         self._unit_counts: Dict[str, Dict[str, int]] = {}
+        #: running job id -> its follower participants, what
+        #: schedule_pod_reshard sends PLAN to
+        self._job_info: Dict[str, List[int]] = {}
 
     # -- lifecycle --------------------------------------------------------
 
@@ -346,6 +362,9 @@ class PodJobServer(JobServer):
             if cmd == "TU_DONE":
                 self.pod_units.on_done(str(msg.get("job_id")), int(msg.get("seq", 0)), pid)
                 continue
+            if cmd == "PROGRESS_REP":
+                self._on_progress_rep(pid, msg)
+                continue
             if cmd != "JOB_DONE":
                 log.warning("pod: unexpected %r from follower %d", cmd, pid)
                 continue
@@ -355,10 +374,32 @@ class PodJobServer(JobServer):
                     self._reports.pop(next(iter(self._reports)))
                 self._pod_cond.notify_all()
 
+    def _on_progress_rep(self, pid: int, msg: Dict[str, Any]) -> None:
+        """Keep follower ``pid``'s PROGRESS_REP only while the query it
+        answers (its ``req``) waits: a reply that comes after its query gave
+        up is dropped, or it would answer a later query with an older
+        epoch."""
+        key = (f"__prog__{msg.get('job_id')}#{msg.get('req')}", pid)
+        with self._pod_cond:
+            if key in self._progress_waiting:
+                self._reports[key] = msg
+                self._pod_cond.notify_all()
+
     def _send_to(self, pid: int, msg: Dict[str, Any]) -> None:
         conn, _ = self._followers[pid]
         with self._send_locks[pid]:
             _send(conn, msg)
+
+    def _wait_report(self, key: str, pid: int, deadline: float) -> Optional[Dict[str, Any]]:
+        """Follower ``pid``'s message under ``key`` (a short protocol reply),
+        None once it is dead or past ``deadline``."""
+        with self._pod_cond:
+            while (key, pid) not in self._reports:
+                remaining = deadline - time.monotonic()
+                if pid in self._dead_followers or remaining <= 0:
+                    return None
+                self._pod_cond.wait(timeout=min(remaining, 1.0))
+            return self._reports.pop((key, pid))
 
     def _wait_report_live(self, job_id: str, pid: int) -> Optional[Dict[str, Any]]:
         """Wait for follower ``pid``'s report on ``job_id`` as long as it
@@ -489,6 +530,8 @@ class PodJobServer(JobServer):
         try:
             participants = sorted(p for p in procs if p != 0)
             run_local = 0 in procs
+            with self._pod_cond:
+                self._job_info[config.job_id] = participants
             if participants:
                 log.info("pod: RUN_JOB %s to follower(s) %s (chief %d, local %s)",
                          config.job_id, participants, min(procs), run_local)
@@ -543,6 +586,8 @@ class PodJobServer(JobServer):
                 # socket: nothing of this job is in flight at the arbiter
                 self.pod_units.deregister_job(config.job_id)
             with self._pod_cond:
+                # a plan for a finished job is refused, never kept
+                self._job_info.pop(config.job_id, None)
                 self.job_walls[config.job_id] = (t0, time.monotonic())
                 while len(self.job_walls) > 1024:
                     self.job_walls.pop(next(iter(self.job_walls)))
@@ -570,19 +615,92 @@ class PodJobServer(JobServer):
             self._scheduler.on_job_finish(config.job_id)
 
     def _entity_extras(self, config: JobConfig, executor_ids: List[str]) -> Dict[str, Any]:
-        """The leader's leg of the unit protocol for a job over several
-        processes (not ``user.pod_isolated``)."""
+        """For a job over several processes: the plan channel
+        (``pod_plan_sink``, which the optimizer loop hands its plans to) and,
+        unless ``user.pod_isolated``, the leader's leg of the unit
+        protocol."""
         procs = {self.master.executor(e).slot.process_index for e in executor_ids}
-        if (len(procs) > 1 and config.app_type in ("dolphin", "pregel")
+        if len(procs) < 2:
+            return {}
+        extras: Dict[str, Any] = {"pod_plan_sink": self.schedule_pod_reshard}
+        if (config.app_type in ("dolphin", "pregel")
                 and not bool(config.user.get("pod_isolated"))):
             client = leader_client(self.pod_units, config.job_id)
             counts = self._unit_counts[config.job_id] = {"units": 0}
-            return {"pod_unit_scope": _counted(client.scope, counts),
-                    "pod_unit_contended": client.contended}
-        return {}
+            extras.update(pod_unit_scope=_counted(client.scope, counts),
+                          pod_unit_contended=client.contended)
+        return extras
+
+    def _query_remote_epoch(self, job_id: str, chief: int, timeout: float = 30.0) -> int:
+        """The epoch the chief follower has observed of a job the leader
+        does not run (PROGRESS_REQ/PROGRESS_REP, matched by a request id).
+        A silent chief fails the query: a guessed 0 is the divergence the
+        horizon check exists to prevent."""
+        with self._pod_cond:
+            self._progress_seq += 1
+            req = self._progress_seq
+            key = f"__prog__{job_id}#{req}"
+            self._progress_waiting.add((key, chief))
+        try:
+            try:
+                self._send_to(chief, {"cmd": "PROGRESS_REQ", "job_id": job_id, "req": req})
+            except OSError as e:
+                raise RuntimeError(f"progress query to follower {chief} failed: {e}") from None
+            rep = self._wait_report(key, chief, time.monotonic() + timeout)
+        finally:
+            with self._pod_cond:
+                self._progress_waiting.discard((key, chief))
+                self._reports.pop((key, chief), None)
+        if rep is None:
+            raise RuntimeError(f"follower {chief} did not answer the progress query for "
+                               f"{job_id}; the plan is refused (no observed epoch)")
+        return int(rep.get("epoch", 0))
+
+    def schedule_pod_reshard(self, job_id: str, src: str, dst: str, num_blocks: int,
+                             epoch: int) -> None:
+        """A move of ``num_blocks`` blocks from executor ``src`` to ``dst`` on
+        a RUNNING pod job, applied by every process at its chief's hook of
+        epoch ``epoch`` (``jobserver/podplan.py``). The epoch must lead the
+        job's observed epoch (the leader's own entity, else the chief
+        follower's) by the window horizon, ``EPOCH_WINDOW`` + 1: the window
+        that covers the plan's epoch is decided after every process holds
+        the plan. An unknown or finished job raises KeyError; a PLAN that
+        reached some followers only marks the pod broken."""
+        from harmony_tpu_torch.dolphin.worker import WorkerTasklet
+
+        with self._pod_cond:
+            participants = self._job_info.get(job_id)
+        if participants is None:
+            raise KeyError(f"unknown (or finished) pod job {job_id}")
+        with self._lock:
+            ent = self._entities.get(job_id)
+        cur = 0
+        if ent is not None and getattr(ent, "progress", None) is not None:
+            cur = ent.progress.starting_epoch()
+        elif participants:
+            cur = self._query_remote_epoch(job_id, min(participants))
+        horizon = WorkerTasklet.EPOCH_WINDOW + 1
+        if epoch < cur + horizon:
+            raise ValueError(
+                f"plan epoch {epoch} is inside the window horizon (job at ~epoch {cur}; "
+                f"need >= {cur + horizon}): a plan landing mid-window would apply at "
+                "divergent points across processes")
+        plan = {"epoch": int(epoch), "src": src, "dst": dst, "num_blocks": int(num_blocks)}
+        try:
+            for pid in participants:
+                self._send_to(pid, {"cmd": "PLAN", "job_id": job_id, "plan": plan})
+        except OSError as e:
+            # a plan that some processes apply and others never see wedges
+            # the job's next collective: poison, as a partial RUN_JOB does
+            self._mark_broken(f"PLAN broadcast failed: {e}")
+            raise
+        podplan.schedule(job_id, plan)
 
     def _pod_reshard_command(self, msg: Dict[str, Any]) -> Dict[str, Any]:
-        return {"ok": False, "error": POD_RESHARD_ERROR}
+        self.schedule_pod_reshard(job_id=str(msg["job_id"]), src=str(msg["src"]),
+                                  dst=str(msg["dst"]), num_blocks=int(msg["num_blocks"]),
+                                  epoch=int(msg["epoch"]))
+        return {"ok": True}
 
     def _on_closing(self, timeout: Optional[float] = 300.0) -> None:
         """The pod's teardown, once the jobs have drained: wait out the
@@ -689,6 +807,19 @@ class PodFollower:
                 continue
             if cmd == "TU_POISON":
                 self._pod_units.on_poison()
+                continue
+            if cmd == "PLAN":
+                podplan.schedule(str(msg["job_id"]), msg["plan"])
+                continue
+            if cmd == "PROGRESS_REQ":
+                # the leader's horizon check for a job it does not run
+                jid = str(msg.get("job_id"))
+                ent = self._entities.get(jid)
+                ep = 0
+                if ent is not None and getattr(ent, "progress", None) is not None:
+                    ep = ent.progress.starting_epoch()
+                self._report({"cmd": "PROGRESS_REP", "job_id": jid, "epoch": int(ep),
+                              "req": msg.get("req")})
                 continue
             if cmd != "RUN_JOB":
                 log.warning("pod follower %d: unexpected %r", self.pid, cmd)

@@ -11,10 +11,11 @@ lockstep guarantees fires at identical epochs everywhere. This module is
 the per-process registry between the control plane and the hook.
 
 A copy of ``harmony_tpu/jobserver/podplan.py`` (which imports no JAX; the
-port keeps its own copy). The port's pod answers ``POD_RESHARD`` with an
-error and nothing applies these plans yet: the reshard's transports and the
-chief's epoch hook wait for ROADMAP A item 3b. The pod server clears a
-job's entry when the job ends, as the reference's does.
+port keeps its own copy). The entity's chief hook takes the plans
+(``jobserver/entity.py::_make_pod_plan_hook``) and its worker's windows end
+at ``next_epoch`` (``WorkerTasklet.pending_plan_epoch``). The pod server and
+the entity's cleanup clear a job's entry when the job ends, as the
+reference's do.
 
 Scheduling contract: the apply epoch must be comfortably ahead of the
 job's current epoch on every process — a plan landing mid-epoch-E while

@@ -40,7 +40,8 @@ feeds a fixed pool of command workers; the overload monitor
 ``STATUS``, ``WAIT`` (a bounded poll of one job's result), ``SERVING``
 (starts the serving endpoint on demand and answers its address), ``SHUTDOWN``
 and ``POD_RESHARD`` (answered ``not a pod server``, as the reference's plain
-server answers it; ``jobserver/pod.py``'s server answers it itself). ``_entities`` maps a running job to its entity, set
+server answers it; ``jobserver/pod.py``'s server schedules the move through
+``schedule_pod_reshard``). ``_entities`` maps a running job to its entity, set
 before the entity's set-up and dropped when the job ends; the serving
 endpoint reads a job's live table through it, and its pinned reads through
 ``chkp_root``. ``shutdown`` closes the command plane first and the serving

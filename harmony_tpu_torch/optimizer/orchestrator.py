@@ -12,11 +12,11 @@ Simulated resource fluctuation: the reference toggles NumExtraResources on
 a timer to emulate a dynamic cluster; ``available_fn`` plays that role
 (defaults to the device pool's free capacity).
 
-A copy of ``harmony_tpu/optimizer/orchestrator.py`` less the pod's
-``plan_sink`` hand-off, which waits for the pod's plan application (ROADMAP
-A item 3b): every plan executes here, from the orchestrator's thread. A job's
-reconfiguration is logged through ``logging`` (the reference writes it to
-its job log).
+A copy of ``harmony_tpu/optimizer/orchestrator.py``. On a pod the leader's
+loop takes a ``plan_sink`` (``jobserver/entity.py::_make_pod_plan_adapter``):
+a plan is handed off there, for every process to apply at the same epoch,
+and this thread executes nothing. A job's reconfiguration is logged through
+``logging`` (the reference writes it to its job log).
 """
 from __future__ import annotations
 
@@ -26,7 +26,7 @@ import threading
 from typing import Callable, Dict, List, Optional
 
 from harmony_tpu_torch.metrics.manager import MetricManager
-from harmony_tpu_torch.optimizer.api import EvaluatorParams, Optimizer
+from harmony_tpu_torch.optimizer.api import DolphinPlan, EvaluatorParams, Optimizer
 from harmony_tpu_torch.optimizer.compiler import PlanCompiler
 from harmony_tpu_torch.plan.executor import PlanExecutor, PlanResult
 from harmony_tpu_torch.runtime.master import ETMaster, TableHandle
@@ -44,6 +44,7 @@ class OptimizationOrchestrator:
         period_sec: float = 5.0,
         available_fn: Optional[Callable[[], int]] = None,
         job_id: Optional[str] = None,
+        plan_sink: Optional[Callable[[DolphinPlan], bool]] = None,
     ) -> None:
         """``job_id`` scopes a multi-tenant deployment: the optimizer sees
         ONLY this job's metrics (another tenant's throughput must not steer
@@ -58,6 +59,10 @@ class OptimizationOrchestrator:
         self.period_sec = period_sec
         self.job_id = job_id
         self._available_fn = available_fn
+        # on a pod, plans are HANDED OFF (plan_sink(dplan) -> accepted)
+        # instead of executed from this thread: a move over several processes
+        # is applied by every process at one epoch (jobserver/podplan.py)
+        self._plan_sink = plan_sink
         self._compiler = PlanCompiler()
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
@@ -114,6 +119,17 @@ class OptimizationOrchestrator:
         dplan = self.optimizer.optimize(params, avail)
         if dplan.empty:
             return None
+        if self._plan_sink is not None:
+            if not self._plan_sink(dplan):
+                # a declined plan moved nothing: the metrics stay for the
+                # next round
+                return None
+            # samples taken while the plan was decided must not feed the next
+            # round; the move itself lands later, at its epoch
+            self.metrics.clear(job_id=self.job_id)
+            result = PlanResult()
+            self.reconfig_log.append(result)
+            return result
         plan = self._compiler.compile(dplan, self.handle.table_id)
         if self.job_id is not None:
             log.info("job %s: reconfiguring table %s: %s", self.job_id,

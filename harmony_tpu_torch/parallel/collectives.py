@@ -120,6 +120,16 @@ def _wire(t: torch.Tensor) -> torch.Tensor:
     return t.contiguous()
 
 
+def _back(p: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A received tensor on ``device``: async onto a card (ordered on its
+    stream), but a blocking copy to the host, whose values the caller reads at
+    once (a non-blocking copy to the host would return before the collective
+    has delivered them)."""
+    if p.device == device:
+        return p
+    return p.to(device, non_blocking=device.type == "cuda")
+
+
 def process_all_gather(t: torch.Tensor, processes: Sequence[int]) -> List[torch.Tensor]:
     """This process's ``t`` and the same-shaped tensor of every other process
     of ``processes``, in process order, each on ``t``'s device."""
@@ -132,7 +142,7 @@ def process_all_gather(t: torch.Tensor, processes: Sequence[int]) -> List[torch.
     src = _wire(t)
     parts = [torch.empty_like(src) for _ in procs]
     torch.distributed.all_gather(parts, src, group=group)
-    out = [p.to(t.device, non_blocking=True) if p.device != t.device else p for p in parts]
+    out = [_back(p, t.device) for p in parts]
     nbytes = t.numel() * t.element_size()
     _note(nbytes, nbytes * len(procs))
     return out
@@ -158,7 +168,7 @@ def process_broadcast(t: torch.Tensor, src: int, processes: Sequence[int]) -> to
     buf = _wire(t)
     buf = buf.clone() if buf is t else buf
     torch.distributed.broadcast(buf, src=src, group=multihost.group_of(procs))
-    out = buf.to(t.device, non_blocking=True) if buf.device != t.device else buf
+    out = _back(buf, t.device)
     nbytes = t.numel() * t.element_size()
     _note(nbytes if multihost.process_index() == src else 0, nbytes)
     return out

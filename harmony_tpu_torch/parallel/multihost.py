@@ -18,7 +18,9 @@ processes into one ``torch.distributed`` world:
     fixed order by every process while the pod starts (:func:`group_of`): a
     group made later, by a job's thread, could deadlock the pod;
   * the groups' timeout, ``HARMONY_POD_UNIT_TIMEOUT`` seconds (600 by
-    default, the unit protocol's), so a wedged collective raises.
+    default, the unit protocol's), so a wedged collective raises;
+  * the store itself stays open (:func:`store`): a block move between
+    processes (``table/blockmove.py``) meets its peers' receivers through it.
 
 The arguments default from the environment ``torchrun`` sets (``MASTER_ADDR``,
 ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``), and a half-configured launch fails
@@ -45,7 +47,8 @@ class _Pod:
     """What this process knows of its pod once it has joined."""
 
     def __init__(self, rank: int, world: int, backend: str, reason: str,
-                 devices: List[List[str]], local: List[torch.device]) -> None:
+                 devices: List[List[str]], local: List[torch.device], store=None,
+                 coordinator: str = "") -> None:
         self.rank = rank
         self.world = world
         self.backend = backend
@@ -53,6 +56,8 @@ class _Pod:
         self.devices = devices          # process -> its devices, by name
         self.local = local              # this process's devices
         self.groups: Dict[Tuple[int, ...], object] = {}
+        self.store = store              # the coordinator's store
+        self.coordinator = coordinator  # its address as given
 
 
 _POD: Optional[_Pod] = None
@@ -83,8 +88,8 @@ def _device_identity(dev: torch.device) -> str:
 def choose_backend(identities: Sequence[Sequence[str]]) -> Tuple[str, str]:
     """(backend, reason) from every process's device identities: NCCL when
     every process drives cards and no card is driven by two processes, else
-    gloo."""
-    flat = [i for ids in identities for i in ids]
+    gloo. Two slots of one card in one process share it with no one."""
+    flat = [i for ids in identities for i in dict.fromkeys(ids)]
     if not flat or any(not i.startswith("cuda-") for i in flat):
         return "gloo", "a process runs on the CPU"
     if len(set(flat)) != len(flat):
@@ -156,7 +161,8 @@ def initialize_distributed(
         torch.cuda.set_device(local[0])
     dist.init_process_group(backend, store=dist.PrefixStore("harmony/pg", store),
                             rank=rank, world_size=num_processes, timeout=timeout)
-    pod = _Pod(rank, num_processes, backend, reason, [t["names"] for t in table], local)
+    pod = _Pod(rank, num_processes, backend, reason, [t["names"] for t in table], local,
+               store=store, coordinator=coordinator_address)
     everyone = tuple(range(num_processes))
     pod.groups[everyone] = dist.group.WORLD
     # every set of two or more processes, in one fixed order in every process
@@ -197,6 +203,20 @@ def is_multihost() -> bool:
 def backend() -> Optional[str]:
     """The pod's backend ("nccl" or "gloo"), None outside a pod."""
     return _POD.backend if _POD is not None else None
+
+
+def store():
+    """The pod's ``torch.distributed`` store (a TCP or file store), None
+    outside a pod."""
+    return _POD.store if _POD is not None else None
+
+
+def coordinator_host() -> Optional[str]:
+    """The coordinator's host, None for a file store or outside a pod."""
+    if _POD is None or _POD.coordinator.startswith("file://"):
+        return None
+    addr = _POD.coordinator.removeprefix("tcp://")
+    return addr.rpartition(":")[0] or "127.0.0.1"
 
 
 def local_devices() -> List[torch.device]:

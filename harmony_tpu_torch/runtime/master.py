@@ -22,6 +22,12 @@ As in the reference, uneven logical ownership is realised at the mesh's
 granularity: ``block_sharding`` shards the block axis when the owners divide
 the blocks and replicates it otherwise. At most one optimization loop drives
 a table's moves (``acquire_optimizer_lease``).
+
+On a pod every process of a table makes the same calls in the same order (a
+plan at the chief's epoch hook, ``jobserver/entity.py``): the block managers
+flip alike, the owners' mesh is the same in every process, and the reshard
+after the flip is the cross-process exchange (``table/blockmove.py``), in
+which every process of the old and new owners takes part.
 """
 from __future__ import annotations
 

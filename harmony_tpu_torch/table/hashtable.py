@@ -825,6 +825,11 @@ class DeviceHashTable(StreamOrder, LayoutAnnouncerMixin):
         self._check()
         self._reshard_storage(new_mesh, "_state")
 
+    def _parts_like(self):
+        """The (slot_keys, values) parts, as ((block shape, dtype), ...)."""
+        return ((tuple(self.spec.keys_shape[1:]), torch.int32),
+                (tuple(self.spec.values_shape[1:]), self.spec.dtype))
+
     def addressable_blocks(self, *args, **kwargs):
         raise NotImplementedError(
             "DeviceHashTable.addressable_blocks serves the pod's checkpoint, "

@@ -267,14 +267,18 @@ class LayoutAnnouncerMixin:
         table lock, after every enqueued write and read, the storage is
         rebuilt on the new sharding (``reshard_array``) and only then do the
         mesh, sharding, device and storage flip; onto the current layout,
-        nothing happens. Counts as a write."""
+        nothing happens. Counts as a write. Between processes every process
+        of the two meshes calls it alike; one that holds no slot of the new
+        mesh keeps no shard (an empty ``ShardedArray``). Hosts define
+        ``_parts_like``: their parts as ((block shape, dtype), ...)."""
         mesh = mesh_of(new_mesh)
         sharding = block_sharding(mesh, self.spec.num_blocks)
         with self._lock, dispatch_scope(max(self.mesh, mesh, key=lambda m: m.size)):
             if sharding == self.sharding:
                 return
             self._before_write()
-            setattr(self, attr, reshard_array(getattr(self, attr), self.sharding, sharding))
+            setattr(self, attr, reshard_array(getattr(self, attr), self.sharding, sharding,
+                                              like=self._parts_like()))
             self.mesh, self.sharding = mesh, sharding
             self.device = sharding.compute_slot().device
             self._order_new_layout()
@@ -518,20 +522,22 @@ def gather_shards(sharding: BlockSharding, row: int,
     return out
 
 
-def reshard_array(storage, old_sharding: BlockSharding, new_sharding: BlockSharding):
-    """Route a table's storage onto a new sharding, choosing the transfer up
-    front (the reference's ``reshard_array``; never by catching an
-    exception):
-
-      * the same sharding: the storage itself;
-      * a mesh that spans processes: ``blockmove.migrate_blocks`` refuses it
-        (the pod's transports, ROADMAP A item 3b);
-      * else the in-process block move, ``blockmove.migrate_blocks``."""
+def reshard_array(storage, old_sharding: BlockSharding, new_sharding: BlockSharding,
+                  like=None):
+    """A table's storage on a new sharding (the reference's
+    ``reshard_array``): the storage itself onto the same sharding, else
+    ``blockmove.migrate_blocks``, which takes the route from the two meshes
+    up front (never by catching an exception): the in-process block move, or
+    between processes the pod's transports (the reference's
+    ``cross_set_reshard``: each process sends only the blocks leaving it and
+    rebuilds only its own new shards; every process of the two meshes calls
+    it in lockstep, and ``like`` gives the storage's parts where this process
+    holds none)."""
     from harmony_tpu_torch.table.blockmove import migrate_blocks
 
     if old_sharding == new_sharding:
         return storage
-    return migrate_blocks(storage, old_sharding, new_sharding)
+    return migrate_blocks(storage, old_sharding, new_sharding, like)
 
 
 def _sharding_of(storage, current: BlockSharding) -> BlockSharding:
@@ -1001,6 +1007,10 @@ class DenseTable(StreamOrder, LayoutAnnouncerMixin):
         """What a step function receives (``DeviceHashTable``'s counterpart is
         its (slot_keys, values) pair)."""
         return self._arr
+
+    def _parts_like(self):
+        """The storage's one part, as ((block shape, dtype),)."""
+        return ((tuple(self.spec.storage_shape[1:]), self.spec.dtype),)
 
     def commit(self, new_arr) -> None:
         """Install the post-step storage (a step that updated in place hands

@@ -391,9 +391,10 @@ def test_a_move_between_processes_is_refused_naming_the_pod(monkeypatch):
     table = master.create_table(table_config(trainer), [e.id for e in exs[:2]])
     handle = master.table_handle(table.spec.table_id)
     handle.associate(exs[2].id)
-    monkeypatch.setattr(bm, "mesh_spans_processes", lambda mesh: True)
+    # the route goes between processes: outside a pod it is refused
+    monkeypatch.setattr(bm, "spans_processes", lambda old, new: True)
     before = final_state(table)
-    with pytest.raises(NotImplementedError, match="ROADMAP A item 3"):
+    with pytest.raises(RuntimeError, match="needs the pod's runtime"):
         handle.move_blocks(exs[0].id, exs[2].id, 4)
     # transfer first, mutate after: the table is untouched
     assert table.mesh.size == 2

@@ -21,9 +21,11 @@ killed follower take pods of their own.
   bits; ``pod_carve:1`` runs two jobs at once on disjoint processes (one
   wholly on the follower, its result riding the chief's report); a killed
   follower fails the running job within the heartbeat window and the leader
-  still answers STATUS, with ``pod.broken`` set; ``POD_RESHARD``, a chain and
-  an optimizer on a multi-process grant are refused naming ROADMAP A item 3b,
-  and so is a deferred evaluation on a grant wholly on the follower.
+  still answers STATUS, with ``pod.broken`` set; a chain, a resume from one
+  and a deferred evaluation on a multi-process grant are refused naming
+  ROADMAP A item 3b, and so is a deferred evaluation on a grant wholly on the
+  follower (``POD_RESHARD`` and the optimizer loop on a pod:
+  ``tests/test_torch_pod_moves.py``).
 * ``torchrun --nproc-per-node 2`` starts the same pod from its environment,
   with the one-process bits.
 
@@ -106,9 +108,11 @@ def job(app, job_id=None, epochs=2, pkg="harmony_tpu_torch", workers=1, lockstep
 
 
 class Pod:
-    """``cli start-pod`` in ``n`` processes on the CPU."""
+    """``cli start-pod`` in ``n`` processes on the CPU (``devices``: each
+    process's ``--device``, ``cpu,cpu`` for two slots a process)."""
 
-    def __init__(self, tmp, n=2, scheduler="share_all", env=None, torchrun=False):
+    def __init__(self, tmp, n=2, scheduler="share_all", env=None, torchrun=False,
+                 devices="cpu"):
         self.port, pod_port = _free_port(), _free_port()
         self.tmp = tmp
         full = dict(os.environ, OMP_NUM_THREADS="1", HARMONY_POD_HB_PERIOD="0.5",
@@ -116,7 +120,7 @@ class Pod:
         full.update(env or {})
         self.procs = []
         self.logs = []
-        pod = ["-m", "harmony_tpu_torch.cli", "start-pod", "--device", "cpu",
+        pod = ["-m", "harmony_tpu_torch.cli", "start-pod", "--device", devices,
                "--pod-port", str(pod_port), "--port", str(self.port), "--scheduler", scheduler]
         if torchrun:
             # one launcher for the n processes (its own session, so that
@@ -325,12 +329,18 @@ def test_pod_isolated_jobs_run_one_after_another_with_their_solo_bits(pod):
 
 
 def test_pod_reshard_a_chain_and_an_optimizer_are_refused_naming_item_3b(pod):
-    reply = pod.sender.send_pod_reshard_command("wd", "executor-0", "executor-1", 1, 3)
-    assert not reply["ok"] and "ROADMAP A item 3b" in reply["error"]
+    """What still waits for ROADMAP A item 3b on a multi-process grant: a
+    checkpoint chain, a resume from one and the deferred evaluation are
+    refused in both processes. ``POD_RESHARD`` and the optimizer loop run on
+    the pod now (``tests/test_torch_pod_moves.py``): a plan is refused here
+    only because its job is not running."""
+    reply = pod.sender.send_pod_reshard_command("wd", "executor-0", "executor-1", 1, 30)
+    assert not reply["ok"] and "unknown (or finished) pod job wd" in reply["error"], reply
     chained = job("mlr", job_id="mlr-chain", model_chkp_period=1)
-    optimized = job("mlr", job_id="mlr-opt")
-    optimized.optimizer = "empty"
-    for cfg in (chained, optimized):
+    resumed = job("mlr", job_id="mlr-resume")
+    resumed.user["resume_from_chain"] = True
+    evaluated = job("mlr", job_id="mlr-eval", offline_model_eval=True)
+    for cfg in (chained, resumed, evaluated):
         assert pod.sender.send_job_submit_command(cfg).get("ok")
         with pytest.raises(RuntimeError, match="ROADMAP A item 3b"):
             pod.sender.wait_result(cfg.job_id, timeout=DEADLINE, poll=2.0)
