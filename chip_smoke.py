@@ -160,8 +160,9 @@ As each phase ends a ``phase <name>: <s> s`` line gives its host seconds
    superstep for PageRank), PageRank's rank mass, a second run of each
    bit-identical, each against the same job on the CPU (the same supersteps,
    distances and labels exact, ranks within PR_RTOL; PageRank's comparison
-   at PR_CPU_ITERATIONS iterations, on the card and the CPU); edges/s a
-   superstep.
+   at PR_CPU_ITERATIONS iterations, shortest path's and components' at
+   GRAPH_CPU_SUPERSTEPS supersteps, each cut through its job's config, on
+   the card and the CPU); edges/s a superstep.
 3m. The ``lasso``, ``addvector`` and ``addinteger`` presets on the card and
    on the CPU: Lasso's losses within LOSS_ATOL, the AddVector and
    AddInteger tables at ``expected_value`` exactly.
@@ -368,6 +369,33 @@ As each phase ends a ``phase <name>: <s> s`` line gives its host seconds
    warm step. Its ``pod moves:`` line holds the numbers; ``python3
    chip_smoke.py --phase 3z`` runs the build, its one-slot runs and this
    phase alone.
+3pc. Checkpoint chains on the pod: two processes sharing cuda:0 over gloo
+   (on four or more cards four processes over NCCL, a card each), a slot a
+   process, their chains under one shared ``HARMONY_POD_CHKP_ROOT``. (a)
+   bench-widedeep (PC_WD_EPOCHS epochs) and bench-fm-hash (PC_FM_EPOCHS)
+   with an entry every epoch, after an unchained bench-widedeep run: every
+   process's losses the one-slot run's bits, every entry's block files and
+   checksums the one-slot chain entry's of its epoch byte for byte (their
+   SHA-256 printed), and the blocks each process staged exactly its own by
+   ``block_owners``, every block once; by entry and process the blocks and
+   bytes staged, the synchronous snapshot's ms on the training thread, the
+   write's ms and MB/s; step ms with and without the chain (the unchained
+   run again once the chains have run: a process's first job is slow). (b)
+   bench-widedeep chained for PC_RESUME_AT epochs, then resumed from its
+   chain to PC_WD_EPOCHS: the losses and the last entry the uninterrupted
+   run's, and a pod entry restored in this process on one slot the one-slot
+   table's bits. (d) bench-widedeep with PC_EVAL_WORKERS workers, a chain
+   and ``offline_model_eval``: at the pod's shutdown (every process exits 0,
+   the pod not broken) one metric dict an entry, held to this process's
+   one-slot evaluation of the same entries (the bits, else PC_EVAL_ATOL).
+   (c) bench-widedeep's table in fresh processes of a slot each, a pod
+   checkpoint with ``recovery_retain`` on, then ``restore_partial`` onto the
+   same grant (each process reads nothing) and onto the grant rotated by one
+   process (each reads exactly its new shard's blocks, ``bytes_read`` their
+   count times 27,132): the shards byte-exact, the read MB/s. K1-K3 are read
+   around each job in its own process. Its ``pod chains:`` line holds the
+   numbers; ``python3 chip_smoke.py --phase 3pc`` runs the build and this
+   phase alone.
 4. The sparse push route (``HARMONY_PUSH_VIA=sparse``): the Wide&Deep job
    of phase 3, which folds its pushes with K2.
 5. Where a step's time goes: a steady epoch of the Wide&Deep job on the host
@@ -400,7 +428,7 @@ As each phase ends a ``phase <name>: <s> s`` line gives its host seconds
    first data-axis run of each job of (b); pod: phase 3y (a), (b) and (d),
    summed over the processes, each process's counts read around its job;
    pod-moves: phase 3z's pod jobs, (a), (b) and (d) moved and unmoved, read
-   the same way);
+   the same way; pod-chains: phase 3pc's pod jobs, read the same way);
    K1-K3
    also carry ``device_ms``, ``library_device_ms``,
    ``library_deterministic_device_ms``, ``host_us`` and their timing at
@@ -2499,6 +2527,12 @@ PR_ITERATIONS = 10
 # 80GB HBM3 at 10 iterations), the slowest phase of the script, so its depth
 # was cut from 10 when phase 3w came.
 PR_CPU_ITERATIONS = 5
+# Shortest path's and components' card-against-CPU comparisons at full width
+# run this many supersteps on both (the JobServer's jobs above run to
+# convergence, 13 and 8): their CPU runs to convergence took 48.8 s and 51.6
+# s of phase 3l's 180.6 s beside an NVIDIA H100 80GB HBM3 at 700.00 W, and
+# phase 3pc needed the room.
+GRAPH_CPU_SUPERSTEPS = 2
 # PageRank's ranks, card against CPU: 1e-6 relative, the tier-1 limit against
 # the JAX package (the add fold gives the CPU's bits, so they may agree exactly).
 PR_RTOL = 1e-6
@@ -2975,7 +3009,7 @@ def run_pregel(graph):
         server.shutdown()
 
     for app in apps:
-        job, card = graph_job(app, PR_VERTICES), card_values[app]
+        job = graph_job(app, PR_VERTICES)
         if app == "pagerank":
             job = job.replace(params=job.params.replace(app_params={
                 **job.params.app_params, "num_iterations": PR_CPU_ITERATIONS}))
@@ -2984,7 +3018,14 @@ def run_pregel(graph):
             # phase 3y's reference (POD_PR_ITERATIONS is this run's count)
             out["full"][app]["pod_reference"] = {
                 "digest": vertex_digest(card["vertex_values"]), "supersteps": card["supersteps"]}
-        cpu = graph_entity_run(job, "cpu")
+            cpu = graph_entity_run(job, "cpu")
+        else:
+            job = job.replace(user={**job.user, "max_supersteps": GRAPH_CPU_SUPERSTEPS})
+            card = graph_entity_run(job, "cuda")
+            cpu = graph_entity_run(job, "cpu")
+            check(card["supersteps"] == GRAPH_CPU_SUPERSTEPS,
+                  f"bench-{app}: {card['supersteps']} supersteps, not {GRAPH_CPU_SUPERSTEPS}")
+            out["full"][app]["cpu_comparison_supersteps"] = GRAPH_CPU_SUPERSTEPS
         check(card["supersteps"] == cpu["supersteps"]
               and same_vertex_values(app, card["vertex_values"], cpu["vertex_values"]),
               f"bench-{app}: card and CPU differ")
@@ -6506,7 +6547,8 @@ class ChipPod:
     cuda:0 (gloo), each logging into a temporary directory; ``slots`` slots
     of its card a process. Killed in ``close`` whatever happened."""
 
-    def __init__(self, n: int, own_cards: bool, phase: str = "3y", slots: int = 1) -> None:
+    def __init__(self, n: int, own_cards: bool, phase: str = "3y", slots: int = 1,
+                 env: dict = None) -> None:
         import tempfile
 
         from harmony_tpu_torch.jobserver.client import CommandSender
@@ -6517,10 +6559,11 @@ class ChipPod:
         self.log_dir = tempfile.mkdtemp(prefix="harmony-pod-")
         for p in range(n):
             # a wedged collective raises well inside the phase's waits
-            env = dict(os.environ, OMP_NUM_THREADS="4", HARMONY_PUSH_VIA="mxu",
-                       HARMONY_POD_HB_PERIOD="1", HARMONY_POD_UNIT_TIMEOUT="120")
+            penv = dict(os.environ, OMP_NUM_THREADS="4", HARMONY_PUSH_VIA="mxu",
+                        HARMONY_POD_HB_PERIOD="1", HARMONY_POD_UNIT_TIMEOUT="120",
+                        **(env or {}))
             if own_cards:
-                env["CUDA_VISIBLE_DEVICES"] = str(p)
+                penv["CUDA_VISIBLE_DEVICES"] = str(p)
             err = open(os.path.join(self.log_dir, f"pod-process{p}.log"), "w")
             self.logs.append(err)
             self.procs.append(subprocess.Popen(
@@ -6528,7 +6571,7 @@ class ChipPod:
                  "--device", ",".join(["cuda:0"] * slots),
                  "--coordinator", f"127.0.0.1:{store}", "--num-processes", str(n),
                  "--process-id", str(p), "--pod-port", str(pod_port), "--port", str(self.port)],
-                cwd=REPO, env=env, stdout=err, stderr=subprocess.STDOUT, text=True))
+                cwd=REPO, env=penv, stdout=err, stderr=subprocess.STDOUT, text=True))
         self.sender = CommandSender(self.port)
         deadline = time.monotonic() + POD_READY_S
         while True:
@@ -6570,6 +6613,24 @@ class ChipPod:
                 return {j: pod["reports"][j] for j in ids}, pod
             check(time.monotonic() < deadline, f"phase {self.phase}: no reports for {ids}")
             time.sleep(0.2)
+
+    def shutdown(self) -> dict:
+        """SHUTDOWN: every process must exit 0 within the deadline; returns
+        what the leader prints as it closes (its deferred evaluations'
+        results and whether the pod was broken)."""
+        check(self.sender.send_shutdown_command().get("ok"),
+              f"phase {self.phase}: the pod refused SHUTDOWN")
+        for p, proc in enumerate(self.procs):
+            try:
+                proc.wait(timeout=POD_JOB_S)
+            except subprocess.TimeoutExpired:
+                fail(f"phase {self.phase}: process {p} did not exit: {self.log(p)[-3000:]}")
+            check(proc.returncode == 0, f"phase {self.phase}: process {p} exited "
+                                        f"{proc.returncode}: {self.log(p)[-3000:]}")
+        prefix = "pod jobserver closed: "
+        lines = [ln for ln in self.log(0).splitlines() if ln.startswith(prefix)]
+        check(len(lines) == 1, f"phase {self.phase}: no closing line: {self.log(0)[-3000:]}")
+        return json.loads(lines[0][len(prefix):])
 
     def close(self) -> None:
         try:
@@ -6667,30 +6728,8 @@ print("RESULT " + json.dumps(out), flush=True)
 
 
 def pod_combine_alone(n: int, own: bool):
-    """Phase 3y (e): POD_COMBINE_SCRIPT in n fresh processes."""
-    store = free_port()
-    procs = []
-    try:
-        for p in range(n):
-            env = dict(os.environ, OMP_NUM_THREADS="4", HARMONY_POD_UNIT_TIMEOUT="120")
-            if own:
-                env["CUDA_VISIBLE_DEVICES"] = str(p)
-            procs.append(subprocess.Popen(
-                [sys.executable, "-c", POD_COMBINE_SCRIPT, f"127.0.0.1:{store}", str(n), str(p),
-                 "1" if own else "0"],
-                cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-        outs = []
-        for p in procs:
-            out, _ = p.communicate(timeout=180)
-            lines = [ln for ln in out.splitlines() if ln.startswith("RESULT ")]
-            check(p.returncode == 0 and lines, f"phase 3y (e): a process failed: {out[-3000:]}")
-            outs.append(json.loads(lines[-1][len("RESULT "):]))
-        return outs
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait(timeout=30)
+    """Phase 3y (e): POD_COMBINE_SCRIPT in n fresh processes; their results."""
+    return pod_script(POD_COMBINE_SCRIPT, n, own, "3y (e)")
 
 
 def run_pod(refs):
@@ -7040,8 +7079,11 @@ print("RESULT " + json.dumps(out), flush=True)
 """
 
 
-def pod_moves_alone(n: int, own: bool):
-    """Phase 3z (c): POD_MOVE_SCRIPT in n fresh processes; their results."""
+def pod_script(script: str, n: int, own: bool, what: str, *args: str):
+    """``script`` in n fresh processes joined as a pod's are (one card each
+    when ``own``, else all on cuda:0), each given the store, n, its id, own
+    and ``args``; their ``RESULT`` lines. A failure prints every process's
+    output."""
     store = free_port()
     procs = []
     try:
@@ -7050,8 +7092,8 @@ def pod_moves_alone(n: int, own: bool):
             if own:
                 env["CUDA_VISIBLE_DEVICES"] = str(p)
             procs.append(subprocess.Popen(
-                [sys.executable, "-c", POD_MOVE_SCRIPT, f"127.0.0.1:{store}", str(n), str(p),
-                 "1" if own else "0"],
+                [sys.executable, "-c", script, f"127.0.0.1:{store}", str(n), str(p),
+                 "1" if own else "0", *args],
                 cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
         texts = []
         for p in procs:
@@ -7064,7 +7106,7 @@ def pod_moves_alone(n: int, own: bool):
         outs = []
         for p, (proc, out) in enumerate(zip(procs, texts)):
             lines = [ln for ln in out.splitlines() if ln.startswith("RESULT ")]
-            check(proc.returncode == 0 and lines, "phase 3z (c): a process failed:\n" + "\n".join(
+            check(proc.returncode == 0 and lines, f"phase {what}: a process failed:\n" + "\n".join(
                 f"--- process {q}\n{t[-4000:]}" for q, t in enumerate(texts)))
             outs.append(json.loads(lines[-1][len("RESULT "):]))
         return outs
@@ -7073,6 +7115,11 @@ def pod_moves_alone(n: int, own: bool):
             if p.poll() is None:
                 p.kill()
                 p.wait(timeout=30)
+
+
+def pod_moves_alone(n: int, own: bool):
+    """Phase 3z (c): POD_MOVE_SCRIPT in n fresh processes; their results."""
+    return pod_script(POD_MOVE_SCRIPT, n, own, "3z (c)")
 
 
 def check_table_moves(rows, n: int):
@@ -7353,6 +7400,340 @@ def run_pod_moves(warm_step_ms=None):
     return launches, out
 
 
+# -- phase 3pc: checkpoint chains on the pod ----------------------------------
+
+# (a) bench-widedeep chains PC_WD_EPOCHS epochs and bench-fm-hash PC_FM_EPOCHS,
+# an entry every epoch; (b) the resume splits bench-widedeep's run after
+# PC_RESUME_AT epochs; (d) the evaluated chain runs PC_EVAL_EPOCHS epochs
+# with PC_EVAL_WORKERS workers. Its evaluation on the pod is held to the
+# one-slot evaluation of the same entries: the bits, else PC_EVAL_ATOL (the
+# tier-1 limit against the reference's evaluator).
+PC_WD_EPOCHS = 4
+PC_FM_EPOCHS = 2
+PC_RESUME_AT = 2
+PC_EVAL_EPOCHS = 2
+PC_EVAL_WORKERS = 2
+PC_EVAL_ATOL = 1e-5
+
+# Phase 3pc (c): bench-widedeep's table (256 blocks of 399 x 17 f32, seeded
+# values, the same in every process) in fresh processes of a slot each,
+# checkpointed by the pod with recovery_retain on, then restore_partial onto
+# the same grant and onto the grant rotated by one process: each process's
+# stats, its shards against the values (byte-exact), and the seconds.
+POD_PARTIAL_SCRIPT = r"""
+import json, os, sys, time
+import numpy as np, torch
+from harmony_tpu_torch.parallel import multihost
+store, n, p, own, root = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4] == "1", sys.argv[5]
+multihost.initialize_distributed(store, n, p, devices=["cuda" if own else "cuda:0"])
+from harmony_tpu_torch.checkpoint.manager import CheckpointManager
+from harmony_tpu_torch.config.params import TableConfig
+from harmony_tpu_torch.parallel.mesh import DevicePool
+from harmony_tpu_torch.runtime.master import ETMaster, TableHandle
+master = ETMaster(DevicePool(multihost.global_slots()))
+ids = [e.id for e in master.add_executors(n)]
+cfg = TableConfig(table_id="pc-partial", capacity=102144, value_shape=(17,), num_blocks=256)
+values = np.random.default_rng(0).standard_normal((256, 399, 17), dtype=np.float32)
+table = master.create_table(cfg, ids)
+table.import_blocks({b: values[b] for b in range(256)})
+mgr = CheckpointManager(os.path.join(root, "temp"), os.path.join(root, "commit"))
+mgr.recovery_retain = True
+t0 = time.perf_counter()
+cid = mgr.checkpoint(TableHandle(master, table, ids), commit=True)
+out = {"process": p, "chkp_id": cid, "checkpoint_s": time.perf_counter() - t0,
+       "staged": mgr.last_staged["block_ids"], "staged_bytes": mgr.last_staged["bytes"],
+       "block_nbytes": int(values[0].nbytes)}
+for name, grant in (("same", ids), ("rotated", ids[1:] + ids[:1])):
+    multihost.mesh_barrier(multihost.global_mesh())
+    t0 = time.perf_counter()
+    h, stats = mgr.restore_partial(master, cid, grant, table_id=f"pc-partial-{name}")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    sh, held, exact = h.table.sharding, [], True
+    for slot, t in h.table.array.shards.items():
+        blocks = sh.slot_blocks(slot)
+        held += list(blocks)
+        exact = exact and t.cpu().numpy().tobytes() == values[blocks.start:blocks.stop].tobytes()
+    out[name] = {"stats": stats, "seconds": secs, "held": sorted(held), "exact": exact}
+    h.drop()
+multihost.shutdown_distributed()
+print("RESULT " + json.dumps(out), flush=True)
+"""
+
+
+def pc_chain_configs():
+    """Phase 3pc's jobs by name: bench-widedeep with and without a chain, its
+    two resume legs, bench-fm-hash with a chain, and the evaluated
+    bench-widedeep chain."""
+    def wd(job_id, epochs, **params):
+        cfg = pod_wd_config(job_id, epochs)
+        return cfg.replace(params=cfg.params.replace(**params))
+
+    resumed = wd("pc-wd-resume", PC_WD_EPOCHS, model_chkp_period=1)
+    return {
+        "plain": wd("pc-wd-plain", PC_WD_EPOCHS),
+        "wd": wd("pc-wd", PC_WD_EPOCHS, model_chkp_period=1),
+        "fm": hash_job("fm", PC_FM_EPOCHS, model_chkp_period=1).replace(job_id="pc-fm"),
+        "first": wd("pc-wd-resume", PC_RESUME_AT, model_chkp_period=1),
+        "resumed": resumed.replace(user={**resumed.user, "resume_from_chain": True}),
+        "eval": wd("pc-wd-eval", PC_EVAL_EPOCHS, model_chkp_period=1,
+                   offline_model_eval=True).replace(num_workers=PC_EVAL_WORKERS),
+    }
+
+
+def pc_entries(root: str, job_id: str) -> dict:
+    """epoch -> {"id", "files" (name -> SHA-256 of its bytes), "checksums",
+    "ownership"} of a job's committed chain under ``root``."""
+    import hashlib
+
+    commit = os.path.join(root, job_id, "commit")
+    out = {}
+    for cid in sorted(os.listdir(commit)):
+        d = os.path.join(commit, cid)
+        with open(os.path.join(d, "manifest.json")) as f:
+            manifest = json.load(f)
+        files = {}
+        for name in sorted(os.listdir(d)):
+            if name != "manifest.json":
+                with open(os.path.join(d, name), "rb") as f:
+                    files[name] = hashlib.sha256(f.read()).hexdigest()
+        out[int(manifest["app_meta"]["epoch"])] = {
+            "id": cid, "files": files, "checksums": manifest["block_checksums"],
+            "ownership": manifest["ownership"]}
+    return out
+
+
+def pc_one_slot_refs(root: str, configs: dict) -> dict:
+    """Phase 3pc's one-slot runs on cuda:0 (``HARMONY_PUSH_VIA=mxu``, as the
+    pod's processes): bench-widedeep's and bench-fm-hash's chains under
+    ``root``, and their batch losses."""
+    os.environ["HARMONY_PUSH_VIA"] = "mxu"
+    server = chain_server(root)
+    try:
+        out = {}
+        for key in ("wd", "fm"):
+            res = server.submit(configs[key]).result(timeout=POD_JOB_S)
+            (w,) = res["workers"].values()
+            out[key] = w["batch_losses"]
+        return out
+    finally:
+        server.shutdown()
+        os.environ.pop("HARMONY_PUSH_VIA")
+
+
+def pc_restored_bits(root: str, job_id: str, chkp_id: str) -> bytes:
+    """An entry restored in this process on one slot of the card: its table's
+    bytes in key order."""
+    from harmony_tpu_torch.checkpoint.manager import CheckpointManager
+    from harmony_tpu_torch.parallel.mesh import DevicePool
+    from harmony_tpu_torch.runtime.master import ETMaster
+
+    master = ETMaster(DevicePool([torch.device("cuda")]))
+    h = CheckpointManager.for_job(root, job_id).restore(
+        master, chkp_id, [e.id for e in master.add_executors(1)])
+    try:
+        return h.table.pull_array().cpu().numpy().tobytes()
+    finally:
+        h.drop()
+
+
+def pc_one_slot_eval(copy: str, config, chkp_ids) -> list:
+    """The evaluation of a chain's entries (a copy of its files) in this
+    process on one slot of the card."""
+    from harmony_tpu_torch.checkpoint.manager import CheckpointManager
+    from harmony_tpu_torch.dolphin.evaluator import ModelEvaluator, resolve_eval_inputs
+    from harmony_tpu_torch.parallel.mesh import DevicePool
+    from harmony_tpu_torch.runtime.master import ETMaster
+
+    master = ETMaster(DevicePool([torch.device("cuda")]))
+    mgr = CheckpointManager(os.path.join(copy, "temp"), os.path.join(copy, "commit"))
+    trainer, batch = resolve_eval_inputs(config)
+    return ModelEvaluator(master, mgr).evaluate_checkpoints(
+        list(chkp_ids), trainer, batch, [e.id for e in master.add_executors(1)])
+
+
+def run_pod_chains():
+    """Phase 3pc: checkpoint chains on the pod (see the module doc)."""
+    import tempfile
+
+    from harmony_tpu_torch.parallel.mesh import Slot, build_mesh
+    from harmony_tpu_torch.table.blockmove import block_owners
+    from harmony_tpu_torch.table.table import BlockSharding
+
+    t0 = time.perf_counter()
+    cards = torch.cuda.device_count()
+    own = cards >= 4
+    n = 4 if own else 2
+    configs = pc_chain_configs()
+    scratch = tempfile.mkdtemp(prefix="harmony-pc-")
+    pod_root, one_root = os.path.join(scratch, "pod"), os.path.join(scratch, "one")
+    out = {"processes": n, "cards": cards if own else 1}
+    launches = {name: 0 for name in ("gather_rows", "segment_sum_rows", "weighted_histogram",
+                                     "flash_forward", "flash_backward_dkv", "flash_backward_dq")}
+    try:
+        refs = pc_one_slot_refs(one_root, configs)
+        torch.cuda.empty_cache()
+        pod = ChipPod(n, own, phase="3pc", env={"HARMONY_POD_CHKP_ROOT": pod_root})
+        try:
+            out["ready"] = pod.ready_line
+            out["backend"] = pod.backend.split(": ", 1)[-1]
+            print(f"phase 3pc: {out['ready']}; {out['backend']}", flush=True)
+
+            def run(key):
+                cfg = configs[key]
+                reps, _ = pod.run(cfg)
+                reps = reps[cfg.job_id]
+                check(sorted(reps) == [str(p) for p in range(n)]
+                      and all(r["ok"] for r in reps.values()),
+                      f"phase 3pc {key}: reports {json.dumps(reps)[:3000]}")
+                for rep in reps.values():
+                    for name, v in rep["launches"].items():
+                        launches[name] += v
+                return [reps[str(p)] for p in range(n)]
+
+            def worker(rep):
+                (w,) = rep["workers"].values()
+                return w
+
+            def step_ms(rep):
+                secs = [s for w in rep["workers"].values() for s in w["epoch_seconds"][1:]]
+                return 1e3 * statistics.mean(secs) / BATCHES
+
+            # (a) the chains, after an unchained run that loads each process's
+            # kernels and libraries (a process's first job is slow throughout);
+            # the unchained step is timed again once the chains have run
+            run("plain")
+            a = {}
+            for key in ("wd", "fm"):
+                reps = run(key)
+                job_id = configs[key].job_id
+                for p, rep in enumerate(reps):
+                    check(worker(rep)["batch_losses"] == refs[key],
+                          f"phase 3pc (a) {job_id}: process {p}'s losses are not the one-slot bits")
+                got, want = pc_entries(pod_root, job_id), pc_entries(one_root, job_id)
+                check(sorted(got) == sorted(want) == list(range(configs[key].params.num_epochs)),
+                      f"phase 3pc (a) {job_id}: entries {sorted(got)} against {sorted(want)}")
+                nb = len(want[0]["files"])
+                mesh = build_mesh([Slot(i, torch.device("cpu"), i) for i in range(n)], data=1)
+                owners = block_owners(BlockSharding(mesh, nb), (nb,))
+                rows = []
+                for i, epoch in enumerate(sorted(got)):
+                    e = got[epoch]
+                    check(e["id"].endswith("-pod") and e["files"] == want[epoch]["files"]
+                          and e["checksums"] == want[epoch]["checksums"],
+                          f"phase 3pc (a) {job_id}: entry {e['id']} is not the one-slot entry "
+                          f"of epoch {epoch} byte for byte")
+                    staged = [rep["model_chkp_stats"][i] for rep in reps]
+                    flat = sorted(b for st in staged for b in st["block_ids"])
+                    check(flat == list(range(nb)) and all(
+                        st["chkp_id"] == e["id"]
+                        and st["block_ids"] == [b for b in range(nb) if owners[b] == p]
+                        for p, st in enumerate(staged)),
+                        f"phase 3pc (a) {job_id}: the staged blocks are not block_owners'")
+                    rows.append({"epoch": epoch, "id": e["id"], "by_process": [{
+                        "process": p, "blocks": st["blocks"], "bytes": st["bytes"],
+                        "snapshot_ms": 1e3 * st["snapshot_seconds"],
+                        "write_ms": 1e3 * st["write_seconds"],
+                        "write_mb_per_s": st["bytes"] / 1e6 / st["write_seconds"]}
+                        for p, st in enumerate(staged)],
+                        "files_sha256": files_digest(e["files"])})
+                a[key] = {"blocks": nb, "entries": rows,
+                          "step_ms": [step_ms(rep) for rep in reps]}
+            plain = run("plain")
+            for p, rep in enumerate(plain):
+                check(worker(rep)["batch_losses"] == refs["wd"],
+                      f"phase 3pc (a): process {p}'s unchained losses differ")
+            a["wd"]["step_ms_unchained"] = [step_ms(rep) for rep in plain]
+            out["chains"] = a
+            print(f"phase 3pc (a): the pod's chains are the one-slot chains byte for byte: "
+                  f"{json.dumps(a)}", flush=True)
+
+            # (b) the resume: the uninterrupted run's losses and table
+            first, resumed = run("first"), run("resumed")
+            for p in range(n):
+                check(worker(first[p])["batch_losses"] + worker(resumed[p])["batch_losses"]
+                      == refs["wd"], f"phase 3pc (b): process {p}'s resumed losses differ")
+            got, whole = pc_entries(pod_root, "pc-wd-resume"), pc_entries(pod_root, "pc-wd")
+            last = PC_WD_EPOCHS - 1
+            check(got[last]["files"] == whole[last]["files"],
+                  "phase 3pc (b): the resumed table is not the uninterrupted one")
+            one_slot = pc_entries(one_root, "pc-wd")[last]["id"]
+            same = (pc_restored_bits(pod_root, "pc-wd", whole[last]["id"])
+                    == pc_restored_bits(one_root, "pc-wd", one_slot))
+            check(same, "phase 3pc (b): the pod entry restored on one slot is not the one-slot table")
+            out["resume"] = {"at_epoch": PC_RESUME_AT, "ids": [got[e]["id"] for e in sorted(got)],
+                             "restored_in_one_process": same}
+            print(f"phase 3pc (b): the resume gives the uninterrupted bits: "
+                  f"{json.dumps(out['resume'])}", flush=True)
+
+            # (d) the collective deferred evaluation at the pod's shutdown
+            ev = run("eval")
+            ids = ev[0]["model_chkp_ids"]
+            copy = os.path.join(scratch, "eval-copy")
+            shutil.copytree(os.path.join(pod_root, "pc-wd-eval"), copy)
+            t1 = time.perf_counter()
+            closed = pod.shutdown()
+            shutdown_s = time.perf_counter() - t1
+        finally:
+            pod.close()
+        evals = closed["eval_results"].get("pc-wd-eval")
+        check(isinstance(evals, list) and len(evals) == len(ids) == PC_EVAL_EPOCHS,
+              f"phase 3pc (d): eval_results {json.dumps(closed)[:2000]}")
+        check(closed["broken"] is None, f"phase 3pc (d): the pod broke: {closed['broken']}")
+        alone = pc_one_slot_eval(copy, configs["eval"], ids)
+        gap = max(abs(m[k] - r[k]) for m, r in zip(evals, alone) for k in r)
+        check(all(m.keys() == r.keys() for m, r in zip(evals, alone)) and gap <= PC_EVAL_ATOL,
+              f"phase 3pc (d): the pod's evaluation {evals} against one slot's {alone}")
+        out["eval"] = {"workers": PC_EVAL_WORKERS, "entries": len(ids), "pod": evals,
+                       "bit_identical_to_one_slot": evals == alone, "max_abs_gap": gap,
+                       "shutdown_s": shutdown_s}
+        print(f"phase 3pc (d): the collective evaluation: {json.dumps(out['eval'])}", flush=True)
+
+        # (c) restore_partial in fresh processes
+        rows = pod_script(POD_PARTIAL_SCRIPT, n, own, "3pc (c)", os.path.join(scratch, "partial"))
+        per = 256 // n
+        c = []
+        for r in rows:
+            p, bnb = r["process"], r["block_nbytes"]
+            check(r["staged"] == list(range(p * per, (p + 1) * per)),
+                  f"phase 3pc (c): process {p} staged {r['staged'][:4]}...")
+            same, rot = r["same"], r["rotated"]
+            check(same["exact"] and rot["exact"], f"phase 3pc (c): process {p}'s shards differ")
+            check(same["stats"] == {"partial": 1, "blocks_total": 256, "blocks_needed": per,
+                                    "blocks_local": per, "blocks_read": 0, "bytes_read": 0}
+                  and same["held"] == r["staged"],
+                  f"phase 3pc (c): process {p} on the same grant: {same['stats']}")
+            q = (p - 1) % n
+            check(rot["held"] == list(range(q * per, (q + 1) * per))
+                  and rot["stats"] == {"partial": 1, "blocks_total": 256, "blocks_needed": per,
+                                       "blocks_local": 0, "blocks_read": per,
+                                       "bytes_read": per * bnb},
+                  f"phase 3pc (c): process {p} on the rotated grant: {rot['stats']}")
+            c.append({"process": p, "checkpoint_s": r["checkpoint_s"],
+                      "same_grant": {**same["stats"], "seconds": same["seconds"]},
+                      "rotated_grant": {**rot["stats"], "seconds": rot["seconds"],
+                                        "read_mb_per_s": rot["stats"]["bytes_read"] / 1e6
+                                        / rot["seconds"]}})
+        out["restore_partial"] = c
+        print(f"phase 3pc (c): restore_partial reads only what each process lacks: "
+              f"{json.dumps(c)}", flush=True)
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    out["launches"] = {k: v for k, v in launches.items() if v}
+    check(all(launches[k] > 0 for k in ("gather_rows", "segment_sum_rows", "weighted_histogram")),
+          f"phase 3pc: launches {launches}: a kernel never ran on the pod")
+    out["seconds"] = time.perf_counter() - t0
+    return launches, out
+
+
+def files_digest(files: dict) -> str:
+    """One SHA-256 over an entry's files' digests, in name order."""
+    import hashlib
+
+    return hashlib.sha256("".join(f"{k}:{v};" for k, v in sorted(files.items())).encode()
+                          ).hexdigest()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a CUDA card")
@@ -7389,7 +7770,7 @@ def main() -> int:
               f"{kernel} D={d} block_k={bk}: ptxas reports spills ({entry})")
     clock("1")
 
-    alone = ("3t", "3u", "3v", "3w", "3x", "3y", "3z")
+    alone = ("3t", "3u", "3v", "3w", "3x", "3y", "3z", "3pc")
     if len(sys.argv) == 3 and sys.argv[1] == "--phase" and sys.argv[2] in alone:
         # one phase alone (a host of several cards: the real mesh; 3t also
         # the device guard), 3t held to one-slot runs of its own
@@ -7412,6 +7793,9 @@ def main() -> int:
         elif name == "3z":
             _, moves = run_pod_moves()
             print("pod moves: " + json.dumps(moves), flush=True)
+        elif name == "3pc":
+            _, chains = run_pod_chains()
+            print("pod chains: " + json.dumps(chains), flush=True)
         else:
             _, elastic = run_elastic()
             print("elastic: " + json.dumps(elastic), flush=True)
@@ -7422,7 +7806,7 @@ def main() -> int:
             "count": torch.cuda.device_count()}}))
         return 0
     check(not sys.argv[1:],
-          f"unknown arguments {sys.argv[1:]} (only --phase 3t, 3u, 3v, 3w, 3x, 3y or 3z)")
+          f"unknown arguments {sys.argv[1:]} (only --phase 3t, 3u, 3v, 3w, 3x, 3y, 3z or 3pc)")
 
     table, idx, err = check_kernels(dev)
     timing, skew = time_kernels(dev, table, idx)
@@ -7573,6 +7957,10 @@ def main() -> int:
     for name, counts in by_path.items():
         counts["pod-moves"] = moves_launches[name]
     clock("3z")
+    chains_launches, pod_chains = run_pod_chains()
+    for name, counts in by_path.items():
+        counts["pod-chains"] = chains_launches[name]
+    clock("3pc")
     print("hash ops: " + json.dumps(hash_ops) + "; autotune: " + json.dumps(tune), flush=True)
     print("profiler: markers lost by the kept profiles (lost: profiles), retakes: "
           + json.dumps(PROFILE_LOG), flush=True)
@@ -7628,6 +8016,7 @@ def main() -> int:
     print("dp: " + json.dumps(dx), flush=True)
     print("pod: " + json.dumps(pod), flush=True)
     print("pod moves: " + json.dumps(moves), flush=True)
+    print("pod chains: " + json.dumps(pod_chains), flush=True)
     print(gpu_identity())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

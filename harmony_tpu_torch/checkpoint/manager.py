@@ -28,9 +28,19 @@ Block I/O runs on ``HARMONY_CHKP_IO_THREADS`` threads (default 4; 1 is the
 serial route, the same files and checksums), each block written or read with
 the ``chkp.block_write`` / ``chkp.block_read`` fault sites and bounded retry.
 
-Not ported: the pod checkpoint across host processes (``_pod_checkpoint``,
-ROADMAP A.9), ``restore_partial`` and the recovery cache of elastic recovery,
-and the tenant-accounting and joblog hooks (A.10).
+On a table whose mesh spans the processes of a pod, :meth:`CheckpointManager.checkpoint`
+is a collective (``_pod_checkpoint``): each process stages only the blocks it
+owns, with a checksum sidecar of its own, and the mesh's lowest process merges
+the sidecars into the manifest, renames the directory into place and commits,
+between fences of ``parallel/multihost.py::mesh_sum`` that carry every
+process's error flag. ``restore`` onto such a mesh installs only this
+process's shards, and :meth:`CheckpointManager.restore_partial` (elastic
+recovery's restore) reads only the blocks of them that this process's
+recovery cache (``recovery_blocks``, filled when ``recovery_retain`` is set)
+does not hold.
+
+Not ported: the reference's read accounting and I/O histograms (the metrics
+registry), and the tenant-accounting and joblog hooks (ROADMAP A.10).
 """
 from __future__ import annotations
 
@@ -41,7 +51,7 @@ import os
 import shutil
 import threading
 import time
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -49,6 +59,8 @@ from harmony_tpu_torch import faults, native
 from harmony_tpu_torch.config.base import _REGISTRY, ConfigBase
 from harmony_tpu_torch.config.params import RetryPolicy, TableConfig
 from harmony_tpu_torch.faults.retry import call_with_retry
+from harmony_tpu_torch.parallel import multihost
+from harmony_tpu_torch.parallel.mesh import is_local, mesh_spans_processes
 from harmony_tpu_torch.runtime.master import ETMaster, TableHandle
 from harmony_tpu_torch.tracing.span import SpanContext, trace_span, wire_context
 
@@ -66,6 +78,53 @@ _INFLIGHT_PER_THREAD = 256 << 20
 
 #: blocks per import_blocks call on the pipelined restore route
 _RESTORE_CHUNK_BLOCKS = 16
+
+
+# -- per-process recovery cache (elastic recovery) --------------------------
+#
+# One entry a table id: the host copies of the blocks THIS process staged for
+# its newest checkpoint, kept while a job opted in
+# (CheckpointManager.recovery_retain). A partial restore takes every cached
+# block from here and reads only the others from storage. Module-global, not a
+# manager's: each recovery attempt builds a fresh CheckpointManager.
+
+_RECOVERY_CACHE: Dict[str, Tuple[str, Dict[int, np.ndarray]]] = {}
+_RECOVERY_LOCK = threading.Lock()
+_RECOVERY_MAX_TABLES = 8
+
+
+def _recovery_put(table_id: str, chkp_id: str, blocks: Dict[int, np.ndarray]) -> None:
+    with _RECOVERY_LOCK:
+        _RECOVERY_CACHE.pop(table_id, None)
+        _RECOVERY_CACHE[table_id] = (chkp_id, blocks)
+        while len(_RECOVERY_CACHE) > _RECOVERY_MAX_TABLES:
+            _RECOVERY_CACHE.pop(next(iter(_RECOVERY_CACHE)))
+
+
+def recovery_blocks(chkp_id: str) -> Optional[Dict[int, np.ndarray]]:
+    """This process's cached block copies of EXACTLY ``chkp_id``, or None: an
+    older checkpoint of the same table is never returned (mixing epochs would
+    break the recovery's consistent cut)."""
+    with _RECOVERY_LOCK:
+        for cid, blocks in _RECOVERY_CACHE.values():
+            if cid == chkp_id:
+                return dict(blocks)
+    return None
+
+
+def drop_recovery_cache(table_id: Optional[str] = None,
+                        prefix: Optional[str] = None) -> None:
+    """Release retained block copies: one table, every table whose id starts
+    with ``prefix`` (a job's private tables are ``<job_id>:...``), or all."""
+    with _RECOVERY_LOCK:
+        if table_id is None and prefix is None:
+            _RECOVERY_CACHE.clear()
+            return
+        if table_id is not None:
+            _RECOVERY_CACHE.pop(table_id, None)
+        if prefix is not None:
+            for tid in [t for t in _RECOVERY_CACHE if t.startswith(prefix)]:
+                _RECOVERY_CACHE.pop(tid, None)
 
 
 def _chkp_io_threads() -> int:
@@ -438,6 +497,14 @@ class CheckpointManager:
         os.makedirs(temp_root, exist_ok=True)
         self._lock = threading.Lock()
         self._counter = 0
+        #: set for elastic jobs: each full-ratio checkpoint also keeps this
+        #: process's staged host copies in the recovery cache, so a later
+        #: partial restore reads only the blocks it lacks
+        self.recovery_retain = False
+        #: this process's share of its newest pod checkpoint: the chkp id, the
+        #: ids, count and bytes of the blocks it staged, and the seconds the
+        #: staging took (the host copies and the block writes)
+        self.last_staged: Dict[str, Any] = {}
 
     def advance_counter(self, base: int) -> None:
         """Start id counters past ``base``: a RESUMED job's chain continues
@@ -492,6 +559,8 @@ class CheckpointManager:
                 keep = max(1, int(block_size * info.sampling_ratio))
             sparse = info.table_config.sparse
             policy = RetryPolicy.from_env()
+            retained: Optional[Dict[int, np.ndarray]] = (
+                {} if self.recovery_retain and keep is None else None)
             # one device-to-host copy of each part; the device copy goes with it
             ids, parts = snap.ids, snap.to_host()
             snap.parts = ()
@@ -504,10 +573,14 @@ class CheckpointManager:
                     else:
                         arr = parts[0][i]
                         arr = arr[:keep] if keep else arr
+                    if retained is not None:
+                        retained[ids[i]] = arr
                     staged_bytes += int(arr.nbytes)
                     yield ids[i], arr
 
             info.block_checksums = _stage_blocks(staging, host_blocks(), policy)
+            if retained is not None:
+                _recovery_put(info.table_config.table_id, info.chkp_id, retained)
             with open(os.path.join(staging, "manifest.json"), "w") as f:
                 f.write(info.to_json())
             os.rename(staging, tdir)
@@ -524,13 +597,138 @@ class CheckpointManager:
                    commit: bool = False,
                    app_meta: Optional[Dict[str, float]] = None) -> str:
         """Stage the table's blocks to temp storage, optionally commit. Returns
-        the checkpoint id (``tableId-seq-timestamp``)."""
+        the checkpoint id (``tableId-seq-timestamp``).
+
+        On a mesh over several processes this is a collective
+        (:meth:`_pod_checkpoint`): every process of the mesh calls it with the
+        same arguments at the same point of its call sequence."""
         with trace_span("checkpoint.write", table=handle.table_id) as sp:
-            chkp_id, snap, info = self._snapshot(handle, sampling_ratio, app_meta)
-            self._write(info, snap, handle.table.spec.block_size, commit)
+            if mesh_spans_processes(handle.table.mesh):
+                chkp_id = self._pod_checkpoint(handle, sampling_ratio, commit, app_meta)
+            else:
+                chkp_id, snap, info = self._snapshot(handle, sampling_ratio, app_meta)
+                self._write(info, snap, handle.table.spec.block_size, commit)
             if sp is not None:
                 sp.annotate("chkp_id", chkp_id)
             return chkp_id
+
+    def _pod_checkpoint(self, handle: TableHandle, sampling_ratio: float, commit: bool,
+                        app_meta: Optional[Dict[str, float]] = None) -> str:
+        """The pod's two-stage checkpoint (the reference's
+        ``_pod_checkpoint``): each process stages the blocks it owns from its
+        own shards, no process touching another's bytes; then the mesh's
+        lowest process writes the manifest, renames the staging directory
+        into place and commits. Three fences (``mesh_sum``) order it:
+        cleared, staged and done, each carrying every process's error flag,
+        so a one-sided failure makes every process raise, none waiting.
+
+        ``temp_root`` must be storage every process of the mesh sees. The id
+        comes from the per-process counter, never a clock, so every process
+        names the same checkpoint: the counter is bumped past ids already in
+        storage (a resubmitted job's fresh manager would reuse them), and the
+        scan never reads ``.writing`` staging, which peers create mid-scan."""
+        if sampling_ratio != 1.0:
+            raise ValueError(
+                "sampling is single-process only: a sampled pod restore would "
+                "need the cross-process pad path")
+        with self._lock:
+            while True:
+                self._counter += 1
+                chkp_id = f"{handle.table_id}-{self._counter}-pod"
+                if not self._backend.exists(chkp_id) and not os.path.isdir(
+                        os.path.join(self.temp_root, chkp_id)):
+                    break
+        mesh = handle.table.mesh
+        me = multihost.process_index()
+        leader = min(mesh.processes)
+        info = CheckpointInfo(
+            chkp_id=chkp_id,
+            table_config=handle.table.spec.config,
+            block_ids=list(range(handle.table.spec.num_blocks)),
+            ownership=handle.ownership_vector(),
+            executors=list(handle.executors),
+            sampling_ratio=1.0,
+            committed=False,
+            created_at=time.time(),
+            app_meta=app_meta,
+        )
+        tdir = os.path.join(self.temp_root, chkp_id)
+        staging = tdir + ".writing"
+        # a crashed run of the same job may have left block files in the
+        # staging directory: the leader clears it before anyone writes
+        err: Optional[BaseException] = None
+        try:
+            if me == leader:
+                shutil.rmtree(staging, ignore_errors=True)
+                os.makedirs(staging, exist_ok=True)
+        except BaseException as e:  # noqa: BLE001 - reported through the fence
+            err = e
+        if multihost.mesh_sum(mesh, 1.0 if err else 0.0, f"chkp-cleared:{chkp_id}"):
+            if err is not None:
+                raise err
+            raise RuntimeError(f"leader failed clearing the staging dir for {chkp_id}")
+        t0 = time.perf_counter()
+        staged: Dict[str, Any] = {"chkp_id": chkp_id, "block_ids": [], "blocks": 0, "bytes": 0}
+        try:
+            os.makedirs(staging, exist_ok=True)
+            sparse = info.table_config.sparse
+            mine = handle.table.addressable_blocks()
+            retained: Optional[Dict[int, np.ndarray]] = {} if self.recovery_retain else None
+
+            def host_blocks():
+                for bid in sorted(mine):
+                    item = mine.pop(bid)
+                    arr = _pack_hash_block(*item) if sparse else item
+                    if retained is not None:
+                        retained[bid] = arr
+                    staged["block_ids"].append(bid)
+                    staged["bytes"] += int(arr.nbytes)
+                    yield bid, arr
+
+            crcs = _stage_blocks(staging, host_blocks(), RetryPolicy.from_env())
+            staged["blocks"] = len(staged["block_ids"])
+            if retained is not None:
+                _recovery_put(info.table_config.table_id, chkp_id, retained)
+            # only this process knows its blocks' checksums: the leader merges
+            # every sidecar after the staged fence
+            side = os.path.join(staging, f"_crc.{me}.json")
+            with open(side + ".tmp", "w") as f:
+                json.dump(crcs, f, sort_keys=True)
+            os.replace(side + ".tmp", side)
+        except BaseException as e:  # noqa: BLE001 - reported through the fence
+            err = e
+        staged["seconds"] = time.perf_counter() - t0
+        failures = multihost.mesh_sum(mesh, 1.0 if err else 0.0, f"chkp-staged:{chkp_id}")
+        if failures:
+            if me == leader:
+                shutil.rmtree(staging, ignore_errors=True)
+            if err is not None:
+                raise err
+            raise RuntimeError(f"{int(failures)} process(es) failed staging {chkp_id}")
+        if me == leader:
+            try:
+                merged: Dict[str, int] = {}
+                for name in sorted(os.listdir(staging)):
+                    if name.startswith("_crc.") and name.endswith(".json"):
+                        path = os.path.join(staging, name)
+                        with open(path) as f:
+                            merged.update(json.load(f))
+                        os.remove(path)
+                info.block_checksums = merged or None
+                with open(os.path.join(staging, "manifest.json"), "w") as f:
+                    f.write(info.to_json())
+                os.rename(staging, tdir)
+                if commit:
+                    self.commit(chkp_id)
+            except BaseException as e:  # noqa: BLE001 - reported through the fence
+                err = e
+                shutil.rmtree(staging, ignore_errors=True)
+        if multihost.mesh_sum(mesh, 1.0 if err else 0.0, f"chkp-done:{chkp_id}"):
+            if err is not None:
+                raise err
+            raise RuntimeError(f"leader failed finalizing {chkp_id} (manifest/commit)")
+        self.last_staged = staged
+        return chkp_id
 
     def checkpoint_async(self, handle: TableHandle, sampling_ratio: float = 1.0,
                          commit: bool = False,
@@ -539,7 +737,12 @@ class CheckpointManager:
         copy under the table lock, so steps that update the table in place
         afterwards do not reach it); the device-to-host copies and the file
         I/O run on a background thread. The id resolves to a readable
-        directory only once ``wait()`` returns."""
+        directory only once ``wait()`` returns. Refused on a mesh over several
+        processes: the pod's fences on a background thread would race the
+        pod's lockstep dispatch order, so its checkpoints are synchronous."""
+        if mesh_spans_processes(handle.table.mesh):
+            raise ValueError("checkpoint_async is single-process only; call "
+                             "checkpoint() collectively on a multi-process mesh")
         t0 = time.perf_counter()
         chkp_id, snap, info = self._snapshot(handle, sampling_ratio, app_meta)
         pending = PendingCheckpoint(chkp_id)
@@ -643,7 +846,12 @@ class CheckpointManager:
         wrote the checkpoint: the blocks are split over their mesh,
         ``data_axis`` rows deep) and install the checkpoint's blocks. A
         sampled checkpoint's unsampled keys keep their init values. A failed
-        restore drops the table it created."""
+        restore drops the table it created.
+
+        Onto a mesh over several processes each process reads every block
+        (so each sees a corrupt one) and installs only its own shards, in one
+        import whatever its ``HARMONY_CHKP_IO_THREADS``, so every process
+        makes the same calls; a sampled checkpoint is refused there."""
         with trace_span("checkpoint.restore", chkp_id=chkp_id):
             return self._restore_inner(master, chkp_id, associators, data_axis, table_id)
 
@@ -664,7 +872,9 @@ class CheckpointManager:
             crcs = info.block_checksums or {}
             policy = RetryPolicy.from_env()
             threads = min(_chkp_io_threads(), max(1, len(info.block_ids)))
-            pipelined = threads > 1 and not cfg.sparse and info.sampling_ratio >= 1.0
+            spans = mesh_spans_processes(handle.table.mesh)
+            pipelined = (threads > 1 and not cfg.sparse and info.sampling_ratio >= 1.0
+                         and not spans)
             raw: Dict[int, Any] = {}
             if pipelined:
                 # dense full-ratio: reads stream off the I/O pool while
@@ -687,6 +897,11 @@ class CheckpointManager:
                     blocks[bid] = _unpack_hash_block(arr, spec)
                     continue
                 if arr.shape[0] < spec.block_size:
+                    if spans:
+                        raise ValueError(
+                            f"checkpoint {chkp_id} is sampled; its init pad reads whole "
+                            "blocks on the host and is single-process only: restore "
+                            "onto a single-process mesh")
                     # sampled: pad with the block's init values
                     full = np.array(handle.table.export_blocks([bid])[bid])
                     full[: arr.shape[0]] = arr
@@ -703,6 +918,104 @@ class CheckpointManager:
             if pool is not None:
                 pool.shutdown(wait=True, cancel_futures=True)
         return handle
+
+    def restore_partial(self, master: ETMaster, chkp_id: str, associators: Sequence[str],
+                        data_axis: int = 1, table_id: Optional[str] = None
+                        ) -> "Tuple[TableHandle, Dict[str, int]]":
+        """Elastic recovery's restore: create the table on ``associators``
+        and read from storage ONLY the blocks of this process's shards that
+        its recovery cache does not hold (O(lost bytes), where ``restore``
+        reads the whole model). Read blocks are checked against the manifest
+        like a full restore's; cached blocks are the host copies whose
+        checksums the manifest records. On a mesh over several processes each
+        process installs only its own shards.
+
+        Returns ``(handle, stats)``, stats = {partial, blocks_total,
+        blocks_needed, blocks_local, blocks_read, bytes_read}. A sparse or
+        sampled checkpoint falls back to the full restore (``partial`` 0,
+        ``bytes_read`` -1)."""
+        with trace_span("checkpoint.restore_partial", chkp_id=chkp_id) as sp:
+            handle, stats = self._restore_partial_inner(master, chkp_id, associators,
+                                                        data_axis, table_id)
+            if sp is not None:
+                for k, v in stats.items():
+                    sp.annotate(k, v)
+            return handle, stats
+
+    def _restore_partial_inner(self, master: ETMaster, chkp_id: str,
+                               associators: Sequence[str], data_axis: int,
+                               table_id: Optional[str]):
+        d = self._dir_of(chkp_id)
+        info = self._load_manifest(d)
+        cfg = info.table_config
+        _check_update_fn(cfg.update_fn)
+        if table_id is not None:
+            cfg = cfg.replace(table_id=table_id)
+        if cfg.sparse or info.sampling_ratio < 1.0:
+            handle = self.restore(master, chkp_id, associators, data_axis, table_id)
+            nb = len(info.block_ids)
+            return handle, {"partial": 0, "blocks_total": nb, "blocks_needed": nb,
+                            "blocks_local": 0, "blocks_read": nb, "bytes_read": -1}
+        local = recovery_blocks(chkp_id) or {}
+        handle = TableHandle(master, master.create_table(cfg, associators, data_axis),
+                             associators)
+        pool = None
+        try:
+            table = handle.table
+            sh = table.sharding
+            needed = sorted({b for s in sh.mesh.slots if is_local(s)
+                             for b in sh.slot_blocks(s)})
+            crcs = info.block_checksums or {}
+            policy = RetryPolicy.from_env()
+            stats = {"partial": 1, "blocks_total": len(info.block_ids),
+                     "blocks_needed": len(needed), "blocks_local": 0,
+                     "blocks_read": 0, "bytes_read": 0}
+
+            def read_one(bid: int) -> np.ndarray:
+                if faults.armed():
+                    faults.site("chkp.partial_read", block=bid, chkp_id=chkp_id)
+                arr = _read_block(d, bid, expected_crc=crcs.get(str(bid)), policy=policy)
+                if arr.shape[0] < table.spec.block_size:
+                    raise CheckpointCorruptError(
+                        f"partial restore of {chkp_id}: block {bid} is short "
+                        f"({arr.shape[0]} rows) in a full-ratio checkpoint")
+                return arr
+
+            # the blocks to read stream off the I/O pool while the cached ones,
+            # and the installs of finished chunks, proceed on this thread
+            to_read = [b for b in needed if b not in local]
+            futures: Dict[int, Any] = {}
+            if to_read and _chkp_io_threads() > 1:
+                from concurrent.futures import ThreadPoolExecutor
+
+                pool = ThreadPoolExecutor(max_workers=min(_chkp_io_threads(), len(to_read)),
+                                          thread_name_prefix="chkp-io")
+                futures = {bid: pool.submit(read_one, bid) for bid in to_read}
+            # chunked installs in block-id order on one process; over several,
+            # one install, so every process makes the same calls
+            chunked = pool is not None and not mesh_spans_processes(sh.mesh)
+            chunk: Dict[int, np.ndarray] = {}
+            for bid in needed:
+                arr = local.get(bid)
+                if arr is not None:
+                    stats["blocks_local"] += 1
+                else:
+                    fut = futures.get(bid)
+                    arr = fut.result() if fut is not None else read_one(bid)
+                    stats["blocks_read"] += 1
+                    stats["bytes_read"] += int(arr.nbytes)
+                chunk[bid] = arr
+                if chunked and len(chunk) >= _RESTORE_CHUNK_BLOCKS:
+                    table.import_blocks(chunk)
+                    chunk = {}
+            table.import_blocks(chunk)
+        except BaseException:
+            handle.drop()  # no half-restored orphan table
+            raise
+        finally:
+            if pool is not None:
+                pool.shutdown(wait=True, cancel_futures=True)
+        return handle, stats
 
     def delete(self, chkp_id: str) -> None:
         """Remove every copy (a crashed commit can leave one in both roots)."""

@@ -22,6 +22,10 @@ or under ``torchrun`` the card of its ``LOCAL_RANK``; two processes may share
 the commands on ``--port`` and prints the reference's ready line, and the
 others follow it. ``--scheduler`` names the pod's scheduler (``share_all``,
 ``pod_carve``, or ``pod_carve:K`` for carves of at most K processes).
+``--chkp-root`` (else ``HARMONY_POD_CHKP_ROOT``) is the chains' root, shared by
+every process; process 0 prints ``pod jobserver closed: {"eval_results":
+..., "broken": ...}`` (the deferred evaluations, and why the pod was marked
+broken, or null) once it has shut down.
 ``--device`` may name several devices, comma-separated (``cpu,cpu``: two
 slots of the CPU in one process). ``pod-reshard`` asks a pod's leader to move
 ``--blocks`` blocks of a running job's table from executor ``--src`` to
@@ -407,7 +411,7 @@ def _cmd_start_pod(args: argparse.Namespace) -> int:
 
             server = PodJobServer(n_exec, scheduler=_pod_scheduler(args.scheduler),
                                   device_pool=pool, num_followers=nprocs - 1,
-                                  chkp_root=args.chkp_root)
+                                  chkp_root=_chkp_root_of(args))
             server.start()
             server.serve_pod(args.pod_port)
             port = server.serve_tcp(args.port)
@@ -418,6 +422,11 @@ def _cmd_start_pod(args: argparse.Namespace) -> int:
                     time.sleep(0.2)
             except KeyboardInterrupt:
                 server.shutdown()
+            from harmony_tpu_torch.jobserver.server import _json_sanitize
+
+            print("pod jobserver closed: " + json.dumps(
+                {"eval_results": _json_sanitize(server.eval_results),
+                 "broken": server.pod_broken}), flush=True)
             return 0
         from harmony_tpu_torch.jobserver.pod import PodFollower
 
@@ -428,6 +437,16 @@ def _cmd_start_pod(args: argparse.Namespace) -> int:
         return 0
     finally:
         multihost.shutdown_distributed()
+
+
+def _chkp_root_of(args: argparse.Namespace) -> Optional[str]:
+    """``--chkp-root``, else ``HARMONY_POD_CHKP_ROOT``: the root of the
+    jobs' chains, shared by every process of a pod. Without one a chain,
+    a resume or a deferred evaluation over several processes is refused, job
+    by job."""
+    import os
+
+    return getattr(args, "chkp_root", None) or os.environ.get("HARMONY_POD_CHKP_ROOT")
 
 
 def _sender(port):
@@ -541,7 +560,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--process-id", type=int, default=-1, help="default RANK")
     p.add_argument("--scheduler", default="share_all",
                    help="share_all | fifo | carve | pod_carve | pod_carve:K")
-    p.add_argument("--chkp-root", default=None, help="root of the jobs' checkpoint chains")
+    p.add_argument("--chkp-root", default=None,
+                   help="root of the jobs' checkpoint chains, shared by every process "
+                        "(default HARMONY_POD_CHKP_ROOT)")
     _device_flag(p)
     p = sub.add_parser("submit", help="submit a job to a running jobserver")
     _common_job_flags(p)

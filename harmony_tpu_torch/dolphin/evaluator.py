@@ -9,6 +9,7 @@ temporary table and runs the trainer's evaluation on it.
 """
 from __future__ import annotations
 
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -20,6 +21,7 @@ from harmony_tpu_torch.checkpoint.manager import (
     PendingCheckpoint,
 )
 from harmony_tpu_torch.dolphin.trainer import Trainer
+from harmony_tpu_torch.parallel.mesh import mesh_spans_processes
 from harmony_tpu_torch.runtime.master import ETMaster, TableHandle
 
 
@@ -31,7 +33,13 @@ class ModelChkpManager:
     stream); the device-to-host copies and file I/O drain on a background
     thread, and ``drain()`` (before evaluation, at job end) joins the
     writers. ``stats`` records each snapshot's cost (see
-    ``PendingCheckpoint``)."""
+    ``PendingCheckpoint``).
+
+    On a table over several processes the snapshot is the synchronous
+    collective ``checkpoint()`` instead: the hook runs in every process's
+    chief at the same point of its schedule (inside the chief's turnstile
+    turn, whatever the worker count), where background fences would race
+    the pod's lockstep dispatch order. Its whole cost lands on the step."""
 
     # Cap on concurrent background writers: each in-flight checkpoint pins a
     # device-side copy of the table.
@@ -46,12 +54,24 @@ class ModelChkpManager:
         self.chkp_ids: List[str] = []
         self._pending: List[PendingCheckpoint] = []
         self._written: List[PendingCheckpoint] = []
+        self._pod_stats: List[Dict[str, float]] = []
 
     def on_epoch(self, epoch_idx: int) -> Optional[str]:
         """Epoch hook: snapshot every ``period`` epochs, tagged
         ``{"epoch": epoch_idx}`` (the resume path's restart key)."""
         if (epoch_idx + 1) % self._period:
             return None
+        meta = {"epoch": float(epoch_idx)}
+        if mesh_spans_processes(self._handle.table.mesh):
+            t0 = time.perf_counter()
+            cid = self._mgr.checkpoint(self._handle, commit=self._commit, app_meta=meta)
+            staged = self._mgr.last_staged
+            self._pod_stats.append({
+                "chkp_id": cid, "snapshot_seconds": time.perf_counter() - t0,
+                "write_seconds": staged["seconds"], "bytes": staged["bytes"],
+                "blocks": staged["blocks"], "block_ids": list(staged["block_ids"])})
+            self.chkp_ids.append(cid)
+            return cid
         while len(self._pending) >= self.MAX_PENDING:
             oldest = self._pending.pop(0)  # backpressure: join the oldest
             try:
@@ -62,8 +82,7 @@ class ModelChkpManager:
                     self.chkp_ids.remove(oldest.chkp_id)
                 raise
             self._written.append(oldest)
-        p = self._mgr.checkpoint_async(self._handle, commit=self._commit,
-                                       app_meta={"epoch": float(epoch_idx)})
+        p = self._mgr.checkpoint_async(self._handle, commit=self._commit, app_meta=meta)
         self._pending.append(p)
         self.chkp_ids.append(p.chkp_id)
         return p.chkp_id
@@ -99,10 +118,14 @@ class ModelChkpManager:
     @property
     def stats(self) -> List[Dict[str, float]]:
         """Per written snapshot: ``snapshot_seconds`` (on the worker's
-        thread), ``write_seconds`` (the background write) and ``bytes``."""
-        return [{"chkp_id": p.chkp_id, "snapshot_seconds": p.snapshot_seconds,
-                 "write_seconds": p.write_seconds, "bytes": p.bytes_written}
-                for p in self._written]
+        thread), ``write_seconds`` (the background write) and ``bytes``. A pod
+        snapshot's are this process's: the whole collective on the worker's
+        thread, its staging, and the bytes, count and ids of the blocks it
+        staged (``CheckpointManager.last_staged``)."""
+        return self._pod_stats + [
+            {"chkp_id": p.chkp_id, "snapshot_seconds": p.snapshot_seconds,
+             "write_seconds": p.write_seconds, "bytes": p.bytes_written}
+            for p in self._written]
 
 
 def resolve_eval_inputs(config):

@@ -3,7 +3,8 @@
 Counterpart of ``harmony_tpu/faults/__init__.py``; ``plan.py`` and
 ``retry.py`` are copies of the reference's. The sites the port declares are
 the checkpoint path's (``chkp.block_write``, ``disk.write``,
-``chkp.block_read``, ``disk.read``, ``chkp.commit``, ``disk.fsync``); the
+``chkp.block_read``, ``disk.read``, ``chkp.commit``, ``disk.fsync``,
+``chkp.partial_read``); the
 fault counters' mirror onto a metrics registry and the flight recorder are
 looked up lazily and skipped where absent (the port has neither yet, ROADMAP
 A.10).

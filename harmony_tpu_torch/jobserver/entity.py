@@ -69,10 +69,19 @@ workers or its superstep loop, run inside leader-granted units, so
 overlapping tenants enter their collectives in one pod-wide order, and such
 a job drops the local TaskUnit admission. Several workers of such a job take
 turns in a ``DispatchTurnstile`` (its SSP slack at least 1), so every process
-enqueues in the same order. A checkpoint chain, a resume from one and the
-deferred evaluation are refused on a multi-process grant, in every process
-alike, and the deferred evaluation on a grant wholly on a follower: they
-wait for the pod's checkpoint and evaluation channels (ROADMAP A item 3b).
+enqueues in the same order.
+
+Chains on a pod: the chief's hook takes the pod's synchronous collective
+checkpoint (each process stages its own blocks into the shared
+``chkp_root``), inside the chief's turnstile turn, for any worker count; a
+resume restores the newest entry onto the grant, each process installing its
+own shards. With ``offline_model_eval`` the leader's deferred evaluation is a
+pod collective: it broadcasts the chain through the pod's evaluation channel
+(``pod_eval_channel``, ``jobserver/pod.py``), every process restores and
+evaluates each entry, and the leader alone deletes them. A job wholly on a
+follower evaluates there at shutdown. The guards are the reference's, decided
+from the config and the grant alone (:func:`_pod_guards`), so every process
+raises alike.
 
 Plans on a pod: the leader's ``schedule_pod_reshard`` broadcasts a move
 (``jobserver/podplan.py``), and every process of the job applies it at the
@@ -144,6 +153,7 @@ class DolphinJobEntity:
         pod_unit_scope: Optional[Callable[[], Any]] = None,
         pod_unit_contended: Optional[Callable[[], bool]] = None,
         pod_plan_sink: Optional[Callable[..., None]] = None,
+        pod_eval_channel: Optional[Callable[..., None]] = None,
     ) -> None:
         self.config = config
         self._global_tu = global_taskunit
@@ -155,6 +165,9 @@ class DolphinJobEntity:
         # the pod leader's plan channel (PodJobServer.schedule_pod_reshard):
         # the optimizer loop hands its plans there instead of executing them
         self._pod_plan_sink = pod_plan_sink
+        # the pod leader's collective evaluation channel (PodJobServer's
+        # _pod_eval_channel): the followers replay the chain with the leader
+        self._pod_eval_channel = pod_eval_channel
         # the pod plans this job applied (or skipped) at the chief's epoch hook,
         # and this process's side of each one that moved bytes
         self._applied_plans: List[Dict[str, Any]] = []
@@ -235,7 +248,8 @@ class DolphinJobEntity:
         reference to the shared table ``config.tables`` names), on a mesh
         ``user["data_axis"]`` rows deep (default 1: the blocks split over
         every executor), and materialize its data. On a pod, in one unit."""
-        _refuse_on_pod(self.config, master, executor_ids)
+        _pod_guards(self.config, master, executor_ids, self.chkp_root,
+                    self._pod_eval_channel is not None)
         scope = (self._pod_unit_scope() if self._pod_unit_scope is not None
                  else contextlib.nullcontext())
         with scope:
@@ -354,7 +368,10 @@ class DolphinJobEntity:
         a corrupt or torn entry is quarantined and the previous one tried.
         The entry tagged epoch e covers epochs 0..e, so training resumes at
         e + 1; a single-worker resume is exact (the snapshot is a clean
-        epoch cut). Returns (table, starting_epoch, counter_base)."""
+        epoch cut). On a grant over several processes every process restores
+        the same entry (each reads every block, so each sees a corrupt one)
+        and installs its own shards. Returns (table, starting_epoch,
+        counter_base)."""
         from harmony_tpu_torch.checkpoint.manager import CheckpointCorruptError
 
         mgr, ordered, base = self._chain_scan("resume_from_chain")
@@ -400,13 +417,21 @@ class DolphinJobEntity:
         graceful shutdown (the reference's JobServerDriver.java:178-214). Test
         data resolves inside the closure (``user["test_data_fn"]``, else the
         training data), so nothing large is held until then. The replayed
-        entries are deleted: the evaluation is the chain's consumer."""
+        entries are deleted: the evaluation is the chain's consumer.
+
+        On a table over several processes the evaluation is a collective: the
+        closure opens the pod's evaluation channel first (the followers stage
+        what they need and enter the same restores and evaluations only once
+        all are ready), evaluates, and closes it in a ``finally``; only the
+        leader deletes the entries."""
         if self._chkp_chain is None or not self.config.params.offline_model_eval:
             return None
         chkp_ids = list(self._chkp_chain.chkp_ids)
         if not chkp_ids:
             return None
         cfg, mgr, executor_ids = self.config, self._chkp_mgr, list(self._executor_ids)
+        channel = (self._pod_eval_channel
+                   if len(self._table.mesh.processes) > 1 else None)
 
         def run_eval(master: ETMaster) -> List[Dict[str, float]]:
             from harmony_tpu_torch.dolphin.evaluator import (
@@ -414,9 +439,18 @@ class DolphinJobEntity:
                 resolve_eval_inputs,
             )
 
+            # the one resolution the followers make too: identical collectives
             trainer, batch = resolve_eval_inputs(cfg)
-            metrics = ModelEvaluator(master, mgr).evaluate_checkpoints(
-                chkp_ids, trainer, batch, executor_ids)
+            if channel is None:
+                metrics = ModelEvaluator(master, mgr).evaluate_checkpoints(
+                    chkp_ids, trainer, batch, executor_ids)
+            else:
+                channel("start", cfg.job_id, {"chkp_ids": chkp_ids})
+                try:
+                    metrics = ModelEvaluator(master, mgr).evaluate_checkpoints(
+                        chkp_ids, trainer, batch, executor_ids)
+                finally:
+                    channel("finish", cfg.job_id)
             for cid in chkp_ids:
                 mgr.delete(cid)
             return metrics
@@ -892,29 +926,39 @@ class PregelJobEntity:
         self._pregel_master = None
 
 
-def _refuse_on_pod(config: JobConfig, master: ETMaster, executor_ids: List[str]) -> None:
-    """What a grant beyond process 0 cannot run yet, refused from the config
-    and the grant alone, so every process raises alike (one process raising
-    while its peers enter the job's collectives would wedge the pod)."""
+def _pod_guards(config: JobConfig, master: ETMaster, executor_ids: List[str],
+                chkp_root: Optional[str], has_eval_channel: bool) -> None:
+    """The reference's guards on chains and their evaluation over several
+    processes (``harmony_tpu/jobserver/entity.py:487-534``), decided from the
+    config and the grant (and, for the last, whether this is process 0), so
+    every process raises alike:
+
+      * a pod chain needs a shared ``chkp_root``: per-process temporary
+        directories would each hold a fragment of every entry;
+      * ``offline_model_eval`` on a multi-process grant needs process 0 in the
+        grant: its JobServer runs the collective evaluation;
+      * on process 0 that grant also needs the pod's evaluation channel (a
+        PodJobServer's); the followers replay on its broadcast."""
     procs = sorted({master.executor(e).slot.process_index for e in executor_ids})
     p, job = config.params, config.job_id
-    if len(procs) == 1 and procs != [0] and p.model_chkp_period > 0 and p.offline_model_eval:
-        # the deferred evaluations run in the leader's JobServer at shutdown
-        raise ValueError(
-            f"job {job}: offline_model_eval on a grant wholly on process {procs[0]} "
-            "needs the collective deferred evaluation (the leader runs the deferred "
-            "evaluations), which waits for ROADMAP A item 3b")
-    if len(procs) < 2:
+    if len(procs) < 2 or p.model_chkp_period <= 0:
         return
     where = f"on a multi-process grant (processes {procs})"
-    if p.model_chkp_period > 0 or config.user.get("resume_from_chain"):
+    if chkp_root is None:
         raise ValueError(
-            f"job {job}: a checkpoint chain {where} needs the pod's checkpoint "
-            "(each process staging its own blocks), which waits for ROADMAP A item 3b")
-    if p.offline_model_eval:
+            f"job {job}: a checkpoint chain {where} needs a SHARED chkp_root "
+            "(per-process temporary directories would each hold only a fragment "
+            "of every checkpoint)")
+    if not p.offline_model_eval:
+        return
+    if 0 not in procs:
         raise ValueError(
-            f"job {job}: offline_model_eval {where} needs the collective deferred "
-            "evaluation, which waits for ROADMAP A item 3b")
+            f"job {job}: offline_model_eval {where} needs the grant to include "
+            "the pod leader (process 0), which runs the collective evaluation")
+    if multihost.process_index() == 0 and not has_eval_channel:
+        raise ValueError(
+            f"job {job}: offline_model_eval {where} needs the pod's evaluation "
+            "channel (running outside a PodJobServer?)")
 
 
 def build_entity(config: JobConfig, chkp_root: Optional[str] = None, **kwargs: Any):
@@ -930,5 +974,6 @@ def build_entity(config: JobConfig, chkp_root: Optional[str] = None, **kwargs: A
         kwargs.pop("metric_sink", None)
         kwargs.pop("metric_manager", None)
         kwargs.pop("pod_plan_sink", None)
+        kwargs.pop("pod_eval_channel", None)
         return PregelJobEntity(config, **kwargs)
     raise ValueError(f"unknown app_type {config.app_type!r}")

@@ -57,13 +57,24 @@ job wholly on followers (PROGRESS_REQ, answered PROGRESS_REP from the
 follower's control loop, which reads its socket apart from the jobs'
 threads). A PLAN delivered to some followers only marks the pod broken.
 
+The collective deferred evaluation (a job with a chain and
+``offline_model_eval`` over several processes): at shutdown the leader's
+closure opens ``_pod_eval_channel``. It sends EVAL_COLLECTIVE to the job's
+followers, each of which stages everything that can fail on its host and
+answers EVAL_COLLECTIVE_READY; only when every one is ready does the leader
+send EVAL_GO (else EVAL_ABORT, and the evaluation fails cleanly), and every
+process restores and evaluates the chain together. The followers then answer
+EVAL_COLLECTIVE_DONE; a partial GO, or a follower silent or failed after GO,
+marks the pod broken. A job wholly on a follower evaluates there: its chief
+keeps the closure (JOB_DONE's ``has_deferred_eval``), runs it at SHUTDOWN and
+sends EVAL_DONE, which the leader's ``_on_closing`` collects into
+``eval_results``.
+
 Left out, with ROADMAP A item 3b (and item 4 for elasticity): elastic
 dispatch and recovery (``_dispatch_elastic``, ``_plan_elastic_recovery``,
 the fences, ``_maybe_auto_resume``), late joins and the rehabilitation of a
 follower (``_accept_late_joins``, ``_reinstate_follower``, ``_rehabilitate``,
-``_rejoin``), the collective deferred evaluation (``_pod_eval_channel``,
-``_broadcast_eval_decision``; a job with ``offline_model_eval`` is refused
-on a grant beyond process 0), HA's leader epochs and the policy hooks.
+``_rejoin``), HA's leader epochs and the policy hooks.
 """
 from __future__ import annotations
 
@@ -137,8 +148,9 @@ def _counted(scope, counts: Dict[str, int]):
 def _job_summary(result: Dict[str, Any]) -> Dict[str, Any]:
     """What a report carries of a job's result: each worker's losses, batch
     losses, epoch seconds and comm probes, the pod plans the process
-    applied or skipped and its side of each plan's exchange; for a graph
-    job its supersteps, their wall seconds and a SHA-256 of its vertex
+    applied or skipped and its side of each plan's exchange, its chain's ids
+    and this process's share of each entry (``model_chkp_stats``); for a
+    graph job its supersteps, their wall seconds and a SHA-256 of its vertex
     values' bytes."""
     out: Dict[str, Any] = {"workers": {
         wid: {"losses": [float(x) for x in w.get("losses", [])],
@@ -146,7 +158,7 @@ def _job_summary(result: Dict[str, Any]) -> Dict[str, Any]:
               "epoch_seconds": [float(x) for x in w.get("epoch_seconds", [])],
               "probes": int(w.get("comm_probe", {}).get("probes", 0))}
         for wid, w in result.get("workers", {}).items()}}
-    for key in ("applied_plans", "plan_moves"):
+    for key in ("applied_plans", "plan_moves", "model_chkp_ids", "model_chkp_stats"):
         if key in result:
             out[key] = result[key]
     if "vertex_values" in result:
@@ -203,6 +215,19 @@ class PodJobServer(JobServer):
         #: running job id -> its follower participants, what
         #: schedule_pod_reshard sends PLAN to
         self._job_info: Dict[str, List[int]] = {}
+        #: job id -> the followers of its collective deferred evaluation
+        #: (only jobs with a chain and offline_model_eval)
+        self._eval_participants: Dict[str, List[int]] = {}
+        #: job id -> the chief follower holding its deferred evaluation (a
+        #: job wholly on followers), and the EVAL_DONE results they send
+        self._remote_evals: Dict[str, int] = {}
+        self._remote_eval_results: Dict[str, Any] = {}
+
+    @property
+    def pod_broken(self) -> Optional[str]:
+        """Why the pod was marked broken, or None."""
+        with self._pod_cond:
+            return self._pod_broken
 
     # -- lifecycle --------------------------------------------------------
 
@@ -364,6 +389,19 @@ class PodJobServer(JobServer):
                 continue
             if cmd == "PROGRESS_REP":
                 self._on_progress_rep(pid, msg)
+                continue
+            if cmd in ("EVAL_COLLECTIVE_READY", "EVAL_COLLECTIVE_DONE"):
+                prefix = "__evalr__" if cmd == "EVAL_COLLECTIVE_READY" else "__evalc__"
+                with self._pod_cond:
+                    self._reports[(f"{prefix}{msg.get('job_id')}", pid)] = msg
+                    self._pod_cond.notify_all()
+                continue
+            if cmd == "EVAL_DONE":
+                # a chief follower's deferred evaluation, run at its SHUTDOWN
+                with self._pod_cond:
+                    self._remote_eval_results[str(msg.get("job_id"))] = msg.get(
+                        "result", {"error": "empty EVAL_DONE"})
+                    self._pod_cond.notify_all()
                 continue
             if cmd != "JOB_DONE":
                 log.warning("pod: unexpected %r from follower %d", cmd, pid)
@@ -579,6 +617,9 @@ class PodJobServer(JobServer):
                 self.pod_reports[config.job_id] = reports
                 while len(self.pod_reports) > 256:
                     self.pod_reports.pop(next(iter(self.pod_reports)))
+                for pid, rep in reports.items():
+                    if pid != 0 and rep.get("has_deferred_eval"):
+                        self._remote_evals[config.job_id] = pid
         finally:
             podplan.clear(config.job_id)
             if pod_ordered:
@@ -622,14 +663,93 @@ class PodJobServer(JobServer):
         procs = {self.master.executor(e).slot.process_index for e in executor_ids}
         if len(procs) < 2:
             return {}
-        extras: Dict[str, Any] = {"pod_plan_sink": self.schedule_pod_reshard}
+        extras: Dict[str, Any] = {"pod_plan_sink": self.schedule_pod_reshard,
+                                  "pod_eval_channel": self._pod_eval_channel}
         if (config.app_type in ("dolphin", "pregel")
                 and not bool(config.user.get("pod_isolated"))):
             client = leader_client(self.pod_units, config.job_id)
             counts = self._unit_counts[config.job_id] = {"units": 0}
             extras.update(pod_unit_scope=_counted(client.scope, counts),
                           pod_unit_contended=client.contended)
+        if config.params.offline_model_eval and config.params.model_chkp_period > 0:
+            # registered only for the jobs that will run the collective
+            # evaluation: others must not evict a live entry
+            with self._pod_cond:
+                self._eval_participants[config.job_id] = sorted(p for p in procs if p != 0)
+                while len(self._eval_participants) > 1024:
+                    self._eval_participants.pop(next(iter(self._eval_participants)))
         return extras
+
+    def _broadcast_eval_decision(self, participants: List[int], job_id: str,
+                                 go: bool) -> None:
+        """EVAL_GO or EVAL_ABORT to every participant. A GO that reaches
+        some followers only marks the pod broken and raises: they enter
+        collectives the others never join, and the leader must not enter its
+        own."""
+        cmd = "EVAL_GO" if go else "EVAL_ABORT"
+        for pid in participants:
+            try:
+                self._send_to(pid, {"cmd": cmd, "job_id": job_id})
+            except OSError as e:
+                if not go:
+                    continue  # an unreachable follower is out of the protocol
+                self._mark_broken(f"EVAL_GO send failed: {e}")
+                raise RuntimeError(f"EVAL_GO broadcast failed: {e}") from None
+
+    def _pod_eval_channel(self, phase: str, job_id: str,
+                          payload: Optional[Dict[str, Any]] = None,
+                          timeout: float = 180.0) -> None:
+        """The collective deferred evaluation's channel (module doc).
+        ``"start"``: EVAL_COLLECTIVE, the followers' READY acks within
+        ``timeout``, then GO when all are ready, else ABORT and raise, before
+        anyone enters a collective. ``"finish"``: the EVAL_COLLECTIVE_DONE
+        acks within ``timeout``; a follower silent or failed there marks the
+        pod broken, never waited on forever."""
+        with self._pod_cond:
+            participants = self._eval_participants.get(job_id, [])
+        if not participants:
+            return
+        if phase == "start":
+            try:
+                for pid in participants:
+                    self._send_to(pid, {"cmd": "EVAL_COLLECTIVE", "job_id": job_id,
+                                        **(payload or {})})
+            except OSError as e:
+                # the recipients wait for a decision on their socket, not in a
+                # collective: abort them
+                self._broadcast_eval_decision(participants, job_id, go=False)
+                raise RuntimeError(f"EVAL_COLLECTIVE broadcast failed: {e}") from None
+            deadline = time.monotonic() + timeout
+            failures = []
+            for pid in participants:
+                rep = self._wait_report(f"__evalr__{job_id}", pid, deadline)
+                if rep is None or not rep.get("ok"):
+                    failures.append((pid, "no readiness ack" if rep is None
+                                     else rep.get("error")))
+            with self._pod_cond:
+                for pid in participants:
+                    self._reports.pop((f"__evalr__{job_id}", pid), None)
+            if failures:
+                self._broadcast_eval_decision(participants, job_id, go=False)
+                with self._pod_cond:
+                    self._eval_participants.pop(job_id, None)
+                raise RuntimeError(
+                    f"collective eval aborted (followers not ready): {failures}")
+            self._broadcast_eval_decision(participants, job_id, go=True)
+            return
+        deadline = time.monotonic() + timeout
+        for pid in participants:
+            rep = self._wait_report(f"__evalc__{job_id}", pid, deadline)
+            if rep is None or not rep.get("ok"):
+                # silent: wedged in a collective; failed: it left before the
+                # collectives the others entered. Either way they cannot all
+                # complete
+                why = "never acked" if rep is None else f"failed: {rep.get('error')}"
+                self._mark_broken(f"collective eval for {job_id}: follower {pid} {why}")
+        with self._pod_cond:
+            for pid in participants:
+                self._reports.pop((f"__evalc__{job_id}", pid), None)
+            self._eval_participants.pop(job_id, None)
 
     def _query_remote_epoch(self, job_id: str, chief: int, timeout: float = 30.0) -> int:
         """The epoch the chief follower has observed of a job the leader
@@ -715,6 +835,18 @@ class PodJobServer(JobServer):
                 self._send_to(pid, {"cmd": "SHUTDOWN"})
             except OSError:
                 pass
+        # the chief followers run their jobs' deferred evaluations on SHUTDOWN:
+        # collect their EVAL_DONEs before the sockets close
+        with self._pod_cond:
+            pending = dict(self._remote_evals)
+            if pending:
+                self._pod_cond.wait_for(
+                    lambda: all(j in self._remote_eval_results or pid in self._dead_followers
+                                for j, pid in pending.items()),
+                    timeout=timeout or 300.0)
+            for j, pid in pending.items():
+                self.eval_results[j] = self._remote_eval_results.get(
+                    j, {"error": f"follower {pid} never sent EVAL_DONE"})
         for conn, _ in list(self._followers.values()):
             try:
                 conn.close()
@@ -757,6 +889,12 @@ class PodFollower:
         self._job_threads: List[threading.Thread] = []
         #: job id -> live entity (listed by the heartbeats)
         self._entities: Dict[str, Any] = {}
+        #: job id -> the deferred evaluation of a job this process chiefed,
+        #: run at SHUTDOWN
+        self._deferred_evals: Dict[str, Any] = {}
+        #: job id -> (config, executor ids, chkp_root) of a job with a chain
+        #: and offline_model_eval, for its collective evaluation at shutdown
+        self._job_confs: Dict[str, Tuple[Any, List[str], Optional[str]]] = {}
         _send(self._sock, {"cmd": "JOIN", "pid": pid})
         self.master = ETMaster(pool)
         self.master.add_executors(num_executors)
@@ -797,6 +935,17 @@ class PodFollower:
             if msg is None or msg.get("cmd") == "SHUTDOWN":
                 for t in self._job_threads:
                     t.join(timeout=60.0)
+                # the deferred evaluations of the jobs this process chiefed:
+                # the leader waits for their EVAL_DONEs
+                for job_id, fn in list(self._deferred_evals.items()):
+                    try:
+                        result = _json_sanitize(fn(self.master))
+                    except BaseException as e:  # noqa: BLE001 - reported
+                        result = {"error": f"{type(e).__name__}: {e}"}
+                    try:
+                        self._report({"cmd": "EVAL_DONE", "job_id": job_id, "result": result})
+                    except OSError:
+                        break  # the leader is gone
                 self._hb_stop.set()
                 self._sock.close()
                 return
@@ -821,6 +970,11 @@ class PodFollower:
                 self._report({"cmd": "PROGRESS_REP", "job_id": jid, "epoch": int(ep),
                               "req": msg.get("req")})
                 continue
+            if cmd == "EVAL_COLLECTIVE":
+                # shutdown stage, no job running: the leader's evaluation is
+                # a collective this process joins inline
+                self._run_collective_eval(msg)
+                continue
             if cmd != "RUN_JOB":
                 log.warning("pod follower %d: unexpected %r", self.pid, cmd)
                 continue
@@ -829,6 +983,49 @@ class PodFollower:
             self._job_threads = [x for x in self._job_threads if x.is_alive()]
             self._job_threads.append(t)
             t.start()
+
+    def _run_collective_eval(self, msg: Dict[str, Any]) -> None:
+        """This process's leg of a collective deferred evaluation: build the
+        same checkpoint manager, trainer and test data the leader's closure
+        resolves (all from the job's config), answer READY, and on EVAL_GO
+        replay the chain with the leader, the restores and evaluations
+        joining its collectives; the results are the leader's to keep.
+        Everything that can fail runs on the host BEFORE the ack, where an
+        abort is clean."""
+        job_id = str(msg.get("job_id"))
+        ready: Dict[str, Any] = {"cmd": "EVAL_COLLECTIVE_READY", "pid": self.pid,
+                                 "job_id": job_id, "ok": False}
+        staged = None
+        try:
+            from harmony_tpu_torch.checkpoint.manager import CheckpointManager
+            from harmony_tpu_torch.dolphin.evaluator import resolve_eval_inputs
+
+            config, executor_ids, chkp_root = self._job_confs[job_id]
+            mgr = CheckpointManager.for_job(chkp_root, job_id)
+            trainer, batch = resolve_eval_inputs(config)
+            staged = (mgr, trainer, batch, executor_ids)
+            ready["ok"] = True
+        except BaseException as e:  # noqa: BLE001 - acked to the leader
+            ready["error"] = f"{type(e).__name__}: {e}"
+        self._report(ready)
+        try:
+            decision = _recv(self._file)
+        except (OSError, ValueError):
+            decision = None
+        if not decision or decision.get("cmd") != "EVAL_GO":
+            return  # aborted, or the leader hung up: nothing was dispatched
+        report: Dict[str, Any] = {"cmd": "EVAL_COLLECTIVE_DONE", "pid": self.pid,
+                                  "job_id": job_id, "ok": False}
+        try:
+            from harmony_tpu_torch.dolphin.evaluator import ModelEvaluator
+
+            mgr, trainer, batch, executor_ids = staged
+            ModelEvaluator(self.master, mgr).evaluate_checkpoints(
+                list(msg.get("chkp_ids", [])), trainer, batch, executor_ids)
+            report["ok"] = True
+        except BaseException as e:  # noqa: BLE001 - acked to the leader
+            report["error"] = f"{type(e).__name__}: {e}"
+        self._report(report)
 
     def _run_job(self, msg: Dict[str, Any], global_tu) -> None:
         """One span a follower's leg, under the leader's dispatch span (the
@@ -843,6 +1040,12 @@ class PodFollower:
 
         config = ConfigBase.from_dict(msg["conf"])
         executor_ids = msg["executor_ids"]
+        if config.params.offline_model_eval and config.params.model_chkp_period > 0:
+            # kept for the collective evaluation at shutdown, only for the jobs
+            # that will run one
+            self._job_confs[config.job_id] = (config, list(executor_ids), msg.get("chkp_root"))
+            while len(self._job_confs) > 1024:
+                self._job_confs.pop(next(iter(self._job_confs)))
         chief = int(msg.get("chief_pid", 0)) == self.pid
         report: Dict[str, Any] = {"cmd": "JOB_DONE", "pid": self.pid, "job_id": config.job_id}
         unit_extras: Dict[str, Any] = {}
@@ -868,6 +1071,13 @@ class PodFollower:
             self._entities[config.job_id] = entity
             entity.setup(self.master, executor_ids)
             result = entity.run()
+            if chief:
+                # registered before cleanup drops the tables (the evaluation
+                # replays the chain from disk) and run at SHUTDOWN: one a job
+                deferred = entity.deferred_evaluation()
+                if deferred is not None:
+                    self._deferred_evals[config.job_id] = deferred
+                    report["has_deferred_eval"] = True
             entity.cleanup()
             report["ok"] = True
             report.update(_job_summary(result))

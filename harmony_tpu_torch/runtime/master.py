@@ -64,7 +64,9 @@ def _mesh_over(slots: Sequence[Slot], data_axis: int) -> Mesh:
     The slots may lie in several processes of a pod (every process builds
     the same mesh over the global slots); a data axis > 1 there is refused,
     since the split of a step over data rows in different processes waits
-    for ROADMAP A item 3b."""
+    for ROADMAP A item 3b. The refusal is decided from the slots alone, so
+    every process raises alike, at a job's first table and before it is
+    made."""
     n = len(slots)
     if data_axis > 1 and n % data_axis == 0:
         if len({s.process_index for s in slots}) > 1:

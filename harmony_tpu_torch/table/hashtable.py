@@ -58,8 +58,8 @@ mesh (``table/blockmove.py``), so every key keeps its slot.
 Over the processes of a pod each process admits, reads and folds on its own
 shards only (the probe loop runs there), and a pull's tokens and rows of the
 other shards come from an all-gather, picked by shard as the dense table's
-are (``table.combine_owned``). ``addressable_blocks`` serves the pod's
-checkpoint and waits for it (ROADMAP A item 3b).
+are (``table.combine_owned``). ``addressable_blocks`` gives the pod's
+checkpoint each process's owned block pairs (``table.owned_blocks``).
 """
 from __future__ import annotations
 
@@ -85,6 +85,7 @@ from harmony_tpu_torch.table.table import (
     block_sharding,
     mesh_of,
     on_device,
+    owned_blocks,
     reshard_array,
 )
 from harmony_tpu_torch.table.update import UpdateFunction, get_update_fn
@@ -830,7 +831,13 @@ class DeviceHashTable(StreamOrder, LayoutAnnouncerMixin):
         return ((tuple(self.spec.keys_shape[1:]), torch.int32),
                 (tuple(self.spec.values_shape[1:]), self.spec.dtype))
 
-    def addressable_blocks(self, *args, **kwargs):
-        raise NotImplementedError(
-            "DeviceHashTable.addressable_blocks serves the pod's checkpoint, "
-            "which waits for ROADMAP A item 3b")
+    def addressable_blocks(self) -> Dict[int, Tuple[np.ndarray, np.ndarray]]:
+        """THIS process's owned (slot_keys, values) block pairs, the pod
+        checkpoint's stage-1 source (``table.owned_blocks``: both parts
+        share the block sharding, so their owners coincide)."""
+        with self._lock:
+            self._check()
+            self._before_read()
+            out = owned_blocks(self._state, self.sharding)
+            self._after_read()
+        return {b: (sk, v) for b, (sk, v) in out.items()}

@@ -33,7 +33,9 @@ reference does, so a read never holds the lock across a device sync.
 
 The checkpoint path's per-block I/O (``snapshot_blocks``, ``export_blocks``,
 ``import_blocks``) works on whole blocks, the storage's first dimension; a
-snapshot is a device COPY, since steps update the storage in place.
+snapshot is a device COPY, since steps update the storage in place. A pod's
+checkpoint stages each process's owned blocks (``addressable_blocks``,
+:func:`owned_blocks`).
 
 On a mesh that spans the processes of a pod (``parallel/multihost.py``, data
 axis 1) a :class:`ShardedArray` holds only this process's shards, and every
@@ -936,6 +938,56 @@ def _snapshot_part(storage, ids: Sequence[int], whole: bool,
     return torch.stack([on_device(shards[b // bps][b % bps], storage.device) for b in ids])
 
 
+def owned_blocks(storage, sharding: BlockSharding) -> Dict[int, Tuple[np.ndarray, ...]]:
+    """This process's OWNED blocks of a table's storage (a tensor, a pair, or
+    a ShardedArray of either) as host arrays, one tuple of parts a block: the
+    reference's ``owned_addressable_blocks``. Ownership is
+    ``blockmove.block_owners``, the lowest-owner rule that migration sources
+    by too, so over a pod every block comes from exactly one process, and a
+    block replicated on several local slots from the first of them.
+
+    Each local shard that holds an owned block makes one copy to the host:
+    onto pinned memory, enqueued on its card's current stream (the caller
+    holds the table lock and has ordered that stream after the last write),
+    then the stream is waited on before a byte is read."""
+    from harmony_tpu_torch.table.blockmove import block_owners
+
+    me = this_process()
+    owners = block_owners(sharding, (sharding.num_blocks,))
+    if isinstance(storage, ShardedArray):
+        held = sorted(storage.shards.items(), key=lambda kv: kv[0].index)
+        held = [(sharding.slot_blocks(s), t) for s, t in held]
+    else:
+        held = [(range(sharding.num_blocks), storage)]
+    taken: set = set()
+    copies = []
+    cards = set()
+    for blocks, parts in held:
+        mine = [b for b in blocks if owners.get(b) == me and b not in taken]
+        if not mine:
+            continue
+        taken.update(mine)
+        hosts = []
+        for p in (parts if isinstance(parts, tuple) else (parts,)):
+            _check_codec_dtype(p)
+            if p.device.type == "cuda":
+                h = torch.empty(p.shape, dtype=p.dtype, pin_memory=True)
+                h.copy_(p, non_blocking=True)
+                cards.add(p.device)
+            else:
+                h = p.clone()
+            hosts.append(h)
+        copies.append((blocks.start, mine, hosts))
+    for d in cards:
+        torch.cuda.current_stream(d).synchronize()
+    out: Dict[int, Tuple[np.ndarray, ...]] = {}
+    for start, mine, hosts in copies:
+        arrs = [h.numpy() for h in hosts]
+        for b in mine:
+            out[b] = tuple(a[b - start] for a in arrs)
+    return out
+
+
 def _import_part(storage, ids: Sequence[int], payload: torch.Tensor,
                  dtype: torch.dtype, part: Optional[int] = None) -> None:
     """Set blocks ``ids`` of a storage tensor, or of every slot of a
@@ -1115,6 +1167,15 @@ class DenseTable(StreamOrder, LayoutAnnouncerMixin):
         snap = self.snapshot_blocks(block_ids)
         (host,) = snap.to_host()
         return {b: host[i] for i, b in enumerate(snap.ids)}
+
+    def addressable_blocks(self) -> Dict[int, np.ndarray]:
+        """THIS process's owned blocks as host arrays (the pod checkpoint's
+        stage-1 source; see :func:`owned_blocks`), copied under the lock."""
+        with self._lock:
+            self._before_read()
+            out = owned_blocks(self._arr, self.sharding)
+            self._after_read()
+        return {b: parts[0] for b, parts in out.items()}
 
     def import_blocks(self, blocks: Dict[int, np.ndarray]) -> None:
         """Set whole blocks from host payloads (the restore path), cast to the

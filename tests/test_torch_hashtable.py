@@ -385,8 +385,9 @@ def test_a_converted_table_reads_as_the_jax_table(mesh1):
 def test_drop_and_the_ops_not_ported():
     """``reshard`` moves the table across meshes as the reference's does:
     the same slot keys byte for byte and the same values on every layout,
-    reads and writes going on in between; ``addressable_blocks`` (the pod's)
-    stays refused, naming ROADMAP A item 3; a dropped table refuses reads."""
+    reads and writes going on in between; ``addressable_blocks`` (the pod
+    checkpoint's source) gives the reference's (slot_keys, values) pairs, in
+    one process every block; a dropped table refuses reads."""
     from harmony_tpu_torch.parallel.mesh import DevicePool
     from harmony_tpu_torch.parallel.mesh import build_mesh as port_mesh
 
@@ -411,8 +412,11 @@ def test_drop_and_the_ops_not_ported():
         assert tk.numpy().tobytes() == jk.tobytes()
         assert tv.numpy().tobytes() == jv.tobytes()
         np.testing.assert_array_equal(tt.multi_get(keys), jt.multi_get(keys))
-    with pytest.raises(NotImplementedError, match="ROADMAP A item 3"):
-        tt.addressable_blocks()
+    mine, theirs = tt.addressable_blocks(), jt.addressable_blocks()
+    assert sorted(mine) == sorted(theirs) == list(range(8))
+    for b, (jk, jv) in theirs.items():
+        assert mine[b][0].tobytes() == np.asarray(jk).tobytes()
+        assert mine[b][1].tobytes() == np.asarray(jv).tobytes()
     tt.drop()
     with pytest.raises(RuntimeError, match="dropped"):
         tt.multi_get([1])

@@ -22,9 +22,10 @@ killed follower take pods of their own.
   wholly on the follower, its result riding the chief's report); a killed
   follower fails the running job within the heartbeat window and the leader
   still answers STATUS, with ``pod.broken`` set; a chain, a resume from one
-  and a deferred evaluation on a multi-process grant are refused naming
-  ROADMAP A item 3b, and so is a deferred evaluation on a grant wholly on the
-  follower (``POD_RESHARD`` and the optimizer loop on a pod:
+  and a deferred evaluation run on a multi-process grant (the chains' bits:
+  ``tests/test_torch_pod_chain.py``), and a deferred evaluation on a grant
+  wholly on the follower runs there at shutdown and comes back in EVAL_DONE
+  (``POD_RESHARD`` and the optimizer loop on a pod:
   ``tests/test_torch_pod_moves.py``).
 * ``torchrun --nproc-per-node 2`` starts the same pod from its environment,
   with the one-process bits.
@@ -178,10 +179,20 @@ class Pod:
         raise AssertionError(f"no reports for {job_ids}")
 
     def finish(self):
+        """Shut the pod down (once): every process must exit 0. Returns what
+        the leader prints as it closes (its deferred evaluations' results and
+        whether the pod was broken)."""
+        if getattr(self, "closed", None) is not None:
+            return self.closed
         assert self.sender.send_shutdown_command().get("ok")
         for p, proc in enumerate(self.procs):
             proc.wait(timeout=DEADLINE)
             assert proc.returncode == 0, self.stderr(p)[-3000:]
+        prefix = "pod jobserver closed: "
+        (line,) = [ln for ln in self.procs[0].stdout.read().splitlines()
+                   if ln.startswith(prefix)]
+        self.closed = json.loads(line[len(prefix):])
+        return self.closed
 
     def kill(self):
         for proc in self.procs:
@@ -196,7 +207,8 @@ class Pod:
 
 @pytest.fixture(scope="module")
 def pod(tmp_path_factory):
-    pod = Pod(str(tmp_path_factory.mktemp("pod")))
+    tmp = str(tmp_path_factory.mktemp("pod"))
+    pod = Pod(tmp, env={"HARMONY_POD_CHKP_ROOT": os.path.join(tmp, "chains")})
     try:
         yield pod
         pod.finish()
@@ -329,30 +341,40 @@ def test_pod_isolated_jobs_run_one_after_another_with_their_solo_bits(pod):
 
 
 def test_pod_reshard_a_chain_and_an_optimizer_are_refused_naming_item_3b(pod):
-    """What still waits for ROADMAP A item 3b on a multi-process grant: a
-    checkpoint chain, a resume from one and the deferred evaluation are
-    refused in both processes. ``POD_RESHARD`` and the optimizer loop run on
-    the pod now (``tests/test_torch_pod_moves.py``): a plan is refused here
-    only because its job is not running."""
+    """Named for the refusals it replaced; it checks that they are gone. A
+    chain, a resume from it and a job with the deferred evaluation run
+    on a multi-process grant now (their bits: ``tests/test_torch_pod_chain.py``):
+    the chain's entries are the pod's, the resume continues it with the
+    uninterrupted run's losses, and the evaluation runs at the pod's
+    shutdown. ``POD_RESHARD`` and the optimizer loop run on the pod too
+    (``tests/test_torch_pod_moves.py``): a plan is refused here only because
+    its job is not running."""
     reply = pod.sender.send_pod_reshard_command("wd", "executor-0", "executor-1", 1, 30)
     assert not reply["ok"] and "unknown (or finished) pod job wd" in reply["error"], reply
     chained = job("mlr", job_id="mlr-chain", model_chkp_period=1)
-    resumed = job("mlr", job_id="mlr-resume")
+    resumed = job("mlr", job_id="mlr-chain", epochs=3, model_chkp_period=1)
     resumed.user["resume_from_chain"] = True
-    evaluated = job("mlr", job_id="mlr-eval", offline_model_eval=True)
-    for cfg in (chained, resumed, evaluated):
-        assert pod.sender.send_job_submit_command(cfg).get("ok")
-        with pytest.raises(RuntimeError, match="ROADMAP A item 3b"):
-            pod.sender.wait_result(cfg.job_id, timeout=DEADLINE, poll=2.0)
-        reps = pod.reports([cfg.job_id])[cfg.job_id]
-        assert not reps["1"]["ok"] and "item 3b" in reps["1"]["error"]
-    # the pod still runs jobs after the refusals
+    evaluated = job("mlr", job_id="mlr-eval", model_chkp_period=1, offline_model_eval=True)
+    whole = job("mlr", job_id="mlr-whole", epochs=3)
+    reps = pod.run(chained, whole)
+    first, want = reps["mlr-chain"], reps["mlr-whole"]
+    ids = first["0"]["model_chkp_ids"]
+    assert len(ids) == 2 and all(c.endswith("-pod") for c in ids), ids
+    cont = pod.run(resumed)["mlr-chain"]
+    for p in ("0", "1"):
+        assert first[p]["ok"] and cont[p]["ok"], (first[p], cont[p])
+        assert first[p]["model_chkp_ids"] == ids
+        assert _losses(first[p]) + _losses(cont[p]) == _losses(want[p])
+    assert all(r["ok"] for r in pod.run(evaluated)["mlr-eval"].values())
+    # the pod still runs jobs after them
     assert all(r["ok"] for r in pod.run(job("mlr", job_id="mlr-after"))["mlr-after"].values())
 
 
 @pytest.fixture(scope="module")
 def carved(tmp_path_factory):
-    pod = Pod(str(tmp_path_factory.mktemp("carved")), scheduler="pod_carve:1")
+    tmp = str(tmp_path_factory.mktemp("carved"))
+    pod = Pod(tmp, scheduler="pod_carve:1",
+              env={"HARMONY_POD_CHKP_ROOT": os.path.join(tmp, "chains")})
     try:
         yield pod
         pod.finish()
@@ -377,20 +399,27 @@ def test_pod_carve_runs_two_jobs_at_once_on_disjoint_processes(carved):
 
 
 def test_a_deferred_evaluation_on_a_follower_only_grant_is_refused_naming_item_3b(carved):
-    """The leader runs the deferred evaluations: a job that would leave its
-    evaluation on a follower is refused, not run without it."""
+    """Named for the refusal it replaced; it checks that it is gone. A job
+    wholly on a follower with a chain and ``offline_model_eval`` runs there, and so does its evaluation: the follower, its chief, keeps
+    it (JOB_DONE's ``has_deferred_eval``), runs it at the pod's shutdown and
+    sends its results back in EVAL_DONE, which reach the leader's
+    ``eval_results`` beside the leader's own evaluations."""
     held = job("wd", job_id="wd-holds-process-0", epochs=3)
     evaluated = job("mlr", job_id="mlr-eval-on-1", model_chkp_period=1, offline_model_eval=True)
     for cfg in (held, evaluated):
         assert carved.sender.send_job_submit_command(cfg).get("ok")
-    with pytest.raises(RuntimeError, match="ROADMAP A item 3b"):
-        carved.sender.wait_result(evaluated.job_id, timeout=DEADLINE, poll=2.0)
-    carved.sender.wait_result(held.job_id, timeout=DEADLINE, poll=2.0)
+    for cfg in (held, evaluated):
+        carved.sender.wait_result(cfg.job_id, timeout=DEADLINE, poll=2.0)
     reps = carved.reports([held.job_id, evaluated.job_id])
     assert list(reps[held.job_id]) == ["0"] and reps[held.job_id]["0"]["ok"]
     (r,) = reps[evaluated.job_id].values()
-    assert list(reps[evaluated.job_id]) == ["1"] and not r["ok"]
-    assert "offline_model_eval" in r["error"] and "item 3b" in r["error"]
+    assert list(reps[evaluated.job_id]) == ["1"] and r["ok"], r
+    assert r["has_deferred_eval"] and len(r["model_chkp_ids"]) == 2
+    closed = carved.finish()
+    evals = closed["eval_results"][evaluated.job_id]
+    assert isinstance(evals, list) and len(evals) == 2, evals
+    assert all(np.isfinite(m["loss"]) for m in evals) and evals[-1]["loss"] < evals[0]["loss"]
+    assert held.job_id not in closed["eval_results"] and closed["broken"] is None
 
 
 def test_a_pod_started_under_torchrun_gives_the_one_process_bits(tmp_path):

@@ -6,7 +6,8 @@ tests import ``tests.helpers``).
 before the first epoch, in every process: a plan sent in that time meets the
 job at its observed epoch 0, so the smallest legal plan epoch is
 ``EPOCH_WINDOW`` + 1. ``SlowEpochsMLR`` sleeps ``epoch_lag_sec`` after each
-epoch (its epochs run one a window). Sleeps are host delays only: the values
+epoch (its epochs run one a window). ``leader_only_test_data`` is test data
+that only process 0 can read. Sleeps are host delays only: the values
 are the apps' own."""
 from __future__ import annotations
 
@@ -44,6 +45,17 @@ class SlowEpochsMLR(MLRTrainer):
     def on_epoch_finished(self, ctx, epoch_idx: int) -> None:
         time.sleep(self._epoch_lag_sec)
         super().on_epoch_finished(ctx, epoch_idx)
+
+
+def leader_only_test_data(**data_args):
+    """MLR's synthetic data in the pod's process 0; any other process fails
+    to read it (a follower that fails before its READY ack)."""
+    from harmony_tpu_torch.apps.mlr import make_synthetic
+    from harmony_tpu_torch.parallel import multihost
+
+    if multihost.process_index() != 0:
+        raise RuntimeError(f"test data unreadable on process {multihost.process_index()}")
+    return make_synthetic(**data_args)
 
 
 class MoveOncePodOptimizer:
