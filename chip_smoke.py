@@ -175,10 +175,11 @@ As each phase ends a ``phase <name>: <s> s`` line gives its host seconds
    table the bits of the uninterrupted 2-epoch run; (c) a flipped byte in a
    block of the newest entry (quarantined, the resume falls back one entry to
    the same table) and a torn manifest (quarantined by the scan); (d) bench-lm
-   with a chain entry every epoch and the deferred evaluation (K4 on mma, no
-   K5): the snapshot's time on the training thread, the background write's
-   MB/s, the write and restore MB/s at 4 I/O threads and at 1, and the epoch
-   seconds with the chain beside phase 3b's. The codec that wrote the blocks
+   with a chain entry every epoch for LM_CHAIN_EPOCHS epochs and the deferred
+   evaluation (K4 on mma, no K5): the snapshot's time on the training thread,
+   the background write's MB/s, the synchronous write and restore MB/s at
+   CHAIN_IO_THREADS I/O threads, and the epoch seconds with the chain beside
+   phase 3b's. The codec that wrote the blocks
    (``blk``, or ``npy`` without the native build) is printed.
 3s. Online serving: (a) an in-process JobServer on the card with
    ``serve_tcp(0)`` and a ``chkp_root``; bench-widedeep submitted through
@@ -186,7 +187,7 @@ As each phase ends a ``phase <name>: <s> s`` line gives its host seconds
    ``status`` showing it running, ``shutdown`` ending the server; once,
    ``start-jobserver --port 0`` as a process of its own, its ready line
    read and ``shutdown`` over TCP ending it with exit code 0. (b) The read
-   storm through ``ServingClient`` while the job trains (8 readers x 50
+   storm through ``ServingClient`` while the job trains (8 readers x 20
    reads of 16 keys, 12 from a hot head of 64, seed 20), in four arms
    (batch window 0 or 2 ms x cache 0 or 64 MB): p50/p99 ms, lookups/s,
    batch occupancy, cache hit rate, the gathers (one K1 launch each) and
@@ -396,6 +397,33 @@ As each phase ends a ``phase <name>: <s> s`` line gives its host seconds
    around each job in its own process. Its ``pod chains:`` line holds the
    numbers; ``python3 chip_smoke.py --phase 3pc`` runs the build and this
    phase alone.
+3el. Elastic recovery on the pod: ``cli start-pod`` in two processes on
+   cuda:0 over gloo (on four or more cards four over NCCL, a card each), a
+   slot a process, chains under a shared root, the beacon every
+   EL_HB_PERIOD s and confinement after EL_HB_TIMEOUT s (the only settings
+   changed, with the epochs). bench-widedeep uncut (256 blocks of 27,132 B)
+   with an entry every epoch and ``user.elastic_shrink``. (a) Kill, then
+   shrink (``pod_carve:1``, fillers on the other processes): a
+   ``HARMONY_FAULT_PLAN`` ``worker.step`` rule crashes the victim's process
+   (exit code 86) at epoch EL_CRASH_EPOCH; the same submission finishes on a
+   survivor (two attempts, one ``elastic_shrink``, nothing auto-resumed),
+   its restore reading every block (6,945,792 B). (b) Silence, shrink,
+   re-grow: after a warm-up job (a process's first job is slow; it gives the
+   split epoch's cadence), the victim over the last two processes, a
+   ``pod.heartbeat`` ``skip`` rule muting the last one until the shrunk
+   attempt has begun (``el_end_mute`` spends the rule's count in its shared
+   state file), the victim's epochs from the measured cadences
+   (``el_split_plan``); the shrink's
+   restore reads exactly the lost half (128 blocks, 3,472,896 B; the other
+   128 from the survivor's recovery cache), the re-grow reads nothing on the
+   survivor and 128 blocks on the returning process, three attempts, the
+   pod's whole event arc. Both: the losses and the final chain entry the
+   uninterrupted one-slot run's bits, and the clocks of each recovery
+   (detection, the fence's lead, planning, ``restore_partial`` ms and MB/s,
+   from the loss to the new attempt's first step, step ms before and
+   after). K1-K3 are read around each attempt in its own process. Its ``pod
+   elastic:`` line holds the numbers; ``python3 chip_smoke.py --phase 3el``
+   runs the build and this phase alone.
 4. The sparse push route (``HARMONY_PUSH_VIA=sparse``): the Wide&Deep job
    of phase 3, which folds its pushes with K2.
 5. Where a step's time goes: a steady epoch of the Wide&Deep job on the host
@@ -428,7 +456,9 @@ As each phase ends a ``phase <name>: <s> s`` line gives its host seconds
    first data-axis run of each job of (b); pod: phase 3y (a), (b) and (d),
    summed over the processes, each process's counts read around its job;
    pod-moves: phase 3z's pod jobs, (a), (b) and (d) moved and unmoved, read
-   the same way; pod-chains: phase 3pc's pod jobs, read the same way);
+   the same way; pod-chains: phase 3pc's pod jobs, read the same way;
+   pod-elastic: phase 3el's victims, each attempt in each process that
+   reported it, read the same way);
    K1-K3
    also carry ``device_ms``, ``library_device_ms``,
    ``library_deterministic_device_ms``, ``host_us`` and their timing at
@@ -3307,6 +3337,11 @@ def run_multiworker(trio_jobs, fused_trio):
 # bench-lm's deferred evaluation runs on one batch of its corpus (32 sequences
 # of 1,024 tokens, the training batch's shape) rather than all 128 sequences.
 LM_EVAL_DATA = {"num_seqs": 32, "seq_len": 1025, "vocab_size": 8192}
+# bench-lm's chain in (d) is LM_CHAIN_EPOCHS epochs deep (an entry of 134.5 MB
+# takes ~17 s to write on the chip host's filesystem), and its synchronous
+# write and restore are timed at CHAIN_IO_THREADS I/O threads (the default)
+LM_CHAIN_EPOCHS = 1
+CHAIN_IO_THREADS = 4
 # The hash chain's evaluations, card against CPU over the same chain files:
 # the same table bits on both, and the metrics are f32 sums over 32,768
 # examples taken in another order (CUDA's reductions against the CPU's).
@@ -3520,16 +3555,19 @@ def file_yardstick(entry_dir, scratch):
 
 
 def run_chain_lm(root, wrappers, lm_summary):
-    """Phase 3r (d): bench-lm with a chain entry every epoch and the deferred
-    evaluation (K4 on mma, forward only); the snapshot's time on the training
-    thread, write and restore MB/s at 4 I/O threads and at 1, and the epoch
-    seconds beside phase 3b's run without a chain."""
+    """Phase 3r (d): bench-lm with a chain entry every epoch for
+    LM_CHAIN_EPOCHS epochs and the deferred evaluation (K4 on mma, forward
+    only); the snapshot's time on the training thread, the background
+    write's MB/s, the synchronous write and restore MB/s at CHAIN_IO_THREADS
+    I/O threads, and the epoch seconds beside phase 3b's run without a
+    chain."""
     from harmony_tpu_torch import cli
     from harmony_tpu_torch.checkpoint import CheckpointManager
     from harmony_tpu_torch.ops import attention as A
 
     config = cli.build_config("lm", cli.build_parser().parse_args(
-        LM_ARGS + ["--model-chkp-period", "1", "--offline-eval"]))
+        LM_ARGS + ["--epochs", str(LM_CHAIN_EPOCHS), "--model-chkp-period", "1",
+                   "--offline-eval"]))
     config = config.replace(user={**config.user, "test_data_args": LM_EVAL_DATA})
     server = chain_server(root)
     io = {}
@@ -3538,14 +3576,14 @@ def run_chain_lm(root, wrappers, lm_summary):
         res = server.submit(config).result(timeout=900)
         train = launch_counts(wrappers)
         ids = res["model_chkp_ids"]
-        check(len(ids) == EPOCHS and "model_chkp_warning" not in res,
+        check(len(ids) == LM_CHAIN_EPOCHS and "model_chkp_warning" not in res,
               f"bench-lm chain {ids} {res.get('model_chkp_warning')}")
         mgr = CheckpointManager.for_job(root, config.job_id)
         codec, disk = chain_codec(mgr, ids[-1])
         ex = server.master.executor_ids()
         nbytes = res["model_chkp_stats"][-1]["bytes"]
         fs = file_yardstick(mgr._dir_of(ids[-1]), os.path.join(root, "fs"))
-        for threads in (4, 1):
+        for threads in (CHAIN_IO_THREADS,):
             os.environ["HARMONY_CHKP_IO_THREADS"] = str(threads)
             try:
                 torch.cuda.synchronize()
@@ -3577,11 +3615,11 @@ def run_chain_lm(root, wrappers, lm_summary):
     launches = launch_counts(wrappers)
     routes = dict(A.flash_forward.launches_by_route)
     evals = server.eval_results[config.job_id]
-    check(isinstance(evals, list) and len(evals) == EPOCHS
+    check(isinstance(evals, list) and len(evals) == LM_CHAIN_EPOCHS
           and all(math.isfinite(m["loss"]) for m in evals), f"bench-lm evals {evals}")
     expected = dict.fromkeys(launches, 0)
-    expected["flash_forward"] = EPOCHS * LM_LAYERS
-    check(launches == expected and routes == {"mma": EPOCHS * LM_LAYERS, "simt": 0},
+    expected["flash_forward"] = LM_CHAIN_EPOCHS * LM_LAYERS
+    check(launches == expected and routes == {"mma": LM_CHAIN_EPOCHS * LM_LAYERS, "simt": 0},
           f"bench-lm evaluation launches {launches} by route {routes}, expected {expected}")
     (w,) = res["workers"].values()
     stats = res["model_chkp_stats"]
@@ -3883,10 +3921,11 @@ def profile_models(decode_once):
 # -- phase 3s: online serving through the TCP command plane ------------------
 
 # The reference bench's read storm (benchmarks/serving_bench.py:58-79), scaled
-# to bench-widedeep's table: 8 readers x 50 reads of 16 keys, 12 of each read
-# from a hot head of 64 keys and 4 uniform over the table, seed 20; four arms,
-# batch window 0 or 2 ms x hot-row cache 0 or 64 MB.
-SERVE_READERS, SERVE_READS, SERVE_KEYS, SERVE_HOT, SERVE_HOT_KEYS = 8, 50, 16, 64, 12
+# to bench-widedeep's table: 8 readers x 20 reads of 16 keys (the reference's
+# 50 reads a reader, cut for the run's time), 12 of each read from a hot head
+# of 64 keys and 4 uniform over the table, seed 20; four arms, batch window 0
+# or 2 ms x hot-row cache 0 or 64 MB.
+SERVE_READERS, SERVE_READS, SERVE_KEYS, SERVE_HOT, SERVE_HOT_KEYS = 8, 20, 16, 64, 12
 SERVE_SEED = 20
 SERVE_ARMS = [(0.0, 0), (0.0, 64), (2.0, 0), (2.0, 64)]
 # bench-widedeep submitted through the CLI with a chain entry every epoch:
@@ -6548,7 +6587,7 @@ class ChipPod:
     of its card a process. Killed in ``close`` whatever happened."""
 
     def __init__(self, n: int, own_cards: bool, phase: str = "3y", slots: int = 1,
-                 env: dict = None) -> None:
+                 env: dict = None, scheduler: str = "share_all") -> None:
         import tempfile
 
         from harmony_tpu_torch.jobserver.client import CommandSender
@@ -6560,8 +6599,8 @@ class ChipPod:
         for p in range(n):
             # a wedged collective raises well inside the phase's waits
             penv = dict(os.environ, OMP_NUM_THREADS="4", HARMONY_PUSH_VIA="mxu",
-                        HARMONY_POD_HB_PERIOD="1", HARMONY_POD_UNIT_TIMEOUT="120",
-                        **(env or {}))
+                        HARMONY_POD_HB_PERIOD="1", HARMONY_POD_UNIT_TIMEOUT="120")
+            penv.update(env or {})
             if own_cards:
                 penv["CUDA_VISIBLE_DEVICES"] = str(p)
             err = open(os.path.join(self.log_dir, f"pod-process{p}.log"), "w")
@@ -6570,7 +6609,8 @@ class ChipPod:
                 [sys.executable, "-m", "harmony_tpu_torch.cli", "start-pod",
                  "--device", ",".join(["cuda:0"] * slots),
                  "--coordinator", f"127.0.0.1:{store}", "--num-processes", str(n),
-                 "--process-id", str(p), "--pod-port", str(pod_port), "--port", str(self.port)],
+                 "--process-id", str(p), "--pod-port", str(pod_port), "--port", str(self.port),
+                 "--scheduler", scheduler],
                 cwd=REPO, env=penv, stdout=err, stderr=subprocess.STDOUT, text=True))
         self.sender = CommandSender(self.port)
         deadline = time.monotonic() + POD_READY_S
@@ -6614,13 +6654,16 @@ class ChipPod:
             check(time.monotonic() < deadline, f"phase {self.phase}: no reports for {ids}")
             time.sleep(0.2)
 
-    def shutdown(self) -> dict:
-        """SHUTDOWN: every process must exit 0 within the deadline; returns
-        what the leader prints as it closes (its deferred evaluations'
-        results and whether the pod was broken)."""
+    def shutdown(self, dead=()) -> dict:
+        """SHUTDOWN: every process (but the ``dead`` ones) must exit 0 within
+        the deadline; returns what the leader prints as it closes (its
+        deferred evaluations' results, whether the pod was broken, and its
+        recovery events)."""
         check(self.sender.send_shutdown_command().get("ok"),
               f"phase {self.phase}: the pod refused SHUTDOWN")
         for p, proc in enumerate(self.procs):
+            if p in dead:
+                continue
             try:
                 proc.wait(timeout=POD_JOB_S)
             except subprocess.TimeoutExpired:
@@ -6907,20 +6950,23 @@ def _pod_move_symbols() -> dict:
     (the reference's ``tests/helpers.py:54-75`` in port form: one move-only
     plan once worker metrics exist, here every block of the last executor
     onto executor-0: the table's owners change, and on a pod of two slots a
-    process every process stays an owner)."""
+    process every process stays an owner); and phase 3el's
+    ``ElasticLagWideDeep``, whose sleep comes only before a run that starts
+    at epoch 0 (not before a recovery attempt's)."""
     if _POD_MOVE_SYMBOLS:
         return _POD_MOVE_SYMBOLS
     from harmony_tpu_torch.apps.widedeep import FMTrainer, WideDeepTrainer
     from harmony_tpu_torch.optimizer.api import DolphinPlan, TransferStep
 
-    def slow_start(base):
+    def slow_start(base, first_run_only=False):
         class SlowStart(base):
             def __init__(self, start_lag_sec: float = 0.0, **kw) -> None:
                 super().__init__(**kw)
                 self._start_lag_sec = start_lag_sec
 
             def on_training_start(self, ctx, starting_epoch: int) -> None:
-                time.sleep(self._start_lag_sec)
+                if starting_epoch == 0 or not first_run_only:
+                    time.sleep(self._start_lag_sec)
                 super().on_training_start(ctx, starting_epoch)
 
         return SlowStart
@@ -6941,14 +6987,16 @@ def _pod_move_symbols() -> dict:
 
     _POD_MOVE_SYMBOLS.update(SlowStartWideDeepTrainer=slow_start(WideDeepTrainer),
                              SlowStartFMTrainer=slow_start(FMTrainer),
-                             MoveOncePodOptimizer=MoveOncePodOptimizer)
+                             MoveOncePodOptimizer=MoveOncePodOptimizer,
+                             ElasticLagWideDeep=slow_start(WideDeepTrainer, True))
     return _POD_MOVE_SYMBOLS
 
 
 def __getattr__(name: str):
     """``chip_smoke:SlowStartWideDeepTrainer`` and the others of
     :func:`_pod_move_symbols`, as the pod's processes resolve them."""
-    if name in ("SlowStartWideDeepTrainer", "SlowStartFMTrainer", "MoveOncePodOptimizer"):
+    if name in ("SlowStartWideDeepTrainer", "SlowStartFMTrainer", "MoveOncePodOptimizer",
+                "ElasticLagWideDeep"):
         return _pod_move_symbols()[name]
     raise AttributeError(name)
 
@@ -7483,13 +7531,16 @@ def pc_chain_configs():
 
 def pc_entries(root: str, job_id: str) -> dict:
     """epoch -> {"id", "files" (name -> SHA-256 of its bytes), "checksums",
-    "ownership"} of a job's committed chain under ``root``."""
+    "ownership"} of a job's committed chain under ``root`` (a commit a
+    crashed process left half done, with no manifest, is no entry)."""
     import hashlib
 
     commit = os.path.join(root, job_id, "commit")
     out = {}
     for cid in sorted(os.listdir(commit)):
         d = os.path.join(commit, cid)
+        if not os.path.isfile(os.path.join(d, "manifest.json")):
+            continue
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
         files = {}
@@ -7726,6 +7777,403 @@ def run_pod_chains():
     return launches, out
 
 
+# -- phase 3el: elastic recovery on the pod -----------------------------------
+
+# The only settings 3el changes: the pod's beacon every EL_HB_PERIOD s and a
+# follower confined after EL_HB_TIMEOUT s of silence; the jobs' epochs.
+EL_HB_TIMEOUT = "3"
+EL_HB_PERIOD = "0.5"
+# (a) the victim trains EL_KILL_EPOCHS epochs; its process is crashed (exit
+# code 86) at its first step of epoch EL_CRASH_EPOCH, after at least two
+# committed chain entries; it waits EL_START_LAG s before its first epoch
+# (not in a recovery attempt), the time the fillers on the other processes
+# take to finish, so the shrink finds the survivor free
+EL_KILL_EPOCHS = 8
+EL_CRASH_EPOCH = 4
+EL_START_LAG = 6.0
+# (b) a warm-up job of EL_WARM_EPOCHS over the same processes first (a
+# process's first job is slow) gives the split epoch's cadence; then the last
+# process's beacon is mute from its EL_MUTE_AFTER-th beat in its second job
+# until EL_MUTE_TAIL_S after the shrunk attempt has begun (el_end_mute); the
+# victim's epochs (el_split_plan) cover the shrink fence, the shrunk attempt
+# until the beats resume, the re-grow fence's lead and EL_TAIL_EPOCHS, at the
+# cadences measured (the split one by the warm-up, the shrunk one in (a))
+# divided by EL_PACE_MARGIN
+EL_MUTE_AFTER = 4
+EL_MUTE_COUNT = 10 ** 6
+EL_MUTE_TAIL_S = 1.0
+EL_WARM_EPOCHS = 4
+EL_TAIL_EPOCHS = 2
+EL_PACE_MARGIN = 1.5
+# bench-widedeep's table: 256 blocks of 399 rows x 17 f32
+WD_BLOCKS = 256
+WD_BLOCK_BYTES = 399 * 17 * 4
+
+
+def el_victim(job_id: str, epochs: int, lag: float = 0.0):
+    """bench-widedeep with an entry every epoch and ``user.elastic_shrink``."""
+    cfg = pod_wd_config(job_id, epochs)
+    params = cfg.params.replace(model_chkp_period=1)
+    if lag:
+        params = params.replace(app_params={**params.app_params, "start_lag_sec": lag})
+        cfg = cfg.replace(trainer="chip_smoke:ElasticLagWideDeep")
+    return cfg.replace(params=params, user={**cfg.user, "elastic_shrink": True})
+
+
+def el_filler(job_id: str):
+    """A short job: the ``mlr`` preset, one epoch of two batches."""
+    from harmony_tpu_torch import cli
+
+    return cli.build_config("mlr", cli.build_parser().parse_args(
+        ["run", "mlr", "--epochs", "1", "--batches", "2", "--workers", "1",
+         "--job-id", job_id]))
+
+
+def el_one_slot(root: str, job_id: str, epochs: int):
+    """The uninterrupted run on one slot of the card (``HARMONY_PUSH_VIA=mxu``,
+    as the pod's processes): its batch losses and its last epoch's chain
+    entry (the only one: the period is the run)."""
+    os.environ["HARMONY_PUSH_VIA"] = "mxu"
+    server = chain_server(root)
+    try:
+        cfg = pod_wd_config(job_id, epochs)
+        cfg = cfg.replace(params=cfg.params.replace(model_chkp_period=epochs))
+        (w,) = server.submit(cfg).result(timeout=POD_JOB_S)["workers"].values()
+    finally:
+        server.shutdown()
+        os.environ.pop("HARMONY_PUSH_VIA")
+    return w["batch_losses"], pc_entries(root, job_id)[epochs - 1]["files"]
+
+
+def el_pod_env(root: str, rule) -> dict:
+    from harmony_tpu_torch import faults
+
+    return {"HARMONY_POD_CHKP_ROOT": root, "HARMONY_POD_HB_TIMEOUT": EL_HB_TIMEOUT,
+            "HARMONY_POD_HB_PERIOD": EL_HB_PERIOD,
+            faults.ENV_VAR: faults.FaultPlan([rule]).to_json()}
+
+
+def el_wait(pod, job_id: str, timeout: float = POD_JOB_S):
+    try:
+        return pod.sender.wait_result(job_id, timeout=timeout, poll=1.0)
+    except Exception as e:  # noqa: BLE001 - the phase fails
+        fail(f"phase 3el: {job_id} failed on the pod: {e}\n"
+             + "\n".join(pod.log(p)[-3000:] for p in range(len(pod.procs))))
+
+
+def el_attempts(reports: dict, job_id: str, attempts: int) -> list:
+    """Each attempt's reports by process (``job``, ``job@a1``, ...)."""
+    from harmony_tpu_torch.jobserver.elastic import attempt_key
+
+    return [reports.get(attempt_key(job_id, a), {}) for a in range(attempts)]
+
+
+def el_step_ms(rep: dict):
+    """A report's mean step ms past its first epoch, or None."""
+    secs = [s for w in rep.get("workers", {}).values() for s in w["epoch_seconds"][1:]]
+    return 1e3 * statistics.mean(secs) / BATCHES if secs else None
+
+
+def el_event(events: list, kind: str, job_id=None) -> dict:
+    found = [e for e in events if e["kind"] == kind and (job_id is None
+                                                          or e.get("job_id") == job_id)]
+    check(found, f"phase 3el: no {kind} event in {json.dumps(events)[:3000]}")
+    return found[0]
+
+
+def el_restore_clock(rst: dict) -> dict:
+    return {"blocks_local": rst["blocks_local"], "blocks_read": rst["blocks_read"],
+            "bytes_read": rst["bytes_read"], "restore_partial_ms": 1e3 * rst["seconds"],
+            "read_mb_per_s": (rst["bytes_read"] / 1e6 / rst["seconds"]
+                              if rst["bytes_read"] else None)}
+
+
+def el_add_launches(launches: dict, attempts: list) -> None:
+    for reps in attempts:
+        for rep in reps.values():
+            for name, v in rep.get("launches", {}).items():
+                launches[name] += v
+
+
+def el_kill(n: int, own: bool, root: str, one: tuple, launches: dict) -> dict:
+    """Phase 3el (a): the victim wholly on the last process (fillers take the
+    others under ``pod_carve:1``), which a ``worker.step`` crash rule kills;
+    the same submission completes on a survivor."""
+    from harmony_tpu_torch import faults
+
+    job, victim = "el-kill", n - 1
+    rule = faults.FaultRule("worker.step", match={"job": job, "proc": victim},
+                            after=EL_CRASH_EPOCH * BATCHES, count=1, action="crash",
+                            exit_code=86)
+    pod = ChipPod(n, own, phase="3el", scheduler="pod_carve:1", env=el_pod_env(root, rule))
+    exited = {}
+    try:
+        print(f"phase 3el (a): {pod.ready_line}; {pod.backend.split(': ', 1)[-1]}", flush=True)
+
+        def watch():
+            while pod.procs[victim].poll() is None:
+                time.sleep(0.005)
+            exited["wall"] = time.time()
+
+        threading.Thread(target=watch, daemon=True).start()
+        for c in [el_filler(f"el-filler-{p}") for p in range(n - 1)] + [
+                el_victim(job, EL_KILL_EPOCHS, EL_START_LAG)]:
+            reply = pod.sender.send_job_submit_command(c)
+            check(reply.get("ok"), f"phase 3el (a): submit {c.job_id}: {reply}")
+        for p in range(n - 1):
+            el_wait(pod, f"el-filler-{p}")
+        res = el_wait(pod, job)
+        rc = pod.procs[victim].wait(timeout=60)
+        status = pod.sender.send_status_command()
+        closed = pod.shutdown(dead=(victim,))
+    finally:
+        pod.close()
+    check(rc == 86, f"phase 3el (a): the victim's process exited {rc}, not 86")
+    meta, rst = res.get("elastic", {}), res.get("elastic_restore", {})
+    check(closed["auto_resumed"] == [] and meta.get("attempts") == 2
+          and [e["kind"] for e in meta.get("events", [])] == ["elastic_shrink"],
+          f"phase 3el (a): {json.dumps(meta)[:2000]}, auto_resumed {closed['auto_resumed']}")
+    survivor = meta["events"][0]["procs"]
+    check(len(survivor) == 1 and survivor[0] != victim, f"phase 3el (a): survivor {survivor}")
+    check(rst.get("partial") == 1 and rst["blocks_local"] == 0
+          and rst["blocks_read"] == rst["blocks_needed"] == rst["lost_block_count"] == WD_BLOCKS
+          and rst["bytes_read"] == WD_BLOCKS * WD_BLOCK_BYTES,
+          f"phase 3el (a): restore {json.dumps(rst)}")
+    (w,) = res["workers"].values()
+    start = w["starting_epoch"]
+    check(start == rst["resumed_epoch"] >= 2 and w["epochs_run"] == EL_KILL_EPOCHS - start,
+          f"phase 3el (a): the final attempt ran epochs {start}+{w['epochs_run']}")
+    losses, files = one
+    check(w["batch_losses"] == losses[BATCHES * start:EL_KILL_EPOCHS * BATCHES],
+          "phase 3el (a): the resumed losses are not the uninterrupted run's bits")
+    check(pc_entries(root, job)[EL_KILL_EPOCHS - 1]["files"] == files,
+          "phase 3el (a): the final table is not the uninterrupted run's")
+    attempts = el_attempts(status["pod"]["reports"], job, 2)
+    el_add_launches(launches, attempts)
+    events = closed["elastic_events"]
+    death = el_event(events, "follower_death")
+    shrink = el_event(events, "elastic_shrink", job)
+    (a1,) = attempts[1].values()
+    out = {"victim_process": victim, "survivor_process": survivor[0], "exit_code": rc,
+           "shrunk_epoch_s": a1["workers"][f"{job}/w0"]["train_seconds"] / w["epochs_run"],
+           "resumed_epoch": start, "restore": el_restore_clock(rst),
+           "detection": {"by": "the reader's EOF",
+                         "s_after_exit": death["ts"] - exited["wall"]},
+           "planning_s": shrink["planning_s"],
+           "exit_to_first_step_s": a1["train_wall"] - exited["wall"],
+           "detection_to_first_step_s": a1["train_wall"] - death["ts"],
+           "step_ms_before": None, "step_ms_after": el_step_ms(a1),
+           "losses_bit_identical": True, "final_table_bit_identical": True}
+    print(f"phase 3el (a): kill, then shrink: the same submission finished on process "
+          f"{survivor[0]}: {json.dumps(out)} (the killed process's report, and its step "
+          f"ms, died with it)", flush=True)
+    return out
+
+
+def el_split_plan(split_epoch_s: float, shrunk_epoch_s: float) -> dict:
+    """The victim's epochs in (b), at the fast end of the measured cadences:
+    the shrink fence (the confinement, then its lead), the shrunk attempt
+    until its re-grow fence is scheduled (the beats resume EL_MUTE_TAIL_S
+    after it begins; a beat and a monitor period later the follower is
+    rehabilitated), that fence's lead, and EL_TAIL_EPOCHS."""
+    from harmony_tpu_torch.dolphin.worker import WorkerTasklet
+
+    period, hb = float(EL_HB_PERIOD), float(EL_HB_TIMEOUT)
+    lead = WorkerTasklet.EPOCH_WINDOW + 2
+    fast = split_epoch_s / EL_PACE_MARGIN
+    shrunk = max(min(shrunk_epoch_s, split_epoch_s) / EL_PACE_MARGIN, 0.05)
+    confined = EL_MUTE_AFTER * period + hb + 2 * period + 0.75
+    shrink_fence = math.ceil(confined / fast) + lead
+    rehabilitated = EL_MUTE_TAIL_S + 2 * period + 0.75 + 0.5
+    regrow_fence = shrink_fence + 1 + math.ceil(rehabilitated / shrunk) + lead
+    return {"epochs": int(regrow_fence + 1 + EL_TAIL_EPOCHS), "split_epoch_s": split_epoch_s,
+            "shrunk_epoch_s": shrunk_epoch_s}
+
+
+def el_end_mute(pod, job_id: str, state: str) -> dict:
+    """Once the shrunk attempt of ``job_id`` has begun (STATUS's ``elastic``
+    block) and EL_MUTE_TAIL_S more have passed, spend the mute rule's count
+    in the state file the pod's processes share (under its lock, as they
+    update it): the beacon beats again. Returns the beats dropped and the
+    seconds from the attempt's start."""
+    import fcntl
+
+    deadline = time.monotonic() + POD_JOB_S
+    while pod.sender.send_status_command()["elastic"]["active"].get(
+            job_id, {}).get("attempt", 0) < 1:
+        check(time.monotonic() < deadline, "phase 3el (b): the job never shrank")
+        time.sleep(0.05)
+    time.sleep(EL_MUTE_TAIL_S)
+    with open(state + ".lock", "w") as lk:
+        fcntl.flock(lk, fcntl.LOCK_EX)
+        with open(state) as f:
+            fired = json.load(f)["fired"][0]
+        with open(state, "w") as f:
+            json.dump({"hits": [EL_MUTE_COUNT + EL_MUTE_AFTER], "fired": [EL_MUTE_COUNT]}, f)
+    return {"beats_dropped": fired, "mute_s": fired * float(EL_HB_PERIOD)}
+
+
+def el_submit(pod, *configs) -> None:
+    for c in configs:
+        reply = pod.sender.send_job_submit_command(c)
+        check(reply.get("ok"), f"phase 3el: submit {c.job_id}: {reply}")
+
+
+def el_split(n: int, own: bool, root: str, one_slot, launches: dict,
+             shrunk_epoch_s: float) -> dict:
+    """Phase 3el (b): a warm-up over the last two processes, then the victim
+    there, the last one's beacon muted for a bounded window: shrink onto the
+    other, then re-grow onto both once the beats resume."""
+    from harmony_tpu_torch import faults
+    from harmony_tpu_torch.dolphin.worker import WorkerTasklet
+
+    job, mute, keep = "el-split", n - 1, n - 2
+    # the warm-up is the muted process's first job, the victim its second. The
+    # rule mutes with no end, its counters in a state file the pod's processes
+    # share (faults/plan.py), and this script spends its count once the job
+    # has shrunk (el_end_mute)
+    rule = faults.FaultRule("pod.heartbeat", match={"pid": mute, "jobs_started": 2},
+                            after=EL_MUTE_AFTER, count=EL_MUTE_COUNT, action="skip")
+    os.makedirs(root, exist_ok=True)
+    state = os.path.join(root, "fault-state.json")
+    env = el_pod_env(root, rule)
+    env[faults.ENV_VAR] = faults.FaultPlan([rule], state_path=state).to_json()
+    pod = ChipPod(n, own, phase="3el", scheduler="share_all" if n == 2 else "pod_carve:2",
+                  env=env)
+    try:
+        print(f"phase 3el (b): {pod.ready_line}; {pod.backend.split(': ', 1)[-1]}", flush=True)
+        # pod_carve:2 on four processes: a filler takes processes 0 and 1 each time
+        fill = (lambda tag: [el_filler(f"el-filler-{tag}")]) if n > 2 else (lambda tag: [])
+        el_submit(pod, *fill("warm"), el_victim("el-warm", EL_WARM_EPOCHS))
+        for c in fill("warm"):   # its processes must be free for the next filler
+            el_wait(pod, c.job_id)
+        warm = el_wait(pod, "el-warm")
+        (ww,) = warm["workers"].values()
+        split_epoch_s = (ww["train_span"][1] - ww["train_span"][0]) / ww["epochs_run"]
+        plan = el_split_plan(split_epoch_s, shrunk_epoch_s)
+        epochs = plan["epochs"]
+        print(f"phase 3el (b): plan {json.dumps(plan)}", flush=True)
+        losses, files = one_slot(epochs)
+        el_submit(pod, *fill("split"), el_victim(job, epochs))
+        plan.update(el_end_mute(pod, job, state))
+        res = el_wait(pod, job)
+        status = pod.sender.send_status_command()
+        closed = pod.shutdown()
+    finally:
+        pod.close()
+    meta = res.get("elastic", {})
+    kinds = [e["kind"] for e in meta.get("events", [])]
+    check(kinds == ["elastic_shrink", "elastic_regrow"] and meta["attempts"] == 3,
+          f"phase 3el (b): {json.dumps(meta)[:3000]}; pod events "
+          f"{json.dumps(closed.get('elastic_events'))[:4000]}")
+    shrink, regrow = meta["events"]
+    original = [f"executor-{keep}", f"executor-{mute}"]
+    check(shrink["procs"] == [keep] and regrow["procs"] == [keep, mute]
+          and regrow["executors"] == original,
+          f"phase 3el (b): shrink {shrink}, re-grow {regrow}")
+    events = closed["elastic_events"]
+    pod_kinds = [e["kind"] for e in events]
+    for k in ("follower_silenced", "elastic_shrink_fence", "follower_rehabilitated",
+              "elastic_regrow_fence", "elastic_shrink", "elastic_regrow"):
+        check(k in pod_kinds, f"phase 3el (b): no {k} among {pod_kinds}")
+    attempts = el_attempts(status["pod"]["reports"], job, 3)
+    el_add_launches(launches, attempts)
+    half = WD_BLOCKS // 2
+    srst = attempts[1][str(keep)]["elastic_restore"]
+    check(srst["blocks_needed"] == WD_BLOCKS and srst["blocks_local"] == half
+          and srst["blocks_read"] == half == srst["lost_block_count"]
+          and srst["bytes_read"] == half * WD_BLOCK_BYTES,
+          f"phase 3el (b): the shrink's restore {json.dumps(srst)}")
+    r_keep = attempts[2][str(keep)]["elastic_restore"]
+    r_back = attempts[2][str(mute)]["elastic_restore"]
+    check(r_keep["chkp_id"] == r_back["chkp_id"]
+          and (r_keep["blocks_local"], r_keep["blocks_read"]) == (half, 0)
+          and (r_back["blocks_local"], r_back["blocks_read"], r_back["bytes_read"])
+          == (0, half, half * WD_BLOCK_BYTES),
+          f"phase 3el (b): the re-grow's restores {json.dumps([r_keep, r_back])}")
+    s_fence = el_event(events, "elastic_shrink_fence", job)
+    r_fence = el_event(events, "elastic_regrow_fence", job)
+    (w,) = res["workers"].values()
+    start = w["starting_epoch"]
+    check(start == res["elastic_restore"]["resumed_epoch"] == r_fence["epoch"] + 1
+          and srst["resumed_epoch"] == s_fence["epoch"] + 1
+          and w["epochs_run"] == epochs - start,
+          f"phase 3el (b): epochs: final attempt {start}+{w['epochs_run']}, fences "
+          f"{s_fence['epoch']} and {r_fence['epoch']}, shrink resumed {srst['resumed_epoch']}")
+    mid = attempts[1][str(keep)]["workers"][f"{job}/w0"]["batch_losses"]
+    first = [rep["workers"][f"{job}/w0"]["batch_losses"] for rep in attempts[0].values()]
+    check(w["batch_losses"] == losses[BATCHES * start:BATCHES * epochs]
+          and mid == losses[BATCHES * srst["resumed_epoch"]:BATCHES * start]
+          and all(b == losses[:len(b)] for b in first),
+          "phase 3el (b): the losses are not the uninterrupted run's bits")
+    check(pc_entries(root, job)[epochs - 1]["files"] == files,
+          "phase 3el (b): the final table is not the uninterrupted run's")
+    silenced = el_event(events, "follower_silenced")
+    rehab = el_event(events, "follower_rehabilitated")
+    s_ev, r_ev = el_event(events, "elastic_shrink", job), el_event(events, "elastic_regrow", job)
+    a0 = attempts[0][str(keep)]
+    a1 = attempts[1][str(keep)]
+    a2 = attempts[2][str(keep)]
+    window = WorkerTasklet.EPOCH_WINDOW + 2
+    out = {"processes": [keep, mute], "fence_epochs": [s_fence["epoch"], r_fence["epoch"]],
+           "warm_up_split_epoch_s": split_epoch_s,
+           "shrink": {"detection": {"by": "hb_timeout", "silent_for_s": silenced["silent_for"]},
+                      "fence_lead_epochs": s_fence["epoch"] - s_fence["observed_epoch"],
+                      "fence_lead_s": s_ev["ts"] - s_ev["planning_s"] - s_fence["ts"],
+                      "planning_s": s_ev["planning_s"], "restore": el_restore_clock(srst),
+                      "confinement_to_first_step_s": a1["train_wall"] - silenced["ts"],
+                      "step_ms_before": el_step_ms(a0), "step_ms_after": el_step_ms(a1)},
+           "regrow": {"rehabilitated_after_s": rehab["ts"] - silenced["ts"],
+                      "fence_lead_epochs": r_fence["epoch"] - r_fence["observed_epoch"],
+                      "fence_lead_s": r_ev["ts"] - r_ev["planning_s"] - r_fence["ts"],
+                      "planning_s": r_ev["planning_s"],
+                      "restore": {"survivor": el_restore_clock(r_keep),
+                                  "returning": el_restore_clock(r_back)},
+                      "rehabilitation_to_first_step_s": a2["train_wall"] - rehab["ts"],
+                      "step_ms_before": el_step_ms(a1), "step_ms_after": el_step_ms(a2)},
+           "plan": plan, "epochs_left_at_regrow_fence": epochs - r_fence["epoch"],
+           "epoch_window_plus_2": window,
+           "losses_bit_identical": True, "final_table_bit_identical": True}
+    print(f"phase 3el (b): silence, shrink, re-grow: {json.dumps(out)}", flush=True)
+    return out
+
+
+def run_pod_elastic():
+    """Phase 3el: elastic recovery on the pod (see the module doc)."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    cards = torch.cuda.device_count()
+    own = cards >= 4
+    n = 4 if own else 2
+    scratch = tempfile.mkdtemp(prefix="harmony-el-")
+    launches = {name: 0 for name in ("gather_rows", "segment_sum_rows", "weighted_histogram",
+                                     "flash_forward", "flash_backward_dkv", "flash_backward_dq")}
+    out = {"processes": n, "cards": cards if own else 1, "card": gpu_identity(),
+           "settings": {"HARMONY_POD_HB_TIMEOUT": EL_HB_TIMEOUT,
+                        "HARMONY_POD_HB_PERIOD": EL_HB_PERIOD,
+                        "epochs": {"kill": EL_KILL_EPOCHS}}}
+    try:
+        kill_one = el_one_slot(os.path.join(scratch, "one-kill"), "el-kill", EL_KILL_EPOCHS)
+        torch.cuda.empty_cache()
+        out["kill"] = el_kill(n, own, os.path.join(scratch, "kill"), kill_one, launches)
+
+        def split_one(epochs):
+            # the uninterrupted run, made while the pod's warm-up has ended
+            return el_one_slot(os.path.join(scratch, "one-split"), "el-split", epochs)
+
+        out["split"] = el_split(n, own, os.path.join(scratch, "split"), split_one, launches,
+                                out["kill"]["shrunk_epoch_s"])
+        out["settings"]["epochs"]["split"] = out["split"]["plan"]["epochs"]
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    out["launches"] = {k: v for k, v in launches.items() if v}
+    check(launches["gather_rows"] > 0 and launches["weighted_histogram"] > 0,
+          f"phase 3el: launches {launches}: K1 or K3 never ran on the pod")
+    out["seconds"] = time.perf_counter() - t0
+    return launches, out
+
+
 def files_digest(files: dict) -> str:
     """One SHA-256 over an entry's files' digests, in name order."""
     import hashlib
@@ -7770,7 +8218,7 @@ def main() -> int:
               f"{kernel} D={d} block_k={bk}: ptxas reports spills ({entry})")
     clock("1")
 
-    alone = ("3t", "3u", "3v", "3w", "3x", "3y", "3z", "3pc")
+    alone = ("3t", "3u", "3v", "3w", "3x", "3y", "3z", "3pc", "3el")
     if len(sys.argv) == 3 and sys.argv[1] == "--phase" and sys.argv[2] in alone:
         # one phase alone (a host of several cards: the real mesh; 3t also
         # the device guard), 3t held to one-slot runs of its own
@@ -7796,6 +8244,9 @@ def main() -> int:
         elif name == "3pc":
             _, chains = run_pod_chains()
             print("pod chains: " + json.dumps(chains), flush=True)
+        elif name == "3el":
+            _, pod_elastic = run_pod_elastic()
+            print("pod elastic: " + json.dumps(pod_elastic), flush=True)
         else:
             _, elastic = run_elastic()
             print("elastic: " + json.dumps(elastic), flush=True)
@@ -7806,7 +8257,8 @@ def main() -> int:
             "count": torch.cuda.device_count()}}))
         return 0
     check(not sys.argv[1:],
-          f"unknown arguments {sys.argv[1:]} (only --phase 3t, 3u, 3v, 3w, 3x, 3y, 3z or 3pc)")
+          f"unknown arguments {sys.argv[1:]} (only --phase 3t, 3u, 3v, 3w, 3x, 3y, 3z, 3pc "
+          "or 3el)")
 
     table, idx, err = check_kernels(dev)
     timing, skew = time_kernels(dev, table, idx)
@@ -7961,6 +8413,10 @@ def main() -> int:
     for name, counts in by_path.items():
         counts["pod-chains"] = chains_launches[name]
     clock("3pc")
+    elastic_launches, pod_elastic = run_pod_elastic()
+    for name, counts in by_path.items():
+        counts["pod-elastic"] = elastic_launches[name]
+    clock("3el")
     print("hash ops: " + json.dumps(hash_ops) + "; autotune: " + json.dumps(tune), flush=True)
     print("profiler: markers lost by the kept profiles (lost: profiles), retakes: "
           + json.dumps(PROFILE_LOG), flush=True)
@@ -8017,6 +8473,7 @@ def main() -> int:
     print("pod: " + json.dumps(pod), flush=True)
     print("pod moves: " + json.dumps(moves), flush=True)
     print("pod chains: " + json.dumps(pod_chains), flush=True)
+    print("pod elastic: " + json.dumps(pod_elastic), flush=True)
     print(gpu_identity())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,8 +24,11 @@ others follow it. ``--scheduler`` names the pod's scheduler (``share_all``,
 ``pod_carve``, or ``pod_carve:K`` for carves of at most K processes).
 ``--chkp-root`` (else ``HARMONY_POD_CHKP_ROOT``) is the chains' root, shared by
 every process; process 0 prints ``pod jobserver closed: {"eval_results":
-..., "broken": ...}`` (the deferred evaluations, and why the pod was marked
-broken, or null) once it has shut down.
+..., "broken": ..., "auto_resumed": ..., "reinstated": ..., "elastic_events":
+..., "job_events": ...}`` (the deferred evaluations, why the pod was marked
+broken, or null, the jobs auto-resumed, the followers reinstated, the pod's
+recovery events and the event rings of the jobs they name) once it has shut
+down.
 ``--device`` may name several devices, comma-separated (``cpu,cpu``: two
 slots of the CPU in one process). ``pod-reshard`` asks a pod's leader to move
 ``--blocks`` blocks of a running job's table from executor ``--src`` to
@@ -49,7 +52,13 @@ of a multi-worker job (0 is BSP). ``--model-chkp-period N`` chains a
 snapshot of the model table every N epochs (into a temporary directory, as
 the reference's ``run`` does), and ``--offline-eval`` evaluates the chain at
 the server's shutdown; both apply to training apps only, and
-``--offline-eval`` needs a period. ``--optimizer NAME`` (homogeneous,
+``--offline-eval`` needs a period. ``--auto-resume`` (``user.auto_resume``)
+resubmits the job from its chain when a pod follower it ran on is lost
+(``jobserver/pod.py``); it needs ``--model-chkp-period`` > 0 and a training
+app. ``--set elastic_shrink=true`` is no hyper-parameter but
+``user.elastic_shrink``: on a pod the job then keeps its one submission
+through the loss or silence of a follower (shrinking onto the survivors and
+re-growing when the follower is back). ``--optimizer NAME`` (homogeneous,
 heterogeneous, add_one_server, delete_one_server, empty, or a dotted path to
 an Optimizer class) runs the job's elasticity loop every
 ``--optimizer-period`` seconds: it moves the job's model table between the
@@ -57,7 +66,6 @@ server's executors while the job trains (training apps only; a typo'd name
 fails before the job starts). A job takes every executor the server has, so
 an optimizer that adds one needs a pool with free slots beside them. The job
 runs on the card unless ``--device cpu`` is given; with no card it raises.
-The reference's ``--auto-resume`` is not ported.
 
 ``run`` prints ``{"job_id": ..., "result": ...}`` as one JSON line, with
 ``"offline_eval"`` (the chain's evaluations) when ``--offline-eval`` is
@@ -222,16 +230,22 @@ def build_config(app: str, args: argparse.Namespace) -> JobConfig:
     period = getattr(args, "model_chkp_period", 0)
     offline_eval = getattr(args, "offline_eval", False)
     optimizer = getattr(args, "optimizer", None)
+    auto_resume = getattr(args, "auto_resume", False)
     # dolphin-only flags fail loudly on graph apps, before any work
-    if preset["app_type"] == "pregel" and (optimizer or period or offline_eval):
+    if preset["app_type"] == "pregel" and (optimizer or period or offline_eval
+                                           or auto_resume):
         raise SystemExit(
-            "--optimizer / --model-chkp-period / --offline-eval apply to dolphin "
-            "(training) apps only; pregel jobs have no model table or checkpoint "
-            "chain")
+            "--optimizer / --model-chkp-period / --offline-eval / --auto-resume apply "
+            "to dolphin (training) apps only; pregel jobs have no model table or "
+            "checkpoint chain")
     if offline_eval and period <= 0:
         raise SystemExit(
             "--offline-eval needs --model-chkp-period > 0: deferred evaluation "
             "replays the checkpoint chain, and 0 chains nothing")
+    if auto_resume and period <= 0:
+        raise SystemExit(
+            "--auto-resume needs --model-chkp-period > 0: resume restores the last "
+            "chain checkpoint, and 0 chains nothing")
     if optimizer:
         from harmony_tpu_torch.config.base import resolve_symbol
         from harmony_tpu_torch.jobserver.entity import DolphinJobEntity
@@ -247,6 +261,13 @@ def build_config(app: str, args: argparse.Namespace) -> JobConfig:
     # --set data_axis=D sizes the data axis of the job's mesh (the entity
     # reads it from the config's user dict, as the reference's does)
     data_axis = set_kv.pop("data_axis", None)
+    # so is --set elastic_shrink=true (user.elastic_shrink); --auto-resume is
+    # user.auto_resume
+    flags = {}
+    if set_kv.pop("elastic_shrink", False):
+        flags["elastic_shrink"] = True
+    if auto_resume:
+        flags["auto_resume"] = True
     app_params = {**preset["app_params"], **set_kv}
     if preset["app_type"] == "pregel":
         if args.graph_file:
@@ -255,7 +276,7 @@ def build_config(app: str, args: argparse.Namespace) -> JobConfig:
         else:
             graph_fn, graph_args = preset["graph_fn"], dict(preset["graph_args"])
         user = {"graph_fn": graph_fn, "graph_args": {**graph_args, **data_kv},
-                "max_supersteps": args.max_supersteps}
+                "max_supersteps": args.max_supersteps, **flags}
         return _job_config(app, args, preset, app_params, user, data_axis)
     data_fn = preset["data_fn"]
     data_args = {**preset["data_args"], **data_kv}
@@ -276,7 +297,7 @@ def build_config(app: str, args: argparse.Namespace) -> JobConfig:
             key, data_v if data_v is not None else app_params[key])
         app_params[key] = data_args[key] = value
     return _job_config(app, args, preset, app_params,
-                       {"data_fn": data_fn, "data_args": data_args}, data_axis)
+                       {"data_fn": data_fn, "data_args": data_args, **flags}, data_axis)
 
 
 def _job_config(app: str, args: argparse.Namespace, preset: Dict[str, Any],
@@ -422,11 +443,16 @@ def _cmd_start_pod(args: argparse.Namespace) -> int:
                     time.sleep(0.2)
             except KeyboardInterrupt:
                 server.shutdown()
+            from harmony_tpu_torch.jobserver import joblog
             from harmony_tpu_torch.jobserver.server import _json_sanitize
 
-            print("pod jobserver closed: " + json.dumps(
-                {"eval_results": _json_sanitize(server.eval_results),
-                 "broken": server.pod_broken}), flush=True)
+            named = {ev.get("job_id") for ev in server.elastic_events}
+            print("pod jobserver closed: " + json.dumps(_json_sanitize(
+                {"eval_results": server.eval_results, "broken": server.pod_broken,
+                 "auto_resumed": server.auto_resumed, "reinstated": server.reinstated,
+                 "elastic_events": server.elastic_events,
+                 "job_events": {j: evs for j, evs in joblog.job_events().items()
+                                if j in named}})), flush=True)
             return 0
         from harmony_tpu_torch.jobserver.pod import PodFollower
 
@@ -514,6 +540,10 @@ def _common_job_flags(p: argparse.ArgumentParser) -> None:
                    help="snapshot the model table every N epochs (0 = off)")
     p.add_argument("--offline-eval", action="store_true",
                    help="evaluate the checkpoint chain at the server's shutdown")
+    p.add_argument("--auto-resume", action="store_true",
+                   help="pod: when a follower the job ran on is lost, resubmit it from "
+                        "its last chain checkpoint onto the survivors (needs "
+                        "--model-chkp-period > 0)")
 
 
 def _device_flag(p: argparse.ArgumentParser) -> None:

@@ -96,6 +96,11 @@ the batch groups to one batch; and ``mxu_auto`` is resolved by the static
 size gate, not by the measured autotune (a timing in each process could pick
 two routes).
 
+The ``worker.step`` fault site (``faults/plan.py``; keys ``job``, ``worker``,
+``batch`` and ``proc``) comes before every step's dispatch, on the fused and
+the batched route alike: a ``crash`` rule there kills the process mid-epoch,
+as the pod's recovery tests and ``chip_smoke.py`` arm it.
+
 Per-batch primary metrics ("loss", else the trainer's ``objective_metric``)
 stay on the device until the drain. Also here, for callers that drive a table
 outside the worker (the ModelAccessor path): :class:`FusedSparseStep` and
@@ -114,6 +119,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from harmony_tpu_torch import faults
 from harmony_tpu_torch.data import devcache
 from harmony_tpu_torch.data.loader import StageRing
 from harmony_tpu_torch.dolphin.data import TrainingDataProvider
@@ -128,6 +134,7 @@ from harmony_tpu_torch.dolphin.rows import (
 )
 from harmony_tpu_torch.dolphin.trainer import Trainer, TrainerContext
 from harmony_tpu_torch.metrics.collector import BatchMetrics, MetricCollector
+from harmony_tpu_torch.parallel import multihost
 from harmony_tpu_torch.parallel.mesh import mesh_spans_processes
 from harmony_tpu_torch.metrics.tracer import Tracer
 from harmony_tpu_torch.table import autotune
@@ -798,8 +805,12 @@ class WorkerTasklet:
         collector: Optional[MetricCollector] = None,
         pod_contended: Optional[Callable[[], bool]] = None,
         pending_plan_epoch: Optional[Callable[[], Optional[int]]] = None,
+        attempt: int = 0,
     ) -> None:
         self.job_id = job_id
+        # the elastic attempt this run is (jobserver/elastic.py; 0 for any
+        # other job), echoed in the result
+        self.attempt = attempt
         self.ctx = ctx
         self.trainer = trainer
         self.data = data
@@ -1451,6 +1462,7 @@ class WorkerTasklet:
             batches = []
             with self._turn():   # each epoch is one pod unit
                 for b in range(self.data.num_mini_batches):
+                    self._step_fault_site(b)
                     self._check_local_rows(b, None)
                     batches.append(self._dispatch(self._stacked_batch(stacked, b), hyper))
             out.append(batches)
@@ -1562,8 +1574,16 @@ class WorkerTasklet:
         self._batch_cache[batch_idx] = batch_dev
         return batch_dev
 
+    def _step_fault_site(self, batch_idx: int) -> None:
+        """The step-boundary fault site (module doc); disarmed it costs one
+        global read."""
+        if faults.armed():
+            faults.site("worker.step", job=self.job_id, worker=self.ctx.worker_id,
+                        batch=batch_idx, proc=multihost.process_index())
+
     def _dispatch_batch(self, batch_idx: int, batch, hyper,
                         staged: Optional[StagedBatch]) -> Dict[str, torch.Tensor]:
+        self._step_fault_site(batch_idx)
         self._check_local_rows(batch_idx, batch)
         batch_dev = staged.take() if staged is not None else None
         if batch_dev is not None:
@@ -1804,7 +1824,19 @@ class WorkerTasklet:
                     self._account_ops(len(losses[e - epoch]))
                 if self.epoch_callback is not None:
                     with self._turn():
-                        self.epoch_callback(e)
+                        try:
+                            self.epoch_callback(e)
+                        except BaseException as exc:
+                            if getattr(exc, "elastic_fence", None):
+                                # an elastic fence ends the run here: what it
+                                # trained rides the fence to the attempt's report
+                                exc.worker_result = {
+                                    "starting_epoch": self.starting_epoch,
+                                    "epochs_run": len(epoch_losses), "losses": epoch_losses,
+                                    "batch_losses": batch_losses,
+                                    "epoch_seconds": epoch_seconds, "attempt": self.attempt,
+                                    "train_span": [started, time.perf_counter()]}
+                            raise
                 elif self._balanced_turns():
                     with self._turn():
                         pass
@@ -1825,6 +1857,7 @@ class WorkerTasklet:
             # this run trained epochs [starting_epoch, starting_epoch + epochs_run)
             "starting_epoch": self.starting_epoch,
             "epochs_run": len(epoch_losses),
+            "attempt": self.attempt,
             "losses": epoch_losses,
             "batch_losses": batch_losses,
             # a window's seconds split evenly over its epochs

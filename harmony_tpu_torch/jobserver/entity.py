@@ -93,7 +93,21 @@ plan. The optimizer loop of a job over several processes runs on the leader
 only and hands its move-only plans to that channel
 (``_make_pod_plan_adapter``).
 
-Not ported yet: elastic recovery and ``--auto-resume`` (ROADMAP A item 4).
+Elastic recovery (``jobserver/elastic.py``, the pod's ``_dispatch_elastic``):
+a job flagged ``user.elastic_shrink`` keeps a host copy of this process's
+blocks at each chain entry (``recovery_retain``, unless
+``HARMONY_ELASTIC_CACHE=0``). A fence plan (``elastic_fence``) ends the
+attempt at the chief's hook of its epoch, right after the chain hook has
+snapshotted that epoch, by raising :class:`ElasticFence` in every process. The
+next attempt's config carries ``user.elastic_recovery`` (its attempt index,
+the kind and the lost executors): set-up then rebuilds the model table from
+the newest chain entry through ``CheckpointManager.restore_partial`` (a
+corrupt or torn entry is quarantined and the previous one tried), which
+reads only the blocks this process's recovery cache lacks, and resumes at
+that entry's epoch + 1. The result carries the restore's accounting
+(``elastic_restore``), also recorded as an ``elastic_restore`` event
+(``jobserver/joblog.py``). Worker-local tables are refused there, as for a
+resume.
 """
 from __future__ import annotations
 
@@ -122,6 +136,7 @@ from harmony_tpu_torch.dolphin.trainer import Trainer, TrainerContext
 from harmony_tpu_torch.dolphin.worker import WorkerTasklet
 from harmony_tpu_torch.metrics.collector import MetricCollector, ServerMetrics
 from harmony_tpu_torch.jobserver import podplan
+from harmony_tpu_torch.jobserver.elastic import ElasticFence, attempt_of
 from harmony_tpu_torch.metrics.manager import MetricManager
 from harmony_tpu_torch.parallel import multihost
 from harmony_tpu_torch.parallel.mesh import build_mesh
@@ -189,6 +204,12 @@ class DolphinJobEntity:
         self._executor_ids: List[str] = []
         self._data_arrays: List[np.ndarray] = []
         self._setup_start = 0.0
+        self._setup_wall = 0.0
+        # an elastic attempt's restore accounting (jobserver/elastic.py)
+        self._elastic_restore: Optional[Dict[str, Any]] = None
+        # the running job's SSP controller (a multi-worker job), which an
+        # elastic fence stops
+        self._ctrl: Optional[MiniBatchController] = None
         # per-worker batch progress of the last run (resume floors, A.7)
         self.progress: Optional[BatchProgressTracker] = None
 
@@ -257,6 +278,7 @@ class DolphinJobEntity:
 
     def _setup_inner(self, master: ETMaster, executor_ids: List[str]) -> None:
         self._setup_start = time.perf_counter()
+        self._setup_wall = time.time()
         self._master = master
         cfg = self.config
         data_axis = max(1, int(cfg.user.get("data_axis", 1)))
@@ -266,6 +288,15 @@ class DolphinJobEntity:
             # exists (the reference reuses same-id tables across jobs)
             self._table, _ = master.get_or_create_table(cfg.tables[0], executor_ids,
                                                         data_axis)
+        elif cfg.user.get("elastic_recovery"):
+            # the same submission on a changed executor set: read only the
+            # blocks this process's recovery cache lacks
+            if probe.uses_local_table:
+                raise ValueError(
+                    f"job {cfg.job_id}: elastic recovery does not cover "
+                    "worker-local tables (their state is not chained)")
+            self._table, self._starting_epoch, self._chkp_counter_base = (
+                self._restore_elastic(master, executor_ids, data_axis))
         elif cfg.user.get("resume_from_chain"):
             if probe.uses_local_table:
                 raise ValueError(
@@ -390,6 +421,67 @@ class DolphinJobEntity:
         raise ValueError(f"job {self.config.job_id}: every chain checkpoint failed "
                          f"integrity on restore (all quarantined): {failures}")
 
+    def _restore_elastic(self, master: ETMaster, executor_ids: List[str], data_axis: int):
+        """The shrink or re-grow restore: the newest chain entry through
+        ``restore_partial`` (the recovery cache first, storage only for what
+        this process lacks), with :meth:`_restore_chain`'s fallback past a
+        corrupt or torn entry. Keeps the accounting in ``_elastic_restore``
+        and records it as an ``elastic_restore`` event. Returns (table,
+        starting_epoch, counter_base)."""
+        from harmony_tpu_torch import faults
+        from harmony_tpu_torch.checkpoint.manager import CheckpointCorruptError
+        from harmony_tpu_torch.jobserver.joblog import job_logger
+        from harmony_tpu_torch.table import ownership
+
+        cfg = self.config
+        rec = cfg.user.get("elastic_recovery") or {}
+        jlog = job_logger(cfg.job_id)
+        mgr, ordered, base = self._chain_scan("elastic recovery")
+        failures = []
+        for info in ordered:
+            if faults.armed():
+                faults.site("elastic.restore", chkp_id=info.chkp_id,
+                            attempt=int(rec.get("attempt", 0)))
+            t0 = time.perf_counter()
+            try:
+                handle, stats = mgr.restore_partial(master, info.chkp_id, executor_ids,
+                                                    data_axis)
+            except (CheckpointCorruptError, FileNotFoundError) as e:
+                jlog.warning("elastic recovery: chain entry %s is corrupt or torn "
+                             "(%s: %s); quarantined, falling back", info.chkp_id,
+                             type(e).__name__, e)
+                failures.append((info.chkp_id, f"{type(e).__name__}: {e}"))
+                mgr.quarantine(info.chkp_id)
+                continue
+            seconds = time.perf_counter() - t0
+            lost = [e for e in rec.get("lost_executors", []) if e in info.executors]
+            plan = None
+            if lost:
+                try:
+                    plan = ownership.shrink_plan(info.ownership, info.executors, lost,
+                                                 executor_ids)
+                except ValueError:
+                    plan = None
+            resumed = int(info.app_meta["epoch"]) + 1
+            self._elastic_restore = {
+                "attempt": int(rec.get("attempt", 0)),
+                "kind": rec.get("kind", "shrink"),
+                "chkp_id": info.chkp_id,
+                "resumed_epoch": resumed,
+                "executors": list(executor_ids),
+                "lost_executors": lost,
+                "lost_block_count": len(plan["lost"]) if plan else 0,
+                **stats,
+                "seconds": seconds,
+            }
+            jlog.event("elastic_restore", recovery=self._elastic_restore["kind"],
+                       process=multihost.process_index(),
+                       **{k: v for k, v in self._elastic_restore.items()
+                          if k not in ("executors", "kind")})
+            return handle.table, resumed, base
+        raise ValueError(f"job {cfg.job_id}: every chain checkpoint failed integrity "
+                         f"during elastic recovery (all quarantined): {failures}")
+
     def _make_chain(self):
         """The chief's chain hook when ``model_chkp_period`` > 0, else None."""
         from harmony_tpu_torch.checkpoint.manager import CheckpointManager
@@ -401,6 +493,12 @@ class DolphinJobEntity:
         root = self.chkp_root or tempfile.mkdtemp(prefix=f"harmony-chkp-{cfg.job_id}-")
         self._chkp_dir = root
         self._chkp_mgr = CheckpointManager.for_job(root, cfg.job_id)
+        if cfg.user.get("elastic_shrink"):
+            # the recovery cache: a shrink restore then reads only the blocks
+            # that died with a peer
+            from harmony_tpu_torch.jobserver import elastic
+
+            self._chkp_mgr.recovery_retain = elastic.cache_enabled()
         if self._chkp_counter_base:
             # a resumed job continues its chain's numbering
             self._chkp_mgr.advance_counter(self._chkp_counter_base)
@@ -478,11 +576,13 @@ class DolphinJobEntity:
         chain_hook = self._make_chain()
         tm_hook = self._make_table_metrics_hook()
         # on a pod the plans apply after the epoch's other hooks, at the one
-        # point every process reaches at the same epoch
-        on_pod = multihost.is_multihost()
+        # point every process reaches at the same epoch; an elastic job takes
+        # its fences there on any server
+        on_pod = multihost.is_multihost() or bool(cfg.user.get("elastic_shrink"))
         plan_hook = self._make_pod_plan_hook() if on_pod else None
         hooks = [h for h in (tracker_hook, chain_hook, tm_hook, plan_hook) if h is not None]
         job_id = cfg.job_id
+        attempt = attempt_of(cfg)
 
         def plan_epoch() -> Optional[int]:
             return podplan.next_epoch(job_id)
@@ -501,7 +601,7 @@ class DolphinJobEntity:
         procs = {self._master.executor(e).slot.process_index for e in self._executor_ids}
         lockstep = num_workers > 1 and (len(procs) > 1 or bool(cfg.user.get("force_lockstep")))
         turnstile = DispatchTurnstile(wids) if lockstep else None
-        ctrl = (
+        ctrl = self._ctrl = (
             MiniBatchController(
                 max(params.clock_slack, 1) if lockstep else params.clock_slack,
                 params.num_epochs * nb, tracker=self.progress)
@@ -535,6 +635,7 @@ class DolphinJobEntity:
                     pod_contended=self._pod_unit_contended,
                     epoch_callback=epoch_hook if idx == 0 and hooks else None,
                     pending_plan_epoch=plan_epoch if idx == 0 and on_pod else None,
+                    attempt=attempt,
                     # the tracker only reads drained counters and may run after
                     # a multi-epoch window; a chain snapshots the table AT its
                     # epoch, so it keeps windows at one epoch
@@ -577,6 +678,29 @@ class DolphinJobEntity:
             if self._global_tu is not None:
                 self._global_tu.on_job_finish(cfg.job_id)
         if errors:
+            fence = next((e for e in errors if getattr(e, "elastic_fence", None)), None)
+            if fence is not None and self._chkp_chain is not None:
+                # the fence ends the attempt right after its epoch's chain
+                # hook: join the writers, so the recovery point is committed
+                # before the leader plans the next attempt
+                try:
+                    self._chkp_chain.drain()
+                except BaseException:  # noqa: BLE001 - the fence still stands
+                    pass
+            if fence is not None:
+                # the attempt's report: what the chief trained before the
+                # fence, and the restore it started from
+                chief = getattr(fence, "worker_result", {})
+                fence.attempt_result = {
+                    "job_id": cfg.job_id, "workers": {wids[0]: chief},
+                    **({"train_wall": self._setup_wall + (
+                        chief["train_span"][0] - self._setup_start)}
+                       if "train_span" in chief else {}),
+                    **({"elastic_restore": dict(self._elastic_restore)}
+                       if self._elastic_restore is not None else {})}
+                # the fence outranks a sibling's error while unwinding: the
+                # elastic loop classifies on its marker
+                raise fence
             raise errors[0]
         if tm_hook is not None:
             # the closing window: ops of peers that lagged the chief's last hook
@@ -584,7 +708,13 @@ class DolphinJobEntity:
         # perf_counter from the start of setup (tables, data) to the workers' end
         out = {"job_id": cfg.job_id,
                "workers": {w: results[w] for w in wids},
-               "span": [self._setup_start, time.perf_counter()]}
+               "span": [self._setup_start, time.perf_counter()],
+               # the wall clock at the chief's first epoch, the same clock in
+               # every process of a host
+               "train_wall": self._setup_wall + (
+                   results[wids[0]]["train_span"][0] - self._setup_start)}
+        if self._elastic_restore is not None:
+            out["elastic_restore"] = dict(self._elastic_restore)
         if self._applied_plans:
             out["applied_plans"] = list(self._applied_plans)
         if self._plan_moves:
@@ -744,7 +874,9 @@ class DolphinJobEntity:
         table's layout also records this process's side of the exchange in
         ``plan_moves`` (``blockmove.last_move_stats``: blocks and bytes sent
         and received, the transport, seconds). An elastic fence (a plan with
-        ``elastic_fence``) waits for ROADMAP A item 4 and raises."""
+        ``elastic_fence``) ends the attempt here instead: the SSP controller's
+        stop releases the sibling workers, and :class:`ElasticFence` carries
+        the marker the elastic dispatch loop classifies on."""
         from harmony_tpu_torch.table import blockmove
 
         job_id = self.config.job_id
@@ -752,8 +884,9 @@ class DolphinJobEntity:
         def hook(epoch_idx: int) -> None:
             for p in podplan.take(job_id, epoch_idx):
                 if p.get("elastic_fence"):
-                    raise NotImplementedError(
-                        f"job {job_id}: an elastic fence waits for ROADMAP A item 4")
+                    if self._ctrl is not None:
+                        self._ctrl.request_stop()
+                    raise ElasticFence(str(p["elastic_fence"]), epoch_idx)
                 handle = self.table_handle
                 counts = handle.block_manager.block_counts()
                 owned = counts.get(p["src"], 0)

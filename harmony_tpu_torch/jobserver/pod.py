@@ -70,11 +70,47 @@ keeps the closure (JOB_DONE's ``has_deferred_eval``), runs it at SHUTDOWN and
 sends EVAL_DONE, which the leader's ``_on_closing`` collects into
 ``eval_results``.
 
-Left out, with ROADMAP A item 3b (and item 4 for elasticity): elastic
-dispatch and recovery (``_dispatch_elastic``, ``_plan_elastic_recovery``,
-the fences, ``_maybe_auto_resume``), late joins and the rehabilitation of a
-follower (``_accept_late_joins``, ``_reinstate_follower``, ``_rehabilitate``,
-``_rejoin``), HA's leader epochs and the policy hooks.
+Liveness and confinement: the monitor confines a follower whose BEACON has
+been silent past ``hb_timeout`` (``_on_follower_silence``: its executors
+retire from the scheduler, and the elastic jobs spanning it are fenced to
+shrink), and rehabilitates it when its beacon resumes (``_rehabilitate``:
+its executors come back, the pod's partial poison lifts once every confined
+process is back, and the shrunk elastic jobs are fenced to re-grow). The
+port reads the beacon alone here, where the reference counts any traffic: a
+multi-process job's unit messages come from its job threads and would hide
+a mute beacon. A lost connection is a death (``_on_follower_death``): the
+dead process and every process sharing a running job with it become
+unusable and their executors retire. Report waits still count any traffic
+as life.
+
+Elastic recovery (``jobserver/elastic.py``): a Dolphin job flagged
+``user.elastic_shrink`` with a chain (``_elastic_eligible``) runs as one
+submission of attempts (``_dispatch_elastic``). Each attempt is an ordinary
+dispatch under its attempt key (``job@aN``: its RUN_JOB's ``att``, its
+reports, unit messages and heartbeat listings) with a future of its own; the
+client's future resolves once. An attempt that ends on a fence, a
+participant's death or silence, or an ``infra_suspect`` report is followed
+by the next (``_plan_elastic_recovery``: the scheduler's ``reacquire``
+prefers the survivors for a shrink and the original layout for a re-grow,
+and the entity restores through ``restore_partial``); one that fails on its
+own terms ends the submission, and ``HARMONY_ELASTIC_MAX_SHRINKS`` caps the
+recoveries. A fence is a PLAN with ``elastic_fence`` at the epoch ``cur +
+EPOCH_WINDOW + 2``, ``cur`` read from the leader's entity or a healthy
+participant's PROGRESS_REQ (``_schedule_elastic_fence``). A non-elastic job
+flagged ``user.auto_resume`` that failed on infra evidence is resubmitted
+with ``resume_from_chain`` (``_maybe_auto_resume``, ``auto_resumed``).
+STATUS's ``elastic`` block and the ``pod`` block's ``reinstated`` and
+``auto_resumed`` show it; the events also go to ``jobserver/joblog.py``.
+
+Late joins (``_accept_late_joins``, after the bootstrap): a JOIN for a known
+pid reinstates that follower (``_reinstate_follower``) only when it carries
+the incarnation token the process sent at bootstrap, i.e. it is the same
+process, still a member of the ``torch.distributed`` world. A new process
+under a dead pid is refused with ``JOIN_REFUSED``: the world, its store and
+its groups were fixed when the pod started, so it could join no collective.
+
+Left out (ROADMAP A items 5 and 10): HA's leader epochs with the follower's
+``_rejoin`` and ``_reject_stale``, and the policy hooks.
 """
 from __future__ import annotations
 
@@ -85,13 +121,15 @@ import os
 import socket
 import threading
 import time
+from concurrent.futures import Future
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
 from harmony_tpu_torch.config.base import ConfigBase
 from harmony_tpu_torch.config.params import JobConfig
-from harmony_tpu_torch.jobserver import podplan
+from harmony_tpu_torch.jobserver import elastic, podplan
+from harmony_tpu_torch.jobserver.joblog import job_logger, record_event
 from harmony_tpu_torch.jobserver.scheduler import ProcessCarveScheduler
 from harmony_tpu_torch.jobserver.server import JobServer, _json_sanitize
 from harmony_tpu_torch.runtime.podunits import (
@@ -103,6 +141,10 @@ from harmony_tpu_torch.runtime.podunits import (
 from harmony_tpu_torch.tracing.span import SpanContext, trace_span, wire_context
 
 log = logging.getLogger(__name__)
+
+#: what a follower's JOB_DONE keeps of a job's result beside its workers
+_SUMMARY_KEYS = ("applied_plans", "plan_moves", "model_chkp_ids", "model_chkp_stats",
+                 "elastic_restore", "train_wall")
 
 def _send(sock: socket.socket, msg: Dict[str, Any]) -> None:
     sock.sendall((json.dumps(msg) + "\n").encode())
@@ -147,18 +189,24 @@ def _counted(scope, counts: Dict[str, int]):
 
 def _job_summary(result: Dict[str, Any]) -> Dict[str, Any]:
     """What a report carries of a job's result: each worker's losses, batch
-    losses, epoch seconds and comm probes, the pod plans the process
-    applied or skipped and its side of each plan's exchange, its chain's ids
-    and this process's share of each entry (``model_chkp_stats``); for a
-    graph job its supersteps, their wall seconds and a SHA-256 of its vertex
-    values' bytes."""
+    losses, epoch seconds, comm probes, epoch range and seconds from its
+    first epoch's start to its last's end (hooks included), the pod plans
+    the process applied or skipped and its side of each plan's exchange, its
+    chain's ids and this process's share of each entry
+    (``model_chkp_stats``), an elastic attempt's restore (``elastic_restore``)
+    and the wall clock at the first epoch; for a graph job its supersteps, their wall
+    seconds and a SHA-256 of its vertex values' bytes."""
     out: Dict[str, Any] = {"workers": {
         wid: {"losses": [float(x) for x in w.get("losses", [])],
               "batch_losses": [float(x) for x in w.get("batch_losses", [])],
               "epoch_seconds": [float(x) for x in w.get("epoch_seconds", [])],
-              "probes": int(w.get("comm_probe", {}).get("probes", 0))}
+              "probes": int(w.get("comm_probe", {}).get("probes", 0)),
+              "starting_epoch": int(w.get("starting_epoch", 0)),
+              "epochs_run": int(w.get("epochs_run", len(w.get("losses", [])))),
+              "train_seconds": (float(w["train_span"][1] - w["train_span"][0])
+                                if "train_span" in w else None)}
         for wid, w in result.get("workers", {}).items()}}
-    for key in ("applied_plans", "plan_moves", "model_chkp_ids", "model_chkp_stats"):
+    for key in _SUMMARY_KEYS:
         if key in result:
             out[key] = result[key]
     if "vertex_values" in result:
@@ -192,6 +240,12 @@ class PodJobServer(JobServer):
         # SILENCE, never because a healthy job ran long
         self.hb_timeout = float(os.environ.get("HARMONY_POD_HB_TIMEOUT", "60"))
         self._last_seen: Dict[int, float] = {}
+        #: pid -> its last HEARTBEAT: confinement and rehabilitation read the
+        #: beacon alone (module doc)
+        self._last_beat: Dict[int, float] = {}
+        #: pid -> the incarnation token of the process that JOINed at the
+        #: bootstrap (a late JOIN must carry it)
+        self._incarnations: Dict[int, Optional[str]] = {}
         self._hb_jobs: Dict[int, set] = {}
         self._silenced: set = set()
         self._unusable_procs: set = set()
@@ -206,11 +260,27 @@ class PodJobServer(JobServer):
         self._pod_closing = False
         self._monitor_stop = threading.Event()
         self._monitor_thread: Optional[threading.Thread] = None
-        #: job id -> {pid: report} (the leader's own leg under pid 0)
+        self._late_join_thread: Optional[threading.Thread] = None
+        #: pids reinstated by a late JOIN, and the late JOINs refused
+        self.reinstated: List[int] = []
+        self.refused_joins: List[Dict[str, Any]] = []
+        #: job id -> the live elastic attempt ({"attempt", "procs",
+        #: "original_procs", "config", "executors"}): what fences read
+        self._elastic_active: Dict[str, Dict[str, Any]] = {}
+        #: job id -> the future of its running elastic attempt
+        self._attempt_futures: Dict[str, Future] = {}
+        #: recent recovery events (bounded; STATUS's elastic block)
+        self.elastic_events: List[Dict[str, Any]] = []
+        #: jobs whose failure was infra-observed (a participant died or went
+        #: silent, or reported infra_suspect): auto-resume's evidence
+        self._infra_failed: set = set()
+        #: job ids auto-resumed
+        self.auto_resumed: List[str] = []
+        #: attempt key -> {pid: report} (the leader's own leg under pid 0)
         self.pod_reports: Dict[str, Dict[int, Dict[str, Any]]] = {}
-        #: job id -> (dispatch start, dispatch end), monotonic seconds
+        #: attempt key -> (dispatch start, dispatch end), monotonic seconds
         self.job_walls: Dict[str, Tuple[float, float]] = {}
-        #: job id -> {"units": the pod units its leader leg took}
+        #: attempt key -> {"units": the pod units its leader leg took}
         self._unit_counts: Dict[str, Dict[str, int]] = {}
         #: running job id -> its follower participants, what
         #: schedule_pod_reshard sends PLAN to
@@ -257,13 +327,14 @@ class PodJobServer(JobServer):
             except socket.timeout:
                 raise TimeoutError(f"pod join: {len(self._followers)}/{self._num_followers} "
                                    f"followers after {join_timeout}s") from None
-            pid, f = self._read_join(conn)
+            pid, f, token = self._read_join(conn)
             if pid is None:
                 continue
             with self._pod_cond:
                 self._followers[pid] = (conn, f)
                 self._send_locks[pid] = threading.Lock()
-                self._last_seen[pid] = time.monotonic()
+                self._last_seen[pid] = self._last_beat[pid] = time.monotonic()
+                self._incarnations[pid] = token
             log.info("pod follower %d joined from %s", pid, addr)
         for pid, (_, f) in sorted(self._followers.items()):
             t = threading.Thread(target=self._reader_loop, args=(pid, f), daemon=True,
@@ -273,12 +344,18 @@ class PodJobServer(JobServer):
         self._monitor_thread = threading.Thread(target=self._pod_monitor, daemon=True,
                                                 name="pod-monitor")
         self._monitor_thread.start()
+        # a follower may JOIN again at any time after the bootstrap
+        sock.settimeout(1.0)
+        self._late_join_thread = threading.Thread(target=self._accept_late_joins,
+                                                  daemon=True, name="pod-late-join")
+        self._late_join_thread.start()
         return bound
 
     @staticmethod
-    def _read_join(conn: socket.socket) -> "Tuple[Optional[int], Any]":
-        """One JOIN on a fresh connection; (None, None) for anything else (a
-        health check, a scanner), which is dropped, never crashing the loop."""
+    def _read_join(conn: socket.socket) -> "Tuple[Optional[int], Any, Optional[str]]":
+        """One JOIN on a fresh connection: (pid, reader, incarnation token);
+        (None, None, None) for anything else (a health check, a scanner),
+        which is dropped, never crashing the loop."""
         conn.settimeout(30.0)
         f = conn.makefile("r")
         try:
@@ -288,9 +365,83 @@ class PodJobServer(JobServer):
             hello, pid = None, None
         if not hello or hello.get("cmd") != "JOIN" or pid is None:
             conn.close()
-            return None, None
+            return None, None, None
         conn.settimeout(None)  # the reader thread owns this socket now
-        return pid, f
+        token = hello.get("incarnation")
+        return pid, f, None if token is None else str(token)
+
+    def _accept_late_joins(self) -> None:
+        """The accept loop after the bootstrap: every JOIN goes to
+        :meth:`_reinstate_follower`, which reinstates or refuses it."""
+        sock = self._pod_sock
+        while True:
+            with self._pod_cond:
+                if self._pod_closing:
+                    return
+            try:
+                conn, addr = sock.accept()
+            except socket.timeout:
+                continue
+            except (OSError, AttributeError):
+                return  # the listener closed (shutdown)
+            pid, f, token = self._read_join(conn)
+            if pid is None:
+                continue
+            log.info("pod follower %d JOINed again from %s", pid, addr)
+            self._reinstate_follower(pid, conn, f, token)
+
+    def _reinstate_follower(self, pid: int, conn: socket.socket, f,
+                            token: Optional[str] = None) -> bool:
+        """Wire a follower back in: a fresh reader, its liveness state reset,
+        its executors restored and the shrunk elastic jobs offered a re-grow
+        (``_rehabilitate``). Only the process that joined at the bootstrap
+        (the same incarnation token) is reinstated: any other process under
+        that pid is outside the torch.distributed world, whose size, store
+        and groups were fixed when the pod started, so its executors would
+        give later multi-process jobs a participant that never arrives. That
+        JOIN is refused (JOIN_REFUSED, the reason named) and recorded in
+        ``refused_joins``. Returns whether the follower was reinstated."""
+        with self._pod_cond:
+            known = pid in self._incarnations
+            expected = self._incarnations.get(pid)
+        if not known or token is None or token != expected:
+            why = ("no pod process of that id joined at the bootstrap" if not known
+                   else "a new process under the pid of a pod process: the "
+                   "torch.distributed world, its store and its process groups were "
+                   "fixed when the pod started, so it could join no collective")
+            reason = f"JOIN of process {pid} refused: {why}"
+            log.error("%s", reason)
+            with self._pod_cond:
+                self.refused_joins.append({"pid": pid, "error": reason})
+                del self.refused_joins[:-64]
+            try:
+                _send(conn, {"cmd": "JOIN_REFUSED", "pid": pid, "error": reason})
+            except OSError:
+                pass
+            conn.close()
+            return False
+        with self._pod_cond:
+            old = self._followers.pop(pid, None)
+            self._followers[pid] = (conn, f)
+            self._send_locks[pid] = threading.Lock()
+            self._last_seen[pid] = self._last_beat[pid] = time.monotonic()
+            self._hb_jobs.pop(pid, None)
+            self._dead_followers.discard(pid)
+            self._pod_cond.notify_all()
+        if old is not None:
+            try:
+                old[0].close()
+            except OSError:
+                pass
+        t = threading.Thread(target=self._reader_loop, args=(pid, f), daemon=True,
+                             name=f"pod-reader-{pid}")
+        t.start()
+        self._readers.append(t)
+        with self._pod_cond:
+            self.reinstated.append(pid)
+        self.pod_units.proc_done(pid)  # stale DONE obligations end here
+        self._rehabilitate(pid, reason="JOIN of the same process")
+        return True
 
     def _mark_broken(self, reason: str, scope: str = "total") -> None:
         """The one poison path: record the reason and wake every waiter. A
@@ -316,39 +467,196 @@ class PodJobServer(JobServer):
             except OSError:
                 pass
 
+    def _record_infra_failed_locked(self, job_id: str) -> None:
+        """Auto-resume's evidence for ``job_id`` (under ``_pod_cond``); trimmed
+        before the add, so the id just recorded is never the one evicted."""
+        while len(self._infra_failed) >= 1024:
+            self._infra_failed.pop()
+        self._infra_failed.add(job_id)
+
+    def _proc_executors(self, pid: int) -> List[str]:
+        return [e for e in self.master.executor_ids()
+                if self.master.executor(e).slot.process_index == pid]
+
     def _on_follower_death(self, pid: int) -> None:
         """Confine the damage: the dead process, and every process that
         shares a running job with it (their threads may wait in collectives
-        the dead one never joins), become unusable for later jobs."""
+        the dead one never joins), become unusable, and their executors
+        retire from the scheduler's grants. Everything else stays
+        schedulable: surviving jobs go on, elastic and auto-resume jobs
+        recover on the rest."""
         with self._pod_cond:
             if pid in self._unusable_procs and pid in self._dead_followers:
-                return
+                return  # confined already (the reader's EOF and a report wait race)
             wedged = {pid}
             for ps, _ in self._active_procs.values():
                 if pid in ps:
                     wedged |= ps
             self._unusable_procs |= wedged
-        log.warning("pod follower %d died: processes %s unusable", pid, sorted(wedged))
+        retired = [e for p in sorted(wedged) for e in self._proc_executors(p)]
+        if retired:
+            self._scheduler.retire(retired)
+        log.warning("pod follower %d died: processes %s unusable, executors %s retired",
+                    pid, sorted(wedged), retired)
+        self._record_pod_event("follower_death", pid=pid, wedged=sorted(wedged),
+                               retired=retired)
 
     def _pod_monitor(self) -> None:
-        """Heartbeat staleness, noticed whenever it happens: a follower
-        silent past ``hb_timeout`` is confined (its processes unusable)."""
+        """The liveness loop: a follower whose beacon is silent past
+        ``hb_timeout`` is confined (``_on_follower_silence``), and a confined
+        one whose beats resume is rehabilitated (``_rehabilitate``). Deaths
+        (a reader's EOF) go through ``_on_follower_death``."""
         period = max(0.25, min(self.hb_timeout / 4.0, 2.0))
         while not self._monitor_stop.wait(period):
             with self._pod_cond:
                 if self._pod_closing:
                     return
                 now = time.monotonic()
-                stale = [pid for pid in self._followers
-                         if pid not in self._dead_followers and pid not in self._silenced
-                         and now - self._last_seen.get(pid, now) > self.hb_timeout]
-                for pid in stale:
-                    self._silenced.add(pid)
-                    self._unusable_procs.add(pid)
-                if stale:
-                    self._pod_cond.notify_all()
-            for pid in stale:
-                log.warning("pod follower %d silent past %.1fs: confined", pid, self.hb_timeout)
+                stale, fresh = [], []
+                for pid in self._followers:
+                    if pid in self._dead_followers:
+                        continue
+                    quiet = now - self._last_beat.get(pid, now)
+                    if quiet > self.hb_timeout:
+                        if pid not in self._silenced and pid not in self._unusable_procs:
+                            stale.append((pid, quiet))
+                    elif pid in self._silenced:
+                        fresh.append(pid)
+            for pid, quiet in stale:
+                self._on_follower_silence(pid, quiet)
+            for pid in fresh:
+                self._rehabilitate(pid, reason="heartbeats resumed")
+
+    def _on_follower_silence(self, pid: int, quiet: float = 0.0) -> None:
+        """Confined on silence: the process may be alive (a partition, a
+        mute beacon), so, unlike a death, its co-participants are not
+        presumed wedged. Its executors retire, and the elastic jobs spanning
+        it are fenced to shrink."""
+        with self._pod_cond:
+            if pid in self._dead_followers or pid in self._silenced:
+                return
+            self._silenced.add(pid)
+            self._unusable_procs.add(pid)
+            self._pod_cond.notify_all()
+        retired = self._proc_executors(pid)
+        if retired:
+            self._scheduler.retire(retired)
+        log.warning("pod follower %d silent for %.1fs (past %.1fs): confined, executors "
+                    "%s retired", pid, quiet, self.hb_timeout, retired)
+        self._record_pod_event("follower_silenced", pid=pid, retired=retired,
+                               silent_for=round(quiet, 3))
+        self._schedule_elastic_fences("shrink", pid)
+
+    def _rehabilitate(self, pid: int, reason: str) -> None:
+        """A confined follower is alive again (its beats resumed, or it
+        JOINed again): lift the confinement, restore its executors, lift a
+        partial poison once every confined process is back, and fence the
+        shrunk elastic jobs to re-grow toward their original layout."""
+        with self._pod_cond:
+            if pid in self._dead_followers:
+                return  # its reader saw EOF since
+            self._silenced.discard(pid)
+            self._unusable_procs.discard(pid)
+            if (self._poison_scope == "partial" and not self._dead_followers
+                    and not self._unusable_procs):
+                self._pod_broken = None
+                self._poison_scope = None
+            self._pod_cond.notify_all()
+        restored = self._proc_executors(pid)
+        if restored:
+            self._scheduler.restore(restored)
+        log.info("pod follower %d rehabilitated (%s); executors %s restored", pid,
+                 reason, restored)
+        self._record_pod_event("follower_rehabilitated", pid=pid, reason=reason,
+                               restored=restored)
+        if elastic.regrow_enabled():
+            self._schedule_elastic_fences("regrow", pid)
+
+    def _record_pod_event(self, kind: str, job_id: Optional[str] = None,
+                          **fields: Any) -> Dict[str, Any]:
+        """One recovery event, in the job's (or the pod's) event ring and in
+        ``elastic_events``."""
+        ev = record_event(job_id or "__pod__", kind, **fields)
+        self._keep_event(ev, job_id or "__pod__")
+        return ev
+
+    def _keep_event(self, ev: Dict[str, Any], job_id: str) -> None:
+        with self._pod_cond:
+            self.elastic_events.append(dict(ev, job_id=job_id))
+            del self.elastic_events[:-256]
+
+    def _elastic_give_up(self, job_id: str, **fields: Any) -> None:
+        """The terminal elastic outcome: one event in the job's log and in
+        ``elastic_events``, so STATUS says why a tenant stopped recovering."""
+        self._keep_event(job_logger(job_id).event("elastic_give_up", **fields), job_id)
+
+    # -- elastic fences -----------------------------------------------------
+
+    def _schedule_elastic_fences(self, kind: str, pid: int) -> None:
+        """Offer every affected running elastic job a fence: a shrink for the
+        jobs spanning the confined pid, a re-grow for the shrunk jobs that
+        can expand back onto a rehabilitated one."""
+        with self._pod_cond:
+            targets = [jid for jid, st in self._elastic_active.items()
+                       if (kind == "shrink" and pid in st["procs"])
+                       or (kind == "regrow" and st["attempt"] > 0
+                           and pid not in st["procs"] and pid in st["original_procs"])]
+        for jid in targets:
+            try:
+                self._schedule_elastic_fence(jid, kind)
+            except Exception as e:  # noqa: BLE001 - a fence is best-effort
+                job_logger(jid).warning("elastic %s fence could not be scheduled: %s: %s",
+                                        kind, type(e).__name__, e)
+
+    def _schedule_elastic_fence(self, job_id: str, kind: str) -> Optional[int]:
+        """A fence on a RUNNING attempt: a PLAN with ``elastic_fence`` at the
+        epoch ``cur + EPOCH_WINDOW + 2`` (past the window horizon, as
+        ``schedule_pod_reshard`` requires), so every process's chief hook
+        raises it at the same epoch. ``cur`` comes from the leader's entity,
+        else from a HEALTHY participant (the silent one may be the chief);
+        with only confined ones left, from one of them under a short timeout.
+        Returns the epoch, or None when the job ends before it."""
+        from harmony_tpu_torch.dolphin.worker import WorkerTasklet
+
+        with self._pod_cond:
+            st = self._elastic_active.get(job_id)
+            if st is None:
+                return None
+            procs, att = set(st["procs"]), st["attempt"]
+            num_epochs = st["config"].params.num_epochs
+            silenced = set(self._silenced)
+        with self._lock:
+            ent = self._entities.get(job_id)
+        cur = 0
+        if ent is not None:
+            progress = getattr(ent, "progress", None)
+            cur = (progress.starting_epoch() if progress is not None
+                   else getattr(ent, "_starting_epoch", 0))
+        else:
+            participants = sorted(p for p in procs if p != 0)
+            healthy = [p for p in participants if p not in silenced]
+            rkey = elastic.attempt_key(job_id, att)
+            if healthy:
+                cur = self._query_remote_epoch(rkey, healthy[0])
+            elif participants:
+                cur = self._query_remote_epoch(rkey, participants[0], timeout=5.0)
+        epoch = cur + WorkerTasklet.EPOCH_WINDOW + 2
+        if epoch >= num_epochs:
+            job_logger(job_id).info("elastic %s fence skipped: its earliest epoch %d is "
+                                    "past the job's end (%d epochs)", kind, epoch, num_epochs)
+            return None
+        plan = {"epoch": int(epoch), "elastic_fence": kind}
+        for p in sorted(p for p in procs if p != 0):
+            try:
+                self._send_to(p, {"cmd": "PLAN", "job_id": job_id, "plan": plan})
+            except OSError:
+                # an unreachable participant misses the fence; its silence is
+                # classified by the attempt's report waits
+                pass
+        podplan.schedule(job_id, plan)
+        self._record_pod_event(f"elastic_{kind}_fence", job_id=job_id, epoch=int(epoch),
+                               attempt=att, observed_epoch=int(cur))
+        return epoch
 
     def _reader_loop(self, pid: int, f) -> None:
         """Owns every read from follower ``pid``: JOB_DONE into the report
@@ -362,10 +670,15 @@ class PodJobServer(JobServer):
                 msg = None
             if msg is None:
                 with self._pod_cond:
-                    self._dead_followers.add(pid)
-                    self._silenced.discard(pid)
+                    cur = self._followers.get(pid)
+                    stale = cur is None or cur[1] is not f
+                    if not stale:
+                        self._dead_followers.add(pid)
+                        self._silenced.discard(pid)  # dead outranks silent
                     closing = self._pod_closing
                     self._pod_cond.notify_all()
+                if stale:
+                    return  # superseded by a reinstated connection
                 self.pod_units.proc_done(pid)
                 if not closing:
                     self._on_follower_death(pid)
@@ -376,6 +689,7 @@ class PodJobServer(JobServer):
                 # ANY traffic proves the process alive
                 self._last_seen[pid] = time.monotonic()
                 if cmd == "HEARTBEAT":
+                    self._last_beat[pid] = self._last_seen[pid]
                     self._hb_jobs[pid] = set(msg.get("jobs", []))
                     self._pod_cond.notify_all()
             if cmd == "HEARTBEAT":
@@ -483,8 +797,14 @@ class PodJobServer(JobServer):
 
     # -- dispatch ---------------------------------------------------------
 
+    def _future_of(self, job_id: str) -> Future:
+        """The running elastic attempt's future, else the submission's."""
+        with self._lock:
+            inner = self._attempt_futures.get(job_id)
+            return inner if inner is not None else self._jobs[job_id]
+
     def _fail_job(self, config: JobConfig, error: str) -> None:
-        self._jobs[config.job_id].set_exception(RuntimeError(error))
+        self._future_of(config.job_id).set_exception(RuntimeError(error))
         self._scheduler.on_job_finish(config.job_id)
 
     def _status(self) -> Dict[str, Any]:
@@ -499,10 +819,18 @@ class PodJobServer(JobServer):
                 "silenced": sorted(self._silenced),
                 "dead": sorted(self._dead_followers),
                 "unusable_procs": sorted(self._unusable_procs),
-                # the newest jobs' reports by process, and their walls
+                "reinstated": list(self.reinstated),
+                "refused_joins": list(self.refused_joins),
+                "auto_resumed": list(self.auto_resumed),
+                # the newest attempts' reports by process, and their walls
                 "reports": {j: {str(p): r for p, r in reps.items()}
                             for j, reps in list(self.pod_reports.items())[-16:]},
                 "walls": {j: list(w) for j, w in list(self.job_walls.items())[-16:]},
+            }
+            out["elastic"] = {
+                "active": {j: {"attempt": st["attempt"], "procs": sorted(st["procs"])}
+                           for j, st in self._elastic_active.items()},
+                "events": [dict(ev) for ev in self.elastic_events[-32:]],
             }
         return out
 
@@ -528,10 +856,184 @@ class PodJobServer(JobServer):
         return None
 
     def _dispatch(self, config: JobConfig, executor_ids: List[str]) -> None:
-        with trace_span("pod.dispatch", job_id=config.job_id):
+        if self._elastic_eligible(config):
+            # one span for the whole submission: each attempt's pod.dispatch
+            # span nests under it
+            with trace_span("elastic.submission", job_id=config.job_id):
+                self._dispatch_elastic(config, executor_ids)
+            return
+        self._dispatch_once(config, executor_ids)
+        self._maybe_auto_resume(config)
+
+    def _elastic_eligible(self, config: JobConfig) -> bool:
+        """``user.elastic_shrink`` jobs that can recover in place: a Dolphin
+        job with a chain (the recovery point) under the server's chkp_root
+        and a PRIVATE model table (a shared table's state is every tenant's,
+        and rebuilding it under one would corrupt the others)."""
+        if not config.user.get("elastic_shrink"):
+            return False
+        ok = (config.app_type == "dolphin" and not config.tables
+              and config.params.model_chkp_period > 0 and self._chkp_root is not None)
+        if not ok:
+            job_logger(config.job_id).warning(
+                "elastic_shrink ignored: it needs app_type=dolphin, a private model "
+                "table, model_chkp_period > 0 and a server chkp_root")
+        return ok
+
+    def _proc_of(self, executor_id: str) -> int:
+        return self.master.executor(executor_id).slot.process_index
+
+    def _dispatch_elastic(self, config: JobConfig, executor_ids: List[str]) -> None:
+        """The elastic dispatch loop: ONE submission, many attempts (module
+        doc). Each attempt's outcome is classified: a fence (shrink or
+        re-grow) or an infra-shaped failure (a participant's death or
+        silence, an ``infra_suspect`` report) continues the submission on the
+        next attempt's grant; anything else is the job's own failure and
+        ends it. The submission's end releases this process's recovery
+        cache of the job's tables."""
+        outer = self._jobs[config.job_id]
+        cfg, execs = config, list(executor_ids)
+        original_procs = frozenset(self._proc_of(e) for e in executor_ids)
+        recoveries = 0
+        events: List[Dict[str, Any]] = []
+        last_exc: Optional[BaseException] = None
+        try:
+            while True:
+                att = elastic.attempt_of(cfg)
+                inner: Future = Future()
+                with self._lock:
+                    self._attempt_futures[config.job_id] = inner
+                with self._pod_cond:
+                    self._elastic_active[config.job_id] = {
+                        "attempt": att, "procs": frozenset(self._proc_of(e) for e in execs),
+                        "original_procs": original_procs, "config": cfg,
+                        "executors": list(execs)}
+                try:
+                    self._dispatch_once(cfg, execs)
+                finally:
+                    with self._pod_cond:
+                        self._elastic_active.pop(config.job_id, None)
+                if not inner.done():
+                    inner.set_exception(RuntimeError("the attempt ended without a result"))
+                exc = inner.exception()
+                if exc is None:
+                    result = dict(inner.result())
+                    if att or events:
+                        result["elastic"] = {"attempts": att + 1, "recoveries": recoveries,
+                                             "events": list(events)}
+                    outer.set_result(result)
+                    return
+                last_exc = exc
+                fence = getattr(exc, "elastic_fence", None)
+                with self._pod_cond:
+                    infra = config.job_id in self._infra_failed
+                    self._infra_failed.discard(config.job_id)
+                infra = infra or bool(getattr(exc, "infra_suspect", False))
+                if fence is None and not infra:
+                    self._elastic_give_up(config.job_id, reason="job failed on its own terms",
+                                          error=f"{type(exc).__name__}: {exc}"[:300])
+                    return
+                if recoveries >= elastic.max_shrinks():
+                    self._elastic_give_up(
+                        config.job_id, reason=f"recovery cap {elastic.max_shrinks()} reached "
+                                              "(HARMONY_ELASTIC_MAX_SHRINKS)")
+                    return
+                kind = "regrow" if fence == "regrow" else "shrink"
+                try:
+                    with trace_span("elastic.plan_recovery", job_id=config.job_id, kind=kind,
+                                    attempt=elastic.attempt_key(config.job_id, att + 1)):
+                        plan = self._plan_elastic_recovery(config, execs, att, kind,
+                                                           list(executor_ids), events)
+                except BaseException as e:  # noqa: BLE001 - the submission fails cleanly
+                    self._elastic_give_up(
+                        config.job_id,
+                        reason=f"recovery planning failed: {type(e).__name__}: {e}"[:300])
+                    return
+                if plan is None:
+                    return
+                cfg, execs = plan
+                recoveries += 1
+        finally:
+            with self._lock:
+                self._attempt_futures.pop(config.job_id, None)
+            if not outer.done():
+                outer.set_exception(last_exc if last_exc is not None else RuntimeError(
+                    "elastic dispatch ended without a result"))
+            from harmony_tpu_torch.checkpoint import manager as chkp_manager
+
+            chkp_manager.drop_recovery_cache(prefix=f"{config.job_id}:")
+
+    def _plan_elastic_recovery(self, config: JobConfig, prev_execs: List[str],
+                               prev_attempt: int, kind: str, original_execs: List[str],
+                               events: List[Dict[str, Any]]
+                               ) -> "Optional[Tuple[JobConfig, List[str]]]":
+        """The next attempt: rehabilitate the processes confined only because
+        they shared the attempt with the lost one but reported and still
+        beat, reacquire executors (the survivors for a shrink, the original
+        layout for a re-grow), check that a committed chain exists, and make
+        the recovery config. None when no recovery is possible (an event
+        says why; the submission then fails with the attempt's error)."""
+        from harmony_tpu_torch import faults
+        from harmony_tpu_torch.checkpoint.manager import CheckpointManager
+
+        t0 = time.perf_counter()
+        if faults.armed():
+            faults.site("pod.shrink_plan" if kind == "shrink" else "pod.regrow",
+                        job=config.job_id, attempt=prev_attempt)
+        with self._pod_cond:
+            reports = dict(self.pod_reports.get(
+                elastic.attempt_key(config.job_id, prev_attempt), {}))
+            now = time.monotonic()
+            rehab = [pid for pid, rep in reports.items()
+                     if pid in self._unusable_procs and pid not in self._dead_followers
+                     and pid not in self._silenced and not rep.get("infra")
+                     and now - self._last_seen.get(pid, 0.0) <= self.hb_timeout]
+            self._unusable_procs.difference_update(rehab)
+        for pid in rehab:
+            restored = self._proc_executors(pid)
+            if restored:
+                self._scheduler.restore(restored)
+            self._record_pod_event("follower_rehabilitated", job_id=config.job_id, pid=pid,
+                                   reason="reported for the failed attempt")
+        with self._pod_cond:
+            unusable = set(self._unusable_procs)
+        base = original_execs if kind == "regrow" else prev_execs
+        preferred = [e for e in base if self._proc_of(e) not in unusable]
+        granted = [e for e in self._scheduler.reacquire(config.job_id, preferred)
+                   if self._proc_of(e) not in unusable]
+        mgr = CheckpointManager.for_job(self._chkp_root, config.job_id)
+        why = ("no usable executors to recover on" if not granted
+               else None if any(c.startswith(f"{config.job_id}:")
+                                for c in mgr.list_checkpoints())
+               else "no committed chain checkpoints yet")
+        if why is not None:
+            self._scheduler.on_job_finish(config.job_id)  # return the grant
+            self._elastic_give_up(config.job_id, reason=why)
+            return None
+        lost = [e for e in prev_execs if e not in granted]
+        new_cfg = ConfigBase.from_dict(config.to_dict())
+        new_cfg.user["elastic_recovery"] = {"attempt": prev_attempt + 1, "kind": kind,
+                                            "lost_executors": lost}
+        ev = job_logger(config.job_id).event(
+            f"elastic_{kind}", attempt=prev_attempt + 1, executors=list(granted),
+            lost_executors=lost, procs=sorted({self._proc_of(e) for e in granted}),
+            planning_s=round(time.perf_counter() - t0, 6))
+        events.append(dict(ev))
+        self._keep_event(ev, config.job_id)
+        return new_cfg, granted
+
+    def _dispatch_once(self, config: JobConfig, executor_ids: List[str]) -> None:
+        with trace_span("pod.dispatch", job_id=config.job_id,
+                        attempt=elastic.config_attempt_key(config)):
             self._dispatch_once_inner(config, executor_ids)
 
     def _dispatch_once_inner(self, config: JobConfig, executor_ids: List[str]) -> None:
+        if not executor_ids:
+            # every executor retired (the lost followers' processes, and those
+            # that shared a running job with them)
+            self._fail_job(config, f"pod is broken ({self._pod_broken}); no usable "
+                                   "executors are left for the job")
+            return
         procs = frozenset(self.master.executor(e).slot.process_index for e in executor_ids)
         pod_ordered = (config.app_type in ("dolphin", "pregel") and len(procs) > 1
                        and not bool(config.user.get("pod_isolated")))
@@ -562,9 +1064,15 @@ class PodJobServer(JobServer):
                                    f"{sorted(procs & self._unusable_procs)} are unusable")
             return
         t0 = time.monotonic()
+        # the attempt key: the job id, or job@aN for an elastic recovery
+        att = elastic.attempt_of(config)
+        rkey = elastic.attempt_key(config.job_id, att)
         if pod_ordered:
-            # known to the arbiter before any participant's first TU_WAIT
-            self.pod_units.register_job(config.job_id, procs)
+            # known to the arbiter before any participant's first TU_WAIT; a
+            # recovery attempt inherits its predecessor's fair-share deficit
+            self.pod_units.register_job(
+                rkey, procs,
+                inherit_from=elastic.attempt_key(config.job_id, att - 1) if att else None)
         try:
             participants = sorted(p for p in procs if p != 0)
             run_local = 0 in procs
@@ -575,7 +1083,7 @@ class PodJobServer(JobServer):
                          config.job_id, participants, min(procs), run_local)
                 msg = {"cmd": "RUN_JOB", "conf": config.to_dict(),
                        "executor_ids": list(executor_ids), "chief_pid": min(procs),
-                       "trace": wire_context(), "pod_ordered": pod_ordered,
+                       "trace": wire_context(), "pod_ordered": pod_ordered, "att": att,
                        "chkp_root": self._chkp_root,
                        # the same TaskUnit phasing in every process
                        "cpu_slots": self.local_taskunit.cpu_slots,
@@ -592,29 +1100,48 @@ class PodJobServer(JobServer):
             if run_local:
                 before = _job_counters()
                 super()._dispatch(config, executor_ids)
-                fut = self._jobs[config.job_id]
+                fut = self._future_of(config.job_id)
                 local_report = {"ok": fut.exception() is None,
                                 **_counter_delta(before, _job_counters()),
-                                **self._unit_counts.pop(config.job_id, {})}
-                if fut.exception() is None:
+                                **self._unit_counts.pop(rkey, {})}
+                exc = fut.exception()
+                if exc is None:
                     local_report.update(_job_summary(fut.result()))
                 else:
-                    local_report["error"] = f"{type(fut.exception()).__name__}: {fut.exception()}"
+                    local_report["error"] = f"{type(exc).__name__}: {exc}"
+                    if getattr(exc, "attempt_result", None):
+                        # a fenced attempt: what it trained and restored
+                        local_report.update(_job_summary(exc.attempt_result),
+                                            elastic_fence=exc.elastic_fence)
             else:
                 # the leader holds none of the job's slots: the chief
                 # participant's report is the job's result
-                self._resolve_remote(config, participants)
-            reports = self._collect_reports(config.job_id, participants) if participants else {}
+                self._resolve_remote(config, participants, rkey)
+            reports = self._collect_reports(rkey, participants) if participants else {}
+            if any(not r.get("ok") and r.get("infra_suspect") for r in reports.values()):
+                # a participant gave up on an infra fault (it is alive): the
+                # auto-resume evidence a death would be, nothing retired
+                with self._pod_cond:
+                    self._record_infra_failed_locked(config.job_id)
             dead = [pid for pid, r in reports.items() if r.get("infra")]
-            for pid in dead:
-                self._on_follower_death(pid)
             if dead:
-                self._mark_broken(f"follower(s) {dead} never reported for {config.job_id}",
-                                  scope="partial")
+                # for an ELASTIC job a silenced pid is not presumed dead: the
+                # monitor confined it, its socket is up, and wedging its
+                # co-participants would retire the survivors the shrink
+                # recovers on
+                is_elastic = bool(config.user.get("elastic_shrink"))
+                with self._pod_cond:
+                    self._record_infra_failed_locked(config.job_id)
+                    hard_dead = [p for p in dead if not is_elastic or p not in self._silenced]
+                for pid in hard_dead:
+                    self._on_follower_death(pid)
+                if hard_dead:
+                    self._mark_broken(f"follower(s) {hard_dead} never reported for "
+                                      f"{config.job_id}", scope="partial")
             if local_report is not None:
                 reports = {0: local_report, **reports}
             with self._pod_cond:
-                self.pod_reports[config.job_id] = reports
+                self.pod_reports[rkey] = reports
                 while len(self.pod_reports) > 256:
                     self.pod_reports.pop(next(iter(self.pod_reports)))
                 for pid, rep in reports.items():
@@ -625,29 +1152,79 @@ class PodJobServer(JobServer):
             if pod_ordered:
                 # every participant's TU_DONEs precede its JOB_DONE on one
                 # socket: nothing of this job is in flight at the arbiter
-                self.pod_units.deregister_job(config.job_id)
+                self.pod_units.deregister_job(rkey)
             with self._pod_cond:
                 # a plan for a finished job is refused, never kept
                 self._job_info.pop(config.job_id, None)
-                self.job_walls[config.job_id] = (t0, time.monotonic())
+                self.job_walls[rkey] = (t0, time.monotonic())
                 while len(self.job_walls) > 1024:
                     self.job_walls.pop(next(iter(self.job_walls)))
                 self._active_procs.pop(config.job_id, None)
                 self._pod_cond.notify_all()
 
-    def _resolve_remote(self, config: JobConfig, participants: List[int]) -> None:
+    def _maybe_auto_resume(self, config: JobConfig) -> None:
+        """A ``user.auto_resume`` job with a chain that just failed on infra
+        evidence (a participant died or went silent while it ran, or
+        reported an ``infra_suspect`` give-up) is resubmitted with
+        ``resume_from_chain``: the scheduler, whose lost executors retired,
+        grants survivors, and the entity restores the newest chain entry.
+        Never a job failing on its own terms, nor one already resumed."""
+        with self._lock:
+            fut = self._jobs.get(config.job_id)
+        if fut is None or not fut.done() or fut.exception() is None:
+            return
+        if not (config.user.get("auto_resume") and config.params.model_chkp_period > 0
+                and self._chkp_root and not config.user.get("resume_from_chain")):
+            return
+        with self._pod_cond:
+            infra = config.job_id in self._infra_failed
+            self._infra_failed.discard(config.job_id)
+        infra = infra or bool(getattr(fut.exception(), "infra_suspect", False))
+        if not infra:
+            return
+        from harmony_tpu_torch.checkpoint.manager import CheckpointManager
+
+        mgr = CheckpointManager.for_job(self._chkp_root, config.job_id)
+        if not any(c.startswith(f"{config.job_id}:") for c in mgr.list_checkpoints()):
+            log.warning("auto-resume of %s skipped: no chain checkpoints yet", config.job_id)
+            return
+        new_cfg = ConfigBase.from_dict(config.to_dict())
+        new_cfg.user["resume_from_chain"] = True
+        with self._pod_cond:
+            self.auto_resumed.append(config.job_id)
+        self._record_pod_event("auto_resume", job_id=config.job_id,
+                               error=f"{type(fut.exception()).__name__}: "
+                                     f"{fut.exception()}"[:300])
+        try:
+            self.submit(new_cfg)
+        except Exception as e:  # noqa: BLE001 - the original failure stands
+            log.error("auto-resume submit for %s failed: %s", config.job_id, e)
+
+    def _resolve_remote(self, config: JobConfig, participants: List[int],
+                        rkey: Optional[str] = None) -> None:
         """A job wholly on followers: the lowest participant is its chief,
-        and its JOB_DONE resolves the leader's future."""
-        future = self._jobs[config.job_id]
+        and its JOB_DONE (under the attempt key ``rkey``) resolves the
+        leader's future. A lost chief is infra evidence; a report's
+        ``elastic_fence`` and ``infra_suspect`` markers ride the error."""
+        future = self._future_of(config.job_id)
         chief = min(participants)
         try:
-            rep = self._wait_report_live(config.job_id, chief)
+            rep = self._wait_report_live(rkey or config.job_id, chief)
             if rep is None:
+                with self._pod_cond:
+                    self._record_infra_failed_locked(config.job_id)
                 raise RuntimeError(f"chief follower {chief} never reported for "
                                    f"{config.job_id} (connection lost or heartbeat silence)")
             if not rep.get("ok"):
-                raise RuntimeError(f"remote job failed on follower {chief}: "
+                err = RuntimeError(f"remote job failed on follower {chief}: "
                                    f"{rep.get('error', 'unknown error')}")
+                if rep.get("infra_suspect"):
+                    with self._pod_cond:
+                        self._record_infra_failed_locked(config.job_id)
+                    err.infra_suspect = True
+                if rep.get("elastic_fence"):
+                    err.elastic_fence = str(rep["elastic_fence"])
+                raise err
             future.set_result(rep.get("result") or {"job_id": config.job_id,
                                                     "workers": rep.get("workers", {})})
         except BaseException as e:  # noqa: BLE001 - delivered through the future
@@ -667,8 +1244,9 @@ class PodJobServer(JobServer):
                                   "pod_eval_channel": self._pod_eval_channel}
         if (config.app_type in ("dolphin", "pregel")
                 and not bool(config.user.get("pod_isolated"))):
-            client = leader_client(self.pod_units, config.job_id)
-            counts = self._unit_counts[config.job_id] = {"units": 0}
+            rkey = elastic.config_attempt_key(config)
+            client = leader_client(self.pod_units, rkey)
+            counts = self._unit_counts[rkey] = {"units": 0}
             extras.update(pod_unit_scope=_counted(client.scope, counts),
                           pod_unit_contended=client.contended)
         if config.params.offline_model_eval and config.params.model_chkp_period > 0:
@@ -829,6 +1407,7 @@ class PodJobServer(JobServer):
         self._monitor_stop.set()
         with self._pod_cond:
             self._pod_cond.wait_for(lambda: not self._active_procs, timeout=30.0)
+            # the late-join loop sees this within its accept timeout
             self._pod_closing = True
         for pid in sorted(self._followers):
             try:
@@ -887,7 +1466,8 @@ class PodFollower:
         self._send_lock = threading.Lock()
         self._pod_units = FollowerUnits(report=self._report)
         self._job_threads: List[threading.Thread] = []
-        #: job id -> live entity (listed by the heartbeats)
+        self._jobs_started = 0
+        #: attempt key -> live entity (listed by the heartbeats)
         self._entities: Dict[str, Any] = {}
         #: job id -> the deferred evaluation of a job this process chiefed,
         #: run at SHUTDOWN
@@ -895,7 +1475,10 @@ class PodFollower:
         #: job id -> (config, executor ids, chkp_root) of a job with a chain
         #: and offline_model_eval, for its collective evaluation at shutdown
         self._job_confs: Dict[str, Tuple[Any, List[str], Optional[str]]] = {}
-        _send(self._sock, {"cmd": "JOIN", "pid": pid})
+        # this process's identity for the leader: a later JOIN under this pid
+        # is reinstated only with the same token (PodJobServer._reinstate_follower)
+        self.incarnation = f"{socket.gethostname()}:{os.getpid()}:{time.time_ns()}"
+        _send(self._sock, {"cmd": "JOIN", "pid": pid, "incarnation": self.incarnation})
         self.master = ETMaster(pool)
         self.master.add_executors(num_executors)
         self.metrics = MetricManager()
@@ -908,10 +1491,27 @@ class PodFollower:
                          name=f"pod-hb-{pid}").start()
 
     def _heartbeat_loop(self) -> None:
+        """The beacon. The ``pod.heartbeat`` fault site drops a beat on a
+        ``skip`` rule (the process alive but mute); the thread survives every
+        injected action, as its silence confines this process."""
+        from harmony_tpu_torch import faults
+
         while not self._hb_stop.wait(self._hb_period):
             try:
-                self._report({"cmd": "HEARTBEAT", "pid": self.pid,
-                              "jobs": sorted(list(self._entities))})
+                jobs = sorted(self._entities)
+            except RuntimeError:
+                continue  # a job thread resized the dict: the next beat catches up
+            if faults.armed():
+                try:
+                    # ``jobs_started``: the RUN_JOBs this process has taken,
+                    # so a rule can count beats from a job's start
+                    if faults.site("pod.heartbeat", pid=self.pid,
+                                   jobs_started=self._jobs_started) == "skip":
+                        continue
+                except Exception:  # noqa: BLE001 - one beat lost, the beacon lives
+                    continue
+            try:
+                self._report({"cmd": "HEARTBEAT", "pid": self.pid, "jobs": jobs})
             except OSError:
                 return  # the leader is gone; run() handles it
 
@@ -960,10 +1560,20 @@ class PodFollower:
             if cmd == "PLAN":
                 podplan.schedule(str(msg["job_id"]), msg["plan"])
                 continue
+            if cmd == "JOIN_REFUSED":
+                raise RuntimeError(str(msg.get("error", "JOIN refused by the pod leader")))
             if cmd == "PROGRESS_REQ":
-                # the leader's horizon check for a job it does not run
+                # the leader's horizon check for a job it does not run, keyed
+                # by the job id or an attempt key (entities register under
+                # attempt keys: the newest attempt of the job answers)
                 jid = str(msg.get("job_id"))
                 ent = self._entities.get(jid)
+                if ent is None:
+                    base = jid.split("@a", 1)[0]
+                    for k in sorted(self._entities, reverse=True):
+                        if k == base or k.startswith(base + "@a"):
+                            ent = self._entities[k]
+                            break
                 ep = 0
                 if ent is not None and getattr(ent, "progress", None) is not None:
                     ep = ent.progress.starting_epoch()
@@ -978,6 +1588,7 @@ class PodFollower:
             if cmd != "RUN_JOB":
                 log.warning("pod follower %d: unexpected %r", self.pid, cmd)
                 continue
+            self._jobs_started += 1
             t = threading.Thread(target=self._run_job, args=(msg, global_tu), daemon=True,
                                  name=f"pod-job-{msg.get('conf', {}).get('job_id', '?')}")
             self._job_threads = [x for x in self._job_threads if x.is_alive()]
@@ -1030,8 +1641,10 @@ class PodFollower:
     def _run_job(self, msg: Dict[str, Any], global_tu) -> None:
         """One span a follower's leg, under the leader's dispatch span (the
         RUN_JOB's trace context)."""
+        job_id = msg.get("conf", {}).get("job_id")
         with trace_span("pod.follower_job", parent=SpanContext.from_wire(msg.get("trace")),
-                        job_id=msg.get("conf", {}).get("job_id"), pid=self.pid):
+                        job_id=job_id, pid=self.pid,
+                        attempt=elastic.attempt_key(str(job_id), int(msg.get("att", 0) or 0))):
             self._run_job_inner(msg, global_tu)
 
     def _run_job_inner(self, msg: Dict[str, Any], global_tu) -> None:
@@ -1047,11 +1660,15 @@ class PodFollower:
             while len(self._job_confs) > 1024:
                 self._job_confs.pop(next(iter(self._job_confs)))
         chief = int(msg.get("chief_pid", 0)) == self.pid
-        report: Dict[str, Any] = {"cmd": "JOB_DONE", "pid": self.pid, "job_id": config.job_id}
+        # the attempt key: reports, the entity registry and the unit protocol
+        # are per attempt, so a superseded attempt's stragglers never reach
+        # the live one
+        rkey = elastic.attempt_key(config.job_id, int(msg.get("att", 0) or 0))
+        report: Dict[str, Any] = {"cmd": "JOB_DONE", "pid": self.pid, "job_id": rkey}
         unit_extras: Dict[str, Any] = {}
         counts = {"units": 0}
         if msg.get("pod_ordered"):
-            client = follower_client(self._pod_units, config.job_id)
+            client = follower_client(self._pod_units, rkey)
             unit_extras = {"pod_unit_scope": _counted(client.scope, counts),
                            "pod_unit_contended": client.contended}
         entity = None
@@ -1068,7 +1685,7 @@ class PodFollower:
                                                       msg.get("net_slots", 2)),
                 metric_sink=self.metrics.on_metric, metric_manager=self.metrics,
                 **unit_extras)
-            self._entities[config.job_id] = entity
+            self._entities[rkey] = entity
             entity.setup(self.master, executor_ids)
             result = entity.run()
             if chief:
@@ -1092,9 +1709,19 @@ class PodFollower:
                     pass
             report["ok"] = False
             report["error"] = f"{type(e).__name__}: {e}"
+            if getattr(e, "elastic_fence", None):
+                # a planned fence, not a failure: the leader's elastic loop
+                # classifies on this marker and continues the submission
+                report["elastic_fence"] = str(e.elastic_fence)
+                if getattr(e, "attempt_result", None):
+                    report.update(_job_summary(e.attempt_result))
+            if getattr(e, "infra_suspect", False):
+                # a bounded-retry give-up: infra-shaped, so an auto_resume job
+                # may resubmit as after a death
+                report["infra_suspect"] = True
         report.update(_counter_delta(before, _job_counters()), **counts)
-        self._entities.pop(config.job_id, None)
-        self._pod_units.forget(config.job_id)
+        self._entities.pop(rkey, None)
+        self._pod_units.forget(rkey)
         try:
             self._report(report)
         except OSError:

@@ -7,9 +7,12 @@ Counterpart of ``harmony_tpu/jobserver/scheduler.py``: the JobScheduler SPI
 one job at a time on the whole pool, and the carve schedulers:
 :class:`CarveScheduler` gives every job a disjoint slice of the executors,
 and :class:`ProcessCarveScheduler` slices in whole pod processes, so carved
-jobs on a pod never share a process. Not ported yet: the policy engine's
-pins (ROADMAP A.10), and the carve schedulers' ``retire``, ``restore`` and
-``reacquire``, which serve elastic recovery (ROADMAP A item 4).
+jobs on a pod never share a process. Elastic recovery's surface
+(``jobserver/pod.py``): ``retire`` takes a lost follower's executors out of
+future grants, ``restore`` brings them back (and may launch queued arrivals),
+and ``reacquire`` grants the next attempt of a running submission, preferring
+the executors it names. Not ported: the policy engine's pins
+(``plan_grant``, ROADMAP A.10).
 """
 from __future__ import annotations
 
@@ -35,6 +38,27 @@ class JobScheduler:
 
     def on_job_finish(self, job_id: str) -> None:
         raise NotImplementedError
+
+    def retire(self, executor_ids: List[str]) -> None:
+        """Take executors out of future grants (a pod follower died or went
+        silent). Running grants are untouched: their jobs fail through their
+        own paths. :meth:`restore` reverses it."""
+        gone = set(executor_ids)
+        self._executors = [e for e in self._executors if e not in gone]
+
+    def restore(self, executor_ids: List[str]) -> None:
+        """Re-admit retired executors (a confined follower's beats resumed,
+        or it JOINed again)."""
+        known = set(self._executors)
+        self._executors.extend(e for e in executor_ids if e not in known)
+
+    def reacquire(self, job_id: str, preferred: List[str]) -> List[str]:
+        """The grant of a running submission's next attempt: the live
+        executors of ``preferred`` (the previous grant's survivors for a
+        shrink, the original layout for a re-grow), else every live executor
+        ([] when none is left)."""
+        alive = [e for e in preferred if e in self._executors]
+        return alive or list(self._executors)
 
 
 class ShareAllScheduler(JobScheduler):
@@ -98,6 +122,44 @@ class CarveScheduler(JobScheduler):
         super().bind(executor_ids, launch)
         self._free = list(executor_ids)
 
+    def retire(self, executor_ids: List[str]) -> None:
+        """Retired executors leave the free pool too (under the lock, against
+        concurrent grants), or the next slice hands them to a job that can
+        only fail the pod's admission."""
+        gone = set(executor_ids)
+        with self._lock:
+            super().retire(executor_ids)
+            self._free = [e for e in self._free if e not in gone]
+
+    def restore(self, executor_ids: List[str]) -> None:
+        """Restored executors rejoin the free pool unless a live slice holds
+        them, and may launch queued arrivals."""
+        with self._lock:
+            super().restore(executor_ids)
+            sliced = {e for sl in self._slices.values() for e in sl}
+            self._free.extend(e for e in executor_ids
+                              if e not in sliced and e not in self._free)
+            launches = self._drain_queue_locked()
+        for cfg, sl in launches:
+            self._launch(cfg, sl)
+
+    def reacquire(self, job_id: str, preferred: List[str]) -> List[str]:
+        """The next attempt's grant: the still-free executors of
+        ``preferred``, else a fresh slice. It registers under ``job_id``, so
+        the attempt's ``on_job_finish`` returns it like any slice (each
+        attempt pairs one reacquire with one finish)."""
+        with self._lock:
+            free = set(self._free)
+            take = [e for e in preferred if e in free]
+            if not take:
+                take = self._take_slice() or []
+            else:
+                taken = set(take)
+                self._free = [e for e in self._free if e not in taken]
+            if take:
+                self._slices[job_id] = take
+        return take
+
     def idle_executors(self) -> List[str]:
         with self._lock:
             return list(self._free)
@@ -128,9 +190,12 @@ class CarveScheduler(JobScheduler):
 
     def on_job_finish(self, job_id: str) -> None:
         with self._lock:
+            # a retired executor does not return to the pool
+            known = set(self._executors)
             mine = self._slices.pop(job_id, [])
             held = {e for sl in self._slices.values() for e in sl}
-            self._free.extend(e for e in mine if e not in held and e not in self._free)
+            self._free.extend(e for e in mine
+                              if e in known and e not in held and e not in self._free)
             launches = self._drain_queue_locked()
         for cfg, sl in launches:
             self._launch(cfg, sl)
@@ -177,11 +242,34 @@ class ProcessCarveScheduler(CarveScheduler):
         with self._lock:
             self._proc_of = dict(proc_of)
 
-    def _take_slice(self) -> Optional[List[str]]:
-        """Under the lock: carve whole free processes, or None to queue."""
+    def _members(self) -> Dict[int, List[str]]:
+        """Under the lock: process -> its live executors."""
         members: Dict[int, List[str]] = {}
         for e in self._executors:
             members.setdefault(self._proc_of.get(e, 0), []).append(e)
+        return members
+
+    def reacquire(self, job_id: str, preferred: List[str]) -> List[str]:
+        """Whole processes only: the survivors are kept only as COMPLETE
+        free processes (half a process in a recovery grant would break the
+        disjoint-process guarantee every carved tenant relies on); else a
+        fresh whole-process slice."""
+        with self._lock:
+            free, wanted = set(self._free), set(preferred)
+            take = [e for _, mem in sorted(self._members().items())
+                    if wanted >= set(mem) and free >= set(mem) for e in mem]
+            if not take:
+                take = self._take_slice() or []
+            else:
+                taken = set(take)
+                self._free = [e for e in self._free if e not in taken]
+            if take:
+                self._slices[job_id] = take
+        return take
+
+    def _take_slice(self) -> Optional[List[str]]:
+        """Under the lock: carve whole free processes, or None to queue."""
+        members = self._members()
         free = set(self._free)
         free_procs = sorted(p for p, mem in members.items() if all(e in free for e in mem))
         share = max(self.min_procs, len(members) // (len(self._slices) + 1))

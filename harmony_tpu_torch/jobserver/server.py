@@ -194,8 +194,13 @@ class JobServer:
             self._threads.append(t)
         t.start()
 
+    def _future_of(self, job_id: str) -> Future:
+        """The future one dispatch of ``job_id`` resolves: its submission's
+        (the pod's elastic loop gives each attempt a future of its own)."""
+        return self._jobs[job_id]
+
     def _dispatch(self, config: JobConfig, executor_ids: List[str]) -> None:
-        future = self._jobs[config.job_id]
+        future = self._future_of(config.job_id)
         try:
             entity = build_entity(config, chkp_root=self._chkp_root,
                                   global_taskunit=self.global_taskunit,
@@ -360,7 +365,11 @@ class JobServer:
         """STATUS reply: the fields of the subsystems this port has. The
         reference's other fields (stragglers, tenants, phase budget, history,
         diagnoses, policy, incidents, ha, input service, flight records) are
-        absent until those subsystems are ported (ROADMAP A.10)."""
+        absent until those subsystems are ported (ROADMAP A.10).
+        ``job_events`` is this process's structured event rings
+        (``jobserver/joblog.py``), by job."""
+        from harmony_tpu_torch.jobserver import joblog
+
         with self._lock:
             serving = self.serving
         return {
@@ -370,6 +379,7 @@ class JobServer:
             "evaluated": sorted(self.eval_results),
             "serving": serving.stats() if serving is not None else None,
             "overload": self.overload.status(),
+            "job_events": joblog.job_events(),
         }
 
     # -- TCP command endpoint ------------------------------------------------

@@ -85,3 +85,21 @@ class DeleteOnePodOptimizer:
         if not params.worker_metrics:
             return DolphinPlan()
         return DolphinPlan(evaluators_to_delete=[max(params.block_counts)])
+
+
+class FenceAtMLR(MLRTrainer):
+    """MLR that schedules an elastic fence plan for ``fence_epoch`` in every
+    process when epoch ``fence_epoch - 1`` finishes: the plan a pod's leader
+    would send, delivered to a job no elastic loop owns."""
+
+    def __init__(self, fence_epoch: int = 3, **kw) -> None:
+        super().__init__(**kw)
+        self._fence_epoch = fence_epoch
+
+    def on_epoch_finished(self, ctx, epoch_idx: int) -> None:
+        if epoch_idx + 1 == self._fence_epoch:
+            from harmony_tpu_torch.jobserver import podplan
+
+            podplan.schedule(ctx.worker_id.rsplit("/", 1)[0],
+                             {"epoch": self._fence_epoch, "elastic_fence": "shrink"})
+        super().on_epoch_finished(ctx, epoch_idx)
