@@ -151,7 +151,8 @@ As each phase ends a ``phase <name>: <s> s`` line gives its host seconds
    with each step held to the CPU on the card's own inputs (each K3 call
    the plain version's bits, gradients within GBT_GRAD_ATOL, each tree
    equal in structure, leaf values within GBT_LEAF_ATOL), and the same job
-   run through on the CPU, reported; samples/s and rounds/s.
+   run through on the CPU for GBT_CPU_EPOCHS, reported; samples/s and
+   rounds/s.
 3l. The Pregel engine: the ``pagerank``, ``shortest-path`` and
    ``connected-components`` presets on the card and on the CPU (distances
    and labels exact, ranks within PR_RTOL); each at bench-pagerank's scale
@@ -240,7 +241,8 @@ As each phase ends a ``phase <name>: <s> s`` line gives its host seconds
    within FLASH_F32_REL and gradients within RING_GRAD_REL of the largest
    magnitude, the same bits run twice. (b) make_sp_train_step on (2, 2, 1),
    ring, 3 steps of 4 x 2048 tokens: the losses within LM_BF16_REL of the
-   one-slot LM step on the same tokens and of the same step on 4 CPU slots,
+   one-slot LM step on the same tokens, and the first within it of the same
+   step on 4 CPU slots (SP_CPU_STEPS),
    the same bits run twice, no host sync in a step (CUDA's sync debug mode),
    K4/K5a/K5b 24 a step each. (c) The same with sp_attn="a2a" (16 a step,
    bf16 ``simt`` at block 256). (d) make_parallel_train_step on (1, 2, 2),
@@ -424,6 +426,26 @@ As each phase ends a ``phase <name>: <s> s`` line gives its host seconds
    after). K1-K3 are read around each attempt in its own process. Its ``pod
    elastic:`` line holds the numbers; ``python3 chip_smoke.py --phase 3el``
    runs the build and this phase alone.
+3pd. A data axis whose rows lie in different processes: ``cli start-pod``
+   in two processes on cuda:0 over gloo, two slots each (on four or more
+   cards four over NCCL, a card each), and jobs at ``data_axis`` 2 on
+   (data 2, model 2): on one card each data row in its own process, on four
+   each row over two processes, which read its model shards across both.
+   (a) (or (b) on four cards) phase 3x (b)'s five jobs and bench-widedeep,
+   DX_EPOCHS epochs each, on trainers that keep the SHA-256 of each block
+   of the model and local tables each process owns: every process's
+   per-batch losses and the blocks joined over the processes are the
+   one-process data-2 run's on 4 virtual slots of cuda:0, bit for bit;
+   each process computed its own rows (its report's ``data_rows``) and
+   restaged no batch; the all-gathers' calls and bytes a step by process,
+   in all and by caller (the comm probe, the row exchange, the rows'
+   reads), the step ms by process, bench-widedeep's samples/s. (c) bench-widedeep at data 2
+   chained every epoch for PD_RESUME_AT epochs, then resumed to
+   PD_CHAIN_EPOCHS: every entry the one-process data-2 chain's byte for
+   byte, and the losses the uninterrupted run's. K1-K3 are read around each
+   job in its own process, and each must have run in every process. Its
+   ``pod data rows:`` line holds the numbers; ``python3 chip_smoke.py
+   --phase 3pd`` runs the build and this phase alone.
 4. The sparse push route (``HARMONY_PUSH_VIA=sparse``): the Wide&Deep job
    of phase 3, which folds its pushes with K2.
 5. Where a step's time goes: a steady epoch of the Wide&Deep job on the host
@@ -458,7 +480,8 @@ As each phase ends a ``phase <name>: <s> s`` line gives its host seconds
    pod-moves: phase 3z's pod jobs, (a), (b) and (d) moved and unmoved, read
    the same way; pod-chains: phase 3pc's pod jobs, read the same way;
    pod-elastic: phase 3el's victims, each attempt in each process that
-   reported it, read the same way);
+   reported it, read the same way; pod-data-rows: phase 3pd's pod jobs,
+   read the same way);
    K1-K3
    also carry ``device_ms``, ``library_device_ms``,
    ``library_deterministic_device_ms``, ``host_us`` and their timing at
@@ -481,6 +504,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -2537,6 +2561,10 @@ GBT_FOLDS_PER_STEP = GBT_APP["max_depth"] + 1
 # gradients are one f32 subtraction, so they agree exactly; allowed: 1e-5, the
 # tier-1 limit against the JAX package.
 GBT_LEAF_ATOL = 1e-5
+# bench-gbt's free run on the CPU, reported beside the card's (no check):
+# its first epoch's rounds (both epochs took 18.0 s of CPU beside an NVIDIA
+# H100 80GB HBM3; cut to one when phase 3pd came)
+GBT_CPU_EPOCHS = 1
 # bench-gbt's gradients p - y and hessians p (1 - p), card against CPU at the
 # same margins: p = sigmoid(m) lies within a few f32 ulps of the true value on
 # each device (CUDA's expf is within 2 ulps, the CPU's within 1, then two
@@ -2555,14 +2583,16 @@ PR_ITERATIONS = 10
 # iterations on both (the JobServer's job above runs PR_ITERATIONS): its CPU
 # run was the phase's largest part (55 s of 134-160 s beside an NVIDIA H100
 # 80GB HBM3 at 10 iterations), the slowest phase of the script, so its depth
-# was cut from 10 when phase 3w came.
-PR_CPU_ITERATIONS = 5
+# was cut from 10 when phase 3w came, and from 5 (24.2 s of CPU on the same
+# host) when phase 3pd came.
+PR_CPU_ITERATIONS = 2
 # Shortest path's and components' card-against-CPU comparisons at full width
 # run this many supersteps on both (the JobServer's jobs above run to
 # convergence, 13 and 8): their CPU runs to convergence took 48.8 s and 51.6
 # s of phase 3l's 180.6 s beside an NVIDIA H100 80GB HBM3 at 700.00 W, and
-# phase 3pc needed the room.
-GRAPH_CPU_SUPERSTEPS = 2
+# phase 3pc needed the room; from 2 to 1 (5.0 and 8.0 s of CPU on the same
+# host) when phase 3pd came.
+GRAPH_CPU_SUPERSTEPS = 1
 # PageRank's ranks, card against CPU: 1e-6 relative, the tier-1 limit against
 # the JAX package (the add fold gives the CPU's bits, so they may agree exactly).
 PR_RTOL = 1e-6
@@ -2777,8 +2807,8 @@ def run_gbt():
     CPU on the card's own inputs: every K3 call (every level's shape) the
     plain version's bits, the gradients within GBT_GRAD_ATOL, the tree grown
     from the card's gradients equal in structure to the CPU's, leaf values
-    within GBT_LEAF_ATOL; the same job run through on the CPU, reported;
-    samples/s and rounds/s."""
+    within GBT_LEAF_ATOL; the same job run through on the CPU for
+    GBT_CPU_EPOCHS, reported; samples/s and rounds/s."""
     from harmony_tpu_torch.apps import gbt as gbt_app
     from harmony_tpu_torch.jobserver.server import JobServer
     from harmony_tpu_torch.ops.histogram import weighted_histogram_plain
@@ -2898,14 +2928,15 @@ def run_gbt():
           f"bench-gbt: trees against the CPU's from the same gradients: {grown}")
     # the same job run through on the CPU, for the record: its gradients
     # round apart from the card's in a last bit from round 1 on, and an
-    # exact tie between splits can then go either way
-    entity, worker = job_worker(gbt_job(EPOCHS), "cpu")
+    # exact tie between splits can then go either way. GBT_CPU_EPOCHS of
+    # the card's EPOCHS (its rounds are the card run's first)
+    entity, worker = job_worker(gbt_job(GBT_CPU_EPOCHS), "cpu")
     try:
         cpu = worker.run()
         cpu_trees = worker.ctx.model_table.pull_array()
     finally:
         entity.cleanup()
-    apart = [r for r in range(trees.shape[0])
+    apart = [r for r in range(GBT_CPU_EPOCHS * BATCHES)
              if not torch.equal(trees[r, :3 * GBT_N_NODES], cpu_trees[r, :3 * GBT_N_NODES])]
     free_run = {"rounds_apart_in_structure": apart,
                 "max_abs_loss_gap": max(abs(a - b) for a, b in zip(losses, cpu["batch_losses"])),
@@ -5026,6 +5057,9 @@ SP_CONFIG = dict(vocab_size=8192, d_model=512, n_heads=8, n_layers=4, d_ff=2048,
                  max_seq=2048, dtype="bfloat16")
 SP_BATCH = 4
 SP_STEPS = 3
+# (b)'s comparison with 4 CPU slots: the first step only (each CPU step
+# runs the LM's plain attention and bf16 products on the host)
+SP_CPU_STEPS = 1
 SP_LR = 0.1
 SP_SLOTS = 4
 # (a): the ring's chunk [B, H, S, D] on each slot, f32 (the flash inner's
@@ -5176,12 +5210,12 @@ def sp_step(kind, sp_attn, slots, dev):
     return step, params, tokens
 
 
-def sp_steps(kind, sp_attn, slots, dev):
-    """SP_STEPS steps of :func:`sp_step`; returns the losses and the final
+def sp_steps(kind, sp_attn, slots, dev, steps=SP_STEPS):
+    """``steps`` steps of :func:`sp_step`; returns the losses and the final
     parameters (on the CPU)."""
     step, params, tokens = sp_step(kind, sp_attn, slots, dev)
     losses = []
-    for _ in range(SP_STEPS):
+    for _ in range(steps):
         params, loss = step(params, tokens)
         losses.append(loss)
     losses = torch.stack(losses).cpu()
@@ -5301,7 +5335,7 @@ def run_sp():
           f"twice", flush=True)
     t1 = time.perf_counter()
     cpu_losses, _ = sp_steps("sp", "ring", DevicePool.virtual("cpu", SP_SLOTS).slots,
-                             torch.device("cpu"))
+                             torch.device("cpu"), steps=SP_CPU_STEPS)
     gaps["sp-ring_card_vs_cpu"] = close_losses(ring_losses, cpu_losses, "(b) card against CPU")
     out["cpu"] = {"losses": cpu_losses, "seconds": time.perf_counter() - t1}
     out["gaps"] = gaps
@@ -6994,10 +7028,13 @@ def _pod_move_symbols() -> dict:
 
 def __getattr__(name: str):
     """``chip_smoke:SlowStartWideDeepTrainer`` and the others of
-    :func:`_pod_move_symbols`, as the pod's processes resolve them."""
+    :func:`_pod_move_symbols`, and phase 3pd's ``chip_smoke:Kept<class>``
+    trainers (:func:`pod_trainers`), as the pod's processes resolve them."""
     if name in ("SlowStartWideDeepTrainer", "SlowStartFMTrainer", "MoveOncePodOptimizer",
                 "ElasticLagWideDeep"):
         return _pod_move_symbols()[name]
+    if name.startswith("Kept"):
+        return getattr(pod_trainers(), name)
     raise AttributeError(name)
 
 
@@ -7788,8 +7825,8 @@ EL_HB_PERIOD = "0.5"
 # committed chain entries; it waits EL_START_LAG s before its first epoch
 # (not in a recovery attempt), the time the fillers on the other processes
 # take to finish, so the shrink finds the survivor free
-EL_KILL_EPOCHS = 8
-EL_CRASH_EPOCH = 4
+EL_KILL_EPOCHS = 6
+EL_CRASH_EPOCH = 3
 EL_START_LAG = 6.0
 # (b) a warm-up job of EL_WARM_EPOCHS over the same processes first (a
 # process's first job is slow) gives the split epoch's cadence; then the last
@@ -8174,6 +8211,198 @@ def run_pod_elastic():
     return launches, out
 
 
+# -- phase 3pd: a data axis whose rows lie in different processes -----------
+
+# (c): bench-widedeep at data_axis 2 chained for PD_RESUME_AT epochs, then
+# resumed to PD_CHAIN_EPOCHS, against the one-process chain of as many epochs
+PD_CHAIN_EPOCHS = 3
+PD_RESUME_AT = 2
+
+
+def pod_trainers():
+    """``tests/torch_pod_trainers.py`` of this checkout, loaded once by its
+    path: the ``Kept*`` trainers and :func:`kept_tables` that the CPU tests
+    of a data axis over processes use too."""
+    import importlib.util
+
+    mod = sys.modules.get("torch_pod_trainers")
+    if mod is None:
+        spec = importlib.util.spec_from_file_location(
+            "torch_pod_trainers", os.path.join(REPO, "tests", "torch_pod_trainers.py"))
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules["torch_pod_trainers"] = mod
+        spec.loader.exec_module(mod)
+    return mod
+
+
+def pd_kept(config, keep_dir: str):
+    """``config`` on the Kept form of its trainer (``chip_smoke:Kept<class>``,
+    as the pod's processes resolve it), keeping under ``keep_dir``."""
+    cls = config.trainer.rsplit(":", 1)[-1]
+    return config.replace(trainer=f"chip_smoke:Kept{cls}", params=config.params.replace(
+        app_params={**config.params.app_params, "keep_dir": keep_dir}))
+
+
+def pd_configs() -> dict:
+    """3pd's jobs by name: phase 3x (b)'s five and bench-widedeep, at
+    data_axis 2, DX_EPOCHS epochs each."""
+    configs = {**dx_configs(), "bench-widedeep": wd_mesh_config("bench-widedeep", DX_EPOCHS)}
+    return {k: c.replace(user={**c.user, "data_axis": 2}) for k, c in configs.items()}
+
+
+def pd_one_process(configs: dict, keep: str, root: str) -> tuple:
+    """The one-process runs 3pd holds the pod to, on (2, 2) of 4 virtual
+    slots of cuda:0 (``HARMONY_PUSH_VIA=mxu``, as the pod's processes): each
+    of ``configs``' batch losses and block digests, and bench-widedeep's
+    data-2 chain of PD_CHAIN_EPOCHS under ``root`` (its losses and entries)."""
+    from harmony_tpu_torch.parallel.mesh import DevicePool
+
+    os.environ["HARMONY_PUSH_VIA"] = "mxu"
+    server = pool_server(DevicePool.virtual("cuda:0", DX_SLOTS).slots, root=root)
+    try:
+        refs = {}
+        for name, config in configs.items():
+            w, _ = submit_one(server, pd_kept(config, os.path.join(keep, name)))
+            check(w["mesh"] == {"data": 2, "model": 2} and w["step_mode"] == "data_parallel",
+                  f"phase 3pd {name}: the one-process run's mesh {w['mesh']}")
+            refs[name] = (w["batch_losses"],
+                          pod_trainers().kept_tables(os.path.join(keep, name), config.job_id))
+        w, _ = submit_one(server, wd_mesh_config("pd-wd-chain", PD_CHAIN_EPOCHS, data_axis=2,
+                                                 period=1))
+        return refs, (w["batch_losses"], pc_entries(root, "pd-wd-chain"))
+    finally:
+        server.shutdown(timeout=600)
+        os.environ.pop("HARMONY_PUSH_VIA")
+
+
+def run_pod_data():
+    """Phase 3pd: a data axis whose rows lie in different processes (see the
+    module doc)."""
+    t0 = time.perf_counter()
+    cards = torch.cuda.device_count()
+    own = cards >= 4
+    n, slots = (4, 1) if own else (2, 2)
+    configs = pd_configs()
+    scratch = tempfile.mkdtemp(prefix="harmony-pd-")
+    pod_root, one_root = os.path.join(scratch, "pod"), os.path.join(scratch, "one")
+    out = {"processes": n, "slots_per_process": slots, "cards": cards if own else 1,
+           "mesh": {"data": 2, "model": 2}, "card": gpu_identity()}
+    names = ("gather_rows", "segment_sum_rows", "weighted_histogram")
+    launches = {name: 0 for name in names + (
+        "flash_forward", "flash_backward_dkv", "flash_backward_dq")}
+    by_process = [{name: 0 for name in names} for _ in range(n)]
+    # the data rows each process computes: its own on one card, the row of
+    # its pair of processes on four
+    rows_of = [[p] if n == 2 else [p // 2] for p in range(n)]
+    try:
+        t1 = time.perf_counter()
+        refs, (chain_losses, chain_entries) = pd_one_process(
+            configs, os.path.join(scratch, "keep-one"), one_root)
+        out["one_process_seconds"] = time.perf_counter() - t1
+        torch.cuda.empty_cache()
+        pod = ChipPod(n, own, phase="3pd", slots=slots, env={"HARMONY_POD_CHKP_ROOT": pod_root})
+        try:
+            out["ready"] = pod.ready_line
+            out["backend"] = pod.backend.split(": ", 1)[-1]
+            print(f"phase 3pd: {out['ready']}; {out['backend']}", flush=True)
+
+            def run(cfg):
+                reps, _ = pod.run(cfg)
+                reps = reps[cfg.job_id]
+                check(sorted(reps) == [str(p) for p in range(n)]
+                      and all(r["ok"] for r in reps.values()),
+                      f"phase 3pd {cfg.job_id}: reports {json.dumps(reps)[:3000]}")
+                for p in range(n):
+                    for name, v in reps[str(p)]["launches"].items():
+                        launches[name] += v
+                        if name in by_process[p]:
+                            by_process[p][name] += v
+                return [reps[str(p)] for p in range(n)]
+
+            def worker(rep):
+                (w,) = rep["workers"].values()
+                return w
+
+            # (a) or (b): each job's bits and tables the one process's
+            from harmony_tpu_torch.parallel.collectives import POD_CALLERS
+
+            stat_keys = ("calls", "bytes_out", "bytes_in")
+            a = {}
+            for name, config in configs.items():
+                keep = os.path.join(scratch, "keep-pod", name)
+                reps = run(pd_kept(config, keep))
+                losses, tables = refs[name]
+                steps = len(losses)
+                for p, rep in enumerate(reps):
+                    w = worker(rep)
+                    check(w["batch_losses"] == losses,
+                          f"phase 3pd {name}: process {p}'s losses are not the one-process "
+                          "data-2 bits")
+                    check(w["data_rows"] == rows_of[p],
+                          f"phase 3pd {name}: process {p} computed rows {w['data_rows']}")
+                    check(w["restaged_batches"] == 0,
+                          f"phase 3pd {name}: process {p} restaged {w['restaged_batches']}")
+                check(pod_trainers().kept_tables(keep, config.job_id) == tables,
+                      f"phase 3pd {name}: the pod's final tables are not the one-process "
+                      "data-2 tables block for block")
+                per_epoch = steps // len(worker(reps[0])["epoch_seconds"])
+                a[name] = {
+                    "steps": steps, "batch_losses": "the one-process data-2 bits",
+                    "tables": "the one-process data-2 blocks",
+                    "all_gathers_per_step": [{
+                        "process": p, **{k: rep["combine"][k] / steps for k in stat_keys},
+                        "by_caller": {c: {k: rep["combine"][f"{c}.{k}"] / steps
+                                          for k in stat_keys} for c in POD_CALLERS}}
+                        for p, rep in enumerate(reps)],
+                    "step_ms": [1e3 * worker(rep)["epoch_seconds"][-1] / per_epoch
+                                for rep in reps]}
+                if name == "bench-widedeep":
+                    # the last epoch's, in the slowest process (PERF.md holds it
+                    # beside phase 3x (c)'s one process over four cards)
+                    a[name]["samples_per_sec"] = N_EXAMPLES / max(
+                        worker(rep)["epoch_seconds"][-1] for rep in reps)
+                print(f"phase 3pd {name}: {json.dumps(a[name])}", flush=True)
+            out["jobs"] = a
+
+            # (c) a chain, then a resume: the one-process chain's entries
+            first = run(wd_mesh_config("pd-wd-chain", PD_RESUME_AT, data_axis=2, period=1))
+            resumed = run(wd_mesh_config("pd-wd-chain", PD_CHAIN_EPOCHS, data_axis=2, period=1,
+                                         resume_from_chain=True))
+            for p in range(n):
+                check(worker(first[p])["batch_losses"] + worker(resumed[p])["batch_losses"]
+                      == chain_losses,
+                      f"phase 3pd (c): process {p}'s chained and resumed losses are not the "
+                      "one-process run's")
+            got = pc_entries(pod_root, "pd-wd-chain")
+            check(sorted(got) == sorted(chain_entries) == list(range(PD_CHAIN_EPOCHS)),
+                  f"phase 3pd (c): entries {sorted(got)} against {sorted(chain_entries)}")
+            for epoch, e in got.items():
+                want = chain_entries[epoch]
+                check(e["id"].endswith("-pod") and e["files"] == want["files"]
+                      and e["checksums"] == want["checksums"],
+                      f"phase 3pd (c): entry {e['id']} is not the one-process data-2 entry of "
+                      f"epoch {epoch} byte for byte")
+            out["chain"] = {"epochs": PD_CHAIN_EPOCHS, "resumed_at": PD_RESUME_AT,
+                            "ids": [got[e]["id"] for e in sorted(got)],
+                            "entries": "the one-process data-2 entries byte for byte",
+                            "files_sha256": [files_digest(got[e]["files"]) for e in sorted(got)],
+                            "staged_by_process": [
+                                [st["blocks"] for st in rep["model_chkp_stats"]]
+                                for rep in first]}
+            print(f"phase 3pd (c): {json.dumps(out['chain'])}", flush=True)
+        finally:
+            pod.close()
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    for p, counts in enumerate(by_process):
+        check(all(counts[k] > 0 for k in names),
+              f"phase 3pd: process {p}'s launches {counts}: a kernel never ran there")
+    out["launches"] = {k: v for k, v in launches.items() if v}
+    out["launches_by_process"] = by_process
+    out["seconds"] = time.perf_counter() - t0
+    return launches, out
+
+
 def files_digest(files: dict) -> str:
     """One SHA-256 over an entry's files' digests, in name order."""
     import hashlib
@@ -8218,7 +8447,7 @@ def main() -> int:
               f"{kernel} D={d} block_k={bk}: ptxas reports spills ({entry})")
     clock("1")
 
-    alone = ("3t", "3u", "3v", "3w", "3x", "3y", "3z", "3pc", "3el")
+    alone = ("3t", "3u", "3v", "3w", "3x", "3y", "3z", "3pc", "3el", "3pd")
     if len(sys.argv) == 3 and sys.argv[1] == "--phase" and sys.argv[2] in alone:
         # one phase alone (a host of several cards: the real mesh; 3t also
         # the device guard), 3t held to one-slot runs of its own
@@ -8247,6 +8476,9 @@ def main() -> int:
         elif name == "3el":
             _, pod_elastic = run_pod_elastic()
             print("pod elastic: " + json.dumps(pod_elastic), flush=True)
+        elif name == "3pd":
+            _, pod_data = run_pod_data()
+            print("pod data rows: " + json.dumps(pod_data), flush=True)
         else:
             _, elastic = run_elastic()
             print("elastic: " + json.dumps(elastic), flush=True)
@@ -8257,8 +8489,8 @@ def main() -> int:
             "count": torch.cuda.device_count()}}))
         return 0
     check(not sys.argv[1:],
-          f"unknown arguments {sys.argv[1:]} (only --phase 3t, 3u, 3v, 3w, 3x, 3y, 3z, 3pc "
-          "or 3el)")
+          f"unknown arguments {sys.argv[1:]} (only --phase 3t, 3u, 3v, 3w, 3x, 3y, 3z, 3pc, "
+          "3el or 3pd)")
 
     table, idx, err = check_kernels(dev)
     timing, skew = time_kernels(dev, table, idx)
@@ -8417,6 +8649,10 @@ def main() -> int:
     for name, counts in by_path.items():
         counts["pod-elastic"] = elastic_launches[name]
     clock("3el")
+    data_launches, pod_data = run_pod_data()
+    for name, counts in by_path.items():
+        counts["pod-data-rows"] = data_launches[name]
+    clock("3pd")
     print("hash ops: " + json.dumps(hash_ops) + "; autotune: " + json.dumps(tune), flush=True)
     print("profiler: markers lost by the kept profiles (lost: profiles), retakes: "
           + json.dumps(PROFILE_LOG), flush=True)
@@ -8474,6 +8710,7 @@ def main() -> int:
     print("pod moves: " + json.dumps(moves), flush=True)
     print("pod chains: " + json.dumps(pod_chains), flush=True)
     print("pod elastic: " + json.dumps(pod_elastic), flush=True)
+    print("pod data rows: " + json.dumps(pod_data), flush=True)
     print(gpu_identity())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,7 +16,8 @@ off the training thread:
   * on a mesh with data rows (``rows``: each row's compute device) a batch
     is staged cut over the rows, each row's part copied to its own device on
     that device's copy stream (a :class:`~harmony_tpu_torch.dolphin.rows.
-    RowBatch`), so the step copies no batch between cards.
+    RowBatch`), so the step copies no batch between cards; on a pod only
+    this process's rows (a row of another process has no device here).
 
 The consumer (:meth:`StagedBatch.take`) makes its stream wait on the
 batch's event and marks the staged tensors as used on its stream
@@ -62,7 +63,8 @@ class StagedBatch:
         device = self.device
         if device is None or self.ready is None:
             return device
-        parts = device.parts if isinstance(device, RowBatch) else [device]
+        parts = ([p for p in device.parts if p is not None] if isinstance(device, RowBatch)
+                 else [device])
         for part, ready in zip(parts, self.ready):
             stream = torch.cuda.current_stream(part[0].device)
             stream.wait_event(ready)
@@ -131,14 +133,15 @@ class PrefetchPipeline:
     ) -> None:
         self._provider = provider
         self._device = torch.device(device)
-        # each data row's compute device (None: whole batches on ``device``)
+        # each data row's compute device, None for a row of another process
+        # (None: whole batches on ``device``)
         self._rows = list(rows) if rows else None
         self._net_scope = net_scope
         self._skip_stage_fn = skip_stage_fn
         self._ring = StageRing(depth_fn)
         self._host_only = False  # see stop_staging()
         cuda = self._device.type == "cuda"
-        targets = self._rows or [self._device]
+        targets = [d for d in self._rows if d is not None] if self._rows else [self._device]
         # a copy stream on each device a batch is staged on
         self._copy_streams = ({d: torch.cuda.Stream(d) for d in targets}
                               if cuda else None)
@@ -157,15 +160,18 @@ class PrefetchPipeline:
         slot = self._pool[idx % len(self._pool)]
         cuda = self._copy_streams is not None
         buffers = slot.fill(host, pin=cuda)
+        n = buffers[0].shape[0]
         if self._rows is None:
             cuts = [(self._device, buffers)]
         else:
-            n = buffers[0].shape[0]
             bounds = row_bounds(n, len(self._rows))
             cuts = [(d, [b[bounds[r]:bounds[r + 1]] for b in buffers])
                     for r, d in enumerate(self._rows)]
         parts, ready = [], [] if cuda else None
         for dev, bufs in cuts:
+            if dev is None:
+                parts.append(None)
+                continue
             scope = (torch.cuda.stream(self._copy_streams[dev]) if cuda
                      else contextlib.nullcontext())
             with scope:
@@ -178,7 +184,7 @@ class PrefetchPipeline:
                     ready.append(ev)
         if cuda:
             slot.copied = ready
-        device = parts[0] if self._rows is None else RowBatch(parts)
+        device = parts[0] if self._rows is None else RowBatch(parts, n)
         return StagedBatch(idx, host, device, ready)
 
     def _produce(self) -> None:

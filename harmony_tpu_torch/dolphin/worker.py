@@ -85,11 +85,13 @@ worker's turn of a ``DispatchTurnstile`` (``dispatch_turn``). A worker with
 none of these, outside a JobServer, keeps the fused windows.
 
 On a table whose mesh spans the processes of a pod (the reference's
-multi-process branches): every dispatch region (global init, the probe, each
-fused epoch, each batch group of 8 batches, each drain and epoch callback)
-runs in the job's pod unit (``dispatch_turn``), so that every process enters
-its collectives in the same order as its peers; the step stays fused and
-never runs the async driver; the probe is skipped when several workers
+multi-process branches; a data axis > 1 included, each process computing
+and staging only its own rows, the rows' results crossing in
+``_DataParallelStep``'s row exchange): every dispatch region (global init,
+the probe, each fused epoch, each batch group of 8 batches, each drain and
+epoch callback) runs in the job's pod unit (``dispatch_turn``), so that
+every process enters its collectives in the same order as its peers; the
+step stays fused and never runs the async driver; the probe is skipped when several workers
 dispatch with no turnstile; a contended grant (``pod_contended``, read at a
 unit's exit, the same in every process) shrinks the windows to one epoch and
 the batch groups to one batch; and ``mxu_auto`` is resolved by the static
@@ -126,7 +128,9 @@ from harmony_tpu_torch.dolphin.data import TrainingDataProvider
 from harmony_tpu_torch.dolphin.prefetch import PrefetchPipeline, StagedBatch
 from harmony_tpu_torch.dolphin.rows import (
     RowBatch,
+    RowExchange,
     RowInput,
+    row_bounds,
     row_devices,
     run_split,
     stage_rows,
@@ -135,6 +139,7 @@ from harmony_tpu_torch.dolphin.rows import (
 from harmony_tpu_torch.dolphin.trainer import Trainer, TrainerContext
 from harmony_tpu_torch.metrics.collector import BatchMetrics, MetricCollector
 from harmony_tpu_torch.parallel import multihost
+from harmony_tpu_torch.parallel.collectives import counted_as
 from harmony_tpu_torch.parallel.mesh import mesh_spans_processes
 from harmony_tpu_torch.metrics.tracer import Tracer
 from harmony_tpu_torch.table import autotune
@@ -322,7 +327,18 @@ class _DataParallelStep:
     another order than the one-slot step's, so the result agrees with it to
     rounding, not bit for bit; it is the same from run to run. A hash table
     admits the whole batch's keys on every replica first (one ``ensure``, so
-    the replicas stay alike), and each row then reads its own keys' rows."""
+    the replicas stay alike), and each row then reads its own keys' rows.
+
+    On a pod whose rows lie in different processes (``BlockSharding.
+    rows_apart``) each process computes only its own rows (those holding its
+    slots), and what the other rows computed reaches it through the step's
+    :class:`~harmony_tpu_torch.dolphin.rows.RowExchange` unchanged: the
+    rows' keys (a hash table's, before the ``ensure`` of the whole batch's
+    keys; a keyed pull's, with its delta), deltas, metrics, split
+    statistics and local writes. Every process then adds, concatenates and
+    pushes them in row order on its own first row's slot, into its own
+    replicas: the operations of the one-process step on the same operands,
+    so every process keeps the bits of that step on the same mesh."""
 
     def __init__(self, spec, trainer: Trainer, *, push_route: Optional[str],
                  is_hash: bool, local_spec=None,
@@ -364,92 +380,107 @@ class _DataParallelStep:
         return out
 
     def _parts(self, sh, batch, hyper):
-        """Each row's (row, slot device, weight, batch part, hyper-parameters)
-        on the layout ``sh`` the table holds now, the part and the
-        hyper-parameters on the row's slot."""
+        """This process's rows, each as (row, slot device, batch part,
+        hyper-parameters) on the layout ``sh`` the table holds now, the part
+        and the hyper-parameters on the row's slot; every row's weight; and
+        the batch's examples."""
         devs = row_devices(sh.mesh)
-        if isinstance(batch, RowBatch) and batch.devices == devs:
-            parts = batch.parts
-        else:
+        if not (isinstance(batch, RowBatch) and batch.devices == devs):
             self._counters["restaged_batches"] += 1
-            parts = stage_rows(batch.joined(devs[0]) if isinstance(batch, RowBatch)
-                               else batch, devs).parts
-        n = sum(p[0].shape[0] for p in parts)
+            batch = stage_rows(batch.joined(next(d for d in devs if d is not None))
+                               if isinstance(batch, RowBatch) else batch, devs)
+        n = batch.n
+        bounds = row_bounds(n, len(devs))
         mean = self._trainer.batch_reduction == "mean"
-        return [(r, dev, (p[0].shape[0] / n if mean else 1.0), p, self._row_hyper(dev, hyper))
-                for r, (dev, p) in enumerate(zip(devs, parts))], n
+        weights = [(bounds[r + 1] - bounds[r]) / n if mean else 1.0 for r in range(len(devs))]
+        parts = [(r, dev, p, self._row_hyper(dev, hyper))
+                 for r, (dev, p) in enumerate(zip(devs, batch.parts)) if p is not None]
+        return parts, weights, n
 
     @staticmethod
-    def _combine_metrics(metrics_by_row, parts, dev):
-        return {k: sum(on_device(m[k], dev) * p[2] for m, p in zip(metrics_by_row, parts))
+    def _combine_metrics(metrics_by_row, weights, dev):
+        return {k: sum(on_device(m[k], dev) * w for m, w in zip(metrics_by_row, weights))
                 for k in metrics_by_row[0]}
 
-    def _hash_keys(self, state, parts, dev):
-        """One ``ensure`` of the whole batch's keys on every replica; each
-        row's keys and its slice of the token, on its slot."""
-        keys = [self._trainer.pull_keys(b).reshape(-1).to(torch.int32)
-                for _, _, _, b, _ in parts]
+    def _hash_keys(self, state, parts, dev, exchange):
+        """One ``ensure`` of the whole batch's keys (every row's, in row
+        order) on every replica; each row's keys and its slice of the token,
+        on its slot (another process's rows' on ``dev``)."""
+        mine = {r: [self._trainer.pull_keys(b).reshape(-1).to(torch.int32)]
+                for r, _, b, _ in parts}
+        keys = [k for (k,) in exchange(mine)]
         state, token = self._spec.ensure(state, torch.cat([on_device(k, dev) for k in keys]))
+        devs = {r: rdev for r, rdev, _, _ in parts}
         toks, lo = [], 0
-        for (_, rdev, *_), k in zip(parts, keys):
+        for r, k in enumerate(keys):
+            rdev = devs.get(r, dev)
             toks.append(tuple(on_device(t[lo:lo + k.shape[0]], rdev) for t in token))
             lo += k.shape[0]
         return state, token, keys, toks
 
     def __call__(self, state, *rest):
         local, (batch, hyper) = (rest[0], rest[1:]) if len(rest) == 3 else (None, rest)
-        parts, n = self._parts(state.sharding, batch, hyper)
-        if self._split:
-            return self._split_step(state, local, parts, n)
-        spec, trainer = self._spec, self._trainer
+        parts, weights, n = self._parts(state.sharding, batch, hyper)
         dev = state.device
-        metrics, deltas, keys = [], [], []
+        exchange = RowExchange(state.sharding, dev)
+        if self._split:
+            return self._split_step(state, local, parts, n, exchange)
+        spec, trainer = self._spec, self._trainer
+        keyed = trainer.pull_mode != "all"
+        mine, names = {}, None
         if self._hash:
-            state, token, keys, toks = self._hash_keys(state, parts, dev)
-            for (r, rdev, w, b, h), k, tok in zip(parts, keys, toks):
-                delta, m = trainer.compute(spec.read(state.at_row(r), k, tok), b, h)
-                deltas.append(on_device(trainer.mask_delta(delta, tok[2]) * w, dev))
-                metrics.append(m)
-            state = spec.push(state, token, torch.cat(deltas))
-            return state, dict(self._combine_metrics(metrics, parts, dev),
-                               _dropped=_dropped(token))
-        for r, _, w, b, h in parts:
-            if trainer.pull_mode == "all":
-                model = spec.pull_all(state.at_row(r))
+            state, token, keys, toks = self._hash_keys(state, parts, dev, exchange)
+        for r, rdev, b, h in parts:
+            w = weights[r]
+            if self._hash:
+                delta, m = trainer.compute(spec.read(state.at_row(r), keys[r], toks[r]), b, h)
+                out = [trainer.mask_delta(delta, toks[r][2]) * w]
+            elif not keyed:
+                delta, m = trainer.compute(spec.pull_all(state.at_row(r)), b, h)
+                out = [delta * w]
             else:
                 k = trainer.pull_keys(b)
-                keys.append(on_device(k, dev))
-                model = spec.pull(state.at_row(r), k)
-            delta, m = trainer.compute(model, b, h)
-            deltas.append(on_device(delta * w, dev))
-            metrics.append(m)
-        if trainer.pull_mode == "all":
-            state = spec.push_all(state, sum(deltas[1:], deltas[0]))
-        else:
-            state = spec.push(state, torch.cat(keys), torch.cat(deltas), via=self._route)
-        return state, self._combine_metrics(metrics, parts, dev)
+                delta, m = trainer.compute(spec.pull(state.at_row(r), k), b, h)
+                out = [delta * w, k]
+            names = list(m)
+            mine[r] = out + [m[name] for name in names]
+        every = exchange(mine)
+        deltas = [on_device(t[0], dev) for t in every]
+        width = len(every[0]) - len(names)
+        metrics = self._combine_metrics([dict(zip(names, t[width:])) for t in every],
+                                        weights, dev)
+        if self._hash:
+            state = spec.push(state, token, torch.cat(deltas))
+            return state, dict(metrics, _dropped=_dropped(token))
+        if not keyed:
+            return spec.push_all(state, sum(deltas[1:], deltas[0])), metrics
+        return spec.push(state, torch.cat([on_device(t[1], dev) for t in every]),
+                         torch.cat(deltas), via=self._route), metrics
 
-    def _split_step(self, state, local, parts, n):
-        """The split contract: the rows' parts and the finish
+    def _split_step(self, state, local, parts, n, exchange):
+        """The split contract: this process's rows' parts and the finish
         (``rows.run_split``), one push of the delta, and the local writes
         into every replica of the local table."""
         spec, trainer = self._spec, self._trainer
         dev = state.device
         token = toks = keys = None
         if self._hash:
-            state, token, keys, toks = self._hash_keys(state, parts, dev)
+            state, token, keys, toks = self._hash_keys(state, parts, dev, exchange)
         rows = []
-        for i, (r, rdev, _, b, h) in enumerate(parts):
+        for r, rdev, b, h in parts:
             if self._hash:
-                model = spec.read(state.at_row(r), keys[i], toks[i])
+                model = spec.read(state.at_row(r), keys[r], toks[r])
             elif trainer.pull_mode == "all":
                 model = spec.pull_all(state.at_row(r))
             else:
                 model = spec.pull(state.at_row(r), trainer.pull_keys(b))
             lmodel = (None if local is None
                       else self._local_spec.pull_all(local.at_row(r)))
-            rows.append(RowInput(rdev, model, b, h, lmodel))
-        delta, metrics, local_writes, results = run_split(trainer, rows, n)
+            rows.append(RowInput(rdev, model, b, h, lmodel, row=r))
+        if trainer.pull_mode != "all" and not self._hash:
+            # a keyed pull's keys, for the push of every row's delta
+            keys = [k for (k,) in exchange({r: [trainer.pull_keys(b)] for r, _, b, _ in parts})]
+        delta, metrics, local_writes, results = run_split(trainer, rows, n, exchange)
         if self._hash:
             deltas = [on_device(trainer.mask_delta(res.delta, tok[2]), dev)
                       for res, tok in zip(results, toks)]
@@ -458,8 +489,7 @@ class _DataParallelStep:
         elif trainer.pull_mode == "all":
             state = spec.push_all(state, delta)
         else:
-            state = spec.push(state, torch.cat([on_device(trainer.pull_keys(b), dev)
-                                                for *_, b, _ in parts]),
+            state = spec.push(state, torch.cat([on_device(k, dev) for k in keys]),
                               torch.cat([on_device(res.delta, dev) for res in results]),
                               via=self._route)
         if local is None:
@@ -1366,7 +1396,7 @@ class WorkerTasklet:
             once()  # warm-up
             return min(once() for _ in range(self.PROBE_SAMPLES))
 
-        with table._lock:
+        with table._lock, counted_as("probe"):
             arr = table._step_state
             batch = tuple(on_device(a, table.device) for a in batch)
             t_pull = timed(self._probe_pull, arr)
@@ -1881,6 +1911,8 @@ class WorkerTasklet:
             "fused_epochs": self._use_fused_epoch(),
             # the model table's mesh: {"data": D, "model": M}
             "mesh": dict(ctx.model_table.mesh.shape),
+            # the data rows this process computed (those holding its slots)
+            "data_rows": ctx.model_table.sharding.local_rows,
         }
         if self._is_hash():
             result["overflow_count"] = ctx.model_table.overflow_count

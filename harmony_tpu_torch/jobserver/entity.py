@@ -62,10 +62,16 @@ job trains (the reference's ETOptimizationOrchestrator). One loop a table:
 a tenant of a shared table whose loop already runs trains without one.
 
 On a pod (``jobserver/pod.py``) every participating process builds the same
-entity from the same config. A job whose executors lie in several processes
-takes ``pod_unit_scope`` and ``pod_unit_contended`` from the cross-job unit
-protocol (``runtime/podunits.py``): set-up, and every dispatch region of its
-workers or its superstep loop, run inside leader-granted units, so
+entity from the same config, and the whole dataset; ``user["data_axis"]``
+holds there too, its data rows computed by the processes holding their
+slots (``dolphin/worker.py::_DataParallelStep``), and the worker's result
+lists the rows this process computed (``data_rows``). Moves, an optimizer
+and elastic recovery of a table whose rows lie in different processes are
+refused (``runtime/master.py::ROWS_APART``). A job whose executors lie in
+several processes takes ``pod_unit_scope`` and ``pod_unit_contended`` from
+the cross-job unit protocol (``runtime/podunits.py``): set-up, and every
+dispatch region of its workers or its superstep loop, run inside
+leader-granted units, so
 overlapping tenants enter their collectives in one pod-wide order, and such
 a job drops the local TaskUnit admission. Several workers of such a job take
 turns in a ``DispatchTurnstile`` (its SSP slack at least 1), so every process
@@ -100,8 +106,10 @@ blocks at each chain entry (``recovery_retain``, unless
 attempt at the chief's hook of its epoch, right after the chain hook has
 snapshotted that epoch, by raising :class:`ElasticFence` in every process. The
 next attempt's config carries ``user.elastic_recovery`` (its attempt index,
-the kind and the lost executors): set-up then rebuilds the model table from
-the newest chain entry through ``CheckpointManager.restore_partial`` (a
+the kind, the lost executors, and the epoch the newest chain entry resumes
+at, from which the leader places a later fence): set-up then rebuilds the
+model table from the newest chain entry through
+``CheckpointManager.restore_partial`` (a
 corrupt or torn entry is quarantined and the previous one tried), which
 reads only the blocks this process's recovery cache lacks, and resumes at
 that entry's epoch + 1. The result carries the restore's accounting
@@ -141,7 +149,13 @@ from harmony_tpu_torch.metrics.manager import MetricManager
 from harmony_tpu_torch.parallel import multihost
 from harmony_tpu_torch.parallel.mesh import build_mesh
 from harmony_tpu_torch.pregel.master import PregelMaster
-from harmony_tpu_torch.runtime.master import ETMaster, Table, TableHandle
+from harmony_tpu_torch.runtime.master import (
+    ROWS_APART,
+    ETMaster,
+    Table,
+    TableHandle,
+    data_rows_apart,
+)
 from harmony_tpu_torch.runtime.taskunit import (
     GlobalTaskUnitScheduler,
     LocalTaskUnitScheduler,
@@ -1071,9 +1085,17 @@ def _pod_guards(config: JobConfig, master: ETMaster, executor_ids: List[str],
       * ``offline_model_eval`` on a multi-process grant needs process 0 in the
         grant: its JobServer runs the collective evaluation;
       * on process 0 that grant also needs the pod's evaluation channel (a
-        PodJobServer's); the followers replay on its broadcast."""
+        PodJobServer's); the followers replay on its broadcast;
+
+    and the port's own: an ``optimizer`` on a table whose data rows lie in
+    different processes (its plans would move blocks under a layout no test
+    holds: ``ROWS_APART``)."""
     procs = sorted({master.executor(e).slot.process_index for e in executor_ids})
     p, job = config.params, config.job_id
+    if config.optimizer and data_rows_apart(
+            [master.executor(e).slot for e in executor_ids],
+            max(1, int(config.user.get("data_axis", 1)))):
+        raise ValueError(f"job {job}: optimizer={config.optimizer!r} is refused: {ROWS_APART}")
     if len(procs) < 2 or p.model_chkp_period <= 0:
         return
     where = f"on a multi-process grant (processes {procs})"

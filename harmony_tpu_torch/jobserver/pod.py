@@ -96,9 +96,11 @@ and the entity restores through ``restore_partial``); one that fails on its
 own terms ends the submission, and ``HARMONY_ELASTIC_MAX_SHRINKS`` caps the
 recoveries. A fence is a PLAN with ``elastic_fence`` at the epoch ``cur +
 EPOCH_WINDOW + 2``, ``cur`` read from the leader's entity or a healthy
-participant's PROGRESS_REQ (``_schedule_elastic_fence``). A non-elastic job
-flagged ``user.auto_resume`` that failed on infra evidence is resubmitted
-with ``resume_from_chain`` (``_maybe_auto_resume``, ``auto_resumed``).
+participant's PROGRESS_REQ, and never below the epoch a recovery attempt
+resumes at (an attempt still in set-up reads 0; ``_schedule_elastic_fence``).
+A non-elastic job flagged ``user.auto_resume`` that failed on infra evidence
+is resubmitted with ``resume_from_chain`` (``_maybe_auto_resume``,
+``auto_resumed``).
 STATUS's ``elastic`` block and the ``pod`` block's ``reinstated`` and
 ``auto_resumed`` show it; the events also go to ``jobserver/joblog.py``.
 
@@ -132,6 +134,7 @@ from harmony_tpu_torch.jobserver import elastic, podplan
 from harmony_tpu_torch.jobserver.joblog import job_logger, record_event
 from harmony_tpu_torch.jobserver.scheduler import ProcessCarveScheduler
 from harmony_tpu_torch.jobserver.server import JobServer, _json_sanitize
+from harmony_tpu_torch.runtime.master import ROWS_APART, data_rows_apart
 from harmony_tpu_torch.runtime.podunits import (
     FollowerUnits,
     PodUnitArbiter,
@@ -190,7 +193,8 @@ def _counted(scope, counts: Dict[str, int]):
 def _job_summary(result: Dict[str, Any]) -> Dict[str, Any]:
     """What a report carries of a job's result: each worker's losses, batch
     losses, epoch seconds, comm probes, epoch range and seconds from its
-    first epoch's start to its last's end (hooks included), the pod plans
+    first epoch's start to its last's end (hooks included), the data rows
+    the process computed and its steps whose batch was restaged, the pod plans
     the process applied or skipped and its side of each plan's exchange, its
     chain's ids and this process's share of each entry
     (``model_chkp_stats``), an elastic attempt's restore (``elastic_restore``)
@@ -204,7 +208,9 @@ def _job_summary(result: Dict[str, Any]) -> Dict[str, Any]:
               "starting_epoch": int(w.get("starting_epoch", 0)),
               "epochs_run": int(w.get("epochs_run", len(w.get("losses", [])))),
               "train_seconds": (float(w["train_span"][1] - w["train_span"][0])
-                                if "train_span" in w else None)}
+                                if "train_span" in w else None),
+              "data_rows": list(w.get("data_rows", [])),
+              "restaged_batches": int(w.get("input", {}).get("restaged_batches", 0))}
         for wid, w in result.get("workers", {}).items()}}
     for key in _SUMMARY_KEYS:
         if key in result:
@@ -214,6 +220,24 @@ def _job_summary(result: Dict[str, Any]) -> Dict[str, Any]:
         out.update(supersteps=int(result["supersteps"]), wall_sec=float(result["wall_sec"]),
                    vertex_digest=hashlib.sha256(values.tobytes()).hexdigest())
     return out
+
+
+def _resume_epoch(mgr, chain: List[str]) -> int:
+    """The epoch a restore of the newest of the ``chain`` entries resumes
+    at (its epoch tag + 1; 0 with no readable tag). A restore that falls
+    back past a corrupt entry resumes earlier, so a fence placed from this
+    epoch is only later than it must be."""
+    from harmony_tpu_torch.checkpoint.manager import CheckpointCorruptError
+
+    newest = -1
+    for cid in chain:
+        try:
+            meta = mgr.info(cid).app_meta or {}
+        except (CheckpointCorruptError, FileNotFoundError):
+            continue
+        if "epoch" in meta:
+            newest = max(newest, int(meta["epoch"]))
+    return newest + 1
 
 
 class PodJobServer(JobServer):
@@ -285,6 +309,9 @@ class PodJobServer(JobServer):
         #: running job id -> its follower participants, what
         #: schedule_pod_reshard sends PLAN to
         self._job_info: Dict[str, List[int]] = {}
+        #: running job ids whose table's data rows lie in different processes
+        #: (schedule_pod_reshard refuses them)
+        self._rows_apart_jobs: set = set()
         #: job id -> the followers of its collective deferred evaluation
         #: (only jobs with a chain and offline_model_eval)
         self._eval_participants: Dict[str, List[int]] = {}
@@ -614,7 +641,9 @@ class PodJobServer(JobServer):
         ``schedule_pod_reshard`` requires), so every process's chief hook
         raises it at the same epoch. ``cur`` comes from the leader's entity,
         else from a HEALTHY participant (the silent one may be the chief);
-        with only confined ones left, from one of them under a short timeout.
+        with only confined ones left, from one of them under a short timeout;
+        and never below the epoch a recovery attempt resumes at, since an
+        attempt still in set-up (restoring its chain entry) reads 0 there.
         Returns the epoch, or None when the job ends before it."""
         from harmony_tpu_torch.dolphin.worker import WorkerTasklet
 
@@ -622,7 +651,7 @@ class PodJobServer(JobServer):
             st = self._elastic_active.get(job_id)
             if st is None:
                 return None
-            procs, att = set(st["procs"]), st["attempt"]
+            procs, att, resume = set(st["procs"]), st["attempt"], st["resume_epoch"]
             num_epochs = st["config"].params.num_epochs
             silenced = set(self._silenced)
         with self._lock:
@@ -640,6 +669,7 @@ class PodJobServer(JobServer):
                 cur = self._query_remote_epoch(rkey, healthy[0])
             elif participants:
                 cur = self._query_remote_epoch(rkey, participants[0], timeout=5.0)
+        cur = max(cur, resume)
         epoch = cur + WorkerTasklet.EPOCH_WINDOW + 2
         if epoch >= num_epochs:
             job_logger(job_id).info("elastic %s fence skipped: its earliest epoch %d is "
@@ -855,7 +885,19 @@ class PodJobServer(JobServer):
                 return jid
         return None
 
+    def _rows_apart(self, config: JobConfig, executor_ids: List[str]) -> bool:
+        """Whether a Dolphin job's table over ``executor_ids`` has data rows
+        in different processes (``runtime/master.py::data_rows_apart``)."""
+        return config.app_type == "dolphin" and data_rows_apart(
+            [self.master.executor(e).slot for e in executor_ids],
+            max(1, int(config.user.get("data_axis", 1))))
+
     def _dispatch(self, config: JobConfig, executor_ids: List[str]) -> None:
+        if config.user.get("elastic_shrink") and self._rows_apart(config, executor_ids):
+            # refused before any attempt starts
+            self._fail_job(config, f"job {config.job_id}: elastic_shrink is refused: "
+                                   f"{ROWS_APART}")
+            return
         if self._elastic_eligible(config):
             # one span for the whole submission: each attempt's pod.dispatch
             # span nests under it
@@ -907,7 +949,8 @@ class PodJobServer(JobServer):
                     self._elastic_active[config.job_id] = {
                         "attempt": att, "procs": frozenset(self._proc_of(e) for e in execs),
                         "original_procs": original_procs, "config": cfg,
-                        "executors": list(execs)}
+                        "executors": list(execs), "resume_epoch": int(
+                            (cfg.user.get("elastic_recovery") or {}).get("resume_epoch", 0))}
                 try:
                     self._dispatch_once(cfg, execs)
                 finally:
@@ -1002,10 +1045,9 @@ class PodJobServer(JobServer):
         granted = [e for e in self._scheduler.reacquire(config.job_id, preferred)
                    if self._proc_of(e) not in unusable]
         mgr = CheckpointManager.for_job(self._chkp_root, config.job_id)
+        chain = [c for c in mgr.list_checkpoints() if c.startswith(f"{config.job_id}:")]
         why = ("no usable executors to recover on" if not granted
-               else None if any(c.startswith(f"{config.job_id}:")
-                                for c in mgr.list_checkpoints())
-               else "no committed chain checkpoints yet")
+               else None if chain else "no committed chain checkpoints yet")
         if why is not None:
             self._scheduler.on_job_finish(config.job_id)  # return the grant
             self._elastic_give_up(config.job_id, reason=why)
@@ -1013,7 +1055,8 @@ class PodJobServer(JobServer):
         lost = [e for e in prev_execs if e not in granted]
         new_cfg = ConfigBase.from_dict(config.to_dict())
         new_cfg.user["elastic_recovery"] = {"attempt": prev_attempt + 1, "kind": kind,
-                                            "lost_executors": lost}
+                                            "lost_executors": lost,
+                                            "resume_epoch": _resume_epoch(mgr, chain)}
         ev = job_logger(config.job_id).event(
             f"elastic_{kind}", attempt=prev_attempt + 1, executors=list(granted),
             lost_executors=lost, procs=sorted({self._proc_of(e) for e in granted}),
@@ -1078,6 +1121,8 @@ class PodJobServer(JobServer):
             run_local = 0 in procs
             with self._pod_cond:
                 self._job_info[config.job_id] = participants
+                if self._rows_apart(config, executor_ids):
+                    self._rows_apart_jobs.add(config.job_id)
             if participants:
                 log.info("pod: RUN_JOB %s to follower(s) %s (chief %d, local %s)",
                          config.job_id, participants, min(procs), run_local)
@@ -1156,6 +1201,7 @@ class PodJobServer(JobServer):
             with self._pod_cond:
                 # a plan for a finished job is refused, never kept
                 self._job_info.pop(config.job_id, None)
+                self._rows_apart_jobs.discard(config.job_id)
                 self.job_walls[rkey] = (t0, time.monotonic())
                 while len(self.job_walls) > 1024:
                     self.job_walls.pop(next(iter(self.job_walls)))
@@ -1362,14 +1408,18 @@ class PodJobServer(JobServer):
         job's observed epoch (the leader's own entity, else the chief
         follower's) by the window horizon, ``EPOCH_WINDOW`` + 1: the window
         that covers the plan's epoch is decided after every process holds
-        the plan. An unknown or finished job raises KeyError; a PLAN that
-        reached some followers only marks the pod broken."""
+        the plan. An unknown or finished job raises KeyError, a job whose
+        data rows lie in different processes ValueError (``ROWS_APART``); a
+        PLAN that reached some followers only marks the pod broken."""
         from harmony_tpu_torch.dolphin.worker import WorkerTasklet
 
         with self._pod_cond:
             participants = self._job_info.get(job_id)
+            apart = job_id in self._rows_apart_jobs
         if participants is None:
             raise KeyError(f"unknown (or finished) pod job {job_id}")
+        if apart:
+            raise ValueError(f"pod job {job_id}: a move is refused: {ROWS_APART}")
         with self._lock:
             ent = self._entities.get(job_id)
         cur = 0

@@ -343,10 +343,13 @@ class JobServer:
                           if entity is not None else None)
                 table = handle.table if handle is not None else None
                 if table is not None and mesh_spans_processes(table.mesh):
-                    # its read is a collective that every process would join
+                    # its read is a collective that every process would join,
+                    # and the reference's read from one serving thread has no
+                    # working form either
                     raise LookupError(
                         f"job {job_id!r}: a live read of a table over several processes "
-                        "waits for ROADMAP A item 3b")
+                        "is refused (ROADMAP C, known differences: live reads over "
+                        "processes, a fault of the reference)")
                 return table
 
             svc = ServingEndpoint(table_fn=live_table, chkp_root=self._chkp_root,

@@ -28,6 +28,8 @@ Across the processes of a pod (``parallel/multihost.py``) the one layer is
     order (the order of their slots), on every process. A copy with no
     arithmetic: gloo and NCCL give the same bits. Both take a card's
     tensor as it is (gloo copies it through the host itself);
+    :func:`process_all_gather_v` the same for tensors whose first
+    dimension differs by process (a data row's keyed delta);
   * :func:`process_psum` — that all-gather, then a left-to-right sum in
     process order (``all_reduce``'s order of addition is not slot order);
   * :func:`process_broadcast` — one process's tensor on every process.
@@ -36,12 +38,14 @@ Every such call blocks the calling thread until each process of the group
 has made it, so every one lies inside its job's unit scope
 (``runtime/podunits.py``), where no other job's collective on these
 processes can interleave. :data:`POD_STATS` counts the calls and their bytes
-in this process.
+in this process, and apart by caller (:func:`counted_as`): the worker's comm
+probe, a step's row exchange, and a row's read of shards over its processes.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
-from typing import Dict, List, Sequence
+from typing import Dict, Iterator, List, Sequence
 
 import torch
 
@@ -99,15 +103,35 @@ def broadcast(x: torch.Tensor, devices: Sequence[torch.device]) -> List[torch.Te
 
 # -- across processes --------------------------------------------------------
 
-POD_STATS: Dict[str, int] = {"calls": 0, "bytes_out": 0, "bytes_in": 0}
+_STAT_KEYS = ("calls", "bytes_out", "bytes_in")
+# the callers counted apart too, as "<caller>.<key>"
+POD_CALLERS = ("probe", "exchange", "read")
+POD_STATS: Dict[str, int] = {k: 0 for k in _STAT_KEYS}
+POD_STATS.update({f"{c}.{k}": 0 for c in POD_CALLERS for k in _STAT_KEYS})
 _STATS_LOCK = threading.Lock()
+_CALLER = threading.local()
+
+
+@contextlib.contextmanager
+def counted_as(caller: str) -> Iterator[None]:
+    """Count the calls this thread makes inside under ``caller`` (one of
+    :data:`POD_CALLERS`) as well; an enclosing caller keeps them (a probe's
+    reads are the probe's)."""
+    outer = getattr(_CALLER, "name", None)
+    _CALLER.name = outer or caller
+    try:
+        yield
+    finally:
+        _CALLER.name = outer
 
 
 def _note(bytes_out: int, bytes_in: int) -> None:
+    caller = getattr(_CALLER, "name", None)
     with _STATS_LOCK:
-        POD_STATS["calls"] += 1
-        POD_STATS["bytes_out"] += bytes_out
-        POD_STATS["bytes_in"] += bytes_in
+        for prefix in ("",) + ((f"{caller}.",) if caller else ()):
+            POD_STATS[prefix + "calls"] += 1
+            POD_STATS[prefix + "bytes_out"] += bytes_out
+            POD_STATS[prefix + "bytes_in"] += bytes_in
 
 
 def _wire(t: torch.Tensor) -> torch.Tensor:
@@ -146,6 +170,26 @@ def process_all_gather(t: torch.Tensor, processes: Sequence[int]) -> List[torch.
     nbytes = t.numel() * t.element_size()
     _note(nbytes, nbytes * len(procs))
     return out
+
+
+def process_all_gather_v(t: torch.Tensor, processes: Sequence[int]) -> List[torch.Tensor]:
+    """:func:`process_all_gather` of tensors whose first dimension differs by
+    process (the rest alike): each process first sends its count, then its
+    tensor padded to the largest count, and the padding is cut off what
+    arrives. Two all-gathers, each counted; the counts reach the host before
+    the second is made (``_back`` blocks), and when every count is 0 the
+    second is not made at all, in every process alike."""
+    procs = tuple(sorted(set(processes)))
+    if len(procs) == 1:
+        return [t]
+    counts = [int(c[0]) for c in process_all_gather(
+        torch.tensor([t.shape[0]], dtype=torch.int64), procs)]
+    top = max(counts)
+    if top == 0:
+        return [t[:0] for _ in procs]
+    padded = t if t.shape[0] == top else torch.cat(
+        [t, t.new_zeros((top - t.shape[0],) + tuple(t.shape[1:]))])
+    return [p[:n] for p, n in zip(process_all_gather(padded, procs), counts)]
 
 
 def process_psum(t: torch.Tensor, processes: Sequence[int]) -> torch.Tensor:

@@ -29,8 +29,9 @@ is global and built in the same order in every process
 slots of several processes names the same slots everywhere.
 :func:`is_local` tells this process's slots from the others';
 :func:`mesh_spans_processes` is the reference's test (slots of more than one
-process), and :meth:`Mesh.process_group` the ``torch.distributed`` group of a
-mesh's processes.
+process), :func:`rows_apart` whether a data row lacks one of them, and
+:meth:`Mesh.process_group` the ``torch.distributed`` group of a mesh's
+processes.
 """
 from __future__ import annotations
 
@@ -199,6 +200,20 @@ def mesh_spans_processes(mesh: Mesh) -> bool:
     predicate gating the single-process-only paths (the reference's,
     ``harmony_tpu/parallel/mesh.py:80-84``)."""
     return len({s.process_index for s in mesh.devices.flat}) > 1
+
+
+def row_processes(mesh: Mesh) -> List[Tuple[int, ...]]:
+    """The processes holding slots of each data row (the mesh's first axis),
+    each in increasing order."""
+    return [tuple(sorted({s.process_index for s in mesh.devices[r].flat}))
+            for r in range(mesh.devices.shape[0])]
+
+
+def rows_apart(mesh: Mesh) -> bool:
+    """True when a data row of the mesh lacks a process of the mesh, so that
+    the rows' results must cross processes (a data axis > 1 whose rows lie
+    in different processes of a pod)."""
+    return any(p != mesh.processes for p in row_processes(mesh))
 
 
 class DevicePool:

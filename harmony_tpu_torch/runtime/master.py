@@ -39,7 +39,7 @@ import numpy as np
 import torch
 
 from harmony_tpu_torch.config.params import TableConfig
-from harmony_tpu_torch.parallel.mesh import DevicePool, Mesh, Slot, build_mesh
+from harmony_tpu_torch.parallel.mesh import DevicePool, Mesh, Slot, build_mesh, rows_apart
 from harmony_tpu_torch.table.hashtable import MIN_KEY, DeviceHashTable, HashTableSpec
 from harmony_tpu_torch.table.ownership import BlockManager
 from harmony_tpu_torch.table.table import DenseTable, TableSpec
@@ -61,21 +61,31 @@ def _mesh_over(slots: Sequence[Slot], data_axis: int) -> Mesh:
     executors), never as duplicates. Pure model-parallel when the count does
     not factor.
 
-    The slots may lie in several processes of a pod (every process builds
-    the same mesh over the global slots); a data axis > 1 there is refused,
-    since the split of a step over data rows in different processes waits
-    for ROADMAP A item 3b. The refusal is decided from the slots alone, so
-    every process raises alike, at a job's first table and before it is
-    made."""
+    The slots may lie in several processes of a pod: every process builds
+    the same mesh over the global slots, a data axis > 1 included, whose
+    rows may then lie in different processes (each process computes the
+    rows holding its slots; ``dolphin/worker.py::_DataParallelStep``). Any
+    refusal of such a layout is decided from the slots alone
+    (:func:`data_rows_apart`), so every process raises alike, before a
+    table is made."""
     n = len(slots)
     if data_axis > 1 and n % data_axis == 0:
-        if len({s.process_index for s in slots}) > 1:
-            raise ValueError(
-                f"data_axis={data_axis} over slots of processes "
-                f"{sorted({s.process_index for s in slots})}: a data axis whose "
-                "rows lie in different processes waits for ROADMAP A item 3b")
         return build_mesh(slots, data=data_axis)
     return build_mesh(slots, data=1)
+
+
+#: why a layout whose data rows lie in different processes is refused a move,
+#: an optimizer plan or an elastic recovery
+ROWS_APART = ("its table's data rows lie in different processes, where moves and "
+              "recovery have no checked bits yet (ROADMAP A item 3b.6)")
+
+
+def data_rows_apart(slots: Sequence[Slot], data_axis: int) -> bool:
+    """Whether a job's table over ``slots`` at ``data_axis`` has data rows
+    that lie in different processes (``parallel/mesh.py::rows_apart``): the
+    layout that moves, optimizer plans and elastic recovery refuse, naming
+    ROADMAP A item 3b.6."""
+    return rows_apart(_mesh_over(slots, data_axis))
 
 
 class Executor:

@@ -368,7 +368,7 @@ class HashTableSpec:
         sh, dev = state.sharding, state.device
         block = self._route(keys)[0]
         shard = torch.div(block, sh.blocks_per_shard, rounding_mode="floor")
-        row0 = {s: k for k, s in sh.read_slots(0).items()}
+        row0 = {s: k for k, s in sh.read_slots(state.row).items()}
         slot = torch.zeros_like(block)
         ok = torch.zeros_like(keys, dtype=torch.bool)
         moved: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
@@ -384,7 +384,8 @@ class HashTableSpec:
                     slot = torch.where(mine, on_device(slot_k, dev), slot)
                     ok = torch.where(mine, on_device(ok_k, dev), ok)
             if len(row0) < sh.num_shards:
-                both = combine_owned(sh, 0, shard, torch.stack([slot, ok.to(slot.dtype)], 1))
+                both = combine_owned(sh, state.row, shard,
+                                     torch.stack([slot, ok.to(slot.dtype)], 1))
                 slot, ok = both[:, 0].contiguous(), both[:, 1] != 0
         return block, slot, ok
 

@@ -37,15 +37,19 @@ snapshot is a device COPY, since steps update the storage in place. A pod's
 checkpoint stages each process's owned blocks (``addressable_blocks``,
 :func:`owned_blocks`).
 
-On a mesh that spans the processes of a pod (``parallel/multihost.py``, data
-axis 1) a :class:`ShardedArray` holds only this process's shards, and every
-process runs a step's compute on its own first slot from the same rows and
-the same batch (the reference's GSPMD layout: the batch replicated over the
-model axis). A pull runs K1 once for each local shard, then takes the rows
-of the other shards from an all-gather of the processes' partial results,
+On a mesh that spans the processes of a pod (``parallel/multihost.py``) a
+:class:`ShardedArray` holds only this process's shards, and every process
+runs each data row that holds its slots on its first slot there, from the
+same rows and the same batch part (the reference's GSPMD layout: the batch
+replicated over the model axis; with a data axis > 1 a process computes
+only its own rows, ``BlockSharding.local_rows``). A pull runs K1 once for
+each local shard of the row, then takes the rows of the row's other shards
+from an all-gather over the row's processes of their partial results,
 picked by ``where`` in shard order (never summed: ``-0.0 + 0.0`` is
 ``+0.0``); a push folds only the local shards' keys, from the replicated
-deltas. The pull's all-gather is a step's one cross-process transfer.
+deltas. At data axis 1 the pull's all-gather is a step's one
+cross-process transfer; rows in different processes also exchange their
+results (``dolphin/rows.py::RowExchange``).
 
 The keyed pull goes through ``gather_rows`` (K1); the keyed push's duplicate
 fold through ``weighted_histogram``/``segment_sum`` (K3, ``via="mxu"``) or
@@ -64,7 +68,7 @@ import torch
 from harmony_tpu_torch.config.params import TableConfig
 from harmony_tpu_torch.ops.histogram import segment_sum
 from harmony_tpu_torch.parallel.dispatch import dispatch_scope
-from harmony_tpu_torch.parallel.collectives import process_all_gather
+from harmony_tpu_torch.parallel.collectives import counted_as, process_all_gather
 from harmony_tpu_torch.parallel.mesh import (
     MODEL_AXIS,
     Mesh,
@@ -72,6 +76,8 @@ from harmony_tpu_torch.parallel.mesh import (
     as_slots,
     build_mesh,
     is_local,
+    row_processes,
+    rows_apart,
     this_process,
 )
 from harmony_tpu_torch.ops.sparse import gather_rows, segment_sum_rows, value_width
@@ -324,9 +330,15 @@ class BlockSharding:
     :meth:`row_slots`, and computes on :meth:`compute_slot`; a write goes to
     every slot, every replica with the same bits.
 
-    On a mesh over several processes (data axis 1) a process reads each
-    shard it holds on its own slot (:meth:`read_slots`), computes on its own
-    first slot, and takes the other shards from their :meth:`provider`."""
+    On a mesh over several processes a process computes each data row that
+    holds a slot of it (:attr:`local_rows`), on its first slot there; it
+    reads each shard of such a row that it holds on its own slot
+    (:meth:`read_slots`) and takes the row's other shards from their
+    :meth:`provider`, over the row's processes (:meth:`row_processes`). A
+    row with no slot in this process has nothing to read or compute here.
+    With a data axis > 1 the rows may lie in different processes: then
+    :attr:`rows_apart` is set, and the rows' results cross processes
+    (``dolphin/rows.py::RowExchange``)."""
 
     def __init__(self, mesh: Mesh, num_blocks: int) -> None:
         model = mesh.shape.get(MODEL_AXIS, 1)
@@ -341,11 +353,8 @@ class BlockSharding:
         self._shard = {slot: int(m) for slot, m in zip(mesh.devices.flat, coords.flat)}
         self.processes = mesh.processes
         self.spans_processes = len(self.processes) > 1
-        if self.spans_processes and mesh.devices.shape[0] > 1:
-            raise ValueError(
-                f"a data axis of {mesh.devices.shape[0]} over the processes "
-                f"{list(self.processes)} waits for the pod's data-row split "
-                "(ROADMAP A item 3b)")
+        self._row_procs = row_processes(mesh)
+        self.rows_apart = rows_apart(mesh)
         self._reads: Dict[Tuple[int, int], Dict[int, Slot]] = {}
         self._compute: Dict[Tuple[int, int], Slot] = {}
 
@@ -380,18 +389,46 @@ class BlockSharding:
         row = self.mesh.devices[r].reshape(-1, self.mesh.devices.shape[-1])[0]
         return list(row) if self.num_shards > 1 else [row[0]]
 
-    def compute_slot(self, r: int = 0) -> Slot:
-        """Where data row ``r`` computes: its first slot of this process."""
+    def row_processes(self, r: int) -> Tuple[int, ...]:
+        """The processes holding slots of data row ``r``, in increasing order."""
+        return self._row_procs[r]
+
+    @property
+    def local_rows(self) -> List[int]:
+        """The data rows this process computes: those holding a slot of it."""
+        me = this_process()
+        return [r for r, procs in enumerate(self._row_procs) if me in procs]
+
+    @property
+    def home_row(self) -> int:
+        """This process's first data row (row 0 in a process holding no slot
+        of the mesh, which computes nothing)."""
+        return next(iter(self.local_rows), 0)
+
+    def compute_slot(self, r: Optional[int] = None) -> Slot:
+        """Where data row ``r`` (default :attr:`home_row`) computes: its first
+        slot of this process. A row with no slot here raises; a process
+        holding no slot of the mesh gets the mesh's first slot for its
+        home row, a placeholder (its table holds no shard)."""
+        home = r is None
+        r = self.home_row if home else r
         key = (r, this_process())
         hit = self._compute.get(key)
         if hit is None:
             row = list(self.mesh.devices[r].flat)
-            hit = self._compute[key] = next((s for s in row if is_local(s)), row[0])
+            hit = next((s for s in row if is_local(s)), None)
+            if hit is None:
+                if not home or self.local_rows:
+                    raise ValueError(f"data row {r} has no slot in process "
+                                     f"{this_process()}: it computes in {self._row_procs[r]}")
+                hit = row[0]
+            self._compute[key] = hit
         return hit
 
     def read_slots(self, r: int = 0) -> Dict[int, Slot]:
         """Shard -> the slot of this process on which data row ``r`` reads it,
-        for each shard this process holds (every shard, on one process)."""
+        for each shard of the row this process holds (every shard, on one
+        process; none, for a row with no slot here)."""
         key = (r, this_process())
         hit = self._reads.get(key)
         if hit is None:
@@ -406,7 +443,8 @@ class BlockSharding:
         return hit
 
     def provider(self, k: int, r: int = 0) -> int:
-        """The process whose rows of shard ``k`` every other process takes."""
+        """The process whose rows of shard ``k`` the other processes of data
+        row ``r`` take."""
         return self.row_slots(r)[k].process_index
 
     def __eq__(self, other) -> bool:
@@ -431,16 +469,17 @@ class ShardedArray:
 
     What a step function receives in place of the storage tensor. The
     table ops (:class:`TableSpec`, ``HashTableSpec``) route each key to the
-    shard of its block: a read gathers on the shards of data row ``row``,
+    shard of its block: a read gathers on the shards of data row ``row``
+    (this process's first, :attr:`BlockSharding.home_row`, unless given),
     a write updates every slot. ``device`` is where the row computes, and
     where a read's rows arrive. A hash table's shards are (slot_keys,
     values) pairs."""
 
     def __init__(self, sharding: BlockSharding, shards: Dict[Slot, object],
-                 row: int = 0) -> None:
+                 row: Optional[int] = None) -> None:
         self.sharding = sharding
         self.shards = shards
-        self.row = row
+        self.row = sharding.home_row if row is None else row
 
     @property
     def device(self) -> torch.device:
@@ -487,13 +526,15 @@ def combine_owned(sharding: BlockSharding, row: int, m: torch.Tensor,
     """Rows of ``partial`` (one for each entry of ``m``, the shard each
     belongs to) read in this process; those of shards this process does not
     hold come from their provider's partial result, by an all-gather over
-    the mesh's processes, picked by ``where`` in shard order. Nothing is
+    the processes of data row ``row`` (a process joins only the gathers of
+    the rows it computes), picked by ``where`` in shard order. Nothing is
     summed, so the rows keep their bits (a -0.0 stays -0.0)."""
     mine = sharding.read_slots(row)
     if len(mine) == sharding.num_shards:
         return partial
-    procs = list(sharding.processes)
-    parts = process_all_gather(partial, procs)
+    procs = list(sharding.row_processes(row))
+    with counted_as("read"):
+        parts = process_all_gather(partial, procs)
     out = partial
     for k in range(sharding.num_shards):
         if k not in mine:
@@ -506,17 +547,19 @@ def gather_shards(sharding: BlockSharding, row: int,
                   local: Dict[int, torch.Tensor]) -> List[torch.Tensor]:
     """Every shard's tensor in shard order: ``local`` (this process's, all of
     one shape) and, over several processes, the others' from an all-gather
-    in which each process sends the shards it provides."""
+    over data row ``row``'s processes, in which each sends the shards it
+    provides."""
     if len(local) == sharding.num_shards:
         return [local[k] for k in range(sharding.num_shards)]
-    procs = list(sharding.processes)
+    procs = list(sharding.row_processes(row))
     provided = {p: [k for k in range(sharding.num_shards) if sharding.provider(k, row) == p]
                 for p in procs}
     width = max(len(v) for v in provided.values())
     like = next(iter(local.values()))
     mine = [local[k] for k in provided[this_process()]]
     payload = torch.stack(mine + [torch.zeros_like(like)] * (width - len(mine)))
-    parts = process_all_gather(payload, procs)
+    with counted_as("read"):
+        parts = process_all_gather(payload, procs)
     out = []
     for k in range(sharding.num_shards):
         p = sharding.provider(k, row)

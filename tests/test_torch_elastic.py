@@ -243,6 +243,30 @@ def test_a_fence_recovers_the_same_submission_with_the_uninterrupted_bits(pod_se
     assert any(e["kind"] == "elastic_restore" for e in status["job_events"]["el-fence"])
 
 
+def test_a_fence_scheduled_during_an_attempts_set_up_lands_past_its_resume(pod_server):
+    """A fence scheduled while a recovery attempt is still in set-up (held
+    in its chain restore by a delay at the ``elastic.restore`` site) finds no
+    progress to read yet; its epoch is taken from the epoch the attempt
+    resumes at, so the attempt ends at that fence and the next resumes just
+    past it."""
+    from harmony_tpu_torch.dolphin.worker import WorkerTasklet
+
+    faults.arm(faults.FaultPlan([faults.FaultRule(
+        "elastic.restore", match={"attempt": 1}, action="delay", delay_sec=1.5)]))
+    fut = pod_server.submit(_cfg("el-setup", epochs=32))
+    first = _fence_when_active(pod_server, "el-setup", "shrink")
+    assert _until(lambda: pod_server._elastic_active.get(
+        "el-setup", {}).get("attempt") == 1)
+    second = pod_server._schedule_elastic_fence("el-setup", "shrink")
+    res = fut.result(timeout=DEADLINE)
+    assert second == first + 1 + WorkerTasklet.EPOCH_WINDOW + 2
+    meta = res["elastic"]
+    assert meta["attempts"] == 3 and [e["kind"] for e in meta["events"]] == [
+        "elastic_shrink", "elastic_shrink"]
+    (w,) = res["workers"].values()
+    assert w["starting_epoch"] == res["elastic_restore"]["resumed_epoch"] == second + 1
+
+
 def test_a_failure_on_the_jobs_own_terms_is_never_recovered(pod_server):
     cfg = _cfg("el-bug", epochs=4, lag=0.0, n=1)   # too few examples to feed it
     with pytest.raises(Exception, match="cannot feed"):

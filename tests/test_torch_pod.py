@@ -483,8 +483,9 @@ def test_a_killed_follower_fails_the_job_and_the_leader_answers(tmp_path):
 
 def test_a_live_read_of_a_table_over_processes_is_refused():
     """The serving endpoint's live read would be a collective that only the
-    leader joins: it is refused, naming item 3b (no pod needed to build
-    such a table: its other process's shard is simply not held here)."""
+    leader joins: it is refused, naming ROADMAP C's entry on live reads
+    over processes, a fault of the reference (no pod needed to build such
+    a table: its other process's shard is simply not held here)."""
     from types import SimpleNamespace
 
     from harmony_tpu_torch.config.params import TableConfig
@@ -500,7 +501,8 @@ def test_a_live_read_of_a_table_over_processes_is_refused():
     try:
         server._entities["spanning"] = SimpleNamespace(
             table_handle=SimpleNamespace(table=table))
-        with pytest.raises(LookupError, match="ROADMAP A item 3b"):
+        with pytest.raises(LookupError, match=r"ROADMAP C, known differences: live reads "
+                                              r"over processes"):
             server._ensure_serving().lookup("spanning", np.arange(4, dtype=np.int32))
     finally:
         server.shutdown(timeout=DEADLINE)

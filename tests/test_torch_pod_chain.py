@@ -37,9 +37,11 @@ byte.
   ``tests/test_torch_pod.py``.)
 * The refusals kept, each naming its reason: sampling and
   ``checkpoint_async`` on a table over processes, a pod chain without a
-  ``chkp_root``, ``offline_model_eval`` on a multi-process grant without
-  process 0, and a data axis whose rows lie in different processes (ROADMAP
-  A item 3b), each before the job makes a table.
+  ``chkp_root`` and ``offline_model_eval`` on a multi-process grant without
+  process 0, each before the job makes a table. The ``data-axis`` case is
+  named for the refusal it replaced and checks that it is gone: a chained
+  job at ``data_axis`` 2 over two processes makes its tables, a data row in
+  each process (its chains: ``tests/test_torch_pod_data.py``).
 * Against the reference's own two-process pod (two virtual devices a
   process, ``tests/pod_worker.py``): the same MLR chain has the same ids,
   block ids and ownership, its blocks within ``EVAL_ATOL``.
@@ -464,9 +466,17 @@ def test_the_kept_refusals_name_their_reasons(tmp_path, what, match):
     master = ETMaster(DevicePool(slots))
     ids = [e.id for e in master.add_executors(len(slots))]
     config = chained("mlr", f"refused-{what}", offline_model_eval=what == "eval-without-0")
+    entity = DolphinJobEntity(config, chkp_root=None if what == "no-root" else str(tmp_path))
     if what == "data-axis":
         config.user["data_axis"] = 2
-    entity = DolphinJobEntity(config, chkp_root=None if what == "no-root" else str(tmp_path))
+        entity.setup(master, ids)
+        try:
+            sh = entity._table.sharding
+            assert master.table_ids() and sh.data_rows == 2
+            assert sh.rows_apart and sh.local_rows == [0] and sh.row_processes(1) == (1,)
+        finally:
+            entity.cleanup()
+        return
     with pytest.raises(ValueError, match=match):
         entity.setup(master, ids[1:] if what == "eval-without-0" else ids)
     assert master.table_ids() == []   # refused before any table

@@ -8,12 +8,25 @@ job at its observed epoch 0, so the smallest legal plan epoch is
 ``EPOCH_WINDOW`` + 1. ``SlowEpochsMLR`` sleeps ``epoch_lag_sec`` after each
 epoch (its epochs run one a window). ``leader_only_test_data`` is test data
 that only process 0 can read. Sleeps are host delays only: the values
-are the apps' own."""
+are the apps' own. ``Kept*`` are the apps' trainers that, as the run ends,
+write the SHA-256 of each block of the model and local tables this process
+owns into ``keep_dir`` (:func:`kept_tables` joins every process's); the
+chip run's phase 3pd uses them too."""
 from __future__ import annotations
 
+import glob
+import hashlib
+import json
+import os
 import time
 
+import numpy as np
+
+from harmony_tpu_torch.apps.gbt import GBTTrainer
+from harmony_tpu_torch.apps.lasso import LassoTrainer
+from harmony_tpu_torch.apps.lda import LDATrainer
 from harmony_tpu_torch.apps.mlr import MLRTrainer
+from harmony_tpu_torch.apps.nmf import NMFTrainer
 from harmony_tpu_torch.apps.widedeep import FMTrainer, WideDeepTrainer
 from harmony_tpu_torch.optimizer.api import DolphinPlan, TransferStep
 
@@ -103,3 +116,56 @@ class FenceAtMLR(MLRTrainer):
             podplan.schedule(ctx.worker_id.rsplit("/", 1)[0],
                              {"epoch": self._fence_epoch, "elastic_fence": "shrink"})
         super().on_epoch_finished(ctx, epoch_idx)
+
+
+def _kept(base):
+    class Kept(base):
+        def __init__(self, keep_dir: str = "", **kw) -> None:
+            super().__init__(**kw)
+            self._keep_dir = keep_dir
+
+        def cleanup(self, ctx) -> None:
+            from harmony_tpu_torch.parallel import multihost
+
+            super().cleanup(ctx)
+            digests = {}
+            for name, table in (("model", ctx.model_table), ("local", ctx.local_table)):
+                if table is None:
+                    continue
+                for b, parts in table.addressable_blocks().items():
+                    for i, a in enumerate(parts if isinstance(parts, tuple) else (parts,)):
+                        digests[f"{name}.{b}.{i}"] = hashlib.sha256(
+                            np.ascontiguousarray(a).tobytes()).hexdigest()
+            job = ctx.worker_id.rsplit("/", 1)[0]
+            os.makedirs(self._keep_dir, exist_ok=True)
+            path = os.path.join(self._keep_dir, f"{job}.{multihost.process_index()}.json")
+            with open(path, "w") as f:
+                json.dump(digests, f)
+
+    Kept.__name__ = Kept.__qualname__ = f"Kept{base.__name__}"
+    return Kept
+
+
+KeptNMFTrainer = _kept(NMFTrainer)
+KeptLDATrainer = _kept(LDATrainer)
+KeptGBTTrainer = _kept(GBTTrainer)
+KeptLassoTrainer = _kept(LassoTrainer)
+KeptWideDeepTrainer = _kept(WideDeepTrainer)
+
+
+def kept_tables(keep_dir: str, job: str) -> dict:
+    """``"{table}.{block}.{part}"`` -> the SHA-256 of that block, joined
+    over the processes' files of ``job``. Raises when no process kept a
+    block, or when two kept the same one (the lowest-owner rule gives each
+    block to one process)."""
+    out: dict = {}
+    for path in sorted(glob.glob(os.path.join(keep_dir, f"{job}.*.json"))):
+        with open(path) as f:
+            got = json.load(f)
+        twice = sorted(set(got) & set(out))
+        if twice:
+            raise ValueError(f"job {job}: blocks {twice[:4]} kept by two processes")
+        out.update(got)
+    if not out:
+        raise ValueError(f"job {job}: no process kept a block under {keep_dir}")
+    return out
