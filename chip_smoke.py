@@ -240,7 +240,7 @@ As each phase ends a ``phase <name>: <s> s`` line gives its host seconds
    n^2 not) against the einsum inner and one-slot full attention, forward
    within FLASH_F32_REL and gradients within RING_GRAD_REL of the largest
    magnitude, the same bits run twice. (b) make_sp_train_step on (2, 2, 1),
-   ring, 3 steps of 4 x 2048 tokens: the losses within LM_BF16_REL of the
+   ring, SP_STEPS (2) steps of 4 x 2048 tokens: the losses within LM_BF16_REL of the
    one-slot LM step on the same tokens, and the first within it of the same
    step on 4 CPU slots (SP_CPU_STEPS),
    the same bits run twice, no host sync in a step (CUDA's sync debug mode),
@@ -253,7 +253,7 @@ As each phase ends a ``phase <name>: <s> s`` line gives its host seconds
    hop's peer copy is timed. Its ``sp:`` line holds the numbers.
    ``python3 chip_smoke.py --phase 3u`` runs the build and this phase alone.
 3v. Pipeline- and expert-parallel LM training and ViT's data-parallel step
-   on 4 virtual slots of cuda:0, 3 steps each. (a) make_pp_train_step at
+   on 4 virtual slots of cuda:0, PV_STEPS (2) steps each. (a) make_pp_train_step at
    bench_pp's width (``benchmarks/lm.py:224-254`` at n = 4: the LM of 3u at 8
    layers in 4 stages of 2, batch 32 in 4 microbatches, 1025-token sequences
    so that 1024 tokens tile the flash block), within LM_BF16_REL of the
@@ -431,8 +431,10 @@ As each phase ends a ``phase <name>: <s> s`` line gives its host seconds
    cards four over NCCL, a card each), and jobs at ``data_axis`` 2 on
    (data 2, model 2): on one card each data row in its own process, on four
    each row over two processes, which read its model shards across both.
-   (a) (or (b) on four cards) phase 3x (b)'s five jobs and bench-widedeep,
-   DX_EPOCHS epochs each, on trainers that keep the SHA-256 of each block
+   (a) (or (b) on four cards) phase 3x (b)'s LDA, sparse LDA, GBT and
+   Lasso (its NMF and bench-widedeep are (d)'s, whose epochs before the
+   first plan stand for these runs), DX_EPOCHS epochs each, on trainers
+   that keep the SHA-256 of each block
    of the model and local tables each process owns: every process's
    per-batch losses and the blocks joined over the processes are the
    one-process data-2 run's on 4 virtual slots of cuda:0, bit for bit;
@@ -443,9 +445,33 @@ As each phase ends a ``phase <name>: <s> s`` line gives its host seconds
    chained every epoch for PD_RESUME_AT epochs, then resumed to
    PD_CHAIN_EPOCHS: every entry the one-process data-2 chain's byte for
    byte, and the losses the uninterrupted run's. K1-K3 are read around each
-   job in its own process, and each must have run in every process. Its
-   ``pod data rows:`` line holds the numbers; ``python3 chip_smoke.py
-   --phase 3pd`` runs the build and this phase alone.
+   job in its own process, and each must have run in every process. (d) On
+   a pod of PD_MOVE_SLOTS (2) slots a process (on four cards a second pod),
+   bench-widedeep, the trio's NMF and sparse LDA at data 2 over every
+   executor, each moved by POD_RESHARD plans (``pd_plans``) at epochs 9
+   (a block between the two slots of row 0: the rows kept), 11 (the last
+   executor drained: data 1, one row over every process) and 13 (a block
+   back: data 2 again): every process's per-batch losses, applied plans and
+   joined blocks those of the one-process run on as many virtual slots of
+   cuda:0 with the same plans at the same epochs, every replica of every
+   block its owner's bytes, no batch restaged, the rows computed by epoch;
+   by process each move's host ms, transport s and bytes, the all-gathers
+   by caller and the step ms of every epoch. (e) Submitted with (d)'s
+   jobs, bench-widedeep at data 2 with the script's
+   ``MoveOncePodOptimizer`` (the last executor drained: data 1) through the
+   pod's plan channel: one applied plan, alike in every process, and the
+   bits of the one-process run that replays it. (f) The same pod's last
+   job (its fault rule armed from the pod's start, ``pd_kill_env``):
+   bench-widedeep at data 2 over every slot with a chain entry every epoch
+   and ``elastic_shrink``, the last process crashed (exit code 86) at epoch
+   PD_KILL_EPOCH; the same
+   submission finishes on the survivors (their mesh keeps data 2) with the
+   uninterrupted one-process run's bits, each survivor's restore reading
+   exactly the blocks ``pd_kill_reads`` predicts (none on one card: process
+   0 owned every block). K1-K3 are read around each of (d)-(f)'s jobs in its
+   own process (the path pod-data-moves) and must have run in every
+   process. Its ``pod data rows:`` line holds the numbers;
+   ``python3 chip_smoke.py --phase 3pd`` runs the build and this phase alone.
 4. The sparse push route (``HARMONY_PUSH_VIA=sparse``): the Wide&Deep job
    of phase 3, which folds its pushes with K2.
 5. Where a step's time goes: a steady epoch of the Wide&Deep job on the host
@@ -472,16 +498,17 @@ As each phase ends a ``phase <name>: <s> s`` line gives its host seconds
    bench-widedeep-2-workers, pagerank-beside-mlr, chain, serving: the
    reads of 3s (c) and (e), K1 only; sharded: phase 3t (c)'s bench-widedeep
    at data_axis 1, the trio and bench-fm-hash on 4 slots; sp-ring, sp-a2a
-   and 3-axis: phase 3u (b)-(d), 3 steps each; pp, ep and vit-dp: phase 3v
-   (a)-(c), 3 steps each; elastic: phase 3w (a)-(c) on the card, the moved
+   and 3-axis: phase 3u (b)-(d), SP_STEPS steps each; pp, ep and vit-dp: phase 3v
+   (a)-(c), PV_STEPS steps each; elastic: phase 3w (a)-(c) on the card, the moved
    jobs and the reader; pregel-sharded and dp-local: phase 3x (a) and the
    first data-axis run of each job of (b); pod: phase 3y (a), (b) and (d),
    summed over the processes, each process's counts read around its job;
    pod-moves: phase 3z's pod jobs, (a), (b) and (d) moved and unmoved, read
    the same way; pod-chains: phase 3pc's pod jobs, read the same way;
    pod-elastic: phase 3el's victims, each attempt in each process that
-   reported it, read the same way; pod-data-rows: phase 3pd's pod jobs,
-   read the same way);
+   reported it, read the same way; pod-data-rows: phase 3pd (a)-(c)'s pod
+   jobs, read the same way; pod-data-moves: phase 3pd (d)-(f)'s, each
+   attempt in each process that reported it);
    K1-K3
    also carry ``device_ms``, ``library_device_ms``,
    ``library_deterministic_device_ms``, ``host_us`` and their timing at
@@ -733,10 +760,20 @@ def device_kernels(fn, calls: int = 100) -> dict:
     fail(f"the profiler's record counts {count} over {calls} calls: records lost")
 
 
-def device_ms(fn, calls: int = 100) -> float:
+def device_ms(fn, calls: int = 100, floor_ms: float = 0.0) -> float:
     """Device time of one call: every kernel it launches, summed (the keyed
-    fold launches two)."""
-    return sum(device_kernels(fn, calls).values())
+    fold launches two). A profile under ``floor_ms`` (a call's bound: the
+    time the card needs at least) has lost records between its markers and
+    is taken again, up to PROFILE_ATTEMPTS times; the caller checks the
+    last against the bound."""
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        ms = sum(device_kernels(fn, calls).values())
+        if ms >= floor_ms:
+            return ms
+        PROFILE_LOG["retakes"] += 1
+        print(f"chip_smoke: profile {attempt} of {PROFILE_ATTEMPTS} gave {ms} ms a call, under "
+              f"the bound of {floor_ms} ms: records lost", file=sys.stderr, flush=True)
+    return ms
 
 
 def host_us(fn, calls: int = 1000, batch: int = 100) -> float:
@@ -2583,9 +2620,9 @@ PR_ITERATIONS = 10
 # iterations on both (the JobServer's job above runs PR_ITERATIONS): its CPU
 # run was the phase's largest part (55 s of 134-160 s beside an NVIDIA H100
 # 80GB HBM3 at 10 iterations), the slowest phase of the script, so its depth
-# was cut from 10 when phase 3w came, and from 5 (24.2 s of CPU on the same
-# host) when phase 3pd came.
-PR_CPU_ITERATIONS = 2
+# was cut from 10 when phase 3w came, from 5 (24.2 s of CPU on the same
+# host) when phase 3pd came, and from 2 (9.4 s) when 3pd's moves came.
+PR_CPU_ITERATIONS = 1
 # Shortest path's and components' card-against-CPU comparisons at full width
 # run this many supersteps on both (the JobServer's jobs above run to
 # convergence, 13 and 8): their CPU runs to convergence took 48.8 s and 51.6
@@ -2744,7 +2781,8 @@ def check_slice_kernels(dev, graph):
             ids=N, width=W, rows=R,
             scratch_bytes=4 * fold_scratch_ints(N, W, R),
             ms=time_ms(lambda: kernel(*args), samples=5, inner=3),
-            device_ms=device_ms(lambda: kernel(*args), calls=10),
+            device_ms=device_ms(lambda: kernel(*args), calls=10,
+                                floor_ms=max(t_b, t_o) if nbytes > L2_BYTES else 0.0),
             plain_ms=time_ms(lambda: plain(*args), samples=5, inner=3),
             library_ms=time_ms(index_add, samples=5, inner=3),
             library_device_ms=device_ms(index_add, calls=10), **det, bytes=nbytes,
@@ -2777,7 +2815,9 @@ def check_slice_kernels(dev, graph):
         timing[name] = dict(
             ids=N, width=W, rows=V,
             ms=time_ms(lambda: gather_rows(table, i), samples=5, inner=3),
-            device_ms=device_ms(lambda: gather_rows(table, i), calls=10),
+            device_ms=device_ms(lambda: gather_rows(table, i), calls=10,
+                                floor_ms=(nbytes / HBM_BYTES_PER_S * 1e3
+                                          if nbytes > L2_BYTES else 0.0)),
             plain_ms=time_ms(lambda: gather_rows_plain(table, i), samples=5, inner=3),
             library_ms=time_ms(lambda: torch.index_select(table, 0, i64), samples=5, inner=3),
             library_device_ms=device_ms(lambda: torch.index_select(table, 0, i64), calls=10),
@@ -5056,7 +5096,9 @@ def one_slot_refs():
 SP_CONFIG = dict(vocab_size=8192, d_model=512, n_heads=8, n_layers=4, d_ff=2048,
                  max_seq=2048, dtype="bfloat16")
 SP_BATCH = 4
-SP_STEPS = 3
+# steps of each path (from 3 to 2 when phase 3pd's moves and recovery came:
+# every comparison and its second run kept)
+SP_STEPS = 2
 # (b)'s comparison with 4 CPU slots: the first step only (each CPU step
 # runs the LM's plain attention and bf16 products on the host)
 SP_CPU_STEPS = 1
@@ -5397,7 +5439,9 @@ VIT_DP_CONFIG = dict(image_size=224, patch_size=16, num_classes=1000, channels=3
                      d_model=768, n_heads=12, n_layers=12, d_ff=3072, dtype="bfloat16")
 VIT_DP_LR = 0.05
 PV_SLOTS = 4
-PV_STEPS = 3
+# steps of each path (from 3 to 2 when phase 3pd's moves and recovery came:
+# every comparison and its second run kept)
+PV_STEPS = 2
 PV_LR = 0.1
 # K4, K5a and K5b launches a step and their route: PP 4 stages x 2 layers x 4
 # microbatches, K4 twice (each application's forward again under remat); EP 4
@@ -8243,11 +8287,17 @@ def pd_kept(config, keep_dir: str):
         app_params={**config.params.app_params, "keep_dir": keep_dir}))
 
 
+# the jobs (d) moves whose unmoved epochs (every epoch before its first plan)
+# stand for (a)'s runs of them (sparse LDA stays in (a) too: its push is the
+# pod-data-rows path's K2)
+PD_MOVED = ("bench-widedeep", "bench-nmf")
+
+
 def pd_configs() -> dict:
-    """3pd's jobs by name: phase 3x (b)'s five and bench-widedeep, at
-    data_axis 2, DX_EPOCHS epochs each."""
-    configs = {**dx_configs(), "bench-widedeep": wd_mesh_config("bench-widedeep", DX_EPOCHS)}
-    return {k: c.replace(user={**c.user, "data_axis": 2}) for k, c in configs.items()}
+    """(a)'s jobs by name: those of phase 3x (b)'s five that (d) does not
+    move (PD_MOVED), at data_axis 2, DX_EPOCHS epochs each."""
+    return {k: c.replace(user={**c.user, "data_axis": 2}) for k, c in dx_configs().items()
+            if k not in PD_MOVED}
 
 
 def pd_one_process(configs: dict, keep: str, root: str) -> tuple:
@@ -8291,6 +8341,9 @@ def run_pod_data():
     launches = {name: 0 for name in names + (
         "flash_forward", "flash_backward_dkv", "flash_backward_dq")}
     by_process = [{name: 0 for name in names} for _ in range(n)]
+    # (d)-(f)'s, the path pod-data-moves
+    moves_launches = dict.fromkeys(launches, 0)
+    moves_by_process = [{name: 0 for name in names} for _ in range(n)]
     # the data rows each process computes: its own on one card, the row of
     # its pair of processes on four
     rows_of = [[p] if n == 2 else [p // 2] for p in range(n)]
@@ -8300,7 +8353,10 @@ def run_pod_data():
             configs, os.path.join(scratch, "keep-one"), one_root)
         out["one_process_seconds"] = time.perf_counter() - t1
         torch.cuda.empty_cache()
-        pod = ChipPod(n, own, phase="3pd", slots=slots, env={"HARMONY_POD_CHKP_ROOT": pod_root})
+        env = {"HARMONY_POD_CHKP_ROOT": pod_root}
+        if slots == PD_MOVE_SLOTS:
+            env.update(pd_kill_env(n, own))
+        pod = ChipPod(n, own, phase="3pd", slots=slots, env=env)
         try:
             out["ready"] = pod.ready_line
             out["backend"] = pod.backend.split(": ", 1)[-1]
@@ -8356,11 +8412,6 @@ def run_pod_data():
                         for p, rep in enumerate(reps)],
                     "step_ms": [1e3 * worker(rep)["epoch_seconds"][-1] / per_epoch
                                 for rep in reps]}
-                if name == "bench-widedeep":
-                    # the last epoch's, in the slowest process (PERF.md holds it
-                    # beside phase 3x (c)'s one process over four cards)
-                    a[name]["samples_per_sec"] = N_EXAMPLES / max(
-                        worker(rep)["epoch_seconds"][-1] for rep in reps)
                 print(f"phase 3pd {name}: {json.dumps(a[name])}", flush=True)
             out["jobs"] = a
 
@@ -8390,17 +8441,396 @@ def run_pod_data():
                                 [st["blocks"] for st in rep["model_chkp_stats"]]
                                 for rep in first]}
             print(f"phase 3pd (c): {json.dumps(out['chain'])}", flush=True)
+            if slots == PD_MOVE_SLOTS:
+                out["moves"] = pd_moves(pod, n, scratch, moves_launches, moves_by_process)
+                out["kill"] = pd_kill(pod, n, own, moves_launches, moves_by_process)
         finally:
             pod.close()
+        if slots != PD_MOVE_SLOTS:
+            # four cards: a pod of two slots a process, so a drain keeps
+            # every process an owner
+            root = os.path.join(scratch, "moves-chains")
+            mpod = ChipPod(n, own, phase="3pd", slots=PD_MOVE_SLOTS,
+                           env={"HARMONY_POD_CHKP_ROOT": root, **pd_kill_env(n, own)})
+            try:
+                print(f"phase 3pd (d): {mpod.ready_line}; "
+                      f"{mpod.backend.split(': ', 1)[-1]}", flush=True)
+                out["moves"] = pd_moves(mpod, n, scratch, moves_launches, moves_by_process)
+                out["kill"] = pd_kill(mpod, n, own, moves_launches, moves_by_process)
+            finally:
+                mpod.close()
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
     for p, counts in enumerate(by_process):
         check(all(counts[k] > 0 for k in names),
               f"phase 3pd: process {p}'s launches {counts}: a kernel never ran there")
+    for p, counts in enumerate(moves_by_process):
+        check(all(counts[k] > 0 for k in names),
+              f"phase 3pd (d)-(f): process {p}'s launches {counts}: a kernel never ran there")
     out["launches"] = {k: v for k, v in launches.items() if v}
     out["launches_by_process"] = by_process
+    out["moves_launches"] = {k: v for k, v in moves_launches.items() if v}
+    out["moves_launches_by_process"] = moves_by_process
     out["seconds"] = time.perf_counter() - t0
-    return launches, out
+    return launches, moves_launches, out
+
+
+# (d)-(f): moves, an optimizer plan and elastic recovery of a data-2 job whose
+# rows lie in different processes, on a pod of PD_MOVE_SLOTS slots a process
+# (on one card 3pd's own pod; on four cards a pod of its own, so a drain keeps
+# every process an owner). (d) each job waits PD_MOVE_LAG s before its first
+# epoch (the plans reach it at epoch 0, so they land at 9, 11 and 13) and runs
+# PD_MOVE_EPOCHS; (e) the optimizer's job sleeps PD_OPT_LAG s after each of
+# PD_OPT_EPOCHS epochs; (f) bench-widedeep with an entry every epoch and
+# ``elastic_shrink``, the last process crashed (exit code 86) at its first step
+# of epoch PD_KILL_EPOCH of PD_KILL_EPOCHS
+PD_MOVE_SLOTS = 2
+PD_MOVE_EPOCHS = 16
+PD_MOVE_LAG = 2.0
+PD_OPT_EPOCHS = 20
+PD_OPT_LAG = 0.1
+PD_KILL_EPOCHS = 5
+PD_KILL_EPOCH = 3
+# (f) on four cards over NCCL: the survivors' collectives with the killed
+# process wait on it; a group timeout of this many seconds and NCCL's
+# clean-up-only error handling end those waits with an error in each
+# survivor, which then reports for the attempt (PyTorch's default handling
+# tears a process down on such an error)
+PD_KILL_NCCL_TIMEOUT = "30"
+
+
+def pd_plans(executors: int) -> list:
+    """(d)'s POD_RESHARD plans over ``executors`` (in mesh order, two a
+    process): a block from executor-1 to executor-0 (the rows kept), the
+    last executor drained onto the one before (an odd count: data 1), a
+    block back onto it (data 2 again)."""
+    last = executors - 1
+    return [{"epoch": 9, "src": "executor-1", "dst": "executor-0", "num_blocks": 1},
+            {"epoch": 11, "src": f"executor-{last}", "dst": f"executor-{last - 1}",
+             "num_blocks": 1 << 20},
+            {"epoch": 13, "src": f"executor-{last - 1}", "dst": f"executor-{last}",
+             "num_blocks": 1}]
+
+
+def pd_move_configs(keep: str) -> dict:
+    """(d)'s jobs at data_axis 2 over PD_MOVE_EPOCHS, kept under ``keep``:
+    bench-widedeep, the trio's NMF and sparse LDA."""
+    dx = dx_configs()
+    configs = {"bench-widedeep": wd_mesh_config("pd-wd-moved", PD_MOVE_EPOCHS),
+               "bench-nmf": dx["bench-nmf"].replace(job_id="pd-nmf-moved"),
+               "sparse-lda": dx["sparse-lda"].replace(job_id="pd-lda-moved")}
+    out = {}
+    for name, c in configs.items():
+        c = c.replace(params=c.params.replace(num_epochs=PD_MOVE_EPOCHS),
+                      user={**c.user, "data_axis": 2})
+        out[name] = pd_kept(c, os.path.join(keep, name))
+    return out
+
+
+def pd_with(config, **app_params):
+    return config.replace(params=config.params.replace(
+        app_params={**config.params.app_params, **app_params}))
+
+
+def pd_replay(config, plans: list, slots: int) -> tuple:
+    """``config`` in this process on ``slots`` virtual slots of cuda:0
+    (``HARMONY_PUSH_VIA=mxu``, as the pod's processes), ``plans`` applied at
+    its chief hook as the pod applies them, per-batch epochs as under a
+    JobServer: (worker result, applied plans)."""
+    from harmony_tpu_torch.jobserver import podplan
+    from harmony_tpu_torch.jobserver.entity import DolphinJobEntity
+    from harmony_tpu_torch.parallel.mesh import DevicePool
+    from harmony_tpu_torch.runtime.master import ETMaster
+
+    os.environ["HARMONY_PUSH_VIA"] = "mxu"
+    lags = {k: 0.0 for k in ("start_lag_sec", "epoch_lag_sec") if k in config.params.app_params}
+    config = pd_with(config, **lags)
+    master = ETMaster(DevicePool.virtual("cuda:0", slots))
+    ent = DolphinJobEntity(config)
+    try:
+        ent.setup(master, [e.id for e in master.add_executors(slots)])
+        for p in plans:
+            podplan.schedule(config.job_id, dict(p))
+        res = ent.make_worker(epoch_callback=ent._make_pod_plan_hook(),
+                              batch_barrier=lambda i: False).run()
+    finally:
+        ent.cleanup()
+        podplan.clear(config.job_id)
+        os.environ.pop("HARMONY_PUSH_VIA")
+    return res, list(ent._applied_plans)
+
+
+def pd_step_ms(w: dict) -> list:
+    """A worker report's ms a step of each epoch."""
+    return [1e3 * s / (len(w["batch_losses"]) // max(len(w["epoch_seconds"]), 1))
+            for s in w["epoch_seconds"]]
+
+
+def pd_rows_by_epoch(p: int, n: int, plans: list, epochs: int) -> list:
+    """The rows process ``p`` of ``n`` computes in each epoch under (d)'s
+    plans: its row of (data 2, ...) (the first half of the processes row 0),
+    row 0 of the data-1 mesh between the drain and the refill."""
+    drain, refill = plans[1]["epoch"], plans[2]["epoch"]
+    own = [0 if p < n // 2 else 1]
+    by_epoch = [[0] if drain < e <= refill else own for e in range(epochs)]
+    return own if all(r == own for r in by_epoch) else by_epoch
+
+
+def pd_digest(obj) -> str:
+    """One SHA-256 of a JSON value (losses, a table's block digests), to hold
+    one host's run against another's."""
+    import hashlib
+
+    return hashlib.sha256(json.dumps(obj, sort_keys=True).encode()).hexdigest()
+
+
+def pd_add_launches(reps: dict, launches: dict, by_process: list) -> None:
+    """Each process's kernel launches of a job's reports (``{pid: report}``)."""
+    for pid, rep in reps.items():
+        for name, v in rep.get("launches", {}).items():
+            launches[name] += v
+            if name in by_process[int(pid)]:
+                by_process[int(pid)][name] += v
+
+
+def pd_moves(pod, n: int, scratch: str, launches: dict, by_process: list) -> dict:
+    """Phase 3pd (d) and (e) on ``pod`` (``n`` processes of PD_MOVE_SLOTS
+    slots), submitted together: (d)'s jobs moved by POD_RESHARD and (e) the
+    optimizer's plan, each process held to the one-process run on as many
+    virtual slots of cuda:0 with the same plans at the same epochs."""
+    from harmony_tpu_torch.parallel.collectives import POD_CALLERS
+
+    executors = n * PD_MOVE_SLOTS
+    plans = pd_plans(executors)
+    keep_pod, keep_one = os.path.join(scratch, "moves-pod"), os.path.join(scratch, "moves-one")
+    configs = pd_move_configs(keep_pod)
+    optimized = pd_with(pd_kept(wd_mesh_config("pd-wd-optimized", PD_OPT_EPOCHS, data_axis=2),
+                                os.path.join(keep_pod, "opt")),
+                        epoch_lag_sec=PD_OPT_LAG).replace(
+        optimizer="chip_smoke:MoveOncePodOptimizer", optimizer_period=0.2)
+    stat_keys = ("calls", "bytes_out", "bytes_in")
+
+    def send_plans():
+        for name, c in configs.items():
+            for i, p in enumerate(plans):
+                deadline = time.monotonic() + POD_JOB_S
+                while True:
+                    reply = pod.sender.send_pod_reshard_command(
+                        c.job_id, p["src"], p["dst"], p["num_blocks"], p["epoch"])
+                    if reply.get("ok") or i or "unknown" not in reply.get("error", ""):
+                        break
+                    check(time.monotonic() < deadline, f"phase 3pd (d): {c.job_id} never ran")
+                    time.sleep(0.05)
+                check(reply.get("ok"), f"phase 3pd (d): {c.job_id} plan {p}: {reply}")
+
+    t0 = time.perf_counter()
+    reps_by_job, _ = pod.run(*[pd_with(c, start_lag_sec=PD_MOVE_LAG) for c in configs.values()],
+                             optimized, between=send_plans)
+    out = {"plans": plans, "executors": executors, "pod_seconds": time.perf_counter() - t0,
+           "jobs": {}}
+    for reps in reps_by_job.values():
+        check(sorted(reps) == [str(p) for p in range(n)] and all(r["ok"] for r in reps.values()),
+              f"phase 3pd (d)/(e): reports {json.dumps(reps)[:3000]}")
+        pd_add_launches(reps, launches, by_process)
+    keep = pod_trainers()
+    for name, c in configs.items():
+        reps = reps_by_job[c.job_id]
+        res, applied = pd_replay(pd_with(c, keep_dir=os.path.join(keep_one, name)), plans,
+                                 executors)
+        check([(a["epoch"], a["moved"] > 0, a["owners_after"]) for a in applied]
+              == [(9, True, executors), (11, True, executors - 1), (13, True, executors)],
+              f"phase 3pd (d) {name}: the one-process applied plans {applied}")
+        rows = []
+        for p in range(n):
+            r = reps[str(p)]
+            (w,) = r["workers"].values()
+            check(w["batch_losses"] == res["batch_losses"],
+                  f"phase 3pd (d) {name}: process {p}'s losses are not the one-process run's "
+                  "with the same plans")
+            check(r["applied_plans"] == applied,
+                  f"phase 3pd (d) {name}: process {p} applied {r['applied_plans']}")
+            check(w["restaged_batches"] == 0,
+                  f"phase 3pd (d) {name}: process {p} restaged {w['restaged_batches']}")
+            check(w["data_rows"] == pd_rows_by_epoch(p, n, plans, PD_MOVE_EPOCHS),
+                  f"phase 3pd (d) {name}: process {p} computed rows {w['data_rows']}")
+            steps = len(w["batch_losses"])
+            rows.append({
+                "process": p,
+                "moves": [{"epoch": m["epoch"], "host_ms": 1e3 * m["seconds"],
+                           "transport": m["transport"], "transport_s": m.get("exchange_s"),
+                           "bytes_sent": m["bytes_sent"], "bytes_received": m["bytes_received"],
+                           "blocks_received": m["blocks_received"]}
+                          for m in r["plan_moves"]],
+                "restaged_batches": w["restaged_batches"],
+                "all_gathers_per_step": {c2: {k: r["combine"][f"{c2}.{k}"] / steps
+                                              for k in stat_keys} for c2 in POD_CALLERS},
+                "step_ms_by_epoch": pd_step_ms(w)})
+        check(keep.kept_tables(os.path.join(keep_pod, name), c.job_id)
+              == keep.kept_tables(os.path.join(keep_one, name), c.job_id),
+              f"phase 3pd (d) {name}: the pod's final tables are not the one-process run's "
+              "block for block")
+        replicas, owned = (keep.kept_replicas(os.path.join(keep_pod, name), c.job_id),
+                           keep.kept_tables(os.path.join(keep_pod, name), c.job_id))
+        check(all(set(d) == {owned[k]} for k, d in replicas.items()),
+              f"phase 3pd (d) {name}: a replica of a block differs from its owner's copy")
+        entry = {"batch_losses": "the one-process bits with the same plans",
+                 "tables": "the one-process blocks, every replica alike",
+                 "losses_sha256": pd_digest(res["batch_losses"]),
+                 "tables_sha256": pd_digest(owned),
+                 "applied_plans": applied, "by_process": rows}
+        if name == "bench-widedeep":
+            # the last epoch before the first plan, in the slowest process
+            # (PERF.md holds it beside phase 3x (c)'s one process over four cards)
+            before = plans[0]["epoch"]
+            entry["samples_per_sec_before_the_plans"] = N_EXAMPLES / max(
+                row["step_ms_by_epoch"][before] * BATCHES / 1e3 for row in rows)
+        out["jobs"][name] = entry
+        print(f"phase 3pd (d) {name}: {json.dumps(entry)}", flush=True)
+
+    # (e) the optimizer's move-once plan through the pod's plan channel
+    reps = reps_by_job[optimized.job_id]
+    plans_seen = [reps[str(p)]["applied_plans"] for p in range(n)]
+    check(all(len(a) == 1 and a == plans_seen[0] for a in plans_seen),
+          f"phase 3pd (e): applied plans by process {plans_seen}")
+    (applied,) = plans_seen[0]
+    res, replayed = pd_replay(optimized.replace(optimizer=None, params=optimized.params.replace(
+        app_params={**optimized.params.app_params, "keep_dir": os.path.join(keep_one, "opt")})),
+        [{"epoch": applied["epoch"], "src": applied["src"], "dst": applied["dst"],
+          "num_blocks": applied["moved"]}], executors)
+    check(replayed == [applied], f"phase 3pd (e): replayed {replayed} against {applied}")
+    for p in range(n):
+        (w,) = reps[str(p)]["workers"].values()
+        check(w["batch_losses"] == res["batch_losses"],
+              f"phase 3pd (e): process {p}'s losses are not the one-process replay's")
+    check(keep.kept_tables(os.path.join(keep_pod, "opt"), optimized.job_id)
+          == keep.kept_tables(os.path.join(keep_one, "opt"), optimized.job_id),
+          "phase 3pd (e): the pod's final tables are not the one-process replay's")
+    out["optimizer"] = {"applied": applied, "batch_losses": "the one-process replay's bits",
+                        "moves": [reps[str(p)].get("plan_moves") for p in range(n)]}
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 3pd (e): {json.dumps(out['optimizer'])}", flush=True)
+    return out
+
+
+def pd_kill_env(n: int, own: bool) -> dict:
+    """The env of the pod (f) runs on: its fault rule (the last process
+    crashed, exit code 86, at its first step of epoch PD_KILL_EPOCH of the
+    job ``pd-wd-killed`` only) and, on four cards over NCCL, the group
+    timeout and error handling of PD_KILL_NCCL_TIMEOUT's comment."""
+    from harmony_tpu_torch import faults
+
+    rule = faults.FaultRule("worker.step", match={"job": "pd-wd-killed", "proc": n - 1},
+                            after=PD_KILL_EPOCH * BATCHES, count=1, action="crash",
+                            exit_code=86)
+    env = {faults.ENV_VAR: faults.FaultPlan([rule]).to_json()}
+    if own:
+        env.update(HARMONY_POD_UNIT_TIMEOUT=PD_KILL_NCCL_TIMEOUT,
+                   TORCH_NCCL_ASYNC_ERROR_HANDLING="2")
+    return env
+
+
+def pd_kill(pod, n: int, own: bool, launches: dict, by_process: list) -> dict:
+    """Phase 3pd (f), the pod's last job (its fault rule, ``pd_kill_env``,
+    ends the last process): bench-widedeep at data 2 over every slot with a
+    chain entry every epoch and ``elastic_shrink``; the same submission
+    finishes on the survivors. Where their mesh keeps data 2 (it does: one
+    card keeps process 0's two slots, four cards six slots), the losses are
+    the uninterrupted one-process data-2 run's bits; each survivor's restore
+    reads from storage exactly the blocks ``pd_kill_reads`` predicts."""
+    job, victim = "pd-wd-killed", n - 1
+    t0 = time.perf_counter()
+    cfg = wd_mesh_config(job, PD_KILL_EPOCHS, data_axis=2, period=1, elastic_shrink=True)
+    # the uninterrupted run: the same job in this process, unchained
+    one, _ = pd_replay(cfg.replace(params=cfg.params.replace(model_chkp_period=0), user={
+        k: v for k, v in cfg.user.items() if k != "elastic_shrink"}), [], n * PD_MOVE_SLOTS)
+    check(pod.sender.send_job_submit_command(cfg).get("ok"), "phase 3pd (f): submit")
+    try:
+        res = pod.sender.wait_result(job, timeout=POD_JOB_S, poll=1.0)
+    except Exception as e:  # noqa: BLE001 - the phase fails
+        fail(f"phase 3pd (f): {e}\n" + "\n".join(pod.log(p)[-3000:] for p in range(n)))
+    rc = pod.procs[victim].wait(timeout=60)
+    status = pod.sender.send_status_command()
+    events = status["elastic"]["events"]
+    check(rc == 86, f"phase 3pd (f): the victim's process exited {rc}, not 86")
+    meta, rst = res.get("elastic", {}), res.get("elastic_restore", {})
+    check(meta.get("attempts") == 2
+          and [e["kind"] for e in meta.get("events", [])] == ["elastic_shrink"],
+          f"phase 3pd (f): {json.dumps(meta)[:2000]}")
+    survivors = meta["events"][0]["procs"]
+    check(survivors == list(range(n - 1)), f"phase 3pd (f): survivors {survivors}")
+    (w,) = res["workers"].values()
+    start = w["starting_epoch"]
+    check(start == rst.get("resumed_epoch") and start >= 2
+          and w["epochs_run"] == PD_KILL_EPOCHS - start,
+          f"phase 3pd (f): the final attempt ran epochs {start}+{w['epochs_run']}")
+    check(w["mesh"]["data"] == 2, f"phase 3pd (f): the survivors' mesh {w['mesh']}")
+    check(w["batch_losses"] == one["batch_losses"][BATCHES * start:],
+          "phase 3pd (f): the resumed losses are not the uninterrupted run's bits")
+    attempts = el_attempts(status["pod"]["reports"], job, 2)
+    for reps in attempts:
+        pd_add_launches(reps, launches, by_process)
+    # the prediction: each survivor reads what its slots hold on the
+    # survivors' mesh that it did not own on the killed one
+    restores = {pid: rep["elastic_restore"] for pid, rep in attempts[1].items()}
+    predicted = pd_kill_reads(n, rst["blocks_total"])
+    for pid, r in restores.items():
+        check(r["blocks_read"] == predicted[int(pid)] and
+              r["blocks_local"] + r["blocks_read"] == r["blocks_needed"],
+              f"phase 3pd (f): process {pid} read {r['blocks_read']} blocks, predicted "
+              f"{predicted[int(pid)]}: {json.dumps(r)}")
+    death, shrink = el_event(events, "follower_death"), el_event(events, "elastic_shrink", job)
+    if own:
+        # NCCL: a survivor whose communicator the watchdog aborted may hang
+        # in the process group's teardown (ROADMAP C); the pod is ended after
+        # a bounded wait, each survivor's exit recorded
+        pod.sender.send_shutdown_command()
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline and any(
+                proc.poll() is None for p, proc in enumerate(pod.procs) if p != victim):
+            time.sleep(0.5)
+        exits = {p: proc.poll() for p, proc in enumerate(pod.procs) if p != victim}
+    else:
+        pod.shutdown(dead=(victim,))
+        exits = {p: 0 for p in range(n) if p != victim}
+    out = {"victim_process": victim, "survivors": survivors, "exit_code": rc,
+           "survivors_exit_codes": exits,
+           "death_to_shrink_s": shrink["ts"] - death["ts"],
+           "mesh_after": w["mesh"], "resumed_epoch": start,
+           "restores": {pid: el_restore_clock(r) for pid, r in restores.items()},
+           "blocks_read_predicted": predicted,
+           # the killed attempt's reports carry no worker result: its step ms
+           # before the kill is (d)'s bench-widedeep before its first plan
+           "step_ms_after": [el_step_ms(rep) for rep in attempts[1].values()],
+           "losses_bit_identical": True, "losses_sha256": pd_digest(w["batch_losses"]),
+           "seconds": time.perf_counter() - t0}
+    print(f"phase 3pd (f): kill, then shrink: {json.dumps(out)}", flush=True)
+    return out
+
+
+def pd_kill_reads(n: int, nb: int) -> dict:
+    """Blocks each survivor of (f) reads from storage: those its slots hold
+    on the survivors' mesh that it did not own (the lowest-owner rule) on
+    the killed one. Executors in mesh order, PD_MOVE_SLOTS a process; a
+    (data, model) mesh row-major, each model coordinate a contiguous run
+    when the blocks divide over the model axis, else every block."""
+    def held(count, data):
+        m = count // data
+        out = {}
+        for i in range(count):
+            k = i % m
+            blocks = range(k * nb // m, (k + 1) * nb // m) if nb % m == 0 else range(nb)
+            out.setdefault(i // PD_MOVE_SLOTS, []).append(set(blocks))
+        return out
+
+    total = n * PD_MOVE_SLOTS
+    owned, left = {}, set(range(nb))
+    for p, sets in sorted(held(total, 2).items()):
+        mine = set().union(*sets) & left
+        owned[p], left = mine, left - mine
+    after_count = total - PD_MOVE_SLOTS
+    after_data = 2 if after_count % 2 == 0 else 1
+    return {p: len(set().union(*sets) - owned.get(p, set()))
+            for p, sets in held(after_count, after_data).items()}
 
 
 def files_digest(files: dict) -> str:
@@ -8477,7 +8907,7 @@ def main() -> int:
             _, pod_elastic = run_pod_elastic()
             print("pod elastic: " + json.dumps(pod_elastic), flush=True)
         elif name == "3pd":
-            _, pod_data = run_pod_data()
+            _, _, pod_data = run_pod_data()
             print("pod data rows: " + json.dumps(pod_data), flush=True)
         else:
             _, elastic = run_elastic()
@@ -8649,9 +9079,10 @@ def main() -> int:
     for name, counts in by_path.items():
         counts["pod-elastic"] = elastic_launches[name]
     clock("3el")
-    data_launches, pod_data = run_pod_data()
+    data_launches, data_moves_launches, pod_data = run_pod_data()
     for name, counts in by_path.items():
         counts["pod-data-rows"] = data_launches[name]
+        counts["pod-data-moves"] = data_moves_launches[name]
     clock("3pd")
     print("hash ops: " + json.dumps(hash_ops) + "; autotune: " + json.dumps(tune), flush=True)
     print("profiler: markers lost by the kept profiles (lost: profiles), retakes: "

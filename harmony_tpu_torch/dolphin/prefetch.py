@@ -184,7 +184,7 @@ class PrefetchPipeline:
                     ready.append(ev)
         if cuda:
             slot.copied = ready
-        device = parts[0] if self._rows is None else RowBatch(parts, n)
+        device = parts[0] if self._rows is None else RowBatch(parts, n, lambda: host)
         return StagedBatch(idx, host, device, ready)
 
     def _produce(self) -> None:
@@ -237,7 +237,9 @@ class PrefetchPipeline:
         """Demote to host-only production: the producer keeps assembling
         batches (it owns the epoch's draw, so abandoning it would advance a
         seeded shuffle twice) but stops staging copies, and the copies
-        already staged are dropped; the consumer places every batch itself.
+        already staged are dropped; the consumer places every batch itself,
+        on the rows of the layout it steps on (a staged :class:`RowBatch`
+        holds this process's rows of the old one, and its host arrays).
         Returns the number of staged batches in the ring."""
         self._host_only = True
         box = [0]

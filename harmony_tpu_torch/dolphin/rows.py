@@ -11,7 +11,9 @@ here:
     prefetch ring stage batches this way (:func:`stage_rows`), so a step
     copies no batch between cards. On a pod a process stages only the rows
     it computes (those holding its slots): a row of another process has no
-    part here;
+    part here. A RowBatch knows its batch's host arrays, so after a move a
+    row this process never staged is staged from them
+    (:meth:`RowBatch.restage`), never from parts it lacks;
   * :class:`RowExchange`: the rows' results on every process of the mesh,
     in row order, when the rows lie in different processes (one
     variable-length all-gather, ``collectives.process_all_gather_v``);
@@ -24,6 +26,7 @@ here:
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -60,11 +63,15 @@ def row_devices(mesh) -> Optional[Tuple[Optional[torch.device], ...]]:
 class RowBatch:
     """A batch (or a stack of batches) of ``n`` examples cut over the data
     rows: ``parts[r]`` is row ``r``'s tuple of arrays, on its compute device,
-    or None for a row this process does not compute."""
+    or None for a row this process does not compute. ``host`` gives the
+    batch's host arrays (a stack's: ``host(b)`` for batch ``b``), or is None
+    when every row's part is here."""
 
-    def __init__(self, parts: Sequence[Optional[Tuple[torch.Tensor, ...]]], n: int) -> None:
+    def __init__(self, parts: Sequence[Optional[Tuple[torch.Tensor, ...]]], n: int,
+                 host: Optional[Callable[..., Sequence[Any]]] = None) -> None:
         self.parts = [None if p is None else tuple(p) for p in parts]
         self.n = int(n)
+        self.host = host
 
     @property
     def devices(self) -> Tuple[Optional[torch.device], ...]:
@@ -78,43 +85,81 @@ class RowBatch:
     def index(self, b: int) -> "RowBatch":
         """Batch ``b`` of a stack: each row's part of it (views)."""
         return RowBatch([None if p is None else tuple(a[b] for a in p)
-                         for p in self.parts], self.n)
+                         for p in self.parts], self.n,
+                        None if self.host is None else functools.partial(self.host, b))
+
+    def _whole(self) -> Optional[Sequence[Any]]:
+        """The batch's host arrays when a row's part is missing here, else
+        None (the parts hold the whole batch)."""
+        if all(p is not None for p in self.parts):
+            return None
+        if self.host is None:
+            raise ValueError("a batch staged for this process's data rows only, with no "
+                             "host arrays, cannot be re-cut for another layout")
+        return self.host()
 
     def joined(self, device: torch.device) -> Tuple[torch.Tensor, ...]:
-        """The whole batch on ``device``: the rows' parts joined in row
-        order (the fallback of a step on another layout than the one the
-        batch was staged for). A batch that lacks another process's rows
-        cannot be joined."""
-        if any(p is None for p in self.parts):
-            raise ValueError("a batch staged for this process's data rows only "
-                             "cannot be re-cut for another layout")
+        """The whole batch on ``device`` (a step on one data row): the rows'
+        parts joined in row order, or, when a row's part is not here, the
+        host arrays uploaded."""
+        host = self._whole()
+        if host is not None:
+            return tuple(torch.as_tensor(np.ascontiguousarray(a), device=device) for a in host)
         return tuple(torch.cat([on_device(p[i], device) for p in self.parts])
                      for i in range(len(self.parts[0])))
 
+    def restage(self, devices: Sequence[Optional[torch.device]]) -> "RowBatch":
+        """This batch cut over the rows of ``devices`` (one a row, None for a
+        row another process computes): a part this batch holds for the same
+        cut is kept (copied where its row now computes elsewhere); every
+        other row's part is sliced from the host arrays, or from the joined
+        parts when this batch holds every row."""
+        same_cut = len(devices) == len(self.parts)
+        whole = None
+        if not (same_cut and all(d is None or p is not None
+                                 for d, p in zip(devices, self.parts))):
+            whole = self._whole()
+            if whole is None:
+                whole = self.joined(next(d for d in devices if d is not None))
+        bounds = row_bounds(self.n, len(devices))
+        parts = []
+        for r, dev in enumerate(devices):
+            if dev is None:
+                parts.append(None)
+            elif same_cut and self.parts[r] is not None:
+                parts.append(tuple(on_device(a, dev) for a in self.parts[r]))
+            else:
+                parts.append(_upload(whole, bounds[r], bounds[r + 1], dev))
+        return RowBatch(parts, self.n, self.host)
 
-def stage_rows(batch: Sequence[Any], devices: Sequence[Optional[torch.device]]) -> RowBatch:
+
+def _upload(batch: Sequence[Any], lo: int, hi: int, dev: torch.device) -> Tuple[torch.Tensor, ...]:
+    """Examples ``lo`` to ``hi`` of ``batch`` (host arrays, or tensors
+    anywhere) on ``dev``."""
+    return tuple(on_device(a[lo:hi], dev) if isinstance(a, torch.Tensor)
+                 else torch.as_tensor(np.ascontiguousarray(a[lo:hi]), device=dev)
+                 for a in batch)
+
+
+def stage_rows(batch: Sequence[Any], devices: Sequence[Optional[torch.device]],
+               host: Optional[Callable[[], Sequence[Any]]] = None) -> RowBatch:
     """Row ``r``'s slice of ``batch`` (host arrays, or tensors anywhere) on
     ``devices[r]`` (host arrays are uploaded straight to their row); no
-    part for a row whose device is None."""
+    part for a row whose device is None. ``host`` gives the batch's host
+    arrays (:class:`RowBatch`)."""
     n = batch[0].shape[0] if isinstance(batch[0], torch.Tensor) else len(batch[0])
     bounds = row_bounds(n, len(devices))
-    parts = []
-    for r, dev in enumerate(devices):
-        lo, hi = bounds[r:r + 2]
-        if dev is None:
-            parts.append(None)
-            continue
-        parts.append(tuple(on_device(a[lo:hi], dev) if isinstance(a, torch.Tensor)
-                           else torch.as_tensor(np.ascontiguousarray(a[lo:hi]), device=dev)
-                           for a in batch))
-    return RowBatch(parts, n)
+    parts = [None if dev is None else _upload(batch, bounds[r], bounds[r + 1], dev)
+             for r, dev in enumerate(devices)]
+    return RowBatch(parts, n, host)
 
 
-def stage_stack_rows(stack: Sequence[torch.Tensor],
-                     devices: Sequence[Optional[torch.device]]) -> RowBatch:
+def stage_stack_rows(stack: Sequence[torch.Tensor], devices: Sequence[Optional[torch.device]],
+                     host: Optional[Callable[[int], Sequence[Any]]] = None) -> RowBatch:
     """A stack of batches ``[num_batches, batch, ...]`` cut over the rows
     along the batch axis, each row's part copied to its device (none for a
-    row whose device is None)."""
+    row whose device is None); ``host(b)`` gives batch ``b``'s host
+    arrays."""
     n = stack[0].shape[1]
     bounds = row_bounds(n, len(devices))
     parts = []
@@ -122,7 +167,7 @@ def stage_stack_rows(stack: Sequence[torch.Tensor],
         lo, hi = bounds[r:r + 2]
         parts.append(None if dev is None else tuple(
             a[:, lo:hi].to(dev, copy=True).contiguous() for a in stack))
-    return RowBatch(parts, n)
+    return RowBatch(parts, n, host)
 
 
 def sum_in_row_order(stats: List[Dict[str, torch.Tensor]], device: torch.device
@@ -208,7 +253,9 @@ class RowExchange:
     processes, so a row's keys and deltas cross processes unchanged, and
     every process gets every row's bits from the same process. When every
     process computes every row (one process, or rows that each span the
-    mesh's processes) nothing crosses: the rows are this process's own."""
+    mesh's processes) nothing crosses: the rows are this process's own. The
+    providers are fixed from ``sharding``, so the step makes one exchange a
+    layout: after a move the next step's exchange follows the new rows."""
 
     def __init__(self, sharding, device: torch.device) -> None:
         self._sh = sharding

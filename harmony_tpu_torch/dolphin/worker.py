@@ -55,13 +55,16 @@ ring: a ``dolphin/rows.py::RowBatch``), beside a worker-local table too.
 The table may be resharded while the worker trains (``TableHandle.move_blocks``
 from the job's optimizer loop or a plan). Every step runs under the table lock
 on the layout the table holds then (:meth:`WorkerTasklet._layout_step`): a
-step built for another compute device or number of data rows is rebuilt
-there, and a batch staged on another device (or for other data rows) is
-copied to the new one. The worker listens to the table's announcements: when
-the target computes on another device, or its data rows on others, the
+step built for another compute device, number of data rows or placement of
+the rows over a pod's processes is rebuilt there, and a batch staged on
+another device (or for other data rows) is copied to the new one; a row
+this process never staged comes from the batch's host arrays
+(``RowBatch.restage``). The worker listens to the table's announcements:
+when the target computes on another device, or its data rows on others, the
 epoch's prefetch pipeline stops staging (its staged copies are dropped) and,
 at the next dispatch, the worker's device caches follow the table and
-re-stage by the new rows (``_follow_layout``).
+re-stage by the new rows (``_follow_layout``). The result's ``data_rows``
+lists the rows this process computed, by epoch once a move changed them.
 
 Under a JobServer the worker has a ``MetricCollector``: each drain emits one
 ``BatchMetrics`` a batch, at the window's seconds smeared over its batches
@@ -386,9 +389,12 @@ class _DataParallelStep:
         the batch's examples."""
         devs = row_devices(sh.mesh)
         if not (isinstance(batch, RowBatch) and batch.devices == devs):
+            # a batch staged before a move: the rows this process now
+            # computes, each from its host arrays where this process never
+            # staged that row
             self._counters["restaged_batches"] += 1
-            batch = stage_rows(batch.joined(next(d for d in devs if d is not None))
-                               if isinstance(batch, RowBatch) else batch, devs)
+            batch = (batch.restage(devs) if isinstance(batch, RowBatch)
+                     else stage_rows(batch, devs))
         n = batch.n
         bounds = row_bounds(n, len(devs))
         mean = self._trainer.batch_reduction == "mean"
@@ -903,8 +909,13 @@ class WorkerTasklet:
                        "staged": 0, "max_depth": 0, "producer_idle_sec": 0.0,
                        "consumer_stall_sec": 0.0, "produce_sec": 0.0,
                        "stage_sec": 0.0, "dropped_batches": 0, "restaged_batches": 0}
-        # the (compute device, data rows) the step was built for
-        self._step_layout: Optional[Tuple[torch.device, int]] = None
+        # the (compute device, data rows, the rows' processes) the step was
+        # built for
+        self._step_layout: Optional[Tuple[Any, ...]] = None
+        # the data rows this process computed in each epoch run, and those
+        # of the layout the last step ran on
+        self._rows_by_epoch: List[List[int]] = []
+        self._step_rows: List[int] = list(ctx.model_table.sharding.local_rows)
         # the compute device of each data row the batches are staged for
         # (None: one row, whole batches on ``device``)
         self._rows = row_devices(ctx.model_table.mesh)
@@ -1114,7 +1125,7 @@ class WorkerTasklet:
         if self._push_route is None:
             self._push_route = self._resolve_push_route()
         rows = self._data_rows() if rows is None else rows
-        self._step_layout = (self.device, rows)
+        self._step_layout = (self.device, rows, self._row_processes(table.sharding, rows))
         if rows > 1:
             local = self.ctx.local_table
             self._step = _DataParallelStep(table.spec, self.trainer,
@@ -1181,11 +1192,17 @@ class WorkerTasklet:
                                          batch, hyper)
         return table.apply_step(self._layout_step, batch, hyper)
 
+    @staticmethod
+    def _row_processes(sharding, rows: int) -> Tuple[Tuple[int, ...], ...]:
+        """The processes of each data row (one process's own, off a pod)."""
+        return tuple(sharding.row_processes(r) for r in range(rows)) if rows > 1 else ()
+
     def _layout_step(self, state, *rest):
         """The step on the layout the table holds NOW (called under its lock,
         so no reshard lands inside it): a step built for another compute
-        device or number of data rows is rebuilt, and a batch that lies on
-        another device is copied to the compute device."""
+        device, number of data rows or placement of the rows over processes
+        is rebuilt, and a batch that lies on another device is copied to the
+        compute device."""
         *tables, batch, hyper = (state, *rest)
         sharded = isinstance(state, ShardedArray)
         dev = state.device if sharded else (state[0] if isinstance(state, tuple)
@@ -1193,11 +1210,14 @@ class WorkerTasklet:
         rows = state.sharding.data_rows if sharded else 1
         if dev != self.device:
             self._rehome(dev)
-        if (dev, rows) != self._step_layout:
+        layout = (dev, rows, self._row_processes(state.sharding, rows) if sharded else ())
+        if layout != self._step_layout:
             self._build_step(rows)
+            self._step_rows = list(state.sharding.local_rows) if sharded else [0]
         # a batch, or an epoch's hyper-parameters, made before the move: the
         # data-parallel step cuts a batch staged for other rows itself
         if isinstance(batch, RowBatch) and rows == 1:
+            self._input["restaged_batches"] += 1
             batch = batch.joined(dev)
         elif not isinstance(batch, RowBatch):
             batch = tuple(on_device(a, dev) for a in batch)
@@ -1240,7 +1260,7 @@ class WorkerTasklet:
         compute slot (a :class:`RowBatch`)."""
         if self._rows is None:
             return self._to_device(batch)
-        return stage_rows(batch, self._rows)
+        return stage_rows(batch, self._rows, host=lambda: batch)
 
     def _check_local_rows(self, batch_idx: int, batch) -> None:
         """On a data axis > 1, refuse a batch that writes one worker-local
@@ -1468,7 +1488,7 @@ class WorkerTasklet:
         stack = tuple(torch.as_tensor(np.stack([b[i] for b in batches]))
                       for i in range(len(batches[0])))
         self._stacked_cache = (tuple(a.to(self.device) for a in stack) if self._rows is None
-                               else stage_stack_rows(stack, self._rows))
+                               else stage_stack_rows(stack, self._rows, self.data.batch_at))
         devcache.put(gkey, self._stacked_cache)
 
     @staticmethod
@@ -1844,6 +1864,7 @@ class WorkerTasklet:
                 batch_losses.extend(epoch_batches)
                 epoch_losses.append(epoch_batches[-1] if epoch_batches else 0.0)
                 epoch_seconds.append(secs)
+                self._rows_by_epoch.append(list(self._step_rows))
             if losses:
                 # the window's last hook runs after its drain
                 self.trainer.on_epoch_finished(ctx, epoch + len(losses) - 1)
@@ -1911,8 +1932,9 @@ class WorkerTasklet:
             "fused_epochs": self._use_fused_epoch(),
             # the model table's mesh: {"data": D, "model": M}
             "mesh": dict(ctx.model_table.mesh.shape),
-            # the data rows this process computed (those holding its slots)
-            "data_rows": ctx.model_table.sharding.local_rows,
+            # the data rows this process computed (those holding its
+            # slots); once a move changed them, the rows of each epoch run
+            "data_rows": self._data_rows_report(),
         }
         if self._is_hash():
             result["overflow_count"] = ctx.model_table.overflow_count
@@ -1922,6 +1944,16 @@ class WorkerTasklet:
         if mode == "async":
             result["staleness"] = step.staleness_stats()
         return result
+
+    def _data_rows_report(self) -> List[Any]:
+        """The rows every epoch computed, or, when a move changed them, the
+        rows of each epoch run, in order."""
+        by_epoch = self._rows_by_epoch
+        if not by_epoch:
+            return list(self.ctx.model_table.sharding.local_rows)
+        if all(r == by_epoch[0] for r in by_epoch):
+            return list(by_epoch[0])
+        return [list(r) for r in by_epoch]
 
     # -- metrics ---------------------------------------------------------
 

@@ -65,11 +65,13 @@ On a pod (``jobserver/pod.py``) every participating process builds the same
 entity from the same config, and the whole dataset; ``user["data_axis"]``
 holds there too, its data rows computed by the processes holding their
 slots (``dolphin/worker.py::_DataParallelStep``), and the worker's result
-lists the rows this process computed (``data_rows``). Moves, an optimizer
-and elastic recovery of a table whose rows lie in different processes are
-refused (``runtime/master.py::ROWS_APART``). A job whose executors lie in
-several processes takes ``pod_unit_scope`` and ``pod_unit_contended`` from
-the cross-job unit protocol (``runtime/podunits.py``): set-up, and every
+lists the rows this process computed (``data_rows``, by epoch once a move
+changed them). Such a job moves, runs an optimizer and recovers as any
+other: a plan rebuilds the mesh over the new owners at the job's data
+axis, and an elastic restore rebuilds it over the survivors. A job whose
+executors lie in several processes takes ``pod_unit_scope`` and
+``pod_unit_contended`` from the cross-job unit protocol
+(``runtime/podunits.py``): set-up, and every
 dispatch region of its workers or its superstep loop, run inside
 leader-granted units, so
 overlapping tenants enter their collectives in one pod-wide order, and such
@@ -149,13 +151,7 @@ from harmony_tpu_torch.metrics.manager import MetricManager
 from harmony_tpu_torch.parallel import multihost
 from harmony_tpu_torch.parallel.mesh import build_mesh
 from harmony_tpu_torch.pregel.master import PregelMaster
-from harmony_tpu_torch.runtime.master import (
-    ROWS_APART,
-    ETMaster,
-    Table,
-    TableHandle,
-    data_rows_apart,
-)
+from harmony_tpu_torch.runtime.master import ETMaster, Table, TableHandle
 from harmony_tpu_torch.runtime.taskunit import (
     GlobalTaskUnitScheduler,
     LocalTaskUnitScheduler,
@@ -167,7 +163,8 @@ log = logging.getLogger(__name__)
 
 # what a plan's entry in ``plan_moves`` keeps of ``blockmove.last_move_stats``
 _MOVE_KEYS = ("transport", "blocks_sent", "bytes_sent", "blocks_received", "bytes_received",
-              "total_moves", "block_nbytes", "transport_retries", "seconds")
+              "total_moves", "block_nbytes", "transport_retries", "seconds", "copy_off_s",
+              "exchange_s", "copy_on_s")
 
 
 class DolphinJobEntity:
@@ -1085,17 +1082,9 @@ def _pod_guards(config: JobConfig, master: ETMaster, executor_ids: List[str],
       * ``offline_model_eval`` on a multi-process grant needs process 0 in the
         grant: its JobServer runs the collective evaluation;
       * on process 0 that grant also needs the pod's evaluation channel (a
-        PodJobServer's); the followers replay on its broadcast;
-
-    and the port's own: an ``optimizer`` on a table whose data rows lie in
-    different processes (its plans would move blocks under a layout no test
-    holds: ``ROWS_APART``)."""
+        PodJobServer's); the followers replay on its broadcast."""
     procs = sorted({master.executor(e).slot.process_index for e in executor_ids})
     p, job = config.params, config.job_id
-    if config.optimizer and data_rows_apart(
-            [master.executor(e).slot for e in executor_ids],
-            max(1, int(config.user.get("data_axis", 1)))):
-        raise ValueError(f"job {job}: optimizer={config.optimizer!r} is refused: {ROWS_APART}")
     if len(procs) < 2 or p.model_chkp_period <= 0:
         return
     where = f"on a multi-process grant (processes {procs})"

@@ -92,7 +92,10 @@ client's future resolves once. An attempt that ends on a fence, a
 participant's death or silence, or an ``infra_suspect`` report is followed
 by the next (``_plan_elastic_recovery``: the scheduler's ``reacquire``
 prefers the survivors for a shrink and the original layout for a re-grow,
-and the entity restores through ``restore_partial``); one that fails on its
+and the entity restores through ``restore_partial`` onto the mesh
+``_mesh_over`` makes of the new grant at the job's own ``data_axis``: a
+data-axis job whose rows lay in different processes recovers on the rows
+the survivors hold, data 1 where their count is odd); one that fails on its
 own terms ends the submission, and ``HARMONY_ELASTIC_MAX_SHRINKS`` caps the
 recoveries. A fence is a PLAN with ``elastic_fence`` at the epoch ``cur +
 EPOCH_WINDOW + 2``, ``cur`` read from the leader's entity or a healthy
@@ -134,7 +137,6 @@ from harmony_tpu_torch.jobserver import elastic, podplan
 from harmony_tpu_torch.jobserver.joblog import job_logger, record_event
 from harmony_tpu_torch.jobserver.scheduler import ProcessCarveScheduler
 from harmony_tpu_torch.jobserver.server import JobServer, _json_sanitize
-from harmony_tpu_torch.runtime.master import ROWS_APART, data_rows_apart
 from harmony_tpu_torch.runtime.podunits import (
     FollowerUnits,
     PodUnitArbiter,
@@ -309,9 +311,6 @@ class PodJobServer(JobServer):
         #: running job id -> its follower participants, what
         #: schedule_pod_reshard sends PLAN to
         self._job_info: Dict[str, List[int]] = {}
-        #: running job ids whose table's data rows lie in different processes
-        #: (schedule_pod_reshard refuses them)
-        self._rows_apart_jobs: set = set()
         #: job id -> the followers of its collective deferred evaluation
         #: (only jobs with a chain and offline_model_eval)
         self._eval_participants: Dict[str, List[int]] = {}
@@ -885,19 +884,7 @@ class PodJobServer(JobServer):
                 return jid
         return None
 
-    def _rows_apart(self, config: JobConfig, executor_ids: List[str]) -> bool:
-        """Whether a Dolphin job's table over ``executor_ids`` has data rows
-        in different processes (``runtime/master.py::data_rows_apart``)."""
-        return config.app_type == "dolphin" and data_rows_apart(
-            [self.master.executor(e).slot for e in executor_ids],
-            max(1, int(config.user.get("data_axis", 1))))
-
     def _dispatch(self, config: JobConfig, executor_ids: List[str]) -> None:
-        if config.user.get("elastic_shrink") and self._rows_apart(config, executor_ids):
-            # refused before any attempt starts
-            self._fail_job(config, f"job {config.job_id}: elastic_shrink is refused: "
-                                   f"{ROWS_APART}")
-            return
         if self._elastic_eligible(config):
             # one span for the whole submission: each attempt's pod.dispatch
             # span nests under it
@@ -1012,9 +999,9 @@ class PodJobServer(JobServer):
                                ) -> "Optional[Tuple[JobConfig, List[str]]]":
         """The next attempt: rehabilitate the processes confined only because
         they shared the attempt with the lost one but reported and still
-        beat, reacquire executors (the survivors for a shrink, the original
-        layout for a re-grow), check that a committed chain exists, and make
-        the recovery config. None when no recovery is possible (an event
+        beat (the leader by its report alone), reacquire executors (the
+        survivors for a shrink, the original layout for a re-grow), check
+        that a committed chain exists, and make the recovery config. None when no recovery is possible (an event
         says why; the submission then fails with the attempt's error)."""
         from harmony_tpu_torch import faults
         from harmony_tpu_torch.checkpoint.manager import CheckpointManager
@@ -1027,10 +1014,13 @@ class PodJobServer(JobServer):
             reports = dict(self.pod_reports.get(
                 elastic.attempt_key(config.job_id, prev_attempt), {}))
             now = time.monotonic()
+            # the leader has no beacon: its own report, made here, is its
+            # proof of life (a data-axis job over both processes of a pod
+            # loses a follower and recovers on the leader's slots)
             rehab = [pid for pid, rep in reports.items()
                      if pid in self._unusable_procs and pid not in self._dead_followers
                      and pid not in self._silenced and not rep.get("infra")
-                     and now - self._last_seen.get(pid, 0.0) <= self.hb_timeout]
+                     and (pid == 0 or now - self._last_seen.get(pid, 0.0) <= self.hb_timeout)]
             self._unusable_procs.difference_update(rehab)
         for pid in rehab:
             restored = self._proc_executors(pid)
@@ -1121,8 +1111,6 @@ class PodJobServer(JobServer):
             run_local = 0 in procs
             with self._pod_cond:
                 self._job_info[config.job_id] = participants
-                if self._rows_apart(config, executor_ids):
-                    self._rows_apart_jobs.add(config.job_id)
             if participants:
                 log.info("pod: RUN_JOB %s to follower(s) %s (chief %d, local %s)",
                          config.job_id, participants, min(procs), run_local)
@@ -1201,7 +1189,6 @@ class PodJobServer(JobServer):
             with self._pod_cond:
                 # a plan for a finished job is refused, never kept
                 self._job_info.pop(config.job_id, None)
-                self._rows_apart_jobs.discard(config.job_id)
                 self.job_walls[rkey] = (t0, time.monotonic())
                 while len(self.job_walls) > 1024:
                     self.job_walls.pop(next(iter(self.job_walls)))
@@ -1408,18 +1395,14 @@ class PodJobServer(JobServer):
         job's observed epoch (the leader's own entity, else the chief
         follower's) by the window horizon, ``EPOCH_WINDOW`` + 1: the window
         that covers the plan's epoch is decided after every process holds
-        the plan. An unknown or finished job raises KeyError, a job whose
-        data rows lie in different processes ValueError (``ROWS_APART``); a
-        PLAN that reached some followers only marks the pod broken."""
+        the plan. An unknown or finished job raises KeyError; a PLAN that
+        reached some followers only marks the pod broken."""
         from harmony_tpu_torch.dolphin.worker import WorkerTasklet
 
         with self._pod_cond:
             participants = self._job_info.get(job_id)
-            apart = job_id in self._rows_apart_jobs
         if participants is None:
             raise KeyError(f"unknown (or finished) pod job {job_id}")
-        if apart:
-            raise ValueError(f"pod job {job_id}: a move is refused: {ROWS_APART}")
         with self._lock:
             ent = self._entities.get(job_id)
         cur = 0

@@ -24,9 +24,8 @@ over processes), on the CPU.
   uninterrupted run's losses.
 * A row across processes: four processes of one CPU slot each, NMF at
   (data 2, model 2), exactly the one-process data-2 bits.
-* Refused with a named reason (ROADMAP A item 3b.6), before a plan or an
-  attempt: ``POD_RESHARD`` of such a job, an optimizer on it, and its
-  elastic recovery.
+* Moves, optimizer plans and elastic recovery of such a job:
+  ``tests/test_torch_pod_data_moves.py``.
 * Against the reference's own two-process pod at ``data_axis`` 2 (two
   virtual devices a process, ``tests/pod_worker.py``): Wide&Deep's and
   NMF's losses (the reference reports each epoch's, its last batch's) within
@@ -329,39 +328,6 @@ def test_a_data_axis_chain_on_the_pod_is_the_one_process_chain(pod, tmp_path_fac
         assert first[p]["ok"] and cont[p]["ok"], (first[p], cont[p])
         assert _worker(first[p])["batch_losses"] + _worker(cont[p])["batch_losses"] == \
             w_one["batch_losses"]
-
-
-def test_moves_optimizers_and_recovery_of_such_a_job_are_refused(pod, tmp_path_factory):
-    """Refused with ROADMAP A item 3b.6 named: a POD_RESHARD of a running
-    data-2 job (before the plan is sent), an optimizer on it (at set-up,
-    before any table), and an elastic recovery (at the leader, before any
-    attempt)."""
-    keep = str(tmp_path_factory.mktemp("refused"))
-    slow = job("wd", keep, job_id="wd-dx-moved")
-    # a host sleep before the first epoch keeps the job running for the plan
-    slow = slow.replace(trainer="tests.torch_pod_trainers:SlowStartWideDeepTrainer",
-                        params=slow.params.replace(app_params={
-                            **APPS["wd"][2], "start_lag_sec": 3.0}))
-    assert pod.sender.send_job_submit_command(slow).get("ok")
-    deadline = time.monotonic() + DEADLINE
-    while True:
-        reply = pod.sender.send_pod_reshard_command("wd-dx-moved", "executor-3", "executor-0",
-                                                    1, 1000)
-        if "unknown (or finished)" not in reply.get("error", ""):
-            break
-        assert time.monotonic() < deadline, reply
-        time.sleep(0.05)
-    assert not reply["ok"] and "ROADMAP A item 3b.6" in reply["error"], reply
-    pod.sender.wait_result("wd-dx-moved", timeout=DEADLINE, poll=1.0)
-    optimized = job("wd", keep, job_id="wd-dx-optimized")
-    optimized.optimizer = "add_one_server"
-    elastic = job("wd", keep, job_id="wd-dx-elastic", model_chkp_period=1)
-    elastic.user["elastic_shrink"] = True
-    for cfg in (optimized, elastic):
-        assert pod.sender.send_job_submit_command(cfg).get("ok")
-        with pytest.raises(RuntimeError, match=r"is refused: .*ROADMAP A item 3b\.6"):
-            pod.sender.wait_result(cfg.job_id, timeout=DEADLINE, poll=1.0)
-    assert not os.path.isdir(os.path.join(pod.root, "wd-dx-elastic", "commit"))
 
 
 def test_the_pod_is_near_the_references_two_process_pod_at_data_axis_2(pod, tmp_path_factory):

@@ -11,7 +11,10 @@ that only process 0 can read. Sleeps are host delays only: the values
 are the apps' own. ``Kept*`` are the apps' trainers that, as the run ends,
 write the SHA-256 of each block of the model and local tables this process
 owns into ``keep_dir`` (:func:`kept_tables` joins every process's); the
-chip run's phase 3pd uses them too."""
+chip run's phase 3pd uses them too; :func:`kept_replicas` joins the
+digests of each block in every slot that holds it. They take
+``start_lag_sec`` as ``SlowStart*`` do, and ``epoch_lag_sec`` as
+``SlowEpochsMLR`` does."""
 from __future__ import annotations
 
 import glob
@@ -29,6 +32,7 @@ from harmony_tpu_torch.apps.mlr import MLRTrainer
 from harmony_tpu_torch.apps.nmf import NMFTrainer
 from harmony_tpu_torch.apps.widedeep import FMTrainer, WideDeepTrainer
 from harmony_tpu_torch.optimizer.api import DolphinPlan, TransferStep
+from harmony_tpu_torch.table.table import DenseTable
 
 
 def _slow_start(base):
@@ -120,30 +124,55 @@ class FenceAtMLR(MLRTrainer):
 
 def _kept(base):
     class Kept(base):
-        def __init__(self, keep_dir: str = "", **kw) -> None:
+        def __init__(self, keep_dir: str = "", start_lag_sec: float = 0.0,
+                     epoch_lag_sec: float = 0.0, **kw) -> None:
             super().__init__(**kw)
             self._keep_dir = keep_dir
+            self._start_lag_sec = start_lag_sec
+            self._epoch_lag_sec = epoch_lag_sec
+
+        def on_training_start(self, ctx, starting_epoch: int) -> None:
+            time.sleep(self._start_lag_sec)
+            super().on_training_start(ctx, starting_epoch)
+
+        def on_epoch_finished(self, ctx, epoch_idx: int) -> None:
+            time.sleep(self._epoch_lag_sec)
+            super().on_epoch_finished(ctx, epoch_idx)
 
         def cleanup(self, ctx) -> None:
             from harmony_tpu_torch.parallel import multihost
 
             super().cleanup(ctx)
-            digests = {}
+            digests, replicas = {}, {}
             for name, table in (("model", ctx.model_table), ("local", ctx.local_table)):
                 if table is None:
                     continue
                 for b, parts in table.addressable_blocks().items():
                     for i, a in enumerate(parts if isinstance(parts, tuple) else (parts,)):
-                        digests[f"{name}.{b}.{i}"] = hashlib.sha256(
-                            np.ascontiguousarray(a).tobytes()).hexdigest()
+                        digests[f"{name}.{b}.{i}"] = _sha(a)
+                if not isinstance(table, DenseTable):
+                    continue
+                # every slot of this process: each block it holds, whether
+                # or not this process owns it
+                storage, sh = table.array, table.sharding
+                shards = getattr(storage, "shards", None) or {sh.mesh.slots[0]: storage}
+                for slot, t in shards.items():
+                    for i, b in enumerate(sh.slot_blocks(slot)):
+                        replicas.setdefault(f"{name}.{b}.0", []).append(_sha(t[i].cpu()))
             job = ctx.worker_id.rsplit("/", 1)[0]
+            pid = multihost.process_index()
             os.makedirs(self._keep_dir, exist_ok=True)
-            path = os.path.join(self._keep_dir, f"{job}.{multihost.process_index()}.json")
-            with open(path, "w") as f:
+            with open(os.path.join(self._keep_dir, f"{job}.{pid}.json"), "w") as f:
                 json.dump(digests, f)
+            with open(os.path.join(self._keep_dir, f"replicas-{job}.{pid}"), "w") as f:
+                json.dump(replicas, f)
 
     Kept.__name__ = Kept.__qualname__ = f"Kept{base.__name__}"
     return Kept
+
+
+def _sha(a) -> str:
+    return hashlib.sha256(np.ascontiguousarray(np.asarray(a)).tobytes()).hexdigest()
 
 
 KeptNMFTrainer = _kept(NMFTrainer)
@@ -151,6 +180,18 @@ KeptLDATrainer = _kept(LDATrainer)
 KeptGBTTrainer = _kept(GBTTrainer)
 KeptLassoTrainer = _kept(LassoTrainer)
 KeptWideDeepTrainer = _kept(WideDeepTrainer)
+
+
+def kept_replicas(keep_dir: str, job: str) -> dict:
+    """``"{table}.{block}.0"`` -> the SHA-256 of that block in every slot
+    of every process that holds it (dense tables), joined over the
+    processes."""
+    out: dict = {}
+    for path in sorted(glob.glob(os.path.join(keep_dir, f"replicas-{job}.*"))):
+        with open(path) as f:
+            for k, v in json.load(f).items():
+                out.setdefault(k, []).extend(v)
+    return out
 
 
 def kept_tables(keep_dir: str, job: str) -> dict:
