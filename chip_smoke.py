@@ -472,6 +472,29 @@ As each phase ends a ``phase <name>: <s> s`` line gives its host seconds
    own process (the path pod-data-moves) and must have run in every
    process. Its ``pod data rows:`` line holds the numbers;
    ``python3 chip_smoke.py --phase 3pd`` runs the build and this phase alone.
+3ha. The control plane's HA: two replicas, ``cli start-jobserver`` with
+   ``HARMONY_HA_LOG_DIR`` (a HA_LEASE_S s lease) and a chain root shared, one
+   executor each, on cuda:0 (on two or more cards the standby on card 1, so
+   the chain written on one card resumes on another). Replica A takes the
+   lease; B stands by, and the card's free memory must not drop by a CUDA
+   context (HA_STANDBY_MB) while it does (nvidia-smi in a container may
+   list none of its processes). bench-
+   widedeep (HA_EPOCHS epochs, an entry every epoch, on a trainer that
+   writes its run's kernel launches, ``chip_smoke:HaCountedWideDeep``) goes
+   to ``CommandSender(addrs=[A, B])``; a ``worker.step`` ``crash`` rule,
+   carried by ``HARMONY_FAULT_PLAN`` into A only, kills A at epoch
+   HA_CRASH_EPOCH. B must win the lease, replay the log, re-arm the same
+   submission with ``resume_from_chain`` and finish it, the client's WAIT
+   following the failover: B's per-batch losses and its final entry the
+   uninterrupted one-slot run's bits (``el_kill_one_slot``, 3el (a)'s
+   yardstick too: the same job, an entry every epoch), its STATUS leader at epoch 2 with one ``leader_takeover`` of the
+   job, and its launches K1 once a step and twice a probe call, K3 once each,
+   nothing else (the kernels line's ``ha-takeover`` path). Its ``ha:`` line
+   holds death to LEADER seconds, ``replay_ms``, the entries replayed, the
+   jobs re-armed, the lease's epoch and stats, the epoch resumed from, the
+   log's appends, fsyncs (``group_commits``) and append seconds, and B's
+   step ms beside the uninterrupted run's; ``python3 chip_smoke.py --phase
+   3ha`` runs the build and this phase alone.
 4. The sparse push route (``HARMONY_PUSH_VIA=sparse``): the Wide&Deep job
    of phase 3, which folds its pushes with K2.
 5. Where a step's time goes: a steady epoch of the Wide&Deep job on the host
@@ -508,7 +531,9 @@ As each phase ends a ``phase <name>: <s> s`` line gives its host seconds
    pod-elastic: phase 3el's victims, each attempt in each process that
    reported it, read the same way; pod-data-rows: phase 3pd (a)-(c)'s pod
    jobs, read the same way; pod-data-moves: phase 3pd (d)-(f)'s, each
-   attempt in each process that reported it);
+   attempt in each process that reported it;
+   ha-takeover: phase 3ha's re-armed job in the successor, read around its
+   training);
    K1-K3
    also carry ``device_ms``, ``library_device_ms``,
    ``library_deterministic_device_ms``, ``host_us`` and their timing at
@@ -7007,12 +7032,13 @@ def run_pod(refs):
 
 # bench-widedeep and bench-fm-hash over MOVE_EPOCHS epochs (a plan needs
 # EPOCH_WINDOW + 1 epochs of lead: the plans land at 9, 11, 13 and 13), and the
-# optimizer's run over OPT_EPOCHS. A moved job sleeps MOVE_START_LAG_S on the
-# host before its first epoch (in every process), so the plans, sent right
-# after the submit, reach it at observed epoch 0.
+# optimizer's run over OPT_EPOCHS (its one plan lands near epoch 10). A moved
+# job sleeps MOVE_START_LAG_S on the host before its first epoch (in every
+# process), so the plans, sent right after the submit, reach it at observed
+# epoch 0 (they take milliseconds in this process).
 MOVE_EPOCHS = 14
-OPT_EPOCHS = 32
-MOVE_START_LAG_S = 4.0
+OPT_EPOCHS = 24
+MOVE_START_LAG_S = 2.0
 MOVE_PLAN_EPOCHS = (9, 11, 13, 13)
 # slots a process of 3z's training pod: a drain of one executor changes the
 # table's owners while its process stays an owner
@@ -7079,6 +7105,8 @@ def __getattr__(name: str):
         return _pod_move_symbols()[name]
     if name.startswith("Kept"):
         return getattr(pod_trainers(), name)
+    if name == "HaCountedWideDeep":
+        return ha_counted_trainer()
     raise AttributeError(name)
 
 
@@ -7871,7 +7899,7 @@ EL_HB_PERIOD = "0.5"
 # take to finish, so the shrink finds the survivor free
 EL_KILL_EPOCHS = 6
 EL_CRASH_EPOCH = 3
-EL_START_LAG = 6.0
+EL_START_LAG = 4.0
 # (b) a warm-up job of EL_WARM_EPOCHS over the same processes first (a
 # process's first job is slow) gives the split epoch's cadence; then the last
 # process's beacon is mute from its EL_MUTE_AFTER-th beat in its second job
@@ -7879,13 +7907,18 @@ EL_START_LAG = 6.0
 # victim's epochs (el_split_plan) cover the shrink fence, the shrunk attempt
 # until the beats resume, the re-grow fence's lead and EL_TAIL_EPOCHS, at the
 # cadences measured (the split one by the warm-up, the shrunk one in (a))
-# divided by EL_PACE_MARGIN
+# divided by EL_PACE_MARGIN; the shrunk one no faster than EL_SHRUNK_FLOOR
+# times the split one so divided ((b)'s shrunk attempt has run 1.5-1.6 s an
+# epoch on one card, an NVIDIA H100 80GB HBM3 at 700 W, 4-5 times (a)'s, and
+# the epochs planned past that ran after the re-grow: 15 and 18 where
+# EL_TAIL_EPOCHS were planned)
 EL_MUTE_AFTER = 4
 EL_MUTE_COUNT = 10 ** 6
 EL_MUTE_TAIL_S = 1.0
 EL_WARM_EPOCHS = 4
 EL_TAIL_EPOCHS = 2
 EL_PACE_MARGIN = 1.5
+EL_SHRUNK_FLOOR = 0.5
 # bench-widedeep's table: 256 blocks of 399 rows x 17 f32
 WD_BLOCKS = 256
 WD_BLOCK_BYTES = 399 * 17 * 4
@@ -7912,18 +7945,20 @@ def el_filler(job_id: str):
 
 def el_one_slot(root: str, job_id: str, epochs: int):
     """The uninterrupted run on one slot of the card (``HARMONY_PUSH_VIA=mxu``,
-    as the pod's processes): its batch losses and its last epoch's chain
-    entry (the only one: the period is the run)."""
+    as the pod's processes), with a chain entry every epoch as the victims
+    and 3ha's job write them: its batch losses, its last epoch's chain
+    entry, and its epoch seconds."""
     os.environ["HARMONY_PUSH_VIA"] = "mxu"
     server = chain_server(root)
     try:
         cfg = pod_wd_config(job_id, epochs)
-        cfg = cfg.replace(params=cfg.params.replace(model_chkp_period=epochs))
+        cfg = cfg.replace(params=cfg.params.replace(model_chkp_period=1))
         (w,) = server.submit(cfg).result(timeout=POD_JOB_S)["workers"].values()
     finally:
         server.shutdown()
         os.environ.pop("HARMONY_PUSH_VIA")
-    return w["batch_losses"], pc_entries(root, job_id)[epochs - 1]["files"]
+    return (w["batch_losses"], pc_entries(root, job_id)[epochs - 1]["files"],
+            w["epoch_seconds"])
 
 
 def el_pod_env(root: str, rule) -> dict:
@@ -8024,7 +8059,7 @@ def el_kill(n: int, own: bool, root: str, one: tuple, launches: dict) -> dict:
     start = w["starting_epoch"]
     check(start == rst["resumed_epoch"] >= 2 and w["epochs_run"] == EL_KILL_EPOCHS - start,
           f"phase 3el (a): the final attempt ran epochs {start}+{w['epochs_run']}")
-    losses, files = one
+    losses, files, _ = one
     check(w["batch_losses"] == losses[BATCHES * start:EL_KILL_EPOCHS * BATCHES],
           "phase 3el (a): the resumed losses are not the uninterrupted run's bits")
     check(pc_entries(root, job)[EL_KILL_EPOCHS - 1]["files"] == files,
@@ -8062,7 +8097,8 @@ def el_split_plan(split_epoch_s: float, shrunk_epoch_s: float) -> dict:
     period, hb = float(EL_HB_PERIOD), float(EL_HB_TIMEOUT)
     lead = WorkerTasklet.EPOCH_WINDOW + 2
     fast = split_epoch_s / EL_PACE_MARGIN
-    shrunk = max(min(shrunk_epoch_s, split_epoch_s) / EL_PACE_MARGIN, 0.05)
+    shrunk = max(min(shrunk_epoch_s, split_epoch_s) / EL_PACE_MARGIN, EL_SHRUNK_FLOOR * fast,
+                 0.05)
     confined = EL_MUTE_AFTER * period + hb + 2 * period + 0.75
     shrink_fence = math.ceil(confined / fast) + lead
     rehabilitated = EL_MUTE_TAIL_S + 2 * period + 0.75 + 0.5
@@ -8134,7 +8170,7 @@ def el_split(n: int, own: bool, root: str, one_slot, launches: dict,
         plan = el_split_plan(split_epoch_s, shrunk_epoch_s)
         epochs = plan["epochs"]
         print(f"phase 3el (b): plan {json.dumps(plan)}", flush=True)
-        losses, files = one_slot(epochs)
+        losses, files, _ = one_slot(epochs)
         el_submit(pod, *fill("split"), el_victim(job, epochs))
         plan.update(el_end_mute(pod, job, state))
         res = el_wait(pod, job)
@@ -8219,10 +8255,19 @@ def el_split(n: int, own: bool, root: str, one_slot, launches: dict,
     return out
 
 
-def run_pod_elastic():
-    """Phase 3el: elastic recovery on the pod (see the module doc)."""
-    import tempfile
+def el_kill_one_slot():
+    """(a)'s job uninterrupted on one slot (:func:`el_one_slot`): the
+    yardstick of 3el (a) and of 3ha."""
+    scratch = tempfile.mkdtemp(prefix="harmony-el-one-")
+    try:
+        return el_one_slot(scratch, "el-kill", EL_KILL_EPOCHS)
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
 
+
+def run_pod_elastic(kill_one):
+    """Phase 3el: elastic recovery on the pod (see the module doc).
+    ``kill_one``: :func:`el_kill_one_slot`'s run."""
     t0 = time.perf_counter()
     cards = torch.cuda.device_count()
     own = cards >= 4
@@ -8235,7 +8280,6 @@ def run_pod_elastic():
                         "HARMONY_POD_HB_PERIOD": EL_HB_PERIOD,
                         "epochs": {"kill": EL_KILL_EPOCHS}}}
     try:
-        kill_one = el_one_slot(os.path.join(scratch, "one-kill"), "el-kill", EL_KILL_EPOCHS)
         torch.cuda.empty_cache()
         out["kill"] = el_kill(n, own, os.path.join(scratch, "kill"), kill_one, launches)
 
@@ -8833,6 +8877,240 @@ def pd_kill_reads(n: int, nb: int) -> dict:
             for p, sets in held(after_count, after_data).items()}
 
 
+# -- phase 3ha: the control plane's HA --------------------------------------
+
+# bench-widedeep chained every epoch over HA_EPOCHS epochs (3el (a)'s job, so
+# el_kill_one_slot's uninterrupted run is 3ha's yardstick too);
+# the leader's process crashes (HA_EXIT_CODE) at the first step of epoch
+# HA_CRASH_EPOCH; the replicas' lease is HA_LEASE_S seconds
+HA_EPOCHS = EL_KILL_EPOCHS
+HA_CRASH_EPOCH = 3
+HA_EXIT_CODE = 87
+HA_LEASE_S = "1.5"
+HA_JOB = "ha-wd"
+# a CUDA context takes hundreds of MB of the card: a standby may take none
+HA_STANDBY_MB = 64
+
+_HA_TRAINER: list = []
+
+
+def ha_counted_trainer():
+    """Phase 3ha's ``chip_smoke:HaCountedWideDeep``: bench-widedeep's
+    trainer, which writes the kernel launches of the run it trains (the
+    wrappers' counts at its cleanup less those at its training's start) and
+    its process id into ``count_dir`` as ``<pid>.json``. Built at first use
+    (importing this script needs nothing of the repo)."""
+    if not _HA_TRAINER:
+        from harmony_tpu_torch.apps.widedeep import WideDeepTrainer
+
+        class HaCountedWideDeep(WideDeepTrainer):
+            def __init__(self, count_dir: str = "", **kw) -> None:
+                super().__init__(**kw)
+                self._count_dir = count_dir
+                self._before = None
+
+            def on_training_start(self, ctx, starting_epoch: int) -> None:
+                self._before = launch_counts(all_wrappers())
+                self._start = starting_epoch
+                super().on_training_start(ctx, starting_epoch)
+
+            def cleanup(self, ctx) -> None:
+                super().cleanup(ctx)
+                if self._count_dir and self._before is not None:
+                    after = launch_counts(all_wrappers())
+                    with open(os.path.join(self._count_dir, f"{os.getpid()}.json"), "w") as f:
+                        json.dump({"pid": os.getpid(), "starting_epoch": self._start,
+                                   "launches": {k: v - self._before[k]
+                                                for k, v in after.items()}}, f)
+
+        _HA_TRAINER.append(HaCountedWideDeep)
+    return _HA_TRAINER[0]
+
+
+def ha_config(count_dir: str):
+    """The HA phase's submission: bench-widedeep, one worker, HA_EPOCHS
+    epochs, a chain entry every epoch, on the counting trainer."""
+    cfg = pod_wd_config(HA_JOB, HA_EPOCHS)
+    return cfg.replace(trainer="chip_smoke:HaCountedWideDeep", params=cfg.params.replace(
+        model_chkp_period=1, app_params={**cfg.params.app_params, "count_dir": count_dir}))
+
+
+class HaReplica:
+    """``python -m harmony_tpu_torch.cli start-jobserver`` as one HA replica:
+    HARMONY_HA_LOG_DIR, the lease and the chain root shared, one executor,
+    ``card`` (its CUDA_VISIBLE_DEVICES) or cuda:0, logging into ``log_dir``.
+    Killed in ``close`` whatever happened."""
+
+    def __init__(self, name: str, port: int, ha_dir: str, root: str, log_dir: str,
+                 card=None, env: dict = None) -> None:
+        self.name, self.port = name, port
+        self.path = os.path.join(log_dir, f"{name}.log")
+        penv = dict(os.environ, OMP_NUM_THREADS="4", HARMONY_PUSH_VIA="mxu",
+                    HARMONY_HA_LOG_DIR=ha_dir, HARMONY_HA_LEASE_S=HA_LEASE_S)
+        penv.pop("HARMONY_FAULT_PLAN", None)
+        penv.update(env or {})
+        if card is not None:
+            penv["CUDA_VISIBLE_DEVICES"] = str(card)
+        self.log = open(self.path, "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "harmony_tpu_torch.cli", "start-jobserver", "--port",
+             str(port), "--num-executors", "1", "--chkp-root", root, "--ha-replica-id", name],
+            cwd=REPO, env=penv, stdout=self.log, stderr=subprocess.STDOUT, text=True)
+
+    def text(self) -> str:
+        self.log.flush()
+        with open(self.path) as f:
+            return f.read()
+
+    def wait_line(self, needle: str, timeout: float = POD_READY_S) -> str:
+        """The first line holding ``needle``, polled every 10 ms."""
+        deadline = time.monotonic() + timeout
+        while True:
+            found = [ln for ln in self.text().splitlines() if needle in ln]
+            if found:
+                return found[0]
+            check(self.proc.poll() is None and time.monotonic() < deadline,
+                  f"phase 3ha: replica {self.name} printed no {needle!r} "
+                  f"(exit {self.proc.poll()}): {self.text()[-3000:]}")
+            time.sleep(0.01)
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=30)
+        self.log.close()
+
+
+def ha_free_mb(card: int) -> float:
+    torch.cuda.synchronize(card)
+    return torch.cuda.mem_get_info(card)[0] / 2 ** 20
+
+
+def run_ha(one):
+    """Phase 3ha: a leader replica killed mid-epoch, the standby takes over
+    (see the module doc). ``one``: :func:`el_kill_one_slot`'s run."""
+    from harmony_tpu_torch import faults
+    from harmony_tpu_torch.dolphin.worker import WorkerTasklet
+    from harmony_tpu_torch.jobserver.client import CommandSender
+
+    t0 = time.perf_counter()
+    cards = torch.cuda.device_count()
+    a_card, b_card = (0, 1) if cards >= 2 else (None, None)
+    scratch = tempfile.mkdtemp(prefix="harmony-ha-")
+    ha_dir, root, counts, logs = (os.path.join(scratch, d)
+                                  for d in ("ha", "chains", "counts", "logs"))
+    for d in (ha_dir, root, counts, logs):
+        os.makedirs(d)
+    out = {"cards": 2 if cards >= 2 else 1, "card": gpu_identity(), "lease_s": float(HA_LEASE_S),
+           "epochs": HA_EPOCHS, "crash_epoch": HA_CRASH_EPOCH}
+    replicas = []
+    try:
+        losses, files, one_epoch_s = one
+        torch.cuda.empty_cache()
+        rule = faults.FaultRule("worker.step", match={"job": HA_JOB},
+                                after=HA_CRASH_EPOCH * BATCHES, count=1, action="crash",
+                                exit_code=HA_EXIT_CODE)
+        ports = [free_port(), free_port()]
+        addrs = [f"127.0.0.1:{p}" for p in ports]
+        a = HaReplica("ha-a", ports[0], ha_dir, root, logs, a_card,
+                      {faults.ENV_VAR: faults.FaultPlan([rule]).to_json()})
+        replicas.append(a)
+        a.wait_line("standing by")
+        out["a_leader_line"] = a.wait_line("is LEADER")
+        # the standby's CUDA context: the card's free memory before and after
+        # it stands by (the leader idle, nothing else on the card moving)
+        card = b_card or 0
+        ha_free_mb(card)
+        free_before = ha_free_mb(card)
+        b = HaReplica("ha-b", ports[1], ha_dir, root, logs, b_card)
+        replicas.append(b)
+        out["b_standby_line"] = b.wait_line("standing by")
+        time.sleep(1.0)
+        free_standby = ha_free_mb(card)
+        standby_status = CommandSender(ports[1]).send_status_command()
+        check(standby_status["state"] == "STANDBY"
+              and standby_status["ha"]["role"] == "standby"
+              and standby_status["ha"]["leader"] == addrs[0],
+              f"phase 3ha: the standby's STATUS {standby_status}")
+        out["standby"] = {"free_mb_before": free_before, "free_mb_standing_by": free_standby,
+                          "context_mb": free_before - free_standby}
+        check(free_before - free_standby < HA_STANDBY_MB,
+              f"phase 3ha: the standby holds a CUDA context: {out['standby']}")
+        exited = {}
+
+        def watch():
+            while a.proc.poll() is None:
+                time.sleep(0.005)
+            exited["wall"] = time.time()
+
+        threading.Thread(target=watch, daemon=True).start()
+        sender = CommandSender(addrs=addrs)
+        reply = sender.send_job_submit_command(ha_config(counts))
+        check(reply.get("ok"), f"phase 3ha: submit {reply}")
+        rc = a.proc.wait(timeout=POD_JOB_S)
+        check(rc == HA_EXIT_CODE, f"phase 3ha: the leader exited {rc}, not {HA_EXIT_CODE}: "
+                                  f"{a.text()[-3000:]}")
+        out["b_leader_line"] = b.wait_line("is LEADER")
+        try:
+            res = sender.wait_result(HA_JOB, timeout=POD_JOB_S, poll=1.0)
+        except Exception as e:  # noqa: BLE001 - the phase fails
+            fail(f"phase 3ha: {HA_JOB} did not finish through failover: {e}\n{b.text()[-3000:]}")
+        status = CommandSender(addrs=addrs).send_status_command()
+        check(CommandSender(addrs=addrs).send_shutdown_command().get("ok"),
+              "phase 3ha: the successor refused SHUTDOWN")
+        b_rc = b.proc.wait(timeout=POD_JOB_S)
+        check(b_rc == 0, f"phase 3ha: the successor exited {b_rc}: {b.text()[-3000:]}")
+        (w,) = res["workers"].values()
+        start = w["starting_epoch"]
+        check(1 <= start <= HA_CRASH_EPOCH and w["epochs_run"] == HA_EPOCHS - start,
+              f"phase 3ha: the successor ran epochs {start}+{w['epochs_run']}")
+        check(w["batch_losses"] == losses[BATCHES * start:BATCHES * HA_EPOCHS],
+              "phase 3ha: the successor's losses are not the uninterrupted run's bits")
+        check(pc_entries(root, HA_JOB)[HA_EPOCHS - 1]["files"] == files,
+              "phase 3ha: the final table is not the uninterrupted run's")
+        ha = status["ha"]
+        tk = ha["takeovers"][-1]
+        check(ha["role"] == "leader" and ha["leader_epoch"] == 2 and ha["replica"] == "ha-b"
+              and (tk["old_leader"], tk["new_leader"], tk["rearmed"]) == ("ha-a", "ha-b", [HA_JOB])
+              and tk["rejected_stale"] == 0,
+              f"phase 3ha: the successor's ha {json.dumps(ha)[:3000]}")
+        (count_file,) = os.listdir(counts)
+        with open(os.path.join(counts, count_file)) as f:
+            counted = json.load(f)
+        check(counted["pid"] == b.proc.pid and counted["starting_epoch"] == start,
+              f"phase 3ha: launches counted in {counted}, not in the successor ({b.proc.pid})")
+        k = w["comm_probe"]["probes"] * (1 + WorkerTasklet.PROBE_SAMPLES)
+        steps = w["epochs_run"] * BATCHES
+        want = {"gather_rows": steps + 2 * k, "weighted_histogram": steps + k}
+        launches = counted["launches"]
+        check(all(launches[n] == want.get(n, 0) for n in launches),
+              f"phase 3ha: the successor launched {launches}, expected {want} (K1 once a step "
+              "and twice a probe call, K3 once each, nothing else)")
+
+        def step_ms(epoch_s):
+            return 1e3 * statistics.mean(epoch_s[1:]) / BATCHES
+
+        out.update({
+            "leader_exit_code": rc, "resumed_epoch": start,
+            "death_to_leader_s": tk["ts"] - exited["wall"], "replay_ms": tk["replay_ms"],
+            "replayed_entries": tk["replayed_entries"], "rearmed": tk["rearmed"],
+            "lease_epoch": ha["leader_epoch"], "lease": ha["lease"],
+            "log": {k: ha["log"][k] for k in ("appends", "group_commits", "append_seconds",
+                                              "append_bytes", "last_seq")},
+            "step_ms_successor": step_ms(w["epoch_seconds"]),
+            "step_ms_uninterrupted": step_ms(one_epoch_s),
+            "launches": {n: v for n, v in launches.items() if v},
+            "losses_bit_identical": True, "final_table_bit_identical": True})
+        print(f"phase 3ha: the leader killed at epoch {HA_CRASH_EPOCH}, the standby took over "
+              f"and finished the same submission: {json.dumps(out)}", flush=True)
+    finally:
+        for r in replicas:
+            r.close()
+        shutil.rmtree(scratch, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    return {name: launches.get(name, 0) for name in launch_counts(all_wrappers())}, out
+
+
 def files_digest(files: dict) -> str:
     """One SHA-256 over an entry's files' digests, in name order."""
     import hashlib
@@ -8877,7 +9155,7 @@ def main() -> int:
               f"{kernel} D={d} block_k={bk}: ptxas reports spills ({entry})")
     clock("1")
 
-    alone = ("3t", "3u", "3v", "3w", "3x", "3y", "3z", "3pc", "3el", "3pd")
+    alone = ("3t", "3u", "3v", "3w", "3x", "3y", "3z", "3pc", "3el", "3pd", "3ha")
     if len(sys.argv) == 3 and sys.argv[1] == "--phase" and sys.argv[2] in alone:
         # one phase alone (a host of several cards: the real mesh; 3t also
         # the device guard), 3t held to one-slot runs of its own
@@ -8904,11 +9182,14 @@ def main() -> int:
             _, chains = run_pod_chains()
             print("pod chains: " + json.dumps(chains), flush=True)
         elif name == "3el":
-            _, pod_elastic = run_pod_elastic()
+            _, pod_elastic = run_pod_elastic(el_kill_one_slot())
             print("pod elastic: " + json.dumps(pod_elastic), flush=True)
         elif name == "3pd":
             _, _, pod_data = run_pod_data()
             print("pod data rows: " + json.dumps(pod_data), flush=True)
+        elif name == "3ha":
+            _, ha = run_ha(el_kill_one_slot())
+            print("ha: " + json.dumps(ha), flush=True)
         else:
             _, elastic = run_elastic()
             print("elastic: " + json.dumps(elastic), flush=True)
@@ -8920,7 +9201,7 @@ def main() -> int:
         return 0
     check(not sys.argv[1:],
           f"unknown arguments {sys.argv[1:]} (only --phase 3t, 3u, 3v, 3w, 3x, 3y, 3z, 3pc, "
-          "3el or 3pd)")
+          "3el, 3pd or 3ha)")
 
     table, idx, err = check_kernels(dev)
     timing, skew = time_kernels(dev, table, idx)
@@ -9075,10 +9356,15 @@ def main() -> int:
     for name, counts in by_path.items():
         counts["pod-chains"] = chains_launches[name]
     clock("3pc")
-    elastic_launches, pod_elastic = run_pod_elastic()
+    kill_one = el_kill_one_slot()
+    elastic_launches, pod_elastic = run_pod_elastic(kill_one)
     for name, counts in by_path.items():
         counts["pod-elastic"] = elastic_launches[name]
     clock("3el")
+    ha_launches, ha = run_ha(kill_one)
+    for name, counts in by_path.items():
+        counts["ha-takeover"] = ha_launches[name]
+    clock("3ha")
     data_launches, data_moves_launches, pod_data = run_pod_data()
     for name, counts in by_path.items():
         counts["pod-data-rows"] = data_launches[name]
@@ -9142,6 +9428,7 @@ def main() -> int:
     print("pod chains: " + json.dumps(pod_chains), flush=True)
     print("pod elastic: " + json.dumps(pod_elastic), flush=True)
     print("pod data rows: " + json.dumps(pod_data), flush=True)
+    print("ha: " + json.dumps(ha), flush=True)
     print(gpu_identity())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

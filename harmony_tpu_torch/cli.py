@@ -33,8 +33,22 @@ down.
 slots of the CPU in one process). ``pod-reshard`` asks a pod's leader to move
 ``--blocks`` blocks of a running job's table from executor ``--src`` to
 ``--dst`` at epoch ``--epoch`` in every process (``jobserver/pod.py``) and
-prints the reply. The reference's HA replica (``_cmd_start_jobserver_ha``),
-``obs``, ``dashboard`` and ``inputsvc`` are not ported (ROADMAP A.10).
+prints the reply.
+
+With ``HARMONY_HA_LOG_DIR`` set, ``start-jobserver`` runs one replica of an
+HA control plane (``jobserver/ha.py``): it prints ``HA replica <id> standing
+by on port N``, contends on the lease in that directory (``HARMONY_HA_LEASE_S``
+seconds, 10 by default), and once it wins prints ``HA replica <id> is LEADER
+on port N (epoch E, replay R ms, K entries replayed, J submission(s)
+re-armed: [...])``; its server is built only then, on ``--device``.
+``--ha-replica-id`` names the replica, ``--ha-advertise`` is the address the
+others redirect clients to, ``--ha-recv-port`` receives the leader's log
+stream (``HARMONY_HA_REPLICAS`` lists the receivers; it binds the loopback
+interface) and ``--ha-bind`` is the interface the submit and standby
+endpoints bind. ``start-pod --pod-leader-addrs`` lists the
+control-plane endpoints a follower JOINs again after losing its leader. The
+reference's ``obs``, ``dashboard`` and ``inputsvc`` are not ported (ROADMAP
+A.10).
 
 The presets cover the apps this port runs: the training apps ``mlr``,
 ``nmf``, ``lda``, ``lasso``, ``gbt``, ``addvector``, ``addinteger``, ``fm``,
@@ -352,9 +366,9 @@ def _cmd_run(args: argparse.Namespace) -> int:
     return 0
 
 
-def _make_server(args: argparse.Namespace):
-    """A started JobServer on ``--device``: ``--num-executors`` executors, 0
-    one per slot of the pool (a slot a visible card; one on the CPU)."""
+def _build_server(args: argparse.Namespace):
+    """An unstarted JobServer on ``--device``: ``--num-executors`` executors,
+    0 one per slot of the pool (a slot a visible card; one on the CPU)."""
     from harmony_tpu_torch.jobserver.server import JobServer
     from harmony_tpu_torch.parallel.mesh import DevicePool
 
@@ -363,12 +377,21 @@ def _make_server(args: argparse.Namespace):
     else:
         pool = DevicePool() if args.device == "cuda" else DevicePool([args.device])
     n = args.num_executors or len(pool)
-    server = JobServer(n, device_pool=pool, chkp_root=getattr(args, "chkp_root", None))
+    return JobServer(n, device_pool=pool, chkp_root=getattr(args, "chkp_root", None))
+
+
+def _make_server(args: argparse.Namespace):
+    """:func:`_build_server`, started."""
+    server = _build_server(args)
     server.start()
     return server
 
 
 def _cmd_start_jobserver(args: argparse.Namespace) -> int:
+    from harmony_tpu_torch.jobserver import ha
+
+    if ha.ha_enabled():
+        return _cmd_start_jobserver_ha(args)
     server = _make_server(args)
     port = server.serve_tcp(args.port)
     print(f"jobserver ready on port {port}", flush=True)
@@ -377,6 +400,45 @@ def _cmd_start_jobserver(args: argparse.Namespace) -> int:
             time.sleep(0.5)
     except KeyboardInterrupt:
         server.shutdown()
+    return 0
+
+
+def _cmd_start_jobserver_ha(args: argparse.Namespace) -> int:
+    """One replica of an HA control plane (``HARMONY_HA_LOG_DIR`` set):
+    stand by on the submit port (NOT_LEADER with the leader's address),
+    contend on the shared lease, and on winning it replay the durable job
+    log, re-arm every in-flight submission and serve. The server is built
+    at the takeover, so a standby holds no executor and no CUDA context."""
+    import os
+    import socket
+
+    from harmony_tpu_torch.jobserver.ha import HAController
+    from harmony_tpu_torch.jobserver.lease import ha_log_dir
+    # the server's modules load while standing by (no device is touched), so
+    # a takeover builds the server without importing them
+    from harmony_tpu_torch.jobserver import server  # noqa: F401
+
+    replica = args.ha_replica_id or os.environ.get("HOSTNAME") or socket.gethostname()
+    ctl = HAController(
+        lambda: _build_server(args), log_dir=ha_log_dir(), replica_id=replica,
+        submit_port=args.port,
+        # --port 0: the standby endpoint's bound port is advertised
+        advertise_addr=args.ha_advertise or (f"127.0.0.1:{args.port}" if args.port else None),
+        recv_port=args.ha_recv_port, bind_host=args.ha_bind,
+    ).start()
+    print(f"HA replica {replica} standing by on port {ctl.port} (log dir {ha_log_dir()})",
+          flush=True)
+    try:
+        while not ctl.wait_leader(timeout=0.5):
+            pass
+        print(f"HA replica {replica} is LEADER on port {ctl.port} (epoch {ctl.lease.epoch}, "
+              f"replay {ctl.replay_ms} ms, {ctl.replayed_entries} entries replayed, "
+              f"{len(ctl.rearmed)} submission(s) re-armed: {json.dumps(ctl.rearmed)})",
+              flush=True)
+        while ctl.server is not None and ctl.server.state != "CLOSED":
+            time.sleep(0.5)
+    except KeyboardInterrupt:
+        ctl.stop()
     return 0
 
 
@@ -459,7 +521,15 @@ def _cmd_start_pod(args: argparse.Namespace) -> int:
         leader = ("127.0.0.1" if coordinator.startswith("file://")
                   else coordinator.removeprefix("tcp://").rpartition(":")[0])
         print(f"pod follower {pid} joining {leader}:{args.pod_port}", flush=True)
-        PodFollower(leader, args.pod_port, pid, n_exec, pool=pool).run()
+        leader_addrs = None
+        if args.pod_leader_addrs:
+            leader_addrs = []
+            for a in args.pod_leader_addrs.split(","):
+                if a.strip():
+                    host, _, port = a.strip().rpartition(":")
+                    leader_addrs.append((host or "127.0.0.1", int(port)))
+        PodFollower(leader, args.pod_port, pid, n_exec, pool=pool,
+                    leader_addrs=leader_addrs).run()
         return 0
     finally:
         multihost.shutdown_distributed()
@@ -577,6 +647,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--port", type=int, default=43110, help="TCP port (0 = a free one)")
     p.add_argument("--chkp-root", default=None,
                    help="root of the jobs' checkpoint chains (and of pinned reads)")
+    p.add_argument("--ha-replica-id", default=None,
+                   help="HA (with HARMONY_HA_LOG_DIR set): this replica's stable "
+                        "identity (default: the host name)")
+    p.add_argument("--ha-advertise", default=None,
+                   help="HA: the host:port other replicas redirect clients to for this "
+                        "replica (default 127.0.0.1:--port)")
+    p.add_argument("--ha-recv-port", type=int, default=None,
+                   help="HA: bind the standby's log receiver here (peer replication, "
+                        "HARMONY_HA_REPLICAS); omit when replicas share HARMONY_HA_LOG_DIR")
+    p.add_argument("--ha-bind", default="127.0.0.1",
+                   help="HA: the interface the submit and standby endpoints bind")
     _device_flag(p)
     p = sub.add_parser("start-pod", help="one process of a multi-process pod")
     _num_executors_flag(p)
@@ -593,6 +674,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--chkp-root", default=None,
                    help="root of the jobs' checkpoint chains, shared by every process "
                         "(default HARMONY_POD_CHKP_ROOT)")
+    p.add_argument("--pod-leader-addrs", default=None,
+                   help="HA: comma-separated host:port control-plane endpoints a follower "
+                        "may JOIN again after losing its leader (default: the leader it "
+                        "first joined)")
     _device_flag(p)
     p = sub.add_parser("submit", help="submit a job to a running jobserver")
     _common_job_flags(p)

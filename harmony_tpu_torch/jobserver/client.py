@@ -10,9 +10,9 @@ reference's, so either package's client talks to either package's server.
 A client may hold a replica list (``HARMONY_JOBSERVER_ADDRS``,
 comma-separated ``host:port``), retry across it with the standard bounded
 backoff (faults/retry.py) and follow a ``NOT_LEADER`` reply's ``leader``
-redirect; the port's server is one replica without HA (ROADMAP A.10), so it
-never answers ``NOT_LEADER``. A ``BUSY`` reply backs off for its hint and
-retries the same server.
+redirect: a standby replica (``jobserver/ha.py``) and a deposed leader
+answer ``NOT_LEADER`` with the lease holder's address. A ``BUSY`` reply backs
+off for its hint and retries the same server.
 """
 from __future__ import annotations
 

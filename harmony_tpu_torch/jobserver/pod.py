@@ -114,8 +114,20 @@ process, still a member of the ``torch.distributed`` world. A new process
 under a dead pid is refused with ``JOIN_REFUSED``: the world, its store and
 its groups were fixed when the pod started, so it could join no collective.
 
-Left out (ROADMAP A items 5 and 10): HA's leader epochs with the follower's
-``_rejoin`` and ``_reject_stale``, and the policy hooks.
+HA's follower half (``jobserver/ha.py``): the leader stamps its
+``leader_epoch`` (its lease's epoch; 0 outside HA, and then nothing is
+stamped) on every message it sends a follower (``_send_to``). A follower
+rejects a message below the highest epoch it has seen before it dispatches
+anything, SHUTDOWN included (``_reject_stale``: a stale RUN_JOB is answered
+with a failed JOB_DONE marked ``stale_epoch``, keyed by its attempt). With HA
+on (``HARMONY_HA_LOG_DIR``, or ``reconnect=True``) a follower that loses its
+leader JOINs again, under its pid and its incarnation token, the first of
+``leader_addrs`` to answer (``_rejoin``), so the late-join path reinstates
+the same process. As in the reference, no pod leader takes over from another:
+process 0 holds the ``torch.distributed`` store, so its death ends the pod
+(ROADMAP A item 5).
+
+Left out (ROADMAP A item 5): the policy hooks.
 """
 from __future__ import annotations
 
@@ -767,6 +779,11 @@ class PodJobServer(JobServer):
                 self._pod_cond.notify_all()
 
     def _send_to(self, pid: int, msg: Dict[str, Any]) -> None:
+        if self.leader_epoch and "leader_epoch" not in msg:
+            # HA fencing: every message to a follower carries the leader
+            # epoch, and a follower drops what comes below the highest it has
+            # seen, so a deposed leader's late RUN_JOB or PLAN never acts
+            msg = dict(msg, leader_epoch=self.leader_epoch)
         conn, _ = self._followers[pid]
         with self._send_locks[pid]:
             _send(conn, msg)
@@ -1479,11 +1496,23 @@ class PodFollower:
     leader's local jobs do."""
 
     def __init__(self, leader_host: str, pod_port: int, pid: int, num_executors: int,
-                 pool=None, join_timeout: float = 300.0) -> None:
+                 pool=None, join_timeout: float = 300.0, reconnect: Optional[bool] = None,
+                 leader_addrs: Optional[List[Tuple[str, int]]] = None) -> None:
+        from harmony_tpu_torch.jobserver import ha
         from harmony_tpu_torch.metrics.manager import MetricManager
         from harmony_tpu_torch.runtime.master import ETMaster
 
         self.pid = pid
+        self._join_timeout = join_timeout
+        # control-plane HA: with it a lost leader connection is a LEADER
+        # CHANGE, not the pod's end: the follower JOINs the (maybe new)
+        # leader again, its executors, entities and job threads kept
+        self._reconnect = ha.ha_enabled() if reconnect is None else bool(reconnect)
+        self._leader_addrs = list(leader_addrs or [(leader_host, pod_port)])
+        #: the highest leader epoch seen; a message below it is a deposed
+        #: leader's late write, and is rejected
+        self._leader_epoch = 0
+        self.stale_rejected = 0
         # the leader may still be starting: retry until the deadline
         deadline = time.monotonic() + join_timeout
         while True:
@@ -1546,11 +1575,77 @@ class PodFollower:
             try:
                 self._report({"cmd": "HEARTBEAT", "pid": self.pid, "jobs": jobs})
             except OSError:
+                if self._reconnect:
+                    continue  # a leader change: run()'s re-JOIN swaps the socket
                 return  # the leader is gone; run() handles it
 
     def _report(self, payload: Dict[str, Any]) -> None:
         with self._send_lock:
             _send(self._sock, payload)
+
+    def _reject_stale(self, msg: Dict[str, Any], epoch: int) -> None:
+        """A deposed leader's late message (its epoch below the highest this
+        follower has seen). A RUN_JOB gets an explicit failed report keyed by
+        ITS attempt, so the stale leader's wait ends; anything else is
+        dropped."""
+        self.stale_rejected += 1
+        log.warning("follower %d: rejected stale-epoch %d %r (current leader epoch %d)",
+                    self.pid, epoch, msg.get("cmd"), self._leader_epoch)
+        if msg.get("cmd") == "RUN_JOB":
+            rkey = elastic.attempt_key(str(msg.get("conf", {}).get("job_id", "?")),
+                                       int(msg.get("att", 0) or 0))
+            try:
+                self._report({"cmd": "JOB_DONE", "pid": self.pid, "job_id": rkey,
+                              "ok": False, "stale_epoch": True,
+                              "error": f"fenced: RUN_JOB from deposed leader epoch {epoch} "
+                                       f"< {self._leader_epoch}"})
+            except OSError:
+                pass
+
+    def _rejoin(self) -> bool:
+        """The re-JOIN after a leader change: connect to the (maybe new)
+        leader's control port and JOIN again under the SAME pid and the same
+        incarnation token, so the leader's late-join path reinstates this
+        process; executors, entities and running job threads all survive.
+        False when no leader answers within the join timeout (the pod is
+        gone, not just its leader)."""
+        from harmony_tpu_torch.faults.partition import fault_connect
+
+        deadline = time.monotonic() + self._join_timeout
+        delay = 0.2
+        while time.monotonic() < deadline:
+            for host, port in self._leader_addrs:
+                try:
+                    sock = fault_connect((host, port), role="pod.rejoin", timeout=5.0)
+                except OSError:
+                    continue
+                sock.settimeout(None)
+                f = sock.makefile("r")
+                with self._send_lock:
+                    old = self._sock
+                    try:
+                        _send(sock, {"cmd": "JOIN", "pid": self.pid,
+                                     "incarnation": self.incarnation})
+                    except OSError:
+                        try:
+                            sock.close()
+                        except OSError:
+                            pass
+                        continue
+                    self._sock = sock
+                    self._file = f
+                try:
+                    old.close()
+                except OSError:
+                    pass
+                log.info("follower %d re-joined the leader at %s:%d after losing its "
+                         "connection (running jobs kept)", self.pid, host, port)
+                return True
+            time.sleep(delay)
+            delay = min(delay * 2, 2.0)
+        log.error("follower %d: no leader answered within %.0f s; shutting down",
+                  self.pid, self._join_timeout)
+        return False
 
     def run(self) -> None:
         """Serve RUN_JOBs until SHUTDOWN or the leader hangs up."""
@@ -1565,6 +1660,16 @@ class PodFollower:
                 msg = _recv(self._file)
             except (OSError, ValueError):
                 msg = None
+            if msg is None and self._reconnect and self._rejoin():
+                continue  # a leader change: JOINed the (new) leader
+            if msg is not None and msg.get("leader_epoch") is not None:
+                ep = int(msg["leader_epoch"])
+                if ep < self._leader_epoch:
+                    # fenced before any dispatch, SHUTDOWN included: a deposed
+                    # leader's exit must not end a follower its successor has
+                    self._reject_stale(msg, ep)
+                    continue
+                self._leader_epoch = ep
             if msg is None or msg.get("cmd") == "SHUTDOWN":
                 for t in self._job_threads:
                     t.join(timeout=60.0)

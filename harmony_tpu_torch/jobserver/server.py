@@ -57,9 +57,21 @@ through three hooks: ``_entity_extras`` (what a job's entity gets beside the
 server's schedulers and metrics), ``_pod_reshard_command`` and
 ``_on_closing`` (run by ``shutdown`` once the jobs have drained).
 
-Not ported yet: HA (``NOT_LEADER`` gating), the policy engine, history and
-doctor, metrics scraping, and the STATUS fields of those subsystems (ROADMAP
-A.10).
+Control-plane HA (``jobserver/ha.py``): ``enable_ha`` makes this server one
+replica of an HA control plane. It tees every structured joblog event into
+the durable log (``jobserver/halog.py``), writes a first-class entry for each
+submission (its whole config: a successor re-arms the same submission from
+it), dispatch and completion, and takes the lease's epoch as its
+``leader_epoch``, which stamps every entry (and, on the pod, every message to
+the followers). Once the lease has lapsed the server is deposed: ``SUBMIT``,
+``WAIT``, ``SERVING`` and ``POD_RESHARD`` answer ``NOT_LEADER`` with the
+lease holder's address, durable appends are refused, and a submission whose
+record was refused raises :class:`NotLeader`. STATUS and SHUTDOWN are not
+gated. STATUS's ``ha`` field gives the role, the epoch, the lease's and the
+log's stats and the takeovers.
+
+Not ported yet: the policy engine, history and doctor, metrics scraping, and
+the STATUS fields of those subsystems (ROADMAP A.10).
 """
 from __future__ import annotations
 
@@ -77,7 +89,9 @@ import numpy as np
 from harmony_tpu_torch.config.base import ConfigBase
 from harmony_tpu_torch.config.params import JobConfig
 from harmony_tpu_torch.jobserver import overload as _ov
+from harmony_tpu_torch.jobserver.elastic import attempt_of
 from harmony_tpu_torch.jobserver.entity import build_entity
+from harmony_tpu_torch.jobserver.joblog import server_log as log
 from harmony_tpu_torch.jobserver.overload import OverloadMonitor
 from harmony_tpu_torch.jobserver.scheduler import (
     JobScheduler,
@@ -93,6 +107,13 @@ from harmony_tpu_torch.runtime.taskunit import (
 )
 from harmony_tpu_torch.tracing.span import SpanContext, trace_span
 from harmony_tpu_torch.utils.framing import close_listener
+
+
+class NotLeader(RuntimeError):
+    """Raised by ``submit`` when the durable submission record was refused
+    because this leader's lease lapsed between the command gate and the
+    append. The command plane answers ``NOT_LEADER``, so the client retries
+    on the successor: an acknowledged submission is always in the log."""
 
 
 def _json_sanitize(obj: Any) -> Any:
@@ -149,6 +170,15 @@ class JobServer:
         self.port: Optional[int] = None
         # the serving endpoint, started by the first SERVING command
         self.serving = None
+        # control-plane HA, wired by enable_ha: leader_epoch stamps every
+        # durable entry and pod message, so a deposed leader's late writes
+        # are fenced everywhere
+        self.ha_log = None
+        self.ha_lease = None
+        self.ha_replicator = None
+        self.ha_replica_id: Optional[str] = None
+        self.leader_epoch = 0
+        self._ha_sink = None
 
     @property
     def state(self) -> str:
@@ -167,9 +197,124 @@ class JobServer:
             self._scheduler.bind([e.id for e in executors], self._launch)
             self._state = "INIT"
 
+    # -- control-plane HA ----------------------------------------------------
+
+    def enable_ha(self, log, lease=None, replicator=None,
+                  replica_id: Optional[str] = None) -> None:
+        """Wire the durable log (and the lease and replicator) into this
+        server: every structured joblog event tees into the log, submissions
+        and completions get entries of their own, and the leader epoch fences
+        what the server writes and sends. Called before ``start``."""
+        from harmony_tpu_torch.jobserver import joblog
+
+        def sink(job_id: str, ev: Dict[str, Any]) -> None:
+            self._ha_append(ev.get("kind", "event"), job_id=job_id,
+                            **{k: v for k, v in ev.items() if k not in ("kind", "ts")})
+
+        with self._lock:
+            self.ha_log = log
+            self.ha_lease = lease
+            self.ha_replicator = replicator
+            self.ha_replica_id = replica_id
+            self.leader_epoch = lease.epoch if lease is not None else log.fence_epoch
+            self._ha_sink = sink
+        log.set_epoch(self.leader_epoch)
+        joblog.add_sink(sink)
+        if replicator is not None:
+            replicator.start()
+
+    def _ha_leader_ok(self) -> bool:
+        """False once a held lease has lapsed: the deposed state, in which
+        the gated commands answer NOT_LEADER and durable appends are
+        refused."""
+        return self.ha_lease is None or self.ha_lease.is_valid()
+
+    def _not_leader_reply(self) -> Dict[str, Any]:
+        """The NOT_LEADER redirect, with the lease holder's advertised
+        address when the lease file names a live one."""
+        hint = None
+        if self.ha_lease is not None:
+            import os
+
+            from harmony_tpu_torch.jobserver.lease import leader_hint
+
+            hint = leader_hint(os.path.dirname(self.ha_lease.path),
+                               own_holder_id=self.ha_lease.holder_id)
+        return {"ok": False, "not_leader": True,
+                "error": "NOT_LEADER: this replica's lease lapsed (deposed)", "leader": hint}
+
+    #: the entry keys DurableJobLog.append owns; an event field of the same
+    #: name (an elastic fence's own ``epoch``) is written as ``ev_<name>``
+    _HA_RESERVED = ("seq", "epoch", "ts", "kind", "job")
+
+    def _ha_append(self, kind: str, job_id: Optional[str] = None, **fields: Any) -> bool:
+        """A guarded durable append: never fails the caller, dropped (with a
+        warning) once this leader is deposed. False when the entry did NOT
+        land (deposed, or the log's disk refused it): a caller whose reply
+        depends on it (``submit``) refuses then."""
+        if self.ha_log is None:
+            return True
+        if not self._ha_leader_ok():
+            log.warning("halog append %r dropped: this leader's lease lapsed (deposed)", kind)
+            return False
+        try:
+            fields = {(f"ev_{k}" if k in self._HA_RESERVED else k): v
+                      for k, v in fields.items()}
+            self.ha_log.append(kind, job_id=job_id, epoch=self.leader_epoch, **fields)
+        except Exception as e:  # noqa: BLE001 - reported by the return value
+            log.error("halog append %r failed: %s: %s", kind, type(e).__name__, e)
+            return False
+        return True
+
+    def _ha_record_done(self, job_id: str, fut: Future) -> None:
+        exc = fut.exception()
+        if exc is None:
+            self._ha_append("job_done", job_id=job_id, ok=True)
+        else:
+            self._ha_append("job_done", job_id=job_id, ok=False,
+                            error=f"{type(exc).__name__}: {exc}"[:300])
+
+    def _ha_status(self) -> Dict[str, Any]:
+        from harmony_tpu_torch.jobserver import joblog
+
+        if self.ha_log is None:
+            return {"enabled": False}
+        takeovers = [ev for ev in joblog.job_events("__ha__", limit=8)
+                     if ev.get("kind") == "leader_takeover"]
+        return {"enabled": True,
+                "role": "leader" if self._ha_leader_ok() else "deposed",
+                "replica": self.ha_replica_id, "leader_epoch": self.leader_epoch,
+                "lease": self.ha_lease.stats() if self.ha_lease is not None else None,
+                "log": self.ha_log.stats(),
+                "replication": (self.ha_replicator.stats()
+                                if self.ha_replicator is not None else None),
+                "takeovers": takeovers}
+
+    def _stop_ha(self) -> None:
+        """HA's part of shutdown: unhook the joblog tee, stop the replication
+        stream, release the lease (a standby takes over at once instead of
+        waiting out the window) and close the log."""
+        from harmony_tpu_torch.jobserver import joblog
+
+        with self._lock:
+            sink, self._ha_sink = self._ha_sink, None
+            replicator, self.ha_replicator = self.ha_replicator, None
+            lease, self.ha_lease = self.ha_lease, None
+            ha_log, self.ha_log = self.ha_log, None
+        if sink is not None:
+            joblog.remove_sink(sink)
+        if replicator is not None:
+            replicator.stop()
+        if lease is not None:
+            lease.release()
+        if ha_log is not None:
+            ha_log.close()
+
     def submit(self, config: JobConfig) -> "Future[Dict[str, Any]]":
         """Schedule a job; the future resolves to the entity's result, or to the
-        exception that ended the job. A job id still running is refused."""
+        exception that ended the job. A job id still running is refused. Under
+        HA the submission is acknowledged only once its durable record (the
+        whole config) is in the log."""
         with self._lock:
             if self._state != "INIT":
                 raise RuntimeError(f"server not accepting jobs (state={self._state})")
@@ -178,6 +323,19 @@ class JobServer:
                 raise ValueError(f"duplicate job id {config.job_id} (still running)")
             future: Future = Future()
             self._jobs[config.job_id] = future
+        if self.ha_log is not None:
+            # acknowledging a submission no successor could replay would lose
+            # it with this leader: unwind and refuse instead
+            if not self._ha_append("submission", job_id=config.job_id,
+                                   config=config.to_dict()):
+                with self._lock:
+                    self._jobs.pop(config.job_id, None)
+                if not self._ha_leader_ok():
+                    raise NotLeader(f"submission {config.job_id} not durable: lease "
+                                    "lapsed (deposed)")
+                raise RuntimeError(f"submission {config.job_id} not durable: log append "
+                                   "failed (sick log store); retry")
+            future.add_done_callback(lambda f, j=config.job_id: self._ha_record_done(j, f))
         try:
             self._scheduler.on_job_arrival(config)
         except BaseException as e:
@@ -201,6 +359,8 @@ class JobServer:
 
     def _dispatch(self, config: JobConfig, executor_ids: List[str]) -> None:
         future = self._future_of(config.job_id)
+        self._ha_append("dispatch", job_id=config.job_id, executors=list(executor_ids),
+                        attempt=attempt_of(config))
         try:
             entity = build_entity(config, chkp_root=self._chkp_root,
                                   global_taskunit=self.global_taskunit,
@@ -256,9 +416,13 @@ class JobServer:
         Then the deferred evaluations run (see :meth:`_run_deferred_evals`),
         with a budget of their own."""
         with self._lock:
-            if self._state != "INIT":
-                return
-            self._state = "CLOSING"
+            state = self._state
+            if state == "INIT":
+                self._state = "CLOSING"
+        if state != "INIT":
+            if state == "NOT_INIT":
+                self._stop_ha()  # a takeover that failed before start()
+            return
         self._stop_tcp()
         deadline = None if timeout is None else time.monotonic() + timeout
         while True:
@@ -281,6 +445,7 @@ class JobServer:
         self._run_deferred_evals(timeout, drained)
         self._stop_serving()
         self._on_closing(timeout)
+        self._stop_ha()
         self._state = "CLOSED"
 
     def _run_deferred_evals(self, timeout: Optional[float], drained: bool) -> None:
@@ -365,10 +530,11 @@ class JobServer:
             svc.stop()
 
     def _status(self) -> Dict[str, Any]:
-        """STATUS reply: the fields of the subsystems this port has. The
-        reference's other fields (stragglers, tenants, phase budget, history,
-        diagnoses, policy, incidents, ha, input service, flight records) are
-        absent until those subsystems are ported (ROADMAP A.10).
+        """STATUS reply: the fields of the subsystems this port has (``ha``:
+        ``{"enabled": false}`` outside an HA control plane). The reference's
+        other fields (stragglers, tenants, phase budget, history, diagnoses,
+        policy, incidents, input service, flight records) are absent until
+        those subsystems are ported (ROADMAP A.10).
         ``job_events`` is this process's structured event rings
         (``jobserver/joblog.py``), by job."""
         from harmony_tpu_torch.jobserver import joblog
@@ -382,6 +548,7 @@ class JobServer:
             "evaluated": sorted(self.eval_results),
             "serving": serving.stats() if serving is not None else None,
             "overload": self.overload.status(),
+            "ha": self._ha_status(),
             "job_events": joblog.job_events(),
         }
 
@@ -513,7 +680,12 @@ class JobServer:
                 cmd = msg.get("command")
                 if faults.armed():
                     faults.site("server.command", cmd=str(cmd))
-                if cmd == "SUBMIT":
+                if (cmd in ("SUBMIT", "POD_RESHARD", "WAIT", "SERVING")
+                        and not self._ha_leader_ok()):
+                    # deposed: the commands that act or answer for the leader
+                    # redirect to the lease holder
+                    reply = self._not_leader_reply()
+                elif cmd == "SUBMIT":
                     reply = self._submit_command(msg)
                 elif cmd == "STATUS":
                     reply = self._status()
@@ -549,9 +721,14 @@ class JobServer:
             return {"ok": False, "busy": True, "retry_after_ms": retry_ms,
                     "error": f"BUSY: control plane overloaded; retry after {retry_ms}ms"}
         config = ConfigBase.from_dict(msg["conf"])
-        with trace_span("jobserver.submit", parent=SpanContext.from_wire(msg.get("trace")),
-                        job_id=config.job_id):
-            self.submit(config)
+        try:
+            with trace_span("jobserver.submit", parent=SpanContext.from_wire(msg.get("trace")),
+                            job_id=config.job_id):
+                self.submit(config)
+        except NotLeader:
+            # deposed between the gate and the durable append: the submission
+            # was unwound, so redirect rather than acknowledge
+            return self._not_leader_reply()
         return {"ok": True, "job_id": config.job_id}
 
     def _wait_command(self, msg: Dict[str, Any], deadline: float) -> Dict[str, Any]:

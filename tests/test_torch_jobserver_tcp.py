@@ -101,8 +101,9 @@ def test_submit_status_wait_serving_shutdown_round_trips(servers, tmp_path):
     status = sender.send_status_command()
     # the fields of the subsystems the port has, and no others
     assert set(status) == {"ok", "state", "running", "evaluated", "serving", "overload",
-                           "job_events"}
+                           "ha", "job_events"}
     assert status["ok"] and status["state"] == "INIT" and status["serving"] is None
+    assert status["ha"] == {"enabled": False}   # the reference's reply outside HA
     assert status["overload"]["ladder"] == "normal"
     reply = sender.send_job_submit_command(_wd_config("rt", 2, "--model-chkp-period", "1"))
     assert reply == {"ok": True, "job_id": "rt"}
