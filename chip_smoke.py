@@ -105,7 +105,13 @@ As each phase ends a ``phase <name>: <s> s`` line gives its host seconds
    the reference's windows (8 then 4 epochs after the epoch-0 comm probe);
    then each job alone with CUDA's sync debug mode set to raise while each
    window is enqueued: no blocking host copy and no other sync inside a
-   window, one drain after it.
+   window, one drain after it. The tenant ledger and the phase budget
+   (``metrics/{accounting,phases}.py``), fed by each worker's drains and
+   read from the JobServer's STATUS after the measured pass: one row a job,
+   its device seconds within its wall, its steps and examples its own
+   epochs x batches x batch size, no MFU, a class of ``metrics/critpath.py``
+   and fractions that sum to 1; the rows and their ``obs top`` and ``obs
+   critpath`` renderings are printed.
 3e. The unfused step (``HARMONY_FUSED_STEP=0``) on the Wide&Deep job of
    phase 3, on the mxu and the sparse push routes: losses
    bit-identical to the fused runs of phases 3 and 4, K1 and the route's
@@ -171,7 +177,8 @@ As each phase ends a ``phase <name>: <s> s`` line gives its host seconds
    bench-fm-hash with a chain entry every epoch and the deferred offline
    evaluation: the evaluations finite and falling, the chain consumed, one
    K1 an entry at the evaluation, and the same chain files restored on the
-   CPU bit for bit with evaluations within CHAIN_EVAL_ATOL; (b) bench-widedeep
+   CPU bit for bit with evaluations within CHAIN_EVAL_ATOL, and the tenant
+   ledger's checkpoint bytes written for the job its entries' bytes; (b) bench-widedeep
    (dense), 1 epoch then resumed from its chain to 2: the losses and the
    table the bits of the uninterrupted 2-epoch run; (c) a flipped byte in a
    block of the newest entry (quarantined, the resume falls back one entry to
@@ -287,6 +294,8 @@ As each phase ends a ``phase <name>: <s> s`` line gives its host seconds
    read of which must be the rows of some committed step, in order (per-step
    snapshots of the unmoved run). Each moved job's 16 losses the bits of the
    unmoved run and within LOSS_ATOL of the same moved job on 4 CPU slots.
+   The registry's ``harmony_blockmove_*`` counters of the device route move
+   by the moves' count, blocks and bytes over (a) and (b).
    For each move: blocks and bytes moved and copied on their slot, host ms
    of the reshard, device ms of its copies (events around them, behind a
    spin kernel so the host's enqueue is not timed), and the step ms (device
@@ -1830,8 +1839,8 @@ def run_trio():
     windows are held by trio_windows_without_syncs, outside it. Returns the
     launches, the summary and run_concurrent's jobs."""
     from harmony_tpu_torch import bench
-
     from harmony_tpu_torch.data import devcache
+    from harmony_tpu_torch.metrics import accounting, phases
 
     wrappers = all_wrappers()
     dev = torch.device("cuda")
@@ -1841,6 +1850,9 @@ def run_trio():
         warmup_calls = dict(calls)
         calls.clear()
         before = {"device": devcache.stats(), "host": devcache.host_data.stats()}
+        # the ledger and the phase budget hold the measured pass alone
+        accounting.reset_ledger()
+        phases.reset_budget()
         reset_counts(*wrappers)
         rate, walls, jobs = bench.run_concurrent([dev], TRIO_SCALE, job_timeout=600.0,
                                                  epochs=epochs)
@@ -1893,6 +1905,7 @@ def run_trio():
           f"launches {launches}, every job started before any finished; training "
           f"spans (s from the first submission) {train_spans}, all overlap: "
           f"{train_overlap}", flush=True)
+    ledger = trio_ledger(jobs, walls, epochs)
     t0 = time.perf_counter()
     cpu_rate = bench.cpu_baseline_rate(BASELINE_SCALE, epochs)
     summary = {
@@ -1914,8 +1927,52 @@ def run_trio():
                     for k, j in jobs.items()},
         "training_spans_overlap": train_overlap,
         "per_epoch_metric": per_epoch,
+        "ledger": ledger,
     }
     return launches, summary, jobs
+
+
+def trio_ledger(jobs, walls, epochs):
+    """Phase 3d's reads of the tenant ledger and the phase budget, as the
+    JobServer's STATUS gave them after the measured pass: one row a job, its
+    device seconds within its wall, its steps and examples its own epochs x
+    batches x batch size, no MFU (no FLOP count), a class of critpath's and
+    fractions that sum to 1 (each rounded to 6 decimals, as the reference
+    rounds them: 7 x 5e-7). Prints the rows and the ``obs top`` and ``obs
+    critpath`` renderings; returns the rows and the read's seconds."""
+    from harmony_tpu_torch import bench, cli
+
+    t0 = time.perf_counter()
+    rows = {k: j["tenant"] for k, j in jobs.items()}
+    budgets = {k: j["phase_budget"] for k, j in jobs.items()}
+    _, totals = bench.job_configs(TRIO_SCALE, epochs)
+    check(all(r is not None for r in rows.values()) and all(budgets.values()),
+          f"phase 3d: a trio job has no ledger row or budget: {rows}, {budgets}")
+    classes = ("input-bound", "comm-bound", "dispatch-bound", "compute-bound", "balanced")
+    for job_id, r in rows.items():
+        check(r["device_seconds_total"] <= walls[job_id],
+              f"phase 3d {job_id}: {r['device_seconds_total']} device seconds over a "
+              f"{walls[job_id]} s wall")
+        check(r["steps_total"] == epochs * bench.BATCHES and r["examples_total"] == totals[job_id],
+              f"phase 3d {job_id}: ledger steps {r['steps_total']}, examples "
+              f"{r['examples_total']}, expected {epochs * bench.BATCHES}, {totals[job_id]}")
+        check(r["mfu"] is None and r["flops_per_step"] is None,
+              f"phase 3d {job_id}: mfu {r['mfu']} with no FLOP count")
+        fr = r["phases"] or {}
+        check(r["phase_class"] in classes and len(fr) == 7
+              and abs(sum(fr.values()) - 1.0) <= 3.5e-6,
+              f"phase 3d {job_id}: class {r['phase_class']}, fractions {fr}")
+        check(budgets[job_id]["classification"] == r["phase_class"],
+              f"phase 3d {job_id}: STATUS's phase_budget and tenants disagree")
+    top = cli._render_tenant_top(rows)
+    crit = cli._render_critpath(budgets, rows)
+    read_s = time.perf_counter() - t0
+    status_s = next(iter(jobs.values()))["status_read_s"]
+    print(f"phase 3d: tenant ledger rows (STATUS after the measured pass, read in "
+          f"{status_s:.4f} s, checked in {read_s:.4f} s): {json.dumps(rows)}", flush=True)
+    print("phase 3d: obs top\n" + "\n".join(top), flush=True)
+    print("phase 3d: obs critpath\n" + "\n".join(crit), flush=True)
+    return {"rows": rows, "status_read_s": status_s, "check_s": read_s}
 
 
 @contextlib.contextmanager
@@ -3216,9 +3273,11 @@ ADDV2 = {"num_keys": 1024, "vector_dim": 16, "n": 65536}
 PR2_GRAPH = {"num_vertices": 262144, "avg_degree": 14}
 
 
-def serve(configs, device):
+def serve(configs, device, servers=None):
     """Submit ``configs`` together to one JobServer on ``device``; returns the
-    results in order and the TaskUnit grants by job and kind."""
+    results in order and the TaskUnit grants by job and kind. The server,
+    shut down, is appended to ``servers`` when given (its metrics stay
+    readable)."""
     from harmony_tpu_torch import bench
     from harmony_tpu_torch.jobserver.server import JobServer
     from harmony_tpu_torch.parallel.mesh import DevicePool
@@ -3232,6 +3291,8 @@ def serve(configs, device):
         server.shutdown(timeout=120)
     check(server.master.table_ids() == [],
           f"tables left after the jobs: {server.master.table_ids()}")
+    if servers is not None:
+        servers.append(server)
     return results, bench.grants_by_job(server.global_taskunit.grant_order())
 
 
@@ -3310,8 +3371,9 @@ def run_multiworker(trio_jobs, fused_trio):
     os.environ["HARMONY_PUSH_VIA"] = "mxu"
     try:
         reset_counts(*wrappers)
+        ssp_server = []
         t0 = time.perf_counter()
-        (ssp,), grants = serve([wd2_config(False)], "cuda")
+        (ssp,), grants = serve([wd2_config(False)], "cuda", ssp_server)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches["bench-widedeep-2-workers"] = {w.__name__: w.launches for w in wrappers}
@@ -3333,6 +3395,17 @@ def run_multiworker(trio_jobs, fused_trio):
         finite_and_falling(w["batch_losses"], EPOCHS * BATCHES, f"phase 3q {wid}")
         check(not w["fused_epochs"] and w["windows"] == [1] * EPOCHS,
               f"phase 3q {wid}: fused {w['fused_epochs']}, windows {w['windows']}")
+    # the straggler report of the job's server (metrics/manager.py): both
+    # workers by their mean batch seconds, the slowest over the median
+    t_read = time.perf_counter()
+    report = ssp_server[0].metrics.straggler_report().get(ssp["job_id"])
+    read_s = time.perf_counter() - t_read
+    check(report is not None and set(report["workers"]) == set(workers)
+          and report["slowest"] in workers and report["ratio"] >= 1.0,
+          f"phase 3q: 2-worker straggler report {report}, workers {sorted(workers)}")
+    out["bench-widedeep-2-workers-stragglers"] = {**report, "read_s": read_s}
+    print(f"phase 3q: 2-worker straggler report (read in {read_s:.4f} s): "
+          f"{json.dumps(report)}", flush=True)
     job_grants = grants[ssp["job_id"]]
     want = {"CPU": 1 + EPOCHS * BATCHES, "NET": EPOCHS}
     check(job_grants == want, f"phase 3q: 2-worker grants {job_grants}, expected {want}")
@@ -3497,12 +3570,20 @@ def run_chain_fm(root, wrappers):
     from harmony_tpu_torch.parallel.mesh import DevicePool
     from harmony_tpu_torch.runtime.master import ETMaster
 
+    from harmony_tpu_torch.metrics.accounting import ledger
+
     config = hash_job("fm", EPOCHS, model_chkp_period=1, offline_model_eval=True)
+    written_before = ledger().snapshot().get(config.job_id, {}).get("bytes", {}).get(
+        "chkp_write", 0)
     server = chain_server(root)
     try:
         reset_counts(*wrappers)
         res = server.submit(config).result(timeout=600)
         train = launch_counts(wrappers)
+        t_read = time.perf_counter()
+        written = ledger().snapshot()[config.job_id]["bytes"].get("chkp_write", 0) \
+            - written_before
+        read_s = time.perf_counter() - t_read
         ids = res["model_chkp_ids"]
         check(len(ids) == EPOCHS and "model_chkp_warning" not in res,
               f"bench-fm-hash chain {ids} {res.get('model_chkp_warning')}")
@@ -3539,7 +3620,13 @@ def run_chain_fm(root, wrappers):
           f"bench-fm-hash evaluation launches {launches}, expected one K1 an entry")
     check(chain_entries_left(root, config.job_id) == [], "the evaluation left chain entries")
     stats = res["model_chkp_stats"]
+    check(written == sum(s["bytes"] for s in stats),
+          f"phase 3r (a): the ledger charged bench-fm-hash {written} checkpoint bytes "
+          f"written, its chain's entries hold {[s['bytes'] for s in stats]}")
+    print(f"phase 3r (a): the tenant ledger's chkp_write bytes of the job, {written}, are "
+          f"its entries' (read in {read_s:.4f} s)", flush=True)
     out = {"entries": len(ids), "codec": codec[0], "entry_bytes": [s["bytes"] for s in stats],
+           "ledger_chkp_write_bytes": written, "ledger_read_s": read_s,
            "entry_disk_bytes": list(disk), "evals": evals, "cpu_evals": cpu_metrics,
            "max_abs_eval_gap_card_vs_cpu": gap, "evaluation_launches": launches,
            "evaluation_seconds": eval_s, "snapshot_ms": [1e3 * s["snapshot_seconds"] for s in stats],
@@ -5899,6 +5986,21 @@ class MoveLog:
         return out
 
 
+def blockmove_counters():
+    """The process registry's cumulative move counters of the in-process route
+    (``transport="device"``), read from its exposition text."""
+    from harmony_tpu_torch.metrics.registry import get_registry, parse_exposition
+
+    fams = parse_exposition(get_registry().expose())
+    out = {}
+    for key, name in (("migrations", "harmony_blockmove_migrations_total"),
+                      ("blocks", "harmony_blockmove_sent_blocks_total"),
+                      ("bytes", "harmony_blockmove_sent_bytes_total")):
+        out[key] = sum(v for _, labels, v in fams.get(name, {}).get("samples", ())
+                       if labels.get("transport") == "device")
+    return out
+
+
 def elastic_server(slots, executors):
     from harmony_tpu_torch.jobserver.server import JobServer
     from harmony_tpu_torch.parallel.mesh import DevicePool
@@ -6150,11 +6252,15 @@ def run_elastic():
         fm_ref, _, _, _, _ = run_elastic_job(slots, "fm", 3)
         # the main path: (a) with the reader of (c), and (b), on the card
         reset_counts(*wrappers)
+        counted_before = blockmove_counters()
         wd, wd_res, wd_log, reads, wd_owners = run_elastic_job(
             slots, "wd", 2, optimizer="add_one_server", scripted=3, reader=True)
         fm, fm_res, fm_log, _, fm_owners = run_elastic_job(
             slots, "fm", 3, optimizer="delete_one_server", scripted=2)
         launches = {w.__name__: w.launches for w in wrappers}
+        t_read = time.perf_counter()
+        counted = {k: v - counted_before.get(k, 0.0) for k, v in blockmove_counters().items()}
+        counters_read_s = time.perf_counter() - t_read
         wd_cpu = run_elastic_job(cpu_slots, "wd", 2, optimizer="add_one_server",
                                  scripted=3)[0]
         fm_cpu = run_elastic_job(cpu_slots, "fm", 3, optimizer="delete_one_server",
@@ -6181,6 +6287,16 @@ def run_elastic():
           f"phase 3w (c): {len(reads)} reads; a read matches no committed step in order")
     check(all(launches[w] > 0 for w in launches),
           f"phase 3w: launches on the path {launches}: a kernel never ran")
+    # the registry's move counters (table/blockmove.py): every move of (a)
+    # and (b) in this process, on the in-process route ("device")
+    moves = wd_log.moves + fm_log.moves
+    want = {"migrations": len(moves), "blocks": sum(m["blocks_moved"] for m in moves),
+            "bytes": sum(m["bytes_moved"] for m in moves)}
+    check(counted == want, f"phase 3w: the registry's harmony_blockmove_* counters moved by "
+                           f"{counted}, the moves' own figures {want}")
+    out["registry_counters"] = {**counted, "read_s": counters_read_s}
+    print(f"phase 3w: the registry's harmony_blockmove_* counters (device route) are the "
+          f"moves' {json.dumps(counted)} (read in {counters_read_s:.4f} s)", flush=True)
     out["launches"] = launches
     out["moves"] = {"(a) bench-widedeep": wd_log.report(), "(b) bench-fm-hash": fm_log.report()}
     out["reader"] = {"reads": len(reads), "keys": ELASTIC_READ_KEYS,

@@ -91,7 +91,9 @@ def run_concurrent(devices: Sequence[DeviceLike], scale: float, job_timeout: flo
     Returns (aggregate samples/s = all examples / wall, each job's wall in
     seconds from the common start, and per job: its worker's result, the
     seconds from the common start at which its set-up began, its training
-    began and ended, and it finished, and its TaskUnit grants by kind)."""
+    began and ended, and it finished, its TaskUnit grants by kind, and its
+    row of the server's STATUS ``tenants`` and ``phase_budget``, read once
+    after the last job's end, with the seconds that read took)."""
     configs, totals = job_configs(scale, epochs)
     server = JobServer(num_executors=len(devices), device_pool=DevicePool(devices))
     server.start()
@@ -109,6 +111,9 @@ def run_concurrent(devices: Sequence[DeviceLike], scale: float, job_timeout: flo
             futures.append(f)
         results = [f.result(timeout=job_timeout) for f in futures]
         wall = time.perf_counter() - t0
+        t_status = time.perf_counter()
+        status = server._status()
+        status_s = time.perf_counter() - t_status
     finally:
         server.shutdown(timeout=120)
     grants = grants_by_job(server.global_taskunit.grant_order())
@@ -122,6 +127,9 @@ def run_concurrent(devices: Sequence[DeviceLike], scale: float, job_timeout: flo
             "train_end_s": worker["train_span"][1] - t0,
             "end_s": r["span"][1] - t0,
             "grants": grants.get(r["job_id"], {}),
+            "tenant": status["tenants"].get(r["job_id"]),
+            "phase_budget": status["phase_budget"].get(r["job_id"]),
+            "status_read_s": status_s,
         }
     rate = sum(totals.values()) / wall
     print(f"  {len(configs)} jobs, {sum(totals.values())} examples, {wall:.2f} s -> "
@@ -185,7 +193,8 @@ def main(argv: "List[str] | None" = None) -> int:
     detail = {job_id: {"wall_s": walls[job_id], "steady_epoch_s": steady,
                        "epoch_seconds": jobs[job_id]["worker"]["epoch_seconds"],
                        "fused_epochs": jobs[job_id]["worker"]["fused_epochs"],
-                       **{k: v for k, v in jobs[job_id].items() if k != "worker"}}
+                       **{k: v for k, v in jobs[job_id].items()
+                          if k not in ("worker", "tenant", "phase_budget")}}
               for job_id, steady in steady_epoch_seconds(jobs).items()}
     print("per-job: " + json.dumps(detail), file=sys.stderr)
     cpu_rate = cpu_baseline_rate(args.baseline_scale, args.epochs)

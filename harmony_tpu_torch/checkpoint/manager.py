@@ -39,8 +39,15 @@ recovery's restore) reads only the blocks of them that this process's
 recovery cache (``recovery_blocks``, filled when ``recovery_retain`` is set)
 does not hold.
 
-Not ported: the reference's read accounting and I/O histograms (the metrics
-registry), and the tenant-accounting and joblog hooks (ROADMAP A.10).
+Accounting, as in the reference: :data:`read_stats` counts the blocks and
+bytes read from checkpoint storage (mirrored onto the registry's
+``harmony_checkpoint_{blocks_read,read_bytes}_total``); each block's write,
+read and partial read is timed into ``harmony_chkp_io_seconds{op}``; the
+write side's staged bytes are the ``harmony_chkp_inflight_bytes`` gauge; and
+a per-job manager (:meth:`CheckpointManager.for_job`) charges the bytes it
+writes and reads to its job in the tenant ledger (``chkp_write``,
+``chkp_read``), other managers through the ledger's table binding. All of it
+is guarded: accounting never fails a checkpoint.
 """
 from __future__ import annotations
 
@@ -63,6 +70,67 @@ from harmony_tpu_torch.parallel import multihost
 from harmony_tpu_torch.parallel.mesh import is_local, mesh_spans_processes
 from harmony_tpu_torch.runtime.master import ETMaster, TableHandle
 from harmony_tpu_torch.tracing.span import SpanContext, trace_span, wire_context
+
+#: Process-wide checkpoint READ accounting (blocks/bytes materialized from
+#: checkpoint storage by _read_block); reset with :func:`reset_read_stats`.
+read_stats: Dict[str, int] = {"blocks_read": 0, "bytes_read": 0}
+_READ_STATS_LOCK = threading.Lock()
+
+
+def reset_read_stats() -> None:
+    with _READ_STATS_LOCK:
+        read_stats["blocks_read"] = 0
+        read_stats["bytes_read"] = 0
+
+
+def _observe_io(op: str, seconds: float) -> None:
+    """harmony_chkp_io_seconds{op}: per-block checkpoint I/O latency (op =
+    write | read | partial_read). Best-effort: observability never fails a
+    checkpoint."""
+    try:
+        from harmony_tpu_torch.metrics.registry import get_registry
+
+        get_registry().histogram(
+            "harmony_chkp_io_seconds",
+            "Per-block checkpoint I/O latency",
+            ("op",),
+        ).labels(op=op).observe(seconds)
+    except Exception:
+        pass
+
+
+def _set_inflight_gauge(nbytes: int) -> None:
+    try:
+        from harmony_tpu_torch.metrics.registry import get_registry
+
+        get_registry().gauge(
+            "harmony_chkp_inflight_bytes",
+            "Bytes of checkpoint blocks staged in host memory awaiting "
+            "their write leg (write-side backpressure budget)",
+        ).set(float(nbytes))
+    except Exception:
+        pass
+
+
+def _account_read(arr: np.ndarray) -> None:
+    with _READ_STATS_LOCK:
+        read_stats["blocks_read"] += 1
+        read_stats["bytes_read"] += int(arr.nbytes)
+    try:
+        from harmony_tpu_torch.metrics.registry import get_registry
+
+        reg = get_registry()
+        reg.counter(
+            "harmony_checkpoint_blocks_read_total",
+            "Blocks materialized from checkpoint storage",
+        ).inc()
+        reg.counter(
+            "harmony_checkpoint_read_bytes_total",
+            "Bytes materialized from checkpoint storage",
+        ).inc(int(arr.nbytes))
+    except Exception:
+        pass
+
 
 # -- parallel block I/O (HARMONY_CHKP_IO_THREADS) -------------------------
 #
@@ -152,10 +220,12 @@ class _InflightBudget:
             while self._inflight > 0 and self._inflight + n > self._cap:
                 self._cv.wait()
             self._inflight += n
+            _set_inflight_gauge(self._inflight)
 
     def release(self, n: int) -> None:
         with self._cv:
             self._inflight -= n
+            _set_inflight_gauge(self._inflight)
             self._cv.notify_all()
 
 
@@ -169,7 +239,12 @@ def _stage_blocks(staging: str, arrs, policy: RetryPolicy) -> Dict[str, int]:
     in-flight budget is spent."""
     threads = _chkp_io_threads()
     if threads == 1:
-        return {str(bid): _write_block(staging, bid, arr, policy) for bid, arr in arrs}
+        out: Dict[str, int] = {}
+        for bid, arr in arrs:
+            t0 = time.monotonic()
+            out[str(bid)] = _write_block(staging, bid, arr, policy)
+            _observe_io("write", time.monotonic() - t0)
+        return out
     from concurrent.futures import Future, ThreadPoolExecutor
 
     budget = _InflightBudget(threads * _INFLIGHT_PER_THREAD)
@@ -178,7 +253,10 @@ def _stage_blocks(staging: str, arrs, policy: RetryPolicy) -> Dict[str, int]:
 
     def write_one(bid: int, arr: np.ndarray) -> int:
         try:
-            return _write_block(staging, bid, arr, policy)
+            t0 = time.monotonic()
+            crc = _write_block(staging, bid, arr, policy)
+            _observe_io("write", time.monotonic() - t0)
+            return crc
         except BaseException:
             failed.set()  # stop the producer: no point staging more
             raise
@@ -212,7 +290,10 @@ def _fetch_blocks(d: str, bids, crcs: Dict[str, int],
     outstanding reads are cancelled or drained."""
 
     def read_one(bid: int):
-        return bid, _read_block(d, bid, expected_crc=crcs.get(str(bid)), policy=policy)
+        t0 = time.monotonic()
+        arr = _read_block(d, bid, expected_crc=crcs.get(str(bid)), policy=policy)
+        _observe_io("read", time.monotonic() - t0)
+        return bid, arr
 
     bids = list(bids)
     threads = min(_chkp_io_threads(), max(1, len(bids)))
@@ -322,6 +403,7 @@ def _read_block(d: str, bid: int, expected_crc: Optional[int] = None,
             raise CheckpointCorruptError(
                 f"block {bid} under {d} fails its manifest checksum "
                 f"(expected {expected_crc}, got {got})")
+    _account_read(arr)
     return arr
 
 
@@ -482,9 +564,12 @@ class CheckpointManager:
     def for_job(cls, chkp_root: str, job_id: str) -> "CheckpointManager":
         """The per-job layout, ``<root>/<job>/temp`` and ``<root>/<job>/commit``
         (the reference's ``HARMONY_CHKP_BACKEND`` switch selects its Orbax
-        backend, which is not ported)."""
-        return cls(os.path.join(chkp_root, job_id, "temp"),
-                   os.path.join(chkp_root, job_id, "commit"))
+        backend, which is not ported); the manager charges its checkpoint
+        bytes to the job in the tenant ledger."""
+        mgr = cls(os.path.join(chkp_root, job_id, "temp"),
+                  os.path.join(chkp_root, job_id, "commit"))
+        mgr.job_id = job_id
+        return mgr
 
     def __init__(self, temp_root: str, commit_root: str, backend=None) -> None:
         """``commit_root`` is the durable store, a directory; ``backend`` a
@@ -505,6 +590,25 @@ class CheckpointManager:
         #: ids, count and bytes of the blocks it staged, and the seconds the
         #: staging took (the host copies and the block writes)
         self.last_staged: Dict[str, Any] = {}
+        #: set by for_job(): the tenant this manager's checkpoint bytes are
+        #: charged to (metrics/accounting.py); None: through the table binding
+        self.job_id: Optional[str] = None
+
+    def _account_bytes(self, kind: str, nbytes: int, table_id: str) -> None:
+        """Tenant-ledger attribution: a per-job manager charges its job,
+        others resolve through the ledger's table binding. Guarded:
+        accounting never fails (or slows) checkpoint I/O."""
+        if nbytes <= 0:
+            return
+        try:
+            from harmony_tpu_torch.metrics.accounting import ledger
+
+            if self.job_id is not None:
+                ledger().record_job_bytes(self.job_id, kind, int(nbytes))
+            else:
+                ledger().record_table_bytes(table_id, kind, int(nbytes))
+        except Exception:
+            pass
 
     def advance_counter(self, base: int) -> None:
         """Start id counters past ``base``: a RESUMED job's chain continues
@@ -579,6 +683,7 @@ class CheckpointManager:
                     yield ids[i], arr
 
             info.block_checksums = _stage_blocks(staging, host_blocks(), policy)
+            self._account_bytes("chkp_write", staged_bytes, info.table_config.table_id)
             if retained is not None:
                 _recovery_put(info.table_config.table_id, info.chkp_id, retained)
             with open(os.path.join(staging, "manifest.json"), "w") as f:
@@ -687,6 +792,7 @@ class CheckpointManager:
 
             crcs = _stage_blocks(staging, host_blocks(), RetryPolicy.from_env())
             staged["blocks"] = len(staged["block_ids"])
+            self._account_bytes("chkp_write", staged["bytes"], info.table_config.table_id)
             if retained is not None:
                 _recovery_put(info.table_config.table_id, chkp_id, retained)
             # only this process knows its blocks' checksums: the leader merges
@@ -881,18 +987,25 @@ class CheckpointManager:
                 # finished chunks install, in block-id order (deterministic)
                 from concurrent.futures import ThreadPoolExecutor
 
+                def read_one(bid: int) -> np.ndarray:
+                    t0 = time.monotonic()
+                    arr = _read_block(d, bid, crcs.get(str(bid)), policy)
+                    _observe_io("read", time.monotonic() - t0)
+                    return arr
+
                 pool = ThreadPoolExecutor(max_workers=threads, thread_name_prefix="chkp-io")
-                raw = {bid: pool.submit(_read_block, d, bid, crcs.get(str(bid)), policy)
-                       for bid in info.block_ids}
+                raw = {bid: pool.submit(read_one, bid) for bid in info.block_ids}
             else:
                 # sparse / sampled blocks need per-block processing: read all
                 # first (still parallel)
                 raw = _fetch_blocks(d, info.block_ids, crcs, policy)
             blocks: Dict[int, Any] = {}
+            read_bytes = 0
             for bid in info.block_ids:
                 arr = raw.pop(bid)
                 if pipelined:
                     arr = arr.result()
+                read_bytes += int(arr.nbytes)
                 if cfg.sparse:
                     blocks[bid] = _unpack_hash_block(arr, spec)
                     continue
@@ -911,6 +1024,7 @@ class CheckpointManager:
                     handle.table.import_blocks(blocks)
                     blocks = {}
             handle.table.import_blocks(blocks)
+            self._account_bytes("chkp_read", read_bytes, handle.table_id)
         except BaseException:
             handle.drop()  # no half-restored orphan table
             raise
@@ -940,6 +1054,9 @@ class CheckpointManager:
             if sp is not None:
                 for k, v in stats.items():
                     sp.annotate(k, v)
+            # bytes_read is -1 on the sparse/sampled full-restore fallback
+            # (the inner restore accounted it)
+            self._account_bytes("chkp_read", stats.get("bytes_read", 0), handle.table_id)
             return handle, stats
 
     def _restore_partial_inner(self, master: ETMaster, chkp_id: str,
@@ -974,7 +1091,9 @@ class CheckpointManager:
             def read_one(bid: int) -> np.ndarray:
                 if faults.armed():
                     faults.site("chkp.partial_read", block=bid, chkp_id=chkp_id)
+                t0 = time.monotonic()
                 arr = _read_block(d, bid, expected_crc=crcs.get(str(bid)), policy=policy)
+                _observe_io("partial_read", time.monotonic() - t0)
                 if arr.shape[0] < table.spec.block_size:
                     raise CheckpointCorruptError(
                         f"partial restore of {chkp_id}: block {bid} is short "

@@ -46,9 +46,20 @@ others redirect clients to, ``--ha-recv-port`` receives the leader's log
 stream (``HARMONY_HA_REPLICAS`` lists the receivers; it binds the loopback
 interface) and ``--ha-bind`` is the interface the submit and standby
 endpoints bind. ``start-pod --pod-leader-addrs`` lists the
-control-plane endpoints a follower JOINs again after losing its leader. The
-reference's ``obs``, ``dashboard`` and ``inputsvc`` are not ported (ROADMAP
-A.10).
+control-plane endpoints a follower JOINs again after losing its leader.
+
+``obs top`` and ``obs critpath`` read one STATUS of a running jobserver
+(``--port``, else the ``HARMONY_JOBSERVER_ADDRS`` replica list, else 43110)
+and render it as the reference does: ``top`` the overload line and the
+tenant ledger (a row a job: device seconds, samples/s, MFU, resident bytes,
+input wait, SLO attainment, straggler ratio; unknown values as ``-``),
+``critpath`` each tenant's step-phase waterfall and the epochs' critical
+path; ``--json`` prints STATUS's ``tenants`` or ``phase_budget`` as it came.
+The reference's other ``obs`` subcommands are refused, each naming the
+ROADMAP item that brings its subsystem (``flight`` and ``trace`` 6.4,
+``metrics``, ``doctor`` and ``incidents`` 6.2, ``plan`` 5.2), as are its
+``dashboard`` (6.4) and ``inputsvc`` (7.2) commands, which are not
+parsed at all.
 
 The presets cover the apps this port runs: the training apps ``mlr``,
 ``nmf``, ``lda``, ``lasso``, ``gbt``, ``addvector``, ``addinteger``, ``fm``,
@@ -584,6 +595,221 @@ def _cmd_client(args: argparse.Namespace) -> int:
     return 0 if resp.get("ok") else 1
 
 
+#: the reference's obs subcommands this package does not run yet, by the
+#: ROADMAP A item that brings what each reads
+_OBS_UNPORTED = {"flight": "6.4", "metrics": "6.2", "trace": "6.4", "doctor": "6.2",
+                 "plan": "5.2", "incidents": "6.2"}
+
+
+def _cmd_obs(args: argparse.Namespace) -> int:
+    """``obs top`` and ``obs critpath``: one STATUS of a running jobserver,
+    rendered (or printed raw with ``--json``)."""
+    if args.what in _OBS_UNPORTED:
+        print(f"obs {args.what} is not ported yet (ROADMAP A item "
+              f"{_OBS_UNPORTED[args.what]}); this package runs obs top and obs critpath",
+              file=sys.stderr)
+        return 2
+    status = _cli_command(_sender(args.port).send_status_command)
+    if not status.get("ok"):
+        print(json.dumps(status))
+        return 1
+    if args.what == "top":
+        if args.json:
+            print(json.dumps(status.get("tenants", {}), indent=2))
+            return 0
+        lines = (_render_overload(status.get("overload") or {})
+                 + _render_tenant_top(status.get("tenants", {})))
+    else:
+        if args.json:
+            print(json.dumps(status.get("phase_budget", {}), indent=2))
+            return 0
+        lines = _render_critpath(status.get("phase_budget", {}), status.get("tenants", {}))
+    for line in lines:
+        print(line)
+    return 0
+
+
+def _render_table(rows: "List[tuple]") -> "List[str]":
+    """Fixed-width text table shared by the ``obs`` renderers: rows[0]
+    is the header; a dashed separator follows it."""
+    widths = [max(len(row[i]) for row in rows)
+              for i in range(len(rows[0]))]
+    out = []
+    for i, row in enumerate(rows):
+        out.append("  ".join(c.ljust(w)
+                             for c, w in zip(row, widths)).rstrip())
+        if i == 0:
+            out.append("  ".join("-" * w for w in widths))
+    return out
+
+
+#: waterfall row order + short labels — taxonomy order, residual last
+_CRITPATH_ROWS = (("input_wait", "input"), ("host_dispatch", "dispatch"),
+                  ("pull_comm", "pull"), ("compute", "compute"),
+                  ("push_comm", "push"), ("barrier_wait", "barrier"),
+                  ("residual", "residual"))
+_CRITPATH_BAR = 30
+
+
+def _render_critpath(budget: dict, tenants: "Optional[dict]" = None
+                     ) -> "List[str]":
+    """One-screen per-tenant step-phase waterfall from a single STATUS
+    scrape (metrics/phases.py has the glossary): per tenant a
+    classification header, one bar per phase (percent of window wall —
+    phases + residual sum to ~100% by the budget invariant), and the
+    per-epoch critical path (which worker and phase gated the epoch
+    barrier — the straggler report says who, this says why). When the
+    STATUS tenants payload is passed alongside, a tenant running
+    bounded-staleness async mode gets an extra line splitting its comm
+    time into overlapped (hidden behind compute) vs exposed
+    (staleness-gate wait that blocked compute)."""
+    if not budget:
+        return ["(no phase budget recorded — no worker fed the "
+                "budget store in the window)"]
+    tenants = tenants or {}
+    out: List[str] = []
+    for job in sorted(budget,
+                      key=lambda j: -(budget[j].get("wall_sec") or 0.0)):
+        row = budget[job]
+        fr = row.get("fractions") or {}
+        ph = row.get("phases") or {}
+        strag = row.get("straggler_ratio")
+        out.append(
+            f"{job} [{row.get('attempt', job)}]  "
+            f"{row.get('classification', '?')}  "
+            f"wall {row.get('wall_sec', 0.0):.2f}s over "
+            f"{row.get('epochs', 0)} epoch(s), "
+            f"{len(row.get('per_worker') or {})} worker(s)"
+            + (f", straggler x{strag:.2f}" if strag is not None else ""))
+        for phase, label in _CRITPATH_ROWS:
+            f = float(fr.get(phase, 0.0))
+            bar = "#" * max(int(round(f * _CRITPATH_BAR)),
+                            1 if f > 0 else 0)
+            out.append(f"  {label:9s} {100.0 * f:5.1f}% "
+                       f"{ph.get(phase, 0.0):8.3f}s  {bar}")
+        a = (tenants.get(job) or {}).get("async") or {}
+        if a.get("enabled"):
+            out.append(
+                f"  async: staleness bound {a.get('staleness_bound', 0)}, "
+                f"max lag {a.get('max_lag', 0)}, comm "
+                f"{a.get('overlapped_comm_sec', 0.0):.3f}s overlapped / "
+                f"{a.get('exposed_wait_sec', 0.0):.3f}s exposed")
+        cp = row.get("critical_path") or []
+        if cp:
+            gates = ", ".join(
+                f"e{c['epoch']}:{c['worker']}({c['phase']})"
+                for c in cp[-6:])
+            out.append(f"  critical path: {gates}")
+        out.append("")
+    if out and not out[-1]:
+        out.pop()
+    return out
+
+
+def _fmt_bytes(n) -> str:
+    if n is None:
+        return "-"
+    n = float(n)
+    for unit in ("B", "KiB", "MiB", "GiB", "TiB"):
+        if n < 1024 or unit == "TiB":
+            return f"{n:.0f}{unit}" if unit == "B" else f"{n:.1f}{unit}"
+        n /= 1024
+    return "-"  # pragma: no cover - loop always returns
+
+
+def _render_overload(overload: dict) -> "List[str]":
+    """One line of control-plane overload state from STATUS (the
+    degradation ladder, jobserver/overload.py). Quiet when healthy:
+    nothing at level 0 with no shed history — the common case stays
+    one clean tenant table. Anything above normal (or any shed count)
+    prints ladder position, the pressure reason, queue fill/lag and
+    the per-action shed tallies so an operator sees WHAT fidelity was
+    traded."""
+    if not overload:
+        return []
+    sheds = overload.get("sheds") or {}
+    level = int(overload.get("level") or 0)
+    if level == 0 and not sheds:
+        return []
+    q = overload.get("queue_fill")
+    lag = overload.get("queue_lag_ms")
+    parts = [f"overload: ladder={overload.get('ladder', '?')}"
+             f" level={level}"]
+    if overload.get("reason"):
+        parts.append(f"reason={overload['reason']}")
+    if q is not None:
+        parts.append(f"queue_fill={float(q):.2f}")
+    if lag is not None:
+        parts.append(f"lag={float(lag):.0f}ms")
+    out = ["  ".join(parts)]
+    if sheds:
+        out.append("  sheds: " + "  ".join(
+            f"{k}={v}" for k, v in sorted(sheds.items())))
+    return out
+
+
+def _render_tenant_top(tenants: dict) -> "List[str]":
+    """One-screen per-tenant cost view from a single STATUS scrape
+    (metrics/accounting.py has the column glossary).
+    Unknown-vs-zero is load-bearing: a None (no cost model, no target,
+    no peers) renders as '-', never as 0 — bench.py's convention
+    reserves 0 for real zeros. Rows sort by windowed device seconds,
+    heaviest first (the 'top' semantic)."""
+    cols = ("TENANT", "ATTEMPT", "W", "DEV-S", "SPS", "MFU", "HBM",
+            "HBM%", "INWAIT%", "SLO", "STRAG")
+    rows = [cols]
+
+    def pct(v):
+        return f"{100.0 * v:.1f}" if v is not None else "-"
+
+    for r in sorted(tenants.values(),
+                    key=lambda r: -(r.get("device_seconds") or 0.0)):
+        slo = r.get("slo") or {}
+        att = slo.get("attainment")
+        slo_cell = "-" if att is None else (
+            f"{att:.2f}" + ("!" if slo.get("events") else ""))
+        mfu = r.get("mfu")
+        strag = r.get("straggler_ratio")
+        rows.append((
+            str(r.get("job", "?")),
+            str(r.get("attempt", "")),
+            str(r.get("workers", 0)),
+            f"{r.get('device_seconds') or 0.0:.2f}",
+            ("-" if r.get("samples_per_sec") is None
+             else f"{r['samples_per_sec']:,.0f}"),
+            "-" if mfu is None else f"{100.0 * mfu:.2f}%",
+            _fmt_bytes(r.get("resident_bytes")),
+            pct(r.get("hbm_share")),
+            pct(r.get("input_wait_frac")),
+            slo_cell,
+            "-" if strag is None else f"{strag:.2f}",
+        ))
+    out = _render_table(rows)
+    if len(rows) == 1:
+        out.append("(no tenant activity recorded)")
+    for job, r in sorted(tenants.items()):
+        srv = r.get("serving") or {}
+        if not srv.get("enabled"):
+            continue
+        out.append(
+            f"serving {r.get('job', job)}: "
+            f"qps {_srv_num(srv.get('qps'), '{:.1f}')}  "
+            f"p50 {_srv_num(srv.get('p50_ms'), '{:.1f}ms')}  "
+            f"p99 {_srv_num(srv.get('p99_ms'), '{:.1f}ms')}"
+            + (f" (slo {srv['slo_p99_ms']:.0f}ms)"
+               if srv.get("slo_p99_ms") is not None else "")
+            + f"  occupancy {_srv_num(srv.get('batch_occupancy'), '{:.1f}')}"
+            f"  cache hit "
+            f"{_srv_num(srv.get('cache_hit_rate'), '{:.1%}')}")
+    return out
+
+
+def _srv_num(v, fmt: str) -> str:
+    """Serving cells follow the table's unknown-vs-zero contract: an
+    unmeasured quantity renders '-', never a fake 0."""
+    return "-" if v is None else fmt.format(float(v))
+
+
 def _common_job_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("app", choices=sorted(PRESETS))
     p.add_argument("--job-id", default=None)
@@ -696,6 +922,13 @@ def build_parser() -> argparse.ArgumentParser:
     _port_flag(p)
     p = sub.add_parser("shutdown", help="graceful jobserver shutdown")
     _port_flag(p)
+    p = sub.add_parser("obs", help="observability: the per-tenant cost top and the "
+                                   "step-phase critical path of a running jobserver")
+    p.add_argument("what", choices=("top", "flight", "metrics", "trace", "doctor",
+                                    "critpath", "plan", "incidents"))
+    _port_flag(p)
+    p.add_argument("--json", action="store_true",
+                   help="top: STATUS's raw tenant ledger; critpath: its raw phase budgets")
     return ap
 
 
@@ -707,6 +940,8 @@ def main(argv: "List[str] | None" = None) -> int:
         return _cmd_start_jobserver(args)
     if args.cmd == "start-pod":
         return _cmd_start_pod(args)
+    if args.cmd == "obs":
+        return _cmd_obs(args)
     return _cmd_client(args)
 
 

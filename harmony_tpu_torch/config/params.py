@@ -140,6 +140,11 @@ class TrainerParams(ConfigBase):
     # unfused step.
     async_step: bool = False
     staleness_bound: int = 0
+    # The job's throughput target, samples/s (0 = none): the tenant ledger's
+    # SLO attainment, and one kind="slo" joblog event when the chief's rate
+    # stays under 90% of it for 3 epochs (dolphin/worker.py::_check_slo).
+    # The process-wide HARMONY_SLO_SPS env knob overrides it for every job.
+    target_samples_per_sec: float = 0.0
     app_params: Dict[str, Any] = field(default_factory=dict)
 
 

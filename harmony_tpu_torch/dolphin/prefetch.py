@@ -27,7 +27,10 @@ copy that last read it has completed. Under a JobServer a single-worker job's
 staging copies ride the TaskUnit fair queue as NET units (``net_scope``).
 A reshard that moves the table's compute device demotes the epoch's pipeline
 to host-only (:meth:`PrefetchPipeline.stop_staging`, called by the worker's
-layout listener): the copies staged for the old device are dropped.
+layout listener): the copies staged for the old device are dropped, and
+counted in the registry's ``harmony_input_dropped_total{reason="demote"}``.
+At its close an epoch's pipeline reports an ``InputPipelineMetrics``
+(:meth:`PrefetchPipeline.report`).
 """
 from __future__ import annotations
 
@@ -42,6 +45,7 @@ import torch
 
 from harmony_tpu_torch.data.loader import StageRing
 from harmony_tpu_torch.dolphin.rows import RowBatch, row_bounds
+from harmony_tpu_torch.metrics.collector import InputPipelineMetrics
 from harmony_tpu_torch.runtime.taskunit import TaskUnitAborted
 
 
@@ -252,6 +256,19 @@ class PrefetchPipeline:
 
         n = self._ring.apply(drop)
         self.dropped += box[0]
+        if box[0]:
+            try:
+                from harmony_tpu_torch.metrics.registry import get_registry
+
+                get_registry().counter(
+                    "harmony_input_dropped_total",
+                    "Staged input batches whose device copies were "
+                    "dropped before use, by reason (reshard "
+                    "invalidation / host-only demotion)",
+                    ("reason",),
+                ).labels(reason="demote").inc(box[0])
+            except Exception:
+                pass  # metrics are an observer, never a dependency
         return n
 
     def close(self) -> None:
@@ -275,3 +292,17 @@ class PrefetchPipeline:
             "stage_sec": self.stage_sec,
             "dropped_batches": self.dropped,
         }
+
+    def report(self, job_id: str, worker_id: str, epoch: int, hits: int,
+               misses: int) -> InputPipelineMetrics:
+        """This epoch's input-pipeline record from :meth:`stats`, with the
+        consumer's prefetch ``hits`` and ``misses`` (staged copies taken, and
+        staged batches placed anew)."""
+        s = self.stats()
+        return InputPipelineMetrics(
+            job_id=job_id, worker_id=worker_id, epoch_idx=epoch,
+            staged_batches=s["staged"], prefetch_hits=hits, prefetch_misses=misses,
+            max_depth=s["max_depth"], produce_sec=s["produce_sec"],
+            stage_sec=s["stage_sec"], producer_idle_sec=s["producer_idle_sec"],
+            consumer_stall_sec=s["consumer_stall_sec"],
+            dropped_batches=s["dropped_batches"])

@@ -140,7 +140,14 @@ from harmony_tpu_torch.dolphin.rows import (
     stage_stack_rows,
 )
 from harmony_tpu_torch.dolphin.trainer import Trainer, TrainerContext
+from harmony_tpu_torch.jobserver.elastic import attempt_key
+from harmony_tpu_torch.metrics import accounting, phases
 from harmony_tpu_torch.metrics.collector import BatchMetrics, MetricCollector
+from harmony_tpu_torch.metrics.registry import (
+    EPOCH_TIME_BUCKETS,
+    STEP_TIME_BUCKETS,
+    get_registry,
+)
 from harmony_tpu_torch.parallel import multihost
 from harmony_tpu_torch.parallel.collectives import counted_as
 from harmony_tpu_torch.parallel.mesh import mesh_spans_processes
@@ -845,8 +852,9 @@ class WorkerTasklet:
     ) -> None:
         self.job_id = job_id
         # the elastic attempt this run is (jobserver/elastic.py; 0 for any
-        # other job), echoed in the result
+        # other job), echoed in the result, and its key in the tenant ledger
         self.attempt = attempt
+        self.attempt_key = attempt_key(job_id, attempt)
         self.ctx = ctx
         self.trainer = trainer
         self.data = data
@@ -927,6 +935,23 @@ class WorkerTasklet:
         self.collector = collector
         self.op_stats: Dict[str, int] = {"pulls": 0, "pushes": 0, "pull_bytes": 0}
         self._pull_bytes: Optional[int] = None
+        # the job's throughput SLO (metrics/accounting.py): the env knob
+        # overrides the job's param for every tenant. The chief checks it at
+        # each epoch's end (_check_slo)
+        target = accounting.slo_target_from_env()
+        if target is None and params.target_samples_per_sec > 0:
+            target = float(params.target_samples_per_sec)
+        self._slo_target: Optional[float] = target
+        self._slo_below = 0
+        self._slo_fired = False
+        # the step-phase budget (metrics/phases.py): host seconds of batch
+        # placement, summed on the training thread and taken at each epoch's
+        # end, and each epoch's input-wait seconds (its pipeline's consumer
+        # stall), both read by the drain's report
+        self._phase_dispatch_acc = 0.0
+        self._phase_dispatch: Dict[int, float] = {}
+        self._phase_input_wait: Dict[int, float] = {}
+        self._step_hist = None
 
     # -- step construction ----------------------------------------------
 
@@ -1142,6 +1167,7 @@ class WorkerTasklet:
             self._step = self._step_core(self._push_route)
         else:
             self._step = self._build_unfused(self._push_route)
+        self._bind_ledger()
 
     def _spans_processes(self) -> bool:
         """Whether the model table's mesh spans the processes of a pod."""
@@ -1570,6 +1596,8 @@ class WorkerTasklet:
                 yield i, b, None
             return
         pipeline = self._pipeline = self._make_pipeline(epoch)
+        inp = self._input
+        hits0, misses0 = inp["prefetch_hits"], inp["prefetch_misses"]
         try:
             for staged in pipeline:
                 yield staged.index, staged.host, staged
@@ -1577,12 +1605,13 @@ class WorkerTasklet:
             self._pipeline = None
             pipeline.close()
             stats = pipeline.stats()
-            inp = self._input
             inp["pipelines"] += 1
             inp["max_depth"] = max(inp["max_depth"], stats["max_depth"])
             for k in ("staged", "producer_idle_sec", "consumer_stall_sec",
                       "produce_sec", "stage_sec", "dropped_batches"):
                 inp[k] += stats[k]
+            self._report_input(pipeline, epoch, inp["prefetch_hits"] - hits0,
+                               inp["prefetch_misses"] - misses0)
 
     def _make_pipeline(self, epoch: int) -> PrefetchPipeline:
         net_scope = None
@@ -1635,6 +1664,8 @@ class WorkerTasklet:
                         staged: Optional[StagedBatch]) -> Dict[str, torch.Tensor]:
         self._step_fault_site(batch_idx)
         self._check_local_rows(batch_idx, batch)
+        # host_dispatch (metrics/phases.py): the placement's host seconds
+        t_place = time.perf_counter()
         batch_dev = staged.take() if staged is not None else None
         if batch_dev is not None:
             self._input["prefetch_hits"] += 1
@@ -1649,6 +1680,7 @@ class WorkerTasklet:
                 batch_dev = self._cached_batch(batch_idx, batch)
             else:
                 batch_dev = self._place(self._host_batch(batch_idx, batch))
+        self._phase_dispatch_acc += time.perf_counter() - t_place
         return self._dispatch(batch_dev, hyper)
 
     def _mark(self) -> Optional[torch.cuda.Event]:
@@ -1760,6 +1792,7 @@ class WorkerTasklet:
                     nxt = next(it, None)
         finally:
             it.close()
+        self._phase_dispatch[epoch], self._phase_dispatch_acc = self._phase_dispatch_acc, 0.0
         return pending, stop
 
     def _run_batched_epochs(self, first_epoch: int, k: int
@@ -1959,28 +1992,188 @@ class WorkerTasklet:
 
     def _report_batches(self, first_epoch: int, losses: List[List[float]],
                         epoch_sec: float) -> None:
-        """After a drain: queue one ``BatchMetrics`` a batch at the epoch's
-        seconds smeared over its batches, with the probe's pull/push split
-        (the unfused phases' own where they run) and comp the rest; the queue
-        is flushed after the epoch callback. Host arithmetic on numbers the
-        drain already has; nothing without a collector."""
-        if self.collector is None:
-            return
+        """After a drain, for each epoch of its window: queue one
+        ``BatchMetrics`` a batch (with a collector) at the epoch's seconds
+        smeared over its batches, with the probe's pull/push split (the
+        unfused phases' own where they run) and comp the rest; the queue is
+        flushed after the epoch callback. Then the epoch's feeds: the tenant
+        ledger (steps, examples, device seconds: the epoch's seconds less its
+        input wait), the step-phase budget (that split of the same seconds,
+        the placement seconds, the input wait), the step and epoch
+        histograms, and the chief's SLO check. Host arithmetic on numbers the
+        drain already has: no sync, no launch."""
         measured_fn = getattr(self._step, "mean_phase_seconds", None)
-        if measured_fn is not None:
-            t_pull, _, t_push = measured_fn()
+        measured = measured_fn() if measured_fn is not None else None
+        if measured is not None:
+            t_pull, _, t_push = measured
         else:
             t_pull, t_push = self._comm_probe_times
         for j, batch_losses in enumerate(losses):
-            per_batch = epoch_sec / max(len(batch_losses), 1)
-            comp = max(per_batch - t_pull - t_push, 0.0)
-            for b, loss in enumerate(batch_losses):
-                self.collector.add(BatchMetrics(
-                    job_id=self.job_id, worker_id=self.ctx.worker_id,
-                    epoch_idx=first_epoch + j, batch_idx=b,
-                    num_examples=self.data.batch_size, batch_time_sec=per_batch,
-                    pull_time_sec=t_pull, comp_time_sec=comp, push_time_sec=t_push,
-                    loss=float(loss)))
+            epoch = first_epoch + j
+            steps = len(batch_losses)
+            per_batch = epoch_sec / max(steps, 1)
+            if self.collector is not None:
+                comp = max(per_batch - t_pull - t_push, 0.0)
+                for b, loss in enumerate(batch_losses):
+                    self.collector.add(BatchMetrics(
+                        job_id=self.job_id, worker_id=self.ctx.worker_id,
+                        epoch_idx=epoch, batch_idx=b,
+                        num_examples=self.data.batch_size, batch_time_sec=per_batch,
+                        pull_time_sec=t_pull, comp_time_sec=comp, push_time_sec=t_push,
+                        loss=float(loss)))
+            self._feed_epoch(epoch, steps, epoch_sec, per_batch, measured, (t_pull, t_push))
+        # every epoch dispatched so far was drained: nothing stays staged
+        self._phase_dispatch.clear()
+        self._phase_input_wait.clear()
+
+    def _feed_epoch(self, epoch: int, steps: int, epoch_sec: float, per_batch: float,
+                    measured: Optional[Tuple[float, float, float]],
+                    probe: Tuple[float, float]) -> None:
+        """One drained epoch's feeds of metrics/{accounting,phases}.py and the
+        registry's histograms. Guarded: accounting never fails a step."""
+        dispatch = self._phase_dispatch.pop(epoch, 0.0)
+        wait = self._phase_input_wait.pop(epoch, 0.0)
+        try:
+            work = max(epoch_sec - wait, 0.0)
+            acct = accounting.ledger()
+            acct.observe_steps(self.job_id, self.attempt_key, self.ctx.worker_id,
+                               steps=steps, device_sec=work,
+                               examples=steps * self.data.batch_size,
+                               devices=self.ctx.model_table.mesh.size)
+            acct.set_resident(self.job_id, self.attempt_key, "input",
+                              self._input_resident_bytes())
+            stats = (self._step.staleness_stats()
+                     if isinstance(self._step, AsyncStepDriver) else {})
+            acct.set_async_state(
+                self.job_id, self.attempt_key, available=self._async_capable(),
+                enabled=bool(stats), bound=stats.get("bound", self._staleness_bound),
+                max_lag=stats.get("max_lag", 0),
+                exposed_wait_sec=stats.get("exposed_wait_sec", 0.0),
+                overlapped_comm_sec=stats.get("overlapped_comm_sec", 0.0))
+            # no FLOP count (ROADMAP A item 6.5): no FLOP floor under compute
+            split = phases.split_device_phases(
+                work, steps, dispatch_sec=dispatch, measured=measured,
+                probe_split=None if measured is not None else probe)
+            phases.budget().observe_epoch(
+                self.job_id, self.attempt_key, self.ctx.worker_id, epoch, epoch_sec,
+                {"input_wait": wait, "host_dispatch": dispatch, **split})
+            hist = self._step_histogram()
+            for _ in range(steps):
+                hist.observe(per_batch)
+            get_registry().histogram(
+                "harmony_epoch_time_seconds", "Per-epoch wall seconds per worker",
+                ("job", "attempt"), buckets=EPOCH_TIME_BUCKETS,
+            ).labels(job=self.job_id, attempt=self.attempt_key).observe(epoch_sec)
+        except Exception:
+            pass
+        self._check_slo(epoch, steps * self.data.batch_size, epoch_sec)
+
+    #: consecutive under-target epochs before the SLO event fires — one
+    #: slow epoch (a reshard, a checkpoint, a co-tenant's burst) is noise;
+    #: a sustained run is the scheduler-actionable signal
+    SLO_WINDOW_EPOCHS = 3
+    #: attainment floor: below this fraction of target counts as a breach
+    SLO_ATTAINMENT_FLOOR = 0.9
+
+    def _check_slo(self, epoch: int, epoch_examples: int, epoch_sec: float) -> None:
+        """Windowed SLO attainment check at the epoch boundary (the
+        reference's; chief only — the target is per JOB, so sibling workers
+        checking their own shares would fire many times). The job's rate is
+        this worker's rate × num_workers (the provider splits the epoch
+        evenly); exact for single-worker jobs. A sustained breach records ONE
+        structured joblog event (kind="slo") and counts in the tenant ledger;
+        recovery above the floor re-arms it."""
+        if self._slo_target is None or not self.global_init:
+            return
+        own_sps = epoch_examples / epoch_sec if epoch_sec > 0 else 0.0
+        job_sps = own_sps * max(self.ctx.num_workers, 1)
+        if job_sps >= self.SLO_ATTAINMENT_FLOOR * self._slo_target:
+            self._slo_below = 0
+            self._slo_fired = False
+            return
+        self._slo_below += 1
+        if self._slo_below < self.SLO_WINDOW_EPOCHS or self._slo_fired:
+            return
+        self._slo_fired = True
+        try:
+            from harmony_tpu_torch.jobserver import joblog
+
+            joblog.record_event(
+                self.job_id, kind="slo", attempt=self.attempt_key, epoch=epoch,
+                target_sps=self._slo_target, achieved_sps=round(job_sps, 3),
+                attainment=round(job_sps / self._slo_target, 4),
+                window_epochs=self.SLO_WINDOW_EPOCHS)
+            accounting.ledger().record_slo_event(self.job_id)
+        except Exception:
+            pass  # SLO observability never fails the epoch boundary
+
+    def _report_input(self, pipeline: PrefetchPipeline, epoch: int, hits: int,
+                      misses: int) -> None:
+        """At the close of an epoch's pipeline: its ``InputPipelineMetrics``
+        (with a collector), and its consumer stall as the epoch's input wait
+        (the ledger's wait fraction, the budget's ``input_wait``)."""
+        if self.collector is not None:
+            self.collector.add(pipeline.report(self.job_id, self.ctx.worker_id, epoch,
+                                               hits, misses))
+        stall = pipeline.stats()["consumer_stall_sec"]
+        self._phase_input_wait[epoch] = stall
+        try:
+            accounting.ledger().record_input_wait(self.job_id, self.attempt_key, stall)
+        except Exception:
+            pass
+
+    def _bind_ledger(self) -> None:
+        """At each (re)build of the step: name this job the owner of its
+        tables (the ledger attributes their moved and checkpointed bytes
+        through the binding), refresh the resident-table bytes, and set the
+        SLO target. Guarded: accounting never fails a build."""
+        try:
+            acct = accounting.ledger()
+            tables = [self.ctx.model_table]
+            if self.trainer.uses_local_table:
+                tables.append(self.ctx.local_table)
+            for t in tables:
+                acct.bind_table(t.spec.table_id, self.job_id, self.attempt_key)
+            acct.set_resident(self.job_id, self.attempt_key, "table",
+                              sum(self._table_bytes(t) for t in tables))
+            if self._slo_target is not None:
+                acct.set_slo_target(self.job_id, self.attempt_key, self._slo_target)
+        except Exception:
+            pass
+
+    @staticmethod
+    def _table_bytes(table) -> int:
+        """Device bytes of a table's storage, from its spec (dense array, or
+        a hash table's int32 slot keys and values): the reference's count."""
+        spec = table.spec
+        if isinstance(table, DeviceHashTable):
+            return (int(np.prod(spec.keys_shape)) * 4
+                    + int(np.prod(spec.values_shape)) * spec.dtype.itemsize)
+        return int(np.prod(spec.storage_shape)) * spec.dtype.itemsize
+
+    def _input_resident_bytes(self) -> int:
+        """Device bytes of this worker's resident input copies: its stacked
+        epoch and its per-batch cache (its share of the device cache)."""
+        def nbytes(x) -> int:
+            if isinstance(x, torch.Tensor):
+                return x.numel() * x.element_size()
+            if isinstance(x, RowBatch):
+                return x.nbytes()
+            return sum(nbytes(v) for v in x) if isinstance(x, (tuple, list)) else 0
+
+        total = nbytes(self._stacked_cache) if self._stacked_cache is not None else 0
+        return total + sum(nbytes(b) for b in self._batch_cache.values())
+
+    def _step_histogram(self):
+        """This worker's child of ``harmony_step_time_seconds``."""
+        if self._step_hist is None:
+            self._step_hist = get_registry().histogram(
+                "harmony_step_time_seconds",
+                "Per-mini-batch dispatch+device seconds per worker",
+                ("job", "attempt", "worker"), buckets=STEP_TIME_BUCKETS,
+            ).labels(job=self.job_id, attempt=self.attempt_key,
+                     worker=self.ctx.worker_id)
+        return self._step_hist
 
     def _account_ops(self, steps: int) -> None:
         """Fold ``steps`` steps' pulls and pushes (one each a step) into this

@@ -4,10 +4,10 @@ Counterpart of ``harmony_tpu/faults/__init__.py``; ``plan.py`` and
 ``retry.py`` are copies of the reference's. The sites the port declares are
 the checkpoint path's (``chkp.block_write``, ``disk.write``,
 ``chkp.block_read``, ``disk.read``, ``chkp.commit``, ``disk.fsync``,
-``chkp.partial_read``); the
-fault counters' mirror onto a metrics registry and the flight recorder are
-looked up lazily and skipped where absent (the port has neither yet, ROADMAP
-A.10).
+``chkp.partial_read``). Fires and retries are mirrored onto the metrics
+registry (``harmony_fault_fires_total``, ``harmony_retry_events_total``); the
+flight recorder is looked up lazily and skipped while absent (ROADMAP A item
+6.4).
 
 Two halves:
   * :mod:`harmony_tpu_torch.faults.plan` — named injection sites threaded

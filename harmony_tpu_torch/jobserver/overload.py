@@ -3,7 +3,7 @@
 Counterpart of ``harmony_tpu/jobserver/overload.py``, copied without its
 observers: the reference's ``harmony_overload_*`` registry counters and its
 ``kind="overload"`` joblog events are best-effort hooks there (each in a
-``try``), and the port has neither subsystem yet (ROADMAP A.10). What the
+``try``), and they come with the serving observers (ROADMAP A item 6.3). What the
 command plane and the serving edge consult is the reference's:
 
 * **Admission control** — :meth:`OverloadMonitor.admit_submit` answers

@@ -531,16 +531,22 @@ class JobServer:
 
     def _status(self) -> Dict[str, Any]:
         """STATUS reply: the fields of the subsystems this port has (``ha``:
-        ``{"enabled": false}`` outside an HA control plane). The reference's
-        other fields (stragglers, tenants, phase budget, history, diagnoses,
-        policy, incidents, input service, flight records) are absent until
-        those subsystems are ported (ROADMAP A.10).
+        ``{"enabled": false}`` outside an HA control plane). ``fault_counters``
+        (this process's fault fires and retry counters), ``stragglers`` (per
+        job, from the stored step times), ``tenants`` (the tenant ledger
+        joined with them, what ``obs top`` renders) and ``phase_budget`` (the
+        step-phase budgets and their critical path, what ``obs critpath``
+        renders) share one straggler walk. The reference's other fields
+        (history, diagnoses, incidents, metrics_port, policy, flight records,
+        profile capture, input service) are absent until those subsystems
+        are ported (ROADMAP A items 5.2, 6.2, 6.4, 7.2).
         ``job_events`` is this process's structured event rings
         (``jobserver/joblog.py``), by job."""
         from harmony_tpu_torch.jobserver import joblog
 
         with self._lock:
             serving = self.serving
+        stragglers = self.metrics.straggler_report()
         return {
             "ok": True,
             "state": self.state,
@@ -549,7 +555,11 @@ class JobServer:
             "serving": serving.stats() if serving is not None else None,
             "overload": self.overload.status(),
             "ha": self._ha_status(),
+            "fault_counters": self.metrics.fault_counters(),
             "job_events": joblog.job_events(),
+            "stragglers": stragglers,
+            "tenants": self.metrics.tenant_ledger(stragglers=stragglers),
+            "phase_budget": self.metrics.phase_budget(stragglers=stragglers),
         }
 
     # -- TCP command endpoint ------------------------------------------------

@@ -9,11 +9,10 @@ Parity with the reference's two metric layers (SURVEY.md §5.5):
 Records are dataclasses (JSON-able via config.base encoding rules) pushed to
 an in-process sink; the driver-side MetricManager consumes them.
 
-A copy of ``harmony_tpu/metrics/collector.py`` less ``InputPipelineMetrics``,
-whose source (the prefetcher's per-epoch report) comes with the rest of
-``metrics/`` (ROADMAP A item 6). The sources here: the worker's drain emits
-one ``BatchMetrics`` a batch, the job entity one ``ServerMetrics`` an owning
-executor an epoch.
+A copy of ``harmony_tpu/metrics/collector.py``. The sources here: the
+worker's drain emits one ``BatchMetrics`` a batch, the close of an epoch's
+prefetch pipeline one ``InputPipelineMetrics``, and the job entity one
+``ServerMetrics`` an owning executor an epoch.
 """
 from __future__ import annotations
 
@@ -54,6 +53,35 @@ class EpochMetrics(ConfigBase):
     num_examples: int = 0
     epoch_time_sec: float = 0.0
     loss: float = 0.0
+
+
+@config
+class InputPipelineMetrics(ConfigBase):
+    """Per-epoch input-pipeline report from the async prefetcher
+    (dolphin/prefetch.py). ``consumer_stall_sec`` > 0 means the pipeline
+    was the bottleneck (the training thread waited on input);
+    ``producer_idle_sec`` > 0 means it ran ahead and parked on the ring
+    cap (the healthy state). ``prefetch_misses`` counts batches consumed
+    WITHOUT a usable staged device copy (re-placed after a mid-flight
+    layout change). ``service_batches`` and ``service_fallbacks`` stay 0
+    until the input service comes (ROADMAP A item 7.2)."""
+
+    job_id: str = ""
+    worker_id: str = ""
+    epoch_idx: int = 0
+    staged_batches: int = 0
+    prefetch_hits: int = 0
+    prefetch_misses: int = 0
+    max_depth: int = 0
+    produce_sec: float = 0.0
+    stage_sec: float = 0.0
+    producer_idle_sec: float = 0.0
+    consumer_stall_sec: float = 0.0
+    # staged device copies dropped before use (layout change / host-only
+    # demotion): paid host-to-device copies thrown away
+    dropped_batches: int = 0
+    service_batches: int = 0
+    service_fallbacks: int = 0
 
 
 @config

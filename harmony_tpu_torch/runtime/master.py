@@ -167,7 +167,29 @@ class TableHandle:
             self.table.announce_reshard(self._mesh_for(target_owners))
 
     def _reshard_to_owners(self) -> None:
+        from harmony_tpu_torch.table import blockmove
+
+        def move_key():
+            st = blockmove.last_move_stats
+            return st.get("seq"), tuple(st.get("processes") or ())
+
+        before = move_key()
         self.table.reshard(self._mesh_for(self.owning_executors()))
+        after = move_key()
+        if after[0] is not None and after != before:
+            # a migration between processes ran for THIS reshard (each has a
+            # sequence number of its own within its processes): its wire bytes
+            # are charged to the owning tenant's ledger, as the reference
+            # charges them; a move within one process stays device time
+            try:
+                from harmony_tpu_torch.metrics.accounting import ledger
+
+                st = blockmove.last_move_stats
+                ledger().record_table_bytes(
+                    self.table_id, "move",
+                    int(st.get("bytes_sent", 0)) + int(st.get("bytes_received", 0)))
+            except Exception:
+                pass  # accounting never fails a migration
 
     def ownership_vector(self) -> List[int]:
         """Block -> index into the block manager's executors (this handle's,

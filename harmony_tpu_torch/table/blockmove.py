@@ -74,9 +74,19 @@ The planner functions (:func:`axis0_bounds`, :func:`process_blocks`,
 ``unit(device)``: a device's ``process_index`` by default, as in the
 reference.
 
-Left out: the registry counters of ``_record_move_metrics`` (ROADMAP A item
-6) and the fault-injection sites (``faults.site("blockmove.exchange")`` and
-the legs' sites, ROADMAP A item 7).
+Every move is counted in the process's metric registry (``metrics/
+registry.py``), on both routes: :func:`_record_move_metrics` adds to
+``harmony_blockmove_migrations_total``, ``_sent_blocks_total`` and
+``_sent_bytes_total`` (labelled by ``transport``: ``tcp`` or ``file``
+between processes, where a process counts what it sent; ``device`` in one
+process, where the blocks copied from another slot count) and
+``_transport_retries_total``, and observes ``harmony_blockmove_transfer_bytes``;
+``harmony_move_leg_seconds{transport}`` times each leg (a TCP stream, a
+staged block's write or read, or the rebuild of one process's storage). The
+blocks counter is the port's own; the reference counts bytes only.
+
+Left out: the fault-injection sites (``faults.site("blockmove.exchange")``
+and the legs' sites, ROADMAP A item 7).
 """
 from __future__ import annotations
 
@@ -115,6 +125,59 @@ _SEQ_LOCK = threading.Lock()
 #: the pool has spare parallelism; the receiver keys frames by id, so
 #: streams to one destination are order-free.
 _LEG_SPLIT_BYTES = 16 << 20
+
+
+def _observe_leg_seconds(transport: str, seconds: float) -> None:
+    """harmony_move_leg_seconds{transport}: per-leg transfer latency.
+    Best-effort: observability never fails a migration."""
+    try:
+        from harmony_tpu_torch.metrics.registry import get_registry
+
+        get_registry().histogram(
+            "harmony_move_leg_seconds",
+            "Block-migration transport leg latency",
+            ("transport",),
+        ).labels(transport=transport).observe(seconds)
+    except Exception:
+        pass
+
+
+def _record_move_metrics(transport: str, blocks: int, nbytes: int, retries: int) -> None:
+    """Fold one migration into the process's registry: cumulative counters
+    (unlike the per-move :data:`last_move_stats`, these stay monotone for
+    scrapers) plus the fixed-boundary transfer-size histogram."""
+    try:
+        from harmony_tpu_torch.metrics.registry import (
+            TRANSFER_SIZE_BUCKETS,
+            get_registry,
+        )
+
+        reg = get_registry()
+        reg.counter(
+            "harmony_blockmove_migrations_total",
+            "Completed block migrations", ("transport",),
+        ).labels(transport=transport).inc()
+        reg.counter(
+            "harmony_blockmove_sent_blocks_total",
+            "Blocks this process transmitted across block migrations",
+            ("transport",),
+        ).labels(transport=transport).inc(int(blocks))
+        reg.counter(
+            "harmony_blockmove_sent_bytes_total",
+            "Bytes this process transmitted across block migrations",
+            ("transport",),
+        ).labels(transport=transport).inc(int(nbytes))
+        reg.counter(
+            "harmony_blockmove_transport_retries_total",
+            "Transport legs re-attempted under the retry policy",
+        ).inc(int(retries))
+        reg.histogram(
+            "harmony_blockmove_transfer_bytes",
+            "Per-migration bytes transmitted by this process",
+            buckets=TRANSFER_SIZE_BUCKETS,
+        ).observe(float(nbytes))
+    except Exception:
+        pass  # observability must never fail a migration
 
 
 class MigrationTransportError(InfraTransientError):
@@ -603,10 +666,12 @@ def _tcp_exchange(plan: MovePlan, outgoing: Dict[int, torch.Tensor],
                 raise MigrationTransportError(
                     f"block migration to process {dst} (frames {frames[:8]}...) "
                     f"failed: {e}") from e
+            dt = time.perf_counter() - t0
+            _observe_leg_seconds("tcp", dt)
             with lock:
                 legs_out.append({"dst": dst, "frames": len(frames),
                                  "bytes": sum(sizes[f] for f in frames),
-                                 "seconds": time.perf_counter() - t0})
+                                 "seconds": dt})
 
         _run_pooled(_leg_streams(by_dst, sizes, parallel), run_leg, parallel, "blockmove-leg")
         sent = sum(leg["bytes"] for leg in legs_out)
@@ -686,12 +751,14 @@ def _file_exchange(plan: MovePlan, outgoing: Dict[int, torch.Tensor],
                         fh.write(body)
                     os.rename(tmp, dst)
 
+                t0 = time.perf_counter()
                 try:
                     call_with_retry(write_block, policy, op="blockmove.stage_write",
                                     on_retry=on_retry)
                 except RetryError as e:
                     raise MigrationTransportError(
                         f"staging block frame {f} under {stage} failed: {e}") from e
+                _observe_leg_seconds("file", time.perf_counter() - t0)
                 return outgoing[f].numel() * outgoing[f].element_size()
 
             written = sum(_run_pooled(mine, stage_one, parallel, "blockmove-stage"))
@@ -714,9 +781,12 @@ def _file_exchange(plan: MovePlan, outgoing: Dict[int, torch.Tensor],
                     raise OSError(f"staged frame b{f}.blk names frame {fid}")
                 return t
 
+            t0 = time.perf_counter()
             try:
-                return f, call_with_retry(read_block, policy, op="blockmove.stage_read",
-                                          on_retry=on_retry)
+                t = call_with_retry(read_block, policy, op="blockmove.stage_read",
+                                    on_retry=on_retry)
+                _observe_leg_seconds("file", time.perf_counter() - t0)
+                return f, t
             except RetryError as e:
                 raise MigrationTransportError(
                     f"reading staged block frame {f} under {stage} failed: {e}") from e
@@ -820,13 +890,18 @@ def migrate_blocks(storage, old_sharding, new_sharding, like=None):
         # a process of neither mesh: it held nothing and holds nothing
         return ShardedArray(new_sharding, {})
     with trace_span("blockmove.migrate") as sp:
+        st = last_move_stats
         if spans_processes(old_sharding, new_sharding):
             out = _migrate_across_processes(storage, old_sharding, new_sharding, like)
             keys = ("seq", "transport", "blocks_sent", "bytes_sent", "blocks_received",
                     "transport_retries")
+            _record_move_metrics(st["transport"], st["blocks_sent"], st["bytes_sent"],
+                                 st["transport_retries"])
         else:
             out = _migrate_in_process(storage, old_sharding, new_sharding)
             keys = ("blocks_moved", "bytes_moved", "blocks_copied_locally", "shards_reused")
+            _observe_leg_seconds("device", st["seconds"])
+            _record_move_metrics("device", st["blocks_moved"], st["bytes_moved"], 0)
         if sp is not None:
             for k in keys:
                 sp.annotate(k, last_move_stats.get(k))

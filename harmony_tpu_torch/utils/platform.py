@@ -5,7 +5,8 @@ unless the caller asks for the CPU: :func:`resolve_device` turns a request into
 a ``torch.device`` and raises when the card is asked for and there is none,
 never moving to the CPU quietly. :func:`use_kernel` is the one place a kernel
 wrapper decides its route: a CUDA tensor launches the hand-written kernel, a
-CPU tensor takes the plain PyTorch version.
+CPU tensor takes the plain PyTorch version. :func:`peak_bf16_flops` is the
+card's dense bf16 peak, the tenant ledger's MFU denominator.
 """
 from __future__ import annotations
 
@@ -47,6 +48,27 @@ def use_kernel(*tensors: torch.Tensor) -> bool:
     if dev.type == "cpu":
         return False
     raise ValueError(f"no kernel route for device {dev}")
+
+
+#: Dense (no sparsity) peak bf16 FLOP/s of one card, by a substring of
+#: ``torch.cuda.get_device_name``: "NVIDIA H100 80GB HBM3" (the SXM part)
+#: 989 TFLOP/s, NVIDIA's data sheet at the card's full 700 W power limit.
+_PEAK_BF16 = (
+    ("h100 80gb hbm3", 989e12),
+)
+
+
+def peak_bf16_flops() -> Optional[float]:
+    """The dense peak bf16 FLOP/s of the current card, or None without a card
+    or for a card the table does not name. Reads the card's name only: no
+    kernel, no sync."""
+    if not torch.cuda.is_available():
+        return None
+    name = torch.cuda.get_device_name().lower()
+    for sub, peak in _PEAK_BF16:
+        if sub in name:
+            return peak
+    return None
 
 
 def full_f32_matmuls() -> None:

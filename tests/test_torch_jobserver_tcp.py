@@ -101,7 +101,8 @@ def test_submit_status_wait_serving_shutdown_round_trips(servers, tmp_path):
     status = sender.send_status_command()
     # the fields of the subsystems the port has, and no others
     assert set(status) == {"ok", "state", "running", "evaluated", "serving", "overload",
-                           "ha", "job_events"}
+                           "ha", "job_events", "fault_counters", "stragglers", "tenants",
+                           "phase_budget"}
     assert status["ok"] and status["state"] == "INIT" and status["serving"] is None
     assert status["ha"] == {"enabled": False}   # the reference's reply outside HA
     assert status["overload"]["ladder"] == "normal"
@@ -109,6 +110,14 @@ def test_submit_status_wait_serving_shutdown_round_trips(servers, tmp_path):
     assert reply == {"ok": True, "job_id": "rt"}
     result = sender.wait_result("rt", timeout=TIMEOUT, poll=5.0)
     assert len(_losses(result)) == 4 and len(result["model_chkp_ids"]) == 2
+    # the job's tenant row and phase budget ride STATUS, JSON and all
+    status = sender.send_status_command()
+    tenant, budget = status["tenants"]["rt"], status["phase_budget"]["rt"]
+    assert tenant["steps_total"] >= 4 and tenant["mfu"] is None
+    assert tenant["bytes"]["chkp_write"] > 0 and tenant["straggler_ratio"] == 1.0
+    assert budget["classification"] in ("input-bound", "comm-bound", "dispatch-bound",
+                                        "compute-bound", "balanced")
+    assert status["stragglers"]["rt"]["ratio"] == 1.0
     # a finished job's WAIT answers at once; an unknown one is refused
     assert sender.send_wait_command("rt", timeout=1.0)["done"]
     assert sender.send_wait_command("ghost", timeout=1.0) == {

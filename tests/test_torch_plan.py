@@ -78,26 +78,34 @@ def test_dag_roots_releases_and_order_are_the_references(seed):
 
 def probe_plan(P, log, lock, gate):
     """A diamond and a chain: a, b (concurrent; each waits for the other at
-    ``gate``) -> c -> d, and e -> f independent of them."""
+    ``gate``) -> c -> d, and e -> f independent of them. ``e`` runs beside
+    a and b but logs only once both have logged (the second of them sets
+    ``ab_logged``), so the log's order is the plan's, never the threads'."""
+    ab_logged = threading.Event()
 
     class Probe(P.Op):
-        def __init__(self, name, barrier=None):
+        def __init__(self, name, barrier=None, after=None):
             super().__init__()
             self.name = name
             self.barrier = barrier
+            self.after = after
 
         def execute(self, ctx):
             if self.barrier is not None:
                 self.barrier.wait()
+            if self.after is not None:
+                assert self.after.wait(timeout=10), f"{self.name}: a and b never logged"
             with lock:
                 log.append(self.name)
+                if self.name in "ab" and {"a", "b"} <= set(log):
+                    ab_logged.set()
 
     plan = P.ETPlan()
     a = plan.add_op(Probe("a", gate))
     b = plan.add_op(Probe("b", gate))
     c = plan.add_op(Probe("c"), depends_on=[a, b])
     plan.add_op(Probe("d"), depends_on=[c])
-    plan.add_chain([Probe("e"), Probe("f")])
+    plan.add_chain([Probe("e", after=ab_logged), Probe("f")])
     return plan
 
 
