@@ -173,6 +173,33 @@ As each phase ends a ``phase <name>: <s> s`` line gives its host seconds
 3m. The ``lasso``, ``addvector`` and ``addinteger`` presets on the card and
    on the CPU: Lasso's losses within LOSS_ATOL, the AddVector and
    AddInteger tables at ``expected_value`` exactly.
+3ob. The scrape cycle on the card, after 3q: bench-widedeep with two workers
+   (OB_EPOCHS epochs of 8 batches, ``HARMONY_PUSH_VIA=mxu``, an SSP slack
+   that never binds) under one JobServer started with
+   ``HARMONY_METRICS_PORT=0`` and a 0.25 s scrape period and resolution; a
+   ``worker.step`` ``delay`` rule (OB_DELAY_S a batch) on worker w1 only, and
+   ``target_samples_per_sec`` at OB_TARGET_FACTOR x the rate 3q measured, so
+   the chief records ``kind="slo"``. (a) The straggler report lists both
+   workers with a finite ratio: the TaskUnit quorum grants a job's units to
+   all its workers together, so w1's delay lands in both workers' batch
+   times, and with two workers slowest/median is below 2 whatever the
+   delay, so the doctor's ``straggler`` rule (2.0) stays silent for the job.
+   (b) The doctor emitted ``infra_suspect`` for the server's own process
+   (the delay rule's fires, ``harmony_fault_fires_total``) and
+   ``slo_breach`` for the job with ``cause_rule`` ``infra_suspect``. (c) The
+   incident engine holds one incident of the job, opened by the ``slo``
+   evidence, the breach's diagnosis joined, ``detected_ts`` set. (d) ``GET
+   /metrics`` on the exporter parses, lints clean and carries the job's
+   ``harmony_tenant_*`` samples; ``/healthz`` answers 200. (e) ``cli obs
+   doctor``, ``obs incidents`` and ``obs metrics`` exit 0 and name the job.
+   (f) STATUS's ``overload`` at ``normal``, with the ``scrape``,
+   ``diagnose`` and ``correlate`` stages noted (``note_cycle`` wrapped in
+   this process to list the kinds). (g) The losses finite and falling, K1
+   and K3 once a step plus the chief's probe (3q's formula). Each STATUS
+   read's seconds, the diagnoses and the incident are printed; its launches
+   are the kernels line's ``observability`` path; its ``observability:``
+   line holds the numbers. ``python3 chip_smoke.py --phase 3ob`` runs the
+   build and this phase alone (its own short run for the rate).
 3r. Checkpoint chains through the JobServer with a ``chkp_root``: (a)
    bench-fm-hash with a chain entry every epoch and the deferred offline
    evaluation: the evaluations finite and falling, the chain consumed, one
@@ -214,7 +241,10 @@ As each phase ends a ``phase <name>: <s> s`` line gives its host seconds
    chain refused. (e) The bulk loader: a libsvm file at HIGGS's width
    (28 features, 65,536 rows) into a dense table and a value file into
    bench-fm-hash's hash table (generated keys from MIN_KEY), on card and
-   CPU byte-identical, records/s; both then served as in (c).
+   CPU byte-identical, records/s; both then served as in (c). The serving
+   observers: each arm of (b) raises ``harmony_serving_requests_total
+   {mode="live"}`` by exactly its lookups, and after (d) the tenant ledger's
+   serving state of the job has ``qps`` > 0 and a p99.
 3t. Tables and Dolphin jobs over a mesh of slots (``parallel/mesh.py``): a
    pool of 4 virtual slots on cuda:0, and the real cards where there are two
    or more (else it prints ``"real_mesh": "not run: one card"``). (a) The
@@ -345,8 +375,12 @@ As each phase ends a ``phase <name>: <s> s`` line gives its host seconds
    loads and the communicator's set-up). (e) The all-gather alone in fresh
    processes joined the same way,
    at (a)'s and (d)'s sizes: host ms a call, the card's tensor handed to
-   the backend as the pod hands it. The processes are killed in a ``finally``; a failure prints the
-   tail of their logs. Its ``pod:`` line holds the numbers; ``python3
+   the backend as the pod hands it. The processes run with
+   ``HARMONY_METRICS_PORT=0`` and a 0.25 s scrape period: after (a) and
+   after (d) the leader's STATUS ``pod.metrics_ports`` names every follower,
+   and its history holds series of every target (``leader``, ``pod:1``,
+   ...) with no gap mark and no scrape error. The processes are killed in a
+   ``finally``; a failure prints the tail of their logs. Its ``pod:`` line holds the numbers; ``python3
    chip_smoke.py --phase 3y`` runs the build, the one-slot runs it is held
    to and this phase alone.
 3z. Tables that move between the pod's processes, on a pod of two slots a
@@ -527,7 +561,8 @@ As each phase ends a ``phase <name>: <s> s`` line gives its host seconds
    bench-generate, bench-trio,
    bench-fm-hash, sparse-lda-hash, fused-sparse-step, bench-gbt,
    bench-pagerank, bench-shortest-path, bench-connected-components,
-   bench-widedeep-2-workers, pagerank-beside-mlr, chain, serving: the
+   bench-widedeep-2-workers, pagerank-beside-mlr, observability: phase
+   3ob's job, chain, serving: the
    reads of 3s (c) and (e), K1 only; sharded: phase 3t (c)'s bench-widedeep
    at data_axis 1, the trio and bench-fm-hash on 4 slots; sp-ring, sp-a2a
    and 3-axis: phase 3u (b)-(d), SP_STEPS steps each; pp, ep and vit-dp: phase 3v
@@ -3501,6 +3536,225 @@ def run_multiworker(trio_jobs, fused_trio):
     return launches, out
 
 
+# -- phase 3ob: the scrape cycle ---------------------------------------------------
+
+# bench-widedeep with two workers for OB_EPOCHS epochs, worker w1 delayed
+# OB_DELAY_S a batch, its SLO target OB_TARGET_FACTOR x 3q's measured rate;
+# the scraper polls every OB_SCRAPE_S (its store at the same resolution)
+OB_EPOCHS = 12
+OB_DELAY_S = 0.03
+OB_TARGET_FACTOR = 10.0
+OB_SCRAPE_S = 0.25
+# how long after the job the phase waits for the cycle to join the breach
+OB_SETTLE_S = 15.0
+
+
+def ob_config(target_sps: float):
+    """bench-widedeep, two workers, an SSP slack that never binds, its SLO
+    target ``target_sps``."""
+    from harmony_tpu_torch import cli
+
+    steps = OB_EPOCHS * BATCHES
+    config = cli.build_config("widedeep", cli.build_parser().parse_args(
+        SLICE_ARGS + ["--epochs", str(OB_EPOCHS), "--workers", "2", "--slack", str(steps),
+                      "--job-id", "ob-widedeep"]))
+    return config.replace(params=config.params.replace(target_samples_per_sec=target_sps))
+
+
+def ob_rate() -> float:
+    """``--phase 3ob`` alone: 3q's rate, from the same 2-worker job's run."""
+    os.environ["HARMONY_PUSH_VIA"] = "mxu"
+    try:
+        t0 = time.perf_counter()
+        serve([wd2_config(False)], "cuda")
+        torch.cuda.synchronize()
+        return EPOCHS * N_EXAMPLES / (time.perf_counter() - t0)
+    finally:
+        os.environ.pop("HARMONY_PUSH_VIA")
+
+
+def ob_cli(argv):
+    """``cli.main(argv)`` in this process: its exit code and what it printed."""
+    from harmony_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    return rc, buf.getvalue()
+
+
+def run_observability(rate_3q: float):
+    """Phase 3ob (see the module doc): the scrape cycle's exporter, history,
+    doctor, incidents and overload feed around a running 2-worker job."""
+    import urllib.request
+
+    from harmony_tpu_torch import faults
+    from harmony_tpu_torch.jobserver.client import CommandSender
+    from harmony_tpu_torch.jobserver.server import JobServer
+    from harmony_tpu_torch.metrics.registry import lint_exposition, parse_exposition
+    from harmony_tpu_torch.ops.histogram import weighted_histogram
+    from harmony_tpu_torch.ops.sparse import gather_rows, segment_sum_rows
+    from harmony_tpu_torch.parallel.mesh import DevicePool
+
+    wrappers = (gather_rows, segment_sum_rows, weighted_histogram)
+    t_phase = time.perf_counter()
+    job = "ob-widedeep"
+    target = OB_TARGET_FACTOR * rate_3q
+    knobs = {"HARMONY_METRICS_PORT": "0", "HARMONY_OBS_SCRAPE_PERIOD": str(OB_SCRAPE_S),
+             "HARMONY_OBS_RESOLUTION": str(OB_SCRAPE_S), "HARMONY_PUSH_VIA": "mxu"}
+    saved = {k: os.environ.get(k) for k in knobs}
+    os.environ.update(knobs)
+    rule = faults.FaultRule("worker.step", match={"job": job, "worker": f"{job}/w1"},
+                            count=-1, action="delay", delay_sec=OB_DELAY_S)
+    out = {"epochs": OB_EPOCHS, "delay_s": OB_DELAY_S, "target_samples_per_sec": target,
+           "rate_3q": rate_3q, "status_read_s": []}
+    server = None
+    try:
+        server = JobServer(1, device_pool=DevicePool([torch.device("cuda")]))
+        noted = set()
+        note_cycle = server.overload.note_cycle
+
+        def noting(kind, elapsed, budget):
+            noted.add(kind)
+            note_cycle(kind, elapsed, budget)
+
+        server.overload.note_cycle = noting
+        server.start()
+        port = server.serve_tcp(0)
+        check(server.metrics_exporter is not None,
+              "phase 3ob: HARMONY_METRICS_PORT=0 started no exporter")
+        url = f"http://127.0.0.1:{server.metrics_exporter.port}"
+        sender = CommandSender(port, timeout=60)
+
+        def status():
+            t0 = time.perf_counter()
+            st = sender.send_status_command()
+            read = time.perf_counter() - t0
+            out["status_read_s"].append(read)
+            print(f"phase 3ob: STATUS read in {read:.4f} s", flush=True)
+            check(st.get("ok"), f"phase 3ob: STATUS {st}")
+            return st
+
+        faults.arm(faults.FaultPlan([rule]))
+        reset_counts(*wrappers)
+        t0 = time.perf_counter()
+        try:
+            result = server.submit(ob_config(target)).result(timeout=600)
+            torch.cuda.synchronize()
+        finally:
+            faults.disarm()
+        wall = time.perf_counter() - t0
+        launches = {w.__name__: w.launches for w in wrappers}
+
+        # (g) losses and launches: 3q's formula for this job's steps
+        workers = result["workers"]
+        chief = workers[f"{job}/w0"]
+        for wid, w in workers.items():
+            finite_and_falling(w["batch_losses"], OB_EPOCHS * BATCHES, f"phase 3ob {wid}")
+        k1, fold = probe_launches(chief)
+        steps = 2 * OB_EPOCHS * BATCHES
+        want = {"gather_rows": steps + k1, "segment_sum_rows": 0,
+                "weighted_histogram": steps + fold}
+        check(launches == want, f"phase 3ob: launches {launches}, expected {want}")
+        out.update(wall_s=wall, samples_per_sec=OB_EPOCHS * N_EXAMPLES / wall,
+                   launches=launches)
+
+        # (a) the straggler report: both workers, w1's delay in both
+        report = server.metrics.straggler_report().get(job)
+        check(report is not None and set(report["workers"]) == set(workers)
+              and math.isfinite(report["ratio"]) and 1.0 <= report["ratio"] < 2.0,
+              f"phase 3ob (a): straggler report {report}")
+        out["stragglers"] = report
+        print(f"phase 3ob (a): straggler report {json.dumps(report)}", flush=True)
+
+        # (b), (c): the cycle diagnoses and correlates after the job's events
+        deadline = time.monotonic() + OB_SETTLE_S
+        while True:
+            diags = server.doctor.recent(limit=128)
+            mine = [d for d in diags if d.get("job") == job]
+            breach = [d for d in mine if d["rule"] == "slo_breach"]
+            incs = [i for i in server.incidents.recent(limit=64) if i["subject"] == job]
+            joined = [i for i in incs
+                      if any(e["role"] == "diagnosis" for e in i["chain"])]
+            if breach and joined:
+                break
+            check(time.monotonic() < deadline,
+                  f"phase 3ob (b)-(c): no joined breach after {OB_SETTLE_S} s: diagnoses "
+                  f"{json.dumps(diags)[:3000]}, incidents {json.dumps(incs)[:2000]}")
+            time.sleep(OB_SCRAPE_S)
+        infra = [d for d in diags if d["rule"] == "infra_suspect" and d.get("target") == "leader"]
+        cause = breach[-1]["evidence"]["cause_rule"]
+        check(infra and cause in {d["rule"] for d in diags},
+              f"phase 3ob (b): infra_suspect {infra}, breach {breach}")
+        out["breach_cause"] = cause
+        check(not [d for d in mine if d["rule"] == "straggler"],
+              f"phase 3ob (b): a straggler diagnosis for two workers: {mine}")
+        for d in diags:
+            print(f"phase 3ob (b): diagnosis {json.dumps(d)}", flush=True)
+        check(len(incs) == 1, f"phase 3ob (c): incidents of the job {json.dumps(incs)}")
+        (inc,) = incs
+        check(inc["trigger_kind"] == "slo" and inc["chain"][0]["kind"] == "slo"
+              and inc["detected_ts"] is not None
+              and any(e["role"] == "diagnosis" and e.get("rule") == "slo_breach"
+                      for e in inc["chain"]),
+              f"phase 3ob (c): incident {json.dumps(inc)}")
+        print(f"phase 3ob (c): incident {json.dumps(inc)}", flush=True)
+        out["diagnoses"] = [{k: d.get(k) for k in ("rule", "job", "target", "confidence",
+                                                     "summary")} for d in diags]
+        out["incident"] = inc
+
+        # (d) the exporter
+        with urllib.request.urlopen(url + "/metrics", timeout=30) as r:
+            text = r.read().decode()
+        families = parse_exposition(text)
+        lint = lint_exposition(text)
+        check(not lint, f"phase 3ob (d): /metrics lints {lint[:5]}")
+        tenant = [(name, labels) for name, fam in families.items()
+                  if name.startswith("harmony_tenant_")
+                  for _, labels, _ in fam["samples"] if labels.get("job") == job]
+        check(tenant, "phase 3ob (d): /metrics carries no harmony_tenant_* sample of the job")
+        with urllib.request.urlopen(url + "/healthz", timeout=30) as r:
+            check(r.status == 200 and r.read() == b"ok\n", "phase 3ob (d): /healthz")
+        out["metrics"] = {"families": len(families), "bytes": len(text),
+                          "tenant_samples_of_job": len(tenant)}
+
+        # (e) the CLI against this server
+        for argv in (["obs", "doctor", "--port", str(port)],
+                     ["obs", "incidents", "--port", str(port)],
+                     ["obs", "metrics", "--url", url]):
+            rc, printed = ob_cli(argv)
+            check(rc == 0 and job in printed,
+                  f"phase 3ob (e): cli {' '.join(argv[:2])} exit {rc}: {printed[-2000:]}")
+        out["cli"] = "obs doctor, obs incidents, obs metrics: exit 0, the job named"
+
+        # (f) STATUS: the new fields and the overload feed
+        st = status()
+        check(st["metrics_port"] == server.metrics_exporter.port
+              and st["history"]["scraper"]["cycles"] > 0
+              and st["history"]["gap_marks"] == 0 and not st["history"]["scraper"]["last_errors"]
+              and st["incidents"]["open"] + st["incidents"]["resolved"] >= 1
+              and st["diagnoses"],
+              f"phase 3ob (f): STATUS {json.dumps({k: st[k] for k in ('metrics_port', 'history', 'incidents')})[:3000]}")
+        check(st["overload"]["ladder"] == "normal"
+              and {"scrape", "diagnose", "correlate"} <= noted,
+              f"phase 3ob (f): overload {st['overload']}, noted {sorted(noted)}")
+        out["history"] = st["history"]
+        out["overload"] = {"ladder": st["overload"]["ladder"], "noted": sorted(noted),
+                           "cycle_overruns": st["overload"]["cycle_overruns"]}
+        status()
+    finally:
+        if server is not None:
+            server.shutdown(timeout=120)
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    check(server.metrics_exporter is None, "phase 3ob: the exporter outlived the server")
+    out["seconds"] = time.perf_counter() - t_phase
+    return launches, out
+
+
 # -- phase 3r: checkpoint chains -----------------------------------------------
 
 # bench-lm's deferred evaluation runs on one batch of its corpus (32 sequences
@@ -4227,6 +4481,16 @@ def k1_gather_ms(keys_per_gather):
                if "gather_rows" in name)
 
 
+def serving_requests(mode: str) -> float:
+    """This process's ``harmony_serving_requests_total{mode}`` (0 before the
+    first endpoint registers it)."""
+    from harmony_tpu_torch.metrics.registry import get_registry, parse_exposition
+
+    fam = parse_exposition(get_registry().expose()).get("harmony_serving_requests_total")
+    return sum(v for _, labels, v in (fam or {}).get("samples", ())
+               if labels.get("mode") == mode)
+
+
 def cli_out(argv):
     """``cli.main(argv)`` in this process; returns its exit code and the JSON
     reply it printed."""
@@ -4313,6 +4577,7 @@ def serve_training(root, wrappers, out):
                        for _ in range(SERVE_READERS)]
             del gathers[:]
             k1_before = wrappers[0].launches
+            req_before = serving_requests("live")
 
             def read(r, i):
                 rows, meta = clients[r].lookup(job, keys[r][i])
@@ -4332,7 +4597,12 @@ def serve_training(root, wrappers, out):
             stats = server.serving.stats()
             check(stats["errors"] == 0, f"arm {window_ms}/{cache_mb}: {stats['errors']} errors")
             name = f"window_{window_ms:g}ms_cache_{cache_mb}mb"
+            counted = serving_requests("live") - req_before
+            check(counted == SERVE_READERS * SERVE_READS,
+                  f"arm {name}: harmony_serving_requests_total{{mode=\"live\"}} rose by "
+                  f"{counted}, not by the arm's {SERVE_READERS * SERVE_READS} lookups")
             arms[name] = arm_figures(stats, job, wall, lat, gathers)
+            arms[name]["requests_counted"] = counted
             arms[name]["k1_launches_job_and_reads"] = wrappers[0].launches - k1_before
             check(arms[name]["gathers"] > 0, f"arm {name}: no gather reached the table")
             print(f"phase 3s (b): {name}: {json.dumps(arms[name])}", flush=True)
@@ -4365,6 +4635,13 @@ def serve_training(root, wrappers, out):
         out["pinned"] = pinned
         print(f"phase 3s (d): pinned reads bit-identical to the entries' .blk bytes, "
               f"rolled forward {pinned}", flush=True)
+        serving_state = server.metrics.tenant_ledger()[job]["serving"]
+        check(serving_state is not None and serving_state["qps"] > 0
+              and serving_state["p99_ms"] is not None,
+              f"phase 3s: the ledger's serving state of {job}: {serving_state}")
+        out["ledger_serving_state"] = serving_state
+        print(f"phase 3s: the ledger's serving state of {job}: {json.dumps(serving_state)}",
+              flush=True)
 
         read_res = sender.wait_result(job, timeout=SERVE_TIMEOUT * 3, poll=15.0)
         server._stop_serving()
@@ -6081,9 +6358,10 @@ def serving_reader(log, done, reads, errors):
         dev = log.table.device
         with (torch.cuda.stream(torch.cuda.Stream(dev)) if dev.type == "cuda"
               else contextlib.nullcontext()):
+            st = ep._tenant("elastic")
             while not done.is_set():
                 gen = ep._watch_layout("elastic", log.table)
-                reads.append(ep._live_gather("elastic", gen, log.table, keys))
+                reads.append(ep._live_gather("elastic", gen, log.table, st, keys))
                 time.sleep(0.0005)
     except BaseException as e:  # noqa: BLE001 - reported by the phase
         errors.append(e)
@@ -6912,6 +7190,33 @@ class ChipPod:
             shutil.rmtree(self.log_dir, ignore_errors=True)
 
 
+# phase 3y's processes run an exporter each, and the leader scrapes them
+POD_OBS_ENV = {"HARMONY_METRICS_PORT": "0", "HARMONY_OBS_SCRAPE_PERIOD": "0.25",
+               "HARMONY_OBS_RESOLUTION": "0.25"}
+
+
+def pod_scrape_check(pod, n: int, what: str) -> dict:
+    """The leader's scrape of the pod: STATUS's ``pod.metrics_ports`` names
+    every follower, and its history holds series of every target with no
+    gap mark and no scrape error since the pod started."""
+    t0 = time.perf_counter()
+    st = pod.sender.send_status_command()
+    read = time.perf_counter() - t0
+    ports = st["pod"]["metrics_ports"]
+    hist = st["history"]
+    want = {"leader"} | {f"pod:{p}" for p in range(1, n)}
+    check(set(ports) == {str(p) for p in range(1, n)} and all(ports.values()),
+          f"phase 3y {what}: metrics_ports {ports}")
+    check(want <= set(hist["targets"]) and hist["gap_marks"] == 0
+          and not hist["scraper"]["last_errors"] and hist["scraper"]["cycles"] > 0,
+          f"phase 3y {what}: the leader's history {json.dumps(hist)}")
+    out = {"metrics_ports": ports, "targets": hist["targets"], "series": hist["series"],
+           "points": hist["points"], "cycles": hist["scraper"]["cycles"],
+           "last_cycle_ms": hist["scraper"]["last_cycle_ms"], "status_read_s": read}
+    print(f"phase 3y {what}: the leader scrapes {sorted(want)}: {json.dumps(out)}", flush=True)
+    return out
+
+
 def pod_wd_config(job_id: str, epochs: int = EPOCHS):
     """bench-widedeep (phase 3's job: SLICE_ARGS, EPOCHS epochs unless
     given) with one worker, as a config to submit."""
@@ -7006,7 +7311,7 @@ def run_pod(refs):
     n = 4 if own else 2
     torch.cuda.empty_cache()
     out = {"processes": n, "cards": cards if own else 1}
-    pod = ChipPod(n, own)
+    pod = ChipPod(n, own, env=POD_OBS_ENV)
     launches = {name: 0 for name in ("gather_rows", "segment_sum_rows", "weighted_histogram",
                                      "flash_forward", "flash_backward_dkv", "flash_backward_dq")}
     try:
@@ -7065,6 +7370,7 @@ def run_pod(refs):
         out["widedeep"] = a
         print(f"phase 3y (a): bench-widedeep over {n} processes gives the one-slot bits: "
               f"{json.dumps(a)}", flush=True)
+        out["scrape_after_a"] = pod_scrape_check(pod, n, "(a)")
 
         # (b) bench-fm-hash on a DeviceHashTable over the n processes
         reps, _ = pod.run(hash_job("fm", 1).replace(job_id="pod-fm-hash"))
@@ -7127,6 +7433,7 @@ def run_pod(refs):
         out["pagerank"] = d
         print(f"phase 3y (d): bench-pagerank over {n} processes gives the one-slot values: "
               f"{json.dumps(d)}", flush=True)
+        out["scrape_after_d"] = pod_scrape_check(pod, n, "(d)")
 
         # (a) again, in warm processes: its step ms and all-gathers
         warm = widedeep("pod-widedeep-warm", "(a), warm")
@@ -9184,6 +9491,15 @@ def run_ha(one):
               "phase 3ha: the successor's losses are not the uninterrupted run's bits")
         check(pc_entries(root, HA_JOB)[HA_EPOCHS - 1]["files"] == files,
               "phase 3ha: the final table is not the uninterrupted run's")
+        check(all(k in status for k in ("metrics_port", "history", "diagnoses", "incidents"))
+              and status["history"]["window_sec"] > 0 and "adopted" in status["incidents"],
+              f"phase 3ha: the successor's STATUS lacks the scrape cycle's fields: "
+              f"{sorted(status)}")
+        out["successor_observers"] = {"metrics_port": status["metrics_port"],
+                                      "history_series": status["history"]["series"],
+                                      "diagnoses": len(status["diagnoses"]),
+                                      "incidents": {k: status["incidents"][k] for k in
+                                                    ("open", "resolved", "adopted")}}
         ha = status["ha"]
         tk = ha["takeovers"][-1]
         check(ha["role"] == "leader" and ha["leader_epoch"] == 2 and ha["replica"] == "ha-b"
@@ -9271,7 +9587,7 @@ def main() -> int:
               f"{kernel} D={d} block_k={bk}: ptxas reports spills ({entry})")
     clock("1")
 
-    alone = ("3t", "3u", "3v", "3w", "3x", "3y", "3z", "3pc", "3el", "3pd", "3ha")
+    alone = ("3t", "3u", "3v", "3w", "3x", "3y", "3z", "3pc", "3el", "3pd", "3ha", "3ob")
     if len(sys.argv) == 3 and sys.argv[1] == "--phase" and sys.argv[2] in alone:
         # one phase alone (a host of several cards: the real mesh; 3t also
         # the device guard), 3t held to one-slot runs of its own
@@ -9306,6 +9622,9 @@ def main() -> int:
         elif name == "3ha":
             _, ha = run_ha(el_kill_one_slot())
             print("ha: " + json.dumps(ha), flush=True)
+        elif name == "3ob":
+            _, obs = run_observability(ob_rate())
+            print("observability: " + json.dumps(obs), flush=True)
         else:
             _, elastic = run_elastic()
             print("elastic: " + json.dumps(elastic), flush=True)
@@ -9317,7 +9636,7 @@ def main() -> int:
         return 0
     check(not sys.argv[1:],
           f"unknown arguments {sys.argv[1:]} (only --phase 3t, 3u, 3v, 3w, 3x, 3y, 3z, 3pc, "
-          "3el, 3pd or 3ha)")
+          "3el, 3pd, 3ha or 3ob)")
 
     table, idx, err = check_kernels(dev)
     timing, skew = time_kernels(dev, table, idx)
@@ -9397,6 +9716,10 @@ def main() -> int:
         trio_jobs, {k: v["batch_losses"] for k, v in fused_trio.items()})
     print("multi-worker: " + json.dumps(multiworker), flush=True)
     clock("3q")
+    ob_launches, obs = run_observability(
+        multiworker["bench-widedeep-2-workers"]["samples_per_sec"])
+    print("observability: " + json.dumps(obs), flush=True)
+    clock("3ob")
     chain_launches, chains = run_chains(lm_summary)
     print("chains: " + json.dumps(chains), flush=True)
     clock("3r")
@@ -9434,6 +9757,7 @@ def main() -> int:
                       **{f"bench-{app}": entry["launches"].get(name, 0)
                          for app, entry in pregel["full"].items()},
                       **{path: counts.get(name, 0) for path, counts in mw_launches.items()},
+                      "observability": ob_launches.get(name, 0),
                       "chain": chain_launches[name],
                       "serving": serving_launches[name],
                       "sharded": sharded_launches.get(name, 0),

@@ -48,18 +48,23 @@ interface) and ``--ha-bind`` is the interface the submit and standby
 endpoints bind. ``start-pod --pod-leader-addrs`` lists the
 control-plane endpoints a follower JOINs again after losing its leader.
 
-``obs top`` and ``obs critpath`` read one STATUS of a running jobserver
-(``--port``, else the ``HARMONY_JOBSERVER_ADDRS`` replica list, else 43110)
-and render it as the reference does: ``top`` the overload line and the
-tenant ledger (a row a job: device seconds, samples/s, MFU, resident bytes,
-input wait, SLO attainment, straggler ratio; unknown values as ``-``),
-``critpath`` each tenant's step-phase waterfall and the epochs' critical
-path; ``--json`` prints STATUS's ``tenants`` or ``phase_budget`` as it came.
-The reference's other ``obs`` subcommands are refused, each naming the
-ROADMAP item that brings its subsystem (``flight`` and ``trace`` 6.4,
-``metrics``, ``doctor`` and ``incidents`` 6.2, ``plan`` 5.2), as are its
-``dashboard`` (6.4) and ``inputsvc`` (7.2) commands, which are not
-parsed at all.
+``obs top``, ``obs critpath``, ``obs doctor`` and ``obs incidents`` read one
+STATUS of a running jobserver (``--port``, else the
+``HARMONY_JOBSERVER_ADDRS`` replica list, else 43110) and render it as the
+reference does: ``top`` the overload line and the tenant ledger (a row a
+job: device seconds, samples/s, MFU, resident bytes, input wait, SLO
+attainment, straggler ratio; unknown values as ``-``), ``critpath`` each
+tenant's step-phase waterfall and the epochs' critical path, ``doctor`` the
+history store's shape and the newest diagnoses, ``incidents`` the lifecycle
+counts and each incident's causal chain; ``--json`` prints STATUS's
+``tenants``, ``phase_budget``, ``diagnoses`` with ``history``, or
+``incidents`` as it came. ``obs metrics`` reads an exporter's ``/metrics``
+(``--url``, else ``HARMONY_METRICS_URL``; ``start-jobserver`` prints the URL
+when ``HARMONY_METRICS_PORT`` starts one) and lists its families and
+samples. The reference's other ``obs`` subcommands are refused, each naming
+the ROADMAP item that brings its subsystem (``flight`` and ``trace`` 6.4,
+``plan`` 5.2), as are its ``dashboard`` (6.4) and ``inputsvc`` (7.2)
+commands, which are not parsed at all.
 
 The presets cover the apps this port runs: the training apps ``mlr``,
 ``nmf``, ``lda``, ``lasso``, ``gbt``, ``addvector``, ``addinteger``, ``fm``,
@@ -405,6 +410,9 @@ def _cmd_start_jobserver(args: argparse.Namespace) -> int:
         return _cmd_start_jobserver_ha(args)
     server = _make_server(args)
     port = server.serve_tcp(args.port)
+    if server.metrics_exporter is not None:
+        print(f"metrics at http://0.0.0.0:{server.metrics_exporter.port}/metrics",
+              flush=True)
     print(f"jobserver ready on port {port}", flush=True)
     try:
         while server.state != "CLOSED":
@@ -597,35 +605,88 @@ def _cmd_client(args: argparse.Namespace) -> int:
 
 #: the reference's obs subcommands this package does not run yet, by the
 #: ROADMAP A item that brings what each reads
-_OBS_UNPORTED = {"flight": "6.4", "metrics": "6.2", "trace": "6.4", "doctor": "6.2",
-                 "plan": "5.2", "incidents": "6.2"}
+_OBS_UNPORTED = {"flight": "6.4", "trace": "6.4", "plan": "5.2"}
+
+#: where ``obs metrics`` finds its exporter when ``--url`` is not given
+ENV_METRICS_URL = "HARMONY_METRICS_URL"
+
+#: obs subcommand -> the STATUS field(s) its ``--json`` prints and its renderer
+_OBS_STATUS_VIEWS = {
+    "top": (lambda st: st.get("tenants", {}),
+            lambda st: (_render_overload(st.get("overload") or {})
+                        + _render_tenant_top(st.get("tenants", {})))),
+    "critpath": (lambda st: st.get("phase_budget", {}),
+                 lambda st: _render_critpath(st.get("phase_budget", {}),
+                                             st.get("tenants", {}))),
+    "doctor": (lambda st: {"diagnoses": st.get("diagnoses", []),
+                           "history": st.get("history", {})},
+               lambda st: _render_doctor(st.get("diagnoses", []), st.get("history", {}))),
+    "incidents": (lambda st: st.get("incidents", {}),
+                  lambda st: _render_incidents(st.get("incidents", {}))),
+}
 
 
 def _cmd_obs(args: argparse.Namespace) -> int:
-    """``obs top`` and ``obs critpath``: one STATUS of a running jobserver,
-    rendered (or printed raw with ``--json``)."""
+    """``obs top``, ``critpath``, ``doctor`` and ``incidents``: one STATUS of
+    a running jobserver, rendered (or printed raw with ``--json``); ``obs
+    metrics``: one scrape of an exporter. The output is made for piping: a
+    closed pipe (``| head``) ends the command quietly, as the reference's."""
+    try:
+        return _cmd_obs_inner(args)
+    except BrokenPipeError:
+        import os
+
+        os.dup2(os.open(os.devnull, os.O_WRONLY), sys.stdout.fileno())
+        return 0
+
+
+def _cmd_obs_inner(args: argparse.Namespace) -> int:
     if args.what in _OBS_UNPORTED:
         print(f"obs {args.what} is not ported yet (ROADMAP A item "
-              f"{_OBS_UNPORTED[args.what]}); this package runs obs top and obs critpath",
-              file=sys.stderr)
+              f"{_OBS_UNPORTED[args.what]}); this package runs obs top, critpath, "
+              "doctor, incidents and metrics", file=sys.stderr)
         return 2
+    if args.what == "metrics":
+        return _cmd_obs_metrics(args)
     status = _cli_command(_sender(args.port).send_status_command)
     if not status.get("ok"):
         print(json.dumps(status))
         return 1
-    if args.what == "top":
-        if args.json:
-            print(json.dumps(status.get("tenants", {}), indent=2))
-            return 0
-        lines = (_render_overload(status.get("overload") or {})
-                 + _render_tenant_top(status.get("tenants", {})))
-    else:
-        if args.json:
-            print(json.dumps(status.get("phase_budget", {}), indent=2))
-            return 0
-        lines = _render_critpath(status.get("phase_budget", {}), status.get("tenants", {}))
-    for line in lines:
+    raw, render = _OBS_STATUS_VIEWS[args.what]
+    if args.json:
+        print(json.dumps(raw(status), indent=2))
+        return 0
+    for line in render(status):
         print(line)
+    return 0
+
+
+def _cmd_obs_metrics(args: argparse.Namespace) -> int:
+    """One scrape of an exporter's ``/metrics``: every family with its type
+    and help, then its samples, as the reference lists them."""
+    import os
+    import urllib.request
+
+    from harmony_tpu_torch.metrics.registry import parse_exposition
+
+    base = (args.url or os.environ.get(ENV_METRICS_URL, "").strip()).rstrip("/")
+    if not base:
+        print(f"obs metrics needs --url (or the {ENV_METRICS_URL} env knob)",
+              file=sys.stderr)
+        return 2
+    text = urllib.request.urlopen(base + "/metrics", timeout=10).read().decode()
+    try:
+        families = parse_exposition(text)
+    except ValueError as e:
+        print(text)
+        print(f"(unparseable exposition: {e})", file=sys.stderr)
+        return 1
+    for name in sorted(families):
+        fam = families[name]
+        print(f"{name} [{fam['type']}]  {fam['help'] or ''}")
+        for sname, labels, value in fam["samples"]:
+            lab = ",".join(f"{k}={v}" for k, v in sorted(labels.items()))
+            print(f"  {sname}{{{lab}}} = {value}")
     return 0
 
 
@@ -640,6 +701,107 @@ def _render_table(rows: "List[tuple]") -> "List[str]":
                              for c, w in zip(row, widths)).rstrip())
         if i == 0:
             out.append("  ".join("-" * w for w in widths))
+    return out
+
+
+def _render_doctor(diagnoses: list, history: dict) -> "List[str]":
+    """One-screen doctor view from a single STATUS scrape: a header
+    with the store's shape (series/points/targets — is the sensor
+    layer even seeing anything?), then one row per diagnosis, newest
+    last. Empty is a real answer: 'no diagnoses' over a populated
+    store means the cluster looks healthy; over an EMPTY store it
+    means nothing is being scraped — the header disambiguates."""
+    out = []
+    scraper = history.get("scraper") or {}
+    out.append(
+        f"history: {history.get('series', 0)} series, "
+        f"{history.get('points', 0)} points, "
+        f"window {history.get('window_sec', '?')}s @ "
+        f"{history.get('resolution_sec', '?')}s, "
+        f"{scraper.get('cycles', 0)} scrape cycles, "
+        f"targets: {', '.join(history.get('targets', [])) or '-'}")
+    if history.get("gap_marks"):
+        out.append(f"  ({history['gap_marks']} missed-scrape gap marks, "
+                   f"{history.get('restarts', 0)} process restarts seen)")
+    if not diagnoses:
+        out.append("no diagnoses — all rules silent over the window")
+        return out
+    rows = [("WHEN", "RULE", "SUBJECT", "CONF", "SUMMARY")]
+    for d in diagnoses:
+        rows.append((
+            time.strftime("%H:%M:%S", time.localtime(d.get("ts", 0))),
+            str(d.get("rule", "?")),
+            str(d.get("job") or d.get("target") or "-"),
+            f"{d.get('confidence', 0.0):.2f}",
+            str(d.get("summary", "")),
+        ))
+    return out + _render_table(rows)
+
+
+#: causal nesting rank for the incident timeline: each evidence edge
+#: indents under the newest edge of an earlier rank, so the rendered
+#: staircase IS the causal story (trigger → diagnosis → action →
+#: resolution)
+_INCIDENT_RANK = {"trigger": 0, "diagnosis": 1, "action": 2,
+                  "resolution": 3}
+
+
+def _render_incidents(incidents: dict) -> "List[str]":
+    """One-screen incident view from a single STATUS scrape: a header with
+    the lifecycle counts, then each incident as its own causal timeline —
+    the evidence chain shaped through tracing/timeline.py, offsets relative
+    to the trigger. Unknown latencies render '-' (an open incident has no
+    MTTR yet; 0 would be a lie)."""
+    if not incidents:
+        return ["(no incidents section — server predates the incident "
+                "engine?)"]
+
+    def _sec(v) -> str:
+        return "-" if v is None else f"{v:.3f}s"
+
+    out = [
+        f"incidents: open={incidents.get('open', 0)} "
+        f"mitigating={incidents.get('mitigating', 0)} "
+        f"resolved={incidents.get('resolved', 0)} "
+        f"window={incidents.get('window_sec', '?')}s "
+        f"mean_mttr={_sec(incidents.get('mttr_mean_sec'))}"
+        + (f" adopted={incidents['adopted']}"
+           if incidents.get("adopted") else ""),
+    ]
+    rows = incidents.get("incidents") or []
+    if not rows:
+        out.append("no incidents — the evidence stream is quiet")
+        return out
+    from harmony_tpu_torch.tracing.timeline import timeline_rows
+
+    for inc in rows:
+        verdict = inc.get("verdict")
+        out.append("")
+        out.append(
+            f"{inc.get('incident_id', '?')} "
+            f"[{inc.get('status', '?')}"
+            + (f"/{verdict}" if verdict else "") + "] "
+            f"subject={inc.get('subject', '?')} "
+            f"mttd={_sec(inc.get('mttd_sec'))} "
+            f"mitigate={_sec(inc.get('mitigate_sec'))} "
+            f"mttr={_sec(inc.get('mttr_sec'))}")
+        spans, newest_by_rank = [], {}
+        for i, edge in enumerate(inc.get("chain") or []):
+            rank = _INCIDENT_RANK.get(edge.get("role"), 0)
+            parent = max((sid for r, sid in newest_by_rank.items()
+                          if r < rank), default=None)
+            spans.append({"span_id": i + 1, "parent_id": parent,
+                          "description": str(edge.get("summary")
+                                             or edge.get("kind") or "?"),
+                          "start_sec": edge.get("ts"),
+                          "stop_sec": edge.get("ts"), "edge": edge})
+            newest_by_rank[rank] = i + 1
+        for row in timeline_rows(spans):
+            edge = row["span"]["edge"]
+            out.append(
+                f"  +{row['offset_sec']:8.3f}s {'  ' * row['depth']}"
+                f"{edge.get('role', '?'):<10} "
+                f"{row['span']['description']} [{edge.get('src', '?')}]")
     return out
 
 
@@ -922,13 +1084,20 @@ def build_parser() -> argparse.ArgumentParser:
     _port_flag(p)
     p = sub.add_parser("shutdown", help="graceful jobserver shutdown")
     _port_flag(p)
-    p = sub.add_parser("obs", help="observability: the per-tenant cost top and the "
-                                   "step-phase critical path of a running jobserver")
+    p = sub.add_parser("obs", help="observability: the per-tenant cost top, the "
+                                   "step-phase critical path, the doctor's diagnoses "
+                                   "and the incidents of a running jobserver, and an "
+                                   "exporter's /metrics")
     p.add_argument("what", choices=("top", "flight", "metrics", "trace", "doctor",
                                     "critpath", "plan", "incidents"))
     _port_flag(p)
     p.add_argument("--json", action="store_true",
-                   help="top: STATUS's raw tenant ledger; critpath: its raw phase budgets")
+                   help="top: STATUS's raw tenant ledger; critpath: its raw phase "
+                        "budgets; doctor: its raw diagnoses and history stats; "
+                        "incidents: its raw incidents section")
+    p.add_argument("--url", default=None,
+                   help="metrics: the exporter's base URL (default "
+                        "$HARMONY_METRICS_URL)")
     return ap
 
 

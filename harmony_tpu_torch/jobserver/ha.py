@@ -33,10 +33,11 @@ new leader, replay ms, entries replayed, re-armed jobs); it rides STATUS's
 ``ha`` field and the durable log itself. The fault site
 ``jobserver.takeover`` sits at the start of a takeover.
 
-Not ported with it: the reference's takeover also adopts the replayed
-incidents into its incident engine and posts the event to its dashboard;
-the port has neither subsystem yet (ROADMAP A item 6), so ``ReplayState``
-keeps the incidents and nothing adopts them.
+The takeover also adopts the replayed incidents (``ReplayState.incidents``,
+the predecessor's ``kind="incident"`` entries) into the successor's incident
+engine: the open ones stay open, so evidence after the takeover still joins
+them; a failed adoption never fails the takeover. Not ported with it: the
+reference also posts the takeover to its dashboard (ROADMAP A item 6.4).
 """
 from __future__ import annotations
 
@@ -356,6 +357,13 @@ class HAController:
                 raise RuntimeError("lease lapsed during takeover")
             rearmed = self._rearm(server, state)
             self._seed_done(server, state)
+            # adopt the predecessor's persisted incidents: mid-flight episodes
+            # stay OPEN here, so post-takeover evidence still joins them
+            # (resolved ones land in the history ring; nothing re-appended)
+            try:
+                server.incidents.adopt(state.incidents)
+            except Exception:  # noqa: BLE001 - never fails a takeover
+                pass
         except BaseException:
             # a half-done takeover leaks no running server, open log or sink
             if server is not None:

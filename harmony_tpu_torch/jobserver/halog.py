@@ -547,9 +547,8 @@ class ReplayState:
         self.chains: Dict[str, str] = {}
         #: takeover history, oldest first
         self.takeovers: List[Dict[str, Any]] = []
-        #: incident id -> its newest transition (kind="incident"); kept so
-        #: the replay is the reference's, though the port has no incident
-        #: engine to adopt them yet (ROADMAP A item 6)
+        #: incident id -> its newest transition (kind="incident"): the
+        #: successor's incident engine adopts them (ha.py)
         self.incidents: Dict[str, Dict[str, Any]] = {}
         self.max_epoch = 0
         self.max_seq = 0

@@ -1,10 +1,7 @@
 """Control-plane overload detection, admission control, and degradation.
 
-Counterpart of ``harmony_tpu/jobserver/overload.py``, copied without its
-observers: the reference's ``harmony_overload_*`` registry counters and its
-``kind="overload"`` joblog events are best-effort hooks there (each in a
-``try``), and they come with the serving observers (ROADMAP A item 6.3). What the
-command plane and the serving edge consult is the reference's:
+Counterpart of ``harmony_tpu/jobserver/overload.py``. What the command
+plane, the scrape cycle and the serving edge consult:
 
 * **Admission control** — :meth:`OverloadMonitor.admit_submit` answers
   "may this SUBMIT enter?" from queue depth and in-flight dispatches. A
@@ -12,10 +9,18 @@ command plane and the serving edge consult is the reference's:
   (client.py backs off with jitter and retries the same server), decided
   before anything is registered, so accepted-then-shed is impossible.
 * **Overload detector + ladder** — :meth:`note_queue` (the JobServer's
-  command queue depth and lag) and :meth:`note_cycle` (telemetry loops'
-  overrun; no caller until the history scraper is ported) step the plane
-  down ``normal -> degraded -> shedding``; at ``shedding`` the serving edge
-  answers ``busy``. Every shed decision is counted in ``status()``.
+  command queue depth and lag) and :meth:`note_cycle` (the scrape cycle's
+  ``scrape``, ``diagnose`` and ``correlate`` stages against the scrape
+  period, ``JobServer._on_scrape_cycle``) step the plane down
+  ``normal -> degraded -> shedding``: the scraper samples a rotating
+  target subset, the doctor evaluates a rotating tenant subset, and at
+  ``shedding`` the serving edge answers ``busy``. Every shed decision is
+  counted in ``status()`` and in ``harmony_overload_shed_total{action}``;
+  every transition counts in ``harmony_overload_transitions_total
+  {direction}`` and lands as a structured ``kind="overload"`` joblog
+  event under ``__control__`` — the doctor's ``control_overload`` rule
+  and the incident engine read it. The observers sit in a ``try``: they
+  never fail the control plane.
 * **Hysteretic recovery** — stepping back up goes through
   :class:`~harmony_tpu_torch.jobserver.policy.ActionGate`: calm must
   persist ``confirm`` consecutive evaluations and clear the cooldown
@@ -131,6 +136,12 @@ def overload_subset() -> int:
         return 8
 
 
+def _registry():
+    from harmony_tpu_torch.metrics.registry import get_registry
+
+    return get_registry()
+
+
 class OverloadMonitor:
     """The jobserver's overload detector + degradation ladder (module
     docstring). All inputs arrive via ``note_*``; :meth:`step` moves at
@@ -237,6 +248,14 @@ class OverloadMonitor:
                   "reason": reason, "ts": time.time()}
             self._transitions.append(ev)
         direction = "down" if new_level > old else "up"
+        try:
+            _registry().counter(
+                "harmony_overload_transitions_total",
+                "Degradation-ladder transitions by direction "
+                "(down = fidelity shed, up = recovered)",
+                ("direction",)).labels(direction=direction).inc()
+        except Exception:
+            pass  # instruments must never fail the control plane
         if faults.armed():
             # chaos hook: a raise here models the detector itself
             # wedging mid-transition — the ladder must stay consistent
@@ -245,6 +264,15 @@ class OverloadMonitor:
                             level=LADDER[new_level])
             except Exception:
                 pass
+        try:
+            from harmony_tpu_torch.jobserver.joblog import record_event
+
+            record_event("__control__", "overload",
+                         ladder=LADDER[new_level], level=new_level,
+                         direction=direction, reason=reason,
+                         sheds=dict(self._sheds))
+        except Exception:
+            pass
         return new_level
 
     # -- admission -------------------------------------------------------
@@ -327,6 +355,14 @@ class OverloadMonitor:
         slowloris_evict, deadline_evict)."""
         with self._lock:
             self._sheds[action] = self._sheds.get(action, 0) + n
+        try:
+            _registry().counter(
+                "harmony_overload_shed_total",
+                "Control-plane shed decisions by action "
+                "(busy_reject, accept_shed, *_skip, *_evict)",
+                ("action",)).labels(action=action).inc(n)
+        except Exception:
+            pass  # instruments must never fail the control plane
 
     def status(self) -> Dict[str, Any]:
         """The STATUS ``overload`` payload / ``obs top`` header."""

@@ -18,7 +18,12 @@ units it saw during the job; the leader keeps them by process (``pod_reports``, 
 ``HARMONY_POD_HB_PERIOD`` seconds (5); the leader confines a follower silent
 past ``HARMONY_POD_HB_TIMEOUT`` (60), and a lost connection marks it dead:
 a job it takes part in fails, and the pod is marked broken for the processes
-that shared a running job with it.
+that shared a running job with it. A follower started with
+``HARMONY_METRICS_PORT`` runs a ``/metrics`` exporter of its own and
+advertises its port on every HEARTBEAT; the leader's history scraper adds
+each live follower's exporter to its targets as ``pod:<pid>`` (dead and
+silenced followers are skipped), and STATUS's ``pod.metrics_ports`` lists
+them.
 
 Concurrent tenants: a cross-process collective blocks its thread until every
 peer arrives, so two multi-process jobs sharing processes must enter their
@@ -149,6 +154,7 @@ from harmony_tpu_torch.jobserver import elastic, podplan
 from harmony_tpu_torch.jobserver.joblog import job_logger, record_event
 from harmony_tpu_torch.jobserver.scheduler import ProcessCarveScheduler
 from harmony_tpu_torch.jobserver.server import JobServer, _json_sanitize
+from harmony_tpu_torch.metrics.exporter import exporter_from_env
 from harmony_tpu_torch.runtime.podunits import (
     FollowerUnits,
     PodUnitArbiter,
@@ -285,6 +291,13 @@ class PodJobServer(JobServer):
         #: bootstrap (a late JOIN must carry it)
         self._incarnations: Dict[int, Optional[str]] = {}
         self._hb_jobs: Dict[int, set] = {}
+        #: pid -> the /metrics exporter port its latest HEARTBEAT advertised
+        #: (the history scraper's target discovery); absent when the follower
+        #: runs without HARMONY_METRICS_PORT
+        self._hb_metrics_ports: Dict[int, int] = {}
+        #: pid -> the address the follower connected from: the host half of
+        #: its scrape target
+        self._follower_hosts: Dict[int, str] = {}
         self._silenced: set = set()
         self._unusable_procs: set = set()
         self._poison_scope: Optional[str] = None     # "partial" | "total"
@@ -373,6 +386,7 @@ class PodJobServer(JobServer):
                 self._send_locks[pid] = threading.Lock()
                 self._last_seen[pid] = self._last_beat[pid] = time.monotonic()
                 self._incarnations[pid] = token
+                self._follower_hosts[pid] = addr[0]
             log.info("pod follower %d joined from %s", pid, addr)
         for pid, (_, f) in sorted(self._followers.items()):
             t = threading.Thread(target=self._reader_loop, args=(pid, f), daemon=True,
@@ -458,12 +472,21 @@ class PodJobServer(JobServer):
                 pass
             conn.close()
             return False
+        try:
+            peer_host = conn.getpeername()[0]
+        except OSError:
+            peer_host = None
         with self._pod_cond:
             old = self._followers.pop(pid, None)
             self._followers[pid] = (conn, f)
             self._send_locks[pid] = threading.Lock()
             self._last_seen[pid] = self._last_beat[pid] = time.monotonic()
             self._hb_jobs.pop(pid, None)
+            # the process re-advertises its exporter on its next beat; the
+            # old port may be gone with the connection
+            self._hb_metrics_ports.pop(pid, None)
+            if peer_host is not None:
+                self._follower_hosts[pid] = peer_host
             self._dead_followers.discard(pid)
             self._pod_cond.notify_all()
         if old is not None:
@@ -732,6 +755,8 @@ class PodJobServer(JobServer):
                 if cmd == "HEARTBEAT":
                     self._last_beat[pid] = self._last_seen[pid]
                     self._hb_jobs[pid] = set(msg.get("jobs", []))
+                    if msg.get("metrics_port"):
+                        self._hb_metrics_ports[pid] = int(msg["metrics_port"])
                     self._pod_cond.notify_all()
             if cmd == "HEARTBEAT":
                 continue
@@ -868,6 +893,10 @@ class PodJobServer(JobServer):
                 "reinstated": list(self.reinstated),
                 "refused_joins": list(self.refused_joins),
                 "auto_resumed": list(self.auto_resumed),
+                # the followers' heartbeat-advertised /metrics ports: the
+                # scraper's targets, for an operator to scrape by hand too
+                "metrics_ports": {str(p): port for p, port
+                                  in sorted(self._hb_metrics_ports.items())},
                 # the newest attempts' reports by process, and their walls
                 "reports": {j: {str(p): r for p, r in reps.items()}
                             for j, reps in list(self.pod_reports.items())[-16:]},
@@ -879,6 +908,23 @@ class PodJobServer(JobServer):
                 "events": [dict(ev) for ev in self.elastic_events[-32:]],
             }
         return out
+
+    def _scrape_targets(self) -> Dict[str, Any]:
+        """The server's own targets plus every live follower whose heartbeat
+        advertised an exporter port (``pod:<pid>``). Dead and silenced
+        followers are skipped: their gap is already the signal, and scraping
+        one would only hold the cycle to its timeout."""
+        targets = super()._scrape_targets()
+        with self._pod_cond:
+            ports = dict(self._hb_metrics_ports)
+            hosts = dict(self._follower_hosts)
+            skip = set(self._dead_followers) | set(self._silenced)
+        for pid, port in sorted(ports.items()):
+            if pid in skip:
+                continue
+            host = hosts.get(pid) or "127.0.0.1"
+            targets[f"pod:{pid}"] = f"http://{host}:{port}/metrics"
+        return targets
 
     @staticmethod
     def _blocks(ps: frozenset, their_ordered: bool, procs: frozenset, ordered: bool) -> bool:
@@ -1545,6 +1591,9 @@ class PodFollower:
         self.master.add_executors(num_executors)
         self.metrics = MetricManager()
         self.metrics.start_collection()
+        # this process's /metrics endpoint (HARMONY_METRICS_PORT; None when
+        # unset), advertised on every beat for the leader's scraper
+        self.metrics_exporter = exporter_from_env()
         # the liveness beacon: the leader's report waits are gated on it,
         # never on a job's duration
         self._hb_period = float(os.environ.get("HARMONY_POD_HB_PERIOD", "5"))
@@ -1573,7 +1622,10 @@ class PodFollower:
                 except Exception:  # noqa: BLE001 - one beat lost, the beacon lives
                     continue
             try:
-                self._report({"cmd": "HEARTBEAT", "pid": self.pid, "jobs": jobs})
+                self._report({"cmd": "HEARTBEAT", "pid": self.pid, "jobs": jobs,
+                              "metrics_port": (self.metrics_exporter.port
+                                               if self.metrics_exporter is not None
+                                               else None)})
             except OSError:
                 if self._reconnect:
                     continue  # a leader change: run()'s re-JOIN swaps the socket
@@ -1685,6 +1737,9 @@ class PodFollower:
                     except OSError:
                         break  # the leader is gone
                 self._hb_stop.set()
+                if self.metrics_exporter is not None:
+                    self.metrics_exporter.stop()
+                    self.metrics_exporter = None
                 self._sock.close()
                 return
             cmd = msg.get("cmd")

@@ -70,8 +70,20 @@ record was refused raises :class:`NotLeader`. STATUS and SHUTDOWN are not
 gated. STATUS's ``ha`` field gives the role, the epoch, the lease's and the
 log's stats and the takeovers.
 
-Not ported yet: the policy engine, history and doctor, metrics scraping, and
-the STATUS fields of those subsystems (ROADMAP A.10).
+The scrape cycle (``metrics/{exporter,history,doctor,incidents}.py``): with
+``HARMONY_METRICS_PORT`` set, the server runs a ``/metrics`` exporter of its
+own (``metrics_exporter``). A ``HistoryScraper`` thread, started by ``start``,
+polls ``_scrape_targets`` (this process's registry in-process, plus the
+``HARMONY_OBS_SCRAPE_TARGETS`` extras; the pod's server adds its followers'
+exporters) and the tenant ledger into ``history`` every
+``HARMONY_OBS_SCRAPE_PERIOD`` seconds; after each poll ``_on_scrape_cycle``
+runs the doctor's rules and the incident engine's correlation and feeds each
+stage's wall time to the overload monitor (``note_cycle``). The thread reads
+host numbers only: no device sync, no launch. ``shutdown`` joins it and
+clears the process-wide doctor and engine when this server owns them.
+STATUS carries ``metrics_port``, ``history``, ``diagnoses`` and
+``incidents``. The policy engine, the cycle's ``plan`` stage, is not ported
+(ROADMAP A item 5.2).
 """
 from __future__ import annotations
 
@@ -97,6 +109,14 @@ from harmony_tpu_torch.jobserver.scheduler import (
     JobScheduler,
     ShareAllScheduler,
     make_scheduler,
+)
+from harmony_tpu_torch.metrics.doctor import Doctor, peek_doctor, set_doctor
+from harmony_tpu_torch.metrics.exporter import exporter_from_env
+from harmony_tpu_torch.metrics.history import HistoryScraper, HistoryStore, extra_targets
+from harmony_tpu_torch.metrics.incidents import (
+    IncidentEngine,
+    peek_incidents,
+    set_incidents,
 )
 from harmony_tpu_torch.metrics.manager import MetricManager
 from harmony_tpu_torch.parallel.mesh import DevicePool, mesh_spans_processes
@@ -142,6 +162,9 @@ class JobServer:
         if isinstance(scheduler, str):
             scheduler = make_scheduler(scheduler)
         self.master = ETMaster(device_pool)  # the default pool raises without a card
+        # this process's /metrics endpoint (HARMONY_METRICS_PORT; None when
+        # the knob is unset: tests and one-shots pay nothing)
+        self.metrics_exporter = exporter_from_env()
         self.global_taskunit = GlobalTaskUnitScheduler()
         self.local_taskunit = LocalTaskUnitScheduler()  # 1 CPU, 2 NET slots
         self._scheduler = scheduler or ShareAllScheduler()
@@ -170,6 +193,22 @@ class JobServer:
         self.port: Optional[int] = None
         # the serving endpoint, started by the first SERVING command
         self.serving = None
+        # the scrape cycle: the scraper polls every known process's /metrics
+        # and the tenant ledger into a bounded store; after every poll the
+        # doctor evaluates its rules and the incident engine correlates the
+        # joblog stream (_on_scrape_cycle)
+        self.history = HistoryStore()
+        self.doctor = Doctor(self.history, stragglers_fn=self.metrics.straggler_report)
+        set_doctor(self.doctor)
+        self._history_scraper = HistoryScraper(
+            self.history, targets_fn=self._scrape_targets,
+            ledger_fn=self.metrics.tenant_ledger, on_cycle=self._on_scrape_cycle)
+        # incidents persist as kind="incident" joblog events, so the HA tee
+        # carries them to a successor (ha.py adopts the replayed set). The
+        # reference also tees diagnoses and incidents to its dashboard, which
+        # the port lacks until ROADMAP A item 6.4
+        self.incidents = IncidentEngine()
+        set_incidents(self.incidents)
         # control-plane HA, wired by enable_ha: leader_epoch stamps every
         # durable entry and pod message, so a deposed leader's late writes
         # are fenced everywhere
@@ -195,6 +234,7 @@ class JobServer:
             self.global_taskunit.meter_execution = all(
                 e.device.type == "cpu" for e in executors)
             self._scheduler.bind([e.id for e in executors], self._launch)
+            self._history_scraper.start()
             self._state = "INIT"
 
     # -- control-plane HA ----------------------------------------------------
@@ -421,7 +461,9 @@ class JobServer:
                 self._state = "CLOSING"
         if state != "INIT":
             if state == "NOT_INIT":
-                self._stop_ha()  # a takeover that failed before start()
+                # a takeover that failed before start()
+                self._stop_observers()
+                self._stop_ha()
             return
         self._stop_tcp()
         deadline = None if timeout is None else time.monotonic() + timeout
@@ -445,8 +487,72 @@ class JobServer:
         self._run_deferred_evals(timeout, drained)
         self._stop_serving()
         self._on_closing(timeout)
+        self._stop_observers()
         self._stop_ha()
         self._state = "CLOSED"
+
+    def _stop_observers(self) -> None:
+        """The scrape cycle's part of shutdown: join the scraper (a cycle in
+        flight ends first), clear the process-wide doctor and incident engine
+        when this server owns them, stop the exporter."""
+        self._history_scraper.stop()
+        if peek_doctor() is self.doctor:
+            set_doctor(None)
+        if peek_incidents() is self.incidents:
+            set_incidents(None)
+        with self._lock:
+            exporter, self.metrics_exporter = self.metrics_exporter, None
+        if exporter is not None:
+            exporter.stop()
+
+    # -- the scrape cycle ---------------------------------------------------
+
+    def _scrape_targets(self) -> Dict[str, Any]:
+        """The scraper's targets: this process's own registry (sampled
+        in-process, no HTTP) plus the ``HARMONY_OBS_SCRAPE_TARGETS`` extras;
+        the pod's server adds its followers' exporters. While the ladder is
+        degraded a rotating subset is scraped (the registry always)."""
+        from harmony_tpu_torch.metrics.registry import get_registry
+
+        targets: Dict[str, Any] = {"leader": get_registry().expose}
+        targets.update(extra_targets())
+        if self.overload.degraded():
+            keep = self.overload.plan_subset(list(targets), plan="scrape",
+                                             keep=("leader",))
+            targets = {k: v for k, v in targets.items() if k in keep}
+        return targets
+
+    def _on_scrape_cycle(self) -> None:
+        """After every poll: the doctor's rules, then the incident engine's
+        correlation, each contained (a broken one must not stop the other).
+        Each stage's wall time against the scrape period goes to the overload
+        monitor; while degraded the doctor evaluates a rotating tenant subset.
+        The reference runs its policy engine between the two (the ``plan``
+        stage), which the port lacks until ROADMAP A item 5.2."""
+        ov = self.overload
+        period = self._history_scraper.period
+        st = self._history_scraper.stats()
+        ov.note_cycle("scrape", float(st.get("last_cycle_ms") or 0.0) / 1000.0, period)
+        jobs = None
+        if ov.degraded():
+            try:
+                jobs = set(ov.plan_subset([str(j) for j in self.metrics.tenant_ledger()],
+                                          plan="tenants"))
+            except Exception:
+                jobs = None
+        t0 = time.monotonic()
+        try:
+            self.doctor.diagnose(jobs=jobs)
+        except Exception:
+            pass
+        ov.note_cycle("diagnose", time.monotonic() - t0, period)
+        t0 = time.monotonic()
+        try:
+            self.incidents.correlate()
+        except Exception:
+            pass
+        ov.note_cycle("correlate", time.monotonic() - t0, period)
+        ov.step()
 
     def _run_deferred_evals(self, timeout: Optional[float], drained: bool) -> None:
         """The deferred-work stage of graceful shutdown: run the evaluations
@@ -536,16 +642,19 @@ class JobServer:
         job, from the stored step times), ``tenants`` (the tenant ledger
         joined with them, what ``obs top`` renders) and ``phase_budget`` (the
         step-phase budgets and their critical path, what ``obs critpath``
-        renders) share one straggler walk. The reference's other fields
-        (history, diagnoses, incidents, metrics_port, policy, flight records,
-        profile capture, input service) are absent until those subsystems
-        are ported (ROADMAP A items 5.2, 6.2, 6.4, 7.2).
-        ``job_events`` is this process's structured event rings
-        (``jobserver/joblog.py``), by job."""
+        renders) share one straggler walk. The scrape cycle's: ``metrics_port``
+        (the exporter's, or None), ``history`` (the store's shape and the
+        scraper's), ``diagnoses`` (the doctor's newest, what ``obs doctor``
+        renders) and ``incidents`` (what ``obs incidents`` renders). The
+        reference's other fields (policy, flight records, profile capture,
+        input service) are absent until those subsystems are ported (ROADMAP
+        A items 5.2, 6.4, 7.2). ``job_events`` is this process's structured
+        event rings (``jobserver/joblog.py``), by job."""
         from harmony_tpu_torch.jobserver import joblog
 
         with self._lock:
             serving = self.serving
+            exporter = self.metrics_exporter
         stragglers = self.metrics.straggler_report()
         return {
             "ok": True,
@@ -560,6 +669,11 @@ class JobServer:
             "stragglers": stragglers,
             "tenants": self.metrics.tenant_ledger(stragglers=stragglers),
             "phase_budget": self.metrics.phase_budget(stragglers=stragglers),
+            "metrics_port": exporter.port if exporter is not None else None,
+            "history": {**self.history.stats(),
+                        "scraper": self._history_scraper.stats()},
+            "diagnoses": self.doctor.recent(),
+            "incidents": self.incidents.status(),
         }
 
     # -- TCP command endpoint ------------------------------------------------

@@ -181,8 +181,8 @@ class MetricManager:
         if stragglers is None:
             stragglers = self.straggler_report()
         # step-phase budget join (metrics/phases.py): each tenant row
-        # carries its windowed phase FRACTIONS (and the scrape cycle of
-        # ROADMAP A item 6.2 folds them as tenant.phase.* series); peek —
+        # carries its windowed phase FRACTIONS (the history scraper folds
+        # them as tenant.phase.* series); peek —
         # a ledger query must not instantiate budget state
         store = peek_budget()
         budgets = (store.snapshot_memoized(window_sec)

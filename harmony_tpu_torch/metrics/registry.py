@@ -22,9 +22,9 @@ code (the port imports nothing of the JAX package):
     format contract.
 
 Dependency-free on purpose: instrumented modules (checkpoint, blockmove,
-the worker's drain) import this from anywhere without cycles. The
-``GET /metrics`` endpoint that serves :meth:`MetricRegistry.expose` comes
-with the scrape cycle (ROADMAP A item 6.2).
+the worker's drain) import this from anywhere without cycles.
+``metrics/exporter.py`` serves :meth:`MetricRegistry.expose` at
+``GET /metrics``.
 
 Conventions: metric names are namespaced ``harmony_*``; counters end in
 ``_total``; label keys are ``job``, ``attempt`` (the ``job@aN`` elastic

@@ -32,9 +32,14 @@ are training. Three layers between the socket and the storage:
 Admission control is the jobserver's overload monitor: while the control
 plane is shedding, lookups get a structured ``busy`` frame with a retry
 hint. ``stats()`` reports per-tenant p50/p99 latency, batch occupancy and
-the cache's figures. The reference's observers (registry counters, the
-tenant ledger's ``set_serving_state``, the ``serving_slo`` joblog event)
-wait for those subsystems (ROADMAP A.10).
+the cache's figures. The observers are the reference's, each in a ``try``
+(they never fail a lookup): ``harmony_serving_requests_total{mode}`` and
+``harmony_serving_shed_total`` in the registry; every ``_LEDGER_FLUSH_S``
+a tenant's window (qps, p50/p99, its SLO, batch occupancy, cache hit rate)
+goes into the tenant ledger (``set_serving_state``), which the history
+scraper folds as ``tenant.serving.*`` series for the doctor's
+``serving_slo_breach`` rule; and a window whose p99 exceeds the tenant's
+SLO records a ``serving_slo`` joblog event, the incident engine's trigger.
 """
 from __future__ import annotations
 
@@ -76,7 +81,7 @@ def cache_mb_from_env() -> int:
 
 def slo_ms_from_env() -> float:
     """HARMONY_SERVE_SLO_MS (default 50): default p99 latency SLO a
-    serving tenant reports in ``stats()``."""
+    serving tenant registers in the ledger."""
     return max(0.1, float(os.environ.get("HARMONY_SERVE_SLO_MS", "50") or 50))
 
 
@@ -93,6 +98,10 @@ _PIN_TTL_S = 1.0
 
 #: Follower bound on waiting for its batch leader's gather.
 _BATCH_WAIT_S = 30.0
+
+#: Ledger flush cadence (seconds) — serving stats are summarized, not
+#: pushed per request.
+_LEDGER_FLUSH_S = 0.5
 
 
 class _PendingBatch:
@@ -259,6 +268,23 @@ class ServingEndpoint:
         self._shed = 0
         self._errors = 0
         self._tenants: Dict[str, Dict[str, Any]] = {}
+        self._req_counter = None
+        self._shed_counter = None
+        try:
+            from harmony_tpu_torch.metrics.registry import get_registry
+
+            reg = get_registry()
+            self._req_counter = reg.counter(
+                "harmony_serving_requests_total",
+                "Serving lookups answered, by read mode",
+                ("mode",),
+            )
+            self._shed_counter = reg.counter(
+                "harmony_serving_shed_total",
+                "Serving lookups shed by admission control",
+            )
+        except Exception:
+            pass  # metrics are an observer, never a dependency
 
     # -- lifecycle --------------------------------------------------------
 
@@ -307,6 +333,9 @@ class ServingEndpoint:
                     "lat_ms": deque(maxlen=_LAT_WINDOW),
                     "slo_p99_ms": slo_ms_from_env(),
                     "pinned_epoch": None,
+                    # window accumulators for the ledger flush
+                    "w_t0": time.monotonic(), "w_requests": 0,
+                    "w_hits": 0, "w_lookups": 0,
                 }
             return st
 
@@ -315,6 +344,51 @@ class ServingEndpoint:
         self._tenant(job)["slo_p99_ms"] = max(0.1, float(p99_ms))
 
     # -- live view --------------------------------------------------------
+
+    def _flush_ledger(self, job: str, st: Dict[str, Any]) -> None:
+        """Summarize the window into the tenant ledger (best-effort —
+        the ledger is an observer, never a serving dependency)."""
+        now = time.monotonic()
+        with self._lock:
+            dt = now - st["w_t0"]
+            if dt < _LEDGER_FLUSH_S or not st["w_requests"]:
+                return
+            lat = sorted(st["lat_ms"])
+            p50 = lat[len(lat) // 2] if lat else None
+            p99 = (lat[min(len(lat) - 1, int(len(lat) * 0.99))]
+                   if lat else None)
+            hit = (st["w_hits"] / st["w_lookups"]
+                   if st["w_lookups"] else None)
+            qps = st["w_requests"] / dt
+            b_req = sum(b.requests for k, b in self._batchers.items()
+                        if k[0] == job)
+            b_n = sum(b.batches for k, b in self._batchers.items()
+                      if k[0] == job)
+            occ = (b_req / b_n) if b_n else None
+            st["w_t0"] = now
+            st["w_requests"] = st["w_hits"] = st["w_lookups"] = 0
+        try:
+            from harmony_tpu_torch.metrics.accounting import ledger
+
+            ledger().set_serving_state(
+                job, enabled=True, qps=qps, p50_ms=p50, p99_ms=p99,
+                slo_p99_ms=st["slo_p99_ms"], batch_occupancy=occ,
+                cache_hit_rate=hit,
+            )
+        except Exception:
+            pass
+        slo = st["slo_p99_ms"]
+        if p99 is not None and slo is not None and p99 > slo:
+            # structured trigger evidence for the incident engine: the
+            # windowed read path missed its objective
+            try:
+                from harmony_tpu_torch.jobserver.joblog import record_event
+
+                record_event(job, "serving_slo", p99_ms=round(p99, 3),
+                             slo_p99_ms=round(slo, 3),
+                             qps=round(qps, 3))
+            except Exception:
+                pass
 
     def _watch_layout(self, job: str, table: Any) -> int:
         """Hook this job's table announcements: a reshard drops every
@@ -357,7 +431,7 @@ class ServingEndpoint:
                     self._listeners.pop(job)
         return gen
 
-    def _live_gather(self, job: str, gen: int, table: Any,
+    def _live_gather(self, job: str, gen: int, table: Any, st: Dict[str, Any],
                      keys: np.ndarray) -> np.ndarray:
         """One batched gather against the live table: cache-hit rows are
         filled from the ByteLRU, misses go through ONE multi_get (the
@@ -371,17 +445,22 @@ class ServingEndpoint:
         dv = int(getattr(table, "data_version", 0))
         cache = self.cache
         if cache is None:
-            return _bucketed_multi_get(table, keys.astype(np.int32))
+            vals = _bucketed_multi_get(table, keys.astype(np.int32))
+            with self._lock:
+                st["w_lookups"] += len(keys)
+            return vals
         spec = table.spec
         out = np.empty((len(keys), *spec.value_shape),
                        dtype=np.dtype(spec.config.dtype))
         miss_i: List[int] = []
+        hits = 0
         for i, k in enumerate(keys):
             row = cache.get((job, "L", gen, lv, dv, int(k)))
             if row is None:
                 miss_i.append(i)
             else:
                 out[i] = row
+                hits += 1
         if miss_i:
             mk = keys[np.asarray(miss_i, dtype=np.int64)]
             vals = _bucketed_multi_get(table, mk.astype(np.int32))
@@ -389,6 +468,9 @@ class ServingEndpoint:
                 out[i] = vals[j]
                 cache.put((job, "L", gen, lv, dv, int(keys[i])),
                           np.array(vals[j], copy=True))
+        with self._lock:
+            st["w_hits"] += hits
+            st["w_lookups"] += len(keys)
         return out
 
     # -- pinned view ------------------------------------------------------
@@ -453,7 +535,7 @@ class ServingEndpoint:
             self.cache.put(key, block)
         return block
 
-    def _pinned_gather(self, view: _PinnedView,
+    def _pinned_gather(self, view: _PinnedView, st: Dict[str, Any],
                        keys: np.ndarray) -> np.ndarray:
         """Gather from the pinned epoch's CRC-verified blocks — the
         response bytes ARE the checkpoint bytes (no device round trip),
@@ -465,6 +547,8 @@ class ServingEndpoint:
         for i in range(len(keys)):
             block = self._pinned_block(view, int(blocks[i]))
             out[i] = np.asarray(block).reshape(-1, *vshape)[int(offs[i])]
+        with self._lock:
+            st["w_lookups"] += len(keys)
         return out
 
     # -- dispatch ---------------------------------------------------------
@@ -508,7 +592,7 @@ class ServingEndpoint:
             lv = int(getattr(table, "layout_version", 0))
             b = self._batcher(
                 (job, "live", gen, lv),
-                lambda ks, _t=table: self._live_gather(job, gen, _t, ks))
+                lambda ks, _t=table, _s=st: self._live_gather(job, gen, _t, _s, ks))
             rows = b.lookup(keys)
             meta: Dict[str, Any] = {"mode": "live", "layout_version": lv}
         elif mode == "pinned":
@@ -525,7 +609,7 @@ class ServingEndpoint:
                     "(rows by key offset do not exist there)")
             b = self._batcher(
                 (job, "pinned", view.chkp_id),
-                lambda ks, _v=view: self._pinned_gather(_v, ks))
+                lambda ks, _v=view, _s=st: self._pinned_gather(_v, _s, ks))
             rows = b.lookup(keys)
             meta = {"mode": "pinned", "epoch": view.epoch,
                     "chkp": view.chkp_id}
@@ -536,8 +620,15 @@ class ServingEndpoint:
             st["requests"] += 1
             st["rows"] += int(keys.shape[0])
             st["lat_ms"].append(lat_ms)
+            st["w_requests"] += 1
             if mode == "pinned":
                 st["pinned_epoch"] = meta["epoch"]
+        if self._req_counter is not None:
+            try:
+                self._req_counter.labels(mode=mode).inc()
+            except Exception:
+                pass
+        self._flush_ledger(job, st)
         return rows, meta
 
     # -- wire -------------------------------------------------------------
@@ -626,6 +717,11 @@ class ServingEndpoint:
             if st is not None:
                 with self._lock:
                     st["shed"] += 1
+            if self._shed_counter is not None:
+                try:
+                    self._shed_counter.inc()
+                except Exception:
+                    pass
             protocol.send_msg(conn, {"op": "busy", "r": rid,
                                      "retry_after_ms": retry})
             return

@@ -293,10 +293,21 @@ class LayoutAnnouncerMixin:
 
     def announce_reshard(self, target: Mesh) -> None:
         """Run the listeners with the ``target`` mesh (outside the table lock).
-        Best-effort: a failing listener never blocks the migration."""
+        Best-effort: a failing listener never blocks the migration. Each
+        announcement counts in ``harmony_table_layout_changes_total`` (the
+        doctor's ``mfu_collapse`` reads it)."""
         with self._lock:
             listeners = list(self._layout_listeners)
             self._layout_version = getattr(self, "_layout_version", 0) + 1
+        try:
+            from harmony_tpu_torch.metrics.registry import get_registry
+
+            get_registry().counter(
+                "harmony_table_layout_changes_total",
+                "Reshard announcements across this process's tables",
+            ).inc()
+        except Exception:
+            pass
         for fn in listeners:
             try:
                 fn(target)

@@ -1,4 +1,5 @@
-"""Tracing spans (``span.py``, a copy of the reference's)."""
+"""Tracing spans (``span.py``, a copy of the reference's) and the timeline
+shaping of the renderers (``timeline.py``)."""
 from harmony_tpu_torch.tracing.span import (
     InMemorySpanReceiver,
     LocalFileSpanReceiver,

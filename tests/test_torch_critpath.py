@@ -14,7 +14,10 @@ and ``obs critpath`` / ``obs top`` against the reference's on the CPU.
   fractions and a class; the straggler report and fault counters are the
   reference's on the same records.
 * The renderers, and ``obs top`` / ``obs critpath`` against a live
-  JobServer: the reference's lines from the same STATUS.
+  JobServer: the reference's lines from the same STATUS. The same for the
+  scrape cycle's ``obs doctor`` and ``obs incidents`` (seeded diagnoses and
+  incident chains, then a live JobServer after one scrape cycle), and ``obs
+  metrics`` against an exporter: the reference CLI's lines.
 
 No assertion reads the wall clock.
 """
@@ -349,8 +352,137 @@ def test_obs_top_and_critpath_against_a_live_jobserver(fresh, monkeypatch, capsy
         assert json.loads(capsys.readouterr().out) == status["tenants"]
         assert tcli.main(["obs", "critpath", "--json", "--port", str(port)]) == 0
         assert json.loads(capsys.readouterr().out) == status["phase_budget"]
-        for what, item in (("doctor", "6.2"), ("flight", "6.4"), ("plan", "5.2")):
+        for what, item in (("flight", "6.4"), ("plan", "5.2")):
             assert tcli.main(["obs", what, "--port", str(port)]) == 2
             assert f"ROADMAP A item {item}" in capsys.readouterr().err
     finally:
         server.shutdown(timeout=120)
+
+
+def _diagnoses(seed, n=6):
+    rng = np.random.default_rng(seed)
+    rules = ("straggler", "slo_breach", "infra_suspect", "control_overload")
+    out = []
+    for i in range(n):
+        job = None if i % 3 == 2 else f"job{int(rng.integers(3))}"
+        out.append({"rule": rules[int(rng.integers(len(rules)))], "job": job,
+                    "target": None if job else "pod:1", "ts": 1_700_000_000.0 + 7 * i,
+                    "confidence": float(rng.uniform(0.3, 1.0)),
+                    "summary": f"summary {i} of seed {seed}"})
+    return out
+
+
+def _history(seed, gaps):
+    rng = np.random.default_rng(seed)
+    return {"series": int(rng.integers(1, 99)), "points": int(rng.integers(99, 999)),
+            "window_sec": 900.0, "resolution_sec": 5.0, "targets": ["leader", "pod:1"],
+            "gap_marks": gaps, "restarts": 1, "scraper": {"cycles": 12}}
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("empty", [False, True])
+def test_obs_doctor_renders_the_references_lines(seed, empty):
+    diags = [] if empty else _diagnoses(seed)
+    for gaps in (0, 3):
+        assert tcli._render_doctor(diags, _history(seed, gaps)) == \
+            jcli._render_doctor(diags, _history(seed, gaps))
+    assert tcli._render_doctor([], {}) == jcli._render_doctor([], {})
+
+
+def _incidents(seed):
+    rng = np.random.default_rng(seed)
+    roles = ("trigger", "diagnosis", "action", "resolution")
+    incs = []
+    for i in range(3):
+        t0 = 1_700_000_000.0 + 30 * i
+        chain = [{"role": roles[min(k, 3)] if rng.random() < 0.8 else "trigger",
+                  "kind": "slo", "src": "joblog", "ts": t0 + float(rng.uniform(0, 9)) * k,
+                  "summary": f"edge {k}"} for k in range(int(rng.integers(1, 6)))]
+        resolved = i < 2
+        incs.append({"incident_id": f"job{i}:slo:{int(t0 * 1000)}", "subject": f"job{i}",
+                     "status": "resolved" if resolved else "open",
+                     "verdict": "recovered" if resolved else None,
+                     "mttd_sec": 0.0, "mitigate_sec": 2.5 if i else None,
+                     "mttr_sec": 9.125 if resolved else None, "chain": chain})
+    return {"open": 1, "mitigating": 0, "resolved": 2, "adopted": seed, "window_sec": 120.0,
+            "mttr_mean_sec": 9.125, "incidents": incs}
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_obs_incidents_renders_the_references_lines(seed):
+    inc = _incidents(seed)
+    assert tcli._render_incidents(inc) == jcli._render_incidents(inc)
+    quiet = {**inc, "incidents": []}
+    assert tcli._render_incidents(quiet) == jcli._render_incidents(quiet)
+    assert tcli._render_incidents({}) == jcli._render_incidents({})
+
+
+def test_obs_doctor_incidents_and_metrics_against_a_live_jobserver(fresh, monkeypatch, capsys):
+    """After a small job and one scrape cycle (driven, the period held long):
+    ``obs doctor`` and ``obs incidents`` (and ``--json``) against the
+    JobServer's port print the reference's renderings of the same STATUS;
+    ``obs metrics`` against the server's exporter lists the job's tenant
+    samples, and against a fixed registry prints the reference CLI's lines."""
+    from harmony_tpu_torch.jobserver import joblog as tjoblog
+    from harmony_tpu_torch.jobserver.client import CommandSender
+    from harmony_tpu_torch.jobserver.server import JobServer
+    from harmony_tpu_torch.metrics import exporter as texp
+    from harmony_tpu_torch.parallel.mesh import DevicePool
+
+    monkeypatch.setenv("HARMONY_METRICS_PORT", "0")
+    monkeypatch.setenv("HARMONY_OBS_SCRAPE_PERIOD", "3600")
+    server = JobServer(1, device_pool=DevicePool([torch.device("cpu")]))
+    server.start()
+    fixed = []
+    try:
+        port = server.serve_tcp(0)
+        config = tcli.build_config("mlr", tcli.build_parser().parse_args(
+            ["run", "mlr", "--job-id", "obs-d", "--epochs", "2", "--batches", "2",
+             "--set", "num_features=16", "--set", "features_per_partition=8",
+             "--set", "num_classes=4", "--data", "n=64", "--data", "num_features=16",
+             "--data", "num_classes=4"]))
+        server.submit(config).result(timeout=120)
+        tjoblog.record_event("obs-d", "slo", attainment=0.25, target=1e9)
+        server._history_scraper.poll_once()
+        status = CommandSender(port, timeout=30).send_status_command()
+        assert status["metrics_port"] == server.metrics_exporter.port
+        assert status["history"]["scraper"]["cycles"] == 1
+        assert "leader" in status["history"]["targets"]
+        assert any(i["subject"] == "obs-d" for i in status["incidents"]["incidents"])
+        capsys.readouterr()
+        assert tcli.main(["obs", "doctor", "--port", str(port)]) == 0
+        assert capsys.readouterr().out.splitlines() == jcli._render_doctor(
+            status["diagnoses"], status["history"])
+        assert tcli.main(["obs", "incidents", "--port", str(port)]) == 0
+        out = capsys.readouterr().out
+        assert out.splitlines() == jcli._render_incidents(status["incidents"])
+        assert "subject=obs-d" in out
+        assert tcli.main(["obs", "doctor", "--json", "--port", str(port)]) == 0
+        assert json.loads(capsys.readouterr().out) == {"diagnoses": status["diagnoses"],
+                                                       "history": status["history"]}
+        assert tcli.main(["obs", "incidents", "--json", "--port", str(port)]) == 0
+        assert json.loads(capsys.readouterr().out) == status["incidents"]
+        url = f"http://127.0.0.1:{server.metrics_exporter.port}"
+        assert tcli.main(["obs", "metrics", "--url", url]) == 0
+        assert 'job=obs-d' in capsys.readouterr().out
+        monkeypatch.setenv("HARMONY_METRICS_URL", url)
+        assert tcli.main(["obs", "metrics"]) == 0
+        assert "harmony_tenant_" in capsys.readouterr().out
+        monkeypatch.delenv("HARMONY_METRICS_URL")
+        assert tcli.main(["obs", "metrics"]) == 2
+        assert "HARMONY_METRICS_URL" in capsys.readouterr().err
+        # the same registry's bytes through both packages' CLIs
+        reg = treg.MetricRegistry()
+        reg.counter("harmony_x_total", "x", ("op",)).labels(op="a").inc(3)
+        reg.histogram("harmony_y_seconds", "y", buckets=(0.1, 1.0)).observe(0.5)
+        fixed.append(texp.MetricsExporter(0, registry=reg, host="127.0.0.1").start())
+        assert tcli.main(["obs", "metrics", "--url", fixed[0].url]) == 0
+        mine = capsys.readouterr().out
+        assert jcli.main(["obs", "metrics", "--url", fixed[0].url]) == 0
+        assert mine == capsys.readouterr().out and "harmony_x_total [counter]" in mine
+    finally:
+        for exp in fixed:
+            exp.stop()
+        server.shutdown(timeout=120)
+        tjoblog.clear_events("obs-d")
+    assert server.metrics_exporter is None

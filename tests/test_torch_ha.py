@@ -650,6 +650,49 @@ class TestTakeover:
             a.stop()
 
 
+    def test_a_successor_adopts_a_persisted_open_incident(self, tmp_path):
+        """The leader's incident engine opens an incident (an ``slo`` trigger),
+        whose ``kind="incident"`` transition the HA tee makes durable; the
+        standby that takes over adopts it OPEN (STATUS: ``adopted`` 1), and
+        evidence after the takeover joins it and resolves it."""
+        from harmony_tpu_torch.jobserver.client import CommandSender
+        from harmony_tpu_torch.jobserver.ha import HAController
+
+        ha_dir = str(tmp_path / "ha")
+        a = HAController(_cpu_server, log_dir=ha_dir, replica_id="rep-a", submit_port=0,
+                         lease_s=0.6).start()
+        b = None
+        try:
+            assert a.wait_leader(DEADLINE), "the first replica must take the lease"
+            joblog.record_event("inc-job", "slo", attainment=0.3, target=100.0)
+            a.server.incidents.correlate()
+            (inc,) = a.server.incidents.open_incidents()
+            assert inc["subject"] == "inc-job" and inc["trigger_kind"] == "slo"
+            assert inc["incident_id"] in ReplayState.from_entries(
+                a.server.ha_log.entries()).incidents
+            a.server._stop_tcp()
+            a.lease.stop()
+            b = HAController(_cpu_server, log_dir=ha_dir, replica_id="rep-b",
+                             submit_port=0, lease_s=0.6).start()
+            assert b.wait_leader(DEADLINE), "the standby must take over"
+            status = CommandSender(b.port).send_status_command()
+            assert status["incidents"]["adopted"] == 1
+            (adopted,) = b.server.incidents.open_incidents()
+            assert adopted["incident_id"] == inc["incident_id"]
+            assert adopted["status"] == "open" and adopted["chain"] == inc["chain"]
+            joblog.record_event("inc-job", "elastic_restore", recovery="restored")
+            b.server.incidents.correlate()
+            assert b.server.incidents.open_incidents() == []
+            (done,) = [i for i in b.server.incidents.recent()
+                       if i["incident_id"] == inc["incident_id"]]
+            assert (done["status"], done["verdict"]) == ("resolved", "recovered")
+        finally:
+            if b is not None:
+                b.stop()
+            a.stop()
+            joblog.clear_events("inc-job")
+
+
 class TestDurableSink:
     def test_event_fields_never_clash_with_envelope(self, tmp_path):
         """Joblog events with envelope-named fields (an elastic fence's own

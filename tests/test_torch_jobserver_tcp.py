@@ -102,7 +102,8 @@ def test_submit_status_wait_serving_shutdown_round_trips(servers, tmp_path):
     # the fields of the subsystems the port has, and no others
     assert set(status) == {"ok", "state", "running", "evaluated", "serving", "overload",
                            "ha", "job_events", "fault_counters", "stragglers", "tenants",
-                           "phase_budget"}
+                           "phase_budget", "metrics_port", "history", "diagnoses",
+                           "incidents"}
     assert status["ok"] and status["state"] == "INIT" and status["serving"] is None
     assert status["ha"] == {"enabled": False}   # the reference's reply outside HA
     assert status["overload"]["ladder"] == "normal"

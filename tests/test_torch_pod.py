@@ -506,3 +506,54 @@ def test_a_live_read_of_a_table_over_processes_is_refused():
             server._ensure_serving().lookup("spanning", np.arange(4, dtype=np.int32))
     finally:
         server.shutdown(timeout=DEADLINE)
+
+
+def test_a_followers_beat_carries_its_metrics_port_and_the_leader_scrapes_it(monkeypatch):
+    """In one process over two CPU slots: with ``HARMONY_METRICS_PORT=0`` the
+    follower runs an exporter and advertises its port on every beat; the
+    leader lists it in STATUS's ``pod.metrics_ports`` and its scrape targets
+    (``pod:1``), scrapes both targets without a gap, and drops a silenced
+    follower from the targets; the follower's exporter stops at shutdown."""
+    from harmony_tpu_torch.jobserver.pod import PodFollower, PodJobServer
+
+    monkeypatch.setenv("HARMONY_METRICS_PORT", "0")
+    monkeypatch.setenv("HARMONY_POD_HB_PERIOD", "0.05")
+    monkeypatch.setenv("HARMONY_OBS_SCRAPE_PERIOD", "3600")
+    cpu = torch.device("cpu")
+    server = PodJobServer(2, num_followers=1,
+                          device_pool=DevicePool([Slot(0, cpu, 0), Slot(1, cpu, 1)]))
+    server.start()
+    follower = ft = None
+    try:
+        t = threading.Thread(target=lambda: server.serve_pod(0), daemon=True)
+        t.start()
+        deadline = time.monotonic() + DEADLINE
+        while server._pod_sock is None and time.monotonic() < deadline:
+            time.sleep(0.01)
+        follower = PodFollower("127.0.0.1", server._pod_sock.getsockname()[1], pid=1,
+                               num_executors=2,
+                               pool=DevicePool([Slot(0, cpu, 0), Slot(1, cpu, 1)]),
+                               join_timeout=DEADLINE)
+        ft = threading.Thread(target=follower.run, daemon=True)
+        ft.start()
+        port = follower.metrics_exporter.port
+        while server._hb_metrics_ports.get(1) != port and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert server._hb_metrics_ports == {1: port}
+        assert server._status()["pod"]["metrics_ports"] == {"1": port}
+        assert server._status()["metrics_port"] == server.metrics_exporter.port
+        targets = server._scrape_targets()
+        assert set(targets) == {"leader", "pod:1"}
+        assert targets["pod:1"] == f"http://127.0.0.1:{port}/metrics"
+        report = server._history_scraper.poll_once()
+        assert report["targets"]["leader"] != "gap" and report["targets"]["pod:1"] != "gap"
+        assert server.history.stats()["targets"] == ["leader", "pod:1"]
+        assert server.history.gaps() == []
+        server._on_follower_silence(1)
+        assert set(server._scrape_targets()) == {"leader"}
+    finally:
+        server.shutdown(timeout=DEADLINE)
+        if ft is not None:
+            ft.join(timeout=DEADLINE)
+    assert not ft.is_alive() and follower.metrics_exporter is None
+    assert server.metrics_exporter is None
